@@ -2,10 +2,12 @@
 
 The JAX package beside this one is the reference; this package keeps its
 module paths, constructor API and ``state`` layout. So far it runs the
-nonhydrostatic model's fused quasi-AB2 step (WENO5, buoyancy tracer, FFT
-projection) with the fused AB2 advance as a hand-written CUDA kernel for
-Hopper (``csrc/fused_ab2_advance.cu``). Importing it needs no GPU: the
-kernel is compiled at its first launch on a CUDA tensor.
+nonhydrostatic model (WENO5 or centred advection, buoyancy tracer,
+f/β-plane Coriolis, constant scalar diffusivity, FFT projection) with its
+quasi-AB2 and RK3 steps, and two hand-written CUDA kernels for Hopper: the
+fused AB2 advance (``csrc/fused_ab2_advance.cu``) and the fused advective
+tendencies (``csrc/fused_advective_tendencies.cu``). Importing it needs no
+GPU: a kernel is compiled at its first launch on a CUDA tensor.
 """
 
 from .grids.topology import BOUNDED, FLAT, PERIODIC, Topology
@@ -18,5 +20,9 @@ from .boundary_conditions.bcs import (
 from .fields.field import Field, new_field, set_field
 from .advection.schemes import CenteredSecondOrder, WENO5
 from .buoyancy.buoyancy import BuoyancyTracer
+from .coriolis.coriolis import BetaPlane, FPlane
+from .closures.scalar_diffusivity import (HorizontalScalarDiffusivity,
+                                          ScalarDiffusivity,
+                                          VerticalScalarDiffusivity)
 from .timesteppers.steppers import Clock
 from .models.nonhydrostatic import NonhydrostaticModel

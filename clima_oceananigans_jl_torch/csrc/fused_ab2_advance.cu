@@ -1,27 +1,34 @@
 // Fused AB2 advance of the nonhydrostatic model: for every prognostic field
 // psi in {u, v, w, tracers},
 //
-//   G    = -div(v psi)            (WENO5, select-first upwinding)
-//          - d(pHY')/dx, -d(pHY')/dy   (u and v only)
+//   G    = -div(v psi)                       (WENO5 or centred, weno5_advection.cuh)
+//          - f x u                            (f- or beta-plane; u and v only)
+//          - d(pHY')/dx, -d(pHY')/dy         (u and v only)
+//          + div(kappa grad psi)              (constant nu/kappa, optional)
 //   psi' = psi + dt (c1 G - c2 G_prev)
 //
-// and writes psi' and G, both halo-free (nx, ny, nz).
+// and writes psi' halo-free (nx, ny, nz) and G in the model's G_prev layout:
+// halo-free, or the interior of a zeroed with-halo array (`g_halo`).
 //
 // Replaces the TPU kernel clima_oceananigans_jl_tpu/ops/fused_step.py::
-// fused_ab2_advance (its advection + pHY' + AB2 branch; the Coriolis and
-// diffusion options are not ported yet). It computes what that kernel
-// computes, in the same expression trees as the port's plain version
-// (ops/fused_step.py::fused_ab2_advance_reference): the JAX package's
-// div_vu / div_vv / div_vw / div_Uc, transport and WENO5._weno_stream,
-// with x**2 written x*x and IEEE division. Build with --fmad=false so the
-// compiler forms no FMA that eager PyTorch does not.
+// fused_ab2_advance, its options included. It computes what that kernel
+// computes, in the term order it states (advection -> Coriolis -> pHY' ->
+// diffusion) and in the expression trees of the port's plain version
+// (ops/fused_step.py::fused_ab2_advance_reference): the Coriolis terms of
+// coriolis/coriolis.py (f at U_LOC and V_LOC arrives as a device row over
+// with-halo y, built from grid.nodes), div_kappa_grad of
+// closures/scalar_diffusivity.py. The diffusion reads real z halos: the
+// mirror fill of a zero-gradient wall gives the zero wall flux that the
+// TPU kernel imposes on its z-halo-free blocks. Build with --fmad=false so
+// the compiler forms no FMA that eager PyTorch does not.
 //
 // What bounds it on an H100: memory. At 256^3 fp32 it reads about 0.63 GB
 // (five with-halo fields u, v, w, b, pHY' at 72 MB, four halo-free G_prev
 // at 67 MB) and writes about 0.54 GB (eight halo-free outputs): at least
 // 0.35 ms at 3.35 TB/s if each byte moves once. The arithmetic, about
 // 24 WENO5 reconstructions of ~50 flops per point and field set, is some
-// 20 GFLOP, about 0.3 ms at the 67 TFLOP/s fp32 peak.
+// 20 GFLOP, about 0.3 ms at the 67 TFLOP/s fp32 peak; the options add a
+// few loads and ~30 flops per field.
 //
 // The design is the simple one: one thread per interior point (i, j, k),
 // k (the contiguous axis) across the threads of a warp, neighbours read
@@ -31,181 +38,122 @@
 // shared memory (or TMA) and sharing fluxes between neighbours are later
 // work: first the kernel has to agree with the plain version.
 #include <cuda_runtime.h>
-#include <stdint.h>
 
-#define MAX_FIELDS 16
+#include "weno5_advection.cuh"
 
 template <typename T>
 struct AdvanceArgs {
-  const T* psi[MAX_FIELDS];  // with-halo (X, Y, Z): u, v, w, tracers
-  const T* gp[MAX_FIELDS];   // halo-free (nx, ny, nz) G_prev
+  Advection<T> adv;
+  const T* gp[MAX_FIELDS];   // G_prev, halo-free or with-halo (g_halo)
   T* out_psi[MAX_FIELDS];    // halo-free psi'
-  T* out_g[MAX_FIELDS];      // halo-free G
+  T* out_g[MAX_FIELDS];      // G, in G_prev's layout
   const T* ph;               // with-halo pHY', or nullptr
-  int nf;                    // 3 + number of tracers
-  int nx, ny, nz, hx, hy, hz;
-  int z_masks;               // bounded z: near-wall order reduction
-  int lo_l, hi_l, lo_r, hi_r;  // inclusive with-halo z bounds (left/right)
-  T eps_m, eps_t;            // WENO5 eps, momentum / tracers
-  T dx, dy, dz;
+  const T* fu;               // f at U_LOC over with-halo y, or nullptr (no Coriolis)
+  const T* fv;               // f at V_LOC over with-halo y
+  int diffuse;               // add div(kappa grad psi) with kh/kz
+  T kh[MAX_FIELDS], kz[MAX_FIELDS];  // horizontal / vertical diffusivity per field
+  int g_halo;
   T c1, c2, dt;
 };
 
-// WENO5._weno_stream on an upwind-ordered stream (a0..a4).
+// div_kappa_grad for constant kappa: the flux is A*(kappa*(delta c / spacing))
+// on both faces of every axis, whichever of centre or face the field sits on.
 template <typename T>
-__device__ __forceinline__ T weno_stream(T a0, T a1, T a2, T a3, T a4, T eps) {
-  const T d10 = a1 - a0, d11 = a2 - a1, d12 = a3 - a2, d13 = a4 - a3;
-  const T d20 = d11 - d10, d21 = d12 - d11, d22 = d13 - d12;
-  const T s0 = d20 + T(2.0) * d11;
-  const T s1 = d11 + d12;
-  const T s2 = d22 - T(2.0) * d12;
-  const T k1312 = T(13.0 / 12.0);
-  const T b0 = k1312 * d20 * d20 + T(0.25) * (s0 * s0);
-  const T b1 = k1312 * d21 * d21 + T(0.25) * (s1 * s1);
-  const T b2 = k1312 * d22 * d22 + T(0.25) * (s2 * s2);
-  const T p0 = a2 + (T(5.0) * d11 - T(2.0) * d10) / T(6.0);
-  const T p1 = a2 + (T(2.0) * d12 + d11) / T(6.0);
-  const T p2 = a2 + (T(4.0) * d12 - d13) / T(6.0);
-  const T e0 = b0 + eps, e1 = b1 + eps, e2 = b2 + eps;
-  const T t0 = e0 * e0, t1 = e1 * e1, t2 = e2 * e2;
-  const T g0 = T(0.1) * (t1 * t2);
-  const T g1 = T(0.6) * (t0 * t2);
-  const T g2 = T(0.3) * (t0 * t1);
-  const T num = g0 * p0 + g1 * p1 + g2 * p2;
-  const T den = g0 + g1 + g2;
-  return num / den;
+__device__ __forceinline__ T diffusion(const T* __restrict__ c, const Point& P,
+                                       T kh, T kz, const Advection<T>& A) {
+  const int64_t o = P.o, sx = P.sx, sy = P.sy, sz = 1;
+  const T Ax = A.dy * A.dz, Ay = A.dx * A.dz, Az = A.dx * A.dy;
+  const T fxR = Ax * (kh * ((c[o + sx] - c[o]) / A.dx));
+  const T fxL = Ax * (kh * ((c[o] - c[o - sx]) / A.dx));
+  const T fyR = Ay * (kh * ((c[o + sy] - c[o]) / A.dy));
+  const T fyL = Ay * (kh * ((c[o] - c[o - sy]) / A.dy));
+  const T fzR = Az * (kz * ((c[o + sz] - c[o]) / A.dz));
+  const T fzL = Az * (kz * ((c[o] - c[o - sz]) / A.dz));
+  T out = (fxR - fxL) + (fyR - fyL);
+  out = out + (fzR - fzL);
+  return out / (A.dx * A.dy * A.dz);
 }
 
-// transport(): vel * rec at one flux location along an axis of stride s.
-// `o` is the offset of the cell just above the face in the to-faces
-// convention (a to-centres flux at centre q passes o = offset of q+1);
-// `q` is the with-halo index of the flux location, used only by the
-// bounded-z masks (`masked`).
 template <typename T>
-__device__ __forceinline__ T upwind_flux(const T* __restrict__ c, int64_t o,
-                                         int64_t s, T vel, T eps, bool masked,
-                                         int q, const AdvanceArgs<T>& A) {
-  const bool sel = vel >= T(0);
-  T a0, a1, a2, a3, a4;
-  if (sel) {
-    a0 = c[o - 3 * s]; a1 = c[o - 2 * s]; a2 = c[o - s]; a3 = c[o]; a4 = c[o + s];
-  } else {
-    a0 = c[o + 2 * s]; a1 = c[o + s]; a2 = c[o]; a3 = c[o - s]; a4 = c[o - 2 * s];
-  }
-  T rec = weno_stream(a0, a1, a2, a3, a4, eps);
-  if (masked) {
-    const bool in_l = q >= A.lo_l && q <= A.hi_l;
-    const bool in_r = q >= A.lo_r && q <= A.hi_r;
-    if (!((sel && in_l) || (!sel && in_r))) rec = T(0.5) * (c[o] + c[o - s]);
-  }
-  return vel * rec;
+__device__ __forceinline__ void advance(const AdvanceArgs<T>& A,
+                                        const Point& P, int f, T g) {
+  const int64_t q = A.g_halo ? P.o : P.p;
+  A.out_psi[f][P.p] = A.adv.psi[f][P.o] + A.dt * (A.c1 * g - A.c2 * A.gp[f][q]);
+  A.out_g[f][q] = g;
 }
 
 template <typename T>
 __global__ void __launch_bounds__(256)
 fused_ab2_advance_kernel(const AdvanceArgs<T> A) {
-  const int64_t n = (int64_t)A.nx * A.ny * A.nz;
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const int k = (int)(p % A.nz);
-  const int j = (int)((p / A.nz) % A.ny);
-  const int i = (int)(p / ((int64_t)A.nz * A.ny));
-  const int Y = A.ny + 2 * A.hy, Z = A.nz + 2 * A.hz;
-  const int64_t sz = 1, sy = Z, sx = (int64_t)Y * Z;
-  const int I = i + A.hx, J = j + A.hy, K = k + A.hz;
-  const int64_t o = I * sx + J * sy + K;
-  const bool zm = A.z_masks != 0;
-
-  const T* __restrict__ u = A.psi[0];
-  const T* __restrict__ v = A.psi[1];
-  const T* __restrict__ w = A.psi[2];
+  const Advection<T>& D = A.adv;
+  Point P;
+  if (!interior_point(D, P)) return;
+  const int64_t o = P.o, sx = P.sx, sy = P.sy;
+  const T* __restrict__ u = D.psi[0];
+  const T* __restrict__ v = D.psi[1];
+  const T* __restrict__ ph = A.ph;
   const T half = T(0.5);
-  // regular grid: every metric is one scalar, with the JAX grid's products
-  const T Ax = A.dy * A.dz, Ay = A.dx * A.dz, Az = A.dx * A.dy;
-  const T V = A.dx * A.dy * A.dz;
-  T G[MAX_FIELDS];
 
-  {  // div_vu at (F, C, C)
-    const T eps = A.eps_m;
-    const T fxR = Ax * upwind_flux(u, o + sx, sx, half * (u[o + sx] + u[o]), eps, false, 0, A);
-    const T fxL = Ax * upwind_flux(u, o, sx, half * (u[o] + u[o - sx]), eps, false, 0, A);
-    const T fyR = Ay * upwind_flux(u, o + sy, sy, half * (v[o + sy] + v[o + sy - sx]), eps, false, 0, A);
-    const T fyL = Ay * upwind_flux(u, o, sy, half * (v[o] + v[o - sx]), eps, false, 0, A);
-    const T fzR = Az * upwind_flux(u, o + sz, sz, half * (w[o + sz] + w[o + sz - sx]), eps, zm, K + 1, A);
-    const T fzL = Az * upwind_flux(u, o, sz, half * (w[o] + w[o - sx]), eps, zm, K, A);
-    G[0] = -((((fxR - fxL) + (fyR - fyL)) + (fzR - fzL)) / V);
-  }
-  {  // div_vv at (C, F, C)
-    const T eps = A.eps_m;
-    const T fxR = Ax * upwind_flux(v, o + sx, sx, half * (u[o + sx] + u[o + sx - sy]), eps, false, 0, A);
-    const T fxL = Ax * upwind_flux(v, o, sx, half * (u[o] + u[o - sy]), eps, false, 0, A);
-    const T fyR = Ay * upwind_flux(v, o + sy, sy, half * (v[o + sy] + v[o]), eps, false, 0, A);
-    const T fyL = Ay * upwind_flux(v, o, sy, half * (v[o] + v[o - sy]), eps, false, 0, A);
-    const T fzR = Az * upwind_flux(v, o + sz, sz, half * (w[o + sz] + w[o + sz - sy]), eps, zm, K + 1, A);
-    const T fzL = Az * upwind_flux(v, o, sz, half * (w[o] + w[o - sy]), eps, zm, K, A);
-    G[1] = -((((fxR - fxL) + (fyR - fyL)) + (fzR - fzL)) / V);
-  }
-  {  // div_vw at (C, C, F)
-    const T eps = A.eps_m;
-    const T fxR = Ax * upwind_flux(w, o + sx, sx, half * (u[o + sx] + u[o + sx - sz]), eps, false, 0, A);
-    const T fxL = Ax * upwind_flux(w, o, sx, half * (u[o] + u[o - sz]), eps, false, 0, A);
-    const T fyR = Ay * upwind_flux(w, o + sy, sy, half * (v[o + sy] + v[o + sy - sz]), eps, false, 0, A);
-    const T fyL = Ay * upwind_flux(w, o, sy, half * (v[o] + v[o - sz]), eps, false, 0, A);
-    const T fzR = Az * upwind_flux(w, o + sz, sz, half * (w[o + sz] + w[o]), eps, zm, K, A);
-    const T fzL = Az * upwind_flux(w, o, sz, half * (w[o] + w[o - sz]), eps, zm, K - 1, A);
-    G[2] = -((((fxR - fxL) + (fyR - fyL)) + (fzR - fzL)) / V);
-  }
-  if (A.ph != nullptr) {
-    const T* __restrict__ ph = A.ph;
-    G[0] = G[0] - (ph[o] - ph[o - sx]) / A.dx;
-    G[1] = G[1] - (ph[o] - ph[o - sy]) / A.dy;
-  }
-  for (int f = 3; f < A.nf; ++f) {  // div_Uc at (C, C, C)
-    const T* __restrict__ c = A.psi[f];
-    const T eps = A.eps_t;
-    const T fxR = Ax * upwind_flux(c, o + sx, sx, u[o + sx], eps, false, 0, A);
-    const T fxL = Ax * upwind_flux(c, o, sx, u[o], eps, false, 0, A);
-    const T fyR = Ay * upwind_flux(c, o + sy, sy, v[o + sy], eps, false, 0, A);
-    const T fyL = Ay * upwind_flux(c, o, sy, v[o], eps, false, 0, A);
-    const T fzR = Az * upwind_flux(c, o + sz, sz, w[o + sz], eps, zm, K + 1, A);
-    const T fzL = Az * upwind_flux(c, o, sz, w[o], eps, zm, K, A);
-    G[f] = -((((fxR - fxL) + (fyR - fyL)) + (fzR - fzL)) / V);
-  }
-  for (int f = 0; f < A.nf; ++f) {
-    const T g = G[f];
-    A.out_psi[f][p] = A.psi[f][o] + A.dt * (A.c1 * g - A.c2 * A.gp[f][p]);
-    A.out_g[f][p] = g;
+  T g = -div_vu(D, P);
+  if (A.fu != nullptr)  // - x_f_cross_U = - (-f * ixf(iyc(v)))
+    g = g - ((-A.fu[P.J]) * (half * (half * (v[o + sy] + v[o])
+                                     + half * (v[o - sx + sy] + v[o - sx]))));
+  if (ph != nullptr) g = g - (ph[o] - ph[o - sx]) / D.dx;
+  if (A.diffuse) g = g + diffusion(u, P, A.kh[0], A.kz[0], D);
+  advance(A, P, 0, g);
+
+  g = -div_vv(D, P);
+  if (A.fv != nullptr)  // - y_f_cross_U = - (f * iyf(ixc(u)))
+    g = g - (A.fv[P.J] * (half * (half * (u[o + sx] + u[o])
+                                  + half * (u[o + sx - sy] + u[o - sy]))));
+  if (ph != nullptr) g = g - (ph[o] - ph[o - sy]) / D.dy;
+  if (A.diffuse) g = g + diffusion(v, P, A.kh[1], A.kz[1], D);
+  advance(A, P, 1, g);
+
+  g = -div_vw(D, P);  // z_f_cross_U is zero on f- and beta-planes
+  if (A.diffuse) g = g + diffusion(D.psi[2], P, A.kh[2], A.kz[2], D);
+  advance(A, P, 2, g);
+
+  for (int f = 3; f < D.nf; ++f) {
+    g = -div_Uc(D, P, f);
+    if (A.diffuse) g = g + diffusion(D.psi[f], P, A.kh[f], A.kz[f], D);
+    advance(A, P, f, g);
   }
 }
 
 template <typename T>
 static int launch(const void* const* psi, const void* const* gp,
                   void* const* out_psi, void* const* out_g, const void* ph,
-                  int nf, int nx, int ny, int nz, int hx, int hy, int hz,
+                  const void* fu, const void* fv, const double* kh,
+                  const double* kz, int g_halo, int nf, int nx, int ny,
+                  int nz, int hx, int hy, int hz, int weno_m, int weno_t,
                   int z_masks, int lo_l, int hi_l, int lo_r, int hi_r,
                   double eps_m, double eps_t, double dx, double dy, double dz,
                   double c1, double c2, double dt, void* stream) {
-  if (nf < 3 || nf > MAX_FIELDS) return (int)cudaErrorInvalidValue;
   AdvanceArgs<T> A;
+  if (!set_advection(A.adv, psi, nf, nx, ny, nz, hx, hy, hz, weno_m, weno_t,
+                     z_masks, lo_l, hi_l, lo_r, hi_r, eps_m, eps_t, dx, dy, dz))
+    return (int)cudaErrorInvalidValue;
+  if ((fu == nullptr) != (fv == nullptr) || (kh == nullptr) != (kz == nullptr))
+    return (int)cudaErrorInvalidValue;
   for (int f = 0; f < MAX_FIELDS; ++f) {
     const bool on = f < nf;
-    A.psi[f] = on ? static_cast<const T*>(psi[f]) : nullptr;
     A.gp[f] = on ? static_cast<const T*>(gp[f]) : nullptr;
     A.out_psi[f] = on ? static_cast<T*>(out_psi[f]) : nullptr;
     A.out_g[f] = on ? static_cast<T*>(out_g[f]) : nullptr;
+    A.kh[f] = on && kh != nullptr ? T(kh[f]) : T(0);
+    A.kz[f] = on && kz != nullptr ? T(kz[f]) : T(0);
   }
   A.ph = static_cast<const T*>(ph);
-  A.nf = nf;
-  A.nx = nx; A.ny = ny; A.nz = nz; A.hx = hx; A.hy = hy; A.hz = hz;
-  A.z_masks = z_masks;
-  A.lo_l = lo_l; A.hi_l = hi_l; A.lo_r = lo_r; A.hi_r = hi_r;
-  A.eps_m = T(eps_m); A.eps_t = T(eps_t);
-  A.dx = T(dx); A.dy = T(dy); A.dz = T(dz);
+  A.fu = static_cast<const T*>(fu);
+  A.fv = static_cast<const T*>(fv);
+  A.diffuse = kh != nullptr;
+  A.g_halo = g_halo;
   A.c1 = T(c1); A.c2 = T(c2); A.dt = T(dt);
   const int64_t n = (int64_t)nx * ny * nz;
+  if (n == 0) return 0;
   const int threads = 256;
   const int64_t blocks = (n + threads - 1) / threads;
-  if (n == 0) return 0;
   fused_ab2_advance_kernel<T><<<(unsigned int)blocks, threads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(A);
   return (int)cudaGetLastError();
@@ -214,29 +162,25 @@ static int launch(const void* const* psi, const void* const* gp,
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success). Pointer
-// arrays are host arrays of device pointers; `ph` may be null.
-int fused_ab2_advance_f32(const void* const* psi, const void* const* gp,
-                          void* const* out_psi, void* const* out_g,
-                          const void* ph, int nf, int nx, int ny, int nz,
-                          int hx, int hy, int hz, int z_masks, int lo_l,
-                          int hi_l, int lo_r, int hi_r, double eps_m,
-                          double eps_t, double dx, double dy, double dz,
-                          double c1, double c2, double dt, void* stream) {
-  return launch<float>(psi, gp, out_psi, out_g, ph, nf, nx, ny, nz, hx, hy,
-                       hz, z_masks, lo_l, hi_l, lo_r, hi_r, eps_m, eps_t, dx,
-                       dy, dz, c1, c2, dt, stream);
-}
+// arrays are host arrays of nf device pointers; `ph`, `fu`/`fv` (both or
+// neither) and `kh`/`kz` (host arrays of nf diffusivities, both or
+// neither) may be null.
+#define FUSED_AB2_ADVANCE(NAME, T)                                            \
+  int NAME(const void* const* psi, const void* const* gp,                     \
+           void* const* out_psi, void* const* out_g, const void* ph,          \
+           const void* fu, const void* fv, const double* kh,                  \
+           const double* kz, int g_halo, int nf, int nx, int ny, int nz,      \
+           int hx, int hy, int hz, int weno_m, int weno_t, int z_masks,       \
+           int lo_l, int hi_l, int lo_r, int hi_r, double eps_m,              \
+           double eps_t, double dx, double dy, double dz, double c1,          \
+           double c2, double dt, void* stream) {                              \
+    return launch<T>(psi, gp, out_psi, out_g, ph, fu, fv, kh, kz, g_halo, nf, \
+                     nx, ny, nz, hx, hy, hz, weno_m, weno_t, z_masks, lo_l,   \
+                     hi_l, lo_r, hi_r, eps_m, eps_t, dx, dy, dz, c1, c2, dt,  \
+                     stream);                                                 \
+  }
 
-int fused_ab2_advance_f64(const void* const* psi, const void* const* gp,
-                          void* const* out_psi, void* const* out_g,
-                          const void* ph, int nf, int nx, int ny, int nz,
-                          int hx, int hy, int hz, int z_masks, int lo_l,
-                          int hi_l, int lo_r, int hi_r, double eps_m,
-                          double eps_t, double dx, double dy, double dz,
-                          double c1, double c2, double dt, void* stream) {
-  return launch<double>(psi, gp, out_psi, out_g, ph, nf, nx, ny, nz, hx, hy,
-                        hz, z_masks, lo_l, hi_l, lo_r, hi_r, eps_m, eps_t, dx,
-                        dy, dz, c1, c2, dt, stream);
-}
+FUSED_AB2_ADVANCE(fused_ab2_advance_f32, float)
+FUSED_AB2_ADVANCE(fused_ab2_advance_f64, double)
 
 }  // extern "C"

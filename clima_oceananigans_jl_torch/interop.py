@@ -8,12 +8,14 @@ for ``model``:
 - with-halo arrays are cut to their interiors, whatever halo the JAX
   model used (its fused path rounds the y halo up to 4), placed in the
   port's halo layout and halo-filled with the port's BCs;
-- ``G_prev`` becomes halo-free (nx, ny, nz), from either JAX layout;
+- ``G_prev`` takes the layout ``model`` steps with (halo-free when
+  ``model.g_interior``, else with zero halos), from either JAX layout;
 - ``pNHS`` keeps zero halos, as the projection stores it;
 - the 0-d ``clock`` and ``previous_dt`` leaves become host numbers.
 
 ``state_to_numpy`` goes the other way, keeping the port's layout (halo
-3, halo-free ``G_prev``), which the JAX package's plain step accepts.
+3, ``G_prev`` as the model keeps it), which the JAX package's plain step
+accepts.
 """
 from __future__ import annotations
 
@@ -47,10 +49,13 @@ def state_from_numpy(model, state):
     sol = {n: fill_halos(g.pad(as_t(state["solution"][n])), g, locs[n],
                          model.bcs[n], t)
            for n in model.prognostic_names()}
+    gp = {n: as_t(state["G_prev"][n]).contiguous()
+          for n in model.prognostic_names()}
     out = dict(solution=sol,
-               clock=Clock(t, int(np.asarray(clock.iteration))),
-               G_prev={n: as_t(state["G_prev"][n]).contiguous()
-                       for n in model.prognostic_names()},
+               clock=Clock(t, int(np.asarray(clock.iteration)),
+                           int(getattr(clock, "stage", 0))),
+               G_prev=gp if model.g_interior else
+               {n: g.pad(x) for n, x in gp.items()},
                pNHS=g.pad(as_t(state["pNHS"])),
                previous_dt=float(np.asarray(state["previous_dt"])))
     if "pHY" in state:

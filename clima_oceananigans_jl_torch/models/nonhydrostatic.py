@@ -3,38 +3,56 @@
 Counterpart of ``clima_oceananigans_jl_tpu/models/nonhydrostatic.py``
 (Oceananigans' ``NonhydrostaticModel``):
 
-  ∂t u = G_u − ∂x pNHS,  G_u = −∇·(vu) − ∂x pHY′
-  ∂t w = G_w − ∂z pNHS,  G_w = −∇·(vw)
+  ∂t u = G_u − ∂x pNHS,  G_u = −∇·(vu) − f×u|_x − ∂x pHY′ + ∇·(ν∇u)
+  ∂t w = G_w − ∂z pNHS,  G_w = −∇·(vw) − f×u|_z + ∇·(ν∇w)
   (buoyancy and ∂z pHY′ cancel exactly in G_w, pHY′ = −∫ b̄ᶻ dz)
-  ∂t c = −∇·(vc)
+  ∂t c = −∇·(vc) + ∇·(κ∇c)
   ∇²pNHS = ∇·u*/Δt  (FFT eigenexpansion solve)
 
-The port has one step, the JAX package's fused quasi-AB2 branch: the
-fused AB2 advance (a hand-written CUDA kernel on the GPU, its plain
-PyTorch version on the CPU), the roll-based projection on interiors, one
-pad, then ``update_state``. A configuration that step cannot run
-(Coriolis, closures, RK3, forcing, immersed boundaries, bounded x or y,
-...) raises ``NotImplementedError`` at construction.
+Time stepping, as the JAX package runs it on the TPU:
+
+- quasi-AB2, fused branch (``fused_step``): the fused AB2 advance (kernel
+  K1 on the GPU, its plain PyTorch version on the CPU), the roll-based
+  projection on interiors, one pad, then ``update_state``;
+- quasi-AB2, general branch (a closure whose vertical part the kernel
+  cannot take, e.g. value walls): ``tendencies`` → ``ab2_substep`` →
+  implicit step (the identity) → ``project_velocities``;
+- RK3: three stages of ``tendencies`` → ``rk3_substep`` → implicit step →
+  ``project_velocities`` → ``update_state``.
+
+``tendencies`` computes the advection of every field through
+``fused_advective_tendencies`` (kernel K2 on the GPU) and adds Coriolis,
+−∂pHY′ and diffusion with PyTorch ops. A configuration the port cannot
+run (other Coriolis or closures, forcing, immersed boundaries, bounded
+x or y, ...) raises ``NotImplementedError`` at construction.
 
 State: the JAX package's keys and shapes. ``solution`` holds with-halo
-tensors, ``G_prev`` halo-free (nx, ny, nz) tensors, ``pNHS`` and ``pHY``
-with-halo tensors; ``clock`` and ``previous_dt`` are host numbers.
+tensors; ``G_prev`` is halo-free (nx, ny, nz) when ``g_interior`` holds
+(the fused AB2 branch with z-halo-free walls), with-halo otherwise;
+``pNHS`` and ``pHY`` are with-halo tensors; ``clock`` and ``previous_dt``
+are host numbers.
 """
 from __future__ import annotations
 
 import torch
 
-from ..advection.fluxes import div_Uc, div_vu, div_vv, div_vw
 from ..advection.schemes import CenteredSecondOrder
 from ..boundary_conditions.bcs import (_bvalue, apply_flux_bcs, fill_halos,
                                        regularize_bcs)
 from ..buoyancy.buoyancy import hydrostatic_pressure_anomaly
+from ..closures.implicit_vertical_diffusion import implicit_step_fields
+from ..closures.scalar_diffusivity import (compute_closure_diffusivities,
+                                           momentum_diffusion,
+                                           tracer_diffusion)
 from ..fields.field import new_field, set_field
 from ..grids.topology import BOUNDED, PERIODIC
 from ..ops import stencil as st
-from ..ops.fused_step import fused_ab2_advance, unsupported_reason
+from ..ops.fused_step import (fused_ab2_advance, fused_step_ok,
+                              unsupported_reason)
+from ..ops.fused_tendencies import fused_advective_tendencies, z_halo_free_ok
 from ..solvers.fft_poisson import FFTPoissonSolver
-from ..timesteppers.steppers import Clock
+from ..timesteppers.steppers import (RK3_GAMMA, RK3_ZETA, Clock, ab2_substep,
+                                     rk3_substep)
 from ..utils.location import CENTER, U_LOC, V_LOC, W_LOC
 
 
@@ -75,8 +93,16 @@ class NonhydrostaticModel:
         if reason is not None:
             raise NotImplementedError(reason)
         self.pressure_solver = FFTPoissonSolver.build(self.grid)
+        self.fused_step = fused_step_ok(self)
 
     # -- state ----------------------------------------------------------------
+    @property
+    def g_interior(self):
+        """True when ``G_prev`` is stored halo-free (nx, ny, nz): the JAX
+        package's layout of its fused AB2 branch with z-halo-free walls.
+        Otherwise ``G_prev`` carries halos."""
+        return self.fused_step and z_halo_free_ok(self.grid, self.bcs.get("w"))
+
     def prognostic_names(self):
         return ("u", "v", "w") + self.tracer_names
 
@@ -95,47 +121,79 @@ class NonhydrostaticModel:
         for name in self.prognostic_names():
             f = new_field(g, locs[name], self.bcs[name])
             sol[name] = set_field(f, g, values.get(name, 0.0)).data
+        g_shape = g.shape if self.g_interior else g.total_shape
         state = dict(solution=sol, clock=clock or Clock(0.0, 0),
-                     G_prev={k: g.zeros(g.shape) for k in sol},
+                     G_prev={k: g.zeros(g_shape) for k in sol},
                      pNHS=g.zeros(), previous_dt=-1.0)
         return self.update_state(state)
 
+    def _g_prev_in_layout(self, G_prev):
+        """``G_prev`` in this model's layout, from either layout."""
+        g = self.grid
+        if self.g_interior:
+            return {k: g.interior(x).contiguous() for k, x in G_prev.items()}
+        return {k: x if tuple(x.shape) == g.total_shape else g.pad(x)
+                for k, x in G_prev.items()}
+
     def update_state(self, state):
         """Halo fills on all three axes of every field (in place), then
-        pHY′. Unlike the JAX package's fused step, the z halos of u, v
-        and passive tracers are filled too: the kernel reads real z
-        halos where the TPU kernel wraps z-halo-free blocks."""
+        the closure's diffusivities and pHY′. Unlike the JAX package's
+        fused step, the z halos of u, v and passive tracers are filled
+        too: the kernels read real z halos where the TPU kernels wrap
+        z-halo-free blocks."""
         t = state["clock"].time
         locs = self._locs()
         sol = state["solution"]
         for name, arr in sol.items():
             fill_halos(arr, self.grid, locs[name], self.bcs[name], t)
         state = dict(state)
+        tr = {n: sol[n] for n in self.tracer_names}
+        diff = compute_closure_diffusivities(self.closure, self.grid, sol,
+                                             self.buoyancy, tr)
+        if diff is not None:
+            state["diffusivities"] = diff
         if self.buoyancy is not None:
-            tr = {n: sol[n] for n in self.tracer_names}
             ph = hydrostatic_pressure_anomaly(self.buoyancy, self.grid, tr)
             state["pHY"] = fill_halos(ph, self.grid, CENTER,
                                       self.pressure_bcs, t)
         return state
 
-    # -- tendencies (plain path) -------------------------------------------------
-    def tendencies(self, state):
+    # -- tendencies ---------------------------------------------------------------
+    def tendencies(self, state, advect=fused_advective_tendencies):
         """With-halo tendencies G of every prognostic field (valid on the
-        interior), in the JAX plain path's term order."""
+        interior), in the JAX term order: advection → Coriolis → −∂pHY′ →
+        diffusion, then boundary fluxes. The advection of every field is
+        one fused call, as the JAX model makes it on the TPU
+        (``supports_fused_advection`` holds for every grid the port
+        accepts). ``advect`` is the wrapper by default;
+        ``ops.fused_tendencies.fused_advective_tendencies_reference`` runs
+        the plain version on the card."""
         grid = self.grid
         sol = state["solution"]
         u, v, w = sol["u"], sol["v"], sol["w"]
-        scheme = self.advection
-        Gu = -div_vu(grid, scheme, u, v, w)
-        Gv = -div_vv(grid, scheme, u, v, w)
-        Gw = -div_vw(grid, scheme, u, v, w)
+        tracers = {n: sol[n] for n in self.tracer_names}
+        adv = advect(grid, self.advection, self.tracer_advection, u, v, w,
+                     tracers)
+        Gu, Gv, Gw = adv["u"], adv["v"], adv["w"]
+        if self.coriolis is not None:
+            Gu = Gu - self.coriolis.x_f_cross_U(grid, u, v, w)
+            Gv = Gv - self.coriolis.y_f_cross_U(grid, u, v, w)
+            Gw = Gw - self.coriolis.z_f_cross_U(grid, u, v, w)
         if self.buoyancy is not None and "pHY" in state:
             ph = state["pHY"]
             Gu = Gu - st.dxf(ph) / grid.dx(U_LOC)
             Gv = Gv - st.dyf(ph) / grid.dy(V_LOC)
+        diff = state.get("diffusivities")
+        if self.closure is not None:
+            Gu = Gu + momentum_diffusion(u, grid, U_LOC, self.closure, diff)
+            Gv = Gv + momentum_diffusion(v, grid, V_LOC, self.closure, diff)
+            Gw = Gw + momentum_diffusion(w, grid, W_LOC, self.closure, diff)
         G = dict(u=Gu, v=Gv, w=Gw)
-        for name in self.tracer_names:
-            G[name] = -div_Uc(grid, self.tracer_advection, u, v, w, sol[name])
+        for name, c in tracers.items():
+            Gc = adv[name]
+            if self.closure is not None:
+                Gc = Gc + tracer_diffusion(c, grid, name, self.closure, diff)
+            G[name] = Gc
         locs = self._locs()
         t = state["clock"].time
         return {name: apply_flux_bcs(G[name], grid, locs[name],
@@ -171,19 +229,19 @@ class NonhydrostaticModel:
     def _fast_project_interior(self, ui, vi, wi, t, dt):
         """Projection on interior (Nx, Ny, Nz) tensors: divergence and
         gradient correction with periodic rolls, bounded-z wall faces
-        imposed. Writes the bottom wall face into ``wi`` in place; returns
-        the corrected (u, v, w) interiors and φ = pNHS interior."""
+        imposed. Writes into none of its arguments; returns the corrected
+        (u, v, w) interiors and φ = pNHS interior."""
         grid = self.grid
         ddx, ddy = grid.Lx / grid.Nx, grid.Ly / grid.Ny
         ddz = grid.Lz / grid.Nz
         z_bounded = grid.topology[2] is BOUNDED
         if z_bounded:
-            bot = self._wall_plane(self.bcs["w"].bottom, 0, t)
-            top = self._wall_plane(self.bcs["w"].top, 1, t)
-            wi[:, :, 0] = bot
-            top_plane = torch.zeros_like(wi[:, :, :1]) + (
-                top[..., None] if top.ndim else top)
-            dwdz = (torch.cat([wi[:, :, 1:], top_plane], 2) - wi) / ddz
+            plane = lambda v: torch.zeros_like(wi[:, :, :1]) + (
+                v[..., None] if v.ndim else v)
+            bot = plane(self._wall_plane(self.bcs["w"].bottom, 0, t))
+            top = plane(self._wall_plane(self.bcs["w"].top, 1, t))
+            wi = torch.cat([bot, wi[:, :, 1:]], 2)
+            dwdz = (torch.cat([wi[:, :, 1:], top], 2) - wi) / ddz
         else:
             dwdz = (torch.roll(wi, -1, 2) - wi) / ddz
         div = ((torch.roll(ui, -1, 0) - ui) / ddx
@@ -198,20 +256,76 @@ class NonhydrostaticModel:
             gz = (phi - torch.roll(phi, 1, 2)) / ddz
         return ui - dt * gx, vi - dt * gy, wi - dt * gz, phi
 
+    def project_velocities(self, state, dt):
+        """Make (u, v, w) divergence-free through the roll-based
+        projection on interior views; returns a new state whose u, v, w
+        are copies with corrected interiors (halos as they were) and whose
+        pNHS has zero halos. The general projection is not ported; the
+        constructor refuses the configurations that need it."""
+        grid = self.grid
+        sol = dict(state["solution"])
+        ui, vi, wi, phi = self._fast_project_interior(
+            grid.interior(sol["u"]), grid.interior(sol["v"]),
+            grid.interior(sol["w"]), state["clock"].time, dt)
+        for name, x in (("u", ui), ("v", vi), ("w", wi)):
+            sol[name] = sol[name].clone()
+            sol[name][grid.interior_slices] = x
+        return dict(state, solution=sol, pNHS=grid.pad(phi))
+
     # -- stepping ---------------------------------------------------------------
-    def step(self, state, dt, advance=fused_ab2_advance):
-        """One quasi-AB2 step (Euler at iteration 0 and when Δt changed).
-        ``advance`` is the fused AB2 advance to use: the wrapper by default;
-        ``ops.fused_step.fused_ab2_advance_reference`` times the plain
-        version on the card."""
+    def step(self, state, dt, advance=fused_ab2_advance,
+             advect=fused_advective_tendencies):
+        """One step of the model's time stepper. ``advance`` (fused AB2
+        branch) and ``advect`` (every ``tendencies`` call) are the kernels'
+        wrappers by default; their plain versions
+        (``ops.fused_step.fused_ab2_advance_reference``,
+        ``ops.fused_tendencies.fused_advective_tendencies_reference``)
+        time the step without the kernels on the card."""
+        if self.timestepper == "RungeKutta3":
+            return self._rk3_step(state, dt, advect)
+        return self._ab2_step(state, dt, advance, advect)
+
+    def _ab2_step(self, state, dt, advance, advect):
+        """One quasi-AB2 step (Euler at iteration 0 and when Δt changed)."""
         grid = self.grid
         clock0 = state["clock"]
         euler = clock0.iteration == 0 or abs(state["previous_dt"] - dt) > 1e-14
-        sol, G = advance(self, state, dt, euler)
-        ui, vi, wi, phi = self._fast_project_interior(
-            sol["u"], sol["v"], sol["w"], clock0.time, dt)
-        sol = dict(sol, u=ui, v=vi, w=wi)
-        state = dict(state, solution={k: grid.pad(x) for k, x in sol.items()},
-                     pNHS=grid.pad(phi), clock=clock0.tick(dt), G_prev=G,
+        state = dict(state, G_prev=self._g_prev_in_layout(state["G_prev"]))
+        if self.fused_step:
+            sol, G = advance(self, state, dt, euler)
+            ui, vi, wi, phi = self._fast_project_interior(
+                sol["u"], sol["v"], sol["w"], clock0.time, dt)
+            sol = dict(sol, u=ui, v=vi, w=wi)
+            state = dict(state, solution={k: grid.pad(x) for k, x in sol.items()},
+                         pNHS=grid.pad(phi))
+        else:
+            G = self.tendencies(state, advect)
+            sol = ab2_substep(state["solution"], G, state["G_prev"], dt,
+                              self.ab2_chi, euler)
+            sol = implicit_step_fields(sol, grid, self._locs(), self.closure,
+                                       dt, state.get("diffusivities"),
+                                       self.bcs, clock0.time)
+            state = self.project_velocities(dict(state, solution=sol), dt)
+        state = dict(state, clock=clock0.tick(dt), G_prev=G,
                      previous_dt=float(dt))
         return self.update_state(state)
+
+    def _rk3_step(self, state, dt, advect):
+        """One low-storage RK3 step: three stages, each projected."""
+        clock0 = state["clock"]
+        G_prev = None
+        for gamma, zeta in zip(RK3_GAMMA, RK3_ZETA):
+            G = self.tendencies(state, advect)
+            sol = rk3_substep(state["solution"], G, G_prev, dt, gamma, zeta)
+            stage_dt = (gamma + zeta) * dt
+            sol = implicit_step_fields(sol, self.grid, self._locs(),
+                                       self.closure, stage_dt,
+                                       state.get("diffusivities"), self.bcs,
+                                       clock0.time)
+            state = self.project_velocities(dict(state, solution=sol),
+                                            stage_dt)
+            state = dict(state, clock=state["clock"].tick(stage_dt, stage=True))
+            state = self.update_state(state)
+            G_prev = G
+        clock = Clock(clock0.time + dt, clock0.iteration + 1, 0)
+        return dict(state, clock=clock, G_prev=G_prev, previous_dt=float(dt))

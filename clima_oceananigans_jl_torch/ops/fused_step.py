@@ -1,133 +1,201 @@
-"""Fused AB2 advance: advection, pHY′ gradient and the AB2 substep in one
-kernel launch.
+"""Fused AB2 advance: advection, Coriolis, pHY′ gradient, diffusion and the
+AB2 substep in one kernel launch.
 
 Counterpart of ``clima_oceananigans_jl_tpu/ops/fused_step.py``. Per
-prognostic field ψ: G = −∇·(vψ) [− ∂pHY′ on u and v], then
-ψ′ = ψ + Δt((3/2+χ)G − (1/2+χ)G⁻). Both ψ′ and G come back halo-free,
-shape (nx, ny, nz); the model projects u, v, w on these interiors and
-pads once.
+prognostic field ψ: G = −∇·(vψ) [− f×u and − ∂pHY′ on u and v]
+[+ ∇·(κ∇ψ)], then ψ′ = ψ + Δt((3/2+χ)G − (1/2+χ)G⁻). ψ′ comes back
+halo-free, shape (nx, ny, nz); the model projects u, v, w on these
+interiors and pads once. G comes back in the model's ``G_prev`` layout
+(``model.g_interior``: halo-free, else with zero halos).
 
 ``fused_ab2_advance`` is the wrapper: on CUDA tensors it launches the
 hand-written kernel ``csrc/fused_ab2_advance.cu`` (or raises), on CPU
 tensors it runs ``fused_ab2_advance_reference``, the same function in
-plain PyTorch. The Coriolis and diffusion options of the TPU kernel are
-not ported yet (ROADMAP Queue 2, K1).
+plain PyTorch.
 """
 from __future__ import annotations
 
 import ctypes
+import numbers
 
 import torch
 
-from ..advection.schemes import WENO5, reduced_order_masks
+from ..closures.scalar_diffusivity import ScalarDiffusivity
+from ..coriolis.coriolis import BetaPlane, FPlane
+from ..grids.topology import BOUNDED
 from ..timesteppers.steppers import ab2_coefficients, ab2_substep
+from ..utils.location import U_LOC, V_LOC
 from . import _build
+from .fused_tendencies import (ADVECTION_ARGTYPES, advection_args,
+                               check_tensor,
+                               fused_advective_tendencies_reference, pointers)
+
+_LATER = "(ROADMAP Queue 1 item 4)"
+
+
+def _scalar_coefficient(v):
+    """A ν/κ entry the port takes: None, a number, or a per-tracer dict of
+    numbers."""
+    if isinstance(v, dict):
+        return all(_scalar_coefficient(x) for x in v.values())
+    return v is None or isinstance(v, numbers.Real)
 
 
 def unsupported_reason(model):
-    """Why the fused AB2 step cannot run this configuration, or None.
-    The step is this package's only one, so a reason here means the
-    configuration waits for a later port (named in the message)."""
-    later = "(ROADMAP Queue 1 item 4)"
-    if model.timestepper != "QuasiAdamsBashforth2":
-        return f"timestepper {model.timestepper!r} is not ported yet {later}"
-    for attr in ("coriolis", "closure", "stokes_drift", "immersed_boundary",
-                 "particles"):
+    """Why the port cannot run this configuration at all, or None. A
+    reason names the ROADMAP item the configuration waits for."""
+    if model.timestepper not in ("QuasiAdamsBashforth2", "RungeKutta3"):
+        return f"timestepper {model.timestepper!r} is not ported yet {_LATER}"
+    cor = model.coriolis
+    if cor is not None and not isinstance(cor, (FPlane, BetaPlane)):
+        return (f"{type(cor).__name__} Coriolis is not ported yet (FPlane and "
+                f"BetaPlane are) {_LATER}")
+    cl = model.closure
+    if isinstance(cl, (tuple, list)):
+        return f"closure tuples are not ported yet {_LATER}"
+    if cl is not None and not isinstance(cl, ScalarDiffusivity):
+        return (f"{type(cl).__name__} closures are not ported yet "
+                f"(ScalarDiffusivity is) {_LATER}")
+    if cl is not None and cl.vertically_implicit:
+        return f"vertically implicit diffusion is not ported yet {_LATER}"
+    if cl is not None and not all(_scalar_coefficient(v) for v in
+                                  (cl.nu, cl.kappa, cl.nu_z, cl.kappa_z)):
+        return f"array- or callable-valued ν/κ are not ported yet {_LATER}"
+    for attr in ("stokes_drift", "immersed_boundary", "particles"):
         if getattr(model, attr) is not None:
-            return f"{attr} is not ported yet {later}"
+            return f"{attr} is not ported yet {_LATER}"
     if model.forcing or model.background_fields:
-        return f"forcing and background fields are not ported yet {later}"
+        return f"forcing and background fields are not ported yet {_LATER}"
     b = model.buoyancy
     if b is not None and tuple(b.gravity_unit_vector) != (0.0, 0.0, -1.0):
-        return f"tilted gravity is not ported yet {later}"
+        return f"tilted gravity is not ported yet {_LATER}"
     if not model._fast_projection_ok():
         return ("the general projection (bounded x or y, or w walls that "
-                f"are not imposed values) is not ported yet {later}")
+                f"are not imposed values) is not ported yet {_LATER}")
     for name in model.prognostic_names():
         for _axis, _side, bc in model.bcs[name].sides():
             if bc is not None and bc.kind == "flux" and bc.value is not None:
-                return f"flux BCs with values are not ported yet {later}"
+                return f"flux BCs with values are not ported yet {_LATER}"
     return None
 
 
+def _step_kernel_closure(model):
+    """The model's closure when the fused kernel can run its explicit part
+    (the JAX package's ``_step_kernel_closure`` with ``kernel_closure``):
+    a constant-coefficient ``ScalarDiffusivity`` — the only closure the
+    port accepts — whose vertical part is exact in the kernel. The JAX
+    kernel zeroes the wall-face diffusive flux, which equals the mirror
+    fill only for zero-gradient (flux/None) z walls and an impenetrable
+    zero w wall; value or gradient z walls keep diffusion outside the
+    kernel (the general branch). None otherwise."""
+    cl = model.closure
+    if cl is None:
+        return None
+    if model.grid.topology[2] is BOUNDED:
+        for name in model.prognostic_names():
+            for side in ("bottom", "top"):
+                bc = getattr(model.bcs[name], side)
+                if bc is not None and bc.kind not in ("flux",) \
+                        and not (name == "w" and bc.kind == "open"
+                                 and not callable(bc.value)
+                                 and float(bc.value or 0.0) == 0.0):
+                    return None
+    return cl
+
+
 def fused_step_ok(model):
-    """True when every tendency term of the model is one the fused advance
-    computes (advection, and pHY′ for vertical gravity)."""
-    return unsupported_reason(model) is None
+    """The JAX gate of the fused AB2 branch (``ops/fused_step.py::
+    fused_step_ok``) on the configurations the port accepts: quasi-AB2,
+    and a closure whose explicit part the kernel runs. The gate's other
+    conditions (Coriolis other than f/β-plane, forcing, Stokes drift,
+    tilted gravity, flux-BC values, ...) are refused at construction by
+    ``unsupported_reason``."""
+    return (model.timestepper == "QuasiAdamsBashforth2"
+            and (model.closure is None
+                 or _step_kernel_closure(model) is not None))
 
 
 def fused_ab2_advance_reference(model, state, dt, euler):
-    """The plain-PyTorch version of the kernel: the model's plain
-    ``tendencies`` (div_* fluxes, then −∂x pHY′ and −∂y pHY′) and
-    ``ab2_substep``, in the JAX term order, on interiors. Returns
-    ``(psi_new, G)``, dicts of halo-free (nx, ny, nz) tensors."""
+    """The plain-PyTorch version of the kernel: the model's ``tendencies``
+    with the plain advection (div_* fluxes, Coriolis, −∂pHY′, diffusion in
+    the JAX term order) and ``ab2_substep`` on interiors. Returns
+    ``(psi_new, G)``: halo-free ψ′, G in the model's ``G_prev`` layout."""
     grid = model.grid
-    G = {k: grid.interior(g).contiguous()
-         for k, g in model.tendencies(state).items()}
+    G = {k: grid.interior(g).contiguous() for k, g in model.tendencies(
+        state, advect=fused_advective_tendencies_reference).items()}
     sol = {k: grid.interior(v) for k, v in state["solution"].items()}
-    return ab2_substep(sol, G, state["G_prev"], dt, model.ab2_chi, euler), G
+    gp = {k: grid.interior(g) for k, g in state["G_prev"].items()}
+    psi = ab2_substep(sol, G, gp, dt, model.ab2_chi, euler)
+    if not model.g_interior:
+        G = {k: grid.pad(g) for k, g in G.items()}
+    return psi, G
 
 
 def _kernel_fn(dtype):
     lib = _build.load("fused_ab2_advance")
     fn = (lib.fused_ab2_advance_f32 if dtype == torch.float32
           else lib.fused_ab2_advance_f64)
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
-                   + [ctypes.c_double] * 8 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] + ADVECTION_ARGTYPES
+                   + [ctypes.c_double] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(name, t, shape, dtype, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.device != device or t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype} on {device}, got "
-                         f"{t.dtype} on {t.device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+def _coriolis_rows(model):
+    """f at U_LOC and V_LOC over the with-halo y axis, as the plain
+    version forms it, or (None, None) without Coriolis."""
+    cor, grid = model.coriolis, model.grid
+    if cor is None:
+        return None, None
+    if isinstance(cor, BetaPlane):
+        rows = [cor._f(grid, loc).reshape(-1) for loc in (U_LOC, V_LOC)]
+    else:
+        rows = [torch.full((grid.total_shape[1],), cor.f, dtype=grid.dtype,
+                           device=grid.device)] * 2
+    return [r.contiguous() for r in rows]
+
+
+def _diffusivities(model, names):
+    """Host arrays of per-field (horizontal, vertical) diffusivities for
+    the kernel, or (None, None) without a closure."""
+    cl = _step_kernel_closure(model)
+    if cl is None:
+        return None, None
+    nu_z = cl.nu_z if cl.nu_z is not None else cl.nu
+    kh = [cl.nu] * 3 + [cl.kappa_for(n) for n in names[3:]]
+    kz = [nu_z] * 3 + [cl.kappa_z_for(n) for n in names[3:]]
+    arr = lambda xs: (ctypes.c_double * len(xs))(*[float(x) for x in xs])
+    return arr(kh), arr(kz)
 
 
 def _launch(model, state, dt, euler):
     grid = model.grid
     names = model.prognostic_names()
     sol, gp = state["solution"], state["G_prev"]
-    device = sol["u"].device
-    dtype = grid.dtype
-    for scheme in (model.advection, model.tracer_advection):
-        if type(scheme) is not WENO5:
-            raise ValueError("the kernel takes WENO5 advection only, not "
-                             f"{type(scheme).__name__}")
-    if not 3 <= len(names) <= 16:
-        raise ValueError(f"the kernel takes 3 to 16 fields, got {len(names)}")
+    device, dtype = sol["u"].device, grid.dtype
+    args = advection_args(grid, model.advection, model.tracer_advection,
+                          len(names))
+    g_shape = grid.shape if model.g_interior else grid.total_shape
     for n in names:
-        _check(f"solution[{n!r}]", sol[n], grid.total_shape, dtype, device)
-        _check(f"G_prev[{n!r}]", gp[n], grid.shape, dtype, device)
+        check_tensor(f"solution[{n!r}]", sol[n], grid.total_shape, dtype, device)
+        check_tensor(f"G_prev[{n!r}]", gp[n], g_shape, dtype, device)
     ph = state.get("pHY") if model.buoyancy is not None else None
     if ph is not None:
-        _check("pHY", ph, grid.total_shape, dtype, device)
-    # both schemes are WENO5, so momentum and tracers share the z masks
-    masks = reduced_order_masks(grid, 2, model.advection)
-    (_, (lo_l, hi_l), (lo_r, hi_r)) = masks or (None, (0, -1), (0, -1))
+        check_tensor("pHY", ph, grid.total_shape, dtype, device)
+    fu, fv = _coriolis_rows(model)
+    kh, kz = _diffusivities(model, names)
 
     out_psi = [torch.empty(grid.shape, dtype=dtype, device=device) for _ in names]
-    out_g = [torch.empty(grid.shape, dtype=dtype, device=device) for _ in names]
-    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+    out_g = [torch.zeros(g_shape, dtype=dtype, device=device) for _ in names]
     c1, c2 = ab2_coefficients(model.ab2_chi, euler)
+    ptr = lambda t: None if t is None else t.data_ptr()
     fn = _kernel_fn(dtype)
     with torch.cuda.device(device):  # launch on the tensors' card
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(ptrs([sol[n] for n in names]), ptrs([gp[n] for n in names]),
-                ptrs(out_psi), ptrs(out_g),
-                None if ph is None else ph.data_ptr(),
-                len(names), *grid.shape, *grid.halo, int(masks is not None),
-                lo_l, hi_l, lo_r, hi_r,
-                model.advection.eps, model.tracer_advection.eps,
-                grid.Lx / grid.Nx, grid.Ly / grid.Ny, grid.Lz / grid.Nz,
-                c1, c2, float(dt), stream)
+        rc = fn(pointers([sol[n] for n in names]), pointers([gp[n] for n in names]),
+                pointers(out_psi), pointers(out_g), ptr(ph), ptr(fu), ptr(fv),
+                kh, kz, int(not model.g_interior), *args, c1, c2, float(dt),
+                stream)
     if rc != 0:
         raise RuntimeError(f"fused_ab2_advance kernel launch failed: CUDA "
                            f"error {rc}")
@@ -136,9 +204,9 @@ def _launch(model, state, dt, euler):
 
 
 def fused_ab2_advance(model, state, dt, euler):
-    """One fused AB2 advance → ``(psi_new, G)``, dicts of halo-free
-    (nx, ny, nz) tensors. CUDA tensors go through the hand-written kernel
-    (a failure raises; nothing falls back), CPU tensors through
+    """One fused AB2 advance → ``(psi_new, G)``: halo-free ψ′, G in the
+    model's ``G_prev`` layout. CUDA tensors go through the hand-written
+    kernel (a failure raises; nothing falls back), CPU tensors through
     ``fused_ab2_advance_reference``."""
     device = state["solution"]["u"].device
     if device.type == "cuda":

@@ -5,8 +5,10 @@ The plain version ``fused_ab2_advance_reference`` against
 interpret=True)`` on a ``fused_advection=True`` JAX model, and
 (b) the JAX plain path ``tendencies()`` + ``ab2_substep``,
 at 16³ (and, against (b), 12×10×8 with a passive tracer), (Periodic,
-Periodic, Bounded), f64, Euler and AB2 form, on the same numpy-seeded
-state. Tolerance: max|Δ| ≤ 1e-12·max|ref|, because XLA's CPU
+Periodic, Bounded), f64, Euler and AB2 form, without and with the
+kernel's options (f-plane Coriolis with a scalar diffusivity, β-plane
+Coriolis with a horizontal one), on the same numpy-seeded state.
+Tolerance: max|Δ| ≤ 1e-12·max|ref|, because XLA's CPU
 backend may fuse and contract where eager PyTorch does not.
 
 Against (a), w's k = 0 plane (its bottom wall face) is left out: the TPU
@@ -19,6 +21,8 @@ card and skips without one. It needs no JAX, so on a GPU machine without
 JAX it runs alone: ``python -m pytest --noconftest -m cuda
 tests/test_torch_fused_step.py``.
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -51,26 +55,50 @@ def initial_values(shape, seed=0, tracers=()):
     return vals
 
 
-def jax_model(size, fused, tracers=()):
+#: K1's options: name → a function of the package (J or T) giving the
+#: model's Coriolis and closure keywords (f and ν large enough to matter)
+OPTIONS = {
+    "none": lambda P: {},
+    "fplane-diffusion": lambda P: dict(
+        coriolis=P.FPlane(f=2.0),
+        closure=P.ScalarDiffusivity(nu=1e-3, kappa=2e-3, nu_z=5e-4)),
+    "betaplane-horizontal": lambda P: dict(
+        coriolis=P.BetaPlane(f0=1.0, beta=3.0),
+        closure=P.HorizontalScalarDiffusivity(nu=1e-3, kappa=2e-3)),
+}
+
+
+def jax_model(size, fused, tracers=(), option="none"):
     import jax.numpy as jnp
     import clima_oceananigans_jl_tpu as J
     from clima_oceananigans_jl_tpu.buoyancy.buoyancy import BuoyancyTracer
+    from clima_oceananigans_jl_tpu.closures import scalar_diffusivity
+    from clima_oceananigans_jl_tpu.coriolis import coriolis
     from clima_oceananigans_jl_tpu.models.nonhydrostatic import (
         NonhydrostaticModel)
     grid = J.RectilinearGrid(size=size, extent=(1.0, 1.0, 1.0),
                              topology=("periodic", "periodic", "bounded"),
                              dtype=jnp.float64)
+    P = types.SimpleNamespace(
+        FPlane=coriolis.FPlane, BetaPlane=coriolis.BetaPlane,
+        ScalarDiffusivity=scalar_diffusivity.ScalarDiffusivity,
+        HorizontalScalarDiffusivity=scalar_diffusivity.HorizontalScalarDiffusivity)
     return NonhydrostaticModel(grid, advection=J.WENO5(),
                                buoyancy=BuoyancyTracer(), tracers=tracers,
-                               fused_advection=fused)
+                               fused_advection=fused, **OPTIONS[option](P))
 
 
-def torch_model(size, dtype=torch.float64, device="cpu", tracers=()):
+def torch_model(size, dtype=torch.float64, device="cpu", tracers=(),
+                option="none", w_top=None):
+    """The port's model; ``w_top`` imposes w on the top wall, which keeps
+    the fused branch (without a closure) but stores G_prev with halos."""
     grid = T.RectilinearGrid(size=size, extent=(1.0, 1.0, 1.0),
                              topology=(T.PERIODIC, T.PERIODIC, T.BOUNDED),
                              dtype=dtype, device=device)
+    bcs = None if w_top is None else {"w": T.FieldBCs(top=T.ValueBC(w_top))}
     return T.NonhydrostaticModel(grid, advection=T.WENO5(),
-                                 buoyancy=T.BuoyancyTracer(), tracers=tracers)
+                                 buoyancy=T.BuoyancyTracer(), tracers=tracers,
+                                 boundary_conditions=bcs, **OPTIONS[option](T))
 
 
 def with_random_gprev(jm, js, seed=1):
@@ -87,14 +115,16 @@ def to_numpy(state):
     return jax.tree_util.tree_map(np.asarray, state)
 
 
+@pytest.mark.parametrize("option", OPTIONS)
 @pytest.mark.parametrize("euler", [True, False], ids=["euler", "ab2"])
-def test_plain_k1_matches_jax_pallas_kernel(euler):
+def test_plain_k1_matches_jax_pallas_kernel(euler, option):
     from clima_oceananigans_jl_tpu.ops import fused_step as jfs
     size = (16, 16, 16)
-    jm = jax_model(size, fused=True)
+    jm = jax_model(size, fused=True, option=option)
     assert jm.fused_step and jm.g_interior
     js = with_random_gprev(jm, jm.initial_state(**initial_values(size)))
-    tm = torch_model(size)
+    tm = torch_model(size, option=option)
+    assert tm.fused_step and tm.g_interior
     ts = state_from_numpy(tm, to_numpy(js))
     j_sol, j_G = jfs.fused_ab2_advance(jm, js, DT, euler, interpret=True,
                                        interior_velocities=True)
@@ -111,14 +141,16 @@ def test_plain_k1_matches_jax_pallas_kernel(euler):
 
 
 @pytest.mark.parametrize("euler", [True, False], ids=["euler", "ab2"])
-@pytest.mark.parametrize("size,tracers", [((16, 16, 16), ()),
-                                          ((12, 10, 8), ("c",))])
-def test_plain_k1_matches_jax_plain_path(euler, size, tracers):
+@pytest.mark.parametrize("size,tracers,option", [
+    ((16, 16, 16), (), "none"), ((12, 10, 8), ("c",), "none"),
+    ((12, 10, 8), ("c",), "fplane-diffusion"),
+    ((12, 10, 8), (), "betaplane-horizontal")])
+def test_plain_k1_matches_jax_plain_path(euler, size, tracers, option):
     from clima_oceananigans_jl_tpu.timesteppers.steppers import ab2_substep
-    jm = jax_model(size, fused=False, tracers=tracers)
+    jm = jax_model(size, fused=False, tracers=tracers, option=option)
     js = with_random_gprev(
         jm, jm.initial_state(**initial_values(size, tracers=tracers)))
-    tm = torch_model(size, tracers=tracers)
+    tm = torch_model(size, tracers=tracers, option=option)
     ts = state_from_numpy(tm, to_numpy(js))
     j_G = jm.tendencies(js)
     j_sol = ab2_substep(js["solution"], j_G, js["G_prev"], DT, jm.ab2_chi,
@@ -126,7 +158,8 @@ def test_plain_k1_matches_jax_plain_path(euler, size, tracers):
     t_sol, t_G = tfs.fused_ab2_advance_reference(tm, ts, DT, euler)
     for name in tm.prognostic_names():
         close(jm.grid.interior(j_sol[name]), t_sol[name], RTOL, f"psi'[{name}]")
-        close(jm.grid.interior(j_G[name]), t_G[name], RTOL, f"G[{name}]")
+        close(jm.grid.interior(j_G[name]), tm.grid.interior(t_G[name]), RTOL,
+              f"G[{name}]")
 
 
 def test_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
@@ -146,9 +179,14 @@ def test_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
 def test_unsupported_configurations_raise():
     grid = T.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1),
                              dtype=torch.float64)
-    for kw in (dict(timestepper="RungeKutta3"), dict(coriolis=object()),
+    implicit = T.ScalarDiffusivity(nu=1e-3,
+                                   time_discretization="vertically_implicit")
+    for kw in (dict(closure=implicit),
+               dict(closure=(T.ScalarDiffusivity(nu=1e-3),)),
+               dict(closure=T.ScalarDiffusivity(nu=lambda x, y, z: x)),
+               dict(timestepper="SplitRungeKutta3"), dict(coriolis=object()),
                dict(closure=object()), dict(forcing={"u": object()})):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.NonhydrostaticModel(grid, advection=T.WENO5(), **kw)
     bounded_x = T.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1),
                                   topology=(T.BOUNDED, T.PERIODIC, T.BOUNDED),
@@ -159,19 +197,29 @@ def test_unsupported_configurations_raise():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,size,rtol,tracers", [
-    (torch.float64, (16, 12, 10), 1e-13, ("c",)),
-    (torch.float32, (32, 24, 16), 1e-6, ())], ids=["f64", "f32"])
-def test_cuda_kernel_matches_plain_version(dtype, size, rtol, tracers):
+@pytest.mark.parametrize("dtype,size,rtol,tracers,option,w_top", [
+    (torch.float64, (16, 12, 10), 1e-13, ("c",), "none", None),
+    (torch.float64, (16, 12, 10), 1e-13, ("c",), "fplane-diffusion", None),
+    (torch.float64, (16, 12, 10), 1e-13, (), "betaplane-horizontal", None),
+    (torch.float64, (16, 12, 10), 1e-13, ("c",), "none", 1e-3),
+    (torch.float32, (32, 24, 16), 1e-6, (), "none", None),
+    (torch.float32, (32, 24, 16), 1e-6, (), "fplane-diffusion", None)],
+    ids=["f64", "f64-fplane", "f64-betaplane", "f64-with-halo-G", "f32",
+         "f32-fplane"])
+def test_cuda_kernel_matches_plain_version(dtype, size, rtol, tracers, option,
+                                           w_top):
     """The kernel against the plain version on the card, at the
     chip_smoke tolerances: PyTorch's CUDA division by a Python scalar
     multiplies by the reciprocal, so the two agree to rounding."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    tm = torch_model(size, dtype=dtype, device="cuda", tracers=tracers)
+    tm = torch_model(size, dtype=dtype, device="cuda", tracers=tracers,
+                     option=option, w_top=w_top)
+    assert tm.fused_step and tm.g_interior == (w_top is None)
     ts = tm.initial_state(**initial_values(size, tracers=tracers))
     rng = np.random.default_rng(1)
-    ts["G_prev"] = {k: torch.as_tensor(1e-2 * rng.standard_normal(size),
+    g_shape = size if tm.g_interior else tm.grid.total_shape
+    ts["G_prev"] = {k: torch.as_tensor(1e-2 * rng.standard_normal(g_shape),
                                        dtype=dtype, device="cuda")
                     for k in tm.prognostic_names()}
     for euler in (True, False):

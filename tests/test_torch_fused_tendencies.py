@@ -1,0 +1,167 @@
+"""Port parity: the fused advective tendencies (K2).
+
+The plain version ``fused_advective_tendencies_reference`` against
+(a) the JAX package's Pallas kernel ``fused_advective_tendencies(...,
+interpret=True)`` and (b) the JAX ``div_vu``/``div_vv``/``div_vw``/``div_Uc``,
+at 16×12×10 in f64, on (Periodic, Periodic, Bounded) and (Periodic,
+Periodic, Periodic), with WENO5 momentum and WENO5 or centred tracers,
+0 or 2 tracers, on the same numpy-seeded with-halo fields. Interiors must
+agree to max|Δ| ≤ 1e-12·max|ref|, because XLA's CPU backend may fuse and
+contract where eager PyTorch does not.
+
+The ``cuda`` case holds the CUDA kernel against the plain version on the
+card and skips without one. It needs no JAX: ``python -m pytest
+--noconftest -m cuda tests/test_torch_fused_tendencies.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+import clima_oceananigans_jl_torch as T
+from clima_oceananigans_jl_torch.ops import fused_tendencies as tft
+
+torch.set_num_threads(1)
+
+RTOL = 1e-12
+SIZE = (16, 12, 10)
+TOPOLOGIES = {"ppb": ("periodic", "periodic", "bounded"),
+              "ppp": ("periodic", "periodic", "periodic")}
+
+
+def inputs(shape, ntracers, seed=0):
+    rng = np.random.default_rng(seed)
+    vel = [s * rng.standard_normal(shape) for s in (1.0, 1.0, 0.5)]
+    return vel, {f"c{k}": rng.standard_normal(shape) for k in range(ntracers)}
+
+
+def torch_grid(topology, size=SIZE, dtype=torch.float64, device="cpu"):
+    return T.RectilinearGrid(size=size, extent=(1.0, 2.0, 0.5),
+                             topology=topology, halo=(3, 3, 3), dtype=dtype,
+                             device=device)
+
+
+def close(ref, got, rtol, what):
+    err, scale = np.abs(ref - got).max(), np.abs(ref).max()
+    assert err <= rtol * scale, (what, err, scale)
+
+
+@pytest.mark.parametrize("topo", TOPOLOGIES)
+@pytest.mark.parametrize("tracer_scheme", ["weno5", "centered"])
+@pytest.mark.parametrize("ntracers", [0, 2])
+def test_plain_k2_matches_jax(topo, tracer_scheme, ntracers):
+    import jax.numpy as jnp
+    import clima_oceananigans_jl_tpu as J
+    from clima_oceananigans_jl_tpu.advection import fluxes as jfl
+    from clima_oceananigans_jl_tpu.ops import fused_tendencies as jft
+    jg = J.RectilinearGrid(size=SIZE, extent=(1.0, 2.0, 0.5),
+                           topology=TOPOLOGIES[topo], halo=(3, 3, 3),
+                           dtype=jnp.float64)
+    tg = torch_grid(TOPOLOGIES[topo])
+    assert jft.supports_fused_advection(jg) and tft.supports_fused_advection(tg)
+    (u, v, w), tracers = inputs(tg.total_shape, ntracers)
+    js, jt = J.WENO5(), (J.WENO5() if tracer_scheme == "weno5"
+                         else J.CenteredSecondOrder())
+    ts, tt = T.WENO5(), (T.WENO5() if tracer_scheme == "weno5"
+                         else T.CenteredSecondOrder())
+    ju, jv, jw = map(jnp.asarray, (u, v, w))
+    pallas = jft.fused_advective_tendencies(
+        jg, js, jt, ju, jv, jw, {n: jnp.asarray(c) for n, c in tracers.items()},
+        interpret=True)
+    plain = dict(u=-jfl.div_vu(jg, js, ju, jv, jw),
+                 v=-jfl.div_vv(jg, js, ju, jv, jw),
+                 w=-jfl.div_vw(jg, js, ju, jv, jw))
+    for n, c in tracers.items():
+        plain[n] = -jfl.div_Uc(jg, jt, ju, jv, jw, jnp.asarray(c))
+    got = tft.fused_advective_tendencies_reference(
+        tg, ts, tt, *map(torch.as_tensor, (u, v, w)),
+        {n: torch.as_tensor(c) for n, c in tracers.items()})
+    assert set(got) == {"u", "v", "w", *tracers}
+    for name, g in got.items():
+        assert tuple(g.shape) == tg.total_shape
+        g = g[tg.interior_slices].numpy()
+        close(np.asarray(pallas[name])[tg.interior_slices], g, RTOL,
+              f"{name} vs Pallas")
+        close(np.asarray(plain[name])[tg.interior_slices], g, RTOL,
+              f"{name} vs div_*")
+
+
+def test_gates_match_jax():
+    import jax.numpy as jnp
+    import clima_oceananigans_jl_tpu as J
+    from clima_oceananigans_jl_tpu.boundary_conditions import bcs as jbcs
+    from clima_oceananigans_jl_tpu.ops import fused_tendencies as jft
+    from clima_oceananigans_jl_torch.boundary_conditions import bcs as tbcs
+    for topo in (("periodic", "periodic", "bounded"),
+                 ("periodic", "periodic", "periodic"),
+                 ("bounded", "periodic", "bounded"),
+                 ("periodic", "bounded", "periodic")):
+        jg = J.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1),
+                               topology=topo, dtype=jnp.float64)
+        tg = T.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1),
+                               topology=topo, dtype=torch.float64)
+        assert jft.supports_fused_advection(jg) == tft.supports_fused_advection(tg)
+        for top in (None, 0.0, 1e-3):
+            jb = jbcs.FieldBCs(top=None if top is None else jbcs.ValueBC(top))
+            tb = tbcs.FieldBCs(top=None if top is None else tbcs.ValueBC(top))
+            jw = jbcs.regularize_bcs(jg, (jbcs.C, jbcs.C, jbcs.F), jb)
+            tw = tbcs.regularize_bcs(tg, T.W_LOC, tb)
+            assert jft.z_halo_free_ok(jg, jw) == tft.z_halo_free_ok(tg, tw)
+
+
+def test_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
+    tg = torch_grid(TOPOLOGIES["ppb"])
+    (u, v, w), tracers = inputs(tg.total_shape, 1)
+    args = (tg, T.WENO5(), T.CenteredSecondOrder(),
+            *map(torch.as_tensor, (u, v, w)),
+            {n: torch.as_tensor(c) for n, c in tracers.items()})
+    before = tft.fused_advective_tendencies.launches
+    got = tft.fused_advective_tendencies(*args)
+    ref = tft.fused_advective_tendencies_reference(*args)
+    assert tft.fused_advective_tendencies.launches == before
+    assert all(torch.equal(got[n], ref[n]) for n in ref)
+
+
+def test_kernel_arguments_refuse_what_the_kernels_do_not_take():
+    tg = torch_grid(TOPOLOGIES["ppb"])
+    with pytest.raises(ValueError):
+        tft.advection_args(tg, T.WENO5(), T.WENO5(), 17)
+    with pytest.raises(ValueError):
+        tft.kernel_scheme(object())
+    bounded_x = torch_grid(("bounded", "periodic", "bounded"))
+    with pytest.raises(ValueError):
+        tft.advection_args(bounded_x, T.WENO5(), T.WENO5(), 4)
+    # WENO5 tracers under centred momentum take the WENO5 z bounds
+    args = tft.advection_args(tg, T.CenteredSecondOrder(), T.WENO5(), 4)
+    assert args[7:10] == (0, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,size,rtol,tracer_scheme,ntracers,topo", [
+    (torch.float64, (16, 12, 10), 1e-13, "centered", 2, "ppb"),
+    (torch.float64, (16, 12, 10), 1e-13, "weno5", 0, "ppp"),
+    (torch.float32, (32, 24, 16), 1e-6, "weno5", 1, "ppb")],
+    ids=["f64-centered", "f64-periodic", "f32"])
+def test_cuda_kernel_matches_plain_version(dtype, size, rtol, tracer_scheme,
+                                           ntracers, topo):
+    """The kernel against the plain version on the card, at the
+    chip_smoke tolerances (PyTorch's CUDA division by a Python scalar
+    multiplies by the reciprocal, so the two agree to rounding)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tg = torch_grid(TOPOLOGIES[topo], size, dtype, "cuda")
+    (u, v, w), tracers = inputs(tg.total_shape, ntracers)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    tt = T.WENO5() if tracer_scheme == "weno5" else T.CenteredSecondOrder()
+    args = (tg, T.WENO5(), tt, as_t(u), as_t(v), as_t(w),
+            {n: as_t(c) for n, c in tracers.items()})
+    before = tft.fused_advective_tendencies.launches
+    got = tft.fused_advective_tendencies(*args)
+    torch.cuda.synchronize()
+    assert tft.fused_advective_tendencies.launches == before + 1
+    ref = tft.fused_advective_tendencies_reference(*args)
+    for name in ref:
+        halo = got[name].clone()
+        halo[tg.interior_slices] = 0
+        assert not halo.any(), f"{name}: the kernel wrote outside the interior"
+        close(ref[name][tg.interior_slices].cpu().numpy(),
+              got[name][tg.interior_slices].cpu().numpy(), rtol, name)
