@@ -2,33 +2,55 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at 256³ fp32 through
-``clima_oceananigans_jl_torch`` on the card, in phases; each prints one
-line or a few:
+Drives the port's four paths through ``clima_oceananigans_jl_torch`` on
+the card, in phases; each prints one line or a few:
 
 1. device: the card's name and power limit as nvidia-smi gives them, on a
    line of their own; no card → error;
-2. build: compiles ``csrc/fused_ab2_advance.cu`` (K1) and
-   ``csrc/fused_advective_tendencies.cu`` (K2) with nvcc (sm_90a), one
-   process each, both at once;
+2. build: compiles ``csrc/fused_ab2_advance.cu`` (K1),
+   ``csrc/fused_advective_tendencies.cu`` (K2),
+   ``csrc/fused_shallow_water_tendencies.cu`` (K3a) and
+   ``csrc/fused_projection.cu`` (K3b, K3c) with nvcc (sm_90a), one
+   process each, all at once;
 3. K1 against its plain PyTorch version on the same inputs: the ``bench.py``
    configuration at 256³ fp32 (Euler and AB2 form) and 64³ fp64, then with
    its options, ``FPlane(f=1e-4)`` + ``ScalarDiffusivity(nu=1e-5,
    kappa=1e-5)`` at 256³ fp32 and ``BetaPlane`` + the same diffusivity at
    64³ fp64; max|Δ| ≤ 1e-6·max|ref| in fp32 and ≤ 1e-13·max|ref| in fp64;
    K1's time (CUDA events, 20 calls) and the plain version's (3 calls);
-4. K2 against its plain version: 256³ fp32 WENO5/WENO5 with u, v, w, b and
-   64³ fp64 WENO5 momentum with two centred tracers, same bounds; times;
-5. AB2 path: the ``bench.py`` configuration built through the public API,
+4. K2 against its plain version, on the interior and w's top wall face:
+   256³ fp32 WENO5/WENO5 with u, v, w, b and 64³ fp64 WENO5 momentum with
+   two centred tracers, same bounds; times;
+5. K3a against its plain version: 16384² fp32 uh, vh, h (the shallow-water
+   headline) and 1024×768 fp64 with two tracers, bathymetry and bounded y,
+   same bounds; times at 16384²;
+6. K3b and K3c against their plain versions: 256³ fp32 and 64³ fp64, same
+   bounds; times at 256³;
+7. AB2 path: the ``bench.py`` configuration built through the public API,
    2 warm-up and 20 timed steps at Δt = 1e-4, with K1 and then with the
-   plain version; fields finite, one K1 launch per step (no K2),
+   plain version; fields finite, one K1 launch per step (no other),
    max|∇·u|·Δx/max|u| ≤ 1e-5, and the two runs agree to ≤ 1e-4;
-6. RK3 path: the flagship configuration of ``__graft_entry__.py``
+8. RK3 path: the flagship configuration of ``__graft_entry__.py``
    (WENO5, BuoyancyTracer, FPlane(f=1e-4), ScalarDiffusivity(nu=1e-5,
    kappa=1e-5), RK3), 2 warm-up and 10 timed steps at Δt = 1e-3, with K2
    and then with its plain version; the same checks, with exactly 3 K2
-   launches per step (no K1).
+   launches per step (no other);
+9. shallow-water path: the headline of ``benchmark/bench_shallow_water.py``
+   (16384² fp32, (Periodic, Periodic, Flat) on [0, 2π]², g = 10, WENO5,
+   uh = 0.1 sin x cos y, h = 1, RK3 at Δt = 1e-4), 2 warm-up and 10 timed
+   steps with K3a and then with its plain version; exactly 3 K3a launches
+   per step (no other), fields finite, Σh (summed in fp64) conserved to
+   ≤ 1e-6 relative, the runs agree to ≤ 1e-4 of max|field|; K3a's and
+   its plain version's times on the path's fields, which go into K3a's
+   record;
+10. general-projection path: the RK3 flagship at 256³ fp32 with
+   ``FluxBC()`` at both z walls of w, 2 warm-up and 5 timed steps with the
+   kernels and then the plain versions; exactly 3 K2, 3 K3b and 3 K3c
+   launches per step (no other); the flux walls keep a net wall flux, so
+   the check is max|∇·u − mean ∇·u|·Δx/max|u| ≤ 1e-5; the runs agree to
+   ≤ 1e-6 (the other paths' bound is 1e-4).
 
+Each path's launch counts are set to 0 just before it and read just after.
 Then a JSON line with each kernel's record, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. The port is imported first, so a copy of this file
@@ -37,37 +59,61 @@ outside the repository fails at once.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import time
 
 import numpy as np
 import torch
 
-from clima_oceananigans_jl_torch import (BOUNDED, PERIODIC, BetaPlane,
+from clima_oceananigans_jl_torch import (BOUNDED, FLAT, PERIODIC, BetaPlane,
                                          BuoyancyTracer, CenteredSecondOrder,
-                                         FPlane, NonhydrostaticModel,
-                                         RectilinearGrid, ScalarDiffusivity,
+                                         FieldBCs, FluxBC, FPlane,
+                                         NonhydrostaticModel, RectilinearGrid,
+                                         ScalarDiffusivity, ShallowWaterModel,
                                          WENO5)
+from clima_oceananigans_jl_torch.models import nonhydrostatic, shallow_water
 from clima_oceananigans_jl_torch.ops import _build
 from clima_oceananigans_jl_torch.ops.fused_step import (
     fused_ab2_advance, fused_ab2_advance_reference)
 from clima_oceananigans_jl_torch.ops.fused_tendencies import (
-    fused_advective_tendencies, fused_advective_tendencies_reference)
+    fused_advective_tendencies, fused_advective_tendencies_reference,
+    fused_divergence, fused_divergence_reference, fused_pressure_gradient,
+    fused_pressure_gradient_reference, fused_shallow_water_tendencies,
+    fused_shallow_water_tendencies_reference)
 
 N = 256
+N_SW = 16384
 DEVICE = "cuda"
 K1, K2 = "fused_ab2_advance", "fused_advective_tendencies"
-WRAPPERS = {K1: fused_ab2_advance, K2: fused_advective_tendencies}
+K3A, K3B, K3C = ("fused_shallow_water_tendencies", "fused_divergence",
+                 "fused_pressure_gradient")
+WRAPPERS = {K1: fused_ab2_advance, K2: fused_advective_tendencies,
+            K3A: fused_shallow_water_tendencies, K3B: fused_divergence,
+            K3C: fused_pressure_gradient}
+SOURCES = {K1: "fused_ab2_advance", K2: "fused_advective_tendencies",
+           K3A: "fused_shallow_water_tendencies", K3B: "fused_projection",
+           K3C: "fused_projection"}
 TOL = {torch.float32: 1e-6, torch.float64: 1e-13}
-#: (timestepper, Δt, warm-up steps, timed steps, Coriolis and closure)
+FLAGSHIP = dict(coriolis=FPlane(f=1e-4),
+                closure=ScalarDiffusivity(nu=1e-5, kappa=1e-5))
+FLUX_WALLS = {"w": FieldBCs(bottom=FluxBC(), top=FluxBC())}
+#: (timestepper, Δt, warm-up steps, timed steps, model options)
 PATHS = {
     "AB2": ("QuasiAdamsBashforth2", 1e-4, 2, 20, {}),
-    "RK3": ("RungeKutta3", 1e-3, 2, 10,
-            dict(coriolis=FPlane(f=1e-4),
-                 closure=ScalarDiffusivity(nu=1e-5, kappa=1e-5))),
+    "RK3": ("RungeKutta3", 1e-3, 2, 10, FLAGSHIP),
+    "general projection": ("RungeKutta3", 1e-3, 2, 5,
+                           dict(FLAGSHIP, boundary_conditions=FLUX_WALLS)),
 }
+SW_PATH = (1e-4, 2, 10)  # shallow water: Δt, warm-up steps, timed steps
 #: kernel launches per step of each path
-PER_STEP = {"AB2": {K1: 1, K2: 0}, "RK3": {K1: 0, K2: 3}}
+PER_STEP = {"AB2": {K1: 1}, "RK3": {K2: 3}, "shallow water": {K3A: 3},
+            "general projection": {K2: 3, K3B: 3, K3C: 3}}
+#: how far the kernel and plain runs of a path may differ, of max|field|;
+#: the general projection's kernels are bitwise their plain versions, so a
+#: gap there (such as an unwritten wall face) is a fault, not rounding
+AGREE = {"AB2": 1e-4, "RK3": 1e-4, "shallow water": 1e-4,
+         "general projection": 1e-6}
 
 
 def model_for(n, dtype, **kw):
@@ -107,11 +153,12 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    _build.build(K1, K2)
-    for k in (K1, K2):
+    libs = sorted(set(SOURCES.values()))
+    _build.build(*libs)
+    for k in libs:
         print(f"build: {k} in {_build.build_seconds[k]:.1f} s "
               f"({_build.library_path(k).name})")
-    print(f"build: both in {time.perf_counter() - t0:.1f} s")
+    print(f"build: all {len(libs)} at once in {time.perf_counter() - t0:.1f} s")
 
 
 def hold(label, got, ref, dtype, interior=None):
@@ -190,6 +237,20 @@ def phase_k1():
     return (worst, *times["bench"])
 
 
+def hold_k2(label, args, dtype):
+    """K2 against its plain version on the interior of every field and on
+    w's top wall face (with-halo z index hz+nz), which K2 also writes on a
+    bounded z axis; returns the largest max|Δ|."""
+    grid = args[0]
+    got = fused_advective_tendencies(*args)
+    ref = fused_advective_tendencies_reference(*args)
+    (hx, hy, hz), (nx, ny, nz) = grid.halo, grid.shape
+    top = lambda a: a[hx:hx + nx, hy:hy + ny, hz + nz]
+    return max(hold(label, {"G": got}, {"G": ref}, dtype, grid.interior),
+               hold(f"{label}, w's top wall face", {"G": {"w": top(got["w"])}},
+                    {"G": {"w": top(ref["w"])}}, dtype))
+
+
 def phase_k2():
     """K2 against its plain version; returns (max_abs_err, ms, plain_ms)
     at 256³ fp32."""
@@ -198,10 +259,7 @@ def phase_k2():
     grid = model.grid
     args = (grid, WENO5(), WENO5(), sol["u"], sol["v"], sol["w"],
             {"b": sol["b"]})
-    worst = hold(f"K2 WENO5/WENO5 {N}^3 fp32",
-                 {"G": fused_advective_tendencies(*args)},
-                 {"G": fused_advective_tendencies_reference(*args)},
-                 torch.float32, grid.interior)
+    worst = hold_k2(f"K2 WENO5/WENO5 {N}^3 fp32", args, torch.float32)
     ms = cuda_ms(lambda: fused_advective_tendencies(*args), 20)
     plain_ms = cuda_ms(lambda: fused_advective_tendencies_reference(*args), 3)
     print(f"K2 WENO5/WENO5 {N}^3 fp32 time: kernel {ms:.4f} ms, plain "
@@ -216,17 +274,106 @@ def phase_k2():
          for _ in range(5)]
     args = (grid, WENO5(), CenteredSecondOrder(), f[0], f[1], f[2],
             {"c1": f[3], "c2": f[4]})
-    hold("K2 WENO5/centred 64^3 fp64, two tracers",
-         {"G": fused_advective_tendencies(*args)},
-         {"G": fused_advective_tendencies_reference(*args)},
-         torch.float64, grid.interior)
+    hold_k2("K2 WENO5/centred 64^3 fp64, two tracers", args, torch.float64)
     return worst, ms, plain_ms
 
 
+def phase_k3a():
+    """K3a against its plain version; returns (max_abs_err over both
+    cases, ms, plain_ms), the times at 16384² fp32 (uh, vh, h: the
+    shallow-water headline's core)."""
+    worst, ms = 0.0, None
+    for n, dtype, topo, nt, bath in (
+            ((N_SW, N_SW), torch.float32, PERIODIC, 0, False),
+            ((1024, 768), torch.float64, BOUNDED, 2, True)):
+        grid = RectilinearGrid(size=n + (1,), x=(0, 2 * math.pi),
+                               y=(0, 2 * math.pi),
+                               topology=(PERIODIC, topo, FLAT), halo=(3, 3, 0),
+                               dtype=dtype, device=DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(4)
+        rand = lambda s, o=0.0: o + s * torch.randn(
+            grid.total_shape, generator=gen, dtype=dtype, device=DEVICE)
+        args = (grid, WENO5(), WENO5(), 10.0, rand(0.1), rand(0.1),
+                rand(0.05, 1.0), [rand(1.0) for _ in range(nt)],
+                rand(0.05) if bath else None)
+        label = (f"K3a {n[0]}x{n[1]} {str(dtype)[6:]}"
+                 + (f", {nt} tracers, bathymetry, bounded y" if nt else ""))
+        names = ["uh", "vh", "h"] + [f"c{i}" for i in range(nt)]
+        got = dict(zip(names, fused_shallow_water_tendencies(*args)))
+        ref = dict(zip(names, fused_shallow_water_tendencies_reference(*args)))
+        worst = max(worst, hold(label, {"G": got}, {"G": ref}, dtype,
+                                grid.interior))
+        del got, ref
+        if ms is None:
+            ms = cuda_ms(lambda: fused_shallow_water_tendencies(*args), 20)
+            plain_ms = cuda_ms(
+                lambda: fused_shallow_water_tendencies_reference(*args), 3)
+            print(f"{label} time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                  "(CUDA events)")
+        del args
+        torch.cuda.empty_cache()
+    return worst, ms, plain_ms
+
+
+def phase_k3bc():
+    """K3b and K3c against their plain versions; returns their
+    (max_abs_err, ms, plain_ms) at 256³ fp32."""
+    out = {}
+    for n, dtype in ((N, torch.float32), (64, torch.float64)):
+        grid = RectilinearGrid(size=(n, n, n), extent=(1.0, 1.0, 1.0),
+                               topology=(PERIODIC, PERIODIC, BOUNDED),
+                               dtype=dtype, device=DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(5)
+        u, v, w, p = (torch.randn(grid.total_shape, generator=gen, dtype=dtype,
+                                  device=DEVICE) for _ in range(4))
+        label = f"{n}^3 {str(dtype)[6:]}"
+        for name, fn, ref_fn, args, interior in (
+                (K3B, fused_divergence, fused_divergence_reference,
+                 (grid, u, v, w), None),
+                (K3C, fused_pressure_gradient,
+                 fused_pressure_gradient_reference, (grid, p), grid.interior)):
+            as_dict = lambda x: dict(enumerate(x)) if isinstance(x, tuple) \
+                else {0: x}
+            err = hold(f"{name} {label}", {"out": as_dict(fn(*args))},
+                       {"out": as_dict(ref_fn(*args))}, dtype, interior)
+            if n == N:
+                ms = cuda_ms(lambda: fn(*args), 20)
+                plain_ms = cuda_ms(lambda: ref_fn(*args), 3)
+                out[name] = (err, ms, plain_ms)
+                print(f"{name} {label} time: kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms (CUDA events)")
+        del u, v, w, p
+        torch.cuda.empty_cache()
+    return out[K3B], out[K3C]
+
+
+def run_steps(path, model, state, step, warmup, steps, plain):
+    """The path's warm-up and timed steps; every launch count is set to 0
+    just before them and read just after. Returns (state, s per timed
+    step, launch counts)."""
+    torch.cuda.synchronize()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    for _ in range(warmup):
+        state = step(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = step(state)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / steps
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    expected = {k: 0 if plain else PER_STEP[path].get(k, 0) * (warmup + steps)
+                for k in WRAPPERS}
+    if launches != expected:
+        raise AssertionError(f"{path} path: kernel launches {launches}, "
+                             f"expected {expected}")
+    return state, per_step, launches
+
+
 def drive(path, plain):
-    """Build the path's model at 256³ fp32 and run its warm-up and timed
-    steps, with the kernels or (``plain``) their plain versions. Every
-    launch count is set to 0 just before the run and read just after."""
+    """Build the path's model at 256³ fp32 and run it with the kernels or
+    (``plain``) their plain versions."""
     timestepper, dt, warmup, steps, kw = PATHS[path]
     model = model_for(N, torch.float32, timestepper=timestepper, **kw)
     rng = np.random.default_rng(0)
@@ -234,31 +381,16 @@ def drive(path, plain):
     state = model.initial_state(u=1e-2 * rng.standard_normal(shape),
                                 v=1e-2 * rng.standard_normal(shape),
                                 b=1e-4 * rng.standard_normal(shape))
-    advance, advect = ((fused_ab2_advance_reference,
-                        fused_advective_tendencies_reference) if plain
-                       else (fused_ab2_advance, fused_advective_tendencies))
-    torch.cuda.synchronize()
-    for w in WRAPPERS.values():
-        w.launches = 0
-    for _ in range(warmup):
-        state = model.step(state, dt, advance=advance, advect=advect)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        state = model.step(state, dt, advance=advance, advect=advect)
-    torch.cuda.synchronize()
-    per_step = (time.perf_counter() - t0) / steps
-    launches = {k: w.launches for k, w in WRAPPERS.items()}
-    expected = {k: 0 if plain else n * (warmup + steps)
-                for k, n in PER_STEP[path].items()}
-    if launches != expected:
-        raise AssertionError(f"{path} path: kernel launches {launches}, "
-                             f"expected {expected}")
+    kernels = nonhydrostatic.PLAIN if plain else None
+    state, per_step, launches = run_steps(
+        path, model, state, lambda s: model.step(s, dt, kernels), warmup,
+        steps, plain)
     return model, state, per_step, launches
 
 
-def divergence_ratio(model, state):
-    """max|∇·u|·Δx / max|u| over the interior of a filled state."""
+def divergence_ratio(model, state, uniform=False):
+    """max|∇·u|·Δx / max|u| over the interior of a filled state; with
+    ``uniform``, of ∇·u minus its domain mean."""
     g = model.grid
     sol = state["solution"]
     (hx, hy, hz), (nx, ny, nz) = g.halo, g.shape
@@ -269,38 +401,55 @@ def divergence_ratio(model, state):
     div = ((cut(u, di=1) - cut(u)) / (g.Lx / nx)
            + (cut(v, dj=1) - cut(v)) / (g.Ly / ny)
            + (cut(w, dk=1) - cut(w)) / (g.Lz / nz))
+    if uniform:
+        div = div - div.double().mean()
     umax = max(float(cut(a).abs().max()) for a in (u, v, w))
     return float(div.abs().max()) * (g.Lx / nx) / umax
 
 
-def phase_path(path):
-    """One path with the kernels, checked, then with the plain versions;
-    returns the kernel run's launch counts."""
-    model, state, per_step, launches = drive(path, plain=False)
+def agreement(path, steps, kernel_fields, model, state):
+    """max over fields of max|Δ|/max|field| between the kernel run's
+    interiors and ``state``'s; raises above the path's ``AGREE``."""
+    rel = {k: float((kernel_fields[k] - model.grid.interior(a)).abs().max())
+           / float(model.grid.interior(a).abs().max())
+           for k, a in state["solution"].items()}
+    name = max(rel, key=rel.get)
+    if not rel[name] <= AGREE[path]:
+        raise AssertionError(f"{path}: kernel and plain runs differ by "
+                             f"{rel[name]:.3e} of max|{name}| after {steps} "
+                             f"steps ({rel})")
+    return rel[name]
+
+
+def check_finite(path, model, state, keys=()):
     for name, a in state["solution"].items():
         if tuple(a.shape) != model.grid.total_shape or not bool(torch.isfinite(a).all()):
             raise AssertionError(f"{path} {name}: shape {tuple(a.shape)} or "
                                  "non-finite values")
-    for key in ("pHY", "pNHS"):
+    for key in keys:
         if not bool(torch.isfinite(state[key]).all()):
             raise AssertionError(f"{path} {key}: non-finite values")
-    ratio = divergence_ratio(model, state)
+
+
+def phase_path(path):
+    """One 256³ path with the kernels, checked, then with the plain
+    versions; returns the kernel run's launch counts."""
+    model, state, per_step, launches = drive(path, plain=False)
+    check_finite(path, model, state, ("pHY", "pNHS"))
+    uniform = path == "general projection"
+    ratio = divergence_ratio(model, state, uniform)
+    what = "max|div u - mean|*dx/max|u|" if uniform else "max|div u|*dx/max|u|"
     if not ratio <= 1e-5:
-        raise AssertionError(f"{path}: max|div u|*dx/max|u| = {ratio:.3e} > 1e-5")
+        raise AssertionError(f"{path}: {what} = {ratio:.3e} > 1e-5")
     _, _, warmup, steps, _ = PATHS[path]
+    used = {k: n for k, n in launches.items() if n}
     print(f"{path} path: {N}^3 fp32, {steps} steps: {per_step * 1e3:.3f} ms/step, "
-          f"{N ** 3 / per_step:.6e} grid points/s, launches {launches} in "
-          f"{warmup + steps} steps, max|div u|*dx/max|u| {ratio:.3e}")
+          f"{N ** 3 / per_step:.6e} grid points/s, launches {used} in "
+          f"{warmup + steps} steps, {what} {ratio:.3e}")
     kernel_u = {k: model.grid.interior(a) for k, a in state["solution"].items()}
     del state
     model, state, plain_step, _ = drive(path, plain=True)
-    worst = max(float((kernel_u[k] - model.grid.interior(a)).abs().max())
-                / float(model.grid.interior(a).abs().max())
-                for k, a in state["solution"].items())
-    if not worst <= 1e-4:
-        raise AssertionError(f"{path}: kernel and plain runs differ by "
-                             f"{worst:.3e} of max|field| after "
-                             f"{warmup + steps} steps")
+    worst = agreement(path, warmup + steps, kernel_u, model, state)
     print(f"{path} path: plain versions: {plain_step * 1e3:.3f} ms/step, "
           f"{N ** 3 / plain_step:.6e} grid points/s; kernel and plain runs "
           f"agree to {worst:.3e} of max|field|")
@@ -309,21 +458,87 @@ def phase_path(path):
     return launches
 
 
+def drive_shallow_water(plain):
+    """The 16384² shallow-water headline, run with K3a or (``plain``) its
+    plain version; returns (model, state, s per step, launches, Σh₀)."""
+    dt, warmup, steps = SW_PATH
+    grid = RectilinearGrid(size=(N_SW, N_SW, 1), x=(0, 2 * math.pi),
+                           y=(0, 2 * math.pi), topology=(PERIODIC, PERIODIC, FLAT),
+                           dtype=torch.float32, device=DEVICE)
+    model = ShallowWaterModel(grid, gravitational_acceleration=10.0,
+                              advection=WENO5())
+    state = model.initial_state(
+        uh=lambda x, y, z: 0.1 * torch.sin(x) * torch.cos(y), h=1.0)
+    mass0 = float(model.grid.interior(state["solution"]["h"]).double().sum())
+    kernels = shallow_water.PLAIN if plain else None
+    state, per_step, launches = run_steps(
+        "shallow water", model, state, lambda s: model.step(s, dt, kernels),
+        warmup, steps, plain)
+    return model, state, per_step, launches, mass0
+
+
+def phase_shallow_water():
+    """The shallow-water path with K3a, checked, then with its plain
+    version; returns the kernel run's launch counts and K3a's and its
+    plain version's ms on the path's fields."""
+    _, warmup, steps = SW_PATH
+    model, state, per_step, launches, mass0 = drive_shallow_water(plain=False)
+    check_finite("shallow water", model, state)
+    mass = float(model.grid.interior(state["solution"]["h"]).double().sum())
+    drift = abs(mass - mass0) / abs(mass0)
+    if not drift <= 1e-6:
+        raise AssertionError(f"shallow water: sum(h) drifted by {drift:.3e}")
+    print(f"shallow-water path: {N_SW}^2 fp32, {steps} steps: "
+          f"{per_step * 1e3:.3f} ms/step, {N_SW ** 2 / per_step:.6e} grid "
+          f"points/s, launches {launches[K3A]} K3a in {warmup + steps} steps "
+          f"(no other), sum(h) drift {drift:.3e}")
+    # K3a's time on the path's own fields: smooth, with vh ~ 1e-6, where
+    # the random inputs of phase 5 are not
+    sol = state["solution"]
+    args = (model.grid, model.advection, model.tracer_advection, model.g,
+            sol["uh"], sol["vh"], sol["h"])
+    ms = cuda_ms(lambda: fused_shallow_water_tendencies(*args), 20)
+    plain_ms = cuda_ms(lambda: fused_shallow_water_tendencies_reference(*args), 3)
+    print(f"K3a {N_SW}x{N_SW} float32 on the path's fields time: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events)")
+    kernel_u = {k: model.grid.interior(a).clone()
+                for k, a in state["solution"].items()}
+    del state, sol, args
+    torch.cuda.empty_cache()
+    model, state, plain_step, _, _ = drive_shallow_water(plain=True)
+    worst = agreement("shallow water", warmup + steps, kernel_u, model, state)
+    print(f"shallow-water path: plain version: {plain_step * 1e3:.3f} ms/step, "
+          f"{N_SW ** 2 / plain_step:.6e} grid points/s; kernel and plain runs "
+          f"agree to {worst:.3e} of max|field|")
+    del model, state, kernel_u
+    torch.cuda.empty_cache()
+    return launches, ms, plain_ms
+
+
 def main():
     phase_device()
     phase_build()
-    k1 = phase_k1()
-    k2 = phase_k2()
+    measured = {K1: phase_k1(), K2: phase_k2(), K3A: phase_k3a()}
+    measured[K3B], measured[K3C] = phase_k3bc()
     launches = {K1: phase_path("AB2")[K1], K2: phase_path("RK3")[K2]}
+    sw_launches, ms, plain_ms = phase_shallow_water()
+    launches[K3A] = sw_launches[K3A]
+    measured[K3A] = (measured[K3A][0], ms, plain_ms)  # times on the path's fields
+    general = phase_path("general projection")
+    launches.update({K3B: general[K3B], K3C: general[K3C]})
+    replaces = {K1: "clima_oceananigans_jl_tpu/ops/fused_step.py:129",
+                K2: "clima_oceananigans_jl_tpu/ops/fused_tendencies.py:397"}
     records = []
-    for name, (err, ms, plain_ms), replaces in (
-            (K1, k1, "clima_oceananigans_jl_tpu/ops/fused_step.py:129"),
-            (K2, k2, "clima_oceananigans_jl_tpu/ops/fused_tendencies.py:397")):
+    for name, (err, ms, plain_ms) in measured.items():
         records.append({
             "name": name, "route": "cuda",
-            "source": f"clima_oceananigans_jl_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+            "source": f"clima_oceananigans_jl_torch/csrc/{SOURCES[name]}.cu",
+            "replaces": replaces.get(
+                name, "clima_oceananigans_jl_tpu/ops/fused_tendencies.py:238"),
+            "launches": launches[name], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms})
+    if not all(r["launches"] > 0 for r in records):
+        raise AssertionError(f"a kernel was never launched on its path: {records}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

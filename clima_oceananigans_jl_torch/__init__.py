@@ -3,11 +3,14 @@
 The JAX package beside this one is the reference; this package keeps its
 module paths, constructor API and ``state`` layout. So far it runs the
 nonhydrostatic model (WENO5 or centred advection, buoyancy tracer,
-f/β-plane Coriolis, constant scalar diffusivity, FFT projection) with its
-quasi-AB2 and RK3 steps, and two hand-written CUDA kernels for Hopper: the
-fused AB2 advance (``csrc/fused_ab2_advance.cu``) and the fused advective
-tendencies (``csrc/fused_advective_tendencies.cu``). Importing it needs no
-GPU: a kernel is compiled at its first launch on a CUDA tensor.
+f/β-plane Coriolis, constant scalar diffusivity, the roll-based and the
+general FFT projection) with its quasi-AB2 and RK3 steps, and the
+shallow-water model in its conservative and vector-invariant forms, with
+hand-written CUDA kernels for Hopper in ``csrc/``: the fused AB2 advance
+(K1), the fused advective tendencies (K2), the shallow-water core (K3a)
+and the general projection's divergence and gradient (K3b, K3c).
+Importing it needs no GPU: a kernel is compiled at its first launch on a
+CUDA tensor.
 """
 
 from .grids.topology import BOUNDED, FLAT, PERIODIC, Topology
@@ -19,6 +22,7 @@ from .boundary_conditions.bcs import (
 )
 from .fields.field import Field, new_field, set_field
 from .advection.schemes import CenteredSecondOrder, WENO5
+from .advection.vector_invariant import VectorInvariant
 from .buoyancy.buoyancy import BuoyancyTracer
 from .coriolis.coriolis import BetaPlane, FPlane
 from .closures.scalar_diffusivity import (HorizontalScalarDiffusivity,
@@ -26,3 +30,4 @@ from .closures.scalar_diffusivity import (HorizontalScalarDiffusivity,
                                           VerticalScalarDiffusivity)
 from .timesteppers.steppers import Clock
 from .models.nonhydrostatic import NonhydrostaticModel
+from .models.shallow_water import ShallowWaterModel

@@ -71,9 +71,41 @@ class WENO5(AdvectionScheme):
         b0 = (13.0 / 12.0) * d20 * d20 + 0.25 * (s0 * s0)
         b1 = (13.0 / 12.0) * d21 * d21 + 0.25 * (s1 * s1)
         b2 = (13.0 / 12.0) * d22 * d22 + 0.25 * (s2 * s2)
-        p0 = a2 + (5.0 * d11 - 2.0 * d10) / 6.0
-        p1 = a2 + (2.0 * d12 + d11) / 6.0
-        p2 = a2 + (4.0 * d12 - d13) / 6.0
+        return self._combine(*self._candidates(a2, d10, d11, d12, d13),
+                             b0, b1, b2)
+
+    @staticmethod
+    def _candidates(a2, d10, d11, d12, d13):
+        """The three candidate polynomials p0, p1, p2. The divisor 6 is a
+        tensor on the data's device: PyTorch's CUDA kernels turn a Python
+        scalar divisor into a multiply by its reciprocal, which rounds
+        differently from the IEEE division of the JAX package and the
+        kernels."""
+        six = torch.full((), 6.0, dtype=a2.dtype, device=a2.device)
+        return (a2 + (5.0 * d11 - 2.0 * d10) / six,
+                a2 + (2.0 * d12 + d11) / six,
+                a2 + (4.0 * d12 - d13) / six)
+
+    def stream_reconstruct_smooth(self, a, smooth_streams):
+        """``stream_reconstruct`` of the candidate stream ``a`` with
+        nonlinear weights from the mean Jiang-Shu smoothness of the
+        upwind-ordered ``smooth_streams`` (Oceananigans' VelocityStencil,
+        weno_fifth_order.jl:405-440)."""
+        a0, a1, a2, a3, a4 = a
+        d10, d11, d12, d13 = a1 - a0, a2 - a1, a3 - a2, a4 - a3
+        p0, p1, p2 = self._candidates(a2, d10, d11, d12, d13)
+        bs = []
+        for v0, v1, v2, v3, v4 in smooth_streams:
+            e10, e11, e12, e13 = v1 - v0, v2 - v1, v3 - v2, v4 - v3
+            e20, e21, e22 = e11 - e10, e12 - e11, e13 - e12
+            s0, s1, s2 = e20 + 2.0 * e11, e11 + e12, e22 - 2.0 * e12
+            bs.append(((13.0 / 12.0) * e20 * e20 + 0.25 * (s0 * s0),
+                       (13.0 / 12.0) * e21 * e21 + 0.25 * (s1 * s1),
+                       (13.0 / 12.0) * e22 * e22 + 0.25 * (s2 * s2)))
+        count = torch.full((), float(len(bs)), dtype=a2.dtype, device=a2.device)
+        b0 = sum(b[0] for b in bs) / count
+        b1 = sum(b[1] for b in bs) / count
+        b2 = sum(b[2] for b in bs) / count
         return self._combine(p0, p1, p2, b0, b1, b2)
 
     def _nl_weights(self, b0, b1, b2):

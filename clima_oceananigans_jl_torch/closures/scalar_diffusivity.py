@@ -14,10 +14,12 @@ vertically implicit time discretization.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
 
+from ..grids.topology import FLAT
 from ..ops import operators as op
 from ..utils.location import CENTER
 
@@ -111,3 +113,38 @@ def tracer_diffusion(c, grid, name, closure, diffusivities=None):
     return div_kappa_grad(c, grid, CENTER, closure.kappa_for(name),
                           closure.kappa_z_for(name),
                           vertical=not closure.vertically_implicit)
+
+
+def _max_diffusivity(value, tracer_names=()):
+    """max |ν| or |κ| of a scalar or a per-tracer dict."""
+    if value is None:
+        return 0.0
+    if isinstance(value, dict):
+        names = tracer_names or tuple(value)
+        return max((abs(float(value.get(n, 0.0))) for n in names), default=0.0)
+    return abs(float(value))
+
+
+def cell_diffusion_timescale(closure, grid, diffusivities=None,
+                             tracer_names=()):
+    """min Δ²/max(ν, κ): horizontal diffusivities limited by the smallest
+    horizontal spacing, vertical ones by Δz; a vertically implicit part
+    does not limit. +inf when nothing limits."""
+    if closure is None:
+        return math.inf
+    if not isinstance(closure, ScalarDiffusivity):
+        raise _not_ported(closure)
+    spacing = lambda a: float(grid.spacing(a, CENTER).min())
+    h_sp = [spacing(a) for a in (0, 1) if grid.topology[a] is not FLAT]
+    dh = min(h_sp) if h_sp else math.inf
+    dz = spacing(2) if grid.topology[2] is not FLAT else math.inf
+    ts = lambda delta, kap: (delta ** 2 / kap if kap > 0.0 and math.isfinite(delta)
+                             else math.inf)
+    t = ts(dh, max(_max_diffusivity(closure.nu),
+                   _max_diffusivity(closure.kappa, tracer_names)))
+    if not closure.vertically_implicit:
+        nu_z = closure.nu_z if closure.nu_z is not None else closure.nu
+        kz = closure.kappa_z if closure.kappa_z is not None else closure.kappa
+        t = min(t, ts(dz, max(_max_diffusivity(nu_z),
+                              _max_diffusivity(kz, tracer_names))))
+    return t

@@ -1,9 +1,9 @@
 """State exchange with the JAX package, through numpy.
 
-``state_from_numpy`` turns a JAX ``NonhydrostaticModel`` state whose
-leaves went through ``np.asarray`` (for instance
-``jax.tree_util.tree_map(np.asarray, state)``) into this package's state
-for ``model``:
+``state_from_numpy`` turns a JAX ``NonhydrostaticModel`` or
+``ShallowWaterModel`` state whose leaves went through ``np.asarray`` (for
+instance ``jax.tree_util.tree_map(np.asarray, state)``) into this
+package's state for ``model``:
 
 - with-halo arrays are cut to their interiors, whatever halo the JAX
   model used (its fused path rounds the y halo up to 4), placed in the
@@ -11,7 +11,8 @@ for ``model``:
 - ``G_prev`` takes the layout ``model`` steps with (halo-free when
   ``model.g_interior``, else with zero halos), from either JAX layout;
 - ``pNHS`` keeps zero halos, as the projection stores it;
-- the 0-d ``clock`` and ``previous_dt`` leaves become host numbers.
+- the 0-d ``clock`` and ``previous_dt`` leaves become host numbers;
+- a shallow-water state (RK3) has ``solution`` and ``clock`` only.
 
 ``state_to_numpy`` goes the other way, keeping the port's layout (halo
 3, ``G_prev`` as the model keeps it), which the JAX package's plain step
@@ -49,12 +50,14 @@ def state_from_numpy(model, state):
     sol = {n: fill_halos(g.pad(as_t(state["solution"][n])), g, locs[n],
                          model.bcs[n], t)
            for n in model.prognostic_names()}
-    gp = {n: as_t(state["G_prev"][n]).contiguous()
-          for n in model.prognostic_names()}
     out = dict(solution=sol,
                clock=Clock(t, int(np.asarray(clock.iteration)),
-                           int(getattr(clock, "stage", 0))),
-               G_prev=gp if model.g_interior else
+                           int(np.asarray(getattr(clock, "stage", 0)))))
+    if not hasattr(model, "pressure_solver"):  # shallow water
+        return out
+    gp = {n: as_t(state["G_prev"][n]).contiguous()
+          for n in model.prognostic_names()}
+    out.update(G_prev=gp if model.g_interior else
                {n: g.pad(x) for n, x in gp.items()},
                pNHS=g.pad(as_t(state["pNHS"])),
                previous_dt=float(np.asarray(state["previous_dt"])))
@@ -69,12 +72,13 @@ def state_to_numpy(state):
     ``Clock`` of 0-d numpy leaves."""
     np_of = lambda x: x.detach().cpu().numpy()
     out = {k: {n: np_of(x) for n, x in state[k].items()}
-           for k in ("solution", "G_prev")}
+           for k in ("solution", "G_prev") if k in state}
     for k in ("pNHS", "pHY"):
         if k in state:
             out[k] = np_of(state[k])
-    dtype = np_of(state["pNHS"]).dtype
+    dtype = next(iter(out["solution"].values())).dtype
     out["clock"] = Clock(np.asarray(state["clock"].time, dtype),
                          np.asarray(state["clock"].iteration, np.int32))
-    out["previous_dt"] = np.asarray(state["previous_dt"], dtype)
+    if "previous_dt" in state:
+        out["previous_dt"] = np.asarray(state["previous_dt"], dtype)
     return out

@@ -22,9 +22,13 @@ Time stepping, as the JAX package runs it on the TPU:
 
 ``tendencies`` computes the advection of every field through
 ``fused_advective_tendencies`` (kernel K2 on the GPU) and adds Coriolis,
-−∂pHY′ and diffusion with PyTorch ops. A configuration the port cannot
-run (other Coriolis or closures, forcing, immersed boundaries, bounded
-x or y, ...) raises ``NotImplementedError`` at construction.
+−∂pHY′ and diffusion with PyTorch ops. ``project_velocities`` takes the
+roll-based projection where the JAX package does (periodic x and y, w
+walls that are imposed values), and otherwise the general projection:
+halo fills, ``fused_divergence`` (K3b), the FFT solve and
+``fused_pressure_gradient`` (K3c). A configuration the port cannot run
+(other Coriolis or closures, forcing, immersed boundaries, bounded x or
+y, ...) raises ``NotImplementedError`` at construction.
 
 State: the JAX package's keys and shapes. ``solution`` holds with-halo
 tensors; ``G_prev`` is halo-free (nx, ny, nz) when ``g_interior`` holds
@@ -47,13 +51,36 @@ from ..closures.scalar_diffusivity import (compute_closure_diffusivities,
 from ..fields.field import new_field, set_field
 from ..grids.topology import BOUNDED, PERIODIC
 from ..ops import stencil as st
-from ..ops.fused_step import (fused_ab2_advance, fused_step_ok,
-                              unsupported_reason)
-from ..ops.fused_tendencies import fused_advective_tendencies, z_halo_free_ok
+from ..ops.fused_step import (fused_ab2_advance, fused_ab2_advance_reference,
+                              fused_step_ok, unsupported_reason)
+from ..ops.fused_tendencies import (fused_advective_tendencies,
+                                    fused_advective_tendencies_reference,
+                                    fused_divergence,
+                                    fused_divergence_reference,
+                                    fused_pressure_gradient,
+                                    fused_pressure_gradient_reference,
+                                    z_halo_free_ok)
 from ..solvers.fft_poisson import FFTPoissonSolver
 from ..timesteppers.steppers import (RK3_GAMMA, RK3_ZETA, Clock, ab2_substep,
                                      rk3_substep)
 from ..utils.location import CENTER, U_LOC, V_LOC, W_LOC
+
+#: the kernels' wrappers a step calls, by name: the fused AB2 advance (K1),
+#: the advection of every ``tendencies`` call (K2) and the general
+#: projection's divergence (K3b) and gradient (K3c)
+KERNELS = dict(advance=fused_ab2_advance, advect=fused_advective_tendencies,
+               divergence=fused_divergence, gradient=fused_pressure_gradient)
+#: their plain versions: ``step(..., kernels=PLAIN)`` runs a step without
+#: the kernels on the card
+PLAIN = dict(advance=fused_ab2_advance_reference,
+             advect=fused_advective_tendencies_reference,
+             divergence=fused_divergence_reference,
+             gradient=fused_pressure_gradient_reference)
+
+
+def _kernels(kernels):
+    """``KERNELS`` with the entries of ``kernels`` in place of theirs."""
+    return dict(KERNELS, **(kernels or {}))
 
 
 class NonhydrostaticModel:
@@ -159,15 +186,14 @@ class NonhydrostaticModel:
         return state
 
     # -- tendencies ---------------------------------------------------------------
-    def tendencies(self, state, advect=fused_advective_tendencies):
+    def tendencies(self, state, kernels=None):
         """With-halo tendencies G of every prognostic field (valid on the
         interior), in the JAX term order: advection → Coriolis → −∂pHY′ →
         diffusion, then boundary fluxes. The advection of every field is
         one fused call, as the JAX model makes it on the TPU
         (``supports_fused_advection`` holds for every grid the port
-        accepts). ``advect`` is the wrapper by default;
-        ``ops.fused_tendencies.fused_advective_tendencies_reference`` runs
-        the plain version on the card."""
+        accepts), through ``kernels["advect"]`` (``_kernels``)."""
+        advect = _kernels(kernels)["advect"]
         grid = self.grid
         sol = state["solution"]
         u, v, w = sol["u"], sol["v"], sol["w"]
@@ -203,8 +229,8 @@ class NonhydrostaticModel:
     # -- pressure projection --------------------------------------------------
     def _fast_projection_ok(self):
         """The roll-based projection applies: periodic x and y, periodic
-        or bounded z, and w-wall BCs that are imposed values. The
-        constructor refuses every other configuration."""
+        or bounded z, and w-wall BCs that are imposed values. Otherwise
+        ``project_velocities`` takes the general projection."""
         g = self.grid
         if not (g.topology[0] is PERIODIC and g.topology[1] is PERIODIC
                 and g.topology[2] in (PERIODIC, BOUNDED)):
@@ -256,12 +282,14 @@ class NonhydrostaticModel:
             gz = (phi - torch.roll(phi, 1, 2)) / ddz
         return ui - dt * gx, vi - dt * gy, wi - dt * gz, phi
 
-    def project_velocities(self, state, dt):
-        """Make (u, v, w) divergence-free through the roll-based
-        projection on interior views; returns a new state whose u, v, w
-        are copies with corrected interiors (halos as they were) and whose
-        pNHS has zero halos. The general projection is not ported; the
-        constructor refuses the configurations that need it."""
+    def project_velocities(self, state, dt, kernels=None):
+        """Make (u, v, w) divergence-free; returns a new state and writes
+        into none of its inputs. The roll-based projection on interior
+        views where ``_fast_projection_ok`` holds: u, v, w are copies with
+        corrected interiors (halos as they were), pNHS has zero halos.
+        Otherwise ``_project_velocities_general`` with ``kernels``."""
+        if not self._fast_projection_ok():
+            return self._project_velocities_general(state, dt, kernels)
         grid = self.grid
         sol = dict(state["solution"])
         ui, vi, wi, phi = self._fast_project_interior(
@@ -272,50 +300,68 @@ class NonhydrostaticModel:
             sol[name][grid.interior_slices] = x
         return dict(state, solution=sol, pNHS=grid.pad(phi))
 
-    # -- stepping ---------------------------------------------------------------
-    def step(self, state, dt, advance=fused_ab2_advance,
-             advect=fused_advective_tendencies):
-        """One step of the model's time stepper. ``advance`` (fused AB2
-        branch) and ``advect`` (every ``tendencies`` call) are the kernels'
-        wrappers by default; their plain versions
-        (``ops.fused_step.fused_ab2_advance_reference``,
-        ``ops.fused_tendencies.fused_advective_tendencies_reference``)
-        time the step without the kernels on the card."""
-        if self.timestepper == "RungeKutta3":
-            return self._rk3_step(state, dt, advect)
-        return self._ab2_step(state, dt, advance, advect)
+    def _project_velocities_general(self, state, dt, kernels=None):
+        """The general projection: fill the halos of copies of u, v, w,
+        their divergence through ``kernels["divergence"]`` (K3b), the FFT
+        solve, pNHS with halos filled under ``pressure_bcs``, its gradient
+        through ``kernels["gradient"]`` (K3c), and the correction over the
+        with-halo arrays."""
+        k = _kernels(kernels)
+        divergence, gradient = k["divergence"], k["gradient"]
+        grid = self.grid
+        t = state["clock"].time
+        locs = self._locs()
+        sol = dict(state["solution"])
+        u, v, w = (fill_halos(sol[n].clone(), grid, locs[n], self.bcs[n], t)
+                   for n in ("u", "v", "w"))
+        phi = self.pressure_solver.solve(divergence(grid, u, v, w) / dt)
+        pNHS = fill_halos(grid.pad(phi), grid, CENTER, self.pressure_bcs)
+        gx, gy, gz = gradient(grid, pNHS)
+        sol.update(u=u - dt * gx, v=v - dt * gy, w=w - dt * gz)
+        return dict(state, solution=sol, pNHS=pNHS)
 
-    def _ab2_step(self, state, dt, advance, advect):
+    # -- stepping ---------------------------------------------------------------
+    def step(self, state, dt, kernels=None):
+        """One step of the model's time stepper, through the kernels'
+        wrappers ``KERNELS``; ``kernels`` replaces some or all of them by
+        name (``PLAIN``: the plain versions)."""
+        kernels = _kernels(kernels)
+        if self.timestepper == "RungeKutta3":
+            return self._rk3_step(state, dt, kernels)
+        return self._ab2_step(state, dt, kernels)
+
+    def _ab2_step(self, state, dt, kernels):
         """One quasi-AB2 step (Euler at iteration 0 and when Δt changed)."""
         grid = self.grid
         clock0 = state["clock"]
         euler = clock0.iteration == 0 or abs(state["previous_dt"] - dt) > 1e-14
         state = dict(state, G_prev=self._g_prev_in_layout(state["G_prev"]))
         if self.fused_step:
-            sol, G = advance(self, state, dt, euler)
+            sol, G = kernels["advance"](self, state, dt, euler)
             ui, vi, wi, phi = self._fast_project_interior(
                 sol["u"], sol["v"], sol["w"], clock0.time, dt)
             sol = dict(sol, u=ui, v=vi, w=wi)
             state = dict(state, solution={k: grid.pad(x) for k, x in sol.items()},
                          pNHS=grid.pad(phi))
         else:
-            G = self.tendencies(state, advect)
+            G = self.tendencies(state, kernels)
             sol = ab2_substep(state["solution"], G, state["G_prev"], dt,
                               self.ab2_chi, euler)
             sol = implicit_step_fields(sol, grid, self._locs(), self.closure,
                                        dt, state.get("diffusivities"),
                                        self.bcs, clock0.time)
-            state = self.project_velocities(dict(state, solution=sol), dt)
+            state = self.project_velocities(dict(state, solution=sol), dt,
+                                            kernels)
         state = dict(state, clock=clock0.tick(dt), G_prev=G,
                      previous_dt=float(dt))
         return self.update_state(state)
 
-    def _rk3_step(self, state, dt, advect):
+    def _rk3_step(self, state, dt, kernels):
         """One low-storage RK3 step: three stages, each projected."""
         clock0 = state["clock"]
         G_prev = None
         for gamma, zeta in zip(RK3_GAMMA, RK3_ZETA):
-            G = self.tendencies(state, advect)
+            G = self.tendencies(state, kernels)
             sol = rk3_substep(state["solution"], G, G_prev, dt, gamma, zeta)
             stage_dt = (gamma + zeta) * dt
             sol = implicit_step_fields(sol, self.grid, self._locs(),
@@ -323,7 +369,7 @@ class NonhydrostaticModel:
                                        state.get("diffusivities"), self.bcs,
                                        clock0.time)
             state = self.project_velocities(dict(state, solution=sol),
-                                            stage_dt)
+                                            stage_dt, kernels)
             state = dict(state, clock=state["clock"].tick(stage_dt, stage=True))
             state = self.update_state(state)
             G_prev = G

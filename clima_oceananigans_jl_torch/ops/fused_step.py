@@ -22,13 +22,13 @@ import torch
 
 from ..closures.scalar_diffusivity import ScalarDiffusivity
 from ..coriolis.coriolis import BetaPlane, FPlane
-from ..grids.topology import BOUNDED
+from ..grids.topology import BOUNDED, PERIODIC
 from ..timesteppers.steppers import ab2_coefficients, ab2_substep
 from ..utils.location import U_LOC, V_LOC
-from . import _build
 from .fused_tendencies import (ADVECTION_ARGTYPES, advection_args,
                                check_tensor,
-                               fused_advective_tendencies_reference, pointers)
+                               fused_advective_tendencies_reference, kernel_fn,
+                               launch, pointers)
 
 _LATER = "(ROADMAP Queue 1 item 4)"
 
@@ -69,9 +69,16 @@ def unsupported_reason(model):
     b = model.buoyancy
     if b is not None and tuple(b.gravity_unit_vector) != (0.0, 0.0, -1.0):
         return f"tilted gravity is not ported yet {_LATER}"
-    if not model._fast_projection_ok():
-        return ("the general projection (bounded x or y, or w walls that "
-                f"are not imposed values) is not ported yet {_LATER}")
+    topo = model.grid.topology
+    if not (topo[0] is PERIODIC and topo[1] is PERIODIC
+            and topo[2] in (PERIODIC, BOUNDED)):
+        names = tuple(t.value for t in topo)
+        return (f"topology {names} is not ported yet (bounded x or y: the "
+                "JAX package runs it with fused_advection=False, its "
+                f"advection outside K2) {_LATER}")
+    if not model._fast_projection_ok() and fused_step_ok(model):
+        return ("the general projection after the fused AB2 advance (w walls "
+                f"that are not imposed values) is not ported yet {_LATER}")
     for name in model.prognostic_names():
         for _axis, _side, bc in model.bcs[name].sides():
             if bc is not None and bc.kind == "flux" and bc.value is not None:
@@ -122,23 +129,13 @@ def fused_ab2_advance_reference(model, state, dt, euler):
     ``(psi_new, G)``: halo-free ψ′, G in the model's ``G_prev`` layout."""
     grid = model.grid
     G = {k: grid.interior(g).contiguous() for k, g in model.tendencies(
-        state, advect=fused_advective_tendencies_reference).items()}
+        state, {"advect": fused_advective_tendencies_reference}).items()}
     sol = {k: grid.interior(v) for k, v in state["solution"].items()}
     gp = {k: grid.interior(g) for k, g in state["G_prev"].items()}
     psi = ab2_substep(sol, G, gp, dt, model.ab2_chi, euler)
     if not model.g_interior:
         G = {k: grid.pad(g) for k, g in G.items()}
     return psi, G
-
-
-def _kernel_fn(dtype):
-    lib = _build.load("fused_ab2_advance")
-    fn = (lib.fused_ab2_advance_f32 if dtype == torch.float32
-          else lib.fused_ab2_advance_f64)
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] + ADVECTION_ARGTYPES
-                   + [ctypes.c_double] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _coriolis_rows(model):
@@ -189,16 +186,13 @@ def _launch(model, state, dt, euler):
     out_g = [torch.zeros(g_shape, dtype=dtype, device=device) for _ in names]
     c1, c2 = ab2_coefficients(model.ab2_chi, euler)
     ptr = lambda t: None if t is None else t.data_ptr()
-    fn = _kernel_fn(dtype)
-    with torch.cuda.device(device):  # launch on the tensors' card
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(pointers([sol[n] for n in names]), pointers([gp[n] for n in names]),
-                pointers(out_psi), pointers(out_g), ptr(ph), ptr(fu), ptr(fv),
-                kh, kz, int(not model.g_interior), *args, c1, c2, float(dt),
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_ab2_advance kernel launch failed: CUDA "
-                           f"error {rc}")
+    fn = kernel_fn("fused_ab2_advance", "fused_ab2_advance", dtype,
+                   [ctypes.c_void_p] * 9 + [ctypes.c_int] + ADVECTION_ARGTYPES
+                   + [ctypes.c_double] * 3)
+    launch("fused_ab2_advance", fn, device,
+           pointers([sol[n] for n in names]), pointers([gp[n] for n in names]),
+           pointers(out_psi), pointers(out_g), ptr(ph), ptr(fu), ptr(fv),
+           kh, kz, int(not model.g_interior), *args, c1, c2, float(dt))
     fused_ab2_advance.launches += 1
     return dict(zip(names, out_psi)), dict(zip(names, out_g))
 

@@ -1,17 +1,27 @@
-"""Fused advective tendencies: −∇·(vψ) of u, v, w and every tracer in one
-kernel launch.
+"""Fused stencil kernels of the models' tendencies and projection.
 
-Counterpart of ``clima_oceananigans_jl_tpu/ops/fused_tendencies.py``
-(``supports_fused_advection``, ``z_halo_free_ok`` and the Pallas kernel
-``fused_advective_tendencies``). The result is what the JAX function
-returns: a dict of with-halo tensors, valid on the interior.
+Counterpart of ``clima_oceananigans_jl_tpu/ops/fused_tendencies.py``:
 
-``fused_advective_tendencies`` is the wrapper: on CUDA tensors it launches
-the hand-written kernel ``csrc/fused_advective_tendencies.cu`` (or
-raises), on CPU tensors it runs ``fused_advective_tendencies_reference``,
-the same function in plain PyTorch (the ``div_*`` fluxes of
-``advection/fluxes.py``). The kernel's halos are zero; the plain
-version's hold whatever the whole-array stencils left there.
+- K2, the Pallas kernel ``fused_advective_tendencies``: −∇·(vψ) of u, v,
+  w and every tracer of the nonhydrostatic model in one launch
+  (``csrc/fused_advective_tendencies.cu``), with
+  ``supports_fused_advection`` and ``z_halo_free_ok``;
+- K3, the generic tiler ``pallas_fuse``, as one concrete kernel for each
+  of its three users:
+  - K3a ``fused_shallow_water_tendencies``, the shallow-water core
+    (``_core_tendencies``: Guh, Gvh, Gh and the tracers;
+    ``csrc/fused_shallow_water_tendencies.cu``);
+  - K3b ``fused_divergence``, ``div_ccc(u, v, w)`` of the general
+    projection, and K3c ``fused_pressure_gradient``, ∇pNHS on the u, v,
+    w faces (both ``csrc/fused_projection.cu``).
+
+Each wrapper, on CUDA tensors, launches its hand-written kernel (or
+raises; nothing falls back), and on CPU tensors runs its plain PyTorch
+version ``<name>_reference``, the JAX package's whole-array stencils. The
+kernels write interiors (K2 also w's top wall face on a bounded z axis)
+and leave zero halos; the plain versions' halos hold whatever the
+whole-array stencils left there. Each wrapper counts
+its kernel launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -20,9 +30,13 @@ import ctypes
 import torch
 
 from ..advection.fluxes import div_Uc, div_vu, div_vv, div_vw
-from ..advection.schemes import CenteredSecondOrder, WENO5, reduced_order_masks
-from ..grids.topology import BOUNDED, PERIODIC
+from ..advection.schemes import (CenteredSecondOrder, WENO5,
+                                 reduced_order_masks, transport)
+from ..grids.topology import BOUNDED, FLAT, PERIODIC
+from ..utils.location import C, CENTER, F, U_LOC, V_LOC, W_LOC
 from . import _build
+from . import operators as op
+from . import stencil as st
 
 
 def supports_fused_advection(grid):
@@ -75,6 +89,15 @@ def kernel_scheme(scheme):
                      f"advection, not {type(scheme).__name__}")
 
 
+def axis_bounds(grid, axis, weno):
+    """(masked, lo_l, hi_l, lo_r, hi_r) of WENO5's near-wall order
+    reduction along ``axis``: the with-halo bounds of
+    ``reduced_order_masks``, or (0, 0, -1, 0, -1) where nothing reduces."""
+    masks = reduced_order_masks(grid, axis, weno)
+    (_, (lo_l, hi_l), (lo_r, hi_r)) = masks or (None, (0, -1), (0, -1))
+    return int(masks is not None), lo_l, hi_l, lo_r, hi_r
+
+
 def advection_args(grid, scheme, tracer_scheme, nf):
     """The shared advection arguments of K1 and K2 after the pointer
     arrays: field count, sizes, halos, schemes, z masks, eps, spacings."""
@@ -86,10 +109,8 @@ def advection_args(grid, scheme, tracer_scheme, nf):
     weno_t, eps_t = kernel_scheme(tracer_scheme)
     # every WENO5 has the same near-wall bounds; centred schemes have none
     weno = scheme if weno_m else tracer_scheme
-    masks = reduced_order_masks(grid, 2, weno)
-    (_, (lo_l, hi_l), (lo_r, hi_r)) = masks or (None, (0, -1), (0, -1))
     return (nf, *grid.shape, *grid.halo, weno_m, weno_t,
-            int(masks is not None), lo_l, hi_l, lo_r, hi_r, eps_m, eps_t,
+            *axis_bounds(grid, 2, weno), eps_m, eps_t,
             grid.Lx / grid.Nx, grid.Ly / grid.Ny, grid.Lz / grid.Nz)
 
 
@@ -115,13 +136,24 @@ def pointers(ts):
     return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
 
-def _kernel_fn(dtype):
-    lib = _build.load("fused_advective_tendencies")
-    fn = (lib.fused_advective_tendencies_f32 if dtype == torch.float32
-          else lib.fused_advective_tendencies_f64)
-    fn.argtypes = [ctypes.c_void_p] * 2 + ADVECTION_ARGTYPES + [ctypes.c_void_p]
+def kernel_fn(lib, name, dtype, argtypes):
+    """The f32 or f64 entry ``<name>_f32/_f64`` of ``csrc/<lib>.cu``, typed:
+    ``argtypes`` then the stream; returns the CUDA error code."""
+    fn = getattr(_build.load(lib), name + ("_f32" if dtype == torch.float32
+                                           else "_f64"))
+    fn.argtypes = list(argtypes) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(name, fn, device, *args):
+    """``fn(*args, stream)`` on the current stream of the tensors' card;
+    raises on a CUDA error."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
 def _launch(grid, scheme, tracer_scheme, u, v, w, tracers):
@@ -133,20 +165,20 @@ def _launch(grid, scheme, tracer_scheme, u, v, w, tracers):
         check_tensor(n, f, grid.total_shape, dtype, device)
     out = [torch.zeros(grid.total_shape, dtype=dtype, device=device)
            for _ in names]
-    fn = _kernel_fn(dtype)
-    with torch.cuda.device(device):  # launch on the tensors' card
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(pointers(fields), pointers(out), *args, stream)
-    if rc != 0:
-        raise RuntimeError("fused_advective_tendencies kernel launch failed: "
-                           f"CUDA error {rc}")
+    fn = kernel_fn("fused_advective_tendencies", "fused_advective_tendencies",
+                   dtype, [ctypes.c_void_p] * 2 + ADVECTION_ARGTYPES
+                   + [ctypes.c_int])
+    launch("fused_advective_tendencies", fn, device, pointers(fields),
+           pointers(out), *args, int(grid.topology[2] is BOUNDED))
     fused_advective_tendencies.launches += 1
     return dict(zip(names, out))
 
 
 def fused_advective_tendencies(grid, scheme, tracer_scheme, u, v, w, tracers):
     """−∇·(advective fluxes) of u, v, w and every tracer → a dict of
-    with-halo tensors valid on the interior. CUDA tensors go through the
+    with-halo tensors valid on the interior and, on a bounded z axis, on
+    w's top wall face (with-halo z index hz+nz), which a w wall that is not
+    an imposed value leaves to the time step. CUDA tensors go through the
     hand-written kernel (a failure raises; nothing falls back), CPU tensors
     through ``fused_advective_tendencies_reference``."""
     if u.device.type == "cuda":
@@ -160,3 +192,196 @@ def fused_advective_tendencies(grid, scheme, tracer_scheme, u, v, w, tracers):
 
 #: kernel launches since the last reset (the plain version adds nothing)
 fused_advective_tendencies.launches = 0
+
+
+# -- K3a: the shallow-water core -------------------------------------------------
+
+def _ixyff(h):
+    """ℑxyᶠᶠ: 4-point average of a centred field onto (F, F, ·)."""
+    return st.ixf(st.iyf(h))
+
+
+def fused_shallow_water_tendencies_reference(grid, scheme, tracer_scheme, g,
+                                             uh, vh, h, tracers=(),
+                                             bathymetry=None):
+    """The plain-PyTorch version of K3a: the JAX package's
+    ``_core_tendencies`` (advection, −∂(gh²/2), bathymetry and mass
+    tendencies of the conservative shallow-water form) →
+    ``(Guh, Gvh, Gh, *Gc)``, with-halo tensors valid on the interior."""
+    u_cc = st.ixc(uh)
+    v_ff = st.ixf(vh)
+    flux_huu = grid.Ax(CENTER) * transport(scheme, u_cc, uh, 0, False, grid) / h
+    flux_hvu = grid.Ay((F, F, C)) * transport(scheme, v_ff, uh, 1, True, grid) / _ixyff(h)
+    div_mom_u = (st.dxf(flux_huu) + st.dyc(flux_hvu)) / grid.V(U_LOC)
+    Guh = -div_mom_u - st.dxf(0.5 * g * h * h) / grid.dx(U_LOC)
+    if bathymetry is not None:
+        Guh = Guh + g * st.ixf(h) * st.dxf(bathymetry) / grid.dx(U_LOC)
+
+    u_ff = st.iyf(uh)
+    v_cc = st.iyc(vh)
+    flux_huv = grid.Ax((F, F, C)) * transport(scheme, u_ff, vh, 0, True, grid) / _ixyff(h)
+    flux_hvv = grid.Ay(CENTER) * transport(scheme, v_cc, vh, 1, False, grid) / h
+    div_mom_v = (st.dxc(flux_huv) + st.dyf(flux_hvv)) / grid.V(V_LOC)
+    Gvh = -div_mom_v - st.dyf(0.5 * g * h * h) / grid.dy(V_LOC)
+    if bathymetry is not None:
+        Gvh = Gvh + g * st.iyf(h) * st.dyf(bathymetry) / grid.dy(V_LOC)
+
+    Gh = -(st.dxc(grid.Ax(U_LOC) * uh)
+           + st.dyc(grid.Ay(V_LOC) * vh)) / grid.V(CENTER)
+    outs = [Guh, Gvh, Gh]
+    if tracers:
+        # tracers ride the velocity u = uh/h̄ˣ, not the transport
+        u_vel = uh / st.ixf(h)
+        v_vel = vh / st.iyf(h)
+        div_U = (st.dxc(grid.Ax(U_LOC) * u_vel)
+                 + st.dyc(grid.Ay(V_LOC) * v_vel)) / grid.V(CENTER)
+        for c in tracers:
+            fx = grid.Ax(U_LOC) * transport(tracer_scheme, u_vel, c, 0, True, grid)
+            fy = grid.Ay(V_LOC) * transport(tracer_scheme, v_vel, c, 1, True, grid)
+            div_Uc = (st.dxc(fx) + st.dyc(fy)) / grid.V(CENTER)
+            outs.append(-div_Uc + c * div_U)
+    return tuple(outs)
+
+
+def shallow_water_args(grid, scheme, tracer_scheme, nf, g):
+    """K3a's arguments after the pointers: field count, sizes, halos,
+    schemes, the x and y bounds, eps, spacings, g."""
+    if not 3 <= nf <= 16:
+        raise ValueError(f"K3a takes 3 to 16 fields, got {nf}")
+    if grid.topology[2] is not FLAT or grid.shape[2] != 1:
+        raise ValueError(f"K3a takes a flat z axis: {grid}")
+    weno_m, eps_m = kernel_scheme(scheme)
+    weno_t, eps_t = kernel_scheme(tracer_scheme)
+    weno = scheme if weno_m else tracer_scheme
+    return (nf, grid.Nx, grid.Ny, grid.Hx, grid.Hy, weno_m, weno_t,
+            *axis_bounds(grid, 0, weno), *axis_bounds(grid, 1, weno),
+            eps_m, eps_t, grid.Lx / grid.Nx, grid.Ly / grid.Ny, float(g))
+
+
+#: ctypes types of ``shallow_water_args``
+SHALLOW_WATER_ARGTYPES = [ctypes.c_int] * 17 + [ctypes.c_double] * 5
+
+
+def _launch_shallow_water(grid, scheme, tracer_scheme, g, uh, vh, h, tracers,
+                          bathymetry):
+    fields = [uh, vh, h] + list(tracers)
+    device, dtype = uh.device, grid.dtype
+    args = shallow_water_args(grid, scheme, tracer_scheme, len(fields), g)
+    names = ["uh", "vh", "h"] + [f"tracers[{i}]" for i in range(len(tracers))]
+    for n, f in zip(names, fields):
+        check_tensor(n, f, grid.total_shape, dtype, device)
+    if bathymetry is not None:
+        check_tensor("bathymetry", bathymetry, grid.total_shape, dtype, device)
+    out = [torch.zeros(grid.total_shape, dtype=dtype, device=device)
+           for _ in fields]
+    fn = kernel_fn("fused_shallow_water_tendencies",
+                   "fused_shallow_water_tendencies", dtype,
+                   [ctypes.c_void_p] * 3 + SHALLOW_WATER_ARGTYPES)
+    launch("fused_shallow_water_tendencies", fn, device, pointers(fields),
+           None if bathymetry is None else bathymetry.data_ptr(),
+           pointers(out), *args)
+    fused_shallow_water_tendencies.launches += 1
+    return tuple(out)
+
+
+def fused_shallow_water_tendencies(grid, scheme, tracer_scheme, g, uh, vh, h,
+                                   tracers=(), bathymetry=None):
+    """The conservative shallow-water core → ``(Guh, Gvh, Gh, *Gc)``,
+    with-halo tensors valid on the interior. CUDA tensors go through the
+    hand-written kernel K3a (a failure raises; nothing falls back), CPU
+    tensors through ``fused_shallow_water_tendencies_reference``."""
+    if uh.device.type == "cuda":
+        return _launch_shallow_water(grid, scheme, tracer_scheme, g, uh, vh,
+                                     h, tracers, bathymetry)
+    if uh.device.type != "cpu":
+        raise ValueError(f"no fused_shallow_water_tendencies for "
+                         f"{uh.device.type} tensors")
+    return fused_shallow_water_tendencies_reference(
+        grid, scheme, tracer_scheme, g, uh, vh, h, tracers, bathymetry)
+
+
+#: kernel launches since the last reset (the plain version adds nothing)
+fused_shallow_water_tendencies.launches = 0
+
+
+# -- K3b and K3c: the general projection's divergence and gradient ----------------
+
+def fused_divergence_reference(grid, u, v, w):
+    """The plain-PyTorch version of K3b: the interior (nx, ny, nz) of
+    ``div_ccc(u, v, w)``."""
+    return grid.interior(op.div_ccc(u, v, w, grid))
+
+
+def fused_pressure_gradient_reference(grid, p):
+    """The plain-PyTorch version of K3c: (∂xᶠp, ∂yᶠp, ∂zᶠp) on the u, v
+    and w faces, with-halo, valid on the interior."""
+    return (st.dxf(p) / grid.dx(U_LOC), st.dyf(p) / grid.dy(V_LOC),
+            st.dzf(p) / grid.dz(W_LOC))
+
+
+def _projection_args(grid):
+    if grid.topology[2] is FLAT:
+        raise ValueError(f"K3b/K3c take a 3D grid: {grid}")
+    return (*grid.shape, *grid.halo, grid.Lx / grid.Nx, grid.Ly / grid.Ny,
+            grid.Lz / grid.Nz)
+
+
+#: ctypes types of ``_projection_args``
+PROJECTION_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_double] * 3
+
+
+def _launch_divergence(grid, u, v, w):
+    args = _projection_args(grid)
+    for n, f in (("u", u), ("v", v), ("w", w)):
+        check_tensor(n, f, grid.total_shape, grid.dtype, u.device)
+    out = torch.empty(grid.shape, dtype=grid.dtype, device=u.device)
+    fn = kernel_fn("fused_projection", "fused_divergence", grid.dtype,
+                   [ctypes.c_void_p] * 4 + PROJECTION_ARGTYPES)
+    launch("fused_divergence", fn, u.device, u.data_ptr(), v.data_ptr(),
+           w.data_ptr(), out.data_ptr(), *args)
+    fused_divergence.launches += 1
+    return out
+
+
+def fused_divergence(grid, u, v, w):
+    """∇·(u, v, w) at the interior cell centres → an (nx, ny, nz) tensor.
+    CUDA tensors go through the hand-written kernel K3b (a failure raises;
+    nothing falls back), CPU tensors through
+    ``fused_divergence_reference``. The halos of u, v, w must be filled."""
+    if u.device.type == "cuda":
+        return _launch_divergence(grid, u, v, w)
+    if u.device.type != "cpu":
+        raise ValueError(f"no fused_divergence for {u.device.type} tensors")
+    return fused_divergence_reference(grid, u, v, w)
+
+
+def _launch_pressure_gradient(grid, p):
+    args = _projection_args(grid)
+    check_tensor("p", p, grid.total_shape, grid.dtype, p.device)
+    out = [torch.zeros(grid.total_shape, dtype=grid.dtype, device=p.device)
+           for _ in range(3)]
+    fn = kernel_fn("fused_projection", "fused_pressure_gradient", grid.dtype,
+                   [ctypes.c_void_p] * 4 + PROJECTION_ARGTYPES)
+    launch("fused_pressure_gradient", fn, p.device, p.data_ptr(),
+           *[o.data_ptr() for o in out], *args)
+    fused_pressure_gradient.launches += 1
+    return tuple(out)
+
+
+def fused_pressure_gradient(grid, p):
+    """(∂xᶠp, ∂yᶠp, ∂zᶠp) on the u, v, w faces → three with-halo tensors
+    valid on the interior. CUDA tensors go through the hand-written kernel
+    K3c (a failure raises; nothing falls back), CPU tensors through
+    ``fused_pressure_gradient_reference``. The halos of p must be filled:
+    the wall-face gradient reads them."""
+    if p.device.type == "cuda":
+        return _launch_pressure_gradient(grid, p)
+    if p.device.type != "cpu":
+        raise ValueError(f"no fused_pressure_gradient for {p.device.type} "
+                         "tensors")
+    return fused_pressure_gradient_reference(grid, p)
+
+
+#: kernel launches since the last reset (the plain versions add nothing)
+fused_divergence.launches = 0
+fused_pressure_gradient.launches = 0

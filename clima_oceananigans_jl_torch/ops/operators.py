@@ -8,7 +8,7 @@ resolved on the host from explicit ``loc`` triples.
 """
 from __future__ import annotations
 
-from ..utils.location import C, CENTER, U_LOC, V_LOC, W_LOC, flip
+from ..utils.location import C, CENTER, F, U_LOC, V_LOC, W_LOC, flip
 from . import stencil as st
 
 
@@ -50,6 +50,12 @@ def div_ccc(u, v, w, grid):
     return (st.dxc(grid.Ax(U_LOC) * u)
             + st.dyc(grid.Ay(V_LOC) * v)
             + st.dzc(grid.Az(W_LOC) * w)) / grid.V(CENTER)
+
+
+def zeta3_ffc(u, v, grid):
+    """Vertical vorticity ζ₃ at (F, F, C)."""
+    return (st.dxf(grid.dy(V_LOC) * v)
+            - st.dyf(grid.dx(U_LOC) * u)) / grid.Az((F, F, C))
 
 
 def laplacian(c, grid, loc=CENTER, axes=(0, 1, 2)):

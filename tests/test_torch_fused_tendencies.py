@@ -9,9 +9,11 @@ Periodic, Periodic), with WENO5 momentum and WENO5 or centred tracers,
 agree to max|Δ| ≤ 1e-12·max|ref|, because XLA's CPU backend may fuse and
 contract where eager PyTorch does not.
 
-The ``cuda`` case holds the CUDA kernel against the plain version on the
-card and skips without one. It needs no JAX: ``python -m pytest
---noconftest -m cuda tests/test_torch_fused_tendencies.py``.
+The ``cuda`` cases hold the CUDA kernel against the plain version on the
+card and skip without one: on the interior, and on a bounded z axis on
+w's top wall face too (with-halo z index hz+nz, in the z halo), which a
+FluxBC w wall leaves to the time step. They need no JAX: ``python -m
+pytest --noconftest -m cuda tests/test_torch_fused_tendencies.py``.
 """
 import numpy as np
 import pytest
@@ -34,10 +36,17 @@ def inputs(shape, ntracers, seed=0):
     return vel, {f"c{k}": rng.standard_normal(shape) for k in range(ntracers)}
 
 
-def torch_grid(topology, size=SIZE, dtype=torch.float64, device="cpu"):
+def torch_grid(topology, size=SIZE, dtype=torch.float64, device="cpu",
+               halo=3):
     return T.RectilinearGrid(size=size, extent=(1.0, 2.0, 0.5),
-                             topology=topology, halo=(3, 3, 3), dtype=dtype,
+                             topology=topology, halo=(halo,) * 3, dtype=dtype,
                              device=device)
+
+
+def w_top(grid, a):
+    """The (nx, ny) plane of w's top wall face: with-halo z index hz+nz."""
+    return a[grid.Hx:grid.Hx + grid.Nx, grid.Hy:grid.Hy + grid.Ny,
+             grid.Hz + grid.Nz]
 
 
 def close(ref, got, rtol, what):
@@ -136,32 +145,43 @@ def test_kernel_arguments_refuse_what_the_kernels_do_not_take():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,size,rtol,tracer_scheme,ntracers,topo", [
-    (torch.float64, (16, 12, 10), 1e-13, "centered", 2, "ppb"),
-    (torch.float64, (16, 12, 10), 1e-13, "weno5", 0, "ppp"),
-    (torch.float32, (32, 24, 16), 1e-6, "weno5", 1, "ppb")],
-    ids=["f64-centered", "f64-periodic", "f32"])
+@pytest.mark.parametrize(
+    "dtype,size,rtol,tracer_scheme,ntracers,topo,momentum,halo", [
+        (torch.float64, (16, 12, 10), 1e-13, "centered", 2, "ppb", "weno5", 3),
+        (torch.float64, (16, 12, 10), 1e-13, "weno5", 0, "ppp", "weno5", 3),
+        (torch.float32, (32, 24, 16), 1e-6, "weno5", 1, "ppb", "weno5", 3),
+        (torch.float64, (16, 12, 10), 1e-13, "centered", 1, "ppb", "centered",
+         1)],
+    ids=["f64-centered", "f64-periodic", "f32", "f64-centered-halo1"])
 def test_cuda_kernel_matches_plain_version(dtype, size, rtol, tracer_scheme,
-                                           ntracers, topo):
+                                           ntracers, topo, momentum, halo):
     """The kernel against the plain version on the card, at the
-    chip_smoke tolerances (PyTorch's CUDA division by a Python scalar
-    multiplies by the reciprocal, so the two agree to rounding)."""
+    chip_smoke tolerances, on the interior and, on a bounded z axis, on
+    w's top wall face (with halo 1 the centre above that face wraps to z
+    index 0, as torch.roll wraps it)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    tg = torch_grid(TOPOLOGIES[topo], size, dtype, "cuda")
+    tg = torch_grid(TOPOLOGIES[topo], size, dtype, "cuda", halo)
     (u, v, w), tracers = inputs(tg.total_shape, ntracers)
     as_t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
-    tt = T.WENO5() if tracer_scheme == "weno5" else T.CenteredSecondOrder()
-    args = (tg, T.WENO5(), tt, as_t(u), as_t(v), as_t(w),
-            {n: as_t(c) for n, c in tracers.items()})
+    scheme = lambda name: T.WENO5() if name == "weno5" else T.CenteredSecondOrder()
+    args = (tg, scheme(momentum), scheme(tracer_scheme), as_t(u), as_t(v),
+            as_t(w), {n: as_t(c) for n, c in tracers.items()})
     before = tft.fused_advective_tendencies.launches
     got = tft.fused_advective_tendencies(*args)
     torch.cuda.synchronize()
     assert tft.fused_advective_tendencies.launches == before + 1
     ref = tft.fused_advective_tendencies_reference(*args)
+    bounded = tg.topology[2] is T.BOUNDED
     for name in ref:
-        halo = got[name].clone()
-        halo[tg.interior_slices] = 0
-        assert not halo.any(), f"{name}: the kernel wrote outside the interior"
+        halo_part = got[name].clone()
+        halo_part[tg.interior_slices] = 0
+        if name == "w" and bounded:
+            assert w_top(tg, ref[name]).abs().max() > 0
+            close(w_top(tg, ref[name]).cpu().numpy(),
+                  w_top(tg, got[name]).cpu().numpy(), rtol, "w top wall face")
+            w_top(tg, halo_part).zero_()
+        assert not halo_part.any(), \
+            f"{name}: the kernel wrote outside the interior"
         close(ref[name][tg.interior_slices].cpu().numpy(),
               got[name][tg.interior_slices].cpu().numpy(), rtol, name)

@@ -138,7 +138,7 @@ def test_euler_on_first_step_and_dt_change():
 
     ts = tm.initial_state(**initial_values(size))
     for dt in (DT, DT, DT / 2, DT / 2):
-        ts = tm.step(ts, dt, advance=spy)
+        ts = tm.step(ts, dt, kernels={"advance": spy})
     assert calls == [True, False, True, False]
     assert ts["clock"].iteration == 4 and ts["previous_dt"] == DT / 2
 

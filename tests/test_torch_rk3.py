@@ -152,7 +152,7 @@ def test_ab2_coriolis_diffusion_takes_the_fused_branch(beta):
     step = jax.jit(jm.step)
     for _ in range(10):
         js = step(js, DT)
-        ts = tm.step(ts, DT, advance=spy)
+        ts = tm.step(ts, DT, kernels={"advance": spy})
     assert calls == [True] + [False] * 9
     compare(jm, js, tm, ts)
     assert all(g.shape == size for g in ts["G_prev"].values())
@@ -175,7 +175,7 @@ def test_ab2_diffusion_with_value_wall_takes_the_general_branch():
     step = jax.jit(jm.step)
     for _ in range(10):
         js = step(js, DT)
-        ts = tm.step(ts, DT, advance=fail)
+        ts = tm.step(ts, DT, kernels={"advance": fail})
     compare(jm, js, tm, ts)
     assert all(g.shape == tm.grid.total_shape for g in ts["G_prev"].values())
 
