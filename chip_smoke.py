@@ -2,16 +2,19 @@
 
     python3 chip_smoke.py
 
-Drives the port's four paths through ``clima_oceananigans_jl_torch`` on
+Drives the port's five paths through ``clima_oceananigans_jl_torch`` on
 the card, in phases; each prints one line or a few:
 
 1. device: the card's name and power limit as nvidia-smi gives them, on a
    line of their own; no card → error;
 2. build: compiles ``csrc/fused_ab2_advance.cu`` (K1),
    ``csrc/fused_advective_tendencies.cu`` (K2),
-   ``csrc/fused_shallow_water_tendencies.cu`` (K3a) and
-   ``csrc/fused_projection.cu`` (K3b, K3c) with nvcc (sm_90a), one
-   process each, all at once;
+   ``csrc/fused_shallow_water_tendencies.cu`` (K3a),
+   ``csrc/fused_projection.cu`` (K3b, K3c),
+   ``csrc/hydrostatic_columns.cu`` (K4a),
+   ``csrc/fused_hydrostatic_tendencies.cu`` (K4b),
+   ``csrc/fused_substep_eta.cu`` (K5) and ``csrc/fill_halos.cu`` (K6) with
+   nvcc (sm_90a), one process each, all at once;
 3. K1 against its plain PyTorch version on the same inputs: the ``bench.py``
    configuration at 256³ fp32 (Euler and AB2 form) and 64³ fp64, then with
    its options, ``FPlane(f=1e-4)`` + ``ScalarDiffusivity(nu=1e-5,
@@ -48,7 +51,33 @@ the card, in phases; each prints one line or a few:
    kernels and then the plain versions; exactly 3 K2, 3 K3b and 3 K3c
    launches per step (no other); the flux walls keep a net wall flux, so
    the check is max|∇·u − mean ∇·u|·Δx/max|u| ≤ 1e-5; the runs agree to
-   ≤ 1e-6 (the other paths' bound is 1e-4).
+   ≤ 1e-6 (the other paths' bound is 1e-4);
+11. K4a and K4b against their plain versions: the ¼° flagship
+   (1440×600×24 lat-lon, stretched z, weno_velocity momentum, WENO5 T, S,
+   b, spherical Coriolis) in fp32 on random fields, K4b in both forms,
+   and 128×96×16 fp64 with flux-form WENO5 momentum, a β-plane and
+   bounded x and y; same bounds; times at ¼° (K4b in its advance form);
+12. K5 against its plain version: ¼° fp32 with 30 substeps and 128×96
+   fp64 bounded x and y with 8, on every with-halo point; same bounds;
+   times at ¼°;
+13. K6 against its plain version on every point: the ¼° flagship's u, v,
+   T, S, b and η (one launch, the main path's first fill of a step) and
+   w and pHY′ in fp32, and the 128×96×16 fp64 model's fields; same
+   bounds; times of the first group at ¼°;
+14. hydrostatic path: the ¼° flagship of
+   ``benchmark/bench_hydro_flagship.py`` (split-explicit with 30
+   substeps, Δt = 600 s, u = 0.1·N(0,1), b = 2e-5 (z+3000)/3000) built
+   through the public API, 2 warm-up and 5 timed steps with K4a, K4b, K5
+   and K6 and then with their plain versions; exactly 1 K4a, 1 K4b, 60 K5
+   and 2 K6 launches per step (no other), fields finite, |Σ η·Az| ≤
+   1e-5·Σ|η|·Az (fp64 sums), the runs agree to ≤ 1e-6 of max|field|.
+
+Each kernel's record carries its bound: the larger of its compulsory
+bytes (each input read once, each output written once, from this run's
+tensors) over 3.35 TB/s and its operations (per-point counts of what the
+function needs, ``FLOPS``) over the 67 TFLOP/s fp32 peak; no single
+PyTorch call computes any of these kernels' functions, so ``library_ms``
+is null.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Then a JSON line with each kernel's record, and last
@@ -69,11 +98,26 @@ import torch
 from clima_oceananigans_jl_torch import (BOUNDED, FLAT, PERIODIC, BetaPlane,
                                          BuoyancyTracer, CenteredSecondOrder,
                                          FieldBCs, FluxBC, FPlane,
+                                         HydrostaticFreeSurfaceModel,
+                                         HydrostaticSphericalCoriolis,
+                                         LatitudeLongitudeGrid,
                                          NonhydrostaticModel, RectilinearGrid,
                                          ScalarDiffusivity, ShallowWaterModel,
-                                         WENO5)
-from clima_oceananigans_jl_torch.models import nonhydrostatic, shallow_water
+                                         SplitExplicitFreeSurface,
+                                         VectorInvariant, WENO5)
+from clima_oceananigans_jl_torch.models import (hydrostatic, nonhydrostatic,
+                                                shallow_water)
+from clima_oceananigans_jl_torch.models.free_surface import (ETA_LOC,
+                                                             column_depths,
+                                                             fill2d)
 from clima_oceananigans_jl_torch.ops import _build
+from clima_oceananigans_jl_torch.ops.fused_barotropic import (
+    fused_substep_eta, fused_substep_eta_reference)
+from clima_oceananigans_jl_torch.ops.fused_fill import (
+    MIRROR_F, fill_plan, fused_fill_halos, fused_fill_halos_reference)
+from clima_oceananigans_jl_torch.ops.fused_hydrostatic import (
+    fused_hydrostatic_tendencies, fused_hydrostatic_tendencies_reference,
+    hydrostatic_columns, hydrostatic_columns_reference)
 from clima_oceananigans_jl_torch.ops.fused_step import (
     fused_ab2_advance, fused_ab2_advance_reference)
 from clima_oceananigans_jl_torch.ops.fused_tendencies import (
@@ -81,6 +125,7 @@ from clima_oceananigans_jl_torch.ops.fused_tendencies import (
     fused_divergence, fused_divergence_reference, fused_pressure_gradient,
     fused_pressure_gradient_reference, fused_shallow_water_tendencies,
     fused_shallow_water_tendencies_reference)
+from clima_oceananigans_jl_torch.utils.location import CENTER, W_LOC
 
 N = 256
 N_SW = 16384
@@ -88,12 +133,41 @@ DEVICE = "cuda"
 K1, K2 = "fused_ab2_advance", "fused_advective_tendencies"
 K3A, K3B, K3C = ("fused_shallow_water_tendencies", "fused_divergence",
                  "fused_pressure_gradient")
+K4A, K4B, K5, K6 = ("hydrostatic_columns", "fused_hydrostatic_tendencies",
+                    "fused_substep_eta", "fused_fill_halos")
 WRAPPERS = {K1: fused_ab2_advance, K2: fused_advective_tendencies,
             K3A: fused_shallow_water_tendencies, K3B: fused_divergence,
-            K3C: fused_pressure_gradient}
+            K3C: fused_pressure_gradient, K4A: hydrostatic_columns,
+            K4B: fused_hydrostatic_tendencies, K5: fused_substep_eta,
+            K6: fused_fill_halos}
 SOURCES = {K1: "fused_ab2_advance", K2: "fused_advective_tendencies",
            K3A: "fused_shallow_water_tendencies", K3B: "fused_projection",
-           K3C: "fused_projection"}
+           K3C: "fused_projection", K4A: "hydrostatic_columns",
+           K4B: "fused_hydrostatic_tendencies", K5: "fused_substep_eta",
+           K6: "fill_halos"}
+REPLACES = {K1: "clima_oceananigans_jl_tpu/ops/fused_step.py:129",
+            K2: "clima_oceananigans_jl_tpu/ops/fused_tendencies.py:397",
+            K3A: "clima_oceananigans_jl_tpu/ops/fused_tendencies.py:238",
+            K3B: "clima_oceananigans_jl_tpu/ops/fused_tendencies.py:238",
+            K3C: "clima_oceananigans_jl_tpu/ops/fused_tendencies.py:238",
+            K4A: "clima_oceananigans_jl_tpu/ops/fused_hydrostatic.py:550",
+            K4B: "clima_oceananigans_jl_tpu/ops/fused_hydrostatic.py:550",
+            K5: "clima_oceananigans_jl_tpu/ops/fused_barotropic.py:102",
+            K6: "clima_oceananigans_jl_tpu/ops/fused_fill.py:139"}
+#: operations per point that each kernel's function needs, each face flux
+#: counted once, though the kernels compute it in both cells beside the
+#: face (a WENO5 reconstruction ~60 with its divisions, a transport ~64
+#: with the velocity and metric products): K1/K2 four fields × three
+#: transports (768) plus the divergences (~32) and K1's −∂pHY′ and AB2
+#: epilogue (~20); K3a four transports and the pressure terms; K4b two
+#: weno_velocity vorticity reconstructions and Coriolis (~400), three
+#: tracers × three fluxes, the z one two-sided with the tables (~850), and
+#: the divergences and AB2 epilogue (~50); K5 ~32 per with-halo point per
+#: substep; K6 at most 2 (2b − x) per written halo point
+FLOPS = {K1: 820, K2: 800, K3A: 300, K3B: 12, K3C: 9, K4A: 25, K4B: 1300,
+         K5: 32, K6: 2}
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
 TOL = {torch.float32: 1e-6, torch.float64: 1e-13}
 FLAGSHIP = dict(coriolis=FPlane(f=1e-4),
                 closure=ScalarDiffusivity(nu=1e-5, kappa=1e-5))
@@ -108,12 +182,16 @@ PATHS = {
 SW_PATH = (1e-4, 2, 10)  # shallow water: Δt, warm-up steps, timed steps
 #: kernel launches per step of each path
 PER_STEP = {"AB2": {K1: 1}, "RK3": {K2: 3}, "shallow water": {K3A: 3},
-            "general projection": {K2: 3, K3B: 3, K3C: 3}}
+            "general projection": {K2: 3, K3B: 3, K3C: 3},
+            "hydrostatic": {K4A: 1, K4B: 1, K5: 60, K6: 2}}
 #: how far the kernel and plain runs of a path may differ, of max|field|;
-#: the general projection's kernels are bitwise their plain versions, so a
-#: gap there (such as an unwritten wall face) is a fault, not rounding
+#: the general projection's and the hydrostatic path's kernels are bitwise
+#: their plain versions, so a gap there (such as an unwritten wall face) is
+#: a fault, not rounding
 AGREE = {"AB2": 1e-4, "RK3": 1e-4, "shallow water": 1e-4,
-         "general projection": 1e-6}
+         "general projection": 1e-6, "hydrostatic": 1e-6}
+#: the ¼° hydrostatic flagship (benchmark/bench_hydro_flagship.py:24-41)
+HYDRO = dict(size=(1440, 600, 24), dt=600.0, substeps=30, warmup=2, steps=5)
 
 
 def model_for(n, dtype, **kw):
@@ -184,6 +262,21 @@ def hold(label, got, ref, dtype, interior=None):
     return worst
 
 
+def tensor_bytes(*groups):
+    """Bytes held by the tensors of the given groups."""
+    return sum(t.numel() * t.element_size() for group in groups for t in group)
+
+
+def bound(name, nbytes, points):
+    """(bound_ms, bound_by): the least time the card could take for a call
+    of kernel ``name`` moving ``nbytes`` compulsory bytes and computing
+    ``points`` points at ``FLOPS[name]`` operations each, the larger of
+    bytes / 3.35 TB/s and operations / 67 TFLOP/s (fp32)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = FLOPS[name] * points / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def random_state(model, seed):
     rng = np.random.default_rng(seed)
     shape = model.grid.shape
@@ -200,8 +293,8 @@ def random_state(model, seed):
 
 def phase_k1():
     """K1 against its plain version, without and with its options; returns
-    (max_abs_err, ms, plain_ms) at 256³ fp32, the times of the bench
-    configuration."""
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by) at 256³ fp32, the
+    times of the bench configuration."""
     options = dict(coriolis=FPlane(f=1e-4),
                    closure=ScalarDiffusivity(nu=1e-5, kappa=1e-5))
     beta = dict(coriolis=BetaPlane(f0=1e-4, beta=1e-2),
@@ -229,7 +322,10 @@ def phase_k1():
             ms = cuda_ms(lambda: fused_ab2_advance(model, state, 1e-4, False), 20)
             plain_ms = cuda_ms(lambda: fused_ab2_advance_reference(
                 model, state, 1e-4, False), 3)
-            times[name] = (ms, plain_ms)
+            nb = tensor_bytes(state["solution"].values(),
+                              state["G_prev"].values(), [state["pHY"]],
+                              psi_k.values(), g_k.values())
+            times[name] = (ms, plain_ms, *bound(K1, nb, n ** 3))
             print(f"K1 {name} {n}^3 fp32 ab2 time: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms (CUDA events)")
         del model, state
@@ -252,8 +348,8 @@ def hold_k2(label, args, dtype):
 
 
 def phase_k2():
-    """K2 against its plain version; returns (max_abs_err, ms, plain_ms)
-    at 256³ fp32."""
+    """K2 against its plain version; returns (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by) at 256³ fp32."""
     model = model_for(N, torch.float32)
     sol = random_state(model, 2)["solution"]
     grid = model.grid
@@ -264,6 +360,8 @@ def phase_k2():
     plain_ms = cuda_ms(lambda: fused_advective_tendencies_reference(*args), 3)
     print(f"K2 WENO5/WENO5 {N}^3 fp32 time: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms (CUDA events)")
+    # four with-halo fields in, four with-halo tendencies out
+    k2_bound = bound(K2, 2 * tensor_bytes(args[3:6], [sol["b"]]), N ** 3)
     del model, sol, args
     torch.cuda.empty_cache()
     grid = RectilinearGrid(size=(64, 64, 64), extent=(1.0, 1.0, 1.0),
@@ -275,13 +373,13 @@ def phase_k2():
     args = (grid, WENO5(), CenteredSecondOrder(), f[0], f[1], f[2],
             {"c1": f[3], "c2": f[4]})
     hold_k2("K2 WENO5/centred 64^3 fp64, two tracers", args, torch.float64)
-    return worst, ms, plain_ms
+    return worst, ms, plain_ms, *k2_bound
 
 
 def phase_k3a():
     """K3a against its plain version; returns (max_abs_err over both
-    cases, ms, plain_ms), the times at 16384² fp32 (uh, vh, h: the
-    shallow-water headline's core)."""
+    cases, ms, plain_ms, bound_ms, bound_by), the times at 16384² fp32
+    (uh, vh, h: the shallow-water headline's core)."""
     worst, ms = 0.0, None
     for n, dtype, topo, nt, bath in (
             ((N_SW, N_SW), torch.float32, PERIODIC, 0, False),
@@ -310,14 +408,15 @@ def phase_k3a():
                 lambda: fused_shallow_water_tendencies_reference(*args), 3)
             print(f"{label} time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
                   "(CUDA events)")
+            k3a_bound = bound(K3A, 2 * tensor_bytes(args[4:7]), n[0] * n[1])
         del args
         torch.cuda.empty_cache()
-    return worst, ms, plain_ms
+    return worst, ms, plain_ms, *k3a_bound
 
 
 def phase_k3bc():
     """K3b and K3c against their plain versions; returns their
-    (max_abs_err, ms, plain_ms) at 256³ fp32."""
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by) at 256³ fp32."""
     out = {}
     for n, dtype in ((N, torch.float32), (64, torch.float64)):
         grid = RectilinearGrid(size=(n, n, n), extent=(1.0, 1.0, 1.0),
@@ -339,7 +438,11 @@ def phase_k3bc():
             if n == N:
                 ms = cuda_ms(lambda: fn(*args), 20)
                 plain_ms = cuda_ms(lambda: ref_fn(*args), 3)
-                out[name] = (err, ms, plain_ms)
+                # K3b: u, v, w in, the interior divergence out;
+                # K3c: p in, three with-halo gradients out
+                nb = (tensor_bytes([u, v, w]) + n ** 3 * p.element_size()
+                      if name == K3B else 4 * tensor_bytes([p]))
+                out[name] = (err, ms, plain_ms, *bound(name, nb, n ** 3))
                 print(f"{name} {label} time: kernel {ms:.4f} ms, plain "
                       f"{plain_ms:.4f} ms (CUDA events)")
         del u, v, w, p
@@ -409,10 +512,13 @@ def divergence_ratio(model, state, uniform=False):
 
 def agreement(path, steps, kernel_fields, model, state):
     """max over fields of max|Δ|/max|field| between the kernel run's
-    interiors and ``state``'s; raises above the path's ``AGREE``."""
-    rel = {k: float((kernel_fields[k] - model.grid.interior(a)).abs().max())
-           / float(model.grid.interior(a).abs().max())
-           for k, a in state["solution"].items()}
+    interiors and ``state``'s (max|Δ| itself for a field that is zero);
+    raises above the path's ``AGREE``."""
+    def relative(k, a):
+        err = float((kernel_fields[k] - model.grid.interior(a)).abs().max())
+        scale = float(model.grid.interior(a).abs().max())
+        return err / scale if scale else err
+    rel = {k: relative(k, a) for k, a in state["solution"].items()}
     name = max(rel, key=rel.get)
     if not rel[name] <= AGREE[path]:
         raise AssertionError(f"{path}: kernel and plain runs differ by "
@@ -515,28 +621,301 @@ def phase_shallow_water():
     return launches, ms, plain_ms
 
 
+# -- the hydrostatic kernels and path ---------------------------------------------
+
+def latlon_flagship(dtype=torch.float32):
+    """The ¼° flagship of benchmark/bench_hydro_flagship.py through the
+    public API."""
+    nx, ny, nz = HYDRO["size"]
+    k = np.arange(nz + 1)
+    grid = LatitudeLongitudeGrid(size=HYDRO["size"], longitude=(0, 360),
+                                 latitude=(-75, 75),
+                                 z=-3000.0 * (1.0 - k / nz) ** 1.8,
+                                 dtype=dtype, device=DEVICE)
+    return HydrostaticFreeSurfaceModel(
+        grid, momentum_advection=VectorInvariant(scheme="weno_velocity"),
+        tracer_advection=WENO5(), tracers=("T", "S"),
+        free_surface=SplitExplicitFreeSurface(substeps=HYDRO["substeps"]),
+        coriolis=HydrostaticSphericalCoriolis(), buoyancy=BuoyancyTracer())
+
+
+def bounded_beta_model(dtype=torch.float64):
+    """128×96×16 (Bounded, Bounded, Bounded) with stretched z, flux-form
+    WENO5 momentum, a β-plane and 8 barotropic substeps."""
+    k = np.arange(17)
+    grid = RectilinearGrid(size=(128, 96, 16), x=(0, 1.28e6), y=(0, 9.6e5),
+                           z=-1000.0 * (1.0 - k / 16) ** 1.5,
+                           topology=(BOUNDED, BOUNDED, BOUNDED), dtype=dtype,
+                           device=DEVICE)
+    return HydrostaticFreeSurfaceModel(
+        grid, momentum_advection=WENO5(), tracer_advection=WENO5(),
+        tracers=("T", "S"), free_surface=SplitExplicitFreeSurface(substeps=8),
+        coriolis=BetaPlane(f0=1e-4, beta=1e-11), buoyancy=BuoyancyTracer())
+
+
+def hydro_random_state(model, seed):
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    g = model.grid
+    rand = lambda s, shape: s * torch.randn(shape, generator=gen, dtype=g.dtype,
+                                            device=DEVICE)
+    state = model.initial_state(u=rand(0.1, g.shape), v=rand(0.1, g.shape),
+                                T=rand(1.0, g.shape), S=rand(1.0, g.shape),
+                                b=rand(1e-3, g.shape))
+    state["G_prev"] = {n: rand(1e-6, g.total_shape)
+                       for n in model.prognostic_names()}
+    return state
+
+
+def phase_k4():
+    """K4a and K4b against their plain versions; returns their
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by) at ¼° fp32, K4b in
+    its advance form, the main path's."""
+    out = {}
+    for label, build, dtype in (("1/4 deg flagship fp32", latlon_flagship,
+                                 torch.float32),
+                                ("128x96x16 fp64 flux-form, beta-plane, bounded "
+                                 "x and y", bounded_beta_model, torch.float64)):
+        model = build(dtype)
+        state = hydro_random_state(model, 11)
+        g, sol = model.grid, state["solution"]
+        cols = lambda a: a[g.Hx:g.Hx + g.Nx, g.Hy:g.Hy + g.Ny]
+        args = (g, sol["u"], sol["v"], sol["b"])
+        got = dict(zip(("w", "pHY"), hydrostatic_columns(*args)))
+        ref = dict(zip(("w", "pHY"), hydrostatic_columns_reference(*args)))
+        err_a = hold(f"K4a {label}", {"out": got}, {"out": ref}, dtype, cols)
+        err_b = 0.0
+        for adv in (None, (HYDRO["dt"], False)):
+            got = fused_hydrostatic_tendencies(model, state, adv)
+            ref = fused_hydrostatic_tendencies_reference(model, state, adv)
+            got, ref = (({"G": got}, {"G": ref}) if adv is None else
+                        ({"psi'": got[0], "G": got[1]},
+                         {"psi'": ref[0], "G": ref[1]}))
+            err_b = max(err_b, hold(f"K4b {label} "
+                                    f"{'tendencies' if adv is None else 'advance'}",
+                                    got, ref, dtype, g.interior))
+        del got, ref
+        if dtype is torch.float32:
+            points = g.Nx * g.Ny * g.Nz
+            adv = (HYDRO["dt"], False)
+            ms_a = cuda_ms(lambda: hydrostatic_columns(*args), 10)
+            plain_a = cuda_ms(lambda: hydrostatic_columns_reference(*args), 2)
+            w, ph = hydrostatic_columns(*args)
+            out[K4A] = (err_a, ms_a, plain_a, *bound(
+                K4A, tensor_bytes(args[1:], [w, ph]), points))
+            ms_b = cuda_ms(lambda: fused_hydrostatic_tendencies(model, state, adv), 10)
+            plain_b = cuda_ms(lambda: fused_hydrostatic_tendencies_reference(
+                model, state, adv), 2)
+            psi, G = fused_hydrostatic_tendencies(model, state, adv)
+            nb = tensor_bytes(sol.values(), [state["w"], state["pHY"]],
+                              state["G_prev"].values(), psi.values(), G.values())
+            out[K4B] = (err_b, ms_b, plain_b, *bound(K4B, nb, points))
+            print(f"K4a {label} time: kernel {ms_a:.4f} ms, plain {plain_a:.4f} "
+                  f"ms; K4b advance: kernel {ms_b:.4f} ms, plain {plain_b:.4f} ms "
+                  "(CUDA events)")
+            del w, ph, psi, G
+        else:
+            for k, err in ((K4A, err_a), (K4B, err_b)):
+                out[k] = (max(out[k][0], err),) + out[k][1:]
+        del model, state, sol, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_k5():
+    """K5 against its plain version on every with-halo point; returns
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by) at ¼° fp32 with 30
+    substeps."""
+    out = None
+    for label, build, dtype, n in (
+            ("1/4 deg fp32, 30 substeps", latlon_flagship, torch.float32,
+             HYDRO["substeps"]),
+            ("128x96 fp64 bounded x and y, 8 substeps", bounded_beta_model,
+             torch.float64, 8)):
+        model = build(dtype)
+        g = model.grid
+        gen = torch.Generator(device=DEVICE).manual_seed(12)
+        shape = g.total_shape[:2] + (1,)
+        rand = lambda s: s * torch.randn(shape, generator=gen, dtype=dtype,
+                                         device=DEVICE)
+        eta = fill2d(rand(0.1), g, ETA_LOC, model.eta_bcs)
+        wv = model.free_surface._weight_vec(None, eta)
+        args = (g, model.eta_bcs, eta, rand(10.0), rand(10.0), rand(1e-3),
+                rand(1e-3), *column_depths(g), 9.80665, 40.0, wv, wv, n)
+        names = ("eta_av", "U_av", "V_av")
+        err = hold(f"K5 {label}", {"out": dict(zip(names, fused_substep_eta(*args)))},
+                   {"out": dict(zip(names, fused_substep_eta_reference(*args)))},
+                   dtype)
+        if out is None:
+            ms = cuda_ms(lambda: fused_substep_eta(*args), 5)
+            plain_ms = cuda_ms(lambda: fused_substep_eta_reference(*args), 2)
+            # η0, U0, V0, Gᵁ, Gⱽ, Hᶠᶜ, Hᶜᶠ in, η̅, U̅, V̅ out (metric rows and
+            # weights are negligible)
+            nb = 10 * tensor_bytes([eta])
+            out = (err, ms, plain_ms, *bound(K5, nb, shape[0] * shape[1] * n))
+            print(f"K5 {label} time: kernel {ms:.4f} ms ({2 * n} launches), "
+                  f"plain {plain_ms:.4f} ms (CUDA events)")
+        else:
+            out = (max(out[0], err),) + out[1:]
+        del model, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def hydro_fill_fields(model):
+    """The two groups of (data, loc, bcs, axes, t) the hydrostatic step fills
+    in ``update_state``, on random data: u, v, tracers and η, then w and
+    pHY′."""
+    g = model.grid
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    rand = lambda shape: torch.randn(shape, generator=gen, dtype=g.dtype,
+                                     device=DEVICE)
+    first = [(rand(g.total_shape), model._locs()[n], model.bcs[n], (0, 1, 2), 0.0)
+             for n in model.prognostic_names()]
+    first.append((rand(g.total_shape[:2] + (1,)), ETA_LOC, model.eta_bcs, (0, 1), 0.0))
+    second = [(rand(g.total_shape), loc, bcs, (0, 1, 2), 0.0) for loc, bcs in (
+        (W_LOC, model.w_bcs), (CENTER, model.pressure_bcs))]
+    return first, second
+
+
+def fill_work(grid, fields):
+    """(compulsory bytes, written points) of filling ``fields``: each
+    written halo point once and each distinct source point once. Along an
+    axis the written indices map one to one onto kept indices (a wall face
+    has no source), so a field's sources are the kept points whose index
+    lies among an axis' sources on some axis: |kept| − Π(kept_a − sources_a)."""
+    nbytes = written = 0
+    for data, loc, bcs, axes, _t in fields:
+        ints, _ = fill_plan(grid, loc, bcs, axes, data.shape)
+        kept = no_source = 1
+        for S, _N, _H, lo, hi, k0, k1, v0, v1 in ints:
+            walls = sum(1 for k, v in ((k0, v0), (k1, v1)) if k == MIRROR_F and v)
+            sources = min(lo + (S - hi) - walls, hi - lo)
+            kept *= hi - lo
+            no_source *= hi - lo - sources
+        halo_points, source_points = data.numel() - kept, kept - no_source
+        written += halo_points
+        nbytes += (halo_points + source_points) * data.element_size()
+    return nbytes, written
+
+
+def phase_k6():
+    """K6 against its plain version on every point; returns (max_abs_err,
+    ms, plain_ms, bound_ms, bound_by) of the ¼° fp32 first group (u, v, T,
+    S, b and η: the main path's first fill of a step)."""
+    out = None
+    for label, build in (("1/4 deg fp32", latlon_flagship),
+                         ("128x96x16 fp64 bounded x and y", bounded_beta_model)):
+        model = build()
+        g = model.grid
+        dtype = g.dtype
+        for part, group in zip(("u, v, T, S, b, eta", "w, pHY"),
+                               hydro_fill_fields(model)):
+            got = [(d.clone(), *rest) for d, *rest in group]
+            ref = [(d.clone(), *rest) for d, *rest in group]
+            n0 = fused_fill_halos.launches
+            fused_fill_halos(g, got)
+            if fused_fill_halos.launches != n0 + 1:
+                raise AssertionError("K6: expected one launch per group")
+            fused_fill_halos_reference(g, ref)
+            err = hold(f"K6 {label} {part}",
+                       {"out": {i: f[0] for i, f in enumerate(got)}},
+                       {"out": {i: f[0] for i, f in enumerate(ref)}}, dtype)
+            if out is None:
+                ms = cuda_ms(lambda: fused_fill_halos(g, got), 20)
+                plain_ms = cuda_ms(lambda: fused_fill_halos_reference(g, ref), 5)
+                nbytes, points = fill_work(g, group)
+                out = (err, ms, plain_ms, *bound(K6, nbytes, points))
+                print(f"K6 {label} {part} time: kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms (CUDA events); {points} halo points, "
+                      f"{nbytes / 1e9:.4f} GB compulsory")
+            else:
+                out = (max(out[0], err),) + out[1:]
+            del got, ref
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def drive_hydrostatic(plain):
+    """The ¼° flagship run with K4a, K4b, K5 and K6 or (``plain``) their
+    plain versions; returns (model, state, s per step, launches)."""
+    model = latlon_flagship()
+    rng = np.random.default_rng(0)
+    state = model.initial_state(
+        u=0.1 * rng.standard_normal(model.grid.shape),
+        b=lambda lam, phi, z: 2e-5 * (z + 3000.0) / 3000.0)
+    kernels = hydrostatic.PLAIN if plain else None
+    state, per_step, launches = run_steps(
+        "hydrostatic", model, state,
+        lambda s: model.step(s, HYDRO["dt"], kernels), HYDRO["warmup"],
+        HYDRO["steps"], plain)
+    return model, state, per_step, launches
+
+
+def phase_hydrostatic():
+    """The ¼° hydrostatic path with the kernels, checked, then with their
+    plain versions; returns the kernel run's launch counts."""
+    model, state, per_step, launches = drive_hydrostatic(plain=False)
+    check_finite("hydrostatic", model, state, ("w", "pHY", "eta"))
+    g = model.grid
+    cut = lambda a: a[g.Hx:g.Hx + g.Nx, g.Hy:g.Hy + g.Ny, 0].double()
+    eta, az = cut(state["eta"]), cut(torch.broadcast_to(
+        g.Az(ETA_LOC), state["eta"].shape))
+    net, gross = float((eta * az).sum()), float((eta.abs() * az).sum())
+    if not abs(net) <= 1e-5 * gross:
+        raise AssertionError(f"hydrostatic: |sum(eta Az)| {abs(net):.3e} > "
+                             f"1e-5 sum(|eta| Az) = {1e-5 * gross:.3e}")
+    points = g.Nx * g.Ny * g.Nz
+    used = {k: n for k, n in launches.items() if n}
+    steps = HYDRO["warmup"] + HYDRO["steps"]
+    print(f"hydrostatic path: 1/4 deg {g.Nx}x{g.Ny}x{g.Nz} fp32, "
+          f"{HYDRO['steps']} steps: {per_step * 1e3:.3f} ms/step, "
+          f"{points / per_step:.6e} grid points/s, launches {used} in {steps} "
+          f"steps, |sum(eta Az)|/sum(|eta| Az) {abs(net) / gross:.3e}")
+    kernel_u = {k: g.interior(a).clone() for k, a in state["solution"].items()}
+    kernel_eta = cut(state["eta"]).clone()
+    del state
+    torch.cuda.empty_cache()
+    model, state, plain_step, _ = drive_hydrostatic(plain=True)
+    worst = agreement("hydrostatic", steps, kernel_u, model, state)
+    eta_rel = (float((kernel_eta - cut(state["eta"])).abs().max())
+               / float(cut(state["eta"]).abs().max()))
+    if not eta_rel <= AGREE["hydrostatic"]:
+        raise AssertionError(f"hydrostatic: kernel and plain runs differ by "
+                             f"{eta_rel:.3e} of max|eta|")
+    print(f"hydrostatic path: plain versions: {plain_step * 1e3:.3f} ms/step, "
+          f"{points / plain_step:.6e} grid points/s; kernel and plain runs "
+          f"agree to {max(worst, eta_rel):.3e} of max|field| (eta included)")
+    del model, state, kernel_u
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     phase_device()
     phase_build()
     measured = {K1: phase_k1(), K2: phase_k2(), K3A: phase_k3a()}
     measured[K3B], measured[K3C] = phase_k3bc()
+    measured.update(phase_k4())
+    measured[K5] = phase_k5()
+    measured[K6] = phase_k6()
     launches = {K1: phase_path("AB2")[K1], K2: phase_path("RK3")[K2]}
     sw_launches, ms, plain_ms = phase_shallow_water()
     launches[K3A] = sw_launches[K3A]
-    measured[K3A] = (measured[K3A][0], ms, plain_ms)  # times on the path's fields
+    # K3a's times on the path's fields
+    measured[K3A] = (measured[K3A][0], ms, plain_ms, *measured[K3A][3:])
     general = phase_path("general projection")
     launches.update({K3B: general[K3B], K3C: general[K3C]})
-    replaces = {K1: "clima_oceananigans_jl_tpu/ops/fused_step.py:129",
-                K2: "clima_oceananigans_jl_tpu/ops/fused_tendencies.py:397"}
+    hydro = phase_hydrostatic()
+    launches.update({k: hydro[k] for k in (K4A, K4B, K5, K6)})
     records = []
-    for name, (err, ms, plain_ms) in measured.items():
+    for name, (err, ms, plain_ms, bound_ms, bound_by) in measured.items():
         records.append({
             "name": name, "route": "cuda",
             "source": f"clima_oceananigans_jl_torch/csrc/{SOURCES[name]}.cu",
-            "replaces": replaces.get(
-                name, "clima_oceananigans_jl_tpu/ops/fused_tendencies.py:238"),
-            "launches": launches[name], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms})
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     if not all(r["launches"] > 0 for r in records):
         raise AssertionError(f"a kernel was never launched on its path: {records}")
     print(json.dumps({"kernels": records}))

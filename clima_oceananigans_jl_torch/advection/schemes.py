@@ -2,8 +2,10 @@
 
 Counterpart of ``clima_oceananigans_jl_tpu/advection/schemes.py``
 (Oceananigans' ``Advection`` module) for regular, non-immersed grids.
-Ported so far: ``CenteredSecondOrder`` and ``WENO5`` (Jiang-Shu weights)
-through the select-first upwind path; the other schemes come with
+Ported so far: ``CenteredSecondOrder`` and ``WENO5`` (Jiang-Shu weights):
+select-first upwinding on regular axes, and on a stretched axis the
+two-sided form with the per-index tables of
+``advection/reconstruction_tables.py``; the other schemes come with
 ROADMAP Queue 1 item 4.
 
 Conventions: reconstructions "to F" give a value at face i from
@@ -22,6 +24,7 @@ import torch
 
 from ..grids.topology import BOUNDED
 from ..ops.stencil import ic, if_, shift
+from .reconstruction_tables import weno5_tables
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,21 +111,46 @@ class WENO5(AdvectionScheme):
         b2 = sum(b[2] for b in bs) / count
         return self._combine(p0, p1, p2, b0, b1, b2)
 
-    def _nl_weights(self, b0, b1, b2):
+    def _nl_weights(self, b0, b1, b2, d=(0.1, 0.6, 0.3)):
         """Un-normalised nonlinear weights gk = dk Π_{j≠k}(βj+ε)² with the
-        optimal weights d = (0.1, 0.6, 0.3): the single-division form of
-        αk = dk/(βk+ε)²."""
+        optimal weights d (uniform (0.1, 0.6, 0.3), or per-index rows on a
+        stretched axis): the single-division form of αk = dk/(βk+ε)²."""
         eps = self.eps
         t0 = (b0 + eps) * (b0 + eps)
         t1 = (b1 + eps) * (b1 + eps)
         t2 = (b2 + eps) * (b2 + eps)
-        return 0.1 * (t1 * t2), 0.6 * (t0 * t2), 0.3 * (t0 * t1)
+        return d[0] * (t1 * t2), d[1] * (t0 * t2), d[2] * (t0 * t1)
 
-    def _combine(self, p0, p1, p2, b0, b1, b2):
-        g0, g1, g2 = self._nl_weights(b0, b1, b2)
+    def _combine(self, p0, p1, p2, b0, b1, b2, d=(0.1, 0.6, 0.3)):
+        g0, g1, g2 = self._nl_weights(b0, b1, b2, d)
         num = g0 * p0 + g1 * p1 + g2 * p2
         den = g0 + g1 + g2
         return num / den  # IEEE division, as on the JAX plain path
+
+    def table_reconstruct(self, v, axis, tables, side):
+        """Biased reconstruction of ``v`` with the per-index coefficient
+        tables of a stretched axis (``side`` "left" or "right"): the
+        geometry-exact stencil polynomials and optimal weights, uniform
+        Jiang–Shu smoothness indicators."""
+        def bx(row):
+            shape = [1, 1, 1]
+            shape[axis] = row.shape[0]
+            return row.reshape(shape)
+
+        ps, bs, ds = [], [], []
+        for d, cj, voff, kind in tables[side]:
+            w0, w1, w2 = (shift(v, o, axis) for o in voff)
+            ps.append(bx(cj[0]) * w0 + bx(cj[1]) * w1 + bx(cj[2]) * w2)
+            if kind == 0:
+                t2 = w0 - 4.0 * w1 + 3.0 * w2
+            elif kind == 1:
+                t2 = w0 - w2
+            else:
+                t2 = 3.0 * w0 - 4.0 * w1 + w2
+            q = w0 - 2.0 * w1 + w2
+            bs.append((13.0 / 12.0) * (q * q) + 0.25 * t2 * t2)
+            ds.append(bx(d))
+        return self._combine(*ps, *bs, d=tuple(ds))
 
 
 def upwind_stream(c, sel, axis, to_f):
@@ -138,6 +166,12 @@ def upwind_stream(c, sel, axis, to_f):
         left = (s(-2), s(-1), c, s(1), s(2))
         right = (s(3), s(2), s(1), c, s(-1))
     return tuple(torch.where(sel, l, r) for l, r in zip(left, right))
+
+
+def upwind_biased_product(vel, left, right):
+    """vel·ψ upwind product ((ũ+|ũ|)ψᴸ + (ũ−|ũ|)ψᴿ)/2 (Oceananigans'
+    upwind_biased_advective_fluxes.jl)."""
+    return 0.5 * ((vel + vel.abs()) * left + (vel - vel.abs()) * right)
 
 
 def reduced_order_masks(grid, axis, scheme):
@@ -167,29 +201,45 @@ def _axis_index(shape, axis, device):
     return torch.arange(shape[axis], device=device).reshape(view)
 
 
+def _in_bounds(bounds, like, axis):
+    """True where the index along ``axis`` lies in the inclusive bounds."""
+    idx = _axis_index(like.shape, axis, like.device)
+    return (idx >= bounds[0]) & (idx <= bounds[1])
+
+
 def transport(scheme, vel, c, axis, to_f, grid=None):
     """Advective transport vel·ψ at the flux location along ``axis``.
 
     ``to_f=True``: flux at faces along ``axis`` (c centred there); else
     the reverse. ``vel`` already lives at the flux location. With a
     ``grid`` whose ``axis`` is bounded, high-order reconstructions drop to
-    2nd-order centred within ``required_halo`` cells of the walls."""
+    2nd-order centred within ``required_halo`` cells of the walls. On a
+    stretched axis WENO5 reconstructs both sides with the axis' tables,
+    applies the near-wall selects to each and takes the upwind product,
+    the JAX tree; elsewhere it reconstructs select-first."""
     masks = reduced_order_masks(grid, axis, scheme) if grid is not None else None
     lo_val = lambda: if_(c, axis) if to_f else ic(c, axis)
+    in_bounds = lambda b, like: _in_bounds(b, like, axis)
     if not scheme.is_upwind:
         hi = scheme.sym_to_f(c, axis) if to_f else scheme.sym_to_c(c, axis)
         if masks is not None:
-            idx = _axis_index(hi.shape, axis, hi.device)
-            lo, up = masks[0]
-            hi = torch.where((idx >= lo) & (idx <= up), hi, lo_val())
+            hi = torch.where(in_bounds(masks[0], hi), hi, lo_val())
         return vel * hi
+    tables = (weno5_tables(grid, axis, to_f)
+              if grid is not None and isinstance(scheme, WENO5) else None)
+    if tables is not None:
+        L = scheme.table_reconstruct(c, axis, tables, "left")
+        R = scheme.table_reconstruct(c, axis, tables, "right")
+        if masks is not None:
+            lo = lo_val()
+            L = torch.where(in_bounds(masks[1], L), L, lo)
+            R = torch.where(in_bounds(masks[2], R), R, lo)
+        return upwind_biased_product(vel, L, R)
     # select-first upwinding: pick the upwind stencil by sign(vel) and
     # reconstruct once; vel·L or vel·R exactly, as the two-sided blend
     sel = vel >= 0
     rec = scheme.stream_reconstruct(upwind_stream(c, sel, axis, to_f))
     if masks is not None:
-        idx = _axis_index(rec.shape, axis, rec.device)
-        in_l = (idx >= masks[1][0]) & (idx <= masks[1][1])
-        in_r = (idx >= masks[2][0]) & (idx <= masks[2][1])
+        in_l, in_r = in_bounds(masks[1], rec), in_bounds(masks[2], rec)
         rec = torch.where((sel & in_l) | (~sel & in_r), rec, lo_val())
     return vel * rec

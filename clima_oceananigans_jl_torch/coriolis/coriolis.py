@@ -3,19 +3,21 @@
 Counterpart of ``clima_oceananigans_jl_tpu/coriolis/coriolis.py``
 (Oceananigans' ``FPlane`` and ``BetaPlane``): the staggered cross-product
 terms ``x_f_cross_U`` at (F,C,C), ``y_f_cross_U`` at (C,F,C) and
-``z_f_cross_U`` at (C,C,F), zero under the traditional approximation.
-``ConstantCartesianCoriolis``, ``NonTraditionalBetaPlane`` and
-``HydrostaticSphericalCoriolis`` are not ported yet; the model refuses
-them (ROADMAP Queue 1 item 4).
+``z_f_cross_U`` at (C,C,F), zero under the traditional approximation,
+and ``HydrostaticSphericalCoriolis`` (f = 2Ω sin φ at the vorticity
+points of a lat-lon grid) for the hydrostatic model.
+``ConstantCartesianCoriolis`` and ``NonTraditionalBetaPlane`` are not
+ported yet; the models refuse them (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from ..ops import stencil as st
-from ..utils.location import U_LOC, V_LOC
+from ..utils.location import C, F, U_LOC, V_LOC
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +52,44 @@ class BetaPlane:
 
     def y_f_cross_U(self, grid, u, v, w):
         return self._f(grid, V_LOC) * st.iyf(st.ixc(u))
+
+    def z_f_cross_U(self, grid, u, v, w):
+        return torch.zeros_like(w)
+
+
+@dataclasses.dataclass(frozen=True)
+class HydrostaticSphericalCoriolis:
+    """f = 2Ω sin φ with f at the vorticity points (F, F, ·) of a lat-lon
+    grid (Oceananigans' hydrostatic_spherical_coriolis.jl). ``scheme``:
+    "energy" (f·ℑv averaged together, energy-conserving under
+    vector-invariant advection) or "enstrophy" (f averaged apart from the
+    doubly averaged transport)."""
+
+    rotation_rate: float = 7.292115e-5  # Ω of the Earth, 1/s
+    scheme: str = "energy"
+
+    def __post_init__(self):
+        if self.scheme not in ("energy", "enstrophy"):
+            raise ValueError(f"unknown Coriolis scheme {self.scheme!r}")
+
+    def f_ff(self, grid):
+        """f at (F, F) over the with-halo latitude axis, shape (1, Y, 1)."""
+        phi_f = grid.nodes((F, F, C), with_halo=True)[1]
+        return 2.0 * self.rotation_rate * torch.sin(math.pi / 180.0 * phi_f)
+
+    def x_f_cross_U(self, grid, u, v, w):
+        f = self.f_ff(grid)
+        dxv = grid.dx((C, F, C)) * v
+        if self.scheme == "enstrophy":
+            return -st.iyc(f) * st.ixf(st.iyc(dxv)) / grid.dx(U_LOC)
+        return -st.iyc(f * st.ixf(dxv)) / grid.dx(U_LOC)
+
+    def y_f_cross_U(self, grid, u, v, w):
+        f = self.f_ff(grid)
+        dyu = grid.dy((F, C, C)) * u
+        if self.scheme == "enstrophy":
+            return st.ixc(f) * st.iyf(st.ixc(dyu)) / grid.dy(V_LOC)
+        return st.ixc(f * st.iyf(dyu)) / grid.dy(V_LOC)
 
     def z_f_cross_U(self, grid, u, v, w):
         return torch.zeros_like(w)

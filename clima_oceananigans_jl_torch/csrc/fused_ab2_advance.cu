@@ -25,10 +25,12 @@
 // What bounds it on an H100: memory. At 256^3 fp32 it reads about 0.63 GB
 // (five with-halo fields u, v, w, b, pHY' at 72 MB, four halo-free G_prev
 // at 67 MB) and writes about 0.54 GB (eight halo-free outputs): at least
-// 0.35 ms at 3.35 TB/s if each byte moves once. The arithmetic, about
-// 24 WENO5 reconstructions of ~50 flops per point and field set, is some
-// 20 GFLOP, about 0.3 ms at the 67 TFLOP/s fp32 peak; the options add a
-// few loads and ~30 flops per field.
+// 0.35 ms at 3.35 TB/s if each byte moves once. The function needs ~820
+// flops per point (12 WENO5 transports of ~64 flops, three faces for each
+// of four fields, then the divergences, -d(pHY')/dx and the epilogue), some
+// 14 GFLOP, about 0.2 ms at the 67 TFLOP/s fp32 peak; the kernel computes
+// each face in both cells beside it, 24 per point. The options add a few
+// loads and ~30 flops per field.
 //
 // The design is the simple one: one thread per interior point (i, j, k),
 // k (the contiguous axis) across the threads of a warp, neighbours read

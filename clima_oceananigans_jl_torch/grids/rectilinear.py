@@ -1,4 +1,4 @@
-"""Rectilinear staggered grids with regular axes.
+"""Rectilinear staggered grids, regular or stretched per axis.
 
 Counterpart of ``clima_oceananigans_jl_tpu/grids/rectilinear.py``
 (Oceananigans' ``RectilinearGrid``). Every field array carries explicit
@@ -7,10 +7,13 @@ logical cell ``i = a - H``, interior cells are ``i in [0, N)``, and face
 ``i`` is the lower face of cell ``i``. A bounded axis has one more
 interior face, ``i = N``, stored in the first halo cell.
 
+An axis is given by an interval, an array of its ``n + 1`` face
+positions, or a callable of the face index; its halo faces continue the
+edge spacing (bounded) or wrap (periodic), and a regular axis holds
+exactly ``extent / n`` in every spacing entry, as the JAX grid does.
 The grid holds its coordinate and spacing arrays as tensors on
-``device`` in ``dtype``; every array of a model is allocated from them.
-Only regular axes exist so far: a stretched axis raises
-``NotImplementedError`` (ROADMAP Queue 1 item 4).
+``device`` (the card unless the caller asks for ``"cpu"``) in
+``dtype``; every array of a model is allocated from them.
 """
 from __future__ import annotations
 
@@ -22,26 +25,33 @@ import torch
 from ..utils.location import C
 from .topology import BOUNDED, FLAT, PERIODIC, Topology
 
-def _interval(n, extent, spec):
-    """(lo, hi) of one axis from an interval, a face array or a callable.
-    Face arrays and callables must describe regular spacing."""
+
+def _face_positions(interval, n, spec=None):
+    """The n+1 interior face positions (float64) from an interval, a face
+    array or a callable of the face index."""
     if spec is None:
-        if extent is None:
-            raise ValueError("each non-flat axis needs an extent or x/y/z")
-        return extent
-    if not callable(spec) and np.ndim(spec) == 1 and len(spec) == 2:
-        return float(spec[0]), float(spec[1])
-    faces = (np.asarray([spec(k) for k in range(n + 1)], dtype=np.float64)
-             if callable(spec) else np.asarray(spec, dtype=np.float64))
+        lo, hi = interval
+        return np.linspace(lo, hi, n + 1, dtype=np.float64)
+    if callable(spec):
+        return np.asarray([spec(k) for k in range(n + 1)], dtype=np.float64)
+    faces = np.asarray(spec, dtype=np.float64)
     if faces.shape != (n + 1,):
         raise ValueError(f"face-position array must have length n+1={n + 1}, "
                          f"got {faces.shape}")
     if np.any(np.diff(faces) <= 0):
         raise ValueError("face positions must be strictly increasing")
-    if not np.allclose(np.diff(faces), faces[1] - faces[0]):
-        raise NotImplementedError(
-            "stretched axes are not ported yet (ROADMAP Queue 1 item 4)")
-    return float(faces[0]), float(faces[-1])
+    return faces
+
+
+def _extend_faces(faces, topo, h):
+    """Interior faces (length n+1) continued into the halos: length n+2h+1."""
+    n = len(faces) - 1
+    length = faces[-1] - faces[0]
+    left = [faces[n - k] - length if topo is PERIODIC
+            else faces[0] - k * (faces[1] - faces[0]) for k in range(1, h + 1)]
+    right = [faces[k] + length if topo is PERIODIC
+             else faces[-1] + k * (faces[-1] - faces[-2]) for k in range(1, h + 1)]
+    return np.concatenate([left[::-1], faces, right])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,30 +65,39 @@ class _Axis:
     cc: torch.Tensor   # centre coordinates, len n+2h
     dc: torch.Tensor   # spacing at centres (cell widths), len n+2h
     df: torch.Tensor   # spacing at faces (centre-to-centre), len n+2h
+    regular: bool
     extent: float
 
 
-def _build_axis(n, h, topo, interval, dtype, device):
+def _build_axis(n, h, topo, interval, spec, dtype, device):
+    """The JAX ``_build_axis`` rules: halo extension, ``df[0] = df[1]``,
+    and a regular axis canonicalised to exactly extent/n everywhere (so
+    every metric is bitwise position-independent)."""
     to = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     if topo is FLAT:
         one, zero = to(np.ones(1)), to(np.zeros(1))
-        return _Axis(1, 0, topo, zero, zero, one, one, 1.0)
+        return _Axis(1, 0, topo, zero, zero, one, one, True, 1.0)
     if h < 1:
         raise ValueError("halo width must be >= 1 on non-flat axes")
-    lo, hi = interval
-    faces = np.linspace(lo, hi, n + 1, dtype=np.float64)
-    length = faces[-1] - faces[0]
-    left = [faces[n - k] - length if topo is PERIODIC
-            else faces[0] - k * (faces[1] - faces[0]) for k in range(1, h + 1)]
-    right = [faces[k] + length if topo is PERIODIC
-             else faces[-1] + k * (faces[-1] - faces[-2]) for k in range(1, h + 1)]
-    ext = np.concatenate([left[::-1], faces, right])   # len n+2h+1
+    faces = _face_positions(interval, n, spec)
+    ext = _extend_faces(faces, topo, h)        # len n+2h+1
     centres = 0.5 * (ext[:-1] + ext[1:])
-    # regular spacing is exactly extent/n everywhere, as in the JAX grid,
-    # so every metric is bitwise position-independent
-    const = np.full(n + 2 * h, float(hi - lo) / n)
-    return _Axis(n, h, topo, to(ext[:-1]), to(centres), to(const), to(const),
-                 float(hi - lo))
+    dc = np.diff(ext)
+    df = np.empty_like(dc)
+    df[1:] = centres[1:] - centres[:-1]
+    df[0] = df[1] if len(df) > 1 else dc[0]
+    regular = bool(np.allclose(dc, dc[0]))
+    if regular:
+        const = float(faces[-1] - faces[0]) / n
+        dc = np.full_like(dc, const)
+        df = np.full_like(df, const)
+    return _Axis(n, h, topo, to(ext[:-1]), to(centres), to(dc), to(df),
+                 regular, float(faces[-1] - faces[0]))
+
+
+def _host(t):
+    """A 1D tensor as a float64 numpy array (the value in the grid's type)."""
+    return t.detach().cpu().double().numpy()
 
 
 def _bx(arr, axis):
@@ -89,34 +108,51 @@ def _bx(arr, axis):
 
 
 class RectilinearGrid:
-    """Staggered rectilinear grid with regular axes."""
+    """Staggered rectilinear grid, regular or stretched per axis."""
+
+    curvilinear = False
 
     def __init__(self, *, size, extent=None, x=None, y=None, z=None,
                  topology=(PERIODIC, PERIODIC, BOUNDED), halo=None,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device="cuda"):
         if len(size) != 3:
             raise ValueError("size must be a 3-tuple (use 1 for flat axes)")
-        if dtype not in (torch.float32, torch.float64):
-            raise ValueError(f"dtype must be float32 or float64, got {dtype}")
         topology = tuple(Topology(t) for t in topology)
         if halo is None:
             halo = tuple(0 if t is FLAT else 3 for t in topology)
         halo = tuple(0 if t is FLAT else max(1, h) for h, t in zip(halo, topology))
         intervals = [None, None, None]
+        specs = [x, y, z]
         if extent is not None:
             ex = iter(extent)
-            for a, s in enumerate((x, y, z)):
-                if topology[a] is not FLAT and s is None:
+            for a in range(3):
+                if topology[a] is not FLAT and specs[a] is None:
                     intervals[a] = (0.0, float(next(ex)))
-        intervals = [_interval(size[a], intervals[a], s)
-                     if topology[a] is not FLAT else None
-                     for a, s in enumerate((x, y, z))]
+        for a, s in enumerate(specs):
+            # a 2-element spec is an interval (for n=1 it coincides with faces)
+            if s is not None and not callable(s) and np.ndim(s) == 1 and len(s) == 2:
+                intervals[a] = (float(s[0]), float(s[1]))
+                specs[a] = None
+        for a in range(3):
+            if topology[a] is not FLAT and intervals[a] is None and specs[a] is None:
+                raise ValueError("each non-flat axis needs an extent or x/y/z")
+        self._set_dtype_device(dtype, device)
+        self._axes = tuple(_build_axis(size[a], halo[a], topology[a],
+                                       intervals[a], specs[a], dtype, self.device)
+                           for a in range(3))
+        self._init_static()
+
+    def _set_dtype_device(self, dtype, device):
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"dtype must be float32 or float64, got {dtype}")
         self.dtype = dtype
         self.device = torch.device(device)
-        self._intervals = tuple(intervals)
-        self._axes = tuple(_build_axis(size[a], halo[a], topology[a],
-                                       intervals[a], dtype, self.device)
-                           for a in range(3))
+        #: per-grid cache of constants derived from the grid: stretched-axis
+        #: WENO5 tables (``advection/reconstruction_tables.py``), the
+        #: kernels' metric rows (``ops/metric_rows.py``), the column depths
+        self._cache = {}
+
+    def _init_static(self):
         ax = self._axes
         self.Nx, self.Ny, self.Nz = (a.n for a in ax)
         self.Hx, self.Hy, self.Hz = (a.h for a in ax)
@@ -199,10 +235,38 @@ class RectilinearGrid:
     def V(self, loc):
         return self.dx(loc) * self.dy(loc) * self.dz(loc)
 
+    # -- regularity ------------------------------------------------------------
+    @property
+    def x_regular(self):
+        return self._axes[0].regular
+
+    @property
+    def y_regular(self):
+        return self._axes[1].regular
+
+    @property
+    def z_regular(self):
+        return self._axes[2].regular
+
     @property
     def all_regular(self):
-        """Always true: stretched axes are refused at construction."""
-        return True
+        return self.x_regular and self.y_regular and self.z_regular
+
+    @property
+    def hregular(self):
+        """Regular in x and y (z may be stretched)."""
+        return self.x_regular and self.y_regular
+
+    @property
+    def regular(self):
+        """Per-axis regularity flags (x, y, z)."""
+        return tuple(a.regular for a in self._axes)
+
+    def min_spacing(self):
+        """Smallest interior grid spacing (a host number)."""
+        vals = [float(a.dc[a.h: a.h + a.n].min()) for a in self._axes
+                if a.topo is not FLAT]
+        return min(vals) if vals else 1.0
 
     def with_halo(self, halo):
         """This grid with (at least) the given halo widths."""
@@ -210,11 +274,33 @@ class RectilinearGrid:
                      for h, t in zip(halo, self.topology))
         if halo == self.halo:
             return self
-        size = self.shape
-        return RectilinearGrid(size=size, x=self._intervals[0],
-                               y=self._intervals[1], z=self._intervals[2],
-                               topology=self.topology, halo=halo,
-                               dtype=self.dtype, device=self.device)
+        return self._rebuild_with_halo(halo)
+
+    def _rebuild_with_halo(self, halo):
+        """The JAX rebuild: a regular axis from its stored first face and
+        extent, a stretched one from its stored interior faces."""
+        new = object.__new__(type(self))
+        new._set_dtype_device(self.dtype, self.device)
+        axes = []
+        for a, h in zip(self._axes, halo):
+            if a.topo is FLAT:
+                axes.append(a)
+                continue
+            cf = _host(a.cf)
+            if a.regular:
+                lo = float(cf[a.h])
+                axes.append(_build_axis(a.n, h, a.topo, (lo, lo + a.extent),
+                                        None, self.dtype, self.device))
+                continue
+            dc = _host(a.dc)
+            faces = np.empty(a.n + 1)
+            faces[:-1] = cf[a.h: a.h + a.n]
+            faces[-1] = cf[a.h + a.n - 1] + dc[a.h + a.n - 1]
+            axes.append(_build_axis(a.n, h, a.topo, None, faces, self.dtype,
+                                    self.device))
+        new._axes = tuple(axes)
+        new._init_static()
+        return new
 
     def __repr__(self):
         t = tuple(t.value for t in self.topology)

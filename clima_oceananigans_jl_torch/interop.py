@@ -12,7 +12,13 @@ package's state for ``model``:
   ``model.g_interior``, else with zero halos), from either JAX layout;
 - ``pNHS`` keeps zero halos, as the projection stores it;
 - the 0-d ``clock`` and ``previous_dt`` leaves become host numbers;
-- a shallow-water state (RK3) has ``solution`` and ``clock`` only.
+- a shallow-water state (RK3) has ``solution`` and ``clock`` only;
+- a hydrostatic state also carries ``eta`` (X, Y, 1) and the diagnosed
+  ``w`` and ``pHY``: their x/y interiors (all z levels, so w keeps its
+  top face) go into the port's layout and are halo-filled; its
+  ``G_prev`` (an ``eta`` entry too under an explicit free surface) comes
+  with halos (the JAX plain path) or x/y-interior (the JAX fused
+  advance) and goes in with zero x/y halos.
 
 ``state_to_numpy`` goes the other way, keeping the port's layout (halo
 3, ``G_prev`` as the model keeps it), which the JAX package's plain step
@@ -25,7 +31,7 @@ import torch
 
 from .boundary_conditions.bcs import fill_halos
 from .timesteppers.steppers import Clock
-from .utils.location import CENTER
+from .utils.location import CENTER, W_LOC
 
 
 def _interior(arr, shape):
@@ -37,6 +43,34 @@ def _interior(arr, shape):
                          f"shape {arr.shape}")
     return arr[tuple(slice((t - n) // 2, (t - n) // 2 + n)
                      for t, n in zip(arr.shape, shape))]
+
+
+def _xy_interior(arr, grid):
+    """The x/y interior of a with-halo or x/y-interior array, all z kept,
+    placed in a zero tensor of the port's x/y halos."""
+    arr = np.asarray(arr)
+    nx, ny = grid.Nx, grid.Ny
+    cut = arr[tuple(slice((t - n) // 2, (t - n) // 2 + n)
+                    for t, n in zip(arr.shape[:2], (nx, ny)))]
+    out = torch.zeros(grid.total_shape[:2] + cut.shape[2:], dtype=grid.dtype,
+                      device=grid.device)
+    out[grid.Hx:grid.Hx + nx, grid.Hy:grid.Hy + ny] = torch.as_tensor(
+        np.array(cut), dtype=grid.dtype, device=grid.device)
+    return out
+
+
+def _hydrostatic_from_numpy(model, state, out, t):
+    from .models.free_surface import ETA_LOC, fill2d
+    g = model.grid
+    out["eta"] = fill2d(_xy_interior(state["eta"], g), g, ETA_LOC,
+                        model.eta_bcs, t)
+    out["w"] = fill_halos(_xy_interior(state["w"], g), g, W_LOC, model.w_bcs)
+    if "pHY" in state:
+        out["pHY"] = fill_halos(_xy_interior(state["pHY"], g), g, CENTER,
+                                model.pressure_bcs, t)
+    out["G_prev"] = {n: _xy_interior(x, g) for n, x in state["G_prev"].items()}
+    out["previous_dt"] = float(np.asarray(state["previous_dt"]))
+    return out
 
 
 def state_from_numpy(model, state):
@@ -53,6 +87,8 @@ def state_from_numpy(model, state):
     out = dict(solution=sol,
                clock=Clock(t, int(np.asarray(clock.iteration)),
                            int(np.asarray(getattr(clock, "stage", 0)))))
+    if hasattr(model, "free_surface"):
+        return _hydrostatic_from_numpy(model, state, out, t)
     if not hasattr(model, "pressure_solver"):  # shallow water
         return out
     gp = {n: as_t(state["G_prev"][n]).contiguous()
@@ -73,7 +109,7 @@ def state_to_numpy(state):
     np_of = lambda x: x.detach().cpu().numpy()
     out = {k: {n: np_of(x) for n, x in state[k].items()}
            for k in ("solution", "G_prev") if k in state}
-    for k in ("pNHS", "pHY"):
+    for k in ("pNHS", "pHY", "eta", "w"):
         if k in state:
             out[k] = np_of(state[k])
     dtype = next(iter(out["solution"].values())).dtype

@@ -1,0 +1,202 @@
+"""Free-surface treatments of the hydrostatic model.
+
+Counterpart of ``clima_oceananigans_jl_tpu/models/free_surface.py``
+(Oceananigans' explicit_free_surface.jl and split_explicit_free_surface.jl):
+
+- ``ExplicitFreeSurface``: ∂t η = −∇h·U in the same AB2 sweep, −g∂η in
+  the momentum tendency;
+- ``SplitExplicitFreeSurface``: barotropic substepping ∂τU = −gH∇η + Gᵁ,
+  ∂τη = −∇·U over 2Δt with time-filtered averages (``substep_eta``, whose
+  loop is the plain version of the kernel K5, ``ops/fused_barotropic.py``),
+  then the barotropic corrector u += (U̅ − ∫u dz)/H;
+- ``ImplicitFreeSurface``: solve [∇h·(H∇h) − 1/gΔt²] η = (∇h·Q★ − η/Δt)/(gΔt)
+  by a 2D FFT/DCT eigen-solve on horizontally regular grids ("fft") or
+  matrix-free conjugate gradients ("pcg", lat-lon grids included), then
+  uⁿ⁺¹ = u★ − gΔt ∂x η; the JAX package's "matrix" and "multigrid"
+  methods wait (ROADMAP Queue 1 item 7).
+
+Every free-surface array (η, U̅, …) is a with-halo (X, Y, 1) tensor.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..boundary_conditions.bcs import fill_halos
+from ..grids.topology import BOUNDED, PERIODIC
+from ..ops import stencil as st
+from ..solvers.fft_poisson import dct2, idct2, poisson_eigenvalues
+from ..solvers.pcg import cg_solve
+from ..utils.location import C, CENTER, F, U_LOC, V_LOC
+
+ETA_LOC = (C, C, F)  # η sits at the top face; horizontally at (C, C)
+
+
+def fill2d(arr, grid, loc, bcs=None, t=0.0):
+    """Fill the x and y halos of an (X, Y, 1) tensor in place."""
+    return fill_halos(arr, grid, loc, bcs, t, axes=(0, 1))
+
+
+def depth_integral(grid, q, loc):
+    """∫ q dz over the interior z levels: a with-halo (X, Y, 1) tensor."""
+    Hz, Nz = grid.Hz, grid.Nz
+    qdz = q[:, :, Hz:Hz + Nz] * grid.dz(loc)[:, :, Hz:Hz + Nz]
+    return qdz.sum(dim=2, keepdim=True)
+
+
+def barotropic_mode(grid, u, v):
+    """(U, V) = (∫u dz, ∫v dz)."""
+    return depth_integral(grid, u, U_LOC), depth_integral(grid, v, V_LOC)
+
+
+def column_depths(grid):
+    """(Hᶠᶜ, Hᶜᶠ): the static water depths as (X, Y, 1) tensors, built once
+    per grid (callers must not write into them)."""
+    if "column_depths" not in grid._cache:
+        Hz, Nz = grid.Hz, grid.Nz
+        one = torch.ones(grid.total_shape[:2] + (1,), dtype=grid.dtype,
+                         device=grid.device)
+        depth = lambda loc: torch.broadcast_to(
+            grid.dz(loc), grid.total_shape)[:, :, Hz:Hz + Nz].sum(dim=2, keepdim=True)
+        grid._cache["column_depths"] = (one * depth(U_LOC), one * depth(V_LOC))
+    return grid._cache["column_depths"]
+
+
+def div_xy_2d(grid, U, V):
+    """∇h·(U, V) at centres: (δx(Δy U) + δy(Δx V))/Az."""
+    return (st.dxc(grid.dy(U_LOC) * U) + st.dyc(grid.dx(V_LOC) * V)) / grid.Az(CENTER)
+
+
+def grad_x(grid, eta):
+    return st.dxf(eta) / grid.dx(U_LOC)
+
+
+def grad_y(grid, eta):
+    return st.dyf(eta) / grid.dy(V_LOC)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExplicitFreeSurface:
+    gravitational_acceleration: float = 9.80665
+
+
+@dataclasses.dataclass(frozen=True)
+class ImplicitFreeSurface:
+    """``solver_method``: "fft" (horizontally regular rectilinear grids,
+    constant depth), "pcg" (any grid, lat-lon included) or "auto" (fft
+    where it applies); "matrix" and "multigrid" are not ported yet
+    (ROADMAP Queue 1 item 7)."""
+
+    gravitational_acceleration: float = 9.80665
+    solver_method: str = "auto"
+    tolerance: float = 1e-10
+    maxiter: int = 500
+
+    def resolve_method(self, grid):
+        if self.solver_method != "auto":
+            return self.solver_method
+        return "fft" if (not grid.curvilinear and grid.hregular) else "pcg"
+
+    def solve(self, grid, eta_bcs, rhs, eta0, dt):
+        """Solve [∇h·(H∇h) − 1/gΔt²] η = rhs; with-halo (X, Y, 1) tensors."""
+        g = self.gravitational_acceleration
+        method = self.resolve_method(grid)
+        interior = (slice(grid.Hx, grid.Hx + grid.Nx),
+                    slice(grid.Hy, grid.Hy + grid.Ny), slice(None))
+        if method == "fft":
+            # constant H: (∇²h − 1/gHΔt²) η = rhs / H
+            H = float(grid.Lz)
+            lam = [poisson_eigenvalues(n, grid._axes[a].extent, grid.topology[a],
+                                       grid.dtype, grid.device)
+                   for a, n in ((0, grid.Nx), (1, grid.Ny))]
+            lx, ly = lam[0].reshape(-1, 1, 1), lam[1].reshape(1, -1, 1)
+            b = rhs[interior] / H
+            dct = [grid.topology[a] is BOUNDED for a in (0, 1)]
+            for a in (0, 1):
+                if dct[a]:
+                    b = dct2(b, a)
+            fft_axes = tuple(a for a in (0, 1)
+                             if not dct[a] and grid.topology[a] is PERIODIC)
+            if fft_axes:
+                b = torch.fft.fftn(b, dim=fft_axes)
+            m = 1.0 / (g * H * dt * dt)
+            phi = b / (-(lx + ly) - m)
+            if fft_axes:
+                phi = torch.fft.ifftn(phi, dim=fft_axes)
+            phi = phi.real if phi.is_complex() else phi
+            for a in (1, 0):
+                if dct[a]:
+                    phi = idct2(phi, a)
+            eta = torch.zeros_like(eta0)
+            eta[interior] = phi.to(grid.dtype)
+            return fill2d(eta, grid, ETA_LOC, eta_bcs)
+        if method != "pcg":
+            raise NotImplementedError(
+                f"ImplicitFreeSurface solver_method={method!r} is not ported "
+                "yet (ROADMAP Queue 1 item 7)")
+        # matrix-free CG on the negated, Az-symmetrised operator
+        Hfc, Hcf = column_depths(grid)
+        Az = grid.Az(CENTER)
+
+        def matvec(eta_int):
+            eta = torch.zeros_like(eta0)
+            eta[interior] = eta_int
+            fill2d(eta, grid, ETA_LOC, eta_bcs)
+            lap = div_xy_2d(grid, Hfc * grad_x(grid, eta), Hcf * grad_y(grid, eta))
+            return (-(Az * lap - Az * eta / (g * dt * dt)))[interior]
+
+        x, _, _ = cg_solve(matvec, (-Az * rhs)[interior], eta0[interior],
+                           reltol=self.tolerance, maxiter=self.maxiter)
+        eta = torch.zeros_like(eta0)
+        eta[interior] = x
+        return fill2d(eta, grid, ETA_LOC, eta_bcs)
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitExplicitFreeSurface:
+    """Barotropic substepping with time-filtered averaging.
+
+    ``velocity_weights`` / ``free_surface_weights``: optional per-substep
+    averaging weights (normalised here); the default is the uniform
+    1/substeps filter. ``with_hann_filter`` builds a raised-cosine
+    (Hann) filter."""
+
+    gravitational_acceleration: float = 9.80665
+    substeps: int = 200
+    velocity_weights: tuple = None
+    free_surface_weights: tuple = None
+
+    @classmethod
+    def with_hann_filter(cls, gravitational_acceleration=9.80665, substeps=200):
+        w = tuple(math.sin(math.pi * (k + 1) / (substeps + 1)) ** 2
+                  for k in range(substeps))
+        return cls(gravitational_acceleration, substeps, w, w)
+
+    def _weight_vec(self, weights, like):
+        if weights is None:
+            return torch.full((self.substeps,), 1.0 / self.substeps,
+                              dtype=like.dtype, device=like.device)
+        w = torch.as_tensor(weights, dtype=like.dtype, device=like.device)
+        return w / w.sum()
+
+    def substep_eta(self, grid, eta_bcs, eta0, GU, GV, U0, V0, dt, kernel=None):
+        """The barotropic substep loop over 2Δt → (η̅ filled, U̅, V̅),
+        through ``kernel`` (default: the K5 wrapper
+        ``ops/fused_barotropic.py::fused_substep_eta``)."""
+        if kernel is None:
+            from ..ops.fused_barotropic import fused_substep_eta as kernel
+        n = self.substeps
+        dtau = 2.0 * dt / n
+        wv = self._weight_vec(self.velocity_weights, eta0)
+        wf = self._weight_vec(self.free_surface_weights, eta0)
+        Hfc, Hcf = column_depths(grid)
+        return kernel(grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf,
+                      self.gravitational_acceleration, dtau, wv, wf, n)
+
+    def corrector(self, grid, u, v, U_av, V_av):
+        """u += (U̅ − ∫u dz)/H, v likewise."""
+        Hfc, Hcf = column_depths(grid)
+        U, V = barotropic_mode(grid, u, v)
+        return u + (U_av - U) / Hfc, v + (V_av - V) / Hcf

@@ -1,0 +1,362 @@
+"""Hydrostatic free-surface (primitive-equation) model.
+
+Counterpart of ``clima_oceananigans_jl_tpu/models/hydrostatic.py``
+(Oceananigans' ``HydrostaticFreeSurfaceModel``):
+
+  ∂t u = G_u − g∂x η (explicit),  G_u = −U·∇u − f×u|x − ∂x pHY′
+  ∂t c = −∇·(U c)
+  w    = −∫_{-H}^z ∇h·u dz'          (continuity, diagnosed)
+  ∂t η = −∇h·U                       (per the free-surface treatment)
+
+State: the JAX package's keys and shapes on its plain path — ``solution``
+(u, v, tracers; with-halo), ``eta`` (X, Y, 1), the diagnosed ``w`` and
+``pHY`` (with-halo), ``G_prev`` (with-halo; with an ``eta`` entry under
+an explicit free surface), a host ``clock`` and ``previous_dt``.
+
+A quasi-AB2 step:
+
+- implicit free surface (the default): K4b in its advance mode, the
+  halo fills, the barotropic transport's divergence, the FFT or CG solve
+  for η and the −gΔt∇η correction, then ``update_state``;
+- split-explicit free surface: K4b in its advance mode (tendencies and
+  the AB2 substep in one pass), the barotropic modes of the solution and
+  of c₁G − c₂G⁻, the N barotropic substeps (K5), the barotropic
+  corrector, then ``update_state``;
+- explicit free surface: K4b's tendencies, −g∇η, G_η = −∇h·U, the AB2
+  substep of the solution and η, then ``update_state``.
+
+``update_state`` fills the halos of the solution and η in one launch of
+K6, K4a rebuilds w and pHY′ column by column, and a second K6 launch
+fills their halos. The kernels' wrappers are taken from ``KERNELS``;
+``step(..., kernels=PLAIN)`` runs their plain versions. On the card the
+constructor runs the kernels' static gates, so a configuration they lack
+raises there and the wrappers do not check again. Not ported here,
+because they are TPU-only: the halo rounding to multiples of 4, the
+(x, z, y) state layout, the MXU cumsum, the distributed overlap. A configuration the port cannot run yet raises
+``NotImplementedError`` at construction, naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..advection.schemes import CenteredSecondOrder, WENO5
+from ..advection.vector_invariant import VectorInvariant
+from ..boundary_conditions.bcs import (FluxBC, OpenBC, apply_flux_bcs,
+                                       regularize_bcs)
+from ..buoyancy.buoyancy import BuoyancyTracer
+from ..coriolis.coriolis import BetaPlane, FPlane, HydrostaticSphericalCoriolis
+from ..fields.field import Field, new_field, set_field
+from ..grids.topology import BOUNDED, FLAT
+from ..ops.fused_barotropic import fused_substep_eta, fused_substep_eta_reference
+from ..ops.fused_barotropic import unsupported_reason as barotropic_unsupported_reason
+from ..ops.fused_fill import fused_fill_halos, fused_fill_halos_reference
+from ..ops.fused_fill import unsupported_reason as fill_unsupported_reason
+from ..ops.fused_hydrostatic import (fused_hydrostatic_tendencies,
+                                     fused_hydrostatic_tendencies_reference,
+                                     hydrostatic_columns,
+                                     hydrostatic_columns_reference)
+from ..ops.fused_hydrostatic import unsupported_reason as kernel_unsupported_reason
+from ..timesteppers.steppers import Clock, ab2_coefficients, ab2_substep
+from ..utils.location import CENTER, U_LOC, V_LOC, W_LOC
+from .free_surface import (ETA_LOC, ExplicitFreeSurface, ImplicitFreeSurface,
+                           SplitExplicitFreeSurface, barotropic_mode,
+                           div_xy_2d, fill2d, grad_x, grad_y)
+
+#: the kernels' wrappers a step calls, by name: w and pHY′ (K4a), the
+#: tendencies and AB2 advance (K4b), the barotropic substeps (K5), the
+#: halo fills (K6)
+KERNELS = dict(columns=hydrostatic_columns,
+               tendencies=fused_hydrostatic_tendencies,
+               barotropic=fused_substep_eta, fill=fused_fill_halos)
+#: their plain versions: ``step(..., kernels=PLAIN)`` runs a step without
+#: the kernels on the card
+PLAIN = dict(columns=hydrostatic_columns_reference,
+             tendencies=fused_hydrostatic_tendencies_reference,
+             barotropic=fused_substep_eta_reference,
+             fill=fused_fill_halos_reference)
+
+
+def _kernels(kernels):
+    """``KERNELS`` with the entries of ``kernels`` in place of theirs."""
+    return dict(KERNELS, **(kernels or {}))
+
+
+def _unsupported_reason(model, closure, forcing, particles, immersed_boundary):
+    """Why the port cannot run this configuration yet, or None."""
+    if closure is not None:
+        return ("closures in the hydrostatic model are not ported yet "
+                "(ROADMAP Queue 1 item 7)")
+    if forcing:
+        return "forcing is not ported yet (ROADMAP Queue 1 item 4)"
+    if particles is not None:
+        return "particles are not ported yet (ROADMAP Queue 1 item 7)"
+    if immersed_boundary is not None:
+        return "immersed boundaries are not ported yet (ROADMAP Queue 1 item 7)"
+    fs = model.free_surface
+    if isinstance(fs, ImplicitFreeSurface):
+        if fs.resolve_method(model.grid) not in ("fft", "pcg"):
+            return (f"ImplicitFreeSurface solver_method={fs.solver_method!r} "
+                    "is not ported yet (ROADMAP Queue 1 item 7)")
+        if fs.resolve_method(model.grid) == "fft" and (
+                model.grid.curvilinear or not model.grid.hregular):
+            return "the fft free-surface solve needs a horizontally regular grid"
+    elif not isinstance(fs, (ExplicitFreeSurface, SplitExplicitFreeSurface)):
+        return f"free surface {type(fs).__name__} is not ported"
+    sch, ts = model.momentum_advection, model.tracer_advection
+    if sch is not None and not isinstance(sch, (VectorInvariant, WENO5,
+                                                CenteredSecondOrder)):
+        return (f"{type(sch).__name__} momentum advection is not ported yet "
+                "(ROADMAP Queue 1 item 2)")
+    if ts is not None and not isinstance(ts, (WENO5, CenteredSecondOrder)):
+        return (f"{type(ts).__name__} tracer advection is not ported yet "
+                "(ROADMAP Queue 1 item 2)")
+    cor = model.coriolis
+    if cor is not None and not isinstance(
+            cor, (FPlane, BetaPlane, HydrostaticSphericalCoriolis)):
+        return (f"{type(cor).__name__} Coriolis is not ported yet "
+                "(ROADMAP Queue 1 item 4)")
+    b = model.buoyancy
+    if b is not None and (not isinstance(b, BuoyancyTracer)
+                          or tuple(b.gravity_unit_vector) != (0.0, 0.0, -1.0)):
+        return ("only BuoyancyTracer with vertical gravity is ported "
+                "(ROADMAP Queue 1 item 7)")
+    for bcs in model.bcs.values():
+        for _axis, _side, bc in bcs.sides():
+            if bc is not None and bc.kind == "flux" and bc.value is not None:
+                return ("flux BCs with values are not ported yet "
+                        "(ROADMAP Queue 1 item 1)")
+    return None
+
+
+class HydrostaticFreeSurfaceModel:
+    def __init__(self, grid, momentum_advection="default",
+                 tracer_advection="default", free_surface=None, buoyancy=None,
+                 coriolis=None, closure=None, tracers=None, forcing=None,
+                 boundary_conditions=None, particles=None,
+                 immersed_boundary=None):
+        if grid.topology[2] is FLAT:
+            raise ValueError("HydrostaticFreeSurfaceModel needs a z direction")
+        # None disables a term (Oceananigans' `advection = nothing`)
+        self.momentum_advection = (VectorInvariant()
+                                   if momentum_advection == "default"
+                                   else momentum_advection)
+        self.tracer_advection = (CenteredSecondOrder()
+                                 if tracer_advection == "default"
+                                 else tracer_advection)
+        names = list(tracers) if tracers is not None else []
+        if buoyancy is not None:
+            for t in buoyancy.required_tracers:
+                if t not in names:
+                    names.append(t)
+        self.tracer_names = tuple(names)
+        h = max(getattr(self.momentum_advection, "required_halo", 1),
+                getattr(self.tracer_advection, "required_halo", 1), 1)
+        self.grid = grid.with_halo((h, h, h))
+        self.free_surface = (free_surface if free_surface is not None
+                             else ImplicitFreeSurface())
+        self.buoyancy = buoyancy
+        self.coriolis = coriolis
+        self.ab2_chi = 0.1
+        user_bcs = boundary_conditions or {}
+        self.bcs = {n: regularize_bcs(self.grid, loc, user_bcs.get(n))
+                    for n, loc in self._locs().items()}
+        self.eta_bcs = regularize_bcs(self.grid, ETA_LOC, user_bcs.get("eta"))
+        # w: zero at the bottom face, the diagnosed top face left as it is
+        wb = regularize_bcs(self.grid, W_LOC, user_bcs.get("w"))
+        if self.grid.topology[2] is BOUNDED:
+            wb.bottom = OpenBC(0.0)
+            wb.top = FluxBC()
+        self.w_bcs = wb
+        self.pressure_bcs = regularize_bcs(self.grid, CENTER, None)
+        reason = _unsupported_reason(self, closure, forcing, particles,
+                                     immersed_boundary)
+        if reason is None and self.grid.device.type == "cuda":
+            # on the card the kernels run: their gates decide now
+            reason = kernel_unsupported_reason(self)
+            if reason is None and isinstance(self.free_surface,
+                                             SplitExplicitFreeSurface):
+                reason = barotropic_unsupported_reason(self.grid, self.eta_bcs)
+            if reason is None:
+                reason = self._fill_unsupported_reason()
+        if reason is not None:
+            raise NotImplementedError(reason)
+        self.closure = None
+
+    # -- state ----------------------------------------------------------------
+    def prognostic_names(self):
+        return ("u", "v") + self.tracer_names
+
+    def _locs(self):
+        locs = dict(u=U_LOC, v=V_LOC)
+        for n in self.tracer_names:
+            locs[n] = CENTER
+        return locs
+
+    def _fill_unsupported_reason(self):
+        """Why K6 cannot fill one of the model's fields, or None."""
+        g = self.grid
+        fields = [(self._locs()[n], self.bcs[n]) for n in self.prognostic_names()]
+        fields += [(W_LOC, self.w_bcs), (CENTER, self.pressure_bcs)]
+        for loc, bcs in fields:
+            reason = fill_unsupported_reason(g, loc, bcs, (0, 1, 2), g.total_shape)
+            if reason is not None:
+                return reason
+        return fill_unsupported_reason(g, ETA_LOC, self.eta_bcs, (0, 1),
+                                       g.total_shape[:2] + (1,))
+
+    @property
+    def _explicit_fs(self):
+        return isinstance(self.free_surface, ExplicitFreeSurface)
+
+    def initial_state(self, clock=None, eta=0.0, **values):
+        """A filled state with ``values`` (scalars, arrays or callables of
+        the (x, y, z) or (λ, φ, z) nodes) on the named prognostic fields
+        and ``eta`` (a scalar or a callable of the horizontal nodes)."""
+        g = self.grid
+        locs = self._locs()
+        sol = {}
+        for name in self.prognostic_names():
+            f = new_field(g, locs[name], self.bcs[name])
+            sol[name] = set_field(f, g, values.get(name, 0.0)).data
+        eta_arr = g.zeros(g.total_shape[:2] + (1,))
+        if callable(eta):
+            x, y, _ = g.nodes(ETA_LOC, with_halo=True)
+            eta_arr = eta_arr + torch.as_tensor(eta(x, y), dtype=g.dtype,
+                                                device=g.device)
+        else:
+            eta_arr = eta_arr + eta
+        fill2d(eta_arr, g, ETA_LOC, self.eta_bcs)
+        G_prev = {k: torch.zeros_like(v) for k, v in sol.items()}
+        if self._explicit_fs:
+            G_prev["eta"] = torch.zeros_like(eta_arr)
+        state = dict(solution=sol, eta=eta_arr, clock=clock or Clock(0.0, 0),
+                     G_prev=G_prev, previous_dt=-1.0)
+        return self.update_state(state)
+
+    def fill_all_halos(self, sol, t=0.0, kernels=None, eta=None):
+        """Fill the halos of every solution field, and of ``eta`` when
+        given, in place, in one call of ``kernels["fill"]`` (K6); returns
+        ``sol``."""
+        locs = self._locs()
+        fields = [(arr, locs[name], self.bcs[name], (0, 1, 2), t)
+                  for name, arr in sol.items()]
+        if eta is not None:
+            fields.append((eta, ETA_LOC, self.eta_bcs, (0, 1), t))
+        _kernels(kernels)["fill"](self.grid, fields)
+        return sol
+
+    def _buoyancy_field(self, sol):
+        if self.buoyancy is None:
+            return None
+        return self.buoyancy.buoyancy_perturbation(
+            self.grid, {n: sol[n] for n in self.tracer_names})
+
+    def compute_w(self, sol, kernels=None):
+        """w from continuity, integrated bottom-up, halos filled (through
+        ``kernels["columns"]``, K4a, and ``kernels["fill"]``, K6)."""
+        kernels = _kernels(kernels)
+        w, _ = kernels["columns"](self.grid, sol["u"], sol["v"])
+        kernels["fill"](self.grid, [(w, W_LOC, self.w_bcs, (0, 1, 2), 0.0)])
+        return w
+
+    def update_state(self, state, kernels=None):
+        """Halo fills of the solution and η (in place, one K6 launch),
+        then w and pHY′ from K4a (``kernels["columns"]``) with their halos
+        filled (a second K6 launch)."""
+        kernels = _kernels(kernels)
+        t = state["clock"].time
+        sol = self.fill_all_halos(state["solution"], t, kernels, eta=state["eta"])
+        w, ph = kernels["columns"](self.grid, sol["u"], sol["v"],
+                                   self._buoyancy_field(sol))
+        fields = [(w, W_LOC, self.w_bcs, (0, 1, 2), 0.0)]
+        if ph is not None:
+            fields.append((ph, CENTER, self.pressure_bcs, (0, 1, 2), t))
+        kernels["fill"](self.grid, fields)
+        state = dict(state, w=w)
+        if ph is not None:
+            state["pHY"] = ph
+        return state
+
+    # -- tendencies ---------------------------------------------------------------
+    def tendencies(self, state, kernels=None):
+        """With-halo tendencies of every prognostic field, valid on the
+        interior: K4b's core (``kernels["tendencies"]``), then −g∇η under
+        an explicit free surface and the boundary fluxes."""
+        grid = self.grid
+        G = _kernels(kernels)["tendencies"](self, state)
+        if self._explicit_fs:
+            g = self.free_surface.gravitational_acceleration
+            G["u"] = G["u"] - g * grad_x(grid, state["eta"])
+            G["v"] = G["v"] - g * grad_y(grid, state["eta"])
+        locs = self._locs()
+        t = state["clock"].time
+        return {name: apply_flux_bcs(G[name], grid, locs[name], self.bcs[name], t)
+                for name in self.prognostic_names()}
+
+    # -- stepping ---------------------------------------------------------------
+    def step(self, state, dt, kernels=None):
+        """One quasi-AB2 step with the free surface split out (Euler at
+        iteration 0 and when Δt changed), through the kernels' wrappers
+        ``KERNELS``; ``kernels`` replaces some or all of them by name."""
+        kernels = _kernels(kernels)
+        grid = self.grid
+        fs = self.free_surface
+        clock0 = state["clock"]
+        euler = clock0.iteration == 0 or abs(state["previous_dt"] - dt) > 1e-14
+        G_prev = state["G_prev"]
+        sol0 = state["solution"]
+        if self._explicit_fs:
+            G = self.tendencies(state, kernels)
+            U, V = barotropic_mode(grid, sol0["u"], sol0["v"])
+            G["eta"] = -div_xy_2d(grid, U, V)
+            stepped = ab2_substep(dict(sol0, eta=state["eta"]), G, G_prev, dt,
+                                  self.ab2_chi, euler)
+            eta = stepped.pop("eta")
+            sol = stepped
+        elif isinstance(fs, ImplicitFreeSurface):
+            sol, G = kernels["tendencies"](self, state, advance=(dt, euler))
+            sol = self.fill_all_halos(sol, clock0.time, kernels)
+            Qu, Qv = barotropic_mode(grid, sol["u"], sol["v"])
+            g = fs.gravitational_acceleration
+            rhs = (div_xy_2d(grid, Qu, Qv) - state["eta"] / dt) / (g * dt)
+            eta = fs.solve(grid, self.eta_bcs, rhs, state["eta"], dt)
+            sol = dict(sol, u=sol["u"] - g * dt * grad_x(grid, eta),
+                       v=sol["v"] - g * dt * grad_y(grid, eta))
+        else:  # split-explicit
+            sol, G = kernels["tendencies"](self, state, advance=(dt, euler))
+            U0, V0 = barotropic_mode(grid, sol0["u"], sol0["v"])
+            c1, c2 = ab2_coefficients(self.ab2_chi, euler)
+            GU, GV = barotropic_mode(grid, c1 * G["u"] - c2 * G_prev["u"],
+                                     c1 * G["v"] - c2 * G_prev["v"])
+            eta, U_av, V_av = fs.substep_eta(grid, self.eta_bcs, state["eta"],
+                                             GU, GV, U0, V0, dt,
+                                             kernels["barotropic"])
+            u, v = fs.corrector(grid, sol["u"], sol["v"], U_av, V_av)
+            sol = dict(sol, u=u, v=v)
+        new_state = dict(state, solution=sol, eta=eta, G_prev=G,
+                         clock=clock0.tick(dt), previous_dt=float(dt))
+        return self.update_state(new_state, kernels)
+
+    # -- diagnostics ---------------------------------------------------------------
+    def cell_advection_timescale(self, state):
+        """min Δ/|u| over the interior, for u, v and w."""
+        grid = self.grid
+        sol = state["solution"]
+        scales = []
+        for arr, axis, loc in ((sol["u"], 0, U_LOC), (sol["v"], 1, V_LOC),
+                               (state["w"], 2, W_LOC)):
+            if grid.topology[axis] is FLAT:
+                continue
+            val = torch.broadcast_to(
+                grid.spacing(axis, loc) / arr.abs().clamp_min(1e-30),
+                grid.total_shape)
+            scales.append(grid.interior(val).min())
+        return torch.stack(scales).min()
+
+    def fields(self, state):
+        locs = self._locs()
+        out = {name: Field(arr, locs[name], self.bcs[name])
+               for name, arr in state["solution"].items()}
+        out["w"] = Field(state["w"], W_LOC, self.w_bcs)
+        out["eta"] = Field(state["eta"], ETA_LOC, self.eta_bcs)
+        return out

@@ -1,0 +1,149 @@
+"""The split-explicit barotropic substeps: kernel K5 and its plain version.
+
+Counterpart of ``clima_oceananigans_jl_tpu/ops/fused_barotropic.py``
+(Pallas ``fused_substep_eta``, all N substeps in one VMEM-resident
+call). Each substep of the loop (Oceananigans'
+split_explicit_free_surface_kernels.jl):
+
+1. fill η's halos;
+2. U += Δτ(−g Hᶠᶜ δxη/Δx + Gᵁ), V likewise;
+3. fill U's and V's halos;
+4. η −= Δτ(δx(Δy U) + δy(Δx V))/Az;
+5. η̅ += w_f[i] η, U̅ += w_v[i] U, V̅ += w_v[i] V;
+
+and η̅ is filled at the end. ``fused_substep_eta_reference`` is that
+loop in plain PyTorch, the JAX ``SplitExplicitFreeSurface.substep_eta``
+loop (free_surface.py:357-380) on (X, Y, 1) tensors.
+
+``fused_substep_eta`` is the wrapper: on CPU tensors it runs the plain
+version, on CUDA tensors the hand-written kernel
+``csrc/fused_substep_eta.cu`` (or raises): two launches a substep, one
+for U and V, one for η, each thread at one with-halo (x, y) point taking
+its halo value through the fill rule of its location (a periodic wrap,
+the zero-gradient mirror, or the impenetrable wall's zero face and
+negated mirror), so no separate fill runs. η̅'s halos accumulate the
+same sums as their mirror points, which is what the final fill writes.
+The kernels count their launches in ``fused_substep_eta.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..boundary_conditions.bcs import default_bcs, fill_halos
+from ..grids.topology import BOUNDED, FLAT, PERIODIC
+from ..models.free_surface import ETA_LOC
+from ..utils.location import CENTER, U_LOC, V_LOC
+from . import stencil as st
+from .fused_tendencies import check_tensor, kernel_fn, launch
+from .metric_rows import y_row
+
+
+def fused_substep_eta_reference(grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf,
+                                g, dtau, wv, wf, n):
+    """The plain-PyTorch version of K5 → (η̅ filled, U̅, V̅). Writes into
+    none of its arguments."""
+    dxu, dyv = grid.dx(U_LOC), grid.dy(V_LOC)
+    dyu, dxv = grid.dy(U_LOC), grid.dx(V_LOC)
+    az = grid.Az(CENTER)
+    eta, U, V = eta0.clone(), U0, V0
+    eta_av, U_av, V_av = (torch.zeros_like(a) for a in (eta0, U0, V0))
+    for i in range(n):
+        fill_halos(eta, grid, ETA_LOC, eta_bcs, axes=(0, 1))
+        U = U + dtau * (-g * Hfc * st.dxf(eta) / dxu + GU)
+        V = V + dtau * (-g * Hcf * st.dyf(eta) / dyv + GV)
+        fill_halos(U, grid, U_LOC, None, axes=(0, 1))
+        fill_halos(V, grid, V_LOC, None, axes=(0, 1))
+        eta = eta - dtau * (st.dxc(dyu * U) + st.dyc(dxv * V)) / az
+        eta_av = eta_av + wf[i] * eta
+        U_av = U_av + wv[i] * U
+        V_av = V_av + wv[i] * V
+    fill_halos(eta_av, grid, ETA_LOC, eta_bcs, axes=(0, 1))
+    return eta_av, U_av, V_av
+
+
+def unsupported_reason(grid, eta_bcs):
+    """Why K5 cannot run on ``grid`` with ``eta_bcs``, or None: it needs
+    x-constant metrics (a regular x axis), non-flat x and y, η walls that
+    fill by the zero-gradient mirror, and at least H+1 cells on a bounded
+    axis (so no mirror index is clamped)."""
+    if grid.topology[0] is FLAT or grid.topology[1] is FLAT:
+        return "K5 takes non-flat x and y axes"
+    if not grid.x_regular:
+        return "K5 takes a regular x axis (x-constant metrics)"
+    bcs = eta_bcs if eta_bcs is not None else default_bcs(grid, ETA_LOC)
+    for axis, _side, bc in bcs.sides():
+        if axis < 2 and grid.topology[axis] is BOUNDED:
+            if bc is not None and not (bc.kind == "flux" and bc.value is None):
+                return f"K5 takes zero-gradient η walls, not {bc}"
+            if grid.shape[axis] < grid.halo[axis] + 1:
+                return "K5 takes at least H+1 cells on a bounded axis"
+        if axis < 2 and grid.topology[axis] not in (BOUNDED, PERIODIC):
+            return f"K5 takes periodic or bounded x and y: {grid}"
+    return None
+
+
+def _rows(grid, Hfc, Hcf):
+    """The (7, Y) x-constant metric rows K5 reads, built once for the
+    depth tensors last given (``column_depths`` returns the same ones)."""
+    last = grid._cache.get("substep_eta_rows")
+    if last is None or last[0] is not Hfc or last[1] is not Hcf:
+        rows = torch.stack([y_row(grid, m) for m in (
+            grid.dx(U_LOC), grid.dy(V_LOC), grid.dy(U_LOC), grid.dx(V_LOC),
+            grid.Az(CENTER), Hfc, Hcf)]).contiguous()
+        last = grid._cache["substep_eta_rows"] = (Hfc, Hcf, rows)
+    return last[2]
+
+
+def _launch(grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf, g, dtau, wv, wf, n):
+    device, dtype = eta0.device, grid.dtype
+    shape = grid.total_shape[:2] + (1,)
+    for name, a in (("eta0", eta0), ("U0", U0), ("V0", V0), ("GU", GU),
+                    ("GV", GV)):
+        check_tensor(name, a, shape, dtype, device)
+    for name, a in (("wv", wv), ("wf", wf)):
+        check_tensor(name, a, (n,), dtype, device)
+    rows = _rows(grid, Hfc, Hcf)
+    eta = fill_halos(eta0.clone(), grid, ETA_LOC, eta_bcs, axes=(0, 1))
+    # ping-pong buffers: a halo point reads its mirror's old value
+    bufs = [(eta, U0.clone(), V0.clone()),
+            tuple(torch.empty_like(a) for a in (eta0, U0, V0))]
+    avs = [torch.zeros_like(a) for a in (eta0, U0, V0)]
+    fn = kernel_fn("fused_substep_eta", "fused_substep_eta", dtype,
+                   [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
+                   + [ctypes.c_double] * 2)
+    ptrs = lambda ts: [t.data_ptr() for t in ts]
+    for i in range(n):
+        (eta_s, U_s, V_s), (eta_d, U_d, V_d) = bufs[i % 2], bufs[(i + 1) % 2]
+        for half in (0, 1):
+            # half 0: U_d, V_d from η_s, U_s, V_s; U̅, V̅ accumulate.
+            # half 1: η_d from η_s, U_d, V_d; η̅ accumulates.
+            launch("fused_substep_eta", fn, device, rows.data_ptr(),
+                   *ptrs((eta_s, eta_d, U_s, U_d, V_s, V_d, GU, GV, *avs,
+                          wv, wf)),
+                   half, i, grid.Nx, grid.Ny, grid.Hx, grid.Hy,
+                   int(grid.topology[0] is BOUNDED),
+                   int(grid.topology[1] is BOUNDED), float(g), float(dtau))
+            fused_substep_eta.launches += 1
+    return tuple(avs)
+
+
+def fused_substep_eta(grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf, g, dtau,
+                      wv, wf, n):
+    """All ``n`` barotropic substeps → (η̅ filled, U̅, V̅), with-halo
+    (X, Y, 1) tensors. CUDA tensors go through the hand-written kernel K5
+    (a failure raises; nothing falls back), CPU tensors through
+    ``fused_substep_eta_reference``. The grid and ``eta_bcs`` pass
+    ``unsupported_reason``, as the model's constructor checks on the card."""
+    if eta0.device.type == "cuda":
+        return _launch(grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf, g,
+                       dtau, wv, wf, n)
+    if eta0.device.type != "cpu":
+        raise ValueError(f"no fused_substep_eta for {eta0.device.type} tensors")
+    return fused_substep_eta_reference(grid, eta_bcs, eta0, U0, V0, GU, GV,
+                                       Hfc, Hcf, g, dtau, wv, wf, n)
+
+
+#: kernel launches since the last reset (the plain version adds nothing)
+fused_substep_eta.launches = 0

@@ -1,0 +1,287 @@
+"""The hydrostatic model's kernels: K4a (w and pHY′ columns) and K4b (fused
+tendencies, optionally with the AB2 advance), with their plain versions.
+
+Counterpart of ``clima_oceananigans_jl_tpu/ops/fused_hydrostatic.py``:
+the Pallas ``fused_hydrostatic_tendencies`` computes, in one pass over
+(x, y) tiles, the hydrostatic tendency core — vector-invariant or
+flux-form momentum advection, Coriolis, −∇pHY′ and the tracers' flux
+divergences on lat-lon and stretched metrics — optionally rebuilding w
+and pHY′ in the kernel and optionally taking the AB2 substep. On the
+card that becomes two kernels:
+
+- K4a ``hydrostatic_columns`` (``csrc/hydrostatic_columns.cu``): one
+  thread per interior (x, y) column, serial loops over z: w from
+  continuity, w(k+1) = −Σ Δz ∇ₕ·(u, v), and pHY′ = −Σ b̄ᶻ Δzᶠ from the
+  top. It runs in the model's ``update_state``; its plain version sums
+  level by level in a Python loop, in the kernel's order.
+- K4b ``fused_hydrostatic_tendencies``
+  (``csrc/fused_hydrostatic_tendencies.cu``): one thread per with-halo
+  point, the interior ones computing ``hydrostatic_advective_core`` and,
+  with ``advance=(dt, euler)``, ψ′ = ψ + Δt(c₁G − c₂G⁻) too; halos are
+  written zero. Its plain version is the core (and ``ab2_substep``).
+
+``hydrostatic_advective_core`` is the JAX function, in plain torch; the
+model's plain path and K4b's plain version share it. Each wrapper runs
+its plain version on CPU tensors and its kernel on CUDA tensors (or
+raises: nothing falls back), and counts its launches in
+``<wrapper>.launches``. ``unsupported_reason`` is the kernels' static
+gate: x-constant metrics (a regular x axis), the schemes and Coriolis
+forms the kernel has, no stretched y under a WENO5 transport. The model's
+constructor runs it on the card, once; the wrappers do not run it again.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..advection.fluxes import div_Uc, div_vu, div_vv
+from ..advection.schemes import CenteredSecondOrder, WENO5
+from ..advection.vector_invariant import SCHEMES as VI_SCHEMES
+from ..advection.vector_invariant import VectorInvariant
+from ..coriolis.coriolis import BetaPlane, FPlane, HydrostaticSphericalCoriolis
+from ..grids.topology import FLAT
+from ..timesteppers.steppers import ab2_coefficients, ab2_substep
+from ..utils.location import CENTER, U_LOC, V_LOC, W_LOC
+from . import operators as op
+from . import stencil as st
+from .fused_tendencies import (axis_bounds, check_tensor, kernel_fn,
+                               kernel_scheme, launch, pointers)
+from .metric_rows import y_rows, z_rows
+
+#: the most prognostic fields (u, v and tracers) K4b takes
+MAX_FIELDS = 16
+
+
+def hydrostatic_advective_core(grid, scheme, tracer_scheme, coriolis,
+                               tracer_names, u, v, w, tracers, pHY=None):
+    """The hydrostatic tendency core (Oceananigans'
+    hydrostatic_free_surface_tendency_kernel_functions.jl): −U·∇u or
+    −∇·(vu), − f×u, −∂pHY′ for u and v, −∇·(U c) per tracer; with-halo
+    tensors valid on the interior. ``scheme`` or ``tracer_scheme`` None
+    leaves that advection out."""
+    if isinstance(scheme, VectorInvariant):
+        Gu = -scheme.U_dot_grad_u(grid, u, v, w)
+        Gv = -scheme.U_dot_grad_v(grid, u, v, w)
+    elif scheme is None:
+        Gu, Gv = torch.zeros_like(u), torch.zeros_like(v)
+    else:  # conservative flux form
+        Gu = -div_vu(grid, scheme, u, v, w)
+        Gv = -div_vv(grid, scheme, u, v, w)
+    if coriolis is not None:
+        Gu = Gu - coriolis.x_f_cross_U(grid, u, v, w)
+        Gv = Gv - coriolis.y_f_cross_U(grid, u, v, w)
+    if pHY is not None:
+        Gu = Gu - st.dxf(pHY) / grid.dx(U_LOC)
+        Gv = Gv - st.dyf(pHY) / grid.dy(V_LOC)
+    G = {"u": Gu, "v": Gv}
+    for name in tracer_names:
+        c = tracers[name]
+        G[name] = (-div_Uc(grid, tracer_scheme, u, v, w, c)
+                   if tracer_scheme is not None else torch.zeros_like(c))
+    return G
+
+
+# -- the static gate -------------------------------------------------------------
+
+def _weno_transport(model):
+    """True when a WENO5 flux transport runs (tracers or flux-form momentum)."""
+    return any(isinstance(s, WENO5) for s in (model.momentum_advection,
+                                              model.tracer_advection))
+
+
+def unsupported_reason(model):
+    """Why K4a/K4b cannot run this model's configuration, or None."""
+    grid = model.grid
+    if any(t is FLAT for t in grid.topology):
+        return "K4 takes a 3D grid"
+    if not grid.x_regular:
+        return "K4 takes a regular x axis (x-constant metrics)"
+    if not grid.y_regular and _weno_transport(model):
+        return ("K4 has no stretched-y WENO5 tables (ROADMAP Queue 2, K4)")
+    sch, ts = model.momentum_advection, model.tracer_advection
+    if sch is not None and not (isinstance(sch, VectorInvariant)
+                                or type(sch) in (WENO5, CenteredSecondOrder)):
+        return f"K4 has no {type(sch).__name__} momentum advection"
+    if ts is not None and type(ts) not in (WENO5, CenteredSecondOrder):
+        return f"K4 has no {type(ts).__name__} tracer advection"
+    cor = model.coriolis
+    if cor is not None and not isinstance(
+            cor, (FPlane, BetaPlane, HydrostaticSphericalCoriolis)):
+        return f"K4 has no {type(cor).__name__} Coriolis"
+    if len(model.prognostic_names()) > MAX_FIELDS:
+        return f"K4 takes at most {MAX_FIELDS} prognostic fields"
+    return None
+
+
+# -- K4a: w from continuity and pHY′, column by column ----------------------------
+
+def hydrostatic_columns_reference(grid, u, v, b=None):
+    """The plain-PyTorch version of K4a → (w, pHY′ or None), with-halo
+    tensors with unfilled halos: w on the interior faces above the bottom
+    (face Hz stays 0), pHY′ on the interior centres; sums level by level,
+    w upwards and pHY′ downwards from the top face, in K4a's order."""
+    Hz, Nz = grid.Hz, grid.Nz
+    incr = grid.dz(CENTER) * op.div_xy_ccc(u, v, grid)
+    w = grid.zeros()
+    acc = None
+    for k in range(Hz, Hz + Nz):
+        acc = incr[:, :, k] if acc is None else acc + incr[:, :, k]
+        w[:, :, k + 1] = -acc
+    if b is None:
+        return w, None
+    S = st.izf(b) * grid.dz(W_LOC)   # b̄ᶻ Δzᶠ at the faces
+    ph = grid.zeros()
+    acc = None
+    for k in range(Hz + Nz - 1, Hz - 1, -1):
+        acc = S[:, :, k + 1] if acc is None else acc + S[:, :, k + 1]
+        ph[:, :, k] = -acc
+    return w, ph
+
+
+def _launch_columns(grid, u, v, b):
+    for name, f in (("u", u), ("v", v), ("b", b)):
+        if f is not None:
+            check_tensor(name, f, grid.total_shape, grid.dtype, u.device)
+    ys, zs = y_rows(grid), z_rows(grid)
+    w = grid.zeros()
+    ph = grid.zeros() if b is not None else None
+    ptr = lambda t: None if t is None else t.data_ptr()
+    fn = kernel_fn("hydrostatic_columns", "hydrostatic_columns", grid.dtype,
+                   [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6)
+    launch("hydrostatic_columns", fn, u.device, ptr(u), ptr(v), ptr(b),
+           ptr(ys), ptr(zs), ptr(w), ptr(ph), *grid.shape, *grid.halo)
+    hydrostatic_columns.launches += 1
+    return w, ph
+
+
+def hydrostatic_columns(grid, u, v, b=None):
+    """w from continuity and, given the buoyancy ``b``, pHY′ → (w, pHY′
+    or None), with-halo tensors valid on the interior columns (the caller
+    fills the halos). CUDA tensors go through K4a (a failure raises;
+    nothing falls back), CPU tensors through
+    ``hydrostatic_columns_reference``. The grid passes
+    ``unsupported_reason`` (a regular x axis)."""
+    if u.device.type == "cuda":
+        return _launch_columns(grid, u, v, b)
+    if u.device.type != "cpu":
+        raise ValueError(f"no hydrostatic_columns for {u.device.type} tensors")
+    return hydrostatic_columns_reference(grid, u, v, b)
+
+
+#: kernel launches since the last reset (the plain version adds nothing)
+hydrostatic_columns.launches = 0
+
+
+# -- K4b: the fused tendencies --------------------------------------------------------
+
+def fused_hydrostatic_tendencies_reference(model, state, advance=None):
+    """The plain-PyTorch version of K4b: ``hydrostatic_advective_core`` on
+    the state (G, with-halo) and, with ``advance=(dt, euler)``, the AB2
+    substep of the solution → ``(psi_new, G)``."""
+    sol = state["solution"]
+    ph = state.get("pHY") if model.buoyancy is not None else None
+    G = hydrostatic_advective_core(
+        model.grid, model.momentum_advection, model.tracer_advection,
+        model.coriolis, model.tracer_names, sol["u"], sol["v"], state["w"],
+        {n: sol[n] for n in model.tracer_names}, pHY=ph)
+    if advance is None:
+        return G
+    dt, euler = advance
+    return ab2_substep(sol, G, state["G_prev"], dt, model.ab2_chi, euler), G
+
+
+#: K4b's momentum codes after those of the vector-invariant schemes
+FLUX_FORM, NO_MOMENTUM = len(VI_SCHEMES), len(VI_SCHEMES) + 1
+
+
+def _momentum_code(scheme):
+    """The vector-invariant scheme's index in ``VI_SCHEMES``, ``FLUX_FORM``
+    or ``NO_MOMENTUM``."""
+    if isinstance(scheme, VectorInvariant):
+        return VI_SCHEMES.index(scheme.scheme)
+    return NO_MOMENTUM if scheme is None else FLUX_FORM
+
+
+def _coriolis_code(cor):
+    """0 none, 1 f- or β-plane, 2 spherical energy, 3 spherical enstrophy."""
+    if cor is None:
+        return 0
+    if isinstance(cor, HydrostaticSphericalCoriolis):
+        return 2 if cor.scheme == "energy" else 3
+    return 1
+
+
+def _launch_tendencies(model, state, advance):
+    grid = model.grid
+    names = model.prognostic_names()
+    sol = state["solution"]
+    device, dtype = sol["u"].device, grid.dtype
+    fields = [sol[n] for n in names]
+    for n, f in zip(names, fields):
+        check_tensor(f"solution[{n!r}]", f, grid.total_shape, dtype, device)
+    w = state["w"]
+    check_tensor("w", w, grid.total_shape, dtype, device)
+    ph = state.get("pHY") if model.buoyancy is not None else None
+    if ph is not None:
+        check_tensor("pHY", ph, grid.total_shape, dtype, device)
+    sch, ts = model.momentum_advection, model.tracer_advection
+    mom_weno, mom_eps = (kernel_scheme(sch) if _momentum_code(sch) == FLUX_FORM
+                         else (0, 0.0))
+    tr, tr_eps = kernel_scheme(ts) if ts is not None else (-1, 0.0)
+    weno = next((s for s in (sch, ts) if type(s) is WENO5), None)
+    # WENO5's near-wall bounds per axis (every WENO5 has the same ones)
+    bounds = ([b for a in range(3) for b in axis_bounds(grid, a, weno)]
+              if weno is not None else [0, 0, -1, 0, -1] * 3)
+    tables = weno is not None and not grid.z_regular
+    ys, zs = y_rows(grid, model.coriolis), z_rows(grid, tables)
+    out_g = [torch.empty(grid.total_shape, dtype=dtype, device=device)
+             for _ in names]
+    if advance is None:
+        out_psi, gp, c1, c2, dt = [], [], 0.0, 0.0, 0.0
+    else:
+        dt, euler = advance
+        c1, c2 = ab2_coefficients(model.ab2_chi, euler)
+        gp = [state["G_prev"][n] for n in names]
+        for n, g in zip(names, gp):
+            check_tensor(f"G_prev[{n!r}]", g, grid.total_shape, dtype, device)
+        out_psi = [torch.empty_like(g) for g in out_g]
+    ptr = lambda t: None if t is None else t.data_ptr()
+    fn = kernel_fn("fused_hydrostatic_tendencies", "fused_hydrostatic_tendencies",
+                   dtype, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 28
+                   + [ctypes.c_double] * 5)
+    launch("fused_hydrostatic_tendencies", fn, device, pointers(fields),
+           ptr(w), ptr(ph), ptr(ys), ptr(zs),
+           pointers(gp) if gp else None, pointers(out_g),
+           pointers(out_psi) if out_psi else None,
+           len(names), *grid.shape, *grid.halo,
+           _momentum_code(sch), mom_weno, tr, _coriolis_code(model.coriolis),
+           int(tables), int(advance is not None), *bounds, mom_eps, tr_eps,
+           c1, c2, float(dt))
+    fused_hydrostatic_tendencies.launches += 1
+    G = dict(zip(names, out_g))
+    if advance is None:
+        return G
+    return dict(zip(names, out_psi)), G
+
+
+def fused_hydrostatic_tendencies(model, state, advance=None):
+    """The hydrostatic tendencies of every prognostic field → G (with-halo
+    tensors valid on the interior) or, with ``advance=(dt, euler)``,
+    ``(psi_new, G)`` with ψ′ = ψ + Δt(c₁G − c₂G⁻). ``state`` carries the
+    filled solution, ``w``, ``pHY`` (with buoyancy) and, to advance,
+    ``G_prev``. CUDA tensors go through K4b (a failure raises; nothing
+    falls back), CPU tensors through
+    ``fused_hydrostatic_tendencies_reference``. The model passes
+    ``unsupported_reason``, as its constructor checks on the card."""
+    device = state["solution"]["u"].device
+    if device.type == "cuda":
+        return _launch_tendencies(model, state, advance)
+    if device.type != "cpu":
+        raise ValueError(f"no fused_hydrostatic_tendencies for {device.type} "
+                         "tensors")
+    return fused_hydrostatic_tendencies_reference(model, state, advance)
+
+
+#: kernel launches since the last reset (the plain version adds nothing)
+fused_hydrostatic_tendencies.launches = 0

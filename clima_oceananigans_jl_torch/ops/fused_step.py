@@ -29,6 +29,7 @@ from .fused_tendencies import (ADVECTION_ARGTYPES, advection_args,
                                check_tensor,
                                fused_advective_tendencies_reference, kernel_fn,
                                launch, pointers)
+from .metric_rows import coriolis_rows
 
 _LATER = "(ROADMAP Queue 1 item 4)"
 
@@ -141,15 +142,9 @@ def fused_ab2_advance_reference(model, state, dt, euler):
 def _coriolis_rows(model):
     """f at U_LOC and V_LOC over the with-halo y axis, as the plain
     version forms it, or (None, None) without Coriolis."""
-    cor, grid = model.coriolis, model.grid
-    if cor is None:
+    if model.coriolis is None:
         return None, None
-    if isinstance(cor, BetaPlane):
-        rows = [cor._f(grid, loc).reshape(-1) for loc in (U_LOC, V_LOC)]
-    else:
-        rows = [torch.full((grid.total_shape[1],), cor.f, dtype=grid.dtype,
-                           device=grid.device)] * 2
-    return [r.contiguous() for r in rows]
+    return coriolis_rows(model.grid, model.coriolis)
 
 
 def _diffusivities(model, names):

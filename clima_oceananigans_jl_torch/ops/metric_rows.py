@@ -1,0 +1,94 @@
+"""Metric rows: the grid metrics the hydrostatic kernels read, as 1D rows.
+
+The port's counterpart of ``clima_oceananigans_jl_tpu/ops/kernel_grid.py``
+(the TPU kernels' stacked metric pack), much smaller: on a grid whose x
+axis is regular every metric is constant along x (a lat-lon grid's
+Δx = R cos φ Δλ varies with latitude only), so each one is a row over the
+with-halo y axis or the with-halo z axis. Every row is sliced at x = Hx
+from the very tensor the plain version multiplies by, so a kernel that
+forms its products from the rows in the plain version's order rounds as
+the plain version does. The rows are built once per grid and options
+and kept in the grid's cache.
+
+- ``y_rows``: Δx[(lx, ly)] for the four (lx, ly), Az[(lx, ly)] likewise,
+  Δy[C], Δy[F], and two Coriolis rows (f at U_LOC and V_LOC for an f- or
+  β-plane, f at (F, F) for the spherical Coriolis, in the slot of the
+  first; zeros without Coriolis): ``Y_ROWS`` gives their order.
+- ``z_rows``: Δz[C], Δz[F], then on a stretched z axis the 24 rows of
+  WENO5's to-faces tables (``advection/reconstruction_tables.py``): for
+  the left then the right side, for each stencil r, its optimal weight and
+  its three coefficients.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..advection.reconstruction_tables import weno5_tables
+from ..coriolis.coriolis import BetaPlane, FPlane, HydrostaticSphericalCoriolis
+from ..utils.location import C, F, U_LOC, V_LOC
+
+_LOC2 = ((C, C), (C, F), (F, C), (F, F))
+#: the rows of ``y_rows``, in order
+Y_ROWS = (tuple(f"dx_{lx.value}{ly.value}" for lx, ly in _LOC2)
+          + tuple(f"az_{lx.value}{ly.value}" for lx, ly in _LOC2)
+          + ("dy_c", "dy_f", "f_u", "f_v"))
+#: the first rows of ``z_rows``; the table rows follow on a stretched z
+Z_ROWS = ("dz_c", "dz_f")
+
+
+def y_row(grid, metric):
+    """A metric tensor of shape (X|1, Y|1, ·) as a row over with-halo y,
+    taken at x = Hx (or its only x entry) and its first z entry."""
+    i = min(grid.Hx, metric.shape[0] - 1)
+    row = metric[i, :, 0]
+    return torch.broadcast_to(row, (grid.total_shape[1],)).contiguous()
+
+
+def z_row(grid, metric):
+    """A z-only metric tensor (1, 1, Z) as a row over with-halo z."""
+    return metric.reshape(-1).contiguous()
+
+
+def coriolis_rows(grid, coriolis):
+    """The two Coriolis rows of ``y_rows``, each built by the plain
+    version's own expression."""
+    zeros = lambda: torch.zeros(grid.total_shape[1], dtype=grid.dtype,
+                                device=grid.device)
+    if coriolis is None:
+        return zeros(), zeros()
+    if isinstance(coriolis, HydrostaticSphericalCoriolis):
+        return y_row(grid, coriolis.f_ff(grid)), zeros()
+    if isinstance(coriolis, BetaPlane):
+        return tuple(y_row(grid, coriolis._f(grid, loc)) for loc in (U_LOC, V_LOC))
+    if isinstance(coriolis, FPlane):
+        full = torch.full((grid.total_shape[1],), coriolis.f, dtype=grid.dtype,
+                          device=grid.device)
+        return full, full.clone()
+    raise ValueError(f"no Coriolis rows for {type(coriolis).__name__}")
+
+
+def y_rows(grid, coriolis=None):
+    """(len(Y_ROWS), Yt) tensor of the y rows."""
+    key = ("y_rows", coriolis)
+    if key not in grid._cache:
+        rows = [y_row(grid, grid.dx((lx, ly, C))) for lx, ly in _LOC2]
+        rows += [y_row(grid, grid.Az((lx, ly, C))) for lx, ly in _LOC2]
+        rows += [y_row(grid, grid.dy((C, ly, C))) for ly in (C, F)]
+        rows += list(coriolis_rows(grid, coriolis))
+        grid._cache[key] = torch.stack(rows).contiguous()
+    return grid._cache[key]
+
+
+def z_rows(grid, tables=False):
+    """(2 or 26, Zt) tensor of the z rows; ``tables`` adds the stretched z
+    axis' WENO5 to-faces tables (it must be stretched)."""
+    key = ("z_rows", bool(tables))
+    if key not in grid._cache:
+        rows = [z_row(grid, grid.dz((C, C, loc))) for loc in (C, F)]
+        if tables:
+            t = weno5_tables(grid, 2, True)
+            for side in ("left", "right"):
+                for d, cj, _voff, _kind in t[side]:
+                    rows += [d] + list(cj)
+        grid._cache[key] = torch.stack(rows).contiguous()
+    return grid._cache[key]

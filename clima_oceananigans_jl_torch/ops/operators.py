@@ -52,6 +52,12 @@ def div_ccc(u, v, w, grid):
             + st.dzc(grid.Az(W_LOC) * w)) / grid.V(CENTER)
 
 
+def div_xy_ccc(u, v, grid):
+    """Horizontal FV divergence at centres (w from continuity)."""
+    return (st.dxc(grid.Ax(U_LOC) * u)
+            + st.dyc(grid.Ay(V_LOC) * v)) / grid.V(CENTER)
+
+
 def zeta3_ffc(u, v, grid):
     """Vertical vorticity ζ₃ at (F, F, C)."""
     return (st.dxf(grid.dy(V_LOC) * v)

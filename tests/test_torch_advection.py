@@ -25,6 +25,9 @@ from clima_oceananigans_jl_tpu.advection import schemes as jsc
 
 torch.set_num_threads(1)
 
+#: grids default to the card; these tests ask for the CPU
+DEVICE = "cpu"
+
 RTOL = 1e-12
 SIZE = (16, 12, 10)
 SCHEMES = {"weno5": (J.WENO5(), T.WENO5()),
@@ -37,7 +40,7 @@ def setup(seed=0):
                            dtype=jnp.float64)
     tg = T.RectilinearGrid(size=SIZE, extent=(1.0, 0.75, 0.5),
                            topology=("periodic", "periodic", "bounded"),
-                           dtype=torch.float64)
+                           dtype=torch.float64, device=DEVICE)
     rng = np.random.default_rng(seed)
     fields = {}
     for name, loc in (("u", T.U_LOC), ("v", T.V_LOC), ("w", T.W_LOC),

@@ -21,6 +21,9 @@ from clima_oceananigans_jl_tpu.solvers import fft_poisson as jfp
 
 torch.set_num_threads(1)
 
+#: grids default to the card; these tests ask for the CPU
+DEVICE = "cpu"
+
 RTOL = 1e-12
 
 
@@ -60,7 +63,7 @@ def test_fft_poisson_solve_matches(topo, size):
     jg = J.RectilinearGrid(size=size, extent=(1.0, 2.0, 0.5), topology=topo,
                            dtype=jnp.float64)
     tg = T.RectilinearGrid(size=size, extent=(1.0, 2.0, 0.5), topology=topo,
-                           dtype=torch.float64)
+                           dtype=torch.float64, device=DEVICE)
     rhs = np.random.default_rng(3).standard_normal(size)
     rhs -= rhs.mean()
     ref = jfp.FFTPoissonSolver.build(jg).solve(jnp.asarray(rhs))
@@ -74,7 +77,7 @@ def test_fft_poisson_solve_inverts_the_laplacian():
     returns the zero-mean right-hand side."""
     size = (12, 10, 8)
     tg = T.RectilinearGrid(size=size, extent=(1.0, 2.0, 0.5),
-                           dtype=torch.float64)
+                           dtype=torch.float64, device=DEVICE)
     rhs = torch.from_numpy(np.random.default_rng(4).standard_normal(size))
     rhs = rhs - rhs.mean()
     phi = tfp.FFTPoissonSolver.build(tg).solve(rhs)

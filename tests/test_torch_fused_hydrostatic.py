@@ -1,0 +1,414 @@
+"""Port parity: the hydrostatic kernels' plain versions (K4a, K4b, K5).
+
+The JAX side is its plain path (``fused_advection=False``); the JAX suite
+pins its Pallas K4 and K5 to that path (``tests/test_fused_hydrostatic.py``,
+``tests/test_fused_barotropic.py``). Here, in f64 on lat-lon grids of at
+most 32×16×8 and on a (Bounded, Bounded, Bounded) rectilinear grid:
+
+- K4b's plain version, ``hydrostatic_advective_core``, against the JAX
+  ``hydrostatic_advective_core`` over the four vector-invariant schemes,
+  both spherical Coriolis schemes, f- and β-planes, flux-form momentum,
+  stretched z and bounded-y order reduction: ≤ 1e-12 of max|ref| (the
+  same expression trees; the sine of f may differ in its last bit);
+- K4a's plain version (w and pHY′ summed level by level) against the JAX
+  ``compute_w`` and pHY′ (cumulative sums): ≤ 1e-12 of max|ref|, the
+  difference being the cumsum's association;
+- K4b's advance form against tendencies then ``ab2_substep``: bitwise;
+- K5's plain version against the JAX ``substep_eta`` (its XLA loop):
+  ≤ 1e-14 of max|ref|, the column depths (a sum over z) being the only
+  reassociated input.
+
+The ``cuda`` cases hold each kernel against its plain version on the card,
+within 1e-13 of max|ref| in f64 (``python -m pytest --noconftest -m cuda
+tests/test_torch_fused_hydrostatic.py``).
+"""
+import numpy as np
+import pytest
+import torch
+
+import clima_oceananigans_jl_torch as T
+from clima_oceananigans_jl_torch.models.free_surface import (ETA_LOC,
+                                                             column_depths,
+                                                             fill2d)
+from clima_oceananigans_jl_torch.ops import fused_barotropic as tfb
+from clima_oceananigans_jl_torch.ops import fused_hydrostatic as tfh
+from clima_oceananigans_jl_torch.ops import metric_rows as tmr
+
+try:  # the cuda cases also run on a machine without JAX
+    import jax.numpy as jnp
+
+    import clima_oceananigans_jl_tpu as J
+    from clima_oceananigans_jl_tpu.advection.vector_invariant import (
+        VectorInvariant as JVI)
+    from clima_oceananigans_jl_tpu.buoyancy.buoyancy import BuoyancyTracer as JB
+    from clima_oceananigans_jl_tpu.coriolis import coriolis as jcor
+    from clima_oceananigans_jl_tpu.grids.latlon import LatitudeLongitudeGrid as JLL
+    from clima_oceananigans_jl_tpu.models.free_surface import (
+        SplitExplicitFreeSurface as JSplit)
+    from clima_oceananigans_jl_tpu.models.hydrostatic import (
+        HydrostaticFreeSurfaceModel as JH)
+    from clima_oceananigans_jl_tpu.ops.fused_hydrostatic import (
+        hydrostatic_advective_core as j_core)
+except ImportError:
+    pass
+
+torch.set_num_threads(1)
+
+#: grids default to the card; these tests ask for the CPU
+DEVICE = "cpu"
+RTOL = 1e-12
+
+
+def zfaces(nz, depth=3000.0, p=1.8):
+    k = np.arange(nz + 1)
+    return -depth * (1.0 - k / nz) ** p
+
+
+def torch_grid(kind, size, dtype=torch.float64, device=DEVICE):
+    if kind == "latlon":
+        return T.LatitudeLongitudeGrid(size=size, longitude=(0, 360),
+                                       latitude=(-75, 75), z=zfaces(size[2]),
+                                       dtype=dtype, device=device)
+    return T.RectilinearGrid(size=size, x=(0, 1e5), y=(0, 8e4),
+                             z=zfaces(size[2], 1e3, 1.5),
+                             topology=("bounded", "bounded", "bounded"),
+                             dtype=dtype, device=device)
+
+
+def jax_grid(kind, size):
+    if kind == "latlon":
+        return JLL(size=size, longitude=(0, 360), latitude=(-75, 75),
+                   z=zfaces(size[2]), dtype=jnp.float64)
+    return J.RectilinearGrid(size=size, x=(0, 1e5), y=(0, 8e4),
+                             z=zfaces(size[2], 1e3, 1.5),
+                             topology=("bounded", "bounded", "bounded"),
+                             dtype=jnp.float64)
+
+
+MOMENTUM = {"vi-enstrophy": "enstrophy", "vi-energy": "energy",
+            "vi-weno": "weno", "vi-weno-velocity": "weno_velocity",
+            "flux-weno5": "weno5", "flux-centered": "centered"}
+
+
+def momentum(name, pkg):
+    m = MOMENTUM[name]
+    if m == "weno5":
+        return pkg.WENO5()
+    if m == "centered":
+        return pkg.CenteredSecondOrder()
+    return (JVI if pkg is J else T.VectorInvariant)(scheme=m)
+
+
+def coriolis(name, pkg):
+    if name is None:
+        return None
+    if name.startswith("spherical"):
+        cls = jcor.HydrostaticSphericalCoriolis if pkg is J else T.HydrostaticSphericalCoriolis
+        return cls(scheme=name.split("-")[1])
+    if name == "fplane":
+        return (jcor.FPlane if pkg is J else T.FPlane)(f=1e-4)
+    return (jcor.BetaPlane if pkg is J else T.BetaPlane)(f0=1e-4, beta=1e-11)
+
+
+def fields(shape, names, seed):
+    rng = np.random.default_rng(seed)
+    scale = dict(u=0.1, v=0.1, w=1e-3, pHY=1.0)
+    return {n: scale.get(n, 1e-3) * rng.standard_normal(shape) for n in names}
+
+
+CASES = [  # (grid, momentum, coriolis, tracer scheme)
+    ("latlon", "vi-weno-velocity", "spherical-energy", "weno5"),
+    ("latlon", "vi-weno", "spherical-enstrophy", "weno5"),
+    ("latlon", "vi-energy", "spherical-energy", "centered"),
+    ("latlon", "vi-enstrophy", "spherical-enstrophy", "weno5"),
+    ("latlon", "flux-weno5", "spherical-energy", "weno5"),
+    ("rect-bbb", "flux-weno5", "betaplane", "weno5"),
+    ("rect-bbb", "flux-centered", "fplane", "centered"),
+    ("rect-bbb", "vi-weno-velocity", None, "weno5"),
+]
+
+
+@pytest.mark.parametrize("kind,mom,cor,ts", CASES,
+                         ids=["-".join(str(x) for x in c) for c in CASES])
+def test_core_plain_version_matches_jax(kind, mom, cor, ts):
+    size = (32, 16, 8) if kind == "latlon" else (16, 12, 8)
+    jg, tg = jax_grid(kind, size), torch_grid(kind, size)
+    names = ("T", "b")
+    f = fields(tg.total_shape, ("u", "v", "w", "pHY") + names, seed=1)
+    jt = {"weno5": J.WENO5(), "centered": J.CenteredSecondOrder()}[ts]
+    tt = {"weno5": T.WENO5(), "centered": T.CenteredSecondOrder()}[ts]
+    ja = {k: jnp.asarray(v) for k, v in f.items()}
+    ta = {k: torch.as_tensor(v) for k, v in f.items()}
+    ref = j_core(jg, momentum(mom, J), jt, coriolis(cor, J), names, ja["u"],
+                 ja["v"], ja["w"], {n: ja[n] for n in names}, pHY=ja["pHY"])
+    got = tfh.hydrostatic_advective_core(
+        tg, momentum(mom, T), tt, coriolis(cor, T), names, ta["u"], ta["v"],
+        ta["w"], {n: ta[n] for n in names}, pHY=ta["pHY"])
+    for n in ("u", "v") + names:
+        r, g = np.asarray(jg.interior(ref[n])), tg.interior(got[n]).numpy()
+        assert np.abs(r - g).max() <= RTOL * np.abs(r).max(), n
+
+
+def flagship_models(size=(16, 8, 6), substeps=8, jax_model=True, device=DEVICE,
+                    dtype=torch.float64, mom="vi-weno-velocity", kind="latlon",
+                    cor="spherical-energy"):
+    tm = T.HydrostaticFreeSurfaceModel(
+        torch_grid(kind, size, dtype, device), momentum_advection=momentum(mom, T),
+        tracer_advection=T.WENO5(), tracers=("T", "S"),
+        free_surface=T.SplitExplicitFreeSurface(substeps=substeps),
+        coriolis=coriolis(cor, T), buoyancy=T.BuoyancyTracer())
+    if not jax_model:
+        return None, tm
+    jm = JH(jax_grid(kind, size), momentum_advection=momentum(mom, J),
+            tracer_advection=J.WENO5(), tracers=("T", "S"),
+            free_surface=JSplit(substeps=substeps), coriolis=coriolis(cor, J),
+            buoyancy=JB(), fused_advection=False)
+    return jm, tm
+
+
+def initial_values(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return dict(u=0.1 * rng.standard_normal(shape),
+                v=0.05 * rng.standard_normal(shape),
+                T=rng.standard_normal(shape),
+                b=lambda lam, phi, z: 2e-5 * (z + 3000.0) / 3000.0)
+
+
+@pytest.mark.parametrize("kind", ["latlon", "rect-bbb"])
+def test_columns_plain_version_matches_jax_compute_w_and_phy(kind):
+    size = (32, 16, 8) if kind == "latlon" else (16, 12, 8)
+    jm, tm = flagship_models(size=size, kind=kind,
+                             mom="vi-weno-velocity" if kind == "latlon" else "flux-weno5",
+                             cor="spherical-energy" if kind == "latlon" else "betaplane")
+    vals = initial_values(tm.grid.shape, seed=2)
+    vals["b"] = np.random.default_rng(3).standard_normal(tm.grid.shape)
+    js, ts = jm.initial_state(**vals), tm.initial_state(**vals)
+    for key in ("w", "pHY"):
+        r, g = np.asarray(js[key]), ts[key].numpy()
+        assert r.shape == g.shape
+        assert np.abs(r - g).max() <= RTOL * np.abs(r).max(), key
+    w, ph = tfh.hydrostatic_columns_reference(
+        tm.grid, ts["solution"]["u"], ts["solution"]["v"], ts["solution"]["b"])
+    assert torch.equal(tm.compute_w(ts["solution"]), ts["w"])
+    assert torch.equal(tm.grid.interior(ph), tm.grid.interior(ts["pHY"]))
+
+
+def test_advance_form_matches_the_two_stage_step_bitwise():
+    _, tm = flagship_models(jax_model=False)
+    state = tm.initial_state(**initial_values(tm.grid.shape, seed=4))
+    rng = np.random.default_rng(5)
+    state["G_prev"] = {n: torch.as_tensor(1e-6 * rng.standard_normal(tm.grid.total_shape))
+                       for n in tm.prognostic_names()}
+    for euler in (True, False):
+        psi, G = tfh.fused_hydrostatic_tendencies(tm, state, advance=(600.0, euler))
+        G2 = tfh.fused_hydrostatic_tendencies(tm, state)
+        psi2 = T.timesteppers.steppers.ab2_substep(
+            state["solution"], G2, state["G_prev"], 600.0, tm.ab2_chi, euler)
+        for n in tm.prognostic_names():
+            assert torch.equal(G[n], G2[n]) and torch.equal(psi[n], psi2[n]), n
+
+
+@pytest.mark.parametrize("weights", ["uniform", "hann"])
+def test_barotropic_plain_version_matches_jax_substep_eta(weights):
+    jm, tm = flagship_models(size=(24, 12, 6), substeps=10)
+    if weights == "hann":
+        tm.free_surface = T.SplitExplicitFreeSurface.with_hann_filter(substeps=10)
+        jm = JH(jm.grid, momentum_advection=jm.momentum_advection,
+                tracer_advection=jm.tracer_advection, tracers=("T", "S"),
+                free_surface=JSplit.with_hann_filter(substeps=10),
+                coriolis=jm.coriolis, buoyancy=JB(), fused_advection=False)
+    g = tm.grid
+    rng = np.random.default_rng(6)
+    shape = g.total_shape[:2] + (1,)
+    eta, U0, V0, GU, GV = (s * rng.standard_normal(shape)
+                           for s in (0.1, 10.0, 10.0, 1e-3, 1e-3))
+    from clima_oceananigans_jl_tpu.models.free_surface import fill2d as jfill2d
+    jeta = jfill2d(jnp.asarray(eta), jm.grid, J.W_LOC[:2] + (J.F,), jm.eta_bcs)
+    teta = fill2d(torch.as_tensor(eta), g, ETA_LOC, tm.eta_bcs)
+    ref = jm.free_surface.substep_eta(jm.grid, jm.eta_bcs, jeta, *(
+        jnp.asarray(a) for a in (GU, GV, U0, V0)), 600.0)
+    got = tm.free_surface.substep_eta(g, tm.eta_bcs, teta, *(
+        torch.as_tensor(a) for a in (GU, GV, U0, V0)), 600.0)
+    for name, r, x in zip(("eta", "U", "V"), ref, got):
+        r, x = np.asarray(r), x.numpy()
+        assert r.shape == x.shape
+        assert np.abs(r - x).max() <= 1e-14 * np.abs(r).max(), name
+
+
+def test_metric_rows_are_slices_of_the_plain_versions_metrics():
+    g = torch_grid("latlon", (16, 8, 6))
+    cor = T.HydrostaticSphericalCoriolis()
+    ys, zs = tmr.y_rows(g, cor), tmr.z_rows(g, tables=True)
+    assert ys.shape == (len(tmr.Y_ROWS), g.total_shape[1])
+    assert zs.shape == (2 + 24, g.total_shape[2])
+    full = lambda m: torch.broadcast_to(m, g.total_shape[:2] + (1,))
+    assert torch.equal(full(g.dx((T.F, T.C, T.C)))[:, :, 0],
+                       ys[tmr.Y_ROWS.index("dx_fc")].expand(g.total_shape[0], -1))
+    assert torch.equal(full(g.Az((T.C, T.F, T.C)))[:, :, 0],
+                       ys[tmr.Y_ROWS.index("az_cf")].expand(g.total_shape[0], -1))
+    assert torch.equal(cor.f_ff(g).reshape(-1), ys[tmr.Y_ROWS.index("f_u")])
+    assert torch.equal(g.dz(T.W_LOC).reshape(-1), zs[1])
+    with pytest.raises(ValueError):
+        tmr.coriolis_rows(g, object())
+    # built once per grid and options, as the column depths are
+    assert tmr.y_rows(g, T.HydrostaticSphericalCoriolis()) is ys
+    assert tmr.z_rows(g, tables=True) is zs
+    assert tmr.y_rows(g) is not ys and tmr.z_rows(g) is not zs
+    assert all(a is b for a, b in zip(column_depths(g), column_depths(g)))
+
+
+def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch():
+    _, tm = flagship_models(jax_model=False)
+    state = tm.initial_state(**initial_values(tm.grid.shape))
+    before = (tfh.hydrostatic_columns.launches,
+              tfh.fused_hydrostatic_tendencies.launches,
+              tfb.fused_substep_eta.launches)
+    state = tm.step(state, 600.0)
+    assert (tfh.hydrostatic_columns.launches,
+            tfh.fused_hydrostatic_tendencies.launches,
+            tfb.fused_substep_eta.launches) == before
+    assert tfh.unsupported_reason(tm) is None
+    assert tfb.unsupported_reason(tm.grid, tm.eta_bcs) is None
+
+
+def test_kernel_gates_refuse_what_the_kernels_lack():
+    stretched_x = T.RectilinearGrid(size=(8, 8, 6), x=np.cumsum(np.r_[0, np.arange(1, 9)]),
+                                    y=(0, 1), z=(-1, 0), dtype=torch.float64,
+                                    device=DEVICE)
+    m = T.HydrostaticFreeSurfaceModel(stretched_x, tracer_advection=T.WENO5(),
+                                      free_surface=T.ExplicitFreeSurface(),
+                                      tracers=("c",))
+    assert "regular x" in tfh.unsupported_reason(m)
+    assert "regular x" in tfb.unsupported_reason(m.grid, m.eta_bcs)
+    stretched_y = T.RectilinearGrid(size=(8, 8, 6), x=(0, 1),
+                                    y=np.cumsum(np.r_[0, np.arange(1, 9)]),
+                                    z=(-1, 0), dtype=torch.float64, device=DEVICE)
+    m = T.HydrostaticFreeSurfaceModel(stretched_y, tracer_advection=T.WENO5(),
+                                      free_surface=T.ExplicitFreeSurface(),
+                                      tracers=("c",))
+    assert "stretched-y" in tfh.unsupported_reason(m)
+    walls = {"eta": T.FieldBCs(south=T.ValueBC(0.1))}
+    m = T.HydrostaticFreeSurfaceModel(
+        torch_grid("rect-bbb", (8, 8, 6)), boundary_conditions=walls,
+        free_surface=T.SplitExplicitFreeSurface(substeps=4))
+    assert "zero-gradient" in tfb.unsupported_reason(m.grid, m.eta_bcs)
+
+
+# -- on the card --------------------------------------------------------------------
+
+def _random_state(model, seed):
+    rng = np.random.default_rng(seed)
+    g = model.grid
+    state = model.initial_state(**{n: s * rng.standard_normal(g.shape) for n, s in
+                                   (("u", 0.1), ("v", 0.1), ("T", 1.0), ("S", 1.0),
+                                    ("b", 1e-3))})
+    state["G_prev"] = {n: torch.as_tensor(1e-6 * rng.standard_normal(g.total_shape),
+                                          dtype=g.dtype, device=g.device)
+                       for n in model.prognostic_names()}
+    return state
+
+
+def _close(got, ref, rtol, cut=lambda a: a):
+    got, ref = cut(got), cut(ref)
+    assert float((got - ref).abs().max()) <= rtol * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["latlon-vi-weno-velocity", "latlon-vi-energy",
+                                  "rect-bbb-flux-weno5"])
+def test_cuda_k4_matches_plain_versions(case):
+    """K4a and K4b (both forms) against their plain versions in f64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kind = "latlon" if case.startswith("latlon") else "rect-bbb"
+    mom = case[len(kind) + 1:]
+    _, tm = flagship_models(size=(32, 16, 8), jax_model=False, device="cuda",
+                            kind=kind, mom=mom,
+                            cor="betaplane" if kind == "rect-bbb" else "spherical-energy")
+    state = _random_state(tm, 7)
+    g = tm.grid
+    sol = state["solution"]
+    n0 = tfh.hydrostatic_columns.launches
+    got = tfh.hydrostatic_columns(g, sol["u"], sol["v"], sol["b"])
+    ref = tfh.hydrostatic_columns_reference(g, sol["u"], sol["v"], sol["b"])
+    assert tfh.hydrostatic_columns.launches == n0 + 1
+    cut = lambda a: a[g.Hx:g.Hx + g.Nx, g.Hy:g.Hy + g.Ny]
+    for a, b in zip(got, ref):
+        _close(a, b, 1e-13, cut)
+    for adv in (None, (600.0, False)):
+        got = tfh.fused_hydrostatic_tendencies(tm, state, adv)
+        ref = tfh.fused_hydrostatic_tendencies_reference(tm, state, adv)
+        got, ref = ((got,), (ref,)) if adv is None else (got, ref)
+        for gd, rd in zip(got, ref):
+            for n in rd:
+                _close(gd[n], rd[n], 1e-13, g.interior)
+                halo = gd[n].clone()
+                halo[g.interior_slices] = 0
+                assert not halo.any(), "K4b wrote outside the interior"
+
+
+@pytest.mark.cuda
+def test_cuda_k5_and_steps_match_plain_versions():
+    """K5 against its plain version on every with-halo point, then three
+    split-explicit steps through K4a, K4b and K5 against the plain run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from clima_oceananigans_jl_torch.models import hydrostatic as th
+    _, tm = flagship_models(size=(32, 16, 8), jax_model=False, device="cuda")
+    g = tm.grid
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    shape = g.total_shape[:2] + (1,)
+    rand = lambda s: s * torch.randn(shape, generator=gen, dtype=g.dtype, device="cuda")
+    eta = fill2d(rand(0.1), g, ETA_LOC, tm.eta_bcs)
+    args = (g, tm.eta_bcs, eta, rand(10.0), rand(10.0), rand(1e-3), rand(1e-3),
+            *column_depths(g), 9.80665, 40.0)
+    wv = tm.free_surface._weight_vec(None, eta)
+    n0 = tfb.fused_substep_eta.launches
+    got = tfb.fused_substep_eta(*args, wv, wv, 8)
+    assert tfb.fused_substep_eta.launches == n0 + 16
+    for a, b in zip(got, tfb.fused_substep_eta_reference(*args, wv, wv, 8)):
+        _close(a, b, 1e-13)
+
+    def run(kernels):
+        state = tm.initial_state(**initial_values(g.shape, seed=9))
+        for _ in range(3):
+            state = tm.step(state, 600.0, kernels)
+        return state
+
+    got, ref = run(None), run(th.PLAIN)
+    for n in tm.prognostic_names():
+        _close(got["solution"][n], ref["solution"][n], 1e-12)
+    _close(got["eta"], ref["eta"], 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("free_surface", ["explicit", "implicit-pcg"])
+def test_cuda_other_free_surfaces_step_as_the_plain_run(free_surface):
+    """Three steps with an explicit or an implicit (CG) free surface: K4a
+    and K4b (tendency form, or advance form before the solve) against the
+    plain versions, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from clima_oceananigans_jl_torch.models import hydrostatic as th
+    fs = (T.ExplicitFreeSurface() if free_surface == "explicit"
+          else T.ImplicitFreeSurface(solver_method="pcg", tolerance=1e-13))
+    tm = T.HydrostaticFreeSurfaceModel(
+        torch_grid("latlon", (32, 16, 8), device="cuda"),
+        momentum_advection=T.VectorInvariant(scheme="weno_velocity"),
+        tracer_advection=T.WENO5(), tracers=("T",), free_surface=fs,
+        coriolis=T.HydrostaticSphericalCoriolis(), buoyancy=T.BuoyancyTracer())
+
+    def run(kernels):
+        vals = initial_values(tm.grid.shape, seed=10)
+        state = tm.initial_state(u=vals["u"], v=vals["v"], T=vals["T"], b=vals["b"])
+        for _ in range(3):
+            state = tm.step(state, 60.0, kernels)
+        return state
+
+    n0 = tfh.fused_hydrostatic_tendencies.launches
+    got = run(None)
+    assert tfh.fused_hydrostatic_tendencies.launches == n0 + 3
+    ref = run(th.PLAIN)
+    for n in tm.prognostic_names():
+        _close(got["solution"][n], ref["solution"][n], 1e-12)
+    _close(got["eta"], ref["eta"], 1e-12)

@@ -33,6 +33,9 @@ from clima_oceananigans_jl_torch.ops import fused_step as tfs
 
 torch.set_num_threads(1)
 
+#: grids default to the card; these tests ask for the CPU
+DEVICE = "cpu"
+
 RTOL = 1e-12
 DT = 1e-3
 
@@ -88,7 +91,7 @@ def jax_model(size, fused, tracers=(), option="none"):
                                fused_advection=fused, **OPTIONS[option](P))
 
 
-def torch_model(size, dtype=torch.float64, device="cpu", tracers=(),
+def torch_model(size, dtype=torch.float64, device=DEVICE, tracers=(),
                 option="none", w_top=None):
     """The port's model; ``w_top`` imposes w on the top wall, which keeps
     the fused branch (without a closure) but stores G_prev with halos."""
@@ -178,7 +181,7 @@ def test_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
 
 def test_unsupported_configurations_raise():
     grid = T.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1),
-                             dtype=torch.float64)
+                             dtype=torch.float64, device=DEVICE)
     implicit = T.ScalarDiffusivity(nu=1e-3,
                                    time_discretization="vertically_implicit")
     for kw in (dict(closure=implicit),
@@ -190,7 +193,7 @@ def test_unsupported_configurations_raise():
             T.NonhydrostaticModel(grid, advection=T.WENO5(), **kw)
     bounded_x = T.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1),
                                   topology=(T.BOUNDED, T.PERIODIC, T.BOUNDED),
-                                  dtype=torch.float64)
+                                  dtype=torch.float64, device=DEVICE)
     with pytest.raises(NotImplementedError):
         T.NonhydrostaticModel(bounded_x, advection=T.WENO5())
     assert tfs.fused_step_ok(torch_model((8, 8, 8)))

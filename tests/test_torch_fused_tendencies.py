@@ -24,6 +24,9 @@ from clima_oceananigans_jl_torch.ops import fused_tendencies as tft
 
 torch.set_num_threads(1)
 
+#: grids default to the card; these tests ask for the CPU
+DEVICE = "cpu"
+
 RTOL = 1e-12
 SIZE = (16, 12, 10)
 TOPOLOGIES = {"ppb": ("periodic", "periodic", "bounded"),
@@ -36,7 +39,7 @@ def inputs(shape, ntracers, seed=0):
     return vel, {f"c{k}": rng.standard_normal(shape) for k in range(ntracers)}
 
 
-def torch_grid(topology, size=SIZE, dtype=torch.float64, device="cpu",
+def torch_grid(topology, size=SIZE, dtype=torch.float64, device=DEVICE,
                halo=3):
     return T.RectilinearGrid(size=size, extent=(1.0, 2.0, 0.5),
                              topology=topology, halo=(halo,) * 3, dtype=dtype,
@@ -107,7 +110,7 @@ def test_gates_match_jax():
         jg = J.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1),
                                topology=topo, dtype=jnp.float64)
         tg = T.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1),
-                               topology=topo, dtype=torch.float64)
+                               topology=topo, dtype=torch.float64, device=DEVICE)
         assert jft.supports_fused_advection(jg) == tft.supports_fused_advection(tg)
         for top in (None, 0.0, 1e-3):
             jb = jbcs.FieldBCs(top=None if top is None else jbcs.ValueBC(top))

@@ -48,13 +48,16 @@ except ImportError:
 
 torch.set_num_threads(1)
 
+#: grids default to the card; these tests ask for the CPU
+DEVICE = "cpu"
+
 SIZE = (16, 12, 10)
 DT = 1e-3
 TOPOLOGIES = {"ppb": ("periodic", "periodic", "bounded"),
               "ppp": ("periodic", "periodic", "periodic")}
 
 
-def torch_grid(topo="ppb", size=SIZE, dtype=torch.float64, device="cpu"):
+def torch_grid(topo="ppb", size=SIZE, dtype=torch.float64, device=DEVICE):
     return T.RectilinearGrid(size=size, extent=(1.0, 2.0, 0.5),
                              topology=TOPOLOGIES[topo], dtype=dtype,
                              device=device)
@@ -79,7 +82,7 @@ def models(size=SIZE, w_bcs=("flux", "flux"), timestepper="RungeKutta3",
                            topology=TOPOLOGIES["ppb"], dtype=jnp.float64)
     tg = T.RectilinearGrid(size=size, extent=(1.0, 1.0, 1.0),
                            topology=(T.PERIODIC, T.PERIODIC, T.BOUNDED),
-                           dtype=torch.float64)
+                           dtype=torch.float64, device=DEVICE)
 
     def bcs(mod):
         make = {"flux": lambda: mod.FluxBC(), "value": lambda: mod.ValueBC(0.0)}
@@ -158,7 +161,7 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch():
     assert (tft.fused_divergence.launches,
             tft.fused_pressure_gradient.launches) == before
     flat = T.RectilinearGrid(size=(8, 8, 1), extent=(1, 1),
-                             topology=(T.PERIODIC, T.PERIODIC, T.FLAT))
+                             topology=(T.PERIODIC, T.PERIODIC, T.FLAT), device=DEVICE)
     with pytest.raises(ValueError):
         tft._projection_args(flat)
 
@@ -260,7 +263,7 @@ def test_port_still_refuses_bounded_x_and_y_and_the_fused_ab2_branch():
     for topo in ((T.BOUNDED, T.PERIODIC, T.BOUNDED),
                  (T.PERIODIC, T.BOUNDED, T.BOUNDED)):
         grid = T.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1),
-                                 topology=topo, dtype=torch.float64)
+                                 topology=topo, dtype=torch.float64, device=DEVICE)
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
             T.NonhydrostaticModel(grid, advection=T.WENO5(),
                                   timestepper="RungeKutta3")

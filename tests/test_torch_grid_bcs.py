@@ -18,6 +18,9 @@ from clima_oceananigans_jl_tpu.boundary_conditions import bcs as jbcs
 
 torch.set_num_threads(1)
 
+#: grids default to the card; these tests ask for the CPU
+DEVICE = "cpu"
+
 SIZE = (16, 12, 10)
 EXTENT = (1.0, 2.0, 0.5)
 LOCS = {"ccc": J.CENTER, "fcc": J.U_LOC, "cfc": J.V_LOC, "ccf": J.W_LOC}
@@ -30,7 +33,7 @@ def grids(topo, halo=None):
     jg = J.RectilinearGrid(size=SIZE, extent=EXTENT, topology=t, halo=halo,
                            dtype=jnp.float64)
     tg = T.RectilinearGrid(size=SIZE, extent=EXTENT, topology=t, halo=halo,
-                           dtype=torch.float64)
+                           dtype=torch.float64, device=DEVICE)
     return jg, tg
 
 
@@ -69,9 +72,20 @@ def test_grid_interior_with_halo_and_refusals():
     assert th.halo == jh.halo == (4, 4, 4)
     for ja, ta in zip(jh._axes, th._axes):
         assert same(ja.cf, ta.cf) and same(ja.cc, ta.cc)
-    with pytest.raises(NotImplementedError):
+    # a stretched axis is ported now (it raised NotImplementedError before):
+    # it builds as the JAX one does, and unordered faces are refused
+    faces = [0.0, 0.1, 0.3, 0.6, 1.0]
+    js = J.RectilinearGrid(size=(4, 4, 4), x=(0, 1), y=(0, 1), z=faces,
+                           dtype=jnp.float64)
+    ts = T.RectilinearGrid(size=(4, 4, 4), x=(0, 1), y=(0, 1), z=faces,
+                           dtype=torch.float64, device=DEVICE)
+    assert ts.regular == (True, True, False) and not ts.all_regular
+    for ja, ta in zip(js._axes, ts._axes):
+        for name in ("cf", "cc", "dc", "df"):
+            assert same(getattr(ja, name), getattr(ta, name)), name
+    with pytest.raises(ValueError):
         T.RectilinearGrid(size=(4, 4, 4), x=(0, 1), y=(0, 1),
-                          z=[0.0, 0.1, 0.3, 0.6, 1.0])
+                          z=[0.0, 0.3, 0.1, 0.6, 1.0], device=DEVICE)
 
 
 def _bc_cases():

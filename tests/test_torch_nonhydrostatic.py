@@ -26,6 +26,9 @@ from clima_oceananigans_jl_tpu.timesteppers.steppers import Clock as JClock
 
 torch.set_num_threads(1)
 
+#: grids default to the card; these tests ask for the CPU
+DEVICE = "cpu"
+
 RTOL = 1e-9
 DT = 1e-3
 
@@ -36,7 +39,7 @@ def models(size):
                            dtype=jnp.float64)
     tg = T.RectilinearGrid(size=size, extent=(1.0, 1.0, 1.0),
                            topology=(T.PERIODIC, T.PERIODIC, T.BOUNDED),
-                           dtype=torch.float64)
+                           dtype=torch.float64, device=DEVICE)
     jm = NonhydrostaticModel(jg, advection=J.WENO5(), buoyancy=BuoyancyTracer(),
                              timestepper="QuasiAdamsBashforth2",
                              fused_advection=False)
@@ -162,7 +165,8 @@ def test_w_wall_plane_matches(kind):
         advection=J.WENO5(), buoyancy=BuoyancyTracer(),
         boundary_conditions=jb, fused_advection=False)
     tm = T.NonhydrostaticModel(
-        T.RectilinearGrid(size=size, extent=(1, 1, 1), dtype=torch.float64),
+        T.RectilinearGrid(size=size, extent=(1, 1, 1), dtype=torch.float64,
+                          device=DEVICE),
         advection=T.WENO5(), buoyancy=T.BuoyancyTracer(),
         boundary_conditions=tb)
     for side, name in ((0, "bottom"), (1, "top")):

@@ -24,6 +24,9 @@ from clima_oceananigans_jl_tpu.utils import location as jloc
 
 torch.set_num_threads(1)
 
+#: grids default to the card; these tests ask for the CPU
+DEVICE = "cpu"
+
 RTOL = 1e-12
 SIZE = (12, 10, 8)
 LOCS = {"C": T.CENTER, "U": T.U_LOC, "V": T.V_LOC, "W": T.W_LOC}
@@ -37,7 +40,8 @@ def grids(topology=("periodic", "periodic", "bounded")):
     jg = J.RectilinearGrid(size=SIZE, x=(0.0, 1.0), y=(-0.5, 1.5), z=(-1.0, 0.0),
                            topology=topology, halo=(3, 3, 3), dtype=jnp.float64)
     tg = T.RectilinearGrid(size=SIZE, x=(0.0, 1.0), y=(-0.5, 1.5), z=(-1.0, 0.0),
-                           topology=topology, halo=(3, 3, 3), dtype=torch.float64)
+                           topology=topology, halo=(3, 3, 3), dtype=torch.float64,
+                           device=DEVICE)
     return jg, tg
 
 

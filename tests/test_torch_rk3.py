@@ -41,6 +41,9 @@ from clima_oceananigans_jl_tpu.timesteppers.steppers import Clock as JClock
 
 torch.set_num_threads(1)
 
+#: grids default to the card; these tests ask for the CPU
+DEVICE = "cpu"
+
 RTOL = 1e-9
 DT = 1e-3
 FLAGSHIP = dict(f=1e-4, nu=1e-5, kappa=1e-5, timestepper="RungeKutta3")
@@ -53,7 +56,7 @@ def models(size, f, nu, kappa, timestepper, beta=None, bcs=None):
                            dtype=jnp.float64)
     tg = T.RectilinearGrid(size=size, extent=(1.0, 1.0, 1.0),
                            topology=(T.PERIODIC, T.PERIODIC, T.BOUNDED),
-                           dtype=torch.float64)
+                           dtype=torch.float64, device=DEVICE)
     if beta is None:
         jc, tc = jcor.FPlane(f=f), T.FPlane(f=f)
     else:

@@ -42,6 +42,9 @@ except ImportError:
 
 torch.set_num_threads(1)
 
+#: grids default to the card; these tests ask for the CPU
+DEVICE = "cpu"
+
 
 RTOL = 1e-12
 DT = 1e-2
@@ -57,7 +60,7 @@ def grids(topo="pp", size=(24, 16)):
                            dtype=jnp.float64)
     tg = T.RectilinearGrid(size=size + (1,), x=(0, 2 * np.pi), y=(0, 1.5),
                            topology=tuple(pick(T, t) for t in topo) + (T.FLAT,),
-                           dtype=torch.float64)
+                           dtype=torch.float64, device=DEVICE)
     return jg, tg
 
 
@@ -133,7 +136,7 @@ def test_kernel_arguments_refuse_what_the_kernel_does_not_take():
         tft.shallow_water_args(grid, T.WENO5(), T.WENO5(), 17, G)
     with pytest.raises(ValueError):
         tft.shallow_water_args(grid, object(), T.WENO5(), 3, G)
-    flat_z = T.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1))
+    flat_z = T.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1), device=DEVICE)
     with pytest.raises(ValueError):
         tft.shallow_water_args(flat_z, T.WENO5(), T.WENO5(), 3, G)
     # both bounded axes carry WENO5's bounds; the tracers' scheme flag is 0
@@ -304,7 +307,7 @@ def test_forcing_and_particles_are_refused():
         T.ShallowWaterModel(tg, forcing={"uh": lambda *a: 0.0})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.ShallowWaterModel(tg, particles=object())
-    three_d = T.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1))
+    three_d = T.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1), device=DEVICE)
     with pytest.raises(ValueError):
         T.ShallowWaterModel(three_d)
 
