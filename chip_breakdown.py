@@ -1,29 +1,65 @@
-"""Where the time of the port's hydrostatic ¼° step goes, on one NVIDIA GPU.
+"""Where the time of the port's steps goes, on one NVIDIA GPU.
 
-    python3 chip_breakdown.py [steps]
+    python3 chip_breakdown.py [hydrostatic] [shallow-water] [division]
+                              [k3a-division] [k4b-phases] [--steps N]
 
-Builds the ¼° flagship of ``benchmark/bench_hydro_flagship.py`` through
-the public API (as ``chip_smoke.py`` does), takes 3 warm-up steps, then
-times ``steps`` steps (default 5) with CUDA events around each part of
-the split-explicit step: K4b's advance, the barotropic modes, K5 (with
-its wrapper), the corrector, K4a, and K6's two halo fills of
-``update_state``; "the rest" is the step's CUDA-event time minus their
-sum (c₁G − c₂G⁻, the η̅ fill's clone, Python). Then ``torch.profiler`` over 3 more steps gives
-the device's busy time (kernel durations summed) against the host clock:
-the idle share. Prints the card's name and power limit first. Needs a
-card; without one it exits with an error.
+With no part named, runs them all. Prints the card's name and power
+limit first. Needs a card; without one it exits with an error.
+
+- ``hydrostatic``: the ¼° flagship of ``benchmark/bench_hydro_flagship.py``
+  built through the public API (as ``chip_smoke.py`` does), 3 warm-up
+  steps, then ``steps`` steps (default 5) with CUDA events around each
+  part of the split-explicit step: K4b's advance, the barotropic modes,
+  K5 (with its wrapper), the corrector, K4a, and K6's two halo fills of
+  ``update_state``; "the rest" is the step's CUDA-event time minus their
+  sum (c₁G − c₂G⁻, the η̅ fill's clone, Python).
+- ``shallow-water``: the 16384² headline of
+  ``benchmark/bench_shallow_water.py`` (as ``chip_smoke.py`` runs it), 2
+  warm-up steps, then ``steps`` steps with CUDA events around K3a,
+  ``rk3_substep`` and ``fill_all_halos``, three of each a step; "the
+  rest" as above (``apply_flux_bcs``, dict work, Python).
+- Each of the two then runs ``torch.profiler`` over 3 more steps: the
+  device's busy time (kernel durations summed) against the host clock,
+  the idle share, and the kernels that took the most device time.
+- ``division``: the time of one fp32 and one fp64 division, by CUDA
+  events over 2^30 divisions, as written (``x / y``: IEEE, correctly
+  rounded) and through ``ieee_div`` of ``csrc/weno5_advection.cuh``, on
+  operand classes the kernels meet: random, WENO5's weights on smooth
+  fields (den ≈ 1e-24, num = p·den with |p| ~ 0.1 or ~ 1e-6), a tiny
+  numerator (~1e-32) over an ordinary denominator, a subnormal quotient,
+  a zero numerator over 6 or over 1e-24. The two agree bit for bit on every
+  class (checked). Then a map of where fp32 ``x / y`` leaves its fast
+  path: its time for |x| ~ 2^a and y ~ 2^b over a grid of exponents,
+  relative to the random class.
+- ``k3a-division``: K3a on the 16384² path's fields (after 2 steps) and on
+  random fields (as ``chip_smoke.py`` phase 5 makes them), as built and
+  built with nvcc's ``-prec-div=false`` (approximate division: not
+  bitwise, so never used by the port; a diagnostic of how much of K3a's
+  time its divisions still take on each kind of field).
+- ``k4b-phases``: where a K4b block's time goes on the ¼° path's fields
+  (after 3 steps): a copy of ``csrc/fused_hydrostatic_tendencies.cu`` with
+  ``clock64()`` stamps at the phase boundaries, summed over thread 0 of
+  every block (issuing the copies and the halo zeros, waiting for u, v
+  and w, the momentum arrays, the momentum outputs, each tracer's wait,
+  face fluxes and outputs), each phase's share of the total.
 """
 from __future__ import annotations
 
 import collections
+import ctypes
+import math
 import subprocess
 import sys
 import time
 
 import torch
 
+from clima_oceananigans_jl_torch import (PERIODIC, FLAT, RectilinearGrid,
+                                         ShallowWaterModel, WENO5)
 from clima_oceananigans_jl_torch.models import hydrostatic as hm
+from clima_oceananigans_jl_torch.models import shallow_water as swm
 from clima_oceananigans_jl_torch.models.free_surface import SplitExplicitFreeSurface
+from clima_oceananigans_jl_torch.ops import _build
 
 import chip_smoke
 
@@ -41,38 +77,20 @@ def timed(events, name, fn):
     return run
 
 
-def main(steps=5):
-    if not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: this breakdown needs a GPU")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
-    model = chip_smoke.latlon_flagship()
-    dt = chip_smoke.HYDRO["dt"]
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    state = model.initial_state(
-        u=0.1 * torch.randn(model.grid.shape, generator=gen, device="cuda"),
-        b=lambda lam, phi, z: 2e-5 * (z + 3000.0) / 3000.0)
-    for _ in range(3):
-        state = model.step(state, dt)
-    torch.cuda.synchronize()
-
-    events = collections.defaultdict(list)
-    kernels = {k: timed(events, label, hm.KERNELS[k]) for k, label in (
-        ("tendencies", "K4b (advance)"), ("columns", "K4a"),
-        ("barotropic", "K5 and its wrapper"), ("fill", "K6 fills"))}
-    patches = [(hm, "barotropic_mode"), (SplitExplicitFreeSurface, "corrector")]
-    labels = {"barotropic_mode": "barotropic modes", "corrector": "corrector"}
-    saved = [(obj, name, getattr(obj, name)) for obj, name in patches]
-    for obj, name, fn in saved:
-        setattr(obj, name, timed(events, labels[name], fn))
+def breakdown(label, step, state, events, patches, steps):
+    """``steps`` calls of ``step`` with ``patches`` [(object, attribute,
+    label)] timed by CUDA events; prints each part's ms per step and
+    share, then the profiler's idle share over 3 more steps."""
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, part in patches:
+        setattr(obj, name, timed(events, part, getattr(obj, name)))
     total = []
     try:
         for _ in range(steps):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            state = model.step(state, dt, kernels)
+            state = step(state, timed_parts=True)
             end.record()
             total.append((start, end))
         torch.cuda.synchronize()
@@ -83,8 +101,7 @@ def main(steps=5):
     parts = {name: sum(s.elapsed_time(e) for s, e in pairs) / steps
              for name, pairs in events.items()}
     parts["the rest"] = step_ms - sum(parts.values())
-    print(f"hydrostatic 1/4 deg step, {steps} steps, CUDA events: "
-          f"{step_ms:.4f} ms/step")
+    print(f"{label}, {steps} steps, CUDA events: {step_ms:.4f} ms/step")
     for name, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
         print(f"  {name}: {ms:.4f} ms ({100 * ms / step_ms:.1f}%)")
 
@@ -93,7 +110,7 @@ def main(steps=5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
-            state = model.step(state, dt)
+            state = step(state, timed_parts=False)
         torch.cuda.synchronize()
         elapsed = (time.perf_counter() - t0) * 1e3
     busy = sum(e.self_device_time_total for e in prof.key_averages()
@@ -112,5 +129,291 @@ def main(steps=5):
               f"{e.count // 3} calls/step")
 
 
+def hydrostatic(steps):
+    model = chip_smoke.latlon_flagship()
+    dt = chip_smoke.HYDRO["dt"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = model.initial_state(
+        u=0.1 * torch.randn(model.grid.shape, generator=gen, device="cuda"),
+        b=lambda lam, phi, z: 2e-5 * (z + 3000.0) / 3000.0)
+    for _ in range(3):
+        state = model.step(state, dt)
+    torch.cuda.synchronize()
+    events = collections.defaultdict(list)
+    kernels = {k: timed(events, label, hm.KERNELS[k]) for k, label in (
+        ("tendencies", "K4b (advance)"), ("columns", "K4a"),
+        ("barotropic", "K5 and its wrapper"), ("fill", "K6 fills"))}
+    step = lambda s, timed_parts: model.step(s, dt, kernels if timed_parts else None)
+    breakdown("hydrostatic 1/4 deg step", step, state, events,
+              [(hm, "barotropic_mode", "barotropic modes"),
+               (SplitExplicitFreeSurface, "corrector", "corrector")], steps)
+
+
+def shallow_water(steps):
+    n = chip_smoke.N_SW
+    dt, warmup, _ = chip_smoke.SW_PATH
+    grid = RectilinearGrid(size=(n, n, 1), x=(0, 2 * math.pi), y=(0, 2 * math.pi),
+                           topology=(PERIODIC, PERIODIC, FLAT),
+                           dtype=torch.float32, device="cuda")
+    model = ShallowWaterModel(grid, gravitational_acceleration=10.0,
+                              advection=WENO5())
+    state = model.initial_state(
+        uh=lambda x, y, z: 0.1 * torch.sin(x) * torch.cos(y), h=1.0)
+    for _ in range(warmup):
+        state = model.step(state, dt)
+    torch.cuda.synchronize()
+    events = collections.defaultdict(list)
+    kernels = {"core": timed(events, "K3a", swm.KERNELS["core"])}
+    step = lambda s, timed_parts: model.step(s, dt, kernels if timed_parts else None)
+    breakdown(f"shallow water {n}^2 fp32 step", step, state, events,
+              [(swm, "rk3_substep", "rk3_substep"),
+               (model, "fill_all_halos", "fill_all_halos")], steps)
+
+
+PROBE = r"""
+#include <cuda_runtime.h>
+#include "weno5_advection.cuh"
+
+template <typename T, bool EXACT>
+__global__ void probe(const T* x, const T* y, T* out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const T xi = x[i];
+  T yi = y[i], acc = T(0);
+#pragma unroll 8
+  for (int r = 0; r < 64; ++r) {
+    acc = acc + (EXACT ? ieee_div(xi, yi) : xi / yi);
+    yi = yi * T(1.0000001);
+  }
+  out[i] = acc;
+}
+
+template <typename T>
+static int run(const void* x, const void* y, void* out, int n, int exact, void* s) {
+  const int threads = 256, blocks = (n + threads - 1) / threads;
+  cudaStream_t st = static_cast<cudaStream_t>(s);
+  if (exact) probe<T, true><<<blocks, threads, 0, st>>>((const T*)x, (const T*)y, (T*)out, n);
+  else probe<T, false><<<blocks, threads, 0, st>>>((const T*)x, (const T*)y, (T*)out, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" {
+int division_probe_f32(const void* x, const void* y, void* out, int n, int exact, void* s) {
+  return run<float>(x, y, out, n, exact, s);
+}
+int division_probe_f64(const void* x, const void* y, void* out, int n, int exact, void* s) {
+  return run<double>(x, y, out, n, exact, s);
+}
+}
+"""
+
+
+def division():
+    """Time of one division per operand class, as written and through
+    ``ieee_div``; 2^24 elements × 64 divisions a call."""
+    src = _build.BUILD_DIR / "division_probe.cu"
+    lib = _build.BUILD_DIR / "libdivision_probe.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(PROBE)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                    "-o", str(lib), str(src)], check=True)
+    so = ctypes.CDLL(str(lib))
+    n = 1 << 24
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype, suffix in ((torch.float32, "f32"), (torch.float64, "f64")):
+        fn = getattr(so, f"division_probe_{suffix}")
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        u = lambda lo, hi: lo + (hi - lo) * torch.rand(n, generator=gen, dtype=dtype,
+                                                        device="cuda")
+        tiny = 1e-24 * u(1.0, 3.0)
+        classes = {
+            "random x, y in [0.5, 2]": (torch.randn(n, generator=gen, dtype=dtype,
+                                                    device="cuda"), u(0.5, 2.0)),
+            "den ~1e-24, num = p den, |p| ~ 0.1": (0.1 * u(-1.0, 1.0) * tiny, tiny),
+            "den ~1e-24, num = p den, |p| ~ 1e-6": (1e-6 * u(-1.0, 1.0) * tiny, tiny),
+            "num ~1e-32, den in [0.5, 2]": (1e-32 * u(-1.0, 1.0), u(0.5, 2.0)),
+            "subnormal quotient: num ~1e-42, den in [0.5, 2]": (1e-42 * u(-1.0, 1.0),
+                                                                u(0.5, 2.0)),
+            "0 / 6": (torch.zeros(n, dtype=dtype, device="cuda"),
+                      torch.full((n,), 6.0, dtype=dtype, device="cuda")),
+            "0 / ~1e-24": (torch.zeros(n, dtype=dtype, device="cuda"), tiny),
+        }
+        stream = torch.cuda.current_stream().cuda_stream
+        for name, (x, y) in classes.items():
+            outs, ms = [], []
+            for exact in (0, 1):
+                out = torch.empty_like(x)
+                call = lambda: fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), n,
+                                  exact, stream)
+                if call() != 0:
+                    raise RuntimeError("division probe launch failed")
+                ms.append(chip_smoke.cuda_ms(call, 10))
+                outs.append(out)
+            if not torch.equal(outs[0], outs[1]):
+                raise AssertionError(f"division {suffix} {name}: ieee_div is not "
+                                     "bitwise x / y")
+            per = [1e6 * t / (64 * n) for t in ms]
+            print(f"division {suffix} {name}: x / y {ms[0]:.4f} ms "
+                  f"({per[0]:.4f} ns each), ieee_div {ms[1]:.4f} ms "
+                  f"({per[1]:.4f} ns each), bitwise equal")
+    # where fp32 x / y is slow: |x| ~ 2^a, y ~ 2^b, time over the random class's
+    fn = so.division_probe_f32
+    m = 1 << 20
+    sign = torch.where(torch.rand(m, generator=gen, device="cuda") < 0.5, -1.0, 1.0)
+    mant = lambda: 1.0 + torch.rand(m, generator=gen, device="cuda")
+    out = torch.empty(m, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    time_of = lambda x, y: chip_smoke.cuda_ms(
+        lambda: fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), m, 0, stream), 5)
+    base = time_of(sign * mant(), mant())
+    bs = list(range(-120, 121, 12))
+    print("division f32 x / y time over random (rows |x| ~ 2^a, columns y ~ 2^b):")
+    print("   a \\ b " + " ".join(f"{b:>5d}" for b in bs))
+    for a in range(-144, 121, 12):
+        x = sign * mant() * 2.0 ** a
+        row = [time_of(x, mant() * 2.0 ** b) / base for b in bs]
+        print(f"  {a:>6d} " + " ".join(f"{r:5.2f}" for r in row))
+
+
+def k3a_division(steps):
+    n = chip_smoke.N_SW
+    dt, warmup, _ = chip_smoke.SW_PATH
+    grid = RectilinearGrid(size=(n, n, 1), x=(0, 2 * math.pi), y=(0, 2 * math.pi),
+                           topology=(PERIODIC, PERIODIC, FLAT),
+                           dtype=torch.float32, device="cuda")
+    model = ShallowWaterModel(grid, gravitational_acceleration=10.0,
+                              advection=WENO5())
+    state = model.initial_state(
+        uh=lambda x, y, z: 0.1 * torch.sin(x) * torch.cos(y), h=1.0)
+    for _ in range(warmup):
+        state = model.step(state, dt)
+    sol = state["solution"]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rand = lambda s, o=0.0: o + s * torch.randn(grid.total_shape, generator=gen,
+                                                device="cuda")
+    cases = {"path's fields": (sol["uh"], sol["vh"], sol["h"]),
+             "random fields": (rand(0.1), rand(0.1), rand(0.05, 1.0))}
+    name = "fused_shallow_water_tendencies"
+    variant = _build.BUILD_DIR / f"lib{name}-prec-div-false.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-prec-div=false", "-o",
+                    str(variant), str(_build.CSRC / f"{name}.cu")], check=True)
+    libs = {"as built": _build.load(name), "-prec-div=false": ctypes.CDLL(str(variant))}
+    load = _build.load
+    try:
+        for label, lib in libs.items():
+            _build.load = lambda n, lib=lib: lib if n == name else load(n)
+            for case, (uh, vh, h) in cases.items():
+                call = lambda: swm.KERNELS["core"](grid, model.advection,
+                                                   model.tracer_advection, model.g,
+                                                   uh, vh, h, [], None)
+                ms = chip_smoke.cuda_ms(call, 20)
+                print(f"K3a {n}^2 fp32 {label}, {case}: {ms:.4f} ms (CUDA events)")
+    finally:
+        _build.load = load
+
+
+#: (where in K4b's source a phase ends, the phase): a stamp goes after each
+K4B_STAMPS = (
+    ("  if (advect) copy_async_wait<1>(); else copy_async_wait<0>();\n  __syncthreads();\n",
+     "issuing the copies and the halo zeros, waiting for u, v, w"),
+    ("        mbern[s] = bernoulli(su, sv, at(i, j, k), sx, sy);\n      }\n    }\n"
+     "    __syncthreads();\n", "the momentum arrays"),
+    ("    store<T, ADV>(A, 1, p, sv[P.o], g);\n  }\n", "the momentum outputs"),
+    ("    __syncthreads();  // tracer f staged; the momentum arrays, or tracer f-1's "
+     "buffer and fluxes, free\n", "waiting for each tracer"),
+    ("tables, A.zm != 0, A.zb, zr, k);\n      }\n    }\n    __syncthreads();\n",
+     "the tracers' face fluxes"),
+    ("      store<T, ADV>(A, f, p, sc[at(I, J, K)], -div);\n    }\n", "the tracers' outputs"),
+)
+
+
+def k4b_phase_source():
+    """csrc/fused_hydrostatic_tendencies.cu with a clock64() stamp at the
+    end of each phase of K4B_STAMPS (thread 0 of each block adds the
+    cycles since the last stamp to phase_cycles[i])."""
+    src = (_build.CSRC / "fused_hydrostatic_tendencies.cu").read_text()
+    edits = [('#include "weno5_advection.cuh"\n',
+              "__device__ unsigned long long phase_cycles[8];\n"),
+             ("  const int tid = threadIdx.x;\n",
+              "  unsigned long long phase_t0 = clock64();\n"),
+             ('extern "C" {\n',
+              "int k4b_phase_cycles(void* host, int to_device) {\n"
+              "  return to_device ? (int)cudaMemcpyToSymbol(phase_cycles, host, 64)\n"
+              "                   : (int)cudaMemcpyFromSymbol(host, phase_cycles, 64);\n}\n")]
+    edits += [(anchor, "{ if (threadIdx.x == 0) { const unsigned long long now = clock64(); "
+                       f"atomicAdd(&phase_cycles[{i}], now - phase_t0); phase_t0 = now; }} }}\n")
+              for i, (anchor, _) in enumerate(K4B_STAMPS)]
+    for anchor, text in edits:
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"k4b-phases: the kernel changed at {anchor!r}")
+        src = src.replace(anchor, anchor + text)
+    return src
+
+
+def k4b_phases(steps):
+    name = "fused_hydrostatic_tendencies"
+    cu = _build.BUILD_DIR / f"{name}_phases.cu"
+    lib_path = _build.BUILD_DIR / f"lib{name}_phases.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu.write_text(k4b_phase_source())
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+                    str(lib_path), str(cu)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.k4b_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    model = chip_smoke.latlon_flagship()
+    dt = chip_smoke.HYDRO["dt"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = model.initial_state(
+        u=0.1 * torch.randn(model.grid.shape, generator=gen, device="cuda"),
+        b=lambda lam, phi, z: 2e-5 * (z + 3000.0) / 3000.0)
+    for _ in range(3):
+        state = model.step(state, dt)
+    load = _build.load
+    cycles = (ctypes.c_ulonglong * 8)()
+    try:
+        _build.load = lambda n: lib if n == name else load(n)
+        call = lambda: hm.KERNELS["tendencies"](model, state, (dt, False))
+        call()
+        torch.cuda.synchronize()
+        lib.k4b_phase_cycles(cycles, 1)  # zeros
+        ms = chip_smoke.cuda_ms(call, steps)
+        lib.k4b_phase_cycles(cycles, 0)
+    finally:
+        _build.load = load
+    total = sum(cycles)
+    print(f"K4b 1/4 deg advance on the path's fields, {steps + 1} calls with clock64 "
+          f"stamps (thread 0 of each block): {ms:.4f} ms a call")
+    for i, (_, label) in enumerate(K4B_STAMPS):
+        print(f"  {label}: {100 * cycles[i] / total:.1f}%")
+
+
+PARTS = {"hydrostatic": hydrostatic, "shallow-water": shallow_water,
+         "division": division, "k3a-division": k3a_division,
+         "k4b-phases": k4b_phases}
+
+
+def main(argv):
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this breakdown needs a GPU")
+    steps = 5
+    if "--steps" in argv:
+        i = argv.index("--steps")
+        steps = int(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
+    parts = argv or list(PARTS)
+    for p in parts:
+        if p not in PARTS:
+            raise SystemExit(f"unknown part {p!r}: choose from {list(PARTS)}")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    for p in parts:
+        if p == "division":
+            division()
+        else:
+            PARTS[p](steps)
+
+
 if __name__ == "__main__":
-    main(int(sys.argv[1]) if len(sys.argv) > 1 else 5)
+    main(sys.argv[1:])

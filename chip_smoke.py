@@ -24,9 +24,11 @@ the card, in phases; each prints one line or a few:
 4. K2 against its plain version, on the interior and w's top wall face:
    256³ fp32 WENO5/WENO5 with u, v, w, b and 64³ fp64 WENO5 momentum with
    two centred tracers, same bounds; times;
-5. K3a against its plain version: 16384² fp32 uh, vh, h (the shallow-water
-   headline) and 1024×768 fp64 with two tracers, bathymetry and bounded y,
-   same bounds; times at 16384²;
+5. K3a against its plain version, bit for bit (max|Δ| = 0, or the phase
+   raises): 16384² fp32 uh, vh, h (the shallow-water headline), 1000×777
+   fp32 (Bounded, Bounded) and 1024×768 fp64 (Periodic, Bounded), both
+   with two tracers and bathymetry (sizes that are not multiples of the
+   16×64 tile); times at 16384²;
 6. K3b and K3c against their plain versions: 256³ fp32 and 64³ fp64, same
    bounds; times at 256³;
 7. AB2 path: the ``bench.py`` configuration built through the public API,
@@ -44,8 +46,8 @@ the card, in phases; each prints one line or a few:
    steps with K3a and then with its plain version; exactly 3 K3a launches
    per step (no other), fields finite, Σh (summed in fp64) conserved to
    ≤ 1e-6 relative, the runs agree to ≤ 1e-4 of max|field|; K3a's and
-   its plain version's times on the path's fields, which go into K3a's
-   record;
+   its plain version's times on the path's fields (held bit for bit there
+   too), which go into K3a's record;
 10. general-projection path: the RK3 flagship at 256³ fp32 with
    ``FluxBC()`` at both z walls of w, 2 warm-up and 5 timed steps with the
    kernels and then the plain versions; exactly 3 K2, 3 K3b and 3 K3c
@@ -55,8 +57,10 @@ the card, in phases; each prints one line or a few:
 11. K4a and K4b against their plain versions: the ¼° flagship
    (1440×600×24 lat-lon, stretched z, weno_velocity momentum, WENO5 T, S,
    b, spherical Coriolis) in fp32 on random fields, K4b in both forms,
-   and 128×96×16 fp64 with flux-form WENO5 momentum, a β-plane and
-   bounded x and y; same bounds; times at ¼° (K4b in its advance form);
+   and 130×97×16 fp64 with flux-form WENO5 momentum, a β-plane and
+   bounded x and y (not multiples of the 16×8 tile); K4b bit for bit
+   (max|Δ| = 0, or the phase raises), K4a within the bounds above; times
+   at ¼° on random fields (K4b in its advance form);
 12. K5 against its plain version: ¼° fp32 with 30 substeps and 128×96
    fp64 bounded x and y with 8, on every with-halo point; same bounds;
    times at ¼°;
@@ -70,7 +74,9 @@ the card, in phases; each prints one line or a few:
    through the public API, 2 warm-up and 5 timed steps with K4a, K4b, K5
    and K6 and then with their plain versions; exactly 1 K4a, 1 K4b, 60 K5
    and 2 K6 launches per step (no other), fields finite, |Σ η·Az| ≤
-   1e-5·Σ|η|·Az (fp64 sums), the runs agree to ≤ 1e-6 of max|field|.
+   1e-5·Σ|η|·Az (fp64 sums), the runs agree to ≤ 1e-6 of max|field|;
+   K4b's and its plain version's times on the path's fields after the
+   kernel run (K4b held bit for bit there), which go into K4b's record.
 
 Each kernel's record carries its bound: the larger of its compulsory
 bytes (each input read once, each output written once, from this run's
@@ -155,15 +161,16 @@ REPLACES = {K1: "clima_oceananigans_jl_tpu/ops/fused_step.py:129",
             K5: "clima_oceananigans_jl_tpu/ops/fused_barotropic.py:102",
             K6: "clima_oceananigans_jl_tpu/ops/fused_fill.py:139"}
 #: operations per point that each kernel's function needs, each face flux
-#: counted once, though the kernels compute it in both cells beside the
-#: face (a WENO5 reconstruction ~60 with its divisions, a transport ~64
-#: with the velocity and metric products): K1/K2 four fields × three
-#: transports (768) plus the divergences (~32) and K1's −∂pHY′ and AB2
-#: epilogue (~20); K3a four transports and the pressure terms; K4b two
-#: weno_velocity vorticity reconstructions and Coriolis (~400), three
-#: tracers × three fluxes, the z one two-sided with the tables (~850), and
-#: the divergences and AB2 epilogue (~50); K5 ~32 per with-halo point per
-#: substep; K6 at most 2 (2b − x) per written halo point
+#: counted once, as K3a and K4b compute it (K1 and K2 compute it in both
+#: cells beside the face) (a WENO5 reconstruction ~60 with its divisions,
+#: a transport ~64 with the velocity and metric products): K1/K2 four
+#: fields × three transports (768) plus the divergences (~32) and K1's
+#: −∂pHY′ and AB2 epilogue (~20); K3a four transports and the pressure
+#: terms; K4b two weno_velocity vorticity reconstructions and Coriolis
+#: (~400), three tracers × three fluxes, the z one two-sided with the
+#: tables (~850), and the divergences and AB2 epilogue (~50); K5 ~32 per
+#: with-halo point per substep; K6 at most 2 (2b − x) per written halo
+#: point
 FLOPS = {K1: 820, K2: 800, K3A: 300, K3B: 12, K3C: 9, K4A: 25, K4B: 1300,
          K5: 32, K6: 2}
 HBM_BYTES_PER_S = 3.35e12
@@ -239,10 +246,11 @@ def phase_build():
     print(f"build: all {len(libs)} at once in {time.perf_counter() - t0:.1f} s")
 
 
-def hold(label, got, ref, dtype, interior=None):
-    """max|Δ| of each pair of dicts of tensors against its bound; raises
-    on the first one over it. Returns the largest max|Δ|."""
-    tol = TOL[dtype]
+def hold(label, got, ref, dtype, interior=None, exact=False):
+    """max|Δ| of each pair of dicts of tensors against its bound (with
+    ``exact``, bit for bit); raises on the first one over it. Returns the
+    largest max|Δ|."""
+    tol = 0.0 if exact else TOL[dtype]
     worst, rel, bitwise = 0.0, 0.0, True
     for kind in got:
         for name, r in ref[kind].items():
@@ -251,14 +259,15 @@ def hold(label, got, ref, dtype, interior=None):
                 g, r = interior(g), interior(r)
             err = float((g - r).abs().max())
             scale = float(r.abs().max())
-            if not err <= tol * scale:
+            if not err <= tol * scale or (exact and not torch.equal(g, r)):
                 raise AssertionError(f"{label} {kind}[{name}]: max|diff| "
-                                     f"{err:.3e} > {tol * scale:.3e}")
+                                     f"{err:.3e} > {tol * scale:.3e}"
+                                     + (" (held bit for bit)" if exact else ""))
             worst = max(worst, err)
             rel = max(rel, err / scale if scale else 0.0)
             bitwise &= torch.equal(g, r)
     print(f"{label}: max|diff| {worst:.3e}, {rel:.3e} of max|ref| (bound "
-          f"{tol:g}), bitwise={bitwise}")
+          f"{'0, bit for bit' if exact else f'{tol:g}'}), bitwise={bitwise}")
     return worst
 
 
@@ -382,11 +391,12 @@ def phase_k3a():
     (uh, vh, h: the shallow-water headline's core)."""
     worst, ms = 0.0, None
     for n, dtype, topo, nt, bath in (
-            ((N_SW, N_SW), torch.float32, PERIODIC, 0, False),
-            ((1024, 768), torch.float64, BOUNDED, 2, True)):
+            ((N_SW, N_SW), torch.float32, (PERIODIC, PERIODIC), 0, False),
+            ((1000, 777), torch.float32, (BOUNDED, BOUNDED), 2, True),
+            ((1024, 768), torch.float64, (PERIODIC, BOUNDED), 2, True)):
         grid = RectilinearGrid(size=n + (1,), x=(0, 2 * math.pi),
                                y=(0, 2 * math.pi),
-                               topology=(PERIODIC, topo, FLAT), halo=(3, 3, 0),
+                               topology=topo + (FLAT,), halo=(3, 3, 0),
                                dtype=dtype, device=DEVICE)
         gen = torch.Generator(device=DEVICE).manual_seed(4)
         rand = lambda s, o=0.0: o + s * torch.randn(
@@ -394,13 +404,15 @@ def phase_k3a():
         args = (grid, WENO5(), WENO5(), 10.0, rand(0.1), rand(0.1),
                 rand(0.05, 1.0), [rand(1.0) for _ in range(nt)],
                 rand(0.05) if bath else None)
+        bounded = "".join(a for a, t in zip("xy", topo) if t is BOUNDED)
         label = (f"K3a {n[0]}x{n[1]} {str(dtype)[6:]}"
-                 + (f", {nt} tracers, bathymetry, bounded y" if nt else ""))
+                 + (f", {nt} tracers, bathymetry, bounded {' and '.join(bounded)}"
+                    if nt else ""))
         names = ["uh", "vh", "h"] + [f"c{i}" for i in range(nt)]
         got = dict(zip(names, fused_shallow_water_tendencies(*args)))
         ref = dict(zip(names, fused_shallow_water_tendencies_reference(*args)))
         worst = max(worst, hold(label, {"G": got}, {"G": ref}, dtype,
-                                grid.interior))
+                                grid.interior, exact=True))
         del got, ref
         if ms is None:
             ms = cuda_ms(lambda: fused_shallow_water_tendencies(*args), 20)
@@ -603,6 +615,11 @@ def phase_shallow_water():
     sol = state["solution"]
     args = (model.grid, model.advection, model.tracer_advection, model.g,
             sol["uh"], sol["vh"], sol["h"])
+    names = ("uh", "vh", "h")
+    hold(f"K3a {N_SW}x{N_SW} float32 on the path's fields",
+         {"G": dict(zip(names, fused_shallow_water_tendencies(*args)))},
+         {"G": dict(zip(names, fused_shallow_water_tendencies_reference(*args)))},
+         torch.float32, model.grid.interior, exact=True)
     ms = cuda_ms(lambda: fused_shallow_water_tendencies(*args), 20)
     plain_ms = cuda_ms(lambda: fused_shallow_water_tendencies_reference(*args), 3)
     print(f"K3a {N_SW}x{N_SW} float32 on the path's fields time: kernel "
@@ -639,12 +656,12 @@ def latlon_flagship(dtype=torch.float32):
         coriolis=HydrostaticSphericalCoriolis(), buoyancy=BuoyancyTracer())
 
 
-def bounded_beta_model(dtype=torch.float64):
-    """128×96×16 (Bounded, Bounded, Bounded) with stretched z, flux-form
-    WENO5 momentum, a β-plane and 8 barotropic substeps."""
-    k = np.arange(17)
-    grid = RectilinearGrid(size=(128, 96, 16), x=(0, 1.28e6), y=(0, 9.6e5),
-                           z=-1000.0 * (1.0 - k / 16) ** 1.5,
+def bounded_beta_model(dtype=torch.float64, size=(128, 96, 16)):
+    """``size`` (Bounded, Bounded, Bounded) with stretched z, flux-form
+    WENO5 momentum, a β-plane and 8 barotropic substeps (1e4 m cells)."""
+    k = np.arange(size[2] + 1)
+    grid = RectilinearGrid(size=size, x=(0, 1e4 * size[0]), y=(0, 1e4 * size[1]),
+                           z=-1000.0 * (1.0 - k / size[2]) ** 1.5,
                            topology=(BOUNDED, BOUNDED, BOUNDED), dtype=dtype,
                            device=DEVICE)
     return HydrostaticFreeSurfaceModel(
@@ -671,10 +688,11 @@ def phase_k4():
     (max_abs_err, ms, plain_ms, bound_ms, bound_by) at ¼° fp32, K4b in
     its advance form, the main path's."""
     out = {}
+    tile_edges = lambda dtype: bounded_beta_model(dtype, (130, 97, 16))
     for label, build, dtype in (("1/4 deg flagship fp32", latlon_flagship,
                                  torch.float32),
-                                ("128x96x16 fp64 flux-form, beta-plane, bounded "
-                                 "x and y", bounded_beta_model, torch.float64)):
+                                ("130x97x16 fp64 flux-form, beta-plane, bounded "
+                                 "x and y", tile_edges, torch.float64)):
         model = build(dtype)
         state = hydro_random_state(model, 11)
         g, sol = model.grid, state["solution"]
@@ -692,7 +710,7 @@ def phase_k4():
                          {"psi'": ref[0], "G": ref[1]}))
             err_b = max(err_b, hold(f"K4b {label} "
                                     f"{'tendencies' if adv is None else 'advance'}",
-                                    got, ref, dtype, g.interior))
+                                    got, ref, dtype, g.interior, exact=True))
         del got, ref
         if dtype is torch.float32:
             points = g.Nx * g.Ny * g.Nz
@@ -854,7 +872,8 @@ def drive_hydrostatic(plain):
 
 def phase_hydrostatic():
     """The ¼° hydrostatic path with the kernels, checked, then with their
-    plain versions; returns the kernel run's launch counts."""
+    plain versions; returns the kernel run's launch counts and K4b's and
+    its plain version's ms (advance form) on the path's fields."""
     model, state, per_step, launches = drive_hydrostatic(plain=False)
     check_finite("hydrostatic", model, state, ("w", "pHY", "eta"))
     g = model.grid
@@ -872,6 +891,20 @@ def phase_hydrostatic():
           f"{HYDRO['steps']} steps: {per_step * 1e3:.3f} ms/step, "
           f"{points / per_step:.6e} grid points/s, launches {used} in {steps} "
           f"steps, |sum(eta Az)|/sum(|eta| Az) {abs(net) / gross:.3e}")
+    # K4b on the path's own fields (T = S = 0, b linear in z), where the
+    # random fields of phase 11 are not
+    adv = (HYDRO["dt"], False)
+    got = fused_hydrostatic_tendencies(model, state, adv)
+    ref = fused_hydrostatic_tendencies_reference(model, state, adv)
+    hold("K4b 1/4 deg fp32 advance on the path's fields",
+         {"psi'": got[0], "G": got[1]}, {"psi'": ref[0], "G": ref[1]},
+         torch.float32, g.interior, exact=True)
+    del got, ref
+    ms = cuda_ms(lambda: fused_hydrostatic_tendencies(model, state, adv), 10)
+    plain_ms = cuda_ms(lambda: fused_hydrostatic_tendencies_reference(
+        model, state, adv), 2)
+    print(f"K4b 1/4 deg fp32 advance on the path's fields time: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events)")
     kernel_u = {k: g.interior(a).clone() for k, a in state["solution"].items()}
     kernel_eta = cut(state["eta"]).clone()
     del state
@@ -888,7 +921,7 @@ def phase_hydrostatic():
           f"agree to {max(worst, eta_rel):.3e} of max|field| (eta included)")
     del model, state, kernel_u
     torch.cuda.empty_cache()
-    return launches
+    return launches, ms, plain_ms
 
 
 def main():
@@ -906,8 +939,10 @@ def main():
     measured[K3A] = (measured[K3A][0], ms, plain_ms, *measured[K3A][3:])
     general = phase_path("general projection")
     launches.update({K3B: general[K3B], K3C: general[K3C]})
-    hydro = phase_hydrostatic()
+    hydro, ms, plain_ms = phase_hydrostatic()
     launches.update({k: hydro[k] for k in (K4A, K4B, K5, K6)})
+    # K4b's times on the path's fields
+    measured[K4B] = (measured[K4B][0], ms, plain_ms, *measured[K4B][3:])
     records = []
     for name, (err, ms, plain_ms, bound_ms, bound_by) in measured.items():
         records.append({

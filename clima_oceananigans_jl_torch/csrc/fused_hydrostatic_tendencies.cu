@@ -7,8 +7,8 @@
 //
 // optionally with the AB2 advance psi' = psi + dt (c1 G - c2 G_prev), on
 // lat-lon or rectilinear grids whose metrics are constant along x (rows over
-// with-halo y and z, ops/metric_rows.py), a stretched z axis included. One
-// thread per with-halo point: interior points compute, halo points write 0.
+// with-halo y and z, ops/metric_rows.py), a stretched z axis included. The
+// outputs are with-halo: the interior computed, the halos zero.
 //
 // Replaces the TPU kernel clima_oceananigans_jl_tpu/ops/fused_hydrostatic.py::
 // fused_hydrostatic_tendencies (its tendency core hydrostatic_advective_core,
@@ -28,8 +28,11 @@
 //   - coriolis/coriolis.py: f- and beta-plane (rows of f at U_LOC, V_LOC)
 //     and HydrostaticSphericalCoriolis (row of f at (F, F)), energy or
 //     enstrophy.
-// IEEE division throughout (no approximate reciprocal) and --fmad=false, so
-// the compiler forms no FMA that eager PyTorch does not.
+// Every division is ieee_div or ieee_div_by (weno5_advection.cuh): IEEE's
+// own quotient, bit for bit, kept off the hardware's slow path, which the
+// 1/4 degree path's zero tracers (T = S = 0) and z-only buoyancy would
+// otherwise take at most of their WENO5 weights and candidate stencils. --fmad=false, so the compiler forms no FMA that
+// eager PyTorch does not.
 //
 // What bounds it on an H100: at the 1/4 degree flagship (1446 x 606 x 30 with
 // halos, fp32, u, v, T, S, b) in advance mode it reads 7 with-halo fields
@@ -38,14 +41,46 @@
 // about 1,300 flops a point (two WENO5 vorticity reconstructions with
 // velocity smoothness, three WENO5 fluxes for each of three tracers, the z
 // one two-sided with the tables, the divergences and the epilogue), about
-// 27 GFLOP: 0.40 ms at the 67 TFLOP/s fp32 peak, so memory bounds it. The
-// design is the simple one of K1-K3: neighbours read from global memory
-// through L1/L2, each face flux computed by both cells beside it (about
-// 2,100 flops a point as executed), nothing staged in shared memory; that
-// is later work. On smooth fields the WENO5 weights'
-// denominator falls to ~1e-24 and IEEE fp32 division takes its slow path.
+// 27 GFLOP: 0.40 ms at the 67 TFLOP/s fp32 peak, so memory bounds it.
+// In practice the kernel is bound by latency: one 512-thread block an SM
+// (16 warps), long dependent chains of WENO5 arithmetic and divisions, and
+// the block's first copies, which nothing overlaps (PERF.md has its times
+// and the share of each phase).
+// Tensor cores (wgmma) have no part: the stencils hold no matrix product.
+//
+// The design. A block of 512 threads owns a 16 x 8 tile of interior (x, y)
+// columns and a chunk of KZ interior levels (the whole column, 24 levels,
+// at 1/4 degree in fp32; the host picks KZ so that shared memory fits):
+//   1. It copies u and v over the tile, its 3-cell x/y halo and 3 levels
+//      either side, and w over the tile plus one column below in x and y,
+//      into shared memory with cp.async (tiles.cuh); they stay
+//      resident. The first tracer's copy is issued at once as well.
+//   2. Momentum: zeta, iyf(u) and ixf(v) once per (F, F) point of the tile
+//      and its 2-point halo (the vorticity streams of u along y and of v
+//      along x), and the Bernoulli head once per (C, C) point, all levels
+//      at once, into shared memory; then G_u and G_v per point. (Flux-form
+//      momentum reads the staged fields and computes each face in both
+//      cells beside it.)
+//   3. Tracers, one at a time through a double buffer: while tracer f's
+//      face fluxes are computed, tracer f+1's copy is in flight. Each x, y
+//      and z face flux is computed once into shared memory (cell I's fxR
+//      is cell I+1's fxL, the same expression on the same operands; level
+//      k's fzR is level k+1's fzL) and the divergence differences them.
+//      The z fluxes sit in shared memory rather than in a register carried
+//      up the column, so that the 32 lanes of a warp take 32 consecutive
+//      levels and every global load and store of a point coalesces.
+//   4. Blocks of the first and last level chunk write the z-halo zeros of
+//      their columns; blocks on the domain's x or y edge write the zeros of
+//      the halo columns next to their tile: every halo point once, in the
+//      same launch.
+// The kernel is a template on the momentum scheme, the Coriolis form, the
+// z tables and the advance (-1: read at run time); the 1/4 degree flagship
+// has its own instantiations with no dead branches, every other
+// configuration takes the run-time one. __launch_bounds__(512, 1) keeps a
+// thread at 128 registers or fewer, so 16 warps fit on an SM.
 #include <cuda_runtime.h>
 
+#include "tiles.cuh"
 #include "weno5_advection.cuh"
 
 // rows of ops/metric_rows.py: Y_ROWS and Z_ROWS (then the 24 table rows)
@@ -72,17 +107,28 @@ struct HydroArgs {
   int xm, ym, zm;             // near-wall order reduction on that axis
   Bounds xb, yb, zb;
   T eps_m, eps_t, c1, c2, dt;
+  int kz, nty;                // levels per chunk, tiles along y
+  FastDiv kzd, kz1d, h2d;     // division by kz, kz + 1 and 2 hz
 };
 
-// Offsets and rows around one point.
-template <typename T>
-struct Here {
-  const HydroArgs<T>* A;
-  int64_t o, sx, sy;
-  int I, J, K, Y, Z;
-  __device__ __forceinline__ const T* yr(int r) const { return A->ys + r * Y; }
-  __device__ __forceinline__ const T* zr(int r) const { return A->zs + r * Z; }
-};
+// the tile and its shared-memory boxes, all with z (levels) fastest
+constexpr int HT_X = 16, HT_Y = 8, HT_THREADS = 512, HT_R = 3;
+constexpr int HT_COLS = HT_X * HT_Y;
+constexpr int HT_BOX = (HT_X + 2 * HT_R) * (HT_Y + 2 * HT_R);  // u, v, tracers: 3-cell halo
+constexpr int HT_WBOX = (HT_X + 1) * (HT_Y + 1);              // w, Bernoulli: 1 below
+constexpr int HT_FFBOX = (HT_X + 5) * (HT_Y + 5);             // zeta streams: 2 below, 3 above
+constexpr int HT_XF = (HT_X + 1) * HT_Y, HT_YF = HT_X * (HT_Y + 1);
+
+// elements of T in shared memory for a chunk of kz levels: u, v, w, tracer
+// buffer 0, then one region used first by the momentum arrays (zeta, iyf(u),
+// ixf(v), Bernoulli) and then by tracer buffer 1 and the face fluxes
+static long hydro_smem_elems(int kz) {
+  const long zs = kz + 2 * HT_R;
+  const long uv = 2L * HT_BOX * zs, w = (long)HT_WBOX * (kz + 1), tb = (long)HT_BOX * zs;
+  const long mom = (3L * HT_FFBOX + HT_WBOX) * kz;
+  const long tra = tb + (long)(HT_XF + HT_YF) * kz + (long)HT_COLS * (kz + 1);
+  return uv + w + tb + (mom > tra ? mom : tra);
+}
 
 // ---- WENO5 pieces beyond weno5_advection.cuh --------------------------------
 
@@ -110,32 +156,43 @@ __device__ __forceinline__ T combine(T p0, T p1, T p2, T b0, T b1, T b2, T d0,
   const T e0 = b0 + eps, e1 = b1 + eps, e2 = b2 + eps;
   const T t0 = e0 * e0, t1 = e1 * e1, t2 = e2 * e2;
   const T g0 = d0 * (t1 * t2), g1 = d1 * (t0 * t2), g2 = d2 * (t0 * t1);
-  return (g0 * p0 + g1 * p1 + g2 * p2) / (g0 + g1 + g2);
+  return ieee_div(g0 * p0 + g1 * p1 + g2 * p2, g0 + g1 + g2);
 }
 
 template <typename T>
 __device__ __forceinline__ T weno_stream_smooth(const T* a, const T* s, const T* q, T eps) {
   const T d10 = a[1] - a[0], d11 = a[2] - a[1], d12 = a[3] - a[2], d13 = a[4] - a[3];
-  const T p0 = a[2] + (T(5.0) * d11 - T(2.0) * d10) / T(6.0);
-  const T p1 = a[2] + (T(2.0) * d12 + d11) / T(6.0);
-  const T p2 = a[2] + (T(4.0) * d12 - d13) / T(6.0);
+  const T p0 = a[2] + ieee_div_by(T(5.0) * d11 - T(2.0) * d10, T(6.0));
+  const T p1 = a[2] + ieee_div_by(T(2.0) * d12 + d11, T(6.0));
+  const T p2 = a[2] + ieee_div_by(T(4.0) * d12 - d13, T(6.0));
   T b[3];
+#pragma unroll
   for (int k = 0; k < 3; ++k)
-    b[k] = (smoothness(s[0], s[1], s[2], s[3], s[4], k)
-            + smoothness(q[0], q[1], q[2], q[3], q[4], k)) / T(2.0);
+    b[k] = ieee_div_by(smoothness(s[0], s[1], s[2], s[3], s[4], k)
+                       + smoothness(q[0], q[1], q[2], q[3], q[4], k), T(2.0));
   return combine(p0, p1, p2, b[0], b[1], b[2], T(0.1), T(0.6), T(0.3), eps);
 }
 
-// WENO5.table_reconstruct at a z face (to faces): side 0 left, 1 right; o is
-// the offset of the cell above the face, K the face's with-halo index.
+// the z rows of one chunk's reconstruction: row r at with-halo level K
 template <typename T>
-__device__ __forceinline__ T table_side(const T* __restrict__ c, int64_t o,
-                                        const Here<T>& H, int K, int side, T eps) {
+struct ZRows {
+  const T* zs;
+  int Z;
+  __device__ __forceinline__ T operator()(int r, int K) const { return zs[r * Z + K]; }
+};
+
+// WENO5.table_reconstruct at a z face (to faces): side 0 left, 1 right; o is
+// the offset of the cell above the face (z stride 1), K the face's with-halo
+// index.
+template <typename T>
+__device__ __forceinline__ T table_side(const T* __restrict__ c, int o, ZRows<T> zr,
+                                        int K, int side, T eps) {
   T p[3], b[3], d[3];
+#pragma unroll
   for (int r = 0; r < 3; ++r) {
     const int base = TABLES + side * 12 + r * 4;
-    d[r] = H.zr(base)[K];
-    const T c0 = H.zr(base + 1)[K], c1 = H.zr(base + 2)[K], c2 = H.zr(base + 3)[K];
+    d[r] = zr(base, K);
+    const T c0 = zr(base + 1, K), c1 = zr(base + 2, K), c2 = zr(base + 3, K);
     const int off = side == 0 ? r - 3 : -r;
     const T w0 = c[o + off], w1 = c[o + off + 1], w2 = c[o + off + 2];
     p[r] = c0 * w0 + c1 * w1 + c2 * w2;
@@ -148,71 +205,87 @@ __device__ __forceinline__ T table_side(const T* __restrict__ c, int64_t o,
   return combine(p[0], p[1], p[2], b[0], b[1], b[2], d[0], d[1], d[2], eps);
 }
 
-// transport() along z at face K (offset o of the cell above it): centred,
-// select-first WENO5, or on a stretched axis the table form.
+// transport() along z at face K (offset o of the cell above it, z stride 1):
+// centred, select-first WENO5, or on a stretched axis the table form.
 template <typename T>
-__device__ __forceinline__ T z_transport(const T* __restrict__ c, int64_t o, T vel,
-                                         bool weno, T eps, const Here<T>& H, int K) {
-  const HydroArgs<T>& A = *H.A;
-  const bool masked = weno && A.zm;
-  if (!(weno && A.tables))
-    return transport_axis(c, o, (int64_t)1, vel, weno, eps, masked, A.zb, K);
-  T L = table_side(c, o, H, K, 0, eps);
-  T R = table_side(c, o, H, K, 1, eps);
+__device__ __forceinline__ T z_transport(const T* __restrict__ c, int o, T vel,
+                                         bool weno, T eps, bool tables, bool zmask,
+                                         const Bounds zb, ZRows<T> zr, int K) {
+  const bool masked = weno && zmask;
+  if (!(weno && tables))
+    return transport_axis(c, (int64_t)o, (int64_t)1, vel, weno, eps, masked, zb, K);
+  T L = table_side(c, o, zr, K, 0, eps);
+  T R = table_side(c, o, zr, K, 1, eps);
   if (masked) {
     const T lo = T(0.5) * (c[o] + c[o - 1]);
-    if (!(K >= A.zb.lo_l && K <= A.zb.hi_l)) L = lo;
-    if (!(K >= A.zb.lo_r && K <= A.zb.hi_r)) R = lo;
+    if (!(K >= zb.lo_l && K <= zb.hi_l)) L = lo;
+    if (!(K >= zb.lo_r && K <= zb.hi_r)) R = lo;
   }
   const T a = fabs(vel);
   return T(0.5) * ((vel + a) * L + (vel - a) * R);
 }
 
-// ---- vector-invariant momentum ----------------------------------------------
+// ---- one output point --------------------------------------------------------
 
-// zeta3 at the (F, F) point of offset q, y index j
+// The point (I, J, K) in the staged boxes: o in the u/v/tracer box (strides
+// sx, sy, 1), ow in the w box (strides wsx, wsy, 1); rows by with-halo y
+// (stride Y) and z (stride Z).
 template <typename T>
-__device__ __forceinline__ T zeta(const Here<T>& H, int64_t q, int j) {
-  const T* u = H.A->psi[0];
-  const T* v = H.A->psi[1];
-  const T* dy_f = H.yr(DY_F);
-  const T* dx_fc = H.yr(DX_FC);
-  return ((dy_f[j] * v[q] - dy_f[j] * v[q - H.sx])
-          - (dx_fc[j] * u[q] - dx_fc[j - 1] * u[q - H.sy])) / H.yr(AZ_FF)[j];
-}
+struct Pt {
+  const HydroArgs<T>* A;
+  const T* u;
+  const T* v;
+  const T* w;
+  int o, sx, sy, ow, wsx, wsy;
+  int I, J, K, Y, Z;
+  __device__ __forceinline__ const T* yr(int r) const { return A->ys + r * Y; }
+  __device__ __forceinline__ const T* zr(int r) const { return A->zs + r * Z; }
+};
 
-// Bernoulli head K at the (C, C) point of offset q
+// Bernoulli head K at the (C, C) point of staged offset q
 template <typename T>
-__device__ __forceinline__ T bernoulli(const Here<T>& H, int64_t q) {
-  const T* u = H.A->psi[0];
-  const T* v = H.A->psi[1];
+__device__ __forceinline__ T bernoulli(const T* u, const T* v, int q, int sx, int sy) {
   const T half = T(0.5);
-  return half * (half * (u[q + H.sx] * u[q + H.sx] + u[q] * u[q])
-                 + half * (v[q + H.sy] * v[q + H.sy] + v[q] * v[q]));
+  return half * (half * (u[q + sx] * u[q + sx] + u[q] * u[q])
+                 + half * (v[q + sy] * v[q + sy] + v[q] * v[q]));
 }
 
-// select-first WENO5 of zeta onto a centre along an axis of stride s (in
-// cells), the stream from the face pair nearest the centre: vel * rec
+// the shared-memory momentum arrays of a chunk: zeta, iyf(u), ixf(v) at the
+// (F, F) points from (I0-2, J0-2), the Bernoulli head at the (C, C) points
+// from (I0-1, J0-1); level index k - K0 fastest
 template <typename T>
-__device__ __forceinline__ T weno_vorticity(const Here<T>& H, int64_t o, int64_t s,
-                                            bool along_y, T vel) {
-  const HydroArgs<T>& A = *H.A;
-  const T* u = A.psi[0];
-  const T* v = A.psi[1];
+struct MomArrays {
+  const T* zeta;
+  const T* su;
+  const T* sv;
+  const T* bern;
+  int I0, J0, K0, kz;
+  __device__ __forceinline__ int ff(int i, int j, int k) const {
+    return ((i - I0 + 2) * (HT_Y + 5) + (j - J0 + 2)) * kz + (k - K0);
+  }
+  __device__ __forceinline__ int cc(int i, int j, int k) const {
+    return ((i - I0 + 1) * (HT_Y + 1) + (j - J0 + 1)) * kz + (k - K0);
+  }
+};
+
+// select-first WENO5 of zeta onto a centre along y (u) or x (v), the stream
+// from the face pair nearest the centre: vel * rec
+template <typename T>
+__device__ __forceinline__ T weno_vorticity(const Pt<T>& P, const MomArrays<T>& M,
+                                            bool along_y, T vel, int mom) {
   const bool sel = vel >= T(0);
-  // stream cell n = -2..3 relative to the centre's lower face (offset o)
   T z[5], su[5], sv[5];
+#pragma unroll
   for (int m = 0; m < 5; ++m) {
     const int n = sel ? m - 2 : 3 - m;
-    const int64_t q = o + n * s;
-    const int j = along_y ? H.J + n : H.J;
-    z[m] = zeta(H, q, j);
-    if (A.mom == VI_WENO_VELOCITY) {
-      su[m] = T(0.5) * (u[q] + u[q - H.sy]);   // iyf(u) at (F, F)
-      sv[m] = T(0.5) * (v[q] + v[q - H.sx]);   // ixf(v) at (F, F)
+    const int q = along_y ? M.ff(P.I, P.J + n, P.K) : M.ff(P.I + n, P.J, P.K);
+    z[m] = M.zeta[q];
+    if (mom == VI_WENO_VELOCITY) {
+      su[m] = M.su[q];
+      sv[m] = M.sv[q];
     }
   }
-  const T rec = A.mom == VI_WENO_VELOCITY
+  const T rec = mom == VI_WENO_VELOCITY
                     ? weno_stream_smooth(z, su, sv, T(1e-6))
                     : weno_stream(z[0], z[1], z[2], z[3], z[4], T(1e-6));
   return vel * rec;
@@ -220,257 +293,438 @@ __device__ __forceinline__ T weno_vorticity(const Here<T>& H, int64_t o, int64_t
 
 // U.grad(u) at the u point
 template <typename T>
-__device__ T vi_u(const Here<T>& H) {
-  const HydroArgs<T>& A = *H.A;
-  const T* u = A.psi[0];
-  const T* v = A.psi[1];
-  const T* w = A.w;
-  const int64_t o = H.o, sx = H.sx, sy = H.sy;
-  const int J = H.J, K = H.K;
+__device__ __forceinline__ T vi_u(const Pt<T>& P, const MomArrays<T>& M, int mom) {
+  const T* u = P.u;
+  const T* v = P.v;
+  const T* w = P.w;
+  const int o = P.o, sx = P.sx, sy = P.sy, J = P.J, K = P.K;
   const T half = T(0.5);
-  const T* dx_cf = H.yr(DX_CF);
-  const T dxu = H.yr(DX_FC)[J];
-  auto dxv = [&](int64_t q, int j) { return dx_cf[j] * v[q]; };
+  const T* dx_cf = P.yr(DX_CF);
+  const T dxu = P.yr(DX_FC)[J];
+  auto dxv = [&](int q, int j) { return dx_cf[j] * v[q]; };
   // iyc(dx_v) at the (C, C) point of offset q (y index J)
-  auto iyc_dxv = [&](int64_t q) { return half * (dxv(q + sy, J + 1) + dxv(q, J)); };
+  auto iyc_dxv = [&](int q) { return half * (dxv(q + sy, J + 1) + dxv(q, J)); };
+  auto zeta = [&](int i, int j) { return M.zeta[M.ff(i, j, K)]; };
   T vort;
-  if (A.mom == VI_ENERGY) {
-    auto qf = [&](int64_t q, int j) { return zeta(H, q, j) * (half * (dxv(q, j) + dxv(q - sx, j))); };
-    vort = -(half * (qf(o + sy, J + 1) + qf(o, J))) / dxu;
-  } else if (A.mom == VI_ENSTROPHY) {
-    const T iyc_zeta = half * (zeta(H, o + sy, J + 1) + zeta(H, o, J));
-    vort = (-iyc_zeta * (half * (iyc_dxv(o) + iyc_dxv(o - sx)))) / dxu;
+  if (mom == VI_ENERGY) {
+    auto qf = [&](int q, int j) { return zeta(P.I, j) * (half * (dxv(q, j) + dxv(q - sx, j))); };
+    vort = ieee_div(-(half * (qf(o + sy, J + 1) + qf(o, J))), dxu);
+  } else if (mom == VI_ENSTROPHY) {
+    const T iyc_zeta = half * (zeta(P.I, J + 1) + zeta(P.I, J));
+    vort = ieee_div(-iyc_zeta * (half * (iyc_dxv(o) + iyc_dxv(o - sx))), dxu);
   } else {
-    const T v_hat = (half * (iyc_dxv(o) + iyc_dxv(o - sx))) / dxu;
-    vort = -weno_vorticity(H, o, sy, true, v_hat);
+    const T v_hat = ieee_div(half * (iyc_dxv(o) + iyc_dxv(o - sx)), dxu);
+    vort = -weno_vorticity(P, M, true, v_hat, mom);
   }
   // vertical advection izc(ixf(Az w) dzf(u) / dz_f) / Az
-  const T az = H.yr(AZ_CC)[J];
-  const T* dz_f = H.zr(DZ_F);
-  auto qz = [&](int64_t q, int k) {
-    return (half * (az * w[q] + az * w[q - sx])) * ((u[q] - u[q - 1]) / dz_f[k]);
+  const T az = P.yr(AZ_CC)[J];
+  const T* dz_f = P.zr(DZ_F);
+  auto qz = [&](int q, int qw, int k) {
+    return (half * (az * w[qw] + az * w[qw - P.wsx])) * ieee_div(u[q] - u[q - 1], dz_f[k]);
   };
-  const T vadv = (half * (qz(o + 1, K + 1) + qz(o, K))) / H.yr(AZ_FC)[J];
-  const T bern = (bernoulli(H, o) - bernoulli(H, o - sx)) / dxu;
+  const T vadv = ieee_div(half * (qz(o + 1, P.ow + 1, K + 1) + qz(o, P.ow, K)), P.yr(AZ_FC)[J]);
+  const T bern = ieee_div(M.bern[M.cc(P.I, J, K)] - M.bern[M.cc(P.I - 1, J, K)], dxu);
   return vort + vadv + bern;
 }
 
 // U.grad(v) at the v point
 template <typename T>
-__device__ T vi_v(const Here<T>& H) {
-  const HydroArgs<T>& A = *H.A;
-  const T* u = A.psi[0];
-  const T* v = A.psi[1];
-  const T* w = A.w;
-  const int64_t o = H.o, sx = H.sx, sy = H.sy;
-  const int J = H.J, K = H.K;
+__device__ __forceinline__ T vi_v(const Pt<T>& P, const MomArrays<T>& M, int mom) {
+  const T* u = P.u;
+  const T* v = P.v;
+  const T* w = P.w;
+  const int o = P.o, sx = P.sx, sy = P.sy, J = P.J, K = P.K;
   const T half = T(0.5);
-  const T* dy_c = H.yr(DY_C);
-  const T dyv = H.yr(DY_F)[J];
-  auto dyu = [&](int64_t q, int j) { return dy_c[j] * u[q]; };
+  const T* dy_c = P.yr(DY_C);
+  const T dyv = P.yr(DY_F)[J];
+  auto dyu = [&](int q, int j) { return dy_c[j] * u[q]; };
   // ixc(dy_u) at the (C, C) point of offset q, y index j
-  auto ixc_dyu = [&](int64_t q, int j) { return half * (dyu(q + sx, j) + dyu(q, j)); };
+  auto ixc_dyu = [&](int q, int j) { return half * (dyu(q + sx, j) + dyu(q, j)); };
+  auto zeta = [&](int i) { return M.zeta[M.ff(i, J, K)]; };
   T vort;
-  if (A.mom == VI_ENERGY) {
-    auto qf = [&](int64_t q) { return zeta(H, q, J) * (half * (dyu(q, J) + dyu(q - sy, J - 1))); };
-    vort = (half * (qf(o + sx) + qf(o))) / dyv;
-  } else if (A.mom == VI_ENSTROPHY) {
-    const T ixc_zeta = half * (zeta(H, o + sx, J) + zeta(H, o, J));
-    vort = (ixc_zeta * (half * (ixc_dyu(o, J) + ixc_dyu(o - sy, J - 1)))) / dyv;
+  if (mom == VI_ENERGY) {
+    auto qf = [&](int q, int i) { return zeta(i) * (half * (dyu(q, J) + dyu(q - sy, J - 1))); };
+    vort = ieee_div(half * (qf(o + sx, P.I + 1) + qf(o, P.I)), dyv);
+  } else if (mom == VI_ENSTROPHY) {
+    const T ixc_zeta = half * (zeta(P.I + 1) + zeta(P.I));
+    vort = ieee_div(ixc_zeta * (half * (ixc_dyu(o, J) + ixc_dyu(o - sy, J - 1))), dyv);
   } else {
-    const T u_hat = (half * (ixc_dyu(o, J) + ixc_dyu(o - sy, J - 1))) / dyv;
-    vort = weno_vorticity(H, o, sx, false, u_hat);
+    const T u_hat = ieee_div(half * (ixc_dyu(o, J) + ixc_dyu(o - sy, J - 1)), dyv);
+    vort = weno_vorticity(P, M, false, u_hat, mom);
   }
-  const T* az_cc = H.yr(AZ_CC);
-  const T* dz_f = H.zr(DZ_F);
-  auto qz = [&](int64_t q, int k) {
-    return (half * (az_cc[J] * w[q] + az_cc[J - 1] * w[q - sy])) * ((v[q] - v[q - 1]) / dz_f[k]);
+  const T* az_cc = P.yr(AZ_CC);
+  const T* dz_f = P.zr(DZ_F);
+  auto qz = [&](int q, int qw, int k) {
+    return (half * (az_cc[J] * w[qw] + az_cc[J - 1] * w[qw - P.wsy]))
+           * ieee_div(v[q] - v[q - 1], dz_f[k]);
   };
-  const T vadv = (half * (qz(o + 1, K + 1) + qz(o, K))) / H.yr(AZ_CF)[J];
-  const T bern = (bernoulli(H, o) - bernoulli(H, o - sy)) / dyv;
+  const T vadv = ieee_div(half * (qz(o + 1, P.ow + 1, K + 1) + qz(o, P.ow, K)), P.yr(AZ_CF)[J]);
+  const T bern = ieee_div(M.bern[M.cc(P.I, J, K)] - M.bern[M.cc(P.I, J - 1, K)], dyv);
   return vort + vadv + bern;
 }
 
-// ---- flux-form momentum ----------------------------------------------------------
+// ---- flux-form momentum: each face computed in both cells beside it ---------
 
 template <typename T>
-__device__ T div_vu(const Here<T>& H) {
-  const HydroArgs<T>& A = *H.A;
-  const T* u = A.psi[0];
-  const T* v = A.psi[1];
-  const T* w = A.w;
-  const int64_t o = H.o, sx = H.sx, sy = H.sy;
-  const int I = H.I, J = H.J, K = H.K;
+__device__ T div_vu(const Pt<T>& P, bool tables) {
+  const HydroArgs<T>& A = *P.A;
+  const T* u = P.u;
+  const T* v = P.v;
+  const T* w = P.w;
+  const int o = P.o, sx = P.sx, sy = P.sy, I = P.I, J = P.J, K = P.K;
   const bool we = A.mom_weno != 0;
   const T eps = A.eps_m, half = T(0.5);
-  const T dz = H.zr(DZ_C)[K];
-  const T Ax = H.yr(DY_C)[J] * dz;
+  const ZRows<T> zr{A.zs, P.Z};
+  const T dz = P.zr(DZ_C)[K];
+  const T Ax = P.yr(DY_C)[J] * dz;
   // x fluxes at centres I-1, I (to centres: the stream of face q+1)
-  auto fx = [&](int64_t q, int i) {
-    return Ax * transport_axis(u, q + sx, sx, half * (u[q + sx] + u[q]), we, eps,
-                               we && A.xm, A.xb, i);
+  auto fx = [&](int q, int i) {
+    return Ax * transport_axis(u, (int64_t)(q + sx), (int64_t)sx, half * (u[q + sx] + u[q]),
+                               we, eps, we && A.xm, A.xb, i);
   };
-  auto fy = [&](int64_t q, int j) {
-    return (H.yr(DX_FF)[j] * dz) * transport_axis(u, q, sy, half * (v[q] + v[q - sx]),
-                                                  we, eps, we && A.ym, A.yb, j);
+  auto fy = [&](int q, int j) {
+    return (P.yr(DX_FF)[j] * dz) * transport_axis(u, (int64_t)q, (int64_t)sy,
+                                                  half * (v[q] + v[q - sx]), we, eps,
+                                                  we && A.ym, A.yb, j);
   };
-  const T az = H.yr(AZ_FC)[J];
-  auto fz = [&](int64_t q, int k) {
-    return az * z_transport(u, q, half * (w[q] + w[q - sx]), we, eps, H, k);
+  const T az = P.yr(AZ_FC)[J];
+  auto fz = [&](int q, int qw, int k) {
+    return az * z_transport(u, q, half * (w[qw] + w[qw - P.wsx]), we, eps, tables,
+                            A.zm != 0, A.zb, zr, k);
   };
-  return ((fx(o, I) - fx(o - sx, I - 1)) + (fy(o + sy, J + 1) - fy(o, J))
-          + (fz(o + 1, K + 1) - fz(o, K))) / (az * dz);
+  return ieee_div((fx(o, I) - fx(o - sx, I - 1)) + (fy(o + sy, J + 1) - fy(o, J))
+                  + (fz(o + 1, P.ow + 1, K + 1) - fz(o, P.ow, K)), az * dz);
 }
 
 template <typename T>
-__device__ T div_vv(const Here<T>& H) {
-  const HydroArgs<T>& A = *H.A;
-  const T* u = A.psi[0];
-  const T* v = A.psi[1];
-  const T* w = A.w;
-  const int64_t o = H.o, sx = H.sx, sy = H.sy;
-  const int I = H.I, J = H.J, K = H.K;
+__device__ T div_vv(const Pt<T>& P, bool tables) {
+  const HydroArgs<T>& A = *P.A;
+  const T* u = P.u;
+  const T* v = P.v;
+  const T* w = P.w;
+  const int o = P.o, sx = P.sx, sy = P.sy, I = P.I, J = P.J, K = P.K;
   const bool we = A.mom_weno != 0;
   const T eps = A.eps_m, half = T(0.5);
-  const T dz = H.zr(DZ_C)[K];
-  const T Ax = H.yr(DY_F)[J] * dz;
-  auto fx = [&](int64_t q, int i) {
-    return Ax * transport_axis(v, q, sx, half * (u[q] + u[q - sy]), we, eps,
-                               we && A.xm, A.xb, i);
+  const ZRows<T> zr{A.zs, P.Z};
+  const T dz = P.zr(DZ_C)[K];
+  const T Ax = P.yr(DY_F)[J] * dz;
+  auto fx = [&](int q, int i) {
+    return Ax * transport_axis(v, (int64_t)q, (int64_t)sx, half * (u[q] + u[q - sy]), we,
+                               eps, we && A.xm, A.xb, i);
   };
   // y fluxes at centres J-1, J (to centres)
-  auto fy = [&](int64_t q, int j) {
-    return (H.yr(DX_CC)[j] * dz) * transport_axis(v, q + sy, sy, half * (v[q + sy] + v[q]),
-                                                  we, eps, we && A.ym, A.yb, j);
+  auto fy = [&](int q, int j) {
+    return (P.yr(DX_CC)[j] * dz) * transport_axis(v, (int64_t)(q + sy), (int64_t)sy,
+                                                  half * (v[q + sy] + v[q]), we, eps,
+                                                  we && A.ym, A.yb, j);
   };
-  const T az = H.yr(AZ_CF)[J];
-  auto fz = [&](int64_t q, int k) {
-    return az * z_transport(v, q, half * (w[q] + w[q - sy]), we, eps, H, k);
+  const T az = P.yr(AZ_CF)[J];
+  auto fz = [&](int q, int qw, int k) {
+    return az * z_transport(v, q, half * (w[qw] + w[qw - P.wsy]), we, eps, tables,
+                            A.zm != 0, A.zb, zr, k);
   };
-  return ((fx(o + sx, I + 1) - fx(o, I)) + (fy(o, J) - fy(o - sy, J - 1))
-          + (fz(o + 1, K + 1) - fz(o, K))) / (az * dz);
-}
-
-// ---- tracers ------------------------------------------------------------------
-
-template <typename T>
-__device__ T div_Uc(const Here<T>& H, const T* __restrict__ c) {
-  const HydroArgs<T>& A = *H.A;
-  const T* u = A.psi[0];
-  const T* v = A.psi[1];
-  const T* w = A.w;
-  const int64_t o = H.o, sx = H.sx, sy = H.sy;
-  const int I = H.I, J = H.J, K = H.K;
-  const bool we = A.tr == 1;
-  const T eps = A.eps_t;
-  const T dz = H.zr(DZ_C)[K];
-  const T Ax = H.yr(DY_C)[J] * dz;
-  const T* dx_cf = H.yr(DX_CF);
-  const T az = H.yr(AZ_CC)[J];
-  const T fxR = Ax * transport_axis(c, o + sx, sx, u[o + sx], we, eps, we && A.xm, A.xb, I + 1);
-  const T fxL = Ax * transport_axis(c, o, sx, u[o], we, eps, we && A.xm, A.xb, I);
-  const T fyR = (dx_cf[J + 1] * dz) * transport_axis(c, o + sy, sy, v[o + sy], we, eps,
-                                                     we && A.ym, A.yb, J + 1);
-  const T fyL = (dx_cf[J] * dz) * transport_axis(c, o, sy, v[o], we, eps, we && A.ym, A.yb, J);
-  const T fzR = az * z_transport(c, o + 1, w[o + 1], we, eps, H, K + 1);
-  const T fzL = az * z_transport(c, o, w[o], we, eps, H, K);
-  return (((fxR - fxL) + (fyR - fyL)) + (fzR - fzL)) / (az * dz);
+  return ieee_div((fx(o + sx, I + 1) - fx(o, I)) + (fy(o, J) - fy(o - sy, J - 1))
+                  + (fz(o + 1, P.ow + 1, K + 1) - fz(o, P.ow, K)), az * dz);
 }
 
 // ---- Coriolis ---------------------------------------------------------------------
 
 // (f x u)_x at the u point
 template <typename T>
-__device__ T f_cross_x(const Here<T>& H) {
-  const HydroArgs<T>& A = *H.A;
-  const T* v = A.psi[1];
-  const int64_t o = H.o, sx = H.sx, sy = H.sy;
-  const int J = H.J;
+__device__ T f_cross_x(const Pt<T>& P, int cor) {
+  const T* v = P.v;
+  const int o = P.o, sx = P.sx, sy = P.sy, J = P.J;
   const T half = T(0.5);
-  if (A.cor == PLANE)  // -f ixf(iyc(v))
-    return (-H.yr(F_U)[J]) * (half * (half * (v[o + sy] + v[o])
+  if (cor == PLANE)  // -f ixf(iyc(v))
+    return (-P.yr(F_U)[J]) * (half * (half * (v[o + sy] + v[o])
                                       + half * (v[o - sx + sy] + v[o - sx])));
-  const T* f = H.yr(F_U);
-  const T* dx_cf = H.yr(DX_CF);
-  const T dxu = H.yr(DX_FC)[J];
-  auto dxv = [&](int64_t q, int j) { return dx_cf[j] * v[q]; };
-  if (A.cor == SPHERICAL_ENERGY) {  // -iyc(f ixf(dx v)) / dx
-    auto qf = [&](int64_t q, int j) { return f[j] * (half * (dxv(q, j) + dxv(q - sx, j))); };
-    return -(half * (qf(o + sy, J + 1) + qf(o, J))) / dxu;
+  const T* f = P.yr(F_U);
+  const T* dx_cf = P.yr(DX_CF);
+  const T dxu = P.yr(DX_FC)[J];
+  auto dxv = [&](int q, int j) { return dx_cf[j] * v[q]; };
+  if (cor == SPHERICAL_ENERGY) {  // -iyc(f ixf(dx v)) / dx
+    auto qf = [&](int q, int j) { return f[j] * (half * (dxv(q, j) + dxv(q - sx, j))); };
+    return ieee_div(-(half * (qf(o + sy, J + 1) + qf(o, J))), dxu);
   }
   // enstrophy: -iyc(f) ixf(iyc(dx v)) / dx
-  auto iyc_dxv = [&](int64_t q) { return half * (dxv(q + sy, J + 1) + dxv(q, J)); };
-  return (-(half * (f[J + 1] + f[J])) * (half * (iyc_dxv(o) + iyc_dxv(o - sx)))) / dxu;
+  auto iyc_dxv = [&](int q) { return half * (dxv(q + sy, J + 1) + dxv(q, J)); };
+  return ieee_div(-(half * (f[J + 1] + f[J])) * (half * (iyc_dxv(o) + iyc_dxv(o - sx))), dxu);
 }
 
 // (f x u)_y at the v point
 template <typename T>
-__device__ T f_cross_y(const Here<T>& H) {
-  const HydroArgs<T>& A = *H.A;
-  const T* u = A.psi[0];
-  const int64_t o = H.o, sx = H.sx, sy = H.sy;
-  const int J = H.J;
+__device__ T f_cross_y(const Pt<T>& P, int cor) {
+  const T* u = P.u;
+  const int o = P.o, sx = P.sx, sy = P.sy, J = P.J;
   const T half = T(0.5);
-  if (A.cor == PLANE)  // f iyf(ixc(u))
-    return H.yr(F_V)[J] * (half * (half * (u[o + sx] + u[o])
+  if (cor == PLANE)  // f iyf(ixc(u))
+    return P.yr(F_V)[J] * (half * (half * (u[o + sx] + u[o])
                                    + half * (u[o + sx - sy] + u[o - sy])));
-  const T fJ = H.yr(F_U)[J];  // f at (F, F), constant along x
-  const T* dy_c = H.yr(DY_C);
-  const T dyv = H.yr(DY_F)[J];
-  auto dyu = [&](int64_t q, int j) { return dy_c[j] * u[q]; };
-  if (A.cor == SPHERICAL_ENERGY) {  // ixc(f iyf(dy u)) / dy
-    auto qf = [&](int64_t q) { return fJ * (half * (dyu(q, J) + dyu(q - sy, J - 1))); };
-    return (half * (qf(o + sx) + qf(o))) / dyv;
+  const T fJ = P.yr(F_U)[J];  // f at (F, F), constant along x
+  const T* dy_c = P.yr(DY_C);
+  const T dyv = P.yr(DY_F)[J];
+  auto dyu = [&](int q, int j) { return dy_c[j] * u[q]; };
+  if (cor == SPHERICAL_ENERGY) {  // ixc(f iyf(dy u)) / dy
+    auto qf = [&](int q) { return fJ * (half * (dyu(q, J) + dyu(q - sy, J - 1))); };
+    return ieee_div(half * (qf(o + sx) + qf(o)), dyv);
   }
   // enstrophy: ixc(f) iyf(ixc(dy u)) / dy
-  auto ixc_dyu = [&](int64_t q, int j) { return half * (dyu(q + sx, j) + dyu(q, j)); };
-  return ((half * (fJ + fJ)) * (half * (ixc_dyu(o, J) + ixc_dyu(o - sy, J - 1)))) / dyv;
+  auto ixc_dyu = [&](int q, int j) { return half * (dyu(q + sx, j) + dyu(q, j)); };
+  return ieee_div((half * (fJ + fJ)) * (half * (ixc_dyu(o, J) + ixc_dyu(o - sy, J - 1))), dyv);
 }
 
 // ---- the kernel ---------------------------------------------------------------------
 
-template <typename T>
-__device__ __forceinline__ void store(const HydroArgs<T>& A, int f, int64_t p, T g) {
+template <typename T, int ADV>
+__device__ __forceinline__ void store(const HydroArgs<T>& A, int f, int64_t p, T psi, T g) {
   A.out_g[f][p] = g;
-  if (A.advance) A.out_psi[f][p] = A.psi[f][p] + A.dt * (A.c1 * g - A.c2 * A.gp[f][p]);
+  if (ADV > 0 || (ADV < 0 && A.advance))
+    A.out_psi[f][p] = psi + A.dt * (A.c1 * g - A.c2 * A.gp[f][p]);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(128)
-fused_hydrostatic_tendencies_kernel(const HydroArgs<T> A) {
+template <typename T, int ADV>
+__device__ __forceinline__ void store_zero(const HydroArgs<T>& A, int64_t p) {
+  for (int f = 0; f < A.nf; ++f) {
+    A.out_g[f][p] = T(0);
+    if (ADV > 0 || (ADV < 0 && A.advance)) A.out_psi[f][p] = T(0);
+  }
+}
+
+template <typename T, int MOM, int COR, int TABLES_ON, int ADV>
+__global__ void __launch_bounds__(HT_THREADS, 1)
+fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const int mom = MOM >= 0 ? MOM : A.mom;
+  const int cor = COR >= 0 ? COR : A.cor;
+  const bool tables = TABLES_ON >= 0 ? TABLES_ON != 0 : A.tables != 0;
   const int X = A.nx + 2 * A.hx, Y = A.ny + 2 * A.hy, Z = A.nz + 2 * A.hz;
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= (int64_t)X * Y * Z) return;
-  const int K = (int)(p % Z);
-  const int J = (int)((p / Z) % Y);
-  const int I = (int)(p / ((int64_t)Y * Z));
-  if (I < A.hx || I >= A.hx + A.nx || J < A.hy || J >= A.hy + A.ny ||
-      K < A.hz || K >= A.hz + A.nz) {
-    for (int f = 0; f < A.nf; ++f) {
-      A.out_g[f][p] = T(0);
-      if (A.advance) A.out_psi[f][p] = T(0);
+  const int64_t gsx = (int64_t)Y * Z, gsy = Z;
+  const int kz = A.kz;
+  // the tile [I0, I1) x [J0, J1) and the chunk [K0, K1) of interior levels
+  const int I0 = A.hx + (int)(blockIdx.x / A.nty) * HT_X, I1 = min(I0 + HT_X, A.hx + A.nx);
+  const int J0 = A.hy + (int)(blockIdx.x % A.nty) * HT_Y, J1 = min(J0 + HT_Y, A.hy + A.ny);
+  const int K0 = A.hz + (int)blockIdx.y * kz, K1 = min(K0 + kz, A.hz + A.nz);
+  const int tid = threadIdx.x;
+
+  // shared memory: u, v, w, tracer buffer 0, then the momentum arrays or
+  // (later) tracer buffer 1 and the face fluxes
+  const int zs = kz + 2 * HT_R;
+  const int sy = zs, sx = (HT_Y + 2 * HT_R) * zs;          // u, v, tracer boxes
+  const int BI = I0 - HT_R, BJ = J0 - HT_R, BK = K0 - HT_R;
+  const int wsy = kz + 1, wsx = (HT_Y + 1) * wsy;          // w box from (I0-1, J0-1, K0)
+  T* const su = sm;
+  T* const sv = su + HT_BOX * zs;
+  T* const sw = sv + HT_BOX * zs;
+  T* const tb0 = sw + HT_WBOX * (kz + 1);
+  T* const region = tb0 + HT_BOX * zs;
+  T* const mzeta = region;                                 // momentum phase
+  T* const msu = mzeta + HT_FFBOX * kz;
+  T* const msv = msu + HT_FFBOX * kz;
+  T* const mbern = msv + HT_FFBOX * kz;
+  T* const tb1 = region;                                   // tracer phase
+  T* const FX = tb1 + HT_BOX * zs;                         // x faces: (HT_X+1) x HT_Y x kz
+  T* const FY = FX + HT_XF * kz;                           // y faces: HT_X x (HT_Y+1) x kz
+  T* const FZ = FY + HT_YF * kz;                           // z faces: HT_X x HT_Y x (kz+1)
+
+  // 1. copies: u, v and w, then the first tracer (clipped to the array)
+  const int ci0 = max(BI, 0), ci1 = min(I1 + HT_R, X);
+  const int cj0 = max(BJ, 0), cj1 = min(J1 + HT_R, Y);
+  const int ck0 = max(BK, 0), ck1 = min(K1 + HT_R, Z);
+  copy_box_async(su, A.psi[0], gsx, gsy, ci0, ci1, cj0, cj1, ck0, ck1, BI, BJ, BK, sx, sy);
+  copy_box_async(sv, A.psi[1], gsx, gsy, ci0, ci1, cj0, cj1, ck0, ck1, BI, BJ, BK, sx, sy);
+  copy_box_async(sw, A.w, gsx, gsy, max(I0 - 1, 0), I1, max(J0 - 1, 0), J1, K0, K1 + 1,
+                 I0 - 1, J0 - 1, K0, wsx, wsy);
+  copy_async_commit();
+  const bool advect = A.tr >= 0 && A.nf > 2;
+  if (advect) {
+    copy_box_async(tb0, A.psi[2], gsx, gsy, ci0, ci1, cj0, cj1, ck0, ck1, BI, BJ, BK, sx, sy);
+    copy_async_commit();
+  }
+
+  // 4. halo zeros: the chunk's first and last blocks take their columns' z
+  // halos; a block on the x or y edge takes the halo columns next to its
+  // tile (whole columns, in the first chunk)
+  {
+    const bool first = blockIdx.y == 0, last = blockIdx.y == gridDim.y - 1;
+    const int h2 = 2 * A.hz;
+    if ((first || last) && h2 > 0) {
+      for (int t = tid; t < HT_COLS * h2; t += HT_THREADS) {
+        const int c = A.h2d.div(t), m = t - c * h2;
+        const int i = I0 + c / HT_Y, j = J0 + c % HT_Y;
+        const int k = m < A.hz ? m : A.hz + A.nz + (m - A.hz);
+        if (i < I1 && j < J1 && (m < A.hz ? first : last))
+          store_zero<T, ADV>(A, i * gsx + j * gsy + k);
+      }
     }
+    const int ri0 = I0 == A.hx ? 0 : I0, ri1 = I1 == A.hx + A.nx ? X : I1;
+    const int rj0 = J0 == A.hy ? 0 : J0, rj1 = J1 == A.hy + A.ny ? Y : J1;
+    if (first && (ri0 != I0 || ri1 != I1 || rj0 != J0 || rj1 != J1)) {
+      const int mj = rj1 - rj0, n = (ri1 - ri0) * mj * Z;
+      for (int t = tid; t < n; t += HT_THREADS) {
+        const int k = t % Z, c = t / Z, i = ri0 + c / mj, j = rj0 + c % mj;
+        if (i >= I0 && i < I1 && j >= J0 && j < J1) continue;
+        store_zero<T, ADV>(A, i * gsx + j * gsy + k);
+      }
+    }
+  }
+
+  if (advect) copy_async_wait<1>(); else copy_async_wait<0>();
+  __syncthreads();
+
+  // the block's tasks run over the whole tile and chunk, level fastest
+  // (HT_COLS x kz points; edge tiles and a short last chunk skip the
+  // points outside), so every index division is by a compile-time width or
+  // by kz through FastDiv
+  const int npts = HT_COLS * kz;
+  auto point = [&](int t, int& I, int& J, int& K) {  // false outside the domain
+    const int c = A.kzd.div(t);
+    K = K0 + (t - c * kz);
+    I = I0 + c / HT_Y;
+    J = J0 + c % HT_Y;
+    return I < I1 && J < J1 && K < K1;
+  };
+  auto at = [&](int i, int j, int k) { return (i - BI) * sx + (j - BJ) * sy + (k - BK); };
+  auto wat = [&](int i, int j, int k) { return (i - I0 + 1) * wsx + (j - J0 + 1) * wsy + (k - K0); };
+  const T half = T(0.5);
+  auto make_pt = [&](int I, int J, int K) {
+    return Pt<T>{&A, su, sv, sw, at(I, J, K), sx, sy, wat(I, J, K), wsx, wsy, I, J, K, Y, Z};
+  };
+
+  // 2. momentum
+  const bool vi = mom <= VI_WENO_VELOCITY;
+  const MomArrays<T> M{mzeta, msu, msv, mbern, I0, J0, K0, kz};
+  if (vi) {
+    // zeta (and the smoothness streams) at the (F, F) points
+    // [I0-2, I1+2] x [J0-2, J1+2], the Bernoulli head at the (C, C) points
+    // [I0-1, I1) x [J0-1, J1), every level of the chunk
+    const int nff = HT_FFBOX * kz, ncc = HT_WBOX * kz;
+    const T* dy_f = A.ys + DY_F * Y;
+    const T* dx_fc = A.ys + DX_FC * Y;
+    const T* az_ff = A.ys + AZ_FF * Y;
+    for (int t = tid; t < nff + ncc; t += HT_THREADS) {
+      if (t < nff) {  // t is M.ff(i, j, k)
+        const int c = A.kzd.div(t), k = K0 + (t - c * kz);
+        const int i = I0 - 2 + c / (HT_Y + 5), j = J0 - 2 + c % (HT_Y + 5);
+        if (i > I1 + 2 || j > J1 + 2 || k >= K1) continue;
+        const int q = at(i, j, k), m = t;
+        mzeta[m] = ieee_div((dy_f[j] * sv[q] - dy_f[j] * sv[q - sx])
+                            - (dx_fc[j] * su[q] - dx_fc[j - 1] * su[q - sy]), az_ff[j]);
+        if (mom == VI_WENO_VELOCITY) {
+          msu[m] = half * (su[q] + su[q - sy]);   // iyf(u) at (F, F)
+          msv[m] = half * (sv[q] + sv[q - sx]);   // ixf(v) at (F, F)
+        }
+      } else {  // t - nff is M.cc(i, j, k)
+        const int s = t - nff, c = A.kzd.div(s), k = K0 + (s - c * kz);
+        const int i = I0 - 1 + c / (HT_Y + 1), j = J0 - 1 + c % (HT_Y + 1);
+        if (i >= I1 || j >= J1 || k >= K1) continue;
+        mbern[s] = bernoulli(su, sv, at(i, j, k), sx, sy);
+      }
+    }
+    __syncthreads();
+  }
+  for (int t = tid; t < npts; t += HT_THREADS) {
+    int I, J, K;
+    if (!point(t, I, J, K)) continue;
+    const Pt<T> P = make_pt(I, J, K);
+    const int64_t p = I * gsx + J * gsy + K;
+    // u
+    T g = T(0);
+    if (mom == FLUX_FORM) g = -div_vu(P, tables);
+    else if (mom != NO_MOMENTUM) g = -vi_u(P, M, mom);
+    if (cor != NO_CORIOLIS) g = g - f_cross_x(P, cor);
+    if (A.ph != nullptr) g = g - ieee_div(A.ph[p] - A.ph[p - gsx], P.yr(DX_FC)[J]);
+    store<T, ADV>(A, 0, p, su[P.o], g);
+    // v
+    g = T(0);
+    if (mom == FLUX_FORM) g = -div_vv(P, tables);
+    else if (mom != NO_MOMENTUM) g = -vi_v(P, M, mom);
+    if (cor != NO_CORIOLIS) g = g - f_cross_y(P, cor);
+    if (A.ph != nullptr) g = g - ieee_div(A.ph[p] - A.ph[p - gsy], P.yr(DY_F)[J]);
+    store<T, ADV>(A, 1, p, sv[P.o], g);
+  }
+
+  // 3. tracers
+  if (!advect) {  // no tracer advection: G = 0
+    for (int f = 2; f < A.nf; ++f)
+      for (int t = tid; t < npts; t += HT_THREADS) {
+        int I, J, K;
+        if (!point(t, I, J, K)) continue;
+        const int64_t p = I * gsx + J * gsy + K;
+        store<T, ADV>(A, f, p, A.psi[f][p], T(0));
+      }
     return;
   }
-  const Here<T> H{&A, p, (int64_t)Y * Z, (int64_t)Z, I, J, K, Y, Z};
-  // u
-  T g = T(0);
-  if (A.mom == FLUX_FORM) g = -div_vu(H);
-  else if (A.mom != NO_MOMENTUM) g = -vi_u(H);
-  if (A.cor != NO_CORIOLIS) g = g - f_cross_x(H);
-  if (A.ph != nullptr) g = g - (A.ph[p] - A.ph[p - H.sx]) / H.yr(DX_FC)[J];
-  store(A, 0, p, g);
-  // v
-  g = T(0);
-  if (A.mom == FLUX_FORM) g = -div_vv(H);
-  else if (A.mom != NO_MOMENTUM) g = -vi_v(H);
-  if (A.cor != NO_CORIOLIS) g = g - f_cross_y(H);
-  if (A.ph != nullptr) g = g - (A.ph[p] - A.ph[p - H.sy]) / H.yr(DY_F)[J];
-  store(A, 1, p, g);
-  // tracers
-  for (int f = 2; f < A.nf; ++f)
-    store(A, f, p, A.tr < 0 ? T(0) : -div_Uc(H, A.psi[f]));
+  const bool we = A.tr == 1;
+  const T eps = A.eps_t;
+  const bool xmask = we && A.xm, ymask = we && A.ym;
+  const ZRows<T> zr{A.zs, Z};
+  const int nfx = HT_XF * kz, nfy = HT_YF * kz, nfz = HT_COLS * (kz + 1);
+  // face-flux array offsets: level fastest, kz (or kz+1) levels per face
+  auto fxi = [&](int i, int j, int k) { return ((i - I0) * HT_Y + (j - J0)) * kz + (k - K0); };
+  auto fyi = [&](int i, int j, int k) { return ((i - I0) * (HT_Y + 1) + (j - J0)) * kz + (k - K0); };
+  auto fzi = [&](int i, int j, int k) { return ((i - I0) * HT_Y + (j - J0)) * (kz + 1) + (k - K0); };
+  for (int f = 2; f < A.nf; ++f) {
+    T* const sc = (f - 2) % 2 == 0 ? tb0 : tb1;
+    copy_async_wait<0>();
+    __syncthreads();  // tracer f staged; the momentum arrays, or tracer f-1's buffer and fluxes, free
+    if (f + 1 < A.nf) {
+      copy_box_async((f - 2) % 2 == 0 ? tb1 : tb0, A.psi[f + 1], gsx, gsy, ci0, ci1, cj0, cj1,
+                     ck0, ck1, BI, BJ, BK, sx, sy);
+      copy_async_commit();
+    }
+    // each face flux once: x faces [I0, I1], y faces [J0, J1], z faces [K0, K1]
+    for (int t = tid; t < nfx + nfy + nfz; t += HT_THREADS) {
+      if (t < nfx) {  // t is fxi(i, j, k)
+        const int c = A.kzd.div(t), k = K0 + (t - c * kz);
+        const int i = I0 + c / HT_Y, j = J0 + c % HT_Y;
+        if (i > I1 || j >= J1 || k >= K1) continue;
+        const int q = at(i, j, k);
+        FX[t] = (A.ys[DY_C * Y + j] * A.zs[DZ_C * Z + k])
+                * transport_axis(sc, (int64_t)q, (int64_t)sx, su[q], we, eps, xmask, A.xb, i);
+      } else if (t < nfx + nfy) {  // t - nfx is fyi(i, j, k)
+        const int s = t - nfx, c = A.kzd.div(s), k = K0 + (s - c * kz);
+        const int i = I0 + c / (HT_Y + 1), j = J0 + c % (HT_Y + 1);
+        if (i >= I1 || j > J1 || k >= K1) continue;
+        const int q = at(i, j, k);
+        FY[s] = (A.ys[DX_CF * Y + j] * A.zs[DZ_C * Z + k])
+                * transport_axis(sc, (int64_t)q, (int64_t)sy, sv[q], we, eps, ymask, A.yb, j);
+      } else {  // t - nfx - nfy is fzi(i, j, k)
+        const int s = t - nfx - nfy, c = A.kz1d.div(s), k = K0 + (s - c * (kz + 1));
+        const int i = I0 + c / HT_Y, j = J0 + c % HT_Y;
+        if (i >= I1 || j >= J1 || k > K1) continue;
+        FZ[s] = A.ys[AZ_CC * Y + j] * z_transport(sc, at(i, j, k), sw[wat(i, j, k)], we, eps,
+                                                  tables, A.zm != 0, A.zb, zr, k);
+      }
+    }
+    __syncthreads();
+    for (int t = tid; t < npts; t += HT_THREADS) {
+      int I, J, K;
+      if (!point(t, I, J, K)) continue;
+      const int64_t p = I * gsx + J * gsy + K;
+      const T dz = A.zs[DZ_C * Z + K], az = A.ys[AZ_CC * Y + J];
+      const int x0 = fxi(I, J, K), y0 = fyi(I, J, K), z0 = fzi(I, J, K);
+      const T div = ieee_div(((FX[x0 + HT_Y * kz] - FX[x0]) + (FY[y0 + kz] - FY[y0]))
+                             + (FZ[z0 + 1] - FZ[z0]), az * dz);
+      store<T, ADV>(A, f, p, sc[at(I, J, K)], -div);
+    }
+  }
 }
+
+template <typename T, int MOM, int COR, int TABLES_ON, int ADV>
+static int run(const HydroArgs<T>& A, dim3 blocks, int smem, cudaStream_t stream) {
+  auto kernel = fused_hydrostatic_tendencies_kernel<T, MOM, COR, TABLES_ON, ADV>;
+  if (smem > 48 * 1024) {
+    const int rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != 0) return rc;
+  }
+  kernel<<<blocks, HT_THREADS, smem, stream>>>(A);
+  return (int)cudaGetLastError();
+}
+
+// the most shared memory a block may have on sm_90 (227 KB)
+constexpr int HT_SMEM_MAX = 232448;
 
 template <typename T>
 static int launch(const void* const* psi, const void* w, const void* ph,
@@ -502,13 +756,25 @@ static int launch(const void* const* psi, const void* w, const void* ph,
   A.zm = b[10]; A.zb = Bounds{b[11], b[12], b[13], b[14]};
   A.eps_m = T(eps_m); A.eps_t = T(eps_t);
   A.c1 = T(c1); A.c2 = T(c2); A.dt = T(dt);
-  const int64_t n = (int64_t)(nx + 2 * hx) * (ny + 2 * hy) * (nz + 2 * hz);
-  if (n == 0) return 0;
-  const int threads = 128;
-  const int64_t blocks = (n + threads - 1) / threads;
-  fused_hydrostatic_tendencies_kernel<T><<<(unsigned int)blocks, threads, 0,
-                                           static_cast<cudaStream_t>(stream)>>>(A);
-  return (int)cudaGetLastError();
+  if (nx <= 0 || ny <= 0 || nz <= 0) return 0;
+  // the largest chunk of levels whose boxes fit, then chunks of equal size
+  int kz = nz;
+  while (kz > 1 && hydro_smem_elems(kz) * (long)sizeof(T) > HT_SMEM_MAX) --kz;
+  const int chunks = (nz + kz - 1) / kz;
+  A.kz = (nz + chunks - 1) / chunks;
+  A.nty = (ny + HT_Y - 1) / HT_Y;
+  A.kzd = fast_div(A.kz);
+  A.kz1d = fast_div(A.kz + 1);
+  A.h2d = fast_div(2 * hz);
+  const dim3 blocks((unsigned)(((nx + HT_X - 1) / HT_X) * A.nty), (unsigned)chunks);
+  const int smem = (int)(hydro_smem_elems(A.kz) * (long)sizeof(T));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the 1/4 degree flagship's forms have their own instantiations
+  if (mom == VI_WENO_VELOCITY && cor == SPHERICAL_ENERGY && tables) {
+    if (advance) return run<T, VI_WENO_VELOCITY, SPHERICAL_ENERGY, 1, 1>(A, blocks, smem, st);
+    return run<T, VI_WENO_VELOCITY, SPHERICAL_ENERGY, 1, 0>(A, blocks, smem, st);
+  }
+  return run<T, -1, -1, -1, -1>(A, blocks, smem, st);
 }
 
 extern "C" {

@@ -1,6 +1,7 @@
-// Fused shallow-water tendencies (conservative form): Guh, Gvh, Gh and
-// every tracer's G, written into the interiors of with-halo outputs (the
-// caller allocates them zeroed).
+// Fused shallow-water tendencies (conservative form), K3a: Guh, Gvh, Gh and
+// every tracer's G, written into with-halo outputs: the interior computed,
+// the halos zero (the kernel writes both; the caller allocates with
+// torch.empty).
 //
 // Replaces the TPU kernel clima_oceananigans_jl_tpu/ops/fused_tendencies.py::
 // pallas_fuse as the shallow-water model calls it
@@ -14,30 +15,46 @@
 //         u = uh/ixf(h), v = vh/iyf(h)
 // with T the select-first WENO5 or centred transport of weno5_advection.cuh
 // (transport_axis) and WENO5's near-wall order reduction on a bounded x or
-// y axis. One thread knows its absolute index, so both axes take the
-// bounds, where the TPU's tiled windows could carry them only along y.
+// y axis (each face knows its absolute index, so both axes take the
+// bounds, where the TPU's tiled windows could carry them only along y).
 // The grid is 2D: with-halo arrays (nx+2hx, ny+2hy, 1), y contiguous, and
 // the flat z axis has dz = 1, so Ax = dy, Ay = dx, V = dx*dy exactly.
+// Every division is ieee_div or ieee_div_by: IEEE's own quotient, bit for
+// bit, kept off the hardware's slow path where the operands allow it
+// (weno5_advection.cuh).
 //
 // What bounds it on an H100: memory. At 16384^2 fp32 with uh, vh, h it
-// reads three with-halo fields (3 x 1.07 GB) and writes three (the zero
-// fill and the interior stores): about 6.4 GB, 1.9 ms at 3.35 TB/s if each
-// byte moves once. The arithmetic is 4 WENO5 reconstructions of ~50 flops
-// and a few divisions per point.
+// reads three with-halo fields (3 x 1.07 GB) and writes three: about
+// 6.4 GB, 1.9 ms at 3.35 TB/s. The function needs four WENO5 transports
+// of ~64 flops and a few divisions per point, ~300 flops: 80 GFLOP for
+// 268 M points, 1.2 ms at the 67 TFLOP/s fp32 peak. In practice the
+// kernel is bound by instruction issue: 26 correctly rounded divisions a
+// point (each a reciprocal, Newton steps and ieee_div's checks) beside the
+// WENO5 arithmetic, some 1,000 instructions a point by a count of this
+// source (PERF.md has its times).
+// Tensor cores (wgmma) have no part: the stencil holds no matrix product.
 //
-// The design is the simple one of K1 and K2: one thread per interior point,
-// j (the contiguous axis) across the threads of a warp, neighbours read from
-// global memory through L1/L2, each face flux computed by both cells beside
-// it. Shared-memory tiling and flux reuse are later work.
+// The design: a block of 256 threads owns a TX x TY tile of the interior
+// (16 x 64, y contiguous). It stages uh, vh and h over the tile and its
+// 3-cell halo in shared memory with cp.async (tiles.cuh), then
+// computes each face flux of the tile once, into shared memory (huu at the
+// x centres I0-1 .. I1-1, hvu at the y faces J0 .. J1, huv at the x faces
+// I0 .. I1, hvv at the y centres J0-1 .. J1-1: cell I's huu(I) is cell
+// I+1's left one, the same expression on the same operands), and
+// differences them. Tracers go through a second buffer pair: tracer f+1 is
+// copied while tracer f's face fluxes (at the x and y faces, with the face
+// velocities uh/ixf(h), vh/iyf(h) computed once) are computed. Blocks on
+// the domain's edge also write the halo zeros next to their tile.
 #include <cuda_runtime.h>
 
+#include "tiles.cuh"
 #include "weno5_advection.cuh"
 
 template <typename T>
 struct ShallowWaterArgs {
   const T* psi[MAX_FIELDS];  // with-halo uh, vh, h, tracers
   const T* hB;               // with-halo bathymetry or nullptr
-  T* out[MAX_FIELDS];        // with-halo G, interior written
+  T* out[MAX_FIELDS];        // with-halo G: interior computed, halos zero
   int nf;                    // 3 + number of tracers
   int nx, ny, hx, hy;
   int weno_m, weno_t;        // momentum / tracers: 1 WENO5, 0 centred 2nd order
@@ -47,81 +64,211 @@ struct ShallowWaterArgs {
   T g, half_g;               // g and 0.5*g, each rounded once to T
 };
 
+constexpr int SW_TX = 16, SW_TY = 64, SW_THREADS = 256, SW_R = 3;
+// shared-memory layout, in elements of T: the staged box (TX+6) x (TY+6)
+// per field, then the flux arrays
+constexpr int SW_BW = SW_TY + 2 * SW_R;                 // staged row length
+constexpr int SW_BOX = (SW_TX + 2 * SW_R) * SW_BW;
+constexpr int SW_XF = (SW_TX + 1) * SW_TY;              // x faces (or centres) x TY
+constexpr int SW_YF = SW_TX * (SW_TY + 1);              // TX x y faces (or centres)
+
+// elements of T: uh, vh, h, huu, hvu, huv, hvv; with tracers two tracer
+// buffers, the face velocities, one tracer's face fluxes and div(u, v)
+static int shallow_water_smem_elems(int nf) {
+  int n = 3 * SW_BOX + 2 * (SW_XF + SW_YF);
+  if (nf > 3) n += 2 * SW_BOX + 2 * (SW_XF + SW_YF) + SW_TX * SW_TY;
+  return n;
+}
+
 template <typename T>
-__global__ void __launch_bounds__(256)
-fused_shallow_water_tendencies_kernel(const ShallowWaterArgs<T> A) {
-  const int64_t n = (int64_t)A.nx * A.ny;
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const int I = (int)(p / A.ny) + A.hx;   // with-halo indices
-  const int J = (int)(p % A.ny) + A.hy;
-  const int64_t sx = A.ny + 2 * A.hy, sy = 1;
-  const int64_t o = I * sx + J;
-  const T* __restrict__ uh = A.psi[0];
-  const T* __restrict__ vh = A.psi[1];
-  const T* __restrict__ h = A.psi[2];
+__global__ void __launch_bounds__(SW_THREADS)
+fused_shallow_water_tendencies_kernel(const __grid_constant__ ShallowWaterArgs<T> A) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const int X = A.nx + 2 * A.hx, Y = A.ny + 2 * A.hy;
+  const int64_t gsx = Y;                     // global x stride (y is contiguous)
+  // the tile: interior with-halo indices [I0, I1) x [J0, J1)
+  const int I0 = A.hx + (int)blockIdx.y * SW_TX, I1 = min(I0 + SW_TX, A.hx + A.nx);
+  const int J0 = A.hy + (int)blockIdx.x * SW_TY, J1 = min(J0 + SW_TY, A.hy + A.ny);
+  const int BI = I0 - SW_R, BJ = J0 - SW_R;  // staged box origin
+  const int tid = threadIdx.x;
+
+  T* const suh = sm;
+  T* const svh = sm + SW_BOX;
+  T* const sh = sm + 2 * SW_BOX;
+  T* const HUU = sm + 3 * SW_BOX;            // (TX+1) x TY, x centres from I0-1
+  T* const HVU = HUU + SW_XF;                // TX x (TY+1), y faces from J0
+  T* const HUV = HVU + SW_YF;                // (TX+1) x TY, x faces from I0
+  T* const HVV = HUV + SW_XF;                // TX x (TY+1), y centres from J0-1
+  T* const tbuf0 = HVV + SW_YF;              // with tracers only
+  T* const tbuf1 = tbuf0 + SW_BOX;
+  T* const UF = tbuf1 + SW_BOX;              // (TX+1) x TY, x faces from I0
+  T* const VF = UF + SW_XF;                  // TX x (TY+1), y faces from J0
+  T* const FX = VF + SW_YF;
+  T* const FY = FX + SW_XF;
+  T* const DIVU = FY + SW_YF;                // TX x TY
+
+  // stage uh, vh, h over the box clipped to the array (every read below
+  // stays inside the array, as the plain version's does)
+  const int ci0 = max(BI, 0), ci1 = min(I1 + SW_R, X);
+  const int cj0 = max(BJ, 0), cj1 = min(J1 + SW_R, Y);
+  // (a copy's rows run along x; y, the contiguous axis, is its k)
+  auto stage = [&](T* dst, const T* src) {
+    copy_box_async(dst, src, gsx, (int64_t)0, ci0, ci1, 0, 1, cj0, cj1, BI, 0, BJ,
+                   SW_BW, 0);
+  };
+  for (int f = 0; f < 3; ++f) stage(sm + f * SW_BOX, A.psi[f]);
+  copy_async_commit();
+  if (A.nf > 3) {
+    stage(tbuf0, A.psi[3]);
+    copy_async_commit();
+  }
+
+  // halo zeros: a block on the domain's edge owns the halo rows and columns
+  // next to its tile (corners included), so every halo point is written once
+  {
+    const int ri0 = I0 == A.hx ? 0 : I0, ri1 = I1 == A.hx + A.nx ? X : I1;
+    const int rj0 = J0 == A.hy ? 0 : J0, rj1 = J1 == A.hy + A.ny ? Y : J1;
+    if (ri0 != I0 || ri1 != I1 || rj0 != J0 || rj1 != J1) {
+      const int nj = rj1 - rj0, n = (ri1 - ri0) * nj;
+      for (int t = tid; t < n; t += SW_THREADS) {
+        const int i = ri0 + t / nj, j = rj0 + t % nj;
+        if (i >= I0 && i < I1 && j >= J0 && j < J1) continue;
+        for (int f = 0; f < A.nf; ++f) A.out[f][i * gsx + j] = T(0);
+      }
+    }
+  }
+
+  if (A.nf > 3) copy_async_wait<1>(); else copy_async_wait<0>();
+  __syncthreads();
+
   const T half = T(0.5);
   const T Ax = A.dy, Ay = A.dx, V = A.dx * A.dy;
   const bool wm = A.weno_m != 0, wt = A.weno_t != 0;
   const bool xm = wm && A.x_masks != 0, ym = wm && A.y_masks != 0;
-  // ixf(iyf(h)) at the (F, F) point of offset f
-  auto h_ff = [&](int64_t f) {
-    return half * (half * (h[f] + h[f - sy]) + half * (h[f - sx] + h[f - sx - sy]));
+  const int sx = SW_BW;                      // shared-memory x stride
+  auto at = [&](int i, int j) { return (i - BI) * sx + (j - BJ); };
+  // ixf(iyf(h)) at the (F, F) point of shared offset f
+  auto h_ff = [&](int f) {
+    return half * (half * (sh[f] + sh[f - 1]) + half * (sh[f - sx] + sh[f - sx - 1]));
   };
-  auto pressure = [&](int64_t c) { return (A.half_g * h[c]) * h[c]; };
+  auto pressure = [&](int c) { return (A.half_g * sh[c]) * sh[c]; };
 
-  // Guh at (F, C): x fluxes at centres I-1, I; y fluxes at faces J, J+1
-  {
-    auto huu = [&](int64_t c, int q) {  // centre c, x index q
-      const T vel = half * (uh[c + sx] + uh[c]);
-      return (Ax * transport_axis(uh, c + sx, sx, vel, wm, A.eps_m, xm, A.xb, q)) / h[c];
-    };
-    auto hvu = [&](int64_t f, int q) {  // y face f, y index q
-      const T vel = half * (vh[f] + vh[f - sx]);
-      return (Ay * transport_axis(uh, f, sy, vel, wm, A.eps_m, ym, A.yb, q)) / h_ff(f);
-    };
-    const T div = ((huu(o, I) - huu(o - sx, I - 1))
-                   + (hvu(o + sy, J + 1) - hvu(o, J))) / V;
-    T G = -div - (pressure(o) - pressure(o - sx)) / A.dx;
-    if (A.hB != nullptr)
-      G = G + ((A.g * (half * (h[o] + h[o - sx]))) * (A.hB[o] - A.hB[o - sx])) / A.dx;
-    A.out[0][o] = G;
+  // each face flux of the tile, once: the x-face arrays, then the y-face
+  // arrays, in one loop so that the block's threads stay evenly loaded
+  for (int u = tid; u < SW_XF + SW_YF; u += SW_THREADS) {
+    if (u < SW_XF) {
+      const int t = u, a = t / SW_TY, j = J0 + t % SW_TY;
+      if (j >= J1) continue;
+      const int i = I0 - 1 + a;  // huu at centre i: the to-centres x flux of uh over h
+      if (i < I1) {
+        const int c = at(i, j);
+        const T vel = half * (suh[c + sx] + suh[c]);
+        HUU[t] = ieee_div(Ax * transport_axis(suh, (int64_t)(c + sx), (int64_t)sx, vel,
+                                              wm, A.eps_m, xm, A.xb, i), sh[c]);
+      }
+      const int f = at(i + 1, j);  // huv at x face i+1: the x flux of vh over h_ff
+      const T vel = half * (suh[f] + suh[f - 1]);
+      HUV[t] = ieee_div(Ax * transport_axis(svh, (int64_t)f, (int64_t)sx, vel, wm,
+                                            A.eps_m, xm, A.xb, i + 1), h_ff(f));
+    } else {
+      const int t = u - SW_XF, i = I0 + t / (SW_TY + 1), b = t % (SW_TY + 1);
+      if (i >= I1) continue;
+      const int j = J0 + b;  // hvu at y face j: the y flux of uh over h_ff
+      if (j <= J1) {
+        const int f = at(i, j);
+        const T vel = half * (svh[f] + svh[f - sx]);
+        HVU[t] = ieee_div(Ay * transport_axis(suh, (int64_t)f, (int64_t)1, vel, wm,
+                                              A.eps_m, ym, A.yb, j), h_ff(f));
+      }
+      if (j - 1 < J1) {  // hvv at centre j-1: the to-centres y flux of vh over h
+        const int c = at(i, j - 1);
+        const T vel = half * (svh[c + 1] + svh[c]);
+        HVV[t] = ieee_div(Ay * transport_axis(svh, (int64_t)(c + 1), (int64_t)1, vel,
+                                              wm, A.eps_m, ym, A.yb, j - 1), sh[c]);
+      }
+    }
   }
-  // Gvh at (C, F): x fluxes at faces I, I+1; y fluxes at centres J-1, J
-  {
-    auto huv = [&](int64_t f, int q) {  // x face f, x index q
-      const T vel = half * (uh[f] + uh[f - sy]);
-      return (Ax * transport_axis(vh, f, sx, vel, wm, A.eps_m, xm, A.xb, q)) / h_ff(f);
-    };
-    auto hvv = [&](int64_t c, int q) {  // centre c, y index q
-      const T vel = half * (vh[c + sy] + vh[c]);
-      return (Ay * transport_axis(vh, c + sy, sy, vel, wm, A.eps_m, ym, A.yb, q)) / h[c];
-    };
-    const T div = ((huv(o + sx, I + 1) - huv(o, I))
-                   + (hvv(o, J) - hvv(o - sy, J - 1))) / V;
-    T G = -div - (pressure(o) - pressure(o - sy)) / A.dy;
-    if (A.hB != nullptr)
-      G = G + ((A.g * (half * (h[o] + h[o - sy]))) * (A.hB[o] - A.hB[o - sy])) / A.dy;
-    A.out[1][o] = G;
+  if (A.nf > 3) {  // the tracers' face velocities
+    for (int t = tid; t < SW_XF; t += SW_THREADS) {
+      const int i = I0 + t / SW_TY, j = J0 + t % SW_TY;
+      if (i > I1 || j >= J1) continue;
+      const int f = at(i, j);
+      UF[t] = ieee_div(suh[f], half * (sh[f] + sh[f - sx]));
+    }
+    for (int t = tid; t < SW_YF; t += SW_THREADS) {
+      const int i = I0 + t / (SW_TY + 1), j = J0 + t % (SW_TY + 1);
+      if (i >= I1 || j > J1) continue;
+      const int f = at(i, j);
+      VF[t] = ieee_div(svh[f], half * (sh[f] + sh[f - 1]));
+    }
   }
-  // Gh at (C, C)
-  A.out[2][o] = -((Ax * uh[o + sx] - Ax * uh[o]) + (Ay * vh[o + sy] - Ay * vh[o])) / V;
-  if (A.nf == 3) return;
-  // tracers at (C, C), advected by the velocities at the four faces
+  __syncthreads();
+
+  // Guh, Gvh, Gh at the tile's points
+  for (int t = tid; t < SW_TX * SW_TY; t += SW_THREADS) {
+    const int a = t / SW_TY, b = t % SW_TY;
+    const int i = I0 + a, j = J0 + b;
+    if (i >= I1 || j >= J1) continue;
+    const int o = at(i, j);
+    const int64_t go = i * gsx + j;
+    const int xf = a * SW_TY + b;            // (TX+1) x TY arrays at x index I0+a
+    const int yf = a * (SW_TY + 1) + b;      // TX x (TY+1) arrays at y index J0+b
+    {  // Guh at (F, C): x fluxes at centres i-1, i; y fluxes at faces j, j+1
+      const T div = ieee_div((HUU[xf + SW_TY] - HUU[xf]) + (HVU[yf + 1] - HVU[yf]), V);
+      T G = -div - ieee_div(pressure(o) - pressure(o - sx), A.dx);
+      if (A.hB != nullptr)
+        G = G + ieee_div((A.g * (half * (sh[o] + sh[o - sx]))) * (A.hB[go] - A.hB[go - gsx]),
+                         A.dx);
+      A.out[0][go] = G;
+    }
+    {  // Gvh at (C, F): x fluxes at faces i, i+1; y fluxes at centres j-1, j
+      const T div = ieee_div((HUV[xf + SW_TY] - HUV[xf]) + (HVV[yf + 1] - HVV[yf]), V);
+      T G = -div - ieee_div(pressure(o) - pressure(o - 1), A.dy);
+      if (A.hB != nullptr)
+        G = G + ieee_div((A.g * (half * (sh[o] + sh[o - 1]))) * (A.hB[go] - A.hB[go - 1]),
+                         A.dy);
+      A.out[1][go] = G;
+    }
+    A.out[2][go] = ieee_div(-((Ax * suh[o + sx] - Ax * suh[o]) + (Ay * svh[o + 1] - Ay * svh[o])),
+                            V);
+    if (A.nf > 3)
+      DIVU[t] = ieee_div((Ax * UF[xf + SW_TY] - Ax * UF[xf]) + (Ay * VF[yf + 1] - Ay * VF[yf]),
+                         V);
+  }
+
+  // tracers at (C, C), advected by the face velocities; tracer f+1 is
+  // copied into the other buffer while tracer f is computed
   const bool xt = wt && A.x_masks != 0, yt = wt && A.y_masks != 0;
-  const T uL = uh[o] / (half * (h[o] + h[o - sx]));
-  const T uR = uh[o + sx] / (half * (h[o + sx] + h[o]));
-  const T vL = vh[o] / (half * (h[o] + h[o - sy]));
-  const T vR = vh[o + sy] / (half * (h[o + sy] + h[o]));
-  const T div_U = ((Ax * uR - Ax * uL) + (Ay * vR - Ay * vL)) / V;
   for (int f = 3; f < A.nf; ++f) {
-    const T* __restrict__ c = A.psi[f];
-    const T fxR = Ax * transport_axis(c, o + sx, sx, uR, wt, A.eps_t, xt, A.xb, I + 1);
-    const T fxL = Ax * transport_axis(c, o, sx, uL, wt, A.eps_t, xt, A.xb, I);
-    const T fyR = Ay * transport_axis(c, o + sy, sy, vR, wt, A.eps_t, yt, A.yb, J + 1);
-    const T fyL = Ay * transport_axis(c, o, sy, vL, wt, A.eps_t, yt, A.yb, J);
-    const T div_Uc = ((fxR - fxL) + (fyR - fyL)) / V;
-    A.out[f][o] = -div_Uc + c[o] * div_U;
+    T* const sc = (f - 3) % 2 == 0 ? tbuf0 : tbuf1;
+    copy_async_wait<0>();
+    __syncthreads();  // tracer f staged; tracer f-1's buffer and fluxes free
+    if (f + 1 < A.nf) {
+      stage((f - 3) % 2 == 0 ? tbuf1 : tbuf0, A.psi[f + 1]);
+      copy_async_commit();
+    }
+    for (int t = tid; t < SW_XF; t += SW_THREADS) {
+      const int i = I0 + t / SW_TY, j = J0 + t % SW_TY;
+      if (i > I1 || j >= J1) continue;
+      FX[t] = Ax * transport_axis(sc, (int64_t)at(i, j), (int64_t)sx, UF[t], wt, A.eps_t,
+                                  xt, A.xb, i);
+    }
+    for (int t = tid; t < SW_YF; t += SW_THREADS) {
+      const int i = I0 + t / (SW_TY + 1), j = J0 + t % (SW_TY + 1);
+      if (i >= I1 || j > J1) continue;
+      FY[t] = Ay * transport_axis(sc, (int64_t)at(i, j), (int64_t)1, VF[t], wt, A.eps_t,
+                                  yt, A.yb, j);
+    }
+    __syncthreads();
+    for (int t = tid; t < SW_TX * SW_TY; t += SW_THREADS) {
+      const int a = t / SW_TY, b = t % SW_TY;
+      const int i = I0 + a, j = J0 + b;
+      if (i >= I1 || j >= J1) continue;
+      const int xf = a * SW_TY + b, yf = a * (SW_TY + 1) + b;
+      const T div_Uc = ieee_div((FX[xf + SW_TY] - FX[xf]) + (FY[yf + 1] - FY[yf]), V);
+      A.out[f][i * gsx + j] = -div_Uc + sc[at(i, j)] * DIVU[t];
+    }
   }
 }
 
@@ -148,12 +295,16 @@ static int launch(const void* const* psi, const void* hB, void* const* out,
   A.eps_m = T(eps_m); A.eps_t = T(eps_t);
   A.dx = T(dx); A.dy = T(dy);
   A.g = T(g); A.half_g = T(0.5 * g);
-  const int64_t n = (int64_t)nx * ny;
-  if (n == 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  fused_shallow_water_tendencies_kernel<T><<<(unsigned int)blocks, threads, 0,
-                                             static_cast<cudaStream_t>(stream)>>>(A);
+  if (nx <= 0 || ny <= 0) return 0;
+  const dim3 blocks((ny + SW_TY - 1) / SW_TY, (nx + SW_TX - 1) / SW_TX);
+  const int smem = shallow_water_smem_elems(nf) * (int)sizeof(T);
+  auto kernel = fused_shallow_water_tendencies_kernel<T>;
+  if (smem > 48 * 1024) {
+    const int rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != 0) return rc;
+  }
+  kernel<<<blocks, SW_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(A);
   return (int)cudaGetLastError();
 }
 

@@ -15,10 +15,12 @@ card that becomes two kernels:
   top. It runs in the model's ``update_state``; its plain version sums
   level by level in a Python loop, in the kernel's order.
 - K4b ``fused_hydrostatic_tendencies``
-  (``csrc/fused_hydrostatic_tendencies.cu``): one thread per with-halo
-  point, the interior ones computing ``hydrostatic_advective_core`` and,
-  with ``advance=(dt, euler)``, ψ′ = ψ + Δt(c₁G − c₂G⁻) too; halos are
-  written zero. Its plain version is the core (and ``ab2_substep``).
+  (``csrc/fused_hydrostatic_tendencies.cu``): a block per 16×8 tile of
+  interior columns (and chunk of levels), its fields staged in shared
+  memory, computing ``hydrostatic_advective_core`` and, with
+  ``advance=(dt, euler)``, ψ′ = ψ + Δt(c₁G − c₂G⁻) too, each face flux
+  once; the same launch writes the halos zero. Its plain version is the
+  core (and ``ab2_substep``).
 
 ``hydrostatic_advective_core`` is the JAX function, in plain torch; the
 model's plain path and K4b's plain version share it. Each wrapper runs

@@ -272,7 +272,8 @@ def _launch_shallow_water(grid, scheme, tracer_scheme, g, uh, vh, h, tracers,
         check_tensor(n, f, grid.total_shape, dtype, device)
     if bathymetry is not None:
         check_tensor("bathymetry", bathymetry, grid.total_shape, dtype, device)
-    out = [torch.zeros(grid.total_shape, dtype=dtype, device=device)
+    # K3a writes every point: the interior and the zero halos
+    out = [torch.empty(grid.total_shape, dtype=dtype, device=device)
            for _ in fields]
     fn = kernel_fn("fused_shallow_water_tendencies",
                    "fused_shallow_water_tendencies", dtype,

@@ -412,3 +412,54 @@ def test_cuda_other_free_surfaces_step_as_the_plain_run(free_surface):
     for n in tm.prognostic_names():
         _close(got["solution"][n], ref["solution"][n], 1e-12)
     _close(got["eta"], ref["eta"], 1e-12)
+
+
+def _smooth_or_zero_state(model, kind):
+    """The path's kind of fields: smooth u and v, T = S = 0 and b linear in
+    z (smooth), or every field zero; G⁻ = 0."""
+    g = model.grid
+    nx, ny, nz = g.shape
+    i = np.arange(nx)[:, None, None] * (2 * np.pi / nx)
+    j = np.arange(ny)[None, :, None] * (np.pi / ny)
+    k = np.arange(nz)[None, None, :] / nz
+    ones = np.ones(g.shape)
+    if kind == "zero":
+        state = model.initial_state()
+    else:
+        state = model.initial_state(
+            u=0.1 * np.sin(i) * np.cos(j) * (1 + 0.1 * k) * ones,
+            v=0.05 * np.cos(i) * np.sin(j) * ones,
+            b=lambda lam, phi, z: 2e-5 * (z + 3000.0) / 3000.0)
+    state["G_prev"] = {n: torch.zeros(g.total_shape, dtype=g.dtype, device=g.device)
+                       for n in model.prognostic_names()}
+    return state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fields", ["smooth", "zero"])
+@pytest.mark.parametrize("kind,size,mom,cor,dtype", [
+    ("latlon", (37, 19, 8), "vi-weno-velocity", "spherical-energy", torch.float32),
+    ("latlon", (35, 21, 9), "vi-energy", "spherical-enstrophy", torch.float64),
+    ("rect-bbb", (35, 21, 7), "flux-weno5", "betaplane", torch.float64)],
+    ids=["latlon-flagship-f32", "latlon-vi-energy-f64", "bbb-flux-weno5-f64"])
+def test_cuda_k4b_is_bitwise_its_plain_version(fields, kind, size, mom, cor, dtype):
+    """K4b, both forms, bit for bit against its plain version on the card,
+    on smooth and all-zero fields (where IEEE division would take its slow
+    path), on sizes that are not multiples of its 16×8 tile, with bounded
+    y (lat-lon) or bounded x, y and z walls; the halos are zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, tm = flagship_models(size=size, jax_model=False, device="cuda", dtype=dtype,
+                            kind=kind, mom=mom, cor=cor)
+    state = _smooth_or_zero_state(tm, fields)
+    g = tm.grid
+    for adv in (None, (600.0, False)):
+        got = tfh.fused_hydrostatic_tendencies(tm, state, adv)
+        ref = tfh.fused_hydrostatic_tendencies_reference(tm, state, adv)
+        got, ref = ((got,), (ref,)) if adv is None else (got, ref)
+        for gd, rd in zip(got, ref):
+            for n in rd:
+                assert torch.equal(g.interior(gd[n]), g.interior(rd[n])), n
+                halo = gd[n].clone()
+                halo[g.interior_slices] = 0
+                assert not halo.any(), "K4b wrote a nonzero halo"

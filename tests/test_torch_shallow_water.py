@@ -344,3 +344,55 @@ def test_cuda_kernel_matches_plain_version(dtype, topo, ntracers, bathymetry,
         assert not halo.any(), "the kernel wrote outside the interior"
         gi, ri = g[tg.interior_slices], r[tg.interior_slices]
         assert float((gi - ri).abs().max()) <= rtol * float(ri.abs().max())
+
+
+def smooth_or_zero_inputs(shape, kind, ntracers, bathymetry):
+    """The path's kind of fields: smooth (uh ~ 0.1, vh ~ 1e-7, h ~ 1), where
+    WENO5's weights fall to ~1e-24, or zero (h = 1); numpy, with halos."""
+    i = np.arange(shape[0])[:, None, None] * (2 * np.pi / shape[0])
+    j = np.arange(shape[1])[None, :, None] * (2 * np.pi / shape[1])
+    ones = np.ones(shape)
+    if kind == "zero":
+        z = 0.0 * ones
+        return (z, z, ones, [z] * ntracers, z if bathymetry else None)
+    uh = 0.1 * np.sin(i) * np.cos(j) * ones
+    vh = 1e-7 * np.sin(i) * np.sin(j) * ones
+    h = 1.0 + 1e-5 * np.cos(i) * np.cos(j) * ones
+    tracers = [np.cos(i + m) * ones for m in range(ntracers)]
+    hB = 0.01 * np.sin(j) * ones if bathymetry else None
+    return uh, vh, h, tracers, hB
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("fields,topo,size,ntracers,bathymetry", [
+    ("smooth", "bp", (70, 45), 2, True),
+    ("zero", "pb", (33, 130), 1, True),
+    ("smooth", "bb", (17, 65), 0, False),
+    ("zero", "pp", (40, 70), 2, False)],
+    ids=["smooth-bounded-x", "zero-bounded-y", "smooth-bounded-xy", "zero-periodic"])
+def test_cuda_kernel_is_bitwise_its_plain_version(dtype, fields, topo, size,
+                                                  ntracers, bathymetry):
+    """K3a bit for bit against its plain version on the card, on smooth and
+    all-zero fields (where IEEE division would take its slow path), on
+    sizes that are not multiples of its 16×64 tile, with a bounded wall on
+    each axis; the halos are zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tg = T.RectilinearGrid(size=size + (1,), x=(0, 2 * np.pi), y=(0, 1.5),
+                           topology=tuple({"p": T.PERIODIC, "b": T.BOUNDED}[t]
+                                          for t in topo) + (T.FLAT,),
+                           dtype=dtype, device="cuda").with_halo((3, 3, 0))
+    uh, vh, h, trs, hB = smooth_or_zero_inputs(tg.total_shape, fields, ntracers,
+                                               bathymetry)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    args = (tg, T.WENO5(), T.WENO5(), G, as_t(uh), as_t(vh), as_t(h),
+            [as_t(c) for c in trs], None if hB is None else as_t(hB))
+    got = tft.fused_shallow_water_tendencies(*args)
+    ref = tft.fused_shallow_water_tendencies_reference(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        halo = g.clone()
+        halo[tg.interior_slices] = 0
+        assert not halo.any(), "the kernel wrote a nonzero halo"
+        assert torch.equal(g[tg.interior_slices], r[tg.interior_slices])
