@@ -1,11 +1,26 @@
 """Where the time of the port's steps goes, on one NVIDIA GPU.
 
-    python3 chip_breakdown.py [hydrostatic] [shallow-water] [division]
-                              [k3a-division] [k4b-phases] [--steps N]
+    python3 chip_breakdown.py [ab2] [rk3] [hydrostatic] [shallow-water]
+                              [division] [k3a-division] [k4b-phases]
+                              [--steps N]
 
 With no part named, runs them all. Prints the card's name and power
 limit first. Needs a card; without one it exits with an error.
 
+- ``ab2``: the 256³ ``bench.py`` configuration of ``chip_smoke.py``'s AB2
+  path (quasi-AB2, the fused branch), its warm-up steps, then ``steps``
+  steps with CUDA events around K1 (the fused AB2 advance), the roll-based
+  projection on interiors and ``update_state`` (halo fills and pHY′);
+  "the rest" is the step's CUDA-event time minus their sum (the pads of
+  the corrected fields, dict work, Python).
+- ``rk3``: the 256³ RK3 flagship of ``chip_smoke.py``'s RK3 path (FPlane,
+  ScalarDiffusivity), likewise, around K2, the rest of ``tendencies``
+  (the eager Coriolis, −∂pHY′, ∇·(κ∇ψ) and flux BCs: ``tendencies`` less
+  K2), ``rk3_substep``, ``project_velocities`` (with its with-halo
+  copies) and ``update_state``, three of each a step. Both parts also
+  print the kernel's ms a call on the path's fields. They use only names
+  that ``chip_smoke.py`` and the port have had since the RK3 path came,
+  so the same file measures an older tree of the port in its place.
 - ``hydrostatic``: the ¼° flagship of ``benchmark/bench_hydro_flagship.py``
   built through the public API (as ``chip_smoke.py`` does), 3 warm-up
   steps, then ``steps`` steps (default 5) with CUDA events around each
@@ -18,7 +33,7 @@ limit first. Needs a card; without one it exits with an error.
   warm-up steps, then ``steps`` steps with CUDA events around K3a,
   ``rk3_substep`` and ``fill_all_halos``, three of each a step; "the
   rest" as above (``apply_flux_bcs``, dict work, Python).
-- Each of the two then runs ``torch.profiler`` over 3 more steps: the
+- Each of these four then runs ``torch.profiler`` over 3 more steps: the
   device's busy time (kernel durations summed) against the host clock,
   the idle share, and the kernels that took the most device time.
 - ``division``: the time of one fp32 and one fp64 division, by CUDA
@@ -52,11 +67,13 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from clima_oceananigans_jl_torch import (PERIODIC, FLAT, RectilinearGrid,
                                          ShallowWaterModel, WENO5)
 from clima_oceananigans_jl_torch.models import hydrostatic as hm
+from clima_oceananigans_jl_torch.models import nonhydrostatic as nm
 from clima_oceananigans_jl_torch.models import shallow_water as swm
 from clima_oceananigans_jl_torch.models.free_surface import SplitExplicitFreeSurface
 from clima_oceananigans_jl_torch.ops import _build
@@ -77,10 +94,11 @@ def timed(events, name, fn):
     return run
 
 
-def breakdown(label, step, state, events, patches, steps):
+def breakdown(label, step, state, events, patches, steps, inner=None):
     """``steps`` calls of ``step`` with ``patches`` [(object, attribute,
     label)] timed by CUDA events; prints each part's ms per step and
-    share, then the profiler's idle share over 3 more steps."""
+    share (a part of ``inner`` {outer: inner} less the inner part timed
+    within it), then the profiler's idle share over 3 more steps."""
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
     for obj, name, part in patches:
         setattr(obj, name, timed(events, part, getattr(obj, name)))
@@ -100,10 +118,16 @@ def breakdown(label, step, state, events, patches, steps):
     step_ms = sum(s.elapsed_time(e) for s, e in total) / steps
     parts = {name: sum(s.elapsed_time(e) for s, e in pairs) / steps
              for name, pairs in events.items()}
+    calls = {name: len(pairs) // steps for name, pairs in events.items()}
+    for outer, part in (inner or {}).items():
+        less = f"{outer} less {part}"
+        parts[less], calls[less] = parts.pop(outer) - parts[part], calls.pop(outer)
     parts["the rest"] = step_ms - sum(parts.values())
     print(f"{label}, {steps} steps, CUDA events: {step_ms:.4f} ms/step")
     for name, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
-        print(f"  {name}: {ms:.4f} ms ({100 * ms / step_ms:.1f}%)")
+        n = calls.get(name)
+        each = f", {n} calls, {ms / n:.4f} ms a call" if n and n > 1 else ""
+        print(f"  {name}: {ms:.4f} ms ({100 * ms / step_ms:.1f}%{each})")
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -127,6 +151,37 @@ def breakdown(label, step, state, events, patches, steps):
     for e in top:
         print(f"  {e.key[:60]}: {e.self_device_time_total / 3e3:.4f} ms/step, "
               f"{e.count // 3} calls/step")
+
+
+def nonhydrostatic(path, steps):
+    """The 256³ AB2 or RK3 path of chip_smoke.py, broken down."""
+    timestepper, dt, warmup, _, kw = chip_smoke.PATHS[path]
+    model = chip_smoke.model_for(chip_smoke.N, torch.float32,
+                                timestepper=timestepper, **kw)
+    rng = np.random.default_rng(0)
+    shape = model.grid.shape
+    state = model.initial_state(u=1e-2 * rng.standard_normal(shape),
+                                v=1e-2 * rng.standard_normal(shape),
+                                b=1e-4 * rng.standard_normal(shape))
+    for _ in range(warmup):
+        state = model.step(state, dt)
+    torch.cuda.synchronize()
+    events = collections.defaultdict(list)
+    if path == "AB2":
+        kernels = {"advance": timed(events, "K1", nm.KERNELS["advance"])}
+        patches = [(model, "_fast_project_interior", "projection"),
+                   (model, "update_state", "update_state")]
+        inner = None
+    else:
+        kernels = {"advect": timed(events, "K2", nm.KERNELS["advect"])}
+        patches = [(model, "tendencies", "tendencies"),
+                   (nm, "rk3_substep", "rk3_substep"),
+                   (model, "project_velocities", "project_velocities"),
+                   (model, "update_state", "update_state")]
+        inner = {"tendencies": "K2"}
+    step = lambda s, timed_parts: model.step(s, dt, kernels if timed_parts else None)
+    breakdown(f"{path} {chip_smoke.N}^3 fp32 step", step, state, events, patches,
+              steps, inner)
 
 
 def hydrostatic(steps):
@@ -388,7 +443,9 @@ def k4b_phases(steps):
         print(f"  {label}: {100 * cycles[i] / total:.1f}%")
 
 
-PARTS = {"hydrostatic": hydrostatic, "shallow-water": shallow_water,
+PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps),
+         "rk3": lambda steps: nonhydrostatic("RK3", steps),
+         "hydrostatic": hydrostatic, "shallow-water": shallow_water,
          "division": division, "k3a-division": k3a_division,
          "k4b-phases": k4b_phases}
 

@@ -15,15 +15,20 @@ the card, in phases; each prints one line or a few:
    ``csrc/fused_hydrostatic_tendencies.cu`` (K4b),
    ``csrc/fused_substep_eta.cu`` (K5) and ``csrc/fill_halos.cu`` (K6) with
    nvcc (sm_90a), one process each, all at once;
-3. K1 against its plain PyTorch version on the same inputs: the ``bench.py``
-   configuration at 256³ fp32 (Euler and AB2 form) and 64³ fp64, then with
-   its options, ``FPlane(f=1e-4)`` + ``ScalarDiffusivity(nu=1e-5,
+3. K1 against its plain PyTorch version on the same inputs, bit for bit
+   (max|Δ| = 0, or the phase raises), Euler and AB2 form, on every point of
+   ψ′ and G: the ``bench.py`` configuration at 256³ fp32 and 64³ fp64;
+   with its options, ``FPlane(f=1e-4)`` + ``ScalarDiffusivity(nu=1e-5,
    kappa=1e-5)`` at 256³ fp32 and ``BetaPlane`` + the same diffusivity at
-   64³ fp64; max|Δ| ≤ 1e-6·max|ref| in fp32 and ≤ 1e-13·max|ref| in fp64;
-   K1's time (CUDA events, 20 calls) and the plain version's (3 calls);
-4. K2 against its plain version, on the interior and w's top wall face:
-   256³ fp32 WENO5/WENO5 with u, v, w, b and 64³ fp64 WENO5 momentum with
-   two centred tracers, same bounds; times;
+   64³ fp64; the with-halo G layout (an imposed w value at the top wall,
+   G's halos written as zeros), 16 fields, sizes off the kernel's 8×12×32
+   tiles, all-zero and smooth fields (``K1_CASES``); K1's time on random
+   fields at 256³ (CUDA events, 20 calls) and the plain version's (3
+   calls);
+4. K2 against its plain version bit for bit, on the interior, w's top wall
+   face and the zero halos: 256³ fp32 WENO5/WENO5 with u, v, w, b, then
+   fp64 with centred tracers, 16 fields, sizes off the tiles, all-zero
+   and smooth fields (``K2_CASES``); times at 256³ on random fields;
 5. K3a against its plain version, bit for bit (max|Δ| = 0, or the phase
    raises): 16384² fp32 uh, vh, h (the shallow-water headline), 1000×777
    fp32 (Bounded, Bounded) and 1024×768 fp64 (Periodic, Bounded), both
@@ -34,12 +39,15 @@ the card, in phases; each prints one line or a few:
 7. AB2 path: the ``bench.py`` configuration built through the public API,
    2 warm-up and 20 timed steps at Δt = 1e-4, with K1 and then with the
    plain version; fields finite, one K1 launch per step (no other),
-   max|∇·u|·Δx/max|u| ≤ 1e-5, and the two runs agree to ≤ 1e-4;
+   max|∇·u|·Δx/max|u| ≤ 1e-5, and the two runs agree exactly; K1 held
+   bit for bit and timed against its plain version on the path's fields
+   after the kernel run, which go into K1's record;
 8. RK3 path: the flagship configuration of ``__graft_entry__.py``
    (WENO5, BuoyancyTracer, FPlane(f=1e-4), ScalarDiffusivity(nu=1e-5,
    kappa=1e-5), RK3), 2 warm-up and 10 timed steps at Δt = 1e-3, with K2
    and then with its plain version; the same checks, with exactly 3 K2
-   launches per step (no other);
+   launches per step (no other); K2's times on the path's fields go into
+   its record;
 9. shallow-water path: the headline of ``benchmark/bench_shallow_water.py``
    (16384² fp32, (Periodic, Periodic, Flat) on [0, 2π]², g = 10, WENO5,
    uh = 0.1 sin x cos y, h = 1, RK3 at Δt = 1e-4), 2 warm-up and 10 timed
@@ -52,8 +60,8 @@ the card, in phases; each prints one line or a few:
    ``FluxBC()`` at both z walls of w, 2 warm-up and 5 timed steps with the
    kernels and then the plain versions; exactly 3 K2, 3 K3b and 3 K3c
    launches per step (no other); the flux walls keep a net wall flux, so
-   the check is max|∇·u − mean ∇·u|·Δx/max|u| ≤ 1e-5; the runs agree to
-   ≤ 1e-6 (the other paths' bound is 1e-4);
+   the check is max|∇·u − mean ∇·u|·Δx/max|u| ≤ 1e-5; the runs agree
+   exactly;
 11. K4a and K4b against their plain versions: the ¼° flagship
    (1440×600×24 lat-lon, stretched z, weno_velocity momentum, WENO5 T, S,
    b, spherical Coriolis) in fp32 on random fields, K4b in both forms,
@@ -109,7 +117,7 @@ from clima_oceananigans_jl_torch import (BOUNDED, FLAT, PERIODIC, BetaPlane,
                                          LatitudeLongitudeGrid,
                                          NonhydrostaticModel, RectilinearGrid,
                                          ScalarDiffusivity, ShallowWaterModel,
-                                         SplitExplicitFreeSurface,
+                                         SplitExplicitFreeSurface, ValueBC,
                                          VectorInvariant, WENO5)
 from clima_oceananigans_jl_torch.models import (hydrostatic, nonhydrostatic,
                                                 shallow_water)
@@ -161,11 +169,11 @@ REPLACES = {K1: "clima_oceananigans_jl_tpu/ops/fused_step.py:129",
             K5: "clima_oceananigans_jl_tpu/ops/fused_barotropic.py:102",
             K6: "clima_oceananigans_jl_tpu/ops/fused_fill.py:139"}
 #: operations per point that each kernel's function needs, each face flux
-#: counted once, as K3a and K4b compute it (K1 and K2 compute it in both
-#: cells beside the face) (a WENO5 reconstruction ~60 with its divisions,
-#: a transport ~64 with the velocity and metric products): K1/K2 four
-#: fields × three transports (768) plus the divergences (~32) and K1's
-#: −∂pHY′ and AB2 epilogue (~20); K3a four transports and the pressure
+#: counted once, as the kernels compute it (a WENO5 reconstruction ~60
+#: with its divisions, a transport ~64 with the velocity and metric
+#: products): K1/K2 four fields × three transports (768) plus the
+#: divergences (~32) and K1's −∂pHY′ and AB2 epilogue (~20); K3a four
+#: transports and the pressure
 #: terms; K4b two weno_velocity vorticity reconstructions and Coriolis
 #: (~400), three tracers × three fluxes, the z one two-sided with the
 #: tables (~850), and the divergences and AB2 epilogue (~50); K5 ~32 per
@@ -192,17 +200,20 @@ PER_STEP = {"AB2": {K1: 1}, "RK3": {K2: 3}, "shallow water": {K3A: 3},
             "general projection": {K2: 3, K3B: 3, K3C: 3},
             "hydrostatic": {K4A: 1, K4B: 1, K5: 60, K6: 2}}
 #: how far the kernel and plain runs of a path may differ, of max|field|;
-#: the general projection's and the hydrostatic path's kernels are bitwise
-#: their plain versions, so a gap there (such as an unwritten wall face) is
-#: a fault, not rounding
-AGREE = {"AB2": 1e-4, "RK3": 1e-4, "shallow water": 1e-4,
-         "general projection": 1e-6, "hydrostatic": 1e-6}
+#: every kernel is bitwise its plain version, so a gap (such as an
+#: unwritten wall face) is a fault, not rounding: the 256³ paths of K1 and
+#: K2 are held to exact agreement
+AGREE = {"AB2": 0.0, "RK3": 0.0, "shallow water": 1e-4,
+         "general projection": 0.0, "hydrostatic": 1e-6}
 #: the ¼° hydrostatic flagship (benchmark/bench_hydro_flagship.py:24-41)
 HYDRO = dict(size=(1440, 600, 24), dt=600.0, substeps=30, warmup=2, steps=5)
 
 
 def model_for(n, dtype, **kw):
-    grid = RectilinearGrid(size=(n, n, n), extent=(1.0, 1.0, 1.0),
+    """The nonhydrostatic WENO5 model on the card with n³ cells, or with
+    ``n`` = (nx, ny, nz) cells."""
+    size = n if isinstance(n, tuple) else (n, n, n)
+    grid = RectilinearGrid(size=size, extent=(1.0, 1.0, 1.0),
                            topology=(PERIODIC, PERIODIC, BOUNDED),
                            dtype=dtype, device=DEVICE)
     return NonhydrostaticModel(grid, advection=WENO5(),
@@ -286,12 +297,29 @@ def bound(name, nbytes, points):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def random_state(model, seed):
+def wave(shape, kind):
+    """a → a numpy field of ``shape`` of phase a: all zero (``kind``
+    "zero") or smooth with amplitude ~1e-6 ("smooth"), where WENO5's
+    weights fall to ~1e-24 and division meets its slow operands."""
+    x, y, z = np.meshgrid(*(np.arange(n) for n in shape), indexing="ij")
+    amp = 0.0 if kind == "zero" else 1e-6
+    return lambda a: amp * np.sin(0.3 * x + a) * np.cos(0.2 * y + a) * (1.0 + 0.01 * z)
+
+
+def random_state(model, seed, kind="random"):
+    """A state of ``model`` on the card with G_prev in its layout:
+    numpy-seeded random fields, or ``wave`` fields of ``kind``."""
     rng = np.random.default_rng(seed)
     shape = model.grid.shape
-    rand = lambda s: s * rng.standard_normal(shape)
-    state = model.initial_state(u=rand(1e-2), v=rand(1e-2), w=rand(1e-3),
-                                b=rand(1e-4))
+    if kind == "random":
+        rand = lambda s: s * rng.standard_normal(shape)
+        state = model.initial_state(u=rand(1e-2), v=rand(1e-2), w=rand(1e-3),
+                                    **{n: rand(1e-4 if n == "b" else 1.0)
+                                       for n in model.tracer_names})
+    else:
+        field = wave(shape, kind)
+        state = model.initial_state(**{n: field(a) for a, n in
+                                       enumerate(model.prognostic_names())})
     g_shape = shape if model.g_interior else model.grid.total_shape
     state["G_prev"] = {
         k: torch.as_tensor(1e-2 * rng.standard_normal(g_shape),
@@ -300,65 +328,143 @@ def random_state(model, seed):
     return state
 
 
+def hold_k1(label, model, state, dt=1e-4):
+    """K1 against its plain version bit for bit, Euler and AB2 form, on
+    every point of psi' and G (in the with-halo layout G's halos, which
+    the kernel writes as zeros); returns the AB2 form's outputs and the
+    largest max|Δ| of both forms."""
+    worst = 0.0
+    for euler in (True, False):
+        psi_k, g_k = fused_ab2_advance(model, state, dt, euler)
+        psi_r, g_r = fused_ab2_advance_reference(model, state, dt, euler)
+        worst = max(worst, hold(f"{label} {'euler' if euler else 'ab2'}"
+                                + ("" if model.g_interior else ", G with halos"),
+                                {"psi'": psi_k, "G": g_k}, {"psi'": psi_r, "G": g_r},
+                                model.grid.dtype, exact=True))
+    return psi_k, g_k, worst
+
+
+#: K1's cases beyond the bench configuration: (size, dtype, name, model
+#: options, fields): its options, the with-halo G layout (an imposed w
+#: value at the top wall), sizes off the kernel's 8×12×32 tiles, 16 fields,
+#: and all-zero and smooth fields
+K1_CASES = (
+    ((64, 64, 64), torch.float64, "bench", "none", "random"),
+    ((N, N, N), torch.float32, "fplane+diffusion", "fplane", "random"),
+    ((64, 64, 64), torch.float64, "betaplane+diffusion", "beta", "random"),
+    ((100, 77, 45), torch.float32, "bench, with-halo G", "w_top", "random"),
+    ((100, 77, 45), torch.float32, "fplane+diffusion, 16 fields", "sixteen", "random"),
+    ((72, 40, 36), torch.float64, "betaplane+diffusion, 16 fields", "beta16", "smooth"),
+    ((64, 64, 64), torch.float32, "fplane+diffusion", "fplane", "zero"),
+    ((64, 64, 64), torch.float32, "bench", "none", "smooth"),
+)
+
+
+def k1_options(name):
+    diffusivity = ScalarDiffusivity(nu=1e-5, kappa=1e-5)
+    sixteen = dict(tracers=tuple(f"c{i}" for i in range(12)))
+    return {"none": {},
+            "fplane": dict(coriolis=FPlane(f=1e-4), closure=diffusivity),
+            "beta": dict(coriolis=BetaPlane(f0=1e-4, beta=1e-2),
+                         closure=diffusivity),
+            "w_top": dict(boundary_conditions={
+                "w": FieldBCs(top=ValueBC(1e-3))}),
+            "sixteen": dict(coriolis=FPlane(f=1e-4), closure=diffusivity,
+                            **sixteen),
+            "beta16": dict(coriolis=BetaPlane(f0=1e-4, beta=1e-2),
+                           closure=diffusivity, **sixteen)}[name]
+
+
 def phase_k1():
-    """K1 against its plain version, without and with its options; returns
-    (max_abs_err, ms, plain_ms, bound_ms, bound_by) at 256³ fp32, the
-    times of the bench configuration."""
-    options = dict(coriolis=FPlane(f=1e-4),
-                   closure=ScalarDiffusivity(nu=1e-5, kappa=1e-5))
-    beta = dict(coriolis=BetaPlane(f0=1e-4, beta=1e-2),
-                closure=ScalarDiffusivity(nu=1e-5, kappa=1e-5))
-    worst, times = 0.0, {}
-    for n, dtype, name, kw in ((N, torch.float32, "bench", {}),
-                               (64, torch.float64, "bench", {}),
-                               (N, torch.float32, "fplane+diffusion", options),
-                               (64, torch.float64, "betaplane+diffusion", beta)):
-        model = model_for(n, dtype, **kw)
-        if not model.fused_step:
+    """K1 against its plain version bit for bit; returns (max_abs_err over
+    every case, ms, plain_ms, bound_ms, bound_by), the times those of the
+    bench configuration at 256³ fp32 on random fields."""
+    model = model_for(N, torch.float32)
+    if not model.fused_step or not model.g_interior:
+        raise AssertionError("K1 bench: the model does not take K1")
+    state = random_state(model, 1)
+    psi_k, g_k, worst = hold_k1(f"K1 bench {N}^3 fp32", model, state)
+    ms = cuda_ms(lambda: fused_ab2_advance(model, state, 1e-4, False), 20)
+    plain_ms = cuda_ms(lambda: fused_ab2_advance_reference(
+        model, state, 1e-4, False), 3)
+    nb = tensor_bytes(state["solution"].values(), state["G_prev"].values(),
+                      [state["pHY"]], psi_k.values(), g_k.values())
+    k1_bound = bound(K1, nb, N ** 3)
+    print(f"K1 bench {N}^3 fp32 ab2 time on random fields: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms (CUDA events)")
+    del model, state, psi_k, g_k
+    torch.cuda.empty_cache()
+    for size, dtype, name, options, kind in K1_CASES:
+        model = model_for(size, dtype, **k1_options(options))
+        if not model.fused_step or model.g_interior != (options != "w_top"):
             raise AssertionError(f"K1 {name}: the model does not take K1")
-        state = random_state(model, 1)
-        interior = None if model.g_interior else model.grid.interior
-        for euler in (True, False):
-            psi_k, g_k = fused_ab2_advance(model, state, 1e-4, euler)
-            psi_r, g_r = fused_ab2_advance_reference(model, state, 1e-4, euler)
-            err = hold(f"K1 {name} {n}^3 {str(dtype)[6:]} "
-                       f"{'euler' if euler else 'ab2'}",
-                       {"psi'": psi_k, "G": g_k}, {"psi'": psi_r, "G": g_r},
-                       dtype, interior)
-            if n == N:
-                worst = max(worst, err)
-        if n == N:
-            ms = cuda_ms(lambda: fused_ab2_advance(model, state, 1e-4, False), 20)
-            plain_ms = cuda_ms(lambda: fused_ab2_advance_reference(
+        state = random_state(model, 1, kind)
+        worst = max(worst, hold_k1(
+            f"K1 {name} {'x'.join(map(str, size))} {str(dtype)[6:]} {kind}",
+            model, state)[2])
+        if options == "fplane" and kind == "random":
+            opt_ms = cuda_ms(lambda: fused_ab2_advance(model, state, 1e-4, False), 20)
+            opt_plain_ms = cuda_ms(lambda: fused_ab2_advance_reference(
                 model, state, 1e-4, False), 3)
-            nb = tensor_bytes(state["solution"].values(),
-                              state["G_prev"].values(), [state["pHY"]],
-                              psi_k.values(), g_k.values())
-            times[name] = (ms, plain_ms, *bound(K1, nb, n ** 3))
-            print(f"K1 {name} {n}^3 fp32 ab2 time: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms (CUDA events)")
+            print(f"K1 {name} {N}^3 fp32 ab2 time: kernel {opt_ms:.4f} ms, plain "
+                  f"{opt_plain_ms:.4f} ms (CUDA events)")
         del model, state
         torch.cuda.empty_cache()
-    return (worst, *times["bench"])
+    return worst, ms, plain_ms, *k1_bound
 
 
 def hold_k2(label, args, dtype):
-    """K2 against its plain version on the interior of every field and on
-    w's top wall face (with-halo z index hz+nz), which K2 also writes on a
-    bounded z axis; returns the largest max|Δ|."""
+    """K2 against its plain version bit for bit on the interior of every
+    field and on w's top wall face (with-halo z index hz+nz), which K2 also
+    writes on a bounded z axis, and its other halo points zero; returns the
+    largest max|Δ|."""
     grid = args[0]
     got = fused_advective_tendencies(*args)
     ref = fused_advective_tendencies_reference(*args)
     (hx, hy, hz), (nx, ny, nz) = grid.halo, grid.shape
     top = lambda a: a[hx:hx + nx, hy:hy + ny, hz + nz]
-    return max(hold(label, {"G": got}, {"G": ref}, dtype, grid.interior),
-               hold(f"{label}, w's top wall face", {"G": {"w": top(got["w"])}},
-                    {"G": {"w": top(ref["w"])}}, dtype))
+    worst = max(hold(label, {"G": got}, {"G": ref}, dtype, grid.interior,
+                     exact=True),
+                hold(f"{label}, w's top wall face", {"G": {"w": top(got["w"])}},
+                     {"G": {"w": top(ref["w"])}}, dtype, exact=True))
+    for name, g in got.items():
+        rest = g.clone()
+        rest[grid.interior_slices] = 0
+        if name == "w":
+            top(rest).zero_()
+        if rest.isnan().any() or rest.any():
+            raise AssertionError(f"{label} {name}: a halo point is not zero")
+    return worst
+
+
+#: K2's cases beyond 256³ fp32: (size, dtype, momentum, tracer scheme,
+#: tracers, fields): sizes off the 8×12×32 tiles, 16 fields, fp64 chunks,
+#: all-zero and smooth fields
+K2_CASES = (
+    ((64, 64, 64), torch.float64, WENO5, CenteredSecondOrder, 2, "random"),
+    ((100, 77, 45), torch.float32, WENO5, WENO5, 13, "random"),
+    ((72, 40, 36), torch.float64, CenteredSecondOrder, WENO5, 13, "smooth"),
+    ((64, 64, 64), torch.float32, WENO5, WENO5, 1, "zero"),
+    ((100, 77, 45), torch.float32, WENO5, WENO5, 1, "smooth"),
+)
+
+
+def k2_args(grid, momentum, tracer_scheme, ntracers, kind, seed=3):
+    """K2's arguments on ``grid`` with fields of ``kind`` (as random_state)."""
+    rng = np.random.default_rng(seed)
+    shape = grid.total_shape
+    field = ((lambda a: rng.standard_normal(shape)) if kind == "random"
+             else wave(shape, kind))
+    f = [torch.as_tensor(field(a), dtype=grid.dtype, device=DEVICE)
+         for a in range(3 + ntracers)]
+    return (grid, momentum(), tracer_scheme(), f[0], f[1], f[2],
+            {f"c{i}": c for i, c in enumerate(f[3:])})
 
 
 def phase_k2():
-    """K2 against its plain version; returns (max_abs_err, ms, plain_ms,
-    bound_ms, bound_by) at 256³ fp32."""
+    """K2 against its plain version bit for bit; returns (max_abs_err over
+    every case, ms, plain_ms, bound_ms, bound_by), the times at 256³ fp32
+    on random fields."""
     model = model_for(N, torch.float32)
     sol = random_state(model, 2)["solution"]
     grid = model.grid
@@ -367,21 +473,21 @@ def phase_k2():
     worst = hold_k2(f"K2 WENO5/WENO5 {N}^3 fp32", args, torch.float32)
     ms = cuda_ms(lambda: fused_advective_tendencies(*args), 20)
     plain_ms = cuda_ms(lambda: fused_advective_tendencies_reference(*args), 3)
-    print(f"K2 WENO5/WENO5 {N}^3 fp32 time: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms (CUDA events)")
+    print(f"K2 WENO5/WENO5 {N}^3 fp32 time on random fields: kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms (CUDA events)")
     # four with-halo fields in, four with-halo tendencies out
     k2_bound = bound(K2, 2 * tensor_bytes(args[3:6], [sol["b"]]), N ** 3)
     del model, sol, args
     torch.cuda.empty_cache()
-    grid = RectilinearGrid(size=(64, 64, 64), extent=(1.0, 1.0, 1.0),
-                           topology=(PERIODIC, PERIODIC, BOUNDED),
-                           dtype=torch.float64, device=DEVICE)
-    rng = np.random.default_rng(3)
-    f = [torch.as_tensor(rng.standard_normal(grid.total_shape), device=DEVICE)
-         for _ in range(5)]
-    args = (grid, WENO5(), CenteredSecondOrder(), f[0], f[1], f[2],
-            {"c1": f[3], "c2": f[4]})
-    hold_k2("K2 WENO5/centred 64^3 fp64, two tracers", args, torch.float64)
+    for size, dtype, momentum, tracer_scheme, nt, kind in K2_CASES:
+        grid = RectilinearGrid(size=size, extent=(1.0, 1.0, 1.0),
+                               topology=(PERIODIC, PERIODIC, BOUNDED),
+                               dtype=dtype, device=DEVICE)
+        worst = max(worst, hold_k2(
+            f"K2 {momentum.__name__}/{tracer_scheme.__name__} "
+            f"{'x'.join(map(str, size))} {str(dtype)[6:]}, {3 + nt} fields, "
+            f"{kind}", k2_args(grid, momentum, tracer_scheme, nt, kind), dtype))
+        torch.cuda.empty_cache()
     return worst, ms, plain_ms, *k2_bound
 
 
@@ -549,9 +655,36 @@ def check_finite(path, model, state, keys=()):
             raise AssertionError(f"{path} {key}: non-finite values")
 
 
+def path_kernel_times(path, model, state):
+    """The path's kernel (K1 on AB2, K2 on RK3) held bit for bit and timed
+    against its plain version on the path's own fields after its steps
+    (smooth, unlike the random inputs of phases 3 and 4); returns (max|Δ|,
+    ms, plain_ms)."""
+    if path == "AB2":
+        err = hold_k1(f"K1 {N}^3 fp32 on the path's fields", model, state)[2]
+        call = lambda: fused_ab2_advance(model, state, PATHS[path][1], False)
+        plain = lambda: fused_ab2_advance_reference(model, state,
+                                                     PATHS[path][1], False)
+        name = "K1"
+    else:
+        sol = state["solution"]
+        args = (model.grid, model.advection, model.tracer_advection,
+                sol["u"], sol["v"], sol["w"],
+                {n: sol[n] for n in model.tracer_names})
+        err = hold_k2(f"K2 {N}^3 fp32 on the path's fields", args, torch.float32)
+        call = lambda: fused_advective_tendencies(*args)
+        plain = lambda: fused_advective_tendencies_reference(*args)
+        name = "K2"
+    ms, plain_ms = cuda_ms(call, 20), cuda_ms(plain, 3)
+    print(f"{name} {N}^3 fp32 on the {path} path's fields time: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events)")
+    return err, ms, plain_ms
+
+
 def phase_path(path):
     """One 256³ path with the kernels, checked, then with the plain
-    versions; returns the kernel run's launch counts."""
+    versions; returns the kernel run's launch counts and, on the AB2 and
+    RK3 paths, K1's or K2's (max|Δ|, ms, plain_ms) on the path's fields."""
     model, state, per_step, launches = drive(path, plain=False)
     check_finite(path, model, state, ("pHY", "pNHS"))
     uniform = path == "general projection"
@@ -564,6 +697,7 @@ def phase_path(path):
     print(f"{path} path: {N}^3 fp32, {steps} steps: {per_step * 1e3:.3f} ms/step, "
           f"{N ** 3 / per_step:.6e} grid points/s, launches {used} in "
           f"{warmup + steps} steps, {what} {ratio:.3e}")
+    times = path_kernel_times(path, model, state) if path in ("AB2", "RK3") else None
     kernel_u = {k: model.grid.interior(a) for k, a in state["solution"].items()}
     del state
     model, state, plain_step, _ = drive(path, plain=True)
@@ -573,7 +707,7 @@ def phase_path(path):
           f"agree to {worst:.3e} of max|field|")
     del model, state, kernel_u
     torch.cuda.empty_cache()
-    return launches
+    return launches, times
 
 
 def drive_shallow_water(plain):
@@ -932,12 +1066,18 @@ def main():
     measured.update(phase_k4())
     measured[K5] = phase_k5()
     measured[K6] = phase_k6()
-    launches = {K1: phase_path("AB2")[K1], K2: phase_path("RK3")[K2]}
+    launches = {}
+    for path, name in (("AB2", K1), ("RK3", K2)):
+        path_launches, (err, ms, plain_ms) = phase_path(path)
+        launches[name] = path_launches[name]
+        # K1's and K2's times on their paths' fields
+        measured[name] = (max(measured[name][0], err), ms, plain_ms,
+                          *measured[name][3:])
     sw_launches, ms, plain_ms = phase_shallow_water()
     launches[K3A] = sw_launches[K3A]
     # K3a's times on the path's fields
     measured[K3A] = (measured[K3A][0], ms, plain_ms, *measured[K3A][3:])
-    general = phase_path("general projection")
+    general, _ = phase_path("general projection")
     launches.update({K3B: general[K3B], K3C: general[K3C]})
     hydro, ms, plain_ms = phase_hydrostatic()
     launches.update({k: hydro[k] for k in (K4A, K4B, K5, K6)})

@@ -8,7 +8,7 @@
 //   psi' = psi + dt (c1 G - c2 G_prev)
 //
 // and writes psi' halo-free (nx, ny, nz) and G in the model's G_prev layout:
-// halo-free, or the interior of a zeroed with-halo array (`g_halo`).
+// halo-free, or with-halo (`g_halo`) with the halos written as zeros.
 //
 // Replaces the TPU kernel clima_oceananigans_jl_tpu/ops/fused_step.py::
 // fused_ab2_advance, its options included. It computes what that kernel
@@ -19,8 +19,9 @@
 // with-halo y, built from grid.nodes), div_kappa_grad of
 // closures/scalar_diffusivity.py. The diffusion reads real z halos: the
 // mirror fill of a zero-gradient wall gives the zero wall flux that the
-// TPU kernel imposes on its z-halo-free blocks. Build with --fmad=false so
-// the compiler forms no FMA that eager PyTorch does not.
+// TPU kernel imposes on its z-halo-free blocks. Every division is ieee_div
+// (IEEE's own quotient); build with --fmad=false so the compiler forms no
+// FMA that eager PyTorch does not.
 //
 // What bounds it on an H100: memory. At 256^3 fp32 it reads about 0.63 GB
 // (five with-halo fields u, v, w, b, pHY' at 72 MB, four halo-free G_prev
@@ -28,17 +29,19 @@
 // 0.35 ms at 3.35 TB/s if each byte moves once. The function needs ~820
 // flops per point (12 WENO5 transports of ~64 flops, three faces for each
 // of four fields, then the divergences, -d(pHY')/dx and the epilogue), some
-// 14 GFLOP, about 0.2 ms at the 67 TFLOP/s fp32 peak; the kernel computes
-// each face in both cells beside it, 24 per point. The options add a few
-// loads and ~30 flops per field.
+// 14 GFLOP, about 0.2 ms at the 67 TFLOP/s fp32 peak. The options add a few
+// loads and ~30 flops per field. In practice, as K2, its exact divisions
+// and dependent WENO5 chains bound it by instruction issue.
 //
-// The design is the simple one: one thread per interior point (i, j, k),
-// k (the contiguous axis) across the threads of a warp, neighbours read
-// straight from global memory through L1/L2. Each face flux is computed
-// twice (once by each cell beside it) and each stencil value is loaded by
-// several threads; nothing is staged in shared memory yet. Tiling through
-// shared memory (or TMA) and sharing fluxes between neighbours are later
-// work: first the kernel has to agree with the plain version.
+// The design is K2's (advect_tile of weno5_advection.cuh: 8 x 12 columns
+// and up to 32 levels a block of 1024 threads, tiles staged in shared
+// memory with cp.async, each face flux once, tracers through a double
+// buffer) with this epilogue at each point: the Coriolis terms read the
+// staged u and v boxes, the diffusion the field's own box, psi the box's
+// centre; G_prev and the two pHY' values of a point come from global
+// memory, loaded before the face fluxes so that their latency hides behind
+// them. The prologue writes G's halo zeros in the with-halo layout, so the
+// wrapper allocates with torch.empty.
 #include <cuda_runtime.h>
 
 #include "weno5_advection.cuh"
@@ -58,69 +61,91 @@ struct AdvanceArgs {
   T c1, c2, dt;
 };
 
-// div_kappa_grad for constant kappa: the flux is A*(kappa*(delta c / spacing))
-// on both faces of every axis, whichever of centre or face the field sits on.
+// div_kappa_grad for constant kappa at the box offset q: the flux is
+// A*(kappa*(delta c / spacing)) on both faces of every axis, whichever of
+// centre or face the field sits on.
 template <typename T>
-__device__ __forceinline__ T diffusion(const T* __restrict__ c, const Point& P,
+__device__ __forceinline__ T diffusion(const T* __restrict__ c, int q, int sx, int sy,
                                        T kh, T kz, const Advection<T>& A) {
-  const int64_t o = P.o, sx = P.sx, sy = P.sy, sz = 1;
   const T Ax = A.dy * A.dz, Ay = A.dx * A.dz, Az = A.dx * A.dy;
-  const T fxR = Ax * (kh * ((c[o + sx] - c[o]) / A.dx));
-  const T fxL = Ax * (kh * ((c[o] - c[o - sx]) / A.dx));
-  const T fyR = Ay * (kh * ((c[o + sy] - c[o]) / A.dy));
-  const T fyL = Ay * (kh * ((c[o] - c[o - sy]) / A.dy));
-  const T fzR = Az * (kz * ((c[o + sz] - c[o]) / A.dz));
-  const T fzL = Az * (kz * ((c[o] - c[o - sz]) / A.dz));
+  const T fxR = Ax * (kh * ieee_div(c[q + sx] - c[q], A.dx));
+  const T fxL = Ax * (kh * ieee_div(c[q] - c[q - sx], A.dx));
+  const T fyR = Ay * (kh * ieee_div(c[q + sy] - c[q], A.dy));
+  const T fyL = Ay * (kh * ieee_div(c[q] - c[q - sy], A.dy));
+  const T fzR = Az * (kz * ieee_div(c[q + 1] - c[q], A.dz));
+  const T fzL = Az * (kz * ieee_div(c[q] - c[q - 1], A.dz));
   T out = (fxR - fxL) + (fyR - fyL);
   out = out + (fzR - fzL);
-  return out / (A.dx * A.dy * A.dz);
+  return ieee_div(out, A.dx * A.dy * A.dz);
 }
 
+// K1's use of advect_tile: G's terms and the AB2 advance at each point
 template <typename T>
-__device__ __forceinline__ void advance(const AdvanceArgs<T>& A,
-                                        const Point& P, int f, T g) {
-  const int64_t q = A.g_halo ? P.o : P.p;
-  A.out_psi[f][P.p] = A.adv.psi[f][P.o] + A.dt * (A.c1 * g - A.c2 * A.gp[f][q]);
-  A.out_g[f][q] = g;
-}
+struct AdvanceOut {
+  const AdvanceArgs<T>& A;
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-fused_ab2_advance_kernel(const AdvanceArgs<T> A) {
-  const Advection<T>& D = A.adv;
-  Point P;
-  if (!interior_point(D, P)) return;
-  const int64_t o = P.o, sx = P.sx, sy = P.sy;
-  const T* __restrict__ u = D.psi[0];
-  const T* __restrict__ v = D.psi[1];
-  const T* __restrict__ ph = A.ph;
-  const T half = T(0.5);
-
-  T g = -div_vu(D, P);
-  if (A.fu != nullptr)  // - x_f_cross_U = - (-f * ixf(iyc(v)))
-    g = g - ((-A.fu[P.J]) * (half * (half * (v[o + sy] + v[o])
-                                     + half * (v[o - sx + sy] + v[o - sx]))));
-  if (ph != nullptr) g = g - (ph[o] - ph[o - sx]) / D.dx;
-  if (A.diffuse) g = g + diffusion(u, P, A.kh[0], A.kz[0], D);
-  advance(A, P, 0, g);
-
-  g = -div_vv(D, P);
-  if (A.fv != nullptr)  // - y_f_cross_U = - (f * iyf(ixc(u)))
-    g = g - (A.fv[P.J] * (half * (half * (u[o + sx] + u[o])
-                                  + half * (u[o + sx - sy] + u[o - sy]))));
-  if (ph != nullptr) g = g - (ph[o] - ph[o - sy]) / D.dy;
-  if (A.diffuse) g = g + diffusion(v, P, A.kh[1], A.kz[1], D);
-  advance(A, P, 1, g);
-
-  g = -div_vw(D, P);  // z_f_cross_U is zero on f- and beta-planes
-  if (A.diffuse) g = g + diffusion(D.psi[2], P, A.kh[2], A.kz[2], D);
-  advance(A, P, 2, g);
-
-  for (int f = 3; f < D.nf; ++f) {
-    g = -div_Uc(D, P, f);
-    if (A.diffuse) g = g + diffusion(D.psi[f], P, A.kh[f], A.kz[f], D);
-    advance(A, P, f, g);
+  __device__ __forceinline__ void prologue(const AdvTile<T>& t) const {
+    if (A.g_halo)
+      for_halo_points(A.adv, t, [&](int i, int j, int k) {
+        const int64_t p = t.g(i, j, k);
+        for (int f = 0; f < A.adv.nf; ++f) A.out_g[f][p] = T(0);
+      });
   }
+
+  // the point's global loads, issued before the face fluxes: G_prev and
+  // the two pHY' values of the u or v gradient
+  struct Pre {
+    T gp, ph0, ph1;
+  };
+
+  __device__ __forceinline__ int64_t halo_free(int I, int J, int K) const {
+    const Advection<T>& D = A.adv;
+    return ((int64_t)(I - D.hx) * D.ny + (J - D.hy)) * D.nz + (K - D.hz);
+  }
+
+  __device__ __forceinline__ Pre prefetch(int f, const AdvTile<T>& t, int I, int J,
+                                          int K) const {
+    const int64_t o = t.g(I, J, K);
+    Pre p;
+    p.gp = A.gp[f][A.g_halo ? o : halo_free(I, J, K)];
+    if (A.ph != nullptr && f < 2) {
+      p.ph0 = A.ph[o];
+      p.ph1 = A.ph[o - (f == 0 ? t.gsx : t.gsy)];
+    }
+    return p;
+  }
+
+  __device__ __forceinline__ void point(int f, const AdvTile<T>& t, const T* c, int q,
+                                        int I, int J, int K, T div, const Pre& pre) const {
+    const Advection<T>& D = A.adv;
+    const int sx = t.bsx, sy = t.bsy;
+    const T* __restrict__ u = t.su;
+    const T* __restrict__ v = t.sv;
+    const T half = T(0.5);
+    T g = -div;
+    if (f == 0) {
+      if (A.fu != nullptr)  // - x_f_cross_U = - (-f * ixf(iyc(v)))
+        g = g - ((-A.fu[J]) * (half * (half * (v[q + sy] + v[q])
+                                       + half * (v[q - sx + sy] + v[q - sx]))));
+      if (A.ph != nullptr) g = g - ieee_div(pre.ph0 - pre.ph1, D.dx);
+    } else if (f == 1) {
+      if (A.fv != nullptr)  // - y_f_cross_U = - (f * iyf(ixc(u)))
+        g = g - (A.fv[J] * (half * (half * (u[q + sx] + u[q])
+                                    + half * (u[q + sx - sy] + u[q - sy]))));
+      if (A.ph != nullptr) g = g - ieee_div(pre.ph0 - pre.ph1, D.dy);
+    }  // z_f_cross_U is zero on f- and beta-planes
+    if (A.diffuse) g = g + diffusion(c, q, sx, sy, A.kh[f], A.kz[f], D);
+    const int64_t p = halo_free(I, J, K);
+    A.out_psi[f][p] = c[q] + A.dt * (A.c1 * g - A.c2 * pre.gp);
+    A.out_g[f][A.g_halo ? t.g(I, J, K) : p] = g;
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(AT_THREADS, 1)
+fused_ab2_advance_kernel(const __grid_constant__ AdvanceArgs<T> A) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  advect_tile(A.adv, reinterpret_cast<T*>(smem_raw), AdvanceOut<T>{A});
 }
 
 template <typename T>
@@ -152,12 +177,14 @@ static int launch(const void* const* psi, const void* const* gp,
   A.diffuse = kh != nullptr;
   A.g_halo = g_halo;
   A.c1 = T(c1); A.c2 = T(c2); A.dt = T(dt);
-  const int64_t n = (int64_t)nx * ny * nz;
-  if (n == 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  fused_ab2_advance_kernel<T><<<(unsigned int)blocks, threads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(A);
+  if (nx <= 0 || ny <= 0 || nz <= 0) return 0;
+  int smem;
+  const dim3 blocks = plan_tiles(A.adv, smem);
+  auto kernel = fused_ab2_advance_kernel<T>;
+  const int rc = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != 0) return rc;
+  kernel<<<blocks, AT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(A);
   return (int)cudaGetLastError();
 }
 

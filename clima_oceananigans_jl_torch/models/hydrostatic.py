@@ -28,9 +28,11 @@ A quasi-AB2 step:
 ``update_state`` fills the halos of the solution and η in one launch of
 K6, K4a rebuilds w and pHY′ column by column, and a second K6 launch
 fills their halos. The kernels' wrappers are taken from ``KERNELS``;
-``step(..., kernels=PLAIN)`` runs their plain versions. On the card the
-constructor runs the kernels' static gates, so a configuration they lack
-raises there and the wrappers do not check again. Not ported here,
+``step(..., kernels=PLAIN)`` runs their plain versions, and so does every
+step of a model built with the JAX keyword ``fused_advection=False``. On
+the card the constructor of a model that runs the kernels checks their
+static gates, so a configuration they lack raises there and the wrappers
+do not check again. Not ported here,
 because they are TPU-only: the halo rounding to multiples of 4, the
 (x, z, y) state layout, the MXU cumsum, the distributed overlap. A configuration the port cannot run yet raises
 ``NotImplementedError`` at construction, naming its ROADMAP item.
@@ -69,16 +71,12 @@ KERNELS = dict(columns=hydrostatic_columns,
                tendencies=fused_hydrostatic_tendencies,
                barotropic=fused_substep_eta, fill=fused_fill_halos)
 #: their plain versions: ``step(..., kernels=PLAIN)`` runs a step without
-#: the kernels on the card
+#: the kernels on the card, as does a model built with
+#: ``fused_advection=False``
 PLAIN = dict(columns=hydrostatic_columns_reference,
              tendencies=fused_hydrostatic_tendencies_reference,
              barotropic=fused_substep_eta_reference,
              fill=fused_fill_halos_reference)
-
-
-def _kernels(kernels):
-    """``KERNELS`` with the entries of ``kernels`` in place of theirs."""
-    return dict(KERNELS, **(kernels or {}))
 
 
 def _unsupported_reason(model, closure, forcing, particles, immersed_boundary):
@@ -133,9 +131,13 @@ class HydrostaticFreeSurfaceModel:
                  tracer_advection="default", free_surface=None, buoyancy=None,
                  coriolis=None, closure=None, tracers=None, forcing=None,
                  boundary_conditions=None, particles=None,
-                 immersed_boundary=None):
+                 immersed_boundary=None, fused_advection="auto"):
         if grid.topology[2] is FLAT:
             raise ValueError("HydrostaticFreeSurfaceModel needs a z direction")
+        # the JAX keyword: "auto" and True run the kernels, False their
+        # plain versions (the state is the JAX plain path's either way)
+        self.fused_advection = fused_advection is True or fused_advection == "auto"
+        self.kernels = KERNELS if self.fused_advection else PLAIN
         # None disables a term (Oceananigans' `advection = nothing`)
         self.momentum_advection = (VectorInvariant()
                                    if momentum_advection == "default"
@@ -170,7 +172,8 @@ class HydrostaticFreeSurfaceModel:
         self.pressure_bcs = regularize_bcs(self.grid, CENTER, None)
         reason = _unsupported_reason(self, closure, forcing, particles,
                                      immersed_boundary)
-        if reason is None and self.grid.device.type == "cuda":
+        if (reason is None and self.grid.device.type == "cuda"
+                and self.fused_advection):
             # on the card the kernels run: their gates decide now
             reason = kernel_unsupported_reason(self)
             if reason is None and isinstance(self.free_surface,
@@ -183,6 +186,12 @@ class HydrostaticFreeSurfaceModel:
         self.closure = None
 
     # -- state ----------------------------------------------------------------
+    def _kernels(self, kernels):
+        """The model's mapping (``KERNELS``, or ``PLAIN`` under
+        ``fused_advection=False``) with the entries of ``kernels`` in place
+        of its own."""
+        return dict(self.kernels, **(kernels or {}))
+
     def prognostic_names(self):
         return ("u", "v") + self.tracer_names
 
@@ -242,7 +251,7 @@ class HydrostaticFreeSurfaceModel:
                   for name, arr in sol.items()]
         if eta is not None:
             fields.append((eta, ETA_LOC, self.eta_bcs, (0, 1), t))
-        _kernels(kernels)["fill"](self.grid, fields)
+        self._kernels(kernels)["fill"](self.grid, fields)
         return sol
 
     def _buoyancy_field(self, sol):
@@ -254,7 +263,7 @@ class HydrostaticFreeSurfaceModel:
     def compute_w(self, sol, kernels=None):
         """w from continuity, integrated bottom-up, halos filled (through
         ``kernels["columns"]``, K4a, and ``kernels["fill"]``, K6)."""
-        kernels = _kernels(kernels)
+        kernels = self._kernels(kernels)
         w, _ = kernels["columns"](self.grid, sol["u"], sol["v"])
         kernels["fill"](self.grid, [(w, W_LOC, self.w_bcs, (0, 1, 2), 0.0)])
         return w
@@ -263,7 +272,7 @@ class HydrostaticFreeSurfaceModel:
         """Halo fills of the solution and η (in place, one K6 launch),
         then w and pHY′ from K4a (``kernels["columns"]``) with their halos
         filled (a second K6 launch)."""
-        kernels = _kernels(kernels)
+        kernels = self._kernels(kernels)
         t = state["clock"].time
         sol = self.fill_all_halos(state["solution"], t, kernels, eta=state["eta"])
         w, ph = kernels["columns"](self.grid, sol["u"], sol["v"],
@@ -283,7 +292,7 @@ class HydrostaticFreeSurfaceModel:
         interior: K4b's core (``kernels["tendencies"]``), then −g∇η under
         an explicit free surface and the boundary fluxes."""
         grid = self.grid
-        G = _kernels(kernels)["tendencies"](self, state)
+        G = self._kernels(kernels)["tendencies"](self, state)
         if self._explicit_fs:
             g = self.free_surface.gravitational_acceleration
             G["u"] = G["u"] - g * grad_x(grid, state["eta"])
@@ -296,9 +305,10 @@ class HydrostaticFreeSurfaceModel:
     # -- stepping ---------------------------------------------------------------
     def step(self, state, dt, kernels=None):
         """One quasi-AB2 step with the free surface split out (Euler at
-        iteration 0 and when Δt changed), through the kernels' wrappers
-        ``KERNELS``; ``kernels`` replaces some or all of them by name."""
-        kernels = _kernels(kernels)
+        iteration 0 and when Δt changed), through the model's mapping of
+        the kernels' wrappers (``self.kernels``); ``kernels`` replaces some
+        or all of them by name."""
+        kernels = self._kernels(kernels)
         grid = self.grid
         fs = self.free_surface
         clock0 = state["clock"]

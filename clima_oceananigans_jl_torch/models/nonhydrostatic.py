@@ -28,7 +28,10 @@ walls that are imposed values), and otherwise the general projection:
 halo fills, ``fused_divergence`` (K3b), the FFT solve and
 ``fused_pressure_gradient`` (K3c). A configuration the port cannot run
 (other Coriolis or closures, forcing, immersed boundaries, bounded x or
-y, ...) raises ``NotImplementedError`` at construction.
+y, ...) raises ``NotImplementedError`` at construction. The kernels'
+wrappers come from ``KERNELS``; the JAX keyword ``fused_advection=False``
+swaps in ``PLAIN`` and takes the general AB2 branch, as its JAX meaning
+has it.
 
 State: the JAX package's keys and shapes. ``solution`` holds with-halo
 tensors; ``G_prev`` is halo-free (nx, ny, nz) when ``g_interior`` holds
@@ -71,16 +74,12 @@ from ..utils.location import CENTER, U_LOC, V_LOC, W_LOC
 KERNELS = dict(advance=fused_ab2_advance, advect=fused_advective_tendencies,
                divergence=fused_divergence, gradient=fused_pressure_gradient)
 #: their plain versions: ``step(..., kernels=PLAIN)`` runs a step without
-#: the kernels on the card
+#: the kernels on the card, as does a model built with
+#: ``fused_advection=False``
 PLAIN = dict(advance=fused_ab2_advance_reference,
              advect=fused_advective_tendencies_reference,
              divergence=fused_divergence_reference,
              gradient=fused_pressure_gradient_reference)
-
-
-def _kernels(kernels):
-    """``KERNELS`` with the entries of ``kernels`` in place of theirs."""
-    return dict(KERNELS, **(kernels or {}))
 
 
 class NonhydrostaticModel:
@@ -89,7 +88,14 @@ class NonhydrostaticModel:
                  closure=None, tracers=None, forcing=None,
                  background_fields=None, boundary_conditions=None,
                  timestepper="QuasiAdamsBashforth2", immersed_boundary=None,
-                 particles=None):
+                 particles=None, fused_advection="auto"):
+        # the JAX keyword: "auto" and True run the kernels (on the card;
+        # their plain versions on CPU tensors) and the fused AB2 branch
+        # where fused_step_ok allows it; False runs the plain versions and
+        # the branch the JAX package's False takes. The TPU's rounding of
+        # the y halo to a multiple of 4 has no counterpart here.
+        self.fused_advection = fused_advection is True or fused_advection == "auto"
+        self.kernels = KERNELS if self.fused_advection else PLAIN
         self.advection = advection if advection is not None else CenteredSecondOrder()
         self.tracer_advection = (tracer_advection if tracer_advection is not None
                                  else self.advection)
@@ -193,7 +199,7 @@ class NonhydrostaticModel:
         one fused call, as the JAX model makes it on the TPU
         (``supports_fused_advection`` holds for every grid the port
         accepts), through ``kernels["advect"]`` (``_kernels``)."""
-        advect = _kernels(kernels)["advect"]
+        advect = self._kernels(kernels)["advect"]
         grid = self.grid
         sol = state["solution"]
         u, v, w = sol["u"], sol["v"], sol["w"]
@@ -306,7 +312,7 @@ class NonhydrostaticModel:
         solve, pNHS with halos filled under ``pressure_bcs``, its gradient
         through ``kernels["gradient"]`` (K3c), and the correction over the
         with-halo arrays."""
-        k = _kernels(kernels)
+        k = self._kernels(kernels)
         divergence, gradient = k["divergence"], k["gradient"]
         grid = self.grid
         t = state["clock"].time
@@ -321,11 +327,18 @@ class NonhydrostaticModel:
         return dict(state, solution=sol, pNHS=pNHS)
 
     # -- stepping ---------------------------------------------------------------
+    def _kernels(self, kernels):
+        """The model's mapping (``KERNELS``, or ``PLAIN`` under
+        ``fused_advection=False``) with the entries of ``kernels`` in place
+        of its own."""
+        return dict(self.kernels, **(kernels or {}))
+
     def step(self, state, dt, kernels=None):
-        """One step of the model's time stepper, through the kernels'
-        wrappers ``KERNELS``; ``kernels`` replaces some or all of them by
-        name (``PLAIN``: the plain versions)."""
-        kernels = _kernels(kernels)
+        """One step of the model's time stepper, through the model's
+        mapping of the kernels' wrappers (``self.kernels``); ``kernels``
+        replaces some or all of them by name (``PLAIN``: the plain
+        versions)."""
+        kernels = self._kernels(kernels)
         if self.timestepper == "RungeKutta3":
             return self._rk3_step(state, dt, kernels)
         return self._ab2_step(state, dt, kernels)

@@ -113,12 +113,14 @@ def _step_kernel_closure(model):
 
 def fused_step_ok(model):
     """The JAX gate of the fused AB2 branch (``ops/fused_step.py::
-    fused_step_ok``) on the configurations the port accepts: quasi-AB2,
-    and a closure whose explicit part the kernel runs. The gate's other
+    fused_step_ok``) on the configurations the port accepts: the model's
+    ``fused_advection``, quasi-AB2, and a closure whose explicit part the
+    kernel runs. The gate's other
     conditions (Coriolis other than f/β-plane, forcing, Stokes drift,
     tilted gravity, flux-BC values, ...) are refused at construction by
     ``unsupported_reason``."""
-    return (model.timestepper == "QuasiAdamsBashforth2"
+    return (model.fused_advection
+            and model.timestepper == "QuasiAdamsBashforth2"
             and (model.closure is None
                  or _step_kernel_closure(model) is not None))
 
@@ -178,7 +180,8 @@ def _launch(model, state, dt, euler):
     kh, kz = _diffusivities(model, names)
 
     out_psi = [torch.empty(grid.shape, dtype=dtype, device=device) for _ in names]
-    out_g = [torch.zeros(g_shape, dtype=dtype, device=device) for _ in names]
+    # K1 writes every point of G, in the with-halo layout its zero halos too
+    out_g = [torch.empty(g_shape, dtype=dtype, device=device) for _ in names]
     c1, c2 = ab2_coefficients(model.ab2_chi, euler)
     ptr = lambda t: None if t is None else t.data_ptr()
     fn = kernel_fn("fused_ab2_advance", "fused_ab2_advance", dtype,

@@ -163,7 +163,9 @@ def _launch(grid, scheme, tracer_scheme, u, v, w, tracers):
     args = advection_args(grid, scheme, tracer_scheme, len(fields))
     for n, f in zip(names, fields):
         check_tensor(n, f, grid.total_shape, dtype, device)
-    out = [torch.zeros(grid.total_shape, dtype=dtype, device=device)
+    # K2 writes every point: the interior, the zero halos (and w's top
+    # wall face on a bounded z axis)
+    out = [torch.empty(grid.total_shape, dtype=dtype, device=device)
            for _ in names]
     fn = kernel_fn("fused_advective_tendencies", "fused_advective_tendencies",
                    dtype, [ctypes.c_void_p] * 2 + ADVECTION_ARGTYPES

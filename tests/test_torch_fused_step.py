@@ -16,8 +16,11 @@ kernel works on z-halo-free blocks with wrap-around and leaves G_w and w′
 there unspecified, since the projection imposes the wall value next.
 Against (b), every point is compared.
 
-The ``cuda`` case holds the CUDA kernel against the plain version on the
-card and skips without one. It needs no JAX, so on a GPU machine without
+The ``cuda`` cases hold the CUDA kernel against the plain version on the
+card bit for bit and skip without one: every option, both G_prev layouts
+(in the with-halo one G's halos must be zero without a zero fill), random,
+smooth and all-zero fields, sizes off the kernel's tiles, 16 fields, fp32
+and fp64. It needs no JAX, so on a GPU machine without
 JAX it runs alone: ``python -m pytest --noconftest -m cuda
 tests/test_torch_fused_step.py``.
 """
@@ -30,6 +33,7 @@ import torch
 import clima_oceananigans_jl_torch as T
 from clima_oceananigans_jl_torch.interop import state_from_numpy
 from clima_oceananigans_jl_torch.ops import fused_step as tfs
+from test_torch_fused_tendencies import wave
 
 torch.set_num_threads(1)
 
@@ -199,38 +203,66 @@ def test_unsupported_configurations_raise():
     assert tfs.fused_step_ok(torch_model((8, 8, 8)))
 
 
+def card_state(tm, tracers, kind):
+    """A state of the port's model on the card: numpy-seeded random
+    fields or ``wave`` fields of ``kind``; G_prev random in the model's
+    layout."""
+    size = tm.grid.shape
+    if kind == "random":
+        vals = initial_values(size, tracers=tracers)
+    else:
+        field = wave(size, kind)
+        vals = {n: field(a) for a, n in enumerate(tm.prognostic_names())}
+    ts = tm.initial_state(**vals)
+    rng = np.random.default_rng(1)
+    g_shape = size if tm.g_interior else tm.grid.total_shape
+    ts["G_prev"] = {k: torch.as_tensor(1e-2 * rng.standard_normal(g_shape),
+                                       dtype=tm.grid.dtype, device="cuda")
+                    for k in tm.prognostic_names()}
+    return ts
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,size,rtol,tracers,option,w_top", [
-    (torch.float64, (16, 12, 10), 1e-13, ("c",), "none", None),
-    (torch.float64, (16, 12, 10), 1e-13, ("c",), "fplane-diffusion", None),
-    (torch.float64, (16, 12, 10), 1e-13, (), "betaplane-horizontal", None),
-    (torch.float64, (16, 12, 10), 1e-13, ("c",), "none", 1e-3),
-    (torch.float32, (32, 24, 16), 1e-6, (), "none", None),
-    (torch.float32, (32, 24, 16), 1e-6, (), "fplane-diffusion", None)],
+@pytest.mark.parametrize("dtype,size,tracers,option,w_top,kind", [
+    (torch.float64, (16, 12, 10), ("c",), "none", None, "random"),
+    (torch.float64, (16, 12, 10), ("c",), "fplane-diffusion", None, "random"),
+    (torch.float64, (16, 12, 10), (), "betaplane-horizontal", None, "random"),
+    (torch.float64, (16, 12, 10), ("c",), "none", 1e-3, "random"),
+    (torch.float32, (32, 24, 16), (), "none", None, "random"),
+    (torch.float32, (32, 24, 16), (), "fplane-diffusion", None, "random"),
+    (torch.float32, (20, 13, 40), ("c",), "fplane-diffusion", None, "smooth"),
+    (torch.float32, (12, 10, 8), (), "none", 1e-3, "zero"),
+    (torch.float32, (9, 17, 33), tuple(f"c{i}" for i in range(12)),
+     "fplane-diffusion", None, "random"),
+    (torch.float64, (12, 10, 40), tuple(f"c{i}" for i in range(12)),
+     "betaplane-horizontal", None, "smooth"),
+    (torch.float32, (20, 13, 40), ("c",), "none", 1e-3, "smooth")],
     ids=["f64", "f64-fplane", "f64-betaplane", "f64-with-halo-G", "f32",
-         "f32-fplane"])
-def test_cuda_kernel_matches_plain_version(dtype, size, rtol, tracers, option,
-                                           w_top):
-    """The kernel against the plain version on the card, at the
-    chip_smoke tolerances: PyTorch's CUDA division by a Python scalar
-    multiplies by the reciprocal, so the two agree to rounding."""
+         "f32-fplane", "f32-fplane-smooth-off-tile", "f32-with-halo-G-zero",
+         "f32-16-fields-off-tile", "f64-16-fields-chunks",
+         "f32-with-halo-G-smooth-off-tile"])
+def test_cuda_kernel_matches_plain_version(dtype, size, tracers, option,
+                                           w_top, kind):
+    """The kernel against the plain version on the card, bit for bit
+    (max|Δ| = 0), Euler and AB2 form, in both G_prev layouts; in the
+    with-halo one, G's halos are zero although G was not zero-filled."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     tm = torch_model(size, dtype=dtype, device="cuda", tracers=tracers,
                      option=option, w_top=w_top)
     assert tm.fused_step and tm.g_interior == (w_top is None)
-    ts = tm.initial_state(**initial_values(size, tracers=tracers))
-    rng = np.random.default_rng(1)
-    g_shape = size if tm.g_interior else tm.grid.total_shape
-    ts["G_prev"] = {k: torch.as_tensor(1e-2 * rng.standard_normal(g_shape),
-                                       dtype=dtype, device="cuda")
-                    for k in tm.prognostic_names()}
+    ts = card_state(tm, tracers, kind)
+    nf = len(tm.prognostic_names())
     for euler in (True, False):
+        # NaN-filled blocks of G's size for the caching allocator to reuse
+        blocks = [torch.full_like(ts["G_prev"]["u"], float("nan"))
+                  for _ in range(nf)]
+        del blocks
         before = tfs.fused_ab2_advance.launches
         psi, G = tfs.fused_ab2_advance(tm, ts, DT, euler)
         torch.cuda.synchronize()
         assert tfs.fused_ab2_advance.launches == before + 1
         ref_psi, ref_G = tfs.fused_ab2_advance_reference(tm, ts, DT, euler)
         for name in tm.prognostic_names():
-            close(ref_psi[name].cpu().numpy(), psi[name], rtol, f"psi'[{name}]")
-            close(ref_G[name].cpu().numpy(), G[name], rtol, f"G[{name}]")
+            assert torch.equal(ref_psi[name], psi[name]), f"psi'[{name}]"
+            assert torch.equal(ref_G[name], G[name]), f"G[{name}]"

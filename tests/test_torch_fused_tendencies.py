@@ -10,9 +10,11 @@ agree to max|Δ| ≤ 1e-12·max|ref|, because XLA's CPU backend may fuse and
 contract where eager PyTorch does not.
 
 The ``cuda`` cases hold the CUDA kernel against the plain version on the
-card and skip without one: on the interior, and on a bounded z axis on
-w's top wall face too (with-halo z index hz+nz, in the z halo), which a
-FluxBC w wall leaves to the time step. They need no JAX: ``python -m
+card bit for bit and skip without one: on the interior, and on a bounded z
+axis on w's top wall face too (with-halo z index hz+nz, in the z halo),
+which a FluxBC w wall leaves to the time step; on random, smooth and
+all-zero fields, sizes off the kernel's 8×12×32 tiles, 16 fields, fp32 and
+fp64; every other halo point must be zero without a zero fill. They need no JAX: ``python -m
 pytest --noconftest -m cuda tests/test_torch_fused_tendencies.py``.
 """
 import numpy as np
@@ -147,44 +149,89 @@ def test_kernel_arguments_refuse_what_the_kernels_do_not_take():
     assert args[7:10] == (0, 1, 1)
 
 
+def wave(shape, kind):
+    """a → a numpy field of ``shape`` of phase a: all zero (``kind``
+    "zero") or smooth with amplitude ~1e-6 ("smooth"), where WENO5's
+    weights fall to ~1e-24 and division meets its slow operands."""
+    x, y, z = np.meshgrid(*(np.arange(n) for n in shape), indexing="ij")
+    amp = 0.0 if kind == "zero" else 1e-6
+    return lambda a: amp * np.sin(0.3 * x + a) * np.cos(0.2 * y + a) * (1.0 + 0.01 * z)
+
+
+def card_inputs(shape, ntracers, kind, dtype):
+    """u, v, w and the tracers on the card: numpy-seeded random fields or
+    ``wave`` fields of ``kind``."""
+    if kind == "random":
+        (u, v, w), tracers = inputs(shape, ntracers)
+    else:
+        field = wave(shape, kind)
+        (u, v, w) = field(0.0), field(1.0), 0.5 * field(2.0)
+        tracers = {f"c{k}": field(3.0 + k) for k in range(ntracers)}
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    return (as_t(u), as_t(v), as_t(w)), {n: as_t(c) for n, c in tracers.items()}
+
+
+def poison_cache(grid, n):
+    """Leave n NaN-filled blocks of the outputs' size in the caching
+    allocator, so that outputs the kernel does not write stay NaN."""
+    blocks = [torch.full(grid.total_shape, float("nan"), dtype=grid.dtype,
+                         device="cuda") for _ in range(n)]
+    del blocks
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "dtype,size,rtol,tracer_scheme,ntracers,topo,momentum,halo", [
-        (torch.float64, (16, 12, 10), 1e-13, "centered", 2, "ppb", "weno5", 3),
-        (torch.float64, (16, 12, 10), 1e-13, "weno5", 0, "ppp", "weno5", 3),
-        (torch.float32, (32, 24, 16), 1e-6, "weno5", 1, "ppb", "weno5", 3),
-        (torch.float64, (16, 12, 10), 1e-13, "centered", 1, "ppb", "centered",
-         1)],
-    ids=["f64-centered", "f64-periodic", "f32", "f64-centered-halo1"])
-def test_cuda_kernel_matches_plain_version(dtype, size, rtol, tracer_scheme,
-                                           ntracers, topo, momentum, halo):
-    """The kernel against the plain version on the card, at the
-    chip_smoke tolerances, on the interior and, on a bounded z axis, on
+    "dtype,size,tracer_scheme,ntracers,topo,momentum,halo,kind", [
+        (torch.float64, (16, 12, 10), "centered", 2, "ppb", "weno5", 3, "random"),
+        (torch.float64, (16, 12, 10), "weno5", 0, "ppp", "weno5", 3, "random"),
+        (torch.float32, (32, 24, 16), "weno5", 1, "ppb", "weno5", 3, "random"),
+        (torch.float64, (16, 12, 10), "centered", 1, "ppb", "centered", 1,
+         "random"),
+        (torch.float32, (20, 13, 40), "weno5", 1, "ppb", "weno5", 3, "smooth"),
+        (torch.float32, (12, 10, 8), "weno5", 1, "ppb", "weno5", 3, "zero"),
+        (torch.float32, (9, 17, 33), "weno5", 13, "ppb", "weno5", 3, "random"),
+        (torch.float64, (12, 10, 8), "weno5", 13, "ppb", "centered", 3,
+         "random"),
+        (torch.float64, (64, 64, 64), "weno5", 1, "ppb", "weno5", 3, "smooth")],
+    ids=["f64-centered", "f64-periodic", "f32", "f64-centered-halo1",
+         "f32-smooth-off-tile", "f32-zero", "f32-16-fields-off-tile",
+         "f64-16-fields", "f64-64-smooth-chunks"])
+def test_cuda_kernel_matches_plain_version(dtype, size, tracer_scheme,
+                                           ntracers, topo, momentum, halo,
+                                           kind):
+    """The kernel against the plain version on the card, bit for bit
+    (max|Δ| = 0), on the interior, on each of the three levels at each z
+    wall that WENO5's order reduction masks, and, on a bounded z axis, on
     w's top wall face (with halo 1 the centre above that face wraps to z
-    index 0, as torch.roll wraps it)."""
+    index 0, as torch.roll wraps it). Every other halo point is zero
+    although the outputs were not zero-filled."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     tg = torch_grid(TOPOLOGIES[topo], size, dtype, "cuda", halo)
-    (u, v, w), tracers = inputs(tg.total_shape, ntracers)
-    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    (u, v, w), tracers = card_inputs(tg.total_shape, ntracers, kind, dtype)
     scheme = lambda name: T.WENO5() if name == "weno5" else T.CenteredSecondOrder()
-    args = (tg, scheme(momentum), scheme(tracer_scheme), as_t(u), as_t(v),
-            as_t(w), {n: as_t(c) for n, c in tracers.items()})
+    args = (tg, scheme(momentum), scheme(tracer_scheme), u, v, w, tracers)
+    poison_cache(tg, 3 + ntracers)
     before = tft.fused_advective_tendencies.launches
     got = tft.fused_advective_tendencies(*args)
     torch.cuda.synchronize()
     assert tft.fused_advective_tendencies.launches == before + 1
     ref = tft.fused_advective_tendencies_reference(*args)
     bounded = tg.topology[2] is T.BOUNDED
+    hz, nz = tg.Hz, tg.Nz
     for name in ref:
         halo_part = got[name].clone()
         halo_part[tg.interior_slices] = 0
         if name == "w" and bounded:
-            assert w_top(tg, ref[name]).abs().max() > 0
-            close(w_top(tg, ref[name]).cpu().numpy(),
-                  w_top(tg, got[name]).cpu().numpy(), rtol, "w top wall face")
+            assert kind == "zero" or w_top(tg, ref[name]).abs().max() > 0
+            assert torch.equal(w_top(tg, ref[name]), w_top(tg, got[name])), \
+                "w top wall face"
             w_top(tg, halo_part).zero_()
-        assert not halo_part.any(), \
-            f"{name}: the kernel wrote outside the interior"
-        close(ref[name][tg.interior_slices].cpu().numpy(),
-              got[name][tg.interior_slices].cpu().numpy(), rtol, name)
+        assert not halo_part.isnan().any() and not halo_part.any(), \
+            f"{name}: a halo point other than w's top wall face is not zero"
+        interior = lambda a: a[tg.Hx:tg.Hx + tg.Nx, tg.Hy:tg.Hy + tg.Ny]
+        for k in (hz, hz + 1, hz + 2, hz + nz - 3, hz + nz - 2, hz + nz - 1):
+            assert torch.equal(interior(ref[name])[..., k],
+                               interior(got[name])[..., k]), (name, "level", k)
+        assert torch.equal(ref[name][tg.interior_slices],
+                           got[name][tg.interior_slices]), name

@@ -186,7 +186,7 @@ def test_ab2_diffusion_with_value_wall_takes_the_general_branch():
 def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     """Fault 1: an edited header must change the library path."""
     assert [p.name for p in _build.sources("fused_ab2_advance")
-            ] == ["fused_ab2_advance.cu", "weno5_advection.cuh"]
+            ] == ["fused_ab2_advance.cu", "weno5_advection.cuh", "tiles.cuh"]
     (tmp_path / "k.cu").write_text('#include "a.cuh"\nint f() { return g(); }\n')
     (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
     (tmp_path / "b.cuh").write_text("inline int g() { return 1; }\n")
