@@ -2,7 +2,7 @@
 
     python3 chip_breakdown.py [ab2] [rk3] [hydrostatic] [shallow-water]
                               [division] [k3a-division] [k4b-phases]
-                              [--steps N]
+                              [k5-barriers] [--steps N]
 
 With no part named, runs them all. Prints the card's name and power
 limit first. Needs a card; without one it exits with an error.
@@ -27,7 +27,7 @@ limit first. Needs a card; without one it exits with an error.
   part of the split-explicit step: K4b's advance, the barotropic modes,
   K5 (with its wrapper), the corrector, K4a, and K6's two halo fills of
   ``update_state``; "the rest" is the step's CUDA-event time minus their
-  sum (c₁G − c₂G⁻, the η̅ fill's clone, Python).
+  sum (c₁G − c₂G⁻, the weight vectors, Python).
 - ``shallow-water``: the 16384² headline of
   ``benchmark/bench_shallow_water.py`` (as ``chip_smoke.py`` runs it), 2
   warm-up steps, then ``steps`` steps with CUDA events around K3a,
@@ -57,6 +57,10 @@ limit first. Needs a card; without one it exits with an error.
   every block (issuing the copies and the halo zeros, waiting for u, v
   and w, the momentum arrays, the momentum outputs, each tracer's wait,
   face fluxes and outputs), each phase's share of the total.
+- ``k5-barriers``: K5 at ¼° fp32 (30 substeps) as built and as a copy of
+  ``csrc/fused_substep_eta.cu`` whose passes are skipped (the same
+  cooperative grid, prologue, 2N barriers and epilogue), in turns: the
+  share of K5's time that is not the substeps' work.
 """
 from __future__ import annotations
 
@@ -443,11 +447,62 @@ def k4b_phases(steps):
         print(f"  {label}: {100 * cycles[i] / total:.1f}%")
 
 
+def k5_barrier_source():
+    """csrc/fused_substep_eta.cu with both passes of a substep skipped: the
+    same cooperative grid, prologue, barriers and epilogue, no substep
+    work."""
+    src = (_build.CSRC / "fused_substep_eta.cu").read_text()
+    anchor = "    for (int k0 = 0; k0 < count; k0 += SE_CHUNK) {\n"
+    if src.count(anchor) != 2:
+        raise RuntimeError("k5-barriers: the kernel's passes changed")
+    return src.replace(anchor, anchor.replace("k0 < count", "k0 < (A.n < 0 ? count : 0)"))
+
+
+def k5_barriers(steps):
+    """K5 at 1/4 deg fp32 (30 substeps, random inputs as chip_smoke.py's
+    phase 12 makes them) as built and with its passes skipped: the share of
+    its time that the 2N grid barriers, the prologue and the epilogue take."""
+    name = "fused_substep_eta"
+    cu = _build.BUILD_DIR / f"{name}_barriers.cu"
+    lib_path = _build.BUILD_DIR / f"lib{name}_barriers.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu.write_text(k5_barrier_source())
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+                    str(lib_path), str(cu)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    model = chip_smoke.latlon_flagship()
+    g = model.grid
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    shape = g.total_shape[:2] + (1,)
+    rand = lambda s: s * torch.randn(shape, generator=gen, device="cuda")
+    eta = chip_smoke.fill2d(rand(0.1), g, chip_smoke.ETA_LOC, model.eta_bcs)
+    wv = model.free_surface._weight_vec(None, eta)
+    n = chip_smoke.HYDRO["substeps"]
+    args = (g, model.eta_bcs, eta, rand(10.0), rand(10.0), rand(1e-3), rand(1e-3),
+            *chip_smoke.column_depths(g), 9.80665, 40.0, wv, wv, n)
+    call = lambda: hm.KERNELS["barotropic"](*args)
+    load = _build.load
+    times = {}
+    for label in ("as built", "passes skipped", "as built", "passes skipped"):
+        try:
+            if label == "passes skipped":
+                _build.load = lambda k: lib if k == name else load(k)
+            times.setdefault(label, []).append(chip_smoke.cuda_ms(call, max(steps, 10)))
+        finally:
+            _build.load = load
+    grid = chip_smoke.cooperative_grid(g)
+    full, bare = (min(times[k]) for k in ("as built", "passes skipped"))
+    print(f"K5 1/4 deg fp32, {n} substeps, cooperative grid {grid}: as built "
+          f"{times['as built']} ms, passes skipped {times['passes skipped']} ms; "
+          f"barriers, prologue and epilogue {100 * bare / full:.1f}% of the call, "
+          f"{1e3 * bare / (2 * n):.3f} us a barrier at most")
+
+
 PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps),
          "rk3": lambda steps: nonhydrostatic("RK3", steps),
          "hydrostatic": hydrostatic, "shallow-water": shallow_water,
          "division": division, "k3a-division": k3a_division,
-         "k4b-phases": k4b_phases}
+         "k4b-phases": k4b_phases, "k5-barriers": k5_barriers}
 
 
 def main(argv):

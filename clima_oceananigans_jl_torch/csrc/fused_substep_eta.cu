@@ -1,40 +1,65 @@
-// The split-explicit barotropic substeps (K5), one launch per half-substep.
-// Substep i of ops/fused_barotropic.py::fused_substep_eta_reference:
+// The split-explicit barotropic substeps (K5), all of them in one
+// cooperative launch. Substep i of ops/fused_barotropic.py::
+// fused_substep_eta_reference:
 //
 //   half 0:  U' = fill(U + dtau (((-g) Hfc) dxf(eta) / dxu + GU)), V' likewise;
 //            U_av += wv[i] U',  V_av += wv[i] V'
 //   half 1:  eta' = eta - (dtau (dxc(dyu U') + dyc(dxv V'))) / az;
 //            eta_av += wf[i] eta'
 //
-// on with-halo (X, Y) arrays, y contiguous. One thread per with-halo point:
-// a halo point takes its value through the fill rule of its location (the
-// periodic wrap, the zero-gradient mirror of a centred field, or the
-// impenetrable wall of a face field: zero on the wall face, the negated
-// mirror beyond it) applied to the update at its source point, so no
-// separate fill runs and the outputs are the plain version's filled arrays.
-// eta's halos (and eta_av's) hold the values at their mirror points, which
-// is what the plain version's fills write there. Metrics are x-constant rows
-// over with-halo y (ops/metric_rows.py::y_row): dxu, dyv, dyu, dxv, az, Hfc,
-// Hcf. Build with --fmad=false so the compiler forms no FMA that eager
-// PyTorch does not.
+// on with-halo (X, Y) arrays, y contiguous. Every with-halo point takes its
+// value through the fill rule of its location (the periodic wrap, the
+// zero-gradient mirror of a centred field, or the impenetrable wall of a
+// face field: zero on the wall face, the negated mirror beyond it) applied
+// to the update at its source point, so no separate fill runs and the
+// outputs are the plain version's filled arrays. eta's halos (and eta_av's)
+// hold the values at their mirror points, which is what the plain
+// version's fills write there. Metrics are x-constant rows over with-halo y
+// (ops/metric_rows.py::y_row): dxu, dyv, dyu, dxv, az, Hfc, Hcf. Build with
+// --fmad=false so the compiler forms no FMA that eager PyTorch does not.
 //
 // Replaces the TPU kernel clima_oceananigans_jl_tpu/ops/fused_barotropic.py::
 // fused_substep_eta, which keeps all N substeps VMEM-resident in one call.
-// Blocks of a CUDA kernel cannot wait for one another, so each half-substep
-// is a launch of its own (2N launches); the halo rule makes each launch
-// complete on its own.
+// Its counterpart here is one persistent launch over co-resident blocks
+// (cudaLaunchCooperativeKernel, the grid sized by the occupancy calculator
+// and the SM count): a prologue fills eta from eta0 by the same rule, then
+// each half-substep is a grid-stride pass over the with-halo points, the
+// passes separated by grid-wide barriers (cooperative_groups grid sync), 2N
+// in all. Ping-pong buffers keep the rule's reads of the old values: a halo
+// point reads its mirror's value from before the pass.
 //
-// What bounds it on an H100: memory, and launch latency at small sizes. At
-// the 1/4 degree flagship (1446 x 606, fp32, 3.5 MB an array) one substep
-// reads eta, U, V, GU, GV and the three averages and writes U, V, eta and
-// the averages: about 14 arrays, 49 MB, so 30 substeps move about 1.5 GB
-// if nothing stays in the 50 MB L2 (0.44 ms at 3.35 TB/s); most of it can.
-// A persistent kernel with a grid-wide barrier between the halves would save
-// the launches; that is later work.
+// What bounds it on an H100: the barriers and L2 latency. At the 1/4
+// degree flagship (1446 x 606, fp32, 3.5 MB an array) a substep reads eta,
+// U and V twice and writes them once, about 32 MB, all of it L2-resident
+// (50 MB): some 5-10 us a substep at L2 rates, beside two barriers of a few
+// us each. The host launches once a call instead of 2N times. The grid
+// stride is a multiple of Y, so a thread keeps one y index: its fill-rule y
+// sources and metric values, read once, stay in registers. Its points' Gu,
+// Gv and three running averages stay in shared memory (in registers they
+// would cost the occupancy that hides L2 latency), sized at launch so that all of
+// them fit with as many blocks an SM as the registers allow; the averages
+// are written once, at the end. Points past what 227 KB holds keep their
+// averages in the output arrays. A thread issues the loads of a chunk of
+// points before any store: the buffers may alias as far as the compiler
+// knows. Arrays that other blocks write during the launch are read through
+// plain loads, never the non-coherent read-only path.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 enum { DXU = 0, DYV = 1, DYU = 2, DXV = 3, AZ = 4, HFC = 5, HCF = 6 };
+
+// 256 threads a block, registers capped so that 3 blocks fit an SM (80 a
+// thread: fp32 does not spill); a thread issues the loads of SE_CHUNK
+// points at once. Of the shapes timed at 1/4 degree fp32 (chunks of 1, 2
+// and 4 points; 2 to 8 blocks an SM) this was the fastest, if narrowly.
+constexpr int SE_THREADS = 256;
+constexpr int SE_MIN_BLOCKS = 3;
+constexpr int SE_CHUNK = 2;
+constexpr int SE_SMEM_MAX = 232448;
+constexpr int SE_MAX_DEVICES = 64;
 
 // The fill rule along one axis: the source index of a point and its factor
 // (1 a copy, -1 the negated mirror of an impenetrable wall, 0 the wall face).
@@ -63,26 +88,6 @@ __device__ __forceinline__ Src source(int I, int N, int H, int bounded, bool fac
   return {I, 1};
 }
 
-template <typename T>
-struct SubstepArgs {
-  const T* rows;
-  const T* eta_in;
-  T* eta_out;
-  const T* U_in;
-  T* U_out;
-  const T* V_in;
-  T* V_out;
-  const T* GU;
-  const T* GV;
-  T* eta_av;
-  T* U_av;
-  T* V_av;
-  const T* wv;
-  const T* wf;
-  int half, i, nx, ny, hx, hy, xb, yb;
-  T neg_g, dtau;
-};
-
 // 2.0*0 - x of the plain version's wall fill
 template <typename T>
 __device__ __forceinline__ T apply(T x, int f) {
@@ -90,111 +95,327 @@ __device__ __forceinline__ T apply(T x, int f) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(256) fused_substep_eta_kernel(const SubstepArgs<T> A) {
-  const int X = A.nx + 2 * A.hx, Y = A.ny + 2 * A.hy;
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= (int64_t)X * Y) return;
-  const int I = (int)(p / Y), J = (int)(p % Y);
-  const int64_t sx = Y;
+struct SubstepArgs {
+  const T* rows;  // (7, Y)
+  const T* eta0;  // unfilled
+  const T* U0;
+  const T* V0;
+  const T* GU;
+  const T* GV;
+  const T* wv;  // (n,)
+  const T* wf;
+  T* buf;  // 6 with-halo arrays: eta at 0 and XY, U at 2 XY and 3 XY, V at 4 XY and 5 XY
+  T* eta_av;
+  T* U_av;
+  T* V_av;
+  int n, nx, ny, hx, hy, xb, yb;
+  int rows_t;  // rows of threads: the grid stride is rows_t * Y points
+  int kept;    // points a thread keeps in shared memory
+  T neg_g, dtau;
+};
+
+// What a thread keeps of its y index: the fill-rule sources of U (and eta:
+// both centred in y) and V, and the metric values there.
+template <typename T>
+struct YCol {
+  Src c, f;
+  T hfc, dxu, hcf, dyv, dyu, dxv0, dxv1, az;
+};
+
+// the kept values of a point, [value][point][thread] in shared memory
+enum { KEEP_GU = 0, KEEP_GV, KEEP_UAV, KEEP_VAV, KEEP_EAV, KEEP_VALUES };
+
+template <typename T>
+__global__ void __launch_bounds__(SE_THREADS, SE_MIN_BLOCKS)
+fused_substep_eta_kernel(const SubstepArgs<T> A) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const keep = reinterpret_cast<T*>(smem_raw);
+  cg::grid_group grid = cg::this_grid();
+  const int X = A.nx + 2 * A.hx, Y = A.ny + 2 * A.hy, XY = X * Y;
+  const int tid = threadIdx.x;
+  const int t = (int)blockIdx.x * SE_THREADS + tid;
+  const int rows = A.rows_t, J = t % Y, I0 = t / Y;
+  // this thread's points: (I0 + k rows, J) for k < count
+  const int count = t < rows * Y && I0 < X ? (X - 1 - I0) / rows + 1 : 0;
+  auto kept = [&](int v, int k) -> T& {
+    return keep[(v * A.kept + k) * SE_THREADS + tid];
+  };
+  YCol<T> y;
+  y.c = source(J, A.ny, A.hy, A.yb, false);
+  y.f = source(J, A.ny, A.hy, A.yb, true);
   const T* r = A.rows;
-  if (A.half == 0) {
-    // U at (F, C)
-    const Src ux = source(I, A.nx, A.hx, A.xb, true), uy = source(J, A.ny, A.hy, A.yb, false);
-    T U = T(0);
-    if (ux.f != 0 && uy.f != 0) {
-      const int64_t o = ux.i * sx + uy.i;
-      const T* Hfc = r + HFC * Y;
-      const T* dxu = r + DXU * Y;
-      U = A.U_in[o] + A.dtau * ((A.neg_g * Hfc[uy.i] * (A.eta_in[o] - A.eta_in[o - sx]))
-                                / dxu[uy.i] + A.GU[o]);
-      U = apply(apply(U, ux.f), uy.f);
+  y.hfc = __ldg(r + HFC * Y + y.c.i);
+  y.dxu = __ldg(r + DXU * Y + y.c.i);
+  y.dyu = __ldg(r + DYU * Y + y.c.i);
+  y.dxv0 = __ldg(r + DXV * Y + y.c.i);
+  y.dxv1 = __ldg(r + DXV * Y + y.c.i + 1);
+  y.az = __ldg(r + AZ * Y + y.c.i);
+  y.hcf = __ldg(r + HCF * Y + y.f.i);
+  y.dyv = __ldg(r + DYV * Y + y.f.i);
+  const bool u_row = y.c.f != 0, v_row = y.f.f != 0;  // not a y wall face
+  // prologue: eta filled from eta0; Gu, Gv at the U and V sources (zero on
+  // a wall face) and the averages at zero, kept or in the outputs
+  for (int k = 0; k < count; ++k) {
+    const int I = I0 + k * rows, p = I * Y + J;
+    const Src ux = source(I, A.nx, A.hx, A.xb, true);
+    const Src vx = source(I, A.nx, A.hx, A.xb, false);
+    A.buf[p] = __ldg(A.eta0 + vx.i * Y + y.c.i);
+    if (k < A.kept) {
+      kept(KEEP_GU, k) = ux.f != 0 && u_row ? __ldg(A.GU + ux.i * Y + y.c.i) : T(0);
+      kept(KEEP_GV, k) = vx.f != 0 && v_row ? __ldg(A.GV + vx.i * Y + y.f.i) : T(0);
+      kept(KEEP_UAV, k) = kept(KEEP_VAV, k) = kept(KEEP_EAV, k) = T(0);
+    } else {
+      A.U_av[p] = A.V_av[p] = A.eta_av[p] = T(0);
     }
-    // V at (C, F)
-    const Src vx = source(I, A.nx, A.hx, A.xb, false), vy = source(J, A.ny, A.hy, A.yb, true);
-    T V = T(0);
-    if (vx.f != 0 && vy.f != 0) {
-      const int64_t o = vx.i * sx + vy.i;
-      const T* Hcf = r + HCF * Y;
-      const T* dyv = r + DYV * Y;
-      V = A.V_in[o] + A.dtau * ((A.neg_g * Hcf[vy.i] * (A.eta_in[o] - A.eta_in[o - 1]))
-                                / dyv[vy.i] + A.GV[o]);
-      V = apply(apply(V, vx.f), vy.f);
-    }
-    A.U_out[p] = U;
-    A.V_out[p] = V;
-    A.U_av[p] = A.U_av[p] + A.wv[A.i] * U;
-    A.V_av[p] = A.V_av[p] + A.wv[A.i] * V;
-    return;
   }
-  // eta at (C, C), from the filled U' and V' (U_out, V_out)
-  const Src ex = source(I, A.nx, A.hx, A.xb, false), ey = source(J, A.ny, A.hy, A.yb, false);
-  const int64_t o = ex.i * sx + ey.i;
-  const int j = ey.i;
-  const T* dyu = r + DYU * Y;
-  const T* dxv = r + DXV * Y;
-  const T* az = r + AZ * Y;
-  const T* U = A.U_out;
-  const T* V = A.V_out;
-  const T div = (dyu[j] * U[o + sx] - dyu[j] * U[o]) + (dxv[j + 1] * V[o + 1] - dxv[j] * V[o]);
-  const T eta = A.eta_in[o] - (A.dtau * div) / az[j];
-  A.eta_out[p] = eta;
-  A.eta_av[p] = A.eta_av[p] + A.wf[A.i] * eta;
+  grid.sync();
+  for (int i = 0; i < A.n; ++i) {
+    // substep i reads the copies (i & 1) and writes the others (U0, V0 at i = 0)
+    const int in = (i & 1) * XY, out = ((i + 1) & 1) * XY;
+    const T* const eta = A.buf + in;
+    T* const eta_out = A.buf + out;
+    const T* const U = i == 0 ? A.U0 : A.buf + 2 * XY + in;
+    const T* const V = i == 0 ? A.V0 : A.buf + 4 * XY + in;
+    T* const U_out = A.buf + 2 * XY + out;
+    T* const V_out = A.buf + 4 * XY + out;
+    const T wv = __ldg(A.wv + i), wf = __ldg(A.wf + i);
+    // half 0: U', V' and their averages. A chunk of points' loads go out
+    // before any of its stores (the compiler cannot move a load past a
+    // store to a buffer that might alias it); the loads of a point past the
+    // last repeat the last, and its results are dropped.
+    for (int k0 = 0; k0 < count; k0 += SE_CHUNK) {
+      Src ux[SE_CHUNK], vx[SE_CHUNK];
+      T u[SE_CHUNK], e1[SE_CHUNK], e0[SE_CHUNK], gu[SE_CHUNK];
+      T v[SE_CHUNK], f1[SE_CHUNK], f0[SE_CHUNK], gv[SE_CHUNK];
+#pragma unroll
+      for (int c = 0; c < SE_CHUNK; ++c) {
+        const int k = min(k0 + c, count - 1), I = I0 + k * rows;
+        ux[c] = source(I, A.nx, A.hx, A.xb, true);
+        vx[c] = source(I, A.nx, A.hx, A.xb, false);
+        const int o = ux[c].i * Y + y.c.i, q = vx[c].i * Y + y.f.i;
+        u[c] = U[o];
+        e1[c] = eta[o];
+        e0[c] = eta[o - Y];
+        v[c] = V[q];
+        f1[c] = eta[q];
+        f0[c] = eta[q - 1];
+        gu[c] = k < A.kept ? kept(KEEP_GU, k) : __ldg(A.GU + o);
+        gv[c] = k < A.kept ? kept(KEEP_GV, k) : __ldg(A.GV + q);
+      }
+#pragma unroll
+      for (int c = 0; c < SE_CHUNK; ++c) {
+        const int k = k0 + c;
+        if (k >= count) break;
+        T Un = T(0), Vn = T(0);
+        if (ux[c].f != 0 && u_row) {
+          Un = u[c] + A.dtau * ((A.neg_g * y.hfc * (e1[c] - e0[c])) / y.dxu + gu[c]);
+          Un = apply(apply(Un, ux[c].f), y.c.f);
+        }
+        if (vx[c].f != 0 && v_row) {
+          Vn = v[c] + A.dtau * ((A.neg_g * y.hcf * (f1[c] - f0[c])) / y.dyv + gv[c]);
+          Vn = apply(apply(Vn, vx[c].f), y.f.f);
+        }
+        const int p = (I0 + k * rows) * Y + J;
+        U_out[p] = Un;
+        V_out[p] = Vn;
+        T& ua = k < A.kept ? kept(KEEP_UAV, k) : A.U_av[p];
+        T& va = k < A.kept ? kept(KEEP_VAV, k) : A.V_av[p];
+        ua = ua + wv * Un;
+        va = va + wv * Vn;
+      }
+    }
+    grid.sync();
+    // half 1: eta' from eta and the filled U', V'; its average
+    for (int k0 = 0; k0 < count; k0 += SE_CHUNK) {
+      T ur[SE_CHUNK], ul[SE_CHUNK], vr[SE_CHUNK], vl[SE_CHUNK], e[SE_CHUNK];
+#pragma unroll
+      for (int c = 0; c < SE_CHUNK; ++c) {
+        const int k = min(k0 + c, count - 1), I = I0 + k * rows;
+        const int o = source(I, A.nx, A.hx, A.xb, false).i * Y + y.c.i;
+        ur[c] = U_out[o + Y];
+        ul[c] = U_out[o];
+        vr[c] = V_out[o + 1];
+        vl[c] = V_out[o];
+        e[c] = eta[o];
+      }
+#pragma unroll
+      for (int c = 0; c < SE_CHUNK; ++c) {
+        const int k = k0 + c;
+        if (k >= count) break;
+        const T div = (y.dyu * ur[c] - y.dyu * ul[c]) + (y.dxv1 * vr[c] - y.dxv0 * vl[c]);
+        const T en = e[c] - (A.dtau * div) / y.az;
+        const int p = (I0 + k * rows) * Y + J;
+        eta_out[p] = en;
+        T& ea = k < A.kept ? kept(KEEP_EAV, k) : A.eta_av[p];
+        ea = ea + wf * en;
+      }
+    }
+    if (i + 1 < A.n) grid.sync();
+  }
+  for (int k = 0; k < count && k < A.kept; ++k) {
+    const int p = (I0 + k * rows) * Y + J;
+    A.U_av[p] = kept(KEEP_UAV, k);
+    A.V_av[p] = kept(KEEP_VAV, k);
+    A.eta_av[p] = kept(KEEP_EAV, k);
+  }
+}
+
+// The cooperative grid of a launch: blocks, blocks an SM, rows of threads,
+// points a thread keeps in shared memory and the shared memory a block has.
+struct Shape {
+  int blocks, per_sm, rows, kept, smem;
+};
+
+// Per device: the most blocks an SM takes by registers alone, the SM
+// count (0: not asked yet), and the last grid's shape.
+struct DeviceCache {
+  int regs_per_sm, sms, X, Y;
+  Shape last;
+};
+
+// The shape for X x Y points: the most blocks an SM whose threads' points
+// all fit in shared memory (the grid stride is a multiple of Y, so more
+// blocks, fewer points a thread); if none fit, one block an SM keeping as
+// many points as 227 KB holds (the rest keep their averages in the outputs).
+template <typename T>
+static int pick(int X, int Y, Shape* s) {
+  static DeviceCache cache[SE_MAX_DEVICES];
+  auto kernel = fused_substep_eta_kernel<T>;
+  int dev;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc != 0) return rc;
+  if (dev < 0 || dev >= SE_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  DeviceCache& d = cache[dev];
+  if (d.sms == 0) {
+    int coop = 0, sms = 0, nb = 0;
+    if ((rc = (int)cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != 0)
+      return rc;
+    if (!coop) return (int)cudaErrorNotSupported;
+    if ((rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        SE_SMEM_MAX)) != 0)
+      return rc;
+    if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != 0)
+      return rc;
+    if ((rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kernel, SE_THREADS, 0)) != 0)
+      return rc;
+    if (nb < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    d.regs_per_sm = nb;
+    d.sms = sms;
+  }
+  if (d.X == X && d.Y == Y) {
+    *s = d.last;
+    return 0;
+  }
+  const long long point_bytes = (long long)SE_THREADS * KEEP_VALUES * sizeof(T);
+  for (int b = d.regs_per_sm; b >= 1; --b) {
+    const long long most = (long long)b * d.sms;
+    const long long rows_most = most * SE_THREADS / Y;
+    if (rows_most < 1) return (int)cudaErrorInvalidConfiguration;  // Y > threads
+    const long long pts = (X + rows_most - 1) / rows_most;
+    const long long need = ((X + pts - 1) / pts * Y + SE_THREADS - 1) / SE_THREADS;
+    const long long smem = pts * point_bytes;
+    if (smem > SE_SMEM_MAX && b > 1) continue;
+    int fits = 0;
+    const int kept = (int)(smem > SE_SMEM_MAX ? SE_SMEM_MAX / point_bytes : pts);
+    if ((rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &fits, kernel, SE_THREADS, (size_t)(kept * point_bytes))) != 0)
+      return rc;
+    if (fits < b) continue;
+    s->blocks = (int)(need < most ? need : most);
+    s->per_sm = b;
+    s->rows = (int)((long long)s->blocks * SE_THREADS / Y);
+    s->kept = kept;
+    s->smem = (int)(kept * point_bytes);
+    d.X = X;
+    d.Y = Y;
+    d.last = *s;
+    return 0;
+  }
+  return (int)cudaErrorCooperativeLaunchTooLarge;
 }
 
 template <typename T>
-static int launch(const void* rows, const void* eta_in, void* eta_out,
-                  const void* U_in, void* U_out, const void* V_in, void* V_out,
-                  const void* GU, const void* GV, void* eta_av, void* U_av,
-                  void* V_av, const void* wv, const void* wf, int half, int i,
-                  int nx, int ny, int hx, int hy, int xb, int yb, double g,
-                  double dtau, void* stream) {
+static int launch(const void* rows, const void* eta0, const void* U0,
+                  const void* V0, const void* GU, const void* GV, const void* wv,
+                  const void* wf, void* buf, void* eta_av, void* U_av, void* V_av,
+                  int n, int nx, int ny, int hx, int hy, int xb, int yb,
+                  double g, double dtau, void* stream) {
+  if (n < 0 || nx <= 0 || ny <= 0 || hx < 1 || hy < 1) return (int)cudaErrorInvalidValue;
+  const long long X = nx + 2LL * hx, Y = ny + 2LL * hy;
+  if (X * Y > INT32_MAX) return (int)cudaErrorInvalidValue;  // 32-bit point indices
   SubstepArgs<T> A;
   A.rows = static_cast<const T*>(rows);
-  A.eta_in = static_cast<const T*>(eta_in);
-  A.eta_out = static_cast<T*>(eta_out);
-  A.U_in = static_cast<const T*>(U_in);
-  A.U_out = static_cast<T*>(U_out);
-  A.V_in = static_cast<const T*>(V_in);
-  A.V_out = static_cast<T*>(V_out);
+  A.eta0 = static_cast<const T*>(eta0);
+  A.U0 = static_cast<const T*>(U0);
+  A.V0 = static_cast<const T*>(V0);
   A.GU = static_cast<const T*>(GU);
   A.GV = static_cast<const T*>(GV);
+  A.wv = static_cast<const T*>(wv);
+  A.wf = static_cast<const T*>(wf);
+  A.buf = static_cast<T*>(buf);
   A.eta_av = static_cast<T*>(eta_av);
   A.U_av = static_cast<T*>(U_av);
   A.V_av = static_cast<T*>(V_av);
-  A.wv = static_cast<const T*>(wv);
-  A.wf = static_cast<const T*>(wf);
-  A.half = half; A.i = i;
-  A.nx = nx; A.ny = ny; A.hx = hx; A.hy = hy; A.xb = xb; A.yb = yb;
+  A.n = n; A.nx = nx; A.ny = ny; A.hx = hx; A.hy = hy; A.xb = xb; A.yb = yb;
   A.neg_g = T(-g);
   A.dtau = T(dtau);
-  const int64_t n = (int64_t)(nx + 2 * hx) * (ny + 2 * hy);
-  if (n == 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  fused_substep_eta_kernel<T><<<(unsigned int)blocks, threads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(A);
-  return (int)cudaGetLastError();
+  Shape s;
+  int rc = pick<T>((int)X, (int)Y, &s);
+  if (rc != 0) return rc;
+  A.rows_t = s.rows;
+  A.kept = s.kept;
+  void* args[] = {&A};
+  rc = (int)cudaLaunchCooperativeKernel((const void*)fused_substep_eta_kernel<T>,
+                                        dim3((unsigned)s.blocks), dim3(SE_THREADS), args,
+                                        (size_t)s.smem, static_cast<cudaStream_t>(stream));
+  return rc != 0 ? rc : (int)cudaGetLastError();
+}
+
+template <typename T>
+static int config(int nx, int ny, int hx, int hy, int* out) {
+  Shape s;
+  int rc = pick<T>(nx + 2 * hx, ny + 2 * hy, &s);
+  if (rc != 0) return rc;
+  cudaFuncAttributes attr;
+  rc = (int)cudaFuncGetAttributes(&attr, (const void*)fused_substep_eta_kernel<T>);
+  if (rc != 0) return rc;
+  out[0] = s.blocks; out[1] = SE_THREADS; out[2] = s.per_sm; out[3] = s.kept;
+  out[4] = s.rows; out[5] = s.smem; out[6] = attr.numRegs;
+  out[7] = (int)attr.localSizeBytes;
+  return 0;
 }
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 on success). All pointers
-// are device pointers: `rows` the (7, Y) metric rows, the rest with-halo
-// (X, Y) arrays and the (n,) weight vectors wv, wf. `half` 0 updates U, V
-// (and U_av, V_av), 1 updates eta (and eta_av) from U_out, V_out.
+// Returns the CUDA error of the cooperative launch (0 on success). All
+// pointers are device pointers: `rows` the (7, Y) metric rows, eta0 (its
+// halos need not be filled), U0, V0, GU, GV, eta_av, U_av, V_av with-halo
+// (X, Y) arrays, `buf` six of them (scratch), wv, wf the (n,) weights.
+// Runs all n substeps; eta_av comes out filled.
 #define FUSED_SUBSTEP_ETA(NAME, T)                                            \
-  int NAME(const void* rows, const void* eta_in, void* eta_out,               \
-           const void* U_in, void* U_out, const void* V_in, void* V_out,      \
-           const void* GU, const void* GV, void* eta_av, void* U_av,          \
-           void* V_av, const void* wv, const void* wf, int half, int i,       \
-           int nx, int ny, int hx, int hy, int xb, int yb, double g,          \
+  int NAME(const void* rows, const void* eta0, const void* U0,                \
+           const void* V0, const void* GU, const void* GV, const void* wv,    \
+           const void* wf, void* buf, void* eta_av, void* U_av, void* V_av,   \
+           int n, int nx, int ny, int hx, int hy, int xb, int yb, double g,   \
            double dtau, void* stream) {                                       \
-    return launch<T>(rows, eta_in, eta_out, U_in, U_out, V_in, V_out, GU, GV, \
-                     eta_av, U_av, V_av, wv, wf, half, i, nx, ny, hx, hy, xb, \
-                     yb, g, dtau, stream);                                    \
+    return launch<T>(rows, eta0, U0, V0, GU, GV, wv, wf, buf, eta_av, U_av,   \
+                     V_av, n, nx, ny, hx, hy, xb, yb, g, dtau, stream);       \
   }
 
 FUSED_SUBSTEP_ETA(fused_substep_eta_f32, float)
 FUSED_SUBSTEP_ETA(fused_substep_eta_f64, double)
+
+// The cooperative grid a launch on the current device takes for nx x ny
+// with halos hx, hy: out[0..7] = blocks, threads a block, blocks an SM,
+// points a thread keeps in shared memory, rows of threads, shared memory a
+// block, and the registers and local (spilled) bytes a thread has, as
+// ptxas allocated them. Returns a CUDA error code.
+#define FUSED_SUBSTEP_ETA_CONFIG(NAME, T)                                     \
+  int NAME(int nx, int ny, int hx, int hy, int* out) {                        \
+    return config<T>(nx, ny, hx, hy, out);                                    \
+  }
+
+FUSED_SUBSTEP_ETA_CONFIG(fused_substep_eta_config_f32, float)
+FUSED_SUBSTEP_ETA_CONFIG(fused_substep_eta_config_f64, double)
 
 }  // extern "C"

@@ -17,13 +17,16 @@ loop (free_surface.py:357-380) on (X, Y, 1) tensors.
 
 ``fused_substep_eta`` is the wrapper: on CPU tensors it runs the plain
 version, on CUDA tensors the hand-written kernel
-``csrc/fused_substep_eta.cu`` (or raises): two launches a substep, one
-for U and V, one for η, each thread at one with-halo (x, y) point taking
-its halo value through the fill rule of its location (a periodic wrap,
-the zero-gradient mirror, or the impenetrable wall's zero face and
-negated mirror), so no separate fill runs. η̅'s halos accumulate the
-same sums as their mirror points, which is what the final fill writes.
-The kernels count their launches in ``fused_substep_eta.launches``.
+``csrc/fused_substep_eta.cu`` (or raises): one cooperative launch runs
+all n substeps, a grid-wide barrier between the U, V half and the η half
+of each, every with-halo (x, y) point taking its halo value through the
+fill rule of its location (a periodic wrap, the zero-gradient mirror, or
+the impenetrable wall's zero face and negated mirror), so no separate
+fill runs. η̅'s halos accumulate the same sums as their mirror points,
+which is what the final fill writes. The wrapper allocates the three
+outputs and one block of six scratch arrays and launches; it counts its
+launches in ``fused_substep_eta.launches``. ``cooperative_grid`` reports
+the grid a launch takes.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from ..boundary_conditions.bcs import default_bcs, fill_halos
 from ..grids.topology import BOUNDED, FLAT, PERIODIC
 from ..models.free_surface import ETA_LOC
 from ..utils.location import CENTER, U_LOC, V_LOC
+from . import _build
 from . import stencil as st
 from .fused_tendencies import check_tensor, kernel_fn, launch
 from .metric_rows import y_row
@@ -105,28 +109,20 @@ def _launch(grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf, g, dtau, wv, wf, n):
     for name, a in (("wv", wv), ("wf", wf)):
         check_tensor(name, a, (n,), dtype, device)
     rows = _rows(grid, Hfc, Hcf)
-    eta = fill_halos(eta0.clone(), grid, ETA_LOC, eta_bcs, axes=(0, 1))
-    # ping-pong buffers: a halo point reads its mirror's old value
-    bufs = [(eta, U0.clone(), V0.clone()),
-            tuple(torch.empty_like(a) for a in (eta0, U0, V0))]
-    avs = [torch.zeros_like(a) for a in (eta0, U0, V0)]
+    out = [torch.empty(shape, dtype=dtype, device=device) for _ in range(3)]
+    # η, U and V twice each: a halo point reads its mirror's old value
+    buf = torch.empty((6,) + shape, dtype=dtype, device=device)
     fn = kernel_fn("fused_substep_eta", "fused_substep_eta", dtype,
-                   [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
+                   [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                    + [ctypes.c_double] * 2)
-    ptrs = lambda ts: [t.data_ptr() for t in ts]
-    for i in range(n):
-        (eta_s, U_s, V_s), (eta_d, U_d, V_d) = bufs[i % 2], bufs[(i + 1) % 2]
-        for half in (0, 1):
-            # half 0: U_d, V_d from η_s, U_s, V_s; U̅, V̅ accumulate.
-            # half 1: η_d from η_s, U_d, V_d; η̅ accumulates.
-            launch("fused_substep_eta", fn, device, rows.data_ptr(),
-                   *ptrs((eta_s, eta_d, U_s, U_d, V_s, V_d, GU, GV, *avs,
-                          wv, wf)),
-                   half, i, grid.Nx, grid.Ny, grid.Hx, grid.Hy,
-                   int(grid.topology[0] is BOUNDED),
-                   int(grid.topology[1] is BOUNDED), float(g), float(dtau))
-            fused_substep_eta.launches += 1
-    return tuple(avs)
+    launch("fused_substep_eta", fn, device,
+           *[t.data_ptr() for t in (rows, eta0, U0, V0, GU, GV, wv, wf, buf,
+                                    *out)],
+           n, grid.Nx, grid.Ny, grid.Hx, grid.Hy,
+           int(grid.topology[0] is BOUNDED), int(grid.topology[1] is BOUNDED),
+           float(g), float(dtau))
+    fused_substep_eta.launches += 1
+    return tuple(out)
 
 
 def fused_substep_eta(grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf, g, dtau,
@@ -147,3 +143,21 @@ def fused_substep_eta(grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf, g, dtau,
 
 #: kernel launches since the last reset (the plain version adds nothing)
 fused_substep_eta.launches = 0
+
+
+def cooperative_grid(grid):
+    """The cooperative grid K5 takes on the current CUDA device for
+    ``grid``'s (x, y) points: blocks, threads a block, blocks an SM, the
+    points a thread keeps in shared memory, rows of threads (the grid
+    stride over x), shared memory a block, and the registers and spilled
+    bytes a thread has (as ptxas allocated them)."""
+    out = (ctypes.c_int * 8)()
+    fn = getattr(_build.load("fused_substep_eta"), "fused_substep_eta_config"
+                 + ("_f32" if grid.dtype == torch.float32 else "_f64"))
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    rc = fn(grid.Nx, grid.Ny, grid.Hx, grid.Hy, out)
+    if rc != 0:
+        raise RuntimeError(f"fused_substep_eta config failed: CUDA error {rc}")
+    return dict(zip(("blocks", "threads", "blocks_per_sm", "points_kept",
+                     "thread_rows", "smem_bytes", "registers", "local_bytes"), out))

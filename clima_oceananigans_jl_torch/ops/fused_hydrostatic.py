@@ -9,10 +9,14 @@ divergences on lat-lon and stretched metrics — optionally rebuilding w
 and pHY′ in the kernel and optionally taking the AB2 substep. On the
 card that becomes two kernels:
 
-- K4a ``hydrostatic_columns`` (``csrc/hydrostatic_columns.cu``): one
-  thread per interior (x, y) column, serial loops over z: w from
-  continuity, w(k+1) = −Σ Δz ∇ₕ·(u, v), and pHY′ = −Σ b̄ᶻ Δzᶠ from the
-  top. It runs in the model's ``update_state``; its plain version sums
+- K4a ``hydrostatic_columns`` (``csrc/hydrostatic_columns.cu``): a
+  block per x index and run of up to 32 y columns, staged in shared
+  memory; the increments in parallel, then one thread a column and sum,
+  serial over z: w from continuity, w(k+1) = −Σ Δz ∇ₕ·(u, v), and
+  pHY′ = −Σ b̄ᶻ Δzᶠ from the top. Like its plain version it computes
+  every (x, y) column, halo columns too (their values are overwritten by
+  the caller's fill), and writes every with-halo point, so the outputs
+  need no zero fill. It runs in the model's ``update_state``; its plain version sums
   level by level in a Python loop, in the kernel's order.
 - K4b ``fused_hydrostatic_tendencies``
   (``csrc/fused_hydrostatic_tendencies.cu``): a block per 16×8 tile of
@@ -45,6 +49,7 @@ from ..coriolis.coriolis import BetaPlane, FPlane, HydrostaticSphericalCoriolis
 from ..grids.topology import FLAT
 from ..timesteppers.steppers import ab2_coefficients, ab2_substep
 from ..utils.location import CENTER, U_LOC, V_LOC, W_LOC
+from . import _build
 from . import operators as op
 from . import stencil as st
 from .fused_tendencies import (axis_bounds, check_tensor, kernel_fn,
@@ -146,8 +151,10 @@ def _launch_columns(grid, u, v, b):
         if f is not None:
             check_tensor(name, f, grid.total_shape, grid.dtype, u.device)
     ys, zs = y_rows(grid), z_rows(grid)
-    w = grid.zeros()
-    ph = grid.zeros() if b is not None else None
+    # K4a writes every with-halo point
+    empty = lambda: torch.empty(grid.total_shape, dtype=grid.dtype, device=u.device)
+    w = empty()
+    ph = empty() if b is not None else None
     ptr = lambda t: None if t is None else t.data_ptr()
     fn = kernel_fn("hydrostatic_columns", "hydrostatic_columns", grid.dtype,
                    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6)
@@ -173,6 +180,23 @@ def hydrostatic_columns(grid, u, v, b=None):
 
 #: kernel launches since the last reset (the plain version adds nothing)
 hydrostatic_columns.launches = 0
+
+
+def columns_config(grid, with_b=True):
+    """K4a's launch shape for ``grid`` on the current CUDA device: the
+    y columns a block owns, its blocks per x row, its shared
+    memory in bytes, threads a block and registers a thread (as ptxas
+    allocated them)."""
+    out = (ctypes.c_int * 5)()
+    fn = getattr(_build.load("hydrostatic_columns"), "hydrostatic_columns_config"
+                 + ("_f32" if grid.dtype == torch.float32 else "_f64"))
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    rc = fn(grid.Ny, grid.Hy, grid.Nz, grid.Hz, int(with_b), out)
+    if rc != 0:
+        raise RuntimeError(f"hydrostatic_columns config failed: CUDA error {rc}")
+    return dict(zip(("run", "blocks_per_row", "smem_bytes", "threads",
+                     "registers"), out))
 
 
 # -- K4b: the fused tendencies --------------------------------------------------------

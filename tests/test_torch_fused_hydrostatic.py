@@ -18,9 +18,11 @@ most 32×16×8 and on a (Bounded, Bounded, Bounded) rectilinear grid:
   ≤ 1e-14 of max|ref|, the column depths (a sum over z) being the only
   reassociated input.
 
-The ``cuda`` cases hold each kernel against its plain version on the card,
-within 1e-13 of max|ref| in f64 (``python -m pytest --noconftest -m cuda
-tests/test_torch_fused_hydrostatic.py``).
+The ``cuda`` cases hold each kernel against its plain version on the card
+(``python -m pytest --noconftest -m cuda
+tests/test_torch_fused_hydrostatic.py``): K4a, K4b and K5 bit for bit,
+K4a and K5 on every with-halo point after the allocator's cache is filled
+with NaNs (so a point the kernel leaves unwritten shows).
 """
 import numpy as np
 import pytest
@@ -313,6 +315,24 @@ def _close(got, ref, rtol, cut=lambda a: a):
     assert float((got - ref).abs().max()) <= rtol * float(ref.abs().max())
 
 
+def _poison_cache(shape, dtype, n=8):
+    """Leave n NaN-filled blocks of ``shape`` in the caching allocator, so
+    that an output point a kernel does not write stays NaN."""
+    blocks = [torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+              for _ in range(n)]
+    del blocks
+
+
+def _bitwise(got, ref):
+    """Every with-halo point equal (and none NaN, which would be unwritten)."""
+    for a, r in zip(got, ref):
+        if r is None:
+            assert a is None
+            continue
+        assert not torch.isnan(a).any(), "a point was left unwritten"
+        assert torch.equal(a, r), float((a - r).abs().max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["latlon-vi-weno-velocity", "latlon-vi-energy",
                                   "rect-bbb-flux-weno5"])
@@ -328,13 +348,12 @@ def test_cuda_k4_matches_plain_versions(case):
     state = _random_state(tm, 7)
     g = tm.grid
     sol = state["solution"]
+    _poison_cache(g.total_shape, g.dtype)
     n0 = tfh.hydrostatic_columns.launches
     got = tfh.hydrostatic_columns(g, sol["u"], sol["v"], sol["b"])
     ref = tfh.hydrostatic_columns_reference(g, sol["u"], sol["v"], sol["b"])
     assert tfh.hydrostatic_columns.launches == n0 + 1
-    cut = lambda a: a[g.Hx:g.Hx + g.Nx, g.Hy:g.Hy + g.Ny]
-    for a, b in zip(got, ref):
-        _close(a, b, 1e-13, cut)
+    _bitwise(got, ref)
     for adv in (None, (600.0, False)):
         got = tfh.fused_hydrostatic_tendencies(tm, state, adv)
         ref = tfh.fused_hydrostatic_tendencies_reference(tm, state, adv)
@@ -363,11 +382,11 @@ def test_cuda_k5_and_steps_match_plain_versions():
     args = (g, tm.eta_bcs, eta, rand(10.0), rand(10.0), rand(1e-3), rand(1e-3),
             *column_depths(g), 9.80665, 40.0)
     wv = tm.free_surface._weight_vec(None, eta)
+    _poison_cache(shape, g.dtype, 20)
     n0 = tfb.fused_substep_eta.launches
     got = tfb.fused_substep_eta(*args, wv, wv, 8)
-    assert tfb.fused_substep_eta.launches == n0 + 16
-    for a, b in zip(got, tfb.fused_substep_eta_reference(*args, wv, wv, 8)):
-        _close(a, b, 1e-13)
+    assert tfb.fused_substep_eta.launches == n0 + 1
+    _bitwise(got, tfb.fused_substep_eta_reference(*args, wv, wv, 8))
 
     def run(kernels):
         state = tm.initial_state(**initial_values(g.shape, seed=9))
@@ -463,3 +482,83 @@ def test_cuda_k4b_is_bitwise_its_plain_version(fields, kind, size, mom, cor, dty
                 halo = gd[n].clone()
                 halo[g.interior_slices] = 0
                 assert not halo.any(), "K4b wrote a nonzero halo"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,size,dtype,with_b", [
+    ("latlon", (37, 70, 8), torch.float64, True),
+    ("latlon", (37, 70, 8), torch.float64, False),
+    ("rect-bbb", (35, 41, 8), torch.float64, True),
+    ("rect-bbb", (35, 41, 8), torch.float64, False),
+    ("latlon", (20, 30, 50), torch.float64, True),
+    ("rect-bbb", (13, 45, 50), torch.float64, False),
+    ("latlon", (37, 70, 8), torch.float32, True)],
+    ids=["latlon-f64", "latlon-f64-w-only", "bbb-f64", "bbb-f64-w-only",
+         "latlon-nz50-f64", "bbb-nz50-f64-w-only", "latlon-f32"])
+def test_cuda_k4a_is_bitwise_its_plain_version(kind, size, dtype, with_b):
+    """K4a bit for bit against its plain version on every with-halo point,
+    with b (w and pHY′) and without (w only, as ``compute_w`` calls it), on
+    lat-lon and (Bounded, Bounded, Bounded) grids; 76 and 51 with-halo y
+    columns are not multiples of its 32-column run, and 50 levels in fp64
+    cut the run to fit shared memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, tm = flagship_models(size=size, jax_model=False, device="cuda", dtype=dtype,
+                            kind=kind, mom="vi-weno-velocity" if kind == "latlon"
+                            else "flux-weno5",
+                            cor="spherical-energy" if kind == "latlon" else "betaplane")
+    g = tm.grid
+    sol = _random_state(tm, 21)["solution"]
+    b = sol["b"] if with_b else None
+    _poison_cache(g.total_shape, dtype)
+    n0 = tfh.hydrostatic_columns.launches
+    got = tfh.hydrostatic_columns(g, sol["u"], sol["v"], b)
+    assert tfh.hydrostatic_columns.launches == n0 + 1
+    assert (got[1] is None) == (b is None)
+    _bitwise(got, tfh.hydrostatic_columns_reference(g, sol["u"], sol["v"], b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,kind,weights,size,dtype", [
+    (1, "latlon", "uniform", (32, 16, 4), torch.float64),
+    (8, "rect-bbb", "hann", (35, 21, 4), torch.float64),
+    (200, "latlon", "hann", (24, 12, 4), torch.float64),
+    (200, "rect-bbb", "uniform", (24, 12, 4), torch.float64),
+    (8, "latlon", "uniform", (1440, 600, 4), torch.float32),
+    (8, "rect-bbb", "hann", (3000, 2000, 4), torch.float64)],
+    ids=["n1-periodic-x", "n8-bounded-hann", "n200-periodic-x-hann",
+         "n200-bounded", "n8-flagship-width-f32", "n8-bounded-hann-6M-points-f64"])
+def test_cuda_k5_is_bitwise_its_plain_version(n, kind, weights, size, dtype):
+    """K5, one cooperative launch for all n substeps, bit for bit against
+    its plain version on every with-halo point: periodic x and bounded y
+    (lat-lon) or bounded x and y, uniform or Hann weights. At the
+    flagship's width each thread of the cooperative grid takes several
+    points; at 6 M points in fp64 more than its shared memory keeps, so
+    the rest keep their averages in the outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, tm = flagship_models(size=size, substeps=n, jax_model=False, device="cuda",
+                            dtype=dtype, kind=kind,
+                            mom="vi-weno-velocity" if kind == "latlon" else "flux-weno5",
+                            cor="spherical-energy" if kind == "latlon" else "betaplane")
+    fs = (tm.free_surface if weights == "uniform"
+          else T.SplitExplicitFreeSurface.with_hann_filter(substeps=n))
+    g = tm.grid
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    shape = g.total_shape[:2] + (1,)
+    rand = lambda s: s * torch.randn(shape, generator=gen, dtype=dtype, device="cuda")
+    eta = rand(0.1)  # halos unfilled: the kernel fills η from its interior
+    wv = fs._weight_vec(fs.velocity_weights, eta)
+    wf = fs._weight_vec(fs.free_surface_weights, eta)
+    args = (g, tm.eta_bcs, eta, rand(10.0), rand(10.0), rand(1e-3), rand(1e-3),
+            *column_depths(g), 9.80665, 40.0, wv, wf, n)
+    _poison_cache(shape, dtype, 20)
+    n0 = tfb.fused_substep_eta.launches
+    got = tfb.fused_substep_eta(*args)
+    assert tfb.fused_substep_eta.launches == n0 + 1
+    _bitwise(got, tfb.fused_substep_eta_reference(*args))
+    cfg = tfb.cooperative_grid(g)
+    if size[0] >= 1440:
+        assert cfg["blocks"] * cfg["threads"] < shape[0] * shape[1]
+    if size[0] >= 3000:
+        assert cfg["points_kept"] * cfg["thread_rows"] < shape[0]
