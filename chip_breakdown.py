@@ -1,8 +1,9 @@
 """Where the time of the port's steps goes, on one NVIDIA GPU.
 
-    python3 chip_breakdown.py [ab2] [rk3] [hydrostatic] [shallow-water]
-                              [division] [k3a-division] [k4b-phases]
-                              [k5-barriers] [--steps N]
+    python3 chip_breakdown.py [ab2] [rk3] [general-projection] [hydrostatic]
+                              [shallow-water] [k6-k3c] [division]
+                              [k3a-division] [k4b-phases] [k5-barriers]
+                              [--steps N]
 
 With no part named, runs them all. Prints the card's name and power
 limit first. Needs a card; without one it exits with an error.
@@ -10,17 +11,27 @@ limit first. Needs a card; without one it exits with an error.
 - ``ab2``: the 256³ ``bench.py`` configuration of ``chip_smoke.py``'s AB2
   path (quasi-AB2, the fused branch), its warm-up steps, then ``steps``
   steps with CUDA events around K1 (the fused AB2 advance), the roll-based
-  projection on interiors and ``update_state`` (halo fills and pHY′);
-  "the rest" is the step's CUDA-event time minus their sum (the pads of
-  the corrected fields, dict work, Python).
+  projection on interiors and ``update_state`` (pHY′), with K6's fills of
+  ``update_state`` as a part of their own; "the rest" is the step's
+  CUDA-event time minus their sum (the pads of the corrected fields, dict
+  work, Python).
 - ``rk3``: the 256³ RK3 flagship of ``chip_smoke.py``'s RK3 path (FPlane,
   ScalarDiffusivity), likewise, around K2, the rest of ``tendencies``
   (the eager Coriolis, −∂pHY′, ∇·(κ∇ψ) and flux BCs: ``tendencies`` less
   K2), ``rk3_substep``, ``project_velocities`` (with its with-halo
-  copies) and ``update_state``, three of each a step. Both parts also
-  print the kernel's ms a call on the path's fields. They use only names
-  that ``chip_smoke.py`` and the port have had since the RK3 path came,
-  so the same file measures an older tree of the port in its place.
+  copies) and ``update_state`` less its K6 fills, three of each a step.
+  Both parts also print the kernel's ms a call on the path's fields. They
+  use only names that ``chip_smoke.py`` and the port have had since the
+  RK3 path came (K6's fills are a part where the port's ``KERNELS`` has a
+  ``fill`` entry), so the same file measures an older tree of the port in
+  its place.
+- ``general-projection``: the 256³ RK3 flagship with ``FluxBC()`` w
+  walls of ``chip_smoke.py``'s general-projection path, likewise, around
+  K2, the eager terms (``tendencies`` less K2), ``rk3_substep``, the
+  projection's copies of u, v, w and the pad of pNHS with their K6 fills,
+  K3b, the FFT solve, K3c, the correction (``project_velocities`` less
+  those parts: ∇·u/Δt, u − Δt∇p, dict work), ``update_state`` less its
+  K6 fills, and those fills.
 - ``hydrostatic``: the ¼° flagship of ``benchmark/bench_hydro_flagship.py``
   built through the public API (as ``chip_smoke.py`` does), 3 warm-up
   steps, then ``steps`` steps (default 5) with CUDA events around each
@@ -33,7 +44,15 @@ limit first. Needs a card; without one it exits with an error.
   warm-up steps, then ``steps`` steps with CUDA events around K3a,
   ``rk3_substep`` and ``fill_all_halos``, three of each a step; "the
   rest" as above (``apply_flux_bcs``, dict work, Python).
-- Each of these four then runs ``torch.profiler`` over 3 more steps: the
+- ``k6-k3c``: ptxas's registers, stack and spills for K6 and K3b/K3c
+  (``csrc/fill_halos.cu``, ``csrc/fused_projection.cu`` built as the port
+  builds them, with ``-Xptxas -v``); then K6 on the ¼° first group and
+  the 256³ nonhydrostatic u, v, w, b, and K3c at 256³ fp32 and fp64, each
+  held bit for bit against the plain version and timed alone (the
+  kernel's own device time by torch.profiler, two rounds); beside them
+  three with-halo fields zeroed and one copied, the bytes K3c writes and a
+  read with a write.
+- Each of the step parts then runs ``torch.profiler`` over 3 more steps: the
   device's busy time (kernel durations summed) against the host clock,
   the idle share, and the kernels that took the most device time.
 - ``division``: the time of one fp32 and one fp64 division, by CUDA
@@ -69,6 +88,7 @@ import ctypes
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -101,8 +121,9 @@ def timed(events, name, fn):
 def breakdown(label, step, state, events, patches, steps, inner=None):
     """``steps`` calls of ``step`` with ``patches`` [(object, attribute,
     label)] timed by CUDA events; prints each part's ms per step and
-    share (a part of ``inner`` {outer: inner} less the inner part timed
-    within it), then the profiler's idle share over 3 more steps."""
+    share (a part of ``inner`` {outer: (inner parts, label or None)} less
+    the inner parts timed within it), then the profiler's idle share over 3
+    more steps."""
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
     for obj, name, part in patches:
         setattr(obj, name, timed(events, part, getattr(obj, name)))
@@ -123,9 +144,10 @@ def breakdown(label, step, state, events, patches, steps, inner=None):
     parts = {name: sum(s.elapsed_time(e) for s, e in pairs) / steps
              for name, pairs in events.items()}
     calls = {name: len(pairs) // steps for name, pairs in events.items()}
-    for outer, part in (inner or {}).items():
-        less = f"{outer} less {part}"
-        parts[less], calls[less] = parts.pop(outer) - parts[part], calls.pop(outer)
+    for outer, (within, name) in (inner or {}).items():
+        less = name or f"{outer} less {' and '.join(within)}"
+        parts[less] = parts.pop(outer) - sum(parts[p] for p in within)
+        calls[less] = calls.pop(outer)
     parts["the rest"] = step_ms - sum(parts.values())
     print(f"{label}, {steps} steps, CUDA events: {step_ms:.4f} ms/step")
     for name, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
@@ -157,8 +179,9 @@ def breakdown(label, step, state, events, patches, steps, inner=None):
               f"{e.count // 3} calls/step")
 
 
-def nonhydrostatic(path, steps):
-    """The 256³ AB2 or RK3 path of chip_smoke.py, broken down."""
+def warm_nonhydrostatic(path):
+    """The model of chip_smoke.py's 256³ ``path`` and its state after the
+    path's warm-up steps; returns (model, state, Δt)."""
     timestepper, dt, warmup, _, kw = chip_smoke.PATHS[path]
     model = chip_smoke.model_for(chip_smoke.N, torch.float32,
                                 timestepper=timestepper, **kw)
@@ -170,22 +193,135 @@ def nonhydrostatic(path, steps):
     for _ in range(warmup):
         state = model.step(state, dt)
     torch.cuda.synchronize()
+    return model, state, dt
+
+
+def nonhydrostatic(path, steps):
+    """The 256³ AB2 or RK3 path of chip_smoke.py, broken down."""
+    model, state, dt = warm_nonhydrostatic(path)
     events = collections.defaultdict(list)
     if path == "AB2":
         kernels = {"advance": timed(events, "K1", nm.KERNELS["advance"])}
         patches = [(model, "_fast_project_interior", "projection"),
                    (model, "update_state", "update_state")]
-        inner = None
+        inner = {}
     else:
         kernels = {"advect": timed(events, "K2", nm.KERNELS["advect"])}
         patches = [(model, "tendencies", "tendencies"),
                    (nm, "rk3_substep", "rk3_substep"),
                    (model, "project_velocities", "project_velocities"),
                    (model, "update_state", "update_state")]
-        inner = {"tendencies": "K2"}
+        inner = {"tendencies": (("K2",), None)}
+    if "fill" in nm.KERNELS:  # update_state's fills (eager before K6 took them)
+        kernels["fill"] = timed(events, "K6 fills", nm.KERNELS["fill"])
+        inner["update_state"] = (("K6 fills",), None)
     step = lambda s, timed_parts: model.step(s, dt, kernels if timed_parts else None)
     breakdown(f"{path} {chip_smoke.N}^3 fp32 step", step, state, events, patches,
               steps, inner)
+
+
+def general_projection(steps):
+    """The 256³ flux-wall RK3 step of chip_smoke.py's general-projection
+    path, broken down: K2, the eager terms, ``rk3_substep``, the
+    projection's copies and pads with their K6 fills, K3b, the FFT solve,
+    K3c, the correction, and ``update_state`` with its K6 fills apart."""
+    model, state, dt = warm_nonhydrostatic("general projection")
+    events = collections.defaultdict(list)
+    fill = nm.KERNELS["fill"]
+    update_state = model.update_state
+    model.update_state = lambda s, kernels=None: update_state(
+        s, dict(kernels or {}, fill=timed(events, "update_state's K6 fills", fill)))
+    kernels = {"advect": timed(events, "K2", nm.KERNELS["advect"]),
+               "divergence": timed(events, "K3b", nm.KERNELS["divergence"]),
+               "gradient": timed(events, "K3c", nm.KERNELS["gradient"])}
+    copies = "copies and pads with their K6 fills"
+    patches = [(model, "tendencies", "tendencies"),
+               (nm, "rk3_substep", "rk3_substep"),
+               (model, "project_velocities", "project_velocities"),
+               (model, "_filled_velocity_copies", copies),
+               (model, "_filled_pressure", copies),
+               (model.pressure_solver, "solve", "FFT solve"),
+               (model, "update_state", "update_state")]
+    inner = {"tendencies": (("K2",), "the eager terms (tendencies less K2)"),
+             "project_velocities": ((copies, "K3b", "FFT solve", "K3c"),
+                                    "the correction (project_velocities less "
+                                    "its other parts)"),
+             "update_state": (("update_state's K6 fills",), None)}
+    step = lambda s, timed_parts: model.step(s, dt, kernels if timed_parts else None)
+    breakdown(f"general projection {chip_smoke.N}^3 fp32 step (FluxBC w walls)",
+              step, state, events, patches, steps, inner)
+
+
+def k6_k3c(steps):
+    """K6 and K3c as built: ptxas's registers, stack and spills, then each
+    kernel's device time alone (torch.profiler), every result held bit for
+    bit against the plain version: K6 on the ¼° first group and on the 256³
+    nonhydrostatic group (u, v, w, b), K3c at 256³ fp32 and fp64; beside
+    them the yardsticks of K3c's bytes."""
+    from clima_oceananigans_jl_torch.ops import fused_fill as ff
+    from clima_oceananigans_jl_torch.ops import fused_tendencies as ft
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("fill_halos", "fused_projection"):
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                   f"{tmp}/lib.so", str(_build.CSRC / f"{name}.cu")]
+            log = subprocess.run(cmd, capture_output=True, text=True,
+                                 check=True).stderr
+            for line in log.splitlines():
+                if "Compiling entry" in line or "registers" in line or "spill" in line:
+                    print(f"ptxas {name}: {line.strip()}")
+    reps = max(steps, 20)
+    cases = []
+    model = chip_smoke.latlon_flagship()
+    first, _ = chip_smoke.hydro_fill_fields(model)
+    cases.append(("1/4 deg fp32 u, v, T, S, b, eta", model.grid, first))
+    nh = chip_smoke.model_for(chip_smoke.N, torch.float32,
+                              timestepper="RungeKutta3")
+    group, _ = chip_smoke.nonhydrostatic_fill_fields(nh)
+    cases.append((f"{chip_smoke.N}^3 fp32 u, v, w, b", nh.grid, group))
+    for label, g, fields in cases:
+        got = chip_smoke.nan_halos(g, fields, 21)
+        ref = [(d.clone(), *rest) for d, *rest in got]
+        ff.fused_fill_halos_reference(g, ref)
+        ff.fused_fill_halos(g, got)
+        if not all(torch.equal(a[0], b[0]) for a, b in zip(got, ref)):
+            raise AssertionError(f"K6 {label}: not bitwise")
+        ms = [chip_smoke.device_ms(lambda: ff.fused_fill_halos(g, got), reps,
+                                   "fill_halos_kernel") for _ in range(2)]
+        print(f"K6 {label}: kernel ms (torch.profiler), two rounds: {ms}")
+        del got, ref
+    del model, nh
+    torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.float64):
+        grid = chip_smoke.RectilinearGrid(
+            size=(chip_smoke.N,) * 3, extent=(1.0, 1.0, 1.0),
+            topology=(PERIODIC, PERIODIC, chip_smoke.BOUNDED), dtype=dtype,
+            device=chip_smoke.DEVICE)
+        gen = torch.Generator(device=chip_smoke.DEVICE).manual_seed(22)
+        p = torch.randn(grid.total_shape, generator=gen, dtype=dtype,
+                        device=chip_smoke.DEVICE)
+        got = ft.fused_pressure_gradient(grid, p)
+        ref = ft.fused_pressure_gradient_reference(grid, p)
+        if not all(torch.equal(grid.interior(a), grid.interior(b))
+                   for a, b in zip(got, ref)):
+            raise AssertionError(f"K3c {str(dtype)[6:]}: not bitwise")
+        del got, ref
+        ms = [chip_smoke.device_ms(lambda: ft.fused_pressure_gradient(grid, p),
+                                   reps, "pressure_gradient_kernel")
+              for _ in range(2)]
+        print(f"K3c {chip_smoke.N}^3 {str(dtype)[6:]}: kernel ms "
+              f"(torch.profiler), two rounds: {ms}")
+        if dtype == torch.float32:
+            # yardsticks: the same bytes written (three with-halo fields
+            # zeroed) and p copied once (one read, one write)
+            out = [torch.empty_like(p) for _ in range(3)]
+            zero_ms = chip_smoke.device_ms(lambda: [o.zero_() for o in out], reps, "")
+            copy_ms = chip_smoke.device_ms(lambda: out[0].copy_(p), reps, "")
+            print(f"yardsticks at {chip_smoke.N}^3 fp32 with halos: three "
+                  f"fields zeroed {zero_ms} ms, one copied {copy_ms} ms "
+                  "(torch.profiler)")
+            del out
+        del p
+        torch.cuda.empty_cache()
 
 
 def hydrostatic(steps):
@@ -500,6 +636,7 @@ def k5_barriers(steps):
 
 PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps),
          "rk3": lambda steps: nonhydrostatic("RK3", steps),
+         "general-projection": general_projection, "k6-k3c": k6_k3c,
          "hydrostatic": hydrostatic, "shallow-water": shallow_water,
          "division": division, "k3a-division": k3a_division,
          "k4b-phases": k4b_phases, "k5-barriers": k5_barriers}

@@ -34,20 +34,23 @@ the card, in phases; each prints one line or a few:
    fp32 (Bounded, Bounded) and 1024×768 fp64 (Periodic, Bounded), both
    with two tracers and bathymetry (sizes that are not multiples of the
    16×64 tile); times at 16384²;
-6. K3b and K3c against their plain versions: 256³ fp32 and 64³ fp64, same
-   bounds; times at 256³;
+6. K3b and K3c against their plain versions: 256³ fp32, 64³ fp64 and
+   100×77×45 fp32 (off K3c's block of 4 columns); K3b within the bounds of
+   phase 3, K3c bit for bit on the interior with every halo point exactly
+   0, its outputs allocated over a cache of NaNs; times at 256³;
 7. AB2 path: the ``bench.py`` configuration built through the public API,
-   2 warm-up and 20 timed steps at Δt = 1e-4, with K1 and then with the
-   plain version; fields finite, one K1 launch per step (no other),
+   2 warm-up and 20 timed steps at Δt = 1e-4, with K1 and K6 and then with
+   the plain versions; the model's fill route is K6; fields finite, one K1
+   and two K6 launches per step (no other),
    max|∇·u|·Δx/max|u| ≤ 1e-5, and the two runs agree exactly; K1 held
    bit for bit and timed against its plain version on the path's fields
    after the kernel run, which go into K1's record;
 8. RK3 path: the flagship configuration of ``__graft_entry__.py``
    (WENO5, BuoyancyTracer, FPlane(f=1e-4), ScalarDiffusivity(nu=1e-5,
    kappa=1e-5), RK3), 2 warm-up and 10 timed steps at Δt = 1e-3, with K2
-   and then with its plain version; the same checks, with exactly 3 K2
-   launches per step (no other); K2's times on the path's fields go into
-   its record;
+   and K6 and then with their plain versions; the same checks, with
+   exactly 3 K2 and 6 K6 launches per step (no other); K2's times on the
+   path's fields go into its record;
 9. shallow-water path: the headline of ``benchmark/bench_shallow_water.py``
    (16384² fp32, (Periodic, Periodic, Flat) on [0, 2π]², g = 10, WENO5,
    uh = 0.1 sin x cos y, h = 1, RK3 at Δt = 1e-4), 2 warm-up and 10 timed
@@ -58,8 +61,8 @@ the card, in phases; each prints one line or a few:
    too), which go into K3a's record;
 10. general-projection path: the RK3 flagship at 256³ fp32 with
    ``FluxBC()`` at both z walls of w, 2 warm-up and 5 timed steps with the
-   kernels and then the plain versions; exactly 3 K2, 3 K3b and 3 K3c
-   launches per step (no other); the flux walls keep a net wall flux, so
+   kernels and then the plain versions; exactly 3 K2, 3 K3b, 3 K3c and
+   12 K6 launches per step (no other); the flux walls keep a net wall flux, so
    the check is max|∇·u − mean ∇·u|·Δx/max|u| ≤ 1e-5; the runs agree
    exactly;
 11. K4a and K4b against their plain versions: the ¼° flagship
@@ -76,10 +79,17 @@ the card, in phases; each prints one line or a few:
    outputs allocated over a cache of NaNs; its cooperative grid (blocks,
    threads, blocks an SM) and registers; times at ¼°, one cooperative
    launch a call;
-13. K6 against its plain version on every point: the ¼° flagship's u, v,
-   T, S, b and η (one launch, the main path's first fill of a step) and
-   w and pHY′ in fp32, and the 128×96×16 fp64 model's fields; same
-   bounds; times of the first group at ¼°;
+13. K6 against its plain version bit for bit on every with-halo point,
+   from NaN on every point a fill writes, one launch a group: the ¼°
+   flagship's u, v, T, S, b and η (the hydrostatic path's first fill of a
+   step) and w and pHY′ in fp32, the 128×96×16 fp64 model's fields, the
+   256³ fp32 nonhydrostatic groups (u, v, w, b; pNHS, with FluxBC w
+   walls), and 67×45×29 fp64 (Bounded, Periodic, Bounded) with every
+   location under value, open and flux walls (sizes off K6's blocks);
+   the first group's halo points, compulsory bytes and the 32-byte L2
+   sectors and 64-byte DRAM blocks it reads and writes (what bounds it at
+   the memory's granularity); times
+   of the first group at ¼° and of both groups at 256³;
 14. hydrostatic path: the ¼° flagship of
    ``benchmark/bench_hydro_flagship.py`` (split-explicit with 30
    substeps, Δt = 600 s, u = 0.1·N(0,1), b = 2e-5 (z+3000)/3000) built
@@ -97,8 +107,9 @@ function needs, ``FLOPS``) over the 67 TFLOP/s fp32 peak; no single
 PyTorch call computes any of these kernels' functions, so ``library_ms``
 is null.
 
-Each path's launch counts are set to 0 just before it and read just after.
-Then a JSON line with each kernel's record, and last
+Each path's launch counts are set to 0 just before it and read just after;
+K6's record counts its launches on the four paths that run it. Then a
+JSON line with each kernel's record, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. The port is imported first, so a copy of this file
 outside the repository fails at once.
@@ -119,10 +130,12 @@ from clima_oceananigans_jl_torch import (BOUNDED, FLAT, PERIODIC, BetaPlane,
                                          HydrostaticFreeSurfaceModel,
                                          HydrostaticSphericalCoriolis,
                                          LatitudeLongitudeGrid,
-                                         NonhydrostaticModel, RectilinearGrid,
+                                         NonhydrostaticModel, OpenBC,
+                                         RectilinearGrid,
                                          ScalarDiffusivity, ShallowWaterModel,
                                          SplitExplicitFreeSurface, ValueBC,
                                          VectorInvariant, WENO5)
+from clima_oceananigans_jl_torch.boundary_conditions.bcs import regularize_bcs
 from clima_oceananigans_jl_torch.models import (hydrostatic, nonhydrostatic,
                                                 shallow_water)
 from clima_oceananigans_jl_torch.models.free_surface import (ETA_LOC,
@@ -132,7 +145,8 @@ from clima_oceananigans_jl_torch.ops import _build
 from clima_oceananigans_jl_torch.ops.fused_barotropic import (
     cooperative_grid, fused_substep_eta, fused_substep_eta_reference)
 from clima_oceananigans_jl_torch.ops.fused_fill import (
-    MIRROR_F, fill_plan, fused_fill_halos, fused_fill_halos_reference)
+    MIRROR_C, MIRROR_F, WRAP, fill_plan, fused_fill_halos,
+    fused_fill_halos_reference)
 from clima_oceananigans_jl_torch.ops.fused_hydrostatic import (
     columns_config, fused_hydrostatic_tendencies,
     fused_hydrostatic_tendencies_reference, hydrostatic_columns,
@@ -144,7 +158,8 @@ from clima_oceananigans_jl_torch.ops.fused_tendencies import (
     fused_divergence, fused_divergence_reference, fused_pressure_gradient,
     fused_pressure_gradient_reference, fused_shallow_water_tendencies,
     fused_shallow_water_tendencies_reference)
-from clima_oceananigans_jl_torch.utils.location import CENTER, W_LOC
+from clima_oceananigans_jl_torch.utils.location import (CENTER, U_LOC, V_LOC,
+                                                        W_LOC)
 
 N = 256
 N_SW = 16384
@@ -201,8 +216,9 @@ PATHS = {
 }
 SW_PATH = (1e-4, 2, 10)  # shallow water: Δt, warm-up steps, timed steps
 #: kernel launches per step of each path
-PER_STEP = {"AB2": {K1: 1}, "RK3": {K2: 3}, "shallow water": {K3A: 3},
-            "general projection": {K2: 3, K3B: 3, K3C: 3},
+PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
+            "shallow water": {K3A: 3},
+            "general projection": {K2: 3, K3B: 3, K3C: 3, K6: 12},
             "hydrostatic": {K4A: 1, K4B: 1, K5: 1, K6: 2}}
 #: how far the kernel and plain runs of a path may differ, of max|field|;
 #: every kernel is bitwise its plain version, so a gap (such as an
@@ -237,6 +253,24 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps, kernel):
+    """Mean device time in ms of the CUDA kernels whose names hold
+    ``kernel``, per call of ``fn``, by torch.profiler over ``reps`` calls
+    after one warm-up: the kernel alone, without the host time between
+    launches that ``cuda_ms`` counts when the host is slower than the card.
+    None when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps if us else None
 
 
 def phase_device():
@@ -546,28 +580,53 @@ def phase_k3a():
     return worst, ms, plain_ms, *k3a_bound
 
 
+def hold_k3c(label, grid, p):
+    """K3c against its plain version, its outputs allocated over a cache of
+    NaNs: the interior bit for bit and every halo point exactly 0; returns
+    the largest max|Δ| (of the interiors)."""
+    poison_cache(grid.total_shape, grid.dtype)
+    got = fused_pressure_gradient(grid, p)
+    err = hold(label, {"out": dict(enumerate(got))},
+               {"out": dict(enumerate(fused_pressure_gradient_reference(grid, p)))},
+               grid.dtype, grid.interior, exact=True)
+    for n, g in enumerate(got):
+        halo = g.clone()
+        halo[grid.interior_slices] = 0
+        if halo.isnan().any() or halo.any():
+            raise AssertionError(f"{label} [{n}]: a halo point is not exactly 0")
+    print(f"{label}: every halo point exactly 0")
+    return err
+
+
 def phase_k3bc():
     """K3b and K3c against their plain versions; returns their
     (max_abs_err, ms, plain_ms, bound_ms, bound_by) at 256³ fp32."""
     out = {}
-    for n, dtype in ((N, torch.float32), (64, torch.float64)):
-        grid = RectilinearGrid(size=(n, n, n), extent=(1.0, 1.0, 1.0),
+    for size, dtype in (((N, N, N), torch.float32), ((64, 64, 64), torch.float64),
+                        ((100, 77, 45), torch.float32)):
+        grid = RectilinearGrid(size=size, extent=(1.0, 1.0, 1.0),
                                topology=(PERIODIC, PERIODIC, BOUNDED),
                                dtype=dtype, device=DEVICE)
         gen = torch.Generator(device=DEVICE).manual_seed(5)
         u, v, w, p = (torch.randn(grid.total_shape, generator=gen, dtype=dtype,
                                   device=DEVICE) for _ in range(4))
-        label = f"{n}^3 {str(dtype)[6:]}"
-        for name, fn, ref_fn, args, interior in (
-                (K3B, fused_divergence, fused_divergence_reference,
-                 (grid, u, v, w), None),
-                (K3C, fused_pressure_gradient,
-                 fused_pressure_gradient_reference, (grid, p), grid.interior)):
-            as_dict = lambda x: dict(enumerate(x)) if isinstance(x, tuple) \
-                else {0: x}
-            err = hold(f"{name} {label}", {"out": as_dict(fn(*args))},
-                       {"out": as_dict(ref_fn(*args))}, dtype, interior)
-            if n == N:
+        # zero numerators of gz on the bottom wall face, as a mirrored halo
+        # gives them
+        p[..., grid.Hz - 1] = p[..., grid.Hz]
+        n = size[0]
+        label = f"{'x'.join(map(str, size))} {str(dtype)[6:]}"
+        for name, fn, ref_fn, args in (
+                (K3B, fused_divergence, fused_divergence_reference, (grid, u, v, w)),
+                (K3C, fused_pressure_gradient, fused_pressure_gradient_reference,
+                 (grid, p))):
+            if name == K3B:
+                err = hold(f"{name} {label}", {"out": {0: fn(*args)}},
+                           {"out": {0: ref_fn(*args)}}, dtype)
+            else:
+                err = hold_k3c(f"{name} {label}", grid, p)
+            if name in out:
+                out[name] = (max(out[name][0], err),) + out[name][1:]
+            elif n == N:
                 ms = cuda_ms(lambda: fn(*args), 20)
                 plain_ms = cuda_ms(lambda: ref_fn(*args), 3)
                 # K3b: u, v, w in, the interior divergence out;
@@ -575,8 +634,12 @@ def phase_k3bc():
                 nb = (tensor_bytes([u, v, w]) + n ** 3 * p.element_size()
                       if name == K3B else 4 * tensor_bytes([p]))
                 out[name] = (err, ms, plain_ms, *bound(name, nb, n ** 3))
+                kernel = ("divergence_kernel" if name == K3B
+                          else "pressure_gradient_kernel")
                 print(f"{name} {label} time: kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms (CUDA events)")
+                      f"{plain_ms:.4f} ms (CUDA events); kernel alone "
+                      f"{device_ms(lambda: fn(*args), 20, kernel)} ms "
+                      "(torch.profiler)")
         del u, v, w, p
         torch.cuda.empty_cache()
     return out[K3B], out[K3C]
@@ -611,6 +674,8 @@ def drive(path, plain):
     (``plain``) their plain versions."""
     timestepper, dt, warmup, steps, kw = PATHS[path]
     model = model_for(N, torch.float32, timestepper=timestepper, **kw)
+    if model.fill_route != "K6":
+        raise AssertionError(f"{path}: fills take {model.fill_route}, not K6")
     rng = np.random.default_rng(0)
     shape = model.grid.shape
     state = model.initial_state(u=1e-2 * rng.standard_normal(shape),
@@ -937,79 +1002,208 @@ def phase_k5():
     return out
 
 
+def nan_halos(grid, fields, seed):
+    """``fields`` [(shape, loc, bcs, axes)] as K6's (data, loc, bcs, axes,
+    t) on the card: random on each field's kept interior (``fill_plan``'s),
+    NaN on every point a fill writes, so a point K6 leaves unwritten fails
+    a bit-for-bit hold."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    out = []
+    for shape, loc, bcs, axes in fields:
+        ints, _ = fill_plan(grid, loc, bcs, axes, shape)
+        data = torch.full(shape, float("nan"), dtype=grid.dtype, device=DEVICE)
+        keep = tuple(slice(lo, hi) for _S, _N, _H, lo, hi, *_r in ints)
+        data[keep] = torch.randn(data[keep].shape, generator=gen,
+                                 dtype=grid.dtype, device=DEVICE)
+        out.append((data, loc, bcs, axes, 0.0))
+    return out
+
+
 def hydro_fill_fields(model):
-    """The two groups of (data, loc, bcs, axes, t) the hydrostatic step fills
-    in ``update_state``, on random data: u, v, tracers and η, then w and
-    pHY′."""
+    """The two groups of (shape, loc, bcs, axes) the hydrostatic step fills
+    in ``update_state``: u, v, tracers and η, then w and pHY′."""
     g = model.grid
-    gen = torch.Generator(device=DEVICE).manual_seed(13)
-    rand = lambda shape: torch.randn(shape, generator=gen, dtype=g.dtype,
-                                     device=DEVICE)
-    first = [(rand(g.total_shape), model._locs()[n], model.bcs[n], (0, 1, 2), 0.0)
+    first = [(g.total_shape, model._locs()[n], model.bcs[n], (0, 1, 2))
              for n in model.prognostic_names()]
-    first.append((rand(g.total_shape[:2] + (1,)), ETA_LOC, model.eta_bcs, (0, 1), 0.0))
-    second = [(rand(g.total_shape), loc, bcs, (0, 1, 2), 0.0) for loc, bcs in (
+    first.append((g.total_shape[:2] + (1,), ETA_LOC, model.eta_bcs, (0, 1)))
+    second = [(g.total_shape, loc, bcs, (0, 1, 2)) for loc, bcs in (
         (W_LOC, model.w_bcs), (CENTER, model.pressure_bcs))]
     return first, second
 
 
+def nonhydrostatic_fill_fields(model):
+    """The two groups the nonhydrostatic step fills in ``update_state``
+    (u, v, w and the tracers, then pHY′; the general projection's groups
+    have the same shapes and rules: u, v, w, then pNHS)."""
+    g = model.grid
+    assert model.fill_route == "K6", model._fill_unsupported_reason()
+    first = [(g.total_shape, model._locs()[n], model.bcs[n], (0, 1, 2))
+             for n in model.prognostic_names()]
+    return first, [(g.total_shape, CENTER, model.pressure_bcs, (0, 1, 2))]
+
+
+def axis_sources(S, N, H, lo, hi, k0, k1, v0, v1):
+    """The kept indices along one axis that its written indices read (a
+    wall face that takes b reads none), as ``csrc/fill_halos.cu::rule``."""
+    out = set()
+    for i in list(range(lo)) + list(range(hi, S)):
+        side = 0 if i < lo else 1
+        kind = (k0, k1)[side]
+        if kind == WRAP:
+            out.add(i + N if side == 0 else i - N)
+        elif kind == MIRROR_C:
+            m = 2 * H - 1 - i if side == 0 else 2 * (H + N) - 1 - i
+            out.add(min(max(m, H), H + N - 1))
+        elif kind == MIRROR_F:
+            face = H if side == 0 else H + N
+            if i != face:
+                out.add(min(max(2 * face - i, H), H + N))
+    return sorted(out)
+
+
+def fill_masks(grid, data, loc, bcs, axes):
+    """(written, source) boolean masks of one field on the card: the points
+    a fill writes, and the kept points some written point reads."""
+    ints, _ = fill_plan(grid, loc, bcs, axes, data.shape)
+    kept, src = [], []
+    for a, (S, N, H, lo, hi, *rest) in enumerate(ints):
+        k = torch.zeros(S, dtype=torch.bool, device=DEVICE)
+        k[lo:hi] = True
+        m = torch.zeros(S, dtype=torch.bool, device=DEVICE)
+        m[axis_sources(S, N, H, lo, hi, *rest)] = True
+        shape = [1, 1, 1]
+        shape[a] = S
+        kept.append(k.view(shape))
+        src.append(m.view(shape))
+    keep = kept[0] & kept[1] & kept[2]
+    return ~keep, keep & (src[0] | src[1] | src[2])
+
+
 def fill_work(grid, fields):
     """(compulsory bytes, written points) of filling ``fields``: each
-    written halo point once and each distinct source point once. Along an
-    axis the written indices map one to one onto kept indices (a wall face
-    has no source), so a field's sources are the kept points whose index
-    lies among an axis' sources on some axis: |kept| − Π(kept_a − sources_a)."""
+    written halo point once and each distinct source point once."""
     nbytes = written = 0
     for data, loc, bcs, axes, _t in fields:
-        ints, _ = fill_plan(grid, loc, bcs, axes, data.shape)
-        kept = no_source = 1
-        for S, _N, _H, lo, hi, k0, k1, v0, v1 in ints:
-            walls = sum(1 for k, v in ((k0, v0), (k1, v1)) if k == MIRROR_F and v)
-            sources = min(lo + (S - hi) - walls, hi - lo)
-            kept *= hi - lo
-            no_source *= hi - lo - sources
-        halo_points, source_points = data.numel() - kept, kept - no_source
-        written += halo_points
-        nbytes += (halo_points + source_points) * data.element_size()
+        wmask, smask = fill_masks(grid, data, loc, bcs, axes)
+        w, n_src = int(wmask.sum()), int(smask.sum())
+        written += w
+        nbytes += (w + n_src) * data.element_size()
     return nbytes, written
 
 
+def fill_sectors(grid, fields, size=32):
+    """(blocks of ``size`` bytes holding a source point, blocks holding a
+    written point, blocks of the fields) of filling ``fields``: what the
+    fill moves at the granularity of the L2 cache's sectors (32 bytes) or
+    of a DRAM access (64 bytes), each array taken as aligned to it."""
+    read = wrote = total = 0
+    for data, loc, bcs, axes, _t in fields:
+        es = data.element_size()
+        for mask, acc in zip(fill_masks(grid, data, loc, bcs, axes), ("r", "w")):
+            n = int(torch.unique(mask.flatten().nonzero().flatten() * es // size).numel())
+            if acc == "r":
+                read += n
+            else:
+                wrote += n
+        total += -(-data.numel() * es // size)
+    return read, wrote, total
+
+
+def hold_k6(label, grid, fields, seed):
+    """K6 against its plain version, bit for bit on every with-halo point,
+    from NaN on every written point (``nan_halos``), one launch; returns
+    (max|Δ|, the kernel's filled fields)."""
+    got = nan_halos(grid, fields, seed)
+    ref = [(d.clone(), *rest) for d, *rest in got]
+    n0 = fused_fill_halos.launches
+    fused_fill_halos(grid, got)
+    if fused_fill_halos.launches != n0 + 1:
+        raise AssertionError("K6: expected one launch per group")
+    fused_fill_halos_reference(grid, ref)
+    err = hold(label, {"out": {i: f[0] for i, f in enumerate(got)}},
+               {"out": {i: f[0] for i, f in enumerate(ref)}}, grid.dtype,
+               exact=True)
+    return err, got, ref
+
+
+def bounded_fill_fields(dtype=torch.float64, size=(67, 45, 29)):
+    """A group on (Bounded, Periodic, Bounded) at a size off K6's blocks:
+    every location with value, open and flux walls."""
+    grid = RectilinearGrid(size=size, extent=(1.0, 2.0, 0.5),
+                           topology=(BOUNDED, PERIODIC, BOUNDED), dtype=dtype,
+                           device=DEVICE, halo=(3, 3, 3))
+    walls = (FieldBCs(west=ValueBC(0.3), east=OpenBC(-0.2), bottom=ValueBC(0.5),
+                      top=OpenBC(1.5)),
+             FieldBCs(west=OpenBC(0.1), east=FluxBC(), bottom=FluxBC(),
+                      top=ValueBC(-1.25)),
+             None)
+    return grid, [(grid.total_shape, loc, regularize_bcs(grid, loc, bcs), (0, 1, 2))
+                  for loc in (CENTER, U_LOC, V_LOC, W_LOC) for bcs in walls]
+
+
 def phase_k6():
-    """K6 against its plain version on every point; returns (max_abs_err,
-    ms, plain_ms, bound_ms, bound_by) of the ¼° fp32 first group (u, v, T,
-    S, b and η: the main path's first fill of a step)."""
+    """K6 against its plain version on every point, from NaN on every
+    written point; returns (max_abs_err, ms, plain_ms, bound_ms, bound_by)
+    of the ¼° fp32 first group (u, v, T, S, b and η: the hydrostatic
+    path's first fill of a step), and prints the times of the 256³
+    nonhydrostatic groups."""
     out = None
     for label, build in (("1/4 deg fp32", latlon_flagship),
                          ("128x96x16 fp64 bounded x and y", bounded_beta_model)):
         model = build()
         g = model.grid
-        dtype = g.dtype
         for part, group in zip(("u, v, T, S, b, eta", "w, pHY"),
                                hydro_fill_fields(model)):
-            got = [(d.clone(), *rest) for d, *rest in group]
-            ref = [(d.clone(), *rest) for d, *rest in group]
-            n0 = fused_fill_halos.launches
-            fused_fill_halos(g, got)
-            if fused_fill_halos.launches != n0 + 1:
-                raise AssertionError("K6: expected one launch per group")
-            fused_fill_halos_reference(g, ref)
-            err = hold(f"K6 {label} {part}",
-                       {"out": {i: f[0] for i, f in enumerate(got)}},
-                       {"out": {i: f[0] for i, f in enumerate(ref)}}, dtype)
+            err, got, ref = hold_k6(f"K6 {label} {part}", g, group, 13)
             if out is None:
                 ms = cuda_ms(lambda: fused_fill_halos(g, got), 20)
                 plain_ms = cuda_ms(lambda: fused_fill_halos_reference(g, ref), 5)
-                nbytes, points = fill_work(g, group)
+                nbytes, points = fill_work(g, got)
                 out = (err, ms, plain_ms, *bound(K6, nbytes, points))
+                print(f"K6 {label} {part}: {points} halo points, "
+                      f"{nbytes / 1e9:.4f} GB compulsory "
+                      f"({nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+                for size in (32, 64):
+                    read, wrote, total = fill_sectors(g, got, size)
+                    moved = size * (read + wrote)
+                    print(f"K6 {label} {part}: {size}-byte blocks {read} read, "
+                          f"{wrote} written of {total} ({100 * read / total:.1f}% "
+                          f"and {100 * wrote / total:.1f}%), {moved / 1e9:.4f} GB "
+                          f"({moved / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s)")
                 print(f"K6 {label} {part} time: kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms (CUDA events); {points} halo points, "
-                      f"{nbytes / 1e9:.4f} GB compulsory")
+                      f"{plain_ms:.4f} ms (CUDA events); kernel alone "
+                      f"{device_ms(lambda: fused_fill_halos(g, got), 20, 'fill_halos_kernel')}"
+                      " ms (torch.profiler)")
             else:
                 out = (max(out[0], err),) + out[1:]
             del got, ref
         del model
         torch.cuda.empty_cache()
-    return out
+    model = model_for(N, torch.float32, boundary_conditions=FLUX_WALLS,
+                      timestepper="RungeKutta3")
+    g = model.grid
+    for part, group in zip(("u, v, w, b", "pNHS"), nonhydrostatic_fill_fields(model)):
+        label = f"K6 {N}^3 fp32 nonhydrostatic {part}"
+        err, got, ref = hold_k6(label, g, group, 14)
+        out = (max(out[0], err),) + out[1:]
+        ms = cuda_ms(lambda: fused_fill_halos(g, got), 20)
+        plain_ms = cuda_ms(lambda: fused_fill_halos_reference(g, ref), 5)
+        nbytes, points = fill_work(g, got)
+        moved = [size * sum(fill_sectors(g, got, size)[:2]) for size in (32, 64)]
+        alone = device_ms(lambda: fused_fill_halos(g, got), 20, "fill_halos_kernel")
+        print(f"{label} time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA "
+              f"events), kernel alone {alone} ms (torch.profiler); {points} halo "
+              f"points, bound {bound(K6, nbytes, points)[0]:.4f} ms; 32- and "
+              f"64-byte blocks moved {moved[0] / HBM_BYTES_PER_S * 1e3:.4f} and "
+              f"{moved[1] / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        del got, ref
+    del model
+    torch.cuda.empty_cache()
+    grid, group = bounded_fill_fields()
+    err, _, _ = hold_k6(f"K6 {'x'.join(map(str, grid.shape))} fp64 (Bounded, "
+                        f"Periodic, Bounded), value, open and flux walls, "
+                        f"{len(group)} fields", grid, group, 15)
+    return (max(out[0], err),) + out[1:]
 
 
 def drive_hydrostatic(plain):
@@ -1091,9 +1285,11 @@ def main():
     measured[K5] = phase_k5()
     measured[K6] = phase_k6()
     launches = {}
+    k6_launches = {}
     for path, name in (("AB2", K1), ("RK3", K2)):
         path_launches, (err, ms, plain_ms) = phase_path(path)
         launches[name] = path_launches[name]
+        k6_launches[path] = path_launches[K6]
         # K1's and K2's times on their paths' fields
         measured[name] = (max(measured[name][0], err), ms, plain_ms,
                           *measured[name][3:])
@@ -1103,8 +1299,13 @@ def main():
     measured[K3A] = (measured[K3A][0], ms, plain_ms, *measured[K3A][3:])
     general, _ = phase_path("general projection")
     launches.update({K3B: general[K3B], K3C: general[K3C]})
+    k6_launches["general projection"] = general[K6]
     hydro, ms, plain_ms = phase_hydrostatic()
-    launches.update({k: hydro[k] for k in (K4A, K4B, K5, K6)})
+    launches.update({k: hydro[k] for k in (K4A, K4B, K5)})
+    k6_launches["hydrostatic"] = hydro[K6]
+    # K6 runs on four paths: its record counts the launches of all four
+    launches[K6] = sum(k6_launches.values())
+    print(f"K6 launches by path: {k6_launches}")
     # K4b's times on the path's fields
     measured[K4B] = (measured[K4B][0], ms, plain_ms, *measured[K4B][3:])
     records = []

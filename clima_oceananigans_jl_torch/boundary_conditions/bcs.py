@@ -241,7 +241,7 @@ def fill_halos(data, grid, loc, bcs=None, t=0.0, axes=(0, 1, 2)):
 def apply_flux_bcs(G, grid, loc, bcs, t=0.0):
     """Add boundary-flux divergences into the tendency G. Value-less flux
     BCs (the zero-flux defaults) add nothing; a flux value is not ported
-    yet (ROADMAP Queue 1 item 4)."""
+    yet (ROADMAP Queue 1 item 1)."""
     if bcs is None:
         return G
     for axis, _side, bc in bcs.sides():
@@ -249,5 +249,5 @@ def apply_flux_bcs(G, grid, loc, bcs, t=0.0):
                 and grid.topology[axis] is BOUNDED):
             raise NotImplementedError(
                 "flux BCs with values are not ported yet (ROADMAP Queue 1 "
-                "item 4)")
+                "item 1)")
     return G

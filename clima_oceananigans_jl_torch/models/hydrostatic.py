@@ -52,7 +52,7 @@ from ..grids.topology import BOUNDED, FLAT
 from ..ops.fused_barotropic import fused_substep_eta, fused_substep_eta_reference
 from ..ops.fused_barotropic import unsupported_reason as barotropic_unsupported_reason
 from ..ops.fused_fill import fused_fill_halos, fused_fill_halos_reference
-from ..ops.fused_fill import unsupported_reason as fill_unsupported_reason
+from ..ops.fused_fill import fields_unsupported_reason
 from ..ops.fused_hydrostatic import (fused_hydrostatic_tendencies,
                                      fused_hydrostatic_tendencies_reference,
                                      hydrostatic_columns,
@@ -206,12 +206,9 @@ class HydrostaticFreeSurfaceModel:
         g = self.grid
         fields = [(self._locs()[n], self.bcs[n]) for n in self.prognostic_names()]
         fields += [(W_LOC, self.w_bcs), (CENTER, self.pressure_bcs)]
-        for loc, bcs in fields:
-            reason = fill_unsupported_reason(g, loc, bcs, (0, 1, 2), g.total_shape)
-            if reason is not None:
-                return reason
-        return fill_unsupported_reason(g, ETA_LOC, self.eta_bcs, (0, 1),
-                                       g.total_shape[:2] + (1,))
+        return fields_unsupported_reason(
+            g, [(loc, bcs, (0, 1, 2), g.total_shape) for loc, bcs in fields]
+            + [(ETA_LOC, self.eta_bcs, (0, 1), g.total_shape[:2] + (1,))])
 
     @property
     def _explicit_fs(self):

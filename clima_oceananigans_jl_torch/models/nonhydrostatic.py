@@ -26,7 +26,12 @@ Time stepping, as the JAX package runs it on the TPU:
 roll-based projection where the JAX package does (periodic x and y, w
 walls that are imposed values), and otherwise the general projection:
 halo fills, ``fused_divergence`` (K3b), the FFT solve and
-``fused_pressure_gradient`` (K3c). A configuration the port cannot run
+``fused_pressure_gradient`` (K3c). ``update_state`` and the general
+projection fill halos through ``fused_fill_halos`` (K6), two launches
+each, where the constructor finds that K6's gate takes every field
+(``fill_route`` "K6"); otherwise, as for a gradient BC or a callable BC
+value, through ``fill_halos`` field by field (``fill_route``
+"fill_halos"). A configuration the port cannot run
 (other Coriolis or closures, forcing, immersed boundaries, bounded x or
 y, ...) raises ``NotImplementedError`` at construction. The kernels'
 wrappers come from ``KERNELS``; the JAX keyword ``fused_advection=False``
@@ -44,8 +49,7 @@ from __future__ import annotations
 import torch
 
 from ..advection.schemes import CenteredSecondOrder
-from ..boundary_conditions.bcs import (_bvalue, apply_flux_bcs, fill_halos,
-                                       regularize_bcs)
+from ..boundary_conditions.bcs import _bvalue, apply_flux_bcs, regularize_bcs
 from ..buoyancy.buoyancy import hydrostatic_pressure_anomaly
 from ..closures.implicit_vertical_diffusion import implicit_step_fields
 from ..closures.scalar_diffusivity import (compute_closure_diffusivities,
@@ -54,6 +58,8 @@ from ..closures.scalar_diffusivity import (compute_closure_diffusivities,
 from ..fields.field import new_field, set_field
 from ..grids.topology import BOUNDED, PERIODIC
 from ..ops import stencil as st
+from ..ops.fused_fill import (fields_unsupported_reason, fused_fill_halos,
+                              fused_fill_halos_reference)
 from ..ops.fused_step import (fused_ab2_advance, fused_ab2_advance_reference,
                               fused_step_ok, unsupported_reason)
 from ..ops.fused_tendencies import (fused_advective_tendencies,
@@ -69,17 +75,20 @@ from ..timesteppers.steppers import (RK3_GAMMA, RK3_ZETA, Clock, ab2_substep,
 from ..utils.location import CENTER, U_LOC, V_LOC, W_LOC
 
 #: the kernels' wrappers a step calls, by name: the fused AB2 advance (K1),
-#: the advection of every ``tendencies`` call (K2) and the general
-#: projection's divergence (K3b) and gradient (K3c)
+#: the advection of every ``tendencies`` call (K2), the general
+#: projection's divergence (K3b) and gradient (K3c), and the halo fills
+#: of ``update_state`` and the general projection (K6)
 KERNELS = dict(advance=fused_ab2_advance, advect=fused_advective_tendencies,
-               divergence=fused_divergence, gradient=fused_pressure_gradient)
+               divergence=fused_divergence, gradient=fused_pressure_gradient,
+               fill=fused_fill_halos)
 #: their plain versions: ``step(..., kernels=PLAIN)`` runs a step without
 #: the kernels on the card, as does a model built with
 #: ``fused_advection=False``
 PLAIN = dict(advance=fused_ab2_advance_reference,
              advect=fused_advective_tendencies_reference,
              divergence=fused_divergence_reference,
-             gradient=fused_pressure_gradient_reference)
+             gradient=fused_pressure_gradient_reference,
+             fill=fused_fill_halos_reference)
 
 
 class NonhydrostaticModel:
@@ -127,6 +136,12 @@ class NonhydrostaticModel:
             raise NotImplementedError(reason)
         self.pressure_solver = FFTPoissonSolver.build(self.grid)
         self.fused_step = fused_step_ok(self)
+        # the halo fills' route, fixed here as the JAX package fixes its
+        # in-place fills (supports_inplace_fill): K6 where its gate takes
+        # every field and the pressure fields, otherwise fill_halos field
+        # by field (K6's plain version), as JAX runs those by default
+        if self.fused_advection and self._fill_unsupported_reason() is not None:
+            self.kernels = dict(KERNELS, fill=fused_fill_halos_reference)
 
     # -- state ----------------------------------------------------------------
     @property
@@ -136,8 +151,24 @@ class NonhydrostaticModel:
         Otherwise ``G_prev`` carries halos."""
         return self.fused_step and z_halo_free_ok(self.grid, self.bcs.get("w"))
 
+    @property
+    def fill_route(self):
+        """"K6" where the model's mapping fills halos through K6 (the
+        ``fill`` of ``KERNELS``), otherwise "fill_halos" (its plain version,
+        field by field)."""
+        return "K6" if self.kernels["fill"] is KERNELS["fill"] else "fill_halos"
+
     def prognostic_names(self):
         return ("u", "v", "w") + self.tracer_names
+
+    def _fill_unsupported_reason(self):
+        """Why K6 cannot fill one of the model's fields or its pressure
+        fields (pHY′, pNHS), or None."""
+        g = self.grid
+        fields = [(loc, self.bcs[n]) for n, loc in self._locs().items()]
+        fields.append((CENTER, self.pressure_bcs))
+        return fields_unsupported_reason(
+            g, [(loc, bcs, (0, 1, 2), g.total_shape) for loc, bcs in fields])
 
     def _locs(self):
         locs = dict(u=U_LOC, v=V_LOC, w=W_LOC)
@@ -168,17 +199,20 @@ class NonhydrostaticModel:
         return {k: x if tuple(x.shape) == g.total_shape else g.pad(x)
                 for k, x in G_prev.items()}
 
-    def update_state(self, state):
-        """Halo fills on all three axes of every field (in place), then
-        the closure's diffusivities and pHY′. Unlike the JAX package's
-        fused step, the z halos of u, v and passive tracers are filled
-        too: the kernels read real z halos where the TPU kernels wrap
-        z-halo-free blocks."""
+    def update_state(self, state, kernels=None):
+        """Halo fills on all three axes of every field (in place, one call
+        of ``kernels["fill"]``: K6 on the model's K6 route), then the
+        closure's diffusivities and pHY′ with its halos filled (a second
+        call: pHY′ reads b's top z halo). Unlike the JAX package's fused
+        step, the z halos of u, v and passive tracers are filled too: the
+        kernels read real z halos where the TPU kernels wrap z-halo-free
+        blocks."""
+        fill = self._kernels(kernels)["fill"]
         t = state["clock"].time
         locs = self._locs()
         sol = state["solution"]
-        for name, arr in sol.items():
-            fill_halos(arr, self.grid, locs[name], self.bcs[name], t)
+        fill(self.grid, [(arr, locs[name], self.bcs[name], (0, 1, 2), t)
+                         for name, arr in sol.items()])
         state = dict(state)
         tr = {n: sol[n] for n in self.tracer_names}
         diff = compute_closure_diffusivities(self.closure, self.grid, sol,
@@ -187,8 +221,8 @@ class NonhydrostaticModel:
             state["diffusivities"] = diff
         if self.buoyancy is not None:
             ph = hydrostatic_pressure_anomaly(self.buoyancy, self.grid, tr)
-            state["pHY"] = fill_halos(ph, self.grid, CENTER,
-                                      self.pressure_bcs, t)
+            fill(self.grid, [(ph, CENTER, self.pressure_bcs, (0, 1, 2), t)])
+            state["pHY"] = ph
         return state
 
     # -- tendencies ---------------------------------------------------------------
@@ -307,24 +341,38 @@ class NonhydrostaticModel:
         return dict(state, solution=sol, pNHS=grid.pad(phi))
 
     def _project_velocities_general(self, state, dt, kernels=None):
-        """The general projection: fill the halos of copies of u, v, w,
-        their divergence through ``kernels["divergence"]`` (K3b), the FFT
-        solve, pNHS with halos filled under ``pressure_bcs``, its gradient
-        through ``kernels["gradient"]`` (K3c), and the correction over the
-        with-halo arrays."""
+        """The general projection: copies of u, v, w with their halos
+        filled, their divergence through ``kernels["divergence"]`` (K3b),
+        the FFT solve, pNHS with halos filled under ``pressure_bcs``, its
+        gradient through ``kernels["gradient"]`` (K3c), and the correction
+        over the with-halo arrays. The two fills go through
+        ``kernels["fill"]`` (K6 on the model's K6 route)."""
         k = self._kernels(kernels)
-        divergence, gradient = k["divergence"], k["gradient"]
         grid = self.grid
-        t = state["clock"].time
-        locs = self._locs()
         sol = dict(state["solution"])
-        u, v, w = (fill_halos(sol[n].clone(), grid, locs[n], self.bcs[n], t)
-                   for n in ("u", "v", "w"))
-        phi = self.pressure_solver.solve(divergence(grid, u, v, w) / dt)
-        pNHS = fill_halos(grid.pad(phi), grid, CENTER, self.pressure_bcs)
-        gx, gy, gz = gradient(grid, pNHS)
+        u, v, w = self._filled_velocity_copies(sol, state["clock"].time,
+                                               k["fill"])
+        phi = self.pressure_solver.solve(k["divergence"](grid, u, v, w) / dt)
+        pNHS = self._filled_pressure(phi, k["fill"])
+        gx, gy, gz = k["gradient"](grid, pNHS)
         sol.update(u=u - dt * gx, v=v - dt * gy, w=w - dt * gz)
         return dict(state, solution=sol, pNHS=pNHS)
+
+    def _filled_velocity_copies(self, sol, t, fill):
+        """Copies of u, v and w with their halos filled, in one call of
+        ``fill``."""
+        locs = self._locs()
+        copies = [sol[n].clone() for n in ("u", "v", "w")]
+        fill(self.grid, [(c, locs[n], self.bcs[n], (0, 1, 2), t)
+                         for c, n in zip(copies, ("u", "v", "w"))])
+        return copies
+
+    def _filled_pressure(self, phi, fill):
+        """pNHS: the interior ``phi`` padded, its halos filled under
+        ``pressure_bcs`` in one call of ``fill``."""
+        p = self.grid.pad(phi)
+        fill(self.grid, [(p, CENTER, self.pressure_bcs, (0, 1, 2), 0.0)])
+        return p
 
     # -- stepping ---------------------------------------------------------------
     def _kernels(self, kernels):
@@ -367,7 +415,7 @@ class NonhydrostaticModel:
                                             kernels)
         state = dict(state, clock=clock0.tick(dt), G_prev=G,
                      previous_dt=float(dt))
-        return self.update_state(state)
+        return self.update_state(state, kernels)
 
     def _rk3_step(self, state, dt, kernels):
         """One low-storage RK3 step: three stages, each projected."""
@@ -384,7 +432,7 @@ class NonhydrostaticModel:
             state = self.project_velocities(dict(state, solution=sol),
                                             stage_dt, kernels)
             state = dict(state, clock=state["clock"].tick(stage_dt, stage=True))
-            state = self.update_state(state)
+            state = self.update_state(state, kernels)
             G_prev = G
         clock = Clock(clock0.time + dt, clock0.iteration + 1, 0)
         return dict(state, clock=clock, G_prev=G_prev, previous_dt=float(dt))

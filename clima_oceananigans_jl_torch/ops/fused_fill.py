@@ -7,7 +7,9 @@ for the periodic x axis of its (x, z, y) state and leaves the bounded
 axes to XLA slab updates. The port keeps the natural (x, y, z) layout,
 and its kernel ``csrc/fill_halos.cu`` fills every axis of every field it
 is given in one launch: the hydrostatic model's u, v, tracers and η in
-``update_state``, then w and pHY′.
+``update_state``, then w and pHY′; the nonhydrostatic model's u, v, w and
+tracers, then pHY′ (``update_state``), and the general projection's
+copies of u, v and w, then pNHS.
 
 ``fused_fill_halos_reference``, the plain version, runs
 ``boundary_conditions/bcs.py::fill_halos`` field by field. The kernel
@@ -15,10 +17,12 @@ writes what that sequence of fills writes: each halo point takes the
 value of one interior source point (each axis' index wrapped or mirrored)
 through the operations of the axes whose halo holds it, in the fill
 order. ``fill_plan`` describes that per axis; ``unsupported_reason`` is
-the static gate (scalar BC values, no gradient BCs, enough cells that no
-source is itself written). The wrapper runs the plain version on CPU
-tensors and the kernel on CUDA tensors (or raises: nothing falls back),
-and counts its launches in ``fused_fill_halos.launches``.
+the static gate of one field (scalar BC values, no gradient BCs, enough
+cells that no source is itself written), ``fields_unsupported_reason``
+that of a model's fills.
+The wrapper runs the plain version on CPU tensors and the kernel on CUDA
+tensors (or raises: nothing falls back), and counts its launches in
+``fused_fill_halos.launches``.
 """
 from __future__ import annotations
 
@@ -124,6 +128,17 @@ def unsupported_reason(grid, loc, bcs, axes, shape):
     return None
 
 
+def fields_unsupported_reason(grid, fields):
+    """Why K6 cannot fill one of ``fields``, each ``(loc, bcs, axes,
+    shape)``, or None: the gate that a model applies to its fills at
+    construction."""
+    for loc, bcs, axes, shape in fields:
+        reason = unsupported_reason(grid, loc, bcs, axes, shape)
+        if reason is not None:
+            return reason
+    return None
+
+
 def _launch(grid, fields):
     device, dtype = fields[0][0].device, grid.dtype
     ptrs = set()
@@ -133,7 +148,7 @@ def _launch(grid, fields):
     if len(ptrs) != len(fields):
         raise ValueError("K6 fills distinct tensors in place")
     fn = kernel_fn("fill_halos", "fill_halos", dtype,
-                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int])
+                   [ctypes.c_void_p] * 3 + [ctypes.c_int])
     order = fill_order(grid)
     for g0 in range(0, len(fields), MAX_FIELDS):
         group = fields[g0:g0 + MAX_FIELDS]

@@ -83,7 +83,8 @@ def unsupported_reason(model):
     for name in model.prognostic_names():
         for _axis, _side, bc in model.bcs[name].sides():
             if bc is not None and bc.kind == "flux" and bc.value is not None:
-                return f"flux BCs with values are not ported yet {_LATER}"
+                return ("flux BCs with values are not ported yet "
+                        "(ROADMAP Queue 1 item 1)")
     return None
 
 

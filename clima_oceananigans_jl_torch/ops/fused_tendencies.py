@@ -361,7 +361,8 @@ def fused_divergence(grid, u, v, w):
 def _launch_pressure_gradient(grid, p):
     args = _projection_args(grid)
     check_tensor("p", p, grid.total_shape, grid.dtype, p.device)
-    out = [torch.zeros(grid.total_shape, dtype=grid.dtype, device=p.device)
+    # K3c writes every point: the interior and the zero halos
+    out = [torch.empty(grid.total_shape, dtype=grid.dtype, device=p.device)
            for _ in range(3)]
     fn = kernel_fn("fused_projection", "fused_pressure_gradient", grid.dtype,
                    [ctypes.c_void_p] * 4 + PROJECTION_ARGTYPES)

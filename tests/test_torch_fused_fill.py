@@ -14,11 +14,19 @@ interpret mode (``tests/test_fused_fill.py``). Here, in f64:
   points it marks as written are exactly those the plain fills write, over
   every location and the flux, open and value BCs on bounded and periodic
   axes;
+- ``fill_plan`` through the kernel's passes, block counts and decode of
+  its block and thread indices, mirrored in numpy (the kernel's own are
+  held only by the ``cuda`` cases): each written point once, no other
+  point, at the source's block shape and others;
 - the static gate.
 
-The ``cuda`` case holds the kernel against its plain version on the card,
-bitwise (``python -m pytest --noconftest -m cuda tests/test_torch_fused_fill.py``).
+The ``cuda`` cases hold the kernel against its plain version on the card,
+bitwise, on the hydrostatic fields and on the nonhydrostatic model's
+(every halo point over NaN-filled memory) (``python -m pytest --noconftest -m cuda tests/test_torch_fused_fill.py``).
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -159,6 +167,76 @@ def test_fill_plan_marks_exactly_what_the_plain_fills_write(topology, bcs):
             assert np.array_equal(written_mask(ints), changed), (loc, axes)
 
 
+#: K6 block shapes (threads, points a thread) the launch-plan test decodes:
+#: the source's (256, 4) and others
+LAUNCH_SHAPES = [(32, 1), (256, 4), (64, 8)]
+
+
+def kernel_points(ints, threads, items):
+    """The (x, y, z) points that the threads of K6's three passes write over
+    one field of plan ``ints``, blocks of ``threads`` threads and ``items``
+    points a thread, one row a write: a numpy mirror of how the kernel
+    counts each pass' blocks (``csrc/fill_halos.cu::launch``) and decodes
+    its block, thread and item indices (``pass_point``)."""
+    (Sx, _, _, lx, hx, *_), (Sy, _, _, ly, hy, *_), (Sz, _, _, lz, hz, *_) = ints
+    wx, wy, wz, cx, cy = lx + Sx - hx, ly + Sy - hy, lz + Sz - hz, hx - lx, hy - ly
+    written = lambda lo, hi, n: np.where(n < lo, n, hi + n - lo)
+    bx, by, bz = (-(-n // (threads * items))
+                  for n in (wx * Sy * Sz, cx * wy * Sz, cx * cy * wz))
+    points = lambda blocks: np.arange(blocks * threads * items)
+    out = []
+    r = points(bx)  # x slabs
+    n = r // (Sy * Sz)
+    r, n = r[n < wx], n[n < wx]
+    y = (r - n * Sy * Sz) // Sz
+    out.append(np.stack([written(lx, hx, n), y, r - n * Sy * Sz - y * Sz], 1))
+    if by:  # y runs
+        r = points(by)
+        i = r // (wy * Sz)
+        r, i = r[i < cx], i[i < cx]
+        n = (r - i * wy * Sz) // Sz
+        out.append(np.stack([lx + i, written(ly, hy, n), r - i * wy * Sz - n * Sz], 1))
+    if bz:  # z halos
+        r = points(bz)
+        c = r // wz
+        i = c // cy
+        r, c, i = r[i < cx], c[i < cx], i[i < cx]
+        out.append(np.stack([lx + i, ly + c - i * cy, written(lz, hz, r - c * wz)], 1))
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("size", [(13, 7, 5), (16, 12, 10)])
+@pytest.mark.parametrize("topology", [("bounded",) * 3, ("periodic", "periodic", "bounded"),
+                                      ("periodic",) * 3])
+@pytest.mark.parametrize("threads,items", LAUNCH_SHAPES)
+def test_launch_plan_writes_each_halo_point_once(size, topology, threads, items):
+    """K6's passes and block counts, decoded as the kernel decodes them
+    (mirrored in numpy: ``kernel_points``), cover each point that
+    ``fill_plan`` marks as written exactly once and no other point, for
+    every location, the flux, open and value BCs, 3D and 2D fields, at
+    sizes off the blocks, at the source's block shape and at others."""
+    grid = T.RectilinearGrid(size=size, x=(0, 1), y=(0, 2), z=zfaces(size[2], 1.0, 1.5),
+                             topology=topology, dtype=torch.float64, device=DEVICE)
+    for loc in (CENTER, U_LOC, V_LOC, W_LOC):
+        for v in BCS.values():
+            b = regularize_bcs(grid, loc, None if v is None else T.FieldBCs(**v))
+            for axes, shape in (((0, 1, 2), grid.total_shape), ((1, 2), grid.total_shape),
+                                ((0, 1), grid.total_shape[:2] + (1,))):
+                ints, _ = tff.fill_plan(grid, loc, b, axes, shape)
+                count = np.zeros(shape, int)
+                np.add.at(count, tuple(kernel_points(ints, threads, items).T), 1)
+                assert np.array_equal(count, written_mask(ints).astype(int)), (loc, axes)
+
+
+def test_launch_plan_cases_include_the_sources_block_shape():
+    """The block shape that ``csrc/fill_halos.cu`` is built with is one of
+    those the launch-plan test decodes."""
+    src = (Path(tff.__file__).parent.parent / "csrc" / "fill_halos.cu").read_text()
+    shape = re.search(r"constexpr int FILL_THREADS = (\d+), FILL_ITEMS = (\d+);", src)
+    assert shape is not None
+    assert tuple(map(int, shape.groups())) in LAUNCH_SHAPES
+
+
 def test_gate_refuses_what_the_kernel_lacks():
     grid = T.RectilinearGrid(size=(9, 7, 5), extent=(1, 1, 1),
                              topology=("bounded", "bounded", "bounded"),
@@ -177,6 +255,21 @@ def test_gate_refuses_what_the_kernel_lacks():
     assert "H+1" in tff.unsupported_reason(thin, CENTER, None, (0, 1, 2), thin.total_shape)
     assert tff.unsupported_reason(thin, CENTER, None, (0, 2), thin.total_shape) is None
     assert torch_model()._fill_unsupported_reason() is None
+
+
+def test_gate_over_several_fields_gives_the_first_reason():
+    """``fields_unsupported_reason``, the gate both models apply to their
+    fills: None when K6 takes every field, else the first field's reason."""
+    grid = T.RectilinearGrid(size=(9, 7, 5), extent=(1, 1, 1),
+                             topology=("bounded", "bounded", "bounded"),
+                             dtype=torch.float64, device=DEVICE)
+    S = grid.total_shape
+    ok = (CENTER, None, (0, 1, 2), S)
+    grad = (CENTER, T.FieldBCs(west=T.GradientBC(0.1)), (0, 1, 2), S)
+    call = (CENTER, T.FieldBCs(top=T.ValueBC(lambda x, y, t: x + y)), (0, 1, 2), S)
+    assert tff.fields_unsupported_reason(grid, [ok, (W_LOC, None, (0, 1), S[:2] + (1,))]) is None
+    assert "gradient" in tff.fields_unsupported_reason(grid, [ok, grad, call])
+    assert "scalar" in tff.fields_unsupported_reason(grid, [call, grad])
 
 
 def test_wrapper_takes_the_plain_version_on_cpu_and_counts_no_launch():
@@ -218,3 +311,45 @@ def test_cuda_k6_matches_plain_version(dtype):
                                            for a, (_s, loc, b, ax) in zip(ref, specs)])
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,size", [(torch.float32, (64, 48, 40)),
+                                        (torch.float64, (37, 29, 23))])
+def test_cuda_k6_on_the_nonhydrostatic_groups_over_nan_halos(dtype, size):
+    """The nonhydrostatic model's two groups (u, v, w, b; then pHY′ or
+    pNHS) with value, open and flux walls, each point outside the kept
+    interior NaN before the fill: K6 and its plain version bitwise on
+    every with-halo point, one launch a group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    grid = T.RectilinearGrid(size=size, extent=(1.0, 1.0, 1.0),
+                             topology=("periodic", "periodic", "bounded"),
+                             dtype=dtype, device="cuda")
+    model = T.NonhydrostaticModel(
+        grid, advection=T.WENO5(), buoyancy=T.BuoyancyTracer(), tracers=("c",),
+        boundary_conditions={"w": T.FieldBCs(bottom=T.FluxBC(), top=T.OpenBC(0.0)),
+                             "b": T.FieldBCs(top=T.ValueBC(0.25)),
+                             "c": T.FieldBCs(bottom=T.ValueBC(-1.0), top=T.FluxBC())},
+        timestepper="RungeKutta3")
+    assert model.fill_route == "K6"
+    g = model.grid
+    groups = [[(model._locs()[n], model.bcs[n]) for n in model.prognostic_names()],
+              [(CENTER, model.pressure_bcs)]]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for group in groups:
+        base = []
+        for loc, b in group:
+            ints, _ = tff.fill_plan(g, loc, b, (0, 1, 2), g.total_shape)
+            a = torch.full(g.total_shape, float("nan"), dtype=dtype, device="cuda")
+            keep = tuple(slice(lo, hi) for _S, _N, _H, lo, hi, *_r in ints)
+            a[keep] = torch.randn(a[keep].shape, generator=gen, dtype=dtype, device="cuda")
+            base.append(a)
+        got, ref = [a.clone() for a in base], [a.clone() for a in base]
+        n0 = tff.fused_fill_halos.launches
+        tff.fused_fill_halos(g, [(a, loc, b, (0, 1, 2), 0.0) for a, (loc, b) in zip(got, group)])
+        assert tff.fused_fill_halos.launches == n0 + 1
+        tff.fused_fill_halos_reference(g, [(a, loc, b, (0, 1, 2), 0.0)
+                                           for a, (loc, b) in zip(ref, group)])
+        for a, r in zip(got, ref):
+            assert torch.equal(a, r)

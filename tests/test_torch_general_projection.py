@@ -304,6 +304,31 @@ def test_cuda_kernels_match_plain_versions(dtype, topo, rtol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,size", [
+    (torch.float32, (64, 48, 40)), (torch.float64, (37, 29, 23)),
+    (torch.float32, (13, 70, 45))], ids=["f32", "f64-off-tile", "f32-off-tile"])
+def test_cuda_k3c_halo_zeros_over_nan_memory(dtype, size):
+    """K3c's outputs come from torch.empty over NaN-filled memory: the
+    interior bitwise its plain version, every halo point exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tg = torch_grid("ppb", size, dtype, "cuda")
+    (p,) = (torch.as_tensor(a, dtype=dtype, device="cuda")
+            for a in random_fields(tg.total_shape, 1, seed=10))
+    p[..., tg.Hz] = p[..., tg.Hz - 1]  # zero numerators on the bottom face
+    blocks = [torch.full(tg.total_shape, float("nan"), dtype=dtype, device="cuda")
+              for _ in range(6)]
+    del blocks
+    grads = tft.fused_pressure_gradient(tg, p)
+    torch.cuda.synchronize()
+    for g, r in zip(grads, tft.fused_pressure_gradient_reference(tg, p)):
+        assert torch.equal(tg.interior(g), tg.interior(r))
+        halo = g.clone()
+        halo[tg.interior_slices] = 0
+        assert not halo.isnan().any() and not halo.any()
+
+
+@pytest.mark.cuda
 def test_cuda_flux_wall_steps_match_plain_run():
     """Three RK3 steps of the flux-wall flagship in f64 through K2, K3b and
     K3c against the same steps through their plain versions: the kernels
