@@ -1,6 +1,7 @@
 """Where the time of the port's steps goes, on one NVIDIA GPU.
 
     python3 chip_breakdown.py [ab2] [rk3] [general-projection] [hydrostatic]
+                              [langmuir] [wind-mixing] [hydrostatic-wind]
                               [shallow-water] [k6-k3c] [division]
                               [k3a-division] [k4b-phases] [k5-barriers]
                               [--steps N]
@@ -39,6 +40,18 @@ limit first. Needs a card; without one it exits with an error.
   K5 (with its wrapper), the corrector, K4a, and K6's two halo fills of
   ``update_state``; "the rest" is the step's CUDA-event time minus their
   sum (c₁G − c₂G⁻, the weight vectors, Python).
+- ``langmuir``, ``wind-mixing``: the 256³ surface-forced paths of
+  ``chip_smoke.py`` (``SURFACE``), likewise, around K2, the boundary
+  fluxes (``apply_flux_bcs``, every field, three stages), the Stokes
+  drift's six terms (langmuir), the other eager terms (``tendencies``
+  less those), ``rk3_substep``, ``project_velocities``, ``update_state``
+  less its K6 fills, and those fills.
+- ``hydrostatic-wind``: the ¼° flagship under the near-global wind stress
+  (``chip_smoke.py``'s ``hydrostatic wind`` path: the two-stage route),
+  like ``hydrostatic``, around K4b's tendency form, the flux BC, the
+  eager ``ab2_substep``, the barotropic modes, K5, the corrector, K4a and
+  K6; run it with ``hydrostatic`` in one call to read what the two-stage
+  route costs over the fused advance.
 - ``shallow-water``: the 16384² headline of
   ``benchmark/bench_shallow_water.py`` (as ``chip_smoke.py`` runs it), 2
   warm-up steps, then ``steps`` steps with CUDA events around K3a,
@@ -47,7 +60,8 @@ limit first. Needs a card; without one it exits with an error.
 - ``k6-k3c``: ptxas's registers, stack and spills for K6 and K3b/K3c
   (``csrc/fill_halos.cu``, ``csrc/fused_projection.cu`` built as the port
   builds them, with ``-Xptxas -v``); then K6 on the ¼° first group and
-  the 256³ nonhydrostatic u, v, w, b, and K3c at 256³ fp32 and fp64, each
+  the 256³ nonhydrostatic u, v, w, b (and the langmuir path's u, v, w, b,
+  whose gradient wall reads the side table), and K3c at 256³ fp32 and fp64, each
   held bit for bit against the plain version and timed alone (the
   kernel's own device time by torch.profiler, two rounds); beside them
   three with-halo fields zeroed and one copied, the bytes K3c writes and a
@@ -278,6 +292,11 @@ def k6_k3c(steps):
                               timestepper="RungeKutta3")
     group, _ = chip_smoke.nonhydrostatic_fill_fields(nh)
     cases.append((f"{chip_smoke.N}^3 fp32 u, v, w, b", nh.grid, group))
+    if hasattr(chip_smoke, "langmuir_model"):  # trees with the langmuir path
+        lm = chip_smoke.langmuir_model()
+        group, _ = chip_smoke.nonhydrostatic_fill_fields(lm)
+        cases.append((f"{chip_smoke.N}^3 fp32 langmuir u, v, w, b (b's gradient "
+                      "wall: the side table)", lm.grid, group))
     for label, g, fields in cases:
         got = chip_smoke.nan_halos(g, fields, 21)
         ref = [(d.clone(), *rest) for d, *rest in got]
@@ -322,6 +341,69 @@ def k6_k3c(steps):
             del out
         del p
         torch.cuda.empty_cache()
+
+
+def surface(path, steps):
+    """The 256³ ``langmuir`` or ``wind mixing`` path of chip_smoke.py
+    (RK3, surface fluxes, gradient walls; Stokes drift on langmuir),
+    broken down like ``rk3``, with the Stokes drift's six terms and the
+    boundary fluxes (``apply_flux_bcs``) as parts of their own inside
+    ``tendencies``."""
+    from clima_oceananigans_jl_torch.stokes_drift import UniformStokesDrift
+    model = (chip_smoke.langmuir_model if path == "langmuir"
+             else chip_smoke.wind_mixing_model)()
+    state = chip_smoke.surface_state(path, model)
+    dt, warmup, _ = chip_smoke.SURFACE[path]
+    for _ in range(warmup):
+        state = model.step(state, dt)
+    torch.cuda.synchronize()
+    events = collections.defaultdict(list)
+    kernels = {"advect": timed(events, "K2", nm.KERNELS["advect"]),
+               "fill": timed(events, "K6 fills", nm.KERNELS["fill"])}
+    patches = [(model, "tendencies", "tendencies"),
+               (nm, "apply_flux_bcs", "flux BCs"),
+               (nm, "rk3_substep", "rk3_substep"),
+               (model, "project_velocities", "project_velocities"),
+               (model, "update_state", "update_state")]
+    within = ["K2", "flux BCs"]
+    if path == "langmuir":
+        patches += [(UniformStokesDrift, name, "Stokes drift") for name in (
+            "x_curl_Us_cross_U", "y_curl_Us_cross_U", "z_curl_Us_cross_U",
+            "dt_us", "dt_vs", "dt_ws")]
+        within.append("Stokes drift")
+    inner = {"tendencies": (tuple(within), "the other eager terms (tendencies "
+                            "less " + ", ".join(within) + ")"),
+             "update_state": (("K6 fills",), None)}
+    step = lambda s, timed_parts: model.step(s, dt, kernels if timed_parts else None)
+    breakdown(f"{path} {chip_smoke.N}^3 fp32 step", step, state, events, patches,
+              steps, inner)
+
+
+def hydrostatic_wind(steps):
+    """The ¼° flagship under the near-global wind stress (chip_smoke.py's
+    ``hydrostatic wind`` path): the two-stage route, K4b's tendency form,
+    the boundary flux, ``ab2_substep``, then as ``hydrostatic``."""
+    model = chip_smoke.latlon_flagship(wind=True)
+    if model.fused_advance:
+        raise AssertionError("hydrostatic wind: expected the two-stage route")
+    dt = chip_smoke.HYDRO["dt"]
+    gen = torch.Generator(device=chip_smoke.DEVICE).manual_seed(0)
+    state = model.initial_state(
+        u=0.1 * torch.randn(model.grid.shape, generator=gen, device=chip_smoke.DEVICE),
+        b=lambda lam, phi, z: 2e-5 * (z + 3000.0) / 3000.0)
+    for _ in range(3):
+        state = model.step(state, dt)
+    torch.cuda.synchronize()
+    events = collections.defaultdict(list)
+    kernels = {k: timed(events, label, hm.KERNELS[k]) for k, label in (
+        ("tendencies", "K4b (tendencies)"), ("columns", "K4a"),
+        ("barotropic", "K5 and its wrapper"), ("fill", "K6 fills"))}
+    step = lambda s, timed_parts: model.step(s, dt, kernels if timed_parts else None)
+    breakdown("hydrostatic wind 1/4 deg step (two-stage route)", step, state,
+              events, [(hm, "barotropic_mode", "barotropic modes"),
+                       (SplitExplicitFreeSurface, "corrector", "corrector"),
+                       (hm, "apply_flux_bcs", "flux BC"),
+                       (hm, "ab2_substep", "ab2_substep")], steps)
 
 
 def hydrostatic(steps):
@@ -637,7 +719,10 @@ def k5_barriers(steps):
 PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps),
          "rk3": lambda steps: nonhydrostatic("RK3", steps),
          "general-projection": general_projection, "k6-k3c": k6_k3c,
-         "hydrostatic": hydrostatic, "shallow-water": shallow_water,
+         "langmuir": lambda steps: surface("langmuir", steps),
+         "wind-mixing": lambda steps: surface("wind mixing", steps),
+         "hydrostatic": hydrostatic, "hydrostatic-wind": hydrostatic_wind,
+         "shallow-water": shallow_water,
          "division": division, "k3a-division": k3a_division,
          "k4b-phases": k4b_phases, "k5-barriers": k5_barriers}
 

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's five paths through ``clima_oceananigans_jl_torch`` on
+Drives the port's eight paths through ``clima_oceananigans_jl_torch`` on
 the card, in phases; each prints one line or a few:
 
 1. device: the card's name and power limit as nvidia-smi gives them, on a
@@ -84,13 +84,26 @@ the card, in phases; each prints one line or a few:
    flagship's u, v, T, S, b and η (the hydrostatic path's first fill of a
    step) and w and pHY′ in fp32, the 128×96×16 fp64 model's fields, the
    256³ fp32 nonhydrostatic groups (u, v, w, b; pNHS, with FluxBC w
-   walls), and 67×45×29 fp64 (Bounded, Periodic, Bounded) with every
-   location under value, open and flux walls (sizes off K6's blocks);
-   the first group's halo points, compulsory bytes and the 32-byte L2
-   sectors and 64-byte DRAM blocks it reads and writes (what bounds it at
-   the memory's granularity); times
-   of the first group at ¼° and of both groups at 256³;
-14. hydrostatic path: the ¼° flagship of
+   walls), 67×45×29 fp64 (Bounded, Periodic, Bounded) with every
+   location under value, open and flux walls (sizes off K6's blocks), and
+   67×45×29 fp64 and fp32 with a stretched z on (Bounded, Bounded,
+   Bounded) and (Periodic, Bounded, Bounded), every location, with
+   gradient BCs (scalar, plane and callable b), plane-array values and
+   callable values on every side (``k6_value_fields``), and the langmuir
+   path's 256³ groups (b's gradient wall: K6's side table); the first
+   group's halo points, compulsory bytes and the 32-byte L2 sectors and
+   64-byte DRAM blocks it reads and writes (what bounds it at the
+   memory's granularity); times of the first group at ¼°, of both groups
+   at 256³ and of the langmuir groups;
+14. the forced hold: RK3 at 64³ fp32 on the examples' box with a sponge
+   ``Relaxation(rate, GaussianMask(z), LinearTarget(N²z))`` on b, a
+   ``Forcing`` with a field dependency on u and tilted gravity
+   (``BuoyancyTracer(gravity_unit_vector=(sin 3°, 0, −cos 3°))``), 3 steps
+   with K2 and K6 and 3 with their plain versions, every field, pHY′ and
+   pNHS held bit for bit (max|Δ| = 0; a comparison, so its launches go
+   into no record); then background fields of u and b, 3 steps, finite
+   (they run the plain versions, as in the JAX package);
+15. hydrostatic path: the ¼° flagship of
    ``benchmark/bench_hydro_flagship.py`` (split-explicit with 30
    substeps, Δt = 600 s, u = 0.1·N(0,1), b = 2e-5 (z+3000)/3000) built
    through the public API, 2 warm-up and 5 timed steps with K4a, K4b, K5
@@ -98,7 +111,20 @@ the card, in phases; each prints one line or a few:
    and 2 K6 launches per step (no other), fields finite, |Σ η·Az| ≤
    1e-5·Σ|η|·Az (fp64 sums), the runs agree exactly;
    K4b's and its plain version's times on the path's fields after the
-   kernel run (K4b held bit for bit there), which go into K4b's record.
+   kernel run (K4b held bit for bit there), which go into K4b's record;
+16. langmuir and wind mixing paths (``SURFACE``): the examples'
+   surface-forced upper ocean at 256³ fp32 on their 64 m × 64 m × 32 m
+   box, 2 warm-up and 5 timed RK3 steps with K2 and K6 and then with their
+   plain versions; exactly 3 K2 and 6 K6 launches per step, fields
+   finite, max|∇·u|·Δx/max|u| ≤ 1e-5, the wind drives the top layer's
+   mean u positive (and the heat loss cools the wind-mixing top layer),
+   the runs agree exactly;
+17. hydrostatic wind path: the ¼° flagship under the near-global run's
+   wind stress (the two-stage route: K4b's tendency form, the flux, the
+   AB2 substep), 2 warm-up and 5 timed steps, exactly 1 K4a, 1 K4b, 1 K5
+   and 2 K6 launches per step, the checks of the hydrostatic path, K4b's
+   tendency form held bit for bit on the path's fields, the runs agree
+   exactly.
 
 Each kernel's record carries its bound: the larger of its compulsory
 bytes (each input read once, each output written once, from this run's
@@ -108,8 +134,8 @@ PyTorch call computes any of these kernels' functions, so ``library_ms``
 is null.
 
 Each path's launch counts are set to 0 just before it and read just after;
-K6's record counts its launches on the four paths that run it. Then a
-JSON line with each kernel's record, and last
+each kernel's record counts its launches on every path that runs it
+(printed by path). Then a JSON line with each kernel's record, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. The port is imported first, so a copy of this file
 outside the repository fails at once.
@@ -125,15 +151,20 @@ import numpy as np
 import torch
 
 from clima_oceananigans_jl_torch import (BOUNDED, FLAT, PERIODIC, BetaPlane,
-                                         BuoyancyTracer, CenteredSecondOrder,
-                                         FieldBCs, FluxBC, FPlane,
+                                         BackgroundField, BuoyancyTracer,
+                                         CenteredSecondOrder, FieldBCs, FluxBC,
+                                         Forcing, FPlane, GaussianMask,
+                                         GradientBC,
                                          HydrostaticFreeSurfaceModel,
                                          HydrostaticSphericalCoriolis,
                                          LatitudeLongitudeGrid,
+                                         LinearEquationOfState, LinearTarget,
                                          NonhydrostaticModel, OpenBC,
-                                         RectilinearGrid,
-                                         ScalarDiffusivity, ShallowWaterModel,
-                                         SplitExplicitFreeSurface, ValueBC,
+                                         RectilinearGrid, Relaxation,
+                                         ScalarDiffusivity, SeawaterBuoyancy,
+                                         ShallowWaterModel,
+                                         SplitExplicitFreeSurface,
+                                         UniformStokesDrift, ValueBC,
                                          VectorInvariant, WENO5)
 from clima_oceananigans_jl_torch.boundary_conditions.bcs import regularize_bcs
 from clima_oceananigans_jl_torch.models import (hydrostatic, nonhydrostatic,
@@ -215,18 +246,47 @@ PATHS = {
                            dict(FLAGSHIP, boundary_conditions=FLUX_WALLS)),
 }
 SW_PATH = (1e-4, 2, 10)  # shallow water: Δt, warm-up steps, timed steps
+#: the surface-forced 256³ fp32 paths: (Δt, warm-up steps, timed steps).
+#: Both run the examples' 64 m × 64 m × 32 m box at full width (256³),
+#: RK3, WENO5, FPlane(1e-4), the examples' surface fluxes and initial
+#: states (their noise from a seeded torch.Generator), with these cuts:
+#: - "langmuir", examples/langmuir_turbulence.py (Wagner et al. 2021 §4):
+#:   u top FluxBC(-3.72e-5), b top FluxBC(2.307e-8), b bottom
+#:   GradientBC(1.936e-5), UniformStokesDrift (0.8 m, 60 m wave); AMD
+#:   replaced by ScalarDiffusivity(nu=1e-5, kappa=1e-5), the RK3
+#:   flagship's (AMD waits for ROADMAP Queue 1 item 4, closures); Δt = 1 s
+#:   (the example's 20 s over a 16× finer grid);
+#: - "wind mixing", examples/ocean_wind_mixing_and_convection.py:
+#:   SeawaterBuoyancy(LinearEquationOfState(2e-4, 8e-4)) with T and S,
+#:   u top FluxBC(Qu), T top FluxBC(QT), T bottom GradientBC(0.01), S top
+#:   the discrete-form evaporation flux QS; a regular z instead of the
+#:   stretched faces (the stretched-z pressure solve,
+#:   solvers/fourier_tridiagonal.py, waits for item 4), WENO5 instead of
+#:   UpwindBiasedFifthOrder (item 2), AMD → the same ScalarDiffusivity
+#:   (item 4); Δt = 0.5 s.
+SURFACE = {"langmuir": (1.0, 2, 5), "wind mixing": (0.5, 2, 5)}
 #: kernel launches per step of each path
 PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
             "shallow water": {K3A: 3},
             "general projection": {K2: 3, K3B: 3, K3C: 3, K6: 12},
-            "hydrostatic": {K4A: 1, K4B: 1, K5: 1, K6: 2}}
+            "hydrostatic": {K4A: 1, K4B: 1, K5: 1, K6: 2},
+            "langmuir": {K2: 3, K6: 6}, "wind mixing": {K2: 3, K6: 6},
+            "hydrostatic wind": {K4A: 1, K4B: 1, K5: 1, K6: 2},
+            "forced": {K2: 3, K6: 6}, "background": {}}
 #: how far the kernel and plain runs of a path may differ, of max|field|;
 #: every kernel is bitwise its plain version, so a gap (such as an
 #: unwritten wall face) is a fault, not rounding: the 256³ paths of K1 and
-#: K2 and the ¼° hydrostatic path are held to exact agreement
+#: K2 and the ¼° hydrostatic paths are held to exact agreement
 AGREE = {"AB2": 0.0, "RK3": 0.0, "shallow water": 1e-4,
-         "general projection": 0.0, "hydrostatic": 0.0}
-#: the ¼° hydrostatic flagship (benchmark/bench_hydro_flagship.py:24-41)
+         "general projection": 0.0, "hydrostatic": 0.0, "langmuir": 0.0,
+         "wind mixing": 0.0, "hydrostatic wind": 0.0}
+#: the ¼° hydrostatic flagship (benchmark/bench_hydro_flagship.py:24-41);
+#: its "hydrostatic wind" path adds the near-global run's wind stress (u
+#: top FluxBC((λ, φ, t) ↦ −1e-4 cos(3πφ/180)),
+#: benchmark/bench_near_global.py:35-36) and so takes the two-stage route
+#: (K4b's tendency form, the flux, the AB2 substep); the near-global run's
+#: immersed bottom and implicit vertical diffusion wait for ROADMAP Queue 1
+#: items 7 and 4
 HYDRO = dict(size=(1440, 600, 24), dt=600.0, substeps=30, warmup=2, steps=5)
 
 
@@ -669,18 +729,106 @@ def run_steps(path, model, state, step, warmup, steps, plain):
     return state, per_step, launches
 
 
-def drive(path, plain):
-    """Build the path's model at 256³ fp32 and run it with the kernels or
-    (``plain``) their plain versions."""
+# examples/langmuir_turbulence.py:36-46 and
+# examples/ocean_wind_mixing_and_convection.py:50-58
+LANGMUIR = dict(Qu=-3.72e-5, Qb=2.307e-8, N2=1.936e-5, amplitude=0.8,
+                wavelength=60.0, mld=8.0)
+WIND = dict(QT=200.0 / (1026.0 * 3991.0), dTdz=0.01,
+            Qu=-1.225 / 1026.0 * 2.5e-3 * 10.0 * abs(10.0),
+            evaporation=1e-3 / 3600.0)
+
+
+def surface_grid(n=None, dtype=torch.float32):
+    """The examples' 64 m × 64 m × 32 m (Periodic, Periodic, Bounded) box
+    with n³ cells (``N`` by default) on the card."""
+    n = N if n is None else n
+    return RectilinearGrid(size=(n, n, n), x=(0, 64), y=(0, 64), z=(-32, 0),
+                           topology=(PERIODIC, PERIODIC, BOUNDED), dtype=dtype,
+                           device=DEVICE)
+
+
+def langmuir_model(n=None):
+    """examples/langmuir_turbulence.py at n³ with the cuts of ``SURFACE``."""
+    c = LANGMUIR
+    k = 2 * math.pi / c["wavelength"]
+    scale = c["wavelength"] / (4 * math.pi)
+    us0 = c["amplitude"] ** 2 * k * math.sqrt(9.80665 * k)
+    stokes = UniformStokesDrift(dz_us=lambda z, t: us0 / scale * torch.exp(z / scale))
+    return NonhydrostaticModel(
+        surface_grid(n), advection=WENO5(), timestepper="RungeKutta3",
+        tracers=("b",), buoyancy=BuoyancyTracer(), coriolis=FPlane(f=1e-4),
+        closure=ScalarDiffusivity(nu=1e-5, kappa=1e-5), stokes_drift=stokes,
+        boundary_conditions={"u": FieldBCs(top=FluxBC(c["Qu"])),
+                             "b": FieldBCs(top=FluxBC(c["Qb"]),
+                                           bottom=GradientBC(c["N2"]))})
+
+
+def wind_mixing_model(n=None):
+    """examples/ocean_wind_mixing_and_convection.py at n³ with the cuts of
+    ``SURFACE``; S's top flux is the example's discrete-form QS."""
+    c = WIND
+
+    def QS(grid, t, fields):
+        return -c["evaporation"] * fields["S"]
+    return NonhydrostaticModel(
+        surface_grid(n), advection=WENO5(), timestepper="RungeKutta3",
+        tracers=("T", "S"), coriolis=FPlane(f=1e-4),
+        buoyancy=SeawaterBuoyancy(equation_of_state=LinearEquationOfState(
+            thermal_expansion=2e-4, haline_contraction=8e-4)),
+        closure=ScalarDiffusivity(nu=1e-5, kappa=1e-5),
+        boundary_conditions={"u": FieldBCs(top=FluxBC(c["Qu"])),
+                             "T": FieldBCs(top=FluxBC(c["QT"]),
+                                           bottom=GradientBC(c["dTdz"])),
+                             "S": FieldBCs(top=FluxBC(QS, discrete=True))})
+
+
+def surface_state(path, model, seed=0):
+    """The example's initial state on the card, its noise from a seeded
+    torch.Generator: langmuir_turbulence.py l.63-76,
+    ocean_wind_mixing_and_convection.py l.77-86."""
+    g = model.grid
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    noise = lambda: torch.randn(g.shape, generator=gen, dtype=g.dtype, device=DEVICE)
+    zc = g.nodes(CENTER, with_halo=False)[2]
+    if path == "langmuir":
+        c = LANGMUIR
+        decay = torch.exp(zc / 4.0)
+        ustar = math.sqrt(abs(c["Qu"]))
+        strat = torch.where(zc < -c["mld"], c["N2"] * zc,
+                            torch.full_like(zc, -c["N2"] * c["mld"]))
+        return model.initial_state(
+            b=strat + 1e-1 * c["N2"] * 32 * decay * noise(),
+            u=ustar * 1e-1 * decay * noise(), w=ustar * 1e-1 * decay * noise())
+    c = WIND
+    prof = zc / 32.0 * (1 + zc / 32.0)
+    ustar = math.sqrt(abs(c["Qu"]))
+    return model.initial_state(
+        T=20.0 + c["dTdz"] * zc + c["dTdz"] * 32.0 * 1e-6 * prof * noise(),
+        u=ustar * 1e-3 * prof * noise(), w=ustar * 1e-3 * prof * noise(), S=35.0)
+
+
+def path_model(path):
+    """The path's model at 256³ fp32, its initial state and (Δt, warm-up
+    steps, timed steps)."""
+    if path in SURFACE:
+        model = (langmuir_model if path == "langmuir" else wind_mixing_model)()
+        return model, surface_state(path, model), SURFACE[path]
     timestepper, dt, warmup, steps, kw = PATHS[path]
     model = model_for(N, torch.float32, timestepper=timestepper, **kw)
-    if model.fill_route != "K6":
-        raise AssertionError(f"{path}: fills take {model.fill_route}, not K6")
     rng = np.random.default_rng(0)
     shape = model.grid.shape
     state = model.initial_state(u=1e-2 * rng.standard_normal(shape),
                                 v=1e-2 * rng.standard_normal(shape),
                                 b=1e-4 * rng.standard_normal(shape))
+    return model, state, (dt, warmup, steps)
+
+
+def drive(path, plain):
+    """Build the path's model at 256³ fp32 and run it with the kernels or
+    (``plain``) their plain versions."""
+    model, state, (dt, warmup, steps) = path_model(path)
+    if model.kernels["fill"] is not fused_fill_halos:
+        raise AssertionError(f"{path}: fills take {model.kernels['fill']}, not K6")
     kernels = nonhydrostatic.PLAIN if plain else None
     state, per_step, launches = run_steps(
         path, model, state, lambda s: model.step(s, dt, kernels), warmup,
@@ -760,6 +908,27 @@ def path_kernel_times(path, model, state):
     return err, ms, plain_ms
 
 
+def surface_response(path, model, state):
+    """The surface fluxes acted: both winds (Qu < 0) drive the top layer's
+    mean u positive from a start whose mean is ~0, and the wind-mixing
+    heat loss (QT > 0) cools the top layer below its initial 20 + 0.01 z."""
+    g = model.grid
+    top = lambda name: float(g.interior(state["solution"][name])[:, :, -1].double().mean())
+    u_top = top("u")
+    if not u_top > 0:
+        raise AssertionError(f"{path}: the top layer's mean u is {u_top:.3e}, "
+                             "not driven by the wind stress")
+    line = f"{path}: top layer's mean u {u_top:.6e} m/s"
+    if path == "wind mixing":
+        t0 = 20.0 + WIND["dTdz"] * float(g.nodes(CENTER)[2].flatten()[-1])
+        t_top = top("T")
+        if not t_top < t0:
+            raise AssertionError(f"{path}: the top layer's mean T {t_top} is not "
+                                 f"below its initial {t0}")
+        line += f", mean T {t_top:.9f} K (initially {t0:.9f})"
+    print(line)
+
+
 def phase_path(path):
     """One 256³ path with the kernels, checked, then with the plain
     versions; returns the kernel run's launch counts and, on the AB2 and
@@ -771,11 +940,13 @@ def phase_path(path):
     what = "max|div u - mean|*dx/max|u|" if uniform else "max|div u|*dx/max|u|"
     if not ratio <= 1e-5:
         raise AssertionError(f"{path}: {what} = {ratio:.3e} > 1e-5")
-    _, _, warmup, steps, _ = PATHS[path]
+    warmup, steps = (SURFACE[path] if path in SURFACE else PATHS[path][1:4])[1:]
     used = {k: n for k, n in launches.items() if n}
     print(f"{path} path: {N}^3 fp32, {steps} steps: {per_step * 1e3:.3f} ms/step, "
           f"{N ** 3 / per_step:.6e} grid points/s, launches {used} in "
           f"{warmup + steps} steps, {what} {ratio:.3e}")
+    if path in SURFACE:
+        surface_response(path, model, state)
     times = path_kernel_times(path, model, state) if path in ("AB2", "RK3") else None
     kernel_u = {k: model.grid.interior(a) for k, a in state["solution"].items()}
     del state
@@ -853,9 +1024,9 @@ def phase_shallow_water():
 
 # -- the hydrostatic kernels and path ---------------------------------------------
 
-def latlon_flagship(dtype=torch.float32):
+def latlon_flagship(dtype=torch.float32, wind=False):
     """The ¼° flagship of benchmark/bench_hydro_flagship.py through the
-    public API."""
+    public API; with ``wind``, under the near-global run's wind stress."""
     nx, ny, nz = HYDRO["size"]
     k = np.arange(nz + 1)
     grid = LatitudeLongitudeGrid(size=HYDRO["size"], longitude=(0, 360),
@@ -866,7 +1037,10 @@ def latlon_flagship(dtype=torch.float32):
         grid, momentum_advection=VectorInvariant(scheme="weno_velocity"),
         tracer_advection=WENO5(), tracers=("T", "S"),
         free_surface=SplitExplicitFreeSurface(substeps=HYDRO["substeps"]),
-        coriolis=HydrostaticSphericalCoriolis(), buoyancy=BuoyancyTracer())
+        coriolis=HydrostaticSphericalCoriolis(), buoyancy=BuoyancyTracer(),
+        boundary_conditions={"u": FieldBCs(top=FluxBC(
+            lambda lam, phi, t: -1e-4 * torch.cos(3.0 * math.pi * phi / 180.0)))}
+        if wind else None)
 
 
 def bounded_beta_model(dtype=torch.float64, size=(128, 96, 16)):
@@ -1036,7 +1210,7 @@ def nonhydrostatic_fill_fields(model):
     (u, v, w and the tracers, then pHY′; the general projection's groups
     have the same shapes and rules: u, v, w, then pNHS)."""
     g = model.grid
-    assert model.fill_route == "K6", model._fill_unsupported_reason()
+    assert model.kernels["fill"] is fused_fill_halos, model._fill_unsupported_reason()
     first = [(g.total_shape, model._locs()[n], model.bcs[n], (0, 1, 2))
              for n in model.prognostic_names()]
     return first, [(g.total_shape, CENTER, model.pressure_bcs, (0, 1, 2))]
@@ -1141,6 +1315,33 @@ def bounded_fill_fields(dtype=torch.float64, size=(67, 45, 29)):
                   for loc in (CENTER, U_LOC, V_LOC, W_LOC) for bcs in walls]
 
 
+def k6_value_fields(kind, topology, dtype, size=(67, 45, 29)):
+    """A group at a size off K6's blocks, with a stretched z, every
+    location, and on every side of its bounded axes: gradient BCs (kind
+    "gradient": scalar, plane and callable b in turn), plane-array values
+    ("plane": value and open BCs) or callable values ("callable")."""
+    k = np.arange(size[2] + 1)
+    grid = RectilinearGrid(size=size, x=(0, 1), y=(0, 2),
+                           z=-0.5 * (1.0 - k / size[2]) ** 1.5, topology=topology,
+                           dtype=dtype, device=DEVICE, halo=(3, 3, 3))
+    rng = np.random.default_rng(16)
+    plane = lambda a: rng.standard_normal(tuple(n for i, n in enumerate(size) if i != a))
+
+    def bc(i):
+        if kind == "gradient":
+            return (GradientBC(0.3), GradientBC(plane(i // 2)),
+                    GradientBC(lambda p, q, t: p - 2.0 * q + t))[i % 3]
+        kind_bc = ValueBC if i % 2 == 0 else OpenBC
+        if kind == "plane":
+            return kind_bc(plane(i // 2))
+        return kind_bc(lambda p, q, t: p * q + 0.5 * p + t)
+    sides = ("west", "east", "south", "north", "bottom", "top")
+    bcs = FieldBCs(**{s: bc(i) for i, s in enumerate(sides)
+                      if grid.topology[i // 2] is BOUNDED})
+    return grid, [(grid.total_shape, loc, regularize_bcs(grid, loc, bcs), (0, 1, 2))
+                  for loc in (CENTER, U_LOC, V_LOC, W_LOC)]
+
+
 def phase_k6():
     """K6 against its plain version on every point, from NaN on every
     written point; returns (max_abs_err, ms, plain_ms, bound_ms, bound_by)
@@ -1203,77 +1404,191 @@ def phase_k6():
     err, _, _ = hold_k6(f"K6 {'x'.join(map(str, grid.shape))} fp64 (Bounded, "
                         f"Periodic, Bounded), value, open and flux walls, "
                         f"{len(group)} fields", grid, group, 15)
-    return (max(out[0], err),) + out[1:]
+    out = (max(out[0], err),) + out[1:]
+    for kind in ("gradient", "plane", "callable"):
+        for topology in ((BOUNDED,) * 3, (PERIODIC, BOUNDED, BOUNDED)):
+            for dtype in (torch.float64, torch.float32):
+                grid, group = k6_value_fields(kind, topology, dtype)
+                err, _, _ = hold_k6(
+                    f"K6 {'x'.join(map(str, grid.shape))} {str(dtype)[6:]} "
+                    f"{tuple(t.value for t in topology)}, stretched z, {kind} "
+                    f"{'BCs' if kind == 'gradient' else 'values'} on every side, "
+                    f"{len(group)} fields", grid, group, 17)
+                out = (max(out[0], err),) + out[1:]
+    # the langmuir path's groups: u, v, w, b with b's gradient wall (the
+    # side table), then pHY'
+    model = langmuir_model()
+    g = model.grid
+    for part, group in zip(("u, v, w, b (gradient bottom)", "pHY'"),
+                           nonhydrostatic_fill_fields(model)):
+        label = f"K6 {N}^3 fp32 langmuir {part}"
+        err, got, ref = hold_k6(label, g, group, 18)
+        out = (max(out[0], err),) + out[1:]
+        ms = cuda_ms(lambda: fused_fill_halos(g, got), 20)
+        alone = device_ms(lambda: fused_fill_halos(g, got), 20, "fill_halos_kernel")
+        print(f"{label} time: kernel {ms:.4f} ms (CUDA events), kernel alone "
+              f"{alone} ms (torch.profiler)")
+        del got, ref
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
-def drive_hydrostatic(plain):
-    """The ¼° flagship run with K4a, K4b, K5 and K6 or (``plain``) their
+def drive_hydrostatic(path, plain):
+    """The ¼° flagship (``path`` "hydrostatic") or the flagship under wind
+    ("hydrostatic wind") run with K4a, K4b, K5 and K6 or (``plain``) their
     plain versions; returns (model, state, s per step, launches)."""
-    model = latlon_flagship()
+    model = latlon_flagship(wind=path == "hydrostatic wind")
+    if model.fused_advance == (path == "hydrostatic wind"):
+        raise AssertionError(f"{path}: fused_advance is {model.fused_advance}")
     rng = np.random.default_rng(0)
     state = model.initial_state(
         u=0.1 * rng.standard_normal(model.grid.shape),
         b=lambda lam, phi, z: 2e-5 * (z + 3000.0) / 3000.0)
     kernels = hydrostatic.PLAIN if plain else None
     state, per_step, launches = run_steps(
-        "hydrostatic", model, state,
+        path, model, state,
         lambda s: model.step(s, HYDRO["dt"], kernels), HYDRO["warmup"],
         HYDRO["steps"], plain)
     return model, state, per_step, launches
 
 
-def phase_hydrostatic():
-    """The ¼° hydrostatic path with the kernels, checked, then with their
-    plain versions; returns the kernel run's launch counts and K4b's and
-    its plain version's ms (advance form) on the path's fields."""
-    model, state, per_step, launches = drive_hydrostatic(plain=False)
-    check_finite("hydrostatic", model, state, ("w", "pHY", "eta"))
+def phase_hydrostatic(path="hydrostatic"):
+    """The ¼° hydrostatic path (or the flagship under wind, ``path``
+    "hydrostatic wind") with the kernels, checked, then with their plain
+    versions; returns the kernel run's launch counts and K4b's and its
+    plain version's ms (advance form) on the path's fields (None on the
+    wind path, whose K4b runs in its tendency form)."""
+    model, state, per_step, launches = drive_hydrostatic(path, plain=False)
+    check_finite(path, model, state, ("w", "pHY", "eta"))
     g = model.grid
     cut = lambda a: a[g.Hx:g.Hx + g.Nx, g.Hy:g.Hy + g.Ny, 0].double()
     eta, az = cut(state["eta"]), cut(torch.broadcast_to(
         g.Az(ETA_LOC), state["eta"].shape))
     net, gross = float((eta * az).sum()), float((eta.abs() * az).sum())
     if not abs(net) <= 1e-5 * gross:
-        raise AssertionError(f"hydrostatic: |sum(eta Az)| {abs(net):.3e} > "
+        raise AssertionError(f"{path}: |sum(eta Az)| {abs(net):.3e} > "
                              f"1e-5 sum(|eta| Az) = {1e-5 * gross:.3e}")
     points = g.Nx * g.Ny * g.Nz
     used = {k: n for k, n in launches.items() if n}
     steps = HYDRO["warmup"] + HYDRO["steps"]
-    print(f"hydrostatic path: 1/4 deg {g.Nx}x{g.Ny}x{g.Nz} fp32, "
+    print(f"{path} path: 1/4 deg {g.Nx}x{g.Ny}x{g.Nz} fp32, "
           f"{HYDRO['steps']} steps: {per_step * 1e3:.3f} ms/step, "
           f"{points / per_step:.6e} grid points/s, launches {used} in {steps} "
           f"steps, |sum(eta Az)|/sum(|eta| Az) {abs(net) / gross:.3e}")
     # K4b on the path's own fields (T = S = 0, b linear in z), where the
-    # random fields of phase 11 are not
-    adv = (HYDRO["dt"], False)
+    # random fields of phase 11 are not: the advance form on the flagship's
+    # path, the tendency form on the wind path's
+    adv = None if path == "hydrostatic wind" else (HYDRO["dt"], False)
+    form = "tendencies" if adv is None else "advance"
     got = fused_hydrostatic_tendencies(model, state, adv)
     ref = fused_hydrostatic_tendencies_reference(model, state, adv)
-    hold("K4b 1/4 deg fp32 advance on the path's fields",
-         {"psi'": got[0], "G": got[1]}, {"psi'": ref[0], "G": ref[1]},
+    got, ref = (({"G": got}, {"G": ref}) if adv is None else
+                ({"psi'": got[0], "G": got[1]}, {"psi'": ref[0], "G": ref[1]}))
+    hold(f"K4b 1/4 deg fp32 {form} on the {path} path's fields", got, ref,
          torch.float32, g.interior, exact=True)
     del got, ref
     ms = cuda_ms(lambda: fused_hydrostatic_tendencies(model, state, adv), 10)
     plain_ms = cuda_ms(lambda: fused_hydrostatic_tendencies_reference(
         model, state, adv), 2)
-    print(f"K4b 1/4 deg fp32 advance on the path's fields time: kernel "
+    print(f"K4b 1/4 deg fp32 {form} on the {path} path's fields time: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events)")
     kernel_u = {k: g.interior(a).clone() for k, a in state["solution"].items()}
     kernel_eta = cut(state["eta"]).clone()
     del state
     torch.cuda.empty_cache()
-    model, state, plain_step, _ = drive_hydrostatic(plain=True)
-    worst = agreement("hydrostatic", steps, kernel_u, model, state)
+    model, state, plain_step, _ = drive_hydrostatic(path, plain=True)
+    worst = agreement(path, steps, kernel_u, model, state)
     eta_rel = (float((kernel_eta - cut(state["eta"])).abs().max())
                / float(cut(state["eta"]).abs().max()))
-    if not eta_rel <= AGREE["hydrostatic"]:
-        raise AssertionError(f"hydrostatic: kernel and plain runs differ by "
+    if not eta_rel <= AGREE[path]:
+        raise AssertionError(f"{path}: kernel and plain runs differ by "
                              f"{eta_rel:.3e} of max|eta|")
-    print(f"hydrostatic path: plain versions: {plain_step * 1e3:.3f} ms/step, "
+    print(f"{path} path: plain versions: {plain_step * 1e3:.3f} ms/step, "
           f"{points / plain_step:.6e} grid points/s; kernel and plain runs "
           f"agree to {max(worst, eta_rel):.3e} of max|field| (eta included)")
     del model, state, kernel_u
     torch.cuda.empty_cache()
-    return launches, ms, plain_ms
+    return launches, (None if adv is None else ms), plain_ms
+
+
+#: the forced hold: RK3 at 64³ fp32 on the examples' box, (Δt, steps)
+FORCED = (1.0, 3)
+
+
+def forced_model(n=64, background=False):
+    """The forced hold's RK3 model on the examples' box at n³ fp32: a
+    sponge Relaxation(1/60 s, GaussianMask(z = −28 m, 3 m), LinearTarget(N²
+    z)) on b, a Forcing with a field dependency on u (a linear drag of
+    1e-3/s) and tilted gravity ĝ = (sin 3°, 0, −cos 3°), as in
+    examples/tilted_bottom_boundary_layer.py but on a (Periodic, Periodic,
+    Bounded) grid (Flat axes are not ported). With ``background``,
+    background fields of u (a shear) and b (N² z) instead: the JAX package
+    runs their cross terms outside its kernels, and so does the port (its
+    plain versions)."""
+    N2, theta = LANGMUIR["N2"], math.radians(3.0)
+    kw = (dict(background_fields={
+              "u": BackgroundField(lambda x, y, z, t, s: s * (z + 16.0),
+                                   parameters=1e-3),
+              "b": lambda x, y, z, t: N2 * z + 0.0 * x * y})
+          if background else
+          dict(forcing={"b": Relaxation(rate=1 / 60, mask=GaussianMask(
+                            center=-28.0, width=3.0), target=LinearTarget(gradient=N2)),
+                        "u": Forcing(lambda x, y, z, t, u, r: -r * u,
+                                     parameters=1e-3, field_dependencies="u")}))
+    gravity = (0.0, 0.0, -1.0) if background else (math.sin(theta), 0.0,
+                                                   -math.cos(theta))
+    return NonhydrostaticModel(
+        surface_grid(n), advection=WENO5(), timestepper="RungeKutta3",
+        buoyancy=BuoyancyTracer(gravity_unit_vector=gravity),
+        coriolis=FPlane(f=1e-4), closure=ScalarDiffusivity(nu=1e-5, kappa=1e-5),
+        **kw)
+
+
+def phase_forced():
+    """The forced hold: its steps with K2 and K6 and with their plain
+    versions, every field and pHY′, pNHS held bit for bit (these launches
+    are a comparison's and go into no record); then the background-field
+    model's steps, finite (they run the plain versions, as in JAX)."""
+    dt, steps = FORCED
+    out = {}
+    for plain in (False, True):
+        model = forced_model()
+        if model.fused_advection is not True or model.fused_step:
+            raise AssertionError("forced: the model should run K2 and K6, RK3")
+        g = model.grid
+        gen = torch.Generator(device=DEVICE).manual_seed(19)
+        noise = lambda s: s * torch.randn(g.shape, generator=gen, dtype=g.dtype,
+                                          device=DEVICE)
+        zc = g.nodes(CENTER, with_halo=False)[2]
+        state = model.initial_state(b=LANGMUIR["N2"] * zc + noise(1e-6),
+                                    u=noise(1e-2), w=noise(1e-3))
+        state, _, counts = run_steps(
+            "forced", model, state,
+            lambda s: model.step(s, dt, nonhydrostatic.PLAIN if plain else None),
+            0, steps, plain)
+        out[plain] = state
+        launches = counts if not plain else launches
+    got, ref = out[False], out[True]
+    hold(f"forced hold 64^3 fp32, {steps} RK3 steps (sponge, drag, tilted gravity)",
+         {"solution": got["solution"], "p": {"pHY": got["pHY"], "pNHS": got["pNHS"]}},
+         {"solution": ref["solution"], "p": {"pHY": ref["pHY"], "pNHS": ref["pNHS"]}},
+         torch.float32, exact=True)
+    check_finite("forced", model, got, ("pHY", "pNHS"))
+    used = {k: n for k, n in launches.items() if n}
+    print(f"forced hold: kernel launches {used} in {steps} steps (the kernel run)")
+    model = forced_model(background=True)
+    if model.fused_advection:
+        raise AssertionError("background fields: the model should run the plain versions")
+    gen = torch.Generator(device=DEVICE).manual_seed(20)
+    state = model.initial_state(u=1e-2 * torch.randn(
+        model.grid.shape, generator=gen, device=DEVICE))
+    state, _, _ = run_steps("background", model, state,
+                            lambda s: model.step(s, dt), 0, steps, True)
+    check_finite("background fields", model, state, ("pHY", "pNHS"))
+    print(f"background fields: {steps} RK3 steps at 64^3 fp32, every field finite")
+    del out, got, ref, model, state
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -1284,30 +1599,28 @@ def main():
     measured.update(phase_k4())
     measured[K5] = phase_k5()
     measured[K6] = phase_k6()
-    launches = {}
-    k6_launches = {}
+    phase_forced()
+    # each path's launches, read just after its kernel run; a kernel's
+    # record counts its launches on every path
+    by_path = {}
     for path, name in (("AB2", K1), ("RK3", K2)):
-        path_launches, (err, ms, plain_ms) = phase_path(path)
-        launches[name] = path_launches[name]
-        k6_launches[path] = path_launches[K6]
+        by_path[path], (err, ms, plain_ms) = phase_path(path)
         # K1's and K2's times on their paths' fields
         measured[name] = (max(measured[name][0], err), ms, plain_ms,
                           *measured[name][3:])
-    sw_launches, ms, plain_ms = phase_shallow_water()
-    launches[K3A] = sw_launches[K3A]
+    by_path["shallow water"], ms, plain_ms = phase_shallow_water()
     # K3a's times on the path's fields
     measured[K3A] = (measured[K3A][0], ms, plain_ms, *measured[K3A][3:])
-    general, _ = phase_path("general projection")
-    launches.update({K3B: general[K3B], K3C: general[K3C]})
-    k6_launches["general projection"] = general[K6]
-    hydro, ms, plain_ms = phase_hydrostatic()
-    launches.update({k: hydro[k] for k in (K4A, K4B, K5)})
-    k6_launches["hydrostatic"] = hydro[K6]
-    # K6 runs on four paths: its record counts the launches of all four
-    launches[K6] = sum(k6_launches.values())
-    print(f"K6 launches by path: {k6_launches}")
-    # K4b's times on the path's fields
+    by_path["general projection"], _ = phase_path("general projection")
+    by_path["hydrostatic"], ms, plain_ms = phase_hydrostatic()
+    # K4b's times on the path's fields (its advance form)
     measured[K4B] = (measured[K4B][0], ms, plain_ms, *measured[K4B][3:])
+    for path in SURFACE:
+        by_path[path], _ = phase_path(path)
+    by_path["hydrostatic wind"], _, _ = phase_hydrostatic("hydrostatic wind")
+    launches = {k: sum(counts[k] for counts in by_path.values()) for k in WRAPPERS}
+    print("launches by path: " + json.dumps(
+        {path: {k: n for k, n in counts.items() if n} for path, counts in by_path.items()}))
     records = []
     for name, (err, ms, plain_ms, bound_ms, bound_by) in measured.items():
         records.append({

@@ -2,20 +2,23 @@
 
 The JAX package beside this one is the reference; this package keeps its
 module paths, constructor API and ``state`` layout. So far it runs the
-nonhydrostatic model (WENO5 or centred advection, buoyancy tracer,
-f/β-plane Coriolis, constant scalar diffusivity, the roll-based and the
-general FFT projection) with its quasi-AB2 and RK3 steps, the
-shallow-water model in its conservative and vector-invariant forms, and
-the hydrostatic free-surface model on rectilinear and lat-lon grids with
-stretched axes (vector-invariant or flux-form momentum, spherical
-Coriolis, explicit, split-explicit and implicit free surfaces), with
-hand-written CUDA kernels for Hopper in ``csrc/``: the fused AB2 advance (K1), the
-fused advective tendencies (K2), the shallow-water core (K3a), the
-general projection's divergence and gradient (K3b, K3c), the hydrostatic
-w/pHY′ columns (K4a) and tendencies (K4b), and the barotropic substeps
-(K5). Importing it needs no GPU: a kernel is compiled at its first
-launch on a CUDA tensor. Grids live on the card unless the caller passes
-``device="cpu"``.
+nonhydrostatic model (WENO5 or centred advection, buoyancy tracer or
+seawater buoyancy with a linear equation of state, tilted gravity,
+f/β-plane Coriolis, constant scalar diffusivity, Stokes drift, forcing,
+background fields, flux BCs with scalar, plane, callable and discrete
+values, the roll-based and the general FFT projection) with its quasi-AB2
+and RK3 steps, the shallow-water model in its conservative and
+vector-invariant forms, and the hydrostatic free-surface model on
+rectilinear and lat-lon grids with stretched axes (vector-invariant or
+flux-form momentum, spherical Coriolis, forcing and flux BCs, explicit,
+split-explicit and implicit free surfaces), with hand-written CUDA
+kernels for Hopper in ``csrc/``: the fused AB2 advance (K1), the fused
+advective tendencies (K2), the shallow-water core (K3a), the general
+projection's divergence and gradient (K3b, K3c), the hydrostatic w/pHY′
+columns (K4a) and tendencies (K4b), the barotropic substeps (K5) and the
+halo fills (K6). Importing it needs no GPU: a kernel is compiled at its
+first launch on a CUDA tensor. Grids live on the card unless the caller
+passes ``device="cpu"``.
 """
 
 from .grids.topology import BOUNDED, FLAT, PERIODIC, Topology
@@ -29,7 +32,12 @@ from .boundary_conditions.bcs import (
 from .fields.field import Field, new_field, set_field
 from .advection.schemes import CenteredSecondOrder, WENO5
 from .advection.vector_invariant import VectorInvariant
-from .buoyancy.buoyancy import BuoyancyTracer
+from .buoyancy.buoyancy import (BuoyancyTracer, LinearEquationOfState,
+                                SeawaterBuoyancy)
+from .fields.background import BackgroundField
+from .forcings.forcing import (AdvectiveForcing, Forcing, GaussianMask,
+                               LinearTarget, Relaxation)
+from .stokes_drift import UniformStokesDrift
 from .coriolis.coriolis import BetaPlane, FPlane, HydrostaticSphericalCoriolis
 from .closures.scalar_diffusivity import (HorizontalScalarDiffusivity,
                                           ScalarDiffusivity,

@@ -25,33 +25,42 @@ def div_Uc(grid, scheme, u, v, w, c):
     return (st.dxc(fx) + st.dyc(fy) + st.dzc(fz)) / grid.V(CENTER)
 
 
-def div_vu(grid, scheme, u, v, w):
-    """x-momentum advection ∇·(v u) at (F,C,C)."""
-    u_cc = st.ixc(u)          # (C,C,C)
-    v_ff = st.ixf(v)          # (F,F,C)
-    w_ff = st.ixf(w)          # (F,C,F)
+def div_vu(grid, scheme, u, v, w, U=None):
+    """x-momentum advection ∇·(v u) at (F,C,C); `U` optionally
+    carries the advecting velocity (default (u, v, w)), as the background
+    cross terms use it."""
+    ua, va, wa = U if U is not None else (u, v, w)
+    u_cc = st.ixc(ua)          # (C,C,C)
+    v_ff = st.ixf(va)          # (F,F,C)
+    w_ff = st.ixf(wa)          # (F,C,F)
     fx = grid.Ax(CENTER) * transport(scheme, u_cc, u, 0, False, grid)
     fy = grid.Ay((F, F, C)) * transport(scheme, v_ff, u, 1, True, grid)
     fz = grid.Az((F, C, F)) * transport(scheme, w_ff, u, 2, True, grid)
     return (st.dxf(fx) + st.dyc(fy) + st.dzc(fz)) / grid.V(U_LOC)
 
 
-def div_vv(grid, scheme, u, v, w):
-    """y-momentum advection ∇·(v v) at (C,F,C)."""
-    u_ff = st.iyf(u)          # (F,F,C)
-    v_cc = st.iyc(v)          # (C,C,C)
-    w_ff = st.iyf(w)          # (C,F,F)
+def div_vv(grid, scheme, u, v, w, U=None):
+    """y-momentum advection ∇·(v v) at (C,F,C); `U` optionally
+    carries the advecting velocity (default (u, v, w)), as the background
+    cross terms use it."""
+    ua, va, wa = U if U is not None else (u, v, w)
+    u_ff = st.iyf(ua)          # (F,F,C)
+    v_cc = st.iyc(va)          # (C,C,C)
+    w_ff = st.iyf(wa)          # (C,F,F)
     fx = grid.Ax((F, F, C)) * transport(scheme, u_ff, v, 0, True, grid)
     fy = grid.Ay(CENTER) * transport(scheme, v_cc, v, 1, False, grid)
     fz = grid.Az((C, F, F)) * transport(scheme, w_ff, v, 2, True, grid)
     return (st.dxc(fx) + st.dyf(fy) + st.dzc(fz)) / grid.V(V_LOC)
 
 
-def div_vw(grid, scheme, u, v, w):
-    """z-momentum advection ∇·(v w) at (C,C,F)."""
-    u_ff = st.izf(u)          # (F,C,F)
-    v_ff = st.izf(v)          # (C,F,F)
-    w_cc = st.izc(w)          # (C,C,C)
+def div_vw(grid, scheme, u, v, w, U=None):
+    """z-momentum advection ∇·(v w) at (C,C,F); `U` optionally
+    carries the advecting velocity (default (u, v, w)), as the background
+    cross terms use it."""
+    ua, va, wa = U if U is not None else (u, v, w)
+    u_ff = st.izf(ua)          # (F,C,F)
+    v_ff = st.izf(va)          # (C,F,F)
+    w_cc = st.izc(wa)          # (C,C,C)
     fx = grid.Ax((F, C, F)) * transport(scheme, u_ff, w, 0, True, grid)
     fy = grid.Ay((C, F, F)) * transport(scheme, v_ff, w, 1, True, grid)
     fz = grid.Az(CENTER) * transport(scheme, w_cc, w, 2, False, grid)

@@ -3,14 +3,17 @@
 Counterpart of ``clima_oceananigans_jl_tpu/boundary_conditions/bcs.py``
 (Oceananigans' ``fill_halo_regions!``). ``BC(kind, value)`` covers
 Flux / Value / Gradient / Open / Periodic; ``value`` may be a scalar, a
-boundary-plane array, or a callable of the boundary nodes and time.
+boundary-plane array, or a callable of the boundary nodes and time, and a
+flux BC with ``discrete=True`` takes ``value(grid, t, fields)``, a
+full-shape flux array (a field-dependent flux such as a drag or an
+evaporation rate).
 
 ``fill_halos`` writes the halo slabs of a tensor in place (and returns
 it): periodic sides are wrap copies, bounded sides use the mirror
 ghost-cell formulas of the JAX package, so a fill gives bitwise the same
-halos. Flux BCs fill by zero-gradient mirror; a flux *value* would enter
-the tendency through ``apply_flux_bcs``, which the port only has for
-value-less BCs so far.
+halos. Flux BCs fill by zero-gradient mirror; their values enter the
+tendency through ``apply_flux_bcs`` (positive flux on a left boundary
+increases the adjacent cell's G, on a right boundary decreases it).
 """
 from __future__ import annotations
 
@@ -20,15 +23,19 @@ from typing import Any, Optional
 import torch
 
 from ..grids.topology import BOUNDED, FLAT, PERIODIC
+from ..ops.operators import flip_loc
 from ..utils.location import F
 
 
 @dataclasses.dataclass
 class BC:
-    """One side's boundary condition."""
+    """One side's boundary condition. ``discrete=True`` marks a
+    field-dependent flux: ``value(grid, t, fields)`` returns a full-shape
+    flux array."""
 
     kind: str  # periodic | value | gradient | flux | open
     value: Any = None
+    discrete: bool = False
 
 
 def Periodic():
@@ -43,8 +50,8 @@ def GradientBC(g):
     return BC("gradient", g)
 
 
-def FluxBC(q=None):
-    return BC("flux", q)
+def FluxBC(q=None, discrete=False):
+    return BC("flux", q, discrete)
 
 
 def OpenBC(v=0.0):
@@ -238,16 +245,51 @@ def fill_halos(data, grid, loc, bcs=None, t=0.0, axes=(0, 1, 2)):
     return data
 
 
-def apply_flux_bcs(G, grid, loc, bcs, t=0.0):
-    """Add boundary-flux divergences into the tendency G. Value-less flux
-    BCs (the zero-flux defaults) add nothing; a flux value is not ported
-    yet (ROADMAP Queue 1 item 1)."""
+def _boundary_metrics(grid, loc, axis, side):
+    """(A, V): the boundary face's area and the boundary cell's volume of
+    one side, as slices of ``grid.Ax/Ay/Az`` and ``grid.V`` (the same
+    values); computed once per grid."""
+    key = ("flux_bc_metrics", tuple(loc), axis, side)
+    if key not in grid._cache:
+        N, H = grid.shape[axis], grid.halo[axis]
+        i = H if side == 0 else H + N - 1
+        A = (grid.Ax, grid.Ay, grid.Az)[axis](flip_loc(loc, axis))
+        Vol = grid.V(loc)
+        bf = H if side == 0 else H + N
+        grid._cache[key] = (A[_axslice(axis, min(bf, A.shape[axis] - 1))],
+                            Vol[_axslice(axis, i if Vol.shape[axis] > 1 else 0)])
+    return grid._cache[key]
+
+
+def apply_flux_bcs(G, grid, loc, bcs, t=0.0, fields=None):
+    """Add boundary-flux divergences into the tendency G: on each bounded
+    side with a flux value q, ±q·A/V at the boundary cell (A the boundary
+    face's area, V the cell's volume). q is a scalar, a boundary-plane
+    array, a callable of the boundary nodes and t, or with ``discrete`` a
+    callable of (grid, t, fields) returning a full-shape array whose
+    boundary cell is taken. Returns a new tensor."""
     if bcs is None:
         return G
-    for axis, _side, bc in bcs.sides():
-        if (bc is not None and bc.kind == "flux" and bc.value is not None
-                and grid.topology[axis] is BOUNDED):
-            raise NotImplementedError(
-                "flux BCs with values are not ported yet (ROADMAP Queue 1 "
-                "item 1)")
-    return G
+    out = G
+    for axis, side, bc in bcs.sides():
+        if bc is None or bc.kind != "flux" or bc.value is None:
+            continue
+        if grid.topology[axis] is not BOUNDED:
+            continue
+        N, H = grid.shape[axis], grid.halo[axis]
+        i = H if side == 0 else H + N - 1
+        if bc.discrete and callable(bc.value):
+            qf = torch.as_tensor(bc.value(grid, t, fields or {}),
+                                 dtype=G.dtype, device=G.device)
+            q = qf[_axslice(axis, i)]
+        else:
+            q = _bvalue(bc, grid, axis, side, loc, t)
+        Ab, Vb = _boundary_metrics(grid, loc, axis, side)
+        if q.ndim == 3:
+            q = q[_axslice(axis, 0)]
+        contrib = q * Ab / Vb
+        sgn = 1.0 if side == 0 else -1.0
+        if out is G:
+            out = G.clone()
+        out[_axslice(axis, i)] += sgn * contrib
+    return out

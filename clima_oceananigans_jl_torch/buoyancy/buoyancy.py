@@ -1,7 +1,12 @@
-"""Buoyancy: the buoyancy tracer and the hydrostatic pressure anomaly.
+"""Buoyancy: the buoyancy tracer, seawater buoyancy with a linear equation
+of state, the tilted-gravity terms and the hydrostatic pressure anomaly.
 
 Counterpart of ``clima_oceananigans_jl_tpu/buoyancy/buoyancy.py``
-(Oceananigans' ``BuoyancyTracer`` and ``update_hydrostatic_pressure``).
+(Oceananigans' ``BuoyancyTracer``, ``SeawaterBuoyancy`` with
+``LinearEquationOfState``, ``g_dot_b`` and ``update_hydrostatic_pressure``).
+Every model provides ``buoyancy_perturbation(grid, tracers)``: b at
+(C, C, C). The nonlinear equations of state are not ported (ROADMAP
+Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -25,13 +30,77 @@ class BuoyancyTracer:
         return tracers["b"]
 
 
+@dataclasses.dataclass(frozen=True)
+class LinearEquationOfState:
+    """ρ′ ∝ −α T + β S."""
+
+    thermal_expansion: float = 1.67e-4
+    haline_contraction: float = 7.80e-4
+
+
+@dataclasses.dataclass(frozen=True)
+class SeawaterBuoyancy:
+    """b = g (α T − β S) with a ``LinearEquationOfState``; T or S may be
+    held constant (``constant_temperature``, ``constant_salinity``), and
+    the tracers the model needs are the others."""
+
+    gravitational_acceleration: float = 9.80665
+    equation_of_state: object = LinearEquationOfState()
+    constant_temperature: object = None
+    constant_salinity: object = None
+    gravity_unit_vector: tuple = (0.0, 0.0, -1.0)
+
+    def __post_init__(self):
+        if not isinstance(self.equation_of_state, LinearEquationOfState):
+            raise NotImplementedError(
+                f"{type(self.equation_of_state).__name__} is not ported yet "
+                "(LinearEquationOfState is) (ROADMAP Queue 1 item 7)")
+
+    @property
+    def required_tracers(self):
+        names = []
+        if self.constant_temperature is None:
+            names.append("T")
+        if self.constant_salinity is None:
+            names.append("S")
+        return tuple(names)
+
+    def buoyancy_perturbation(self, grid, tracers):
+        g = self.gravitational_acceleration
+        T = tracers["T"] if self.constant_temperature is None else self.constant_temperature
+        S = tracers["S"] if self.constant_salinity is None else self.constant_salinity
+        eos = self.equation_of_state
+        return g * (eos.thermal_expansion * T - eos.haline_contraction * S)
+
+
+def buoyancy_x_term(buoyancy, grid, tracers):
+    """x_dot_g_b at (F, C, C) for tilted gravity: −ĝₓ ℑx b (the stored
+    unit vector points down), or None when gravity has no x part."""
+    gx = buoyancy.gravity_unit_vector[0]
+    if gx == 0.0:
+        return None
+    return -gx * st.ixf(buoyancy.buoyancy_perturbation(grid, tracers))
+
+
+def buoyancy_y_term(buoyancy, grid, tracers):
+    """y_dot_g_b at (C, F, C) for tilted gravity (see ``buoyancy_x_term``)."""
+    gy = buoyancy.gravity_unit_vector[1]
+    if gy == 0.0:
+        return None
+    return -gy * st.iyf(buoyancy.buoyancy_perturbation(grid, tracers))
+
+
 def hydrostatic_pressure_anomaly(buoyancy, grid, tracers):
-    """pHY′ at centres from the downward integral of ĝ_z b̄ᶻ Δz: a with-halo
-    array whose halos are left zero for the caller to fill. The integral
-    is a reversed cumulative sum along z; its summation order differs
-    from the JAX package's, so the two agree to rounding, not bitwise.
-    Gravity points straight down (the model refuses any other)."""
+    """pHY′ at centres from the downward integral of −ĝ_z b̄ᶻ Δz: a
+    with-halo array whose halos are left zero for the caller to fill. The
+    integral is a reversed cumulative sum along z; its summation order
+    differs from the JAX package's, so the two agree to rounding, not
+    bitwise. Under tilted gravity only ĝ_z enters; the x and y parts are
+    tendency terms (``buoyancy_x_term``, ``buoyancy_y_term``)."""
     b = buoyancy.buoyancy_perturbation(grid, tracers)
+    gz = buoyancy.gravity_unit_vector[2]
+    if gz != -1.0:
+        b = -gz * b
     S = st.izf(b) * grid.dz(W_LOC)   # b̄(k)·Δzᶠ(k) at faces
     Nz, Hz = grid.Nz, grid.Hz
     S_int = S[:, :, Hz + 1:Hz + Nz + 1]   # faces 1..Nz

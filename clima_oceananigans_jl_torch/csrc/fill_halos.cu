@@ -3,11 +3,18 @@
 // axis (periodic axes first), into its halo points, in place:
 //
 //   periodic side:              copy of the wrapped interior point;
-//   bounded side, centred:      zero-gradient mirror (flux, open) or
-//                               2b - mirror (value b);
-//   bounded side, face-located: mirror about the wall face (flux), or b on
-//                               the wall face and 2b - mirror beyond it
-//                               (open, value b).
+//   bounded side, centred:      zero-gradient mirror (flux, open),
+//                               2b - mirror (value b) or mirror - b*d
+//                               (gradient b, d = cc[mirror] - cc[ghost]);
+//   bounded side, face-located: mirror about the wall face (flux,
+//                               gradient), or b on the wall face and
+//                               2b - mirror beyond it (open, value b).
+//
+// A value b is a scalar of the launch's arguments or, for a plane array or
+// a callable BC value, a with-halo plane that the wrapper evaluated on the
+// card (a FillSide of the side table, with its strides); a gradient side's
+// distances d, one per ghost, are in the side table too, computed on the
+// host in the field's type from the grid's centre coordinates.
 //
 // Each axis' fill reads only points that the axes before it have filled, so
 // the value a sequence of fills leaves at a halo point is the value at one
@@ -17,8 +24,14 @@
 // that for its points, reading the sources from the field as it was: with
 // at least H + 1 cells on a bounded axis (H on a periodic one) no source is
 // a written point, so the threads may run in any order. The arithmetic is
-// the plain version's (2b - x in the field's type), so the two are bitwise
-// equal.
+// the plain version's (2b - x and x - b*d in the field's type, the product
+// rounded before the difference under --fmad=false), so the two are
+// bitwise equal. When axis a's operation runs in fill_halos, the value it
+// reads was written by the axes filled before a and not yet touched by
+// those filled after it, and its plane b is indexed by that point's other
+// coordinates: so K6 reads a plane at the destination's index on the axes
+// filled before a and at the source's index on the axes filled after it
+// (at a corner that decides whether b comes from the plane's halo).
 //
 // Replaces the TPU kernel clima_oceananigans_jl_tpu/ops/fused_fill.py::
 // fill_periodic_axis_inplace, the in-place strip copy of one periodic axis
@@ -70,19 +83,33 @@
 #include "tiles.cuh"
 
 #define MAX_FILL_FIELDS 16
+// the most halo cells of a gradient side
+#define MAX_FILL_HALO 8
 
 // K6's block: threads, and points a thread
 constexpr int FILL_THREADS = 256, FILL_ITEMS = 4;
 
 // how one side of an axis is filled
 enum { KEEP = 0, WRAP, MIRROR_C, MIRROR_F };
-// what an axis does to the value of one point: keep it, 2b - x, or b
-enum { COPY = 0, REFLECT, WALL };
+// what a side's value does: nothing, a value BC's b, a gradient BC's b
+enum { NO_VALUE = 0, VALUE, GRADIENT };
+// what an axis does to the value of one point: keep it, 2b - x, b, x - b*d
+enum { COPY = 0, REFLECT, WALL, SHIFT };
 
 // One axis of one field: written indices are [0, lo) and [hi, S).
 struct FillAxis {
   int S, N, H, lo, hi;
-  int kind[2], value[2];  // per side: KEEP..MIRROR_F; 1 for a value b
+  int kind[2], value[2];  // per side: KEEP..MIRROR_F; NO_VALUE..GRADIENT
+};
+
+// One (field, axis, side) of a group's side table, in device memory: a
+// plane of b (0: the scalar of FillArgs::b) with its strides over (x, y,
+// z), the one along the filled axis 0, and a gradient side's distances,
+// one per ghost in index order.
+struct FillSide {
+  long long plane;
+  long long st[3];
+  double dist[MAX_FILL_HALO];
 };
 
 // One field: its axes, fill order and the blocks of its three passes, with
@@ -100,6 +127,7 @@ struct FillArgs {
   FillField f[MAX_FILL_FIELDS];
   T b[MAX_FILL_FIELDS][3][2];
   int nf;
+  const FillSide* side;  // [nf][3][2], or null: scalar values, no gradients
 };
 
 __device__ __forceinline__ int clampi(int i, int lo, int hi) {
@@ -137,7 +165,8 @@ __device__ __forceinline__ void rule(const FillAxis& a, int i, int& s, int& op,
     }
     s = clampi(2 * face - i, H, H + N);
   }
-  if (a.value[side]) op = REFLECT;
+  if (a.value[side] == VALUE) op = REFLECT;
+  else if (a.value[side] == GRADIENT) op = SHIFT;
 }
 
 // Index i's rule along an axis that pass PASS may find in its halo (the x
@@ -155,12 +184,36 @@ __device__ __forceinline__ void rule_in(const FillAxis& a, int axis, int i,
   }
 }
 
+// The b of side `side` of axis a of field f at the plane coordinates
+// (c0, c1, c2) (the filled axis' one has stride 0); the side table is
+// there.
+template <typename T>
+__device__ __forceinline__ T side_value(const FillArgs<T>& A, int f, int a,
+                                        int side, int c0, int c1, int c2) {
+  const FillSide& q = A.side[(f * 3 + a) * 2 + side];
+  if (q.plane != 0)
+    return reinterpret_cast<const T*>(q.plane)[c0 * q.st[0] + c1 * q.st[1] +
+                                               c2 * q.st[2]];
+  return A.b[f][a][side];
+}
+
+// A gradient side's distance for halo index i along axis a of field f.
+template <typename T>
+__device__ __forceinline__ T side_distance(const FillArgs<T>& A, int f, int a,
+                                           int side, int i) {
+  const FillAxis& X = A.f[f].ax[a];
+  return T(A.side[(f * 3 + a) * 2 + side].dist[side == 0 ? i : i - (X.H + X.N)]);
+}
+
 // One halo point (x, y, z) of field f of pass PASS, through every axis'
 // rule in fill order: with LOAD, v becomes its source value (or the b of
 // the wall face that replaces it); without, v goes through the remaining
 // operations and is stored. The rules are cheap, so the two halves compute
-// them each.
-template <int PASS, bool LOAD, typename T>
+// them each. Without a side table (SIDE false) every b is a scalar and no
+// side is a gradient; with one, (c0, c1, c2) are the coordinates at which
+// the axis in hand reads its plane: the destination's on the axes filled
+// before it, the source's on the others.
+template <bool SIDE, int PASS, bool LOAD, typename T>
 __device__ __forceinline__ void fill_point(const FillArgs<T>& A, int f, int x,
                                            int y, int z, T& v) {
   const FillField& F = A.f[f];
@@ -177,18 +230,48 @@ __device__ __forceinline__ void fill_point(const FillArgs<T>& A, int f, int x,
   const int a0 = F.order[first];
   const bool wall = pick(a0, o0, o1, o2) == WALL;
   T* const d = A.data[f];
-  if (LOAD) {
-    v = wall ? A.b[f][a0][pick(a0, e0, e1, e2)]
-             : d[((int64_t)s0 * Y + s1) * Z + s2];
+  if (!SIDE) {
+    if (LOAD) {
+      v = wall ? A.b[f][a0][pick(a0, e0, e1, e2)]
+               : d[((int64_t)s0 * Y + s1) * Z + s2];
+      return;
+    }
+#pragma unroll
+    for (int n = 0; n < 3; ++n) {
+      const int a = F.order[n];
+      if ((!wall || n > first) && pick(a, o0, o1, o2) == REFLECT)
+        v = T(2) * A.b[f][a][pick(a, e0, e1, e2)] - v;
+    }
+    d[((int64_t)x * Y + y) * Z + z] = v;
     return;
   }
+  if (LOAD && !wall) {
+    v = d[((int64_t)s0 * Y + s1) * Z + s2];
+    return;
+  }
+  int c0 = s0, c1 = s1, c2 = s2;
 #pragma unroll
   for (int n = 0; n < 3; ++n) {
     const int a = F.order[n];
-    if ((!wall || n > first) && pick(a, o0, o1, o2) == REFLECT)
-      v = T(2) * A.b[f][a][pick(a, e0, e1, e2)] - v;
+    if (LOAD) {
+      if (n == first) {
+        v = side_value(A, f, a, pick(a, e0, e1, e2), c0, c1, c2);
+        return;
+      }
+    } else if (!wall || n > first) {
+      const int op = pick(a, o0, o1, o2), side = pick(a, e0, e1, e2);
+      if (op == REFLECT)
+        v = T(2) * side_value(A, f, a, side, c0, c1, c2) - v;
+      else if (op == SHIFT)
+        v = v - side_value(A, f, a, side, c0, c1, c2) *
+                    side_distance(A, f, a, side, pick(a, x, y, z));
+    }
+    // the axes after this one read its destination coordinate
+    if (a == 0) c0 = x;
+    else if (a == 1) c1 = y;
+    else c2 = z;
   }
-  d[((int64_t)x * Y + y) * Z + z] = v;
+  if (!LOAD) d[((int64_t)x * Y + y) * Z + z] = v;
 }
 
 // The r-th point of pass PASS of field F (0: x slabs, 1: y runs, 2: z
@@ -225,7 +308,7 @@ __device__ __forceinline__ bool pass_point(const FillField& F, int r, int& x,
 
 // A thread's FILL_ITEMS points of pass PASS, every FILL_THREADS-th from r0:
 // the loads of all of them before any store.
-template <int PASS, typename T>
+template <bool SIDE, int PASS, typename T>
 __device__ __forceinline__ void fill_items(const FillArgs<T>& A, int f, int r0) {
   const FillField& F = A.f[f];
   T v[FILL_ITEMS];
@@ -233,20 +316,23 @@ __device__ __forceinline__ void fill_items(const FillArgs<T>& A, int f, int r0) 
   for (int j = 0; j < FILL_ITEMS; ++j) {
     int x, y, z;
     if (pass_point<PASS>(F, r0 + j * FILL_THREADS, x, y, z))
-      fill_point<PASS, true>(A, f, x, y, z, v[j]);
+      fill_point<SIDE, PASS, true>(A, f, x, y, z, v[j]);
   }
 #pragma unroll
   for (int j = 0; j < FILL_ITEMS; ++j) {
     int x, y, z;
     if (pass_point<PASS>(F, r0 + j * FILL_THREADS, x, y, z))
-      fill_point<PASS, false>(A, f, x, y, z, v[j]);
+      fill_point<SIDE, PASS, false>(A, f, x, y, z, v[j]);
   }
 }
 
 // A block fills FILL_ITEMS * FILL_THREADS consecutive points of one pass of
 // one field; its thread takes every FILL_THREADS-th of them, so each load
-// and store instruction of a warp covers consecutive points.
-template <typename T>
+// and store instruction of a warp covers consecutive points. SIDE: the
+// group has a side table (planes or gradients); a group of scalar values
+// runs the instantiation without it, whose code is that of the scalar
+// fills alone.
+template <typename T, bool SIDE>
 __global__ void __launch_bounds__(FILL_THREADS)
     fill_halos_kernel(const __grid_constant__ FillArgs<T> A) {
   const int f = blockIdx.y;
@@ -254,21 +340,22 @@ __global__ void __launch_bounds__(FILL_THREADS)
   const int r0 = (int)threadIdx.x;
   int b = blockIdx.x;
   if (b < F.bx) {
-    fill_items<0>(A, f, b * FILL_ITEMS * FILL_THREADS + r0);
+    fill_items<SIDE, 0>(A, f, b * FILL_ITEMS * FILL_THREADS + r0);
   } else if ((b -= F.bx) < F.by) {
-    fill_items<1>(A, f, b * FILL_ITEMS * FILL_THREADS + r0);
+    fill_items<SIDE, 1>(A, f, b * FILL_ITEMS * FILL_THREADS + r0);
   } else if ((b -= F.by) < F.bz) {
-    fill_items<2>(A, f, b * FILL_ITEMS * FILL_THREADS + r0);
+    fill_items<SIDE, 2>(A, f, b * FILL_ITEMS * FILL_THREADS + r0);
   }
 }
 
 template <typename T>
-static int launch(void* const* data, const int* ints, const double* bs, int nf,
-                  void* stream) {
+static int launch(void* const* data, const int* ints, const double* bs,
+                  const void* side, int nf, void* stream) {
   static_assert(sizeof(FillArgs<T>) <= 4096, "kernel parameters over 4 KB");
   if (nf < 1 || nf > MAX_FILL_FIELDS) return (int)cudaErrorInvalidValue;
   FillArgs<T> A = {};
   A.nf = nf;
+  A.side = static_cast<const FillSide*>(side);
   long long blocks = 0;
   for (int f = 0; f < nf; ++f) {
     A.data[f] = static_cast<T*>(data[f]);
@@ -276,6 +363,9 @@ static int launch(void* const* data, const int* ints, const double* bs, int nf,
     const int* q = ints + 30 * f;  // per axis S, N, H, lo, hi, kinds, values
     for (int a = 0; a < 3; ++a, q += 9) {
       F.ax[a] = FillAxis{q[0], q[1], q[2], q[3], q[4], {q[5], q[6]}, {q[7], q[8]}};
+      for (int e = 0; e < 2; ++e)  // a gradient needs the table and its H
+        if (q[7 + e] == GRADIENT && (side == nullptr || q[2] > MAX_FILL_HALO))
+          return (int)cudaErrorInvalidValue;
       A.b[f][a][0] = T(bs[6 * f + 2 * a]);
       A.b[f][a][1] = T(bs[6 * f + 2 * a + 1]);
     }
@@ -306,8 +396,12 @@ static int launch(void* const* data, const int* ints, const double* bs, int nf,
   if (blocks == 0) return 0;
   if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks, nf);
-  fill_halos_kernel<T><<<grid, FILL_THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(A);
+  if (A.side != nullptr)
+    fill_halos_kernel<T, true><<<grid, FILL_THREADS, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(A);
+  else
+    fill_halos_kernel<T, false><<<grid, FILL_THREADS, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(A);
   return (int)cudaGetLastError();
 }
 
@@ -317,11 +411,13 @@ extern "C" {
 // host array of nf distinct device pointers, each a contiguous (X, Y, Z)
 // field; `ints` holds 30 ints per field (for x, y, z: S, N, H, lo, hi,
 // kind of side 0 and 1, value flag of side 0 and 1; then the fill order),
-// `bs` 6 doubles per field (b of side 0 and 1 for x, y, z).
-#define FILL_HALOS(NAME, T)                                              \
-  int NAME(void* const* data, const int* ints, const double* bs, int nf, \
-           void* stream) {                                               \
-    return launch<T>(data, ints, bs, nf, stream);                        \
+// `bs` 6 doubles per field (the scalar b of side 0 and 1 for x, y, z);
+// `side` is null or the device address of the group's side table,
+// nf x 3 x 2 FillSide records.
+#define FILL_HALOS(NAME, T)                                               \
+  int NAME(void* const* data, const int* ints, const double* bs,          \
+           const void* side, int nf, void* stream) {                      \
+    return launch<T>(data, ints, bs, side, nf, stream);                   \
   }
 
 FILL_HALOS(fill_halos_f32, float)

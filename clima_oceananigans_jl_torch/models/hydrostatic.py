@@ -25,6 +25,13 @@ A quasi-AB2 step:
 - explicit free surface: K4b's tendencies, −g∇η, G_η = −∇h·U, the AB2
   substep of the solution and η, then ``update_state``.
 
+With forcing or flux-BC values (or ``fused_advection=False``) the
+implicit and split-explicit steps take the JAX package's two-stage route
+instead of the fused advance (``fused_advance``, fixed at construction as
+the JAX package fixes it): ``tendencies`` (K4b in its tendency form, then
+the forcing and the boundary fluxes), then ``ab2_substep`` on the
+with-halo fields, then the free surface as above.
+
 ``update_state`` fills the halos of the solution and η in one launch of
 K6, K4a rebuilds w and pHY′ column by column, and a second K6 launch
 fills their halos. The kernels' wrappers are taken from ``KERNELS``;
@@ -48,6 +55,7 @@ from ..boundary_conditions.bcs import (FluxBC, OpenBC, apply_flux_bcs,
 from ..buoyancy.buoyancy import BuoyancyTracer
 from ..coriolis.coriolis import BetaPlane, FPlane, HydrostaticSphericalCoriolis
 from ..fields.field import Field, new_field, set_field
+from ..forcings.forcing import regularize_forcing
 from ..grids.topology import BOUNDED, FLAT
 from ..ops.fused_barotropic import fused_substep_eta, fused_substep_eta_reference
 from ..ops.fused_barotropic import unsupported_reason as barotropic_unsupported_reason
@@ -56,7 +64,8 @@ from ..ops.fused_fill import fields_unsupported_reason
 from ..ops.fused_hydrostatic import (fused_hydrostatic_tendencies,
                                      fused_hydrostatic_tendencies_reference,
                                      hydrostatic_columns,
-                                     hydrostatic_columns_reference)
+                                     hydrostatic_columns_reference,
+                                     supports_fused_hydro_advance)
 from ..ops.fused_hydrostatic import unsupported_reason as kernel_unsupported_reason
 from ..timesteppers.steppers import Clock, ab2_coefficients, ab2_substep
 from ..utils.location import CENTER, U_LOC, V_LOC, W_LOC
@@ -79,13 +88,11 @@ PLAIN = dict(columns=hydrostatic_columns_reference,
              fill=fused_fill_halos_reference)
 
 
-def _unsupported_reason(model, closure, forcing, particles, immersed_boundary):
+def _unsupported_reason(model, closure, particles, immersed_boundary):
     """Why the port cannot run this configuration yet, or None."""
     if closure is not None:
         return ("closures in the hydrostatic model are not ported yet "
                 "(ROADMAP Queue 1 item 7)")
-    if forcing:
-        return "forcing is not ported yet (ROADMAP Queue 1 item 4)"
     if particles is not None:
         return "particles are not ported yet (ROADMAP Queue 1 item 7)"
     if immersed_boundary is not None:
@@ -114,15 +121,12 @@ def _unsupported_reason(model, closure, forcing, particles, immersed_boundary):
         return (f"{type(cor).__name__} Coriolis is not ported yet "
                 "(ROADMAP Queue 1 item 4)")
     b = model.buoyancy
-    if b is not None and (not isinstance(b, BuoyancyTracer)
-                          or tuple(b.gravity_unit_vector) != (0.0, 0.0, -1.0)):
-        return ("only BuoyancyTracer with vertical gravity is ported "
+    if b is not None and not isinstance(b, BuoyancyTracer):
+        return (f"{type(b).__name__} in the hydrostatic model is not ported "
+                "yet (BuoyancyTracer is) (ROADMAP Queue 1 item 7)")
+    if b is not None and tuple(b.gravity_unit_vector) != (0.0, 0.0, -1.0):
+        return ("tilted gravity in the hydrostatic model is not ported yet "
                 "(ROADMAP Queue 1 item 7)")
-    for bcs in model.bcs.values():
-        for _axis, _side, bc in bcs.sides():
-            if bc is not None and bc.kind == "flux" and bc.value is not None:
-                return ("flux BCs with values are not ported yet "
-                        "(ROADMAP Queue 1 item 1)")
     return None
 
 
@@ -158,6 +162,8 @@ class HydrostaticFreeSurfaceModel:
                              else ImplicitFreeSurface())
         self.buoyancy = buoyancy
         self.coriolis = coriolis
+        self.forcing = {k: regularize_forcing(k, v)
+                        for k, v in (forcing or {}).items()}
         self.ab2_chi = 0.1
         user_bcs = boundary_conditions or {}
         self.bcs = {n: regularize_bcs(self.grid, loc, user_bcs.get(n))
@@ -170,7 +176,7 @@ class HydrostaticFreeSurfaceModel:
             wb.top = FluxBC()
         self.w_bcs = wb
         self.pressure_bcs = regularize_bcs(self.grid, CENTER, None)
-        reason = _unsupported_reason(self, closure, forcing, particles,
+        reason = _unsupported_reason(self, closure, particles,
                                      immersed_boundary)
         if (reason is None and self.grid.device.type == "cuda"
                 and self.fused_advection):
@@ -184,6 +190,10 @@ class HydrostaticFreeSurfaceModel:
         if reason is not None:
             raise NotImplementedError(reason)
         self.closure = None
+        # K4b's fused advance (tendencies and the AB2 substep in one
+        # launch) where no term is added to G after the kernel; otherwise
+        # the two-stage route, as the JAX package fixes it
+        self.fused_advance = supports_fused_hydro_advance(self)
 
     # -- state ----------------------------------------------------------------
     def _kernels(self, kernels):
@@ -286,18 +296,29 @@ class HydrostaticFreeSurfaceModel:
     # -- tendencies ---------------------------------------------------------------
     def tendencies(self, state, kernels=None):
         """With-halo tendencies of every prognostic field, valid on the
-        interior: K4b's core (``kernels["tendencies"]``), then −g∇η under
-        an explicit free surface and the boundary fluxes."""
+        interior: K4b's core (``kernels["tendencies"]``), −g∇η under an
+        explicit free surface, then per field its forcing and boundary
+        fluxes, with ``fields`` the solution, w and η (a discrete-form
+        BC or forcing may read them). A state without w (as the JAX
+        package keeps it when its kernel rebuilds w) gets it rebuilt
+        through ``kernels["columns"]`` (K4a) first, as the JAX step does."""
         grid = self.grid
+        if state.get("w") is None:
+            state = dict(state, w=self.compute_w(state["solution"], kernels))
         G = self._kernels(kernels)["tendencies"](self, state)
         if self._explicit_fs:
             g = self.free_surface.gravitational_acceleration
             G["u"] = G["u"] - g * grad_x(grid, state["eta"])
             G["v"] = G["v"] - g * grad_y(grid, state["eta"])
+        clock = state["clock"]
+        fields = dict(state["solution"], w=state["w"], eta=state["eta"])
         locs = self._locs()
-        t = state["clock"].time
-        return {name: apply_flux_bcs(G[name], grid, locs[name], self.bcs[name], t)
-                for name in self.prognostic_names()}
+        for name in self.prognostic_names():
+            if name in self.forcing:
+                G[name] = G[name] + self.forcing[name](grid, clock, fields)
+            G[name] = apply_flux_bcs(G[name], grid, locs[name], self.bcs[name],
+                                     clock.time, fields)
+        return G
 
     # -- stepping ---------------------------------------------------------------
     def step(self, state, dt, kernels=None):
@@ -320,26 +341,30 @@ class HydrostaticFreeSurfaceModel:
                                   self.ab2_chi, euler)
             eta = stepped.pop("eta")
             sol = stepped
-        elif isinstance(fs, ImplicitFreeSurface):
-            sol, G = kernels["tendencies"](self, state, advance=(dt, euler))
-            sol = self.fill_all_halos(sol, clock0.time, kernels)
-            Qu, Qv = barotropic_mode(grid, sol["u"], sol["v"])
-            g = fs.gravitational_acceleration
-            rhs = (div_xy_2d(grid, Qu, Qv) - state["eta"] / dt) / (g * dt)
-            eta = fs.solve(grid, self.eta_bcs, rhs, state["eta"], dt)
-            sol = dict(sol, u=sol["u"] - g * dt * grad_x(grid, eta),
-                       v=sol["v"] - g * dt * grad_y(grid, eta))
-        else:  # split-explicit
-            sol, G = kernels["tendencies"](self, state, advance=(dt, euler))
-            U0, V0 = barotropic_mode(grid, sol0["u"], sol0["v"])
-            c1, c2 = ab2_coefficients(self.ab2_chi, euler)
-            GU, GV = barotropic_mode(grid, c1 * G["u"] - c2 * G_prev["u"],
-                                     c1 * G["v"] - c2 * G_prev["v"])
-            eta, U_av, V_av = fs.substep_eta(grid, self.eta_bcs, state["eta"],
-                                             GU, GV, U0, V0, dt,
-                                             kernels["barotropic"])
-            u, v = fs.corrector(grid, sol["u"], sol["v"], U_av, V_av)
-            sol = dict(sol, u=u, v=v)
+        else:
+            if self.fused_advance:
+                sol, G = kernels["tendencies"](self, state, advance=(dt, euler))
+            else:
+                G = self.tendencies(state, kernels)
+                sol = ab2_substep(sol0, G, G_prev, dt, self.ab2_chi, euler)
+            if isinstance(fs, ImplicitFreeSurface):
+                sol = self.fill_all_halos(sol, clock0.time, kernels)
+                Qu, Qv = barotropic_mode(grid, sol["u"], sol["v"])
+                g = fs.gravitational_acceleration
+                rhs = (div_xy_2d(grid, Qu, Qv) - state["eta"] / dt) / (g * dt)
+                eta = fs.solve(grid, self.eta_bcs, rhs, state["eta"], dt)
+                sol = dict(sol, u=sol["u"] - g * dt * grad_x(grid, eta),
+                           v=sol["v"] - g * dt * grad_y(grid, eta))
+            else:  # split-explicit
+                U0, V0 = barotropic_mode(grid, sol0["u"], sol0["v"])
+                c1, c2 = ab2_coefficients(self.ab2_chi, euler)
+                GU, GV = barotropic_mode(grid, c1 * G["u"] - c2 * G_prev["u"],
+                                         c1 * G["v"] - c2 * G_prev["v"])
+                eta, U_av, V_av = fs.substep_eta(grid, self.eta_bcs,
+                                                 state["eta"], GU, GV, U0, V0,
+                                                 dt, kernels["barotropic"])
+                u, v = fs.corrector(grid, sol["u"], sol["v"], U_av, V_av)
+                sol = dict(sol, u=u, v=v)
         new_state = dict(state, solution=sol, eta=eta, G_prev=G,
                          clock=clock0.tick(dt), previous_dt=float(dt))
         return self.update_state(new_state, kernels)

@@ -3,10 +3,10 @@
 Counterpart of ``clima_oceananigans_jl_tpu/models/nonhydrostatic.py``
 (Oceananigans' ``NonhydrostaticModel``):
 
-  ∂t u = G_u − ∂x pNHS,  G_u = −∇·(vu) − f×u|_x − ∂x pHY′ + ∇·(ν∇u)
-  ∂t w = G_w − ∂z pNHS,  G_w = −∇·(vw) − f×u|_z + ∇·(ν∇w)
+  ∂t u = G_u − ∂x pNHS,  G_u = −∇·(vu) − f×u|_x − ∂x pHY′ + ∇·(ν∇u) + Fu
+  ∂t w = G_w − ∂z pNHS,  G_w = −∇·(vw) − f×u|_z + ∇·(ν∇w) + Fw
   (buoyancy and ∂z pHY′ cancel exactly in G_w, pHY′ = −∫ b̄ᶻ dz)
-  ∂t c = −∇·(vc) + ∇·(κ∇c)
+  ∂t c = −∇·(vc) + ∇·(κ∇c) + Fc
   ∇²pNHS = ∇·u*/Δt  (FFT eigenexpansion solve)
 
 Time stepping, as the JAX package runs it on the TPU:
@@ -14,29 +14,30 @@ Time stepping, as the JAX package runs it on the TPU:
 - quasi-AB2, fused branch (``fused_step``): the fused AB2 advance (kernel
   K1 on the GPU, its plain PyTorch version on the CPU), the roll-based
   projection on interiors, one pad, then ``update_state``;
-- quasi-AB2, general branch (a closure whose vertical part the kernel
-  cannot take, e.g. value walls): ``tendencies`` → ``ab2_substep`` →
-  implicit step (the identity) → ``project_velocities``;
+- quasi-AB2, general branch (a term K1 lacks: forcing, background
+  fields, Stokes drift, tilted gravity, flux-BC values, or a closure whose
+  vertical part the kernel cannot take): ``tendencies`` → ``ab2_substep``
+  → implicit step (the identity) → ``project_velocities``;
 - RK3: three stages of ``tendencies`` → ``rk3_substep`` → implicit step →
   ``project_velocities`` → ``update_state``.
 
 ``tendencies`` computes the advection of every field through
-``fused_advective_tendencies`` (kernel K2 on the GPU) and adds Coriolis,
-−∂pHY′ and diffusion with PyTorch ops. ``project_velocities`` takes the
-roll-based projection where the JAX package does (periodic x and y, w
-walls that are imposed values), and otherwise the general projection:
-halo fills, ``fused_divergence`` (K3b), the FFT solve and
+``fused_advective_tendencies`` (kernel K2 on the GPU) and adds, in the
+JAX term order, the background cross terms, Coriolis, −∂pHY′ and the
+tilted-gravity terms, the Stokes drift, diffusion, then per field its
+forcing and boundary fluxes, with PyTorch ops. ``project_velocities``
+takes the roll-based projection where the JAX package does (periodic x
+and y, w walls that are imposed values), and otherwise the general
+projection: halo fills, ``fused_divergence`` (K3b), the FFT solve and
 ``fused_pressure_gradient`` (K3c). ``update_state`` and the general
 projection fill halos through ``fused_fill_halos`` (K6), two launches
-each, where the constructor finds that K6's gate takes every field
-(``fill_route`` "K6"); otherwise, as for a gradient BC or a callable BC
-value, through ``fill_halos`` field by field (``fill_route``
-"fill_halos"). A configuration the port cannot run
-(other Coriolis or closures, forcing, immersed boundaries, bounded x or
-y, ...) raises ``NotImplementedError`` at construction. The kernels'
-wrappers come from ``KERNELS``; the JAX keyword ``fused_advection=False``
-swaps in ``PLAIN`` and takes the general AB2 branch, as its JAX meaning
-has it.
+each, whatever the BCs' values (scalars, planes, callables, gradients).
+A configuration the port cannot run (other Coriolis or closures,
+immersed boundaries, Flat axes, bounded x or y, stretched grids, ...)
+raises ``NotImplementedError`` at construction. The kernels' wrappers
+come from ``KERNELS``; the JAX keyword ``fused_advection=False`` swaps in
+``PLAIN`` and takes the general AB2 branch, as its JAX meaning has it,
+and so do background fields, as in the JAX package.
 
 State: the JAX package's keys and shapes. ``solution`` holds with-halo
 tensors; ``G_prev`` is halo-free (nx, ny, nz) when ``g_interior`` holds
@@ -50,12 +51,16 @@ import torch
 
 from ..advection.schemes import CenteredSecondOrder
 from ..boundary_conditions.bcs import _bvalue, apply_flux_bcs, regularize_bcs
-from ..buoyancy.buoyancy import hydrostatic_pressure_anomaly
+from ..advection.fluxes import div_Uc, div_vu, div_vv, div_vw
+from ..buoyancy.buoyancy import (buoyancy_x_term, buoyancy_y_term,
+                                 hydrostatic_pressure_anomaly)
 from ..closures.implicit_vertical_diffusion import implicit_step_fields
 from ..closures.scalar_diffusivity import (compute_closure_diffusivities,
                                            momentum_diffusion,
                                            tracer_diffusion)
+from ..fields.background import materialize_background
 from ..fields.field import new_field, set_field
+from ..forcings.forcing import regularize_forcing
 from ..grids.topology import BOUNDED, PERIODIC
 from ..ops import stencil as st
 from ..ops.fused_fill import (fields_unsupported_reason, fused_fill_halos,
@@ -101,9 +106,13 @@ class NonhydrostaticModel:
         # the JAX keyword: "auto" and True run the kernels (on the card;
         # their plain versions on CPU tensors) and the fused AB2 branch
         # where fused_step_ok allows it; False runs the plain versions and
-        # the branch the JAX package's False takes. The TPU's rounding of
-        # the y halo to a multiple of 4 has no counterpart here.
-        self.fused_advection = fused_advection is True or fused_advection == "auto"
+        # the branch the JAX package's False takes, and so do background
+        # fields, whose cross terms the JAX package runs outside its
+        # kernels. The TPU's rounding of the y halo to a multiple of 4 has
+        # no counterpart here.
+        self.fused_advection = ((fused_advection is True
+                                 or fused_advection == "auto")
+                                and not background_fields)
         self.kernels = KERNELS if self.fused_advection else PLAIN
         self.advection = advection if advection is not None else CenteredSecondOrder()
         self.tracer_advection = (tracer_advection if tracer_advection is not None
@@ -121,7 +130,8 @@ class NonhydrostaticModel:
         self.coriolis = coriolis
         self.stokes_drift = stokes_drift
         self.closure = closure
-        self.forcing = forcing or {}
+        self.forcing = {k: regularize_forcing(k, v)
+                        for k, v in (forcing or {}).items()}
         self.background_fields = background_fields or {}
         self.timestepper = timestepper
         self.immersed_boundary = immersed_boundary
@@ -132,16 +142,14 @@ class NonhydrostaticModel:
                     for n, loc in self._locs().items()}
         self.pressure_bcs = regularize_bcs(self.grid, CENTER, None)
         reason = unsupported_reason(self)
+        if (reason is None and self.fused_advection
+                and self.grid.device.type == "cuda"):
+            # on the card the fills run K6: its gate decides now
+            reason = self._fill_unsupported_reason()
         if reason is not None:
             raise NotImplementedError(reason)
         self.pressure_solver = FFTPoissonSolver.build(self.grid)
         self.fused_step = fused_step_ok(self)
-        # the halo fills' route, fixed here as the JAX package fixes its
-        # in-place fills (supports_inplace_fill): K6 where its gate takes
-        # every field and the pressure fields, otherwise fill_halos field
-        # by field (K6's plain version), as JAX runs those by default
-        if self.fused_advection and self._fill_unsupported_reason() is not None:
-            self.kernels = dict(KERNELS, fill=fused_fill_halos_reference)
 
     # -- state ----------------------------------------------------------------
     @property
@@ -150,13 +158,6 @@ class NonhydrostaticModel:
         package's layout of its fused AB2 branch with z-halo-free walls.
         Otherwise ``G_prev`` carries halos."""
         return self.fused_step and z_halo_free_ok(self.grid, self.bcs.get("w"))
-
-    @property
-    def fill_route(self):
-        """"K6" where the model's mapping fills halos through K6 (the
-        ``fill`` of ``KERNELS``), otherwise "fill_halos" (its plain version,
-        field by field)."""
-        return "K6" if self.kernels["fill"] is KERNELS["fill"] else "fill_halos"
 
     def prognostic_names(self):
         return ("u", "v", "w") + self.tracer_names
@@ -201,9 +202,9 @@ class NonhydrostaticModel:
 
     def update_state(self, state, kernels=None):
         """Halo fills on all three axes of every field (in place, one call
-        of ``kernels["fill"]``: K6 on the model's K6 route), then the
-        closure's diffusivities and pHY′ with its halos filled (a second
-        call: pHY′ reads b's top z halo). Unlike the JAX package's fused
+        of ``kernels["fill"]``: K6, or its plain version under ``PLAIN``),
+        then the closure's diffusivities and pHY′ with its halos filled (a
+        second call: pHY′ reads b's top z halo). Unlike the JAX package's fused
         step, the z halos of u, v and passive tracers are filled too: the
         kernels read real z halos where the TPU kernels wrap z-halo-free
         blocks."""
@@ -228,19 +229,34 @@ class NonhydrostaticModel:
     # -- tendencies ---------------------------------------------------------------
     def tendencies(self, state, kernels=None):
         """With-halo tendencies G of every prognostic field (valid on the
-        interior), in the JAX term order: advection → Coriolis → −∂pHY′ →
-        diffusion, then boundary fluxes. The advection of every field is
-        one fused call, as the JAX model makes it on the TPU
-        (``supports_fused_advection`` holds for every grid the port
-        accepts), through ``kernels["advect"]`` (``_kernels``)."""
+        interior), in the JAX term order: advection → background cross
+        terms → Coriolis → −∂pHY′ and the tilted-gravity terms → Stokes
+        drift → diffusion, then per field its forcing and boundary fluxes.
+        The advection of every field is one fused call, as the JAX model
+        makes it on the TPU (``supports_fused_advection`` holds for every
+        grid the port accepts), through ``kernels["advect"]``
+        (``_kernels``); the other terms are PyTorch ops."""
         advect = self._kernels(kernels)["advect"]
         grid = self.grid
         sol = state["solution"]
+        clock = state["clock"]
         u, v, w = sol["u"], sol["v"], sol["w"]
+        scheme = self.advection
         tracers = {n: sol[n] for n in self.tracer_names}
-        adv = advect(grid, self.advection, self.tracer_advection, u, v, w,
-                     tracers)
+        adv = advect(grid, scheme, self.tracer_advection, u, v, w, tracers)
         Gu, Gv, Gw = adv["u"], adv["v"], adv["w"]
+        bg = materialize_background(self.background_fields, grid, self._locs(),
+                                    clock.time)
+        if bg:
+            bu = bg.get("u", torch.zeros_like(u))
+            bv = bg.get("v", torch.zeros_like(v))
+            bw = bg.get("w", torch.zeros_like(w))
+            Gu = Gu - div_vu(grid, scheme, u, v, w, U=(bu, bv, bw)) \
+                    - div_vu(grid, scheme, bu, bv, bw, U=(u, v, w))
+            Gv = Gv - div_vv(grid, scheme, u, v, w, U=(bu, bv, bw)) \
+                    - div_vv(grid, scheme, bu, bv, bw, U=(u, v, w))
+            Gw = Gw - div_vw(grid, scheme, u, v, w, U=(bu, bv, bw)) \
+                    - div_vw(grid, scheme, bu, bv, bw, U=(u, v, w))
         if self.coriolis is not None:
             Gu = Gu - self.coriolis.x_f_cross_U(grid, u, v, w)
             Gv = Gv - self.coriolis.y_f_cross_U(grid, u, v, w)
@@ -249,22 +265,48 @@ class NonhydrostaticModel:
             ph = state["pHY"]
             Gu = Gu - st.dxf(ph) / grid.dx(U_LOC)
             Gv = Gv - st.dyf(ph) / grid.dy(V_LOC)
+            bx = buoyancy_x_term(self.buoyancy, grid, tracers)
+            by = buoyancy_y_term(self.buoyancy, grid, tracers)
+            if bx is not None:
+                Gu = Gu + bx
+            if by is not None:
+                Gv = Gv + by
+        sd = self.stokes_drift
+        if sd is not None:
+            Gu = Gu + sd.x_curl_Us_cross_U(grid, u, v, w, clock.time)
+            Gv = Gv + sd.y_curl_Us_cross_U(grid, u, v, w, clock.time)
+            Gw = Gw + sd.z_curl_Us_cross_U(grid, u, v, w, clock.time)
+            Gu = Gu + sd.dt_us(grid, clock.time)
+            Gv = Gv + sd.dt_vs(grid, clock.time)
+            Gw = Gw + sd.dt_ws(grid, clock.time)
         diff = state.get("diffusivities")
         if self.closure is not None:
             Gu = Gu + momentum_diffusion(u, grid, U_LOC, self.closure, diff)
             Gv = Gv + momentum_diffusion(v, grid, V_LOC, self.closure, diff)
             Gw = Gw + momentum_diffusion(w, grid, W_LOC, self.closure, diff)
         G = dict(u=Gu, v=Gv, w=Gw)
+        ts = self.tracer_advection
         for name, c in tracers.items():
             Gc = adv[name]
+            # the background velocities advect c, and the full velocity
+            # advects the background tracer
+            if bg and any(k in bg for k in ("u", "v", "w")):
+                Gc = Gc - div_Uc(grid, ts, bg.get("u", torch.zeros_like(u)),
+                                 bg.get("v", torch.zeros_like(v)),
+                                 bg.get("w", torch.zeros_like(w)), c)
+            if bg and name in bg:
+                Gc = Gc - div_Uc(grid, ts, u, v, w, bg[name])
             if self.closure is not None:
                 Gc = Gc + tracer_diffusion(c, grid, name, self.closure, diff)
             G[name] = Gc
+        fields = dict(sol)
         locs = self._locs()
-        t = state["clock"].time
-        return {name: apply_flux_bcs(G[name], grid, locs[name],
-                                     self.bcs[name], t)
-                for name in self.prognostic_names()}
+        for name in self.prognostic_names():
+            if name in self.forcing:
+                G[name] = G[name] + self.forcing[name](grid, clock, fields)
+            G[name] = apply_flux_bcs(G[name], grid, locs[name], self.bcs[name],
+                                     clock.time, fields)
+        return G
 
     # -- pressure projection --------------------------------------------------
     def _fast_projection_ok(self):
@@ -346,7 +388,7 @@ class NonhydrostaticModel:
         the FFT solve, pNHS with halos filled under ``pressure_bcs``, its
         gradient through ``kernels["gradient"]`` (K3c), and the correction
         over the with-halo arrays. The two fills go through
-        ``kernels["fill"]`` (K6 on the model's K6 route)."""
+        ``kernels["fill"]`` (K6, or its plain version under ``PLAIN``)."""
         k = self._kernels(kernels)
         grid = self.grid
         sol = dict(state["solution"])

@@ -16,22 +16,30 @@ copies of u, v and w, then pNHS.
 writes what that sequence of fills writes: each halo point takes the
 value of one interior source point (each axis' index wrapped or mirrored)
 through the operations of the axes whose halo holds it, in the fill
-order. ``fill_plan`` describes that per axis; ``unsupported_reason`` is
-the static gate of one field (scalar BC values, no gradient BCs, enough
-cells that no source is itself written), ``fields_unsupported_reason``
-that of a model's fills.
-The wrapper runs the plain version on CPU tensors and the kernel on CUDA
-tensors (or raises: nothing falls back), and counts its launches in
-``fused_fill_halos.launches``.
+order: a copy, 2b − x (a value BC), b (a value or open wall face) or
+x − b·d (a gradient BC, d the distance from the ghost's centre to its
+mirror's). ``fill_plan`` describes that per axis. A BC value b is a
+scalar (in the launch's arguments), or a with-halo plane that the wrapper
+evaluates on the card with ``bcs.py::_bvalue`` at the fill's t (a plane
+array padded to the halo shape, or a callable on the with-halo nodes),
+which the kernel reads at the coordinates the value has when its axis is
+filled: the destination's on the axes filled before, the source's on
+those filled after. ``unsupported_reason`` is the static gate of one
+field (enough cells that no source is itself written, a halo the
+gradient table holds), ``fields_unsupported_reason`` that of a model's
+fills. The wrapper runs the plain version on CPU tensors and the kernel
+on CUDA tensors (or raises: nothing falls back), and counts its launches
+in ``fused_fill_halos.launches``.
 """
 from __future__ import annotations
 
 import ctypes
+import numbers
 
 import numpy as np
 import torch
 
-from ..boundary_conditions.bcs import default_bcs, fill_halos
+from ..boundary_conditions.bcs import _bvalue, default_bcs, fill_halos
 from ..grids.topology import BOUNDED, FLAT, PERIODIC
 from ..utils.location import F
 from .fused_tendencies import check_tensor, kernel_fn, launch
@@ -41,6 +49,16 @@ from .fused_tendencies import check_tensor, kernel_fn, launch
 MAX_FIELDS = 16
 #: how one side of an axis is filled (the source's enum)
 KEEP, WRAP, MIRROR_C, MIRROR_F = range(4)
+#: what a bounded side's value does (the source's value flags): nothing,
+#: a value BC's b (2b − x, or b on a wall face), a gradient BC's x − b·d
+NO_VALUE, VALUE, GRADIENT = range(3)
+#: the most halo cells of a gradient side (``MAX_FILL_HALO`` of the source)
+MAX_HALO = 8
+#: one (field, axis, side) of the kernel's side table (``FillSide``): a
+#: plane's device pointer (0: the scalar b) and its three strides, and a
+#: gradient side's distances cc[mirror] − cc[ghost], one per ghost
+SIDE = np.dtype([("plane", "<i8"), ("st", "<i8", (3,)),
+                 ("dist", "<f8", (MAX_HALO,))])
 
 
 def fused_fill_halos_reference(grid, fields):
@@ -51,56 +69,51 @@ def fused_fill_halos_reference(grid, fields):
             for data, loc, bcs, axes, t in fields]
 
 
-def _scalar(bc):
-    """A BC's value as a float; raises when it is not a scalar."""
-    v = bc.value
-    if v is None:
-        return 0.0
-    ndim = v.ndim if isinstance(v, torch.Tensor) else np.ndim(v)
-    if callable(v) or ndim != 0:
-        raise NotImplementedError(f"K6 takes scalar BC values, not {v!r} "
-                                  "(ROADMAP Queue 1 item 1)")
-    return float(v)
-
-
 def _side(grid, loc, axis, side, bc):
-    """(written count, kind, value flag, b) of one bounded side, as
-    ``bcs.py::_bounded_slab`` fills it."""
+    """(written count, kind, value flag, bc) of one bounded side, as
+    ``bcs.py::_bounded_slab`` fills it; the bc is None where the fill reads
+    no value."""
     H = grid.halo[axis]
     if bc is None or bc.kind == "periodic":
-        return 0, KEEP, 0, 0.0
-    if bc.kind == "gradient":
-        raise NotImplementedError("K6 has no gradient BCs (ROADMAP Queue 1 item 1)")
+        return 0, KEEP, NO_VALUE, None
     if loc[axis] != F:
         if bc.kind == "value":
-            return H, MIRROR_C, 1, _scalar(bc)
-        return H, MIRROR_C, 0, 0.0
+            return H, MIRROR_C, VALUE, bc
+        if bc.kind == "gradient":
+            if H > MAX_HALO:
+                raise NotImplementedError(
+                    f"K6 takes gradient BCs on halos of at most {MAX_HALO} cells")
+            return H, MIRROR_C, GRADIENT, bc
+        return H, MIRROR_C, NO_VALUE, None
     if bc.kind in ("open", "value"):
-        return H + 1 if side == 0 else H, MIRROR_F, 1, _scalar(bc)
-    return H if side == 0 else H - 1, MIRROR_F, 0, 0.0
+        return H + 1 if side == 0 else H, MIRROR_F, VALUE, bc
+    # flux or gradient on a face-located axis: the zero-gradient mirror
+    return H if side == 0 else H - 1, MIRROR_F, NO_VALUE, None
 
 
 def fill_plan(grid, loc, bcs, axes, shape):
-    """Per axis (S, N, H, lo, hi, kind0, kind1, value0, value1) and
-    (b0, b1) of one field of ``shape``: its written indices along the axis
-    are [0, lo) and [hi, S). Raises NotImplementedError for what K6 lacks."""
+    """Per axis (S, N, H, lo, hi, kind0, kind1, value0, value1) of one
+    field of ``shape``, its written indices along the axis being [0, lo)
+    and [hi, S), and per axis the (side 0, side 1) BCs whose values the
+    fill reads (None where it reads none). Raises NotImplementedError for
+    what K6 lacks."""
     bcs = bcs if bcs is not None else default_bcs(grid, loc)
     pairs = ((bcs.west, bcs.east), (bcs.south, bcs.north), (bcs.bottom, bcs.top))
-    ints, bs = [], []
+    ints, values = [], []
     for axis in range(3):
         S, N, H = shape[axis], grid.shape[axis], grid.halo[axis]
         topo = grid.topology[axis]
         if axis not in axes or topo is FLAT:
-            ints.append((S, N, H, 0, S, KEEP, KEEP, 0, 0))
-            bs.append((0.0, 0.0))
+            ints.append((S, N, H, 0, S, KEEP, KEEP, NO_VALUE, NO_VALUE))
+            values.append((None, None))
             continue
         if S != N + 2 * H:
             raise ValueError(f"axis {axis}: size {S}, expected {N + 2 * H}")
         if topo is PERIODIC:
             if N < H:
                 raise NotImplementedError("K6 takes at least H cells on a periodic axis")
-            ints.append((S, N, H, H, N + H, WRAP, WRAP, 0, 0))
-            bs.append((0.0, 0.0))
+            ints.append((S, N, H, H, N + H, WRAP, WRAP, NO_VALUE, NO_VALUE))
+            values.append((None, None))
             continue
         if topo is not BOUNDED:
             raise NotImplementedError(f"{topo!r} axes are not ported yet")
@@ -109,8 +122,8 @@ def fill_plan(grid, loc, bcs, axes, shape):
         (w0, k0, v0, b0), (w1, k1, v1, b1) = (
             _side(grid, loc, axis, s, pairs[axis][s]) for s in (0, 1))
         ints.append((S, N, H, w0, S - w1, k0, k1, v0, v1))
-        bs.append((b0, b1))
-    return ints, bs
+        values.append((b0, b1))
+    return ints, values
 
 
 def fill_order(grid):
@@ -139,6 +152,81 @@ def fields_unsupported_reason(grid, fields):
     return None
 
 
+def _is_scalar(v):
+    """A BC value the launch passes as a number: None (zero), a real
+    number, or a 0-d numpy value (a tensor or a callable becomes a plane)."""
+    return v is None or isinstance(v, numbers.Real) or (
+        isinstance(v, np.ndarray | np.generic) and np.ndim(v) == 0)
+
+
+def gradient_distances(grid, axis, side):
+    """cc[mirror] − cc[ghost] for each ghost of a centred bounded side, in
+    the grid's type (as ``bcs.py::_bounded_slab`` forms them), as host
+    floats; computed once per grid."""
+    key = ("fill_gradient_distances", axis, side)
+    if key not in grid._cache:
+        N, H = grid.shape[axis], grid.halo[axis]
+        cc = grid._axes[axis].cc.detach().cpu()
+        clampc = lambda i: min(max(i, H), H + N - 1)
+        ghosts = range(0, H) if side == 0 else range(H + N, 2 * H + N)
+        mirror = (lambda g: clampc(2 * H - 1 - g)) if side == 0 else (
+            lambda g: clampc(2 * (H + N) - 1 - g))
+        grid._cache[key] = [float(cc[mirror(g)] - cc[g]) for g in ghosts]
+    return grid._cache[key]
+
+
+def _side_table(group, grid, plans, device, keep):
+    """The kernel's side table of a group as a device tensor, or None when
+    every value the group reads is a scalar and no side is a gradient.
+    Planes made here are appended to ``keep`` (they must outlive the
+    launch's enqueueing; the stream orders their reuse)."""
+    table = np.zeros((len(group), 3, 2), SIDE)
+    needed = False
+    for f, ((data, loc, _bcs, _axes, t), (ints, values)) in enumerate(zip(group, plans)):
+        for axis in range(3):
+            for side in (0, 1):
+                bc, flag = values[axis][side], ints[axis][7 + side]
+                if flag == GRADIENT:
+                    d = gradient_distances(grid, axis, side)
+                    table[f, axis, side]["dist"][:len(d)] = d
+                    needed = True
+                if bc is None or _is_scalar(bc.value):
+                    continue
+                shape = list(data.shape)
+                shape[axis] = 1
+                plane = torch.broadcast_to(_bvalue(bc, grid, axis, side, loc, t),
+                                           shape)
+                if plane.dtype != data.dtype or plane.device != data.device:
+                    raise ValueError(f"a BC value of {plane.dtype} on "
+                                     f"{plane.device} for a field of "
+                                     f"{data.dtype} on {data.device}")
+                st = list(plane.stride())
+                st[axis] = 0
+                table[f, axis, side]["plane"] = plane.data_ptr()
+                table[f, axis, side]["st"] = st
+                keep.append(plane)
+                needed = True
+    if not needed:
+        return None
+    # device copies of the grid's side tables by their bytes: a group whose
+    # planes and gradients are those of an earlier launch reuses its table
+    # (a copy from pinned memory, so the host does not wait for the card)
+    tables = grid._cache.setdefault("fill_side_tables", {})
+    raw = table.tobytes()
+    if raw not in tables:
+        if len(tables) >= 64:
+            tables.clear()
+        host = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+        tables[raw] = host.pin_memory().to(device, non_blocking=True)
+    return tables[raw]
+
+
+def _scalars(values):
+    """The 6 scalar b's of one field (0.0 where a plane or nothing is read)."""
+    return [float(bc.value or 0.0) if bc is not None and _is_scalar(bc.value)
+            else 0.0 for pair in values for bc in pair]
+
+
 def _launch(grid, fields):
     device, dtype = fields[0][0].device, grid.dtype
     ptrs = set()
@@ -148,19 +236,23 @@ def _launch(grid, fields):
     if len(ptrs) != len(fields):
         raise ValueError("K6 fills distinct tensors in place")
     fn = kernel_fn("fill_halos", "fill_halos", dtype,
-                   [ctypes.c_void_p] * 3 + [ctypes.c_int])
+                   [ctypes.c_void_p] * 4 + [ctypes.c_int])
     order = fill_order(grid)
     for g0 in range(0, len(fields), MAX_FIELDS):
         group = fields[g0:g0 + MAX_FIELDS]
+        plans = [fill_plan(grid, loc, bcs, axes, data.shape)
+                 for data, loc, bcs, axes, _t in group]
         ints, bs = [], []
-        for data, loc, bcs, axes, _t in group:
-            fi, fb = fill_plan(grid, loc, bcs, axes, data.shape)
+        for fi, values in plans:
             ints += [v for axis in fi for v in axis] + order
-            bs += [v for axis in fb for v in axis]
+            bs += _scalars(values)
+        keep = []
+        table = _side_table(group, grid, plans, device, keep)
         data_arr = (ctypes.c_void_p * len(group))(*[f[0].data_ptr() for f in group])
         int_arr = (ctypes.c_int * len(ints))(*ints)
         b_arr = (ctypes.c_double * len(bs))(*bs)
-        launch("fill_halos", fn, device, data_arr, int_arr, b_arr, len(group))
+        launch("fill_halos", fn, device, data_arr, int_arr, b_arr,
+               None if table is None else table.data_ptr(), len(group))
         fused_fill_halos.launches += 1
     return [f[0] for f in fields]
 

@@ -121,6 +121,28 @@ def unsupported_reason(model):
     return None
 
 
+def supports_fused_hydro_advance(model):
+    """The JAX gate of the fused advance (``ops/fused_hydrostatic.py::
+    supports_fused_hydro_advance``): K4b computes G and the AB2 substep in
+    one launch only where every tendency term lives in the kernel, so not
+    with forcing or flux-BC values (added to G after the kernel) nor
+    under an explicit free surface (its −g∇η likewise), and only with the
+    model's ``fused_advection``. The JAX gate's TPU conditions (its VMEM
+    budget beyond 5 tracers, the state layout) have no counterpart here;
+    closures, particles and immersed boundaries are refused at
+    construction."""
+    from ..models.free_surface import ExplicitFreeSurface
+    if not model.fused_advection or model.forcing:
+        return False
+    if isinstance(model.free_surface, ExplicitFreeSurface):
+        return False
+    for name in model.prognostic_names():
+        for _axis, _side, bc in model.bcs[name].sides():
+            if bc is not None and bc.kind == "flux" and bc.value is not None:
+                return False
+    return True
+
+
 # -- K4a: w from continuity and pHY′, column by column ----------------------------
 
 def hydrostatic_columns_reference(grid, u, v, b=None):

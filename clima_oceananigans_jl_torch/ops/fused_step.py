@@ -22,7 +22,7 @@ import torch
 
 from ..closures.scalar_diffusivity import ScalarDiffusivity
 from ..coriolis.coriolis import BetaPlane, FPlane
-from ..grids.topology import BOUNDED, PERIODIC
+from ..grids.topology import BOUNDED, FLAT, PERIODIC
 from ..timesteppers.steppers import ab2_coefficients, ab2_substep
 from ..utils.location import U_LOC, V_LOC
 from .fused_tendencies import (ADVECTION_ARGTYPES, advection_args,
@@ -62,29 +62,24 @@ def unsupported_reason(model):
     if cl is not None and not all(_scalar_coefficient(v) for v in
                                   (cl.nu, cl.kappa, cl.nu_z, cl.kappa_z)):
         return f"array- or callable-valued ν/κ are not ported yet {_LATER}"
-    for attr in ("stokes_drift", "immersed_boundary", "particles"):
+    for attr in ("immersed_boundary", "particles"):
         if getattr(model, attr) is not None:
             return f"{attr} is not ported yet {_LATER}"
-    if model.forcing or model.background_fields:
-        return f"forcing and background fields are not ported yet {_LATER}"
-    b = model.buoyancy
-    if b is not None and tuple(b.gravity_unit_vector) != (0.0, 0.0, -1.0):
-        return f"tilted gravity is not ported yet {_LATER}"
     topo = model.grid.topology
+    if FLAT in topo:
+        return f"Flat axes in the nonhydrostatic model are not ported yet {_LATER}"
     if not (topo[0] is PERIODIC and topo[1] is PERIODIC
             and topo[2] in (PERIODIC, BOUNDED)):
         names = tuple(t.value for t in topo)
         return (f"topology {names} is not ported yet (bounded x or y: the "
                 "JAX package runs it with fused_advection=False, its "
                 f"advection outside K2) {_LATER}")
+    if not model.grid.all_regular:
+        return ("stretched grids in the nonhydrostatic model are not ported "
+                "yet (the Fourier-tridiagonal pressure solve) " + _LATER)
     if not model._fast_projection_ok() and fused_step_ok(model):
         return ("the general projection after the fused AB2 advance (w walls "
                 f"that are not imposed values) is not ported yet {_LATER}")
-    for name in model.prognostic_names():
-        for _axis, _side, bc in model.bcs[name].sides():
-            if bc is not None and bc.kind == "flux" and bc.value is not None:
-                return ("flux BCs with values are not ported yet "
-                        "(ROADMAP Queue 1 item 1)")
     return None
 
 
@@ -115,15 +110,27 @@ def _step_kernel_closure(model):
 def fused_step_ok(model):
     """The JAX gate of the fused AB2 branch (``ops/fused_step.py::
     fused_step_ok``) on the configurations the port accepts: the model's
-    ``fused_advection``, quasi-AB2, and a closure whose explicit part the
-    kernel runs. The gate's other
-    conditions (Coriolis other than f/β-plane, forcing, Stokes drift,
-    tilted gravity, flux-BC values, ...) are refused at construction by
-    ``unsupported_reason``."""
-    return (model.fused_advection
-            and model.timestepper == "QuasiAdamsBashforth2"
-            and (model.closure is None
-                 or _step_kernel_closure(model) is not None))
+    ``fused_advection``, quasi-AB2, a closure whose explicit part the
+    kernel runs, and no term the kernel lacks (forcing, background fields,
+    Stokes drift, tilted gravity, flux-BC values): those send the step to
+    the general branch, whose advection K2 carries. Coriolis other than
+    f/β-plane is refused at construction by ``unsupported_reason``."""
+    if not (model.fused_advection
+            and model.timestepper == "QuasiAdamsBashforth2"):
+        return False
+    if (model.stokes_drift is not None or model.forcing
+            or model.background_fields):
+        return False
+    if model.closure is not None and _step_kernel_closure(model) is None:
+        return False
+    b = model.buoyancy
+    if b is not None and tuple(b.gravity_unit_vector) != (0.0, 0.0, -1.0):
+        return False
+    for name in model.prognostic_names():
+        for _axis, _side, bc in model.bcs[name].sides():
+            if bc is not None and bc.kind == "flux" and bc.value is not None:
+                return False
+    return True
 
 
 def fused_ab2_advance_reference(model, state, dt, euler):

@@ -14,15 +14,22 @@ interpret mode (``tests/test_fused_fill.py``). Here, in f64:
   points it marks as written are exactly those the plain fills write, over
   every location and the flux, open and value BCs on bounded and periodic
   axes;
+- the plain version against the JAX ``fill_halos`` with gradient BCs on a
+  stretched z and with plane and callable values (the callables written
+  with torch and with jnp): bitwise;
 - ``fill_plan`` through the kernel's passes, block counts and decode of
   its block and thread indices, mirrored in numpy (the kernel's own are
   held only by the ``cuda`` cases): each written point once, no other
   point, at the source's block shape and others;
+- ``fill_plan`` and the kernel's per-point rule, mirrored in numpy
+  (``traced_fill``), against the plain fills on every written point,
+  corners included, with scalar, plane and callable values and gradients;
 - the static gate.
 
 The ``cuda`` cases hold the kernel against its plain version on the card,
-bitwise, on the hydrostatic fields and on the nonhydrostatic model's
-(every halo point over NaN-filled memory) (``python -m pytest --noconftest -m cuda tests/test_torch_fused_fill.py``).
+bitwise, on the hydrostatic fields, on the nonhydrostatic model's and
+with gradients, planes and callables (every halo point over NaN-filled
+memory) (``python -m pytest --noconftest -m cuda tests/test_torch_fused_fill.py``).
 """
 import re
 from pathlib import Path
@@ -32,6 +39,7 @@ import pytest
 import torch
 
 import clima_oceananigans_jl_torch as T
+from clima_oceananigans_jl_torch.boundary_conditions import bcs as tbcs
 from clima_oceananigans_jl_torch.boundary_conditions.bcs import regularize_bcs
 from clima_oceananigans_jl_torch.models.free_surface import ETA_LOC
 from clima_oceananigans_jl_torch.ops import fused_fill as tff
@@ -131,11 +139,30 @@ def written_mask(plan_ints):
     return along[0][:, None, None] | along[1][None, :, None] | along[2][None, None, :]
 
 
+def plane(shape, seed):
+    """A boundary-plane array of values on the interior points."""
+    return np.random.default_rng(seed).standard_normal(shape)
+
+
 BCS = {"default": None,
        "value": dict(west=T.ValueBC(0.3), east=T.ValueBC(-1.25), south=T.ValueBC(2.0),
                      top=T.ValueBC(0.7), bottom=T.OpenBC(0.0)),
        "open": dict(west=T.OpenBC(0.1), east=T.OpenBC(-0.2), south=T.OpenBC(0.4),
-                    north=T.FluxBC(), bottom=T.ValueBC(0.5), top=T.OpenBC(1.5))}
+                    north=T.FluxBC(), bottom=T.ValueBC(0.5), top=T.OpenBC(1.5)),
+       # gradients (scalar, callable, plane) and plane and callable values;
+       # the planes fit the 9×7×5 grid's interior planes (the launch plan
+       # evaluates no value)
+       "gradient": dict(west=T.GradientBC(0.2), east=T.GradientBC(lambda y, z, t: y - z + t),
+                        south=T.GradientBC(-1.5), north=T.GradientBC(0.25),
+                        bottom=T.GradientBC(lambda x, y, t: x * y + 1.0), top=T.GradientBC(0.75)),
+       "planes": dict(west=T.ValueBC(plane((7, 5), 1)), south=T.OpenBC(plane((9, 5), 2)),
+                      north=T.GradientBC(plane((9, 5), 3)), bottom=T.ValueBC(plane((9, 7), 4)),
+                      top=T.OpenBC(plane((9, 7), 5))),
+       "callables": dict(east=T.OpenBC(lambda y, z, t: 0.5 * y + z + t),
+                         south=T.ValueBC(lambda x, z, t: x - 2.0 * z),
+                         north=T.OpenBC(lambda x, z, t: x * z),
+                         bottom=T.ValueBC(lambda x, y, t: x + y * y + t),
+                         top=T.GradientBC(lambda x, y, t: 0.1 * x - y))}
 
 
 @pytest.mark.parametrize("topology", [("bounded",) * 3, ("periodic", "bounded", "bounded"),
@@ -144,14 +171,15 @@ BCS = {"default": None,
 def test_fill_plan_marks_exactly_what_the_plain_fills_write(topology, bcs):
     """Random values on each filled axis' interior (its last face included
     on a face-located axis) and on the unfilled axes, NaN elsewhere: the
-    plain fills change exactly the points that ``fill_plan`` marks."""
+    plain fills change exactly the points that ``fill_plan`` marks. (A
+    plane or callable of (x, z) or (y, z) values has no 2D (X, Y, 1) field
+    to fill, so those BCs go on 3D fields only.)"""
     grid = T.RectilinearGrid(size=(9, 7, 5), x=(0, 1), y=(0, 2), z=zfaces(5, 1.0, 1.5),
                              topology=topology, dtype=torch.float64, device=DEVICE)
     rng = np.random.default_rng(4)
     for loc in (CENTER, U_LOC, V_LOC, W_LOC, (T.F, T.F, T.F)):
         b = regularize_bcs(grid, loc, None if BCS[bcs] is None else T.FieldBCs(**BCS[bcs]))
-        for axes, shape in (((0, 1, 2), grid.total_shape), ((1, 2), grid.total_shape),
-                            ((0, 1), grid.total_shape[:2] + (1,))):
+        for axes, shape in FILLS(grid, bcs):
             keep = [np.arange(n) if a not in axes else
                     np.arange(grid.halo[a], grid.halo[a] + grid.shape[a]
                               + int(loc[a] == T.F))
@@ -165,6 +193,16 @@ def test_fill_plan_marks_exactly_what_the_plain_fills_write(topology, bcs):
                        | (~np.isnan(before) & (before != after)))
             ints, _ = tff.fill_plan(grid, loc, b, axes, shape)
             assert np.array_equal(written_mask(ints), changed), (loc, axes)
+
+
+def FILLS(grid, bcs):
+    """(axes, shape) of the fills a test makes with ``BCS[bcs]``: 3D
+    fields on every axis and on y and z, and a 2D (X, Y, 1) field on x and
+    y where its BCs are scalars."""
+    out = [((0, 1, 2), grid.total_shape), ((1, 2), grid.total_shape)]
+    if bcs not in ("gradient", "planes", "callables"):
+        out.append(((0, 1), grid.total_shape[:2] + (1,)))
+    return out
 
 
 #: K6 block shapes (threads, points a thread) the launch-plan test decodes:
@@ -237,15 +275,29 @@ def test_launch_plan_cases_include_the_sources_block_shape():
     assert tuple(map(int, shape.groups())) in LAUNCH_SHAPES
 
 
+def test_side_table_layout_matches_the_source():
+    """The host's side-table record (``SIDE``) and gradient halo limit are
+    the kernel's ``FillSide`` and ``MAX_FILL_HALO``: a pointer, three
+    strides, then the distances, 8 bytes each."""
+    src = (Path(tff.__file__).parent.parent / "csrc" / "fill_halos.cu").read_text()
+    assert int(re.search(r"#define MAX_FILL_HALO (\d+)", src).group(1)) == tff.MAX_HALO
+    fields = re.search(r"struct FillSide \{([^}]*)\};", src).group(1)
+    assert [l.split()[-1] for l in fields.strip().splitlines()] == [
+        "plane;", "st[3];", "dist[MAX_FILL_HALO];"]
+    assert tff.SIDE.names == ("plane", "st", "dist")
+    assert tff.SIDE.itemsize == 8 * (1 + 3 + tff.MAX_HALO)
+
+
 def test_gate_refuses_what_the_kernel_lacks():
+    """Too few cells for the sources to stay unwritten, a gradient halo past
+    the side table; gradient BCs and plane or callable values it takes."""
     grid = T.RectilinearGrid(size=(9, 7, 5), extent=(1, 1, 1),
                              topology=("bounded", "bounded", "bounded"),
                              dtype=torch.float64, device=DEVICE)
     S = grid.total_shape
-    grad = T.FieldBCs(west=T.GradientBC(0.1))
-    assert "gradient" in tff.unsupported_reason(grid, CENTER, grad, (0, 1, 2), S)
-    call = T.FieldBCs(top=T.ValueBC(lambda x, y, t: x + y))
-    assert "scalar" in tff.unsupported_reason(grid, CENTER, call, (0, 1, 2), S)
+    for kind in ("gradient", "planes", "callables"):
+        assert tff.unsupported_reason(grid, CENTER, T.FieldBCs(**BCS[kind]),
+                                      (0, 1, 2), S) is None, kind
     # an open BC's value is not used on a centred side
     unused = T.FieldBCs(top=T.OpenBC(lambda x, y, t: x + y))
     assert tff.unsupported_reason(grid, CENTER, unused, (0, 1, 2), S) is None
@@ -254,22 +306,168 @@ def test_gate_refuses_what_the_kernel_lacks():
                              dtype=torch.float64, device=DEVICE)
     assert "H+1" in tff.unsupported_reason(thin, CENTER, None, (0, 1, 2), thin.total_shape)
     assert tff.unsupported_reason(thin, CENTER, None, (0, 2), thin.total_shape) is None
+    wide = T.RectilinearGrid(size=(20, 7, 5), extent=(1, 1, 1),
+                             topology=("bounded", "bounded", "bounded"),
+                             halo=(tff.MAX_HALO + 1, 3, 3), dtype=torch.float64,
+                             device=DEVICE)
+    grad = T.FieldBCs(west=T.GradientBC(0.1))
+    assert "gradient" in tff.unsupported_reason(wide, CENTER, grad, (0, 1, 2),
+                                                wide.total_shape)
+    # a gradient on a face-located axis fills as the zero-gradient mirror
+    assert tff.unsupported_reason(wide, U_LOC, grad, (0, 1, 2), wide.total_shape) is None
+    assert "size" in tff.unsupported_reason(grid, CENTER, None, (0, 1, 2), (9, 7, 5))
     assert torch_model()._fill_unsupported_reason() is None
 
 
 def test_gate_over_several_fields_gives_the_first_reason():
     """``fields_unsupported_reason``, the gate both models apply to their
     fills: None when K6 takes every field, else the first field's reason."""
-    grid = T.RectilinearGrid(size=(9, 7, 5), extent=(1, 1, 1),
+    grid = T.RectilinearGrid(size=(9, 3, 5), extent=(1, 1, 1),
                              topology=("bounded", "bounded", "bounded"),
                              dtype=torch.float64, device=DEVICE)
     S = grid.total_shape
-    ok = (CENTER, None, (0, 1, 2), S)
-    grad = (CENTER, T.FieldBCs(west=T.GradientBC(0.1)), (0, 1, 2), S)
-    call = (CENTER, T.FieldBCs(top=T.ValueBC(lambda x, y, t: x + y)), (0, 1, 2), S)
-    assert tff.fields_unsupported_reason(grid, [ok, (W_LOC, None, (0, 1), S[:2] + (1,))]) is None
-    assert "gradient" in tff.fields_unsupported_reason(grid, [ok, grad, call])
-    assert "scalar" in tff.fields_unsupported_reason(grid, [call, grad])
+    ok = (CENTER, T.FieldBCs(west=T.GradientBC(0.1)), (0, 2), S)
+    thin = (CENTER, None, (0, 1, 2), S)
+    shape = (CENTER, None, (0, 1, 2), (S[0] - 1,) + S[1:])
+    assert tff.fields_unsupported_reason(grid, [ok, (W_LOC, None, (0,), S)]) is None
+    assert "H+1" in tff.fields_unsupported_reason(grid, [ok, thin, shape])
+    assert "size" in tff.fields_unsupported_reason(grid, [shape, thin])
+
+
+def jax_bcs(kind):
+    """``BCS[kind]`` for the JAX package: its BC classes, the callables
+    written again with jnp (the same arithmetic), the planes as they are."""
+    from clima_oceananigans_jl_tpu.boundary_conditions import bcs as jb
+    jnp_call = {"gradient": dict(east=lambda y, z, t: y - z + t,
+                                 bottom=lambda x, y, t: x * y + 1.0),
+                "callables": dict(east=lambda y, z, t: 0.5 * y + z + t,
+                                  south=lambda x, z, t: x - 2.0 * z,
+                                  north=lambda x, z, t: x * z,
+                                  bottom=lambda x, y, t: x + y * y + t,
+                                  top=lambda x, y, t: 0.1 * x - y)}
+    out = {}
+    for side, bc in BCS[kind].items():
+        value = jnp_call.get(kind, {}).get(side, bc.value)
+        out[side] = jb.BC(bc.kind, value)
+    return jb.FieldBCs(**out)
+
+
+@pytest.mark.parametrize("kind", ["gradient", "planes", "callables"])
+@pytest.mark.parametrize("topology", [("bounded",) * 3, ("periodic", "bounded", "bounded")])
+def test_plain_version_matches_jax_with_gradients_planes_and_callables(kind, topology):
+    """K6's plain version against the JAX ``fill_halos``, bitwise, on a
+    stretched z, every location, with gradient BCs (scalar, plane and
+    callable b) and with plane and callable values (the callables written
+    with torch and with jnp, the same polynomial)."""
+    kw = dict(size=(9, 7, 5), x=(0, 1), y=(0, 2), z=zfaces(5, 1.0, 1.5))
+    tg = T.RectilinearGrid(topology=topology, dtype=torch.float64, device=DEVICE, **kw)
+    jg = J.RectilinearGrid(topology=topology, dtype=jnp.float64, **kw)
+    from clima_oceananigans_jl_tpu.boundary_conditions import bcs as jb
+    rng = np.random.default_rng(6)
+    for tloc, jloc in ((CENTER, J.CENTER), (U_LOC, J.U_LOC), (V_LOC, J.V_LOC),
+                       (W_LOC, J.W_LOC)):
+        tb = regularize_bcs(tg, tloc, T.FieldBCs(**BCS[kind]))
+        jbc = jb.regularize_bcs(jg, jloc, jax_bcs(kind))
+        d = rng.standard_normal(tg.total_shape)
+        got, = tff.fused_fill_halos(tg, [(torch.as_tensor(d), tloc, tb, (0, 1, 2), 1.5)])
+        ref = j_fill(jnp.asarray(d), jg, jloc, jbc, 1.5)
+        assert np.array_equal(np.asarray(ref), got.numpy()), tloc
+
+
+def traced_fill(grid, data, loc, bcs, axes, t):
+    """K6's rule in numpy, point by point over ``fill_plan``'s written
+    points: each axis' index wrapped or mirrored to its source, the last
+    wall face in fill order replacing what came before it, then the axes'
+    operations in fill order, a plane read at the destination's index on
+    the axes filled before and at the source's on those filled after
+    (``csrc/fill_halos.cu::fill_point``)."""
+    ints, values = tff.fill_plan(grid, loc, bcs, axes, data.shape)
+    order = tff.fill_order(grid)
+    dt = data.dtype.type
+
+    def b_at(a, side, c):
+        bc = values[a][side]
+        if tff._is_scalar(bc.value):
+            return dt(bc.value or 0.0)
+        shape = list(data.shape)
+        shape[a] = 1
+        plane = torch.broadcast_to(tbcs._bvalue(bc, grid, a, side, loc, t), shape).numpy()
+        c = list(c)
+        c[a] = 0
+        return plane[tuple(c)]
+
+    def rule(a, i):
+        S, N, H, lo, hi, k0, k1, v0, v1 = ints[a]
+        side = 0 if i < lo else 1
+        if lo <= i < hi:
+            return i, "copy", side
+        kind, flag = (k0, v0) if side == 0 else (k1, v1)
+        if kind == tff.WRAP:
+            return (i + N if side == 0 else i - N), "copy", side
+        if kind == tff.MIRROR_C:
+            m = 2 * H - 1 - i if side == 0 else 2 * (H + N) - 1 - i
+            s = min(max(m, H), H + N - 1)
+        else:
+            face = H if side == 0 else H + N
+            if i == face:
+                return i, "wall", side
+            s = min(max(2 * face - i, H), H + N)
+        return s, {tff.NO_VALUE: "copy", tff.VALUE: "reflect",
+                   tff.GRADIENT: "shift"}[flag], side
+
+    out = data.copy()
+    for p in zip(*np.nonzero(written_mask(ints))):
+        rules = [rule(a, int(p[a])) for a in range(3)]
+        walls = [n for n, a in enumerate(order) if rules[a][1] == "wall"]
+        first = walls[-1] if walls else 0
+        c = [r[0] for r in rules]
+        for n in range(first):
+            c[order[n]] = p[order[n]]
+        a0 = order[first]
+        v = (b_at(a0, rules[a0][2], c) if walls
+             else data[tuple(r[0] for r in rules)])
+        c[a0] = p[a0]
+        for n in range(first + 1 if walls else 0, 3):
+            a = order[n]
+            _s, op, side = rules[a]
+            if op == "reflect":
+                v = dt(2) * b_at(a, side, c) - v
+            elif op == "shift":
+                S, N, H, *_ = ints[a]
+                d = tff.gradient_distances(grid, a, side)[p[a] if side == 0 else p[a] - H - N]
+                v = v - b_at(a, side, c) * dt(d)
+            c[a] = p[a]
+        out[tuple(p)] = v
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", ["value", "open", "gradient", "planes", "callables"])
+@pytest.mark.parametrize("topology", [("bounded",) * 3, ("periodic", "bounded", "bounded"),
+                                      ("bounded", "periodic", "bounded")])
+def test_fill_plan_traced_point_by_point_matches_the_plain_fills(topology, kind, dtype):
+    """``fill_plan`` and the kernel's rule (``traced_fill``, a numpy mirror
+    of ``fill_point``) give every written point, corners included, bitwise
+    the plain fills' value, from NaN on every written point: every
+    location, a stretched z, scalar, plane and callable values and
+    gradients. A plane read at the wrong coordinates differs only at the
+    corners."""
+    grid = T.RectilinearGrid(size=(9, 7, 5), x=(0, 1), y=(0, 2), z=zfaces(5, 1.0, 1.5),
+                             topology=topology, dtype=dtype, device=DEVICE)
+    rng = np.random.default_rng(9)
+    for loc in (CENTER, U_LOC, V_LOC, W_LOC, (T.F, T.F, T.F)):
+        b = regularize_bcs(grid, loc, T.FieldBCs(**BCS[kind]))
+        for axes, shape in FILLS(grid, kind)[:2]:
+            ints, _ = tff.fill_plan(grid, loc, b, axes, shape)
+            data = np.full(shape, np.nan, dtype=np.float64 if dtype == torch.float64
+                           else np.float32)
+            keep = tuple(slice(lo, hi) for _S, _N, _H, lo, hi, *_ in ints)
+            data[keep] = rng.standard_normal(data[keep].shape)
+            ref = torch.as_tensor(data.copy())
+            tff.fused_fill_halos_reference(grid, [(ref, loc, b, axes, 0.75)])
+            got = traced_fill(grid, data, loc, b, axes, 0.75)
+            assert np.array_equal(got, ref.numpy()), (loc, axes)
+            assert not np.isnan(got).any()
 
 
 def test_wrapper_takes_the_plain_version_on_cpu_and_counts_no_launch():
@@ -332,7 +530,7 @@ def test_cuda_k6_on_the_nonhydrostatic_groups_over_nan_halos(dtype, size):
                              "b": T.FieldBCs(top=T.ValueBC(0.25)),
                              "c": T.FieldBCs(bottom=T.ValueBC(-1.0), top=T.FluxBC())},
         timestepper="RungeKutta3")
-    assert model.fill_route == "K6"
+    assert model.kernels["fill"] is tff.fused_fill_halos
     g = model.grid
     groups = [[(model._locs()[n], model.bcs[n]) for n in model.prognostic_names()],
               [(CENTER, model.pressure_bcs)]]
@@ -351,5 +549,43 @@ def test_cuda_k6_on_the_nonhydrostatic_groups_over_nan_halos(dtype, size):
         assert tff.fused_fill_halos.launches == n0 + 1
         tff.fused_fill_halos_reference(g, [(a, loc, b, (0, 1, 2), 0.0)
                                            for a, (loc, b) in zip(ref, group)])
+        for a, r in zip(got, ref):
+            assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["gradient", "planes", "callables"])
+def test_cuda_k6_gradients_planes_and_callables_over_nan_halos(kind, dtype):
+    """K6 with gradient BCs on a stretched z and plane and callable values,
+    every location, on (Bounded, Bounded, Bounded) and (Periodic, Bounded,
+    Bounded) grids, with two fields of scalar values in the group, each
+    written point NaN before the fill: bitwise its plain version on every
+    with-halo point, one launch a group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for topology in (("bounded",) * 3, ("periodic", "bounded", "bounded")):
+        g = T.RectilinearGrid(size=(9, 7, 5), x=(0, 1), y=(0, 2), z=zfaces(5, 1.0, 1.5),
+                              topology=topology, dtype=dtype, device="cuda")
+        specs = [(loc, regularize_bcs(g, loc, T.FieldBCs(**BCS[kind])), axes)
+                 for loc in (CENTER, U_LOC, V_LOC, W_LOC, (T.F, T.F, T.F))
+                 for axes, _shape in FILLS(g, kind)]
+        # fields of scalar values in the same launch read no side table
+        specs[1:1] = [(loc, regularize_bcs(g, loc, T.FieldBCs(**BCS["value"])), (0, 1, 2))
+                      for loc in (CENTER, W_LOC)]
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        base = []
+        for loc, b, axes in specs:
+            ints, _ = tff.fill_plan(g, loc, b, axes, g.total_shape)
+            a = torch.full(g.total_shape, float("nan"), dtype=dtype, device="cuda")
+            keep = tuple(slice(lo, hi) for _S, _N, _H, lo, hi, *_r in ints)
+            a[keep] = torch.randn(a[keep].shape, generator=gen, dtype=dtype, device="cuda")
+            base.append(a)
+        got, ref = [a.clone() for a in base], [a.clone() for a in base]
+        n0 = tff.fused_fill_halos.launches
+        tff.fused_fill_halos(g, [(a, loc, b, axes, 0.5) for a, (loc, b, axes) in zip(got, specs)])
+        assert tff.fused_fill_halos.launches == n0 + 1
+        tff.fused_fill_halos_reference(g, [(a, loc, b, axes, 0.5)
+                                           for a, (loc, b, axes) in zip(ref, specs)])
         for a, r in zip(got, ref):
             assert torch.equal(a, r)

@@ -192,15 +192,79 @@ def test_unsupported_configurations_raise():
                dict(closure=(T.ScalarDiffusivity(nu=1e-3),)),
                dict(closure=T.ScalarDiffusivity(nu=lambda x, y, z: x)),
                dict(timestepper="SplitRungeKutta3"), dict(coriolis=object()),
-               dict(closure=object()), dict(forcing={"u": object()})):
+               dict(closure=object()), dict(immersed_boundary=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.NonhydrostaticModel(grid, advection=T.WENO5(), **kw)
+    stretched = T.RectilinearGrid(size=(8, 8, 8), x=(0, 1), y=(0, 1),
+                                  z=-(1.0 - np.arange(9) / 8) ** 1.5,
+                                  dtype=torch.float64, device=DEVICE)
+    with pytest.raises(NotImplementedError, match="stretched.*ROADMAP"):
+        T.NonhydrostaticModel(stretched, advection=T.WENO5())
     bounded_x = T.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1),
                                   topology=(T.BOUNDED, T.PERIODIC, T.BOUNDED),
                                   dtype=torch.float64, device=DEVICE)
     with pytest.raises(NotImplementedError):
         T.NonhydrostaticModel(bounded_x, advection=T.WENO5())
     assert tfs.fused_step_ok(torch_model((8, 8, 8)))
+
+
+#: the terms K1 lacks, each a function of the package (J or T) giving the
+#: model keywords that add it
+GENERAL_TERMS = {
+    "forcing": lambda P: dict(forcing={"u": P.Forcing(
+        lambda x, y, z, t, u: -0.5 * u, field_dependencies="u")}),
+    "relaxation": lambda P: dict(forcing={"b": P.Relaxation(rate=2.0, target=1e-4)}),
+    "stokes drift": lambda P: dict(stokes_drift=P.UniformStokesDrift(
+        dz_us=lambda z, t: 0.1 + 0.2 * z)),
+    "background": lambda P: dict(background_fields={
+        "u": lambda x, y, z, t: 1e-2 * z + 0 * x * y}),
+    "tilted gravity": lambda P: dict(buoyancy=P.BuoyancyTracer(
+        gravity_unit_vector=(0.1, 0.0, -(1 - 0.01) ** 0.5))),
+    "flux value": lambda P: dict(boundary_conditions={
+        "b": P.FieldBCs(top=P.FluxBC(1e-5))}),
+}
+
+
+@pytest.mark.parametrize("term", GENERAL_TERMS)
+def test_terms_k1_lacks_take_the_general_branch_as_the_jax_gate_says(term):
+    """Each term outside K1 (forcing, Stokes drift, background fields,
+    tilted gravity, a flux value) makes ``fused_step_ok`` false in both
+    packages, the port's AB2 step takes the general branch, and two steps
+    agree with the JAX plain path to 1e-9 of max|field| (its FFT and
+    cumulative sums)."""
+    import jax.numpy as jnp
+    import clima_oceananigans_jl_tpu as J
+    from clima_oceananigans_jl_tpu.buoyancy.buoyancy import BuoyancyTracer
+    from clima_oceananigans_jl_tpu.forcings import forcing as jf
+    from clima_oceananigans_jl_tpu.models.nonhydrostatic import NonhydrostaticModel
+    from clima_oceananigans_jl_tpu.ops.fused_step import fused_step_ok as j_gate
+    from clima_oceananigans_jl_tpu.stokes_drift import UniformStokesDrift
+    size = (12, 10, 8)
+    JP = types.SimpleNamespace(Forcing=jf.Forcing, Relaxation=jf.Relaxation,
+                               UniformStokesDrift=UniformStokesDrift,
+                               BuoyancyTracer=BuoyancyTracer, FieldBCs=J.FieldBCs,
+                               FluxBC=J.FluxBC)
+    kw = dict(dict(buoyancy=BuoyancyTracer()), **GENERAL_TERMS[term](JP))
+    jgrid = J.RectilinearGrid(size=size, extent=(1.0, 1.0, 1.0),
+                              topology=("periodic", "periodic", "bounded"),
+                              dtype=jnp.float64)
+    assert j_gate(NonhydrostaticModel(jgrid, advection=J.WENO5(),
+                                      fused_advection=True, **kw)) is False
+    tgrid = T.RectilinearGrid(size=size, extent=(1.0, 1.0, 1.0),
+                              topology=(T.PERIODIC, T.PERIODIC, T.BOUNDED),
+                              dtype=torch.float64, device=DEVICE)
+    tm = T.NonhydrostaticModel(tgrid, advection=T.WENO5(),
+                               **dict(dict(buoyancy=T.BuoyancyTracer()),
+                                      **GENERAL_TERMS[term](T)))
+    assert not tfs.fused_step_ok(tm) and not tm.fused_step and not tm.g_interior
+    jm = NonhydrostaticModel(jgrid, advection=J.WENO5(), fused_advection=False, **kw)
+    vals = initial_values(size, seed=5)
+    js, ts = jm.initial_state(**vals), tm.initial_state(**vals)
+    for _ in range(2):
+        js, ts = jm.step(js, DT), tm.step(ts, DT)
+    for n in ("u", "v", "w", "b"):
+        close(jm.grid.interior(js["solution"][n]), tm.grid.interior(ts["solution"][n]),
+              1e-9, n)
 
 
 def card_state(tm, tracers, kind):

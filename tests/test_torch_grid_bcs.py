@@ -141,9 +141,14 @@ def test_fill_halos_axes_subset_and_flux_value_refused():
     G = torch.zeros(tg.total_shape, dtype=torch.float64)
     assert tbcs.apply_flux_bcs(G, tg, J.CENTER,
                                tbcs.regularize_bcs(tg, J.CENTER)) is G
-    with pytest.raises(NotImplementedError):
-        tbcs.apply_flux_bcs(G, tg, J.CENTER, tbcs.regularize_bcs(
-            tg, J.CENTER, tbcs.FieldBCs(top=tbcs.FluxBC(1e-3))))
+    # a flux value, refused before flux values were ported, now adds what
+    # the JAX package adds (tests/test_torch_flux_bcs.py holds every form)
+    got = tbcs.apply_flux_bcs(G, tg, J.CENTER, tbcs.regularize_bcs(
+        tg, J.CENTER, tbcs.FieldBCs(top=tbcs.FluxBC(1e-3))))
+    ref = jbcs.apply_flux_bcs(jnp.zeros(tg.total_shape), jg, J.CENTER,
+                              jbcs.regularize_bcs(jg, J.CENTER, jbcs.FieldBCs(
+                                  top=jbcs.FluxBC(1e-3))))
+    assert same(ref, got) and got.abs().max() > 0 and not G.any()
 
 
 @pytest.mark.parametrize("value", ["scalar", "interior", "with_halo", "callable"])

@@ -228,12 +228,12 @@ def test_what_waits_is_refused_naming_its_roadmap_item():
                 g, free_surface=T.ImplicitFreeSurface(solver_method=method))
     split = T.SplitExplicitFreeSurface(substeps=4)
     for kw, item in ((dict(closure=T.ScalarDiffusivity(nu=1e-3)), "item 7"),
-                     (dict(forcing={"u": lambda *a: 0.0}), "item 4"),
+                     (dict(buoyancy=T.SeawaterBuoyancy()), "SeawaterBuoyancy.*item 7"),
+                     (dict(buoyancy=T.BuoyancyTracer(gravity_unit_vector=(0.6, 0.0, -0.8))),
+                      "tilted gravity.*item 7"),
                      (dict(particles=object()), "item 7"),
                      (dict(immersed_boundary=object()), "item 7"),
-                     (dict(tracer_advection=T.VectorInvariant()), "item 2"),
-                     (dict(boundary_conditions={"T": T.FieldBCs(top=T.FluxBC(1e-4))},
-                           tracers=("T",)), "item 1")):
+                     (dict(tracer_advection=T.VectorInvariant()), "item 2")):
         with pytest.raises(NotImplementedError, match=item):
             T.HydrostaticFreeSurfaceModel(g, free_surface=split, **kw)
     flat = T.RectilinearGrid(size=(8, 8, 1), extent=(1, 1),

@@ -1,15 +1,15 @@
 """Port parity: the nonhydrostatic model's halo fills through K6.
 
 The model's ``update_state`` and general projection fill halos through
-``kernels["fill"]``: ``fused_fill_halos`` (K6) where the constructor finds
-that K6's gate takes every field and the pressure fields (``fill_route``
-"K6"), and K6's plain version, ``fill_halos`` field by field, otherwise
-(``fill_route`` "fill_halos": a gradient BC, a callable BC value, or
-``fused_advection=False``). Here, in f64 on the CPU (where K6's wrapper
-runs its plain version):
+``kernels["fill"]``: ``fused_fill_halos`` (K6) whatever the BCs' values
+(scalars, planes, callables, gradients), and K6's plain version,
+``fill_halos`` field by field, only under ``fused_advection=False``
+(``PLAIN``). Here, in f64 on the CPU (where K6's wrapper runs its plain
+version):
 
-- the ``fill`` entries of ``KERNELS`` and ``PLAIN``, and the route each
-  configuration takes;
+- the ``fill`` entries of ``KERNELS`` and ``PLAIN``, and that the
+  constructor puts K6 in ``kernels["fill"]`` for every configuration,
+  gradient BCs and plane and callable values included;
 - two calls of ``kernels["fill"]`` in ``update_state`` (u, v, w and the
   tracers, then pHY′) and two in the general projection (the copies of
   u, v, w, then pNHS), so 2 a step on AB2, 6 on RK3 and 12 on RK3 with
@@ -18,7 +18,8 @@ runs its plain version):
   (its plain path, ``fused_advection=False``): the filled fields bitwise,
   pHY′ to 1e-13 of max|ref| and the projection to 1e-12 (the cumulative
   sums and the FFTs round differently);
-- the refusal of flux BCs with values names ROADMAP Queue 1 item 1.
+- flux BCs with values: accepted, filled by K6 and stepped as the JAX
+  package steps them.
 
 The ``cuda`` case runs the same steps on the card through K6 and through
 its plain version and holds them bitwise
@@ -63,7 +64,7 @@ CONFIGS = {
 }
 #: each configuration's fill route and fill calls a step
 ROUTES = {"ab2": ("K6", 2), "rk3": ("K6", 6), "flux walls": ("K6", 12),
-          "gradient": ("fill_halos", 12)}
+          "gradient": ("K6", 12)}
 
 
 def boundary_conditions(mod, walls, b_top):
@@ -74,6 +75,11 @@ def boundary_conditions(mod, walls, b_top):
         out["b"] = mod.FieldBCs(top=mod.GradientBC(1e-3))
     elif b_top == "callable":
         out["b"] = mod.FieldBCs(top=mod.ValueBC(lambda x, y, t: 1e-4 + 0 * x))
+    elif b_top == "plane":
+        out["b"] = mod.FieldBCs(top=mod.ValueBC(1e-4 * np.ones(SIZE[:2])))
+    elif b_top == "flux":
+        out["b"] = mod.FieldBCs(top=mod.FluxBC(1e-5))
+        out["u"] = mod.FieldBCs(top=mod.FluxBC(lambda x, y, t: -1e-4 + 0 * x * y))
     return out
 
 
@@ -133,40 +139,35 @@ def test_fill_entries_are_k6_and_its_plain_version():
 
 @pytest.mark.parametrize("config", list(CONFIGS))
 def test_the_constructor_fixes_the_fill_route(config):
+    """Every configuration fills through K6 (``KERNELS``), a gradient wall
+    included."""
     model = torch_model(config)
-    route, _ = ROUTES[config]
-    assert model.fill_route == route
-    if route == "K6":
-        assert model.kernels is tnm.KERNELS
-        assert model._fill_unsupported_reason() is None
-    else:
-        assert "gradient" in model._fill_unsupported_reason()
-        assert model.kernels == dict(tnm.KERNELS, fill=tff.fused_fill_halos_reference)
+    assert ROUTES[config][0] == "K6"
+    assert model.kernels is tnm.KERNELS
+    assert model.kernels["fill"] is tff.fused_fill_halos
+    assert model._fill_unsupported_reason() is None
+    assert not hasattr(model, "fill_route")
 
 
-@pytest.mark.parametrize("kw,reason", [
-    (dict(fused_advection=False), None), (dict(b_top="callable"), "scalar")],
-    ids=["fused_advection=False", "callable value"])
-def test_other_configurations_keep_fill_halos(kw, reason):
-    """fused_advection=False runs every plain version; a callable BC value
-    is outside K6's gate. Neither is refused."""
+@pytest.mark.parametrize("kw", [dict(fused_advection=False)],
+                         ids=["fused_advection=False"])
+def test_other_configurations_keep_fill_halos(kw):
+    """fused_advection=False runs every plain version, the fills too."""
     model = torch_model("rk3", **kw)
-    assert model.fill_route == "fill_halos"
+    assert model.kernels is tnm.PLAIN
     assert model.kernels["fill"] is tff.fused_fill_halos_reference
-    if reason is not None:
-        assert reason in model._fill_unsupported_reason()
-    else:
-        assert model.kernels is tnm.PLAIN
     model.step(model.initial_state(b=1e-4), DT)
 
 
-def test_fill_route_is_read_from_the_fill_entry():
-    """``fill_route`` is the model's ``kernels["fill"]`` by name, never a
-    second record of it."""
-    model = torch_model("rk3")
-    assert model.fill_route == "K6"
-    model.kernels = dict(model.kernels, fill=tff.fused_fill_halos_reference)
-    assert model.fill_route == "fill_halos"
+@pytest.mark.parametrize("b_top", ["gradient", "callable", "plane"])
+def test_k6_takes_gradients_and_plane_and_callable_values(b_top):
+    """A gradient, a callable value and a plane value on b's top wall: the
+    model fills through K6 (its gate takes them), and a step runs."""
+    model = torch_model("rk3", b_top=b_top)
+    assert model._fill_unsupported_reason() is None
+    assert model.kernels["fill"] is tff.fused_fill_halos
+    state = model.step(model.initial_state(b=1e-4), DT)
+    assert all(torch.isfinite(a).all() for a in state["solution"].values())
 
 
 @pytest.mark.parametrize("config", list(CONFIGS))
@@ -223,14 +224,35 @@ def test_general_projection_through_the_fill_entry_matches_jax(config):
     close(jout["pNHS"], tout["pNHS"].numpy(), 1e-12, "pNHS with halos")
 
 
-def test_flux_bcs_with_values_are_refused_naming_roadmap_item_1():
-    grid = T.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1),
-                             topology=(T.PERIODIC, T.PERIODIC, T.BOUNDED),
-                             dtype=torch.float64, device=DEVICE)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        T.NonhydrostaticModel(grid, advection=T.WENO5(), buoyancy=T.BuoyancyTracer(),
-                              boundary_conditions={"b": T.FieldBCs(top=T.FluxBC(1e-5))},
-                              timestepper="RungeKutta3")
+@pytest.mark.parametrize("timestepper", ["RungeKutta3", "QuasiAdamsBashforth2"])
+def test_flux_bcs_with_values_fill_through_k6_and_match_jax(timestepper):
+    """A scalar flux on b's top wall and a callable wind stress on u's
+    (written with torch and with jnp): accepted, filled through K6, off
+    the fused AB2 advance (the JAX gate), and three steps agree with the
+    JAX package's to 1e-9 of max|field| (the cumulative sums and FFTs)."""
+    tgrid = T.RectilinearGrid(size=SIZE, extent=(1.0, 1.0, 1.0),
+                              topology=(T.PERIODIC, T.PERIODIC, T.BOUNDED),
+                              dtype=torch.float64, device=DEVICE)
+    tm = T.NonhydrostaticModel(tgrid, advection=T.WENO5(), buoyancy=T.BuoyancyTracer(),
+                               boundary_conditions=boundary_conditions(tbcs, None, "flux"),
+                               timestepper=timestepper)
+    jgrid = J.RectilinearGrid(size=SIZE, extent=(1.0, 1.0, 1.0),
+                              topology=("periodic", "periodic", "bounded"),
+                              dtype=jnp.float64)
+    jb = {"b": jbcs.FieldBCs(top=jbcs.FluxBC(1e-5)),
+          "u": jbcs.FieldBCs(top=jbcs.FluxBC(lambda x, y, t: -1e-4 + 0 * x * y))}
+    jm = NonhydrostaticModel(jgrid, advection=J.WENO5(), buoyancy=BuoyancyTracer(),
+                             boundary_conditions=jb, timestepper=timestepper,
+                             fused_advection=False)
+    assert tm.kernels["fill"] is tff.fused_fill_halos and not tm.fused_step
+    sol = random_solution(tm.grid.total_shape, seed=14)
+    vals = {n: a[3:-3, 3:-3, 3:-3] for n, a in sol.items()}
+    ts, js = tm.initial_state(**vals), jm.initial_state(**vals)
+    for _ in range(3):
+        ts, js = tm.step(ts, DT), jm.step(js, DT)
+    for n in ("u", "v", "w", "b"):
+        close(jm.grid.interior(js["solution"][n]),
+              tm.grid.interior(ts["solution"][n]).numpy(), 1e-9, n)
 
 
 def test_k6_counts_no_launch_on_cpu():
