@@ -4,7 +4,8 @@
                               [langmuir] [wind-mixing] [hydrostatic-wind]
                               [shallow-water] [k6-k3c] [division]
                               [k3a-division] [k4b-phases] [k5-barriers]
-                              [--steps N]
+                              [langmuir-amd] [wind-mixing-stretched]
+                              [ab2-implicit] [t1] [--steps N]
 
 With no part named, runs them all. Prints the card's name and power
 limit first. Needs a card; without one it exits with an error.
@@ -46,6 +47,18 @@ limit first. Needs a card; without one it exits with an error.
   drift's six terms (langmuir), the other eager terms (``tendencies``
   less those), ``rk3_substep``, ``project_velocities``, ``update_state``
   less its K6 fills, and those fills.
+- ``langmuir-amd``, ``wind-mixing-stretched``, ``ab2-implicit``: the
+  256³ uncut LES paths of ``chip_smoke.py`` (``LES``), likewise, around
+  K2 (K1 on ``ab2-implicit``), the eager terms, ``rk3_substep``, the
+  implicit step (its T1 solves apart from forming its bands), the
+  projection (its K6 fills, and the pressure solve with T1 apart from its
+  FFTs and gauge), ``update_state`` (its K6 fills and the AMD
+  diffusivities apart).
+- ``t1``: ptxas's registers, stack and spills for T1
+  (``csrc/batched_tridiagonal.cu``), then T1 alone (torch.profiler device
+  time, two rounds, held bit for bit): the Fourier mode on the 256³
+  wind-mixing spectrum in fp32 and fp64 beside a copy of it, and the
+  implicit step's 1D and 3D bands on a 262×262×256 fp32 right-hand side.
 - ``hydrostatic-wind``: the ¼° flagship under the near-global wind stress
   (``chip_smoke.py``'s ``hydrostatic wind`` path: the two-stage route),
   like ``hydrostatic``, around K4b's tendency form, the flux BC, the
@@ -159,8 +172,10 @@ def breakdown(label, step, state, events, patches, steps, inner=None):
              for name, pairs in events.items()}
     calls = {name: len(pairs) // steps for name, pairs in events.items()}
     for outer, (within, name) in (inner or {}).items():
+        if outer not in parts:  # a part this step does not call
+            continue
         less = name or f"{outer} less {' and '.join(within)}"
-        parts[less] = parts.pop(outer) - sum(parts[p] for p in within)
+        parts[less] = parts.pop(outer) - sum(parts.get(p, 0.0) for p in within)
         calls[less] = calls.pop(outer)
     parts["the rest"] = step_ms - sum(parts.values())
     print(f"{label}, {steps} steps, CUDA events: {step_ms:.4f} ms/step")
@@ -377,6 +392,114 @@ def surface(path, steps):
     step = lambda s, timed_parts: model.step(s, dt, kernels if timed_parts else None)
     breakdown(f"{path} {chip_smoke.N}^3 fp32 step", step, state, events, patches,
               steps, inner)
+
+
+def les(path, steps):
+    """The 256³ uncut LES paths of chip_smoke.py (``LES``), broken down
+    like ``rk3``: K2 (or K1 on the AB2 path), the eager terms
+    (``tendencies`` less K2), ``rk3_substep``, the implicit step (its T1
+    solves apart from its bands), the projection (its K6 fills and its
+    pressure solve apart, and in the Fourier-tridiagonal solve T1 apart
+    from the FFTs and the gauge), ``update_state`` (its K6 fills and the AMD
+    diffusivities apart)."""
+    from clima_oceananigans_jl_torch.closures.eddy_viscosity import (
+        AnisotropicMinimumDissipation)
+    model = chip_smoke.les_model(path)
+    state = (chip_smoke.bench_state(model) if path == "AB2 stretched implicit"
+             else chip_smoke.surface_state(path, model))
+    dt, warmup, _ = chip_smoke.LES[path]
+    for _ in range(warmup):
+        state = model.step(state, dt)
+    torch.cuda.synchronize()
+    events = collections.defaultdict(list)
+    fill = nm.KERNELS["fill"]
+    update_state = model.update_state
+    model.update_state = lambda s, kernels=None: update_state(
+        s, dict(kernels or {}, fill=timed(events, "update_state's K6 fills", fill)))
+    adv, key = (("K1", "advance") if path == "AB2 stretched implicit"
+                else ("K2", "advect"))
+    kernels = {key: timed(events, adv, nm.KERNELS[key]),
+               "fill": timed(events, "the projection's K6 fills", fill),
+               "tridiagonal": timed(events, "T1 (implicit step)",
+                                    nm.KERNELS["tridiagonal"]),
+               "fourier": timed(events, "T1 (pressure solve)", nm.KERNELS["fourier"])}
+    patches = [(model, "tendencies", "tendencies"),
+               (nm, "rk3_substep", "rk3_substep"),
+               (model, "project_velocities", "project_velocities"),
+               (model.pressure_solver, "solve", "pressure solve"),
+               (AnisotropicMinimumDissipation, "compute_diffusivities",
+                "AMD diffusivities"),
+               (model, "update_state", "update_state")]
+    inner = {"tendencies": (("K2",), "the eager terms (tendencies less K2)"),
+             "implicit step": (("T1 (implicit step)",),
+                               "the implicit step's bands (less T1)"),
+             "project_velocities": (("the projection's K6 fills", "pressure solve"),
+                                    "the projection's divergence, gradient and "
+                                    "correction (project_velocities less its "
+                                    "fills and solve)"),
+             "pressure solve": (("T1 (pressure solve)",),
+                                "the pressure solve's FFTs and gauge (less T1)"),
+             "update_state": (("update_state's K6 fills", "AMD diffusivities"),
+                              None)}
+    if model.closure.vertically_implicit:
+        patches.append((nm, "implicit_step_fields", "implicit step"))
+    step = lambda s, timed_parts: model.step(s, dt, kernels if timed_parts else None)
+    try:
+        breakdown(f"{path} {chip_smoke.N}^3 fp32 step", step, state, events,
+                  patches, steps, {k: v for k, v in inner.items()
+                                   if k in {name for _, _, name in patches}})
+    finally:
+        model.update_state = update_state
+
+
+def t1(steps):
+    """T1 as built: ptxas's registers, stack and spills, then its device
+    time alone (torch.profiler, two rounds), held bit for bit against its
+    plain version: the Fourier mode on the 256³ wind-mixing spectrum
+    (129×256×256 complex) in fp32 and fp64, and the implicit step's 1D
+    and 3D bands on a 262×262×256 real right-hand side in fp32; beside
+    them a copy of the right-hand side (one read, one write)."""
+    from clima_oceananigans_jl_torch.solvers import tridiagonal as tt
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+               f"{tmp}/lib.so", str(_build.CSRC / "batched_tridiagonal.cu")]
+        log = subprocess.run(cmd, capture_output=True, text=True, check=True).stderr
+        for line in log.splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print(f"ptxas batched_tridiagonal: {line.strip()}")
+    reps = max(steps, 20)
+    n = chip_smoke.N
+    for dtype in (torch.float32, torch.float64):
+        grid = chip_smoke.surface_grid(n, dtype, stretched=True)
+        args = chip_smoke.fourier_args(grid, 31)
+        got, ref = tt.fourier_tridiagonal(*args), tt.fourier_tridiagonal_reference(*args)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"T1 Fourier {str(dtype)[6:]}: not bitwise")
+        ms = [chip_smoke.device_ms(lambda: tt.fourier_tridiagonal(*args), reps,
+                                   "tridiagonal") for _ in range(2)]
+        b = args[6]
+        copy_ms = chip_smoke.device_ms(lambda: torch.empty_like(b).copy_(b), reps, "")
+        print(f"T1 Fourier {'x'.join(map(str, b.shape))} {b.dtype}: kernel ms "
+              f"(torch.profiler), two rounds: {ms}; the spectrum copied {copy_ms} ms")
+        del got, ref, args, b
+        torch.cuda.empty_cache()
+    g = chip_smoke.surface_grid(n, torch.float32, stretched=True)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    shape = (g.total_shape[0], g.total_shape[1], n)
+    d = torch.randn(shape, generator=gen, device="cuda")
+    a1 = -torch.rand(n, generator=gen, device="cuda")
+    c1 = -torch.rand(n, generator=gen, device="cuda")
+    b1 = 1.0 - a1 - c1
+    bands = {"1D": (a1, b1, c1),
+             "3D": tuple(x.expand(shape).contiguous() for x in (a1, b1, c1))}
+    for kind, (a, b, c) in bands.items():
+        if not torch.equal(tt.solve_batched_tridiagonal(a, b, c, d),
+                           tt.solve_batched_tridiagonal_reference(a, b, c, d)):
+            raise AssertionError(f"T1 {kind} bands: not bitwise")
+        ms = [chip_smoke.device_ms(lambda: tt.solve_batched_tridiagonal(a, b, c, d),
+                                   reps, "tridiagonal") for _ in range(2)]
+        print(f"T1 implicit step {'x'.join(map(str, shape))} fp32, {kind} bands: "
+              f"kernel ms (torch.profiler), two rounds: {ms}")
 
 
 def hydrostatic_wind(steps):
@@ -724,7 +847,11 @@ PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps),
          "hydrostatic": hydrostatic, "hydrostatic-wind": hydrostatic_wind,
          "shallow-water": shallow_water,
          "division": division, "k3a-division": k3a_division,
-         "k4b-phases": k4b_phases, "k5-barriers": k5_barriers}
+         "k4b-phases": k4b_phases, "k5-barriers": k5_barriers,
+         "langmuir-amd": lambda steps: les("langmuir AMD", steps),
+         "wind-mixing-stretched": lambda steps: les("wind mixing stretched", steps),
+         "ab2-implicit": lambda steps: les("AB2 stretched implicit", steps),
+         "t1": t1}
 
 
 def main(argv):

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's eight paths through ``clima_oceananigans_jl_torch`` on
+Drives the port's eleven paths through ``clima_oceananigans_jl_torch`` on
 the card, in phases; each prints one line or a few:
 
 1. device: the card's name and power limit as nvidia-smi gives them, on a
@@ -13,8 +13,9 @@ the card, in phases; each prints one line or a few:
    ``csrc/fused_projection.cu`` (K3b, K3c),
    ``csrc/hydrostatic_columns.cu`` (K4a),
    ``csrc/fused_hydrostatic_tendencies.cu`` (K4b),
-   ``csrc/fused_substep_eta.cu`` (K5) and ``csrc/fill_halos.cu`` (K6) with
-   nvcc (sm_90a), one process each, all at once;
+   ``csrc/fused_substep_eta.cu`` (K5), ``csrc/fill_halos.cu`` (K6) and
+   ``csrc/batched_tridiagonal.cu`` (T1) with nvcc (sm_90a), one process
+   each, all at once;
 3. K1 against its plain PyTorch version on the same inputs, bit for bit
    (max|Δ| = 0, or the phase raises), Euler and AB2 form, on every point of
    ψ′ and G: the ``bench.py`` configuration at 256³ fp32 and 64³ fp64;
@@ -124,7 +125,28 @@ the card, in phases; each prints one line or a few:
    AB2 substep), 2 warm-up and 5 timed steps, exactly 1 K4a, 1 K4b, 1 K5
    and 2 K6 launches per step, the checks of the hydrostatic path, K4b's
    tendency form held bit for bit on the path's fields, the runs agree
-   exactly.
+   exactly;
+18. K1 and K2 on the wind-mixing example's stretched z (``STRETCHED_CASES``:
+   256³ fp32 with a vertically implicit closure, so K1's horizontal-only
+   diffusion; 64³ fp64 with centred tracers; 100×77×45 fp32 with FluxBC w
+   walls, so w's top wall face; 72×40×36 fp64 centred momentum; K1's
+   general instantiation on a regular 64³ z), bit for bit over NaN-filled
+   outputs against their plain versions, and their times at 256³;
+19. T1 against its plain version bit for bit over NaN-filled outputs: the
+   Fourier-tridiagonal system of the 256³ wind-mixing grid (129×256×256
+   complex64, the (0, 0) pin) and 67×45×29 fp64 (with and without the
+   pin), and the implicit step at 256³ fp32 with a scalar κ (1D bands)
+   and AMD's κ (3D bands) with Value and Gradient walls and on w; its
+   time on the 256³ Fourier solve against its bound;
+20. the uncut upper-ocean LES paths (``LES``) at 256³ fp32, 2 warm-up and
+   5 timed steps each with the kernels and with their plain versions:
+   ``langmuir AMD`` (the langmuir path with its own AMD; 3 K2 and 6 K6 a
+   step), ``wind mixing stretched`` (the wind-mixing example on its own
+   stretched z with its AMD, WENO5 its one cut; 3 K2, 3 T1 and 12 K6) and
+   ``AB2 stretched implicit`` (the bench configuration on that z with a
+   vertically implicit ScalarDiffusivity; 1 K1, 5 T1 and 4 K6); fields
+   finite, max|∇·u|·Δx_min/max|u| ≤ 1e-5 (Δz per level), the wind drives
+   the top layer (and cools it on wind mixing), the runs agree exactly.
 
 Each kernel's record carries its bound: the larger of its compulsory
 bytes (each input read once, each output written once, from this run's
@@ -150,7 +172,9 @@ import time
 import numpy as np
 import torch
 
-from clima_oceananigans_jl_torch import (BOUNDED, FLAT, PERIODIC, BetaPlane,
+from clima_oceananigans_jl_torch import (BOUNDED, FLAT, PERIODIC,
+                                         AnisotropicMinimumDissipation,
+                                         BetaPlane,
                                          BackgroundField, BuoyancyTracer,
                                          CenteredSecondOrder, FieldBCs, FluxBC,
                                          Forcing, FPlane, GaussianMask,
@@ -182,13 +206,20 @@ from clima_oceananigans_jl_torch.ops.fused_hydrostatic import (
     columns_config, fused_hydrostatic_tendencies,
     fused_hydrostatic_tendencies_reference, hydrostatic_columns,
     hydrostatic_columns_reference)
+from clima_oceananigans_jl_torch.closures.implicit_vertical_diffusion import (
+    implicit_vertical_diffusion_step)
 from clima_oceananigans_jl_torch.ops.fused_step import (
-    fused_ab2_advance, fused_ab2_advance_reference)
+    fused_ab2_advance, fused_ab2_advance_reference, general_route, w_top)
 from clima_oceananigans_jl_torch.ops.fused_tendencies import (
     fused_advective_tendencies, fused_advective_tendencies_reference,
     fused_divergence, fused_divergence_reference, fused_pressure_gradient,
     fused_pressure_gradient_reference, fused_shallow_water_tendencies,
     fused_shallow_water_tendencies_reference)
+from clima_oceananigans_jl_torch.solvers.fourier_tridiagonal import (
+    FourierTridiagonalSolver)
+from clima_oceananigans_jl_torch.solvers.tridiagonal import (
+    fourier_tridiagonal, fourier_tridiagonal_reference,
+    solve_batched_tridiagonal, solve_batched_tridiagonal_reference)
 from clima_oceananigans_jl_torch.utils.location import (CENTER, U_LOC, V_LOC,
                                                         W_LOC)
 
@@ -200,16 +231,17 @@ K3A, K3B, K3C = ("fused_shallow_water_tendencies", "fused_divergence",
                  "fused_pressure_gradient")
 K4A, K4B, K5, K6 = ("hydrostatic_columns", "fused_hydrostatic_tendencies",
                     "fused_substep_eta", "fused_fill_halos")
+T1 = "batched_tridiagonal"
 WRAPPERS = {K1: fused_ab2_advance, K2: fused_advective_tendencies,
             K3A: fused_shallow_water_tendencies, K3B: fused_divergence,
             K3C: fused_pressure_gradient, K4A: hydrostatic_columns,
             K4B: fused_hydrostatic_tendencies, K5: fused_substep_eta,
-            K6: fused_fill_halos}
+            K6: fused_fill_halos, T1: solve_batched_tridiagonal}
 SOURCES = {K1: "fused_ab2_advance", K2: "fused_advective_tendencies",
            K3A: "fused_shallow_water_tendencies", K3B: "fused_projection",
            K3C: "fused_projection", K4A: "hydrostatic_columns",
            K4B: "fused_hydrostatic_tendencies", K5: "fused_substep_eta",
-           K6: "fill_halos"}
+           K6: "fill_halos", T1: "batched_tridiagonal"}
 REPLACES = {K1: "clima_oceananigans_jl_tpu/ops/fused_step.py:129",
             K2: "clima_oceananigans_jl_tpu/ops/fused_tendencies.py:397",
             K3A: "clima_oceananigans_jl_tpu/ops/fused_tendencies.py:238",
@@ -218,7 +250,8 @@ REPLACES = {K1: "clima_oceananigans_jl_tpu/ops/fused_step.py:129",
             K4A: "clima_oceananigans_jl_tpu/ops/fused_hydrostatic.py:550",
             K4B: "clima_oceananigans_jl_tpu/ops/fused_hydrostatic.py:550",
             K5: "clima_oceananigans_jl_tpu/ops/fused_barotropic.py:102",
-            K6: "clima_oceananigans_jl_tpu/ops/fused_fill.py:139"}
+            K6: "clima_oceananigans_jl_tpu/ops/fused_fill.py:139",
+            T1: "clima_oceananigans_jl_tpu/solvers/tridiagonal.py:25"}
 #: operations per point that each kernel's function needs, each face flux
 #: counted once, as the kernels compute it (a WENO5 reconstruction ~60
 #: with its divisions, a transport ~64 with the velocity and metric
@@ -229,9 +262,11 @@ REPLACES = {K1: "clima_oceananigans_jl_tpu/ops/fused_step.py:129",
 #: (~400), three tracers × three fluxes, the z one two-sided with the
 #: tables (~850), and the divergences and AB2 epilogue (~50); K5 ~32 per
 #: with-halo point per substep; K6 at most 2 (2b − x) per written halo
-#: point
+#: point; T1 ~8 per point and part (a multiply, a subtraction and a
+#: division for the denominator and each of cp and dp, then the back
+#: sweep's multiply and subtraction)
 FLOPS = {K1: 820, K2: 800, K3A: 300, K3B: 12, K3C: 9, K4A: 25, K4B: 1300,
-         K5: 32, K6: 2}
+         K5: 32, K6: 2, T1: 8}
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 TOL = {torch.float32: 1e-6, torch.float64: 1e-13}
@@ -265,6 +300,24 @@ SW_PATH = (1e-4, 2, 10)  # shallow water: Δt, warm-up steps, timed steps
 #:   UpwindBiasedFifthOrder (item 2), AMD → the same ScalarDiffusivity
 #:   (item 4); Δt = 0.5 s.
 SURFACE = {"langmuir": (1.0, 2, 5), "wind mixing": (0.5, 2, 5)}
+#: the uncut upper-ocean LES paths at 256³ fp32: (Δt, warm-up steps, timed
+#: steps).
+#: - "langmuir AMD": the "langmuir" path with its own
+#:   AnisotropicMinimumDissipation() in place of the ScalarDiffusivity cut
+#:   (no cut left);
+#: - "wind mixing stretched": examples/ocean_wind_mixing_and_convection.py
+#:   on its own stretched z faces (refinement 1.2, stretching 12, Lz = 32 m,
+#:   l.31-38; Δz from 0.104 m at the top to 0.249 m at the bottom at
+#:   Nz = 256) with its AMD closure; the one cut left is WENO5 for
+#:   UpwindBiasedFifthOrder (ROADMAP Queue 1 item 2);
+#: - "AB2 stretched implicit": the bench.py configuration (WENO5,
+#:   BuoyancyTracer, quasi-AB2, random u, v, b) on the examples' 64 m box
+#:   with that stretched z and ScalarDiffusivity(nu=1e-5, kappa=1e-5,
+#:   time_discretization="vertically_implicit"): K1's general
+#:   instantiation, the implicit step and the general projection.
+LES = {"langmuir AMD": (1.0, 2, 5), "wind mixing stretched": (0.5, 2, 5),
+       "AB2 stretched implicit": (0.5, 2, 5)}
+IMPLICIT = dict(nu=1e-5, kappa=1e-5, time_discretization="vertically_implicit")
 #: kernel launches per step of each path
 PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
             "shallow water": {K3A: 3},
@@ -272,14 +325,18 @@ PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
             "hydrostatic": {K4A: 1, K4B: 1, K5: 1, K6: 2},
             "langmuir": {K2: 3, K6: 6}, "wind mixing": {K2: 3, K6: 6},
             "hydrostatic wind": {K4A: 1, K4B: 1, K5: 1, K6: 2},
-            "forced": {K2: 3, K6: 6}, "background": {}}
+            "forced": {K2: 3, K6: 6}, "background": {},
+            "langmuir AMD": {K2: 3, K6: 6},
+            "wind mixing stretched": {K2: 3, T1: 3, K6: 12},
+            "AB2 stretched implicit": {K1: 1, T1: 5, K6: 4}}
 #: how far the kernel and plain runs of a path may differ, of max|field|;
 #: every kernel is bitwise its plain version, so a gap (such as an
 #: unwritten wall face) is a fault, not rounding: the 256³ paths of K1 and
 #: K2 and the ¼° hydrostatic paths are held to exact agreement
 AGREE = {"AB2": 0.0, "RK3": 0.0, "shallow water": 1e-4,
          "general projection": 0.0, "hydrostatic": 0.0, "langmuir": 0.0,
-         "wind mixing": 0.0, "hydrostatic wind": 0.0}
+         "wind mixing": 0.0, "hydrostatic wind": 0.0, "langmuir AMD": 0.0,
+         "wind mixing stretched": 0.0, "AB2 stretched implicit": 0.0}
 #: the ¼° hydrostatic flagship (benchmark/bench_hydro_flagship.py:24-41);
 #: its "hydrostatic wind" path adds the near-global run's wind stress (u
 #: top FluxBC((λ, φ, t) ↦ −1e-4 cos(3πφ/180)),
@@ -738,17 +795,29 @@ WIND = dict(QT=200.0 / (1026.0 * 3991.0), dTdz=0.01,
             evaporation=1e-3 / 3600.0)
 
 
-def surface_grid(n=None, dtype=torch.float32):
+def surface_grid(n=None, dtype=torch.float32, stretched=False):
     """The examples' 64 m × 64 m × 32 m (Periodic, Periodic, Bounded) box
-    with n³ cells (``N`` by default) on the card."""
-    n = N if n is None else n
-    return RectilinearGrid(size=(n, n, n), x=(0, 64), y=(0, 64), z=(-32, 0),
+    with n³ cells (``N`` by default, or ``n`` = (nx, ny, nz)) on the card;
+    with ``stretched``, on the wind-mixing example's stretched z faces."""
+    size = (N,) * 3 if n is None else n if isinstance(n, tuple) else (n,) * 3
+    z = stretched_faces(size[2]) if stretched else (-32, 0)
+    return RectilinearGrid(size=size, x=(0, 64), y=(0, 64), z=z,
                            topology=(PERIODIC, PERIODIC, BOUNDED), dtype=dtype,
                            device=DEVICE)
 
 
-def langmuir_model(n=None):
-    """examples/langmuir_turbulence.py at n³ with the cuts of ``SURFACE``."""
+def stretched_faces(nz, Lz=32.0, refinement=1.2, stretching=12.0):
+    """examples/ocean_wind_mixing_and_convection.py:31-38: finer near the
+    surface."""
+    h = np.arange(nz + 1) / nz
+    zeta = 1 + (h - 1) / refinement
+    sigma = (1 - np.exp(-stretching * h)) / (1 - np.exp(-stretching))
+    return Lz * (zeta * sigma - 1)
+
+
+def langmuir_model(n=None, closure=None):
+    """examples/langmuir_turbulence.py at n³ with the cuts of ``SURFACE``
+    (``closure`` replaces the ScalarDiffusivity cut)."""
     c = LANGMUIR
     k = 2 * math.pi / c["wavelength"]
     scale = c["wavelength"] / (4 * math.pi)
@@ -757,25 +826,29 @@ def langmuir_model(n=None):
     return NonhydrostaticModel(
         surface_grid(n), advection=WENO5(), timestepper="RungeKutta3",
         tracers=("b",), buoyancy=BuoyancyTracer(), coriolis=FPlane(f=1e-4),
-        closure=ScalarDiffusivity(nu=1e-5, kappa=1e-5), stokes_drift=stokes,
+        closure=closure or ScalarDiffusivity(nu=1e-5, kappa=1e-5),
+        stokes_drift=stokes,
         boundary_conditions={"u": FieldBCs(top=FluxBC(c["Qu"])),
                              "b": FieldBCs(top=FluxBC(c["Qb"]),
                                            bottom=GradientBC(c["N2"]))})
 
 
-def wind_mixing_model(n=None):
+def wind_mixing_model(n=None, stretched=False, dtype=torch.float32):
     """examples/ocean_wind_mixing_and_convection.py at n³ with the cuts of
-    ``SURFACE``; S's top flux is the example's discrete-form QS."""
+    ``SURFACE``; S's top flux is the example's discrete-form QS. With
+    ``stretched``, uncut but for WENO5: its stretched z and AMD."""
     c = WIND
 
     def QS(grid, t, fields):
         return -c["evaporation"] * fields["S"]
     return NonhydrostaticModel(
-        surface_grid(n), advection=WENO5(), timestepper="RungeKutta3",
+        surface_grid(n, dtype, stretched), advection=WENO5(),
+        timestepper="RungeKutta3",
         tracers=("T", "S"), coriolis=FPlane(f=1e-4),
         buoyancy=SeawaterBuoyancy(equation_of_state=LinearEquationOfState(
             thermal_expansion=2e-4, haline_contraction=8e-4)),
-        closure=ScalarDiffusivity(nu=1e-5, kappa=1e-5),
+        closure=(AnisotropicMinimumDissipation() if stretched
+                 else ScalarDiffusivity(nu=1e-5, kappa=1e-5)),
         boundary_conditions={"u": FieldBCs(top=FluxBC(c["Qu"])),
                              "T": FieldBCs(top=FluxBC(c["QT"]),
                                            bottom=GradientBC(c["dTdz"])),
@@ -790,7 +863,7 @@ def surface_state(path, model, seed=0):
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     noise = lambda: torch.randn(g.shape, generator=gen, dtype=g.dtype, device=DEVICE)
     zc = g.nodes(CENTER, with_halo=False)[2]
-    if path == "langmuir":
+    if path.startswith("langmuir"):
         c = LANGMUIR
         decay = torch.exp(zc / 4.0)
         ustar = math.sqrt(abs(c["Qu"]))
@@ -807,12 +880,42 @@ def surface_state(path, model, seed=0):
         u=ustar * 1e-3 * prof * noise(), w=ustar * 1e-3 * prof * noise(), S=35.0)
 
 
+def implicit_model(n=None, dtype=torch.float32):
+    """The "AB2 stretched implicit" path's model at n³ (``N`` by default)."""
+    return NonhydrostaticModel(surface_grid(n, dtype, stretched=True),
+                               advection=WENO5(), buoyancy=BuoyancyTracer(),
+                               closure=ScalarDiffusivity(**IMPLICIT))
+
+
+def les_model(path, n=None):
+    """The model of an ``LES`` path at n³ fp32."""
+    if path == "langmuir AMD":
+        return langmuir_model(n, AnisotropicMinimumDissipation())
+    if path == "wind mixing stretched":
+        return wind_mixing_model(n, stretched=True)
+    return implicit_model(n)
+
+
+def bench_state(model, seed=0):
+    """bench.py's initial fields: random u, v (1e-2) and b (1e-4)."""
+    rng = np.random.default_rng(seed)
+    shape = model.grid.shape
+    return model.initial_state(u=1e-2 * rng.standard_normal(shape),
+                               v=1e-2 * rng.standard_normal(shape),
+                               b=1e-4 * rng.standard_normal(shape))
+
+
 def path_model(path):
     """The path's model at 256³ fp32, its initial state and (Δt, warm-up
     steps, timed steps)."""
     if path in SURFACE:
         model = (langmuir_model if path == "langmuir" else wind_mixing_model)()
         return model, surface_state(path, model), SURFACE[path]
+    if path in LES:
+        model = les_model(path)
+        state = (bench_state(model) if path == "AB2 stretched implicit"
+                 else surface_state(path, model))
+        return model, state, LES[path]
     timestepper, dt, warmup, steps, kw = PATHS[path]
     model = model_for(N, torch.float32, timestepper=timestepper, **kw)
     rng = np.random.default_rng(0)
@@ -838,7 +941,8 @@ def drive(path, plain):
 
 def divergence_ratio(model, state, uniform=False):
     """max|∇·u|·Δx / max|u| over the interior of a filled state; with
-    ``uniform``, of ∇·u minus its domain mean."""
+    ``uniform``, of ∇·u minus its domain mean. On a stretched z, ∂z w takes
+    each level's Δzᶜ and Δx is the grid's smallest spacing."""
     g = model.grid
     sol = state["solution"]
     (hx, hy, hz), (nx, ny, nz) = g.halo, g.shape
@@ -846,13 +950,16 @@ def divergence_ratio(model, state, uniform=False):
                                         hy + dj:hy + dj + ny,
                                         hz + dk:hz + dk + nz]
     u, v, w = sol["u"], sol["v"], sol["w"]
+    dz, dx = g.Lz / nz, g.Lx / nx
+    if not g.z_regular:
+        dz, dx = g.dz(CENTER)[:, :, hz:hz + nz], g.min_spacing()
     div = ((cut(u, di=1) - cut(u)) / (g.Lx / nx)
            + (cut(v, dj=1) - cut(v)) / (g.Ly / ny)
-           + (cut(w, dk=1) - cut(w)) / (g.Lz / nz))
+           + (cut(w, dk=1) - cut(w)) / dz)
     if uniform:
         div = div - div.double().mean()
     umax = max(float(cut(a).abs().max()) for a in (u, v, w))
-    return float(div.abs().max()) * (g.Lx / nx) / umax
+    return float(div.abs().max()) * dx / umax
 
 
 def agreement(path, steps, kernel_fields, model, state):
@@ -919,7 +1026,7 @@ def surface_response(path, model, state):
         raise AssertionError(f"{path}: the top layer's mean u is {u_top:.3e}, "
                              "not driven by the wind stress")
     line = f"{path}: top layer's mean u {u_top:.6e} m/s"
-    if path == "wind mixing":
+    if path.startswith("wind mixing"):
         t0 = 20.0 + WIND["dTdz"] * float(g.nodes(CENTER)[2].flatten()[-1])
         t_top = top("T")
         if not t_top < t0:
@@ -940,12 +1047,13 @@ def phase_path(path):
     what = "max|div u - mean|*dx/max|u|" if uniform else "max|div u|*dx/max|u|"
     if not ratio <= 1e-5:
         raise AssertionError(f"{path}: {what} = {ratio:.3e} > 1e-5")
-    warmup, steps = (SURFACE[path] if path in SURFACE else PATHS[path][1:4])[1:]
+    warmup, steps = (SURFACE[path] if path in SURFACE else
+                     LES[path] if path in LES else PATHS[path][1:4])[1:]
     used = {k: n for k, n in launches.items() if n}
     print(f"{path} path: {N}^3 fp32, {steps} steps: {per_step * 1e3:.3f} ms/step, "
           f"{N ** 3 / per_step:.6e} grid points/s, launches {used} in "
           f"{warmup + steps} steps, {what} {ratio:.3e}")
-    if path in SURFACE:
+    if path in SURFACE or path in ("langmuir AMD", "wind mixing stretched"):
         surface_response(path, model, state)
     times = path_kernel_times(path, model, state) if path in ("AB2", "RK3") else None
     kernel_u = {k: model.grid.interior(a) for k, a in state["solution"].items()}
@@ -1591,6 +1699,154 @@ def phase_forced():
     torch.cuda.empty_cache()
 
 
+#: K1's and K2's holds on the wind-mixing example's stretched z (their
+#: stretched and general instantiations): (size, dtype, momentum, tracer
+#: scheme, tracers, closure, w walls, z); sizes off the 8×12×32 tiles,
+#: WENO5 and centred tracers, horizontal-only diffusion (a vertically
+#: implicit closure), w's top wall face (FluxBC w walls), and the general
+#: instantiation on a regular z
+STRETCHED_CASES = (
+    ((N, N, N), torch.float32, WENO5, WENO5, 0, "implicit", None, "stretched"),
+    ((64, 64, 64), torch.float64, WENO5, CenteredSecondOrder, 1, "implicit", None,
+     "stretched"),
+    ((100, 77, 45), torch.float32, WENO5, WENO5, 1, "explicit", "flux", "stretched"),
+    ((72, 40, 36), torch.float64, CenteredSecondOrder, WENO5, 2, None, "flux",
+     "stretched"),
+    ((64, 64, 64), torch.float32, WENO5, WENO5, 0, "implicit", None, "regular"),
+)
+
+
+def stretched_case_model(size, dtype, momentum, tracer_scheme, ntracers, closure,
+                         walls, z):
+    closure = {"implicit": ScalarDiffusivity(**IMPLICIT),
+               "explicit": ScalarDiffusivity(nu=1e-5, kappa=1e-5), None: None}[closure]
+    bcs = {"w": FieldBCs(bottom=FluxBC(), top=FluxBC())} if walls else None
+    return NonhydrostaticModel(
+        surface_grid(size, dtype, stretched=z == "stretched"), advection=momentum(),
+        tracer_advection=tracer_scheme(), buoyancy=BuoyancyTracer(),
+        tracers=tuple(f"c{i}" for i in range(ntracers)), closure=closure,
+        boundary_conditions=bcs)
+
+
+def phase_stretched():
+    """K1 and K2 on a stretched z (and K1's general instantiation on a
+    regular one) against their plain versions, bit for bit over NaN-filled
+    outputs; their times at 256³ fp32 beside the regular ones of phases 3
+    and 4. Returns (max_abs_err of K1, of K2)."""
+    w1 = w2 = 0.0
+    for case in STRETCHED_CASES:
+        size, dtype, momentum, tracer_scheme, nt, closure, walls, z = case
+        model = stretched_case_model(*case)
+        if not (model.fused_step and general_route(model)):
+            raise AssertionError(f"stretched case {case}: the model does not take "
+                                 "K1's general route")
+        label = (f"{'x'.join(map(str, size))} {str(dtype)[6:]} {z} z, "
+                 f"{momentum.__name__}/{tracer_scheme.__name__}, closure {closure}"
+                 + (", w's top face" if w_top(model) else ""))
+        state = random_state(model, 11)
+        poison_cache(model.grid.total_shape, dtype, 12)
+        w1 = max(w1, hold_k1(f"K1 {label}", model, state, dt=0.5)[2])
+        sol = state["solution"]
+        args = (model.grid, model.advection, model.tracer_advection, sol["u"],
+                sol["v"], sol["w"], {n: sol[n] for n in model.tracer_names})
+        poison_cache(model.grid.total_shape, dtype, 12)
+        w2 = max(w2, hold_k2(f"K2 {label}", args, dtype))
+        if size == (N, N, N):
+            k1 = lambda: fused_ab2_advance(model, state, 0.5, False)
+            k1_plain = lambda: fused_ab2_advance_reference(model, state, 0.5, False)
+            k2 = lambda: fused_advective_tendencies(*args)
+            k2_plain = lambda: fused_advective_tendencies_reference(*args)
+            print(f"K1 stretched {N}^3 fp32 ab2 time (general instantiation, "
+                  f"horizontal-only diffusion): kernel {cuda_ms(k1, 20):.4f} ms, plain "
+                  f"{cuda_ms(k1_plain, 3):.4f} ms (CUDA events); kernel alone "
+                  f"{device_ms(k1, 20, 'fused_ab2_advance')} ms (torch.profiler)")
+            print(f"K2 stretched {N}^3 fp32 WENO5/WENO5 time: kernel "
+                  f"{cuda_ms(k2, 20):.4f} ms, plain {cuda_ms(k2_plain, 3):.4f} ms "
+                  f"(CUDA events); kernel alone "
+                  f"{device_ms(k2, 20, 'fused_advective_tendencies')} ms (torch.profiler)")
+        del model, state, sol, args
+        torch.cuda.empty_cache()
+    return w1, w2
+
+
+def hold_t1(label, call, plain, dtype):
+    """T1 against its plain version, bit for bit over NaN-filled outputs;
+    returns max|Δ|."""
+    ref = plain()
+    poison_cache(ref.shape, ref.dtype, 8)
+    got = call()
+    torch.cuda.synchronize()
+    part = (lambda x: torch.view_as_real(x)) if got.is_complex() else (lambda x: x)
+    return hold(label, {"phi": {"phi": part(got)}}, {"phi": {"phi": part(ref)}},
+                dtype, exact=True)
+
+
+def fourier_args(grid, seed, m=0.0):
+    """T1's Fourier-mode arguments for ``grid``'s Fourier-tridiagonal solve:
+    the solver's eigenvalues (x the real-FFT axis) and bands, a random
+    complex spectrum of the shape the solve hands over."""
+    solver = FourierTridiagonalSolver.build(grid)
+    nxr = grid.Nx // 2 + 1
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    ctype = torch.complex64 if grid.dtype == torch.float32 else torch.complex128
+    b = torch.randn((nxr, grid.Ny, grid.Nz), generator=gen, dtype=ctype, device=DEVICE)
+    return (solver.lam_x[:nxr].contiguous(), solver.lam_y, m, solver.lower,
+            solver.upper, solver.dzc, b, m == 0.0)
+
+
+def phase_t1():
+    """T1 against its plain version bit for bit: the Fourier-tridiagonal
+    system of the 256³ wind-mixing grid (fp32, complex pairs, the pin) and
+    67×45×29 fp64 (with and without the pin), and the implicit-diffusion
+    bands at 256³ fp32 (a scalar κ: 1D bands; AMD's 3D κ with Value and
+    Gradient walls on a centred field, and on w); returns (max_abs_err, ms,
+    plain_ms, bound_ms, bound_by), the times those of the 256³ Fourier
+    solve."""
+    worst = 0.0
+    grid = surface_grid(N, torch.float32, stretched=True)
+    args = fourier_args(grid, 21)
+    worst = max(worst, hold_t1(f"T1 Fourier {N}^3 fp32 ("
+                               f"{'x'.join(map(str, args[6].shape))} complex, pin)",
+                               lambda: fourier_tridiagonal(*args),
+                               lambda: fourier_tridiagonal_reference(*args),
+                               torch.float32))
+    ms = cuda_ms(lambda: fourier_tridiagonal(*args), 20)
+    plain_ms = cuda_ms(lambda: fourier_tridiagonal_reference(*args), 3)
+    b = args[6]
+    t1_bound = bound(T1, 2 * tensor_bytes([b]), 2 * b.numel())
+    print(f"T1 Fourier {N}^3 fp32 time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+          f"(CUDA events); kernel alone {device_ms(lambda: fourier_tridiagonal(*args), 20, 'tridiagonal')} "
+          f"ms (torch.profiler); bound {t1_bound[0]:.4f} ms ({t1_bound[1]})")
+    small = surface_grid((67, 45, 29), torch.float64, stretched=True)
+    for m in (0.0, -0.5):
+        a = fourier_args(small, 22, m)
+        worst = max(worst, hold_t1(f"T1 Fourier 67x45x29 fp64, m = {m}",
+                                   lambda: fourier_tridiagonal(*a),
+                                   lambda: fourier_tridiagonal_reference(*a),
+                                   torch.float64))
+    # the implicit step's bands at 256³ fp32, AMD's κ from random velocities
+    model = wind_mixing_model(stretched=True)
+    state = random_state(model, 24)
+    g = model.grid
+    nu = state["diffusivities"]["nu_e"]
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    data = torch.randn(g.total_shape, generator=gen, dtype=g.dtype, device=DEVICE)
+    for what, loc, kappa, bot, top in (
+            ("scalar kappa (1D bands), centred", CENTER, 1e-5, None, None),
+            ("AMD kappa (3D bands), centred, Value/Gradient walls", CENTER, nu,
+             ValueBC(20.0), GradientBC(0.01)),
+            ("AMD kappa (3D bands), w", W_LOC, nu, None, None)):
+        step = lambda solve: implicit_vertical_diffusion_step(
+            data, g, loc, kappa, 0.5, bc_bottom=bot, bc_top=top, solve=solve)
+        worst = max(worst, hold_t1(f"T1 implicit step {N}^3 fp32, {what}",
+                                   lambda: step(solve_batched_tridiagonal),
+                                   lambda: step(solve_batched_tridiagonal_reference),
+                                   torch.float32))
+    del model, state, nu, data
+    torch.cuda.empty_cache()
+    return (worst, ms, plain_ms, *t1_bound)
+
+
 def main():
     phase_device()
     phase_build()
@@ -1600,6 +1856,8 @@ def main():
     measured[K5] = phase_k5()
     measured[K6] = phase_k6()
     phase_forced()
+    k1_err, k2_err = phase_stretched()
+    measured[T1] = phase_t1()
     # each path's launches, read just after its kernel run; a kernel's
     # record counts its launches on every path
     by_path = {}
@@ -1618,6 +1876,11 @@ def main():
     for path in SURFACE:
         by_path[path], _ = phase_path(path)
     by_path["hydrostatic wind"], _, _ = phase_hydrostatic("hydrostatic wind")
+    for path in LES:
+        by_path[path], _ = phase_path(path)
+    # K1's and K2's holds on a stretched z
+    for name, err in ((K1, k1_err), (K2, k2_err)):
+        measured[name] = (max(measured[name][0], err), *measured[name][1:])
     launches = {k: sum(counts[k] for counts in by_path.values()) for k in WRAPPERS}
     print("launches by path: " + json.dumps(
         {path: {k: n for k, n in counts.items() if n} for path, counts in by_path.items()}))

@@ -4,10 +4,13 @@ The JAX package beside this one is the reference; this package keeps its
 module paths, constructor API and ``state`` layout. So far it runs the
 nonhydrostatic model (WENO5 or centred advection, buoyancy tracer or
 seawater buoyancy with a linear equation of state, tilted gravity,
-f/β-plane Coriolis, constant scalar diffusivity, Stokes drift, forcing,
-background fields, flux BCs with scalar, plane, callable and discrete
-values, the roll-based and the general FFT projection) with its quasi-AB2
-and RK3 steps, the shallow-water model in its conservative and
+f/β-plane Coriolis, scalar and biharmonic diffusivities with scalar,
+array or callable coefficients, vertically implicit diffusion, the LES
+closures (Smagorinsky-Lilly, AMD, 2D Leith) and closure tuples, Stokes
+drift, forcing, background fields, flux BCs with scalar, plane, callable
+and discrete values, a z stretched or regular (the Fourier-tridiagonal or
+FFT pressure solve), the roll-based and the general projection) with its
+quasi-AB2 and RK3 steps, the shallow-water model in its conservative and
 vector-invariant forms, and the hydrostatic free-surface model on
 rectilinear and lat-lon grids with stretched axes (vector-invariant or
 flux-form momentum, spherical Coriolis, forcing and flux BCs, explicit,
@@ -15,8 +18,8 @@ split-explicit and implicit free surfaces), with hand-written CUDA
 kernels for Hopper in ``csrc/``: the fused AB2 advance (K1), the fused
 advective tendencies (K2), the shallow-water core (K3a), the general
 projection's divergence and gradient (K3b, K3c), the hydrostatic w/pHY′
-columns (K4a) and tendencies (K4b), the barotropic substeps (K5) and the
-halo fills (K6). Importing it needs no GPU: a kernel is compiled at its
+columns (K4a) and tendencies (K4b), the barotropic substeps (K5), the
+halo fills (K6) and the batched tridiagonal solve (T1). Importing it needs no GPU: a kernel is compiled at its
 first launch on a CUDA tensor. Grids live on the card unless the caller
 passes ``device="cpu"``.
 """
@@ -40,8 +43,11 @@ from .forcings.forcing import (AdvectiveForcing, Forcing, GaussianMask,
 from .stokes_drift import UniformStokesDrift
 from .coriolis.coriolis import BetaPlane, FPlane, HydrostaticSphericalCoriolis
 from .closures.scalar_diffusivity import (HorizontalScalarDiffusivity,
+                                          ScalarBiharmonicDiffusivity,
                                           ScalarDiffusivity,
                                           VerticalScalarDiffusivity)
+from .closures.eddy_viscosity import (AnisotropicMinimumDissipation,
+                                      SmagorinskyLilly, TwoDimensionalLeith)
 from .timesteppers.steppers import Clock
 from .models.nonhydrostatic import NonhydrostaticModel
 from .models.shallow_water import ShallowWaterModel

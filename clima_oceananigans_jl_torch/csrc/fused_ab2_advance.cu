@@ -42,6 +42,17 @@
 // memory, loaded before the face fluxes so that their latency hides behind
 // them. The prologue writes G's halo zeros in the with-halo layout, so the
 // wrapper allocates with torch.empty.
+//
+// The general instantiation (GEN, ops/fused_step.py::general_route: a
+// stretched z, a vertically implicit closure, or w walls the roll-based
+// projection cannot impose) reads per-level Dz rows and, on a stretched z
+// with WENO5, the tables (advect_tile's stretched form); takes `vertical`
+// = 0, the horizontal-only diffusion of a vertically implicit closure (the
+// JAX kernel's vert = not vertically_implicit); writes psi' with halos
+// (zeros, as the JAX kernel pads it) for the implicit step and the general
+// projection; and under `w_top` also G_w and psi'_w at w's top wall face.
+// The regular instantiation carries none of this, so the regular-z paths
+// pay for no branch.
 #include <cuda_runtime.h>
 
 #include "weno5_advection.cuh"
@@ -59,6 +70,10 @@ struct AdvanceArgs {
   T kh[MAX_FIELDS], kz[MAX_FIELDS];  // horizontal / vertical diffusivity per field
   int g_halo;
   T c1, c2, dt;
+  // the general instantiation (GEN): psi' with halos, the vertical
+  // diffusion optional, w's top wall face
+  int vertical;              // the diffusion's z fluxes (0: a vertically implicit closure)
+  int w_top;                 // bounded z, with-halo G: also G_w and psi'_w at the top wall face
 };
 
 // div_kappa_grad for constant kappa at the box offset q: the flux is
@@ -79,17 +94,91 @@ __device__ __forceinline__ T diffusion(const T* __restrict__ c, int q, int sx, i
   return ieee_div(out, A.dx * A.dy * A.dz);
 }
 
-// K1's use of advect_tile: G's terms and the AB2 advance at each point
-template <typename T>
+// div_kappa_grad for constant kappa on a z axis with per-level spacing (the
+// general instantiation): the field's own Dz (Dz[C] for u, v and the
+// tracers, Dz[F] for w) in the x and y face areas and the volume, and the
+// distances of the z faces above and below (Dz[F] at K+1 and K of a centred
+// field, Dz[C] at K and K-1 of w), as grid.Ax/Ay/Az/V and the spacings of
+// the field's location give them to the plain version; c[q + up] is the
+// point above. `vertical` false leaves the z fluxes to the implicit solve.
+template <typename T, typename I>
+__device__ __forceinline__ T diffusion_rows(const T* __restrict__ c, I q, I sx, I sy,
+                                            I up, T kh, T kz, T dx, T dy, T dz,
+                                            T dz_up, T dz_dn, bool vertical) {
+  const T Ax = dy * dz, Ay = dx * dz, Az = dx * dy;
+  const T fxR = Ax * (kh * ieee_div(c[q + sx] - c[q], dx));
+  const T fxL = Ax * (kh * ieee_div(c[q] - c[q - sx], dx));
+  const T fyR = Ay * (kh * ieee_div(c[q + sy] - c[q], dy));
+  const T fyL = Ay * (kh * ieee_div(c[q] - c[q - sy], dy));
+  T out = (fxR - fxL) + (fyR - fyL);
+  if (vertical) {
+    const T fzR = Az * (kz * ieee_div(c[q + up] - c[q], dz_up));
+    const T fzL = Az * (kz * ieee_div(c[q] - c[q - 1], dz_dn));
+    out = out + (fzR - fzL);
+  }
+  return ieee_div(out, dx * dy * dz);
+}
+
+// diffusion_rows of field f at with-halo level K from the z rows
+template <typename T, typename I>
+__device__ __forceinline__ T diffusion_at(const AdvanceArgs<T>& A, int f, const T* c,
+                                          I q, I sx, I sy, I up, int K) {
+  const Advection<T>& D = A.adv;
+  const int Z = D.nz + 2 * D.hz;
+  const T* dzc = D.zs + Z_DZ_C * Z;
+  const T* dzf = D.zs + Z_DZ_F * Z;
+  const bool w = f == 2;
+  return diffusion_rows(c, q, sx, sy, up, A.kh[f], A.kz[f], D.dx, D.dy,
+                        w ? dzf[K] : dzc[K], w ? dzc[K] : dzf[K + 1],
+                        w ? dzc[K - 1] : dzf[K], A.vertical != 0);
+}
+
+// K1's use of advect_tile: G's terms and the AB2 advance at each point. The
+// general instantiation (GEN) runs advect_tile's stretched form (on a
+// regular z its rows hold the one spacing), writes psi' with halos (zeros,
+// but for w's top wall face under `w_top`), takes `vertical`, and under
+// `w_top` computes G_w and psi'_w at w's top wall face (with-halo z index
+// hz+nz) from global memory in the last chunk's blocks, as K2 does: a w
+// wall that the fill does not impose (FluxBC) leaves that face to the step,
+// and the general projection after the advance reads it.
+template <typename T, bool GEN>
 struct AdvanceOut {
   const AdvanceArgs<T>& A;
 
   __device__ __forceinline__ void prologue(const AdvTile<T>& t) const {
-    if (A.g_halo)
+    if constexpr (GEN) {
+      const Advection<T>& D = A.adv;
+      const int top = D.hz + D.nz;
+      for_halo_points(D, t, [&](int i, int j, int k) {
+        const int64_t p = t.g(i, j, k);
+        const bool face = A.w_top && k == top && i >= D.hx && i < D.hx + D.nx
+                          && j >= D.hy && j < D.hy + D.ny;
+        for (int f = 0; f < D.nf; ++f) {
+          if (f == 2 && face) continue;
+          A.out_psi[f][p] = T(0);
+          if (A.g_halo) A.out_g[f][p] = T(0);
+        }
+      });
+      if (A.w_top && blockIdx.z == gridDim.z - 1)
+        for (int s = threadIdx.x; s < AT_COLS; s += blockDim.x) {
+          const int i = t.I0 + s / AT_Y, j = t.J0 + s % AT_Y;
+          if (i >= t.I1 || j >= t.J1) continue;
+          const int64_t o = t.g(i, j, top);
+          const int Z = D.nz + 2 * D.hz;
+          T g = -div_vw_top(D, o, t.gsx, t.gsy, top, D.zs[Z_DZ_F * Z + top]);
+          if (A.diffuse) {
+            const int64_t up = top + 1 < Z ? 1 : -(int64_t)top;
+            g = g + diffusion_at(A, 2, D.psi[2], o, t.gsx, t.gsy, up, top);
+          }
+          A.out_psi[2][o] = D.psi[2][o] + A.dt * (A.c1 * g - A.c2 * A.gp[2][o]);
+          A.out_g[2][o] = g;
+        }
+    } else if (A.g_halo) {
       for_halo_points(A.adv, t, [&](int i, int j, int k) {
         const int64_t p = t.g(i, j, k);
         for (int f = 0; f < A.adv.nf; ++f) A.out_g[f][p] = T(0);
       });
+    }
   }
 
   // the point's global loads, issued before the face fluxes: G_prev and
@@ -134,18 +223,33 @@ struct AdvanceOut {
                                     + half * (u[q + sx - sy] + u[q - sy]))));
       if (A.ph != nullptr) g = g - ieee_div(pre.ph0 - pre.ph1, D.dy);
     }  // z_f_cross_U is zero on f- and beta-planes
-    if (A.diffuse) g = g + diffusion(c, q, sx, sy, A.kh[f], A.kz[f], D);
+    if (A.diffuse) {
+      if constexpr (GEN)
+        g = g + diffusion_at(A, f, c, q, sx, sy, 1, K);
+      else
+        g = g + diffusion(c, q, sx, sy, A.kh[f], A.kz[f], D);
+    }
     const int64_t p = halo_free(I, J, K);
-    A.out_psi[f][p] = c[q] + A.dt * (A.c1 * g - A.c2 * pre.gp);
+    A.out_psi[f][GEN ? t.g(I, J, K) : p] = c[q] + A.dt * (A.c1 * g - A.c2 * pre.gp);
     A.out_g[f][A.g_halo ? t.g(I, J, K) : p] = g;
   }
 };
 
-template <typename T>
+template <typename T, bool GEN>
 __global__ void __launch_bounds__(AT_THREADS, 1)
 fused_ab2_advance_kernel(const __grid_constant__ AdvanceArgs<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  advect_tile(A.adv, reinterpret_cast<T*>(smem_raw), AdvanceOut<T>{A});
+  advect_tile<GEN>(A.adv, reinterpret_cast<T*>(smem_raw), AdvanceOut<T, GEN>{A});
+}
+
+template <typename T, bool GEN>
+static int launch_kernel(const AdvanceArgs<T>& A, dim3 blocks, int smem, void* stream) {
+  auto kernel = fused_ab2_advance_kernel<T, GEN>;
+  const int rc = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != 0) return rc;
+  kernel<<<blocks, AT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(A);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -156,7 +260,8 @@ static int launch(const void* const* psi, const void* const* gp,
                   int nz, int hx, int hy, int hz, int weno_m, int weno_t,
                   int z_masks, int lo_l, int hi_l, int lo_r, int hi_r,
                   double eps_m, double eps_t, double dx, double dy, double dz,
-                  double c1, double c2, double dt, void* stream) {
+                  double c1, double c2, double dt, const void* zs, int tables,
+                  int vertical, int w_top, void* stream) {
   AdvanceArgs<T> A;
   if (!set_advection(A.adv, psi, nf, nx, ny, nz, hx, hy, hz, weno_m, weno_t,
                      z_masks, lo_l, hi_l, lo_r, hi_r, eps_m, eps_t, dx, dy, dz))
@@ -177,15 +282,17 @@ static int launch(const void* const* psi, const void* const* gp,
   A.diffuse = kh != nullptr;
   A.g_halo = g_halo;
   A.c1 = T(c1); A.c2 = T(c2); A.dt = T(dt);
+  A.adv.zs = static_cast<const T*>(zs);
+  A.adv.tables = tables;
+  A.vertical = vertical;
+  A.w_top = w_top;
+  if (zs == nullptr && (tables || !vertical || w_top)) return (int)cudaErrorInvalidValue;
+  if (w_top && !g_halo) return (int)cudaErrorInvalidValue;
   if (nx <= 0 || ny <= 0 || nz <= 0) return 0;
   int smem;
   const dim3 blocks = plan_tiles(A.adv, smem);
-  auto kernel = fused_ab2_advance_kernel<T>;
-  const int rc = (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (rc != 0) return rc;
-  kernel<<<blocks, AT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(A);
-  return (int)cudaGetLastError();
+  return zs != nullptr ? launch_kernel<T, true>(A, blocks, smem, stream)
+                       : launch_kernel<T, false>(A, blocks, smem, stream);
 }
 
 extern "C" {
@@ -193,7 +300,10 @@ extern "C" {
 // Returns cudaGetLastError() after the launch (0 on success). Pointer
 // arrays are host arrays of nf device pointers; `ph`, `fu`/`fv` (both or
 // neither) and `kh`/`kz` (host arrays of nf diffusivities, both or
-// neither) may be null.
+// neither) may be null. `zs` (the z rows of ops/metric_rows.py, with
+// WENO5's to-faces and to-centres tables where `tables`) selects the
+// general instantiation: psi' with halos, `vertical` and `w_top`; null
+// selects the regular one, whose psi' is halo-free.
 #define FUSED_AB2_ADVANCE(NAME, T)                                            \
   int NAME(const void* const* psi, const void* const* gp,                     \
            void* const* out_psi, void* const* out_g, const void* ph,          \
@@ -202,11 +312,12 @@ extern "C" {
            int hx, int hy, int hz, int weno_m, int weno_t, int z_masks,       \
            int lo_l, int hi_l, int lo_r, int hi_r, double eps_m,              \
            double eps_t, double dx, double dy, double dz, double c1,          \
-           double c2, double dt, void* stream) {                              \
+           double c2, double dt, const void* zs, int tables, int vertical,    \
+           int w_top, void* stream) {                                         \
     return launch<T>(psi, gp, out_psi, out_g, ph, fu, fv, kh, kz, g_halo, nf, \
                      nx, ny, nz, hx, hy, hz, weno_m, weno_t, z_masks, lo_l,   \
                      hi_l, lo_r, hi_r, eps_m, eps_t, dx, dy, dz, c1, c2, dt,  \
-                     stream);                                                 \
+                     zs, tables, vertical, w_top, stream);                    \
   }
 
 FUSED_AB2_ADVANCE(fused_ab2_advance_f32, float)

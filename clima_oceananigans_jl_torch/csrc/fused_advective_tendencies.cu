@@ -35,6 +35,12 @@
 // at 256^3 instead of 6), tracers through a double buffer; the prologue
 // writes the halo zeros of the outputs (so the wrapper allocates with
 // torch.empty) and the top w face.
+//
+// A stretched z runs a second instantiation (ZS): the z rows of
+// ops/metric_rows.py (per-level Dz[C] and Dz[F], WENO5's to-faces and
+// to-centres tables) give each level its face areas and volume and the z
+// fluxes their two-sided table form, as the JAX kernel reads them from its
+// metric pack; the regular instantiation carries none of it.
 #include <cuda_runtime.h>
 
 #include "weno5_advection.cuh"
@@ -46,35 +52,9 @@ struct TendencyArgs {
   int w_top;           // bounded z: also G_w at the top wall face
 };
 
-// div_vw at w's top wall face, offset o (with-halo z index K = hz+nz),
-// from global memory. Both z fluxes are centred there: WENO5's near-wall
-// reduction falls back to the centred mean, as does the centred scheme.
-// The centre above the face is z index hz+nz+1, which wraps to 0 when
-// hz == 1, as torch.roll wraps it in the plain version.
-template <typename T>
-__device__ __forceinline__ T div_vw_top(const Advection<T>& A, int64_t o,
-                                        int64_t sx, int64_t sy, int K) {
-  const T* __restrict__ u = A.psi[0];
-  const T* __restrict__ v = A.psi[1];
-  const T* __restrict__ w = A.psi[2];
-  const int64_t sz = 1;
-  const int64_t up = K + 1 < A.nz + 2 * A.hz ? sz : -(int64_t)K;
-  const bool we = A.weno_m != 0;
-  const T eps = A.eps_m, half = T(0.5);
-  const T Ax = A.dy * A.dz, Ay = A.dx * A.dz, Az = A.dx * A.dy;
-  const Bounds nb{0, -1, 0, -1};
-  const T fxR = Ax * transport_axis(w, o + sx, sx, half * (u[o + sx] + u[o + sx - sz]), we, eps, false, nb, 0);
-  const T fxL = Ax * transport_axis(w, o, sx, half * (u[o] + u[o - sz]), we, eps, false, nb, 0);
-  const T fyR = Ay * transport_axis(w, o + sy, sy, half * (v[o + sy] + v[o + sy - sz]), we, eps, false, nb, 0);
-  const T fyL = Ay * transport_axis(w, o, sy, half * (v[o] + v[o - sz]), we, eps, false, nb, 0);
-  const T wR = half * (w[o + up] + w[o]), wL = half * (w[o] + w[o - sz]);
-  const T fzR = Az * (wR * wR);
-  const T fzL = Az * (wL * wL);
-  return flux_divergence(fxR, fxL, fyR, fyL, fzR, fzL, A);
-}
-
-// K2's use of advect_tile: G = -div into the with-halo outputs
-template <typename T>
+// K2's use of advect_tile: G = -div into the with-halo outputs (ZS: on a
+// stretched z)
+template <typename T, bool ZS>
 struct TendencyOut {
   const TendencyArgs<T>& A;
 
@@ -94,7 +74,8 @@ struct TendencyOut {
         const int i = t.I0 + s / AT_Y, j = t.J0 + s % AT_Y;
         if (i >= t.I1 || j >= t.J1) continue;
         const int64_t o = t.g(i, j, top);
-        A.out[2][o] = -div_vw_top(D, o, t.gsx, t.gsy, top);
+        const T dz = ZS ? D.zs[Z_DZ_F * (D.nz + 2 * D.hz) + top] : D.dz;
+        A.out[2][o] = -div_vw_top(D, o, t.gsx, t.gsy, top, dz);
       }
   }
 
@@ -111,30 +92,16 @@ struct TendencyOut {
   }
 };
 
-template <typename T>
+template <typename T, bool ZS>
 __global__ void __launch_bounds__(AT_THREADS, 1)
 fused_advective_tendencies_kernel(const __grid_constant__ TendencyArgs<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  advect_tile(A.adv, reinterpret_cast<T*>(smem_raw), TendencyOut<T>{A});
+  advect_tile<ZS>(A.adv, reinterpret_cast<T*>(smem_raw), TendencyOut<T, ZS>{A});
 }
 
-template <typename T>
-static int launch(const void* const* psi, void* const* out, int nf, int nx,
-                  int ny, int nz, int hx, int hy, int hz, int weno_m,
-                  int weno_t, int z_masks, int lo_l, int hi_l, int lo_r,
-                  int hi_r, double eps_m, double eps_t, double dx, double dy,
-                  double dz, int w_top, void* stream) {
-  TendencyArgs<T> A;
-  if (!set_advection(A.adv, psi, nf, nx, ny, nz, hx, hy, hz, weno_m, weno_t,
-                     z_masks, lo_l, hi_l, lo_r, hi_r, eps_m, eps_t, dx, dy, dz))
-    return (int)cudaErrorInvalidValue;
-  for (int f = 0; f < MAX_FIELDS; ++f)
-    A.out[f] = f < nf ? static_cast<T*>(out[f]) : nullptr;
-  A.w_top = w_top;
-  if (nx <= 0 || ny <= 0 || nz <= 0) return 0;
-  int smem;
-  const dim3 blocks = plan_tiles(A.adv, smem);
-  auto kernel = fused_advective_tendencies_kernel<T>;
+template <typename T, bool ZS>
+static int launch_kernel(const TendencyArgs<T>& A, dim3 blocks, int smem, void* stream) {
+  auto kernel = fused_advective_tendencies_kernel<T, ZS>;
   const int rc = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != 0) return rc;
@@ -142,21 +109,47 @@ static int launch(const void* const* psi, void* const* out, int nf, int nx,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+static int launch(const void* const* psi, void* const* out, int nf, int nx,
+                  int ny, int nz, int hx, int hy, int hz, int weno_m,
+                  int weno_t, int z_masks, int lo_l, int hi_l, int lo_r,
+                  int hi_r, double eps_m, double eps_t, double dx, double dy,
+                  double dz, int w_top, const void* zs, int tables,
+                  void* stream) {
+  TendencyArgs<T> A;
+  if (!set_advection(A.adv, psi, nf, nx, ny, nz, hx, hy, hz, weno_m, weno_t,
+                     z_masks, lo_l, hi_l, lo_r, hi_r, eps_m, eps_t, dx, dy, dz))
+    return (int)cudaErrorInvalidValue;
+  for (int f = 0; f < MAX_FIELDS; ++f)
+    A.out[f] = f < nf ? static_cast<T*>(out[f]) : nullptr;
+  A.w_top = w_top;
+  A.adv.zs = static_cast<const T*>(zs);
+  A.adv.tables = tables;
+  if (nx <= 0 || ny <= 0 || nz <= 0) return 0;
+  int smem;
+  const dim3 blocks = plan_tiles(A.adv, smem);
+  return zs != nullptr ? launch_kernel<T, true>(A, blocks, smem, stream)
+                       : launch_kernel<T, false>(A, blocks, smem, stream);
+}
+
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success). `psi` and
 // `out` are host arrays of nf device pointers; `w_top` (bounded z) also
-// writes G_w at w's top wall face.
+// writes G_w at w's top wall face; `zs` (a stretched z, else null) are the
+// z rows of ops/metric_rows.py, with WENO5's to-faces and to-centres tables
+// where `tables`.
 int fused_advective_tendencies_f32(const void* const* psi, void* const* out,
                                    int nf, int nx, int ny, int nz, int hx,
                                    int hy, int hz, int weno_m, int weno_t,
                                    int z_masks, int lo_l, int hi_l, int lo_r,
                                    int hi_r, double eps_m, double eps_t,
                                    double dx, double dy, double dz,
-                                   int w_top, void* stream) {
+                                   int w_top, const void* zs, int tables,
+                                   void* stream) {
   return launch<float>(psi, out, nf, nx, ny, nz, hx, hy, hz, weno_m, weno_t,
                        z_masks, lo_l, hi_l, lo_r, hi_r, eps_m, eps_t, dx, dy,
-                       dz, w_top, stream);
+                       dz, w_top, zs, tables, stream);
 }
 
 int fused_advective_tendencies_f64(const void* const* psi, void* const* out,
@@ -165,10 +158,11 @@ int fused_advective_tendencies_f64(const void* const* psi, void* const* out,
                                    int z_masks, int lo_l, int hi_l, int lo_r,
                                    int hi_r, double eps_m, double eps_t,
                                    double dx, double dy, double dz,
-                                   int w_top, void* stream) {
+                                   int w_top, const void* zs, int tables,
+                                   void* stream) {
   return launch<double>(psi, out, nf, nx, ny, nz, hx, hy, hz, weno_m, weno_t,
                         z_masks, lo_l, hi_l, lo_r, hi_r, eps_m, eps_t, dx, dy,
-                        dz, w_top, stream);
+                        dz, w_top, zs, tables, stream);
 }
 
 }  // extern "C"

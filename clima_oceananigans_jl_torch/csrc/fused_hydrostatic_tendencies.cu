@@ -83,10 +83,10 @@
 #include "tiles.cuh"
 #include "weno5_advection.cuh"
 
-// rows of ops/metric_rows.py: Y_ROWS and Z_ROWS (then the 24 table rows)
+// rows of ops/metric_rows.py: Y_ROWS; the z rows' layout (Z_DZ_C, Z_DZ_F,
+// then the 24 table rows) is weno5_advection.cuh's
 enum { DX_CC = 0, DX_CF, DX_FC, DX_FF, AZ_CC, AZ_CF, AZ_FC, AZ_FF, DY_C, DY_F,
        F_U, F_V };
-enum { DZ_C = 0, DZ_F = 1, TABLES = 2 };
 // momentum: the vector-invariant schemes in advection/vector_invariant.py's
 // SCHEMES order, then the flux form and none
 enum { VI_ENSTROPHY = 0, VI_ENERGY, VI_WENO, VI_WENO_VELOCITY, FLUX_FORM, NO_MOMENTUM };
@@ -151,15 +151,6 @@ __device__ __forceinline__ T smoothness(T v0, T v1, T v2, T v3, T v4, int k) {
 }
 
 template <typename T>
-__device__ __forceinline__ T combine(T p0, T p1, T p2, T b0, T b1, T b2, T d0,
-                                     T d1, T d2, T eps) {
-  const T e0 = b0 + eps, e1 = b1 + eps, e2 = b2 + eps;
-  const T t0 = e0 * e0, t1 = e1 * e1, t2 = e2 * e2;
-  const T g0 = d0 * (t1 * t2), g1 = d1 * (t0 * t2), g2 = d2 * (t0 * t1);
-  return ieee_div(g0 * p0 + g1 * p1 + g2 * p2, g0 + g1 + g2);
-}
-
-template <typename T>
 __device__ __forceinline__ T weno_stream_smooth(const T* a, const T* s, const T* q, T eps) {
   const T d10 = a[1] - a[0], d11 = a[2] - a[1], d12 = a[3] - a[2], d13 = a[4] - a[3];
   const T p0 = a[2] + ieee_div_by(T(5.0) * d11 - T(2.0) * d10, T(6.0));
@@ -171,58 +162,6 @@ __device__ __forceinline__ T weno_stream_smooth(const T* a, const T* s, const T*
     b[k] = ieee_div_by(smoothness(s[0], s[1], s[2], s[3], s[4], k)
                        + smoothness(q[0], q[1], q[2], q[3], q[4], k), T(2.0));
   return combine(p0, p1, p2, b[0], b[1], b[2], T(0.1), T(0.6), T(0.3), eps);
-}
-
-// the z rows of one chunk's reconstruction: row r at with-halo level K
-template <typename T>
-struct ZRows {
-  const T* zs;
-  int Z;
-  __device__ __forceinline__ T operator()(int r, int K) const { return zs[r * Z + K]; }
-};
-
-// WENO5.table_reconstruct at a z face (to faces): side 0 left, 1 right; o is
-// the offset of the cell above the face (z stride 1), K the face's with-halo
-// index.
-template <typename T>
-__device__ __forceinline__ T table_side(const T* __restrict__ c, int o, ZRows<T> zr,
-                                        int K, int side, T eps) {
-  T p[3], b[3], d[3];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    const int base = TABLES + side * 12 + r * 4;
-    d[r] = zr(base, K);
-    const T c0 = zr(base + 1, K), c1 = zr(base + 2, K), c2 = zr(base + 3, K);
-    const int off = side == 0 ? r - 3 : -r;
-    const T w0 = c[o + off], w1 = c[o + off + 1], w2 = c[o + off + 2];
-    p[r] = c0 * w0 + c1 * w1 + c2 * w2;
-    const int kind = side == 0 ? r : 2 - r;
-    const T t2 = kind == 0 ? w0 - T(4.0) * w1 + T(3.0) * w2
-                           : (kind == 1 ? w0 - w2 : T(3.0) * w0 - T(4.0) * w1 + w2);
-    const T q = w0 - T(2.0) * w1 + w2;
-    b[r] = T(13.0 / 12.0) * (q * q) + T(0.25) * t2 * t2;
-  }
-  return combine(p[0], p[1], p[2], b[0], b[1], b[2], d[0], d[1], d[2], eps);
-}
-
-// transport() along z at face K (offset o of the cell above it, z stride 1):
-// centred, select-first WENO5, or on a stretched axis the table form.
-template <typename T>
-__device__ __forceinline__ T z_transport(const T* __restrict__ c, int o, T vel,
-                                         bool weno, T eps, bool tables, bool zmask,
-                                         const Bounds zb, ZRows<T> zr, int K) {
-  const bool masked = weno && zmask;
-  if (!(weno && tables))
-    return transport_axis(c, (int64_t)o, (int64_t)1, vel, weno, eps, masked, zb, K);
-  T L = table_side(c, o, zr, K, 0, eps);
-  T R = table_side(c, o, zr, K, 1, eps);
-  if (masked) {
-    const T lo = T(0.5) * (c[o] + c[o - 1]);
-    if (!(K >= zb.lo_l && K <= zb.hi_l)) L = lo;
-    if (!(K >= zb.lo_r && K <= zb.hi_r)) R = lo;
-  }
-  const T a = fabs(vel);
-  return T(0.5) * ((vel + a) * L + (vel - a) * R);
 }
 
 // ---- one output point --------------------------------------------------------
@@ -318,7 +257,7 @@ __device__ __forceinline__ T vi_u(const Pt<T>& P, const MomArrays<T>& M, int mom
   }
   // vertical advection izc(ixf(Az w) dzf(u) / dz_f) / Az
   const T az = P.yr(AZ_CC)[J];
-  const T* dz_f = P.zr(DZ_F);
+  const T* dz_f = P.zr(Z_DZ_F);
   auto qz = [&](int q, int qw, int k) {
     return (half * (az * w[qw] + az * w[qw - P.wsx])) * ieee_div(u[q] - u[q - 1], dz_f[k]);
   };
@@ -353,7 +292,7 @@ __device__ __forceinline__ T vi_v(const Pt<T>& P, const MomArrays<T>& M, int mom
     vort = weno_vorticity(P, M, false, u_hat, mom);
   }
   const T* az_cc = P.yr(AZ_CC);
-  const T* dz_f = P.zr(DZ_F);
+  const T* dz_f = P.zr(Z_DZ_F);
   auto qz = [&](int q, int qw, int k) {
     return (half * (az_cc[J] * w[qw] + az_cc[J - 1] * w[qw - P.wsy]))
            * ieee_div(v[q] - v[q - 1], dz_f[k]);
@@ -375,7 +314,7 @@ __device__ T div_vu(const Pt<T>& P, bool tables) {
   const bool we = A.mom_weno != 0;
   const T eps = A.eps_m, half = T(0.5);
   const ZRows<T> zr{A.zs, P.Z};
-  const T dz = P.zr(DZ_C)[K];
+  const T dz = P.zr(Z_DZ_C)[K];
   const T Ax = P.yr(DY_C)[J] * dz;
   // x fluxes at centres I-1, I (to centres: the stream of face q+1)
   auto fx = [&](int q, int i) {
@@ -406,7 +345,7 @@ __device__ T div_vv(const Pt<T>& P, bool tables) {
   const bool we = A.mom_weno != 0;
   const T eps = A.eps_m, half = T(0.5);
   const ZRows<T> zr{A.zs, P.Z};
-  const T dz = P.zr(DZ_C)[K];
+  const T dz = P.zr(Z_DZ_C)[K];
   const T Ax = P.yr(DY_F)[J] * dz;
   auto fx = [&](int q, int i) {
     return Ax * transport_axis(v, (int64_t)q, (int64_t)sx, half * (u[q] + u[q - sy]), we,
@@ -680,14 +619,14 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
         const int i = I0 + c / HT_Y, j = J0 + c % HT_Y;
         if (i > I1 || j >= J1 || k >= K1) continue;
         const int q = at(i, j, k);
-        FX[t] = (A.ys[DY_C * Y + j] * A.zs[DZ_C * Z + k])
+        FX[t] = (A.ys[DY_C * Y + j] * A.zs[Z_DZ_C * Z + k])
                 * transport_axis(sc, (int64_t)q, (int64_t)sx, su[q], we, eps, xmask, A.xb, i);
       } else if (t < nfx + nfy) {  // t - nfx is fyi(i, j, k)
         const int s = t - nfx, c = A.kzd.div(s), k = K0 + (s - c * kz);
         const int i = I0 + c / (HT_Y + 1), j = J0 + c % (HT_Y + 1);
         if (i >= I1 || j > J1 || k >= K1) continue;
         const int q = at(i, j, k);
-        FY[s] = (A.ys[DX_CF * Y + j] * A.zs[DZ_C * Z + k])
+        FY[s] = (A.ys[DX_CF * Y + j] * A.zs[Z_DZ_C * Z + k])
                 * transport_axis(sc, (int64_t)q, (int64_t)sy, sv[q], we, eps, ymask, A.yb, j);
       } else {  // t - nfx - nfy is fzi(i, j, k)
         const int s = t - nfx - nfy, c = A.kz1d.div(s), k = K0 + (s - c * (kz + 1));
@@ -702,7 +641,7 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
       int I, J, K;
       if (!point(t, I, J, K)) continue;
       const int64_t p = I * gsx + J * gsy + K;
-      const T dz = A.zs[DZ_C * Z + K], az = A.ys[AZ_CC * Y + J];
+      const T dz = A.zs[Z_DZ_C * Z + K], az = A.ys[AZ_CC * Y + J];
       const int x0 = fxi(I, J, K), y0 = fyi(I, J, K), z0 = fzi(I, J, K);
       const T div = ieee_div(((FX[x0 + HT_Y * kz] - FX[x0]) + (FY[y0 + kz] - FY[y0]))
                              + (FZ[z0 + 1] - FZ[z0]), az * dz);

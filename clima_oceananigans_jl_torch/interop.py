@@ -11,6 +11,10 @@ package's state for ``model``:
 - ``G_prev`` takes the layout ``model`` steps with (halo-free when
   ``model.g_interior``, else with zero halos), from either JAX layout;
 - ``pNHS`` keeps zero halos, as the projection stores it;
+- ``diffusivities`` (the LES closures' fields: tensors, a dict per
+  tracer, a tuple per closure tuple) are cut to the port's with-halo
+  shape around the interior, halos and all, since the next step's
+  interpolation onto the flux faces reads their first halo cells;
 - the 0-d ``clock`` and ``previous_dt`` leaves become host numbers;
 - a shallow-water state (RK3) has ``solution`` and ``clock`` only;
 - a hydrostatic state also carries ``eta`` (X, Y, 1) and the diagnosed
@@ -73,6 +77,31 @@ def _hydrostatic_from_numpy(model, state, out, t):
     return out
 
 
+def _diffusivities_from_numpy(d, grid):
+    """Diffusivity fields (arrays, dicts, tuples, None) into the port's
+    layout; scalars pass."""
+    if d is None:
+        return None
+    if isinstance(d, dict):
+        return {k: _diffusivities_from_numpy(v, grid) for k, v in d.items()}
+    if isinstance(d, (tuple, list)):
+        return tuple(_diffusivities_from_numpy(v, grid) for v in d)
+    if np.ndim(d) == 3:  # the port's with-halo block, centred
+        return torch.as_tensor(np.array(_interior(d, grid.total_shape)),
+                               dtype=grid.dtype, device=grid.device)
+    return d
+
+
+def _diffusivities_to_numpy(d):
+    if isinstance(d, dict):
+        return {k: _diffusivities_to_numpy(v) for k, v in d.items()}
+    if isinstance(d, (tuple, list)):
+        return tuple(_diffusivities_to_numpy(v) for v in d)
+    if isinstance(d, torch.Tensor):
+        return d.detach().cpu().numpy()
+    return d
+
+
 def state_from_numpy(model, state):
     """The port's state for ``model`` from a numpy-leaved JAX state."""
     g = model.grid
@@ -100,6 +129,8 @@ def state_from_numpy(model, state):
     if "pHY" in state:
         out["pHY"] = fill_halos(g.pad(as_t(state["pHY"])), g, CENTER,
                                 model.pressure_bcs, t)
+    if "diffusivities" in state:
+        out["diffusivities"] = _diffusivities_from_numpy(state["diffusivities"], g)
     return out
 
 
@@ -112,6 +143,8 @@ def state_to_numpy(state):
     for k in ("pNHS", "pHY", "eta", "w"):
         if k in state:
             out[k] = np_of(state[k])
+    if "diffusivities" in state:
+        out["diffusivities"] = _diffusivities_to_numpy(state["diffusivities"])
     dtype = next(iter(out["solution"].values())).dtype
     out["clock"] = Clock(np.asarray(state["clock"].time, dtype),
                          np.asarray(state["clock"].iteration, np.int32))

@@ -12,14 +12,21 @@ Counterpart of ``clima_oceananigans_jl_tpu/models/nonhydrostatic.py``
 Time stepping, as the JAX package runs it on the TPU:
 
 - quasi-AB2, fused branch (``fused_step``): the fused AB2 advance (kernel
-  K1 on the GPU, its plain PyTorch version on the CPU), the roll-based
-  projection on interiors, one pad, then ``update_state``;
+  K1 on the GPU, its plain PyTorch version on the CPU), then either the
+  roll-based projection on interiors and one pad, or (``general_route``:
+  a stretched z, a vertically implicit closure, w walls that are not
+  imposed values) the implicit step and ``project_velocities`` on the
+  with-halo ψ′; then ``update_state``;
 - quasi-AB2, general branch (a term K1 lacks: forcing, background
-  fields, Stokes drift, tilted gravity, flux-BC values, or a closure whose
-  vertical part the kernel cannot take): ``tendencies`` → ``ab2_substep``
-  → implicit step (the identity) → ``project_velocities``;
+  fields, Stokes drift, tilted gravity, flux-BC values, an LES,
+  biharmonic or array-valued closure, or a closure whose vertical part
+  the kernel cannot take): ``tendencies`` → ``ab2_substep`` → implicit
+  step → ``project_velocities``;
 - RK3: three stages of ``tendencies`` → ``rk3_substep`` → implicit step →
   ``project_velocities`` → ``update_state``.
+
+The implicit step (a vertically implicit closure) solves each field's
+columns through ``solve_batched_tridiagonal`` (kernel T1 on the GPU).
 
 ``tendencies`` computes the advection of every field through
 ``fused_advective_tendencies`` (kernel K2 on the GPU) and adds, in the
@@ -28,13 +35,18 @@ tilted-gravity terms, the Stokes drift, diffusion, then per field its
 forcing and boundary fluxes, with PyTorch ops. ``project_velocities``
 takes the roll-based projection where the JAX package does (periodic x
 and y, w walls that are imposed values), and otherwise the general
-projection: halo fills, ``fused_divergence`` (K3b), the FFT solve and
-``fused_pressure_gradient`` (K3c). ``update_state`` and the general
-projection fill halos through ``fused_fill_halos`` (K6), two launches
-each, whatever the BCs' values (scalars, planes, callables, gradients).
-A configuration the port cannot run (other Coriolis or closures,
-immersed boundaries, Flat axes, bounded x or y, stretched grids, ...)
-raises ``NotImplementedError`` at construction. The kernels' wrappers
+projection: halo fills, ``fused_divergence`` (K3b), the pressure solve
+and ``fused_pressure_gradient`` (K3c). On a grid stretched in z the
+pressure solve is the Fourier-tridiagonal one (its modes through T1), and
+the divergence and gradient are the whole-array PyTorch operators with
+the grid's per-level metrics, as the JAX package runs them there.
+``update_state`` and the general projection fill halos through
+``fused_fill_halos`` (K6), two launches each, whatever the BCs' values
+(scalars, planes, callables, gradients); ``update_state`` computes the
+closure's diffusivities (the LES closures) between them. A configuration
+the port cannot run (other Coriolis or closures, immersed boundaries,
+Flat axes, bounded x or y, stretched x or y, ...) raises
+``NotImplementedError`` at construction. The kernels' wrappers
 come from ``KERNELS``; the JAX keyword ``fused_advection=False`` swaps in
 ``PLAIN`` and takes the general AB2 branch, as its JAX meaning has it,
 and so do background fields, as in the JAX package.
@@ -55,7 +67,8 @@ from ..advection.fluxes import div_Uc, div_vu, div_vv, div_vw
 from ..buoyancy.buoyancy import (buoyancy_x_term, buoyancy_y_term,
                                  hydrostatic_pressure_anomaly)
 from ..closures.implicit_vertical_diffusion import implicit_step_fields
-from ..closures.scalar_diffusivity import (compute_closure_diffusivities,
+from ..closures.scalar_diffusivity import (cell_diffusion_timescale,
+                                           compute_closure_diffusivities,
                                            momentum_diffusion,
                                            tracer_diffusion)
 from ..fields.background import materialize_background
@@ -66,7 +79,7 @@ from ..ops import stencil as st
 from ..ops.fused_fill import (fields_unsupported_reason, fused_fill_halos,
                               fused_fill_halos_reference)
 from ..ops.fused_step import (fused_ab2_advance, fused_ab2_advance_reference,
-                              fused_step_ok, unsupported_reason)
+                              fused_step_ok, general_route, unsupported_reason)
 from ..ops.fused_tendencies import (fused_advective_tendencies,
                                     fused_advective_tendencies_reference,
                                     fused_divergence,
@@ -75,17 +88,24 @@ from ..ops.fused_tendencies import (fused_advective_tendencies,
                                     fused_pressure_gradient_reference,
                                     z_halo_free_ok)
 from ..solvers.fft_poisson import FFTPoissonSolver
+from ..solvers.fourier_tridiagonal import FourierTridiagonalSolver
+from ..solvers.tridiagonal import (fourier_tridiagonal,
+                                   fourier_tridiagonal_reference,
+                                   solve_batched_tridiagonal,
+                                   solve_batched_tridiagonal_reference)
 from ..timesteppers.steppers import (RK3_GAMMA, RK3_ZETA, Clock, ab2_substep,
                                      rk3_substep)
 from ..utils.location import CENTER, U_LOC, V_LOC, W_LOC
 
 #: the kernels' wrappers a step calls, by name: the fused AB2 advance (K1),
 #: the advection of every ``tendencies`` call (K2), the general
-#: projection's divergence (K3b) and gradient (K3c), and the halo fills
-#: of ``update_state`` and the general projection (K6)
+#: projection's divergence (K3b) and gradient (K3c), the halo fills of
+#: ``update_state`` and the general projection (K6), the implicit step's
+#: column solves and the Fourier-tridiagonal pressure solve's (T1)
 KERNELS = dict(advance=fused_ab2_advance, advect=fused_advective_tendencies,
                divergence=fused_divergence, gradient=fused_pressure_gradient,
-               fill=fused_fill_halos)
+               fill=fused_fill_halos, tridiagonal=solve_batched_tridiagonal,
+               fourier=fourier_tridiagonal)
 #: their plain versions: ``step(..., kernels=PLAIN)`` runs a step without
 #: the kernels on the card, as does a model built with
 #: ``fused_advection=False``
@@ -93,7 +113,19 @@ PLAIN = dict(advance=fused_ab2_advance_reference,
              advect=fused_advective_tendencies_reference,
              divergence=fused_divergence_reference,
              gradient=fused_pressure_gradient_reference,
-             fill=fused_fill_halos_reference)
+             fill=fused_fill_halos_reference,
+             tridiagonal=solve_batched_tridiagonal_reference,
+             fourier=fourier_tridiagonal_reference)
+
+
+def select_pressure_solver(grid):
+    """A regular grid takes the FFT solve; a grid stretched in z only (x
+    and y regular) the Fourier-tridiagonal one. A stretched x or y, whose
+    solve is the JAX package's MultigridPoissonSolver, is refused at
+    construction (``unsupported_reason``)."""
+    if grid.all_regular:
+        return FFTPoissonSolver.build(grid)
+    return FourierTridiagonalSolver.build(grid)
 
 
 class NonhydrostaticModel:
@@ -122,6 +154,10 @@ class NonhydrostaticModel:
             for t in buoyancy.required_tracers:
                 if t not in names:
                     names.append(t)
+        for cl in (closure if isinstance(closure, (tuple, list)) else (closure,)):
+            for t in getattr(cl, "required_tracers", ()):
+                if t not in names:
+                    names.append(t)
         self.tracer_names = tuple(names)
         h = max(self.advection.required_halo,
                 self.tracer_advection.required_halo, 1)
@@ -148,7 +184,13 @@ class NonhydrostaticModel:
             reason = self._fill_unsupported_reason()
         if reason is not None:
             raise NotImplementedError(reason)
-        self.pressure_solver = FFTPoissonSolver.build(self.grid)
+        self.pressure_solver = select_pressure_solver(self.grid)
+        # the general projection's divergence and gradient: K3b and K3c
+        # where z is regular (the kernels take one Δz, as the JAX package's
+        # fused ones take compile-time metrics); on a stretched z the
+        # whole-array operators with the per-level metrics, which is where
+        # the JAX package itself runs XLA ops instead of its Pallas kernels
+        self.projection_kernels = self.grid.z_regular
         self.fused_step = fused_step_ok(self)
 
     # -- state ----------------------------------------------------------------
@@ -197,6 +239,11 @@ class NonhydrostaticModel:
         g = self.grid
         if self.g_interior:
             return {k: g.interior(x).contiguous() for k, x in G_prev.items()}
+        return self._g_prev_with_halos(G_prev)
+
+    def _g_prev_with_halos(self, G_prev):
+        """``G_prev`` with halos (zero halos from the halo-free layout)."""
+        g = self.grid
         return {k: x if tuple(x.shape) == g.total_shape else g.pad(x)
                 for k, x in G_prev.items()}
 
@@ -310,11 +357,13 @@ class NonhydrostaticModel:
 
     # -- pressure projection --------------------------------------------------
     def _fast_projection_ok(self):
-        """The roll-based projection applies: periodic x and y, periodic
-        or bounded z, and w-wall BCs that are imposed values. Otherwise
-        ``project_velocities`` takes the general projection."""
+        """The roll-based projection applies: a regular grid, periodic x
+        and y, periodic or bounded z, and w-wall BCs that are imposed
+        values. Otherwise ``project_velocities`` takes the general
+        projection."""
         g = self.grid
-        if not (g.topology[0] is PERIODIC and g.topology[1] is PERIODIC
+        if not (g.all_regular and g.topology[0] is PERIODIC
+                and g.topology[1] is PERIODIC
                 and g.topology[2] in (PERIODIC, BOUNDED)):
             return False
         if g.topology[2] is BOUNDED:
@@ -385,20 +434,35 @@ class NonhydrostaticModel:
     def _project_velocities_general(self, state, dt, kernels=None):
         """The general projection: copies of u, v, w with their halos
         filled, their divergence through ``kernels["divergence"]`` (K3b),
-        the FFT solve, pNHS with halos filled under ``pressure_bcs``, its
-        gradient through ``kernels["gradient"]`` (K3c), and the correction
-        over the with-halo arrays. The two fills go through
-        ``kernels["fill"]`` (K6, or its plain version under ``PLAIN``)."""
+        the pressure solve, pNHS with halos filled under ``pressure_bcs``,
+        its gradient through ``kernels["gradient"]`` (K3c), and the
+        correction over the with-halo arrays. The two fills go through
+        ``kernels["fill"]`` (K6, or its plain version under ``PLAIN``). On
+        a stretched z (``projection_kernels`` false) the divergence and
+        gradient are the whole-array operators, and the Fourier-tridiagonal
+        solve's modes go through ``kernels["fourier"]`` (T1)."""
         k = self._kernels(kernels)
         grid = self.grid
         sol = dict(state["solution"])
         u, v, w = self._filled_velocity_copies(sol, state["clock"].time,
                                                k["fill"])
-        phi = self.pressure_solver.solve(k["divergence"](grid, u, v, w) / dt)
+        divergence, gradient = ((k["divergence"], k["gradient"])
+                                if self.projection_kernels else
+                                (fused_divergence_reference,
+                                 fused_pressure_gradient_reference))
+        phi = self._solve_pressure(divergence(grid, u, v, w) / dt, k)
         pNHS = self._filled_pressure(phi, k["fill"])
-        gx, gy, gz = k["gradient"](grid, pNHS)
+        gx, gy, gz = gradient(grid, pNHS)
         sol.update(u=u - dt * gx, v=v - dt * gy, w=w - dt * gz)
         return dict(state, solution=sol, pNHS=pNHS)
+
+    def _solve_pressure(self, rhs, kernels):
+        """∇²φ = rhs on the interior: the FFT solve, or the
+        Fourier-tridiagonal one with its modes through
+        ``kernels["fourier"]``."""
+        if isinstance(self.pressure_solver, FourierTridiagonalSolver):
+            return self.pressure_solver.solve(rhs, tridiagonal=kernels["fourier"])
+        return self.pressure_solver.solve(rhs)
 
     def _filled_velocity_copies(self, sol, t, fill):
         """Copies of u, v and w with their halos filled, in one call of
@@ -439,7 +503,7 @@ class NonhydrostaticModel:
         clock0 = state["clock"]
         euler = clock0.iteration == 0 or abs(state["previous_dt"] - dt) > 1e-14
         state = dict(state, G_prev=self._g_prev_in_layout(state["G_prev"]))
-        if self.fused_step:
+        if self.fused_step and not general_route(self):
             sol, G = kernels["advance"](self, state, dt, euler)
             ui, vi, wi, phi = self._fast_project_interior(
                 sol["u"], sol["v"], sol["w"], clock0.time, dt)
@@ -447,12 +511,16 @@ class NonhydrostaticModel:
             state = dict(state, solution={k: grid.pad(x) for k, x in sol.items()},
                          pNHS=grid.pad(phi))
         else:
-            G = self.tendencies(state, kernels)
-            sol = ab2_substep(state["solution"], G, state["G_prev"], dt,
-                              self.ab2_chi, euler)
+            if self.fused_step:  # ψ′ with halos, as the JAX kernel pads it
+                sol, G = kernels["advance"](self, state, dt, euler)
+            else:
+                G = self.tendencies(state, kernels)
+                sol = ab2_substep(state["solution"], G, state["G_prev"], dt,
+                                  self.ab2_chi, euler)
             sol = implicit_step_fields(sol, grid, self._locs(), self.closure,
                                        dt, state.get("diffusivities"),
-                                       self.bcs, clock0.time)
+                                       self.bcs, clock0.time,
+                                       kernels["tridiagonal"])
             state = self.project_velocities(dict(state, solution=sol), dt,
                                             kernels)
         state = dict(state, clock=clock0.tick(dt), G_prev=G,
@@ -470,7 +538,7 @@ class NonhydrostaticModel:
             sol = implicit_step_fields(sol, self.grid, self._locs(),
                                        self.closure, stage_dt,
                                        state.get("diffusivities"), self.bcs,
-                                       clock0.time)
+                                       clock0.time, kernels["tridiagonal"])
             state = self.project_velocities(dict(state, solution=sol),
                                             stage_dt, kernels)
             state = dict(state, clock=state["clock"].tick(stage_dt, stage=True))
@@ -478,3 +546,11 @@ class NonhydrostaticModel:
             G_prev = G
         clock = Clock(clock0.time + dt, clock0.iteration + 1, 0)
         return dict(state, clock=clock, G_prev=G_prev, previous_dt=float(dt))
+
+    # -- diagnostics ---------------------------------------------------------------
+    def cell_diffusion_timescale(self, state):
+        """min Δ²/max(ν, κ) over this model's closures; +inf when nothing
+        limits."""
+        return cell_diffusion_timescale(self.closure, self.grid,
+                                        state.get("diffusivities"),
+                                        self.tracer_names)

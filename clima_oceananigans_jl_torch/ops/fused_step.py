@@ -3,10 +3,17 @@ AB2 substep in one kernel launch.
 
 Counterpart of ``clima_oceananigans_jl_tpu/ops/fused_step.py``. Per
 prognostic field ψ: G = −∇·(vψ) [− f×u and − ∂pHY′ on u and v]
-[+ ∇·(κ∇ψ)], then ψ′ = ψ + Δt((3/2+χ)G − (1/2+χ)G⁻). ψ′ comes back
-halo-free, shape (nx, ny, nz); the model projects u, v, w on these
-interiors and pads once. G comes back in the model's ``G_prev`` layout
-(``model.g_interior``: halo-free, else with zero halos).
+[+ ∇·(κ∇ψ), horizontal only for a vertically implicit closure], then
+ψ′ = ψ + Δt((3/2+χ)G − (1/2+χ)G⁻). G comes back in the model's
+``G_prev`` layout (``model.g_interior``: halo-free, else with zero
+halos). ψ′ comes back halo-free, shape (nx, ny, nz), where the model
+projects u, v, w on these interiors with the roll-based projection and
+pads once; on the JAX package's other route (``general_route``: a
+stretched z, a vertically implicit closure, or w walls the roll-based
+projection cannot impose), with halos as the JAX kernel pads it, for the
+implicit step and ``project_velocities``: zeros, but for w's top wall face
+on a bounded z with halo-carrying G (``w_top``), which the general
+projection reads. That route runs the kernel's general instantiation.
 
 ``fused_ab2_advance`` is the wrapper: on CUDA tensors it launches the
 hand-written kernel ``csrc/fused_ab2_advance.cu`` (or raises), on CPU
@@ -20,7 +27,11 @@ import numbers
 
 import torch
 
-from ..closures.scalar_diffusivity import ScalarDiffusivity
+from ..closures.eddy_viscosity import (AnisotropicMinimumDissipation,
+                                       SmagorinskyLilly, TwoDimensionalLeith)
+from ..closures.implicit_vertical_diffusion import implicit_step_is_noop
+from ..closures.scalar_diffusivity import (ScalarBiharmonicDiffusivity,
+                                           ScalarDiffusivity)
 from ..coriolis.coriolis import BetaPlane, FPlane
 from ..grids.topology import BOUNDED, FLAT, PERIODIC
 from ..timesteppers.steppers import ab2_coefficients, ab2_substep
@@ -28,18 +39,22 @@ from ..utils.location import U_LOC, V_LOC
 from .fused_tendencies import (ADVECTION_ARGTYPES, advection_args,
                                check_tensor,
                                fused_advective_tendencies_reference, kernel_fn,
-                               launch, pointers)
+                               launch, pointers, z_rows_arg)
 from .metric_rows import coriolis_rows
 
 _LATER = "(ROADMAP Queue 1 item 4)"
+#: the closures the nonhydrostatic model takes, alone or in tuples
+CLOSURES = (ScalarDiffusivity, ScalarBiharmonicDiffusivity, SmagorinskyLilly,
+            AnisotropicMinimumDissipation, TwoDimensionalLeith)
 
 
 def _scalar_coefficient(v):
-    """A ν/κ entry the port takes: None, a number, or a per-tracer dict of
-    numbers."""
+    """A ν/κ entry the kernel takes: None, a number or a 0-d tensor, or a
+    per-tracer dict of them."""
     if isinstance(v, dict):
         return all(_scalar_coefficient(x) for x in v.values())
-    return v is None or isinstance(v, numbers.Real)
+    return (v is None or isinstance(v, numbers.Real)
+            or (isinstance(v, torch.Tensor) and v.ndim == 0))
 
 
 def unsupported_reason(model):
@@ -52,16 +67,11 @@ def unsupported_reason(model):
         return (f"{type(cor).__name__} Coriolis is not ported yet (FPlane and "
                 f"BetaPlane are) {_LATER}")
     cl = model.closure
-    if isinstance(cl, (tuple, list)):
-        return f"closure tuples are not ported yet {_LATER}"
-    if cl is not None and not isinstance(cl, ScalarDiffusivity):
-        return (f"{type(cl).__name__} closures are not ported yet "
-                f"(ScalarDiffusivity is) {_LATER}")
-    if cl is not None and cl.vertically_implicit:
-        return f"vertically implicit diffusion is not ported yet {_LATER}"
-    if cl is not None and not all(_scalar_coefficient(v) for v in
-                                  (cl.nu, cl.kappa, cl.nu_z, cl.kappa_z)):
-        return f"array- or callable-valued ν/κ are not ported yet {_LATER}"
+    for c in (cl if isinstance(cl, (tuple, list)) else (cl,)):
+        if c is not None and not isinstance(c, CLOSURES):
+            return (f"{type(c).__name__} closures are not ported yet (CATKE, "
+                    "convective adjustment, Ri-based mixing and GM/Redi wait "
+                    "for ROADMAP Queue 1 item 7)")
     for attr in ("immersed_boundary", "particles"):
         if getattr(model, attr) is not None:
             return f"{attr} is not ported yet {_LATER}"
@@ -74,27 +84,30 @@ def unsupported_reason(model):
         return (f"topology {names} is not ported yet (bounded x or y: the "
                 "JAX package runs it with fused_advection=False, its "
                 f"advection outside K2) {_LATER}")
-    if not model.grid.all_regular:
-        return ("stretched grids in the nonhydrostatic model are not ported "
-                "yet (the Fourier-tridiagonal pressure solve) " + _LATER)
-    if not model._fast_projection_ok() and fused_step_ok(model):
-        return ("the general projection after the fused AB2 advance (w walls "
-                f"that are not imposed values) is not ported yet {_LATER}")
+    if not model.grid.hregular:
+        return ("a stretched x or y in the nonhydrostatic model is not "
+                "ported yet (its pressure solve, MultigridPoissonSolver, "
+                "solvers/stencil_matrix.py, waits for ROADMAP Queue 1 item 7)")
     return None
 
 
 def _step_kernel_closure(model):
     """The model's closure when the fused kernel can run its explicit part
     (the JAX package's ``_step_kernel_closure`` with ``kernel_closure``):
-    a constant-coefficient ``ScalarDiffusivity`` — the only closure the
-    port accepts — whose vertical part is exact in the kernel. The JAX
-    kernel zeroes the wall-face diffusive flux, which equals the mirror
-    fill only for zero-gradient (flux/None) z walls and an impenetrable
-    zero w wall; value or gradient z walls keep diffusion outside the
-    kernel (the general branch). None otherwise."""
+    one constant-coefficient ``ScalarDiffusivity`` (scalars or per-tracer
+    dicts of scalars). A vertically implicit one qualifies as it is: the
+    kernel runs its horizontal part and the implicit solve the rest. An
+    explicit one qualifies when its vertical part is exact in the kernel:
+    the JAX kernel zeroes the wall-face diffusive flux, which equals the
+    mirror fill only for zero-gradient (flux/None) z walls and an
+    impenetrable zero w wall; value or gradient z walls keep diffusion
+    outside the kernel (the general branch). None otherwise."""
     cl = model.closure
-    if cl is None:
+    if not isinstance(cl, ScalarDiffusivity) or not all(
+            _scalar_coefficient(v) for v in (cl.nu, cl.kappa, cl.nu_z, cl.kappa_z)):
         return None
+    if cl.vertically_implicit:
+        return cl
     if model.grid.topology[2] is BOUNDED:
         for name in model.prognostic_names():
             for side in ("bottom", "top"):
@@ -133,20 +146,63 @@ def fused_step_ok(model):
     return True
 
 
+def general_route(model):
+    """The JAX package's route after the fused advance other than its
+    interior fast lane: the implicit step and ``project_velocities`` on
+    with-halo ψ′, where the roll-based projection does not apply (a
+    stretched z, w walls that are not imposed values) or the implicit step
+    is not the identity. The model's fast lane (the roll-based projection
+    on ψ′ interiors) gives the same numbers wherever both apply."""
+    return not (model._fast_projection_ok()
+                and implicit_step_is_noop(model.closure))
+
+
+def w_top(model):
+    """K1 also writes G_w and ψ′_w at w's top wall face (with-halo z index
+    hz+nz): in the fused branch, on the general route with halo-carrying G
+    on a bounded z, where a w wall that the fill does not impose (FluxBC)
+    leaves that face to the step."""
+    return (model.fused_step and general_route(model) and not model.g_interior
+            and model.grid.topology[2] is BOUNDED)
+
+
 def fused_ab2_advance_reference(model, state, dt, euler):
     """The plain-PyTorch version of the kernel: the model's ``tendencies``
     with the plain advection (div_* fluxes, Coriolis, −∂pHY′, diffusion in
-    the JAX term order) and ``ab2_substep`` on interiors. Returns
-    ``(psi_new, G)``: halo-free ψ′, G in the model's ``G_prev`` layout."""
+    the JAX term order) and ``ab2_substep``. Returns ``(psi_new, G)``:
+    ψ′ halo-free, or with halos on the ``general_route`` (zeros, but for
+    w's top wall face under ``w_top``), and G in the model's ``G_prev``
+    layout (with-halo: zero halos, but for that face)."""
     grid = model.grid
-    G = {k: grid.interior(g).contiguous() for k, g in model.tendencies(
-        state, {"advect": fused_advective_tendencies_reference}).items()}
+    G = model.tendencies(state, {"advect": fused_advective_tendencies_reference})
+    if general_route(model):
+        gp = model._g_prev_with_halos(state["G_prev"])
+        psi = ab2_substep(state["solution"], G, gp, dt, model.ab2_chi, euler)
+        top = w_top(model)
+        psi = {k: _keep_written(grid, x, top and k == "w") for k, x in psi.items()}
+        if model.g_interior:
+            G = {k: grid.interior(g).contiguous() for k, g in G.items()}
+        else:
+            G = {k: _keep_written(grid, g, top and k == "w") for k, g in G.items()}
+        return psi, G
+    G = {k: grid.interior(g).contiguous() for k, g in G.items()}
     sol = {k: grid.interior(v) for k, v in state["solution"].items()}
     gp = {k: grid.interior(g) for k, g in state["G_prev"].items()}
     psi = ab2_substep(sol, G, gp, dt, model.ab2_chi, euler)
     if not model.g_interior:
         G = {k: grid.pad(g) for k, g in G.items()}
     return psi, G
+
+
+def _keep_written(grid, x, top_face):
+    """A with-halo copy of ``x`` with zero halos, but for w's top wall face
+    (with-halo z index hz+nz over the interior columns) under
+    ``top_face``: the points the general instantiation of K1 writes."""
+    out = grid.pad(grid.interior(x))
+    if top_face:
+        (hx, hy, hz), (nx, ny, nz) = grid.halo, grid.shape
+        out[hx:hx + nx, hy:hy + ny, hz + nz] = x[hx:hx + nx, hy:hy + ny, hz + nz]
+    return out
 
 
 def _coriolis_rows(model):
@@ -187,27 +243,37 @@ def _launch(model, state, dt, euler):
     fu, fv = _coriolis_rows(model)
     kh, kz = _diffusivities(model, names)
 
-    out_psi = [torch.empty(grid.shape, dtype=dtype, device=device) for _ in names]
-    # K1 writes every point of G, in the with-halo layout its zero halos too
+    general = general_route(model)
+    zs, tables = z_rows_arg(grid, model.advection, model.tracer_advection,
+                            general)
+    cl = _step_kernel_closure(model)
+    vertical = int(cl is None or not cl.vertically_implicit)
+    # K1 writes every point of psi' and G, in the with-halo layouts their
+    # halos too
+    psi_shape = grid.total_shape if general else grid.shape
+    out_psi = [torch.empty(psi_shape, dtype=dtype, device=device) for _ in names]
     out_g = [torch.empty(g_shape, dtype=dtype, device=device) for _ in names]
     c1, c2 = ab2_coefficients(model.ab2_chi, euler)
     ptr = lambda t: None if t is None else t.data_ptr()
     fn = kernel_fn("fused_ab2_advance", "fused_ab2_advance", dtype,
                    [ctypes.c_void_p] * 9 + [ctypes.c_int] + ADVECTION_ARGTYPES
-                   + [ctypes.c_double] * 3)
+                   + [ctypes.c_double] * 3 + [ctypes.c_void_p]
+                   + [ctypes.c_int] * 3)
     launch("fused_ab2_advance", fn, device,
            pointers([sol[n] for n in names]), pointers([gp[n] for n in names]),
            pointers(out_psi), pointers(out_g), ptr(ph), ptr(fu), ptr(fv),
-           kh, kz, int(not model.g_interior), *args, c1, c2, float(dt))
+           kh, kz, int(not model.g_interior), *args, c1, c2, float(dt),
+           ptr(zs), tables, vertical, int(w_top(model)))
     fused_ab2_advance.launches += 1
     return dict(zip(names, out_psi)), dict(zip(names, out_g))
 
 
 def fused_ab2_advance(model, state, dt, euler):
-    """One fused AB2 advance → ``(psi_new, G)``: halo-free ψ′, G in the
-    model's ``G_prev`` layout. CUDA tensors go through the hand-written
-    kernel (a failure raises; nothing falls back), CPU tensors through
-    ``fused_ab2_advance_reference``."""
+    """One fused AB2 advance → ``(psi_new, G)``: ψ′ halo-free (with halos
+    on the ``general_route``), G in the model's ``G_prev`` layout. CUDA
+    tensors go through the hand-written kernel (its general instantiation
+    on the general route; a failure raises and nothing falls back), CPU
+    tensors through ``fused_ab2_advance_reference``."""
     device = state["solution"]["u"].device
     if device.type == "cuda":
         return _launch(model, state, dt, euler)

@@ -4,7 +4,8 @@ Counterpart of ``clima_oceananigans_jl_tpu/ops/fused_tendencies.py``:
 
 - K2, the Pallas kernel ``fused_advective_tendencies``: −∇·(vψ) of u, v,
   w and every tracer of the nonhydrostatic model in one launch
-  (``csrc/fused_advective_tendencies.cu``), with
+  (``csrc/fused_advective_tendencies.cu``; on a stretched z its stretched
+  instantiation, with per-level Δz and WENO5's tables as z rows), with
   ``supports_fused_advection`` and ``z_halo_free_ok``;
 - K3, the generic tiler ``pallas_fuse``, as one concrete kernel for each
   of its three users:
@@ -37,21 +38,24 @@ from ..utils.location import C, CENTER, F, U_LOC, V_LOC, W_LOC
 from . import _build
 from . import operators as op
 from . import stencil as st
+from .metric_rows import z_rows
 
 
 def supports_fused_advection(grid):
-    """The fused advection applies: x and y not bounded (the near-wall
-    order reduction is z-only in the kernels)."""
-    return (grid.topology[0] is not BOUNDED and grid.topology[1] is not BOUNDED
+    """The fused advection applies: x and y regular and not bounded (the
+    near-wall order reduction is z-only in the kernels); z may be
+    stretched."""
+    return (grid.hregular and grid.topology[0] is not BOUNDED
+            and grid.topology[1] is not BOUNDED
             and grid.Hy >= 1 and grid.Nz >= 1)
 
 
 def z_halo_free_ok(grid, w_bcs=None):
-    """The JAX package's test for z-halo-free kernel blocks: periodic z,
-    or bounded z with impenetrable (zero open/value) w walls. The port's
-    kernels read real z halos either way; the model uses this test only
-    to choose the JAX package's ``G_prev`` layout."""
-    if grid.shape[2] <= 1 or grid.halo[2] == 0:
+    """The JAX package's test for z-halo-free kernel blocks: a regular z
+    that is periodic, or bounded with impenetrable (zero open/value) w
+    walls. The port's kernels read real z halos either way; the model uses
+    this test only to choose the JAX package's ``G_prev`` layout."""
+    if grid.shape[2] <= 1 or grid.halo[2] == 0 or not grid.z_regular:
         return False
     topo = grid.topology[2]
     if topo is PERIODIC:
@@ -100,7 +104,9 @@ def axis_bounds(grid, axis, weno):
 
 def advection_args(grid, scheme, tracer_scheme, nf):
     """The shared advection arguments of K1 and K2 after the pointer
-    arrays: field count, sizes, halos, schemes, z masks, eps, spacings."""
+    arrays: field count, sizes, halos, schemes, z masks, eps, spacings
+    (the z spacing of a regular z; a stretched one's per-level spacings
+    come as ``z_rows_arg``)."""
     if not 3 <= nf <= 16:
         raise ValueError(f"the kernels take 3 to 16 fields, got {nf}")
     if not supports_fused_advection(grid):
@@ -116,6 +122,20 @@ def advection_args(grid, scheme, tracer_scheme, nf):
 
 #: ctypes types of ``advection_args``
 ADVECTION_ARGTYPES = [ctypes.c_int] * 14 + [ctypes.c_double] * 5
+
+
+def z_rows_arg(grid, scheme, tracer_scheme, general=False):
+    """(z rows, tables) of K1's and K2's stretched (or general)
+    instantiation: on a stretched z, or with ``general``, the z rows of
+    ``ops/metric_rows.py`` (Δzᶜ and Δzᶠ per level, then WENO5's to-faces
+    and to-centres tables when a scheme is WENO5 and z is stretched) and
+    whether they carry the tables; (None, 0) for the regular
+    instantiation."""
+    if grid.z_regular and not general:
+        return None, 0
+    tables = (not grid.z_regular
+              and any(type(s) is WENO5 for s in (scheme, tracer_scheme)))
+    return z_rows(grid, tables=tables, to_centres=tables), int(tables)
 
 
 def check_tensor(name, t, shape, dtype, device):
@@ -163,15 +183,17 @@ def _launch(grid, scheme, tracer_scheme, u, v, w, tracers):
     args = advection_args(grid, scheme, tracer_scheme, len(fields))
     for n, f in zip(names, fields):
         check_tensor(n, f, grid.total_shape, dtype, device)
+    zs, tables = z_rows_arg(grid, scheme, tracer_scheme)
     # K2 writes every point: the interior, the zero halos (and w's top
     # wall face on a bounded z axis)
     out = [torch.empty(grid.total_shape, dtype=dtype, device=device)
            for _ in names]
     fn = kernel_fn("fused_advective_tendencies", "fused_advective_tendencies",
                    dtype, [ctypes.c_void_p] * 2 + ADVECTION_ARGTYPES
-                   + [ctypes.c_int])
+                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
     launch("fused_advective_tendencies", fn, device, pointers(fields),
-           pointers(out), *args, int(grid.topology[2] is BOUNDED))
+           pointers(out), *args, int(grid.topology[2] is BOUNDED),
+           None if zs is None else zs.data_ptr(), tables)
     fused_advective_tendencies.launches += 1
     return dict(zip(names, out))
 

@@ -17,7 +17,9 @@ and kept in the grid's cache.
 - ``z_rows``: Δz[C], Δz[F], then on a stretched z axis the 24 rows of
   WENO5's to-faces tables (``advection/reconstruction_tables.py``): for
   the left then the right side, for each stencil r, its optimal weight and
-  its three coefficients.
+  its three coefficients; with ``to_centres``, the 24 rows of the
+  to-centres tables after them, in the same order (the nonhydrostatic
+  kernels K1 and K2 reconstruct w at centres for its own z flux).
 """
 from __future__ import annotations
 
@@ -34,6 +36,9 @@ Y_ROWS = (tuple(f"dx_{lx.value}{ly.value}" for lx, ly in _LOC2)
           + ("dy_c", "dy_f", "f_u", "f_v"))
 #: the first rows of ``z_rows``; the table rows follow on a stretched z
 Z_ROWS = ("dz_c", "dz_f")
+#: rows of one set of WENO5 tables in ``z_rows`` (2 sides x 3 stencils x
+#: the optimal weight and three coefficients)
+TABLE_ROWS = 24
 
 
 def y_row(grid, metric):
@@ -79,14 +84,15 @@ def y_rows(grid, coriolis=None):
     return grid._cache[key]
 
 
-def z_rows(grid, tables=False):
-    """(2 or 26, Zt) tensor of the z rows; ``tables`` adds the stretched z
-    axis' WENO5 to-faces tables (it must be stretched)."""
-    key = ("z_rows", bool(tables))
+def z_rows(grid, tables=False, to_centres=False):
+    """(2, 26 or 50, Zt) tensor of the z rows; ``tables`` adds the
+    stretched z axis' WENO5 to-faces tables (it must be stretched) and
+    ``to_centres`` its to-centres tables after them."""
+    key = ("z_rows", bool(tables), bool(tables and to_centres))
     if key not in grid._cache:
         rows = [z_row(grid, grid.dz((C, C, loc))) for loc in (C, F)]
-        if tables:
-            t = weno5_tables(grid, 2, True)
+        for to_f in ((True, False) if to_centres else (True,)) if tables else ():
+            t = weno5_tables(grid, 2, to_f)
             for side in ("left", "right"):
                 for d, cj, _voff, _kind in t[side]:
                     rows += [d] + list(cj)

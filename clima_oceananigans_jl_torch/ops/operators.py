@@ -45,6 +45,18 @@ def dd(f, grid, axis, loc):
     return delta(f, axis, loc) / grid.spacing(axis, out_loc)
 
 
+def ddx(f, grid, loc):
+    return dd(f, grid, 0, loc)
+
+
+def ddy(f, grid, loc):
+    return dd(f, grid, 1, loc)
+
+
+def ddz(f, grid, loc):
+    return dd(f, grid, 2, loc)
+
+
 def div_ccc(u, v, w, grid):
     """FV divergence at cell centres of a C-grid vector (u, v, w)."""
     return (st.dxc(grid.Ax(U_LOC) * u)

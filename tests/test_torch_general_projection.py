@@ -260,6 +260,10 @@ def test_ab2_general_branch_with_flux_walls_matches():
 
 
 def test_port_still_refuses_bounded_x_and_y_and_the_fused_ab2_branch():
+    """Bounded x and y stay refused. The fused AB2 branch before the
+    general projection runs: K1's ψ′ with halos, then the implicit step
+    and ``project_velocities`` (``test_torch_stretched_nonhydrostatic.py``
+    holds it against JAX)."""
     for topo in ((T.BOUNDED, T.PERIODIC, T.BOUNDED),
                  (T.PERIODIC, T.BOUNDED, T.BOUNDED)):
         grid = T.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1),
@@ -267,8 +271,8 @@ def test_port_still_refuses_bounded_x_and_y_and_the_fused_ab2_branch():
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
             T.NonhydrostaticModel(grid, advection=T.WENO5(),
                                   timestepper="RungeKutta3")
-    with pytest.raises(NotImplementedError, match="fused AB2"):
-        models(timestepper="QuasiAdamsBashforth2")
+    _, tm = models(timestepper="QuasiAdamsBashforth2")
+    assert tm.fused_step and tfs.general_route(tm) and tfs.w_top(tm)
     # value walls keep the AB2 step on the roll-based projection
     _, tm = models(w_bcs=("value", "value"), timestepper="QuasiAdamsBashforth2")
     assert tm._fast_projection_ok() and tfs.unsupported_reason(tm) is None

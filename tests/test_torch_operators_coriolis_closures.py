@@ -163,11 +163,15 @@ def test_closure_front_ends_match(which):
 
 
 def test_unported_closures_raise():
+    """A closure the port lacks (CATKE and the other vertical-mixing and
+    isopycnal closures) is refused by the model at construction, naming
+    its ROADMAP item; closure tuples sum their members' terms, and a closure without diffusivity fields gives
+    None, as in the JAX package."""
     tg = grids()[1]
-    a = torch.zeros(tg.total_shape, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        tsd.momentum_diffusion(a, tg, T.U_LOC, object())
-    with pytest.raises(NotImplementedError):
-        tsd.tracer_diffusion(a, tg, "b", (tsd.ScalarDiffusivity(),))
-    with pytest.raises(NotImplementedError):
-        tsd.compute_closure_diffusivities(object(), tg, {}, None, {})
+    with pytest.raises(NotImplementedError, match="item 7"):
+        T.NonhydrostaticModel(tg, closure=object())
+    a = torch.as_tensor(field(tg, 13))
+    one = tsd.ScalarDiffusivity(nu=1e-3, kappa=2e-3)
+    assert torch.equal(tsd.tracer_diffusion(a, tg, "b", (one,)),
+                       torch.zeros_like(a) + tsd.tracer_diffusion(a, tg, "b", one))
+    assert tsd.compute_closure_diffusivities(object(), tg, {}, None, {}) is None
