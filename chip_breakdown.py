@@ -5,7 +5,8 @@
                               [shallow-water] [k6-k3c] [division]
                               [k3a-division] [k4b-phases] [k5-barriers]
                               [langmuir-amd] [wind-mixing-stretched]
-                              [ab2-implicit] [t1] [--steps N]
+                              [ab2-implicit] [t1] [near-global]
+                              [near-global-weno] [diffusive] [--steps N]
 
 With no part named, runs them all. Prints the card's name and power
 limit first. Needs a card; without one it exits with an error.
@@ -65,6 +66,19 @@ limit first. Needs a card; without one it exits with an error.
   eager ``ab2_substep``, the barotropic modes, K5, the corrector, K4a and
   K6; run it with ``hydrostatic`` in one call to read what the two-stage
   route costs over the fused advance.
+- ``near-global``, ``near-global-weno``, ``diffusive``: the ¼° paths of
+  ``chip_smoke.py``'s ``NEAR_GLOBAL`` (benchmark/bench_near_global.py as
+  written, its WENO variant, the flagship with the near-global closure),
+  like ``hydrostatic-wind``, around K4b (tendency form, or the advance
+  with its in-kernel closure), the eager diffusion (``momentum_diffusion``
+  and ``tracer_diffusion``, their fluxes zeroed at solid faces), the
+  masking (``mask_state`` in ``update_state``, ``mask_tendency`` in
+  ``tendencies``), the flux BCs and the immersed bottom's fluxes, the
+  eager ``ab2_substep``, the barotropic modes, K5 (on depth planes over
+  the bottom), the implicit step (its T1 solves a part of their own, the
+  bands apart), the corrector, K4a and K6; run them with
+  ``hydrostatic-wind`` in one call to read what the bottom and the closure
+  cost.
 - ``shallow-water``: the 16384² headline of
   ``benchmark/bench_shallow_water.py`` (as ``chip_smoke.py`` runs it), 2
   warm-up steps, then ``steps`` steps with CUDA events around K3a,
@@ -549,6 +563,44 @@ def hydrostatic(steps):
                (SplitExplicitFreeSurface, "corrector", "corrector")], steps)
 
 
+def near_global(path, steps):
+    """A ¼° ``NEAR_GLOBAL`` path of chip_smoke.py, its warm-up steps, then
+    ``steps`` steps with its parts timed."""
+    model = chip_smoke.near_global_model(path)
+    dt = chip_smoke.HYDRO["dt"]
+    b = lambda lam, phi, z: 2e-5 * (z + 3000.0) / 3000.0
+    if path == "1/4 deg diffusive":
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        state = model.initial_state(
+            u=0.1 * torch.randn(model.grid.shape, generator=gen, device="cuda"), b=b)
+    else:
+        state = model.initial_state(b=b)
+    for _ in range(3):
+        state = model.step(state, dt)
+    torch.cuda.synchronize()
+    events = collections.defaultdict(list)
+    form = "advance" if model.fused_advance else "tendencies"
+    kernels = {k: timed(events, label, hm.KERNELS[k]) for k, label in (
+        ("tendencies", f"K4b ({form})"), ("columns", "K4a"),
+        ("barotropic", "K5 and its wrapper"), ("fill", "K6 fills"),
+        ("tridiagonal", "T1 (implicit step)"))}
+    step = lambda s, timed_parts: model.step(s, dt, kernels if timed_parts else None)
+    patches = [(hm, "momentum_diffusion", "eager diffusion"),
+               (hm, "tracer_diffusion", "eager diffusion"),
+               (hm, "apply_flux_bcs", "flux BCs"),
+               (hm, "apply_immersed_flux_bcs", "immersed flux BCs"),
+               (hm, "ab2_substep", "ab2_substep"),
+               (hm, "barotropic_mode", "barotropic modes"),
+               (hm, "implicit_step_fields", "implicit step"),
+               (SplitExplicitFreeSurface, "corrector", "corrector")]
+    if model.immersed_boundary is not None:
+        patches += [(model.immersed_boundary, "mask_state", "mask_state"),
+                    (model.immersed_boundary, "mask_tendency", "mask_tendency")]
+    breakdown(f"{path} 1/4 deg step", step, state, events, patches, steps,
+              inner={"implicit step": (["T1 (implicit step)"],
+                                       "implicit step's bands and copies")})
+
+
 def shallow_water(steps):
     n = chip_smoke.N_SW
     dt, warmup, _ = chip_smoke.SW_PATH
@@ -722,9 +774,9 @@ K4B_STAMPS = (
     ("    store<T, ADV>(A, 1, p, sv[P.o], g);\n  }\n", "the momentum outputs"),
     ("    __syncthreads();  // tracer f staged; the momentum arrays, or tracer f-1's "
      "buffer and fluxes, free\n", "waiting for each tracer"),
-    ("tables, A.zm != 0, A.zb, zr, k);\n      }\n    }\n    __syncthreads();\n",
+    ("clear_at(clr_c, i * gsx + j * gsy + k, 2));\n      }\n    }\n    __syncthreads();\n",
      "the tracers' face fluxes"),
-    ("      store<T, ADV>(A, f, p, sc[at(I, J, K)], -div);\n    }\n", "the tracers' outputs"),
+    ("      store<T, ADV>(A, f, p, sc[at(I, J, K)], g);\n    }\n", "the tracers' outputs"),
 )
 
 
@@ -851,7 +903,10 @@ PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps),
          "langmuir-amd": lambda steps: les("langmuir AMD", steps),
          "wind-mixing-stretched": lambda steps: les("wind mixing stretched", steps),
          "ab2-implicit": lambda steps: les("AB2 stretched implicit", steps),
-         "t1": t1}
+         "t1": t1,
+         "near-global": lambda steps: near_global("near-global", steps),
+         "near-global-weno": lambda steps: near_global("near-global WENO", steps),
+         "diffusive": lambda steps: near_global("1/4 deg diffusive", steps)}
 
 
 def main(argv):

@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's eleven paths through ``clima_oceananigans_jl_torch`` on
-the card, in phases; each prints one line or a few:
+Drives the port's fourteen paths through ``clima_oceananigans_jl_torch``
+on the card, in phases; each prints one line or a few:
 
 1. device: the card's name and power limit as nvidia-smi gives them, on a
    line of their own; no card → error;
@@ -146,7 +146,26 @@ the card, in phases; each prints one line or a few:
    ``AB2 stretched implicit`` (the bench configuration on that z with a
    vertically implicit ScalarDiffusivity; 1 K1, 5 T1 and 4 K6); fields
    finite, max|∇·u|·Δx_min/max|u| ≤ 1e-5 (Δz per level), the wind drives
-   the top layer (and cools it on wind mixing), the runs agree exactly.
+   the top layer (and cools it on wind mixing), the runs agree exactly;
+21. (run right after phases 11 and 12) K4b's
+   newer parts against its plain version, both forms, bit for bit on the
+   interior over NaN-filled outputs, halos exactly 0 (``k4b_form_cases``):
+   the in-kernel closure (¼° fp32 with the near-global closure; 128×96×16
+   fp64 bounded β-plane with an explicit νz and a per-tracer κ), the
+   solid masks (¼° fp32 under the near-global bottom, CENTER; 128×96×16
+   fp64 with a ridge, flux-form WENO5: CENTER and U/V) and a stretched
+   latitude (1440×600×24 fp32, 67×45×29 fp64 flux-form), the ¼° cases
+   timed against their bounds; K5 on the near-global bottom's depth planes
+   (¼° fp32, 30 substeps) bit for bit on every with-halo point, timed;
+22. the near-global paths (``NEAR_GLOBAL``) at ¼° fp32, 2 warm-up and 5
+   timed steps each with the kernels and with their plain versions:
+   ``near-global`` (benchmark/bench_near_global.py as written: 1 K4a,
+   1 K4b, 1 K5, 2 K6, 3 T1 a step), ``near-global WENO`` (1 K4a, 1 K4b,
+   1 K5, 2 K6, 5 T1) and ``1/4 deg diffusive`` (K4b's advance with the
+   in-kernel closure; 1 K4a, 1 K4b, 1 K5, 2 K6, 5 T1); fields finite,
+   |Σ η·Az| ≤ 1e-5·Σ|η|·Az, u and v exactly 0 at every solid face (the
+   validation's check), K4b held bit for bit and timed on the path's
+   fields, the runs agree exactly.
 
 Each kernel's record carries its bound: the larger of its compulsory
 bytes (each input read once, each output written once, from this run's
@@ -157,7 +176,10 @@ is null.
 
 Each path's launch counts are set to 0 just before it and read just after;
 each kernel's record counts its launches on every path that runs it
-(printed by path). Then a JSON line with each kernel's record, and last
+(printed by path). Then a JSON line with each kernel's record (K4b's and
+K5's with ``forms``: the same keys for K4b's closure, masked and
+stretched-latitude forms and for K5 over the near-global bottom, with the
+launches of the path that runs each), and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. The port is imported first, so a copy of this file
 outside the repository fails at once.
@@ -178,7 +200,7 @@ from clima_oceananigans_jl_torch import (BOUNDED, FLAT, PERIODIC,
                                          BackgroundField, BuoyancyTracer,
                                          CenteredSecondOrder, FieldBCs, FluxBC,
                                          Forcing, FPlane, GaussianMask,
-                                         GradientBC,
+                                         GradientBC, GridFittedBottom,
                                          HydrostaticFreeSurfaceModel,
                                          HydrostaticSphericalCoriolis,
                                          LatitudeLongitudeGrid,
@@ -328,7 +350,10 @@ PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
             "forced": {K2: 3, K6: 6}, "background": {},
             "langmuir AMD": {K2: 3, K6: 6},
             "wind mixing stretched": {K2: 3, T1: 3, K6: 12},
-            "AB2 stretched implicit": {K1: 1, T1: 5, K6: 4}}
+            "AB2 stretched implicit": {K1: 1, T1: 5, K6: 4},
+            "near-global": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 3},
+            "near-global WENO": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 5},
+            "1/4 deg diffusive": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 5}}
 #: how far the kernel and plain runs of a path may differ, of max|field|;
 #: every kernel is bitwise its plain version, so a gap (such as an
 #: unwritten wall face) is a fault, not rounding: the 256³ paths of K1 and
@@ -336,15 +361,38 @@ PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
 AGREE = {"AB2": 0.0, "RK3": 0.0, "shallow water": 1e-4,
          "general projection": 0.0, "hydrostatic": 0.0, "langmuir": 0.0,
          "wind mixing": 0.0, "hydrostatic wind": 0.0, "langmuir AMD": 0.0,
-         "wind mixing stretched": 0.0, "AB2 stretched implicit": 0.0}
+         "wind mixing stretched": 0.0, "AB2 stretched implicit": 0.0,
+         "near-global": 0.0, "near-global WENO": 0.0, "1/4 deg diffusive": 0.0}
 #: the ¼° hydrostatic flagship (benchmark/bench_hydro_flagship.py:24-41);
 #: its "hydrostatic wind" path adds the near-global run's wind stress (u
 #: top FluxBC((λ, φ, t) ↦ −1e-4 cos(3πφ/180)),
 #: benchmark/bench_near_global.py:35-36) and so takes the two-stage route
-#: (K4b's tendency form, the flux, the AB2 substep); the near-global run's
-#: immersed bottom and implicit vertical diffusion wait for ROADMAP Queue 1
-#: items 7 and 4
+#: (K4b's tendency form, the flux, the AB2 substep); the near-global run
+#: itself, with its immersed bottom and closure, is ``NEAR_GLOBAL``'s
 HYDRO = dict(size=(1440, 600, 24), dt=600.0, substeps=30, warmup=2, steps=5)
+#: the near-global paths at ¼° fp32 (1440×600×24, full width and depth),
+#: each run as HYDRO's paths are, with the near-global run's closure
+#: ScalarDiffusivity(nu=1e4, kappa=1e3, nu_z=1e-3, kappa_z=1e-4,
+#: vertically implicit) (benchmark/bench_near_global.py:33-38):
+#: - "near-global": benchmark/bench_near_global.py at deg = 0.25 as
+#:   written: the default schemes (VectorInvariant, centred b), the
+#:   GridFittedBottom of its sigmoid continent, its wind stress, b =
+#:   2e-5 (z + 3000)/3000 and u = 0; the two-stage route (K4b's tendency
+#:   form, no kernel closure over an immersed grid, no solid masks with
+#:   these schemes), the eager diffusion with zeros at solid faces, T1 on
+#:   u, v and b, K5 on depth planes;
+#: - "near-global WENO": the same with the flagship's schemes and tracers
+#:   (weno_velocity, WENO5 T, S and b): K4b's tendency form reading the
+#:   CENTER clear flags, T1 on five fields;
+#: - "1/4 deg diffusive": the flagship (its u = 0.1·N(0,1) and b) with
+#:   that closure on a flat bottom, no wind: K4b's advance with the
+#:   in-kernel closure (its horizontal part; the z part through T1).
+NEAR_GLOBAL = ("near-global", "near-global WENO", "1/4 deg diffusive")
+NEAR_GLOBAL_CLOSURE = dict(nu=1e4, kappa=1e3, nu_z=1e-3, kappa_z=1e-4,
+                           time_discretization="vertically_implicit")
+#: whether each ¼° path steps through K4b's fused advance
+FUSED_ADVANCE = {"hydrostatic": True, "hydrostatic wind": False, "near-global": False,
+                 "near-global WENO": False, "1/4 deg diffusive": True}
 
 
 def model_for(n, dtype, **kw):
@@ -452,13 +500,13 @@ def tensor_bytes(*groups):
     return sum(t.numel() * t.element_size() for group in groups for t in group)
 
 
-def bound(name, nbytes, points):
+def bound(name, nbytes, points, flops=None):
     """(bound_ms, bound_by): the least time the card could take for a call
     of kernel ``name`` moving ``nbytes`` compulsory bytes and computing
-    ``points`` points at ``FLOPS[name]`` operations each, the larger of
-    bytes / 3.35 TB/s and operations / 67 TFLOP/s (fp32)."""
+    ``points`` points at ``FLOPS[name]`` (or ``flops``) operations each,
+    the larger of bytes / 3.35 TB/s and operations / 67 TFLOP/s (fp32)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = FLOPS[name] * points / FP32_FLOPS_PER_S * 1e3
+    t_ops = (flops or FLOPS[name]) * points / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1132,28 +1180,69 @@ def phase_shallow_water():
 
 # -- the hydrostatic kernels and path ---------------------------------------------
 
-def latlon_flagship(dtype=torch.float32, wind=False):
-    """The ¼° flagship of benchmark/bench_hydro_flagship.py through the
-    public API; with ``wind``, under the near-global run's wind stress."""
-    nx, ny, nz = HYDRO["size"]
-    k = np.arange(nz + 1)
-    grid = LatitudeLongitudeGrid(size=HYDRO["size"], longitude=(0, 360),
-                                 latitude=(-75, 75),
-                                 z=-3000.0 * (1.0 - k / nz) ** 1.8,
+def latlon_grid(dtype=torch.float32, size=None, latitude=(-75, 75)):
+    """The flagship's lat-lon grid (benchmark/bench_hydro_flagship.py:24-31):
+    (0, 360) periodic × ``latitude`` bounded, z faces −3000(1 − k/Nz)^1.8."""
+    size = size or HYDRO["size"]
+    k = np.arange(size[2] + 1)
+    return LatitudeLongitudeGrid(size=size, longitude=(0, 360), latitude=latitude,
+                                 z=-3000.0 * (1.0 - k / size[2]) ** 1.8,
                                  dtype=dtype, device=DEVICE)
+
+
+def wind_bcs():
+    """The near-global run's wind stress (benchmark/bench_near_global.py:35-36)."""
+    return {"u": FieldBCs(top=FluxBC(
+        lambda lam, phi, t: -1e-4 * torch.cos(3.0 * math.pi * phi / 180.0)))}
+
+
+def latlon_flagship(dtype=torch.float32, wind=False, grid=None, **kw):
+    """The ¼° flagship of benchmark/bench_hydro_flagship.py through the
+    public API; with ``wind``, under the near-global run's wind stress;
+    ``grid`` another lat-lon grid, ``kw`` more model options."""
     return HydrostaticFreeSurfaceModel(
-        grid, momentum_advection=VectorInvariant(scheme="weno_velocity"),
+        grid or latlon_grid(dtype), momentum_advection=VectorInvariant(scheme="weno_velocity"),
         tracer_advection=WENO5(), tracers=("T", "S"),
         free_surface=SplitExplicitFreeSurface(substeps=HYDRO["substeps"]),
         coriolis=HydrostaticSphericalCoriolis(), buoyancy=BuoyancyTracer(),
-        boundary_conditions={"u": FieldBCs(top=FluxBC(
-            lambda lam, phi, t: -1e-4 * torch.cos(3.0 * math.pi * phi / 180.0)))}
-        if wind else None)
+        boundary_conditions=wind_bcs() if wind else None, **kw)
 
 
-def bounded_beta_model(dtype=torch.float64, size=(128, 96, 16)):
+def near_global_bathymetry(lam, phi):
+    """benchmark/bench_near_global.py:28-31: a sigmoid continent (100 m
+    above the sea) in a 3000 m ocean."""
+    s = torch.sigmoid
+    land = (s((lam - 255.0) / 8.0) * s((300.0 - lam) / 8.0)
+            * s((phi + 55.0) / 6.0) * s((70.0 - phi) / 6.0))
+    full = lambda v: torch.full((), v, dtype=lam.dtype, device=lam.device)
+    return torch.where(land > 0.5, full(100.0), full(-3000.0))
+
+
+def near_global_model(path, dtype=torch.float32):
+    """The model of a ``NEAR_GLOBAL`` path at ¼° through the public API."""
+    closure = ScalarDiffusivity(**NEAR_GLOBAL_CLOSURE)
+    if path == "1/4 deg diffusive":
+        return latlon_flagship(dtype, closure=closure)
+    bottom = GridFittedBottom(near_global_bathymetry)
+    if path == "near-global WENO":
+        return latlon_flagship(dtype, wind=True, closure=closure, immersed_boundary=bottom)
+    return HydrostaticFreeSurfaceModel(
+        latlon_grid(dtype), free_surface=SplitExplicitFreeSurface(substeps=HYDRO["substeps"]),
+        coriolis=HydrostaticSphericalCoriolis(), buoyancy=BuoyancyTracer(),
+        closure=closure, immersed_boundary=bottom, boundary_conditions=wind_bcs())
+
+
+def stretched_latitude(ny, extent=75.0):
+    """ny + 1 latitude faces over (−extent, extent), 1.7 times finer at the
+    equator than at the edges."""
+    s = np.linspace(-1.0, 1.0, ny + 1)
+    return extent * (0.6 * s + 0.4 * s ** 3)
+
+
+def bounded_beta_model(dtype=torch.float64, size=(128, 96, 16), **kw):
     """``size`` (Bounded, Bounded, Bounded) with stretched z, flux-form
-    WENO5 momentum, a β-plane and 8 barotropic substeps (1e4 m cells)."""
+    WENO5 momentum, a β-plane and 8 barotropic substeps (1e4 m cells);
+    ``kw`` more model options."""
     k = np.arange(size[2] + 1)
     grid = RectilinearGrid(size=size, x=(0, 1e4 * size[0]), y=(0, 1e4 * size[1]),
                            z=-1000.0 * (1.0 - k / size[2]) ** 1.5,
@@ -1162,7 +1251,14 @@ def bounded_beta_model(dtype=torch.float64, size=(128, 96, 16)):
     return HydrostaticFreeSurfaceModel(
         grid, momentum_advection=WENO5(), tracer_advection=WENO5(),
         tracers=("T", "S"), free_surface=SplitExplicitFreeSurface(substeps=8),
-        coriolis=BetaPlane(f0=1e-4, beta=1e-11), buoyancy=BuoyancyTracer())
+        coriolis=BetaPlane(f0=1e-4, beta=1e-11), buoyancy=BuoyancyTracer(), **kw)
+
+
+def ridge(x, y):
+    """validation/near_global_lat_lon.py's ridge (1200 m over a 3000 m
+    ocean, 12° wide) on the 1000 m β-plane box: 400 m, 1.2e5 m wide, at the
+    box's middle in x."""
+    return -1000.0 + 400.0 * torch.exp(-((x - 6.4e5) / 1.2e5) ** 2) + 0.0 * y
 
 
 def hydro_random_state(model, seed):
@@ -1240,6 +1336,144 @@ def phase_k4():
         del model, state, sol, args
         torch.cuda.empty_cache()
     return out
+
+
+#: operations a point that K4b's newer parts need, counted as ``FLOPS``:
+#: the closure adds ~20 a field (four face fluxes of a subtraction, a
+#: division and two products, their differences and the division by V),
+#: five fields; the clear flags are selects and add none; a stretched
+#: latitude's tables make the tracers' y fluxes two-sided (~60 more each)
+K4B_FORM_FLOPS = {"closure": 1400, "masks": 1300, "stretched y": 1480}
+
+
+def k4b_form_cases():
+    """(label, part, model builder, dtype, timed) of K4b's newer parts'
+    holds: the in-kernel closure, the solid masks (clear flags) and a
+    stretched latitude's y tables, each at ¼° fp32 (timed) and on a
+    smaller fp64 grid."""
+    f32, f64 = torch.float32, torch.float64
+    per_tracer = ScalarDiffusivity(nu=2e3, kappa={"T": 1e3, "b": 5e2}, nu_z=1e-3,
+                                   kappa_z={"T": 1e-3})
+    return (
+        ("1/4 deg fp32 (the 1/4 deg diffusive path's model)", "closure",
+         lambda: near_global_model("1/4 deg diffusive"), f32, True),
+        ("128x96x16 fp64 bounded beta-plane, explicit nu_z, per-tracer kappa", "closure",
+         lambda: bounded_beta_model(closure=per_tracer), f64, False),
+        ("1/4 deg fp32 near-global bottom, CENTER (the near-global WENO path's model)",
+         "masks", lambda: near_global_model("near-global WENO"), f32, True),
+        ("128x96x16 fp64 ridge, flux-form WENO5: CENTER and U/V", "masks",
+         lambda: bounded_beta_model(immersed_boundary=GridFittedBottom(ridge)), f64, False),
+        ("1440x600x24 fp32 stretched latitude (the flagship)", "stretched y",
+         lambda: latlon_flagship(grid=latlon_grid(
+             latitude=stretched_latitude(HYDRO["size"][1]))),
+         f32, True),
+        ("67x45x29 fp64 stretched latitude, flux-form WENO5", "stretched y",
+         lambda: HydrostaticFreeSurfaceModel(
+             latlon_grid(f64, (67, 45, 29), stretched_latitude(45)),
+             momentum_advection=WENO5(), tracer_advection=WENO5(), tracers=("T", "S"),
+             free_surface=SplitExplicitFreeSurface(substeps=8),
+             coriolis=HydrostaticSphericalCoriolis(), buoyancy=BuoyancyTracer()),
+         f64, False))
+
+
+def phase_k4_forms():
+    """K4b's newer parts against its plain version, both forms, bit for bit
+    on the interior over NaN-filled outputs, its halos exactly zero; the
+    ¼° cases timed (the form their path runs) against their bounds.
+    Returns (the largest max|Δ|, a reading of each timed case: part,
+    form, max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    from clima_oceananigans_jl_torch.ops.fused_hydrostatic import (
+        _mask_locs, clear_flags, kernel_closure)
+    from clima_oceananigans_jl_torch.ops.metric_rows import y_tables
+    worst, readings = 0.0, []
+    for label, part, build, dtype, timed in k4b_form_cases():
+        model = build()
+        g = model.grid
+        reached = {"closure": kernel_closure(model) is not None,
+                   "masks": bool(_mask_locs(model)), "stretched y": not g.y_regular}
+        if not reached[part]:
+            raise AssertionError(f"K4b {label}: the model does not reach its {part}")
+        state = hydro_random_state(model, 13)
+        case_err = 0.0
+        for adv in (None, (HYDRO["dt"], False)):
+            poison_cache(g.total_shape, dtype)
+            got = fused_hydrostatic_tendencies(model, state, adv)
+            ref = fused_hydrostatic_tendencies_reference(model, state, adv)
+            got, ref = (({"G": got}, {"G": ref}) if adv is None else
+                        ({"psi'": got[0], "G": got[1]}, {"psi'": ref[0], "G": ref[1]}))
+            form = "tendencies" if adv is None else "advance"
+            case_err = max(case_err, hold(f"K4b {part}, {label}, {form}", got, ref,
+                                          dtype, g.interior, exact=True))
+            for kind in got.values():  # the kernel writes its halos zero
+                for name, t in kind.items():
+                    if t.device.type != "cuda":
+                        continue
+                    halo = t.clone()
+                    halo[g.interior_slices] = 0
+                    if halo.isnan().any() or halo.any():
+                        raise AssertionError(f"K4b {part}, {label}, {form} {name}: "
+                                             "a halo point is not zero")
+            del got, ref
+        worst = max(worst, case_err)
+        if timed:
+            adv = (HYDRO["dt"], False) if model.fused_advance else None
+            form = "tendencies" if adv is None else "advance"
+            ms = cuda_ms(lambda: fused_hydrostatic_tendencies(model, state, adv), 10)
+            plain_ms = cuda_ms(lambda: fused_hydrostatic_tendencies_reference(
+                model, state, adv), 2)
+            out = fused_hydrostatic_tendencies(model, state, adv)
+            outs = list(out[0].values()) + list(out[1].values()) if adv else list(out.values())
+            extra = [clear_flags(g, loc, 2) for loc in _mask_locs(model)]
+            if not g.y_regular:
+                extra.append(y_tables(g))
+            nb = tensor_bytes(state["solution"].values(), [state["w"], state["pHY"]],
+                              state["G_prev"].values() if adv else [], outs, extra)
+            b_ms, b_by = bound(K4B, nb, g.Nx * g.Ny * g.Nz, K4B_FORM_FLOPS[part])
+            print(f"K4b {part}, {label}, {form} time: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms (CUDA events); bound {b_ms:.4f} ms ({b_by})")
+            readings.append({"part": part, "form": form, "max_abs_err": case_err,
+                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                             "bound_by": b_by})
+            del out, outs, extra
+        del model, state
+        torch.cuda.empty_cache()
+    return worst, readings
+
+
+def phase_k5_planes():
+    """K5 over the near-global run's bottom (the column depths as (X, Y)
+    planes) against its plain version on every with-halo point at ¼° fp32
+    with 30 substeps, over NaN-filled outputs; its time against its bound.
+    Returns (max|Δ|, ms, plain_ms, bound_ms, bound_by)."""
+    model = near_global_model("near-global")
+    g = model.grid
+    Hfc = column_depths(g)[0]
+    if torch.equal(Hfc, Hfc[g.Hx:g.Hx + 1].expand_as(Hfc)):
+        raise AssertionError("K5 planes: the near-global depths do not vary in x")
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    shape = g.total_shape[:2] + (1,)
+    rand = lambda s: s * torch.randn(shape, generator=gen, dtype=g.dtype, device=DEVICE)
+    eta = fill2d(rand(0.1), g, ETA_LOC, model.eta_bcs)
+    n = HYDRO["substeps"]
+    wv = model.free_surface._weight_vec(None, eta)
+    args = (g, model.eta_bcs, eta, rand(10.0), rand(10.0), rand(1e-3), rand(1e-3),
+            *column_depths(g), 9.80665, 40.0, wv, wv, n)
+    names = ("eta_av", "U_av", "V_av")
+    label = "1/4 deg fp32 near-global bottom (depth planes), 30 substeps"
+    print(f"K5 {label} cooperative grid: {cooperative_grid(g)}")
+    poison_cache(shape, g.dtype, 20)
+    err = hold(f"K5 {label}", {"out": dict(zip(names, fused_substep_eta(*args)))},
+               {"out": dict(zip(names, fused_substep_eta_reference(*args)))},
+               g.dtype, exact=True)
+    ms = cuda_ms(lambda: fused_substep_eta(*args), 5)
+    plain_ms = cuda_ms(lambda: fused_substep_eta_reference(*args), 2)
+    # η0, U0, V0, Gᵁ, Gⱽ and the two depth planes in, η̅, U̅, V̅ out
+    b_ms, b_by = bound(K5, 10 * tensor_bytes([eta]), shape[0] * shape[1] * n)
+    print(f"K5 {label} time: kernel {ms:.4f} ms (one cooperative launch), plain "
+          f"{plain_ms:.4f} ms (CUDA events); bound {b_ms:.4f} ms ({b_by})")
+    del model, args
+    torch.cuda.empty_cache()
+    return err, ms, plain_ms, b_ms, b_by
 
 
 def phase_k5():
@@ -1543,16 +1777,20 @@ def phase_k6():
 
 
 def drive_hydrostatic(path, plain):
-    """The ¼° flagship (``path`` "hydrostatic") or the flagship under wind
-    ("hydrostatic wind") run with K4a, K4b, K5 and K6 or (``plain``) their
-    plain versions; returns (model, state, s per step, launches)."""
-    model = latlon_flagship(wind=path == "hydrostatic wind")
-    if model.fused_advance == (path == "hydrostatic wind"):
+    """A ¼° path run with K4a, K4b, K5, K6 (and T1) or (``plain``) their
+    plain versions: the flagship (``path`` "hydrostatic"), the flagship
+    under wind ("hydrostatic wind") or a ``NEAR_GLOBAL`` path; returns
+    (model, state, s per step, launches)."""
+    model = (near_global_model(path) if path in NEAR_GLOBAL
+             else latlon_flagship(wind=path == "hydrostatic wind"))
+    if model.fused_advance != FUSED_ADVANCE[path]:
         raise AssertionError(f"{path}: fused_advance is {model.fused_advance}")
-    rng = np.random.default_rng(0)
-    state = model.initial_state(
-        u=0.1 * rng.standard_normal(model.grid.shape),
-        b=lambda lam, phi, z: 2e-5 * (z + 3000.0) / 3000.0)
+    b = lambda lam, phi, z: 2e-5 * (z + 3000.0) / 3000.0
+    if path in ("near-global", "near-global WENO"):  # bench_near_global.py's state
+        state = model.initial_state(b=b)
+    else:
+        rng = np.random.default_rng(0)
+        state = model.initial_state(u=0.1 * rng.standard_normal(model.grid.shape), b=b)
     kernels = hydrostatic.PLAIN if plain else None
     state, per_step, launches = run_steps(
         path, model, state,
@@ -1561,15 +1799,30 @@ def drive_hydrostatic(path, plain):
     return model, state, per_step, launches
 
 
+def zero_at_solid_faces(path, model, state):
+    """validation/near_global_lat_lon.py's check: u and v exactly zero at
+    every solid face; returns the count of solid u and v faces."""
+    imm = model.grid.immersed
+    sol = state["solution"]
+    for name, loc in (("u", U_LOC), ("v", V_LOC)):
+        worst = float((sol[name] * imm.mask_for(loc)).abs().max())
+        if worst != 0.0:
+            raise AssertionError(f"{path}: max|{name}| at solid faces {worst:.3e}")
+    return int(imm.solid_fcc.sum()) + int(imm.solid_cfc.sum())
+
+
 def phase_hydrostatic(path="hydrostatic"):
-    """The ¼° hydrostatic path (or the flagship under wind, ``path``
-    "hydrostatic wind") with the kernels, checked, then with their plain
+    """A ¼° hydrostatic path (``path`` "hydrostatic", "hydrostatic wind" or
+    a ``NEAR_GLOBAL`` one) with the kernels, checked, then with their plain
     versions; returns the kernel run's launch counts and K4b's and its
-    plain version's ms (advance form) on the path's fields (None on the
-    wind path, whose K4b runs in its tendency form)."""
+    plain version's ms on the path's fields (ms None where K4b runs in its
+    tendency form)."""
     model, state, per_step, launches = drive_hydrostatic(path, plain=False)
     check_finite(path, model, state, ("w", "pHY", "eta"))
     g = model.grid
+    if model.immersed_boundary is not None:
+        faces = zero_at_solid_faces(path, model, state)
+        print(f"{path} path: u and v exactly 0 at all {faces} solid faces")
     cut = lambda a: a[g.Hx:g.Hx + g.Nx, g.Hy:g.Hy + g.Ny, 0].double()
     eta, az = cut(state["eta"]), cut(torch.broadcast_to(
         g.Az(ETA_LOC), state["eta"].shape))
@@ -1585,9 +1838,8 @@ def phase_hydrostatic(path="hydrostatic"):
           f"{points / per_step:.6e} grid points/s, launches {used} in {steps} "
           f"steps, |sum(eta Az)|/sum(|eta| Az) {abs(net) / gross:.3e}")
     # K4b on the path's own fields (T = S = 0, b linear in z), where the
-    # random fields of phase 11 are not: the advance form on the flagship's
-    # path, the tendency form on the wind path's
-    adv = None if path == "hydrostatic wind" else (HYDRO["dt"], False)
+    # random fields of phase 11 are not: the form the path runs
+    adv = (HYDRO["dt"], False) if FUSED_ADVANCE[path] else None
     form = "tendencies" if adv is None else "advance"
     got = fused_hydrostatic_tendencies(model, state, adv)
     ref = fused_hydrostatic_tendencies_reference(model, state, adv)
@@ -1853,7 +2105,10 @@ def main():
     measured = {K1: phase_k1(), K2: phase_k2(), K3A: phase_k3a()}
     measured[K3B], measured[K3C] = phase_k3bc()
     measured.update(phase_k4())
+    k4b_err, k4b_forms = phase_k4_forms()
     measured[K5] = phase_k5()
+    k5_planes = phase_k5_planes()
+    k5_err = k5_planes[0]
     measured[K6] = phase_k6()
     phase_forced()
     k1_err, k2_err = phase_stretched()
@@ -1878,8 +2133,10 @@ def main():
     by_path["hydrostatic wind"], _, _ = phase_hydrostatic("hydrostatic wind")
     for path in LES:
         by_path[path], _ = phase_path(path)
-    # K1's and K2's holds on a stretched z
-    for name, err in ((K1, k1_err), (K2, k2_err)):
+    for path in NEAR_GLOBAL:
+        by_path[path], _, _ = phase_hydrostatic(path)
+    # K1's and K2's holds on a stretched z, K4b's newer parts, K5 on planes
+    for name, err in ((K1, k1_err), (K2, k2_err), (K4B, k4b_err), (K5, k5_err)):
         measured[name] = (max(measured[name][0], err), *measured[name][1:])
     launches = {k: sum(counts[k] for counts in by_path.values()) for k in WRAPPERS}
     print("launches by path: " + json.dumps(
@@ -1894,6 +2151,20 @@ def main():
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     if not all(r["launches"] > 0 for r in records):
         raise AssertionError(f"a kernel was never launched on its path: {records}")
+    # K4b's newer parts and K5 over a bottom: their own readings beside the
+    # kernel's, with the launches of the path that runs each (none runs a
+    # stretched latitude: its hold only)
+    form_path = {"closure": "1/4 deg diffusive", "masks": "near-global WENO"}
+    by_name = {r["name"]: r for r in records}
+    by_name[K4B]["forms"] = [
+        dict(r, launches=by_path[form_path[r["part"]]][K4B] if r["part"] in form_path
+             else 0, library_ms=None) for r in k4b_forms]
+    err, ms, plain_ms, bound_ms, bound_by = k5_planes
+    by_name[K5]["forms"] = [{
+        "part": "near-global bottom", "form": "depth planes varying in x",
+        "launches": by_path["near-global"][K5] + by_path["near-global WENO"][K5],
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None}]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

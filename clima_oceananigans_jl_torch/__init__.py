@@ -13,7 +13,8 @@ FFT pressure solve), the roll-based and the general projection) with its
 quasi-AB2 and RK3 steps, the shallow-water model in its conservative and
 vector-invariant forms, and the hydrostatic free-surface model on
 rectilinear and lat-lon grids with stretched axes (vector-invariant or
-flux-form momentum, spherical Coriolis, forcing and flux BCs, explicit,
+flux-form momentum, spherical Coriolis, forcing and flux BCs, closures,
+grid-fitted immersed boundaries with their bottom fluxes, explicit,
 split-explicit and implicit free surfaces), with hand-written CUDA
 kernels for Hopper in ``csrc/``: the fused AB2 advance (K1), the fused
 advective tendencies (K2), the shallow-water core (K3a), the general
@@ -54,3 +55,5 @@ from .models.shallow_water import ShallowWaterModel
 from .models.free_surface import (ExplicitFreeSurface, ImplicitFreeSurface,
                                   SplitExplicitFreeSurface)
 from .models.hydrostatic import HydrostaticFreeSurfaceModel
+from .immersed.immersed import (GridFittedBottom, GridFittedBoundary,
+                                ImmersedBoundary, PartialCellBottom)

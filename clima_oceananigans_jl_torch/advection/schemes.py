@@ -1,12 +1,13 @@
 """Advection schemes: reconstruction operators.
 
 Counterpart of ``clima_oceananigans_jl_tpu/advection/schemes.py``
-(Oceananigans' ``Advection`` module) for regular, non-immersed grids.
-Ported so far: ``CenteredSecondOrder`` and ``WENO5`` (Jiang-Shu weights):
+(Oceananigans' ``Advection`` module), on regular, stretched and
+immersed grids. Ported so far: ``CenteredSecondOrder`` and ``WENO5`` (Jiang-Shu weights):
 select-first upwinding on regular axes, and on a stretched axis the
 two-sided form with the per-index tables of
-``advection/reconstruction_tables.py``; the other schemes come with
-ROADMAP Queue 1 item 4.
+``advection/reconstruction_tables.py``; next to an immersed boundary the
+conditional fluxes (Oceananigans' conditional_fluxes.jl); the other
+schemes come with ROADMAP Queue 1 item 2.
 
 Conventions: reconstructions "to F" give a value at face i from
 cell-centred data (face i sits between cells i-1 and i); "to C" give a
@@ -207,7 +208,21 @@ def _in_bounds(bounds, like, axis):
     return (idx >= bounds[0]) & (idx <= bounds[1])
 
 
-def transport(scheme, vel, c, axis, to_f, grid=None):
+def _immersed_clear(imm, data_loc, axis, to_f, buffer):
+    """True where every cell the high-order stencil reads is fluid (the
+    conditional fluxes of Oceananigans' conditional_fluxes.jl): no solid
+    cell in [−(buffer+1), buffer] along ``axis`` for a flux to faces, in
+    [−buffer, buffer+1] to centres (with-halo rolls)."""
+    solid = imm.mask_for(tuple(data_loc))
+    lo, hi = (-(buffer + 1), buffer) if to_f else (-buffer, buffer + 1)
+    near = solid
+    for o in range(lo, hi + 1):
+        if o:
+            near = near | shift(solid, o, axis)
+    return ~near
+
+
+def transport(scheme, vel, c, axis, to_f, grid=None, data_loc=None):
     """Advective transport vel·ψ at the flux location along ``axis``.
 
     ``to_f=True``: flux at faces along ``axis`` (c centred there); else
@@ -216,14 +231,24 @@ def transport(scheme, vel, c, axis, to_f, grid=None):
     2nd-order centred within ``required_halo`` cells of the walls. On a
     stretched axis WENO5 reconstructs both sides with the axis' tables,
     applies the near-wall selects to each and takes the upwind product,
-    the JAX tree; elsewhere it reconstructs select-first."""
+    the JAX tree; elsewhere it reconstructs select-first. On a grid with
+    an immersed boundary and the advected field's location ``data_loc``,
+    a flux whose stencil reaches a solid cell drops to first-order upwind
+    (``_immersed_clear``); the centred scheme reads no cell beyond its
+    two."""
     masks = reduced_order_masks(grid, axis, scheme) if grid is not None else None
     lo_val = lambda: if_(c, axis) if to_f else ic(c, axis)
     in_bounds = lambda b, like: _in_bounds(b, like, axis)
+    imm = getattr(grid, "immersed", None) if grid is not None else None
+    clear = None
+    if imm is not None and data_loc is not None and scheme.buffer > 0:
+        clear = _immersed_clear(imm, data_loc, axis, to_f, scheme.buffer)
     if not scheme.is_upwind:
         hi = scheme.sym_to_f(c, axis) if to_f else scheme.sym_to_c(c, axis)
         if masks is not None:
             hi = torch.where(in_bounds(masks[0], hi), hi, lo_val())
+        if clear is not None:
+            hi = torch.where(clear, hi, lo_val())
         return vel * hi
     tables = (weno5_tables(grid, axis, to_f)
               if grid is not None and isinstance(scheme, WENO5) else None)
@@ -234,12 +259,18 @@ def transport(scheme, vel, c, axis, to_f, grid=None):
             lo = lo_val()
             L = torch.where(in_bounds(masks[1], L), L, lo)
             R = torch.where(in_bounds(masks[2], R), R, lo)
+        if clear is not None:  # first-order upwind next to the solid
+            L = torch.where(clear, L, shift(c, -1, axis) if to_f else c)
+            R = torch.where(clear, R, c if to_f else shift(c, 1, axis))
         return upwind_biased_product(vel, L, R)
     # select-first upwinding: pick the upwind stencil by sign(vel) and
     # reconstruct once; vel·L or vel·R exactly, as the two-sided blend
     sel = vel >= 0
-    rec = scheme.stream_reconstruct(upwind_stream(c, sel, axis, to_f))
+    a = upwind_stream(c, sel, axis, to_f)
+    rec = scheme.stream_reconstruct(a)
     if masks is not None:
         in_l, in_r = in_bounds(masks[1], rec), in_bounds(masks[2], rec)
         rec = torch.where((sel & in_l) | (~sel & in_r), rec, lo_val())
+    if clear is not None:  # a[2]: first-order upwind
+        rec = torch.where(clear, rec, a[2])
     return vel * rec

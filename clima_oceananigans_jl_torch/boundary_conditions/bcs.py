@@ -68,6 +68,8 @@ class FieldBCs:
     north: Optional[BC] = None
     bottom: Optional[BC] = None
     top: Optional[BC] = None
+    #: a flux through the immersed boundary (``apply_immersed_flux_bcs``)
+    immersed: Optional[BC] = None
 
     def sides(self):
         return ((0, 0, self.west), (0, 1, self.east),
@@ -102,11 +104,10 @@ def regularize_bcs(grid, loc, bcs=None):
     out = default_bcs(grid, loc)
     if bcs is None:
         return out
-    for pair in _SIDE_NAMES:
-        for name in pair:
-            user = getattr(bcs, name, None)
-            if user is not None:
-                setattr(out, name, user)
+    for name in [n for pair in _SIDE_NAMES for n in pair] + ["immersed"]:
+        user = getattr(bcs, name, None)
+        if user is not None:
+            setattr(out, name, user)
     return out
 
 
@@ -293,3 +294,31 @@ def apply_flux_bcs(G, grid, loc, bcs, t=0.0, fields=None):
             out = G.clone()
         out[_axslice(axis, i)] += sgn * contrib
     return out
+
+
+def apply_immersed_flux_bcs(G, grid, loc, bcs, t=0.0, fields=None):
+    """Add the flux of ``bcs.immersed`` through the immersed bottom into
+    the tendency: at every fluid cell whose neighbour below is solid,
+    G + q·Az/V (the sign of a bottom FluxBC: a positive flux adds to the
+    field). q is a constant, a callable ``q(x, y, z, t)`` of the nodes at
+    ``loc``, or with ``discrete`` a callable of (grid, t, fields) giving
+    a full-shape array (a bottom drag). Returns G itself when there is no
+    such flux or no immersed boundary."""
+    bc = getattr(bcs, "immersed", None)
+    imm = getattr(grid, "immersed", None)
+    if bc is None or imm is None:
+        return G
+    if bc.kind != "flux":
+        raise ValueError("an immersed boundary condition must be a flux")
+    solid = imm.mask_for(loc)
+    at_bottom = ~solid & torch.roll(solid, 1, 2)
+    if bc.discrete and callable(bc.value):
+        q = bc.value(grid, t, fields or {})
+    elif callable(bc.value):
+        x, y, z = grid.nodes(loc, with_halo=True)
+        q = bc.value(x, y, z, t)
+    else:
+        q = bc.value
+    q = torch.as_tensor(q, dtype=G.dtype, device=G.device)
+    contrib = q * grid.Az(loc) / grid.V(loc)
+    return torch.where(at_bottom, G + contrib, G)

@@ -95,18 +95,28 @@ def div_kappa_grad(c, grid, loc, kappa, kappa_z=None, horizontal_only=False,
     interpolated onto the flux faces; ``kappa_z_at_faces`` when the
     vertical one lives at (C, C, F)). ``vertical=False`` or
     ``horizontal_only`` leaves the vertical flux out (to an implicit
-    solve)."""
+    solve). On a grid with an immersed boundary the fluxes through solid
+    faces are zero (no flux into the solid, and the solid's masked zeros
+    do not act as a value wall)."""
     kz = kappa if kappa_z is None else kappa_z
     kx = _kappa_at_flux_loc(kappa, loc, 0)
     ky = _kappa_at_flux_loc(kappa, loc, 1)
-    fx = grid.Ax(op.flip_loc(loc, 0)) * (kx * op.dd(c, grid, 0, loc))
-    fy = grid.Ay(op.flip_loc(loc, 1)) * (ky * op.dd(c, grid, 1, loc))
+    imm = getattr(grid, "immersed", None)
+
+    def zero_solid(f, axis):
+        if imm is None:
+            return f
+        return torch.where(imm.mask_for(op.flip_loc(loc, axis)),
+                           torch.zeros((), dtype=f.dtype, device=f.device), f)
+
+    fx = zero_solid(grid.Ax(op.flip_loc(loc, 0)) * (kx * op.dd(c, grid, 0, loc)), 0)
+    fy = zero_solid(grid.Ay(op.flip_loc(loc, 1)) * (ky * op.dd(c, grid, 1, loc)), 1)
     out = (op.delta(fx, 0, op.flip_loc(loc, 0))
            + op.delta(fy, 1, op.flip_loc(loc, 1)))
     if vertical and not horizontal_only:
         kz_from = (C, C, F) if kappa_z_at_faces else None
         kzf = _kappa_at_flux_loc(kz, loc, 2, from_loc=kz_from)
-        fz = grid.Az(op.flip_loc(loc, 2)) * (kzf * op.dd(c, grid, 2, loc))
+        fz = zero_solid(grid.Az(op.flip_loc(loc, 2)) * (kzf * op.dd(c, grid, 2, loc)), 2)
         out = out + op.delta(fz, 2, op.flip_loc(loc, 2))
     return out / grid.V(loc)
 

@@ -2,13 +2,13 @@
 // tracers,
 //
 //   G_u = -U.grad(u) [vector invariant] or -div(v u) [flux form]
-//         - (f x u)_x - d(pHY')/dx,      G_v likewise,
-//   G_c = -div(U c),
+//         - (f x u)_x - d(pHY')/dx [+ div(nu grad u)],      G_v likewise,
+//   G_c = -div(U c) [+ div(kappa_c grad c)],
 //
 // optionally with the AB2 advance psi' = psi + dt (c1 G - c2 G_prev), on
 // lat-lon or rectilinear grids whose metrics are constant along x (rows over
-// with-halo y and z, ops/metric_rows.py), a stretched z axis included. The
-// outputs are with-halo: the interior computed, the halos zero.
+// with-halo y and z, ops/metric_rows.py), stretched y and z axes included.
+// The outputs are with-halo: the interior computed, the halos zero.
 //
 // Replaces the TPU kernel clima_oceananigans_jl_tpu/ops/fused_hydrostatic.py::
 // fused_hydrostatic_tendencies (its tendency core hydrostatic_advective_core,
@@ -22,9 +22,19 @@
 //     izc(ixf(Az w) dzf(u)/dz) / Az and the Bernoulli head;
 //   - advection/fluxes.py div_vu, div_vv and div_Uc with the metric products
 //     Ax = dy*dz, Ay = dx*dz, V = Az*dz, WENO5's near-wall order reduction
-//     on bounded x, y and z (the vorticity reconstruction has none), and on
-//     a stretched z the two-sided reconstruction with the table rows of
-//     advection/reconstruction_tables.py and the upwind product;
+//     on bounded x, y and z (the vorticity reconstruction has none), on a
+//     stretched y or z the two-sided reconstruction with the table rows of
+//     advection/reconstruction_tables.py and the upwind product, and next to
+//     an immersed boundary the conditional fluxes (first-order upwind where
+//     a WENO5 stencil reaches a solid cell), read from one uint8 of clear
+//     flags a point and location (ops/fused_hydrostatic.py::clear_flags,
+//     built once per grid by the plain version's own rolls, so they wrap at
+//     the array edges as the plain version does);
+//   - closures/scalar_diffusivity.py div_kappa_grad of a constant-coefficient
+//     ScalarDiffusivity (kernel_closure): the x and y fluxes Ax kh d/dx and
+//     Ay kh d/dy and, unless the closure is vertically implicit, Az kv d/dz,
+//     differenced and over V, in that tree, a kh and kv per field (per-tracer
+//     kappa included); it reads the staged boxes at +-1;
 //   - coriolis/coriolis.py: f- and beta-plane (rows of f at U_LOC, V_LOC)
 //     and HydrostaticSphericalCoriolis (row of f at (F, F)), energy or
 //     enstrophy.
@@ -74,10 +84,11 @@
 //      the halo columns next to their tile: every halo point once, in the
 //      same launch.
 // The kernel is a template on the momentum scheme, the Coriolis form, the
-// z tables and the advance (-1: read at run time); the 1/4 degree flagship
-// has its own instantiations with no dead branches, every other
-// configuration takes the run-time one. __launch_bounds__(512, 1) keeps a
-// thread at 128 registers or fewer, so 16 warps fit on an SM.
+// z tables, the advance (-1: read at run time) and XTRA (the closure, the
+// clear flags and the y tables read at run time, or none of them); the 1/4
+// degree flagship has its own instantiations with no dead branches, every
+// other configuration takes the run-time one. __launch_bounds__(512, 1)
+// keeps a thread at 128 registers or fewer, so 16 warps fit on an SM.
 #include <cuda_runtime.h>
 
 #include "tiles.cuh"
@@ -92,6 +103,11 @@ enum { DX_CC = 0, DX_CF, DX_FC, DX_FF, AZ_CC, AZ_CF, AZ_FC, AZ_FF, DY_C, DY_F,
 enum { VI_ENSTROPHY = 0, VI_ENERGY, VI_WENO, VI_WENO_VELOCITY, FLUX_FORM, NO_MOMENTUM };
 enum { NO_CORIOLIS = 0, PLANE, SPHERICAL_ENERGY, SPHERICAL_ENSTROPHY };
 
+// the diffusing field's location: u (F, C, C), v (C, F, C), a tracer (C, C, C)
+enum { AT_U = 0, AT_V, AT_C };
+// the closure: none, its horizontal part only (vertically implicit), or all
+enum { NO_CLOSURE = 0, CLOSURE_H, CLOSURE_HZ };
+
 template <typename T>
 struct HydroArgs {
   const T* psi[MAX_FIELDS];   // with-halo u, v, tracers
@@ -99,11 +115,14 @@ struct HydroArgs {
   const T* ph;                // with-halo pHY', or nullptr
   const T* ys;                // y rows (12, Y)
   const T* zs;                // z rows (2 or 26, Z)
+  const T* yt;                // a stretched y's WENO5 tables (48, Y), or nullptr
+  const uint8_t* clr[3];      // clear flags of C, U and V (bit a: axis a), or nullptr
   const T* gp[MAX_FIELDS];    // with-halo G_prev (advance)
   T* out_g[MAX_FIELDS];       // with-halo G
   T* out_psi[MAX_FIELDS];     // with-halo psi' (advance)
+  T kh[MAX_FIELDS], kv[MAX_FIELDS];  // the closure's horizontal and vertical coefficient by field
   int nf, nx, ny, nz, hx, hy, hz;
-  int mom, mom_weno, tr, cor, tables, advance;
+  int mom, mom_weno, tr, cor, tables, ytables, closure, advance;
   int xm, ym, zm;             // near-wall order reduction on that axis
   Bounds xb, yb, zb;
   T eps_m, eps_t, c1, c2, dt;
@@ -162,6 +181,50 @@ __device__ __forceinline__ T weno_stream_smooth(const T* a, const T* s, const T*
     b[k] = ieee_div_by(smoothness(s[0], s[1], s[2], s[3], s[4], k)
                        + smoothness(q[0], q[1], q[2], q[3], q[4], k), T(2.0));
   return combine(p0, p1, p2, b[0], b[1], b[2], T(0.1), T(0.6), T(0.3), eps);
+}
+
+// ---- the conditional fluxes ----------------------------------------------------
+
+// the clear flag of the transport along `axis` at with-halo point p of a
+// field whose flags are f (nullptr: no immersed boundary)
+__device__ __forceinline__ bool clear_at(const uint8_t* f, int64_t p, int axis) {
+  return f == nullptr || ((__ldg(f + p) >> axis) & 1) != 0;
+}
+
+// ---- the closure -----------------------------------------------------------------
+
+// scalar_diffusivity.py::div_kappa_grad at one point (I=J row index J,
+// level K) of a field at location `at` in c (offset o, strides sx, sy and
+// 1): the fluxes Ax kh dc/dx at the point's x faces, Ay kh dc/dy at its y
+// faces and, with `vertical`, Az kv dc/dz at its z faces, differenced, over
+// V. The rows are the y and z rows of ops/metric_rows.py.
+template <typename T, typename I>
+__device__ __forceinline__ T diffusion(const T* __restrict__ c, I o, I sx, I sy, const T* ys,
+                                       const T* zs, int Y, int Z, int J, int K, int at,
+                                       T kh, T kv, bool vertical) {
+  const T dzc = zs[Z_DZ_C * Z + K];
+  // x: dx at the x faces' location, dy of the x faces' area
+  const int rdx = at == AT_U ? DX_CC : (at == AT_V ? DX_FF : DX_FC);
+  const int rdy = at == AT_V ? DY_F : DY_C;
+  const T ax = ys[rdy * Y + J] * dzc, dx = ys[rdx * Y + J];
+  const T xr = ax * (kh * ieee_div(c[o + sx] - c[o], dx));
+  const T xl = ax * (kh * ieee_div(c[o] - c[o - sx], dx));
+  // y: the faces above and below are rows jt and jb (centres J and J-1 for
+  // v, faces J+1 and J otherwise)
+  const int ray = at == AT_U ? DX_FF : (at == AT_V ? DX_CC : DX_CF);
+  const int rsy = at == AT_V ? DY_C : DY_F;
+  const int jt = at == AT_V ? J : J + 1, jb = jt - 1;
+  const T ytop = (ys[ray * Y + jt] * dzc) * (kh * ieee_div(c[o + sy] - c[o], ys[rsy * Y + jt]));
+  const T ybot = (ys[ray * Y + jb] * dzc) * (kh * ieee_div(c[o] - c[o - sy], ys[rsy * Y + jb]));
+  const T az = ys[(at == AT_U ? AZ_FC : (at == AT_V ? AZ_CF : AZ_CC)) * Y + J];
+  T out = (xr - xl) + (ytop - ybot);
+  if (vertical) {
+    const T* dzf = zs + Z_DZ_F * Z;
+    const T zt = az * (kv * ieee_div(c[o + 1] - c[o], dzf[K + 1]));
+    const T zb = az * (kv * ieee_div(c[o] - c[o - 1], dzf[K]));
+    out = out + (zt - zb);
+  }
+  return ieee_div(out, az * dzc);
 }
 
 // ---- one output point --------------------------------------------------------
@@ -304,8 +367,17 @@ __device__ __forceinline__ T vi_v(const Pt<T>& P, const MomArrays<T>& M, int mom
 
 // ---- flux-form momentum: each face computed in both cells beside it ---------
 
+// the z and y table rows of a point's transports (row 0 of each set); the
+// flags of the conditional fluxes are read only with an immersed boundary
 template <typename T>
-__device__ T div_vu(const Pt<T>& P, bool tables) {
+struct Tabs {
+  ZRows<T> z, yf, yc;  // z to faces; y to faces, to centres
+  bool zon, yon;
+};
+
+template <typename T>
+__device__ T div_vu(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64_t gsx,
+                    int64_t gsy) {
   const HydroArgs<T>& A = *P.A;
   const T* u = P.u;
   const T* v = P.v;
@@ -313,30 +385,32 @@ __device__ T div_vu(const Pt<T>& P, bool tables) {
   const int o = P.o, sx = P.sx, sy = P.sy, I = P.I, J = P.J, K = P.K;
   const bool we = A.mom_weno != 0;
   const T eps = A.eps_m, half = T(0.5);
-  const ZRows<T> zr{A.zs, P.Z};
   const T dz = P.zr(Z_DZ_C)[K];
   const T Ax = P.yr(DY_C)[J] * dz;
+  const int64_t g = I * gsx + J * gsy + K;
   // x fluxes at centres I-1, I (to centres: the stream of face q+1)
   auto fx = [&](int q, int i) {
-    return Ax * transport_axis(u, (int64_t)(q + sx), (int64_t)sx, half * (u[q + sx] + u[q]),
-                               we, eps, we && A.xm, A.xb, i);
+    return Ax * transport_tables(u, q + sx, sx, half * (u[q + sx] + u[q]), we, eps, we && A.xm,
+                             A.xb, i, false, tb.z, clear_at(clr, g + (i - I) * gsx, 0));
   };
   auto fy = [&](int q, int j) {
-    return (P.yr(DX_FF)[j] * dz) * transport_axis(u, (int64_t)q, (int64_t)sy,
-                                                  half * (v[q] + v[q - sx]), we, eps,
-                                                  we && A.ym, A.yb, j);
+    return (P.yr(DX_FF)[j] * dz) * transport_tables(u, q, sy, half * (v[q] + v[q - sx]), we, eps,
+                                                we && A.ym, A.yb, j, we && tb.yon, tb.yf,
+                                                clear_at(clr, g + (j - J) * gsy, 1));
   };
   const T az = P.yr(AZ_FC)[J];
   auto fz = [&](int q, int qw, int k) {
-    return az * z_transport(u, q, half * (w[qw] + w[qw - P.wsx]), we, eps, tables,
-                            A.zm != 0, A.zb, zr, k);
+    return az * transport_tables(u, q, 1, half * (w[qw] + w[qw - P.wsx]), we, eps,
+                             we && A.zm != 0, A.zb, k, we && tb.zon, tb.z,
+                             clear_at(clr, g + (k - K), 2));
   };
   return ieee_div((fx(o, I) - fx(o - sx, I - 1)) + (fy(o + sy, J + 1) - fy(o, J))
                   + (fz(o + 1, P.ow + 1, K + 1) - fz(o, P.ow, K)), az * dz);
 }
 
 template <typename T>
-__device__ T div_vv(const Pt<T>& P, bool tables) {
+__device__ T div_vv(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64_t gsx,
+                    int64_t gsy) {
   const HydroArgs<T>& A = *P.A;
   const T* u = P.u;
   const T* v = P.v;
@@ -344,23 +418,24 @@ __device__ T div_vv(const Pt<T>& P, bool tables) {
   const int o = P.o, sx = P.sx, sy = P.sy, I = P.I, J = P.J, K = P.K;
   const bool we = A.mom_weno != 0;
   const T eps = A.eps_m, half = T(0.5);
-  const ZRows<T> zr{A.zs, P.Z};
   const T dz = P.zr(Z_DZ_C)[K];
   const T Ax = P.yr(DY_F)[J] * dz;
+  const int64_t g = I * gsx + J * gsy + K;
   auto fx = [&](int q, int i) {
-    return Ax * transport_axis(v, (int64_t)q, (int64_t)sx, half * (u[q] + u[q - sy]), we,
-                               eps, we && A.xm, A.xb, i);
+    return Ax * transport_tables(v, q, sx, half * (u[q] + u[q - sy]), we, eps, we && A.xm, A.xb,
+                             i, false, tb.z, clear_at(clr, g + (i - I) * gsx, 0));
   };
   // y fluxes at centres J-1, J (to centres)
   auto fy = [&](int q, int j) {
-    return (P.yr(DX_CC)[j] * dz) * transport_axis(v, (int64_t)(q + sy), (int64_t)sy,
-                                                  half * (v[q + sy] + v[q]), we, eps,
-                                                  we && A.ym, A.yb, j);
+    return (P.yr(DX_CC)[j] * dz) * transport_tables(v, q + sy, sy, half * (v[q + sy] + v[q]), we,
+                                                eps, we && A.ym, A.yb, j, we && tb.yon, tb.yc,
+                                                clear_at(clr, g + (j - J) * gsy, 1));
   };
   const T az = P.yr(AZ_CF)[J];
   auto fz = [&](int q, int qw, int k) {
-    return az * z_transport(v, q, half * (w[qw] + w[qw - P.wsy]), we, eps, tables,
-                            A.zm != 0, A.zb, zr, k);
+    return az * transport_tables(v, q, 1, half * (w[qw] + w[qw - P.wsy]), we, eps,
+                             we && A.zm != 0, A.zb, k, we && tb.zon, tb.z,
+                             clear_at(clr, g + (k - K), 2));
   };
   return ieee_div((fx(o + sx, I + 1) - fx(o, I)) + (fy(o, J) - fy(o - sy, J - 1))
                   + (fz(o + 1, P.ow + 1, K + 1) - fz(o, P.ow, K)), az * dz);
@@ -429,7 +504,7 @@ __device__ __forceinline__ void store_zero(const HydroArgs<T>& A, int64_t p) {
   }
 }
 
-template <typename T, int MOM, int COR, int TABLES_ON, int ADV>
+template <typename T, int MOM, int COR, int TABLES_ON, int ADV, int XTRA>
 __global__ void __launch_bounds__(HT_THREADS, 1)
 fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -439,6 +514,14 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
   const bool tables = TABLES_ON >= 0 ? TABLES_ON != 0 : A.tables != 0;
   const int X = A.nx + 2 * A.hx, Y = A.ny + 2 * A.hy, Z = A.nz + 2 * A.hz;
   const int64_t gsx = (int64_t)Y * Z, gsy = Z;
+  // XTRA 0: no closure, no immersed boundary, no y tables (not read)
+  const int closure = XTRA ? A.closure : NO_CLOSURE;
+  const uint8_t* const clr_c = XTRA ? A.clr[0] : nullptr;
+  const uint8_t* const clr_u = XTRA ? A.clr[1] : nullptr;
+  const uint8_t* const clr_v = XTRA ? A.clr[2] : nullptr;
+  const bool ytab = XTRA && A.ytables != 0;
+  const Tabs<T> tb{ZRows<T>{A.zs + Z_TABLES * Z, Z}, ZRows<T>{A.yt, Y},
+                   ZRows<T>{ytab ? A.yt + Z_TABLE_ROWS * Y : nullptr, Y}, tables, ytab};
   const int kz = A.kz;
   // the tile [I0, I1) x [J0, J1) and the chunk [K0, K1) of interior levels
   const int I0 = A.hx + (int)(blockIdx.x / A.nty) * HT_X, I1 = min(I0 + HT_X, A.hx + A.nx);
@@ -569,35 +652,44 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
     const int64_t p = I * gsx + J * gsy + K;
     // u
     T g = T(0);
-    if (mom == FLUX_FORM) g = -div_vu(P, tables);
+    if (mom == FLUX_FORM) g = -div_vu(P, tb, clr_u, gsx, gsy);
     else if (mom != NO_MOMENTUM) g = -vi_u(P, M, mom);
     if (cor != NO_CORIOLIS) g = g - f_cross_x(P, cor);
     if (A.ph != nullptr) g = g - ieee_div(A.ph[p] - A.ph[p - gsx], P.yr(DX_FC)[J]);
+    if (closure != NO_CLOSURE)
+      g = g + diffusion(su, P.o, sx, sy, A.ys, A.zs, Y, Z, J, K, AT_U, A.kh[0], A.kv[0],
+                        closure == CLOSURE_HZ);
     store<T, ADV>(A, 0, p, su[P.o], g);
     // v
     g = T(0);
-    if (mom == FLUX_FORM) g = -div_vv(P, tables);
+    if (mom == FLUX_FORM) g = -div_vv(P, tb, clr_v, gsx, gsy);
     else if (mom != NO_MOMENTUM) g = -vi_v(P, M, mom);
     if (cor != NO_CORIOLIS) g = g - f_cross_y(P, cor);
     if (A.ph != nullptr) g = g - ieee_div(A.ph[p] - A.ph[p - gsy], P.yr(DY_F)[J]);
+    if (closure != NO_CLOSURE)
+      g = g + diffusion(sv, P.o, sx, sy, A.ys, A.zs, Y, Z, J, K, AT_V, A.kh[1], A.kv[1],
+                        closure == CLOSURE_HZ);
     store<T, ADV>(A, 1, p, sv[P.o], g);
   }
 
   // 3. tracers
-  if (!advect) {  // no tracer advection: G = 0
+  if (!advect) {  // no tracer advection: G = 0 (and the closure's diffusion)
     for (int f = 2; f < A.nf; ++f)
       for (int t = tid; t < npts; t += HT_THREADS) {
         int I, J, K;
         if (!point(t, I, J, K)) continue;
         const int64_t p = I * gsx + J * gsy + K;
-        store<T, ADV>(A, f, p, A.psi[f][p], T(0));
+        T g = T(0);
+        if (closure != NO_CLOSURE)
+          g = g + diffusion(A.psi[f], p, gsx, gsy, A.ys, A.zs, Y, Z, J, K, AT_C, A.kh[f],
+                            A.kv[f], closure == CLOSURE_HZ);
+        store<T, ADV>(A, f, p, A.psi[f][p], g);
       }
     return;
   }
   const bool we = A.tr == 1;
   const T eps = A.eps_t;
   const bool xmask = we && A.xm, ymask = we && A.ym;
-  const ZRows<T> zr{A.zs, Z};
   const int nfx = HT_XF * kz, nfy = HT_YF * kz, nfz = HT_COLS * (kz + 1);
   // face-flux array offsets: level fastest, kz (or kz+1) levels per face
   auto fxi = [&](int i, int j, int k) { return ((i - I0) * HT_Y + (j - J0)) * kz + (k - K0); };
@@ -620,20 +712,24 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
         if (i > I1 || j >= J1 || k >= K1) continue;
         const int q = at(i, j, k);
         FX[t] = (A.ys[DY_C * Y + j] * A.zs[Z_DZ_C * Z + k])
-                * transport_axis(sc, (int64_t)q, (int64_t)sx, su[q], we, eps, xmask, A.xb, i);
+                * transport_tables(sc, q, sx, su[q], we, eps, xmask, A.xb, i, false, tb.z,
+                               clear_at(clr_c, i * gsx + j * gsy + k, 0));
       } else if (t < nfx + nfy) {  // t - nfx is fyi(i, j, k)
         const int s = t - nfx, c = A.kzd.div(s), k = K0 + (s - c * kz);
         const int i = I0 + c / (HT_Y + 1), j = J0 + c % (HT_Y + 1);
         if (i >= I1 || j > J1 || k >= K1) continue;
         const int q = at(i, j, k);
         FY[s] = (A.ys[DX_CF * Y + j] * A.zs[Z_DZ_C * Z + k])
-                * transport_axis(sc, (int64_t)q, (int64_t)sy, sv[q], we, eps, ymask, A.yb, j);
+                * transport_tables(sc, q, sy, sv[q], we, eps, ymask, A.yb, j, we && tb.yon, tb.yf,
+                               clear_at(clr_c, i * gsx + j * gsy + k, 1));
       } else {  // t - nfx - nfy is fzi(i, j, k)
         const int s = t - nfx - nfy, c = A.kz1d.div(s), k = K0 + (s - c * (kz + 1));
         const int i = I0 + c / HT_Y, j = J0 + c % HT_Y;
         if (i >= I1 || j >= J1 || k > K1) continue;
-        FZ[s] = A.ys[AZ_CC * Y + j] * z_transport(sc, at(i, j, k), sw[wat(i, j, k)], we, eps,
-                                                  tables, A.zm != 0, A.zb, zr, k);
+        FZ[s] = A.ys[AZ_CC * Y + j]
+                * transport_tables(sc, at(i, j, k), 1, sw[wat(i, j, k)], we, eps,
+                               we && A.zm != 0, A.zb, k, we && tables, tb.z,
+                               clear_at(clr_c, i * gsx + j * gsy + k, 2));
       }
     }
     __syncthreads();
@@ -645,14 +741,18 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
       const int x0 = fxi(I, J, K), y0 = fyi(I, J, K), z0 = fzi(I, J, K);
       const T div = ieee_div(((FX[x0 + HT_Y * kz] - FX[x0]) + (FY[y0 + kz] - FY[y0]))
                              + (FZ[z0 + 1] - FZ[z0]), az * dz);
-      store<T, ADV>(A, f, p, sc[at(I, J, K)], -div);
+      T g = -div;
+      if (closure != NO_CLOSURE)
+        g = g + diffusion(sc, at(I, J, K), sx, sy, A.ys, A.zs, Y, Z, J, K, AT_C, A.kh[f],
+                          A.kv[f], closure == CLOSURE_HZ);
+      store<T, ADV>(A, f, p, sc[at(I, J, K)], g);
     }
   }
 }
 
-template <typename T, int MOM, int COR, int TABLES_ON, int ADV>
+template <typename T, int MOM, int COR, int TABLES_ON, int ADV, int XTRA>
 static int run(const HydroArgs<T>& A, dim3 blocks, int smem, cudaStream_t stream) {
-  auto kernel = fused_hydrostatic_tendencies_kernel<T, MOM, COR, TABLES_ON, ADV>;
+  auto kernel = fused_hydrostatic_tendencies_kernel<T, MOM, COR, TABLES_ON, ADV, XTRA>;
   if (smem > 48 * 1024) {
     const int rc = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -667,14 +767,16 @@ constexpr int HT_SMEM_MAX = 232448;
 
 template <typename T>
 static int launch(const void* const* psi, const void* w, const void* ph,
-                  const void* ys, const void* zs, const void* const* gp,
-                  void* const* out_g, void* const* out_psi, int nf, int nx,
-                  int ny, int nz, int hx, int hy, int hz, int mom, int mom_weno,
-                  int tr, int cor, int tables, int advance, const int* b,
-                  double eps_m, double eps_t, double c1, double c2, double dt,
-                  void* stream) {
+                  const void* ys, const void* zs, const void* yt, const void* clr_c,
+                  const void* clr_u, const void* clr_v, const void* const* gp,
+                  void* const* out_g, void* const* out_psi, const double* kh,
+                  const double* kv, int nf, int nx, int ny, int nz, int hx, int hy,
+                  int hz, int mom, int mom_weno, int tr, int cor, int tables,
+                  int ytables, int closure, int advance, const int* b, double eps_m,
+                  double eps_t, double c1, double c2, double dt, void* stream) {
   if (nf < 2 || nf > MAX_FIELDS) return (int)cudaErrorInvalidValue;
   if (advance && (gp == nullptr || out_psi == nullptr)) return (int)cudaErrorInvalidValue;
+  if (ytables && yt == nullptr) return (int)cudaErrorInvalidValue;
   HydroArgs<T> A;
   for (int f = 0; f < MAX_FIELDS; ++f) {
     const bool on = f < nf;
@@ -682,7 +784,15 @@ static int launch(const void* const* psi, const void* w, const void* ph,
     A.out_g[f] = on ? static_cast<T*>(out_g[f]) : nullptr;
     A.gp[f] = on && advance ? static_cast<const T*>(gp[f]) : nullptr;
     A.out_psi[f] = on && advance ? static_cast<T*>(out_psi[f]) : nullptr;
+    A.kh[f] = on ? T(kh[f]) : T(0);
+    A.kv[f] = on ? T(kv[f]) : T(0);
   }
+  A.yt = static_cast<const T*>(yt);
+  A.clr[0] = static_cast<const uint8_t*>(clr_c);
+  A.clr[1] = static_cast<const uint8_t*>(clr_u);
+  A.clr[2] = static_cast<const uint8_t*>(clr_v);
+  A.ytables = ytables;
+  A.closure = closure;
   A.w = static_cast<const T*>(w);
   A.ph = static_cast<const T*>(ph);
   A.ys = static_cast<const T*>(ys);
@@ -708,33 +818,46 @@ static int launch(const void* const* psi, const void* w, const void* ph,
   const dim3 blocks((unsigned)(((nx + HT_X - 1) / HT_X) * A.nty), (unsigned)chunks);
   const int smem = (int)(hydro_smem_elems(A.kz) * (long)sizeof(T));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the 1/4 degree flagship's forms have their own instantiations
+  // the 1/4 degree flagship's forms have their own instantiations, with
+  // and without the closure, masks and y tables: reading those at run time
+  // made the flagship's forms 5-8% slower on an H100 (chip_breakdown.py
+  // hydrostatic, hydrostatic-wind)
+  const bool xtra = closure != NO_CLOSURE || ytables || clr_c || clr_u || clr_v;
   if (mom == VI_WENO_VELOCITY && cor == SPHERICAL_ENERGY && tables) {
-    if (advance) return run<T, VI_WENO_VELOCITY, SPHERICAL_ENERGY, 1, 1>(A, blocks, smem, st);
-    return run<T, VI_WENO_VELOCITY, SPHERICAL_ENERGY, 1, 0>(A, blocks, smem, st);
+    if (xtra) {
+      if (advance) return run<T, VI_WENO_VELOCITY, SPHERICAL_ENERGY, 1, 1, 1>(A, blocks, smem, st);
+      return run<T, VI_WENO_VELOCITY, SPHERICAL_ENERGY, 1, 0, 1>(A, blocks, smem, st);
+    }
+    if (advance) return run<T, VI_WENO_VELOCITY, SPHERICAL_ENERGY, 1, 1, 0>(A, blocks, smem, st);
+    return run<T, VI_WENO_VELOCITY, SPHERICAL_ENERGY, 1, 0, 0>(A, blocks, smem, st);
   }
-  return run<T, -1, -1, -1, -1>(A, blocks, smem, st);
+  return run<T, -1, -1, -1, -1, 1>(A, blocks, smem, st);
 }
 
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success). Pointer arrays
-// are host arrays of nf device pointers; `ph` may be null, `gp` and
-// `out_psi` are null unless `advance`. The 15 bound ints are, for x, y and
-// z: masked, lo_l, hi_l, lo_r, hi_r.
+// are host arrays of nf device pointers; `ph`, `yt` (unless `ytables`) and
+// the clear flags `clr_c`, `clr_u`, `clr_v` may be null, `gp` and
+// `out_psi` are null unless `advance`; kh and kv are host arrays of
+// MAX_FIELDS coefficients (read with `closure` 1 or 2). The 15 bound ints
+// are, for x, y and z: masked, lo_l, hi_l, lo_r, hi_r.
 #define FUSED_HYDROSTATIC_TENDENCIES(NAME, T)                                  \
   int NAME(const void* const* psi, const void* w, const void* ph,              \
-           const void* ys, const void* zs, const void* const* gp,              \
-           void* const* out_g, void* const* out_psi, int nf, int nx, int ny,   \
-           int nz, int hx, int hy, int hz, int mom, int mom_weno, int tr,      \
-           int cor, int tables, int advance, int b0, int b1, int b2, int b3,   \
-           int b4, int b5, int b6, int b7, int b8, int b9, int b10, int b11,   \
-           int b12, int b13, int b14, double eps_m, double eps_t, double c1,   \
-           double c2, double dt, void* stream) {                               \
+           const void* ys, const void* zs, const void* yt, const void* clr_c,  \
+           const void* clr_u, const void* clr_v, const void* const* gp,        \
+           void* const* out_g, void* const* out_psi, const double* kh,         \
+           const double* kv, int nf, int nx, int ny, int nz, int hx, int hy,   \
+           int hz, int mom, int mom_weno, int tr, int cor, int tables,         \
+           int ytables, int closure, int advance, int b0, int b1, int b2,      \
+           int b3, int b4, int b5, int b6, int b7, int b8, int b9, int b10,    \
+           int b11, int b12, int b13, int b14, double eps_m, double eps_t,     \
+           double c1, double c2, double dt, void* stream) {                    \
     const int b[15] = {b0, b1, b2, b3, b4, b5, b6, b7,                         \
                        b8, b9, b10, b11, b12, b13, b14};                       \
-    return launch<T>(psi, w, ph, ys, zs, gp, out_g, out_psi, nf, nx, ny, nz,   \
-                     hx, hy, hz, mom, mom_weno, tr, cor, tables, advance, b,   \
+    return launch<T>(psi, w, ph, ys, zs, yt, clr_c, clr_u, clr_v, gp, out_g,   \
+                     out_psi, kh, kv, nf, nx, ny, nz, hx, hy, hz, mom,         \
+                     mom_weno, tr, cor, tables, ytables, closure, advance, b,  \
                      eps_m, eps_t, c1, c2, dt, stream);                        \
   }
 

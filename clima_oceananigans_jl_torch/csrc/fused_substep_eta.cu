@@ -15,8 +15,10 @@
 // outputs are the plain version's filled arrays. eta's halos (and eta_av's)
 // hold the values at their mirror points, which is what the plain
 // version's fills write there. Metrics are x-constant rows over with-halo y
-// (ops/metric_rows.py::y_row): dxu, dyv, dyu, dxv, az, Hfc, Hcf. Build with
-// --fmad=false so the compiler forms no FMA that eager PyTorch does not.
+// (ops/metric_rows.py::y_row): dxu, dyv, dyu, dxv, az. The column depths
+// Hfc, Hcf vary in x and y over an immersed bottom, so they are with-halo
+// (X, Y) planes, read at each point's source. Build with --fmad=false so
+// the compiler forms no FMA that eager PyTorch does not.
 //
 // Replaces the TPU kernel clima_oceananigans_jl_tpu/ops/fused_barotropic.py::
 // fused_substep_eta, which keeps all N substeps VMEM-resident in one call.
@@ -49,7 +51,7 @@
 
 namespace cg = cooperative_groups;
 
-enum { DXU = 0, DYV = 1, DYU = 2, DXV = 3, AZ = 4, HFC = 5, HCF = 6 };
+enum { DXU = 0, DYV = 1, DYU = 2, DXV = 3, AZ = 4 };
 
 // 256 threads a block, registers capped so that 3 blocks fit an SM (80 a
 // thread: fp32 does not spill); a thread issues the loads of SE_CHUNK
@@ -96,7 +98,7 @@ __device__ __forceinline__ T apply(T x, int f) {
 
 template <typename T>
 struct SubstepArgs {
-  const T* rows;  // (7, Y)
+  const T* rows;  // (5, Y)
   const T* eta0;  // unfilled
   const T* U0;
   const T* V0;
@@ -104,6 +106,8 @@ struct SubstepArgs {
   const T* GV;
   const T* wv;  // (n,)
   const T* wf;
+  const T* hfc;  // the depth planes (X, Y)
+  const T* hcf;
   T* buf;  // 6 with-halo arrays: eta at 0 and XY, U at 2 XY and 3 XY, V at 4 XY and 5 XY
   T* eta_av;
   T* U_av;
@@ -119,7 +123,7 @@ struct SubstepArgs {
 template <typename T>
 struct YCol {
   Src c, f;
-  T hfc, dxu, hcf, dyv, dyu, dxv0, dxv1, az;
+  T dxu, dyv, dyu, dxv0, dxv1, az;
 };
 
 // the kept values of a point, [value][point][thread] in shared memory
@@ -144,13 +148,11 @@ fused_substep_eta_kernel(const SubstepArgs<T> A) {
   y.c = source(J, A.ny, A.hy, A.yb, false);
   y.f = source(J, A.ny, A.hy, A.yb, true);
   const T* r = A.rows;
-  y.hfc = __ldg(r + HFC * Y + y.c.i);
   y.dxu = __ldg(r + DXU * Y + y.c.i);
   y.dyu = __ldg(r + DYU * Y + y.c.i);
   y.dxv0 = __ldg(r + DXV * Y + y.c.i);
   y.dxv1 = __ldg(r + DXV * Y + y.c.i + 1);
   y.az = __ldg(r + AZ * Y + y.c.i);
-  y.hcf = __ldg(r + HCF * Y + y.f.i);
   y.dyv = __ldg(r + DYV * Y + y.f.i);
   const bool u_row = y.c.f != 0, v_row = y.f.f != 0;  // not a y wall face
   // prologue: eta filled from eta0; Gu, Gv at the U and V sources (zero on
@@ -185,8 +187,8 @@ fused_substep_eta_kernel(const SubstepArgs<T> A) {
     // last repeat the last, and its results are dropped.
     for (int k0 = 0; k0 < count; k0 += SE_CHUNK) {
       Src ux[SE_CHUNK], vx[SE_CHUNK];
-      T u[SE_CHUNK], e1[SE_CHUNK], e0[SE_CHUNK], gu[SE_CHUNK];
-      T v[SE_CHUNK], f1[SE_CHUNK], f0[SE_CHUNK], gv[SE_CHUNK];
+      T u[SE_CHUNK], e1[SE_CHUNK], e0[SE_CHUNK], gu[SE_CHUNK], hf[SE_CHUNK];
+      T v[SE_CHUNK], f1[SE_CHUNK], f0[SE_CHUNK], gv[SE_CHUNK], hc[SE_CHUNK];
 #pragma unroll
       for (int c = 0; c < SE_CHUNK; ++c) {
         const int k = min(k0 + c, count - 1), I = I0 + k * rows;
@@ -201,6 +203,8 @@ fused_substep_eta_kernel(const SubstepArgs<T> A) {
         f0[c] = eta[q - 1];
         gu[c] = k < A.kept ? kept(KEEP_GU, k) : __ldg(A.GU + o);
         gv[c] = k < A.kept ? kept(KEEP_GV, k) : __ldg(A.GV + q);
+        hf[c] = __ldg(A.hfc + o);
+        hc[c] = __ldg(A.hcf + q);
       }
 #pragma unroll
       for (int c = 0; c < SE_CHUNK; ++c) {
@@ -208,11 +212,11 @@ fused_substep_eta_kernel(const SubstepArgs<T> A) {
         if (k >= count) break;
         T Un = T(0), Vn = T(0);
         if (ux[c].f != 0 && u_row) {
-          Un = u[c] + A.dtau * ((A.neg_g * y.hfc * (e1[c] - e0[c])) / y.dxu + gu[c]);
+          Un = u[c] + A.dtau * ((A.neg_g * hf[c] * (e1[c] - e0[c])) / y.dxu + gu[c]);
           Un = apply(apply(Un, ux[c].f), y.c.f);
         }
         if (vx[c].f != 0 && v_row) {
-          Vn = v[c] + A.dtau * ((A.neg_g * y.hcf * (f1[c] - f0[c])) / y.dyv + gv[c]);
+          Vn = v[c] + A.dtau * ((A.neg_g * hc[c] * (f1[c] - f0[c])) / y.dyv + gv[c]);
           Vn = apply(apply(Vn, vx[c].f), y.f.f);
         }
         const int p = (I0 + k * rows) * Y + J;
@@ -335,11 +339,12 @@ static int pick(int X, int Y, Shape* s) {
 }
 
 template <typename T>
-static int launch(const void* rows, const void* eta0, const void* U0,
-                  const void* V0, const void* GU, const void* GV, const void* wv,
-                  const void* wf, void* buf, void* eta_av, void* U_av, void* V_av,
-                  int n, int nx, int ny, int hx, int hy, int xb, int yb,
+static int launch(const void* rows, const void* hfc, const void* hcf, const void* eta0,
+                  const void* U0, const void* V0, const void* GU, const void* GV,
+                  const void* wv, const void* wf, void* buf, void* eta_av, void* U_av,
+                  void* V_av, int n, int nx, int ny, int hx, int hy, int xb, int yb,
                   double g, double dtau, void* stream) {
+  if (hfc == nullptr || hcf == nullptr) return (int)cudaErrorInvalidValue;
   if (n < 0 || nx <= 0 || ny <= 0 || hx < 1 || hy < 1) return (int)cudaErrorInvalidValue;
   const long long X = nx + 2LL * hx, Y = ny + 2LL * hy;
   if (X * Y > INT32_MAX) return (int)cudaErrorInvalidValue;  // 32-bit point indices
@@ -352,6 +357,8 @@ static int launch(const void* rows, const void* eta0, const void* U0,
   A.GV = static_cast<const T*>(GV);
   A.wv = static_cast<const T*>(wv);
   A.wf = static_cast<const T*>(wf);
+  A.hfc = static_cast<const T*>(hfc);
+  A.hcf = static_cast<const T*>(hcf);
   A.buf = static_cast<T*>(buf);
   A.eta_av = static_cast<T*>(eta_av);
   A.U_av = static_cast<T*>(U_av);
@@ -388,18 +395,21 @@ static int config(int nx, int ny, int hx, int hy, int* out) {
 extern "C" {
 
 // Returns the CUDA error of the cooperative launch (0 on success). All
-// pointers are device pointers: `rows` the (7, Y) metric rows, eta0 (its
-// halos need not be filled), U0, V0, GU, GV, eta_av, U_av, V_av with-halo
-// (X, Y) arrays, `buf` six of them (scratch), wv, wf the (n,) weights.
-// Runs all n substeps; eta_av comes out filled.
+// pointers are device pointers: `rows` the (5, Y) metric rows, hfc and hcf
+// the with-halo (X, Y) depth planes, eta0 (its halos need not be filled),
+// U0, V0, GU, GV, eta_av, U_av, V_av with-halo (X, Y) arrays, `buf` six of
+// them (scratch), wv, wf the (n,) weights. Runs all n substeps; eta_av
+// comes out filled.
 #define FUSED_SUBSTEP_ETA(NAME, T)                                            \
-  int NAME(const void* rows, const void* eta0, const void* U0,                \
-           const void* V0, const void* GU, const void* GV, const void* wv,    \
-           const void* wf, void* buf, void* eta_av, void* U_av, void* V_av,   \
-           int n, int nx, int ny, int hx, int hy, int xb, int yb, double g,   \
-           double dtau, void* stream) {                                       \
-    return launch<T>(rows, eta0, U0, V0, GU, GV, wv, wf, buf, eta_av, U_av,   \
-                     V_av, n, nx, ny, hx, hy, xb, yb, g, dtau, stream);       \
+  int NAME(const void* rows, const void* hfc, const void* hcf,                \
+           const void* eta0, const void* U0, const void* V0, const void* GU,  \
+           const void* GV, const void* wv, const void* wf, void* buf,         \
+           void* eta_av, void* U_av, void* V_av, int n, int nx, int ny,       \
+           int hx, int hy, int xb, int yb, double g, double dtau,             \
+           void* stream) {                                                    \
+    return launch<T>(rows, hfc, hcf, eta0, U0, V0, GU, GV, wv, wf, buf,       \
+                     eta_av, U_av, V_av, n, nx, ny, hx, hy, xb, yb, g, dtau,  \
+                     stream);                                                 \
   }
 
 FUSED_SUBSTEP_ETA(fused_substep_eta_f32, float)

@@ -1,0 +1,159 @@
+"""Immersed boundaries: solid masks on any grid.
+
+Counterpart of ``clima_oceananigans_jl_tpu/immersed/immersed.py``
+(Oceananigans' ImmersedBoundaries: grid-fitted boundaries, the
+peripheral-node rule, ``mask_immersed_field!``). The solid geometry is a
+set of boolean masks, one per staggered location, on the grid's device;
+masking is a ``torch.where`` on fields and tendencies after each update.
+A velocity face is solid when either cell centre beside it is solid, so
+advective and diffusive transport through the boundary vanishes.
+
+``ImmersedGrid`` wraps the model's grid (after its halos are set) and
+forwards every attribute it lacks to it, but keeps a ``_cache`` of its
+own: the column depths, K5's depth planes and every other entry cached
+per grid are built again for the immersed grid, so none of the parent's
+flat-bottom values leaks into the immersed model. ``PartialCellBottom``
+(fractional bottom cells, 3D vertical metrics) is not ported: JAX's
+kernel gate refuses it too, and the hydrostatic model refuses it by name
+(ROADMAP Queue 1 item 7).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from ..utils.location import CENTER, F, U_LOC, V_LOC, W_LOC
+
+
+def _face_mask(solid_c, axis):
+    """A face is solid if either centre beside it is; with-halo roll."""
+    return solid_c | torch.roll(solid_c, 1, axis)
+
+
+@dataclasses.dataclass
+class ImmersedBoundary:
+    """Solid masks (``torch.bool``, True = solid) at the four canonical
+    locations."""
+
+    solid_ccc: torch.Tensor
+    solid_fcc: torch.Tensor
+    solid_cfc: torch.Tensor
+    solid_ccf: torch.Tensor
+
+    @classmethod
+    def _from_solid(cls, solid):
+        return cls(solid, _face_mask(solid, 0), _face_mask(solid, 1),
+                   _face_mask(solid, 2))
+
+    @classmethod
+    def from_mask(cls, grid, mask_fn):
+        """Solid where ``mask_fn(x, y, z)`` (Oceananigans'
+        GridFittedBoundary)."""
+        x, y, z = grid.nodes(CENTER, with_halo=True)
+        solid = torch.as_tensor(mask_fn(x, y, z), device=grid.device)
+        return cls._from_solid(torch.broadcast_to(
+            solid.to(torch.bool), grid.total_shape).contiguous())
+
+    @classmethod
+    def from_bottom_height(cls, grid, bottom):
+        """Solid where z < h(x, y) (Oceananigans' GridFittedBottom); h a
+        callable of the horizontal nodes, a constant or an array."""
+        x, y, z = grid.nodes(CENTER, with_halo=True)
+        h = bottom(x, y) if callable(bottom) else bottom
+        if not isinstance(h, torch.Tensor):
+            h = torch.as_tensor(h, dtype=grid.dtype, device=grid.device)
+        return cls._from_solid(torch.broadcast_to(z < h, grid.total_shape)
+                               .contiguous())
+
+    def mask_for(self, loc):
+        """The solid mask at any location triple: a node is solid when any
+        cell centre beside it is (the peripheral-node rule, corner
+        locations such as (F, F, C) included)."""
+        loc = tuple(loc)
+        if loc == U_LOC:
+            return self.solid_fcc
+        if loc == V_LOC:
+            return self.solid_cfc
+        if loc == W_LOC:
+            return self.solid_ccf
+        if loc == CENTER:
+            return self.solid_ccc
+        m = self.solid_ccc
+        for a in range(3):
+            if loc[a] == F:
+                m = m | torch.roll(m, 1, a)
+        return m
+
+    def mask_field(self, data, loc, value=0.0):
+        """The field with ``value`` in the solid (``mask_immersed_field!``)."""
+        return torch.where(self.mask_for(loc),
+                           torch.full((), value, dtype=data.dtype,
+                                      device=data.device), data)
+
+    def mask_state(self, model, state):
+        locs = model._locs()
+        sol = {name: self.mask_field(arr, locs[name])
+               for name, arr in state["solution"].items()}
+        return dict(state, solution=sol)
+
+    def mask_tendency(self, model, name, G):
+        return self.mask_field(G, model._locs().get(name, CENTER))
+
+
+class ImmersedGrid:
+    """The model's grid with an immersed boundary (Oceananigans'
+    ImmersedBoundaryGrid): ``.immersed`` gives the masks, which
+    ``advection/schemes.py::transport`` (the conditional fluxes), the
+    diffusive fluxes, the column depths and the model's masking read;
+    every other attribute is the parent's, but ``_cache`` is its own."""
+
+    def __init__(self, parent, boundary):
+        self.parent = parent
+        self.boundary = boundary
+        self._cache = {}
+
+    @property
+    def immersed(self):
+        return self.boundary
+
+    def __getattr__(self, name):
+        if name.startswith("__") or "parent" not in self.__dict__:
+            raise AttributeError(name)
+        return getattr(self.parent, name)
+
+    def __repr__(self):
+        return f"ImmersedGrid({self.parent!r})"
+
+
+@dataclasses.dataclass(frozen=True)
+class GridFittedBoundary:
+    """Solid where ``mask(x, y, z)``; built by the model on its final grid
+    through ``build``."""
+
+    mask: Any
+
+    def build(self, grid):
+        return ImmersedBoundary.from_mask(grid, self.mask)
+
+
+@dataclasses.dataclass(frozen=True)
+class GridFittedBottom:
+    """Solid where z < ``bottom_height(x, y)`` (or a constant or array)."""
+
+    bottom_height: Any
+
+    def build(self, grid):
+        return ImmersedBoundary.from_bottom_height(grid, self.bottom_height)
+
+
+@dataclasses.dataclass(frozen=True)
+class PartialCellBottom:
+    """GridFittedBottom with fractional bottom cells (Oceananigans'
+    PartialCellBottom). Not ported: it needs 3D vertical metrics, which
+    the kernels do not take (the JAX kernel gate refuses them too), so the
+    model refuses it (ROADMAP Queue 1 item 7)."""
+
+    bottom_height: Any
+    minimum_fraction: float = 0.2

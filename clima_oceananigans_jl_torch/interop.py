@@ -22,7 +22,8 @@ package's state for ``model``:
   top face) go into the port's layout and are halo-filled; its
   ``G_prev`` (an ``eta`` entry too under an explicit free surface) comes
   with halos (the JAX plain path) or x/y-interior (the JAX fused
-  advance) and goes in with zero x/y halos.
+  advance) and goes in with zero x/y halos; a closure's
+  ``diffusivities`` go in as the nonhydrostatic model's do.
 
 ``state_to_numpy`` goes the other way, keeping the port's layout (halo
 3, ``G_prev`` as the model keeps it), which the JAX package's plain step
@@ -74,6 +75,8 @@ def _hydrostatic_from_numpy(model, state, out, t):
                                 model.pressure_bcs, t)
     out["G_prev"] = {n: _xy_interior(x, g) for n, x in state["G_prev"].items()}
     out["previous_dt"] = float(np.asarray(state["previous_dt"]))
+    if "diffusivities" in state:
+        out["diffusivities"] = _diffusivities_from_numpy(state["diffusivities"], g)
     return out
 
 

@@ -10,8 +10,9 @@ Counterpart of ``clima_oceananigans_jl_tpu/models/free_surface.py``
   loop is the plain version of the kernel K5, ``ops/fused_barotropic.py``),
   then the barotropic corrector u += (U̅ − ∫u dz)/H;
 - ``ImplicitFreeSurface``: solve [∇h·(H∇h) − 1/gΔt²] η = (∇h·Q★ − η/Δt)/(gΔt)
-  by a 2D FFT/DCT eigen-solve on horizontally regular grids ("fft") or
-  matrix-free conjugate gradients ("pcg", lat-lon grids included), then
+  by a 2D FFT/DCT eigen-solve on horizontally regular grids of constant
+  depth ("fft") or matrix-free conjugate gradients ("pcg", lat-lon and
+  immersed grids included), then
   uⁿ⁺¹ = u★ − gΔt ∂x η; the JAX package's "matrix" and "multigrid"
   methods wait (ROADMAP Queue 1 item 7).
 
@@ -53,14 +54,28 @@ def barotropic_mode(grid, u, v):
 
 def column_depths(grid):
     """(Hᶠᶜ, Hᶜᶠ): the static water depths as (X, Y, 1) tensors, built once
-    per grid (callers must not write into them)."""
+    per grid (callers must not write into them). On a grid with an
+    immersed boundary only fluid cells count, and a column that is solid
+    throughout keeps 10⁻³ of the z extent, so that 1/H stays finite (its
+    velocities are masked to zero anyway)."""
     if "column_depths" not in grid._cache:
         Hz, Nz = grid.Hz, grid.Nz
         one = torch.ones(grid.total_shape[:2] + (1,), dtype=grid.dtype,
                          device=grid.device)
-        depth = lambda loc: torch.broadcast_to(
-            grid.dz(loc), grid.total_shape)[:, :, Hz:Hz + Nz].sum(dim=2, keepdim=True)
-        grid._cache["column_depths"] = (one * depth(U_LOC), one * depth(V_LOC))
+        imm = getattr(grid, "immersed", None)
+
+        def depth(loc):
+            dz = torch.broadcast_to(grid.dz(loc), grid.total_shape)
+            if imm is not None:
+                dz = torch.where(imm.mask_for(loc),
+                                 torch.zeros((), dtype=dz.dtype, device=dz.device), dz)
+            h = dz[:, :, Hz:Hz + Nz].sum(dim=2, keepdim=True)
+            if imm is not None:
+                h = torch.clamp_min(h, torch.full(
+                    (), grid._axes[2].extent * 1e-3, dtype=h.dtype, device=h.device))
+            return one * h
+
+        grid._cache["column_depths"] = (depth(U_LOC), depth(V_LOC))
     return grid._cache["column_depths"]
 
 
@@ -95,8 +110,13 @@ class ImplicitFreeSurface:
     maxiter: int = 500
 
     def resolve_method(self, grid):
+        """``solver_method``, with "auto" resolved: "fft" on a horizontally
+        regular rectilinear grid of constant depth, else "pcg" (an immersed
+        bottom makes the depth vary)."""
         if self.solver_method != "auto":
             return self.solver_method
+        if getattr(grid, "immersed", None) is not None:
+            return "pcg"
         return "fft" if (not grid.curvilinear and grid.hregular) else "pcg"
 
     def solve(self, grid, eta_bcs, rhs, eta0, dt):

@@ -3,8 +3,8 @@
 Counterpart of ``clima_oceananigans_jl_tpu/models/hydrostatic.py``
 (Oceananigans' ``HydrostaticFreeSurfaceModel``):
 
-  ∂t u = G_u − g∂x η (explicit),  G_u = −U·∇u − f×u|x − ∂x pHY′
-  ∂t c = −∇·(U c)
+  ∂t u = G_u − g∂x η (explicit),  G_u = −U·∇u − f×u|x − ∂x pHY′ + ∇·τ
+  ∂t c = −∇·(U c) + ∇·(κ∇c)
   w    = −∫_{-H}^z ∇h·u dz'          (continuity, diagnosed)
   ∂t η = −∇h·U                       (per the free-surface treatment)
 
@@ -25,24 +25,46 @@ A quasi-AB2 step:
 - explicit free surface: K4b's tendencies, −g∇η, G_η = −∇h·U, the AB2
   substep of the solution and η, then ``update_state``.
 
-With forcing or flux-BC values (or ``fused_advection=False``) the
-implicit and split-explicit steps take the JAX package's two-stage route
-instead of the fused advance (``fused_advance``, fixed at construction as
-the JAX package fixes it): ``tendencies`` (K4b in its tendency form, then
-the forcing and the boundary fluxes), then ``ab2_substep`` on the
-with-halo fields, then the free surface as above.
+With forcing, flux-BC values, an immersed boundary or a closure K4b
+does not take (or ``fused_advection=False``) the implicit and
+split-explicit steps take the JAX package's two-stage route instead of
+the fused advance (``fused_advance``, fixed at construction as the JAX
+package fixes it): ``tendencies`` (K4b in its tendency form, then the
+diffusion K4b does not take, the forcing, the boundary fluxes, the
+immersed bottom's fluxes and the masking of the tendencies), then
+``ab2_substep`` on the with-halo fields, then the free surface as above.
+A vertically implicit closure then takes its z diffusion through T1
+(``implicit_step_fields``, ``kernels["tridiagonal"]``) after the AB2
+substep, under all three free surfaces, as the JAX step does.
+
+Closures: a constant-coefficient ``ScalarDiffusivity`` (scalar or
+per-tracer ν, κ; ``ops/fused_hydrostatic.py::kernel_closure``) enters K4b
+on a grid without an immersed boundary; every other closure (arrays,
+callables, biharmonic, the LES closures, tuples) adds its diffusion as
+torch ops in ``tendencies``, with its diffusivities computed in
+``update_state``.
+
+Immersed boundaries (``GridFittedBottom``, ``GridFittedBoundary``): the
+grid is wrapped in an ``ImmersedGrid`` after its halos are set (the JAX
+plain path's halos); ``update_state`` masks the solution after its fills,
+``tendencies`` adds the immersed bottom's fluxes and masks the
+tendencies, the column depths count fluid cells (K5 reads them as (X, Y)
+planes), the implicit free surface's "auto" solve is "pcg", and K4b's
+conditional fluxes read the solid masks as clear flags.
 
 ``update_state`` fills the halos of the solution and η in one launch of
-K6, K4a rebuilds w and pHY′ column by column, and a second K6 launch
-fills their halos. The kernels' wrappers are taken from ``KERNELS``;
+K6, masks the solid, K4a rebuilds w and pHY′ column by column, and a
+second K6 launch fills their halos; a closure's diffusivities follow.
+The kernels' wrappers are taken from ``KERNELS``;
 ``step(..., kernels=PLAIN)`` runs their plain versions, and so does every
 step of a model built with the JAX keyword ``fused_advection=False``. On
 the card the constructor of a model that runs the kernels checks their
 static gates, so a configuration they lack raises there and the wrappers
 do not check again. Not ported here,
 because they are TPU-only: the halo rounding to multiples of 4, the
-(x, z, y) state layout, the MXU cumsum, the distributed overlap. A configuration the port cannot run yet raises
-``NotImplementedError`` at construction, naming its ROADMAP item.
+(x, z, y) state layout, the MXU cumsum, the distributed overlap. A
+configuration the port cannot run yet (particles, ``PartialCellBottom``)
+raises ``NotImplementedError`` at construction, naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -51,12 +73,17 @@ import torch
 from ..advection.schemes import CenteredSecondOrder, WENO5
 from ..advection.vector_invariant import VectorInvariant
 from ..boundary_conditions.bcs import (FluxBC, OpenBC, apply_flux_bcs,
-                                       regularize_bcs)
+                                       apply_immersed_flux_bcs, regularize_bcs)
 from ..buoyancy.buoyancy import BuoyancyTracer
+from ..closures.implicit_vertical_diffusion import implicit_step_fields
+from ..closures.scalar_diffusivity import (cell_diffusion_timescale,
+                                           compute_closure_diffusivities,
+                                           momentum_diffusion, tracer_diffusion)
 from ..coriolis.coriolis import BetaPlane, FPlane, HydrostaticSphericalCoriolis
 from ..fields.field import Field, new_field, set_field
 from ..forcings.forcing import regularize_forcing
 from ..grids.topology import BOUNDED, FLAT
+from ..immersed.immersed import ImmersedGrid, PartialCellBottom
 from ..ops.fused_barotropic import fused_substep_eta, fused_substep_eta_reference
 from ..ops.fused_barotropic import unsupported_reason as barotropic_unsupported_reason
 from ..ops.fused_fill import fused_fill_halos, fused_fill_halos_reference
@@ -65,8 +92,11 @@ from ..ops.fused_hydrostatic import (fused_hydrostatic_tendencies,
                                      fused_hydrostatic_tendencies_reference,
                                      hydrostatic_columns,
                                      hydrostatic_columns_reference,
+                                     kernel_closure,
                                      supports_fused_hydro_advance)
 from ..ops.fused_hydrostatic import unsupported_reason as kernel_unsupported_reason
+from ..solvers.tridiagonal import (solve_batched_tridiagonal,
+                                   solve_batched_tridiagonal_reference)
 from ..timesteppers.steppers import Clock, ab2_coefficients, ab2_substep
 from ..utils.location import CENTER, U_LOC, V_LOC, W_LOC
 from .free_surface import (ETA_LOC, ExplicitFreeSurface, ImplicitFreeSurface,
@@ -75,28 +105,28 @@ from .free_surface import (ETA_LOC, ExplicitFreeSurface, ImplicitFreeSurface,
 
 #: the kernels' wrappers a step calls, by name: w and pHY′ (K4a), the
 #: tendencies and AB2 advance (K4b), the barotropic substeps (K5), the
-#: halo fills (K6)
+#: halo fills (K6), the implicit vertical diffusion's column solves (T1)
 KERNELS = dict(columns=hydrostatic_columns,
                tendencies=fused_hydrostatic_tendencies,
-               barotropic=fused_substep_eta, fill=fused_fill_halos)
+               barotropic=fused_substep_eta, fill=fused_fill_halos,
+               tridiagonal=solve_batched_tridiagonal)
 #: their plain versions: ``step(..., kernels=PLAIN)`` runs a step without
 #: the kernels on the card, as does a model built with
 #: ``fused_advection=False``
 PLAIN = dict(columns=hydrostatic_columns_reference,
              tendencies=fused_hydrostatic_tendencies_reference,
              barotropic=fused_substep_eta_reference,
-             fill=fused_fill_halos_reference)
+             fill=fused_fill_halos_reference,
+             tridiagonal=solve_batched_tridiagonal_reference)
 
 
-def _unsupported_reason(model, closure, particles, immersed_boundary):
+def _unsupported_reason(model, particles, immersed_boundary):
     """Why the port cannot run this configuration yet, or None."""
-    if closure is not None:
-        return ("closures in the hydrostatic model are not ported yet "
-                "(ROADMAP Queue 1 item 7)")
     if particles is not None:
         return "particles are not ported yet (ROADMAP Queue 1 item 7)"
-    if immersed_boundary is not None:
-        return "immersed boundaries are not ported yet (ROADMAP Queue 1 item 7)"
+    if isinstance(immersed_boundary, PartialCellBottom):
+        return ("PartialCellBottom (fractional bottom cells, 3D vertical "
+                "metrics) is not ported yet (ROADMAP Queue 1 item 7)")
     fs = model.free_surface
     if isinstance(fs, ImplicitFreeSurface):
         if fs.resolve_method(model.grid) not in ("fft", "pcg"):
@@ -154,14 +184,28 @@ class HydrostaticFreeSurfaceModel:
             for t in buoyancy.required_tracers:
                 if t not in names:
                     names.append(t)
+        for cl in (closure if isinstance(closure, (tuple, list)) else (closure,)):
+            for t in getattr(cl, "required_tracers", ()):
+                if t not in names:
+                    names.append(t)
         self.tracer_names = tuple(names)
         h = max(getattr(self.momentum_advection, "required_halo", 1),
                 getattr(self.tracer_advection, "required_halo", 1), 1)
         self.grid = grid.with_halo((h, h, h))
+        # an immersed boundary: its masks built on the final grid, which is
+        # wrapped (Oceananigans' ImmersedBoundaryGrid)
+        self.immersed_boundary = None
+        if (immersed_boundary is not None
+                and not isinstance(immersed_boundary, PartialCellBottom)):
+            if hasattr(immersed_boundary, "build"):
+                immersed_boundary = immersed_boundary.build(self.grid)
+            self.immersed_boundary = immersed_boundary
+            self.grid = ImmersedGrid(self.grid, immersed_boundary)
         self.free_surface = (free_surface if free_surface is not None
                              else ImplicitFreeSurface())
         self.buoyancy = buoyancy
         self.coriolis = coriolis
+        self.closure = closure
         self.forcing = {k: regularize_forcing(k, v)
                         for k, v in (forcing or {}).items()}
         self.ab2_chi = 0.1
@@ -176,8 +220,7 @@ class HydrostaticFreeSurfaceModel:
             wb.top = FluxBC()
         self.w_bcs = wb
         self.pressure_bcs = regularize_bcs(self.grid, CENTER, None)
-        reason = _unsupported_reason(self, closure, particles,
-                                     immersed_boundary)
+        reason = _unsupported_reason(self, particles, immersed_boundary)
         if (reason is None and self.grid.device.type == "cuda"
                 and self.fused_advection):
             # on the card the kernels run: their gates decide now
@@ -189,7 +232,6 @@ class HydrostaticFreeSurfaceModel:
                 reason = self._fill_unsupported_reason()
         if reason is not None:
             raise NotImplementedError(reason)
-        self.closure = None
         # K4b's fused advance (tendencies and the AB2 substep in one
         # launch) where no term is added to G after the kernel; otherwise
         # the two-stage route, as the JAX package fixes it
@@ -276,12 +318,16 @@ class HydrostaticFreeSurfaceModel:
         return w
 
     def update_state(self, state, kernels=None):
-        """Halo fills of the solution and η (in place, one K6 launch),
-        then w and pHY′ from K4a (``kernels["columns"]``) with their halos
-        filled (a second K6 launch)."""
+        """Halo fills of the solution and η (in place, one K6 launch), the
+        solid masked to zero (with an immersed boundary), then w and pHY′
+        from K4a (``kernels["columns"]``) with their halos filled (a second
+        K6 launch), then the closure's diffusivities (where it has any)."""
         kernels = self._kernels(kernels)
         t = state["clock"].time
         sol = self.fill_all_halos(state["solution"], t, kernels, eta=state["eta"])
+        if self.immersed_boundary is not None:
+            state = self.immersed_boundary.mask_state(self, dict(state, solution=sol))
+            sol = state["solution"]
         w, ph = kernels["columns"](self.grid, sol["u"], sol["v"],
                                    self._buoyancy_field(sol))
         fields = [(w, W_LOC, self.w_bcs, (0, 1, 2), 0.0)]
@@ -291,17 +337,25 @@ class HydrostaticFreeSurfaceModel:
         state = dict(state, w=w)
         if ph is not None:
             state["pHY"] = ph
+        diff = compute_closure_diffusivities(
+            self.closure, self.grid, dict(sol, w=w), self.buoyancy,
+            {n: sol[n] for n in self.tracer_names})
+        if diff is not None:
+            state["diffusivities"] = diff
         return state
 
     # -- tendencies ---------------------------------------------------------------
     def tendencies(self, state, kernels=None):
         """With-halo tendencies of every prognostic field, valid on the
-        interior: K4b's core (``kernels["tendencies"]``), −g∇η under an
-        explicit free surface, then per field its forcing and boundary
-        fluxes, with ``fields`` the solution, w and η (a discrete-form
-        BC or forcing may read them). A state without w (as the JAX
-        package keeps it when its kernel rebuilds w) gets it rebuilt
-        through ``kernels["columns"]`` (K4a) first, as the JAX step does."""
+        interior: K4b's core (``kernels["tendencies"]``, with the explicit
+        diffusion of a ``kernel_closure``), −g∇η under an explicit free
+        surface, the diffusion of any other closure, then per field its
+        forcing, boundary fluxes and immersed-bottom fluxes, with
+        ``fields`` the solution, w and η (a discrete-form BC or forcing
+        may read them); with an immersed boundary the tendencies are then
+        zero in the solid. A state without w (as the JAX package keeps it
+        when its kernel rebuilds w) gets it rebuilt through
+        ``kernels["columns"]`` (K4a) first, as the JAX step does."""
         grid = self.grid
         if state.get("w") is None:
             state = dict(state, w=self.compute_w(state["solution"], kernels))
@@ -310,14 +364,28 @@ class HydrostaticFreeSurfaceModel:
             g = self.free_surface.gravitational_acceleration
             G["u"] = G["u"] - g * grad_x(grid, state["eta"])
             G["v"] = G["v"] - g * grad_y(grid, state["eta"])
+        sol = state["solution"]
+        if self.closure is not None and kernel_closure(self) is None:
+            diff = state.get("diffusivities")
+            for name, loc in (("u", U_LOC), ("v", V_LOC)):
+                G[name] = G[name] + momentum_diffusion(sol[name], grid, loc,
+                                                       self.closure, diff)
+            for name in self.tracer_names:
+                G[name] = G[name] + tracer_diffusion(sol[name], grid, name,
+                                                     self.closure, diff)
         clock = state["clock"]
-        fields = dict(state["solution"], w=state["w"], eta=state["eta"])
+        fields = dict(sol, w=state["w"], eta=state["eta"])
         locs = self._locs()
         for name in self.prognostic_names():
             if name in self.forcing:
                 G[name] = G[name] + self.forcing[name](grid, clock, fields)
             G[name] = apply_flux_bcs(G[name], grid, locs[name], self.bcs[name],
                                      clock.time, fields)
+            G[name] = apply_immersed_flux_bcs(G[name], grid, locs[name],
+                                              self.bcs[name], clock.time, fields)
+        if self.immersed_boundary is not None:
+            G = {k: self.immersed_boundary.mask_tendency(self, k, g_arr)
+                 for k, g_arr in G.items()}
         return G
 
     # -- stepping ---------------------------------------------------------------
@@ -333,6 +401,11 @@ class HydrostaticFreeSurfaceModel:
         euler = clock0.iteration == 0 or abs(state["previous_dt"] - dt) > 1e-14
         G_prev = state["G_prev"]
         sol0 = state["solution"]
+        # a vertically implicit closure's z diffusion (T1), after the AB2
+        # substep (a no-op for other closures)
+        implicit = lambda s: implicit_step_fields(
+            s, grid, self._locs(), self.closure, dt, state.get("diffusivities"),
+            self.bcs, clock0.time, kernels["tridiagonal"])
         if self._explicit_fs:
             G = self.tendencies(state, kernels)
             U, V = barotropic_mode(grid, sol0["u"], sol0["v"])
@@ -340,7 +413,7 @@ class HydrostaticFreeSurfaceModel:
             stepped = ab2_substep(dict(sol0, eta=state["eta"]), G, G_prev, dt,
                                   self.ab2_chi, euler)
             eta = stepped.pop("eta")
-            sol = stepped
+            sol = implicit(stepped)
         else:
             if self.fused_advance:
                 sol, G = kernels["tendencies"](self, state, advance=(dt, euler))
@@ -348,7 +421,7 @@ class HydrostaticFreeSurfaceModel:
                 G = self.tendencies(state, kernels)
                 sol = ab2_substep(sol0, G, G_prev, dt, self.ab2_chi, euler)
             if isinstance(fs, ImplicitFreeSurface):
-                sol = self.fill_all_halos(sol, clock0.time, kernels)
+                sol = self.fill_all_halos(implicit(sol), clock0.time, kernels)
                 Qu, Qv = barotropic_mode(grid, sol["u"], sol["v"])
                 g = fs.gravitational_acceleration
                 rhs = (div_xy_2d(grid, Qu, Qv) - state["eta"] / dt) / (g * dt)
@@ -363,6 +436,7 @@ class HydrostaticFreeSurfaceModel:
                 eta, U_av, V_av = fs.substep_eta(grid, self.eta_bcs,
                                                  state["eta"], GU, GV, U0, V0,
                                                  dt, kernels["barotropic"])
+                sol = implicit(sol)
                 u, v = fs.corrector(grid, sol["u"], sol["v"], U_av, V_av)
                 sol = dict(sol, u=u, v=v)
         new_state = dict(state, solution=sol, eta=eta, G_prev=G,
@@ -370,6 +444,13 @@ class HydrostaticFreeSurfaceModel:
         return self.update_state(new_state, kernels)
 
     # -- diagnostics ---------------------------------------------------------------
+    def cell_diffusion_timescale(self, state):
+        """min Δ²/max(ν, κ) over the model's closures (Oceananigans'
+        turbulence_closure_diagnostics.jl); +inf when nothing limits."""
+        return cell_diffusion_timescale(self.closure, self.grid,
+                                        state.get("diffusivities"),
+                                        self.tracer_names)
+
     def cell_advection_timescale(self, state):
         """min Δ/|u| over the interior, for u, v and w."""
         grid = self.grid

@@ -18,11 +18,12 @@ loop (free_surface.py:357-380) on (X, Y, 1) tensors.
 ``fused_substep_eta`` is the wrapper: on CPU tensors it runs the plain
 version, on CUDA tensors the hand-written kernel
 ``csrc/fused_substep_eta.cu`` (or raises): one cooperative launch runs
-all n substeps, a grid-wide barrier between the U, V half and the η half
-of each, every with-halo (x, y) point taking its halo value through the
-fill rule of its location (a periodic wrap, the zero-gradient mirror, or
-the impenetrable wall's zero face and negated mirror), so no separate
-fill runs. η̅'s halos accumulate the same sums as their mirror points,
+all n substeps (the column depths read as (X, Y) planes, which vary in
+x over an immersed bottom), a grid-wide barrier between the U, V half and
+the η half of each, every with-halo (x, y) point taking its halo value
+through the fill rule of its location (a periodic wrap, the zero-gradient
+mirror, or the impenetrable wall's zero face and negated mirror), so no
+separate fill runs. η̅'s halos accumulate the same sums as their mirror points,
 which is what the final fill writes. The wrapper allocates the three
 outputs and one block of six scratch arrays and launches; it counts its
 launches in ``fused_substep_eta.launches``. ``cooperative_grid`` reports
@@ -88,16 +89,23 @@ def unsupported_reason(grid, eta_bcs):
     return None
 
 
-def _rows(grid, Hfc, Hcf):
-    """The (7, Y) x-constant metric rows K5 reads, built once for the
-    depth tensors last given (``column_depths`` returns the same ones)."""
-    last = grid._cache.get("substep_eta_rows")
+def depth_inputs(grid, Hfc, Hcf):
+    """What K5 reads of the metrics and the column depths: the (5, Y)
+    x-constant metric rows (dxu, dyv, dyu, dxv, az), built once per grid,
+    and the with-halo (X, Y) depth planes of Hᶠᶜ and Hᶜᶠ (which vary in x
+    over an immersed bottom), made contiguous once for the depth tensors
+    last given (``column_depths`` returns the same ones)."""
+    rows = grid._cache.get("substep_eta_rows")
+    if rows is None:
+        rows = grid._cache["substep_eta_rows"] = torch.stack([
+            y_row(grid, m) for m in (grid.dx(U_LOC), grid.dy(V_LOC),
+                                     grid.dy(U_LOC), grid.dx(V_LOC),
+                                     grid.Az(CENTER))]).contiguous()
+    last = grid._cache.get("substep_eta_depths")
     if last is None or last[0] is not Hfc or last[1] is not Hcf:
-        rows = torch.stack([y_row(grid, m) for m in (
-            grid.dx(U_LOC), grid.dy(V_LOC), grid.dy(U_LOC), grid.dx(V_LOC),
-            grid.Az(CENTER), Hfc, Hcf)]).contiguous()
-        last = grid._cache["substep_eta_rows"] = (Hfc, Hcf, rows)
-    return last[2]
+        last = grid._cache["substep_eta_depths"] = (
+            Hfc, Hcf, (Hfc[:, :, 0].contiguous(), Hcf[:, :, 0].contiguous()))
+    return rows, last[2]
 
 
 def _launch(grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf, g, dtau, wv, wf, n):
@@ -108,16 +116,16 @@ def _launch(grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf, g, dtau, wv, wf, n):
         check_tensor(name, a, shape, dtype, device)
     for name, a in (("wv", wv), ("wf", wf)):
         check_tensor(name, a, (n,), dtype, device)
-    rows = _rows(grid, Hfc, Hcf)
+    rows, (hfc, hcf) = depth_inputs(grid, Hfc, Hcf)
     out = [torch.empty(shape, dtype=dtype, device=device) for _ in range(3)]
     # η, U and V twice each: a halo point reads its mirror's old value
     buf = torch.empty((6,) + shape, dtype=dtype, device=device)
     fn = kernel_fn("fused_substep_eta", "fused_substep_eta", dtype,
-                   [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                   [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
                    + [ctypes.c_double] * 2)
-    launch("fused_substep_eta", fn, device,
-           *[t.data_ptr() for t in (rows, eta0, U0, V0, GU, GV, wv, wf, buf,
-                                    *out)],
+    launch("fused_substep_eta", fn, device, rows.data_ptr(), hfc.data_ptr(),
+           hcf.data_ptr(),
+           *[t.data_ptr() for t in (eta0, U0, V0, GU, GV, wv, wf, buf, *out)],
            n, grid.Nx, grid.Ny, grid.Hx, grid.Hy,
            int(grid.topology[0] is BOUNDED), int(grid.topology[1] is BOUNDED),
            float(g), float(dtau))

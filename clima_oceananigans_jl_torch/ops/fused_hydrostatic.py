@@ -23,8 +23,12 @@ card that becomes two kernels:
   interior columns (and chunk of levels), its fields staged in shared
   memory, computing ``hydrostatic_advective_core`` and, with
   ``advance=(dt, euler)``, ψ′ = ψ + Δt(c₁G − c₂G⁻) too, each face flux
-  once; the same launch writes the halos zero. Its plain version is the
-  core (and ``ab2_substep``).
+  once; the same launch writes the halos zero. It takes the explicit
+  diffusion of a constant-coefficient ``ScalarDiffusivity``
+  (``kernel_closure``), the conditional fluxes next to an immersed
+  boundary (the clear flags of ``clear_flags``, one uint8 tensor a
+  location) and a stretched y axis' WENO5 tables (``y_tables``), as the
+  TPU kernel does. Its plain version is the core (and ``ab2_substep``).
 
 ``hydrostatic_advective_core`` is the JAX function, in plain torch; the
 model's plain path and K4b's plain version share it. Each wrapper runs
@@ -32,19 +36,23 @@ its plain version on CPU tensors and its kernel on CUDA tensors (or
 raises: nothing falls back), and counts its launches in
 ``<wrapper>.launches``. ``unsupported_reason`` is the kernels' static
 gate: x-constant metrics (a regular x axis), the schemes and Coriolis
-forms the kernel has, no stretched y under a WENO5 transport. The model's
-constructor runs it on the card, once; the wrappers do not run it again.
+forms the kernel has. The model's constructor runs it on the card, once;
+the wrappers do not run it again.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..advection.fluxes import div_Uc, div_vu, div_vv
-from ..advection.schemes import CenteredSecondOrder, WENO5
+from ..advection.schemes import (AdvectionScheme, CenteredSecondOrder, WENO5,
+                                 _immersed_clear)
 from ..advection.vector_invariant import SCHEMES as VI_SCHEMES
 from ..advection.vector_invariant import VectorInvariant
+from ..closures.scalar_diffusivity import (ScalarDiffusivity,
+                                           momentum_diffusion, tracer_diffusion)
 from ..coriolis.coriolis import BetaPlane, FPlane, HydrostaticSphericalCoriolis
 from ..grids.topology import FLAT
 from ..timesteppers.steppers import ab2_coefficients, ab2_substep
@@ -54,19 +62,23 @@ from . import operators as op
 from . import stencil as st
 from .fused_tendencies import (axis_bounds, check_tensor, kernel_fn,
                                kernel_scheme, launch, pointers)
-from .metric_rows import y_rows, z_rows
+from .metric_rows import y_rows, y_tables, z_rows
 
 #: the most prognostic fields (u, v and tracers) K4b takes
 MAX_FIELDS = 16
 
 
 def hydrostatic_advective_core(grid, scheme, tracer_scheme, coriolis,
-                               tracer_names, u, v, w, tracers, pHY=None):
+                               tracer_names, u, v, w, tracers, pHY=None,
+                               closure=None):
     """The hydrostatic tendency core (Oceananigans'
     hydrostatic_free_surface_tendency_kernel_functions.jl): −U·∇u or
     −∇·(vu), − f×u, −∂pHY′ for u and v, −∇·(U c) per tracer; with-halo
     tensors valid on the interior. ``scheme`` or ``tracer_scheme`` None
-    leaves that advection out."""
+    leaves that advection out. ``closure``, a constant-coefficient
+    ``ScalarDiffusivity`` (``kernel_closure``), adds its explicit
+    ν∇²u, ν∇²v and κ∇²c (without their z part when it is vertically
+    implicit)."""
     if isinstance(scheme, VectorInvariant):
         Gu = -scheme.U_dot_grad_u(grid, u, v, w)
         Gv = -scheme.U_dot_grad_v(grid, u, v, w)
@@ -81,21 +93,84 @@ def hydrostatic_advective_core(grid, scheme, tracer_scheme, coriolis,
     if pHY is not None:
         Gu = Gu - st.dxf(pHY) / grid.dx(U_LOC)
         Gv = Gv - st.dyf(pHY) / grid.dy(V_LOC)
+    if closure is not None:
+        Gu = Gu + momentum_diffusion(u, grid, U_LOC, closure)
+        Gv = Gv + momentum_diffusion(v, grid, V_LOC, closure)
     G = {"u": Gu, "v": Gv}
     for name in tracer_names:
         c = tracers[name]
-        G[name] = (-div_Uc(grid, tracer_scheme, u, v, w, c)
-                   if tracer_scheme is not None else torch.zeros_like(c))
+        Gc = (-div_Uc(grid, tracer_scheme, u, v, w, c)
+              if tracer_scheme is not None else torch.zeros_like(c))
+        if closure is not None:
+            Gc = Gc + tracer_diffusion(c, grid, name, closure)
+        G[name] = Gc
     return G
 
 
+def kernel_closure(model):
+    """The model's closure where K4b adds its explicit part (JAX
+    ``kernel_closure``): one ``ScalarDiffusivity`` of scalar ν, κ, νz, κz
+    (per-tracer dicts of scalars included) on a grid without an immersed
+    boundary; None otherwise, and the model adds the diffusion as torch
+    ops."""
+    cl = model.closure
+    if not isinstance(cl, ScalarDiffusivity):
+        return None
+    if getattr(model.grid, "immersed", None) is not None:
+        return None
+
+    def scalar_ok(v):
+        if v is None:
+            return True
+        if isinstance(v, dict):
+            return all(scalar_ok(x) for x in v.values())
+        return not callable(v) and np.ndim(v) == 0
+    if not all(scalar_ok(v) for v in (cl.nu, cl.kappa, cl.nu_z, cl.kappa_z)):
+        return None
+    return cl
+
+
+def _mask_locs(model):
+    """The locations whose solid masks K4b's conditional fluxes read (JAX
+    ``_mask_locs``): CENTER for WENO5 tracers, U_LOC and V_LOC for
+    flux-form WENO5 momentum; none for centred schemes and the
+    vector-invariant form."""
+    if getattr(model.grid, "immersed", None) is None:
+        return ()
+    sch, ts = model.momentum_advection, model.tracer_advection
+    flux_form = sch if isinstance(sch, AdvectionScheme) else None
+    locs = []
+    if isinstance(ts, AdvectionScheme) and ts.buffer > 0:
+        locs.append(CENTER)
+    if flux_form is not None and flux_form.buffer > 0:
+        locs += [U_LOC, V_LOC]
+    return tuple(locs)
+
+
+#: the flux direction of each axis' transports of a field at a location
+#: (to faces True, to centres False), as ``advection/fluxes.py`` has them
+_FLUX_TO_F = {CENTER: (True, True, True), U_LOC: (False, True, True),
+              V_LOC: (True, False, True)}
+
+
+def clear_flags(grid, loc, buffer):
+    """K4b's conditional-flux input for the field at ``loc``: a with-halo
+    uint8 tensor whose bit a is set where the transport along axis a at
+    that flux location reads no solid cell (``_immersed_clear`` of the
+    plain version, its rolls wrapping at the array edges as they do
+    there); built once per grid (the bottom is static)."""
+    key = ("clear_flags", tuple(loc), buffer)
+    if key not in grid._cache:
+        imm = grid.immersed
+        flags = torch.zeros(grid.total_shape, dtype=torch.uint8, device=grid.device)
+        for axis, to_f in enumerate(_FLUX_TO_F[tuple(loc)]):
+            clear = _immersed_clear(imm, loc, axis, to_f, buffer)
+            flags |= clear.to(torch.uint8) << axis
+        grid._cache[key] = flags.contiguous()
+    return grid._cache[key]
+
+
 # -- the static gate -------------------------------------------------------------
-
-def _weno_transport(model):
-    """True when a WENO5 flux transport runs (tracers or flux-form momentum)."""
-    return any(isinstance(s, WENO5) for s in (model.momentum_advection,
-                                              model.tracer_advection))
-
 
 def unsupported_reason(model):
     """Why K4a/K4b cannot run this model's configuration, or None."""
@@ -103,21 +178,24 @@ def unsupported_reason(model):
     if any(t is FLAT for t in grid.topology):
         return "K4 takes a 3D grid"
     if not grid.x_regular:
-        return "K4 takes a regular x axis (x-constant metrics)"
-    if not grid.y_regular and _weno_transport(model):
-        return ("K4 has no stretched-y WENO5 tables (ROADMAP Queue 2, K4)")
+        return ("K4 takes a regular x axis (x-constant metrics) "
+                "(ROADMAP Queue 1 item 6)")
     sch, ts = model.momentum_advection, model.tracer_advection
     if sch is not None and not (isinstance(sch, VectorInvariant)
                                 or type(sch) in (WENO5, CenteredSecondOrder)):
-        return f"K4 has no {type(sch).__name__} momentum advection"
+        return (f"K4 has no {type(sch).__name__} momentum advection "
+                "(ROADMAP Queue 1 item 2)")
     if ts is not None and type(ts) not in (WENO5, CenteredSecondOrder):
-        return f"K4 has no {type(ts).__name__} tracer advection"
+        return (f"K4 has no {type(ts).__name__} tracer advection "
+                "(ROADMAP Queue 1 item 2)")
     cor = model.coriolis
     if cor is not None and not isinstance(
             cor, (FPlane, BetaPlane, HydrostaticSphericalCoriolis)):
-        return f"K4 has no {type(cor).__name__} Coriolis"
+        return f"K4 has no {type(cor).__name__} Coriolis (ROADMAP Queue 1 item 4)"
     if len(model.prognostic_names()) > MAX_FIELDS:
         return f"K4 takes at most {MAX_FIELDS} prognostic fields"
+    if _mask_locs(model) and min(grid.Hx, grid.Hy) < 3:
+        return "K4b's conditional fluxes read 3 halo cells in x and y"
     return None
 
 
@@ -126,13 +204,17 @@ def supports_fused_hydro_advance(model):
     supports_fused_hydro_advance``): K4b computes G and the AB2 substep in
     one launch only where every tendency term lives in the kernel, so not
     with forcing or flux-BC values (added to G after the kernel) nor
-    under an explicit free surface (its −g∇η likewise), and only with the
-    model's ``fused_advection``. The JAX gate's TPU conditions (its VMEM
-    budget beyond 5 tracers, the state layout) have no counterpart here;
-    closures, particles and immersed boundaries are refused at
-    construction."""
+    under an explicit free surface (its −g∇η likewise), nor with an
+    immersed boundary (the tendencies are masked) or a closure K4b does
+    not take (``kernel_closure``), and only with the model's
+    ``fused_advection``. The JAX gate's TPU conditions (its VMEM budget
+    beyond 5 tracers, the state layout) have no counterpart here."""
     from ..models.free_surface import ExplicitFreeSurface
     if not model.fused_advection or model.forcing:
+        return False
+    if getattr(model.grid, "immersed", None) is not None:
+        return False
+    if model.closure is not None and kernel_closure(model) is None:
         return False
     if isinstance(model.free_surface, ExplicitFreeSurface):
         return False
@@ -232,7 +314,8 @@ def fused_hydrostatic_tendencies_reference(model, state, advance=None):
     G = hydrostatic_advective_core(
         model.grid, model.momentum_advection, model.tracer_advection,
         model.coriolis, model.tracer_names, sol["u"], sol["v"], state["w"],
-        {n: sol[n] for n in model.tracer_names}, pHY=ph)
+        {n: sol[n] for n in model.tracer_names}, pHY=ph,
+        closure=kernel_closure(model))
     if advance is None:
         return G
     dt, euler = advance
@@ -282,7 +365,23 @@ def _launch_tendencies(model, state, advance):
     bounds = ([b for a in range(3) for b in axis_bounds(grid, a, weno)]
               if weno is not None else [0, 0, -1, 0, -1] * 3)
     tables = weno is not None and not grid.z_regular
+    ytables = weno is not None and not grid.y_regular
     ys, zs = y_rows(grid, model.coriolis), z_rows(grid, tables)
+    yt = y_tables(grid) if ytables else None
+    # the conditional fluxes' clear flags, by location
+    locs = _mask_locs(model)
+    flags = {loc: clear_flags(grid, loc, (ts if loc == CENTER else sch).buffer)
+             if loc in locs else None for loc in (CENTER, U_LOC, V_LOC)}
+    # the closure's coefficients by field: ν and νz for u and v, κ and κz
+    # of each tracer
+    cl = kernel_closure(model)
+    kh, kv = (ctypes.c_double * MAX_FIELDS)(), (ctypes.c_double * MAX_FIELDS)()
+    if cl is not None:
+        nu_z = cl.nu_z if cl.nu_z is not None else cl.nu
+        for i, n in enumerate(names):
+            kh[i], kv[i] = ((cl.nu, nu_z) if i < 2
+                            else (cl.kappa_for(n), cl.kappa_z_for(n)))
+    closure = 0 if cl is None else (1 if cl.vertically_implicit else 2)
     out_g = [torch.empty(grid.total_shape, dtype=dtype, device=device)
              for _ in names]
     if advance is None:
@@ -296,16 +395,17 @@ def _launch_tendencies(model, state, advance):
         out_psi = [torch.empty_like(g) for g in out_g]
     ptr = lambda t: None if t is None else t.data_ptr()
     fn = kernel_fn("fused_hydrostatic_tendencies", "fused_hydrostatic_tendencies",
-                   dtype, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 28
+                   dtype, [ctypes.c_void_p] * 14 + [ctypes.c_int] * 30
                    + [ctypes.c_double] * 5)
     launch("fused_hydrostatic_tendencies", fn, device, pointers(fields),
-           ptr(w), ptr(ph), ptr(ys), ptr(zs),
+           ptr(w), ptr(ph), ptr(ys), ptr(zs), ptr(yt),
+           *(ptr(flags[loc]) for loc in (CENTER, U_LOC, V_LOC)),
            pointers(gp) if gp else None, pointers(out_g),
-           pointers(out_psi) if out_psi else None,
+           pointers(out_psi) if out_psi else None, kh, kv,
            len(names), *grid.shape, *grid.halo,
            _momentum_code(sch), mom_weno, tr, _coriolis_code(model.coriolis),
-           int(tables), int(advance is not None), *bounds, mom_eps, tr_eps,
-           c1, c2, float(dt))
+           int(tables), int(ytables), closure, int(advance is not None),
+           *bounds, mom_eps, tr_eps, c1, c2, float(dt))
     fused_hydrostatic_tendencies.launches += 1
     G = dict(zip(names, out_g))
     if advance is None:

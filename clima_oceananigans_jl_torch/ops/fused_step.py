@@ -74,7 +74,8 @@ def unsupported_reason(model):
                     "for ROADMAP Queue 1 item 7)")
     for attr in ("immersed_boundary", "particles"):
         if getattr(model, attr) is not None:
-            return f"{attr} is not ported yet {_LATER}"
+            return (f"{attr} in the nonhydrostatic model is not ported yet "
+                    "(ROADMAP Queue 1 item 7)")
     topo = model.grid.topology
     if FLAT in topo:
         return f"Flat axes in the nonhydrostatic model are not ported yet {_LATER}"

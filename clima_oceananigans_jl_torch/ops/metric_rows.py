@@ -20,6 +20,10 @@ and kept in the grid's cache.
   its three coefficients; with ``to_centres``, the 24 rows of the
   to-centres tables after them, in the same order (the nonhydrostatic
   kernels K1 and K2 reconstruct w at centres for its own z flux).
+- ``y_tables``: a stretched y axis' WENO5 tables over with-halo y, laid
+  out as ``z_rows`` lays out z's, without the spacing rows: the 24 rows of
+  the to-faces tables, then the 24 of the to-centres tables (K4b's
+  ``div_vv`` reconstructs v at centres for its own y flux).
 """
 from __future__ import annotations
 
@@ -84,6 +88,28 @@ def y_rows(grid, coriolis=None):
     return grid._cache[key]
 
 
+def _table_rows(grid, axis, to_f):
+    """The 24 rows of one set of ``axis``' WENO5 tables: for the left then
+    the right side, for each stencil r, its optimal weight and three
+    coefficients."""
+    rows = []
+    t = weno5_tables(grid, axis, to_f)
+    for side in ("left", "right"):
+        for d, cj, _voff, _kind in t[side]:
+            rows += [d] + list(cj)
+    return rows
+
+
+def y_tables(grid):
+    """(48, Yt) tensor of a stretched y axis' WENO5 tables: to faces, then
+    to centres."""
+    key = "y_tables"
+    if key not in grid._cache:
+        rows = _table_rows(grid, 1, True) + _table_rows(grid, 1, False)
+        grid._cache[key] = torch.stack(rows).contiguous()
+    return grid._cache[key]
+
+
 def z_rows(grid, tables=False, to_centres=False):
     """(2, 26 or 50, Zt) tensor of the z rows; ``tables`` adds the
     stretched z axis' WENO5 to-faces tables (it must be stretched) and
@@ -92,9 +118,6 @@ def z_rows(grid, tables=False, to_centres=False):
     if key not in grid._cache:
         rows = [z_row(grid, grid.dz((C, C, loc))) for loc in (C, F)]
         for to_f in ((True, False) if to_centres else (True,)) if tables else ():
-            t = weno5_tables(grid, 2, to_f)
-            for side in ("left", "right"):
-                for d, cj, _voff, _kind in t[side]:
-                    rows += [d] + list(cj)
+            rows += _table_rows(grid, 2, to_f)
         grid._cache[key] = torch.stack(rows).contiguous()
     return grid._cache[key]

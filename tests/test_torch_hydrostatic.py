@@ -16,7 +16,8 @@ horizontally regular rectilinear grid; torch.fft and the port's Makhoul
 DCT against jnp.fft and jax.scipy's DCT) and its CG solve (lat-lon; both
 CGs run to 1e-13, their inner products summed in different orders);
 states pass between the packages both ways; what the port does not run
-yet raises at construction.
+yet (particles, PartialCellBottom, ...) raises at construction, naming its
+ROADMAP item.
 """
 import numpy as np
 import pytest
@@ -227,15 +228,20 @@ def test_what_waits_is_refused_naming_its_roadmap_item():
             T.HydrostaticFreeSurfaceModel(
                 g, free_surface=T.ImplicitFreeSurface(solver_method=method))
     split = T.SplitExplicitFreeSurface(substeps=4)
-    for kw, item in ((dict(closure=T.ScalarDiffusivity(nu=1e-3)), "item 7"),
-                     (dict(buoyancy=T.SeawaterBuoyancy()), "SeawaterBuoyancy.*item 7"),
+    for kw, item in ((dict(buoyancy=T.SeawaterBuoyancy()), "SeawaterBuoyancy.*item 7"),
                      (dict(buoyancy=T.BuoyancyTracer(gravity_unit_vector=(0.6, 0.0, -0.8))),
                       "tilted gravity.*item 7"),
-                     (dict(particles=object()), "item 7"),
-                     (dict(immersed_boundary=object()), "item 7"),
+                     (dict(particles=object()), "particles.*item 7"),
+                     (dict(immersed_boundary=T.PartialCellBottom(-500.0)),
+                      "PartialCellBottom.*item 7"),
                      (dict(tracer_advection=T.VectorInvariant()), "item 2")):
         with pytest.raises(NotImplementedError, match=item):
             T.HydrostaticFreeSurfaceModel(g, free_surface=split, **kw)
+    # closures and grid-fitted immersed boundaries are ported
+    for kw in (dict(closure=T.ScalarDiffusivity(nu=1e-3)),
+               dict(immersed_boundary=T.GridFittedBottom(-500.0)),
+               dict(immersed_boundary=T.GridFittedBoundary(lambda x, y, z: z < -900.0))):
+        T.HydrostaticFreeSurfaceModel(g, free_surface=split, **kw)
     flat = T.RectilinearGrid(size=(8, 8, 1), extent=(1, 1),
                              topology=("periodic", "periodic", "flat"),
                              device=DEVICE)

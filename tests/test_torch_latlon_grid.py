@@ -6,8 +6,9 @@ inputs made with numpy from a seed go through both:
 
 - axes and lat-lon metrics: bitwise (both come from the same float64
   numpy arithmetic, then one cast);
-- WENO5's stretched-axis tables and the stretched-axis ``transport``:
-  ≤ 1e-13 of max|ref| (the same expression trees; XLA may fuse them);
+- WENO5's stretched-axis tables and the stretched-axis ``transport``
+  (a stretched z, x or latitude): ≤ 1e-13 of max|ref| (the same
+  expression trees; XLA may fuse them);
 - ``div_xy_ccc``, ``zeta3_ffc``, ``HydrostaticSphericalCoriolis`` (both
   schemes), the four vector-invariant schemes in 3D (with the vertical
   term), ``div_Uc`` and pHY′ on lat-lon and stretched-z metrics: ≤ 1e-13
@@ -170,12 +171,42 @@ def test_weno5_tables_match(to_f):
                 close(np.asarray(a)[ok], b[ok], label=f"{side} c")
 
 
+def stretched_latitude(nf=13):
+    """Latitude faces from −70° to 70°, finer near the equator."""
+    s = np.linspace(-1.0, 1.0, nf)
+    return 70.0 * (0.6 * s + 0.4 * s ** 3)
+
+
 @pytest.mark.parametrize("to_f", [True, False], ids=["to_faces", "to_centres"])
-@pytest.mark.parametrize("axis_kind", ["stretched-bounded-z", "stretched-periodic-x"])
+def test_stretched_latitude_axis_and_tables_match(to_f):
+    """A lat-lon grid on stretched latitude faces: axes and metrics bitwise,
+    the y axis' WENO5 tables (K4b reads them as rows) as the z ones."""
+    jg, tg = latlon(size=(12, 12, 6), latitude=stretched_latitude())
+    assert not tg.y_regular and not jg._axes[1].regular
+    for ja, ta in zip(jg._axes, tg._axes):
+        assert same(ja.cf, ta.cf) and same(ja.dc, ta.dc) and same(ja.df, ta.df)
+    for loc in LOCS.values():
+        assert same(jg.dx(loc), tg.dx(loc)) and same(jg.Az(loc), tg.Az(loc))
+    jt, tt = jrt.weno5_tables(jg, 1, to_f), trt.weno5_tables(tg, 1, to_f)
+    ok = slice(tg.Hy, tg.Hy + tg.Ny + 1)
+    for side in ("left", "right"):
+        for (jd, jc, jo, jk), (td, tc, to, tk) in zip(jt[side], tt[side]):
+            assert jo == to and jk == tk
+            close(np.asarray(jd).reshape(-1)[ok], td.reshape(-1)[ok], label=f"{side} d")
+            for a, b in zip(jc, tc):
+                close(np.asarray(a).reshape(-1)[ok], b.reshape(-1)[ok], label=f"{side} c")
+
+
+@pytest.mark.parametrize("to_f", [True, False], ids=["to_faces", "to_centres"])
+@pytest.mark.parametrize("axis_kind", ["stretched-bounded-z", "stretched-periodic-x",
+                                       "stretched-bounded-latitude"])
 def test_stretched_transport_matches(to_f, axis_kind):
     if axis_kind == "stretched-bounded-z":
         jg, tg = latlon(size=(12, 8, 10))
         axis = 2
+    elif axis_kind == "stretched-bounded-latitude":
+        jg, tg = latlon(size=(10, 12, 6), latitude=stretched_latitude())
+        axis = 1
     else:
         xf = np.cumsum(np.r_[0.0, 1.0 + 0.3 * np.sin(np.arange(12))])
         kw = dict(size=(12, 8, 6), x=xf, y=(0, 1), z=(-1, 0),
