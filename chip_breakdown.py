@@ -5,8 +5,9 @@
                               [shallow-water] [k6-k3c] [division]
                               [k3a-division] [k4b-phases] [k5-barriers]
                               [langmuir-amd] [wind-mixing-stretched]
-                              [ab2-implicit] [t1] [near-global]
-                              [near-global-weno] [diffusive] [--steps N]
+                              [ab2-implicit] [t1] [t1-variants]
+                              [near-global] [near-global-weno] [diffusive]
+                              [--steps N]
 
 With no part named, runs them all. Prints the card's name and power
 limit first. Needs a card; without one it exits with an error.
@@ -55,11 +56,23 @@ limit first. Needs a card; without one it exits with an error.
   projection (its K6 fills, and the pressure solve with T1 apart from its
   FFTs and gauge), ``update_state`` (its K6 fills and the AMD
   diffusivities apart).
-- ``t1``: ptxas's registers, stack and spills for T1
+- ``t1``: ptxas's registers, stack and spills for every T1 instantiation
   (``csrc/batched_tridiagonal.cu``), then T1 alone (torch.profiler device
-  time, two rounds, held bit for bit): the Fourier mode on the 256³
-  wind-mixing spectrum in fp32 and fp64 beside a copy of it, and the
-  implicit step's 1D and 3D bands on a 262×262×256 fp32 right-hand side.
+  time, two rounds, held bit for bit) in the four forms of
+  ``chip_smoke.t1_forms``: the Fourier mode on the 256³ wind-mixing
+  spectrum (129×256×256 complex64; fp64 too), the implicit step's 1D and
+  3D bands on 262×262×256 fp32 and its 1D bands on the ¼° grid's
+  1446×606×24, each beside a copy of d, with the launcher's plan, each
+  after ~200 ms of warm-up calls, by torch.profiler and by ``queued_ms``,
+  with the card's clocks and power after.
+- ``t1-variants``: T1 as built against copies of its source with one
+  change each (``T1_VARIANTS``: the sweeps not unrolled, no table for 1D
+  bands (the column mode), 1, 2, 4 or 8 warps a block, each but the
+  source's own), held bit for bit, timed in
+  turns in the four forms of ``t1`` after ~200 ms of warm-up calls by
+  CUDA events around calls queued behind a spin of the card
+  (``queued_ms``: the host's time between launches does not count): what
+  each compile-time choice of the source is worth.
 - ``hydrostatic-wind``: the ¼° flagship under the near-global wind stress
   (``chip_smoke.py``'s ``hydrostatic wind`` path: the two-stage route),
   like ``hydrostatic``, around K4b's tendency form, the flux BC, the
@@ -466,54 +479,171 @@ def les(path, steps):
         model.update_state = update_state
 
 
-def t1(steps):
-    """T1 as built: ptxas's registers, stack and spills, then its device
-    time alone (torch.profiler, two rounds), held bit for bit against its
-    plain version: the Fourier mode on the 256³ wind-mixing spectrum
-    (129×256×256 complex) in fp32 and fp64, and the implicit step's 1D
-    and 3D bands on a 262×262×256 real right-hand side in fp32; beside
-    them a copy of the right-hand side (one read, one write)."""
-    from clima_oceananigans_jl_torch.solvers import tridiagonal as tt
+def t1_ptxas():
+    """ptxas's registers, stack and spills of every T1 instantiation, one
+    line each, from a build of ``csrc/batched_tridiagonal.cu`` as the port
+    builds it plus ``-Xptxas -v``."""
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
                f"{tmp}/lib.so", str(_build.CSRC / "batched_tridiagonal.cu")]
         log = subprocess.run(cmd, capture_output=True, text=True, check=True).stderr
-        for line in log.splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
-                print(f"ptxas batched_tridiagonal: {line.strip()}")
+    entry, props, rows = None, "", []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "bytes stack frame" in line:
+            props = line.split(":", 1)[-1].strip()
+        elif "Used" in line and "registers" in line and entry:
+            rows.append((entry, line.split(":", 1)[-1].strip(), props))
+            entry = None
+    names = subprocess.run(["c++filt"], input="\n".join(e for e, _, _ in rows),
+                           capture_output=True, text=True).stdout.splitlines()
+    if len(names) != len(rows):
+        names = [e for e, _, _ in rows]
+    for name, (_, used, props) in zip(names, rows):
+        print(f"ptxas T1 {name.replace('batched_tridiagonal_kernel', 'kernel')}: "
+              f"{used}; {props}")
+    print(f"ptxas T1: {len(rows)} instantiations")
+
+
+def t1(steps):
+    """T1 as built: ptxas's registers, stack and spills of every
+    instantiation, then its device time alone (torch.profiler, two rounds),
+    held bit for bit against its plain version, in each form of
+    ``chip_smoke.t1_forms`` (the Fourier solve of the 256³ wind-mixing
+    grid, the implicit step's 1D and 3D bands on 262×262×256 fp32 and 1D
+    bands on the ¼° grid's 1446×606×24, read and written through views),
+    with the launcher's plan of each; the
+    Fourier solve also in fp64, and beside the forms a copy of d (one read,
+    one write)."""
+    from clima_oceananigans_jl_torch.solvers import tridiagonal as tt
+    t1_ptxas()
     reps = max(steps, 20)
-    n = chip_smoke.N
-    for dtype in (torch.float32, torch.float64):
-        grid = chip_smoke.surface_grid(n, dtype, stretched=True)
-        args = chip_smoke.fourier_args(grid, 31)
-        got, ref = tt.fourier_tridiagonal(*args), tt.fourier_tridiagonal_reference(*args)
+    kernel_ms = lambda fn: ([chip_smoke.device_ms(fn, reps, "tridiagonal") for _ in range(2)],
+                            [queued_ms(fn, reps) for _ in range(2)])
+    for f in chip_smoke.t1_forms():
+        got, ref = f["call"](), f["plain"]()
         if not torch.equal(got, ref):
-            raise AssertionError(f"T1 Fourier {str(dtype)[6:]}: not bitwise")
-        ms = [chip_smoke.device_ms(lambda: tt.fourier_tridiagonal(*args), reps,
-                                   "tridiagonal") for _ in range(2)]
-        b = args[6]
-        copy_ms = chip_smoke.device_ms(lambda: torch.empty_like(b).copy_(b), reps, "")
-        print(f"T1 Fourier {'x'.join(map(str, b.shape))} {b.dtype}: kernel ms "
-              f"(torch.profiler), two rounds: {ms}; the spectrum copied {copy_ms} ms")
-        del got, ref, args, b
+            raise AssertionError(f"T1 {f['part']}: not bitwise")
+        warm(f["call"])
+        b_ms = chip_smoke.bound(chip_smoke.T1, f["nbytes"], f["points"])[0]
+        line = (f"T1 {f['part']} {f['shape']}{' (views)' if f['view'] else ''}: "
+                f"kernel ms (torch.profiler; queued CUDA events), two rounds each: "
+                f"{kernel_ms(f['call'])}; "
+                f"bound {b_ms:.4f} ms")
+        src = f["plain"]()
+        copy_ms = chip_smoke.device_ms(lambda: torch.empty_like(src).copy_(src), reps, "")
+        print(f"{line}; d copied {copy_ms} ms; clocks, memory clock, power after: "
+              f"{clocks()}")
+        print(f"T1 {f['part']}: plan {f['plan']()} (mode 0 table, 1 column, "
+              f"2 Fourier; levels a chunk; shared bytes a block)")
+        del f, got, ref, src
         torch.cuda.empty_cache()
-    g = chip_smoke.surface_grid(n, torch.float32, stretched=True)
-    gen = torch.Generator(device="cuda").manual_seed(32)
-    shape = (g.total_shape[0], g.total_shape[1], n)
-    d = torch.randn(shape, generator=gen, device="cuda")
-    a1 = -torch.rand(n, generator=gen, device="cuda")
-    c1 = -torch.rand(n, generator=gen, device="cuda")
-    b1 = 1.0 - a1 - c1
-    bands = {"1D": (a1, b1, c1),
-             "3D": tuple(x.expand(shape).contiguous() for x in (a1, b1, c1))}
-    for kind, (a, b, c) in bands.items():
-        if not torch.equal(tt.solve_batched_tridiagonal(a, b, c, d),
-                           tt.solve_batched_tridiagonal_reference(a, b, c, d)):
-            raise AssertionError(f"T1 {kind} bands: not bitwise")
-        ms = [chip_smoke.device_ms(lambda: tt.solve_batched_tridiagonal(a, b, c, d),
-                                   reps, "tridiagonal") for _ in range(2)]
-        print(f"T1 implicit step {'x'.join(map(str, shape))} fp32, {kind} bands: "
-              f"kernel ms (torch.profiler), two rounds: {ms}")
+    grid = chip_smoke.surface_grid(chip_smoke.N, torch.float64, stretched=True)
+    args = chip_smoke.fourier_args(grid, 31)
+    if not torch.equal(tt.fourier_tridiagonal(*args), tt.fourier_tridiagonal_reference(*args)):
+        raise AssertionError("T1 Fourier fp64: not bitwise")
+    b = args[6]
+    print(f"T1 Fourier {'x'.join(map(str, b.shape))} {b.dtype}: kernel ms "
+          f"(torch.profiler; queued CUDA events): {kernel_ms(lambda: tt.fourier_tridiagonal(*args))}")
+
+
+#: the copies of csrc/batched_tridiagonal.cu that ``t1-variants`` holds
+#: against T1 as built: (label, text as built, text in the copy)
+T1_VARIANTS = [("sweeps not unrolled", "#pragma unroll (S::UNROLL)\n    for (int kk",
+                "#pragma unroll 1\n    for (int kk"),
+               ("no table (1D bands in the column mode)", "(any3d || !table_fits)", "(true)")]
+T1_VARIANTS += [(f"{w} warps a block", "constexpr int T1_WARPS = ",
+                 f"constexpr int T1_WARPS = {w}; //") for w in (1, 2, 4, 8)]
+
+
+def warm(fn, ms=200.0):
+    """Runs ``fn`` for about ``ms`` milliseconds of device time, so that the
+    card's clocks have risen before a short timing."""
+    t = chip_smoke.cuda_ms(fn, 5)
+    for _ in range(int(ms / max(t, 1e-3))):
+        fn()
+    torch.cuda.synchronize()
+
+
+def queued_ms(fn, reps):
+    """Device time of a call of ``fn`` in ms: CUDA events around ``reps``
+    calls queued behind a spin of the card (``torch.cuda._sleep``) long
+    enough for the host to enqueue them all, so that neither the host's
+    time between launches nor a dropped profiler record counts."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    per_call = (time.perf_counter() - t0) / 3  # host and device, an upper bound
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * reps * per_call * 2e9))  # ~2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def clocks():
+    """The card's SM and memory clocks and power draw, by nvidia-smi."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def t1_variants(steps):
+    """T1 as built against copies of its source with one change each
+    (``T1_VARIANTS``), each held bit for bit, in the four forms of
+    ``chip_smoke.t1_forms``: torch.profiler device time alone, in turns
+    (built, the copies, the copies again in reverse, built)."""
+    from clima_oceananigans_jl_torch.solvers import tridiagonal as tt
+    name = "batched_tridiagonal"
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    libs = {"as built": _build.load(name)}
+    for i, (label, old, new) in enumerate(T1_VARIANTS):
+        if src.count(old) < 1:
+            raise RuntimeError(f"t1-variants: the kernel changed at {old!r}")
+        if new.endswith("//") and new[:-3] in src:
+            continue  # the block shape the source is built with
+        cu = _build.BUILD_DIR / f"{name}_variant{i}.cu"
+        lib_path = _build.BUILD_DIR / f"lib{name}_variant{i}.so"
+        cu.write_text(src.replace(old, new))
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+                        str(lib_path), str(cu)], check=True)
+        libs[label] = ctypes.CDLL(str(lib_path))
+    order = list(libs) + list(libs)[:0:-1] + ["as built"]
+    reps = max(steps, 20)
+    load = _build.load
+    try:
+        for f in chip_smoke.t1_forms():
+            ref = f["plain"]()
+            times = collections.defaultdict(list)
+            warm(f["call"])
+            for label in order:
+                _build.load = lambda n, lib=libs[label]: lib if n == name else load(n)
+                tt._plan.cache_clear()  # the copy's own launch plan
+                try:
+                    got = f["call"]()
+                except RuntimeError as e:  # a block shape whose tiles do not fit
+                    times[label].append(f"no launch ({e})")
+                    continue
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"T1 {f['part']}, {label}: not bitwise")
+                times[label].append(round(queued_ms(f["call"], reps), 5))
+            print(f"T1 {f['part']} {f['shape']}: kernel ms (queued CUDA events) in turns: "
+                  + "; ".join(f"{k} {v}" for k, v in times.items())
+                  + f"; clocks, memory clock, power after: {clocks()}")
+            del f, ref
+            torch.cuda.empty_cache()
+    finally:
+        _build.load = load
+        tt._plan.cache_clear()
 
 
 def hydrostatic_wind(steps):
@@ -903,7 +1033,7 @@ PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps),
          "langmuir-amd": lambda steps: les("langmuir AMD", steps),
          "wind-mixing-stretched": lambda steps: les("wind mixing stretched", steps),
          "ab2-implicit": lambda steps: les("AB2 stretched implicit", steps),
-         "t1": t1,
+         "t1": t1, "t1-variants": t1_variants,
          "near-global": lambda steps: near_global("near-global", steps),
          "near-global-weno": lambda steps: near_global("near-global WENO", steps),
          "diffusive": lambda steps: near_global("1/4 deg diffusive", steps)}

@@ -132,12 +132,16 @@ on the card, in phases; each prints one line or a few:
    walls, so w's top wall face; 72×40×36 fp64 centred momentum; K1's
    general instantiation on a regular 64³ z), bit for bit over NaN-filled
    outputs against their plain versions, and their times at 256³;
-19. T1 against its plain version bit for bit over NaN-filled outputs: the
-   Fourier-tridiagonal system of the 256³ wind-mixing grid (129×256×256
-   complex64, the (0, 0) pin) and 67×45×29 fp64 (with and without the
-   pin), and the implicit step at 256³ fp32 with a scalar κ (1D bands)
-   and AMD's κ (3D bands) with Value and Gradient walls and on w; its
-   time on the 256³ Fourier solve against its bound;
+19. T1 against its plain version bit for bit over NaN-filled outputs, in
+   each of its forms (``t1_forms``): the Fourier-tridiagonal system of the
+   256³ wind-mixing grid (129×256×256 complex64, the (0, 0) pin), the
+   implicit step's solve on that grid (262×262×256 fp32, 1D and 3D bands)
+   and on the ¼° grid (1446×606×24 fp32, 1D bands), the implicit forms
+   through views of with-halo fields whose halos must stay NaN; 67×45×29
+   fp64 in the Fourier mode (with and without the pin); the implicit step
+   at 256³ fp32 with a scalar κ (1D bands) and AMD's κ (3D bands) with
+   Value and Gradient walls and on w; each form's time against its bound,
+   and the whole implicit step's;
 20. the uncut upper-ocean LES paths (``LES``) at 256³ fp32, 2 warm-up and
    5 timed steps each with the kernels and with their plain versions:
    ``langmuir AMD`` (the langmuir path with its own AMD; 3 K2 and 6 K6 a
@@ -177,9 +181,11 @@ is null.
 Each path's launch counts are set to 0 just before it and read just after;
 each kernel's record counts its launches on every path that runs it
 (printed by path). Then a JSON line with each kernel's record (K4b's and
-K5's with ``forms``: the same keys for K4b's closure, masked and
-stretched-latitude forms and for K5 over the near-global bottom, with the
-launches of the path that runs each), and last
+K5's and T1's with ``forms``: the same keys for K4b's closure, masked and
+stretched-latitude forms, for K5 over the near-global bottom and for T1's
+four forms (with their shapes), with the launches of the path that runs
+each; T1's also by path, its Fourier-mode launches counted apart by
+``fourier_tridiagonal.launches``), and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. The port is imported first, so a copy of this file
 outside the repository fails at once.
@@ -354,6 +360,18 @@ PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
             "near-global": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 3},
             "near-global WENO": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 5},
             "1/4 deg diffusive": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 5}}
+#: of T1's launches a step, those of its Fourier mode (the pressure solve)
+T1_FOURIER_PER_STEP = {"wind mixing stretched": 3, "AB2 stretched implicit": 1}
+T1F = "fourier_tridiagonal"
+#: T1's forms (``t1_forms``) and the paths whose T1 launches take each:
+#: "fourier" counts the path's Fourier-mode launches, "implicit" the rest
+T1_FORM_PATHS = {"Fourier": {"wind mixing stretched": "fourier",
+                             "AB2 stretched implicit": "fourier"},
+                 "implicit 1D": {"AB2 stretched implicit": "implicit"},
+                 "implicit 3D": {},
+                 "1/4 deg implicit 1D": {"near-global": "implicit",
+                                         "near-global WENO": "implicit",
+                                         "1/4 deg diffusive": "implicit"}}
 #: how far the kernel and plain runs of a path may differ, of max|field|;
 #: every kernel is bitwise its plain version, so a gap (such as an
 #: unwritten wall face) is a fault, not rounding: the 256³ paths of K1 and
@@ -817,6 +835,7 @@ def run_steps(path, model, state, step, warmup, steps, plain):
     torch.cuda.synchronize()
     for w in WRAPPERS.values():
         w.launches = 0
+    fourier_tridiagonal.launches = 0
     for _ in range(warmup):
         state = step(state)
     torch.cuda.synchronize()
@@ -831,6 +850,12 @@ def run_steps(path, model, state, step, warmup, steps, plain):
     if launches != expected:
         raise AssertionError(f"{path} path: kernel launches {launches}, "
                              f"expected {expected}")
+    # T1's Fourier-mode launches among its own (the pressure solve's)
+    launches[T1F] = fourier_tridiagonal.launches
+    want = 0 if plain else T1_FOURIER_PER_STEP.get(path, 0) * (warmup + steps)
+    if launches[T1F] != want:
+        raise AssertionError(f"{path} path: {launches[T1F]} T1 launches in its "
+                             f"Fourier mode, expected {want}")
     return state, per_step, launches
 
 
@@ -2046,29 +2071,85 @@ def fourier_args(grid, seed, m=0.0):
             solver.upper, solver.dzc, b, m == 0.0)
 
 
-def phase_t1():
-    """T1 against its plain version bit for bit: the Fourier-tridiagonal
-    system of the 256³ wind-mixing grid (fp32, complex pairs, the pin) and
-    67×45×29 fp64 (with and without the pin), and the implicit-diffusion
-    bands at 256³ fp32 (a scalar κ: 1D bands; AMD's 3D κ with Value and
-    Gradient walls on a centred field, and on w); returns (max_abs_err, ms,
-    plain_ms, bound_ms, bound_by), the times those of the 256³ Fourier
-    solve."""
-    worst = 0.0
+def t1_forms():
+    """T1's forms at the shapes its paths give it, built one at a time:
+    dicts of part, shape, the kernel's call, its plain version's, the
+    compulsory bytes (d read and φ written once, 3D bands read once) and
+    points. "Fourier": the 256³ wind-mixing grid's pressure solve
+    (129×256×256 complex64, the pin); "implicit 1D" and "implicit 3D": the
+    implicit step's solve on that grid, 262×262×256 fp32, with 1D bands (a
+    scalar κ) or 3D ones; "1/4 deg implicit 1D": the ¼° grid's,
+    1446×606×24 fp32. The implicit forms read d as a view of a with-halo
+    field's interior levels and write a view of a NaN-filled with-halo
+    field (``view`` holds it), as the implicit step does. Also the
+    launcher's ``plan`` of the form."""
+    from clima_oceananigans_jl_torch.solvers import tridiagonal as tt
+
     grid = surface_grid(N, torch.float32, stretched=True)
     args = fourier_args(grid, 21)
-    worst = max(worst, hold_t1(f"T1 Fourier {N}^3 fp32 ("
-                               f"{'x'.join(map(str, args[6].shape))} complex, pin)",
-                               lambda: fourier_tridiagonal(*args),
-                               lambda: fourier_tridiagonal_reference(*args),
-                               torch.float32))
-    ms = cuda_ms(lambda: fourier_tridiagonal(*args), 20)
-    plain_ms = cuda_ms(lambda: fourier_tridiagonal_reference(*args), 3)
     b = args[6]
-    t1_bound = bound(T1, 2 * tensor_bytes([b]), 2 * b.numel())
-    print(f"T1 Fourier {N}^3 fp32 time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"(CUDA events); kernel alone {device_ms(lambda: fourier_tridiagonal(*args), 20, 'tridiagonal')} "
-          f"ms (torch.profiler); bound {t1_bound[0]:.4f} ms ({t1_bound[1]})")
+    yield dict(part="Fourier", shape="x".join(map(str, b.shape)) + " complex64",
+               call=lambda: fourier_tridiagonal(*args),
+               plain=lambda: fourier_tridiagonal_reference(*args), view=None,
+               nbytes=2 * tensor_bytes([b]), points=2 * b.numel(),
+               plan=lambda: tt.plan(b.shape[2], 2, torch.float32, False, True))
+    del args, b
+    gen = torch.Generator(device=DEVICE).manual_seed(41)
+    quarter = latlon_grid()
+    for part, g, bands3d in (("implicit 1D", grid, False), ("implicit 3D", grid, True),
+                             ("1/4 deg implicit 1D", quarter, False)):
+        total, h, nz = g.total_shape, g.Hz, g.Nz
+        cols = tuple(total[:2])
+        data = torch.randn(total, generator=gen, device=DEVICE)
+        lo = -0.5 * torch.rand(cols + (nz,) if bands3d else (nz,), generator=gen,
+                               device=DEVICE)
+        up = -0.5 * torch.rand(lo.shape, generator=gen, device=DEVICE)
+        bands = (lo, 1.0 - lo - up, up)
+        d = data[:, :, h:h + nz]
+        full = torch.full(total, float("nan"), device=DEVICE)
+        out = full[:, :, h:h + nz]
+        yield dict(part=part, shape=f"{total[0]}x{total[1]}x{nz} fp32",
+                   call=lambda bands=bands, d=d, out=out:
+                   solve_batched_tridiagonal(*bands, d, out=out),
+                   plain=lambda bands=bands, d=d: solve_batched_tridiagonal_reference(*bands, d),
+                   view=(full, h, nz), points=d.numel(),
+                   nbytes=2 * tensor_bytes([d]) + (tensor_bytes(bands) if bands3d else 0),
+                   plan=lambda nz=nz, bands3d=bands3d: tt.plan(nz, 1, torch.float32, bands3d))
+        del data, lo, up, bands, d, full, out
+
+
+def phase_t1():
+    """T1 against its plain version bit for bit: every form of
+    ``t1_forms`` (the implicit forms through views, the halos of the
+    output's with-halo field still NaN after the call), 67×45×29 fp64 in
+    the Fourier mode (with and without the pin), and the implicit step at
+    256³ fp32 (a scalar κ: 1D bands; AMD's 3D κ with Value and Gradient
+    walls on a centred field, and on w), which hands T1 views. Each form
+    timed (CUDA events, and alone by torch.profiler) against its bound.
+    Returns ((max_abs_err, ms, plain_ms, bound_ms, bound_by) of the
+    Fourier form, a reading of each form: part, shape, max_abs_err, ms,
+    plain_ms, bound_ms, bound_by)."""
+    worst, readings = 0.0, []
+    for f in t1_forms():
+        err = hold_t1(f"T1 {f['part']} {f['shape']}", f["call"], f["plain"],
+                      torch.float32)
+        if f["view"] is not None:
+            full, h, nz = f["view"]
+            if not (full[:, :, :h].isnan().all() and full[:, :, h + nz:].isnan().all()):
+                raise AssertionError(f"T1 {f['part']}: a halo point of out was written")
+        worst = max(worst, err)
+        ms = cuda_ms(f["call"], 20)
+        plain_ms = cuda_ms(f["plain"], 2)
+        alone = device_ms(f["call"], 20, "tridiagonal")
+        b_ms, b_by = bound(T1, f["nbytes"], f["points"])
+        print(f"T1 {f['part']} {f['shape']} time: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (CUDA events); kernel alone {alone} ms "
+              f"(torch.profiler); bound {b_ms:.4f} ms ({b_by})")
+        readings.append({"part": f["part"], "shape": f["shape"], "max_abs_err": err,
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by})
+        del f
+        torch.cuda.empty_cache()
     small = surface_grid((67, 45, 29), torch.float64, stretched=True)
     for m in (0.0, -0.5):
         a = fourier_args(small, 22, m)
@@ -2094,9 +2175,14 @@ def phase_t1():
                                    lambda: step(solve_batched_tridiagonal),
                                    lambda: step(solve_batched_tridiagonal_reference),
                                    torch.float32))
+    step_ms = cuda_ms(lambda: implicit_vertical_diffusion_step(data, g, CENTER, 1e-5, 0.5), 10)
+    print(f"T1 implicit step {N}^3 fp32, scalar kappa: the whole step (bands, the "
+          f"field's copy, T1 on views) {step_ms:.4f} ms (CUDA events)")
     del model, state, nu, data
     torch.cuda.empty_cache()
-    return (worst, ms, plain_ms, *t1_bound)
+    first = readings[0]
+    return ((worst, first["ms"], first["plain_ms"], first["bound_ms"], first["bound_by"]),
+            readings)
 
 
 def main():
@@ -2112,7 +2198,7 @@ def main():
     measured[K6] = phase_k6()
     phase_forced()
     k1_err, k2_err = phase_stretched()
-    measured[T1] = phase_t1()
+    measured[T1], t1_readings = phase_t1()
     # each path's launches, read just after its kernel run; a kernel's
     # record counts its launches on every path
     by_path = {}
@@ -2165,6 +2251,16 @@ def main():
         "launches": by_path["near-global"][K5] + by_path["near-global WENO"][K5],
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}]
+    # T1's forms, with the launches of each path whose T1 calls take it
+    def form_launches(path, kind):
+        counts = by_path[path]
+        return counts[T1F] if kind == "fourier" else counts[T1] - counts[T1F]
+
+    by_name[T1]["forms"] = []
+    for r in t1_readings:
+        per_path = {p: form_launches(p, kind) for p, kind in T1_FORM_PATHS[r["part"]].items()}
+        by_name[T1]["forms"].append(dict(r, launches=sum(per_path.values()),
+                                         launches_by_path=per_path, library_ms=None))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,8 @@ expression trees; Value and Gradient walls are folded into the wall rows,
 w's boundary faces stay as they are. The solve goes through
 ``solvers/tridiagonal.py``'s ``solve_batched_tridiagonal`` (kernel T1 on
 the card) unless the caller passes another function of its signature
-(its plain version).
+(its plain version): it reads the interior levels of the field as a view
+and writes the solution into the same levels of the field's copy.
 """
 from __future__ import annotations
 
@@ -66,7 +67,8 @@ def implicit_vertical_diffusion_step(data, grid, loc, kappa, dt,
     dissipation). ``bc_bottom``/``bc_top``: Value and Gradient walls are
     folded into the solve (ghost = 2b − c, and the prescribed-gradient
     flux); flux walls stay explicit. ``solve`` replaces
-    ``solve_batched_tridiagonal``.
+    ``solve_batched_tridiagonal`` (called as ``solve(a, b, c, rhs,
+    out=view)``).
 
     The bands are the JAX package's, level by level (−Δt κ / (Δz Δz) with
     IEEE division), formed for all levels at once; they are 1D (Nz,) when
@@ -134,9 +136,8 @@ def implicit_vertical_diffusion_step(data, grid, loc, kappa, dt,
 
         wall(bc_bottom, 0)
         wall(bc_top, 1)
-        sol = solve(*(x.contiguous() for x in (a, b, c, rhs)))
         out = data.clone()
-        out[:, :, Hz: Hz + Nz] = sol
+        solve(a, b, c, rhs, out=out[:, :, Hz: Hz + Nz])
         return out
 
     # w: unknowns at the interior faces k = 1..Nz−1, κ at centres; the
@@ -146,10 +147,8 @@ def implicit_vertical_diffusion_step(data, grid, loc, kappa, dt,
     a = _zero_end(-dt * kc[..., :Nz - 1] / (dzf_k * dzc[Hz: Hz + Nz - 1]), 0)
     c = _zero_end(-dt * kc[..., 1:] / (dzf_k * dzc[Hz + 1: Hz + Nz]), -1)
     b = 1.0 - a - c
-    rhs = data[:, :, Hz + 1: Hz + Nz]
-    sol = solve(*(x.contiguous() for x in (a, b, c, rhs)))
     out = data.clone()
-    out[:, :, Hz + 1: Hz + Nz] = sol
+    solve(a, b, c, data[:, :, Hz + 1: Hz + Nz], out=out[:, :, Hz + 1: Hz + Nz])
     return out
 
 

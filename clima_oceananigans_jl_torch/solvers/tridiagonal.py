@@ -21,14 +21,20 @@ wrappers: on CUDA tensors they launch the hand-written kernel
 ``csrc/batched_tridiagonal.cu`` (T1; the second in its Fourier mode, which
 forms those bands in the kernel) or raise, on CPU tensors they run the
 plain version. Both count their launches in
-``solve_batched_tridiagonal.launches``.
+``solve_batched_tridiagonal.launches`` (the Fourier mode's also in
+``fourier_tridiagonal.launches``). ``solve_batched_tridiagonal`` reads and
+writes strided views (a with-halo field's interior levels) through
+``out=``, as its plain version does; ``plan`` asks the kernel's launcher
+which of its forms a call takes.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from ..ops import _build
 from ..ops.fused_tendencies import check_tensor, kernel_fn, launch
 
 
@@ -38,11 +44,15 @@ def _level(band, k):
     return band[k] if band.ndim == 1 else band[..., k]
 
 
-def solve_batched_tridiagonal_reference(a, b, c, d):
+def solve_batched_tridiagonal_reference(a, b, c, d, out=None):
     """Thomas algorithm along the last axis of ``d``; a[..., 0] and
     c[..., -1] enter as in the JAX function (multiplied by zeros). Bands are
     1D (Nz,) or broadcast against ``d``; a complex ``d`` is solved as its
-    real and imaginary parts."""
+    real and imaginary parts. With ``out`` (of d's shape and type, a view
+    of a with-halo field for instance) the solution is copied into it and
+    ``out`` returned."""
+    if out is not None:
+        return out.copy_(solve_batched_tridiagonal_reference(a, b, c, d))
     if d.is_complex():
         return torch.complex(solve_batched_tridiagonal_reference(a, b, c, d.real),
                              solve_batched_tridiagonal_reference(a, b, c, d.imag))
@@ -91,84 +101,157 @@ def fourier_tridiagonal_reference(lam_x, lam_y, m, lower, upper, dzc, b, pin):
 
 
 def _real_view(d):
-    """(real dtype, values per point, contiguous real storage) of d."""
+    """(values per point: 2 for a complex d, else 1; its real type)."""
     if d.is_complex():
-        return torch.view_as_real(d), 2
-    return d, 1
+        return 2, torch.view_as_real(d).dtype
+    return 1, d.dtype
 
 
-def _check_band(name, band, d_real):
-    nz = d_real.shape[2]
-    if band.dtype != d_real.dtype or band.device != d_real.device:
-        raise ValueError(f"{name}: expected {d_real.dtype} on {d_real.device}, "
-                         f"got {band.dtype} on {band.device}")
-    if tuple(band.shape) not in ((nz,), tuple(d_real.shape[:3])):
+def _column_strides(name, t, shape, nv):
+    """The (x, y) strides of the (X, Y, Z) tensor ``t``, in elements of its
+    real type, after checking its shape and that z is contiguous; an axis
+    of one point has stride 0."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.shape[2] > 1 and t.stride(2) != 1:
+        raise ValueError(f"{name}: T1 takes z contiguous (stride 1), got "
+                         f"strides {t.stride()}")
+    st = [t.stride(i) * nv if t.shape[i] > 1 else 0 for i in (0, 1)]
+    if min(st) < 0:
+        raise ValueError(f"{name}: T1 takes non-negative strides, got {t.stride()}")
+    return st
+
+
+def _check_band(name, band, dtype, device, shape):
+    """(is 3D, its (x, y) strides) of a band for T1: 1D (nz,) and
+    contiguous, or of d's shape with z contiguous; a 3D band broadcast
+    from one column (x and y strides 0) is passed as the 1D band it is."""
+    nz = shape[2]
+    if band.dtype != dtype or band.device != device:
+        raise ValueError(f"{name}: expected {dtype} on {device}, got "
+                         f"{band.dtype} on {band.device}")
+    if tuple(band.shape) == (nz,):
+        if nz > 1 and band.stride(0) != 1:
+            raise ValueError(f"{name}: T1 takes contiguous 1D bands")
+        return 0, [0, 0]
+    if tuple(band.shape) != tuple(shape):
         raise ValueError(f"{name}: T1 takes a 1D band of {nz} levels or a 3D "
-                         f"band of shape {tuple(d_real.shape[:3])}, got "
-                         f"{tuple(band.shape)}")
-    if not band.is_contiguous():
-        raise ValueError(f"{name}: T1 takes contiguous bands")
-    return int(band.ndim == 3)
+                         f"band of shape {tuple(shape)}, got {tuple(band.shape)}")
+    st = _column_strides(name, band, shape, 1)
+    return int(st != [0, 0]), st
 
 
-def _check_rhs(d):
-    if d.ndim != 3 or not d.is_contiguous():
-        raise ValueError(f"T1 takes a contiguous 3D right-hand side, got "
-                         f"shape {tuple(d.shape)}")
-    real, nv = _real_view(d)
-    if real.dtype not in (torch.float32, torch.float64):
+def _check_rhs(d, out):
+    """(values per point, real type, d's strides, out's strides) of a 3D
+    right-hand side and the output it is solved into: z contiguous, out's
+    columns apart (x slowest)."""
+    if d.ndim != 3:
+        raise ValueError(f"T1 takes a 3D right-hand side, got shape {tuple(d.shape)}")
+    nv, real = _real_view(d)
+    if real not in (torch.float32, torch.float64):
         raise ValueError(f"T1 takes float32/64 or complex64/128, got {d.dtype}")
-    return real, nv
-
-
-def _launch(a, b, c, d):
-    real, nv = _check_rhs(d)
-    flags = [_check_band(n, x, real) for n, x in (("a", a), ("b", b), ("c", c))]
+    if out.dtype != d.dtype or out.device != d.device:
+        raise ValueError(f"out: expected {d.dtype} on {d.device}, got "
+                         f"{out.dtype} on {out.device}")
     nx, ny, nz = d.shape
-    out = torch.empty_like(d)
-    cp = torch.empty((nx, ny, nz), dtype=real.dtype, device=d.device)
-    fn = kernel_fn("batched_tridiagonal", "batched_tridiagonal", real.dtype,
+    sd = _column_strides("d", d, d.shape, nv)
+    so = _column_strides("out", out, d.shape, nv)
+    if (ny > 1 and so[1] < nz * nv) or (nx > 1 and so[0] < max(ny * so[1], nz * nv)):
+        raise ValueError(f"out: T1 writes columns that must not overlap, x "
+                         f"slowest; got strides {out.stride()}")
+    if (out.untyped_storage().data_ptr() == d.untyped_storage().data_ptr()
+            and (out.data_ptr(), so) != (d.data_ptr(), sd)):
+        raise ValueError("out: T1 writes in place only over d itself")
+    return nv, real, sd, so
+
+
+def plan(nz, nv, dtype, any3d=False, fourier=False):
+    """T1's launch plan as its launcher makes it (``csrc/batched_tridiagonal.cu``
+    ``batched_tridiagonal_plan``; loads the kernel's library): (mode: 0 the
+    1D bands' table, 1 a column's own cp, 2 the Fourier mode; levels a
+    chunk; dynamic shared memory a block, bytes)."""
+    return _plan(nz, nv, dtype, bool(any3d), bool(fourier))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(nz, nv, dtype, any3d, fourier):
+    fn = _build.load("batched_tridiagonal").batched_tridiagonal_plan
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 3)()
+    size = torch.finfo(dtype).bits // 8
+    rc = fn(nz, nv, size, int(any3d), int(fourier), out)
+    if rc != 0:
+        raise ValueError(f"T1 has no plan for nz={nz}, nv={nv}, {dtype} (CUDA error {rc})")
+    return tuple(out)
+
+
+def _scratch(p, shape, real, device):
+    """The cp scratch of a plan whose cp is a column's own and leaves the
+    SM between the sweeps (more than one chunk), or None."""
+    if p[0] == 0 or shape[2] <= p[1]:
+        return None
+    return torch.empty(tuple(shape), dtype=real, device=device)
+
+
+def _launch(a, b, c, d, out=None):
+    out = torch.empty_like(d) if out is None else out
+    nv, real, sd, so = _check_rhs(d, out)
+    shape = tuple(d.shape)
+    checked = [_check_band(n, x, real, d.device, shape)
+               for n, x in (("a", a), ("b", b), ("c", c))]
+    flags = [f for f, _ in checked]
+    strides = (ctypes.c_longlong * 10)(*[s for _, st in checked for s in st], *sd, *so)
+    nx, ny, nz = shape
+    cp = _scratch(plan(nz, nv, real, any(flags)), shape, real, d.device)
+    fn = kernel_fn("batched_tridiagonal", "batched_tridiagonal", real,
                    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 2)
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4)
     launch("batched_tridiagonal", fn, d.device, a.data_ptr(), b.data_ptr(),
-           c.data_ptr(), *flags, d.data_ptr(), out.data_ptr(), cp.data_ptr(),
-           nx * ny, nz, nv)
+           c.data_ptr(), *flags, strides, d.data_ptr(), out.data_ptr(),
+           None if cp is None else cp.data_ptr(), nx, ny, nz, nv)
     solve_batched_tridiagonal.launches += 1
     return out
 
 
-def solve_batched_tridiagonal(a, b, c, d):
-    """φ with M(a, b, c) φ = d along the last axis. CUDA tensors go through
-    the hand-written kernel T1 (a 3D ``d``, real or complex, and bands of
-    its real type, each 1D (Nz,) or of d's shape; a failure raises and
-    nothing falls back), CPU tensors through
+def solve_batched_tridiagonal(a, b, c, d, out=None):
+    """φ with M(a, b, c) φ = d along the last axis, written into ``out``
+    (a new tensor when None) and returned. CUDA tensors go through the
+    hand-written kernel T1: a 3D ``d``, real or complex, whose z stride is
+    1 and whose x and y strides are any (a view of a with-halo field's
+    interior levels), an ``out`` of the same kind, bands of d's real type,
+    each 1D (Nz,) and contiguous or of d's shape with z contiguous; a
+    failure raises and nothing falls back. CPU tensors go through
     ``solve_batched_tridiagonal_reference``."""
     if d.device.type == "cuda":
-        return _launch(a, b, c, d)
+        return _launch(a, b, c, d, out)
     if d.device.type != "cpu":
         raise ValueError(f"no solve_batched_tridiagonal for {d.device.type} tensors")
-    return solve_batched_tridiagonal_reference(a, b, c, d)
+    return solve_batched_tridiagonal_reference(a, b, c, d, out)
 
 
 def _launch_fourier(lam_x, lam_y, m, lower, upper, dzc, b, pin):
-    real, nv = _check_rhs(b)
+    if b.ndim != 3 or not b.is_contiguous():
+        raise ValueError(f"T1's Fourier mode takes a contiguous 3D spectrum, "
+                         f"got shape {tuple(b.shape)}")
+    out = torch.empty_like(b)
+    nv, real, _, _ = _check_rhs(b, out)
     nx, ny, nz = b.shape
     for name, x, n in (("lam_x", lam_x, nx), ("lam_y", lam_y, ny),
                        ("lower", lower, nz), ("upper", upper, nz),
                        ("dzc", dzc, nz)):
-        check_tensor(name, x, (n,), real.dtype, b.device)
-    out = torch.empty_like(b)
-    cp = torch.empty((nx, ny, nz), dtype=real.dtype, device=b.device)
-    fn = kernel_fn("batched_tridiagonal", "fourier_tridiagonal", real.dtype,
+        check_tensor(name, x, (n,), real, b.device)
+    cp = _scratch(plan(nz, nv, real, False, True), b.shape, real, b.device)
+    fn = kernel_fn("batched_tridiagonal", "fourier_tridiagonal", real,
                    [ctypes.c_void_p] * 2 + [ctypes.c_double]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4)
     launch("fourier_tridiagonal", fn, b.device, lam_x.data_ptr(),
            lam_y.data_ptr(), float(m), lower.data_ptr(), upper.data_ptr(),
            dzc.data_ptr(), int(bool(pin)), b.data_ptr(), out.data_ptr(),
-           cp.data_ptr(), nx, ny, nz, nv)
+           None if cp is None else cp.data_ptr(), nx, ny, nz, nv)
     solve_batched_tridiagonal.launches += 1
+    fourier_tridiagonal.launches += 1
     return out
 
 
@@ -187,5 +270,6 @@ def fourier_tridiagonal(lam_x, lam_y, m, lower, upper, dzc, b, pin):
 
 
 #: T1 launches since the last reset, by either wrapper (the plain versions
-#: add nothing)
+#: add nothing); those of its Fourier mode also in ``fourier_tridiagonal``'s
 solve_batched_tridiagonal.launches = 0
+fourier_tridiagonal.launches = 0

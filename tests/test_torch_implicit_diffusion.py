@@ -17,8 +17,13 @@ solves through T1's plain version on the CPU).
   relaxing to the exact steady profile; and a scalar κ bit for bit the
   same κ as a uniform 3D array (1D against 3D bands).
 
+The step hands the solve views: the interior levels of the field (w's
+``Hz+1 : Hz+Nz``) and the same levels of the field's copy as ``out``,
+whose halos stay the field's; bit for bit the route through contiguous
+copies and a scatter, and within ``RTOL`` of JAX.
+
 The ``cuda`` cases hold the implicit step with T1 on the card against the
-plain solve, bit for bit.
+plain solve, bit for bit, one launch a solve.
 """
 import numpy as np
 import pytest
@@ -285,6 +290,57 @@ def test_implicit_solve_honors_value_and_gradient_walls():
     assert np.abs(d - (2.0 + 4.0 * zc)).max() < 1e-8
 
 
+def contiguous_route(a, b, c, d, out):
+    """The solve as the step called it before it passed views: contiguous
+    copies of the bands and the right-hand side, the solution scattered
+    into ``out``."""
+    out[...] = ttri.solve_batched_tridiagonal_reference(
+        *(x.contiguous() for x in (a, b, c, d)))
+    return out
+
+
+@pytest.mark.parametrize("loc", ["centre", "w"])
+@pytest.mark.parametrize("case", ["scalar", "array", "walls", "linear"])
+def test_step_solves_views_into_the_fields_copy(case, loc):
+    """The solve gets the field's interior levels as a view of ``data`` (a
+    copy only where a wall changes the right-hand side) and writes a view
+    of the returned field, whose halos are ``data``'s; the result is bit
+    for bit the contiguous route's and within RTOL of JAX."""
+    jg, tg = grids()
+    rng = np.random.default_rng(6)
+    jk, tk = kappas("array" if case == "array" else "scalar", tg, rng)
+    data = torch.as_tensor(rng.standard_normal(tg.total_shape))
+    location, jloc = (T.CENTER, J.CENTER) if loc == "centre" else (T.W_LOC, J.W_LOC)
+    lin = (-np.abs(rng.standard_normal(tg.total_shape)) if case == "linear" and loc == "centre"
+           else None)
+    jb, jt, tb, tt = (wall_bcs("value+gradient", tg.shape[:2]) if case == "walls"
+                      and loc == "centre" else (None,) * 4)
+    seen = []
+
+    def spy(a, b, c, d, out):
+        seen.append((d, out))
+        return ttri.solve_batched_tridiagonal(a, b, c, d, out=out)
+
+    kw = dict(bc_bottom=tb, bc_top=tt)
+    tlin = None if lin is None else torch.as_tensor(lin)
+    got = tivd.implicit_vertical_diffusion_step(data, tg, location, tk, 0.7, tlin,
+                                                solve=spy, **kw)
+    (d, out), = seen
+    hz, nz = tg.Hz, tg.Nz
+    k0, k1 = (hz, hz + nz) if loc == "centre" else (hz + 1, hz + nz)
+    assert out.data_ptr() == got[:, :, k0:k1].data_ptr() and out.stride() == got.stride()
+    if case != "walls" or loc == "w":
+        assert d.data_ptr() == data[:, :, k0:k1].data_ptr()
+    for sl in (slice(0, k0), slice(k1, None)):
+        assert torch.equal(got[:, :, sl], data[:, :, sl])
+    assert torch.equal(got, tivd.implicit_vertical_diffusion_step(
+        data, tg, location, tk, 0.7, tlin, solve=contiguous_route, **kw))
+    ref = jivd.implicit_vertical_diffusion_step(
+        jnp.asarray(data.numpy()), jg, jloc, jk, 0.7,
+        None if lin is None else jnp.asarray(lin), bc_bottom=jb, bc_top=jt)
+    close(ref, got)
+
+
 # -- on the card --------------------------------------------------------------------
 
 @pytest.mark.cuda
@@ -308,3 +364,36 @@ def test_cuda_implicit_step_through_t1_is_bitwise_plain(kind, dtype):
             solve=ttri.solve_batched_tridiagonal_reference)
         torch.cuda.synchronize()
         assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["scalar", "array", "walls", "linear"])
+def test_cuda_implicit_step_views_one_launch(case, dtype):
+    """The step on the card at the ¼° grid's 24 levels (one chunk) and at
+    33 (several chunks), centred and w: bit for bit the plain solve, one T1
+    launch a solve, the halos the field's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(7)
+    for nz in (24, 33):
+        g = T.RectilinearGrid(size=(45, 38, nz), x=(0, 3), y=(0, 2), z=faces(nz),
+                              topology=(T.PERIODIC, T.PERIODIC, T.BOUNDED), dtype=dtype)
+        kap = (torch.as_tensor(0.1 + rng.uniform(0, 1, g.total_shape), dtype=dtype,
+                               device="cuda") if case == "array" else 0.7)
+        lin = (-torch.as_tensor(np.abs(rng.standard_normal(g.total_shape)), dtype=dtype,
+                                device="cuda") if case == "linear" else None)
+        walls = ((T.ValueBC(1.5), T.GradientBC(-0.3)) if case == "walls" else (None, None))
+        data = torch.as_tensor(rng.standard_normal(g.total_shape), dtype=dtype, device="cuda")
+        for loc in (T.CENTER, T.W_LOC):
+            lc = lin if loc is T.CENTER else None
+            bot, top = walls if loc is T.CENTER else (None, None)
+            n = ttri.solve_batched_tridiagonal.launches
+            got = tivd.implicit_vertical_diffusion_step(data, g, loc, kap, 0.9, lc,
+                                                        bc_bottom=bot, bc_top=top)
+            torch.cuda.synchronize()
+            assert ttri.solve_batched_tridiagonal.launches == n + 1
+            ref = tivd.implicit_vertical_diffusion_step(
+                data, g, loc, kap, 0.9, lc, bc_bottom=bot, bc_top=top,
+                solve=ttri.solve_batched_tridiagonal_reference)
+            assert torch.equal(got, ref)
