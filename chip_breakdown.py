@@ -7,6 +7,7 @@
                               [langmuir-amd] [wind-mixing-stretched]
                               [ab2-implicit] [t1] [t1-variants]
                               [near-global] [near-global-weno] [diffusive]
+                              [horizontal-convection] [2d-turbulence]
                               [--steps N]
 
 With no part named, runs them all. Prints the card's name and power
@@ -92,6 +93,14 @@ limit first. Needs a card; without one it exits with an error.
   bands apart), the corrector, K4a and K6; run them with
   ``hydrostatic-wind`` in one call to read what the bottom and the closure
   cost.
+- ``horizontal-convection``, ``2d-turbulence``: ``chip_smoke.py``'s
+  walls-and-Flat paths (``WALLS``: examples/horizontal_convection.py at
+  4096×1×2048 on (Bounded, Flat, Bounded), its b ValueBC a callable;
+  examples/two_dimensional_turbulence.py at 8192²×1 with UB5) after their
+  warm-up steps, like ``general-projection``: K2, the eager terms,
+  ``rk3_substep``, the copies and pads with their K6 fills, K3b, the
+  pressure solve (a DCT along each bounded axis, eigenvalue 0 on the Flat
+  one), K3c, the correction, ``update_state`` and its K6 fills.
 - ``shallow-water``: the 16384² headline of
   ``benchmark/bench_shallow_water.py`` (as ``chip_smoke.py`` runs it), 2
   warm-up steps, then ``steps`` steps with CUDA events around K3a,
@@ -306,6 +315,43 @@ def general_projection(steps):
     step = lambda s, timed_parts: model.step(s, dt, kernels if timed_parts else None)
     breakdown(f"general projection {chip_smoke.N}^3 fp32 step (FluxBC w walls)",
               step, state, events, patches, steps, inner)
+
+
+def walls(path, steps):
+    """A walls-and-Flat RK3 step of chip_smoke.py (``WALLS``: horizontal
+    convection at 4096×1×2048, 2D turbulence at 8192²) after its warm-up
+    steps, broken down as ``general_projection``: K2, the eager terms,
+    ``rk3_substep``, the projection's copies and pads with their K6 fills,
+    K3b, the pressure solve (DCTs along the bounded axes), K3c, the
+    correction, and ``update_state`` with its K6 fills apart."""
+    model, state, dt = chip_smoke.wall_path_model(path)
+    for _ in range(chip_smoke.WALLS[path][0]):
+        state = model.step(state, dt)
+    torch.cuda.synchronize()
+    events = collections.defaultdict(list)
+    fill = nm.KERNELS["fill"]
+    update_state = model.update_state
+    model.update_state = lambda s, kernels=None: update_state(
+        s, dict(kernels or {}, fill=timed(events, "update_state's K6 fills", fill)))
+    kernels = {"advect": timed(events, "K2", nm.KERNELS["advect"]),
+               "divergence": timed(events, "K3b", nm.KERNELS["divergence"]),
+               "gradient": timed(events, "K3c", nm.KERNELS["gradient"])}
+    copies = "copies and pads with their K6 fills"
+    patches = [(model, "tendencies", "tendencies"),
+               (nm, "rk3_substep", "rk3_substep"),
+               (model, "project_velocities", "project_velocities"),
+               (model, "_filled_velocity_copies", copies),
+               (model, "_filled_pressure", copies),
+               (model.pressure_solver, "solve", "pressure solve"),
+               (model, "update_state", "update_state")]
+    inner = {"tendencies": (("K2",), "the eager terms (tendencies less K2)"),
+             "project_velocities": ((copies, "K3b", "pressure solve", "K3c"),
+                                    "the correction (project_velocities less "
+                                    "its other parts)"),
+             "update_state": (("update_state's K6 fills",), None)}
+    step = lambda s, timed_parts: model.step(s, dt, kernels if timed_parts else None)
+    size = "x".join(map(str, model.grid.shape))
+    breakdown(f"{path} {size} fp32 step", step, state, events, patches, steps, inner)
 
 
 def k6_k3c(steps):
@@ -1036,7 +1082,9 @@ PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps),
          "t1": t1, "t1-variants": t1_variants,
          "near-global": lambda steps: near_global("near-global", steps),
          "near-global-weno": lambda steps: near_global("near-global WENO", steps),
-         "diffusive": lambda steps: near_global("1/4 deg diffusive", steps)}
+         "diffusive": lambda steps: near_global("1/4 deg diffusive", steps),
+         "horizontal-convection": lambda steps: walls("horizontal convection", steps),
+         "2d-turbulence": lambda steps: walls("2D turbulence", steps)}
 
 
 def main(argv):

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's fourteen paths through ``clima_oceananigans_jl_torch``
+Drives the port's sixteen paths through ``clima_oceananigans_jl_torch``
 on the card, in phases; each prints one line or a few:
 
 1. device: the card's name and power limit as nvidia-smi gives them, on a
@@ -169,7 +169,38 @@ on the card, in phases; each prints one line or a few:
    in-kernel closure; 1 K4a, 1 K4b, 1 K5, 2 K6, 5 T1); fields finite,
    |Σ η·Az| ≤ 1e-5·Σ|η|·Az, u and v exactly 0 at every solid face (the
    validation's check), K4b held bit for bit and timed on the path's
-   fields, the runs agree exactly.
+   fields, the runs agree exactly;
+23. (since the walls-and-Flat slice) K2, K3b and K3c against their plain
+   versions bit for bit over NaN-filled outputs on the Flat and bounded
+   topologies (``FLAT_BOUNDED``: (P, F, B) 1000×1×333, (B, F, B)
+   777×1×129, (P, P, F) 1024×1000×1, (F, F, B) 1×1×1000, (F, P, B)
+   1×1000×333, (P, B, B) 100×77×45, (B, B, B) 67×45×29), fp32 and fp64:
+   K2 with WENO5, UpwindBiasedFifthOrder and centred schemes on random
+   and all-zero fields, on the interior and each bounded axis' velocity
+   wall face (u's east, v's north, w's top), every other halo point 0;
+   K3b on the interior, K3c on the interior with its halos 0; K1 (its
+   general instantiation, Coriolis, diffusion, tracers, Euler and AB2) on
+   (P, P, F) 1024×1000×1 and (F, P, B) 1×1000×333 with each scheme, its
+   Flat-z case timed against its bound;
+24. the walls-and-Flat paths (``WALLS``), 2 warm-up and 5 (3) timed steps
+   with the kernels and with their plain versions: ``horizontal
+   convection`` (examples/horizontal_convection.py at 4096×1×2048 fp32 on
+   (Bounded, Flat, Bounded): Ra = 1e8, Pr = 1, the callable top ValueBC
+   b = −cos(2πx/Lx), WENO5, RK3, ScalarDiffusivity(ν, κ), BuoyancyTracer;
+   u, w, b ~ 1e-3·N(0,1) from a seeded torch.Generator; Δt from CFL 0.5 and
+   half the explicit diffusive limit Δ²/(2dκ); 3 K2, 3 K3b, 3 K3c, 12 K6
+   a step) and ``2D
+   turbulence`` (examples/two_dimensional_turbulence.py at 8192²×1 fp32
+   on (Periodic, Periodic, Flat): UpwindBiasedFifthOrder, RK3,
+   ScalarDiffusivity(nu=1e-5), its band-limited streamfunction (k = 2–6,
+   phases from a seeded numpy generator, max|u, v| = 0.5), Δt from CFL
+   0.5; 3 K2, 3 K3b, 3 K3c, 9 K6 a step); fields finite, max|∇·u|·Δx/
+   max|u| ≤ 1e-5, b within ±1.001 b* on horizontal convection (the
+   example's maximum principle), the runs agree exactly; K2, K3b and K3c
+   held bit for bit and timed on each path's fields, beside the card's
+   name and power limit; K6 held bit for bit on each path's two fill
+   groups from NaN on every point it writes (horizontal convection's b
+   with its callable top value).
 
 Each kernel's record carries its bound: the larger of its compulsory
 bytes (each input read once, each output written once, from this run's
@@ -184,7 +215,9 @@ each kernel's record counts its launches on every path that runs it
 K5's and T1's with ``forms``: the same keys for K4b's closure, masked and
 stretched-latitude forms, for K5 over the near-global bottom and for T1's
 four forms (with their shapes), with the launches of the path that runs
-each; T1's also by path, its Fourier-mode launches counted apart by
+each; K1's, K2's, K3b's and K3c's with their Flat and bounded geometries
+as ``forms``, timed on the walls-and-Flat paths' fields (K1 on its Flat z
+hold, which no path runs); T1's also by path, its Fourier-mode launches counted apart by
 ``fourier_tridiagonal.launches``), and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. The port is imported first, so a copy of this file
@@ -216,7 +249,8 @@ from clima_oceananigans_jl_torch import (BOUNDED, FLAT, PERIODIC,
                                          ScalarDiffusivity, SeawaterBuoyancy,
                                          ShallowWaterModel,
                                          SplitExplicitFreeSurface,
-                                         UniformStokesDrift, ValueBC,
+                                         UniformStokesDrift,
+                                         UpwindBiasedFifthOrder, ValueBC,
                                          VectorInvariant, WENO5)
 from clima_oceananigans_jl_torch.boundary_conditions.bcs import regularize_bcs
 from clima_oceananigans_jl_torch.models import (hydrostatic, nonhydrostatic,
@@ -359,7 +393,9 @@ PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
             "AB2 stretched implicit": {K1: 1, T1: 5, K6: 4},
             "near-global": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 3},
             "near-global WENO": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 5},
-            "1/4 deg diffusive": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 5}}
+            "1/4 deg diffusive": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 5},
+            "horizontal convection": {K2: 3, K3B: 3, K3C: 3, K6: 12},
+            "2D turbulence": {K2: 3, K3B: 3, K3C: 3, K6: 9}}
 #: of T1's launches a step, those of its Fourier mode (the pressure solve)
 T1_FOURIER_PER_STEP = {"wind mixing stretched": 3, "AB2 stretched implicit": 1}
 T1F = "fourier_tridiagonal"
@@ -380,7 +416,8 @@ AGREE = {"AB2": 0.0, "RK3": 0.0, "shallow water": 1e-4,
          "general projection": 0.0, "hydrostatic": 0.0, "langmuir": 0.0,
          "wind mixing": 0.0, "hydrostatic wind": 0.0, "langmuir AMD": 0.0,
          "wind mixing stretched": 0.0, "AB2 stretched implicit": 0.0,
-         "near-global": 0.0, "near-global WENO": 0.0, "1/4 deg diffusive": 0.0}
+         "near-global": 0.0, "near-global WENO": 0.0, "1/4 deg diffusive": 0.0,
+         "horizontal convection": 0.0, "2D turbulence": 0.0}
 #: the ¼° hydrostatic flagship (benchmark/bench_hydro_flagship.py:24-41);
 #: its "hydrostatic wind" path adds the near-global run's wind stress (u
 #: top FluxBC((λ, φ, t) ↦ −1e-4 cos(3πφ/180)),
@@ -456,15 +493,19 @@ def device_ms(fn, reps, kernel):
     return us / 1e3 / reps if us else None
 
 
+def card_line():
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke run needs a GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(smi)
+    print(card_line())
     print(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
 
@@ -644,25 +685,40 @@ def phase_k1():
     return worst, ms, plain_ms, *k1_bound
 
 
+def wall_faces(grid):
+    """(velocity, axis) of each bounded axis: the velocity whose far wall
+    face (with-halo index h + n) K2 writes there."""
+    return [(name, a) for a, name in enumerate("uvw")
+            if grid.topology[a] is BOUNDED]
+
+
+def wall_face(grid, axis, a):
+    """The wall face of ``a`` along bounded ``axis``: with-halo index
+    h + n over the interior of the other axes."""
+    sl = list(grid.interior_slices)
+    sl[axis] = grid.halo[axis] + grid.shape[axis]
+    return a[tuple(sl)]
+
+
 def hold_k2(label, args, dtype):
     """K2 against its plain version bit for bit on the interior of every
-    field and on w's top wall face (with-halo z index hz+nz), which K2 also
-    writes on a bounded z axis, and its other halo points zero; returns the
-    largest max|Δ|."""
+    field and on each bounded axis' velocity wall face (u's east, v's
+    north, w's top: with-halo index h + n), which K2 also writes, and its
+    other halo points zero; returns the largest max|Δ|."""
     grid = args[0]
     got = fused_advective_tendencies(*args)
     ref = fused_advective_tendencies_reference(*args)
-    (hx, hy, hz), (nx, ny, nz) = grid.halo, grid.shape
-    top = lambda a: a[hx:hx + nx, hy:hy + ny, hz + nz]
-    worst = max(hold(label, {"G": got}, {"G": ref}, dtype, grid.interior,
-                     exact=True),
-                hold(f"{label}, w's top wall face", {"G": {"w": top(got["w"])}},
-                     {"G": {"w": top(ref["w"])}}, dtype, exact=True))
+    worst = hold(label, {"G": got}, {"G": ref}, dtype, grid.interior, exact=True)
+    for name, axis in wall_faces(grid):
+        worst = max(worst, hold(
+            f"{label}, {name}'s wall face", {"G": {name: wall_face(grid, axis, got[name])}},
+            {"G": {name: wall_face(grid, axis, ref[name])}}, dtype, exact=True))
     for name, g in got.items():
         rest = g.clone()
         rest[grid.interior_slices] = 0
-        if name == "w":
-            top(rest).zero_()
+        for face, axis in wall_faces(grid):
+            if face == name:
+                wall_face(grid, axis, rest).zero_()
         if rest.isnan().any() or rest.any():
             raise AssertionError(f"{label} {name}: a halo point is not zero")
     return worst
@@ -2185,6 +2241,274 @@ def phase_t1():
             readings)
 
 
+# -- walls and Flat axes ----------------------------------------------------------
+
+#: the Flat and bounded holds: topology and size, off the kernels' tiles
+FLAT_BOUNDED = {
+    "P,F,B": ((PERIODIC, FLAT, BOUNDED), (1000, 1, 333)),
+    "B,F,B": ((BOUNDED, FLAT, BOUNDED), (777, 1, 129)),
+    "P,P,F": ((PERIODIC, PERIODIC, FLAT), (1024, 1000, 1)),
+    "F,F,B": ((FLAT, FLAT, BOUNDED), (1, 1, 1000)),
+    "F,P,B": ((FLAT, PERIODIC, BOUNDED), (1, 1000, 333)),
+    "P,B,B": ((PERIODIC, BOUNDED, BOUNDED), (100, 77, 45)),
+    "B,B,B": ((BOUNDED, BOUNDED, BOUNDED), (67, 45, 29)),
+}
+#: the topologies K1 takes among them (a Flat z, a Flat x: the JAX gate
+#: sends a bounded x or y and a Flat y to the general branch)
+K1_FLAT = ("P,P,F", "F,P,B")
+SCHEMES = (WENO5, UpwindBiasedFifthOrder, CenteredSecondOrder)
+#: the walls-and-Flat paths: (warm-up steps, timed steps); Δt is set from
+#: the initial state (``wall_path_model``)
+WALLS = {"horizontal convection": (2, 5), "2D turbulence": (2, 3)}
+HC = dict(size=(4096, 1, 2048), Lx=2.0, H=1.0, b_star=1.0, Ra=1e8, Pr=1.0)
+TURBULENCE = dict(size=(8192, 8192, 1), nu=1e-5, kmin=2, kmax=6, speed=0.5,
+                  seed=7)
+
+
+def flat_grid(topology, size, dtype):
+    return RectilinearGrid(size=size, x=(0.0, 1.3), y=(0.0, 0.7), z=(-0.9, 0.0),
+                           topology=topology, dtype=dtype, device=DEVICE)
+
+
+def hold_k3bc(label, grid, u, v, w, p):
+    """K3b bit for bit, K3c on the interior with its halos exactly 0 (over
+    NaN-filled memory); returns (K3b's, K3c's) max|Δ|."""
+    poison_cache(grid.shape, grid.dtype, 2)
+    e_b = hold(f"{K3B} {label}", {"out": {0: fused_divergence(grid, u, v, w)}},
+               {"out": {0: fused_divergence_reference(grid, u, v, w)}}, grid.dtype,
+               exact=True)
+    return e_b, hold_k3c(f"{K3C} {label}", grid, p)
+
+
+def phase_flat_bounded():
+    """K2, K3b and K3c on every topology of ``FLAT_BOUNDED`` and K1 on
+    ``K1_FLAT``, bit for bit against their plain versions over NaN-filled
+    outputs; returns the largest max|Δ| of each kernel and K1's Flat-z
+    (max|Δ|, ms, plain_ms, bound_ms, bound_by) at 1024×1000×1 fp32."""
+    worst = {K1: 0.0, K2: 0.0, K3B: 0.0, K3C: 0.0}
+    k1_form = None
+    for name, (topology, size) in FLAT_BOUNDED.items():
+        for dtype in (torch.float32, torch.float64):
+            grid = flat_grid(topology, size, dtype)
+            tag = f"{name} {'x'.join(map(str, size))} {str(dtype)[6:]}"
+            for scheme in SCHEMES:
+                for kind in ("random", "zero"):
+                    grid_s = grid.with_halo((1 if scheme is CenteredSecondOrder
+                                             else 3,) * 3)
+                    args = k2_args(grid_s, scheme, scheme, 1, kind)
+                    poison_cache(grid_s.total_shape, dtype, 6)
+                    worst[K2] = max(worst[K2], hold_k2(
+                        f"K2 {scheme.__name__} {tag} {kind}", args, dtype))
+                    del args
+            gen = torch.Generator(device=DEVICE).manual_seed(5)
+            u, v, w, p = (torch.randn(grid.total_shape, generator=gen, dtype=dtype,
+                                      device=DEVICE) for _ in range(4))
+            e_b, e_c = hold_k3bc(tag, grid, u, v, w, p)
+            worst[K3B], worst[K3C] = max(worst[K3B], e_b), max(worst[K3C], e_c)
+            del u, v, w, p
+            if name in K1_FLAT:
+                for scheme in SCHEMES:
+                    kw = (dict(tracers=("c",)) if name == "P,P,F"
+                          else dict(buoyancy=BuoyancyTracer()))
+                    model = NonhydrostaticModel(
+                        grid, advection=scheme(), coriolis=FPlane(f=0.3),
+                        closure=ScalarDiffusivity(nu=1e-3, kappa=2e-3), **kw)
+                    if not (model.fused_step and general_route(model)):
+                        raise AssertionError(f"K1 {tag}: the model does not take K1")
+                    state = random_state(model, 1)
+                    poison_cache(model.grid.total_shape, dtype, 8)
+                    psi_k, g_k, err = hold_k1(f"K1 {scheme.__name__} {tag}", model, state)
+                    worst[K1] = max(worst[K1], err)
+                    if (name == "P,P,F" and dtype == torch.float32
+                            and scheme is UpwindBiasedFifthOrder):
+                        ms = cuda_ms(lambda: fused_ab2_advance(model, state, 1e-4, False), 20)
+                        plain_ms = cuda_ms(lambda: fused_ab2_advance_reference(
+                            model, state, 1e-4, False), 3)
+                        nb = tensor_bytes(state["solution"].values(),
+                                          state["G_prev"].values(), psi_k.values(),
+                                          g_k.values())
+                        k1_form = (err, ms, plain_ms,
+                                   *bound(K1, nb, math.prod(size), flops=2 * 820 // 3))
+                        print(f"K1 UB5 {tag} ab2 time: kernel {ms:.4f} ms, plain "
+                              f"{plain_ms:.4f} ms (CUDA events)")
+                    del model, state, psi_k, g_k
+            del grid
+            torch.cuda.empty_cache()
+    return worst, k1_form
+
+
+def hc_model():
+    """examples/horizontal_convection.py at ``HC["size"]`` fp32."""
+    c = HC
+    nu = math.sqrt(c["Pr"] * c["b_star"] * c["Lx"] ** 3 / c["Ra"])
+    grid = RectilinearGrid(size=c["size"], x=(-c["Lx"] / 2, c["Lx"] / 2), y=(0, 1),
+                           z=(-c["H"], 0), topology=(BOUNDED, FLAT, BOUNDED),
+                           dtype=torch.float32, device=DEVICE)
+    b_top = ValueBC(lambda x, y, t: -c["b_star"] * torch.cos(2 * math.pi * x / c["Lx"]))
+    return NonhydrostaticModel(grid, advection=WENO5(), timestepper="RungeKutta3",
+                               buoyancy=BuoyancyTracer(),
+                               closure=ScalarDiffusivity(nu=nu, kappa=nu / c["Pr"]),
+                               boundary_conditions={"b": FieldBCs(top=b_top)})
+
+
+def turbulence_model():
+    """examples/two_dimensional_turbulence.py at ``TURBULENCE["size"]`` fp32."""
+    grid = RectilinearGrid(size=TURBULENCE["size"], x=(0, 2 * math.pi),
+                           y=(0, 2 * math.pi), topology=(PERIODIC, PERIODIC, FLAT),
+                           dtype=torch.float32, device=DEVICE)
+    return NonhydrostaticModel(grid, timestepper="RungeKutta3",
+                               advection=UpwindBiasedFifthOrder(),
+                               closure=ScalarDiffusivity(nu=TURBULENCE["nu"]))
+
+
+def turbulence_state(model):
+    """The example's band-limited flow: ψ = Σ cos(k·x + φ)/|k|² over
+    2 ≤ |k| ≤ 6 with phases from a seeded numpy generator, u = −∂ψ/∂y and
+    v = ∂ψ/∂x (the example's np.gradient, taken exactly), scaled to
+    max(|u|, |v|) = 0.5; summed on the card in fp64."""
+    c = TURBULENCE
+    rng = np.random.default_rng(c["seed"])
+    x, y, _ = model.grid.nodes(CENTER)
+    x, y = x.double(), y.double()
+    u = torch.zeros(model.grid.shape[:2], dtype=torch.float64, device=DEVICE)
+    v = torch.zeros_like(u)
+    for kx in range(-c["kmax"], c["kmax"] + 1):
+        for ky in range(-c["kmax"], c["kmax"] + 1):
+            kk = math.hypot(kx, ky)
+            if not c["kmin"] <= kk <= c["kmax"]:
+                continue
+            phase = rng.uniform(0, 2 * math.pi)
+            s = torch.sin(kx * x[:, :, 0] + ky * y[:, :, 0] + phase) / kk ** 2
+            u += ky * s
+            v -= kx * s
+    scale = c["speed"] / max(float(u.abs().max()), float(v.abs().max()))
+    return model.initial_state(u=(scale * u)[:, :, None], v=(scale * v)[:, :, None])
+
+
+def wall_path_model(path):
+    """The path's model, initial state and Δt: CFL 0.5 on the initial
+    velocities, and half the explicit diffusive limit Δ²/(2dκ) (d the
+    axes that are not Flat; at 4096×1×2048 it sets horizontal
+    convection's Δt)."""
+    if path == "horizontal convection":
+        model = hc_model()
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        noise = lambda: 1e-3 * torch.randn(model.grid.shape, generator=gen,
+                                           dtype=model.grid.dtype, device=DEVICE)
+        state = model.initial_state(u=noise(), w=noise(), b=noise())
+    else:
+        model = turbulence_model()
+        state = turbulence_state(model)
+    g = model.grid
+    umax = max(float(g.interior(state["solution"][n]).abs().max()) for n in "uvw")
+    d = sum(t is not FLAT for t in g.topology)
+    dt = min(0.5 * g.min_spacing() / umax,
+             0.5 * model.cell_diffusion_timescale(state) / (2 * d))
+    return model, state, dt
+
+
+def drive_wall_path(path, plain):
+    model, state, dt = wall_path_model(path)
+    if model.kernels["fill"] is not fused_fill_halos:
+        raise AssertionError(f"{path}: fills take {model.kernels['fill']}, not K6")
+    warmup, steps = WALLS[path]
+    state, per_step, launches = run_steps(
+        path, model, state, lambda s: model.step(s, dt, nonhydrostatic.PLAIN if plain else None),
+        warmup, steps, plain)
+    return model, state, dt, per_step, launches
+
+
+def flat_divergence_ratio(model, state):
+    """max|∇·u|·Δx_min/max|u| over the interior (div_ccc of the filled
+    velocities: a Flat axis adds +0)."""
+    g = model.grid
+    sol = state["solution"]
+    div = fused_divergence_reference(g, sol["u"], sol["v"], sol["w"])
+    umax = max(float(g.interior(sol[n]).abs().max()) for n in "uvw")
+    return float(div.abs().max()) * g.min_spacing() / umax
+
+
+def k2_flops(model):
+    """K2's operations a point on the model's grid: ``FLOPS[K2]`` counts
+    four fields, three axes and WENO5's ~64 a transport; UB5's two-sided
+    transport needs ~40, the centred one ~4, and a Flat axis none."""
+    per = {WENO5: 64, UpwindBiasedFifthOrder: 40, CenteredSecondOrder: 4}
+    axes = sum(t is not FLAT for t in model.grid.topology)
+    nf = 3 + len(model.tracer_names)
+    return (3 * per[type(model.advection)]
+            + (nf - 3) * per[type(model.tracer_advection)]) * axes + 8 * nf
+
+
+def wall_path_kernels(path, model, state):
+    """K2 on the path's fields, K3b and K3c on its velocities and pNHS,
+    held bit for bit and timed; returns {kernel: (max|Δ|, ms, plain_ms,
+    bound_ms, bound_by)}."""
+    g, sol = model.grid, state["solution"]
+    tracers = {n: sol[n] for n in model.tracer_names}
+    args = (g, model.advection, model.tracer_advection, sol["u"], sol["v"],
+            sol["w"], tracers)
+    poison_cache(g.total_shape, g.dtype, 6)
+    err = hold_k2(f"K2 on the {path} path's fields", args, g.dtype)
+    ms = cuda_ms(lambda: fused_advective_tendencies(*args), 10)
+    plain_ms = cuda_ms(lambda: fused_advective_tendencies_reference(*args), 2)
+    out = {K2: (err, ms, plain_ms,
+                *bound(K2, 2 * tensor_bytes(sol.values()), math.prod(g.shape),
+                       flops=k2_flops(model)))}
+    u, v, w, p = sol["u"], sol["v"], sol["w"], state["pNHS"]
+    e_b, e_c = hold_k3bc(f"on the {path} path's fields", g, u, v, w, p)
+    for name, fn, ref, a, nb, e in (
+            (K3B, fused_divergence, fused_divergence_reference, (g, u, v, w),
+             tensor_bytes([u, v, w]) + math.prod(g.shape) * u.element_size(), e_b),
+            (K3C, fused_pressure_gradient, fused_pressure_gradient_reference, (g, p),
+             4 * tensor_bytes([p]), e_c)):
+        kms, kplain = cuda_ms(lambda: fn(*a), 10), cuda_ms(lambda: ref(*a), 2)
+        out[name] = (e, kms, kplain, *bound(name, nb, math.prod(g.shape)))
+    for name, (e, kms, kplain, b_ms, by) in out.items():
+        print(f"{name} on the {path} path's fields time: kernel {kms:.4f} ms, plain "
+              f"{kplain:.4f} ms (CUDA events), bound {b_ms:.4f} ms ({by})")
+    return out
+
+
+def phase_wall_path(path):
+    """One walls-and-Flat path with the kernels, checked, then with the
+    plain versions; returns the kernel run's launch counts, its kernels'
+    readings on the path's fields and K6's max|Δ| on its fill groups."""
+    model, state, dt, per_step, launches = drive_wall_path(path, plain=False)
+    check_finite(path, model, state, ("pNHS",) + (("pHY",) if model.buoyancy else ()))
+    ratio = flat_divergence_ratio(model, state)
+    if not ratio <= 1e-5:
+        raise AssertionError(f"{path}: max|div u|*dx/max|u| = {ratio:.3e} > 1e-5")
+    warmup, steps = WALLS[path]
+    points = math.prod(model.grid.shape)
+    used = {k: n for k, n in launches.items() if n}
+    print(f"{path} path: {'x'.join(map(str, model.grid.shape))} fp32, {steps} steps "
+          f"at dt {dt:.6e}: {per_step * 1e3:.3f} ms/step, {points / per_step:.6e} grid "
+          f"points/s on {card_line()}; launches {used} in {warmup + steps} steps, "
+          f"max|div u|*dx/max|u| {ratio:.3e}")
+    if path == "horizontal convection":
+        b = model.grid.interior(state["solution"]["b"])
+        lo, hi = float(b.min()), float(b.max())
+        if not (lo >= -1.001 * HC["b_star"] and hi <= 1.001 * HC["b_star"]):
+            raise AssertionError(f"{path}: b in [{lo}, {hi}], outside ±1.001 b*")
+        print(f"{path}: b in [{lo:.6f}, {hi:.6f}] (the maximum principle: ±1.001 b*)")
+    readings = wall_path_kernels(path, model, state)
+    # K6 on the path's two fill groups (horizontal convection's b with its
+    # callable top value), from NaN on every point it writes
+    k6_err = max(hold_k6(f"K6 {path} group {i + 1}", model.grid, group, 8 + i)[0]
+                 for i, group in enumerate(nonhydrostatic_fill_fields(model)))
+    kernel_u = {k: model.grid.interior(a) for k, a in state["solution"].items()}
+    del state
+    torch.cuda.empty_cache()
+    model, state, _, plain_step, _ = drive_wall_path(path, plain=True)
+    worst = agreement(path, warmup + steps, kernel_u, model, state)
+    print(f"{path} path: plain versions: {plain_step * 1e3:.3f} ms/step, "
+          f"{points / plain_step:.6e} grid points/s; kernel and plain runs agree "
+          f"to {worst:.3e} of max|field|")
+    del model, state, kernel_u
+    torch.cuda.empty_cache()
+    return launches, readings, k6_err
+
+
 def main():
     phase_device()
     phase_build()
@@ -2221,6 +2545,14 @@ def main():
         by_path[path], _ = phase_path(path)
     for path in NEAR_GLOBAL:
         by_path[path], _, _ = phase_hydrostatic(path)
+    flat_worst, k1_flat = phase_flat_bounded()
+    wall_readings = {}
+    for path in WALLS:
+        by_path[path], wall_readings[path], k6_err = phase_wall_path(path)
+        flat_worst[K6] = max(flat_worst.get(K6, 0.0), k6_err)
+    # every hold's max|Δ| in its kernel's record
+    for name, err in flat_worst.items():
+        measured[name] = (max(measured[name][0], err), *measured[name][1:])
     # K1's and K2's holds on a stretched z, K4b's newer parts, K5 on planes
     for name, err in ((K1, k1_err), (K2, k2_err), (K4B, k4b_err), (K5, k5_err)):
         measured[name] = (max(measured[name][0], err), *measured[name][1:])
@@ -2261,6 +2593,20 @@ def main():
         per_path = {p: form_launches(p, kind) for p, kind in T1_FORM_PATHS[r["part"]].items()}
         by_name[T1]["forms"].append(dict(r, launches=sum(per_path.values()),
                                          launches_by_path=per_path, library_ms=None))
+    # K1's, K2's, K3b's and K3c's Flat and bounded geometries, with the
+    # launches of the path that runs each (no path runs K1 on a Flat axis)
+    err, ms, plain_ms, bound_ms, bound_by = k1_flat
+    by_name[K1]["forms"] = [{
+        "part": "Flat z", "form": "P,P,F 1024x1000x1 fp32, UB5, general instantiation",
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]
+    for name in (K2, K3B, K3C):
+        by_name[name]["forms"] = [{
+            "part": path, "form": ("B,F,B 4096x1x2048 fp32, WENO5" if path == "horizontal convection"
+                                   else "P,P,F 8192x8192x1 fp32, UB5"),
+            "launches": by_path[path][name], "max_abs_err": r[name][0], "ms": r[name][1],
+            "plain_ms": r[name][2], "bound_ms": r[name][3], "bound_by": r[name][4],
+            "library_ms": None} for path, r in wall_readings.items()]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,12 @@
 
 The JAX package beside this one is the reference; this package keeps its
 module paths, constructor API and ``state`` layout. So far it runs the
-nonhydrostatic model (WENO5 or centred advection, buoyancy tracer or
+nonhydrostatic model on periodic, bounded and Flat axes (WENO5,
+UpwindBiasedFifthOrder or centred advection, buoyancy tracer or
 seawater buoyancy with a linear equation of state, tilted gravity,
-f/β-plane Coriolis, scalar and biharmonic diffusivities with scalar,
-array or callable coefficients, vertically implicit diffusion, the LES
+f/β-plane, constant Cartesian and non-traditional β-plane Coriolis,
+scalar and biharmonic diffusivities with scalar, array or callable
+coefficients, vertically implicit diffusion, the LES
 closures (Smagorinsky-Lilly, AMD, 2D Leith) and closure tuples, Stokes
 drift, forcing, background fields, flux BCs with scalar, plane, callable
 and discrete values, a z stretched or regular (the Fourier-tridiagonal or
@@ -34,7 +36,7 @@ from .boundary_conditions.bcs import (
     default_bcs, fill_halos, regularize_bcs,
 )
 from .fields.field import Field, new_field, set_field
-from .advection.schemes import CenteredSecondOrder, WENO5
+from .advection.schemes import CenteredSecondOrder, UpwindBiasedFifthOrder, WENO5
 from .advection.vector_invariant import VectorInvariant
 from .buoyancy.buoyancy import (BuoyancyTracer, LinearEquationOfState,
                                 SeawaterBuoyancy)
@@ -42,7 +44,9 @@ from .fields.background import BackgroundField
 from .forcings.forcing import (AdvectiveForcing, Forcing, GaussianMask,
                                LinearTarget, Relaxation)
 from .stokes_drift import UniformStokesDrift
-from .coriolis.coriolis import BetaPlane, FPlane, HydrostaticSphericalCoriolis
+from .coriolis.coriolis import (BetaPlane, ConstantCartesianCoriolis, FPlane,
+                                HydrostaticSphericalCoriolis,
+                                NonTraditionalBetaPlane)
 from .closures.scalar_diffusivity import (HorizontalScalarDiffusivity,
                                           ScalarBiharmonicDiffusivity,
                                           ScalarDiffusivity,

@@ -2,12 +2,14 @@
 
 Counterpart of ``clima_oceananigans_jl_tpu/advection/schemes.py``
 (Oceananigans' ``Advection`` module), on regular, stretched and
-immersed grids. Ported so far: ``CenteredSecondOrder`` and ``WENO5`` (Jiang-Shu weights):
-select-first upwinding on regular axes, and on a stretched axis the
-two-sided form with the per-index tables of
-``advection/reconstruction_tables.py``; next to an immersed boundary the
-conditional fluxes (Oceananigans' conditional_fluxes.jl); the other
-schemes come with ROADMAP Queue 1 item 2.
+immersed grids. Ported so far: ``CenteredSecondOrder``, ``WENO5``
+(Jiang-Shu weights: select-first upwinding on regular axes, and on a
+stretched axis the two-sided form with the per-index tables of
+``advection/reconstruction_tables.py``) and ``UpwindBiasedFifthOrder``
+(the two-sided form with its fixed five-point stencils); next to an
+immersed boundary the conditional fluxes (Oceananigans'
+conditional_fluxes.jl); the other schemes come with ROADMAP Queue 1
+item 2.
 
 Conventions: reconstructions "to F" give a value at face i from
 cell-centred data (face i sits between cells i-1 and i); "to C" give a
@@ -42,6 +44,18 @@ class AdvectionScheme:
     def sym_to_c(self, u, axis):
         return ic(u, axis)
 
+    def left_to_f(self, c, axis):
+        raise NotImplementedError
+
+    def right_to_f(self, c, axis):
+        raise NotImplementedError
+
+    def left_to_c(self, u, axis):
+        return shift(self.left_to_f(u, axis), 1, axis)
+
+    def right_to_c(self, u, axis):
+        return shift(self.right_to_f(u, axis), 1, axis)
+
     @property
     def required_halo(self):
         return max(1, self.buffer + 1)
@@ -50,6 +64,31 @@ class AdvectionScheme:
 @dataclasses.dataclass(frozen=True)
 class CenteredSecondOrder(AdvectionScheme):
     buffer: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class UpwindBiasedFifthOrder(AdvectionScheme):
+    """5th-order upwind-biased reconstruction with fixed coefficients
+    (Oceananigans' upwind_biased_fifth_order.jl). The divisor 60 is a
+    tensor on the data's device, as WENO5's 6: a Python scalar divisor
+    becomes a multiply by its reciprocal in PyTorch's CUDA kernels."""
+
+    buffer: int = 2
+    is_upwind: bool = True
+
+    @staticmethod
+    def _sixty(c):
+        return torch.full((), 60.0, dtype=c.dtype, device=c.device)
+
+    def left_to_f(self, c, axis):
+        s = lambda n: shift(c, n, axis)
+        return (2.0 * s(-3) - 13.0 * s(-2) + 47.0 * s(-1) + 27.0 * c
+                - 3.0 * s(1)) / self._sixty(c)
+
+    def right_to_f(self, c, axis):
+        s = lambda n: shift(c, n, axis)
+        return (2.0 * s(2) - 13.0 * s(1) + 47.0 * c + 27.0 * s(-1)
+                - 3.0 * s(-2)) / self._sixty(c)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,7 +270,10 @@ def transport(scheme, vel, c, axis, to_f, grid=None, data_loc=None):
     2nd-order centred within ``required_halo`` cells of the walls. On a
     stretched axis WENO5 reconstructs both sides with the axis' tables,
     applies the near-wall selects to each and takes the upwind product,
-    the JAX tree; elsewhere it reconstructs select-first. On a grid with
+    the JAX tree; elsewhere WENO5 reconstructs select-first. A scheme
+    without a stream reconstruction (``UpwindBiasedFifthOrder``) takes the
+    two-sided route with its ``left_to_f``/``right_to_f`` forms (to
+    centres: those forms shifted by one). On a grid with
     an immersed boundary and the advected field's location ``data_loc``,
     a flux whose stencil reaches a solid cell drops to first-order upwind
     (``_immersed_clear``); the centred scheme reads no cell beyond its
@@ -252,9 +294,14 @@ def transport(scheme, vel, c, axis, to_f, grid=None, data_loc=None):
         return vel * hi
     tables = (weno5_tables(grid, axis, to_f)
               if grid is not None and isinstance(scheme, WENO5) else None)
-    if tables is not None:
-        L = scheme.table_reconstruct(c, axis, tables, "left")
-        R = scheme.table_reconstruct(c, axis, tables, "right")
+    if tables is not None or not hasattr(scheme, "stream_reconstruct"):
+        if tables is not None:
+            L = scheme.table_reconstruct(c, axis, tables, "left")
+            R = scheme.table_reconstruct(c, axis, tables, "right")
+        elif to_f:
+            L, R = scheme.left_to_f(c, axis), scheme.right_to_f(c, axis)
+        else:
+            L, R = scheme.left_to_c(c, axis), scheme.right_to_c(c, axis)
         if masks is not None:
             lo = lo_val()
             L = torch.where(in_bounds(masks[1], L), L, lo)

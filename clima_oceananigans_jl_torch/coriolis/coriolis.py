@@ -1,13 +1,14 @@
 """Coriolis parameterizations.
 
 Counterpart of ``clima_oceananigans_jl_tpu/coriolis/coriolis.py``
-(Oceananigans' ``FPlane`` and ``BetaPlane``): the staggered cross-product
-terms ``x_f_cross_U`` at (F,C,C), ``y_f_cross_U`` at (C,F,C) and
+(Oceananigans' ``FPlane``, ``BetaPlane``, ``ConstantCartesianCoriolis``
+and ``NonTraditionalBetaPlane``): the staggered cross-product terms
+``x_f_cross_U`` at (F,C,C), ``y_f_cross_U`` at (C,F,C) and
 ``z_f_cross_U`` at (C,C,F), zero under the traditional approximation,
 and ``HydrostaticSphericalCoriolis`` (f = 2Ω sin φ at the vorticity
-points of a lat-lon grid) for the hydrostatic model.
-``ConstantCartesianCoriolis`` and ``NonTraditionalBetaPlane`` are not
-ported yet; the models refuse them (ROADMAP Queue 1 item 4).
+points of a lat-lon grid) for the hydrostatic model. The nonhydrostatic
+model adds the two non-traditional forms as PyTorch terms beside the
+kernels (its general branch, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import math
 import torch
 
 from ..ops import stencil as st
-from ..utils.location import C, F, U_LOC, V_LOC
+from ..utils.location import C, F, U_LOC, V_LOC, W_LOC
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +56,54 @@ class BetaPlane:
 
     def z_f_cross_U(self, grid, u, v, w):
         return torch.zeros_like(w)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConstantCartesianCoriolis:
+    """The full rotation vector (fx, fy, fz): f⃗ × u⃗ with all three
+    components kept (the non-traditional terms)."""
+
+    fx: float = 0.0
+    fy: float = 0.0
+    fz: float = 0.0
+
+    def x_f_cross_U(self, grid, u, v, w):
+        return self.fy * st.ixf(st.izc(w)) - self.fz * st.ixf(st.iyc(v))
+
+    def y_f_cross_U(self, grid, u, v, w):
+        return self.fz * st.iyf(st.ixc(u)) - self.fx * st.iyf(st.izc(w))
+
+    def z_f_cross_U(self, grid, u, v, w):
+        return self.fx * st.izf(st.iyc(v)) - self.fy * st.izf(st.ixc(u))
+
+
+@dataclasses.dataclass(frozen=True)
+class NonTraditionalBetaPlane:
+    """Non-traditional β-plane: fz = fz0 + βy and the horizontal
+    component fy = fy0 + γy (2Ω cos φ₀ with its β-correction)."""
+
+    fz0: float = 0.0
+    fy0: float = 0.0
+    beta: float = 0.0
+    gamma: float = 0.0
+
+    def _fz(self, grid, loc):
+        y = grid.nodes(loc, with_halo=True)[1]
+        return self.fz0 + self.beta * y
+
+    def _fy(self, grid, loc):
+        y = grid.nodes(loc, with_halo=True)[1]
+        return self.fy0 + self.gamma * y
+
+    def x_f_cross_U(self, grid, u, v, w):
+        return (self._fy(grid, U_LOC) * st.ixf(st.izc(w))
+                - self._fz(grid, U_LOC) * st.ixf(st.iyc(v)))
+
+    def y_f_cross_U(self, grid, u, v, w):
+        return self._fz(grid, V_LOC) * st.iyf(st.ixc(u))
+
+    def z_f_cross_U(self, grid, u, v, w):
+        return -self._fy(grid, W_LOC) * st.izf(st.ixc(u))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -44,15 +44,19 @@
 // wrapper allocates with torch.empty.
 //
 // The general instantiation (GEN, ops/fused_step.py::general_route: a
-// stretched z, a vertically implicit closure, or w walls the roll-based
-// projection cannot impose) reads per-level Dz rows and, on a stretched z
-// with WENO5, the tables (advect_tile's stretched form); takes `vertical`
-// = 0, the horizontal-only diffusion of a vertically implicit closure (the
-// JAX kernel's vert = not vertically_implicit); writes psi' with halos
-// (zeros, as the JAX kernel pads it) for the implicit step and the general
-// projection; and under `w_top` also G_w and psi'_w at w's top wall face.
-// The regular instantiation carries none of this, so the regular-z paths
-// pay for no branch.
+// stretched z, a vertically implicit closure, w walls the roll-based
+// projection cannot impose, or a Flat axis) reads per-level Dz rows and,
+// on a stretched z with WENO5, the tables (advect_tile's stretched form);
+// takes `vertical` = 0, the horizontal-only diffusion of a vertically
+// implicit closure (the JAX kernel's vert = not vertically_implicit);
+// writes psi' with halos (zeros, as the JAX kernel pads it) for the
+// implicit step and the general projection; and under `w_top` also G_w and
+// psi'_w at w's top wall face. The regular instantiation carries none of
+// this, so the regular-z paths pay for no branch. On a grid with a Flat
+// axis (FL, GEN only) the kernel's axes are the grid's with that axis
+// moved to y (weno5_advection.cuh): the Coriolis, pHY' and row terms then
+// find the grid's x and y through Advection::kx, and the host hands the z
+// rows and diffusivities of the kernel's z.
 #include <cuda_runtime.h>
 
 #include "weno5_advection.cuh"
@@ -141,15 +145,22 @@ __device__ __forceinline__ T diffusion_at(const AdvanceArgs<T>& A, int f, const 
 // hz+nz) from global memory in the last chunk's blocks, as K2 does: a w
 // wall that the fill does not impose (FluxBC) leaves that face to the step,
 // and the general projection after the advance reads it.
-template <typename T, bool GEN>
+template <typename T, bool GEN, bool FL>
 struct AdvanceOut {
   const AdvanceArgs<T>& A;
 
+  // of the kernel's x, y or z (a), the value among three
+  template <typename V>
+  __device__ __forceinline__ static V pick(int a, V x, V y, V z) {
+    return a == 0 ? x : (a == 1 ? y : z);
+  }
+
   __device__ __forceinline__ void prologue(const AdvTile<T>& t) const {
+    using S = Tile<FL>;
     if constexpr (GEN) {
       const Advection<T>& D = A.adv;
       const int top = D.hz + D.nz;
-      for_halo_points(D, t, [&](int i, int j, int k) {
+      for_halo_points<FL>(D, t, [&](int i, int j, int k) {
         const int64_t p = t.g(i, j, k);
         const bool face = A.w_top && k == top && i >= D.hx && i < D.hx + D.nx
                           && j >= D.hy && j < D.hy + D.ny;
@@ -160,12 +171,12 @@ struct AdvanceOut {
         }
       });
       if (A.w_top && blockIdx.z == gridDim.z - 1)
-        for (int s = threadIdx.x; s < AT_COLS; s += blockDim.x) {
-          const int i = t.I0 + s / AT_Y, j = t.J0 + s % AT_Y;
+        for (int s = threadIdx.x; s < S::COLS; s += blockDim.x) {
+          const int i = t.I0 + s / S::Y, j = t.J0 + s % S::Y;
           if (i >= t.I1 || j >= t.J1) continue;
           const int64_t o = t.g(i, j, top);
           const int Z = D.nz + 2 * D.hz;
-          T g = -div_vw_top(D, o, t.gsx, t.gsy, top, D.zs[Z_DZ_F * Z + top]);
+          T g = -div_wall<true>(D, 2, i, j, top, t.gsx, t.gsy);
           if (A.diffuse) {
             const int64_t up = top + 1 < Z ? 1 : -(int64_t)top;
             g = g + diffusion_at(A, 2, D.psi[2], o, t.gsx, t.gsy, up, top);
@@ -174,7 +185,7 @@ struct AdvanceOut {
           A.out_g[2][o] = g;
         }
     } else if (A.g_halo) {
-      for_halo_points(A.adv, t, [&](int i, int j, int k) {
+      for_halo_points<FL>(A.adv, t, [&](int i, int j, int k) {
         const int64_t p = t.g(i, j, k);
         for (int f = 0; f < A.adv.nf; ++f) A.out_g[f][p] = T(0);
       });
@@ -192,14 +203,27 @@ struct AdvanceOut {
     return ((int64_t)(I - D.hx) * D.ny + (J - D.hy)) * D.nz + (K - D.hz);
   }
 
+  // the grid's field of kernel field f (u, v, w, then the tracers)
+  __device__ __forceinline__ int grid_field(int f) const {
+    if constexpr (FL) return f < 3 ? A.adv.ax[f] : f;
+    return f;
+  }
+
+  // the array stride of the grid's axis g
+  __device__ __forceinline__ int64_t grid_stride(const AdvTile<T>& t, int g) const {
+    if constexpr (FL) return pick<int64_t>(A.adv.kx[g], t.gsx, t.gsy, 1);
+    return g == 0 ? t.gsx : t.gsy;
+  }
+
   __device__ __forceinline__ Pre prefetch(int f, const AdvTile<T>& t, int I, int J,
                                           int K) const {
     const int64_t o = t.g(I, J, K);
+    const int gf = grid_field(f);
     Pre p;
     p.gp = A.gp[f][A.g_halo ? o : halo_free(I, J, K)];
-    if (A.ph != nullptr && f < 2) {
+    if (A.ph != nullptr && gf < 2) {
       p.ph0 = A.ph[o];
-      p.ph1 = A.ph[o - (f == 0 ? t.gsx : t.gsy)];
+      p.ph1 = A.ph[o - grid_stride(t, gf)];
     }
     return p;
   }
@@ -207,27 +231,40 @@ struct AdvanceOut {
   __device__ __forceinline__ void point(int f, const AdvTile<T>& t, const T* c, int q,
                                         int I, int J, int K, T div, const Pre& pre) const {
     const Advection<T>& D = A.adv;
-    const int sx = t.bsx, sy = t.bsy;
+    const int gf = grid_field(f);
+    // the grid's x and y: box strides, u and v boxes, y index, spacings
+    int sx = t.bsx, sy = t.bsy, Jy = J;
     const T* __restrict__ u = t.su;
     const T* __restrict__ v = t.sv;
+    T dx = D.dx, dy = D.dy;
+    if constexpr (FL) {
+      const int kx = D.kx[0], ky = D.kx[1];
+      sx = pick(kx, t.bsx, t.bsy, 1);
+      sy = pick(ky, t.bsx, t.bsy, 1);
+      u = pick(kx, t.su, t.sv, t.sw);
+      v = pick(ky, t.su, t.sv, t.sw);
+      Jy = pick(ky, I, J, K);
+      dx = pick(kx, D.dx, D.dy, D.dz);
+      dy = pick(ky, D.dx, D.dy, D.dz);
+    }
     const T half = T(0.5);
     T g = -div;
-    if (f == 0) {
+    if (gf == 0) {
       if (A.fu != nullptr)  // - x_f_cross_U = - (-f * ixf(iyc(v)))
-        g = g - ((-A.fu[J]) * (half * (half * (v[q + sy] + v[q])
-                                       + half * (v[q - sx + sy] + v[q - sx]))));
-      if (A.ph != nullptr) g = g - ieee_div(pre.ph0 - pre.ph1, D.dx);
-    } else if (f == 1) {
+        g = g - ((-A.fu[Jy]) * (half * (half * (v[q + sy] + v[q])
+                                        + half * (v[q - sx + sy] + v[q - sx]))));
+      if (A.ph != nullptr) g = g - ieee_div(pre.ph0 - pre.ph1, dx);
+    } else if (gf == 1) {
       if (A.fv != nullptr)  // - y_f_cross_U = - (f * iyf(ixc(u)))
-        g = g - (A.fv[J] * (half * (half * (u[q + sx] + u[q])
-                                    + half * (u[q + sx - sy] + u[q - sy]))));
-      if (A.ph != nullptr) g = g - ieee_div(pre.ph0 - pre.ph1, D.dy);
+        g = g - (A.fv[Jy] * (half * (half * (u[q + sx] + u[q])
+                                     + half * (u[q + sx - sy] + u[q - sy]))));
+      if (A.ph != nullptr) g = g - ieee_div(pre.ph0 - pre.ph1, dy);
     }  // z_f_cross_U is zero on f- and beta-planes
     if (A.diffuse) {
       if constexpr (GEN)
-        g = g + diffusion_at(A, f, c, q, sx, sy, 1, K);
+        g = g + diffusion_at(A, f, c, q, t.bsx, t.bsy, 1, K);
       else
-        g = g + diffusion(c, q, sx, sy, A.kh[f], A.kz[f], D);
+        g = g + diffusion(c, q, t.bsx, t.bsy, A.kh[f], A.kz[f], D);
     }
     const int64_t p = halo_free(I, J, K);
     A.out_psi[f][GEN ? t.g(I, J, K) : p] = c[q] + A.dt * (A.c1 * g - A.c2 * pre.gp);
@@ -235,16 +272,18 @@ struct AdvanceOut {
   }
 };
 
-template <typename T, bool GEN>
+template <typename T, bool GEN, bool FL>
 __global__ void __launch_bounds__(AT_THREADS, 1)
 fused_ab2_advance_kernel(const __grid_constant__ AdvanceArgs<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  advect_tile<GEN>(A.adv, reinterpret_cast<T*>(smem_raw), AdvanceOut<T, GEN>{A});
+  advect_tile<GEN, FL>(A.adv, reinterpret_cast<T*>(smem_raw), AdvanceOut<T, GEN, FL>{A});
 }
 
-template <typename T, bool GEN>
-static int launch_kernel(const AdvanceArgs<T>& A, dim3 blocks, int smem, void* stream) {
-  auto kernel = fused_ab2_advance_kernel<T, GEN>;
+template <typename T, bool GEN, bool FL>
+static int launch_kernel(AdvanceArgs<T>& A, void* stream) {
+  int smem;
+  const dim3 blocks = plan_tiles<FL>(A.adv, smem);
+  auto kernel = fused_ab2_advance_kernel<T, GEN, FL>;
   const int rc = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != 0) return rc;
@@ -256,18 +295,14 @@ template <typename T>
 static int launch(const void* const* psi, const void* const* gp,
                   void* const* out_psi, void* const* out_g, const void* ph,
                   const void* fu, const void* fv, const double* kh,
-                  const double* kz, int g_halo, int nf, int nx, int ny,
-                  int nz, int hx, int hy, int hz, int weno_m, int weno_t,
-                  int z_masks, int lo_l, int hi_l, int lo_r, int hi_r,
-                  double eps_m, double eps_t, double dx, double dy, double dz,
+                  const double* kz, int g_halo, const int* ia, const double* da,
                   double c1, double c2, double dt, const void* zs, int tables,
                   int vertical, int w_top, void* stream) {
   AdvanceArgs<T> A;
-  if (!set_advection(A.adv, psi, nf, nx, ny, nz, hx, hy, hz, weno_m, weno_t,
-                     z_masks, lo_l, hi_l, lo_r, hi_r, eps_m, eps_t, dx, dy, dz))
-    return (int)cudaErrorInvalidValue;
+  if (!set_advection(A.adv, psi, ia, da)) return (int)cudaErrorInvalidValue;
   if ((fu == nullptr) != (fv == nullptr) || (kh == nullptr) != (kz == nullptr))
     return (int)cudaErrorInvalidValue;
+  const int nf = A.adv.nf;
   for (int f = 0; f < MAX_FIELDS; ++f) {
     const bool on = f < nf;
     A.gp[f] = on ? static_cast<const T*>(gp[f]) : nullptr;
@@ -286,38 +321,35 @@ static int launch(const void* const* psi, const void* const* gp,
   A.adv.tables = tables;
   A.vertical = vertical;
   A.w_top = w_top;
-  if (zs == nullptr && (tables || !vertical || w_top)) return (int)cudaErrorInvalidValue;
+  const bool flat = advection_flat(ia);
+  if (zs == nullptr && (tables || !vertical || w_top || flat))
+    return (int)cudaErrorInvalidValue;
   if (w_top && !g_halo) return (int)cudaErrorInvalidValue;
-  if (nx <= 0 || ny <= 0 || nz <= 0) return 0;
-  int smem;
-  const dim3 blocks = plan_tiles(A.adv, smem);
-  return zs != nullptr ? launch_kernel<T, true>(A, blocks, smem, stream)
-                       : launch_kernel<T, false>(A, blocks, smem, stream);
+  if (A.adv.nx <= 0 || A.adv.ny <= 0 || A.adv.nz <= 0) return 0;
+  if (zs == nullptr) return launch_kernel<T, false, false>(A, stream);
+  return flat ? launch_kernel<T, true, true>(A, stream) : launch_kernel<T, true, false>(A, stream);
 }
 
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success). Pointer
-// arrays are host arrays of nf device pointers; `ph`, `fu`/`fv` (both or
-// neither) and `kh`/`kz` (host arrays of nf diffusivities, both or
-// neither) may be null. `zs` (the z rows of ops/metric_rows.py, with
-// WENO5's to-faces and to-centres tables where `tables`) selects the
-// general instantiation: psi' with halos, `vertical` and `w_top`; null
-// selects the regular one, whose psi' is halo-free.
+// arrays are host arrays of nf device pointers in the kernel's axis order;
+// `ph`, `fu`/`fv` (both or neither) and `kh`/`kz` (host arrays of nf
+// diffusivities, both or neither) may be null; `ia` and `da` are the
+// shared arguments (set_advection). `zs` (the z rows of
+// ops/metric_rows.py, with WENO5's to-faces and to-centres tables where
+// `tables`) selects the general instantiation: psi' with halos, `vertical`
+// and `w_top`, and the one a Flat axis needs; null selects the regular
+// one, whose psi' is halo-free.
 #define FUSED_AB2_ADVANCE(NAME, T)                                            \
   int NAME(const void* const* psi, const void* const* gp,                     \
            void* const* out_psi, void* const* out_g, const void* ph,          \
            const void* fu, const void* fv, const double* kh,                  \
-           const double* kz, int g_halo, int nf, int nx, int ny, int nz,      \
-           int hx, int hy, int hz, int weno_m, int weno_t, int z_masks,       \
-           int lo_l, int hi_l, int lo_r, int hi_r, double eps_m,              \
-           double eps_t, double dx, double dy, double dz, double c1,          \
-           double c2, double dt, const void* zs, int tables, int vertical,    \
-           int w_top, void* stream) {                                         \
-    return launch<T>(psi, gp, out_psi, out_g, ph, fu, fv, kh, kz, g_halo, nf, \
-                     nx, ny, nz, hx, hy, hz, weno_m, weno_t, z_masks, lo_l,   \
-                     hi_l, lo_r, hi_r, eps_m, eps_t, dx, dy, dz, c1, c2, dt,  \
-                     zs, tables, vertical, w_top, stream);                    \
+           const double* kz, int g_halo, const int* ia, const double* da,     \
+           double c1, double c2, double dt, const void* zs, int tables,       \
+           int vertical, int w_top, void* stream) {                           \
+    return launch<T>(psi, gp, out_psi, out_g, ph, fu, fv, kh, kz, g_halo, ia, \
+                     da, c1, c2, dt, zs, tables, vertical, w_top, stream);    \
   }
 
 FUSED_AB2_ADVANCE(fused_ab2_advance_f32, float)

@@ -8,18 +8,20 @@
 // (ops/fused_tendencies.py::fused_advective_tendencies_reference, the
 // div_vu / div_vv / div_vw / div_Uc of advection/fluxes.py); the flux code
 // is advect_tile of weno5_advection.cuh, shared with the fused AB2 advance.
-// Momentum and tracers each take WENO5 or CenteredSecondOrder; bounded z
-// reduces WENO5's order near the walls through the with-halo bounds of
-// reduced_order_masks.
+// Momentum and tracers each take WENO5, UpwindBiasedFifthOrder or
+// CenteredSecondOrder; a bounded axis reduces WENO5's and UB5's order near
+// its walls through the with-halo bounds of reduced_order_masks. A Flat
+// axis is the kernel's y (ops/fused_tendencies.py::kernel_order), which
+// advect_tile's Flat layout maps away (weno5_advection.cuh).
 //
-// On a bounded z axis the kernel also writes G_w at w's top wall face
-// (with-halo z index hz+nz), which lies in the z halo. A w wall that is not
-// an imposed value (FluxBC) leaves that face to the time step, so G_w there
+// On each bounded axis the kernel also writes the tendency of the velocity
+// normal to it at its far wall face (with-halo index h + n: u's east face,
+// v's north face, w's top face), which lies in the halo. A wall that is not
+// an imposed value (FluxBC) leaves that face to the time step, so G there
 // must be what the whole-array stencil of the plain version gives, as the
-// JAX kernel keeps it when its blocks carry z halos. The blocks of the last
-// chunk compute it for their columns from global memory while their tiles
-// are being copied (the centre above the face wraps to z index 0 when
-// hz == 1, which a box of the top chunk does not hold).
+// JAX kernel keeps w's when its blocks carry z halos. The blocks of the
+// last tile along the axis compute it for their part of the face from
+// global memory (div_wall) while their tiles are being copied.
 //
 // What bounds it on an H100: at 256^3 fp32 with u, v, w, b it reads four
 // with-halo fields (4 x 72 MB) and writes four with-halo outputs (4 x 72
@@ -40,7 +42,9 @@
 // ops/metric_rows.py (per-level Dz[C] and Dz[F], WENO5's to-faces and
 // to-centres tables) give each level its face areas and volume and the z
 // fluxes their two-sided table form, as the JAX kernel reads them from its
-// metric pack; the regular instantiation carries none of it.
+// metric pack; the regular instantiation carries none of it. So do a grid
+// with a Flat axis (FL, the Flat layout) and one whose x or y has
+// near-wall bounds (XY, the x and y fluxes' masks).
 #include <cuda_runtime.h>
 
 #include "weno5_advection.cuh"
@@ -49,33 +53,53 @@ template <typename T>
 struct TendencyArgs {
   Advection<T> adv;
   T* out[MAX_FIELDS];  // with-halo G: interior written, halos zero
-  int w_top;           // bounded z: also G_w at the top wall face
+  int walls;           // bit a: axis a is bounded, G of velocity a at its wall face
 };
 
 // K2's use of advect_tile: G = -div into the with-halo outputs (ZS: on a
-// stretched z)
-template <typename T, bool ZS>
+// stretched z; FL: the Flat layout)
+template <typename T, bool ZS, bool FL>
 struct TendencyOut {
   const TendencyArgs<T>& A;
 
-  __device__ __forceinline__ void prologue(const AdvTile<T>& t) const {
+  // the velocity whose wall face (i, j, k) is, or -1
+  __device__ __forceinline__ int wall_of(int i, int j, int k) const {
     const Advection<T>& D = A.adv;
-    const int top = D.hz + D.nz;
-    for_halo_points(D, t, [&](int i, int j, int k) {
+    const bool x = i >= D.hx && i < D.hx + D.nx, y = j >= D.hy && j < D.hy + D.ny,
+               z = k >= D.hz && k < D.hz + D.nz;
+    if ((A.walls & 1) && i == D.hx + D.nx && y && z) return 0;
+    if ((A.walls & 2) && j == D.hy + D.ny && x && z) return 1;
+    if ((A.walls & 4) && k == D.hz + D.nz && x && y) return 2;
+    return -1;
+  }
+
+  __device__ __forceinline__ void prologue(const AdvTile<T>& t) const {
+    using S = Tile<FL>;
+    const Advection<T>& D = A.adv;
+    for_halo_points<FL>(D, t, [&](int i, int j, int k) {
       const int64_t p = t.g(i, j, k);
-      // the top w face of an interior column is the one halo point written
-      const bool face = A.w_top && k == top && i >= D.hx && i < D.hx + D.nx
-                        && j >= D.hy && j < D.hy + D.ny;
+      const int wall = wall_of(i, j, k);
       for (int f = 0; f < D.nf; ++f)
-        if (!(f == 2 && face)) A.out[f][p] = T(0);
+        if (f != wall) A.out[f][p] = T(0);
     });
-    if (A.w_top && blockIdx.z == gridDim.z - 1)
-      for (int s = threadIdx.x; s < AT_COLS; s += blockDim.x) {
-        const int i = t.I0 + s / AT_Y, j = t.J0 + s % AT_Y;
-        if (i >= t.I1 || j >= t.J1) continue;
-        const int64_t o = t.g(i, j, top);
-        const T dz = ZS ? D.zs[Z_DZ_F * (D.nz + 2 * D.hz) + top] : D.dz;
-        A.out[2][o] = -div_vw_top(D, o, t.gsx, t.gsy, top, dz);
+    const int kz = t.K1 - t.K0;
+    if ((A.walls & 1) && blockIdx.x == gridDim.x - 1)  // u's east face
+      for (int s = threadIdx.x; s < S::Y * kz; s += blockDim.x) {
+        const int j = t.J0 + s / kz, k = t.K0 + s % kz, i = D.hx + D.nx;
+        if (j < t.J1)
+          A.out[0][t.g(i, j, k)] = -div_wall<ZS>(D, 0, i, j, k, t.gsx, t.gsy);
+      }
+    if ((A.walls & 2) && blockIdx.y == gridDim.y - 1)  // v's north face
+      for (int s = threadIdx.x; s < S::X * kz; s += blockDim.x) {
+        const int i = t.I0 + s / kz, k = t.K0 + s % kz, j = D.hy + D.ny;
+        if (i < t.I1)
+          A.out[1][t.g(i, j, k)] = -div_wall<ZS>(D, 1, i, j, k, t.gsx, t.gsy);
+      }
+    if ((A.walls & 4) && blockIdx.z == gridDim.z - 1)  // w's top face
+      for (int s = threadIdx.x; s < S::COLS; s += blockDim.x) {
+        const int i = t.I0 + s / S::Y, j = t.J0 + s % S::Y, k = D.hz + D.nz;
+        if (i < t.I1 && j < t.J1)
+          A.out[2][t.g(i, j, k)] = -div_wall<ZS>(D, 2, i, j, k, t.gsx, t.gsy);
       }
   }
 
@@ -92,16 +116,18 @@ struct TendencyOut {
   }
 };
 
-template <typename T, bool ZS>
+template <typename T, bool ZS, bool FL, bool XY>
 __global__ void __launch_bounds__(AT_THREADS, 1)
 fused_advective_tendencies_kernel(const __grid_constant__ TendencyArgs<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  advect_tile<ZS>(A.adv, reinterpret_cast<T*>(smem_raw), TendencyOut<T, ZS>{A});
+  advect_tile<ZS, FL, XY>(A.adv, reinterpret_cast<T*>(smem_raw), TendencyOut<T, ZS, FL>{A});
 }
 
-template <typename T, bool ZS>
-static int launch_kernel(const TendencyArgs<T>& A, dim3 blocks, int smem, void* stream) {
-  auto kernel = fused_advective_tendencies_kernel<T, ZS>;
+template <typename T, bool ZS, bool FL, bool XY>
+static int launch_kernel(TendencyArgs<T>& A, void* stream) {
+  int smem;
+  const dim3 blocks = plan_tiles<FL>(A.adv, smem);
+  auto kernel = fused_advective_tendencies_kernel<T, ZS, FL, XY>;
   const int rc = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != 0) return rc;
@@ -110,59 +136,49 @@ static int launch_kernel(const TendencyArgs<T>& A, dim3 blocks, int smem, void* 
 }
 
 template <typename T>
-static int launch(const void* const* psi, void* const* out, int nf, int nx,
-                  int ny, int nz, int hx, int hy, int hz, int weno_m,
-                  int weno_t, int z_masks, int lo_l, int hi_l, int lo_r,
-                  int hi_r, double eps_m, double eps_t, double dx, double dy,
-                  double dz, int w_top, const void* zs, int tables,
+static int launch(const void* const* psi, void* const* out, const int* ia,
+                  const double* da, int walls, const void* zs, int tables,
                   void* stream) {
   TendencyArgs<T> A;
-  if (!set_advection(A.adv, psi, nf, nx, ny, nz, hx, hy, hz, weno_m, weno_t,
-                     z_masks, lo_l, hi_l, lo_r, hi_r, eps_m, eps_t, dx, dy, dz))
-    return (int)cudaErrorInvalidValue;
+  if (!set_advection(A.adv, psi, ia, da)) return (int)cudaErrorInvalidValue;
   for (int f = 0; f < MAX_FIELDS; ++f)
-    A.out[f] = f < nf ? static_cast<T*>(out[f]) : nullptr;
-  A.w_top = w_top;
+    A.out[f] = f < A.adv.nf ? static_cast<T*>(out[f]) : nullptr;
+  A.walls = walls;
   A.adv.zs = static_cast<const T*>(zs);
   A.adv.tables = tables;
-  if (nx <= 0 || ny <= 0 || nz <= 0) return 0;
-  int smem;
-  const dim3 blocks = plan_tiles(A.adv, smem);
-  return zs != nullptr ? launch_kernel<T, true>(A, blocks, smem, stream)
-                       : launch_kernel<T, false>(A, blocks, smem, stream);
+  if (A.adv.nx <= 0 || A.adv.ny <= 0 || A.adv.nz <= 0) return 0;
+  // the instantiation: stretched z, Flat layout, near-wall bounds on x or y
+  const bool flat = advection_flat(ia), xy = A.adv.masked[0] || A.adv.masked[1];
+  if (zs != nullptr) {
+    if (flat) return xy ? launch_kernel<T, true, true, true>(A, stream)
+                        : launch_kernel<T, true, true, false>(A, stream);
+    return xy ? launch_kernel<T, true, false, true>(A, stream)
+              : launch_kernel<T, true, false, false>(A, stream);
+  }
+  if (flat) return xy ? launch_kernel<T, false, true, true>(A, stream)
+                      : launch_kernel<T, false, true, false>(A, stream);
+  return xy ? launch_kernel<T, false, false, true>(A, stream)
+            : launch_kernel<T, false, false, false>(A, stream);
 }
 
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success). `psi` and
-// `out` are host arrays of nf device pointers; `w_top` (bounded z) also
-// writes G_w at w's top wall face; `zs` (a stretched z, else null) are the
-// z rows of ops/metric_rows.py, with WENO5's to-faces and to-centres tables
-// where `tables`.
+// `out` are host arrays of nf device pointers in the kernel's axis order;
+// `ia` and `da` the shared arguments (set_advection); bit a of `walls`
+// writes G of velocity a at its wall face on bounded axis a; `zs` (a
+// stretched z, else null) are the z rows of ops/metric_rows.py, with
+// WENO5's to-faces and to-centres tables where `tables`.
 int fused_advective_tendencies_f32(const void* const* psi, void* const* out,
-                                   int nf, int nx, int ny, int nz, int hx,
-                                   int hy, int hz, int weno_m, int weno_t,
-                                   int z_masks, int lo_l, int hi_l, int lo_r,
-                                   int hi_r, double eps_m, double eps_t,
-                                   double dx, double dy, double dz,
-                                   int w_top, const void* zs, int tables,
-                                   void* stream) {
-  return launch<float>(psi, out, nf, nx, ny, nz, hx, hy, hz, weno_m, weno_t,
-                       z_masks, lo_l, hi_l, lo_r, hi_r, eps_m, eps_t, dx, dy,
-                       dz, w_top, zs, tables, stream);
+                                   const int* ia, const double* da, int walls,
+                                   const void* zs, int tables, void* stream) {
+  return launch<float>(psi, out, ia, da, walls, zs, tables, stream);
 }
 
 int fused_advective_tendencies_f64(const void* const* psi, void* const* out,
-                                   int nf, int nx, int ny, int nz, int hx,
-                                   int hy, int hz, int weno_m, int weno_t,
-                                   int z_masks, int lo_l, int hi_l, int lo_r,
-                                   int hi_r, double eps_m, double eps_t,
-                                   double dx, double dy, double dz,
-                                   int w_top, const void* zs, int tables,
-                                   void* stream) {
-  return launch<double>(psi, out, nf, nx, ny, nz, hx, hy, hz, weno_m, weno_t,
-                        z_masks, lo_l, hi_l, lo_r, hi_r, eps_m, eps_t, dx, dy,
-                        dz, w_top, zs, tables, stream);
+                                   const int* ia, const double* da, int walls,
+                                   const void* zs, int tables, void* stream) {
+  return launch<double>(psi, out, ia, da, walls, zs, tables, stream);
 }
 
 }  // extern "C"

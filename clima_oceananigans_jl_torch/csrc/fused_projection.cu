@@ -14,7 +14,15 @@
 // it (models/nonhydrostatic.py:583 and :597), in the expression trees of the
 // port's plain versions (ops/fused_tendencies.py::fused_divergence_reference,
 // fused_pressure_gradient_reference): the metric products dy*dz, dx*dz,
-// dx*dy and (dx*dy)*dz in the field's type, IEEE division.
+// dx*dy and (dx*dy)*dz in the field's type, IEEE division. Bounded axes
+// need nothing of their own: the stencils read the filled halos and wall
+// faces as the whole-array ones do. A Flat axis (extent 1, no halo) has
+// neighbour stride 0, so its difference reads the cell itself, as
+// torch.roll does on an axis of length 1 (+0 for a finite field); the host
+// moves it to y (ops/fused_tendencies.py::kernel_order), which keeps the
+// offsets of every point, so that the columns of K3c run along an axis
+// that is not Flat, and the divergence's sum in that order has the plain
+// version's bits (weno5_advection.cuh).
 //
 // What bounds them on an H100: memory, and nothing else. At 256^3 fp32 K3b
 // reads three with-halo fields (3 x 72 MB) and writes one interior (67 MB),
@@ -48,11 +56,17 @@
 
 struct Shape3 {
   int nx, ny, nz, hx, hy, hz;
+  int64_t sx, sy, sz;  // K3b's neighbour strides: 0 along a Flat axis
 };
 
-// Interior point p (k contiguous) → with-halo offset, and the strides.
+static Shape3 shape3(int nx, int ny, int nz, int hx, int hy, int hz) {
+  const int64_t ry = nz + 2 * hz, rx = (int64_t)(ny + 2 * hy) * ry;
+  return Shape3{nx, ny, nz, hx, hy, hz, nx + 2 * hx == 1 ? 0 : rx,
+                ny + 2 * hy == 1 ? 0 : ry, nz + 2 * hz == 1 ? 0 : 1};
+}
+
+// Interior point p (k contiguous) → with-halo offset.
 __device__ __forceinline__ bool interior_offset(const Shape3& S, int64_t& o,
-                                                int64_t& sx, int64_t& sy,
                                                 int64_t& p) {
   const int64_t n = (int64_t)S.nx * S.ny * S.nz;
   p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -60,9 +74,8 @@ __device__ __forceinline__ bool interior_offset(const Shape3& S, int64_t& o,
   const int k = (int)(p % S.nz);
   const int j = (int)((p / S.nz) % S.ny);
   const int i = (int)(p / ((int64_t)S.nz * S.ny));
-  sy = S.nz + 2 * S.hz;
-  sx = (int64_t)(S.ny + 2 * S.hy) * sy;
-  o = (i + S.hx) * sx + (j + S.hy) * sy + (k + S.hz);
+  const int64_t ry = S.nz + 2 * S.hz, rx = (int64_t)(S.ny + 2 * S.hy) * ry;
+  o = (i + S.hx) * rx + (j + S.hy) * ry + (k + S.hz);
   return true;
 }
 
@@ -71,11 +84,11 @@ __global__ void __launch_bounds__(256)
 divergence_kernel(const T* __restrict__ u, const T* __restrict__ v,
                   const T* __restrict__ w, T* __restrict__ out, const Shape3 S,
                   const T dx, const T dy, const T dz) {
-  int64_t o, sx, sy, p;
-  if (!interior_offset(S, o, sx, sy, p)) return;
+  int64_t o, p;
+  if (!interior_offset(S, o, p)) return;
   const T Ax = dy * dz, Ay = dx * dz, Az = dx * dy, V = dx * dy * dz;
-  out[p] = (((Ax * u[o + sx] - Ax * u[o]) + (Ay * v[o + sy] - Ay * v[o]))
-            + (Az * w[o + 1] - Az * w[o])) / V;
+  out[p] = (((Ax * u[o + S.sx] - Ax * u[o]) + (Ay * v[o + S.sy] - Ay * v[o]))
+            + (Az * w[o + S.sz] - Az * w[o])) / V;
 }
 
 // K3c's block: GRADIENT_ROWS columns, a warp each; a warp takes
@@ -91,11 +104,13 @@ pressure_gradient_kernel(const T* __restrict__ pr, T* __restrict__ gx,
   const int X = S.nx + 2 * S.hx, Y = S.ny + 2 * S.hy, Z = S.nz + 2 * S.hz;
   const int j = blockIdx.x * blockDim.y + threadIdx.y;
   if (j >= Y) return;
-  const int64_t sy = Z, sx = (int64_t)Y * Z;
+  const int64_t ry = Z, rx = (int64_t)Y * Z;
+  // neighbour strides, 0 along a Flat axis
+  const int64_t sx = X == 1 ? 0 : rx, sy = Y == 1 ? 0 : ry, sz = Z == 1 ? 0 : 1;
   const bool jin = j >= S.hy && j < S.hy + S.ny;
   for (int i = blockIdx.y; i < X; i += gridDim.y) {
     const bool in = jin && i >= S.hx && i < S.hx + S.nx;
-    const int64_t col = i * sx + j * sy;
+    const int64_t col = i * rx + j * ry;
     for (int k0 = threadIdx.x; k0 < Z; k0 += 32 * GRADIENT_CHUNKS) {
       // p at x - 1 and at x on the whole column, outside the interior
       // test, so that the loads of all chunks go out together
@@ -104,7 +119,7 @@ pressure_gradient_kernel(const T* __restrict__ pr, T* __restrict__ gx,
 #pragma unroll
       for (int u = 0; u < GRADIENT_CHUNKS; ++u) {
         const int k = k0 + 32 * u;
-        prev[u] = jin && i > 0 && k < Z ? pr[col + k - sx] : T(0);
+        prev[u] = jin && (i > 0 || X == 1) && k < Z ? pr[col + k - sx] : T(0);
       }
 #pragma unroll
       for (int u = 0; u < GRADIENT_CHUNKS; ++u) {
@@ -114,7 +129,7 @@ pressure_gradient_kernel(const T* __restrict__ pr, T* __restrict__ gx,
         if (in && k >= S.hz && k < S.hz + S.nz) {
           a[u] = ieee_div_by(p - prev[u], dx);
           b[u] = ieee_div_by(p - pr[col + k - sy], dy);
-          c[u] = ieee_div_by(p - pr[col + k - 1], dz);
+          c[u] = ieee_div_by(p - pr[col + k - sz], dz);
         }
       }
 #pragma unroll
@@ -140,7 +155,7 @@ template <typename T>
 static int divergence(const void* u, const void* v, const void* w, void* out,
                       int nx, int ny, int nz, int hx, int hy, int hz,
                       double dx, double dy, double dz, void* stream) {
-  const Shape3 S{nx, ny, nz, hx, hy, hz};
+  const Shape3 S = shape3(nx, ny, nz, hx, hy, hz);
   int64_t blocks;
   if (!blocks_for(S, blocks)) return 0;
   divergence_kernel<T><<<(unsigned int)blocks, 256, 0,
@@ -154,7 +169,7 @@ template <typename T>
 static int pressure_gradient(const void* pr, void* gx, void* gy, void* gz,
                              int nx, int ny, int nz, int hx, int hy, int hz,
                              double dx, double dy, double dz, void* stream) {
-  const Shape3 S{nx, ny, nz, hx, hy, hz};
+  const Shape3 S = shape3(nx, ny, nz, hx, hy, hz);
   const int X = nx + 2 * hx, Y = ny + 2 * hy;
   if ((int64_t)X * Y * (nz + 2 * hz) == 0) return 0;
   const dim3 grid((Y + GRADIENT_ROWS - 1) / GRADIENT_ROWS, X < 65535 ? X : 65535),

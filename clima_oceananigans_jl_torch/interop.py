@@ -9,7 +9,9 @@ package's state for ``model``:
   model used (its fused path rounds the y halo up to 4), placed in the
   port's halo layout and halo-filled with the port's BCs;
 - ``G_prev`` takes the layout ``model`` steps with (halo-free when
-  ``model.g_interior``, else with zero halos), from either JAX layout;
+  ``model.g_interior``, else with zero halos but for each velocity's
+  wall face on a bounded axis, which the time step reads where the wall
+  is not an imposed value), from either JAX layout;
 - ``pNHS`` keeps zero halos, as the projection stores it;
 - ``diffusivities`` (the LES closures' fields: tensors, a dict per
   tracer, a tuple per closure tuple) are cut to the port's with-halo
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from .boundary_conditions.bcs import fill_halos
+from .grids.topology import BOUNDED
 from .timesteppers.steppers import Clock
 from .utils.location import CENTER, W_LOC
 
@@ -48,6 +51,26 @@ def _interior(arr, shape):
                          f"shape {arr.shape}")
     return arr[tuple(slice((t - n) // 2, (t - n) // 2 + n)
                      for t, n in zip(arr.shape, shape))]
+
+
+def _with_wall_face(grid, name, out, arr):
+    """``out`` (a padded interior) with the wall face of velocity ``name``
+    on its bounded axis (index h + n over the other axes' interiors) taken
+    from the with-halo ``arr``, whatever its halos: a wall that is not an
+    imposed value leaves that face of G to the time step."""
+    axis = {"u": 0, "v": 1, "w": 2}.get(name)
+    arr = np.asarray(arr)
+    if (axis is None or grid.topology[axis] is not BOUNDED
+            or arr.shape[axis] == grid.shape[axis]):
+        return out
+    n, h = grid.shape[axis], (arr.shape[axis] - grid.shape[axis]) // 2
+    plane = _interior(np.take(arr, [h + n], axis=axis),
+                      tuple(1 if a == axis else grid.shape[a] for a in range(3)))
+    sl = list(grid.interior_slices)
+    sl[axis] = slice(grid.halo[axis] + n, grid.halo[axis] + n + 1)
+    out[tuple(sl)] = torch.as_tensor(np.array(plane), dtype=grid.dtype,
+                                     device=grid.device)
+    return out
 
 
 def _xy_interior(arr, grid):
@@ -126,7 +149,8 @@ def state_from_numpy(model, state):
     gp = {n: as_t(state["G_prev"][n]).contiguous()
           for n in model.prognostic_names()}
     out.update(G_prev=gp if model.g_interior else
-               {n: g.pad(x) for n, x in gp.items()},
+               {n: _with_wall_face(g, n, g.pad(x), state["G_prev"][n])
+                for n, x in gp.items()},
                pNHS=g.pad(as_t(state["pNHS"])),
                previous_dt=float(np.asarray(state["previous_dt"])))
     if "pHY" in state:

@@ -43,10 +43,13 @@ the grid's per-level metrics, as the JAX package runs them there.
 ``update_state`` and the general projection fill halos through
 ``fused_fill_halos`` (K6), two launches each, whatever the BCs' values
 (scalars, planes, callables, gradients); ``update_state`` computes the
-closure's diffusivities (the LES closures) between them. A configuration
-the port cannot run (other Coriolis or closures, immersed boundaries,
-Flat axes, bounded x or y, stretched x or y, ...) raises
-``NotImplementedError`` at construction. The kernels' wrappers
+closure's diffusivities (the LES closures) between them. Periodic, bounded
+and Flat axes all run: the kernels take bounded x and y and move a Flat
+axis to their y (``ops/fused_tendencies.py::kernel_order``); a bounded x
+or y, or a Flat y, keeps the AB2 step on the general branch, as the JAX
+package's gate does. A configuration the port cannot run (other Coriolis,
+advection schemes or closures, immersed boundaries, stretched x or y,
+...) raises ``NotImplementedError`` at construction. The kernels' wrappers
 come from ``KERNELS``; the JAX keyword ``fused_advection=False`` swaps in
 ``PLAIN`` and takes the general AB2 branch, as its JAX meaning has it,
 and so do background fields, as in the JAX package.
@@ -279,10 +282,11 @@ class NonhydrostaticModel:
         interior), in the JAX term order: advection → background cross
         terms → Coriolis → −∂pHY′ and the tilted-gravity terms → Stokes
         drift → diffusion, then per field its forcing and boundary fluxes.
-        The advection of every field is one fused call, as the JAX model
-        makes it on the TPU (``supports_fused_advection`` holds for every
-        grid the port accepts), through ``kernels["advect"]``
-        (``_kernels``); the other terms are PyTorch ops."""
+        The advection of every field is one fused call through
+        ``kernels["advect"]`` (``_kernels``), on every grid the port
+        accepts (the JAX model makes it on the TPU where its
+        ``supports_fused_advection`` holds, and the plain ``div_*`` fluxes
+        elsewhere: the same numbers); the other terms are PyTorch ops."""
         advect = self._kernels(kernels)["advect"]
         grid = self.grid
         sol = state["solution"]

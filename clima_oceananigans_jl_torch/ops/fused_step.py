@@ -27,25 +27,35 @@ import numbers
 
 import torch
 
+from ..advection.schemes import CenteredSecondOrder, UpwindBiasedFifthOrder, WENO5
 from ..closures.eddy_viscosity import (AnisotropicMinimumDissipation,
                                        SmagorinskyLilly, TwoDimensionalLeith)
 from ..closures.implicit_vertical_diffusion import implicit_step_is_noop
 from ..closures.scalar_diffusivity import (ScalarBiharmonicDiffusivity,
                                            ScalarDiffusivity)
-from ..coriolis.coriolis import BetaPlane, FPlane
-from ..grids.topology import BOUNDED, FLAT, PERIODIC
+from ..coriolis.coriolis import (BetaPlane, ConstantCartesianCoriolis, FPlane,
+                                 NonTraditionalBetaPlane)
+from ..grids.topology import BOUNDED, FLAT
 from ..timesteppers.steppers import ab2_coefficients, ab2_substep
 from ..utils.location import U_LOC, V_LOC
 from .fused_tendencies import (ADVECTION_ARGTYPES, advection_args,
                                check_tensor,
-                               fused_advective_tendencies_reference, kernel_fn,
-                               launch, pointers, z_rows_arg)
+                               fused_advective_tendencies_reference,
+                               in_kernel_order, kernel_fn, kernel_order,
+                               launch, pointers, supports_fused_advection,
+                               z_rows_arg)
 from .metric_rows import coriolis_rows
 
 _LATER = "(ROADMAP Queue 1 item 4)"
 #: the closures the nonhydrostatic model takes, alone or in tuples
 CLOSURES = (ScalarDiffusivity, ScalarBiharmonicDiffusivity, SmagorinskyLilly,
             AnisotropicMinimumDissipation, TwoDimensionalLeith)
+#: its Coriolis forms: f- and β-planes in K1, the other two as PyTorch
+#: terms of ``tendencies`` (the general branch)
+CORIOLIS = (FPlane, BetaPlane, ConstantCartesianCoriolis,
+            NonTraditionalBetaPlane)
+#: its advection schemes, which K1 and K2 take
+SCHEMES = (CenteredSecondOrder, WENO5, UpwindBiasedFifthOrder)
 
 
 def _scalar_coefficient(v):
@@ -63,9 +73,15 @@ def unsupported_reason(model):
     if model.timestepper not in ("QuasiAdamsBashforth2", "RungeKutta3"):
         return f"timestepper {model.timestepper!r} is not ported yet {_LATER}"
     cor = model.coriolis
-    if cor is not None and not isinstance(cor, (FPlane, BetaPlane)):
-        return (f"{type(cor).__name__} Coriolis is not ported yet (FPlane and "
-                f"BetaPlane are) {_LATER}")
+    if cor is not None and not isinstance(cor, CORIOLIS):
+        return (f"{type(cor).__name__} Coriolis is not ported yet (FPlane, "
+                "BetaPlane, ConstantCartesianCoriolis and "
+                f"NonTraditionalBetaPlane are) {_LATER}")
+    for sch in (model.advection, model.tracer_advection):
+        if type(sch) not in SCHEMES:
+            return (f"{type(sch).__name__} advection is not ported yet "
+                    "(WENO5, UpwindBiasedFifthOrder and CenteredSecondOrder "
+                    "are) (ROADMAP Queue 1 item 2)")
     cl = model.closure
     for c in (cl if isinstance(cl, (tuple, list)) else (cl,)):
         if c is not None and not isinstance(c, CLOSURES):
@@ -76,15 +92,8 @@ def unsupported_reason(model):
         if getattr(model, attr) is not None:
             return (f"{attr} in the nonhydrostatic model is not ported yet "
                     "(ROADMAP Queue 1 item 7)")
-    topo = model.grid.topology
-    if FLAT in topo:
-        return f"Flat axes in the nonhydrostatic model are not ported yet {_LATER}"
-    if not (topo[0] is PERIODIC and topo[1] is PERIODIC
-            and topo[2] in (PERIODIC, BOUNDED)):
-        names = tuple(t.value for t in topo)
-        return (f"topology {names} is not ported yet (bounded x or y: the "
-                "JAX package runs it with fused_advection=False, its "
-                f"advection outside K2) {_LATER}")
+    if all(t is FLAT for t in model.grid.topology):
+        return "a nonhydrostatic grid needs an axis that is not Flat"
     if not model.grid.hregular:
         return ("a stretched x or y in the nonhydrostatic model is not "
                 "ported yet (its pressure solve, MultigridPoissonSolver, "
@@ -124,13 +133,18 @@ def _step_kernel_closure(model):
 def fused_step_ok(model):
     """The JAX gate of the fused AB2 branch (``ops/fused_step.py::
     fused_step_ok``) on the configurations the port accepts: the model's
-    ``fused_advection``, quasi-AB2, a closure whose explicit part the
-    kernel runs, and no term the kernel lacks (forcing, background fields,
-    Stokes drift, tilted gravity, flux-BC values): those send the step to
-    the general branch, whose advection K2 carries. Coriolis other than
-    f/β-plane is refused at construction by ``unsupported_reason``."""
-    if not (model.fused_advection
+    ``fused_advection`` and a grid that the JAX package's fused advection
+    takes (``supports_fused_advection``: no bounded x or y, not a Flat y),
+    quasi-AB2, f/β-plane Coriolis or none, a closure whose explicit part
+    the kernel runs, and no term the kernel lacks (forcing, background
+    fields, Stokes drift, tilted gravity, flux-BC values): those send the
+    step to the general branch, whose advection K2 carries, as they do in
+    the JAX package (and ``G_prev`` keeps its layout)."""
+    if not (model.fused_advection and supports_fused_advection(model.grid)
             and model.timestepper == "QuasiAdamsBashforth2"):
+        return False
+    if model.coriolis is not None and not isinstance(model.coriolis,
+                                                     (FPlane, BetaPlane)):
         return False
     if (model.stokes_drift is not None or model.forcing
             or model.background_fields):
@@ -214,17 +228,31 @@ def _coriolis_rows(model):
     return coriolis_rows(model.grid, model.coriolis)
 
 
-def _diffusivities(model, names):
-    """Host arrays of per-field (horizontal, vertical) diffusivities for
-    the kernel, or (None, None) without a closure."""
+def _diffusivities(model, names, order):
+    """Host arrays of per-field diffusivities for the kernel's horizontal
+    and vertical fluxes, or (None, None) without a closure. The kernel's
+    z is the grid's y where z is Flat (``kernel_order``): it then takes the
+    horizontal one."""
     cl = _step_kernel_closure(model)
     if cl is None:
         return None, None
     nu_z = cl.nu_z if cl.nu_z is not None else cl.nu
     kh = [cl.nu] * 3 + [cl.kappa_for(n) for n in names[3:]]
     kz = [nu_z] * 3 + [cl.kappa_z_for(n) for n in names[3:]]
+    if order[2] != 2:
+        kz = kh
     arr = lambda xs: (ctypes.c_double * len(xs))(*[float(x) for x in xs])
     return arr(kh), arr(kz)
+
+
+def _kernel_z_rows(grid, order, scheme, tracer_scheme, general):
+    """(z rows, tables) of ``z_rows_arg`` for the kernel's z; where that is
+    the grid's y (a Flat z), its Δᶜ and Δᶠ rows, which a regular axis
+    holds exactly."""
+    if order[2] == 2:
+        return z_rows_arg(grid, scheme, tracer_scheme, general)
+    a = grid._axes[order[2]]
+    return torch.stack([a.dc, a.df]).contiguous(), 0
 
 
 def _launch(model, state, dt, euler):
@@ -232,8 +260,9 @@ def _launch(model, state, dt, euler):
     names = model.prognostic_names()
     sol, gp = state["solution"], state["G_prev"]
     device, dtype = sol["u"].device, grid.dtype
-    args = advection_args(grid, model.advection, model.tracer_advection,
-                          len(names))
+    ints, doubles = advection_args(grid, model.advection,
+                                   model.tracer_advection, len(names))
+    order = kernel_order(grid)
     g_shape = grid.shape if model.g_interior else grid.total_shape
     for n in names:
         check_tensor(f"solution[{n!r}]", sol[n], grid.total_shape, dtype, device)
@@ -242,13 +271,15 @@ def _launch(model, state, dt, euler):
     if ph is not None:
         check_tensor("pHY", ph, grid.total_shape, dtype, device)
     fu, fv = _coriolis_rows(model)
-    kh, kz = _diffusivities(model, names)
+    kh, kz = _diffusivities(model, names, order)
 
     general = general_route(model)
-    zs, tables = z_rows_arg(grid, model.advection, model.tracer_advection,
-                            general)
+    if FLAT in grid.topology and not general:
+        raise ValueError(f"K1 takes a Flat axis on its general route only: {grid}")
+    zs, tables = _kernel_z_rows(grid, order, model.advection,
+                                model.tracer_advection, general)
     cl = _step_kernel_closure(model)
-    vertical = int(cl is None or not cl.vertically_implicit)
+    vertical = int(cl is None or not cl.vertically_implicit or order[2] != 2)
     # K1 writes every point of psi' and G, in the with-halo layouts their
     # halos too
     psi_shape = grid.total_shape if general else grid.shape
@@ -256,14 +287,15 @@ def _launch(model, state, dt, euler):
     out_g = [torch.empty(g_shape, dtype=dtype, device=device) for _ in names]
     c1, c2 = ab2_coefficients(model.ab2_chi, euler)
     ptr = lambda t: None if t is None else t.data_ptr()
+    kernel = lambda ts: pointers(in_kernel_order(order, ts))
     fn = kernel_fn("fused_ab2_advance", "fused_ab2_advance", dtype,
                    [ctypes.c_void_p] * 9 + [ctypes.c_int] + ADVECTION_ARGTYPES
                    + [ctypes.c_double] * 3 + [ctypes.c_void_p]
                    + [ctypes.c_int] * 3)
     launch("fused_ab2_advance", fn, device,
-           pointers([sol[n] for n in names]), pointers([gp[n] for n in names]),
-           pointers(out_psi), pointers(out_g), ptr(ph), ptr(fu), ptr(fv),
-           kh, kz, int(not model.g_interior), *args, c1, c2, float(dt),
+           kernel([sol[n] for n in names]), kernel([gp[n] for n in names]),
+           kernel(out_psi), kernel(out_g), ptr(ph), ptr(fu), ptr(fv),
+           kh, kz, int(not model.g_interior), ints, doubles, c1, c2, float(dt),
            ptr(zs), tables, vertical, int(w_top(model)))
     fused_ab2_advance.launches += 1
     return dict(zip(names, out_psi)), dict(zip(names, out_g))

@@ -19,7 +19,8 @@ Counterpart of ``clima_oceananigans_jl_tpu/ops/fused_tendencies.py``:
 Each wrapper, on CUDA tensors, launches its hand-written kernel (or
 raises; nothing falls back), and on CPU tensors runs its plain PyTorch
 version ``<name>_reference``, the JAX package's whole-array stencils. The
-kernels write interiors (K2 also w's top wall face on a bounded z axis)
+kernels write interiors (K2 also each velocity's far wall face on a
+bounded axis)
 and leave zero halos; the plain versions' halos hold whatever the
 whole-array stencils left there. Each wrapper counts
 its kernel launches in ``<wrapper>.launches``.
@@ -31,8 +32,8 @@ import ctypes
 import torch
 
 from ..advection.fluxes import div_Uc, div_vu, div_vv, div_vw
-from ..advection.schemes import (CenteredSecondOrder, WENO5,
-                                 reduced_order_masks, transport)
+from ..advection.schemes import (CenteredSecondOrder, UpwindBiasedFifthOrder,
+                                 WENO5, reduced_order_masks, transport)
 from ..grids.topology import BOUNDED, FLAT, PERIODIC
 from ..utils.location import C, CENTER, F, U_LOC, V_LOC, W_LOC
 from . import _build
@@ -42,12 +43,39 @@ from .metric_rows import z_rows
 
 
 def supports_fused_advection(grid):
-    """The fused advection applies: x and y regular and not bounded (the
-    near-wall order reduction is z-only in the kernels); z may be
-    stretched."""
+    """The JAX package's gate of its fused advection (x and y regular and
+    not bounded, a y halo): it chooses the JAX model's AB2 branch and
+    ``G_prev`` layout, which the port keeps (``ops/fused_step.py::
+    fused_step_ok``). The port's K2 takes every grid the model accepts;
+    this test decides no kernel."""
     return (grid.hregular and grid.topology[0] is not BOUNDED
             and grid.topology[1] is not BOUNDED
             and grid.Hy >= 1 and grid.Nz >= 1)
+
+
+def kernel_order(grid):
+    """The kernels' axes as grid axes: the grid's own order, or, with a
+    Flat axis, z the last axis that is not Flat, y the first Flat one and
+    x the other. Moving an axis of extent 1 keeps the offset of every
+    point of a contiguous array, so the kernels read and write the grid's
+    tensors as they are, with the fields (and outputs) of the three
+    velocities in this order; a Flat y lets K1 and K2 lay their blocks on
+    the other two axes, and K3c its columns along an axis that is not
+    Flat."""
+    flat = [a for a in range(3) if grid.topology[a] is FLAT]
+    if not flat:
+        return (0, 1, 2)
+    if len(flat) == 3:
+        raise ValueError(f"the kernels need an axis that is not Flat: {grid}")
+    z = max(a for a in range(3) if grid.topology[a] is not FLAT)
+    x = ({0, 1, 2} - {flat[0], z}).pop()
+    return (x, flat[0], z)
+
+
+def in_kernel_order(order, xs):
+    """The velocities' entries of ``xs`` (u, v, w first) in the kernels'
+    axis order, then the rest."""
+    return [xs[a] for a in order] + list(xs[3:])
 
 
 def z_halo_free_ok(grid, w_bcs=None):
@@ -84,44 +112,61 @@ def fused_advective_tendencies_reference(grid, scheme, tracer_scheme, u, v, w,
 
 
 def kernel_scheme(scheme):
-    """(weno flag, eps) of a scheme the kernels take; raises otherwise."""
+    """(code, eps) of a scheme the kernels take: 0 centred second order,
+    1 WENO5, 2 UpwindBiasedFifthOrder (``csrc/weno5_advection.cuh``
+    ``SCHEME_*``); raises otherwise."""
     if type(scheme) is WENO5:
         return 1, float(scheme.eps)
+    if type(scheme) is UpwindBiasedFifthOrder:
+        return 2, 0.0
     if type(scheme) is CenteredSecondOrder:
         return 0, 0.0
-    raise ValueError("the kernels take WENO5 or CenteredSecondOrder "
-                     f"advection, not {type(scheme).__name__}")
+    raise ValueError("the kernels take WENO5, UpwindBiasedFifthOrder or "
+                     f"CenteredSecondOrder advection, not {type(scheme).__name__}")
 
 
 def axis_bounds(grid, axis, weno):
-    """(masked, lo_l, hi_l, lo_r, hi_r) of WENO5's near-wall order
-    reduction along ``axis``: the with-halo bounds of
+    """(masked, lo_l, hi_l, lo_r, hi_r) of WENO5's (or UB5's) near-wall
+    order reduction along ``axis``: the with-halo bounds of
     ``reduced_order_masks``, or (0, 0, -1, 0, -1) where nothing reduces."""
     masks = reduced_order_masks(grid, axis, weno)
     (_, (lo_l, hi_l), (lo_r, hi_r)) = masks or (None, (0, -1), (0, -1))
     return int(masks is not None), lo_l, hi_l, lo_r, hi_r
 
 
+def spacings(grid):
+    """The regular spacings (dx, dy, dz) of the kernels (1 on a Flat
+    axis, as the grid holds it; a stretched z's come as z rows)."""
+    return (grid.Lx / grid.Nx, grid.Ly / grid.Ny, grid.Lz / grid.Nz)
+
+
 def advection_args(grid, scheme, tracer_scheme, nf):
     """The shared advection arguments of K1 and K2 after the pointer
-    arrays: field count, sizes, halos, schemes, z masks, eps, spacings
-    (the z spacing of a regular z; a stretched one's per-level spacings
-    come as ``z_rows_arg``)."""
+    arrays (``set_advection`` of ``csrc/weno5_advection.cuh``), in the
+    kernels' axis order (``kernel_order``): a host array of ints (field
+    count, sizes, halos, the two scheme codes, each axis' near-wall bounds,
+    the grid axis of each kernel axis, whether the grid has a Flat axis)
+    and one of doubles (eps of each scheme, the spacings)."""
     if not 3 <= nf <= 16:
         raise ValueError(f"the kernels take 3 to 16 fields, got {nf}")
-    if not supports_fused_advection(grid):
-        raise ValueError(f"the kernels take no bounded x or y axis: {grid}")
-    weno_m, eps_m = kernel_scheme(scheme)
-    weno_t, eps_t = kernel_scheme(tracer_scheme)
-    # every WENO5 has the same near-wall bounds; centred schemes have none
-    weno = scheme if weno_m else tracer_scheme
-    return (nf, *grid.shape, *grid.halo, weno_m, weno_t,
-            *axis_bounds(grid, 2, weno), eps_m, eps_t,
-            grid.Lx / grid.Nx, grid.Ly / grid.Ny, grid.Lz / grid.Nz)
+    if not grid.hregular:
+        raise ValueError(f"the kernels take a regular x and y: {grid}")
+    order = kernel_order(grid)
+    code_m, eps_m = kernel_scheme(scheme)
+    code_t, eps_t = kernel_scheme(tracer_scheme)
+    # WENO5 and UB5 have the same near-wall bounds; centred schemes none
+    upwind = scheme if code_m else tracer_scheme
+    ints = (nf, *(grid.shape[a] for a in order), *(grid.halo[a] for a in order),
+            code_m, code_t,
+            *(b for a in order for b in axis_bounds(grid, a, upwind)),
+            *order, int(FLAT in grid.topology))
+    d = spacings(grid)
+    return ((ctypes.c_int * len(ints))(*ints),
+            (ctypes.c_double * 5)(eps_m, eps_t, *(d[a] for a in order)))
 
 
 #: ctypes types of ``advection_args``
-ADVECTION_ARGTYPES = [ctypes.c_int] * 14 + [ctypes.c_double] * 5
+ADVECTION_ARGTYPES = [ctypes.c_void_p] * 2
 
 
 def z_rows_arg(grid, scheme, tracer_scheme, general=False):
@@ -180,19 +225,21 @@ def _launch(grid, scheme, tracer_scheme, u, v, w, tracers):
     names = ("u", "v", "w") + tuple(tracers)
     fields = [u, v, w] + list(tracers.values())
     device, dtype = u.device, grid.dtype
-    args = advection_args(grid, scheme, tracer_scheme, len(fields))
+    ints, doubles = advection_args(grid, scheme, tracer_scheme, len(fields))
     for n, f in zip(names, fields):
         check_tensor(n, f, grid.total_shape, dtype, device)
     zs, tables = z_rows_arg(grid, scheme, tracer_scheme)
-    # K2 writes every point: the interior, the zero halos (and w's top
-    # wall face on a bounded z axis)
+    # K2 writes every point: the interior, the zero halos and the wall faces
     out = [torch.empty(grid.total_shape, dtype=dtype, device=device)
            for _ in names]
+    order = kernel_order(grid)
+    walls = sum(1 << a for a in range(3) if grid.topology[order[a]] is BOUNDED)
     fn = kernel_fn("fused_advective_tendencies", "fused_advective_tendencies",
                    dtype, [ctypes.c_void_p] * 2 + ADVECTION_ARGTYPES
                    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
-    launch("fused_advective_tendencies", fn, device, pointers(fields),
-           pointers(out), *args, int(grid.topology[2] is BOUNDED),
+    launch("fused_advective_tendencies", fn, device,
+           pointers(in_kernel_order(order, fields)),
+           pointers(in_kernel_order(order, out)), ints, doubles, walls,
            None if zs is None else zs.data_ptr(), tables)
     fused_advective_tendencies.launches += 1
     return dict(zip(names, out))
@@ -200,9 +247,10 @@ def _launch(grid, scheme, tracer_scheme, u, v, w, tracers):
 
 def fused_advective_tendencies(grid, scheme, tracer_scheme, u, v, w, tracers):
     """−∇·(advective fluxes) of u, v, w and every tracer → a dict of
-    with-halo tensors valid on the interior and, on a bounded z axis, on
-    w's top wall face (with-halo z index hz+nz), which a w wall that is not
-    an imposed value leaves to the time step. CUDA tensors go through the
+    with-halo tensors valid on the interior and, on each bounded axis, on
+    the far wall face of the velocity normal to it (u's east face, v's
+    north face, w's top face: with-halo index h + n), which a wall that is
+    not an imposed value leaves to the time step. CUDA tensors go through the
     hand-written kernel (a failure raises; nothing falls back), CPU tensors
     through ``fused_advective_tendencies_reference``."""
     if u.device.type == "cuda":
@@ -276,6 +324,9 @@ def shallow_water_args(grid, scheme, tracer_scheme, nf, g):
         raise ValueError(f"K3a takes a flat z axis: {grid}")
     weno_m, eps_m = kernel_scheme(scheme)
     weno_t, eps_t = kernel_scheme(tracer_scheme)
+    if 2 in (weno_m, weno_t):
+        raise ValueError("K3a takes WENO5 or CenteredSecondOrder advection, not "
+                         "UpwindBiasedFifthOrder (ROADMAP Queue 1 item 2)")
     weno = scheme if weno_m else tracer_scheme
     return (nf, grid.Nx, grid.Ny, grid.Hx, grid.Hy, weno_m, weno_t,
             *axis_bounds(grid, 0, weno), *axis_bounds(grid, 1, weno),
@@ -345,10 +396,12 @@ def fused_pressure_gradient_reference(grid, p):
 
 
 def _projection_args(grid):
-    if grid.topology[2] is FLAT:
-        raise ValueError(f"K3b/K3c take a 3D grid: {grid}")
-    return (*grid.shape, *grid.halo, grid.Lx / grid.Nx, grid.Ly / grid.Ny,
-            grid.Lz / grid.Nz)
+    """K3b's and K3c's arguments after the pointers, in the kernels' axis
+    order (``kernel_order``): sizes, halos, spacings."""
+    order = kernel_order(grid)
+    d = spacings(grid)
+    return (*(grid.shape[a] for a in order), *(grid.halo[a] for a in order),
+            *(d[a] for a in order))
 
 
 #: ctypes types of ``_projection_args``
@@ -362,8 +415,9 @@ def _launch_divergence(grid, u, v, w):
     out = torch.empty(grid.shape, dtype=grid.dtype, device=u.device)
     fn = kernel_fn("fused_projection", "fused_divergence", grid.dtype,
                    [ctypes.c_void_p] * 4 + PROJECTION_ARGTYPES)
-    launch("fused_divergence", fn, u.device, u.data_ptr(), v.data_ptr(),
-           w.data_ptr(), out.data_ptr(), *args)
+    velocities = in_kernel_order(kernel_order(grid), (u, v, w))
+    launch("fused_divergence", fn, u.device,
+           *(f.data_ptr() for f in velocities), out.data_ptr(), *args)
     fused_divergence.launches += 1
     return out
 
@@ -389,7 +443,8 @@ def _launch_pressure_gradient(grid, p):
     fn = kernel_fn("fused_projection", "fused_pressure_gradient", grid.dtype,
                    [ctypes.c_void_p] * 4 + PROJECTION_ARGTYPES)
     launch("fused_pressure_gradient", fn, p.device, p.data_ptr(),
-           *[o.data_ptr() for o in out], *args)
+           *[o.data_ptr() for o in in_kernel_order(kernel_order(grid), out)],
+           *args)
     fused_pressure_gradient.launches += 1
     return tuple(out)
 

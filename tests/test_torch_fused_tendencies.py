@@ -141,12 +141,18 @@ def test_kernel_arguments_refuse_what_the_kernels_do_not_take():
         tft.advection_args(tg, T.WENO5(), T.WENO5(), 17)
     with pytest.raises(ValueError):
         tft.kernel_scheme(object())
-    bounded_x = torch_grid(("bounded", "periodic", "bounded"))
+    stretched_x = T.RectilinearGrid(size=(8, 8, 8), x=np.arange(9) ** 1.5,
+                                    y=(0, 1), z=(0, 1), dtype=torch.float64,
+                                    device=DEVICE)
     with pytest.raises(ValueError):
-        tft.advection_args(bounded_x, T.WENO5(), T.WENO5(), 4)
-    # WENO5 tracers under centred momentum take the WENO5 z bounds
-    args = tft.advection_args(tg, T.CenteredSecondOrder(), T.WENO5(), 4)
-    assert args[7:10] == (0, 1, 1)
+        tft.advection_args(stretched_x, T.WENO5(), T.WENO5(), 4)
+    # WENO5 tracers under centred momentum take the WENO5 z bounds; a
+    # bounded x its own
+    ints, _ = tft.advection_args(tg, T.CenteredSecondOrder(), T.WENO5(), 4)
+    assert tuple(ints[7:10]) == (0, 1, 0) and ints[19] == 1
+    bounded_x = torch_grid(("bounded", "periodic", "bounded"))
+    ints, _ = tft.advection_args(bounded_x, T.WENO5(), T.WENO5(), 4)
+    assert (ints[9], ints[14], ints[19]) == (1, 0, 1)
 
 
 def wave(shape, kind):

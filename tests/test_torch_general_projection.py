@@ -160,10 +160,10 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch():
         assert torch.equal(a, b)
     assert (tft.fused_divergence.launches,
             tft.fused_pressure_gradient.launches) == before
-    flat = T.RectilinearGrid(size=(8, 8, 1), extent=(1, 1),
+    # a Flat z is the kernels' y: its size 1, halo 0 and spacing 1
+    flat = T.RectilinearGrid(size=(8, 6, 1), extent=(1, 2),
                              topology=(T.PERIODIC, T.PERIODIC, T.FLAT), device=DEVICE)
-    with pytest.raises(ValueError):
-        tft._projection_args(flat)
+    assert tft._projection_args(flat) == (8, 1, 6, 3, 0, 3, 1 / 8, 1.0, 2 / 6)
 
 
 @pytest.mark.parametrize("w_bcs,fast", [
@@ -260,17 +260,18 @@ def test_ab2_general_branch_with_flux_walls_matches():
 
 
 def test_port_still_refuses_bounded_x_and_y_and_the_fused_ab2_branch():
-    """Bounded x and y stay refused. The fused AB2 branch before the
-    general projection runs: K1's ψ′ with halos, then the implicit step
-    and ``project_velocities`` (``test_torch_stretched_nonhydrostatic.py``
-    holds it against JAX)."""
+    """Bounded x and y construct now and keep AB2 on the general branch
+    (the JAX gate refuses its fused advection there), with the general
+    projection. The fused AB2 branch before the general projection runs:
+    K1's ψ′ with halos, then the implicit step and ``project_velocities``
+    (``test_torch_stretched_nonhydrostatic.py`` holds it against JAX)."""
     for topo in ((T.BOUNDED, T.PERIODIC, T.BOUNDED),
                  (T.PERIODIC, T.BOUNDED, T.BOUNDED)):
         grid = T.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1),
                                  topology=topo, dtype=torch.float64, device=DEVICE)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-            T.NonhydrostaticModel(grid, advection=T.WENO5(),
-                                  timestepper="RungeKutta3")
+        model = T.NonhydrostaticModel(grid, advection=T.WENO5())
+        assert not model.fused_step and not model._fast_projection_ok()
+        assert tfs.unsupported_reason(model) is None
     _, tm = models(timestepper="QuasiAdamsBashforth2")
     assert tm.fused_step and tfs.general_route(tm) and tfs.w_top(tm)
     # value walls keep the AB2 step on the roll-based projection

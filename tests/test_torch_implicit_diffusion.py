@@ -248,7 +248,7 @@ def test_implicit_w_solve_preserves_boundary_faces():
 def test_model_with_vertically_implicit_closure_runs_stably(timestepper):
     """κ_z = 10 m²/s and Δt = 50 s, far above the explicit limit
     (``tests/test_implicit_diffusion.py:78``, on a (Periodic, Periodic,
-    Bounded) 3×3×32 grid: the port refuses Flat axes in this model)."""
+    Bounded) 3×3×32 grid)."""
     g = T.RectilinearGrid(size=(3, 3, 32), x=(0, 1), y=(0, 1), z=(0, 100),
                           topology=(T.PERIODIC, T.PERIODIC, T.BOUNDED),
                           dtype=torch.float64, device=DEVICE)

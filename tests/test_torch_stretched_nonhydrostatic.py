@@ -426,9 +426,8 @@ REFUSED = {
         size=(6, 5, 8), x=np.cumsum(np.r_[0.0, np.linspace(1, 2, 6)]), y=(0, 1),
         z=(0, 1), topology=(T.PERIODIC, T.PERIODIC, T.BOUNDED),
         dtype=torch.float64, device=DEVICE), {}, "item 7"),
-    "bounded x": (lambda: T.RectilinearGrid(
-        size=(6, 5, 8), extent=(1, 1, 1), topology=(T.BOUNDED, T.PERIODIC, T.BOUNDED),
-        dtype=torch.float64, device=DEVICE), {}, "item 4"),
+    "another Coriolis": (lambda: grid_pair((6, 5, 8))[1],
+                         dict(coriolis=object()), "item 4"),
     "another closure": (lambda: grid_pair((6, 5, 8))[1],
                         dict(closure=(T.AnisotropicMinimumDissipation(), object())),
                         "item 7"),

@@ -1,0 +1,118 @@
+"""Port parity: ``UpwindBiasedFifthOrder`` (UB5).
+
+UB5 has no stream form, so ``transport`` takes the JAX package's
+two-sided route: ``left_to_f``/``right_to_f`` (to centres, those forms
+shifted by one), each side's near-wall fallback on a bounded axis, and the
+upwind product ((u + |u|) L + (u − |u|) R)/2. Its / 60 divides by a tensor
+(a Python scalar divisor becomes a multiply by the reciprocal in
+PyTorch's CUDA kernels). Held against the JAX package in float64:
+
+- ``transport`` on every axis, to faces and to centres, periodic and
+  bounded, bit for bit (every point of the with-halo result);
+- the three configurations of the examples that run UB5
+  (``two_dimensional_turbulence``, ``kelvin_helmholtz_instability``,
+  ``tilted_bottom_boundary_layer``; ``test_torch_flat_bounded.py``'s
+  ``CONFIGS``) over 10 RK3 steps and 10 quasi-AB2 steps on both of the
+  port's branches, within 1e-9 of max|field|;
+- the shallow-water and hydrostatic models refuse UB5 where their kernels
+  (K3a, K4b) do not take it, naming ROADMAP Queue 1 item 2: the
+  hydrostatic model everywhere, the shallow-water model on the card.
+
+The ``cuda`` cases hold K2 and K1 with UB5 against their plain versions
+on the card bit for bit (``python -m pytest --noconftest -m cuda
+tests/test_torch_upwind5.py``).
+"""
+import numpy as np
+import pytest
+import torch
+
+import clima_oceananigans_jl_torch as T
+from clima_oceananigans_jl_torch.advection import schemes as tsch
+from clima_oceananigans_jl_torch.ops import fused_tendencies as tft
+from test_torch_flat_bounded import (UB5_CONFIGS, card_fields, check_configuration,
+                                     grid_pair, hold_k2, needs_card)
+
+try:  # the cuda cases also run on a machine without JAX
+    import jax.numpy as jnp
+
+    import clima_oceananigans_jl_tpu as J
+    from clima_oceananigans_jl_tpu.advection import schemes as jsch
+except ImportError:
+    pass
+
+torch.set_num_threads(1)
+
+#: grids default to the card; these tests ask for the CPU
+DEVICE = "cpu"
+
+
+@pytest.mark.parametrize("to_f", [True, False], ids=["to_faces", "to_centres"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("code", ["PPP", "BBB"])
+def test_transport_matches_jax_bitwise(code, axis, to_f):
+    jg, tg = grid_pair(code, (11, 10, 9))
+    rng = np.random.default_rng(axis)
+    vel, c = rng.standard_normal((2,) + tg.total_shape)
+    ref = jsch.transport(J.UpwindBiasedFifthOrder(), jnp.asarray(vel), jnp.asarray(c),
+                         axis, to_f, jg)
+    got = tsch.transport(T.UpwindBiasedFifthOrder(), torch.as_tensor(vel),
+                         torch.as_tensor(c), axis, to_f, tg)
+    assert np.array_equal(np.asarray(ref), got.numpy())
+
+
+def test_reconstructions_match_jax_bitwise():
+    """left_to_f, right_to_f and their to-centres shifts, alone."""
+    c = np.random.default_rng(7).standard_normal((12, 11, 10))
+    js, ts = J.UpwindBiasedFifthOrder(), T.UpwindBiasedFifthOrder()
+    for name in ("left_to_f", "right_to_f", "left_to_c", "right_to_c"):
+        for axis in range(3):
+            ref = getattr(js, name)(jnp.asarray(c), axis)
+            got = getattr(ts, name)(torch.as_tensor(c), axis)
+            assert np.array_equal(np.asarray(ref), got.numpy()), (name, axis)
+
+
+@pytest.mark.parametrize("branch", ["RK3", "AB2", "AB2 general"])
+@pytest.mark.parametrize("config", UB5_CONFIGS)
+def test_configuration_matches_jax_over_ten_steps(config, branch):
+    check_configuration(config, branch)
+
+
+def test_kernel_scheme_code():
+    assert tft.kernel_scheme(T.UpwindBiasedFifthOrder()) == (2, 0.0)
+    _, tg = grid_pair("PPF", (8, 8, 1))
+    with pytest.raises(ValueError, match="item 2"):
+        tft.shallow_water_args(tg, T.UpwindBiasedFifthOrder(), T.WENO5(), 3, 9.8)
+
+
+def test_hydrostatic_model_refuses_ub5_by_name():
+    g = T.RectilinearGrid(size=(8, 8, 4), extent=(1, 1, 1), dtype=torch.float64,
+                          device=DEVICE)
+    with pytest.raises(NotImplementedError, match="item 2"):
+        T.HydrostaticFreeSurfaceModel(g, momentum_advection=T.UpwindBiasedFifthOrder())
+    with pytest.raises(NotImplementedError, match="item 2"):
+        T.HydrostaticFreeSurfaceModel(g, tracer_advection=T.UpwindBiasedFifthOrder(),
+                                      tracers=("b",))
+
+
+# -- on the card ---------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_shallow_water_refuses_ub5_by_name():
+    needs_card()
+    g = T.RectilinearGrid(size=(16, 16, 1), extent=(1, 1),
+                          topology=(T.PERIODIC, T.PERIODIC, T.FLAT), device="cuda")
+    with pytest.raises(NotImplementedError, match="item 2"):
+        T.ShallowWaterModel(g, advection=T.UpwindBiasedFifthOrder())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tracer_scheme", ["UpwindBiasedFifthOrder", "WENO5",
+                                           "CenteredSecondOrder"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_cuda_k2_with_ub5_momentum_matches_plain_version(dtype, tracer_scheme):
+    """Periodic and bounded axes, sizes off the tiles, two tracers."""
+    needs_card()
+    for code, size in (("PPB", (20, 13, 40)), ("BBP", (17, 25, 33))):
+        _, tg = grid_pair(code, size, dtype=dtype, device="cuda")
+        hold_k2(tg, T.UpwindBiasedFifthOrder(), getattr(T, tracer_scheme)(),
+                card_fields(tg, 5))
