@@ -8,6 +8,7 @@
                               [ab2-implicit] [t1] [t1-variants]
                               [near-global] [near-global-weno] [diffusive]
                               [horizontal-convection] [2d-turbulence]
+                              [seamount] [sass-regular --parent DIR]
                               [--steps N]
 
 With no part named, runs them all. Prints the card's name and power
@@ -101,6 +102,20 @@ limit first. Needs a card; without one it exits with an error.
   ``rk3_substep``, the copies and pads with their K6 fills, K3b, the
   pressure solve (a DCT along each bounded axis, eigenvalue 0 on the Flat
   one), K3c, the correction, ``update_state`` and its K6 fills.
+- ``seamount``: ``chip_smoke.py``'s seamount path (validation/seamount.py
+  at 4096×1×2048 fp64 on (Periodic, Flat, Bounded): an immersed bottom,
+  PositiveWENO5 tracers, quasi-AB2 on the general branch) after its
+  warm-up steps: first ptxas's registers, stack and spills of every K2
+  instantiation (``k2_ptxas``), then K2, the eager diffusion (fluxes zeroed
+  at solid faces), ``mask_state`` and ``mask_tendency``, the immersed
+  bottom's fluxes, the rest of ``tendencies``, ``ab2_substep``, the
+  projection's copies and pads with their K6 fills, K3b, the pressure
+  solve, K3c, the correction, ``update_state`` and its K6 fills.
+- ``sass-regular``: K1's instantiations and K2's regular ones (IM false)
+  as built here and from the parent tree's ``csrc`` (``--parent DIR``),
+  their SASS by ``cuobjdump``: instruction counts, and whether the
+  sequences are identical, and identical with constants masked (the
+  argument struct grew, so constant-bank offsets may move).
 - ``shallow-water``: the 16384² headline of
   ``benchmark/bench_shallow_water.py`` (as ``chip_smoke.py`` runs it), 2
   warm-up steps, then ``steps`` steps with CUDA events around K3a,
@@ -153,6 +168,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -352,6 +368,147 @@ def walls(path, steps):
     step = lambda s, timed_parts: model.step(s, dt, kernels if timed_parts else None)
     size = "x".join(map(str, model.grid.shape))
     breakdown(f"{path} {size} fp32 step", step, state, events, patches, steps, inner)
+
+
+def k2_ptxas():
+    """ptxas's registers, stack and spills of every K2 instantiation
+    (``csrc/fused_advective_tendencies.cu``: T, ZS, FL, XY, IM), one line
+    each, from a build as the port builds it plus ``-Xptxas -v``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+               f"{tmp}/lib.so", str(_build.CSRC / "fused_advective_tendencies.cu")]
+        log = subprocess.run(cmd, capture_output=True, text=True, check=True).stderr
+    entry, props, rows = None, "", []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "bytes stack frame" in line:
+            props = line.split(":", 1)[-1].strip()
+        elif "Used" in line and "registers" in line and entry:
+            rows.append((entry, line.split(":", 1)[-1].strip(), props))
+            entry = None
+    names = subprocess.run(["c++filt"], input="\n".join(e for e, _, _ in rows),
+                           capture_output=True, text=True).stdout.splitlines()
+    if len(names) != len(rows):
+        names = [e for e, _, _ in rows]
+    for name, (_, used, props) in zip(names, rows):
+        print(f"ptxas K2 {name.replace('fused_advective_tendencies_kernel', 'kernel')}: "
+              f"{used}; {props}")
+    print(f"ptxas K2: {len(rows)} instantiations")
+
+
+def kernel_sass(csrc, name):
+    """{demangled kernel: [instruction text]} of ``csrc/<name>.cu`` built as
+    the port builds it, by ``cuobjdump -sass``."""
+    import re
+    with tempfile.TemporaryDirectory() as tmp:
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", f"{tmp}/lib.so",
+                        f"{csrc}/{name}.cu"], check=True, capture_output=True)
+        dump = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
+                               f"{tmp}/lib.so"], check=True, capture_output=True,
+                              text=True).stdout
+    out, cur = {}, None
+    for line in dump.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), [])
+        elif cur is not None:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+            if m:
+                cur.append(m.group(1))
+    names = subprocess.run(["c++filt"], input="\n".join(out), capture_output=True,
+                           text=True).stdout.splitlines()
+    return dict(zip(names, out.values()))
+
+
+def sass_regular(steps, parent):
+    """K1's instantiations and K2's regular ones (no immersed flags, no
+    limiter) as built here against the same ones built from the parent
+    tree's ``csrc`` (``--parent DIR``): their SASS instruction sequences,
+    counted, and compared with constants (immediates and constant-bank
+    offsets) masked, which differ where the argument struct grew."""
+    import re
+    mask = lambda ins: re.sub(r"0x[0-9a-f]+", "#", ins)
+    for name, kernel in (("fused_ab2_advance", "fused_ab2_advance_kernel"),
+                         ("fused_advective_tendencies",
+                          "fused_advective_tendencies_kernel")):
+        here = kernel_sass(_build.CSRC, name)
+        there = kernel_sass(parent, name)
+        for fn, ins in sorted(here.items()):
+            if kernel not in fn:
+                continue
+            old_fn = fn
+            if name == "fused_advective_tendencies":
+                # the parent's K2 has no IM parameter: its forms are this
+                # tree's with IM false
+                if ", false>(" not in fn:
+                    continue
+                old_fn = fn.replace(", false>(", ">(")
+            old = there.get(old_fn)
+            if old is None:
+                print(f"sass {fn}: {len(ins)} instructions; no parent counterpart")
+                continue
+            here_m, old_m = [mask(a) for a in ins], [mask(b) for b in old]
+            differ = sum(a != b for a, b in zip(here_m, old_m))
+            regs = lambda seq: sorted(set(re.findall(r"\bR\d+\b", " ".join(seq))))
+            print(f"sass {fn}: {len(ins)} instructions here, {len(old)} in the parent; "
+                  f"identical {ins == old}, identical with constants masked "
+                  f"{here_m == old_m} ({differ} lines differ; opcodes alike "
+                  f"{[a.split()[0] for a in here_m] == [b.split()[0] for b in old_m]}; "
+                  f"registers {len(regs(ins))} here, {len(regs(old))} in the parent)")
+            for a, b in [(a, b) for a, b in zip(here_m, old_m) if a != b][:3]:
+                print(f"    here: {a}\n    parent: {b}")
+
+
+def seamount(steps):
+    """chip_smoke.py's seamount path (validation/seamount.py at 4096×1×2048
+    fp64: an immersed bottom, PositiveWENO5 tracers, quasi-AB2 on the
+    general branch) after its warm-up steps: ptxas's counts of every K2
+    instantiation, then K2, the eager diffusion (``momentum_diffusion`` and
+    ``tracer_diffusion``, their fluxes zeroed at solid faces), the masks
+    (``mask_state``, ``mask_tendency``), the immersed bottom's fluxes,
+    ``ab2_substep``, the rest of ``tendencies`` (Coriolis-free: −∂pHY′ and
+    the flux BCs), the projection's copies and pads with their K6 fills,
+    K3b, the pressure solve (FFT in x, DCT in z), K3c, the correction, and
+    ``update_state`` with its K6 fills apart."""
+    k2_ptxas()
+    model = chip_smoke.seamount_model()
+    state = chip_smoke.seamount_state(model)
+    c = chip_smoke.SEAMOUNT
+    dt = min(60.0, 0.25 * c["Lx"] / c["size"][0])
+    for _ in range(c["warmup"]):
+        state = model.step(state, dt)
+    torch.cuda.synchronize()
+    events = collections.defaultdict(list)
+    fill = nm.KERNELS["fill"]
+    update_state = model.update_state
+    model.update_state = lambda s, kernels=None: update_state(
+        s, dict(kernels or {}, fill=timed(events, "update_state's K6 fills", fill)))
+    kernels = {"advect": timed(events, "K2", nm.KERNELS["advect"]),
+               "divergence": timed(events, "K3b", nm.KERNELS["divergence"]),
+               "gradient": timed(events, "K3c", nm.KERNELS["gradient"])}
+    copies = "copies and pads with their K6 fills"
+    patches = [(model, "tendencies", "tendencies"),
+               (nm, "momentum_diffusion", "eager diffusion"),
+               (nm, "tracer_diffusion", "eager diffusion"),
+               (nm, "apply_immersed_flux_bcs", "immersed flux BCs"),
+               (model.immersed_boundary, "mask_state", "mask_state"),
+               (model.immersed_boundary, "mask_tendency", "mask_tendency"),
+               (nm, "ab2_substep", "ab2_substep"),
+               (model, "project_velocities", "project_velocities"),
+               (model, "_filled_velocity_copies", copies),
+               (model, "_filled_pressure", copies),
+               (model.pressure_solver, "solve", "pressure solve"),
+               (model, "update_state", "update_state")]
+    inner = {"tendencies": (("K2", "eager diffusion", "immersed flux BCs", "mask_tendency"),
+                            "the rest of tendencies (-dpHY', flux BCs, dict work)"),
+             "project_velocities": ((copies, "K3b", "pressure solve", "K3c"),
+                                    "the correction (project_velocities less "
+                                    "its other parts)"),
+             "update_state": (("update_state's K6 fills", "mask_state"), None)}
+    step = lambda s, timed_parts: model.step(s, dt, kernels if timed_parts else None)
+    size = "x".join(map(str, model.grid.shape))
+    breakdown(f"seamount {size} fp64 step", step, state, events, patches, steps, inner)
 
 
 def k6_k3c(steps):
@@ -1084,18 +1241,24 @@ PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps),
          "near-global-weno": lambda steps: near_global("near-global WENO", steps),
          "diffusive": lambda steps: near_global("1/4 deg diffusive", steps),
          "horizontal-convection": lambda steps: walls("horizontal convection", steps),
-         "2d-turbulence": lambda steps: walls("2D turbulence", steps)}
+         "2d-turbulence": lambda steps: walls("2D turbulence", steps),
+         "seamount": seamount,
+         "sass-regular": sass_regular}
 
 
 def main(argv):
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this breakdown needs a GPU")
-    steps = 5
+    steps, parent = 5, None
     if "--steps" in argv:
         i = argv.index("--steps")
         steps = int(argv[i + 1])
         argv = argv[:i] + argv[i + 2:]
-    parts = argv or list(PARTS)
+    if "--parent" in argv:
+        i = argv.index("--parent")
+        parent = argv[i + 1]
+        argv = argv[:i] + argv[i + 2:]
+    parts = argv or [p for p in PARTS if p != "sass-regular" or parent]
     for p in parts:
         if p not in PARTS:
             raise SystemExit(f"unknown part {p!r}: choose from {list(PARTS)}")
@@ -1105,6 +1268,11 @@ def main(argv):
     for p in parts:
         if p == "division":
             division()
+        elif p == "sass-regular":
+            if parent is None:
+                raise SystemExit("sass-regular needs --parent DIR (the parent "
+                                 "tree's clima_oceananigans_jl_torch/csrc)")
+            sass_regular(steps, parent)
         else:
             PARTS[p](steps)
 

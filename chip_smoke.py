@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's sixteen paths through ``clima_oceananigans_jl_torch``
+Drives the port's seventeen paths through ``clima_oceananigans_jl_torch``
 on the card, in phases; each prints one line or a few:
 
 1. device: the card's name and power limit as nvidia-smi gives them, on a
@@ -200,7 +200,35 @@ on the card, in phases; each prints one line or a few:
    held bit for bit and timed on each path's fields, beside the card's
    name and power limit; K6 held bit for bit on each path's two fill
    groups from NaN on every point it writes (horizontal convection's b
-   with its callable top value).
+   with its callable top value);
+25. (since the seamount slice) K2 over an immersed bottom and with
+   PositiveWENO5 tracers against its plain version bit for bit over
+   NaN-filled outputs (``K2_IMMERSED_CASES``: (P, P, B) 256×256×128 fp32
+   with WENO5 momentum and PositiveWENO5 b, c over tests/test_immersed.py's
+   seamount scaled to the unit box; 100×77×45 fp64 with centred momentum
+   and WENO5 tracers; (P, F, B) 1000×1×333 fp64 with PositiveWENO5; 100×77×45
+   fp32 UB5 with a PositiveWENO5 tracer and no bottom), masked random
+   velocities and tracers in [−0.1, 1.1], on the interior and w's top
+   wall face, every other halo point 0, each timed against its bound (the
+   clear flags' bytes and the limiter's operations counted);
+26. the seamount path (``SEAMOUNT``): validation/seamount.py at
+   4096×1×2048 fp64 through the public constructors ((Periodic, Flat,
+   Bounded), WENO5, PositiveWENO5(bounds=(0, 1)) for b and c,
+   BuoyancyTracer, ScalarDiffusivity(nu=1e-3, kappa=1e-4), quasi-AB2,
+   GridFittedBottom of its Gaussian seamount, u = 0.1, b = 1e-5(z + 1000),
+   its Gaussian c, Δt = min(60, 0.25 Lx/N)), 2 warm-up and 5 timed steps
+   with the kernels (1 K2, 1 K3b, 1 K3c and 4 K6 a step: the general
+   AB2 branch and the general projection, as the JAX package takes them
+   over an immersed bottom) and then with their plain versions, which
+   must agree exactly; fields finite, max|∇·u|·Δx/max|u| ≤ 1e-5 over the
+   fluid cells none of whose faces is solid (printed over every fluid cell
+   too: the masking after the parent grid's solve leaves divergence in
+   the cells that touch a solid face, as in the JAX package), u, v and w
+   exactly 0 at every solid face; K2, K3b and K3c held bit for bit and
+   timed on the path's fields, K6 on its two fill groups from NaN; then
+   200 more steps with the kernels and the validation's checks: Σc over
+   the fluid conserved to 1e-3, max|c| in the solid ≤ 1e-10, c within
+   [−1e-9, 1 + 1e-9].
 
 Each kernel's record carries its bound: the larger of its compulsory
 bytes (each input read once, each output written once, from this run's
@@ -216,8 +244,9 @@ K5's and T1's with ``forms``: the same keys for K4b's closure, masked and
 stretched-latitude forms, for K5 over the near-global bottom and for T1's
 four forms (with their shapes), with the launches of the path that runs
 each; K1's, K2's, K3b's and K3c's with their Flat and bounded geometries
-as ``forms``, timed on the walls-and-Flat paths' fields (K1 on its Flat z
-hold, which no path runs); T1's also by path, its Fourier-mode launches counted apart by
+as ``forms``, timed on the walls-and-Flat and seamount paths' fields (K1
+on its Flat z hold, which no path runs; K2's immersed and PositiveWENO5
+holds with no launches of their own); T1's also by path, its Fourier-mode launches counted apart by
 ``fourier_tridiagonal.launches``), and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. The port is imported first, so a copy of this file
@@ -245,7 +274,8 @@ from clima_oceananigans_jl_torch import (BOUNDED, FLAT, PERIODIC,
                                          LatitudeLongitudeGrid,
                                          LinearEquationOfState, LinearTarget,
                                          NonhydrostaticModel, OpenBC,
-                                         RectilinearGrid, Relaxation,
+                                         PositiveWENO5, RectilinearGrid,
+                                         Relaxation,
                                          ScalarDiffusivity, SeawaterBuoyancy,
                                          ShallowWaterModel,
                                          SplitExplicitFreeSurface,
@@ -274,6 +304,7 @@ from clima_oceananigans_jl_torch.ops.fused_step import (
     fused_ab2_advance, fused_ab2_advance_reference, general_route, w_top)
 from clima_oceananigans_jl_torch.ops.fused_tendencies import (
     fused_advective_tendencies, fused_advective_tendencies_reference,
+    k2_clear_flags,
     fused_divergence, fused_divergence_reference, fused_pressure_gradient,
     fused_pressure_gradient_reference, fused_shallow_water_tendencies,
     fused_shallow_water_tendencies_reference)
@@ -395,7 +426,8 @@ PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
             "near-global WENO": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 5},
             "1/4 deg diffusive": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 5},
             "horizontal convection": {K2: 3, K3B: 3, K3C: 3, K6: 12},
-            "2D turbulence": {K2: 3, K3B: 3, K3C: 3, K6: 9}}
+            "2D turbulence": {K2: 3, K3B: 3, K3C: 3, K6: 9},
+            "seamount": {K2: 1, K3B: 1, K3C: 1, K6: 4}}
 #: of T1's launches a step, those of its Fourier mode (the pressure solve)
 T1_FOURIER_PER_STEP = {"wind mixing stretched": 3, "AB2 stretched implicit": 1}
 T1F = "fourier_tridiagonal"
@@ -417,7 +449,7 @@ AGREE = {"AB2": 0.0, "RK3": 0.0, "shallow water": 1e-4,
          "wind mixing": 0.0, "hydrostatic wind": 0.0, "langmuir AMD": 0.0,
          "wind mixing stretched": 0.0, "AB2 stretched implicit": 0.0,
          "near-global": 0.0, "near-global WENO": 0.0, "1/4 deg diffusive": 0.0,
-         "horizontal convection": 0.0, "2D turbulence": 0.0}
+         "horizontal convection": 0.0, "2D turbulence": 0.0, "seamount": 0.0}
 #: the ¼° hydrostatic flagship (benchmark/bench_hydro_flagship.py:24-41);
 #: its "hydrostatic wind" path adds the near-global run's wind stress (u
 #: top FluxBC((λ, φ, t) ↦ −1e-4 cos(3πφ/180)),
@@ -2260,6 +2292,12 @@ SCHEMES = (WENO5, UpwindBiasedFifthOrder, CenteredSecondOrder)
 #: the walls-and-Flat paths: (warm-up steps, timed steps); Δt is set from
 #: the initial state (``wall_path_model``)
 WALLS = {"horizontal convection": (2, 5), "2D turbulence": (2, 3)}
+#: the geometry and schemes of each path whose K2, K3b and K3c readings go
+#: into the records' ``forms``
+PATH_FORMS = {"horizontal convection": "B,F,B 4096x1x2048 fp32, WENO5",
+              "2D turbulence": "P,P,F 8192x8192x1 fp32, UB5",
+              "seamount": "P,F,B 4096x1x2048 fp64, immersed bottom, WENO5 / "
+                          "PositiveWENO5 b, c"}
 HC = dict(size=(4096, 1, 2048), Lx=2.0, H=1.0, b_star=1.0, Ra=1e8, Pr=1.0)
 TURBULENCE = dict(size=(8192, 8192, 1), nu=1e-5, kmin=2, kmax=6, speed=0.5,
                   seed=7)
@@ -2428,15 +2466,35 @@ def flat_divergence_ratio(model, state):
     return float(div.abs().max()) * g.min_spacing() / umax
 
 
-def k2_flops(model):
-    """K2's operations a point on the model's grid: ``FLOPS[K2]`` counts
-    four fields, three axes and WENO5's ~64 a transport; UB5's two-sided
-    transport needs ~40, the centred one ~4, and a Flat axis none."""
-    per = {WENO5: 64, UpwindBiasedFifthOrder: 40, CenteredSecondOrder: 4}
-    axes = sum(t is not FLAT for t in model.grid.topology)
-    nf = 3 + len(model.tracer_names)
-    return (3 * per[type(model.advection)]
-            + (nf - 3) * per[type(model.tracer_advection)]) * axes + 8 * nf
+#: K2's operations a transport by scheme: WENO5's stream ~64 (``FLOPS[K2]``
+#: counts four fields of it on three axes), UB5's two-sided form ~40, the
+#: centred mean ~4, PositiveWENO5's ~150 (L and R at the face with shared
+#: differences ~110, theta of a cell ~20, the limited pair and the
+#: product); an immersed grid adds its flag's test and select (~2)
+K2_TRANSPORT = {WENO5: 64, UpwindBiasedFifthOrder: 40, CenteredSecondOrder: 4,
+                PositiveWENO5: 150}
+
+
+def k2_flops(grid, scheme, tracer_scheme, ntracers):
+    """K2's operations a point: each field's transports on the axes that
+    are not Flat, by scheme (``K2_TRANSPORT``; +2 each over an immersed
+    bottom), and ~8 for each field's divergence."""
+    imm = 2 if getattr(grid, "immersed", None) is not None else 0
+    axes = sum(t is not FLAT for t in grid.topology)
+    nf = 3 + ntracers
+    return ((3 * (K2_TRANSPORT[type(scheme)] + imm)
+             + ntracers * (K2_TRANSPORT[type(tracer_scheme)] + imm)) * axes + 8 * nf)
+
+
+def k2_bound(args):
+    """K2's bound on its arguments: each field read once and its tendency
+    written once, and the clear flags it reads over an immersed bottom."""
+    grid, scheme, tracer_scheme, u, v, w, tracers = args
+    flags = k2_clear_flags(grid, scheme, tracer_scheme, len(tracers)) or []
+    nbytes = (2 * tensor_bytes([u, v, w], tracers.values())
+              + tensor_bytes([f for f in flags if f is not None]))
+    return bound(K2, nbytes, math.prod(grid.shape),
+                 flops=k2_flops(grid, scheme, tracer_scheme, len(tracers)))
 
 
 def wall_path_kernels(path, model, state):
@@ -2451,9 +2509,7 @@ def wall_path_kernels(path, model, state):
     err = hold_k2(f"K2 on the {path} path's fields", args, g.dtype)
     ms = cuda_ms(lambda: fused_advective_tendencies(*args), 10)
     plain_ms = cuda_ms(lambda: fused_advective_tendencies_reference(*args), 2)
-    out = {K2: (err, ms, plain_ms,
-                *bound(K2, 2 * tensor_bytes(sol.values()), math.prod(g.shape),
-                       flops=k2_flops(model)))}
+    out = {K2: (err, ms, plain_ms, *k2_bound(args))}
     u, v, w, p = sol["u"], sol["v"], sol["w"], state["pNHS"]
     e_b, e_c = hold_k3bc(f"on the {path} path's fields", g, u, v, w, p)
     for name, fn, ref, a, nb, e in (
@@ -2509,6 +2565,216 @@ def phase_wall_path(path):
     return launches, readings, k6_err
 
 
+# -- immersed boundaries and PositiveWENO5 -------------------------------------------
+
+#: validation/seamount.py at full width: stratified flow over a Gaussian
+#: seamount with an immersed bottom and a PositiveWENO5 tracer, 4096×1×2048
+#: fp64 (the validation's dtype; 43× its 96×48 in each direction, the grid
+#: of a high-resolution lee-wave study: Δx = 2.44 m, Δz = 0.49 m), Δt =
+#: min(60, 0.25 Lx/N) = 0.61 s, the validation's rule. The one cut is the
+#: step count: 2 warm-up and 5 timed steps, and 200 more for its checks
+#: (the validation runs 1200 at 96×48).
+SEAMOUNT = dict(size=(4096, 1, 2048), Lx=10_000.0, Lz=1_000.0, U0=0.1, N2=1e-5,
+                warmup=2, steps=5, more=200)
+#: K2's immersed and PositiveWENO5 holds (beyond the path's own fields):
+#: (label, topology, size, dtype, momentum, tracer scheme, tracers,
+#: immersed); the bottom is tests/test_immersed.py's seamount scaled to the
+#: unit box
+K2_IMMERSED_CASES = (
+    ("P,P,B 256x256x128 fp32, WENO5 / PositiveWENO5 b, c, immersed",
+     (PERIODIC, PERIODIC, BOUNDED), (256, 256, 128), torch.float32, WENO5,
+     PositiveWENO5, ("b", "c"), True),
+    ("P,P,B 100x77x45 fp64, centred / WENO5, immersed",
+     (PERIODIC, PERIODIC, BOUNDED), (100, 77, 45), torch.float64,
+     CenteredSecondOrder, WENO5, ("b", "c"), True),
+    ("P,F,B 1000x1x333 fp64, WENO5 / PositiveWENO5 b, c, immersed",
+     (PERIODIC, FLAT, BOUNDED), (1000, 1, 333), torch.float64, WENO5,
+     PositiveWENO5, ("b", "c"), True),
+    ("P,P,B 100x77x45 fp32, UB5 / PositiveWENO5 c, no bottom",
+     (PERIODIC, PERIODIC, BOUNDED), (100, 77, 45), torch.float32,
+     UpwindBiasedFifthOrder, PositiveWENO5, ("c",), False),
+)
+
+
+def unit_seamount(x, y):
+    """tests/test_immersed.py's seamount on the unit box."""
+    return -1.0 + 0.6 * torch.exp(-((x - 0.5) ** 2 + (y - 0.5) ** 2) / 0.02)
+
+
+def phase_k2_immersed():
+    """K2 over an immersed bottom and with PositiveWENO5 tracers against its
+    plain version bit for bit over NaN-filled outputs (``K2_IMMERSED_CASES``:
+    masked random velocities, tracers in [−0.1, 1.1] so the limiter acts
+    both ways), each timed against its bound; returns the records' forms."""
+    forms = []
+    for label, topology, size, dtype, momentum, tracer, names, immersed in K2_IMMERSED_CASES:
+        grid = RectilinearGrid(size=size, x=(0.0, 1.0), y=(0.0, 1.0), z=(-1.0, 0.0),
+                               topology=topology, dtype=dtype, device=DEVICE)
+        model = NonhydrostaticModel(
+            grid, advection=momentum(),
+            tracer_advection=(tracer(bounds=(0.0, 1.0)) if tracer is PositiveWENO5
+                              else tracer()), tracers=names,
+            immersed_boundary=GridFittedBottom(unit_seamount) if immersed else None)
+        g = model.grid
+        gen = torch.Generator(device=DEVICE).manual_seed(9)
+        sol = {n: torch.randn(g.total_shape, generator=gen, dtype=dtype, device=DEVICE)
+               for n in "uvw"}
+        sol.update({n: 1.2 * torch.rand(g.total_shape, generator=gen, dtype=dtype,
+                                        device=DEVICE) - 0.1 for n in names})
+        if immersed:
+            sol = model.immersed_boundary.mask_state(model, {"solution": sol})["solution"]
+        args = (g, model.advection, model.tracer_advection, sol["u"], sol["v"], sol["w"],
+                {n: sol[n] for n in names})
+        poison_cache(g.total_shape, dtype, 3 + len(names) + 2)
+        err = hold_k2(f"K2 {label}", args, dtype)
+        ms = cuda_ms(lambda: fused_advective_tendencies(*args), 10)
+        plain_ms = cuda_ms(lambda: fused_advective_tendencies_reference(*args), 2)
+        b_ms, by = k2_bound(args)
+        print(f"K2 {label} time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA "
+              f"events), bound {b_ms:.4f} ms ({by}) on {card_line()}")
+        forms.append({"part": "immersed" if immersed else "PositiveWENO5", "form": label,
+                      "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": by, "library_ms": None})
+        del model, g, sol, args
+        torch.cuda.empty_cache()
+    return forms
+
+
+def seamount_model():
+    """validation/seamount.py at ``SEAMOUNT["size"]`` fp64, through the
+    public constructors."""
+    c = SEAMOUNT
+    grid = RectilinearGrid(size=c["size"], x=(0.0, c["Lx"]), y=(0.0, 1.0),
+                           z=(-c["Lz"], 0.0), topology=(PERIODIC, FLAT, BOUNDED),
+                           dtype=torch.float64, device=DEVICE)
+    bottom = lambda x, y: -c["Lz"] + 500.0 * torch.exp(-((x - 0.5 * c["Lx"]) / 2000.0) ** 2)
+    return NonhydrostaticModel(grid, advection=WENO5(),
+                               tracer_advection=PositiveWENO5(bounds=(0.0, 1.0)),
+                               tracers=("c",), buoyancy=BuoyancyTracer(),
+                               closure=ScalarDiffusivity(nu=1e-3, kappa=1e-4),
+                               immersed_boundary=GridFittedBottom(bottom))
+
+
+def seamount_state(model):
+    """The validation's initial state: u = U0, b = N²(z + Lz), the Gaussian c."""
+    c = SEAMOUNT
+    return model.initial_state(
+        u=c["U0"], b=lambda x, y, z: c["N2"] * (z + c["Lz"]),
+        c=lambda x, y, z: torch.exp(-((x - 2500.0) / 800.0) ** 2 - ((z + 500.0) / 150.0) ** 2))
+
+
+def seamount_totals(model, state):
+    """The validation's numbers on the interior: Σc·V over the fluid (fp64),
+    max|c| in the solid, min c, max c."""
+    g = model.grid
+    c = g.interior(state["solution"]["c"])
+    fluid = ~g.interior(g.immersed.solid_ccc)
+    vol = g.interior(torch.broadcast_to(g.V(CENTER), g.total_shape))
+    return (float((c * vol * fluid).sum()), float((c * ~fluid).abs().max()),
+            float(c.min()), float(c.max()))
+
+
+def immersed_divergence_ratio(model, state):
+    """max|∇·u|·Δx_min/max|u| over the fluid cells none of whose faces is
+    solid, and over every fluid cell. The pressure solve is the parent
+    grid's (the JAX package's): it makes the velocities divergence-free
+    before ``update_state`` masks the solid faces to 0, so the cells that
+    touch a solid face carry the masking's divergence."""
+    g = model.grid
+    sol = state["solution"]
+    div = fused_divergence_reference(g, sol["u"], sol["v"], sol["w"])
+    imm = g.immersed
+    near = imm.solid_ccc.clone()
+    for a in range(3):
+        if g.topology[a] is not FLAT:
+            near |= torch.roll(imm.solid_ccc, 1, a) | torch.roll(imm.solid_ccc, -1, a)
+    umax = max(float(g.interior(sol[n]).abs().max()) for n in "uvw")
+    scale = g.min_spacing() / umax
+    fluid = ~g.interior(imm.solid_ccc)
+    return (float(div[~g.interior(near)].abs().max()) * scale,
+            float(div[fluid].abs().max()) * scale)
+
+
+def drive_seamount(plain):
+    """The seamount path with the kernels or their plain versions: its
+    warm-up and timed steps (``run_steps``); returns (model, state, Δt, Σc
+    of the initial state, s per timed step, launches)."""
+    c = SEAMOUNT
+    model = seamount_model()
+    if model.kernels["fill"] is not fused_fill_halos:
+        raise AssertionError(f"seamount: fills take {model.kernels['fill']}, not K6")
+    if model.fused_step or model._fast_projection_ok():
+        raise AssertionError("seamount: the immersed model must take the general "
+                             "AB2 branch and the general projection")
+    state = seamount_state(model)
+    tot0 = seamount_totals(model, state)[0]
+    dt = min(60.0, 0.25 * c["Lx"] / c["size"][0])
+    kernels = nonhydrostatic.PLAIN if plain else None
+    state, per_step, launches = run_steps(
+        "seamount", model, state, lambda s: model.step(s, dt, kernels), c["warmup"],
+        c["steps"], plain)
+    return model, state, dt, tot0, per_step, launches
+
+
+def phase_seamount():
+    """The seamount path (``SEAMOUNT``) with the kernels, checked, then with
+    the plain versions; returns the kernel run's launch counts, K2's, K3b's
+    and K3c's readings on the path's fields and K6's max|Δ| on its fill
+    groups."""
+    path, c = "seamount", SEAMOUNT
+    model, state, dt, tot0, per_step, launches = drive_seamount(plain=False)
+    check_finite(path, model, state, ("pHY", "pNHS"))
+    away, every = immersed_divergence_ratio(model, state)
+    if not away <= 1e-5:
+        raise AssertionError(f"{path}: max|div u|*dx/max|u| = {away:.3e} > 1e-5 "
+                             "away from the solid")
+    imm = model.grid.immersed
+    for name, loc in (("u", U_LOC), ("v", V_LOC), ("w", W_LOC)):
+        worst = float((state["solution"][name] * imm.mask_for(loc)).abs().max())
+        if worst != 0.0:
+            raise AssertionError(f"{path}: max|{name}| at solid faces {worst:.3e}")
+    points = math.prod(model.grid.shape)
+    used = {k: n for k, n in launches.items() if n}
+    print(f"{path} path: {'x'.join(map(str, model.grid.shape))} fp64, {c['steps']} steps "
+          f"at dt {dt:.6e}: {per_step * 1e3:.3f} ms/step, {points / per_step:.6e} grid "
+          f"points/s on {card_line()}; launches {used} in {c['warmup'] + c['steps']} "
+          f"steps; max|div u|*dx/max|u| {away:.3e} away from the solid ({every:.3e} "
+          f"over every fluid cell, the masking's); u, v, w exactly 0 at "
+          f"{int(imm.solid_fcc.sum()) + int(imm.solid_ccf.sum())} solid u and w faces")
+    readings = wall_path_kernels(path, model, state)
+    k6_err = max(hold_k6(f"K6 {path} group {i + 1}", model.grid, group, 10 + i)[0]
+                 for i, group in enumerate(nonhydrostatic_fill_fields(model)))
+    kernel_u = {k: model.grid.interior(a).clone() for k, a in state["solution"].items()}
+    # the validation's checks after more steps with the kernels
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(c["more"]):
+        state = model.step(state, dt)
+    torch.cuda.synchronize()
+    more_s = time.perf_counter() - t0
+    check_finite(path, model, state, ("pHY", "pNHS"))
+    tot, solid, cmin, cmax = seamount_totals(model, state)
+    drift = abs(tot / tot0 - 1)
+    print(f"{path}: after {c['warmup'] + c['steps'] + c['more']} steps "
+          f"({more_s / c['more'] * 1e3:.3f} ms/step over the last {c['more']}): Σc/Σc0 − 1 "
+          f"= {tot / tot0 - 1:+.3e}, max|c| in the solid {solid:.3e}, c in "
+          f"[{cmin:+.6e}, {cmax:.9f}] (the validation's bounds: drift < 1e-3, "
+          f"solid ≤ 1e-10, c in [−1e-9, 1 + 1e-9])")
+    if not (drift < 1e-3 and solid <= 1e-10 and cmin >= -1e-9 and cmax <= 1.0 + 1e-9):
+        raise AssertionError(f"{path}: the validation's checks fail: drift {drift:.3e}, "
+                             f"solid {solid:.3e}, c in [{cmin}, {cmax}]")
+    del state
+    torch.cuda.empty_cache()
+    model, state, _, _, plain_step, _ = drive_seamount(plain=True)
+    worst = agreement(path, c["warmup"] + c["steps"], kernel_u, model, state)
+    print(f"{path} path: plain versions: {plain_step * 1e3:.3f} ms/step, "
+          f"{points / plain_step:.6e} grid points/s; kernel and plain runs agree to "
+          f"{worst:.3e} of max|field|")
+    del model, state, kernel_u
+    torch.cuda.empty_cache()
+    return launches, readings, k6_err
+
+
 def main():
     phase_device()
     phase_build()
@@ -2550,6 +2816,10 @@ def main():
     for path in WALLS:
         by_path[path], wall_readings[path], k6_err = phase_wall_path(path)
         flat_worst[K6] = max(flat_worst.get(K6, 0.0), k6_err)
+    k2_immersed = phase_k2_immersed()
+    by_path["seamount"], wall_readings["seamount"], k6_err = phase_seamount()
+    flat_worst[K6] = max(flat_worst[K6], k6_err)
+    flat_worst[K2] = max(flat_worst[K2], *(f["max_abs_err"] for f in k2_immersed))
     # every hold's max|Δ| in its kernel's record
     for name, err in flat_worst.items():
         measured[name] = (max(measured[name][0], err), *measured[name][1:])
@@ -2602,11 +2872,11 @@ def main():
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]
     for name in (K2, K3B, K3C):
         by_name[name]["forms"] = [{
-            "part": path, "form": ("B,F,B 4096x1x2048 fp32, WENO5" if path == "horizontal convection"
-                                   else "P,P,F 8192x8192x1 fp32, UB5"),
+            "part": path, "form": PATH_FORMS[path],
             "launches": by_path[path][name], "max_abs_err": r[name][0], "ms": r[name][1],
             "plain_ms": r[name][2], "bound_ms": r[name][3], "bound_by": r[name][4],
             "library_ms": None} for path, r in wall_readings.items()]
+    by_name[K2]["forms"] += k2_immersed
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

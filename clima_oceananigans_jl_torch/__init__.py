@@ -3,7 +3,8 @@
 The JAX package beside this one is the reference; this package keeps its
 module paths, constructor API and ``state`` layout. So far it runs the
 nonhydrostatic model on periodic, bounded and Flat axes (WENO5,
-UpwindBiasedFifthOrder or centred advection, buoyancy tracer or
+UpwindBiasedFifthOrder or centred advection, PositiveWENO5 tracers,
+grid-fitted immersed boundaries with their bottom fluxes, buoyancy tracer or
 seawater buoyancy with a linear equation of state, tilted gravity,
 f/β-plane, constant Cartesian and non-traditional β-plane Coriolis,
 scalar and biharmonic diffusivities with scalar, array or callable
@@ -36,7 +37,8 @@ from .boundary_conditions.bcs import (
     default_bcs, fill_halos, regularize_bcs,
 )
 from .fields.field import Field, new_field, set_field
-from .advection.schemes import CenteredSecondOrder, UpwindBiasedFifthOrder, WENO5
+from .advection.schemes import (CenteredSecondOrder, PositiveWENO5,
+                                UpwindBiasedFifthOrder, WENO5)
 from .advection.vector_invariant import VectorInvariant
 from .buoyancy.buoyancy import (BuoyancyTracer, LinearEquationOfState,
                                 SeawaterBuoyancy)

@@ -5,19 +5,22 @@ Counterpart of ``clima_oceananigans_jl_tpu/advection/schemes.py``
 immersed grids. Ported so far: ``CenteredSecondOrder``, ``WENO5``
 (Jiang-Shu weights: select-first upwinding on regular axes, and on a
 stretched axis the two-sided form with the per-index tables of
-``advection/reconstruction_tables.py``) and ``UpwindBiasedFifthOrder``
-(the two-sided form with its fixed five-point stencils); next to an
-immersed boundary the conditional fluxes (Oceananigans'
-conditional_fluxes.jl); the other schemes come with ROADMAP Queue 1
-item 2.
+``advection/reconstruction_tables.py``), ``PositiveWENO5`` (WENO5 with
+the Zhang-Shu flux limiter of Oceananigans' PositiveWENO on its to-faces
+transports, reconstructed two-sided by ``left_right_to_f``) and
+``UpwindBiasedFifthOrder`` (the two-sided form with its fixed five-point
+stencils); next to an immersed boundary the conditional fluxes
+(Oceananigans' conditional_fluxes.jl); the other schemes come with
+ROADMAP Queue 1 item 2.
 
 Conventions: reconstructions "to F" give a value at face i from
 cell-centred data (face i sits between cells i-1 and i); "to C" give a
 value at centre i from face data (the to-F formulas shifted by +1).
 
 The expression trees are those of the JAX package, term by term, with
-``x ** 2`` written ``x * x``; the hand-written kernel
-(``csrc/fused_ab2_advance.cu``) repeats them.
+``x ** 2`` written ``x * x`` and every divisor a tensor on the data's
+device; the hand-written kernels (``csrc/weno5_advection.cuh``) repeat
+them.
 """
 from __future__ import annotations
 
@@ -167,6 +170,42 @@ class WENO5(AdvectionScheme):
         den = g0 + g1 + g2
         return num / den  # IEEE division, as on the JAX plain path
 
+    def left_right_to_f(self, c, axis):
+        """Both biased reconstructions at faces with shared first and
+        second differences (d1, d2) and 13/12·d2² terms: the JAX package's
+        ``_weno_lr``, another expression tree than the stream's, which
+        ``transport`` takes for ``PositiveWENO5``'s to-faces transports.
+        Returns (L, R): L at face i from cells i−3..i+1, R from
+        i−2..i+2."""
+        s = lambda a, n: shift(a, n, axis)
+        six = torch.full((), 6.0, dtype=c.dtype, device=c.device)
+        d1 = c - s(c, -1)            # d1[i] = c[i] − c[i−1]
+        d2 = s(d1, 1) - d1           # d2[i] = c[i+1] − 2c[i] + c[i−1]
+        t = (13.0 / 12.0) * d2 * d2
+        d1m2, d1m1, d10, d1p1 = s(d1, -2), s(d1, -1), d1, s(d1, 1)
+        d2m2, d2m1, d20, d2p1 = s(d2, -2), s(d2, -1), d2, s(d2, 1)
+        tm2, tm1, t0_, tp1 = s(t, -2), s(t, -1), t, s(t, 1)
+        cm1, c0 = s(c, -1), c
+        sq = lambda x: x * x
+        b0L = tm2 + 0.25 * sq(d2m2 + 2.0 * d1m1)
+        b1L = tm1 + 0.25 * sq(d1m1 + d10)
+        b2L = t0_ + 0.25 * sq(d20 - 2.0 * d10)
+        p0L = cm1 + (5.0 * d1m1 - 2.0 * d1m2) / six
+        p1L = cm1 + (2.0 * d10 + d1m1) / six
+        p2L = cm1 + (4.0 * d10 - d1p1) / six
+        b0R = tp1 + 0.25 * sq(d2p1 - 2.0 * d1p1)
+        b1R = t0_ + 0.25 * sq(d1p1 + d10)
+        b2R = tm1 + 0.25 * sq(d2m1 + 2.0 * d10)
+        p0R = c0 - (5.0 * d1p1 - 2.0 * s(d1, 2)) / six
+        p1R = c0 - (2.0 * d10 + d1p1) / six
+        p2R = c0 - (4.0 * d10 - d1m1) / six
+        return (self._combine(p0L, p1L, p2L, b0L, b1L, b2L),
+                self._combine(p0R, p1R, p2R, b0R, b1R, b2R))
+
+    def left_right_to_c(self, u, axis):
+        L, R = self.left_right_to_f(u, axis)
+        return shift(L, 1, axis), shift(R, 1, axis)
+
     def table_reconstruct(self, v, axis, tables, side):
         """Biased reconstruction of ``v`` with the per-index coefficient
         tables of a stretched axis (``side`` "left" or "right"): the
@@ -191,6 +230,45 @@ class WENO5(AdvectionScheme):
             bs.append((13.0 / 12.0) * (q * q) + 0.25 * t2 * t2)
             ds.append(bx(d))
         return self._combine(*ps, *bs, d=tuple(ds))
+
+
+@dataclasses.dataclass(frozen=True)
+class PositiveWENO5(WENO5):
+    """WENO5 with the flux-level bound-preserving limiter of Oceananigans'
+    PositiveWENO (the Zhang-Shu limiter): per cell and axis, the cell's two
+    outward face reconstructions are scaled toward the cell mean by
+
+        θ = min(|hi − c|/|M − c|, |lo − c|/|m − c|, 1),
+        M/m = max/min(p̃, c₊ᴸ, c₋ᴿ),  p̃ = (c − ω̂(c₋ᴿ + c₊ᴸ))/(1 − 2ω̂),
+
+    ω̂ = 5/18, which keeps a divergence-form tracer update inside
+    ``bounds`` under the scheme's CFL restriction. ``transport`` applies it
+    to the to-faces transports (cell-centred tracers); to centres the
+    scheme is WENO5's stream."""
+
+    bounds: tuple = (0.0, float("inf"))
+
+    def limit_lr(self, c, L, R, axis):
+        """(L, R) at faces → the limited (L, R). ``L[i]`` is cell i−1's
+        outward (rightgoing) reconstruction, ``R[i]`` cell i's outward
+        (leftgoing) one. ω̂ and the bounds round to the field's type as the
+        JAX package's weak-typed constants do; the divisor 1 − 2ω̂ is a
+        tensor, and ``torch.minimum``/``torch.maximum`` propagate NaN as
+        ``jnp.minimum``/``jnp.maximum`` do."""
+        omega = 5.0 / 18.0
+        eps = 1e-20
+        lo, hi = self.bounds
+        full = lambda v: torch.full((), v, dtype=c.dtype, device=c.device)
+        Lp1 = shift(L, 1, axis)    # cell i's outward value at face i+1
+        p = (c - omega * (R + Lp1)) / full(1.0 - 2.0 * omega)
+        M = torch.maximum(torch.maximum(p, Lp1), R)
+        m = torch.minimum(torch.minimum(p, Lp1), R)
+        theta = torch.minimum(((hi - c) / (M - c + eps)).abs(),
+                              ((lo - c) / (m - c + eps)).abs())
+        theta = torch.minimum(theta, full(1.0))
+        Lp1_lim = theta * (Lp1 - c) + c
+        R_lim = theta * (R - c) + c
+        return shift(Lp1_lim, -1, axis), R_lim
 
 
 def upwind_stream(c, sel, axis, to_f):
@@ -273,7 +351,10 @@ def transport(scheme, vel, c, axis, to_f, grid=None, data_loc=None):
     the JAX tree; elsewhere WENO5 reconstructs select-first. A scheme
     without a stream reconstruction (``UpwindBiasedFifthOrder``) takes the
     two-sided route with its ``left_to_f``/``right_to_f`` forms (to
-    centres: those forms shifted by one). On a grid with
+    centres: those forms shifted by one), and so do ``PositiveWENO5``'s
+    to-faces transports with ``left_right_to_f``, whose (L, R) pass
+    through the near-wall selects and the immersed fallback into
+    ``limit_lr`` before the upwind product, the JAX order. On a grid with
     an immersed boundary and the advected field's location ``data_loc``,
     a flux whose stencil reaches a solid cell drops to first-order upwind
     (``_immersed_clear``); the centred scheme reads no cell beyond its
@@ -294,10 +375,15 @@ def transport(scheme, vel, c, axis, to_f, grid=None, data_loc=None):
         return vel * hi
     tables = (weno5_tables(grid, axis, to_f)
               if grid is not None and isinstance(scheme, WENO5) else None)
-    if tables is not None or not hasattr(scheme, "stream_reconstruct"):
+    limited = isinstance(scheme, PositiveWENO5) and to_f
+    if (tables is not None or not hasattr(scheme, "stream_reconstruct")
+            or limited):
         if tables is not None:
             L = scheme.table_reconstruct(c, axis, tables, "left")
             R = scheme.table_reconstruct(c, axis, tables, "right")
+        elif hasattr(scheme, "left_right_to_f"):
+            L, R = (scheme.left_right_to_f(c, axis) if to_f
+                    else scheme.left_right_to_c(c, axis))
         elif to_f:
             L, R = scheme.left_to_f(c, axis), scheme.right_to_f(c, axis)
         else:
@@ -309,6 +395,8 @@ def transport(scheme, vel, c, axis, to_f, grid=None, data_loc=None):
         if clear is not None:  # first-order upwind next to the solid
             L = torch.where(clear, L, shift(c, -1, axis) if to_f else c)
             R = torch.where(clear, R, c if to_f else shift(c, 1, axis))
+        if limited:  # the flux-level Zhang-Shu limiter
+            L, R = scheme.limit_lr(c, L, R, axis)
         return upwind_biased_product(vel, L, R)
     # select-first upwinding: pick the upwind stencil by sign(vel) and
     # reconstruct once; vel·L or vel·R exactly, as the two-sided blend

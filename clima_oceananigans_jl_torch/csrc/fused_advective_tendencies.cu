@@ -45,6 +45,24 @@
 // metric pack; the regular instantiation carries none of it. So do a grid
 // with a Flat axis (FL, the Flat layout) and one whose x or y has
 // near-wall bounds (XY, the x and y fluxes' masks).
+//
+// An immersed grid, or PositiveWENO5 tracers, run the IM instantiations:
+// each flux reads the clear flag of its flux location (the uint8 tensors of
+// immersed/immersed.py::clear_flags: u, v, w and the tracers' CENTER) and
+// drops to first-order upwind where its stencil reaches a solid cell (the
+// conditional fluxes of advection/schemes.py::transport), the wall faces
+// too (div_wall); PositiveWENO5 tracers take the two-sided form with the
+// Zhang-Shu limiter (transport_positive, weno5_advection.cuh). The regular
+// instantiations compile both out. PositiveWENO5 on a stretched z, and as
+// the momentum scheme, are refused (cudaErrorInvalidValue; the wrapper
+// names them first).
+//
+// The IM form's work: over an immersed bottom each flux adds a byte load
+// and a select; a PositiveWENO5 tracer face reconstructs four times (L and
+// R at the face, L above, R below) and computes two thetas, ~300
+// operations as written against WENO5's stream's ~64, where the function
+// needs ~150 (each face's L and R once, with shared differences; the count
+// chip_smoke.py's bound takes).
 #include <cuda_runtime.h>
 
 #include "weno5_advection.cuh"
@@ -57,8 +75,8 @@ struct TendencyArgs {
 };
 
 // K2's use of advect_tile: G = -div into the with-halo outputs (ZS: on a
-// stretched z; FL: the Flat layout)
-template <typename T, bool ZS, bool FL>
+// stretched z; FL: the Flat layout; IM: the clear flags at the wall faces)
+template <typename T, bool ZS, bool FL, bool IM>
 struct TendencyOut {
   const TendencyArgs<T>& A;
 
@@ -87,19 +105,19 @@ struct TendencyOut {
       for (int s = threadIdx.x; s < S::Y * kz; s += blockDim.x) {
         const int j = t.J0 + s / kz, k = t.K0 + s % kz, i = D.hx + D.nx;
         if (j < t.J1)
-          A.out[0][t.g(i, j, k)] = -div_wall<ZS>(D, 0, i, j, k, t.gsx, t.gsy);
+          A.out[0][t.g(i, j, k)] = -div_wall<ZS, IM>(D, 0, i, j, k, t.gsx, t.gsy);
       }
     if ((A.walls & 2) && blockIdx.y == gridDim.y - 1)  // v's north face
       for (int s = threadIdx.x; s < S::X * kz; s += blockDim.x) {
         const int i = t.I0 + s / kz, k = t.K0 + s % kz, j = D.hy + D.ny;
         if (i < t.I1)
-          A.out[1][t.g(i, j, k)] = -div_wall<ZS>(D, 1, i, j, k, t.gsx, t.gsy);
+          A.out[1][t.g(i, j, k)] = -div_wall<ZS, IM>(D, 1, i, j, k, t.gsx, t.gsy);
       }
     if ((A.walls & 4) && blockIdx.z == gridDim.z - 1)  // w's top face
       for (int s = threadIdx.x; s < S::COLS; s += blockDim.x) {
         const int i = t.I0 + s / S::Y, j = t.J0 + s % S::Y, k = D.hz + D.nz;
         if (i < t.I1 && j < t.J1)
-          A.out[2][t.g(i, j, k)] = -div_wall<ZS>(D, 2, i, j, k, t.gsx, t.gsy);
+          A.out[2][t.g(i, j, k)] = -div_wall<ZS, IM>(D, 2, i, j, k, t.gsx, t.gsy);
       }
   }
 
@@ -116,18 +134,19 @@ struct TendencyOut {
   }
 };
 
-template <typename T, bool ZS, bool FL, bool XY>
+template <typename T, bool ZS, bool FL, bool XY, bool IM>
 __global__ void __launch_bounds__(AT_THREADS, 1)
 fused_advective_tendencies_kernel(const __grid_constant__ TendencyArgs<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  advect_tile<ZS, FL, XY>(A.adv, reinterpret_cast<T*>(smem_raw), TendencyOut<T, ZS, FL>{A});
+  advect_tile<ZS, FL, XY, IM>(A.adv, reinterpret_cast<T*>(smem_raw),
+                              TendencyOut<T, ZS, FL, IM>{A});
 }
 
-template <typename T, bool ZS, bool FL, bool XY>
+template <typename T, bool ZS, bool FL, bool XY, bool IM>
 static int launch_kernel(TendencyArgs<T>& A, void* stream) {
   int smem;
   const dim3 blocks = plan_tiles<FL>(A.adv, smem);
-  auto kernel = fused_advective_tendencies_kernel<T, ZS, FL, XY>;
+  auto kernel = fused_advective_tendencies_kernel<T, ZS, FL, XY, IM>;
   const int rc = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != 0) return rc;
@@ -135,10 +154,17 @@ static int launch_kernel(TendencyArgs<T>& A, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// the IM or regular instantiation of one (ZS, FL, XY)
+template <typename T, bool ZS, bool FL, bool XY>
+static int launch_im(TendencyArgs<T>& A, bool im, void* stream) {
+  return im ? launch_kernel<T, ZS, FL, XY, true>(A, stream)
+            : launch_kernel<T, ZS, FL, XY, false>(A, stream);
+}
+
 template <typename T>
 static int launch(const void* const* psi, void* const* out, const int* ia,
                   const double* da, int walls, const void* zs, int tables,
-                  void* stream) {
+                  const void* const* clear, const double* bounds, void* stream) {
   TendencyArgs<T> A;
   if (!set_advection(A.adv, psi, ia, da)) return (int)cudaErrorInvalidValue;
   for (int f = 0; f < MAX_FIELDS; ++f)
@@ -146,19 +172,31 @@ static int launch(const void* const* psi, void* const* out, const int* ia,
   A.walls = walls;
   A.adv.zs = static_cast<const T*>(zs);
   A.adv.tables = tables;
+  for (int f = 0; f < 4; ++f)
+    A.adv.clear[f] = clear != nullptr ? static_cast<const uint8_t*>(clear[f]) : nullptr;
+  // PositiveWENO5: tracers only, on a regular z, with its bounds
+  const bool pw = A.adv.scheme_t == SCHEME_PW;
+  if (A.adv.scheme_m == SCHEME_PW || (pw && (zs != nullptr || bounds == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (pw) {
+    A.adv.lo_t = T(bounds[0]);
+    A.adv.hi_t = T(bounds[1]);
+  }
+  const bool im = clear != nullptr || pw;
   if (A.adv.nx <= 0 || A.adv.ny <= 0 || A.adv.nz <= 0) return 0;
-  // the instantiation: stretched z, Flat layout, near-wall bounds on x or y
+  // the instantiation: stretched z, Flat layout, near-wall bounds on x or y,
+  // clear flags or PositiveWENO5
   const bool flat = advection_flat(ia), xy = A.adv.masked[0] || A.adv.masked[1];
   if (zs != nullptr) {
-    if (flat) return xy ? launch_kernel<T, true, true, true>(A, stream)
-                        : launch_kernel<T, true, true, false>(A, stream);
-    return xy ? launch_kernel<T, true, false, true>(A, stream)
-              : launch_kernel<T, true, false, false>(A, stream);
+    if (flat) return xy ? launch_im<T, true, true, true>(A, im, stream)
+                        : launch_im<T, true, true, false>(A, im, stream);
+    return xy ? launch_im<T, true, false, true>(A, im, stream)
+              : launch_im<T, true, false, false>(A, im, stream);
   }
-  if (flat) return xy ? launch_kernel<T, false, true, true>(A, stream)
-                      : launch_kernel<T, false, true, false>(A, stream);
-  return xy ? launch_kernel<T, false, false, true>(A, stream)
-            : launch_kernel<T, false, false, false>(A, stream);
+  if (flat) return xy ? launch_im<T, false, true, true>(A, im, stream)
+                      : launch_im<T, false, true, false>(A, im, stream);
+  return xy ? launch_im<T, false, false, true>(A, im, stream)
+            : launch_im<T, false, false, false>(A, im, stream);
 }
 
 extern "C" {
@@ -168,17 +206,23 @@ extern "C" {
 // `ia` and `da` the shared arguments (set_advection); bit a of `walls`
 // writes G of velocity a at its wall face on bounded axis a; `zs` (a
 // stretched z, else null) are the z rows of ops/metric_rows.py, with
-// WENO5's to-faces and to-centres tables where `tables`.
+// WENO5's to-faces and to-centres tables where `tables`; `clear` (an
+// immersed grid, else null) a host array of the four clear-flag tensors'
+// device pointers (u, v, w in the kernel's order, then the tracers'; a null
+// entry: that field reads none); `bounds` PositiveWENO5's (lo, hi) when
+// the tracer scheme is PositiveWENO5, else null.
 int fused_advective_tendencies_f32(const void* const* psi, void* const* out,
                                    const int* ia, const double* da, int walls,
-                                   const void* zs, int tables, void* stream) {
-  return launch<float>(psi, out, ia, da, walls, zs, tables, stream);
+                                   const void* zs, int tables, const void* const* clear,
+                                   const double* bounds, void* stream) {
+  return launch<float>(psi, out, ia, da, walls, zs, tables, clear, bounds, stream);
 }
 
 int fused_advective_tendencies_f64(const void* const* psi, void* const* out,
                                    const int* ia, const double* da, int walls,
-                                   const void* zs, int tables, void* stream) {
-  return launch<double>(psi, out, ia, da, walls, zs, tables, stream);
+                                   const void* zs, int tables, const void* const* clear,
+                                   const double* bounds, void* stream) {
+  return launch<double>(psi, out, ia, da, walls, zs, tables, clear, bounds, stream);
 }
 
 }  // extern "C"

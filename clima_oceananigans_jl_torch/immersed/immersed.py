@@ -16,6 +16,11 @@ flat-bottom values leaks into the immersed model. ``PartialCellBottom``
 (fractional bottom cells, 3D vertical metrics) is not ported: JAX's
 kernel gate refuses it too, and the hydrostatic model refuses it by name
 (ROADMAP Queue 1 item 7).
+
+``clear_flags`` turns the conditional fluxes into the kernels' input: one
+uint8 tensor a location, cached on the immersed grid, which K2
+(``ops/fused_tendencies.py``) and K4b (``ops/fused_hydrostatic.py``)
+read.
 """
 from __future__ import annotations
 
@@ -24,7 +29,32 @@ from typing import Any
 
 import torch
 
+from ..advection.schemes import _immersed_clear
 from ..utils.location import CENTER, F, U_LOC, V_LOC, W_LOC
+
+#: the flux direction of each axis' transports of a field at a location
+#: (to faces True, to centres False), as ``advection/fluxes.py`` has them
+_FLUX_TO_F = {CENTER: (True, True, True), U_LOC: (False, True, True),
+              V_LOC: (True, False, True), W_LOC: (True, True, False)}
+
+
+def clear_flags(grid, loc, buffer):
+    """The kernels' conditional-flux input for the field at ``loc`` on an
+    immersed grid: a with-halo uint8 tensor whose bit a (a grid axis) is
+    set where the transport along axis a at that flux location reads no
+    solid cell (``_immersed_clear`` of the plain version, its rolls
+    wrapping at the array edges and reading the cell itself along a Flat
+    axis, as they do there); built once per grid and kept in its
+    ``_cache`` (the bottom is static)."""
+    key = ("clear_flags", tuple(loc), buffer)
+    if key not in grid._cache:
+        imm = grid.immersed
+        flags = torch.zeros(grid.total_shape, dtype=torch.uint8, device=grid.device)
+        for axis, to_f in enumerate(_FLUX_TO_F[tuple(loc)]):
+            clear = _immersed_clear(imm, loc, axis, to_f, buffer)
+            flags |= clear.to(torch.uint8) << axis
+        grid._cache[key] = flags.contiguous()
+    return grid._cache[key]
 
 
 def _face_mask(solid_c, axis):

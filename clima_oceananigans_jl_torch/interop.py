@@ -13,6 +13,8 @@ package's state for ``model``:
   wall face on a bounded axis, which the time step reads where the wall
   is not an imposed value), from either JAX layout;
 - ``pNHS`` keeps zero halos, as the projection stores it;
+- over an immersed boundary the filled fields are masked in the solid,
+  halos included, as the JAX ``update_state`` leaves them;
 - ``diffusivities`` (the LES closures' fields: tensors, a dict per
   tracer, a tuple per closure tuple) are cut to the port's with-halo
   shape around the interior, halos and all, since the next step's
@@ -146,6 +148,8 @@ def state_from_numpy(model, state):
         return _hydrostatic_from_numpy(model, state, out, t)
     if not hasattr(model, "pressure_solver"):  # shallow water
         return out
+    if model.immersed_boundary is not None:  # filled, then masked (JAX order)
+        out = model.immersed_boundary.mask_state(model, out)
     gp = {n: as_t(state["G_prev"][n]).contiguous()
           for n in model.prognostic_names()}
     out.update(G_prev=gp if model.g_interior else

@@ -47,8 +47,16 @@ closure's diffusivities (the LES closures) between them. Periodic, bounded
 and Flat axes all run: the kernels take bounded x and y and move a Flat
 axis to their y (``ops/fused_tendencies.py::kernel_order``); a bounded x
 or y, or a Flat y, keeps the AB2 step on the general branch, as the JAX
-package's gate does. A configuration the port cannot run (other Coriolis,
-advection schemes or closures, immersed boundaries, stretched x or y,
+package's gate does. A grid-fitted immersed boundary (``GridFittedBottom``,
+``GridFittedBoundary``) wraps the with-halo grid in an ``ImmersedGrid``:
+K2 reads its clear flags (the conditional fluxes), ``update_state`` masks
+the fields in the solid, ``tendencies`` adds the immersed bottom's fluxes
+and masks the tendencies, and the step takes the general AB2 branch and
+the general projection (the parent grid's solve of the masked
+velocities' divergence), as in the JAX package. ``PositiveWENO5`` is a
+tracer scheme (K2's limiter; K1 has none, so it keeps AB2 on the general
+branch). A configuration the port cannot run (other Coriolis, advection
+schemes or closures, ``PartialCellBottom``, particles, stretched x or y,
 ...) raises ``NotImplementedError`` at construction. The kernels' wrappers
 come from ``KERNELS``; the JAX keyword ``fused_advection=False`` swaps in
 ``PLAIN`` and takes the general AB2 branch, as its JAX meaning has it,
@@ -65,7 +73,8 @@ from __future__ import annotations
 import torch
 
 from ..advection.schemes import CenteredSecondOrder
-from ..boundary_conditions.bcs import _bvalue, apply_flux_bcs, regularize_bcs
+from ..boundary_conditions.bcs import (_bvalue, apply_flux_bcs,
+                                      apply_immersed_flux_bcs, regularize_bcs)
 from ..advection.fluxes import div_Uc, div_vu, div_vv, div_vw
 from ..buoyancy.buoyancy import (buoyancy_x_term, buoyancy_y_term,
                                  hydrostatic_pressure_anomaly)
@@ -78,6 +87,7 @@ from ..fields.background import materialize_background
 from ..fields.field import new_field, set_field
 from ..forcings.forcing import regularize_forcing
 from ..grids.topology import BOUNDED, PERIODIC
+from ..immersed.immersed import ImmersedBoundary, ImmersedGrid, PartialCellBottom
 from ..ops import stencil as st
 from ..ops.fused_fill import (fields_unsupported_reason, fused_fill_halos,
                               fused_fill_halos_reference)
@@ -173,6 +183,15 @@ class NonhydrostaticModel:
                         for k, v in (forcing or {}).items()}
         self.background_fields = background_fields or {}
         self.timestepper = timestepper
+        # an immersed boundary: its masks built on the final (with-halo)
+        # grid, which is wrapped in an ImmersedGrid (JAX l.100-108); a
+        # PartialCellBottom, or anything else that builds no masks, stays as
+        # it is and is refused below
+        if (not isinstance(immersed_boundary, PartialCellBottom)
+                and hasattr(immersed_boundary, "build")):
+            immersed_boundary = immersed_boundary.build(self.grid)
+        if isinstance(immersed_boundary, ImmersedBoundary):
+            self.grid = ImmersedGrid(self.grid, immersed_boundary)
         self.immersed_boundary = immersed_boundary
         self.particles = particles
         self.ab2_chi = 0.1
@@ -254,10 +273,11 @@ class NonhydrostaticModel:
         """Halo fills on all three axes of every field (in place, one call
         of ``kernels["fill"]``: K6, or its plain version under ``PLAIN``),
         then the closure's diffusivities and pHY′ with its halos filled (a
-        second call: pHY′ reads b's top z halo). Unlike the JAX package's fused
-        step, the z halos of u, v and passive tracers are filled too: the
-        kernels read real z halos where the TPU kernels wrap z-halo-free
-        blocks."""
+        second call: pHY′ reads b's top z halo). With an immersed boundary
+        every field is masked to 0 in the solid between the two, the JAX
+        order. Unlike the JAX package's fused step, the z halos of u, v and
+        passive tracers are filled too: the kernels read real z halos where
+        the TPU kernels wrap z-halo-free blocks."""
         fill = self._kernels(kernels)["fill"]
         t = state["clock"].time
         locs = self._locs()
@@ -265,6 +285,9 @@ class NonhydrostaticModel:
         fill(self.grid, [(arr, locs[name], self.bcs[name], (0, 1, 2), t)
                          for name, arr in sol.items()])
         state = dict(state)
+        if self.immersed_boundary is not None:
+            state = self.immersed_boundary.mask_state(self, state)
+            sol = state["solution"]
         tr = {n: sol[n] for n in self.tracer_names}
         diff = compute_closure_diffusivities(self.closure, self.grid, sol,
                                              self.buoyancy, tr)
@@ -281,9 +304,11 @@ class NonhydrostaticModel:
         """With-halo tendencies G of every prognostic field (valid on the
         interior), in the JAX term order: advection → background cross
         terms → Coriolis → −∂pHY′ and the tilted-gravity terms → Stokes
-        drift → diffusion, then per field its forcing and boundary fluxes.
-        The advection of every field is one fused call through
-        ``kernels["advect"]`` (``_kernels``), on every grid the port
+        drift → diffusion, then per field its forcing and boundary fluxes
+        (with an immersed boundary, its bottom fluxes too, and every
+        tendency masked in the solid). The advection of every field is one
+        fused call through ``kernels["advect"]`` (``_kernels``), on every
+        grid the port
         accepts (the JAX model makes it on the TPU where its
         ``supports_fused_advection`` holds, and the plain ``div_*`` fluxes
         elsewhere: the same numbers); the other terms are PyTorch ops."""
@@ -357,16 +382,24 @@ class NonhydrostaticModel:
                 G[name] = G[name] + self.forcing[name](grid, clock, fields)
             G[name] = apply_flux_bcs(G[name], grid, locs[name], self.bcs[name],
                                      clock.time, fields)
+            if self.immersed_boundary is not None:
+                G[name] = apply_immersed_flux_bcs(G[name], grid, locs[name],
+                                                  self.bcs[name], clock.time,
+                                                  fields)
+        if self.immersed_boundary is not None:
+            G = {k: self.immersed_boundary.mask_tendency(self, k, g)
+                 for k, g in G.items()}
         return G
 
     # -- pressure projection --------------------------------------------------
     def _fast_projection_ok(self):
         """The roll-based projection applies: a regular grid, periodic x
-        and y, periodic or bounded z, and w-wall BCs that are imposed
-        values. Otherwise ``project_velocities`` takes the general
-        projection."""
+        and y, periodic or bounded z, no immersed boundary, and w-wall BCs
+        that are imposed values. Otherwise ``project_velocities`` takes the
+        general projection."""
         g = self.grid
-        if not (g.all_regular and g.topology[0] is PERIODIC
+        if not (g.all_regular and self.immersed_boundary is None
+                and g.topology[0] is PERIODIC
                 and g.topology[1] is PERIODIC
                 and g.topology[2] in (PERIODIC, BOUNDED)):
             return False

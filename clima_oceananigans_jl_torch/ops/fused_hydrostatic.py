@@ -26,9 +26,10 @@ card that becomes two kernels:
   once; the same launch writes the halos zero. It takes the explicit
   diffusion of a constant-coefficient ``ScalarDiffusivity``
   (``kernel_closure``), the conditional fluxes next to an immersed
-  boundary (the clear flags of ``clear_flags``, one uint8 tensor a
-  location) and a stretched y axis' WENO5 tables (``y_tables``), as the
-  TPU kernel does. Its plain version is the core (and ``ab2_substep``).
+  boundary (the clear flags of ``immersed/immersed.py::clear_flags``, one
+  uint8 tensor a location) and a stretched y axis' WENO5 tables
+  (``y_tables``), as the TPU kernel does. Its plain version is the core
+  (and ``ab2_substep``).
 
 ``hydrostatic_advective_core`` is the JAX function, in plain torch; the
 model's plain path and K4b's plain version share it. Each wrapper runs
@@ -47,14 +48,14 @@ import numpy as np
 import torch
 
 from ..advection.fluxes import div_Uc, div_vu, div_vv
-from ..advection.schemes import (AdvectionScheme, CenteredSecondOrder, WENO5,
-                                 _immersed_clear)
+from ..advection.schemes import AdvectionScheme, CenteredSecondOrder, WENO5
 from ..advection.vector_invariant import SCHEMES as VI_SCHEMES
 from ..advection.vector_invariant import VectorInvariant
 from ..closures.scalar_diffusivity import (ScalarDiffusivity,
                                            momentum_diffusion, tracer_diffusion)
 from ..coriolis.coriolis import BetaPlane, FPlane, HydrostaticSphericalCoriolis
 from ..grids.topology import FLAT
+from ..immersed.immersed import clear_flags
 from ..timesteppers.steppers import ab2_coefficients, ab2_substep
 from ..utils.location import CENTER, U_LOC, V_LOC, W_LOC
 from . import _build
@@ -145,29 +146,6 @@ def _mask_locs(model):
     if flux_form is not None and flux_form.buffer > 0:
         locs += [U_LOC, V_LOC]
     return tuple(locs)
-
-
-#: the flux direction of each axis' transports of a field at a location
-#: (to faces True, to centres False), as ``advection/fluxes.py`` has them
-_FLUX_TO_F = {CENTER: (True, True, True), U_LOC: (False, True, True),
-              V_LOC: (True, False, True)}
-
-
-def clear_flags(grid, loc, buffer):
-    """K4b's conditional-flux input for the field at ``loc``: a with-halo
-    uint8 tensor whose bit a is set where the transport along axis a at
-    that flux location reads no solid cell (``_immersed_clear`` of the
-    plain version, its rolls wrapping at the array edges as they do
-    there); built once per grid (the bottom is static)."""
-    key = ("clear_flags", tuple(loc), buffer)
-    if key not in grid._cache:
-        imm = grid.immersed
-        flags = torch.zeros(grid.total_shape, dtype=torch.uint8, device=grid.device)
-        for axis, to_f in enumerate(_FLUX_TO_F[tuple(loc)]):
-            clear = _immersed_clear(imm, loc, axis, to_f, buffer)
-            flags |= clear.to(torch.uint8) << axis
-        grid._cache[key] = flags.contiguous()
-    return grid._cache[key]
 
 
 # -- the static gate -------------------------------------------------------------

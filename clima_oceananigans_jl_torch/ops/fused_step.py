@@ -27,7 +27,8 @@ import numbers
 
 import torch
 
-from ..advection.schemes import CenteredSecondOrder, UpwindBiasedFifthOrder, WENO5
+from ..advection.schemes import (CenteredSecondOrder, PositiveWENO5,
+                                 UpwindBiasedFifthOrder, WENO5)
 from ..closures.eddy_viscosity import (AnisotropicMinimumDissipation,
                                        SmagorinskyLilly, TwoDimensionalLeith)
 from ..closures.implicit_vertical_diffusion import implicit_step_is_noop
@@ -36,6 +37,7 @@ from ..closures.scalar_diffusivity import (ScalarBiharmonicDiffusivity,
 from ..coriolis.coriolis import (BetaPlane, ConstantCartesianCoriolis, FPlane,
                                  NonTraditionalBetaPlane)
 from ..grids.topology import BOUNDED, FLAT
+from ..immersed.immersed import ImmersedBoundary, PartialCellBottom
 from ..timesteppers.steppers import ab2_coefficients, ab2_substep
 from ..utils.location import U_LOC, V_LOC
 from .fused_tendencies import (ADVECTION_ARGTYPES, advection_args,
@@ -54,8 +56,11 @@ CLOSURES = (ScalarDiffusivity, ScalarBiharmonicDiffusivity, SmagorinskyLilly,
 #: terms of ``tendencies`` (the general branch)
 CORIOLIS = (FPlane, BetaPlane, ConstantCartesianCoriolis,
             NonTraditionalBetaPlane)
-#: its advection schemes, which K1 and K2 take
+#: its advection schemes, which K1 and K2 take, and the tracer scheme
+#: that K2 alone takes (K1 has no limiter: ``fused_step_ok`` keeps it on
+#: the general branch)
 SCHEMES = (CenteredSecondOrder, WENO5, UpwindBiasedFifthOrder)
+TRACER_SCHEMES = SCHEMES + (PositiveWENO5,)
 
 
 def _scalar_coefficient(v):
@@ -77,21 +82,39 @@ def unsupported_reason(model):
         return (f"{type(cor).__name__} Coriolis is not ported yet (FPlane, "
                 "BetaPlane, ConstantCartesianCoriolis and "
                 f"NonTraditionalBetaPlane are) {_LATER}")
-    for sch in (model.advection, model.tracer_advection):
-        if type(sch) not in SCHEMES:
+    if type(model.advection) is PositiveWENO5:
+        return ("PositiveWENO5 as the momentum scheme (its limiter on "
+                "momentum's to-faces transports) is not ported yet; it is a "
+                "tracer scheme (tracer_advection) (ROADMAP Queue 1 item 2)")
+    for sch, known in ((model.advection, SCHEMES),
+                       (model.tracer_advection, TRACER_SCHEMES)):
+        if type(sch) not in known:
             return (f"{type(sch).__name__} advection is not ported yet "
                     "(WENO5, UpwindBiasedFifthOrder and CenteredSecondOrder "
-                    "are) (ROADMAP Queue 1 item 2)")
+                    "are, and PositiveWENO5 for tracers) (ROADMAP Queue 1 "
+                    "item 2)")
     cl = model.closure
     for c in (cl if isinstance(cl, (tuple, list)) else (cl,)):
         if c is not None and not isinstance(c, CLOSURES):
             return (f"{type(c).__name__} closures are not ported yet (CATKE, "
                     "convective adjustment, Ri-based mixing and GM/Redi wait "
                     "for ROADMAP Queue 1 item 7)")
-    for attr in ("immersed_boundary", "particles"):
-        if getattr(model, attr) is not None:
-            return (f"{attr} in the nonhydrostatic model is not ported yet "
-                    "(ROADMAP Queue 1 item 7)")
+    if model.particles is not None:
+        return ("particles in the nonhydrostatic model are not ported yet "
+                "(ROADMAP Queue 1 item 7)")
+    ib = model.immersed_boundary
+    if isinstance(ib, PartialCellBottom):
+        return ("PartialCellBottom (fractional bottom cells, 3D vertical "
+                "metrics) is not ported yet (ROADMAP Queue 1 item 7)")
+    if ib is not None and not isinstance(ib, ImmersedBoundary):
+        return (f"{type(ib).__name__} immersed boundaries are not ported yet "
+                "(GridFittedBottom and GridFittedBoundary are) (ROADMAP Queue 1 "
+                "item 7)")
+    if (type(model.tracer_advection) is PositiveWENO5
+            and not model.grid.z_regular and model.grid.device.type == "cuda"):
+        return ("PositiveWENO5 on a stretched z is not ported to K2 yet (its "
+                "limiter on the two-sided table form; the plain version on "
+                "the CPU runs it) (ROADMAP Queue 1 item 2)")
     if all(t is FLAT for t in model.grid.topology):
         return "a nonhydrostatic grid needs an axis that is not Flat"
     if not model.grid.hregular:
@@ -137,9 +160,12 @@ def fused_step_ok(model):
     takes (``supports_fused_advection``: no bounded x or y, not a Flat y),
     quasi-AB2, f/β-plane Coriolis or none, a closure whose explicit part
     the kernel runs, and no term the kernel lacks (forcing, background
-    fields, Stokes drift, tilted gravity, flux-BC values): those send the
-    step to the general branch, whose advection K2 carries, as they do in
-    the JAX package (and ``G_prev`` keeps its layout)."""
+    fields, Stokes drift, tilted gravity, flux-BC values, an immersed
+    boundary): those send the step to the general branch, whose advection
+    K2 carries, as they do in the JAX package (and ``G_prev`` keeps its
+    layout). A ``PositiveWENO5`` tracer scheme does too: K1 has no
+    limiter (the JAX kernel traces it in), and the general branch gives
+    the same numbers through K2."""
     if not (model.fused_advection and supports_fused_advection(model.grid)
             and model.timestepper == "QuasiAdamsBashforth2"):
         return False
@@ -147,8 +173,10 @@ def fused_step_ok(model):
                                                      (FPlane, BetaPlane)):
         return False
     if (model.stokes_drift is not None or model.forcing
-            or model.background_fields):
+            or model.background_fields or model.immersed_boundary is not None):
         return False
+    if type(model.tracer_advection) is PositiveWENO5:
+        return False  # K1 has no limiter; K2 carries it on the general branch
     if model.closure is not None and _step_kernel_closure(model) is None:
         return False
     b = model.buoyancy

@@ -5,7 +5,10 @@ Counterpart of ``clima_oceananigans_jl_tpu/ops/fused_tendencies.py``:
 - K2, the Pallas kernel ``fused_advective_tendencies``: −∇·(vψ) of u, v,
   w and every tracer of the nonhydrostatic model in one launch
   (``csrc/fused_advective_tendencies.cu``; on a stretched z its stretched
-  instantiation, with per-level Δz and WENO5's tables as z rows), with
+  instantiation, with per-level Δz and WENO5's tables as z rows; on an
+  immersed grid, or with ``PositiveWENO5`` tracers, its IM
+  instantiations, with the clear flags of ``immersed/immersed.py::
+  clear_flags`` and the limiter's bounds), with
   ``supports_fused_advection`` and ``z_halo_free_ok``;
 - K3, the generic tiler ``pallas_fuse``, as one concrete kernel for each
   of its three users:
@@ -32,9 +35,11 @@ import ctypes
 import torch
 
 from ..advection.fluxes import div_Uc, div_vu, div_vv, div_vw
-from ..advection.schemes import (CenteredSecondOrder, UpwindBiasedFifthOrder,
-                                 WENO5, reduced_order_masks, transport)
+from ..advection.schemes import (CenteredSecondOrder, PositiveWENO5,
+                                 UpwindBiasedFifthOrder, WENO5,
+                                 reduced_order_masks, transport)
 from ..grids.topology import BOUNDED, FLAT, PERIODIC
+from ..immersed.immersed import clear_flags
 from ..utils.location import C, CENTER, F, U_LOC, V_LOC, W_LOC
 from . import _build
 from . import operators as op
@@ -111,12 +116,15 @@ def fused_advective_tendencies_reference(grid, scheme, tracer_scheme, u, v, w,
     return out
 
 
-def kernel_scheme(scheme):
+def kernel_scheme(scheme, positive=False):
     """(code, eps) of a scheme the kernels take: 0 centred second order,
-    1 WENO5, 2 UpwindBiasedFifthOrder (``csrc/weno5_advection.cuh``
-    ``SCHEME_*``); raises otherwise."""
+    1 WENO5, 2 UpwindBiasedFifthOrder, and with ``positive`` (K2's tracer
+    scheme) 3 PositiveWENO5 (``csrc/weno5_advection.cuh`` ``SCHEME_*``);
+    raises otherwise."""
     if type(scheme) is WENO5:
         return 1, float(scheme.eps)
+    if positive and type(scheme) is PositiveWENO5:
+        return 3, float(scheme.eps)
     if type(scheme) is UpwindBiasedFifthOrder:
         return 2, 0.0
     if type(scheme) is CenteredSecondOrder:
@@ -140,20 +148,21 @@ def spacings(grid):
     return (grid.Lx / grid.Nx, grid.Ly / grid.Ny, grid.Lz / grid.Nz)
 
 
-def advection_args(grid, scheme, tracer_scheme, nf):
+def advection_args(grid, scheme, tracer_scheme, nf, positive=False):
     """The shared advection arguments of K1 and K2 after the pointer
     arrays (``set_advection`` of ``csrc/weno5_advection.cuh``), in the
     kernels' axis order (``kernel_order``): a host array of ints (field
     count, sizes, halos, the two scheme codes, each axis' near-wall bounds,
     the grid axis of each kernel axis, whether the grid has a Flat axis)
-    and one of doubles (eps of each scheme, the spacings)."""
+    and one of doubles (eps of each scheme, the spacings). ``positive``
+    (K2) lets the tracer scheme be PositiveWENO5."""
     if not 3 <= nf <= 16:
         raise ValueError(f"the kernels take 3 to 16 fields, got {nf}")
     if not grid.hregular:
         raise ValueError(f"the kernels take a regular x and y: {grid}")
     order = kernel_order(grid)
     code_m, eps_m = kernel_scheme(scheme)
-    code_t, eps_t = kernel_scheme(tracer_scheme)
+    code_t, eps_t = kernel_scheme(tracer_scheme, positive)
     # WENO5 and UB5 have the same near-wall bounds; centred schemes none
     upwind = scheme if code_m else tracer_scheme
     ints = (nf, *(grid.shape[a] for a in order), *(grid.halo[a] for a in order),
@@ -221,26 +230,59 @@ def launch(name, fn, device, *args):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+def k2_clear_flags(grid, scheme, tracer_scheme, ntracers):
+    """K2's clear flags on an immersed grid: the uint8 tensors of
+    ``clear_flags`` at U, V, W (the momentum scheme's buffer) and CENTER
+    (the tracer scheme's), None for a field whose scheme reads no cell
+    beyond its two (centred: the plain version builds no mask there) or
+    for tracers that are not there; None on a grid without an immersed
+    boundary."""
+    if getattr(grid, "immersed", None) is None:
+        return None
+    flags = [clear_flags(grid, loc, scheme.buffer) if scheme.buffer > 0 else None
+             for loc in (U_LOC, V_LOC, W_LOC)]
+    flags.append(clear_flags(grid, CENTER, tracer_scheme.buffer)
+                 if ntracers and tracer_scheme.buffer > 0 else None)
+    return flags
+
+
 def _launch(grid, scheme, tracer_scheme, u, v, w, tracers):
     names = ("u", "v", "w") + tuple(tracers)
     fields = [u, v, w] + list(tracers.values())
     device, dtype = u.device, grid.dtype
-    ints, doubles = advection_args(grid, scheme, tracer_scheme, len(fields))
+    ints, doubles = advection_args(grid, scheme, tracer_scheme, len(fields),
+                                   positive=True)
     for n, f in zip(names, fields):
         check_tensor(n, f, grid.total_shape, dtype, device)
     zs, tables = z_rows_arg(grid, scheme, tracer_scheme)
+    positive = type(tracer_scheme) is PositiveWENO5
+    if positive and zs is not None:
+        raise ValueError("K2 takes PositiveWENO5 on a regular z only (its "
+                         "limiter on the two-sided table form is not ported; "
+                         "ROADMAP Queue 1 item 2)")
+    order = kernel_order(grid)
+    flags = k2_clear_flags(grid, scheme, tracer_scheme, len(tracers))
+    if flags is not None:
+        for loc, f in zip(("U", "V", "W", "CENTER"), flags):
+            if f is not None:
+                check_tensor(f"clear flags at {loc}", f, grid.total_shape,
+                             torch.uint8, device)
+        flags = (ctypes.c_void_p * 4)(*[None if f is None else f.data_ptr()
+                                        for f in in_kernel_order(order, flags)])
+    bounds = ((ctypes.c_double * 2)(*map(float, tracer_scheme.bounds))
+              if positive else None)
     # K2 writes every point: the interior, the zero halos and the wall faces
     out = [torch.empty(grid.total_shape, dtype=dtype, device=device)
            for _ in names]
-    order = kernel_order(grid)
     walls = sum(1 << a for a in range(3) if grid.topology[order[a]] is BOUNDED)
     fn = kernel_fn("fused_advective_tendencies", "fused_advective_tendencies",
                    dtype, [ctypes.c_void_p] * 2 + ADVECTION_ARGTYPES
-                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
+                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p, ctypes.c_void_p])
     launch("fused_advective_tendencies", fn, device,
            pointers(in_kernel_order(order, fields)),
            pointers(in_kernel_order(order, out)), ints, doubles, walls,
-           None if zs is None else zs.data_ptr(), tables)
+           None if zs is None else zs.data_ptr(), tables, flags, bounds)
     fused_advective_tendencies.launches += 1
     return dict(zip(names, out))
 
