@@ -8,7 +8,8 @@
                               [ab2-implicit] [t1] [t1-variants]
                               [near-global] [near-global-weno] [diffusive]
                               [horizontal-convection] [2d-turbulence]
-                              [seamount] [sass-regular --parent DIR]
+                              [seamount] [simulation]
+                              [sass-regular --parent DIR]
                               [--steps N]
 
 With no part named, runs them all. Prints the card's name and power
@@ -111,6 +112,14 @@ limit first. Needs a card; without one it exits with an error.
   bottom's fluxes, the rest of ``tendencies``, ``ab2_substep``, the
   projection's copies and pads with their K6 fills, K3b, the pressure
   solve, K3c, the correction, ``update_state`` and its K6 fills.
+- ``simulation``: ``chip_smoke.py``'s simulation path (horizontal
+  convection at 4096×1×2048 fp32 through ``Simulation``: the wizard, the
+  NaN checker, two classic NetCDF writers, one of a device average, and
+  a checkpointer) after its warm-up, over 20 × ``steps`` iterations, with
+  CUDA events around ``model.step``, the wizard, the NaN checker, the
+  device average, the writers (their copies to the host apart from their
+  file writes) and the checkpoint write (its copies apart); then the
+  idle share over 50 iterations.
 - ``sass-regular``: K1's instantiations and K2's regular ones (IM false)
   as built here and from the parent tree's ``csrc`` (``--parent DIR``),
   their SASS by ``cuobjdump``: instruction counts, and whether the
@@ -197,12 +206,13 @@ def timed(events, name, fn):
     return run
 
 
-def breakdown(label, step, state, events, patches, steps, inner=None):
+def breakdown(label, step, state, events, patches, steps, inner=None,
+              profile_steps=3):
     """``steps`` calls of ``step`` with ``patches`` [(object, attribute,
     label)] timed by CUDA events; prints each part's ms per step and
     share (a part of ``inner`` {outer: (inner parts, label or None)} less
-    the inner parts timed within it), then the profiler's idle share over 3
-    more steps."""
+    the inner parts timed within it), then the profiler's idle share over
+    ``profile_steps`` more steps."""
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
     for obj, name, part in patches:
         setattr(obj, name, timed(events, part, getattr(obj, name)))
@@ -240,15 +250,16 @@ def breakdown(label, step, state, events, patches, steps, inner=None):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(3):
+        for _ in range(profile_steps):
             state = step(state, timed_parts=False)
         torch.cuda.synchronize()
         elapsed = (time.perf_counter() - t0) * 1e3
+    n = profile_steps
     busy = sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     if busy > 0:
-        print(f"torch.profiler, 3 steps: {elapsed / 3:.4f} ms/step elapsed, "
-              f"{busy / 3:.4f} ms/step in kernels, device idle "
+        print(f"torch.profiler, {n} steps: {elapsed / n:.4f} ms/step elapsed, "
+              f"{busy / n:.4f} ms/step in kernels, device idle "
               f"{100 * (1 - busy / elapsed):.1f}%")
     else:
         print("torch.profiler saw no device time: idle share not measured")
@@ -256,8 +267,8 @@ def breakdown(label, step, state, events, patches, steps, inner=None):
                   if e.device_type == torch.autograd.DeviceType.CUDA),
                  key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
-        print(f"  {e.key[:60]}: {e.self_device_time_total / 3e3:.4f} ms/step, "
-              f"{e.count // 3} calls/step")
+        print(f"  {e.key[:60]}: {e.self_device_time_total / (n * 1e3):.4f} ms/step, "
+              f"{e.count / n:.2f} calls/step")
 
 
 def warm_nonhydrostatic(path):
@@ -1224,6 +1235,63 @@ def k5_barriers(steps):
           f"{1e3 * bare / (2 * n):.3f} us a barrier at most")
 
 
+def simulation(steps):
+    """chip_smoke.py's simulation path: horizontal convection at
+    4096×1×2048 fp32 through ``Simulation`` with its wizard, NaN checker,
+    writers and checkpointer (``chip_smoke.simulation_path``), after the
+    warm-up, over ``20 × steps`` iterations (100 by default: every
+    activity fires) with CUDA events around ``model.step``, the wizard's
+    and the NaN checker's reductions and reads, the device average's
+    accumulation, the two writers (their copies to the host apart from
+    their file writes) and the checkpoint write (its copies apart); the
+    rest is the loop's host work (schedules, ``aligned_dt``, the stop
+    checks). Then the profiler's idle share over 50 iterations, which hold
+    two fields-writer firings, a checkpoint and an averaged write."""
+    from clima_oceananigans_jl_torch import Callback, WindowedTimeAverage
+    from clima_oceananigans_jl_torch.output import checkpointer, writers
+    model, state, dt = chip_smoke.wall_path_model("horizontal convection")
+    iterations = 20 * steps
+    with tempfile.TemporaryDirectory() as tmp:
+        sim, _ = chip_smoke.simulation_path(model, state, dt, tmp)
+        del state
+        for _ in range(chip_smoke.SIMULATION["warmup"]):
+            sim.time_step()
+        torch.cuda.synchronize()
+        events = collections.defaultdict(list)
+        for key, name in (("wizard", "wizard"), ("nan_checker", "NaN checker")):
+            cb = sim.callbacks[key]
+            sim.callbacks[key] = Callback(timed(events, name, cb.func), cb.schedule)
+        for key, item in list(sim.diagnostics.items()):
+            if isinstance(item, WindowedTimeAverage):
+                sim.diagnostics[key] = Callback(timed(events, "device average", item),
+                                                item.schedule)
+        copies = "writers' copies to the host"
+        saved = (writers.to_numpy, checkpointer._flatten_state)
+        writers.to_numpy = timed(events, copies, writers.to_numpy)
+        checkpointer._flatten_state = timed(events, "checkpoint copies to the host",
+                                            checkpointer._flatten_state)
+        patches = [(model, "step", "model.step"),
+                   (sim.output_writers["fields"], "write", "writers"),
+                   (sim.output_writers["averages"], "write", "writers"),
+                   (sim.output_writers["checkpointer"], "write", "checkpoint write")]
+        inner = {"writers": ((copies,), "writers' file writes (less their copies)"),
+                 "checkpoint write": (("checkpoint copies to the host",), None)}
+
+        def step(s, timed_parts):
+            sim.time_step()
+            return sim.state
+
+        try:
+            breakdown(f"simulation path, {'x'.join(map(str, model.grid.shape))} fp32 "
+                      f"horizontal convection, one iteration", step, None, events,
+                      patches, iterations, inner, profile_steps=50)
+        finally:
+            writers.to_numpy, checkpointer._flatten_state = saved
+        for w in sim.output_writers.values():
+            if hasattr(w, "close"):
+                w.close()
+
+
 PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps),
          "rk3": lambda steps: nonhydrostatic("RK3", steps),
          "general-projection": general_projection, "k6-k3c": k6_k3c,
@@ -1242,7 +1310,7 @@ PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps),
          "diffusive": lambda steps: near_global("1/4 deg diffusive", steps),
          "horizontal-convection": lambda steps: walls("horizontal convection", steps),
          "2d-turbulence": lambda steps: walls("2D turbulence", steps),
-         "seamount": seamount,
+         "seamount": seamount, "simulation": simulation,
          "sass-regular": sass_regular}
 
 

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's seventeen paths through ``clima_oceananigans_jl_torch``
+Drives the port's eighteen paths through ``clima_oceananigans_jl_torch``
 on the card, in phases; each prints one line or a few:
 
 1. device: the card's name and power limit as nvidia-smi gives them, on a
@@ -228,7 +228,34 @@ on the card, in phases; each prints one line or a few:
    timed on the path's fields, K6 on its two fill groups from NaN; then
    200 more steps with the kernels and the validation's checks: Σc over
    the fluid conserved to 1e-3, max|c| in the solid ≤ 1e-10, c within
-   [−1e-9, 1 + 1e-9].
+   [−1e-9, 1 + 1e-9];
+27. (since the user-surface slice, run right after phase 24) the
+   simulation path (``SIMULATION``): examples/horizontal_convection.py's
+   loop, ``Simulation(model, state=..., dt=..., stop_iteration=...)``, on
+   the horizontal-convection path's model and seeded state (4096×1×2048
+   fp32) with the example's ``TimeStepWizard(cfl=0.7, max_change=1.2,
+   max_dt=0.1)`` every 50 iterations and ``diffusive_cfl=0.125`` (its one
+   cut: at this size the explicit diffusive limit binds, and the wizard
+   keeps Δt at the path's), the automatic NaN checker, a classic NetCDF
+   writer of b and w's top 64 levels every 25 iterations, a classic
+   writer of b averaged (on the card) over the last half of every 50
+   iterations' model time, and a ``Checkpointer`` every 50 iterations, in
+   a temporary directory; 2 warm-up and 100 timed iterations (host clock,
+   ended by a synchronize), exactly 3 K2, 3 K3b, 3 K3c and 12 K6 launches
+   an iteration; each firing timed; fields finite, b within ±1.001 b*,
+   max|∇·u|·Δx/max|u| ≤ 1e-5; the last b record read back with scipy
+   equal to the state's interior then (max|Δ| = 0); ms/iteration printed
+   with and without the firings beside the horizontal-convection path's
+   bare ``model.step`` ms/step; then the device average of b held bit for
+   bit against a ``WindowedTimeAverage`` of host copies of the same
+   samples (numpy sums) in one writer, and two pickup holds, each a run A
+   with a ``Checkpointer`` and a new ``Simulation`` B that picks up A's
+   file and runs to A's end with a fixed Δt: horizontal convection (a
+   checkpoint at 30, run to 40, ``pickup=True``) and the 256³ AB2 bench
+   path (K1's fused branch, ``G_prev`` in K1's interior layout; a
+   checkpoint at 10, run to 20): B's state equals A's, max|Δ| = 0 on
+   every tensor (the solution, ``G_prev``, pNHS, pHY′) and the clock and
+   ``previous_dt`` equal in the grid's dtype.
 
 Each kernel's record carries its bound: the larger of its compulsory
 bytes (each input read once, each output written once, from this run's
@@ -256,7 +283,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -264,7 +293,12 @@ import torch
 
 from clima_oceananigans_jl_torch import (BOUNDED, FLAT, PERIODIC,
                                          AnisotropicMinimumDissipation,
-                                         BetaPlane,
+                                         AveragedTimeInterval, BetaPlane,
+                                         Callback, Checkpointer,
+                                         IterationInterval,
+                                         NetCDFOutputWriter, Simulation,
+                                         TimeStepWizard, WindowedTimeAverage,
+                                         windowed,
                                          BackgroundField, BuoyancyTracer,
                                          CenteredSecondOrder, FieldBCs, FluxBC,
                                          Forcing, FPlane, GaussianMask,
@@ -427,7 +461,8 @@ PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
             "1/4 deg diffusive": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 5},
             "horizontal convection": {K2: 3, K3B: 3, K3C: 3, K6: 12},
             "2D turbulence": {K2: 3, K3B: 3, K3C: 3, K6: 9},
-            "seamount": {K2: 1, K3B: 1, K3C: 1, K6: 4}}
+            "seamount": {K2: 1, K3B: 1, K3C: 1, K6: 4},
+            "simulation": {K2: 3, K3B: 3, K3C: 3, K6: 12}}
 #: of T1's launches a step, those of its Fourier mode (the pressure solve)
 T1_FOURIER_PER_STEP = {"wind mixing stretched": 3, "AB2 stretched implicit": 1}
 T1F = "fourier_tridiagonal"
@@ -2299,6 +2334,8 @@ PATH_FORMS = {"horizontal convection": "B,F,B 4096x1x2048 fp32, WENO5",
               "seamount": "P,F,B 4096x1x2048 fp64, immersed bottom, WENO5 / "
                           "PositiveWENO5 b, c"}
 HC = dict(size=(4096, 1, 2048), Lx=2.0, H=1.0, b_star=1.0, Ra=1e8, Pr=1.0)
+#: each wall path's bare ``model.step`` ms/step with the kernels, from its run
+BARE_STEP_MS = {}
 TURBULENCE = dict(size=(8192, 8192, 1), nu=1e-5, kmin=2, kmax=6, speed=0.5,
                   seed=7)
 
@@ -2535,6 +2572,7 @@ def phase_wall_path(path):
     if not ratio <= 1e-5:
         raise AssertionError(f"{path}: max|div u|*dx/max|u| = {ratio:.3e} > 1e-5")
     warmup, steps = WALLS[path]
+    BARE_STEP_MS[path] = per_step * 1e3
     points = math.prod(model.grid.shape)
     used = {k: n for k, n in launches.items() if n}
     print(f"{path} path: {'x'.join(map(str, model.grid.shape))} fp32, {steps} steps "
@@ -2775,6 +2813,254 @@ def phase_seamount():
     return launches, readings, k6_err
 
 
+# -- the user surface: Simulation, schedules, writers, checkpoints ----------------------
+
+#: the simulation path: examples/horizontal_convection.py:46-58 as written,
+#: through ``Simulation``, on the horizontal-convection path's model and
+#: seeded state (``HC``, 4096×1×2048 fp32): the example's
+#: ``TimeStepWizard(cfl=0.7, max_change=1.2, max_dt=0.1)`` every 50
+#: iterations with one cut, ``diffusive_cfl=0.125`` (at this size the
+#: explicit diffusive limit binds, and 0.125 Δ²/κ is the path's Δt, half of
+#: Δ²/(2dκ) with d = 2); the automatic NaN checker; a classic NetCDF writer
+#: of b (whole) and w's top ``w_levels`` levels every ``writer_every``
+#: iterations; a classic NetCDF writer of b averaged over the last half of
+#: every ``checkpoint_every`` iterations' model time; a ``Checkpointer``
+#: every ``checkpoint_every`` iterations; ``warmup`` and then ``iterations``
+#: timed iterations. ``continuation``: (checkpoint iteration, stop
+#: iteration) of the pickup hold at this size (Δt fixed, iteration
+#: schedules only), ``ab2``: the same on the 256³ AB2 bench path;
+#: ``average``: (iterations of the averaging interval, iterations run) of the
+#: device average's hold against a host numpy accumulation.
+SIMULATION = dict(warmup=2, iterations=100, writer_every=25, checkpoint_every=50,
+                  w_levels=64, continuation=(30, 40), ab2=(10, 20), average=(8, 12))
+
+
+def fp32_ticks(dt, n):
+    """The model time after ``n`` ticks of Δt on an fp32 clock: an
+    ``AveragedTimeInterval`` of that length fires on an iteration."""
+    t = np.float32(0.0)
+    for _ in range(n):
+        t = t + np.float32(dt)
+    return float(t)
+
+
+def timed_firings(obj, times):
+    """Wraps ``obj.write`` so that each firing appends (iteration, its host
+    time in s between synchronizations of the card)."""
+    write = obj.write
+
+    def timed(sim):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        write(sim)
+        torch.cuda.synchronize()
+        times.append((sim.model_iteration(), time.perf_counter() - t0))
+
+    obj.write = timed
+    return obj
+
+
+def state_difference(a, b, prefix=""):
+    """{key: max|Δ|} over every tensor of two states (and 0 or inf for the
+    host leaves, by equality)."""
+    out = {}
+    for k, x in a.items():
+        y, key = b[k], f"{prefix}{k}"
+        if isinstance(x, dict):
+            out.update(state_difference(x, y, f"{key}/"))
+        elif isinstance(x, torch.Tensor):
+            out[key] = float((x - y).abs().max())
+        elif k == "clock":
+            same = (x.time == y.time and x.iteration == y.iteration
+                    and np.asarray(x.time).dtype == np.asarray(y.time).dtype)
+            out[key] = 0.0 if same else math.inf
+        else:
+            same = x == y and np.asarray(x).dtype == np.asarray(y).dtype
+            out[key] = 0.0 if same else math.inf
+    return out
+
+
+def pickup_hold(label, model, make_state, dt, every, stop, pickup, tmp):
+    """Run A to ``stop`` with a ``Checkpointer`` every ``every`` iterations;
+    run B, a new Simulation, picks up A's iteration-``every`` file
+    (``pickup``: True for the latest, or the iteration) and runs to
+    ``stop``: B's state must be A's, every tensor max|Δ| = 0; prints the
+    file's MB and A's checkpoint writes in ms."""
+    writes, runs, first = [], [], []
+    prefix = label.replace(" ", "_").replace("^", "")
+    for picks in (False, pickup):
+        sim = Simulation(model, state=make_state(), dt=dt, stop_iteration=stop)
+        sim.output_writers["checkpointer"] = timed_firings(
+            Checkpointer(IterationInterval(every), dir=tmp, prefix=prefix),
+            [] if picks else writes)
+        if picks:
+            sim.callbacks["first"] = Callback(lambda q: first.append(q.model_iteration()))
+        sim.run(pickup=picks)
+        if sim.model_iteration() != stop:
+            raise AssertionError(f"{label}: stopped at {sim.model_iteration()}, not {stop}")
+        runs.append(sim.state)
+        del sim
+    if first[0] != every:
+        raise AssertionError(f"{label}: picked up iteration {first[0]}, not {every}")
+    diff = state_difference(*runs)
+    worst = max(diff.values())
+    if worst != 0.0:
+        raise AssertionError(f"{label}: the picked-up run differs: {diff}")
+    mb = os.path.getsize(os.path.join(tmp, f"{prefix}_iteration{every}.npz")) / 1e6
+    print(f"{label} pickup of iteration {every} (a {mb:.1f} MB checkpoint), run to {stop}: "
+          f"max|Δ| {worst} over {len(diff)} leaves ({', '.join(sorted(diff))}); A's "
+          f"checkpoint writes {[round(1e3 * t, 3) for _, t in writes]} ms")
+
+
+def average_hold(model, make_state, dt, tmp):
+    """An ``AveragedTimeInterval`` writer of b (auto-wrapped: the sum on the
+    card) beside a ``WindowedTimeAverage`` of host copies of b (numpy sums)
+    on the same schedule: their records must be equal bit for bit."""
+    n, stop = SIMULATION["average"]
+    interval = fp32_ticks(dt, n)
+    sched = AveragedTimeInterval(interval, window=interval / 2)
+    g = model.grid
+    samples = []
+
+    def host_b(sim):
+        samples.append(sim.model_iteration())
+        return g.interior(sim.state["solution"]["b"]).cpu().numpy()
+
+    sim = Simulation(model, state=make_state(), dt=dt, stop_iteration=stop)
+    host = WindowedTimeAverage(host_b, schedule=sched)
+    sim.diagnostics["b on the host"] = host
+    path = os.path.join(tmp, "b_average.nc")
+    writer = NetCDFOutputWriter(dict(b_avg="b", b_host=host), path, schedule=sched,
+                                format="classic")
+    sim.output_writers["average"] = writer
+    sim.run()
+    writer.close()
+    if not isinstance(writer.outputs["b_avg"], WindowedTimeAverage):
+        raise AssertionError("the averaged writer's output was not wrapped")
+    from scipy.io import netcdf_file
+    with netcdf_file(path, "r", mmap=False) as f:
+        dev, hst = f.variables["b_avg"][:], f.variables["b_host"][:]
+    err = float(np.abs(dev - hst).max())
+    if dev.shape[0] != 2 or err != 0.0 or len(samples) < 3:
+        raise AssertionError(f"device average: {dev.shape[0]} records, max|Δ| {err} "
+                             f"against the host accumulation, samples {samples}")
+    print(f"simulation device average of b over iterations {samples[1:]} "
+          f"(interval {interval!r} s, window half): max|Δ| {err} against a host numpy "
+          "accumulation of the same samples")
+    return err
+
+
+def simulation_path(model, state, dt, tmp):
+    """The simulation path's ``Simulation`` (``SIMULATION``) of ``model``
+    from ``state``, its files in ``tmp``: the wizard, a callback keeping a
+    copy of b's interior (and its iteration) at each firing of the fields
+    writer, the fields writer, the averaged writer and the checkpointer.
+    Returns (sim, that copy's dict)."""
+    c = SIMULATION
+    g = model.grid
+    nz, levels = g.Nz, c["w_levels"]
+    last_b = {}
+    sim = Simulation(model, state=state, dt=dt)
+    sim.callbacks["wizard"] = Callback(
+        TimeStepWizard(cfl=0.7, max_change=1.2, max_dt=0.1, diffusive_cfl=0.125),
+        IterationInterval(c["checkpoint_every"]))
+    sim.callbacks["last b"] = Callback(
+        lambda s: last_b.update(b=g.interior(s.state["solution"]["b"]).clone(),
+                                iteration=s.model_iteration()),
+        IterationInterval(c["writer_every"]))
+    top_w = lambda s: windowed(s.model.fields(s.state)["w"], g,
+                               (None, None, (nz - levels, nz))).data
+    sim.output_writers["fields"] = NetCDFOutputWriter(
+        dict(b="b", w_top=top_w), os.path.join(tmp, "fields.nc"),
+        schedule=IterationInterval(c["writer_every"]), format="classic")
+    interval = fp32_ticks(dt, c["checkpoint_every"])
+    sim.output_writers["averages"] = NetCDFOutputWriter(
+        dict(b_avg="b"), os.path.join(tmp, "averages.nc"),
+        schedule=AveragedTimeInterval(interval, window=interval / 2), format="classic")
+    sim.output_writers["checkpointer"] = Checkpointer(
+        IterationInterval(c["checkpoint_every"]), dir=tmp, keep=1)
+    return sim, last_b
+
+
+def phase_simulation():
+    """The simulation path (``SIMULATION``): the timed run with its
+    launches counted, its checks and readings, the NetCDF read-back, the
+    device average's hold and the two pickup holds; returns the timed
+    run's launch counts."""
+    c = SIMULATION
+    model, state, dt = wall_path_model("horizontal convection")
+    g = model.grid
+    with tempfile.TemporaryDirectory() as tmp:
+        sim, last_b = simulation_path(model, state, dt, tmp)
+        del state
+        firings = {name: [] for name in sim.output_writers}
+        for name, w in sim.output_writers.items():
+            timed_firings(w, firings[name])
+        fields_path = sim.output_writers["fields"].filepath
+        # one iteration a step of run_steps, which counts and times them
+        _, per_it, launches = run_steps(
+            "simulation", model, None, lambda _: sim.time_step(), c["warmup"],
+            c["iterations"], plain=False)
+        iterations = sim.model_iteration()
+        if iterations != c["warmup"] + c["iterations"] or sim.dt != dt:
+            raise AssertionError(f"simulation path: {iterations} iterations, Δt {sim.dt!r} "
+                                 f"(the path's {dt!r})")
+        # the path's checks (PERF.md §2)
+        state = sim.state
+        check_finite("simulation", model, state, ("pNHS", "pHY"))
+        ratio = flat_divergence_ratio(model, state)
+        b = g.interior(state["solution"]["b"])
+        lo, hi = float(b.min()), float(b.max())
+        if not (ratio <= 1e-5 and lo >= -1.001 * HC["b_star"] and hi <= 1.001 * HC["b_star"]):
+            raise AssertionError(f"simulation: max|div u|*dx/max|u| {ratio:.3e}, b in "
+                                 f"[{lo}, {hi}]")
+        for w in sim.output_writers.values():
+            if isinstance(w, NetCDFOutputWriter):
+                w.close()
+        from scipy.io import netcdf_file
+        with netcdf_file(fields_path, "r", mmap=False) as f:
+            records, b_last = f.variables["b"].shape[0], f.variables["b"][-1]
+            w_shape = f.variables["w_top"].shape
+        readback = float(np.abs(b_last - last_b["b"].cpu().numpy()).max())
+        if (readback != 0.0 or records != iterations // c["writer_every"] + 1
+                or last_b["iteration"] != iterations // c["writer_every"] * c["writer_every"]):
+            raise AssertionError(f"simulation: the last b record differs by {readback} from "
+                                 f"the state at iteration {last_b['iteration']}")
+        used = {k: n for k, n in launches.items() if n}
+        # the timed iterations' firings (the warm-up's, at initialize, apart)
+        ms = {k: [1e3 * t for it, t in v if it > c["warmup"]] for k, v in firings.items()}
+        loop = per_it * 1e3 - sum(map(sum, ms.values())) / c["iterations"]
+        bare = BARE_STEP_MS["horizontal convection"]
+        print(f"simulation: {'x'.join(map(str, g.shape))} fp32 through Simulation, "
+              f"{c['iterations']} timed iterations at dt {dt:.6e}: "
+              f"{per_it * 1e3:.3f} ms/iteration, {loop:.3f} "
+              f"ms/iteration excluding firings, bare model.step {bare:.3f} ms/step "
+              f"(ratio {loop / bare:.4f}); "
+              f"ms per firing: fields writer {ms['fields']}, averaged writer "
+              f"{ms['averages']}, checkpointer {ms['checkpointer']}; "
+              f"{records} b records of {tuple(b_last.shape)} and w_top {w_shape}; last b record "
+              f"max|Δ| {readback} against the state; max|div u|*dx/max|u| {ratio:.3e}; b in "
+              f"[{lo:.6f}, {hi:.6f}]; launches {used} on {card_line()}")
+        del sim, state, b, last_b
+        torch.cuda.empty_cache()
+        make_state = lambda: wall_path_model("horizontal convection")[1]
+        average_hold(model, make_state, dt, tmp)
+        every, stop = c["continuation"]
+        pickup_hold("simulation", model, make_state, dt, every, stop, True, tmp)
+        del model
+        torch.cuda.empty_cache()
+        ab2 = model_for(N, torch.float32)
+        if not (ab2.fused_step and ab2.g_interior):
+            raise AssertionError("the AB2 bench path does not take K1's fused branch")
+        every, stop = c["ab2"]
+        # A checkpoints at its stop too: B picks up the iteration by number
+        pickup_hold(f"AB2 {N}^3", ab2, lambda: bench_state(ab2), PATHS["AB2"][1], every,
+                    stop, every, tmp)
+        del ab2
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     phase_device()
     phase_build()
@@ -2817,6 +3103,7 @@ def main():
         by_path[path], wall_readings[path], k6_err = phase_wall_path(path)
         flat_worst[K6] = max(flat_worst.get(K6, 0.0), k6_err)
     k2_immersed = phase_k2_immersed()
+    by_path["simulation"] = phase_simulation()
     by_path["seamount"], wall_readings["seamount"], k6_err = phase_seamount()
     flat_worst[K6] = max(flat_worst[K6], k6_err)
     flat_worst[K2] = max(flat_worst[K2], *(f["max_abs_err"] for f in k2_immersed))

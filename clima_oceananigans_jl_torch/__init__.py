@@ -23,9 +23,14 @@ kernels for Hopper in ``csrc/``: the fused AB2 advance (K1), the fused
 advective tendencies (K2), the shallow-water core (K3a), the general
 projection's divergence and gradient (K3b, K3c), the hydrostatic w/pHY′
 columns (K4a) and tendencies (K4b), the barotropic substeps (K5), the
-halo fills (K6) and the batched tridiagonal solve (T1). Importing it needs no GPU: a kernel is compiled at its
-first launch on a CUDA tensor. Grids live on the card unless the caller
-passes ``device="cpu"``.
+halo fills (K6) and the batched tridiagonal solve (T1). Around the models
+stand the JAX package's user surface: ``Simulation`` with its schedules,
+callbacks, ``TimeStepWizard`` and NaN checker, the CFL diagnostics, fields
+and abstract operations, the output writers, checkpoints and pickup, and
+the readers. Importing it needs no GPU: a kernel is compiled at its
+first launch on a CUDA tensor, and h5py is imported only by the writers
+and readers that use it. Grids live on the card unless the caller passes
+``device="cpu"``.
 """
 
 from .grids.topology import BOUNDED, FLAT, PERIODIC, Topology
@@ -34,9 +39,14 @@ from .grids.latlon import LatitudeLongitudeGrid
 from .utils.location import C, CENTER, F, U_LOC, V_LOC, W_LOC
 from .boundary_conditions.bcs import (
     BC, FieldBCs, FluxBC, GradientBC, OpenBC, Periodic, ValueBC,
-    default_bcs, fill_halos, regularize_bcs,
+    apply_flux_bcs, default_bcs, fill_halos, regularize_bcs,
 )
-from .fields.field import Field, new_field, set_field
+from .fields.field import (
+    CenterField, Field, FunctionField, TracerFields, VelocityFields, XFaceField,
+    YFaceField, ZFaceField, average, field_norm, integral, interpolate,
+    new_field, regrid, set_field, windowed,
+)
+from .fields.model_fields import BuoyancyField, PressureField
 from .advection.schemes import (CenteredSecondOrder, PositiveWENO5,
                                 UpwindBiasedFifthOrder, WENO5)
 from .advection.vector_invariant import VectorInvariant
@@ -63,3 +73,16 @@ from .models.free_surface import (ExplicitFreeSurface, ImplicitFreeSurface,
 from .models.hydrostatic import HydrostaticFreeSurfaceModel
 from .immersed.immersed import (GridFittedBottom, GridFittedBoundary,
                                 ImmersedBoundary, PartialCellBottom)
+from .simulation.simulation import Callback, NaNChecker, Simulation, TimeStepWizard
+from .utils.schedules import (
+    AndSchedule, AveragedTimeInterval, IterationInterval, OrSchedule,
+    SpecifiedTimes, TimeInterval, WallTimeInterval,
+)
+from .abstract_operations import (
+    Average, GridMetric, Integral, KernelFunctionOperation,
+    MultiaryOperation, at, compute, partial_x, partial_y, partial_z,
+)
+from .output.writers import HDF5OutputWriter, NetCDFOutputWriter, WindowedTimeAverage
+from .output.checkpointer import Checkpointer
+from .output.readers import FieldDataset, FieldTimeSeries
+from .diagnostics.diagnostics import AdvectiveCFL, CFL, DiffusiveCFL, StateChecker

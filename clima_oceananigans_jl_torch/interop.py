@@ -19,7 +19,8 @@ package's state for ``model``:
   tracer, a tuple per closure tuple) are cut to the port's with-halo
   shape around the interior, halos and all, since the next step's
   interpolation onto the flux faces reads their first halo cells;
-- the 0-d ``clock`` and ``previous_dt`` leaves become host numbers;
+- the 0-d ``clock`` and ``previous_dt`` leaves become numpy scalars of
+  their own dtype (the port's clock ticks in it);
 - a shallow-water state (RK3) has ``solution`` and ``clock`` only;
 - a hydrostatic state also carries ``eta`` (X, Y, 1) and the diagnosed
   ``w`` and ``pHY``: their x/y interiors (all z levels, so w keeps its
@@ -27,7 +28,14 @@ package's state for ``model``:
   ``G_prev`` (an ``eta`` entry too under an explicit free surface) comes
   with halos (the JAX plain path) or x/y-interior (the JAX fused
   advance) and goes in with zero x/y halos; a closure's
-  ``diffusivities`` go in as the nonhydrostatic model's do.
+  ``diffusivities`` go in as the nonhydrostatic model's do; a state
+  without ``w`` and ``pHY`` (the JAX kernel that rebuilds them each step,
+  ``wphy_in_kernel``) gets both, and the diffusivities, from the port's
+  ``update_state``;
+- ``layout="xzy"`` reads a JAX hydrostatic state stored (x, z, y) (its
+  ``state_layout``, a checkpoint's ``__state_layout``): the solution,
+  ``G_prev`` but an explicit free surface's ``eta``, ``w`` and ``pHY``
+  are transposed back to (x, y, z) first.
 
 ``state_to_numpy`` goes the other way, keeping the port's layout (halo
 3, ``G_prev`` as the model keeps it), which the JAX package's plain step
@@ -94,15 +102,33 @@ def _hydrostatic_from_numpy(model, state, out, t):
     g = model.grid
     out["eta"] = fill2d(_xy_interior(state["eta"], g), g, ETA_LOC,
                         model.eta_bcs, t)
-    out["w"] = fill_halos(_xy_interior(state["w"], g), g, W_LOC, model.w_bcs)
+    if "w" in state:
+        out["w"] = fill_halos(_xy_interior(state["w"], g), g, W_LOC, model.w_bcs)
     if "pHY" in state:
         out["pHY"] = fill_halos(_xy_interior(state["pHY"], g), g, CENTER,
                                 model.pressure_bcs, t)
     out["G_prev"] = {n: _xy_interior(x, g) for n, x in state["G_prev"].items()}
-    out["previous_dt"] = float(np.asarray(state["previous_dt"]))
+    out["previous_dt"] = _host(state["previous_dt"])
     if "diffusivities" in state:
         out["diffusivities"] = _diffusivities_from_numpy(state["diffusivities"], g)
-    return out
+    return out if "w" in state else model.update_state(out)
+
+
+def _natural(state):
+    """A JAX "xzy" state with its (x, z, y) arrays transposed to (x, y, z)."""
+    xyz = lambda a: np.ascontiguousarray(np.transpose(np.asarray(a), (0, 2, 1)))
+    state = dict(state)
+    for k in ("solution", "G_prev"):
+        state[k] = {n: v if n == "eta" else xyz(v) for n, v in state[k].items()}
+    for k in ("w", "pHY"):
+        if k in state:
+            state[k] = xyz(state[k])
+    return state
+
+
+def _host(leaf):
+    """A 0-d leaf as a numpy scalar of its own dtype."""
+    return np.asarray(leaf)[()]
 
 
 def _diffusivities_from_numpy(d, grid):
@@ -130,8 +156,11 @@ def _diffusivities_to_numpy(d):
     return d
 
 
-def state_from_numpy(model, state):
-    """The port's state for ``model`` from a numpy-leaved JAX state."""
+def state_from_numpy(model, state, layout="natural"):
+    """The port's state for ``model`` from a numpy-leaved JAX state
+    (``layout``: the JAX model's ``state_layout``, "natural" or "xzy")."""
+    if layout == "xzy":
+        state = _natural(state)
     g = model.grid
     as_t = lambda a: torch.as_tensor(np.array(_interior(a, g.shape)),
                                      dtype=g.dtype, device=g.device)
@@ -142,7 +171,7 @@ def state_from_numpy(model, state):
                          model.bcs[n], t)
            for n in model.prognostic_names()}
     out = dict(solution=sol,
-               clock=Clock(t, int(np.asarray(clock.iteration)),
+               clock=Clock(_host(clock.time), int(np.asarray(clock.iteration)),
                            int(np.asarray(getattr(clock, "stage", 0)))))
     if hasattr(model, "free_surface"):
         return _hydrostatic_from_numpy(model, state, out, t)
@@ -156,7 +185,7 @@ def state_from_numpy(model, state):
                {n: _with_wall_face(g, n, g.pad(x), state["G_prev"][n])
                 for n, x in gp.items()},
                pNHS=g.pad(as_t(state["pNHS"])),
-               previous_dt=float(np.asarray(state["previous_dt"])))
+               previous_dt=_host(state["previous_dt"]))
     if "pHY" in state:
         out["pHY"] = fill_halos(g.pad(as_t(state["pHY"])), g, CENTER,
                                 model.pressure_bcs, t)

@@ -97,7 +97,8 @@ from ..ops.fused_hydrostatic import (fused_hydrostatic_tendencies,
 from ..ops.fused_hydrostatic import unsupported_reason as kernel_unsupported_reason
 from ..solvers.tridiagonal import (solve_batched_tridiagonal,
                                    solve_batched_tridiagonal_reference)
-from ..timesteppers.steppers import Clock, ab2_coefficients, ab2_substep
+from ..timesteppers.steppers import (Clock, ab2_coefficients, ab2_substep,
+                                     dt_changed, host_scalar)
 from ..utils.location import CENTER, U_LOC, V_LOC, W_LOC
 from .free_surface import (ETA_LOC, ExplicitFreeSurface, ImplicitFreeSurface,
                            SplitExplicitFreeSurface, barotropic_mode,
@@ -289,8 +290,9 @@ class HydrostaticFreeSurfaceModel:
         G_prev = {k: torch.zeros_like(v) for k, v in sol.items()}
         if self._explicit_fs:
             G_prev["eta"] = torch.zeros_like(eta_arr)
-        state = dict(solution=sol, eta=eta_arr, clock=clock or Clock(0.0, 0),
-                     G_prev=G_prev, previous_dt=-1.0)
+        state = dict(solution=sol, eta=eta_arr,
+                     clock=clock or Clock(host_scalar(g.dtype, 0.0), 0),
+                     G_prev=G_prev, previous_dt=host_scalar(g.dtype, -1.0))
         return self.update_state(state)
 
     def fill_all_halos(self, sol, t=0.0, kernels=None, eta=None):
@@ -400,7 +402,8 @@ class HydrostaticFreeSurfaceModel:
         grid = self.grid
         fs = self.free_surface
         clock0 = state["clock"]
-        euler = clock0.iteration == 0 or abs(state["previous_dt"] - dt) > 1e-14
+        tick, dt = dt, float(dt)
+        euler = clock0.iteration == 0 or dt_changed(state["previous_dt"], tick)
         G_prev = state["G_prev"]
         sol0 = state["solution"]
         # a vertically implicit closure's z diffusion (T1), after the AB2
@@ -442,7 +445,8 @@ class HydrostaticFreeSurfaceModel:
                 u, v = fs.corrector(grid, sol["u"], sol["v"], U_av, V_av)
                 sol = dict(sol, u=u, v=v)
         new_state = dict(state, solution=sol, eta=eta, G_prev=G,
-                         clock=clock0.tick(dt), previous_dt=float(dt))
+                         clock=clock0.tick(tick),
+                         previous_dt=host_scalar(grid.dtype, tick))
         return self.update_state(new_state, kernels)
 
     # -- diagnostics ---------------------------------------------------------------

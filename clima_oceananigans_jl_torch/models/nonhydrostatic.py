@@ -65,8 +65,9 @@ and so do background fields, as in the JAX package.
 State: the JAX package's keys and shapes. ``solution`` holds with-halo
 tensors; ``G_prev`` is halo-free (nx, ny, nz) when ``g_interior`` holds
 (the fused AB2 branch with z-halo-free walls), with-halo otherwise;
-``pNHS`` and ``pHY`` are with-halo tensors; ``clock`` and ``previous_dt``
-are host numbers.
+``pNHS`` and ``pHY`` are with-halo tensors; ``clock.time`` and
+``previous_dt`` are numpy scalars of the grid's dtype, as the JAX package's
+0-d arrays are.
 """
 from __future__ import annotations
 
@@ -84,9 +85,9 @@ from ..closures.scalar_diffusivity import (cell_diffusion_timescale,
                                            momentum_diffusion,
                                            tracer_diffusion)
 from ..fields.background import materialize_background
-from ..fields.field import new_field, set_field
+from ..fields.field import Field, new_field, set_field
 from ..forcings.forcing import regularize_forcing
-from ..grids.topology import BOUNDED, PERIODIC
+from ..grids.topology import BOUNDED, FLAT, PERIODIC
 from ..immersed.immersed import ImmersedBoundary, ImmersedGrid, PartialCellBottom
 from ..ops import stencil as st
 from ..ops.fused_fill import (fields_unsupported_reason, fused_fill_halos,
@@ -107,7 +108,8 @@ from ..solvers.tridiagonal import (fourier_tridiagonal,
                                    solve_batched_tridiagonal,
                                    solve_batched_tridiagonal_reference)
 from ..timesteppers.steppers import (RK3_GAMMA, RK3_ZETA, Clock, ab2_substep,
-                                     rk3_substep)
+                                     dt_changed, host_scalar, rk3_substep,
+                                     scaled)
 from ..utils.location import CENTER, U_LOC, V_LOC, W_LOC
 
 #: the kernels' wrappers a step calls, by name: the fused AB2 advance (K1),
@@ -251,9 +253,10 @@ class NonhydrostaticModel:
             f = new_field(g, locs[name], self.bcs[name])
             sol[name] = set_field(f, g, values.get(name, 0.0)).data
         g_shape = g.shape if self.g_interior else g.total_shape
-        state = dict(solution=sol, clock=clock or Clock(0.0, 0),
+        state = dict(solution=sol,
+                     clock=clock or Clock(host_scalar(g.dtype, 0.0), 0),
                      G_prev={k: g.zeros(g_shape) for k in sol},
-                     pNHS=g.zeros(), previous_dt=-1.0)
+                     pNHS=g.zeros(), previous_dt=host_scalar(g.dtype, -1.0))
         return self.update_state(state)
 
     def _g_prev_in_layout(self, G_prev):
@@ -535,10 +538,13 @@ class NonhydrostaticModel:
         return self._ab2_step(state, dt, kernels)
 
     def _ab2_step(self, state, dt, kernels):
-        """One quasi-AB2 step (Euler at iteration 0 and when Δt changed)."""
+        """One quasi-AB2 step (Euler at iteration 0 and when Δt changed).
+        The clock and ``previous_dt`` take Δt as given (``dt_changed``,
+        ``Clock.tick``); the kernels and tensors take ``float(dt)``."""
         grid = self.grid
         clock0 = state["clock"]
-        euler = clock0.iteration == 0 or abs(state["previous_dt"] - dt) > 1e-14
+        tick, dt = dt, float(dt)
+        euler = clock0.iteration == 0 or dt_changed(state["previous_dt"], tick)
         state = dict(state, G_prev=self._g_prev_in_layout(state["G_prev"]))
         if self.fused_step and not general_route(self):
             sol, G = kernels["advance"](self, state, dt, euler)
@@ -560,13 +566,16 @@ class NonhydrostaticModel:
                                        kernels["tridiagonal"])
             state = self.project_velocities(dict(state, solution=sol), dt,
                                             kernels)
-        state = dict(state, clock=clock0.tick(dt), G_prev=G,
-                     previous_dt=float(dt))
+        state = dict(state, clock=clock0.tick(tick), G_prev=G,
+                     previous_dt=host_scalar(grid.dtype, tick))
         return self.update_state(state, kernels)
 
     def _rk3_step(self, state, dt, kernels):
-        """One low-storage RK3 step: three stages, each projected."""
+        """One low-storage RK3 step: three stages, each projected; the
+        stage clock ticks by (γ+ζ)Δt formed as the JAX step forms it
+        (``scaled``)."""
         clock0 = state["clock"]
+        tick, dt = dt, float(dt)
         G_prev = None
         for gamma, zeta in zip(RK3_GAMMA, RK3_ZETA):
             G = self.tendencies(state, kernels)
@@ -578,11 +587,12 @@ class NonhydrostaticModel:
                                        clock0.time, kernels["tridiagonal"])
             state = self.project_velocities(dict(state, solution=sol),
                                             stage_dt, kernels)
-            state = dict(state, clock=state["clock"].tick(stage_dt, stage=True))
+            state = dict(state, clock=state["clock"].tick(
+                scaled(gamma + zeta, tick), stage=True))
             state = self.update_state(state, kernels)
             G_prev = G
-        clock = Clock(clock0.time + dt, clock0.iteration + 1, 0)
-        return dict(state, clock=clock, G_prev=G_prev, previous_dt=float(dt))
+        return dict(state, clock=clock0.tick(tick), G_prev=G_prev,
+                    previous_dt=host_scalar(self.grid.dtype, tick))
 
     # -- diagnostics ---------------------------------------------------------------
     def cell_diffusion_timescale(self, state):
@@ -591,3 +601,28 @@ class NonhydrostaticModel:
         return cell_diffusion_timescale(self.closure, self.grid,
                                         state.get("diffusivities"),
                                         self.tracer_names)
+
+    def cell_advection_timescale(self, state):
+        """min Δ/|u| over the interior for u, v and w (|u| floored at
+        1e-30), skipping Flat axes: a 0-d tensor on the grid's device."""
+        sol = state["solution"]
+        grid = self.grid
+        scales = []
+        for axis, (name, loc) in enumerate((("u", U_LOC), ("v", V_LOC),
+                                            ("w", W_LOC))):
+            if grid.topology[axis] is FLAT:
+                continue
+            val = grid.spacing(axis, loc) / sol[name].abs().clamp_min(1e-30)
+            scales.append(grid.interior(val).min())
+        return torch.stack(scales).min()
+
+    def fields(self, state):
+        """Fields of the prognostic tensors, pNHS and pHY′ (where the state
+        has it), with their locations and BCs."""
+        locs = self._locs()
+        out = {name: Field(arr, locs[name], self.bcs[name])
+               for name, arr in state["solution"].items()}
+        out["pNHS"] = Field(state["pNHS"], CENTER, self.pressure_bcs)
+        if "pHY" in state:
+            out["pHY"] = Field(state["pHY"], CENTER, self.pressure_bcs)
+        return out

@@ -37,7 +37,8 @@ from ..grids.topology import FLAT
 from ..ops import stencil as st
 from ..ops.fused_tendencies import (fused_shallow_water_tendencies,
                                     fused_shallow_water_tendencies_reference)
-from ..timesteppers.steppers import RK3_GAMMA, RK3_ZETA, Clock, rk3_substep
+from ..timesteppers.steppers import (RK3_GAMMA, RK3_ZETA, Clock, host_scalar,
+                                     rk3_substep, scaled)
 from ..utils.location import CENTER, U_LOC, V_LOC
 
 #: the kernel's wrapper a step calls, by name: the conservative core (K3a)
@@ -125,7 +126,8 @@ class ShallowWaterModel:
         for name in self.prognostic_names():
             f = new_field(g, locs[name], self.bcs[name])
             sol[name] = set_field(f, g, vals.get(name, 0.0)).data
-        return dict(solution=sol, clock=clock or Clock(0.0, 0))
+        return dict(solution=sol,
+                    clock=clock or Clock(host_scalar(g.dtype, 0.0), 0))
 
     def fill_all_halos(self, sol, t=0.0):
         """Fill the halos of every field of ``sol`` in place; returns it."""
@@ -219,15 +221,16 @@ class ShallowWaterModel:
         """One RK3 step: three stages of ``tendencies`` → ``rk3_substep`` →
         ``fill_all_halos``. ``kernels`` as in ``tendencies``."""
         clock0 = state["clock"]
+        tick, dt = dt, float(dt)
         G_prev = None
         for gamma, zeta in zip(RK3_GAMMA, RK3_ZETA):
             G = self.tendencies(state, kernels)
             sol = rk3_substep(state["solution"], G, G_prev, dt, gamma, zeta)
-            clock = state["clock"].tick((gamma + zeta) * dt, stage=True)
+            clock = state["clock"].tick(scaled(gamma + zeta, tick), stage=True)
             state = dict(state, solution=self.fill_all_halos(sol, clock.time),
                          clock=clock)
             G_prev = G
-        return dict(state, clock=Clock(clock0.time + dt, clock0.iteration + 1, 0))
+        return dict(state, clock=clock0.tick(tick))
 
     def cell_diffusion_timescale(self, state):
         """min Δ²/max(ν, κ) over this model's closure; +inf when nothing
