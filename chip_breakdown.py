@@ -8,8 +8,8 @@
                               [ab2-implicit] [t1] [t1-variants]
                               [near-global] [near-global-weno] [diffusive]
                               [horizontal-convection] [2d-turbulence]
-                              [seamount] [simulation]
-                              [sass-regular --parent DIR]
+                              [seamount] [simulation] [internal-wave]
+                              [weno5-kernels] [sass-regular --parent DIR]
                               [--steps N]
 
 With no part named, runs them all. Prints the card's name and power
@@ -107,7 +107,7 @@ limit first. Needs a card; without one it exits with an error.
   at 4096×1×2048 fp64 on (Periodic, Flat, Bounded): an immersed bottom,
   PositiveWENO5 tracers, quasi-AB2 on the general branch) after its
   warm-up steps: first ptxas's registers, stack and spills of every K2
-  instantiation (``k2_ptxas``), then K2, the eager diffusion (fluxes zeroed
+  instantiation (``ptxas``), then K2, the eager diffusion (fluxes zeroed
   at solid faces), ``mask_state`` and ``mask_tendency``, the immersed
   bottom's fluxes, the rest of ``tendencies``, ``ab2_substep``, the
   projection's copies and pads with their K6 fills, K3b, the pressure
@@ -120,8 +120,27 @@ limit first. Needs a card; without one it exits with an error.
   device average, the writers (their copies to the host apart from their
   file writes) and the checkpoint write (its copies apart); then the
   idle share over 50 iterations.
-- ``sass-regular``: K1's instantiations and K2's regular ones (IM false)
-  as built here and from the parent tree's ``csrc`` (``--parent DIR``),
+- ``internal-wave``: ``chip_smoke.py``'s internal-wave path
+  (examples/internal_wave.py at 4096×1×4096 fp64 on (Periodic, Flat,
+  Periodic): C4, RK3, FPlane, ScalarDiffusivity, the background buoyancy
+  N²z) after 2 warm-up steps: first ptxas's registers, stack and spills of
+  every instantiation of K1, K2 and K3a (``ptxas``), then K2, the
+  background fields' cross terms (the plain ``div_*`` fluxes of the JAX
+  package's route), the other eager terms (``tendencies`` less those),
+  ``rk3_substep``, the projection's copies and pads with their K6 fills,
+  K3b, the pressure solve (FFTs on x and z), K3c, the correction,
+  ``update_state`` and its K6 fills.
+- ``weno5-kernels``: K1 on the 256³ bench configuration, K2 with WENO5
+  on the RK3 path's fields' shapes (random fields) at 256³ fp32, on a
+  regular and on the wind-mixing example's stretched z, K2's immersed form
+  on the seamount path's fp64 fields, and K3a with WENO5 on 16384² fp32
+  random uh, vh, h, each by CUDA
+  events over 20 calls and by torch.profiler: the WENO5 forms whose time a
+  change of the shared advection core could move. It uses only names the
+  port and ``chip_smoke.py`` have had since the seamount slice, so a
+  copy of this file inside an older tree measures that tree.
+- ``sass-regular``: K1's and K2's instantiations without ``ANY`` as
+  built here and from the parent tree's ``csrc`` (``--parent DIR``),
   their SASS by ``cuobjdump``: instruction counts, and whether the
   sequences are identical, and identical with constants masked (the
   argument struct grew, so constant-bank offsets may move).
@@ -381,13 +400,13 @@ def walls(path, steps):
     breakdown(f"{path} {size} fp32 step", step, state, events, patches, steps, inner)
 
 
-def k2_ptxas():
-    """ptxas's registers, stack and spills of every K2 instantiation
-    (``csrc/fused_advective_tendencies.cu``: T, ZS, FL, XY, IM), one line
-    each, from a build as the port builds it plus ``-Xptxas -v``."""
+def ptxas(source, label):
+    """ptxas's registers, stack and spills of every instantiation in
+    ``csrc/<source>.cu``, one line each, from a build as the port builds it
+    plus ``-Xptxas -v``."""
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-               f"{tmp}/lib.so", str(_build.CSRC / "fused_advective_tendencies.cu")]
+               f"{tmp}/lib.so", str(_build.CSRC / f"{source}.cu")]
         log = subprocess.run(cmd, capture_output=True, text=True, check=True).stderr
     entry, props, rows = None, "", []
     for line in log.splitlines():
@@ -403,9 +422,9 @@ def k2_ptxas():
     if len(names) != len(rows):
         names = [e for e, _, _ in rows]
     for name, (_, used, props) in zip(names, rows):
-        print(f"ptxas K2 {name.replace('fused_advective_tendencies_kernel', 'kernel')}: "
+        print(f"ptxas {label} {name.replace(source + '_kernel', 'kernel')}: "
               f"{used}; {props}")
-    print(f"ptxas K2: {len(rows)} instantiations")
+    print(f"ptxas {label}: {len(rows)} instantiations")
 
 
 def kernel_sass(csrc, name):
@@ -433,8 +452,8 @@ def kernel_sass(csrc, name):
 
 
 def sass_regular(steps, parent):
-    """K1's instantiations and K2's regular ones (no immersed flags, no
-    limiter) as built here against the same ones built from the parent
+    """K1's and K2's instantiations of the first four scheme codes (ANY
+    false) as built here against the same ones built from the parent
     tree's ``csrc`` (``--parent DIR``): their SASS instruction sequences,
     counted, and compared with constants (immediates and constant-bank
     offsets) masked, which differ where the argument struct grew."""
@@ -448,13 +467,11 @@ def sass_regular(steps, parent):
         for fn, ins in sorted(here.items()):
             if kernel not in fn:
                 continue
-            old_fn = fn
-            if name == "fused_advective_tendencies":
-                # the parent's K2 has no IM parameter: its forms are this
-                # tree's with IM false
-                if ", false>(" not in fn:
-                    continue
-                old_fn = fn.replace(", false>(", ">(")
+            # the parent's kernels have no ANY parameter: their forms are
+            # this tree's without it
+            if ", false>(" not in fn:
+                continue
+            old_fn = fn.replace(", false>(", ">(")
             old = there.get(old_fn)
             if old is None:
                 print(f"sass {fn}: {len(ins)} instructions; no parent counterpart")
@@ -482,7 +499,7 @@ def seamount(steps):
     the flux BCs), the projection's copies and pads with their K6 fills,
     K3b, the pressure solve (FFT in x, DCT in z), K3c, the correction, and
     ``update_state`` with its K6 fills apart."""
-    k2_ptxas()
+    ptxas("fused_advective_tendencies", "K2")
     model = chip_smoke.seamount_model()
     state = chip_smoke.seamount_state(model)
     c = chip_smoke.SEAMOUNT
@@ -693,33 +710,6 @@ def les(path, steps):
         model.update_state = update_state
 
 
-def t1_ptxas():
-    """ptxas's registers, stack and spills of every T1 instantiation, one
-    line each, from a build of ``csrc/batched_tridiagonal.cu`` as the port
-    builds it plus ``-Xptxas -v``."""
-    with tempfile.TemporaryDirectory() as tmp:
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-               f"{tmp}/lib.so", str(_build.CSRC / "batched_tridiagonal.cu")]
-        log = subprocess.run(cmd, capture_output=True, text=True, check=True).stderr
-    entry, props, rows = None, "", []
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-        elif "bytes stack frame" in line:
-            props = line.split(":", 1)[-1].strip()
-        elif "Used" in line and "registers" in line and entry:
-            rows.append((entry, line.split(":", 1)[-1].strip(), props))
-            entry = None
-    names = subprocess.run(["c++filt"], input="\n".join(e for e, _, _ in rows),
-                           capture_output=True, text=True).stdout.splitlines()
-    if len(names) != len(rows):
-        names = [e for e, _, _ in rows]
-    for name, (_, used, props) in zip(names, rows):
-        print(f"ptxas T1 {name.replace('batched_tridiagonal_kernel', 'kernel')}: "
-              f"{used}; {props}")
-    print(f"ptxas T1: {len(rows)} instantiations")
-
-
 def t1(steps):
     """T1 as built: ptxas's registers, stack and spills of every
     instantiation, then its device time alone (torch.profiler, two rounds),
@@ -731,7 +721,7 @@ def t1(steps):
     Fourier solve also in fp64, and beside the forms a copy of d (one read,
     one write)."""
     from clima_oceananigans_jl_torch.solvers import tridiagonal as tt
-    t1_ptxas()
+    ptxas("batched_tridiagonal", "T1")
     reps = max(steps, 20)
     kernel_ms = lambda fn: ([chip_smoke.device_ms(fn, reps, "tridiagonal") for _ in range(2)],
                             [queued_ms(fn, reps) for _ in range(2)])
@@ -1292,6 +1282,99 @@ def simulation(steps):
                 w.close()
 
 
+def internal_wave(steps):
+    """chip_smoke.py's internal-wave path after its warm-up steps, broken
+    down (the docstring's ``internal-wave``)."""
+    from clima_oceananigans_jl_torch.examples import internal_wave as iw
+    for source, label in (("fused_ab2_advance", "K1"), ("fused_advective_tendencies", "K2"),
+                          ("fused_shallow_water_tendencies", "K3a")):
+        ptxas(source, label)
+    model = iw.build(chip_smoke.INTERNAL_WAVE["N"], "cuda")
+    state = iw.initial_state(model)
+    for _ in range(chip_smoke.INTERNAL_WAVE["warmup"]):
+        state = model.step(state, iw.DT)
+    torch.cuda.synchronize()
+    events = collections.defaultdict(list)
+    fill = nm.KERNELS["fill"]
+    update_state = model.update_state
+    model.update_state = lambda s, kernels=None: update_state(
+        s, dict(kernels or {}, fill=timed(events, "update_state's K6 fills", fill)))
+    kernels = {"advect": timed(events, "K2", nm.KERNELS["advect"]),
+               "divergence": timed(events, "K3b", nm.KERNELS["divergence"]),
+               "gradient": timed(events, "K3c", nm.KERNELS["gradient"])}
+    copies = "copies and pads with their K6 fills"
+    cross = "background cross terms (plain div_*)"
+    patches = [(model, "tendencies", "tendencies"),
+               (nm, "div_vu", cross), (nm, "div_vv", cross), (nm, "div_vw", cross),
+               (nm, "rk3_substep", "rk3_substep"),
+               (model, "project_velocities", "project_velocities"),
+               (model, "_filled_velocity_copies", copies),
+               (model, "_filled_pressure", copies),
+               (model.pressure_solver, "solve", "pressure solve"),
+               (model, "update_state", "update_state")]
+    inner = {"tendencies": (("K2", cross), "the other eager terms (tendencies less K2 "
+                                           "and the cross terms)"),
+             "project_velocities": ((copies, "K3b", "pressure solve", "K3c"),
+                                    "the correction (project_velocities less "
+                                    "its other parts)"),
+             "update_state": (("update_state's K6 fills",), None)}
+    step = lambda s, timed_parts: model.step(s, iw.DT, kernels if timed_parts else None)
+    size = "x".join(map(str, model.grid.shape))
+    breakdown(f"internal wave {size} fp64 step", step, state, events, patches, steps, inner)
+
+
+def weno5_kernels(steps):
+    """K1 and K2's WENO5 forms at 256³ fp32 (the docstring's
+    ``weno5-kernels``)."""
+    n = chip_smoke.N
+    model = chip_smoke.model_for(n, torch.float32)
+    state = chip_smoke.random_state(model, 1)
+    call = lambda: chip_smoke.fused_ab2_advance(model, state, 1e-4, False)
+    print(f"weno5-kernels K1 bench {n}^3 fp32: {chip_smoke.cuda_ms(call, 20):.4f} ms "
+          f"(CUDA events), {chip_smoke.device_ms(call, 20, 'fused_ab2_advance')} ms "
+          f"(torch.profiler)")
+    for z in ("regular", "stretched"):
+        grid = (chip_smoke.surface_grid(stretched=True) if z == "stretched" else model.grid)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        f = [torch.randn(grid.total_shape, generator=gen, device="cuda") for _ in range(4)]
+        args = (grid, chip_smoke.WENO5(), chip_smoke.WENO5(), *f[:3], {"b": f[3]})
+        call = lambda: chip_smoke.fused_advective_tendencies(*args)
+        print(f"weno5-kernels K2 WENO5/WENO5 {n}^3 fp32 {z} z: "
+              f"{chip_smoke.cuda_ms(call, 20):.4f} ms (CUDA events), "
+              f"{chip_smoke.device_ms(call, 20, 'fused_advective_tendencies')} ms "
+              f"(torch.profiler)")
+        del f, args
+    del model, state
+    torch.cuda.empty_cache()
+    # K2's IM form (flags, the limiter) on the seamount path's fp64 fields
+    model = chip_smoke.seamount_model()
+    sol = chip_smoke.seamount_state(model)["solution"]
+    args = (model.grid, model.advection, model.tracer_advection, sol["u"], sol["v"],
+            sol["w"], {n: sol[n] for n in model.tracer_names})
+    call = lambda: chip_smoke.fused_advective_tendencies(*args)
+    print(f"weno5-kernels K2 seamount 4096x1x2048 fp64 (immersed, WENO5 / PositiveWENO5): "
+          f"{chip_smoke.cuda_ms(call, 20):.4f} ms (CUDA events), "
+          f"{chip_smoke.device_ms(call, 20, 'fused_advective_tendencies')} ms "
+          f"(torch.profiler)")
+    del model, sol, args
+    torch.cuda.empty_cache()
+    m = chip_smoke.N_SW
+    grid = chip_smoke.RectilinearGrid(
+        size=(m, m, 1), x=(0, 2 * math.pi), y=(0, 2 * math.pi),
+        topology=(chip_smoke.PERIODIC, chip_smoke.PERIODIC, chip_smoke.FLAT),
+        halo=(3, 3, 0), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rand = lambda s, o=0.0: o + s * torch.randn(grid.total_shape, generator=gen,
+                                                device="cuda")
+    args = (grid, chip_smoke.WENO5(), chip_smoke.WENO5(), 10.0, rand(0.1), rand(0.1),
+            rand(0.05, 1.0), [], None)
+    call = lambda: chip_smoke.fused_shallow_water_tendencies(*args)
+    print(f"weno5-kernels K3a WENO5 {m}x{m} fp32: {chip_smoke.cuda_ms(call, 20):.4f} ms "
+          f"(CUDA events), "
+          f"{chip_smoke.device_ms(call, 20, 'fused_shallow_water_tendencies')} ms "
+          f"(torch.profiler)")
+
+
 PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps),
          "rk3": lambda steps: nonhydrostatic("RK3", steps),
          "general-projection": general_projection, "k6-k3c": k6_k3c,
@@ -1311,6 +1394,7 @@ PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps),
          "horizontal-convection": lambda steps: walls("horizontal convection", steps),
          "2d-turbulence": lambda steps: walls("2D turbulence", steps),
          "seamount": seamount, "simulation": simulation,
+         "internal-wave": internal_wave, "weno5-kernels": weno5_kernels,
          "sass-regular": sass_regular}
 
 

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's eighteen paths through ``clima_oceananigans_jl_torch``
+Drives the port's twenty paths through ``clima_oceananigans_jl_torch``
 on the card, in phases; each prints one line or a few:
 
 1. device: the card's name and power limit as nvidia-smi gives them, on a
@@ -102,8 +102,10 @@ on the card, in phases; each prints one line or a few:
    (``BuoyancyTracer(gravity_unit_vector=(sin 3°, 0, −cos 3°))``), 3 steps
    with K2 and K6 and 3 with their plain versions, every field, pHY′ and
    pNHS held bit for bit (max|Δ| = 0; a comparison, so its launches go
-   into no record); then background fields of u and b, 3 steps, finite
-   (they run the plain versions, as in the JAX package);
+   into no record); then background fields of u and b, 3 steps with the
+   kernels and 3 with the plain versions, held bit for bit and finite
+   (the JAX package's branch, their cross terms as PyTorch ops, 3 K2 and
+   6 K6 a step);
 15. hydrostatic path: the ¼° flagship of
    ``benchmark/bench_hydro_flagship.py`` (split-explicit with 30
    substeps, Δt = 600 s, u = 0.1·N(0,1), b = 2e-5 (z+3000)/3000) built
@@ -146,7 +148,8 @@ on the card, in phases; each prints one line or a few:
    5 timed steps each with the kernels and with their plain versions:
    ``langmuir AMD`` (the langmuir path with its own AMD; 3 K2 and 6 K6 a
    step), ``wind mixing stretched`` (the wind-mixing example on its own
-   stretched z with its AMD, WENO5 its one cut; 3 K2, 3 T1 and 12 K6) and
+   stretched z with its AMD and UpwindBiasedFifthOrder, uncut; 3 K2, 3 T1
+   and 12 K6) and
    ``AB2 stretched implicit`` (the bench configuration on that z with a
    vertically implicit ScalarDiffusivity; 1 K1, 5 T1 and 4 K6); fields
    finite, max|∇·u|·Δx_min/max|u| ≤ 1e-5 (Δz per level), the wind drives
@@ -255,7 +258,33 @@ on the card, in phases; each prints one line or a few:
    path (K1's fused branch, ``G_prev`` in K1's interior layout; a
    checkpoint at 10, run to 20): B's state equals A's, max|Δ| = 0 on
    every tensor (the solution, ``G_prev``, pNHS, pHY′) and the clock and
-   ``previous_dt`` equal in the grid's dtype.
+   ``previous_dt`` equal in the grid's dtype;
+28. (since the schemes slice, after phase 26) the ``schemes`` hold: K1
+   (the bench configuration, Euler and AB2) and K2 at 256³ fp32 with each
+   of CenteredFourthOrder (C4), UpwindBiasedFirstOrder (UB1),
+   UpwindBiasedThirdOrder (UB3) and BoundsPreservingWENO5 (BP) as the
+   momentum and the tracer scheme; K2 on ``K2_SCHEME_CASES`` (WENO5
+   momentum with UB3 tracers on (P, P, B) and (B, B, B), so two sets of
+   near-wall bounds, K1 too on (P, P, B); BP on the wind-mixing stretched
+   z; C4 / UB3 over the immersed seamount at 256×256×128); K3a at 16384²
+   fp32 with one tracer and ``K3A_SCHEMES`` (UB3, C4, UB5, BP); each bit
+   for bit over NaN-filled outputs and timed against its bound (the
+   records' ``forms``, no launches of their own);
+29. the internal-wave path (``INTERNAL_WAVE``): examples/internal_wave.py
+   at 4096×1×4096 fp64 (32× its 128² on each axis; (Periodic, Flat,
+   Periodic), C4, FPlane(0.2), ScalarDiffusivity(1e-6, 1e-6), RK3,
+   BuoyancyTracer, the background buoyancy N²z, its wave packet and Δt =
+   0.02·2π/ω): 2 steps with the kernels against 2 with the plain versions
+   (max|Δ| = 0), then its 100 iterations through ``Simulation``, 2 warm-up
+   and 98 timed, 3 K2, 3 K3b, 3 K3c and 12 K6 an iteration, and the
+   example's two checks (energy drift < 3e-2, the centroid within 25% of
+   c_g·t), max|∇·u|·Δx/max|u| ≤ 1e-5, K2/K3b/K3c held and timed on its
+   fields, K6 on its fill groups;
+30. the periodic-advection path (``PERIODIC_ADVECTION``):
+   validation/periodic_advection.py as written, N = 128 fp64, its 7
+   schemes × 2 profiles × 640 RK3 steps, each run's first 3 steps also
+   with the plain versions (max|Δ| = 0), 3 K2, 3 K3b, 3 K3c and 9 K6 a
+   step over the sweep, and the validation's eight assertions.
 
 Each kernel's record carries its bound: the larger of its compulsory
 bytes (each input read once, each output written once, from this run's
@@ -315,7 +344,13 @@ from clima_oceananigans_jl_torch import (BOUNDED, FLAT, PERIODIC,
                                          SplitExplicitFreeSurface,
                                          UniformStokesDrift,
                                          UpwindBiasedFifthOrder, ValueBC,
-                                         VectorInvariant, WENO5)
+                                         VectorInvariant, WENO5,
+                                         BoundsPreservingWENO5,
+                                         CenteredFourthOrder,
+                                         UpwindBiasedFirstOrder,
+                                         UpwindBiasedThirdOrder)
+from clima_oceananigans_jl_torch.examples import internal_wave
+from clima_oceananigans_jl_torch.validation import periodic_advection
 from clima_oceananigans_jl_torch.boundary_conditions.bcs import regularize_bcs
 from clima_oceananigans_jl_torch.models import (hydrostatic, nonhydrostatic,
                                                 shallow_water)
@@ -421,11 +456,9 @@ SW_PATH = (1e-4, 2, 10)  # shallow water: Δt, warm-up steps, timed steps
 #: - "wind mixing", examples/ocean_wind_mixing_and_convection.py:
 #:   SeawaterBuoyancy(LinearEquationOfState(2e-4, 8e-4)) with T and S,
 #:   u top FluxBC(Qu), T top FluxBC(QT), T bottom GradientBC(0.01), S top
-#:   the discrete-form evaporation flux QS; a regular z instead of the
-#:   stretched faces (the stretched-z pressure solve,
-#:   solvers/fourier_tridiagonal.py, waits for item 4), WENO5 instead of
-#:   UpwindBiasedFifthOrder (item 2), AMD → the same ScalarDiffusivity
-#:   (item 4); Δt = 0.5 s.
+#:   the discrete-form evaporation flux QS, its UpwindBiasedFifthOrder; a
+#:   regular z instead of the stretched faces (the path "wind mixing
+#:   stretched" runs them), AMD → the same ScalarDiffusivity; Δt = 0.5 s.
 SURFACE = {"langmuir": (1.0, 2, 5), "wind mixing": (0.5, 2, 5)}
 #: the uncut upper-ocean LES paths at 256³ fp32: (Δt, warm-up steps, timed
 #: steps).
@@ -435,8 +468,8 @@ SURFACE = {"langmuir": (1.0, 2, 5), "wind mixing": (0.5, 2, 5)}
 #: - "wind mixing stretched": examples/ocean_wind_mixing_and_convection.py
 #:   on its own stretched z faces (refinement 1.2, stretching 12, Lz = 32 m,
 #:   l.31-38; Δz from 0.104 m at the top to 0.249 m at the bottom at
-#:   Nz = 256) with its AMD closure; the one cut left is WENO5 for
-#:   UpwindBiasedFifthOrder (ROADMAP Queue 1 item 2);
+#:   Nz = 256) with its AMD closure and its UpwindBiasedFifthOrder: no cut
+#:   left;
 #: - "AB2 stretched implicit": the bench.py configuration (WENO5,
 #:   BuoyancyTracer, quasi-AB2, random u, v, b) on the examples' 64 m box
 #:   with that stretched z and ScalarDiffusivity(nu=1e-5, kappa=1e-5,
@@ -452,7 +485,7 @@ PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
             "hydrostatic": {K4A: 1, K4B: 1, K5: 1, K6: 2},
             "langmuir": {K2: 3, K6: 6}, "wind mixing": {K2: 3, K6: 6},
             "hydrostatic wind": {K4A: 1, K4B: 1, K5: 1, K6: 2},
-            "forced": {K2: 3, K6: 6}, "background": {},
+            "forced": {K2: 3, K6: 6}, "background": {K2: 3, K6: 6},
             "langmuir AMD": {K2: 3, K6: 6},
             "wind mixing stretched": {K2: 3, T1: 3, K6: 12},
             "AB2 stretched implicit": {K1: 1, T1: 5, K6: 4},
@@ -462,7 +495,9 @@ PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
             "horizontal convection": {K2: 3, K3B: 3, K3C: 3, K6: 12},
             "2D turbulence": {K2: 3, K3B: 3, K3C: 3, K6: 9},
             "seamount": {K2: 1, K3B: 1, K3C: 1, K6: 4},
-            "simulation": {K2: 3, K3B: 3, K3C: 3, K6: 12}}
+            "simulation": {K2: 3, K3B: 3, K3C: 3, K6: 12},
+            "internal wave": {K2: 3, K3B: 3, K3C: 3, K6: 12},
+            "periodic advection": {K2: 3, K3B: 3, K3C: 3, K6: 9}}
 #: of T1's launches a step, those of its Fourier mode (the pressure solve)
 T1_FOURIER_PER_STEP = {"wind mixing stretched": 3, "AB2 stretched implicit": 1}
 T1F = "fourier_tridiagonal"
@@ -484,7 +519,8 @@ AGREE = {"AB2": 0.0, "RK3": 0.0, "shallow water": 1e-4,
          "wind mixing": 0.0, "hydrostatic wind": 0.0, "langmuir AMD": 0.0,
          "wind mixing stretched": 0.0, "AB2 stretched implicit": 0.0,
          "near-global": 0.0, "near-global WENO": 0.0, "1/4 deg diffusive": 0.0,
-         "horizontal convection": 0.0, "2D turbulence": 0.0, "seamount": 0.0}
+         "horizontal convection": 0.0, "2D turbulence": 0.0, "seamount": 0.0,
+         "internal wave": 0.0}
 #: the ¼° hydrostatic flagship (benchmark/bench_hydro_flagship.py:24-41);
 #: its "hydrostatic wind" path adds the near-global run's wind stress (u
 #: top FluxBC((λ, φ, t) ↦ −1e-4 cos(3πφ/180)),
@@ -1032,13 +1068,13 @@ def langmuir_model(n=None, closure=None):
 def wind_mixing_model(n=None, stretched=False, dtype=torch.float32):
     """examples/ocean_wind_mixing_and_convection.py at n³ with the cuts of
     ``SURFACE``; S's top flux is the example's discrete-form QS. With
-    ``stretched``, uncut but for WENO5: its stretched z and AMD."""
+    ``stretched``, uncut: its stretched z and AMD."""
     c = WIND
 
     def QS(grid, t, fields):
         return -c["evaporation"] * fields["S"]
     return NonhydrostaticModel(
-        surface_grid(n, dtype, stretched), advection=WENO5(),
+        surface_grid(n, dtype, stretched), advection=UpwindBiasedFifthOrder(),
         timestepper="RungeKutta3",
         tracers=("T", "S"), coriolis=FPlane(f=1e-4),
         buoyancy=SeawaterBuoyancy(equation_of_state=LinearEquationOfState(
@@ -2057,7 +2093,8 @@ def phase_forced():
     """The forced hold: its steps with K2 and K6 and with their plain
     versions, every field and pHY′, pNHS held bit for bit (these launches
     are a comparison's and go into no record); then the background-field
-    model's steps, finite (they run the plain versions, as in JAX)."""
+    model's steps the same way (the JAX package's branch, the cross terms
+    as PyTorch ops, the kernels for the rest), finite."""
     dt, steps = FORCED
     out = {}
     for plain in (False, True):
@@ -2085,15 +2122,24 @@ def phase_forced():
     check_finite("forced", model, got, ("pHY", "pNHS"))
     used = {k: n for k, n in launches.items() if n}
     print(f"forced hold: kernel launches {used} in {steps} steps (the kernel run)")
-    model = forced_model(background=True)
-    if model.fused_advection:
-        raise AssertionError("background fields: the model should run the plain versions")
-    gen = torch.Generator(device=DEVICE).manual_seed(20)
-    state = model.initial_state(u=1e-2 * torch.randn(
-        model.grid.shape, generator=gen, device=DEVICE))
-    state, _, _ = run_steps("background", model, state,
-                            lambda s: model.step(s, dt), 0, steps, True)
-    check_finite("background fields", model, state, ("pHY", "pNHS"))
+    out = {}
+    for plain in (False, True):
+        model = forced_model(background=True)
+        if model.fused_advection or model.kernels["advect"] is not fused_advective_tendencies:
+            raise AssertionError("background fields: the model should take the JAX "
+                                 "branch with the kernels")
+        gen = torch.Generator(device=DEVICE).manual_seed(20)
+        state = model.initial_state(u=1e-2 * torch.randn(
+            model.grid.shape, generator=gen, device=DEVICE))
+        out[plain], _, _ = run_steps(
+            "background", model, state,
+            lambda s: model.step(s, dt, nonhydrostatic.PLAIN if plain else None),
+            0, steps, plain)
+    got, ref = out[False], out[True]
+    hold(f"background fields 64^3 fp32, {steps} RK3 steps",
+         {"solution": got["solution"]}, {"solution": ref["solution"]}, torch.float32,
+         exact=True)
+    check_finite("background fields", model, got, ("pHY", "pNHS"))
     print(f"background fields: {steps} RK3 steps at 64^3 fp32, every field finite")
     del out, got, ref, model, state
     torch.cuda.empty_cache()
@@ -2103,8 +2149,9 @@ def phase_forced():
 #: stretched and general instantiations): (size, dtype, momentum, tracer
 #: scheme, tracers, closure, w walls, z); sizes off the 8×12×32 tiles,
 #: WENO5 and centred tracers, horizontal-only diffusion (a vertically
-#: implicit closure), w's top wall face (FluxBC w walls), and the general
-#: instantiation on a regular z
+#: implicit closure), w's top wall face (FluxBC w walls), the general
+#: instantiation on a regular z, and the wind-mixing path's
+#: UpwindBiasedFifthOrder with two tracers at 256³
 STRETCHED_CASES = (
     ((N, N, N), torch.float32, WENO5, WENO5, 0, "implicit", None, "stretched"),
     ((64, 64, 64), torch.float64, WENO5, CenteredSecondOrder, 1, "implicit", None,
@@ -2113,6 +2160,8 @@ STRETCHED_CASES = (
     ((72, 40, 36), torch.float64, CenteredSecondOrder, WENO5, 2, None, "flux",
      "stretched"),
     ((64, 64, 64), torch.float32, WENO5, WENO5, 0, "implicit", None, "regular"),
+    ((N, N, N), torch.float32, UpwindBiasedFifthOrder, UpwindBiasedFifthOrder, 2,
+     "explicit", None, "stretched"),
 )
 
 
@@ -2151,7 +2200,7 @@ def phase_stretched():
                 sol["v"], sol["w"], {n: sol[n] for n in model.tracer_names})
         poison_cache(model.grid.total_shape, dtype, 12)
         w2 = max(w2, hold_k2(f"K2 {label}", args, dtype))
-        if size == (N, N, N):
+        if size == (N, N, N) and momentum is WENO5:
             k1 = lambda: fused_ab2_advance(model, state, 0.5, False)
             k1_plain = lambda: fused_ab2_advance_reference(model, state, 0.5, False)
             k2 = lambda: fused_advective_tendencies(*args)
@@ -2332,7 +2381,8 @@ WALLS = {"horizontal convection": (2, 5), "2D turbulence": (2, 3)}
 PATH_FORMS = {"horizontal convection": "B,F,B 4096x1x2048 fp32, WENO5",
               "2D turbulence": "P,P,F 8192x8192x1 fp32, UB5",
               "seamount": "P,F,B 4096x1x2048 fp64, immersed bottom, WENO5 / "
-                          "PositiveWENO5 b, c"}
+                          "PositiveWENO5 b, c",
+              "internal wave": "P,F,P 4096x1x4096 fp64, C4"}
 HC = dict(size=(4096, 1, 2048), Lx=2.0, H=1.0, b_star=1.0, Ra=1e8, Pr=1.0)
 #: each wall path's bare ``model.step`` ms/step with the kernels, from its run
 BARE_STEP_MS = {}
@@ -2504,12 +2554,17 @@ def flat_divergence_ratio(model, state):
 
 
 #: K2's operations a transport by scheme: WENO5's stream ~64 (``FLOPS[K2]``
-#: counts four fields of it on three axes), UB5's two-sided form ~40, the
-#: centred mean ~4, PositiveWENO5's ~150 (L and R at the face with shared
-#: differences ~110, theta of a cell ~20, the limited pair and the
-#: product); an immersed grid adds its flag's test and select (~2)
+#: counts four fields of it on three axes), BoundsPreservingWENO5's with its
+#: clip ~68, UB5's two-sided form ~40, UB3's ~20 (two 3-point sides with
+#: their divisions, the upwind product), UB1's product ~8, C4's 4-point
+#: interpolation ~8, the centred mean ~4, PositiveWENO5's ~150 (L and R at
+#: the face with shared differences ~110, theta of a cell ~20, the limited
+#: pair and the product); an immersed grid adds its flag's test and select
+#: (~2)
 K2_TRANSPORT = {WENO5: 64, UpwindBiasedFifthOrder: 40, CenteredSecondOrder: 4,
-                PositiveWENO5: 150}
+                PositiveWENO5: 150, BoundsPreservingWENO5: 68,
+                UpwindBiasedThirdOrder: 20, UpwindBiasedFirstOrder: 8,
+                CenteredFourthOrder: 8}
 
 
 def k2_flops(grid, scheme, tracer_scheme, ntracers):
@@ -2813,6 +2868,277 @@ def phase_seamount():
     return launches, readings, k6_err
 
 
+# -- the remaining schemes: C4, UB1, UB3, BoundsPreservingWENO5 -------------------------
+
+#: the four schemes that came last, by short name
+NEW_SCHEMES = {"C4": CenteredFourthOrder, "UB1": UpwindBiasedFirstOrder,
+               "UB3": UpwindBiasedThirdOrder, "BP": BoundsPreservingWENO5}
+#: K2's holds beyond each scheme alone at 256³ fp32: (label, topology,
+#: momentum, tracer scheme, z, immersed), all at 256³ fp32 but the immersed
+#: one (256×256×128): a WENO5 momentum with UB3 tracers needs two sets of
+#: near-wall bounds on a bounded axis
+K2_SCHEME_CASES = (
+    ("P,P,B 256^3 fp32, WENO5 / UB3", (PERIODIC, PERIODIC, BOUNDED), WENO5,
+     UpwindBiasedThirdOrder, "regular", False),
+    ("B,B,B 256^3 fp32, WENO5 / UB3", (BOUNDED, BOUNDED, BOUNDED), WENO5,
+     UpwindBiasedThirdOrder, "regular", False),
+    ("P,P,B 256^3 fp32 stretched z, BP / BP", (PERIODIC, PERIODIC, BOUNDED),
+     BoundsPreservingWENO5, BoundsPreservingWENO5, "stretched", False),
+    ("P,P,B 256x256x128 fp32, C4 / UB3, immersed", (PERIODIC, PERIODIC, BOUNDED),
+     CenteredFourthOrder, UpwindBiasedThirdOrder, "regular", True),
+)
+#: K3a's holds at the shallow-water headline's 16384² fp32, with one tracer
+K3A_SCHEMES = {"UB3": UpwindBiasedThirdOrder, "C4": CenteredFourthOrder,
+               "UB5": UpwindBiasedFifthOrder, "BP": BoundsPreservingWENO5}
+
+
+def form_record(part, label, err, ms, plain_ms, bound_ms, by, launches=0):
+    return {"part": part, "form": label, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": None}
+
+
+def time_form(kernel, label, call, plain, b, reps=10):
+    """The kernel's and its plain version's times by CUDA events, printed
+    beside the bound ``b`` (bound_ms, bound_by); returns (ms, plain_ms)."""
+    ms, plain_ms = cuda_ms(call, reps), cuda_ms(plain, 2)
+    print(f"{kernel} {label} time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA "
+          f"events), bound {b[0]:.4f} ms ({b[1]}) on {card_line()}")
+    return ms, plain_ms
+
+
+def scheme_k2_args(label, topology, momentum, tracer, z, immersed, seed=13):
+    """K2's arguments on a case of ``K2_SCHEME_CASES`` (or a scheme alone):
+    random velocities, tracers b and c in [−0.1, 1.1], masked over the
+    immersed bottom."""
+    size = (N, N, N // 2) if immersed else (N, N, N)
+    grid = (surface_grid(size, stretched=True) if z == "stretched" else
+            RectilinearGrid(size=size, x=(0.0, 1.0), y=(0.0, 1.0), z=(-1.0, 0.0),
+                            topology=topology, device=DEVICE))
+    model = NonhydrostaticModel(
+        grid, advection=momentum(), tracer_advection=tracer(), tracers=("b", "c"),
+        immersed_boundary=GridFittedBottom(unit_seamount) if immersed else None)
+    g = model.grid
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    sol = {n: torch.randn(g.total_shape, generator=gen, device=DEVICE) for n in "uvw"}
+    sol.update({n: 1.2 * torch.rand(g.total_shape, generator=gen, device=DEVICE) - 0.1
+                for n in "bc"})
+    if immersed:
+        sol = model.immersed_boundary.mask_state(model, {"solution": sol})["solution"]
+    return (g, model.advection, model.tracer_advection, sol["u"], sol["v"], sol["w"],
+            {n: sol[n] for n in "bc"})
+
+
+def phase_schemes():
+    """The new schemes in K1, K2 and K3a, bit for bit against the plain
+    versions over NaN-filled outputs, each form timed against its bound:
+    K1 and K2 at 256³ fp32 with each of C4, UB1, UB3 and BP as the
+    momentum and the tracer scheme (the bench configuration's fields for
+    K1), ``K2_SCHEME_CASES``, and K3a at 16384² fp32 with ``K3A_SCHEMES``.
+    Returns ({kernel: largest max|Δ|}, {kernel: the records' forms})."""
+    worst = {K1: 0.0, K2: 0.0, K3A: 0.0}
+    forms = {K1: [], K2: [], K3A: []}
+    for short, scheme in NEW_SCHEMES.items():
+        grid = RectilinearGrid(size=(N, N, N), extent=(1.0, 1.0, 1.0),
+                               topology=(PERIODIC, PERIODIC, BOUNDED), device=DEVICE)
+        model = NonhydrostaticModel(grid, advection=scheme(), buoyancy=BuoyancyTracer())
+        if not (model.fused_step and model.g_interior):
+            raise AssertionError(f"K1 {short}: the model does not take K1's fused branch")
+        state = random_state(model, 1)
+        poison_cache(model.grid.total_shape, torch.float32, 10)
+        psi_k, g_k, err = hold_k1(f"K1 {short} {N}^3 fp32", model, state)
+        nb = tensor_bytes(state["solution"].values(), state["G_prev"].values(),
+                          [state["pHY"]], psi_k.values(), g_k.values())
+        b = bound(K1, nb, N ** 3, flops=k2_flops(model.grid, scheme(), scheme(), 1) + 20)
+        label = f"P,P,B {N}^3 fp32, {short} / {short}, bench"
+        ms, plain_ms = time_form(K1, label, lambda: fused_ab2_advance(
+            model, state, 1e-4, False), lambda: fused_ab2_advance_reference(
+            model, state, 1e-4, False), b)
+        worst[K1] = max(worst[K1], err)
+        forms[K1].append(form_record(short, label, err, ms, plain_ms, *b))
+        sol = state["solution"]
+        args = (model.grid, model.advection, model.tracer_advection, sol["u"], sol["v"],
+                sol["w"], {"b": sol["b"]})
+        poison_cache(model.grid.total_shape, torch.float32, 6)
+        err = hold_k2(f"K2 {short} {N}^3 fp32", args, torch.float32)
+        b = k2_bound(args)
+        label = f"P,P,B {N}^3 fp32, {short} / {short}"
+        ms, plain_ms = time_form(K2, label, lambda: fused_advective_tendencies(*args),
+                                 lambda: fused_advective_tendencies_reference(*args), b)
+        worst[K2] = max(worst[K2], err)
+        forms[K2].append(form_record(short, label, err, ms, plain_ms, *b))
+        del model, state, psi_k, g_k, sol, args
+        torch.cuda.empty_cache()
+    for case in K2_SCHEME_CASES:
+        label = case[0]
+        args = scheme_k2_args(*case)
+        poison_cache(args[0].total_shape, torch.float32, 7)
+        err = hold_k2(f"K2 {label}", args, torch.float32)
+        b = k2_bound(args)
+        ms, plain_ms = time_form(K2, label, lambda: fused_advective_tendencies(*args),
+                                 lambda: fused_advective_tendencies_reference(*args), b)
+        worst[K2] = max(worst[K2], err)
+        forms[K2].append(form_record("schemes", label, err, ms, plain_ms, *b))
+        if label.startswith("P,P,B 256^3 fp32, WENO5 / UB3"):
+            # K1 with the same schemes on the bench configuration
+            grid = RectilinearGrid(size=(N, N, N), extent=(1.0, 1.0, 1.0),
+                                   topology=(PERIODIC, PERIODIC, BOUNDED), device=DEVICE)
+            model = NonhydrostaticModel(grid, advection=WENO5(),
+                                        tracer_advection=UpwindBiasedThirdOrder(),
+                                        buoyancy=BuoyancyTracer(), tracers=("c",))
+            state = random_state(model, 2)
+            poison_cache(model.grid.total_shape, torch.float32, 10)
+            worst[K1] = max(worst[K1], hold_k1(f"K1 {label}", model, state)[2])
+            del model, state
+        del args
+        torch.cuda.empty_cache()
+    for short, scheme in K3A_SCHEMES.items():
+        grid = RectilinearGrid(size=(N_SW, N_SW, 1), x=(0, 2 * math.pi),
+                               y=(0, 2 * math.pi), topology=(PERIODIC, PERIODIC, FLAT),
+                               halo=(3, 3, 0), device=DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(4)
+        rand = lambda s, o=0.0: o + s * torch.randn(grid.total_shape, generator=gen,
+                                                    device=DEVICE)
+        args = (grid, scheme(), scheme(), 10.0, rand(0.1), rand(0.1), rand(0.05, 1.0),
+                [rand(1.0)], None)
+        label = f"{N_SW}x{N_SW} fp32, {short} / {short}, 1 tracer"
+        names = ["uh", "vh", "h", "c"]
+        poison_cache(grid.total_shape, torch.float32, 4)
+        got = dict(zip(names, fused_shallow_water_tendencies(*args)))
+        ref = dict(zip(names, fused_shallow_water_tendencies_reference(*args)))
+        err = hold(f"K3a {label}", {"G": got}, {"G": ref}, torch.float32, grid.interior,
+                   exact=True)
+        del got, ref
+        per_transport = K2_TRANSPORT[scheme]
+        b = bound(K3A, 2 * tensor_bytes(args[4:7], args[7]), N_SW ** 2,
+                  flops=4 * per_transport + 44 + 2 * per_transport + 10)
+        ms, plain_ms = time_form(K3A, label,
+                                 lambda: fused_shallow_water_tendencies(*args),
+                                 lambda: fused_shallow_water_tendencies_reference(*args), b)
+        worst[K3A] = max(worst[K3A], err)
+        forms[K3A].append(form_record(short, label, err, ms, plain_ms, *b))
+        del args
+        torch.cuda.empty_cache()
+    return worst, forms
+
+
+#: examples/internal_wave.py at 32× its 128² on each axis, 4096×1×4096 fp64
+#: (the example's dtype), its Δt = 0.02·2π/ω and its 100 iterations through
+#: ``Simulation``: the first ``warmup`` untimed; ``hold``: steps of the
+#: kernels against the plain versions from the initial state first
+INTERNAL_WAVE = dict(N=4096, warmup=2, iterations=100, hold=2)
+
+
+def phase_internal_wave():
+    """The internal-wave path: the kernels against their plain versions
+    over the first steps (exact), then the example's 100 iterations
+    through ``Simulation`` with its launches counted, the example's two
+    checks, K2/K3b/K3c held and timed on its fields and K6 on its fill
+    groups; returns (launches, readings, K6's max|Δ|, the hold's max|Δ|)."""
+    c, path = INTERNAL_WAVE, "internal wave"
+    model = internal_wave.build(c["N"], DEVICE)
+    if model.fused_advection or model.kernels["advect"] is not fused_advective_tendencies:
+        raise AssertionError(f"{path}: the model should take the JAX branch with the kernels")
+    state0 = internal_wave.initial_state(model)
+    runs = {}
+    for plain in (False, True):
+        s = state0
+        for _ in range(c["hold"]):
+            s = model.step(s, internal_wave.DT, nonhydrostatic.PLAIN if plain else None)
+        runs[plain] = s
+    err = hold(f"{path} {c['hold']} RK3 steps, kernels against plain versions",
+               {"solution": runs[False]["solution"], "p": {"pNHS": runs[False]["pNHS"]}},
+               {"solution": runs[True]["solution"], "p": {"pNHS": runs[True]["pNHS"]}},
+               torch.float64, exact=True)
+    del runs, s
+    torch.cuda.empty_cache()
+    E0, x0 = internal_wave.energy(model, state0), internal_wave.centroid_x(model, state0)
+    sim = Simulation(model, state=state0, dt=internal_wave.DT,
+                     stop_iteration=c["iterations"])
+    del state0
+    _, per_step, launches = run_steps(
+        path, model, None, lambda _: sim.time_step(), c["warmup"],
+        c["iterations"] - c["warmup"], plain=False)
+    state = sim.state
+    if sim.model_iteration() != c["iterations"]:
+        raise AssertionError(f"{path}: {sim.model_iteration()} iterations")
+    check_finite(path, model, state, ("pHY", "pNHS"))
+    t = sim.model_time()
+    result = dict(drift=abs(internal_wave.energy(model, state) - E0) / E0,
+                  moved=internal_wave.centroid_x(model, state) - x0,
+                  expected=internal_wave.CG_X * t, time=t)
+    ratio = flat_divergence_ratio(model, state)
+    points = math.prod(model.grid.shape)
+    used = {k: n for k, n in launches.items() if n}
+    print(f"{path} path: {'x'.join(map(str, model.grid.shape))} fp64 through Simulation, "
+          f"{c['iterations'] - c['warmup']} timed iterations after {c['warmup']} at dt "
+          f"{internal_wave.DT:.6e}: {per_step * 1e3:.3f} ms/step, {points / per_step:.6e} "
+          f"grid points/s on {card_line()}; launches {used}; t = {t:.4f}, energy drift "
+          f"{result['drift']:.3e} (< 3e-2), centroid moved {result['moved']:.4f} "
+          f"(analytic {result['expected']:.4f}, within 25%), max|div u|*dx/max|u| "
+          f"{ratio:.3e}; kernels against plain versions over {c['hold']} steps: max|Δ| "
+          f"{err:.3e}")
+    internal_wave.check(result)
+    if not ratio <= 1e-5:
+        raise AssertionError(f"{path}: max|div u|*dx/max|u| = {ratio:.3e} > 1e-5")
+    readings = wall_path_kernels(path, model, state)
+    k6_err = max(hold_k6(f"K6 {path} group {i + 1}", model.grid, group, 12 + i)[0]
+                 for i, group in enumerate(nonhydrostatic_fill_fields(model)))
+    del sim, state, model
+    torch.cuda.empty_cache()
+    return launches, readings, k6_err, err
+
+
+#: validation/periodic_advection.py as written: N = 128, one period of 640
+#: RK3 steps for each of its 7 schemes and 2 profiles; the first ``hold``
+#: steps of each run also with the plain versions, held exactly
+PERIODIC_ADVECTION = dict(N=128, hold=3)
+
+
+def phase_periodic_advection():
+    """The validation's sweep on the card with its eight assertions; the
+    kernel runs' launches counted over the whole sweep; returns (launches,
+    the holds' max|Δ|)."""
+    c, path = PERIODIC_ADVECTION, "periodic advection"
+    results, worst, total = {}, 0.0, 0
+    launches = {k: 0 for k in WRAPPERS}
+    t0 = time.perf_counter()
+    for profile in periodic_advection.PROFILES:
+        for name, scheme in periodic_advection.SCHEMES:
+            model, state, dt, steps = periodic_advection.setup(profile, scheme, c["N"],
+                                                               DEVICE)
+            # each run's steps counted from 0 (its initial state's fill apart)
+            torch.cuda.synchronize()
+            for w in WRAPPERS.values():
+                w.launches = 0
+            plain = state
+            for i in range(steps):
+                state = model.step(state, dt)
+                if i < c["hold"]:
+                    plain = model.step(plain, dt, nonhydrostatic.PLAIN)
+                    if i == c["hold"] - 1:
+                        worst = max(worst, hold(
+                            f"{path} {profile} {name}: {c['hold']} steps, kernels "
+                            "against plain versions", {"solution": state["solution"]},
+                            {"solution": plain["solution"]}, torch.float64, exact=True))
+            results[(profile, name)] = periodic_advection.score(model, state, profile)
+            total += steps
+            for k, w in WRAPPERS.items():
+                launches[k] += w.launches
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    expected = {k: PER_STEP[path].get(k, 0) * total for k in WRAPPERS}
+    if launches != expected:
+        raise AssertionError(f"{path}: kernel launches {launches}, expected {expected}")
+    line = ", ".join(f"{p[:5]} {n} L1 {l1:.3e} over {over:+.3e}"
+                     for (p, n), (l1, over) in results.items())
+    print(f"{path}: N = {c['N']} fp64, {total} RK3 steps in {elapsed:.2f} s "
+          f"({elapsed / total * 1e3:.3f} ms/step with the holds) on {card_line()}; {line}")
+    periodic_advection.check(results)
+    print(f"{path}: the validation's eight assertions pass")
+    return launches, worst
+
+
 # -- the user surface: Simulation, schedules, writers, checkpoints ----------------------
 
 #: the simulation path: examples/horizontal_convection.py:46-58 as written,
@@ -3107,6 +3433,14 @@ def main():
     by_path["seamount"], wall_readings["seamount"], k6_err = phase_seamount()
     flat_worst[K6] = max(flat_worst[K6], k6_err)
     flat_worst[K2] = max(flat_worst[K2], *(f["max_abs_err"] for f in k2_immersed))
+    scheme_worst, scheme_forms = phase_schemes()
+    (by_path["internal wave"], wall_readings["internal wave"], k6_err,
+     iw_err) = phase_internal_wave()
+    by_path["periodic advection"], pa_err = phase_periodic_advection()
+    flat_worst[K6] = max(flat_worst[K6], k6_err)
+    for name, err in scheme_worst.items():
+        flat_worst[name] = max(flat_worst.get(name, 0.0), err)
+    flat_worst[K2] = max(flat_worst[K2], iw_err, pa_err)
     # every hold's max|Δ| in its kernel's record
     for name, err in flat_worst.items():
         measured[name] = (max(measured[name][0], err), *measured[name][1:])
@@ -3164,6 +3498,11 @@ def main():
             "plain_ms": r[name][2], "bound_ms": r[name][3], "bound_by": r[name][4],
             "library_ms": None} for path, r in wall_readings.items()]
     by_name[K2]["forms"] += k2_immersed
+    # the new schemes' forms: each a hold of its own, no launches but on the
+    # paths (the internal wave's C4 in K2's path forms above)
+    by_name[K1]["forms"] += scheme_forms[K1]
+    by_name[K2]["forms"] += scheme_forms[K2]
+    by_name[K3A]["forms"] = scheme_forms[K3A]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,8 @@
 
 The JAX package beside this one is the reference; this package keeps its
 module paths, constructor API and ``state`` layout. So far it runs the
-nonhydrostatic model on periodic, bounded and Flat axes (WENO5,
-UpwindBiasedFifthOrder or centred advection, PositiveWENO5 tracers,
+nonhydrostatic model on periodic, bounded and Flat axes (the JAX
+package's seven advection schemes, PositiveWENO5 tracers,
 grid-fitted immersed boundaries with their bottom fluxes, buoyancy tracer or
 seawater buoyancy with a linear equation of state, tilted gravity,
 f/β-plane, constant Cartesian and non-traditional β-plane Coriolis,
@@ -47,8 +47,10 @@ from .fields.field import (
     new_field, regrid, set_field, windowed,
 )
 from .fields.model_fields import BuoyancyField, PressureField
-from .advection.schemes import (CenteredSecondOrder, PositiveWENO5,
-                                UpwindBiasedFifthOrder, WENO5)
+from .advection.schemes import (BoundsPreservingWENO5, CenteredFourthOrder,
+                                CenteredSecondOrder, PositiveWENO5,
+                                UpwindBiasedFifthOrder, UpwindBiasedFirstOrder,
+                                UpwindBiasedThirdOrder, WENO5)
 from .advection.vector_invariant import VectorInvariant
 from .buoyancy.buoyancy import (BuoyancyTracer, LinearEquationOfState,
                                 SeawaterBuoyancy)

@@ -2,16 +2,19 @@
 
 Counterpart of ``clima_oceananigans_jl_tpu/advection/schemes.py``
 (Oceananigans' ``Advection`` module), on regular, stretched and
-immersed grids. Ported so far: ``CenteredSecondOrder``, ``WENO5``
-(Jiang-Shu weights: select-first upwinding on regular axes, and on a
-stretched axis the two-sided form with the per-index tables of
-``advection/reconstruction_tables.py``), ``PositiveWENO5`` (WENO5 with
-the Zhang-Shu flux limiter of Oceananigans' PositiveWENO on its to-faces
-transports, reconstructed two-sided by ``left_right_to_f``) and
-``UpwindBiasedFifthOrder`` (the two-sided form with its fixed five-point
-stencils); next to an immersed boundary the conditional fluxes
-(Oceananigans' conditional_fluxes.jl); the other schemes come with
-ROADMAP Queue 1 item 2.
+immersed grids, all seven of the JAX package's schemes and its
+``PositiveWENO5``: ``CenteredSecondOrder`` and ``CenteredFourthOrder``
+(symmetric interpolation), ``UpwindBiasedFirstOrder``,
+``UpwindBiasedThirdOrder`` and ``UpwindBiasedFifthOrder`` (the two-sided
+form with their fixed stencils), ``WENO5`` (Jiang-Shu weights:
+select-first upwinding on regular axes, and on a stretched axis the
+two-sided form with the per-index tables of
+``advection/reconstruction_tables.py``), ``BoundsPreservingWENO5``
+(WENO5 with each reconstruction clipped to the range of the two cells
+beside it) and ``PositiveWENO5`` (WENO5 with the Zhang-Shu flux limiter
+of Oceananigans' PositiveWENO on its to-faces transports, reconstructed
+two-sided by ``left_right_to_f``); next to an immersed boundary the
+conditional fluxes (Oceananigans' conditional_fluxes.jl).
 
 Conventions: reconstructions "to F" give a value at face i from
 cell-centred data (face i sits between cells i-1 and i); "to C" give a
@@ -29,7 +32,7 @@ import dataclasses
 import torch
 
 from ..grids.topology import BOUNDED
-from ..ops.stencil import ic, if_, shift
+from ..ops.stencil import i4c, i4f, ic, if_, shift
 from .reconstruction_tables import weno5_tables
 
 
@@ -70,6 +73,61 @@ class CenteredSecondOrder(AdvectionScheme):
 
 
 @dataclasses.dataclass(frozen=True)
+class CenteredFourthOrder(AdvectionScheme):
+    """4th-order centred interpolation (Oceananigans'
+    centered_fourth_order.jl); near a wall or an immersed boundary it
+    drops to the 2nd-order mean."""
+
+    buffer: int = 1
+
+    def sym_to_f(self, c, axis):
+        return i4f(c, axis)
+
+    def sym_to_c(self, u, axis):
+        return i4c(u, axis)
+
+
+def _full(c, v):
+    """The constant v as a 0-d tensor of c's type on c's device: a Python
+    scalar divisor becomes a multiply by its reciprocal in PyTorch's CUDA
+    kernels, which rounds differently from IEEE division."""
+    return torch.full((), v, dtype=c.dtype, device=c.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class UpwindBiasedFirstOrder(AdvectionScheme):
+    """Donor-cell upwinding (Oceananigans' upwind_biased_first_order.jl):
+    the value of the upwind cell."""
+
+    buffer: int = 0
+    is_upwind: bool = True
+
+    def left_to_f(self, c, axis):
+        return shift(c, -1, axis)
+
+    def right_to_f(self, c, axis):
+        return c
+
+
+@dataclasses.dataclass(frozen=True)
+class UpwindBiasedThirdOrder(AdvectionScheme):
+    """3rd-order upwind-biased reconstruction with fixed coefficients
+    (Oceananigans' upwind_biased_third_order.jl); the divisor 6 is a
+    tensor, as UB5's 60."""
+
+    buffer: int = 1
+    is_upwind: bool = True
+
+    def left_to_f(self, c, axis):
+        s = lambda n: shift(c, n, axis)
+        return (2.0 * c + 5.0 * s(-1) - s(-2)) / _full(c, 6.0)
+
+    def right_to_f(self, c, axis):
+        s = lambda n: shift(c, n, axis)
+        return (-s(1) + 5.0 * c + 2.0 * s(-1)) / _full(c, 6.0)
+
+
+@dataclasses.dataclass(frozen=True)
 class UpwindBiasedFifthOrder(AdvectionScheme):
     """5th-order upwind-biased reconstruction with fixed coefficients
     (Oceananigans' upwind_biased_fifth_order.jl). The divisor 60 is a
@@ -79,19 +137,15 @@ class UpwindBiasedFifthOrder(AdvectionScheme):
     buffer: int = 2
     is_upwind: bool = True
 
-    @staticmethod
-    def _sixty(c):
-        return torch.full((), 60.0, dtype=c.dtype, device=c.device)
-
     def left_to_f(self, c, axis):
         s = lambda n: shift(c, n, axis)
         return (2.0 * s(-3) - 13.0 * s(-2) + 47.0 * s(-1) + 27.0 * c
-                - 3.0 * s(1)) / self._sixty(c)
+                - 3.0 * s(1)) / _full(c, 60.0)
 
     def right_to_f(self, c, axis):
         s = lambda n: shift(c, n, axis)
         return (2.0 * s(2) - 13.0 * s(1) + 47.0 * c + 27.0 * s(-1)
-                - 3.0 * s(-2)) / self._sixty(c)
+                - 3.0 * s(-2)) / _full(c, 60.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,7 +181,7 @@ class WENO5(AdvectionScheme):
         scalar divisor into a multiply by its reciprocal, which rounds
         differently from the IEEE division of the JAX package and the
         kernels."""
-        six = torch.full((), 6.0, dtype=a2.dtype, device=a2.device)
+        six = _full(a2, 6.0)
         return (a2 + (5.0 * d11 - 2.0 * d10) / six,
                 a2 + (2.0 * d12 + d11) / six,
                 a2 + (4.0 * d12 - d13) / six)
@@ -148,7 +202,7 @@ class WENO5(AdvectionScheme):
             bs.append(((13.0 / 12.0) * e20 * e20 + 0.25 * (s0 * s0),
                        (13.0 / 12.0) * e21 * e21 + 0.25 * (s1 * s1),
                        (13.0 / 12.0) * e22 * e22 + 0.25 * (s2 * s2)))
-        count = torch.full((), float(len(bs)), dtype=a2.dtype, device=a2.device)
+        count = _full(a2, float(len(bs)))
         b0 = sum(b[0] for b in bs) / count
         b1 = sum(b[1] for b in bs) / count
         b2 = sum(b[2] for b in bs) / count
@@ -178,7 +232,7 @@ class WENO5(AdvectionScheme):
         Returns (L, R): L at face i from cells i−3..i+1, R from
         i−2..i+2."""
         s = lambda a, n: shift(a, n, axis)
-        six = torch.full((), 6.0, dtype=c.dtype, device=c.device)
+        six = _full(c, 6.0)
         d1 = c - s(c, -1)            # d1[i] = c[i] − c[i−1]
         d2 = s(d1, 1) - d1           # d2[i] = c[i+1] − 2c[i] + c[i−1]
         t = (13.0 / 12.0) * d2 * d2
@@ -233,6 +287,33 @@ class WENO5(AdvectionScheme):
 
 
 @dataclasses.dataclass(frozen=True)
+class BoundsPreservingWENO5(WENO5):
+    """WENO5 with each face reconstruction clipped to the range of the two
+    cells beside it, in the spirit of Oceananigans' positivity-preserving
+    limiter: it limits the reconstruction's overshoot, not the fluxes
+    (``PositiveWENO5`` gives the flux-level guarantee). ``transport``
+    clips the stream's reconstruction on the select-first route and L and
+    R on the stretched axis' table route, before the near-wall selects and
+    the immersed fallback, the JAX order."""
+
+    def _clip(self, rec, c, axis, to_f):
+        """``jnp.clip(rec, lo, hi)`` as the JAX package evaluates it,
+        ``minimum(hi, maximum(lo, rec))``, with lo and hi the minimum and
+        maximum of the cells below and above the flux location."""
+        a, b = (shift(c, -1, axis), c) if to_f else (c, shift(c, 1, axis))
+        lo, hi = torch.minimum(a, b), torch.maximum(a, b)
+        return torch.minimum(hi, torch.maximum(lo, rec))
+
+    def left_right_to_f(self, c, axis):
+        L, R = super().left_right_to_f(c, axis)
+        return self._clip(L, c, axis, True), self._clip(R, c, axis, True)
+
+    def left_right_to_c(self, u, axis):
+        L, R = super().left_right_to_c(u, axis)
+        return self._clip(L, u, axis, False), self._clip(R, u, axis, False)
+
+
+@dataclasses.dataclass(frozen=True)
 class PositiveWENO5(WENO5):
     """WENO5 with the flux-level bound-preserving limiter of Oceananigans'
     PositiveWENO (the Zhang-Shu limiter): per cell and axis, the cell's two
@@ -258,7 +339,7 @@ class PositiveWENO5(WENO5):
         omega = 5.0 / 18.0
         eps = 1e-20
         lo, hi = self.bounds
-        full = lambda v: torch.full((), v, dtype=c.dtype, device=c.device)
+        full = lambda v: _full(c, v)
         Lp1 = shift(L, 1, axis)    # cell i's outward value at face i+1
         p = (c - omega * (R + Lp1)) / full(1.0 - 2.0 * omega)
         M = torch.maximum(torch.maximum(p, Lp1), R)
@@ -348,17 +429,19 @@ def transport(scheme, vel, c, axis, to_f, grid=None, data_loc=None):
     2nd-order centred within ``required_halo`` cells of the walls. On a
     stretched axis WENO5 reconstructs both sides with the axis' tables,
     applies the near-wall selects to each and takes the upwind product,
-    the JAX tree; elsewhere WENO5 reconstructs select-first. A scheme
-    without a stream reconstruction (``UpwindBiasedFifthOrder``) takes the
-    two-sided route with its ``left_to_f``/``right_to_f`` forms (to
-    centres: those forms shifted by one), and so do ``PositiveWENO5``'s
+    the JAX tree; elsewhere WENO5 reconstructs select-first.
+    ``BoundsPreservingWENO5`` clips what either route reconstructs before
+    the selects. A scheme without a stream reconstruction (the fixed
+    upwind-biased ones) takes the two-sided route with its
+    ``left_to_f``/``right_to_f`` forms (to centres: those forms shifted
+    by one), and so do ``PositiveWENO5``'s
     to-faces transports with ``left_right_to_f``, whose (L, R) pass
     through the near-wall selects and the immersed fallback into
     ``limit_lr`` before the upwind product, the JAX order. On a grid with
     an immersed boundary and the advected field's location ``data_loc``,
     a flux whose stencil reaches a solid cell drops to first-order upwind
-    (``_immersed_clear``); the centred scheme reads no cell beyond its
-    two."""
+    (``_immersed_clear``), a centred one to the 2nd-order mean; the
+    2nd-order and first-order schemes read no cell beyond their two."""
     masks = reduced_order_masks(grid, axis, scheme) if grid is not None else None
     lo_val = lambda: if_(c, axis) if to_f else ic(c, axis)
     in_bounds = lambda b, like: _in_bounds(b, like, axis)
@@ -376,11 +459,15 @@ def transport(scheme, vel, c, axis, to_f, grid=None, data_loc=None):
     tables = (weno5_tables(grid, axis, to_f)
               if grid is not None and isinstance(scheme, WENO5) else None)
     limited = isinstance(scheme, PositiveWENO5) and to_f
+    clipped = isinstance(scheme, BoundsPreservingWENO5)
     if (tables is not None or not hasattr(scheme, "stream_reconstruct")
             or limited):
         if tables is not None:
             L = scheme.table_reconstruct(c, axis, tables, "left")
             R = scheme.table_reconstruct(c, axis, tables, "right")
+            if clipped:
+                L = scheme._clip(L, c, axis, to_f)
+                R = scheme._clip(R, c, axis, to_f)
         elif hasattr(scheme, "left_right_to_f"):
             L, R = (scheme.left_right_to_f(c, axis) if to_f
                     else scheme.left_right_to_c(c, axis))
@@ -403,6 +490,8 @@ def transport(scheme, vel, c, axis, to_f, grid=None, data_loc=None):
     sel = vel >= 0
     a = upwind_stream(c, sel, axis, to_f)
     rec = scheme.stream_reconstruct(a)
+    if clipped:
+        rec = scheme._clip(rec, c, axis, to_f)
     if masks is not None:
         in_l, in_r = in_bounds(masks[1], rec), in_bounds(masks[2], rec)
         rec = torch.where((sel & in_l) | (~sel & in_r), rec, lo_val())

@@ -1,7 +1,7 @@
 // Fused AB2 advance of the nonhydrostatic model: for every prognostic field
 // psi in {u, v, w, tracers},
 //
-//   G    = -div(v psi)                       (WENO5 or centred, weno5_advection.cuh)
+//   G    = -div(v psi)                       (any scheme, weno5_advection.cuh)
 //          - f x u                            (f- or beta-plane; u and v only)
 //          - d(pHY')/dx, -d(pHY')/dy         (u and v only)
 //          + div(kappa grad psi)              (constant nu/kappa, optional)
@@ -56,7 +56,9 @@
 // axis (FL, GEN only) the kernel's axes are the grid's with that axis
 // moved to y (weno5_advection.cuh): the Coriolis, pHY' and row terms then
 // find the grid's x and y through Advection::kx, and the host hands the z
-// rows and diffusivities of the kernel's z.
+// rows and diffusivities of the kernel's z. C4, UB1, UB3 and
+// BoundsPreservingWENO5 run the ANY instantiations (weno5_advection.cuh),
+// which the other schemes' leave out.
 #include <cuda_runtime.h>
 
 #include "weno5_advection.cuh"
@@ -145,7 +147,7 @@ __device__ __forceinline__ T diffusion_at(const AdvanceArgs<T>& A, int f, const 
 // hz+nz) from global memory in the last chunk's blocks, as K2 does: a w
 // wall that the fill does not impose (FluxBC) leaves that face to the step,
 // and the general projection after the advance reads it.
-template <typename T, bool GEN, bool FL>
+template <typename T, bool GEN, bool FL, bool ANY>
 struct AdvanceOut {
   const AdvanceArgs<T>& A;
 
@@ -176,7 +178,7 @@ struct AdvanceOut {
           if (i >= t.I1 || j >= t.J1) continue;
           const int64_t o = t.g(i, j, top);
           const int Z = D.nz + 2 * D.hz;
-          T g = -div_wall<true>(D, 2, i, j, top, t.gsx, t.gsy);
+          T g = -div_wall<true, false, ANY>(D, 2, i, j, top, t.gsx, t.gsy);
           if (A.diffuse) {
             const int64_t up = top + 1 < Z ? 1 : -(int64_t)top;
             g = g + diffusion_at(A, 2, D.psi[2], o, t.gsx, t.gsy, up, top);
@@ -272,18 +274,19 @@ struct AdvanceOut {
   }
 };
 
-template <typename T, bool GEN, bool FL>
+template <typename T, bool GEN, bool FL, bool ANY>
 __global__ void __launch_bounds__(AT_THREADS, 1)
 fused_ab2_advance_kernel(const __grid_constant__ AdvanceArgs<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  advect_tile<GEN, FL>(A.adv, reinterpret_cast<T*>(smem_raw), AdvanceOut<T, GEN, FL>{A});
+  advect_tile<GEN, FL, false, false, ANY>(A.adv, reinterpret_cast<T*>(smem_raw),
+                                          AdvanceOut<T, GEN, FL, ANY>{A});
 }
 
-template <typename T, bool GEN, bool FL>
+template <typename T, bool GEN, bool FL, bool ANY>
 static int launch_kernel(AdvanceArgs<T>& A, void* stream) {
   int smem;
   const dim3 blocks = plan_tiles<FL>(A.adv, smem);
-  auto kernel = fused_ab2_advance_kernel<T, GEN, FL>;
+  auto kernel = fused_ab2_advance_kernel<T, GEN, FL, ANY>;
   const int rc = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != 0) return rc;
@@ -326,8 +329,15 @@ static int launch(const void* const* psi, const void* const* gp,
     return (int)cudaErrorInvalidValue;
   if (w_top && !g_halo) return (int)cudaErrorInvalidValue;
   if (A.adv.nx <= 0 || A.adv.ny <= 0 || A.adv.nz <= 0) return 0;
-  if (zs == nullptr) return launch_kernel<T, false, false>(A, stream);
-  return flat ? launch_kernel<T, true, true>(A, stream) : launch_kernel<T, true, false>(A, stream);
+  // ANY: a scheme of needs_any (weno5_advection.cuh)
+  if (advection_any(A.adv)) {
+    if (zs == nullptr) return launch_kernel<T, false, false, true>(A, stream);
+    return flat ? launch_kernel<T, true, true, true>(A, stream)
+                : launch_kernel<T, true, false, true>(A, stream);
+  }
+  if (zs == nullptr) return launch_kernel<T, false, false, false>(A, stream);
+  return flat ? launch_kernel<T, true, true, false>(A, stream)
+              : launch_kernel<T, true, false, false>(A, stream);
 }
 
 extern "C" {

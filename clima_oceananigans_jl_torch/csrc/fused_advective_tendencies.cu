@@ -8,9 +8,10 @@
 // (ops/fused_tendencies.py::fused_advective_tendencies_reference, the
 // div_vu / div_vv / div_vw / div_Uc of advection/fluxes.py); the flux code
 // is advect_tile of weno5_advection.cuh, shared with the fused AB2 advance.
-// Momentum and tracers each take WENO5, UpwindBiasedFifthOrder or
-// CenteredSecondOrder; a bounded axis reduces WENO5's and UB5's order near
-// its walls through the with-halo bounds of reduced_order_masks. A Flat
+// Momentum and tracers each take any of the JAX package's seven schemes; a
+// bounded axis reduces a scheme's order near its walls through the
+// with-halo bounds of reduced_order_masks for that scheme (required_halo 2
+// or 3), one set for momentum and one for the tracers. A Flat
 // axis is the kernel's y (ops/fused_tendencies.py::kernel_order), which
 // advect_tile's Flat layout maps away (weno5_advection.cuh).
 //
@@ -43,8 +44,11 @@
 // to-centres tables) give each level its face areas and volume and the z
 // fluxes their two-sided table form, as the JAX kernel reads them from its
 // metric pack; the regular instantiation carries none of it. So do a grid
-// with a Flat axis (FL, the Flat layout) and one whose x or y has
-// near-wall bounds (XY, the x and y fluxes' masks).
+// with a Flat axis (FL, the Flat layout), one whose x or y has near-wall
+// bounds (XY, the x and y fluxes' masks), and C4, UB1, UB3 or
+// BoundsPreservingWENO5 for either field kind (ANY: every scheme, each with
+// its own near-wall bounds; the other instantiations compile the first
+// four codes alone, as they did before those schemes came).
 //
 // An immersed grid, or PositiveWENO5 tracers, run the IM instantiations:
 // each flux reads the clear flag of its flux location (the uint8 tensors of
@@ -76,7 +80,7 @@ struct TendencyArgs {
 
 // K2's use of advect_tile: G = -div into the with-halo outputs (ZS: on a
 // stretched z; FL: the Flat layout; IM: the clear flags at the wall faces)
-template <typename T, bool ZS, bool FL, bool IM>
+template <typename T, bool ZS, bool FL, bool IM, bool ANY>
 struct TendencyOut {
   const TendencyArgs<T>& A;
 
@@ -105,19 +109,19 @@ struct TendencyOut {
       for (int s = threadIdx.x; s < S::Y * kz; s += blockDim.x) {
         const int j = t.J0 + s / kz, k = t.K0 + s % kz, i = D.hx + D.nx;
         if (j < t.J1)
-          A.out[0][t.g(i, j, k)] = -div_wall<ZS, IM>(D, 0, i, j, k, t.gsx, t.gsy);
+          A.out[0][t.g(i, j, k)] = -div_wall<ZS, IM, ANY>(D, 0, i, j, k, t.gsx, t.gsy);
       }
     if ((A.walls & 2) && blockIdx.y == gridDim.y - 1)  // v's north face
       for (int s = threadIdx.x; s < S::X * kz; s += blockDim.x) {
         const int i = t.I0 + s / kz, k = t.K0 + s % kz, j = D.hy + D.ny;
         if (i < t.I1)
-          A.out[1][t.g(i, j, k)] = -div_wall<ZS, IM>(D, 1, i, j, k, t.gsx, t.gsy);
+          A.out[1][t.g(i, j, k)] = -div_wall<ZS, IM, ANY>(D, 1, i, j, k, t.gsx, t.gsy);
       }
     if ((A.walls & 4) && blockIdx.z == gridDim.z - 1)  // w's top face
       for (int s = threadIdx.x; s < S::COLS; s += blockDim.x) {
         const int i = t.I0 + s / S::Y, j = t.J0 + s % S::Y, k = D.hz + D.nz;
         if (i < t.I1 && j < t.J1)
-          A.out[2][t.g(i, j, k)] = -div_wall<ZS, IM>(D, 2, i, j, k, t.gsx, t.gsy);
+          A.out[2][t.g(i, j, k)] = -div_wall<ZS, IM, ANY>(D, 2, i, j, k, t.gsx, t.gsy);
       }
   }
 
@@ -134,19 +138,19 @@ struct TendencyOut {
   }
 };
 
-template <typename T, bool ZS, bool FL, bool XY, bool IM>
+template <typename T, bool ZS, bool FL, bool XY, bool IM, bool ANY>
 __global__ void __launch_bounds__(AT_THREADS, 1)
 fused_advective_tendencies_kernel(const __grid_constant__ TendencyArgs<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  advect_tile<ZS, FL, XY, IM>(A.adv, reinterpret_cast<T*>(smem_raw),
-                              TendencyOut<T, ZS, FL, IM>{A});
+  advect_tile<ZS, FL, XY, IM, ANY>(A.adv, reinterpret_cast<T*>(smem_raw),
+                                   TendencyOut<T, ZS, FL, IM, ANY>{A});
 }
 
-template <typename T, bool ZS, bool FL, bool XY, bool IM>
+template <typename T, bool ZS, bool FL, bool XY, bool IM, bool ANY>
 static int launch_kernel(TendencyArgs<T>& A, void* stream) {
   int smem;
   const dim3 blocks = plan_tiles<FL>(A.adv, smem);
-  auto kernel = fused_advective_tendencies_kernel<T, ZS, FL, XY, IM>;
+  auto kernel = fused_advective_tendencies_kernel<T, ZS, FL, XY, IM, ANY>;
   const int rc = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != 0) return rc;
@@ -154,11 +158,14 @@ static int launch_kernel(TendencyArgs<T>& A, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// the IM or regular instantiation of one (ZS, FL, XY)
+// the IM or regular, ANY or first-codes instantiation of one (ZS, FL, XY)
 template <typename T, bool ZS, bool FL, bool XY>
-static int launch_im(TendencyArgs<T>& A, bool im, void* stream) {
-  return im ? launch_kernel<T, ZS, FL, XY, true>(A, stream)
-            : launch_kernel<T, ZS, FL, XY, false>(A, stream);
+static int launch_im(TendencyArgs<T>& A, bool im, bool any, void* stream) {
+  if (any)
+    return im ? launch_kernel<T, ZS, FL, XY, true, true>(A, stream)
+              : launch_kernel<T, ZS, FL, XY, false, true>(A, stream);
+  return im ? launch_kernel<T, ZS, FL, XY, true, false>(A, stream)
+            : launch_kernel<T, ZS, FL, XY, false, false>(A, stream);
 }
 
 template <typename T>
@@ -185,18 +192,21 @@ static int launch(const void* const* psi, void* const* out, const int* ia,
   const bool im = clear != nullptr || pw;
   if (A.adv.nx <= 0 || A.adv.ny <= 0 || A.adv.nz <= 0) return 0;
   // the instantiation: stretched z, Flat layout, near-wall bounds on x or y,
-  // clear flags or PositiveWENO5
-  const bool flat = advection_flat(ia), xy = A.adv.masked[0] || A.adv.masked[1];
+  // clear flags or PositiveWENO5, a scheme that needs ANY
+  const bool flat = advection_flat(ia);
+  const auto &m = A.adv.masked, &mt = A.adv.masked_t;
+  const bool xy = m[0] || m[1] || mt[0] || mt[1];
+  const bool any = advection_any(A.adv);
   if (zs != nullptr) {
-    if (flat) return xy ? launch_im<T, true, true, true>(A, im, stream)
-                        : launch_im<T, true, true, false>(A, im, stream);
-    return xy ? launch_im<T, true, false, true>(A, im, stream)
-              : launch_im<T, true, false, false>(A, im, stream);
+    if (flat) return xy ? launch_im<T, true, true, true>(A, im, any, stream)
+                        : launch_im<T, true, true, false>(A, im, any, stream);
+    return xy ? launch_im<T, true, false, true>(A, im, any, stream)
+              : launch_im<T, true, false, false>(A, im, any, stream);
   }
-  if (flat) return xy ? launch_im<T, false, true, true>(A, im, stream)
-                      : launch_im<T, false, true, false>(A, im, stream);
-  return xy ? launch_im<T, false, false, true>(A, im, stream)
-            : launch_im<T, false, false, false>(A, im, stream);
+  if (flat) return xy ? launch_im<T, false, true, true>(A, im, any, stream)
+                      : launch_im<T, false, true, false>(A, im, any, stream);
+  return xy ? launch_im<T, false, false, true>(A, im, any, stream)
+            : launch_im<T, false, false, false>(A, im, any, stream);
 }
 
 extern "C" {

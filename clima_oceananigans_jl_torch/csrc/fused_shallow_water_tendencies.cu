@@ -13,10 +13,12 @@
 //   Gvh = the y analogue,  Gh = -(dxc(Ax uh) + dyc(Ay vh))/V
 //   Gc  = -(dxc(Ax T(u; c)) + dyc(Ay T(v; c)))/V + c div(u, v),
 //         u = uh/ixf(h), v = vh/iyf(h)
-// with T the select-first WENO5 or centred transport of weno5_advection.cuh
-// (transport_axis) and WENO5's near-wall order reduction on a bounded x or
-// y axis (each face knows its absolute index, so both axes take the
-// bounds, where the TPU's tiled windows could carry them only along y).
+// with T the transport of weno5_advection.cuh (transport_axis: any of the
+// JAX package's seven schemes, momentum and tracers each their own) and the
+// scheme's near-wall order reduction on a bounded x or y axis, one set of
+// bounds for each scheme (each face knows its absolute index, so both axes
+// take the bounds, where the TPU's tiled windows could carry them only
+// along y).
 // The grid is 2D: with-halo arrays (nx+2hx, ny+2hy, 1), y contiguous, and
 // the flat z axis has dz = 1, so Ax = dy, Ay = dx, V = dx*dy exactly.
 // Every division is ieee_div or ieee_div_by: IEEE's own quotient, bit for
@@ -57,9 +59,11 @@ struct ShallowWaterArgs {
   T* out[MAX_FIELDS];        // with-halo G: interior computed, halos zero
   int nf;                    // 3 + number of tracers
   int nx, ny, hx, hy;
-  int weno_m, weno_t;        // momentum / tracers: 1 WENO5, 0 centred 2nd order
-  int x_masks, y_masks;      // bounded axis: near-wall order reduction
-  Bounds xb, yb;
+  int scheme_m, scheme_t;    // momentum / tracers: SCHEME_*
+  // per scheme (0 momentum, 1 tracers) and axis (x, y): its near-wall
+  // order reduction on a bounded axis and the reduction's bounds
+  int masked[2][2];
+  Bounds mb[2][2];
   T eps_m, eps_t, dx, dy;
   T g, half_g;               // g and 0.5*g, each rounded once to T
 };
@@ -80,7 +84,9 @@ static int shallow_water_smem_elems(int nf) {
   return n;
 }
 
-template <typename T>
+// ANY: a scheme of needs_any (weno5_advection.cuh); without it the
+// transports compile to the four first codes' branches alone
+template <typename T, bool ANY>
 __global__ void __launch_bounds__(SW_THREADS)
 fused_shallow_water_tendencies_kernel(const __grid_constant__ ShallowWaterArgs<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -144,8 +150,8 @@ fused_shallow_water_tendencies_kernel(const __grid_constant__ ShallowWaterArgs<T
 
   const T half = T(0.5);
   const T Ax = A.dy, Ay = A.dx, V = A.dx * A.dy;
-  const bool wm = A.weno_m != 0, wt = A.weno_t != 0;
-  const bool xm = wm && A.x_masks != 0, ym = wm && A.y_masks != 0;
+  const int sm_ = A.scheme_m, st_ = A.scheme_t;
+  const bool xm = A.masked[0][0] != 0, ym = A.masked[0][1] != 0;
   const int sx = SW_BW;                      // shared-memory x stride
   auto at = [&](int i, int j) { return (i - BI) * sx + (j - BJ); };
   // ixf(iyf(h)) at the (F, F) point of shared offset f
@@ -164,13 +170,13 @@ fused_shallow_water_tendencies_kernel(const __grid_constant__ ShallowWaterArgs<T
       if (i < I1) {
         const int c = at(i, j);
         const T vel = half * (suh[c + sx] + suh[c]);
-        HUU[t] = ieee_div(Ax * transport_axis(suh, (int64_t)(c + sx), (int64_t)sx, vel,
-                                              wm, A.eps_m, xm, A.xb, i), sh[c]);
+        HUU[t] = ieee_div(Ax * transport_axis<ANY>(suh, (int64_t)(c + sx), (int64_t)sx, vel,
+                                              sm_, A.eps_m, xm, A.mb[0][0], i), sh[c]);
       }
       const int f = at(i + 1, j);  // huv at x face i+1: the x flux of vh over h_ff
       const T vel = half * (suh[f] + suh[f - 1]);
-      HUV[t] = ieee_div(Ax * transport_axis(svh, (int64_t)f, (int64_t)sx, vel, wm,
-                                            A.eps_m, xm, A.xb, i + 1), h_ff(f));
+      HUV[t] = ieee_div(Ax * transport_axis<ANY>(svh, (int64_t)f, (int64_t)sx, vel, sm_,
+                                            A.eps_m, xm, A.mb[0][0], i + 1), h_ff(f));
     } else {
       const int t = u - SW_XF, i = I0 + t / (SW_TY + 1), b = t % (SW_TY + 1);
       if (i >= I1) continue;
@@ -178,14 +184,14 @@ fused_shallow_water_tendencies_kernel(const __grid_constant__ ShallowWaterArgs<T
       if (j <= J1) {
         const int f = at(i, j);
         const T vel = half * (svh[f] + svh[f - sx]);
-        HVU[t] = ieee_div(Ay * transport_axis(suh, (int64_t)f, (int64_t)1, vel, wm,
-                                              A.eps_m, ym, A.yb, j), h_ff(f));
+        HVU[t] = ieee_div(Ay * transport_axis<ANY>(suh, (int64_t)f, (int64_t)1, vel, sm_,
+                                              A.eps_m, ym, A.mb[0][1], j), h_ff(f));
       }
       if (j - 1 < J1) {  // hvv at centre j-1: the to-centres y flux of vh over h
         const int c = at(i, j - 1);
         const T vel = half * (svh[c + 1] + svh[c]);
-        HVV[t] = ieee_div(Ay * transport_axis(svh, (int64_t)(c + 1), (int64_t)1, vel,
-                                              wm, A.eps_m, ym, A.yb, j - 1), sh[c]);
+        HVV[t] = ieee_div(Ay * transport_axis<ANY>(svh, (int64_t)(c + 1), (int64_t)1, vel,
+                                              sm_, A.eps_m, ym, A.mb[0][1], j - 1), sh[c]);
       }
     }
   }
@@ -239,7 +245,7 @@ fused_shallow_water_tendencies_kernel(const __grid_constant__ ShallowWaterArgs<T
 
   // tracers at (C, C), advected by the face velocities; tracer f+1 is
   // copied into the other buffer while tracer f is computed
-  const bool xt = wt && A.x_masks != 0, yt = wt && A.y_masks != 0;
+  const bool xt = A.masked[1][0] != 0, yt = A.masked[1][1] != 0;
   for (int f = 3; f < A.nf; ++f) {
     T* const sc = (f - 3) % 2 == 0 ? tbuf0 : tbuf1;
     copy_async_wait<0>();
@@ -251,14 +257,14 @@ fused_shallow_water_tendencies_kernel(const __grid_constant__ ShallowWaterArgs<T
     for (int t = tid; t < SW_XF; t += SW_THREADS) {
       const int i = I0 + t / SW_TY, j = J0 + t % SW_TY;
       if (i > I1 || j >= J1) continue;
-      FX[t] = Ax * transport_axis(sc, (int64_t)at(i, j), (int64_t)sx, UF[t], wt, A.eps_t,
-                                  xt, A.xb, i);
+      FX[t] = Ax * transport_axis<ANY>(sc, (int64_t)at(i, j), (int64_t)sx, UF[t], st_, A.eps_t,
+                                  xt, A.mb[1][0], i);
     }
     for (int t = tid; t < SW_YF; t += SW_THREADS) {
       const int i = I0 + t / (SW_TY + 1), j = J0 + t % (SW_TY + 1);
       if (i >= I1 || j > J1) continue;
-      FY[t] = Ay * transport_axis(sc, (int64_t)at(i, j), (int64_t)1, VF[t], wt, A.eps_t,
-                                  yt, A.yb, j);
+      FY[t] = Ay * transport_axis<ANY>(sc, (int64_t)at(i, j), (int64_t)1, VF[t], st_, A.eps_t,
+                                  yt, A.mb[1][1], j);
     }
     __syncthreads();
     for (int t = tid; t < SW_TX * SW_TY; t += SW_THREADS) {
@@ -272,13 +278,14 @@ fused_shallow_water_tendencies_kernel(const __grid_constant__ ShallowWaterArgs<T
   }
 }
 
+// `ia` (27 ints): nf, nx, ny, hx, hy, the two scheme codes, then for the
+// momentum scheme and then the tracer scheme, for x and then y, (masked,
+// lo_l, hi_l, lo_r, hi_r) (ops/fused_tendencies.py::shallow_water_args);
+// `da`: eps_m, eps_t, dx, dy, g.
 template <typename T>
-static int launch(const void* const* psi, const void* hB, void* const* out,
-                  int nf, int nx, int ny, int hx, int hy, int weno_m,
-                  int weno_t, int x_masks, int xlo_l, int xhi_l, int xlo_r,
-                  int xhi_r, int y_masks, int ylo_l, int yhi_l, int ylo_r,
-                  int yhi_r, double eps_m, double eps_t, double dx, double dy,
-                  double g, void* stream) {
+static int launch(const void* const* psi, const void* hB, void* const* out, const int* ia,
+                  const double* da, void* stream) {
+  const int nf = ia[0], nx = ia[1], ny = ia[2];
   if (nf < 3 || nf > MAX_FIELDS) return (int)cudaErrorInvalidValue;
   ShallowWaterArgs<T> A;
   for (int f = 0; f < MAX_FIELDS; ++f) {
@@ -287,18 +294,23 @@ static int launch(const void* const* psi, const void* hB, void* const* out,
   }
   A.hB = static_cast<const T*>(hB);
   A.nf = nf;
-  A.nx = nx; A.ny = ny; A.hx = hx; A.hy = hy;
-  A.weno_m = weno_m; A.weno_t = weno_t;
-  A.x_masks = x_masks; A.y_masks = y_masks;
-  A.xb = Bounds{xlo_l, xhi_l, xlo_r, xhi_r};
-  A.yb = Bounds{ylo_l, yhi_l, ylo_r, yhi_r};
-  A.eps_m = T(eps_m); A.eps_t = T(eps_t);
-  A.dx = T(dx); A.dy = T(dy);
-  A.g = T(g); A.half_g = T(0.5 * g);
+  A.nx = nx; A.ny = ny; A.hx = ia[3]; A.hy = ia[4];
+  A.scheme_m = ia[5]; A.scheme_t = ia[6];
+  for (int set = 0; set < 2; ++set)
+    for (int a = 0; a < 2; ++a) {
+      const int* b = ia + 7 + 10 * set + 5 * a;
+      A.masked[set][a] = b[0];
+      A.mb[set][a] = Bounds{b[1], b[2], b[3], b[4]};
+    }
+  A.eps_m = T(da[0]); A.eps_t = T(da[1]);
+  A.dx = T(da[2]); A.dy = T(da[3]);
+  A.g = T(da[4]); A.half_g = T(0.5 * da[4]);
   if (nx <= 0 || ny <= 0) return 0;
   const dim3 blocks((ny + SW_TY - 1) / SW_TY, (nx + SW_TX - 1) / SW_TX);
   const int smem = shallow_water_smem_elems(nf) * (int)sizeof(T);
-  auto kernel = fused_shallow_water_tendencies_kernel<T>;
+  const bool any = needs_any(A.scheme_m) || needs_any(A.scheme_t);
+  auto kernel = any ? fused_shallow_water_tendencies_kernel<T, true>
+                    : fused_shallow_water_tendencies_kernel<T, false>;
   if (smem > 48 * 1024) {
     const int rc = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -312,27 +324,17 @@ extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success). `psi` and
 // `out` are host arrays of nf device pointers; `hB` is a device pointer or
-// null.
-int fused_shallow_water_tendencies_f32(
-    const void* const* psi, const void* hB, void* const* out, int nf, int nx,
-    int ny, int hx, int hy, int weno_m, int weno_t, int x_masks, int xlo_l,
-    int xhi_l, int xlo_r, int xhi_r, int y_masks, int ylo_l, int yhi_l,
-    int ylo_r, int yhi_r, double eps_m, double eps_t, double dx, double dy,
-    double g, void* stream) {
-  return launch<float>(psi, hB, out, nf, nx, ny, hx, hy, weno_m, weno_t,
-                       x_masks, xlo_l, xhi_l, xlo_r, xhi_r, y_masks, ylo_l,
-                       yhi_l, ylo_r, yhi_r, eps_m, eps_t, dx, dy, g, stream);
+// null; `ia` and `da` host arrays (launch above).
+int fused_shallow_water_tendencies_f32(const void* const* psi, const void* hB,
+                                       void* const* out, const int* ia, const double* da,
+                                       void* stream) {
+  return launch<float>(psi, hB, out, ia, da, stream);
 }
 
-int fused_shallow_water_tendencies_f64(
-    const void* const* psi, const void* hB, void* const* out, int nf, int nx,
-    int ny, int hx, int hy, int weno_m, int weno_t, int x_masks, int xlo_l,
-    int xhi_l, int xlo_r, int xhi_r, int y_masks, int ylo_l, int yhi_l,
-    int ylo_r, int yhi_r, double eps_m, double eps_t, double dx, double dy,
-    double g, void* stream) {
-  return launch<double>(psi, hB, out, nf, nx, ny, hx, hy, weno_m, weno_t,
-                        x_masks, xlo_l, xhi_l, xlo_r, xhi_r, y_masks, ylo_l,
-                        yhi_l, ylo_r, yhi_r, eps_m, eps_t, dx, dy, g, stream);
+int fused_shallow_water_tendencies_f64(const void* const* psi, const void* hB,
+                                       void* const* out, const int* ia, const double* da,
+                                       void* stream) {
+  return launch<double>(psi, hB, out, ia, da, stream);
 }
 
 }  // extern "C"

@@ -70,7 +70,8 @@ from __future__ import annotations
 
 import torch
 
-from ..advection.schemes import CenteredSecondOrder, PositiveWENO5, WENO5
+from ..advection.schemes import (BoundsPreservingWENO5, CenteredSecondOrder,
+                                 PositiveWENO5, WENO5)
 from ..advection.vector_invariant import VectorInvariant
 from ..boundary_conditions.bcs import (FluxBC, OpenBC, apply_flux_bcs,
                                        apply_immersed_flux_bcs, regularize_bcs)
@@ -141,11 +142,11 @@ def _unsupported_reason(model, particles, immersed_boundary):
     sch, ts = model.momentum_advection, model.tracer_advection
     if sch is not None and (not isinstance(sch, (VectorInvariant, WENO5,
                                                  CenteredSecondOrder))
-                            or isinstance(sch, PositiveWENO5)):
+                            or isinstance(sch, (PositiveWENO5, BoundsPreservingWENO5))):
         return (f"{type(sch).__name__} momentum advection is not ported yet "
                 "(ROADMAP Queue 1 item 2)")
     if ts is not None and (not isinstance(ts, (WENO5, CenteredSecondOrder))
-                           or isinstance(ts, PositiveWENO5)):
+                           or isinstance(ts, (PositiveWENO5, BoundsPreservingWENO5))):
         return (f"{type(ts).__name__} tracer advection is not ported yet "
                 "(ROADMAP Queue 1 item 2)")
     cor = model.coriolis

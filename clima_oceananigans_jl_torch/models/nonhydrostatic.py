@@ -59,8 +59,9 @@ branch). A configuration the port cannot run (other Coriolis, advection
 schemes or closures, ``PartialCellBottom``, particles, stretched x or y,
 ...) raises ``NotImplementedError`` at construction. The kernels' wrappers
 come from ``KERNELS``; the JAX keyword ``fused_advection=False`` swaps in
-``PLAIN`` and takes the general AB2 branch, as its JAX meaning has it,
-and so do background fields, as in the JAX package.
+``PLAIN`` and takes the general AB2 branch, as its JAX meaning has it.
+Background fields take that branch too, as in the JAX package, with their
+cross terms as PyTorch ops, but keep the kernels for the rest.
 
 State: the JAX package's keys and shapes. ``solution`` holds with-halo
 tensors; ``G_prev`` is halo-free (nx, ny, nz) when ``g_interior`` holds
@@ -153,14 +154,15 @@ class NonhydrostaticModel:
         # the JAX keyword: "auto" and True run the kernels (on the card;
         # their plain versions on CPU tensors) and the fused AB2 branch
         # where fused_step_ok allows it; False runs the plain versions and
-        # the branch the JAX package's False takes, and so do background
-        # fields, whose cross terms the JAX package runs outside its
-        # kernels. The TPU's rounding of the y halo to a multiple of 4 has
-        # no counterpart here.
-        self.fused_advection = ((fused_advection is True
-                                 or fused_advection == "auto")
-                                and not background_fields)
-        self.kernels = KERNELS if self.fused_advection else PLAIN
+        # the branch the JAX package's False takes. Background fields take
+        # that branch too (the JAX package runs their cross terms outside
+        # its kernels, as the port runs them as PyTorch ops), while the
+        # kernels still advect the fields themselves, project and fill:
+        # each is bitwise its plain version. The TPU's rounding of the y
+        # halo to a multiple of 4 has no counterpart here.
+        kernels_on = fused_advection is True or fused_advection == "auto"
+        self.fused_advection = kernels_on and not background_fields
+        self.kernels = KERNELS if kernels_on else PLAIN
         self.advection = advection if advection is not None else CenteredSecondOrder()
         self.tracer_advection = (tracer_advection if tracer_advection is not None
                                  else self.advection)
@@ -202,7 +204,7 @@ class NonhydrostaticModel:
                     for n, loc in self._locs().items()}
         self.pressure_bcs = regularize_bcs(self.grid, CENTER, None)
         reason = unsupported_reason(self)
-        if (reason is None and self.fused_advection
+        if (reason is None and self.kernels is KERNELS
                 and self.grid.device.type == "cuda"):
             # on the card the fills run K6: its gate decides now
             reason = self._fill_unsupported_reason()

@@ -26,8 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from ..advection.schemes import (PositiveWENO5, UpwindBiasedFifthOrder, WENO5,
-                                 transport)
+from ..advection.schemes import PositiveWENO5, WENO5, transport
 from ..boundary_conditions.bcs import apply_flux_bcs, fill_halos, regularize_bcs
 from ..closures.scalar_diffusivity import (cell_diffusion_timescale,
                                            momentum_diffusion,
@@ -83,12 +82,12 @@ class ShallowWaterModel:
                     self.tracer_advection.required_halo)
         self.grid = grid.with_halo((h_req, h_req, 0))
         if self.grid.device.type == "cuda" and any(
-                isinstance(s, (UpwindBiasedFifthOrder, PositiveWENO5))
+                isinstance(s, PositiveWENO5)
                 for s in (self.advection, self.tracer_advection)):
             raise NotImplementedError(
-                "UpwindBiasedFifthOrder and PositiveWENO5 in the shallow-water "
-                "model on the card are not ported yet: K3a takes WENO5 and "
-                "centred advection (ROADMAP Queue 1 item 2)")
+                "PositiveWENO5 in the shallow-water model on the card is not "
+                "ported yet: K3a takes the JAX package's seven schemes but "
+                "not its limiter (ROADMAP Queue 1 item 2)")
         self.g = float(gravitational_acceleration)
         self.coriolis = coriolis
         self.closure = closure

@@ -27,8 +27,7 @@ import numbers
 
 import torch
 
-from ..advection.schemes import (CenteredSecondOrder, PositiveWENO5,
-                                 UpwindBiasedFifthOrder, WENO5)
+from ..advection.schemes import PositiveWENO5
 from ..closures.eddy_viscosity import (AnisotropicMinimumDissipation,
                                        SmagorinskyLilly, TwoDimensionalLeith)
 from ..closures.implicit_vertical_diffusion import implicit_step_is_noop
@@ -40,7 +39,7 @@ from ..grids.topology import BOUNDED, FLAT
 from ..immersed.immersed import ImmersedBoundary, PartialCellBottom
 from ..timesteppers.steppers import ab2_coefficients, ab2_substep
 from ..utils.location import U_LOC, V_LOC
-from .fused_tendencies import (ADVECTION_ARGTYPES, advection_args,
+from .fused_tendencies import (ADVECTION_ARGTYPES, KERNEL_SCHEMES, advection_args,
                                check_tensor,
                                fused_advective_tendencies_reference,
                                in_kernel_order, kernel_fn, kernel_order,
@@ -56,10 +55,10 @@ CLOSURES = (ScalarDiffusivity, ScalarBiharmonicDiffusivity, SmagorinskyLilly,
 #: terms of ``tendencies`` (the general branch)
 CORIOLIS = (FPlane, BetaPlane, ConstantCartesianCoriolis,
             NonTraditionalBetaPlane)
-#: its advection schemes, which K1 and K2 take, and the tracer scheme
-#: that K2 alone takes (K1 has no limiter: ``fused_step_ok`` keeps it on
-#: the general branch)
-SCHEMES = (CenteredSecondOrder, WENO5, UpwindBiasedFifthOrder)
+#: its advection schemes, the JAX package's seven, which K1 and K2 take,
+#: and the tracer scheme that K2 alone takes (K1 has no limiter:
+#: ``fused_step_ok`` keeps it on the general branch)
+SCHEMES = tuple(KERNEL_SCHEMES)
 TRACER_SCHEMES = SCHEMES + (PositiveWENO5,)
 
 
@@ -90,9 +89,8 @@ def unsupported_reason(model):
                        (model.tracer_advection, TRACER_SCHEMES)):
         if type(sch) not in known:
             return (f"{type(sch).__name__} advection is not ported yet "
-                    "(WENO5, UpwindBiasedFifthOrder and CenteredSecondOrder "
-                    "are, and PositiveWENO5 for tracers) (ROADMAP Queue 1 "
-                    "item 2)")
+                    "(the JAX package's seven schemes are, and PositiveWENO5 "
+                    "for tracers) (ROADMAP Queue 1 item 2)")
     cl = model.closure
     for c in (cl if isinstance(cl, (tuple, list)) else (cl,)):
         if c is not None and not isinstance(c, CLOSURES):

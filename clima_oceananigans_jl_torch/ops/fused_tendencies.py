@@ -35,8 +35,10 @@ import ctypes
 import torch
 
 from ..advection.fluxes import div_Uc, div_vu, div_vv, div_vw
-from ..advection.schemes import (CenteredSecondOrder, PositiveWENO5,
-                                 UpwindBiasedFifthOrder, WENO5,
+from ..advection.schemes import (BoundsPreservingWENO5, CenteredFourthOrder,
+                                 CenteredSecondOrder, PositiveWENO5,
+                                 UpwindBiasedFifthOrder, UpwindBiasedFirstOrder,
+                                 UpwindBiasedThirdOrder, WENO5,
                                  reduced_order_masks, transport)
 from ..grids.topology import BOUNDED, FLAT, PERIODIC
 from ..immersed.immersed import clear_flags
@@ -116,30 +118,38 @@ def fused_advective_tendencies_reference(grid, scheme, tracer_scheme, u, v, w,
     return out
 
 
+#: the kernels' codes of the schemes (``csrc/weno5_advection.cuh``
+#: ``SCHEME_*``); 3, PositiveWENO5, only where a caller asks for it
+KERNEL_SCHEMES = {CenteredSecondOrder: 0, WENO5: 1, UpwindBiasedFifthOrder: 2,
+                  CenteredFourthOrder: 4, UpwindBiasedFirstOrder: 5,
+                  UpwindBiasedThirdOrder: 6, BoundsPreservingWENO5: 7}
+
+
 def kernel_scheme(scheme, positive=False):
-    """(code, eps) of a scheme the kernels take: 0 centred second order,
-    1 WENO5, 2 UpwindBiasedFifthOrder, and with ``positive`` (K2's tracer
-    scheme) 3 PositiveWENO5 (``csrc/weno5_advection.cuh`` ``SCHEME_*``);
-    raises otherwise."""
-    if type(scheme) is WENO5:
-        return 1, float(scheme.eps)
+    """(code, eps) of a scheme the kernels take (``KERNEL_SCHEMES``), and
+    with ``positive`` (K2's tracer scheme) 3 for PositiveWENO5; eps is
+    the WENO schemes' own, 0 for the others; raises otherwise."""
+    code = KERNEL_SCHEMES.get(type(scheme))
     if positive and type(scheme) is PositiveWENO5:
-        return 3, float(scheme.eps)
-    if type(scheme) is UpwindBiasedFifthOrder:
-        return 2, 0.0
-    if type(scheme) is CenteredSecondOrder:
-        return 0, 0.0
-    raise ValueError("the kernels take WENO5, UpwindBiasedFifthOrder or "
-                     f"CenteredSecondOrder advection, not {type(scheme).__name__}")
+        code = 3
+    if code is None:
+        raise ValueError("the kernels take the JAX package's seven advection "
+                         "schemes and, for K2's tracers, PositiveWENO5, not "
+                         f"{type(scheme).__name__}")
+    return code, float(scheme.eps) if isinstance(scheme, WENO5) else 0.0
 
 
-def axis_bounds(grid, axis, weno):
-    """(masked, lo_l, hi_l, lo_r, hi_r) of WENO5's (or UB5's) near-wall
-    order reduction along ``axis``: the with-halo bounds of
-    ``reduced_order_masks``, or (0, 0, -1, 0, -1) where nothing reduces."""
-    masks = reduced_order_masks(grid, axis, weno)
-    (_, (lo_l, hi_l), (lo_r, hi_r)) = masks or (None, (0, -1), (0, -1))
-    return int(masks is not None), lo_l, hi_l, lo_r, hi_r
+def axis_bounds(grid, axis, scheme):
+    """(masked, lo_l, hi_l, lo_r, hi_r) of ``scheme``'s near-wall order
+    reduction along ``axis``: the with-halo bounds of
+    ``reduced_order_masks`` (its left and right regions; for a centred
+    scheme its symmetric region in both places), or (0, 0, -1, 0, -1)
+    where nothing reduces."""
+    masks = reduced_order_masks(grid, axis, scheme)
+    if masks is None:
+        return 0, 0, -1, 0, -1
+    sym, left, right = masks
+    return (1, *sym, *sym) if not scheme.is_upwind else (1, *left, *right)
 
 
 def spacings(grid):
@@ -152,10 +162,11 @@ def advection_args(grid, scheme, tracer_scheme, nf, positive=False):
     """The shared advection arguments of K1 and K2 after the pointer
     arrays (``set_advection`` of ``csrc/weno5_advection.cuh``), in the
     kernels' axis order (``kernel_order``): a host array of ints (field
-    count, sizes, halos, the two scheme codes, each axis' near-wall bounds,
-    the grid axis of each kernel axis, whether the grid has a Flat axis)
-    and one of doubles (eps of each scheme, the spacings). ``positive``
-    (K2) lets the tracer scheme be PositiveWENO5."""
+    count, sizes, halos, the two scheme codes, each axis' near-wall bounds
+    of the momentum scheme, the grid axis of each kernel axis, whether the
+    grid has a Flat axis, each axis' near-wall bounds of the tracer
+    scheme) and one of doubles (eps of each scheme, the spacings).
+    ``positive`` (K2) lets the tracer scheme be PositiveWENO5."""
     if not 3 <= nf <= 16:
         raise ValueError(f"the kernels take 3 to 16 fields, got {nf}")
     if not grid.hregular:
@@ -163,12 +174,10 @@ def advection_args(grid, scheme, tracer_scheme, nf, positive=False):
     order = kernel_order(grid)
     code_m, eps_m = kernel_scheme(scheme)
     code_t, eps_t = kernel_scheme(tracer_scheme, positive)
-    # WENO5 and UB5 have the same near-wall bounds; centred schemes none
-    upwind = scheme if code_m else tracer_scheme
+    bounds = lambda s: (b for a in order for b in axis_bounds(grid, a, s))
     ints = (nf, *(grid.shape[a] for a in order), *(grid.halo[a] for a in order),
-            code_m, code_t,
-            *(b for a in order for b in axis_bounds(grid, a, upwind)),
-            *order, int(FLAT in grid.topology))
+            code_m, code_t, *bounds(scheme), *order, int(FLAT in grid.topology),
+            *bounds(tracer_scheme))
     d = spacings(grid)
     return ((ctypes.c_int * len(ints))(*ints),
             (ctypes.c_double * 5)(eps_m, eps_t, *(d[a] for a in order)))
@@ -182,13 +191,13 @@ def z_rows_arg(grid, scheme, tracer_scheme, general=False):
     """(z rows, tables) of K1's and K2's stretched (or general)
     instantiation: on a stretched z, or with ``general``, the z rows of
     ``ops/metric_rows.py`` (Δzᶜ and Δzᶠ per level, then WENO5's to-faces
-    and to-centres tables when a scheme is WENO5 and z is stretched) and
-    whether they carry the tables; (None, 0) for the regular
-    instantiation."""
+    and to-centres tables when a scheme is WENO5 or BoundsPreservingWENO5
+    and z is stretched) and whether they carry the tables; (None, 0) for
+    the regular instantiation."""
     if grid.z_regular and not general:
         return None, 0
-    tables = (not grid.z_regular
-              and any(type(s) is WENO5 for s in (scheme, tracer_scheme)))
+    tables = (not grid.z_regular and any(
+        type(s) in (WENO5, BoundsPreservingWENO5) for s in (scheme, tracer_scheme)))
     return z_rows(grid, tables=tables, to_centres=tables), int(tables)
 
 
@@ -358,25 +367,19 @@ def fused_shallow_water_tendencies_reference(grid, scheme, tracer_scheme, g,
 
 
 def shallow_water_args(grid, scheme, tracer_scheme, nf, g):
-    """K3a's arguments after the pointers: field count, sizes, halos,
-    schemes, the x and y bounds, eps, spacings, g."""
+    """K3a's arguments after the pointers: field count, sizes, halos, the
+    two scheme codes, the momentum scheme's x and y near-wall bounds, the
+    tracer scheme's, eps of each scheme, spacings, g."""
     if not 3 <= nf <= 16:
         raise ValueError(f"K3a takes 3 to 16 fields, got {nf}")
     if grid.topology[2] is not FLAT or grid.shape[2] != 1:
         raise ValueError(f"K3a takes a flat z axis: {grid}")
-    weno_m, eps_m = kernel_scheme(scheme)
-    weno_t, eps_t = kernel_scheme(tracer_scheme)
-    if 2 in (weno_m, weno_t):
-        raise ValueError("K3a takes WENO5 or CenteredSecondOrder advection, not "
-                         "UpwindBiasedFifthOrder (ROADMAP Queue 1 item 2)")
-    weno = scheme if weno_m else tracer_scheme
-    return (nf, grid.Nx, grid.Ny, grid.Hx, grid.Hy, weno_m, weno_t,
-            *axis_bounds(grid, 0, weno), *axis_bounds(grid, 1, weno),
+    code_m, eps_m = kernel_scheme(scheme)
+    code_t, eps_t = kernel_scheme(tracer_scheme)
+    bounds = lambda s: (*axis_bounds(grid, 0, s), *axis_bounds(grid, 1, s))
+    return (nf, grid.Nx, grid.Ny, grid.Hx, grid.Hy, code_m, code_t,
+            *bounds(scheme), *bounds(tracer_scheme),
             eps_m, eps_t, grid.Lx / grid.Nx, grid.Ly / grid.Ny, float(g))
-
-
-#: ctypes types of ``shallow_water_args``
-SHALLOW_WATER_ARGTYPES = [ctypes.c_int] * 17 + [ctypes.c_double] * 5
 
 
 def _launch_shallow_water(grid, scheme, tracer_scheme, g, uh, vh, h, tracers,
@@ -393,11 +396,11 @@ def _launch_shallow_water(grid, scheme, tracer_scheme, g, uh, vh, h, tracers,
     out = [torch.empty(grid.total_shape, dtype=dtype, device=device)
            for _ in fields]
     fn = kernel_fn("fused_shallow_water_tendencies",
-                   "fused_shallow_water_tendencies", dtype,
-                   [ctypes.c_void_p] * 3 + SHALLOW_WATER_ARGTYPES)
+                   "fused_shallow_water_tendencies", dtype, [ctypes.c_void_p] * 5)
+    ints, doubles = args[:27], args[27:]
     launch("fused_shallow_water_tendencies", fn, device, pointers(fields),
            None if bathymetry is None else bathymetry.data_ptr(),
-           pointers(out), *args)
+           pointers(out), (ctypes.c_int * 27)(*ints), (ctypes.c_double * 5)(*doubles))
     fused_shallow_water_tendencies.launches += 1
     return tuple(out)
 

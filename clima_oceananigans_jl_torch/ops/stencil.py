@@ -96,6 +96,9 @@ def izf(f):
 
 
 # -- 4th-order interpolations -------------------------------------------------
+# The divisor 16 is a power of two: IEEE division by it and PyTorch's CUDA
+# multiply by its reciprocal 1/16 round the same real number, so a Python
+# scalar divisor gives the same bits on both devices (as the kernels' * 1/16).
 def i4c(f, axis):
     """4th-order ℑ onto centres: (9(f[i]+f[i+1]) − (f[i−1]+f[i+2]))/16."""
     return (9.0 * (f + shift(f, 1, axis))

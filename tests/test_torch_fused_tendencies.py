@@ -146,10 +146,11 @@ def test_kernel_arguments_refuse_what_the_kernels_do_not_take():
                                     device=DEVICE)
     with pytest.raises(ValueError):
         tft.advection_args(stretched_x, T.WENO5(), T.WENO5(), 4)
-    # WENO5 tracers under centred momentum take the WENO5 z bounds; a
-    # bounded x its own
+    # WENO5 tracers under centred momentum take the WENO5 z bounds in the
+    # tracers' set (the centred momentum reduces nowhere); a bounded x its
+    # own
     ints, _ = tft.advection_args(tg, T.CenteredSecondOrder(), T.WENO5(), 4)
-    assert tuple(ints[7:10]) == (0, 1, 0) and ints[19] == 1
+    assert tuple(ints[7:10]) == (0, 1, 0) and ints[19] == 0 and ints[38] == 1
     bounded_x = torch_grid(("bounded", "periodic", "bounded"))
     ints, _ = tft.advection_args(bounded_x, T.WENO5(), T.WENO5(), 4)
     assert (ints[9], ints[14], ints[19]) == (1, 0, 1)

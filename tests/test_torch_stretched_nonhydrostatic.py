@@ -7,9 +7,9 @@ the JAX plain path (``fused_advection=False``) and on the port's CPU path
 (the kernels' plain versions):
 
 - 10 RK3 steps of ``examples/ocean_wind_mixing_and_convection.py`` uncut
-  but for WENO5 in place of ``UpwindBiasedFifthOrder`` (its own stretched
-  z faces, refinement 1.2 and stretching 12, at 16³; AMD; seawater
-  buoyancy; its flux and gradient BCs) and of
+  (``UpwindBiasedFifthOrder``; its own stretched z faces, refinement 1.2
+  and stretching 12, at 16³; AMD; seawater buoyancy; its flux and
+  gradient BCs) and of
   ``examples/langmuir_turbulence.py`` with its own AMD closure, within
   ``1e-9`` of max|field| (the Fourier-tridiagonal solve's transforms
   differ in rounding, see ``test_torch_tridiagonal.py``);
@@ -105,7 +105,7 @@ def wind_mixing(jax_side, size, device=DEVICE):
     def QS(grid, t, fields):
         return -EVAPORATION * fields["S"]
     if jax_side:
-        return JN(jg, advection=J.WENO5(), timestepper="RungeKutta3",
+        return JN(jg, advection=J.UpwindBiasedFifthOrder(), timestepper="RungeKutta3",
                   tracers=("T", "S"), coriolis=J.FPlane(f=1e-4),
                   buoyancy=jbuoy.SeawaterBuoyancy(equation_of_state=jbuoy.LinearEquationOfState(
                       thermal_expansion=2e-4, haline_contraction=8e-4)),
@@ -116,7 +116,8 @@ def wind_mixing(jax_side, size, device=DEVICE):
                       "S": jbcs.FieldBCs(top=jbcs.FluxBC(QS, discrete=True))},
                   fused_advection=False)
     return T.NonhydrostaticModel(
-        tg, advection=T.WENO5(), timestepper="RungeKutta3", tracers=("T", "S"),
+        tg, advection=T.UpwindBiasedFifthOrder(), timestepper="RungeKutta3",
+        tracers=("T", "S"),
         coriolis=T.FPlane(f=1e-4),
         buoyancy=T.SeawaterBuoyancy(equation_of_state=T.LinearEquationOfState(
             thermal_expansion=2e-4, haline_contraction=8e-4)),

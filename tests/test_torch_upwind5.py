@@ -14,9 +14,9 @@ PyTorch's CUDA kernels). Held against the JAX package in float64:
   ``tilted_bottom_boundary_layer``; ``test_torch_flat_bounded.py``'s
   ``CONFIGS``) over 10 RK3 steps and 10 quasi-AB2 steps on both of the
   port's branches, within 1e-9 of max|field|;
-- the shallow-water and hydrostatic models refuse UB5 where their kernels
-  (K3a, K4b) do not take it, naming ROADMAP Queue 1 item 2: the
-  hydrostatic model everywhere, the shallow-water model on the card.
+- the hydrostatic model refuses UB5, whose K4b form is not ported,
+  naming ROADMAP Queue 1 item 2; K3a takes it (its code, and on the card
+  a step against the plain one).
 
 The ``cuda`` cases hold K2 and K1 with UB5 against their plain versions
 on the card bit for bit (``python -m pytest --noconftest -m cuda
@@ -78,10 +78,11 @@ def test_configuration_matches_jax_over_ten_steps(config, branch):
 
 
 def test_kernel_scheme_code():
+    """K1's, K2's and K3a's code for UB5; K3a takes it too."""
     assert tft.kernel_scheme(T.UpwindBiasedFifthOrder()) == (2, 0.0)
     _, tg = grid_pair("PPF", (8, 8, 1))
-    with pytest.raises(ValueError, match="item 2"):
-        tft.shallow_water_args(tg, T.UpwindBiasedFifthOrder(), T.WENO5(), 3, 9.8)
+    args = tft.shallow_water_args(tg, T.UpwindBiasedFifthOrder(), T.WENO5(), 3, 9.8)
+    assert args[5:7] == (2, 1)
 
 
 def test_hydrostatic_model_refuses_ub5_by_name():
@@ -97,12 +98,18 @@ def test_hydrostatic_model_refuses_ub5_by_name():
 # -- on the card ---------------------------------------------------------------------
 
 @pytest.mark.cuda
-def test_cuda_shallow_water_refuses_ub5_by_name():
+def test_cuda_shallow_water_takes_ub5():
+    """K3a takes UB5 on the card: a step with the kernel equals one with
+    its plain version."""
     needs_card()
-    g = T.RectilinearGrid(size=(16, 16, 1), extent=(1, 1),
+    from clima_oceananigans_jl_torch.models import shallow_water as tsw
+    g = T.RectilinearGrid(size=(40, 36, 1), extent=(1, 1),
                           topology=(T.PERIODIC, T.PERIODIC, T.FLAT), device="cuda")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        T.ShallowWaterModel(g, advection=T.UpwindBiasedFifthOrder())
+    m = T.ShallowWaterModel(g, advection=T.UpwindBiasedFifthOrder())
+    s = m.initial_state(uh=lambda x, y, z: 0.1 * torch.sin(6.3 * x), h=1.0)
+    a, b = m.step(s, 1e-3), m.step(s, 1e-3, kernels=tsw.PLAIN)
+    for name in a["solution"]:
+        assert torch.equal(a["solution"][name], b["solution"][name]), name
 
 
 @pytest.mark.cuda
