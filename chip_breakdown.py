@@ -7,7 +7,7 @@
                               [langmuir-amd] [wind-mixing-stretched]
                               [ab2-implicit] [t1] [t1-variants]
                               [near-global] [near-global-weno] [diffusive]
-                              [horizontal-convection] [2d-turbulence]
+                              [near-global-catke] [horizontal-convection] [2d-turbulence]
                               [seamount] [simulation] [internal-wave]
                               [weno5-kernels] [sass-regular --parent DIR]
                               [--steps N]
@@ -95,6 +95,12 @@ limit first. Needs a card; without one it exits with an error.
   bands apart), the corrector, K4a and K6; run them with
   ``hydrostatic-wind`` in one call to read what the bottom and the closure
   cost.
+- ``near-global-catke``: ``chip_smoke.py``'s ``near-global CATKE`` path
+  (the near-global run under CATKE and TEOS-10, ``OCEAN``), likewise, with
+  TEOS-10's b for K4a, N² (TEOS-10's b again) inside CATKE's
+  diffusivities, the rest of CATKE's diffusivities and ``tke_tendency``
+  as parts of their own beside those of ``near-global``; its idle share
+  by torch.profiler.
 - ``horizontal-convection``, ``2d-turbulence``: ``chip_smoke.py``'s
   walls-and-Flat paths (``WALLS``: examples/horizontal_convection.py at
   4096×1×2048 on (Bounded, Flat, Bounded), its b ValueBC a callable;
@@ -201,8 +207,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from clima_oceananigans_jl_torch import (PERIODIC, FLAT, RectilinearGrid,
-                                         ShallowWaterModel, WENO5)
+from clima_oceananigans_jl_torch import (PERIODIC, FLAT, CATKEVerticalDiffusivity,
+                                         RectilinearGrid, ShallowWaterModel, WENO5)
+from clima_oceananigans_jl_torch.closures import vertical_mixing as vm
 from clima_oceananigans_jl_torch.models import hydrostatic as hm
 from clima_oceananigans_jl_torch.models import nonhydrostatic as nm
 from clima_oceananigans_jl_torch.models import shallow_water as swm
@@ -935,6 +942,45 @@ def near_global(path, steps):
                                        "implicit step's bands and copies")})
 
 
+def near_global_catke(steps):
+    """chip_smoke.py's ``near-global CATKE`` path (the ocean-physics
+    configuration at ¼°), its warm-up steps, then ``steps`` steps with its
+    parts timed: TEOS-10's b for K4a, N² (TEOS-10's b again) inside CATKE's
+    diffusivities, the rest of CATKE's diffusivities, ``tke_tendency``, the
+    eager horizontal diffusion, K4b, the AB2 substep, T1's five solves and
+    the implicit step's bands, the barotropic modes, K5, K4a and K6."""
+    model = chip_smoke.ocean_model("CATKE")
+    dt = chip_smoke.HYDRO["dt"]
+    state = chip_smoke.ocean_state(model)
+    for _ in range(chip_smoke.HYDRO["warmup"]):
+        state = model.step(state, dt)
+    torch.cuda.synchronize()
+    events = collections.defaultdict(list)
+    kernels = {k: timed(events, label, hm.KERNELS[k]) for k, label in (
+        ("tendencies", "K4b (tendencies)"), ("columns", "K4a"),
+        ("barotropic", "K5 and its wrapper"), ("fill", "K6 fills"),
+        ("tridiagonal", "T1 (implicit step)"))}
+    step = lambda s, timed_parts: model.step(s, dt, kernels if timed_parts else None)
+    patches = [(model, "_buoyancy_field", "TEOS-10 b for K4a"),
+               (vm, "buoyancy_gradient_faces", "N2 (TEOS-10 b) in CATKE"),
+               (CATKEVerticalDiffusivity, "compute_diffusivities", "CATKE diffusivities"),
+               (CATKEVerticalDiffusivity, "tke_tendency", "tke_tendency"),
+               (hm, "momentum_diffusion", "eager horizontal diffusion"),
+               (hm, "tracer_diffusion", "eager horizontal diffusion"),
+               (hm, "apply_flux_bcs", "flux BCs"),
+               (hm, "ab2_substep", "ab2_substep"),
+               (hm, "barotropic_mode", "barotropic modes"),
+               (hm, "implicit_step_fields", "implicit step"),
+               (SplitExplicitFreeSurface, "corrector", "corrector"),
+               (model.immersed_boundary, "mask_state", "mask_state"),
+               (model.immersed_boundary, "mask_tendency", "mask_tendency")]
+    breakdown("near-global CATKE 1/4 deg step", step, state, events, patches, steps,
+              inner={"implicit step": (["T1 (implicit step)"],
+                                       "implicit step's bands and copies"),
+                     "CATKE diffusivities": (["N2 (TEOS-10 b) in CATKE"],
+                                             "CATKE diffusivities less N2")})
+
+
 def shallow_water(steps):
     n = chip_smoke.N_SW
     dt, warmup, _ = chip_smoke.SW_PATH
@@ -1391,6 +1437,7 @@ PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps),
          "near-global": lambda steps: near_global("near-global", steps),
          "near-global-weno": lambda steps: near_global("near-global WENO", steps),
          "diffusive": lambda steps: near_global("1/4 deg diffusive", steps),
+         "near-global-catke": near_global_catke,
          "horizontal-convection": lambda steps: walls("horizontal convection", steps),
          "2d-turbulence": lambda steps: walls("2D turbulence", steps),
          "seamount": seamount, "simulation": simulation,

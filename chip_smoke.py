@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's twenty paths through ``clima_oceananigans_jl_torch``
+Drives the port's paths through ``clima_oceananigans_jl_torch``
 on the card, in phases; each prints one line or a few:
 
 1. device: the card's name and power limit as nvidia-smi gives them, on a
@@ -138,7 +138,8 @@ on the card, in phases; each prints one line or a few:
    each of its forms (``t1_forms``): the Fourier-tridiagonal system of the
    256³ wind-mixing grid (129×256×256 complex64, the (0, 0) pin), the
    implicit step's solve on that grid (262×262×256 fp32, 1D and 3D bands)
-   and on the ¼° grid (1446×606×24 fp32, 1D bands), the implicit forms
+   and on the ¼° grid (1446×606×24 fp32, 1D bands; 3D bands, CATKE's, at
+   the halo of the near-global CATKE model), the implicit forms
    through views of with-halo fields whose halos must stay NaN; 67×45×29
    fp64 in the Fourier mode (with and without the pin); the implicit step
    at 256³ fp32 with a scalar κ (1D bands) and AMD's κ (3D bands) with
@@ -169,10 +170,15 @@ on the card, in phases; each prints one line or a few:
    ``near-global`` (benchmark/bench_near_global.py as written: 1 K4a,
    1 K4b, 1 K5, 2 K6, 3 T1 a step), ``near-global WENO`` (1 K4a, 1 K4b,
    1 K5, 2 K6, 5 T1) and ``1/4 deg diffusive`` (K4b's advance with the
-   in-kernel closure; 1 K4a, 1 K4b, 1 K5, 2 K6, 5 T1); fields finite,
-   |Σ η·Az| ≤ 1e-5·Σ|η|·Az, u and v exactly 0 at every solid face (the
-   validation's check), K4b held bit for bit and timed on the path's
-   fields, the runs agree exactly;
+   in-kernel closure; 1 K4a, 1 K4b, 1 K5, 2 K6, 5 T1) and ``near-global
+   CATKE`` (the ocean-physics configuration ``OCEAN``: the near-global run
+   under (HorizontalScalarDiffusivity, CATKE) and TEOS-10 with T, S and e;
+   1 K4a, 1 K4b on five fields, 1 K5, 2 K6, 5 T1 in the 3D-band form);
+   fields finite, |Σ η·Az| ≤ 1e-5·Σ|η|·Az, u and v exactly 0 at every
+   solid face (the validation's check), K4b held bit for bit and timed on
+   the path's fields, the runs agree exactly; on ``near-global CATKE`` the
+   top layer's mean e under the wind (|τx| > 1e-5) above the calm cells'
+   and its ms/step and M points/s beside the card's name and power limit;
 23. (since the walls-and-Flat slice) K2, K3b and K3c against their plain
    versions bit for bit over NaN-filled outputs on the Flat and bounded
    topologies (``FLAT_BOUNDED``: (P, F, B) 1000×1×333, (B, F, B)
@@ -284,7 +290,31 @@ on the card, in phases; each prints one line or a few:
    validation/periodic_advection.py as written, N = 128 fp64, its 7
    schemes × 2 profiles × 640 RK3 steps, each run's first 3 steps also
    with the plain versions (max|Δ| = 0), 3 K2, 3 K3b, 3 K3c and 9 K6 a
-   step over the sweep, and the validation's eight assertions.
+   step over the sweep, and the validation's eight assertions;
+31. (since the ocean-physics slice) the closures hold (``CLOSURES_HOLD``):
+   the ``OCEAN`` configuration at 1° (360×150×24 fp32) with CATKE replaced
+   in turn by ConvectiveAdjustmentVerticalDiffusivity(convective_kappa_z=1,
+   background_kappa_z=1e-5), RiBasedVerticalDiffusivity() and
+   IsopycnalSkewSymmetricDiffusivity() beside a vertically implicit
+   VerticalScalarDiffusivity(nu=1e-3, kappa=1e-4), and CATKE under
+   RoquetIdealizedEquationOfState(); 3 steps with the kernels (1 K4a, 1
+   K4b, 1 K5, 2 K6 and 4 or 5 T1 a step) and 3 with the plain versions,
+   max|Δ| = 0 on every field, η and pHY′, finite;
+32. the free-convection path (``FREE_CONVECTION``):
+   validation/vertical_mixing_closures.py (H = 128 m, nz = 64, N² = 1e-5,
+   B₀ = 1e-7, Δt = 60 s, 720 steps, ImplicitFreeSurface("pcg"), no
+   advection) with each of its three closures on a (Periodic, Periodic,
+   Bounded) 32×32×64 fp64 grid (the K4 gate refuses the script's Flat
+   x); 1 K4a, 1 K4b, 3 K6 and 3 (4 with CATKE's e) T1 a step; the
+   validation's assertions (the buoyancy budget within 2%, the
+   mixed-layer gradient below N²/2, 0.5 h_exp < h < 1.8 h_exp) and every
+   column within 1e-12·max|b| of the first;
+33. the nonhydrostatic closures hold (``NONHYDROSTATIC_HOLD``): the wind
+   mixing path's configuration at 128³ fp32 under TEOS10EquationOfState(),
+   under RoquetIdealizedEquationOfState() and with CATKEVerticalDiffusivity()
+   beside its ScalarDiffusivity (e = 1e-7 at the start), 3 RK3 steps with
+   the kernels (3 K2 and 6 K6 a step; with CATKE 18 T1 too) and 3 with
+   the plain versions, max|Δ| = 0, finite.
 
 Each kernel's record carries its bound: the larger of its compulsory
 bytes (each input read once, each output written once, from this run's
@@ -298,7 +328,7 @@ each kernel's record counts its launches on every path that runs it
 (printed by path). Then a JSON line with each kernel's record (K4b's and
 K5's and T1's with ``forms``: the same keys for K4b's closure, masked and
 stretched-latitude forms, for K5 over the near-global bottom and for T1's
-four forms (with their shapes), with the launches of the path that runs
+five forms (with their shapes), with the launches of the path that runs
 each; K1's, K2's, K3b's and K3c's with their Flat and bounded geometries
 as ``forms``, timed on the walls-and-Flat and seamount paths' fields (K1
 on its Flat z hold, which no path runs; K2's immersed and PositiveWENO5
@@ -348,7 +378,16 @@ from clima_oceananigans_jl_torch import (BOUNDED, FLAT, PERIODIC,
                                          BoundsPreservingWENO5,
                                          CenteredFourthOrder,
                                          UpwindBiasedFirstOrder,
-                                         UpwindBiasedThirdOrder)
+                                         UpwindBiasedThirdOrder,
+                                         CATKEVerticalDiffusivity,
+                                         ConvectiveAdjustmentVerticalDiffusivity,
+                                         HorizontalScalarDiffusivity,
+                                         ImplicitFreeSurface,
+                                         IsopycnalSkewSymmetricDiffusivity,
+                                         RiBasedVerticalDiffusivity,
+                                         RoquetIdealizedEquationOfState,
+                                         TEOS10EquationOfState,
+                                         VerticalScalarDiffusivity)
 from clima_oceananigans_jl_torch.examples import internal_wave
 from clima_oceananigans_jl_torch.validation import periodic_advection
 from clima_oceananigans_jl_torch.boundary_conditions.bcs import regularize_bcs
@@ -382,7 +421,7 @@ from clima_oceananigans_jl_torch.solvers.fourier_tridiagonal import (
 from clima_oceananigans_jl_torch.solvers.tridiagonal import (
     fourier_tridiagonal, fourier_tridiagonal_reference,
     solve_batched_tridiagonal, solve_batched_tridiagonal_reference)
-from clima_oceananigans_jl_torch.utils.location import (CENTER, U_LOC, V_LOC,
+from clima_oceananigans_jl_torch.utils.location import (C, CENTER, U_LOC, V_LOC,
                                                         W_LOC)
 
 N = 256
@@ -497,7 +536,18 @@ PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
             "seamount": {K2: 1, K3B: 1, K3C: 1, K6: 4},
             "simulation": {K2: 3, K3B: 3, K3C: 3, K6: 12},
             "internal wave": {K2: 3, K3B: 3, K3C: 3, K6: 12},
-            "periodic advection": {K2: 3, K3B: 3, K3C: 3, K6: 9}}
+            "periodic advection": {K2: 3, K3B: 3, K3C: 3, K6: 9},
+            "near-global CATKE": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 5},
+            "closures hold: convective adjustment": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 4},
+            "closures hold: Ri-based": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 4},
+            "closures hold: GM/Redi": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 4},
+            "closures hold: CATKE Roquet": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 5},
+            "free convection: CATKE": {K4A: 1, K4B: 1, K6: 3, T1: 4},
+            "free convection: convective adjustment": {K4A: 1, K4B: 1, K6: 3, T1: 3},
+            "free convection: Ri-based": {K4A: 1, K4B: 1, K6: 3, T1: 3},
+            "nonhydrostatic closures hold: TEOS-10": {K2: 3, K6: 6},
+            "nonhydrostatic closures hold: Roquet": {K2: 3, K6: 6},
+            "nonhydrostatic closures hold: CATKE": {K2: 3, K6: 6, T1: 18}}
 #: of T1's launches a step, those of its Fourier mode (the pressure solve)
 T1_FOURIER_PER_STEP = {"wind mixing stretched": 3, "AB2 stretched implicit": 1}
 T1F = "fourier_tridiagonal"
@@ -509,7 +559,8 @@ T1_FORM_PATHS = {"Fourier": {"wind mixing stretched": "fourier",
                  "implicit 3D": {},
                  "1/4 deg implicit 1D": {"near-global": "implicit",
                                          "near-global WENO": "implicit",
-                                         "1/4 deg diffusive": "implicit"}}
+                                         "1/4 deg diffusive": "implicit"},
+                 "1/4 deg implicit 3D": {"near-global CATKE": "implicit"}}
 #: how far the kernel and plain runs of a path may differ, of max|field|;
 #: every kernel is bitwise its plain version, so a gap (such as an
 #: unwritten wall face) is a fault, not rounding: the 256³ paths of K1 and
@@ -520,7 +571,7 @@ AGREE = {"AB2": 0.0, "RK3": 0.0, "shallow water": 1e-4,
          "wind mixing stretched": 0.0, "AB2 stretched implicit": 0.0,
          "near-global": 0.0, "near-global WENO": 0.0, "1/4 deg diffusive": 0.0,
          "horizontal convection": 0.0, "2D turbulence": 0.0, "seamount": 0.0,
-         "internal wave": 0.0}
+         "internal wave": 0.0, "near-global CATKE": 0.0}
 #: the ¼° hydrostatic flagship (benchmark/bench_hydro_flagship.py:24-41);
 #: its "hydrostatic wind" path adds the near-global run's wind stress (u
 #: top FluxBC((λ, φ, t) ↦ −1e-4 cos(3πφ/180)),
@@ -545,12 +596,52 @@ HYDRO = dict(size=(1440, 600, 24), dt=600.0, substeps=30, warmup=2, steps=5)
 #: - "1/4 deg diffusive": the flagship (its u = 0.1·N(0,1) and b) with
 #:   that closure on a flat bottom, no wind: K4b's advance with the
 #:   in-kernel closure (its horizontal part; the z part through T1).
-NEAR_GLOBAL = ("near-global", "near-global WENO", "1/4 deg diffusive")
+#: - "near-global CATKE": the ocean-physics configuration at ¼° (``OCEAN``).
+NEAR_GLOBAL = ("near-global", "near-global WENO", "1/4 deg diffusive",
+               "near-global CATKE")
 NEAR_GLOBAL_CLOSURE = dict(nu=1e4, kappa=1e3, nu_z=1e-3, kappa_z=1e-4,
                            time_discretization="vertically_implicit")
 #: whether each ¼° path steps through K4b's fused advance
 FUSED_ADVANCE = {"hydrostatic": True, "hydrostatic wind": False, "near-global": False,
-                 "near-global WENO": False, "1/4 deg diffusive": True}
+                 "near-global WENO": False, "1/4 deg diffusive": True,
+                 "near-global CATKE": False}
+#: the ocean-physics configuration, the near-global ocean as ClimaOcean
+#: sets up its global runs (a prognostic-TKE boundary layer and TEOS-10):
+#: benchmark/bench_near_global.py as written (its lat-lon grid and z faces,
+#: SplitExplicitFreeSurface(substeps=30), HydrostaticSphericalCoriolis, the
+#: GridFittedBottom of its sigmoid continent, its wind FluxBC on u, its
+#: default schemes, Δt = 600 s) with
+#: - the closure (HorizontalScalarDiffusivity(nu=1e4, kappa=1e3),
+#:   CATKEVerticalDiffusivity(surface_momentum_flux=(τx, 0))), τx the same
+#:   −1e-4 cos(3πφ/180) at the cell centres as a with-halo (x, y) plane;
+#: - SeawaterBuoyancy(equation_of_state=TEOS10EquationOfState()), tracers
+#:   T, S and CATKE's e;
+#: - T = 2 + 18 exp(z/500) °C, S = 35 g/kg, e = 1e-7 m²/s² (the value of
+#:   validation/wind_mixing_column.py:30), u = v = 0.
+#: "near-global CATKE" runs it at ¼° (1440×600×24 fp32) as NEAR_GLOBAL's
+#: paths run; the closures hold at 1° (``CLOSURES_HOLD``) replaces its
+#: CATKE in turn
+OCEAN = dict(nu=1e4, kappa=1e3, e=1e-7)
+#: the closures hold: (360×150×24 fp32, steps with the kernels and with the
+#: plain versions) and the closures that stand in for CATKE ("CATKE Roquet"
+#: keeps CATKE under RoquetIdealizedEquationOfState())
+CLOSURES_HOLD = dict(size=(360, 150, 24), steps=3,
+                     kinds=("convective adjustment", "Ri-based", "GM/Redi",
+                            "CATKE Roquet"))
+#: validation/vertical_mixing_closures.py (l.31-86): a resting column with
+#: N² = 1e-5 cooled at B₀ = 1e-7 for 12 h (720 steps of 60 s) under each
+#: closure, H = 128 m, nz = 64, fp64, ImplicitFreeSurface("pcg"), no
+#: advection, on a horizontally periodic 32×32×64 grid (the K4 gate
+#: refuses the script's Flat x, as the JAX kernel does): every column
+#: evolves as the script's one
+FREE_CONVECTION = dict(size=(32, 32, 64), H=128.0, N2=1e-5, B0=1e-7, dt=60.0,
+                       steps=720, kinds=("CATKE", "convective adjustment",
+                                         "Ri-based"))
+#: the nonhydrostatic closures hold: the wind-mixing path's configuration
+#: at 128³ fp32 under TEOS-10, under Roquet, and with CATKE beside its
+#: ScalarDiffusivity; 3 RK3 steps with the kernels and 3 with the plain
+#: versions
+NONHYDROSTATIC_HOLD = dict(n=128, steps=3, kinds=("TEOS-10", "Roquet", "CATKE"))
 
 
 def model_for(n, dtype, **kw):
@@ -1065,10 +1156,12 @@ def langmuir_model(n=None, closure=None):
                                            bottom=GradientBC(c["N2"]))})
 
 
-def wind_mixing_model(n=None, stretched=False, dtype=torch.float32):
+def wind_mixing_model(n=None, stretched=False, dtype=torch.float32, eos=None,
+                      closure=None):
     """examples/ocean_wind_mixing_and_convection.py at n³ with the cuts of
     ``SURFACE``; S's top flux is the example's discrete-form QS. With
-    ``stretched``, uncut: its stretched z and AMD."""
+    ``stretched``, uncut: its stretched z and AMD. ``eos`` replaces its
+    linear equation of state, ``closure`` its closure."""
     c = WIND
 
     def QS(grid, t, fields):
@@ -1077,20 +1170,21 @@ def wind_mixing_model(n=None, stretched=False, dtype=torch.float32):
         surface_grid(n, dtype, stretched), advection=UpwindBiasedFifthOrder(),
         timestepper="RungeKutta3",
         tracers=("T", "S"), coriolis=FPlane(f=1e-4),
-        buoyancy=SeawaterBuoyancy(equation_of_state=LinearEquationOfState(
+        buoyancy=SeawaterBuoyancy(equation_of_state=eos or LinearEquationOfState(
             thermal_expansion=2e-4, haline_contraction=8e-4)),
-        closure=(AnisotropicMinimumDissipation() if stretched
-                 else ScalarDiffusivity(nu=1e-5, kappa=1e-5)),
+        closure=closure or (AnisotropicMinimumDissipation() if stretched
+                            else ScalarDiffusivity(nu=1e-5, kappa=1e-5)),
         boundary_conditions={"u": FieldBCs(top=FluxBC(c["Qu"])),
                              "T": FieldBCs(top=FluxBC(c["QT"]),
                                            bottom=GradientBC(c["dTdz"])),
                              "S": FieldBCs(top=FluxBC(QS, discrete=True))})
 
 
-def surface_state(path, model, seed=0):
+def surface_state(path, model, seed=0, **extra):
     """The example's initial state on the card, its noise from a seeded
     torch.Generator: langmuir_turbulence.py l.63-76,
-    ocean_wind_mixing_and_convection.py l.77-86."""
+    ocean_wind_mixing_and_convection.py l.77-86; ``extra`` values of other
+    fields (the wind-mixing model's)."""
     g = model.grid
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     noise = lambda: torch.randn(g.shape, generator=gen, dtype=g.dtype, device=DEVICE)
@@ -1109,7 +1203,8 @@ def surface_state(path, model, seed=0):
     ustar = math.sqrt(abs(c["Qu"]))
     return model.initial_state(
         T=20.0 + c["dTdz"] * zc + c["dTdz"] * 32.0 * 1e-6 * prof * noise(),
-        u=ustar * 1e-3 * prof * noise(), w=ustar * 1e-3 * prof * noise(), S=35.0)
+        u=ustar * 1e-3 * prof * noise(), w=ustar * 1e-3 * prof * noise(), S=35.0,
+        **extra)
 
 
 def implicit_model(n=None, dtype=torch.float32):
@@ -1402,8 +1497,59 @@ def near_global_bathymetry(lam, phi):
     return torch.where(land > 0.5, full(100.0), full(-3000.0))
 
 
+def ocean_closure(kind, grid):
+    """The ocean-physics configuration's closure (``OCEAN``) on ``grid``,
+    with CATKE (``kind`` "CATKE" or "CATKE Roquet") or a closure of the
+    closures hold in its place."""
+    horizontal = HorizontalScalarDiffusivity(nu=OCEAN["nu"], kappa=OCEAN["kappa"])
+    if kind.startswith("CATKE"):
+        phi = grid.coord(1, C, with_halo=True).reshape(1, -1)
+        tau = torch.broadcast_to(-1e-4 * torch.cos(3.0 * math.pi * phi / 180.0),
+                                 grid.total_shape[:2]).contiguous()
+        return horizontal, CATKEVerticalDiffusivity(surface_momentum_flux=(tau, 0.0))
+    if kind == "convective adjustment":
+        return horizontal, ConvectiveAdjustmentVerticalDiffusivity(
+            convective_kappa_z=1.0, background_kappa_z=1e-5)
+    if kind == "Ri-based":
+        return horizontal, RiBasedVerticalDiffusivity()
+    return (horizontal, IsopycnalSkewSymmetricDiffusivity(),
+            VerticalScalarDiffusivity(nu=1e-3, kappa=1e-4,
+                                      time_discretization="vertically_implicit"))
+
+
+def ocean_halo():
+    """The halo the ocean-physics model takes (its default schemes')."""
+    h = max(VectorInvariant().required_halo, CenteredSecondOrder().required_halo, 1)
+    return (h, h, h)
+
+
+def ocean_model(kind="CATKE", size=None, dtype=torch.float32):
+    """The ocean-physics configuration (``OCEAN``) at ``size`` (¼° by
+    default) through the public API, its grid built with the halo the
+    model takes (so that τx's plane has the model's with-halo shape)."""
+    grid = latlon_grid(dtype, size).with_halo(ocean_halo())
+    eos = (RoquetIdealizedEquationOfState() if kind == "CATKE Roquet"
+           else TEOS10EquationOfState())
+    return HydrostaticFreeSurfaceModel(
+        grid, free_surface=SplitExplicitFreeSurface(substeps=HYDRO["substeps"]),
+        coriolis=HydrostaticSphericalCoriolis(),
+        buoyancy=SeawaterBuoyancy(equation_of_state=eos), tracers=("T", "S"),
+        closure=ocean_closure(kind, grid),
+        immersed_boundary=GridFittedBottom(near_global_bathymetry),
+        boundary_conditions=wind_bcs())
+
+
+def ocean_state(model):
+    """The ocean-physics configuration's initial state (``OCEAN``)."""
+    e = {"e": OCEAN["e"]} if "e" in model.tracer_names else {}
+    return model.initial_state(T=lambda lam, phi, z: 2.0 + 18.0 * torch.exp(z / 500.0),
+                               S=35.0, **e)
+
+
 def near_global_model(path, dtype=torch.float32):
     """The model of a ``NEAR_GLOBAL`` path at ¼° through the public API."""
+    if path == "near-global CATKE":
+        return ocean_model("CATKE", dtype=dtype)
     closure = ScalarDiffusivity(**NEAR_GLOBAL_CLOSURE)
     if path == "1/4 deg diffusive":
         return latlon_flagship(dtype, closure=closure)
@@ -1970,7 +2116,9 @@ def drive_hydrostatic(path, plain):
     if model.fused_advance != FUSED_ADVANCE[path]:
         raise AssertionError(f"{path}: fused_advance is {model.fused_advance}")
     b = lambda lam, phi, z: 2e-5 * (z + 3000.0) / 3000.0
-    if path in ("near-global", "near-global WENO"):  # bench_near_global.py's state
+    if path == "near-global CATKE":
+        state = ocean_state(model)
+    elif path in ("near-global", "near-global WENO"):  # bench_near_global.py's state
         state = model.initial_state(b=b)
     else:
         rng = np.random.default_rng(0)
@@ -1993,6 +2141,30 @@ def zero_at_solid_faces(path, model, state):
         if worst != 0.0:
             raise AssertionError(f"{path}: max|{name}| at solid faces {worst:.3e}")
     return int(imm.solid_fcc.sum()) + int(imm.solid_cfc.sum())
+
+
+def wind_tke(path, model, state):
+    """The wind's TKE input: over the wet cells of the top layer, e under a
+    wind stress |τx| > 1e-5 is above e where |τx| ≤ 1e-5 on average (the
+    columns share T, S and so N²; only the surface TKE flux differs). The
+    mean under the wind is printed beside its initial 1e-7: the JAX
+    package's CATKE takes −Kᶜ N² explicitly and has no floor on e, so under
+    this stratification at Δt = 600 s e falls below 0 in both packages."""
+    g = model.grid
+    tau = model.closure[1].surface_momentum_flux[0]
+    k = g.Hz + g.Nz - 1
+    top = state["solution"]["e"][:, :, k].double()
+    wet = ~g.immersed.mask_for(CENTER)[:, :, k]
+    wet[:g.Hx], wet[g.Hx + g.Nx:], wet[:, :g.Hy], wet[:, g.Hy + g.Ny:] = (
+        False, False, False, False)
+    windy, calm = wet & (tau.abs() > 1e-5), wet & (tau.abs() <= 1e-5)
+    e_windy, e_calm = float(top[windy].mean()), float(top[calm].mean())
+    if not e_windy > e_calm:
+        raise AssertionError(f"{path}: the top layer's mean e under the wind "
+                             f"{e_windy:.6e} is not above the calm cells' {e_calm:.6e}")
+    print(f"{path}: the top layer's mean e over {int(windy.sum())} wet cells under "
+          f"|tau_x| > 1e-5 is {e_windy:.6e} m^2/s^2 (initially {OCEAN['e']}), "
+          f"above the {int(calm.sum())} calm cells' {e_calm:.6e}")
 
 
 def phase_hydrostatic(path="hydrostatic"):
@@ -2021,6 +2193,10 @@ def phase_hydrostatic(path="hydrostatic"):
           f"{HYDRO['steps']} steps: {per_step * 1e3:.3f} ms/step, "
           f"{points / per_step:.6e} grid points/s, launches {used} in {steps} "
           f"steps, |sum(eta Az)|/sum(|eta| Az) {abs(net) / gross:.3e}")
+    if path == "near-global CATKE":
+        wind_tke(path, model, state)
+        print(f"{path} path: {per_step * 1e3:.3f} ms/step, "
+              f"{points / per_step / 1e6:.3f} M points/s on {card_line()}")
     # K4b on the path's own fields (T = S = 0, b linear in z), where the
     # random fields of phase 11 are not: the form the path runs
     adv = (HYDRO["dt"], False) if FUSED_ADVANCE[path] else None
@@ -2253,8 +2429,10 @@ def t1_forms():
     scalar κ) or 3D ones; "1/4 deg implicit 1D": the ¼° grid's,
     1446×606×24 fp32. The implicit forms read d as a view of a with-halo
     field's interior levels and write a view of a NaN-filled with-halo
-    field (``view`` holds it), as the implicit step does. Also the
-    launcher's ``plan`` of the form."""
+    field (``view`` holds it), as the implicit step does; "1/4 deg implicit
+    3D": the near-global CATKE path's solves, its ¼° grid (at the halo its
+    model takes) with CATKE's 3D bands. Also the launcher's ``plan`` of the
+    form."""
     from clima_oceananigans_jl_torch.solvers import tridiagonal as tt
 
     grid = surface_grid(N, torch.float32, stretched=True)
@@ -2269,7 +2447,8 @@ def t1_forms():
     gen = torch.Generator(device=DEVICE).manual_seed(41)
     quarter = latlon_grid()
     for part, g, bands3d in (("implicit 1D", grid, False), ("implicit 3D", grid, True),
-                             ("1/4 deg implicit 1D", quarter, False)):
+                             ("1/4 deg implicit 1D", quarter, False),
+                             ("1/4 deg implicit 3D", quarter.with_halo(ocean_halo()), True)):
         total, h, nz = g.total_shape, g.Hz, g.Nz
         cols = tuple(total[:2])
         data = torch.randn(total, generator=gen, device=DEVICE)
@@ -3387,6 +3566,145 @@ def phase_simulation():
     return launches
 
 
+# -- ocean physics: CATKE, convective adjustment, Ri-based mixing, GM/Redi ------
+
+def phase_closures_hold():
+    """The closures hold (``CLOSURES_HOLD``): the ocean-physics configuration
+    at 1° with each closure in CATKE's place, and with CATKE under Roquet's
+    equation of state, its steps with the kernels and with their plain
+    versions held bit for bit (max|Δ| = 0) and finite; each run's launches
+    checked against ``PER_STEP`` (a comparison: no record)."""
+    c = CLOSURES_HOLD
+    for kind in c["kinds"]:
+        path = f"closures hold: {kind}"
+        out, ms, counts = {}, {}, {}
+        for plain in (False, True):
+            model = ocean_model(kind, c["size"])
+            if model.fused_advance:
+                raise AssertionError(f"{path}: the two-stage route was expected")
+            kernels = hydrostatic.PLAIN if plain else None
+            out[plain], ms[plain], counts[plain] = run_steps(
+                path, model, ocean_state(model),
+                lambda s: model.step(s, HYDRO["dt"], kernels), 0, c["steps"], plain)
+        got, ref = out[False], out[True]
+        hold(f"{path}, 1 deg {'x'.join(map(str, c['size']))} fp32, {c['steps']} steps",
+             {"solution": got["solution"], "p": {"eta": got["eta"], "pHY": got["pHY"]}},
+             {"solution": ref["solution"], "p": {"eta": ref["eta"], "pHY": ref["pHY"]}},
+             torch.float32, exact=True)
+        check_finite(path, model, got, ("w", "pHY", "eta"))
+        print(f"{path}: tracers {model.tracer_names}, launches "
+              f"{ {k: n for k, n in counts[False].items() if n} } in {c['steps']} "
+              f"steps, {ms[False] * 1e3:.3f} ms/step (plain {ms[True] * 1e3:.3f}), "
+              "every field finite")
+        del out, got, ref, model
+        torch.cuda.empty_cache()
+
+
+def free_convection_model(kind):
+    """validation/vertical_mixing_closures.py's column model with closure
+    ``kind``, on ``FREE_CONVECTION``'s periodic grid."""
+    c = FREE_CONVECTION
+    grid = RectilinearGrid(size=c["size"], x=(0.0, float(c["size"][0])),
+                           y=(0.0, float(c["size"][1])), z=(-c["H"], 0.0),
+                           topology=(PERIODIC, PERIODIC, BOUNDED),
+                           dtype=torch.float64, device=DEVICE)
+    closure = {"CATKE": CATKEVerticalDiffusivity(),
+               "convective adjustment": ConvectiveAdjustmentVerticalDiffusivity(
+                   convective_kappa_z=1.0, background_kappa_z=1e-5),
+               "Ri-based": RiBasedVerticalDiffusivity()}[kind]
+    return HydrostaticFreeSurfaceModel(
+        grid, buoyancy=BuoyancyTracer(), momentum_advection=None,
+        tracer_advection=None, closure=closure,
+        free_surface=ImplicitFreeSurface(solver_method="pcg"),
+        boundary_conditions={"b": FieldBCs(top=FluxBC(c["B0"]))})
+
+
+def phase_free_convection():
+    """The free-convection path (``FREE_CONVECTION``) under each closure,
+    with the kernels: the validation's assertions on the first column (the
+    buoyancy budget within 2%, the mixed layer's gradient below N²/2, the
+    depth within 0.5–1.8 of the zero-entrainment scaling) and every column
+    within 1e-12·max|b| of it; returns the launch counts by path."""
+    c = FREE_CONVECTION
+    t_end = c["steps"] * c["dt"]
+    h_exp = math.sqrt(2 * 1.4 * c["B0"] * t_end / c["N2"])
+    nz, dz = c["size"][2], c["H"] / c["size"][2]
+    by_path = {}
+    for kind in c["kinds"]:
+        path = f"free convection: {kind}"
+        model = free_convection_model(kind)
+        init = {"b": lambda x, y, z: c["N2"] * z}
+        if "e" in model.tracer_names:
+            init["e"] = 1e-7
+        state = model.initial_state(**init)
+        g = model.grid
+        zc = g.nodes(CENTER)[2].flatten().double().cpu().numpy()
+        b0 = g.interior(state["solution"]["b"])[0, 0].double().cpu().numpy()
+        state, per_step, by_path[path] = run_steps(
+            path, model, state, lambda s: model.step(s, c["dt"]), 0, c["steps"], False)
+        b = g.interior(state["solution"]["b"])
+        check_finite(path, model, state, ("w", "pHY", "eta"))
+        spread = float((b - b[:1, :1, :]).abs().max())
+        if not spread <= 1e-12 * float(b.abs().max()):
+            raise AssertionError(f"{path}: the columns differ by {spread:.3e}")
+        b = b[0, 0].double().cpu().numpy()
+        mixed = np.abs(b - c["N2"] * zc) > 0.02 * c["N2"] * c["H"]
+        h = -zc[mixed].min() if mixed.any() else 0.0
+        budget = (b - b0).sum() * dz / (-c["B0"] * t_end)
+        if not abs(budget - 1.0) < 0.02:
+            raise AssertionError(f"{path}: buoyancy budget {budget:.4f}, not 1 within 2%")
+        inml = (zc > -0.6 * h) & (zc < -3 * dz)
+        grad = np.abs(np.diff(b[inml]) / dz).max() if inml.sum() > 3 else 0.0
+        if not grad < 0.5 * c["N2"]:
+            raise AssertionError(f"{path}: mixed-layer gradient {grad:.3e} >= N2/2")
+        if not 0.5 * h_exp < h < 1.8 * h_exp:
+            raise AssertionError(f"{path}: mixed-layer depth {h} m, expected "
+                                 f"{0.5 * h_exp:.1f}-{1.8 * h_exp:.1f} m")
+        print(f"{path}: {'x'.join(map(str, c['size']))} fp64, {c['steps']} steps "
+              f"{per_step * 1e3:.3f} ms/step, h = {h:.1f} m (h/h_exp = {h / h_exp:.3f}), "
+              f"budget {budget:.5f}, mixed-layer max|db/dz| {grad:.3e}, columns "
+              f"within {spread:.3e}; launches "
+              f"{ {k: n for k, n in by_path[path].items() if n} }")
+        del model, state
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_nonhydrostatic_closures():
+    """The nonhydrostatic closures hold (``NONHYDROSTATIC_HOLD``): the
+    wind-mixing configuration at 128³ fp32 under TEOS-10, under Roquet and
+    with CATKE beside its ScalarDiffusivity, its RK3 steps with the kernels
+    and with their plain versions held bit for bit and finite."""
+    c = NONHYDROSTATIC_HOLD
+    for kind in c["kinds"]:
+        path = f"nonhydrostatic closures hold: {kind}"
+        out, counts = {}, {}
+        for plain in (False, True):
+            kw = ({"eos": TEOS10EquationOfState()} if kind == "TEOS-10" else
+                  {"eos": RoquetIdealizedEquationOfState()} if kind == "Roquet" else
+                  {"closure": (ScalarDiffusivity(nu=1e-5, kappa=1e-5),
+                               CATKEVerticalDiffusivity())})
+            model = wind_mixing_model(c["n"], **kw)
+            extra = {"e": OCEAN["e"]} if "e" in model.tracer_names else {}
+            state = surface_state("wind mixing", model, **extra)
+            kernels = nonhydrostatic.PLAIN if plain else None
+            out[plain], _, counts[plain] = run_steps(
+                path, model, state, lambda s: model.step(s, SURFACE["wind mixing"][0],
+                                                         kernels),
+                0, c["steps"], plain)
+        got, ref = out[False], out[True]
+        hold(f"{path}, {c['n']}^3 fp32, {c['steps']} RK3 steps",
+             {"solution": got["solution"], "p": {"pHY": got["pHY"], "pNHS": got["pNHS"]}},
+             {"solution": ref["solution"], "p": {"pHY": ref["pHY"], "pNHS": ref["pNHS"]}},
+             torch.float32, exact=True)
+        check_finite(path, model, got, ("pHY", "pNHS"))
+        print(f"{path}: tracers {model.tracer_names}, launches "
+              f"{ {k: n for k, n in counts[False].items() if n} } in {c['steps']} "
+              "steps, every field finite")
+        del out, got, ref, model
+        torch.cuda.empty_cache()
+
+
 def main():
     phase_device()
     phase_build()
@@ -3437,6 +3755,9 @@ def main():
     (by_path["internal wave"], wall_readings["internal wave"], k6_err,
      iw_err) = phase_internal_wave()
     by_path["periodic advection"], pa_err = phase_periodic_advection()
+    phase_closures_hold()
+    by_path.update(phase_free_convection())
+    phase_nonhydrostatic_closures()
     flat_worst[K6] = max(flat_worst[K6], k6_err)
     for name, err in scheme_worst.items():
         flat_worst[name] = max(flat_worst.get(name, 0.0), err)

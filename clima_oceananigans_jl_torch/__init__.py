@@ -5,18 +5,22 @@ module paths, constructor API and ``state`` layout. So far it runs the
 nonhydrostatic model on periodic, bounded and Flat axes (the JAX
 package's seven advection schemes, PositiveWENO5 tracers,
 grid-fitted immersed boundaries with their bottom fluxes, buoyancy tracer or
-seawater buoyancy with a linear equation of state, tilted gravity,
+seawater buoyancy with a linear or nonlinear equation of state (TEOS-10,
+Roquet's idealized one, polynomials), tilted gravity,
 f/β-plane, constant Cartesian and non-traditional β-plane Coriolis,
 scalar and biharmonic diffusivities with scalar, array or callable
 coefficients, vertically implicit diffusion, the LES
-closures (Smagorinsky-Lilly, AMD, 2D Leith) and closure tuples, Stokes
+closures (Smagorinsky-Lilly, AMD, 2D Leith), the vertical-mixing closures
+(CATKE, convective adjustment, Ri-based), GM/Redi and closure tuples, Stokes
 drift, forcing, background fields, flux BCs with scalar, plane, callable
 and discrete values, a z stretched or regular (the Fourier-tridiagonal or
 FFT pressure solve), the roll-based and the general projection) with its
 quasi-AB2 and RK3 steps, the shallow-water model in its conservative and
 vector-invariant forms, and the hydrostatic free-surface model on
 rectilinear and lat-lon grids with stretched axes (vector-invariant or
-flux-form momentum, spherical Coriolis, forcing and flux BCs, closures,
+flux-form momentum, spherical Coriolis, forcing and flux BCs, closures
+(CATKE, convective adjustment, Ri-based mixing and GM/Redi among them),
+seawater buoyancy with any of those equations of state, tilted gravity,
 grid-fitted immersed boundaries with their bottom fluxes, explicit,
 split-explicit and implicit free surfaces), with hand-written CUDA
 kernels for Hopper in ``csrc/``: the fused AB2 advance (K1), the fused
@@ -54,6 +58,9 @@ from .advection.schemes import (BoundsPreservingWENO5, CenteredFourthOrder,
 from .advection.vector_invariant import VectorInvariant
 from .buoyancy.buoyancy import (BuoyancyTracer, LinearEquationOfState,
                                 SeawaterBuoyancy)
+from .buoyancy.nonlinear_eos import (PolynomialEquationOfState,
+                                     RoquetIdealizedEquationOfState,
+                                     TEOS10EquationOfState)
 from .fields.background import BackgroundField
 from .forcings.forcing import (AdvectiveForcing, Forcing, GaussianMask,
                                LinearTarget, Relaxation)
@@ -67,6 +74,11 @@ from .closures.scalar_diffusivity import (HorizontalScalarDiffusivity,
                                           VerticalScalarDiffusivity)
 from .closures.eddy_viscosity import (AnisotropicMinimumDissipation,
                                       SmagorinskyLilly, TwoDimensionalLeith)
+from .closures.vertical_mixing import (CATKEVerticalDiffusivity,
+                                       ConvectiveAdjustmentVerticalDiffusivity,
+                                       MixingLength, RiBasedVerticalDiffusivity,
+                                       SurfaceTKEFlux)
+from .closures.isopycnal import FluxTapering, IsopycnalSkewSymmetricDiffusivity
 from .timesteppers.steppers import Clock
 from .models.nonhydrostatic import NonhydrostaticModel
 from .models.shallow_water import ShallowWaterModel

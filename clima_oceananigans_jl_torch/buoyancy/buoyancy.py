@@ -1,12 +1,12 @@
-"""Buoyancy: the buoyancy tracer, seawater buoyancy with a linear equation
-of state, the tilted-gravity terms and the hydrostatic pressure anomaly.
+"""Buoyancy: the buoyancy tracer, seawater buoyancy with a linear or
+nonlinear equation of state, the tilted-gravity terms and the hydrostatic
+pressure anomaly.
 
 Counterpart of ``clima_oceananigans_jl_tpu/buoyancy/buoyancy.py``
 (Oceananigans' ``BuoyancyTracer``, ``SeawaterBuoyancy`` with
-``LinearEquationOfState``, ``g_dot_b`` and ``update_hydrostatic_pressure``).
-Every model provides ``buoyancy_perturbation(grid, tracers)``: b at
-(C, C, C). The nonlinear equations of state are not ported (ROADMAP
-Queue 1 item 7).
+``LinearEquationOfState`` or an equation of state of ``nonlinear_eos.py``,
+``g_dot_b`` and ``update_hydrostatic_pressure``). Every model provides
+``buoyancy_perturbation(grid, tracers)``: b at (C, C, C).
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import dataclasses
 import torch
 
 from ..ops import stencil as st
-from ..utils.location import W_LOC
+from ..utils.location import CENTER, W_LOC
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,9 +40,12 @@ class LinearEquationOfState:
 
 @dataclasses.dataclass(frozen=True)
 class SeawaterBuoyancy:
-    """b = g (α T − β S) with a ``LinearEquationOfState``; T or S may be
-    held constant (``constant_temperature``, ``constant_salinity``), and
-    the tracers the model needs are the others."""
+    """b = g (α T − β S) with a ``LinearEquationOfState``; with any other
+    equation of state (an object with ``density_anomaly(T, S, z)`` and,
+    optionally, ``reference_density``, 1020 by default) b = −g ρ′(T, S,
+    z)/ρ₀ at the with-halo z of the centres. T or S may be held constant
+    (``constant_temperature``, ``constant_salinity``), and the tracers the
+    model needs are the others."""
 
     gravitational_acceleration: float = 9.80665
     equation_of_state: object = LinearEquationOfState()
@@ -51,10 +54,13 @@ class SeawaterBuoyancy:
     gravity_unit_vector: tuple = (0.0, 0.0, -1.0)
 
     def __post_init__(self):
-        if not isinstance(self.equation_of_state, LinearEquationOfState):
-            raise NotImplementedError(
-                f"{type(self.equation_of_state).__name__} is not ported yet "
-                "(LinearEquationOfState is) (ROADMAP Queue 1 item 7)")
+        eos = self.equation_of_state
+        if (not isinstance(eos, LinearEquationOfState)
+                and not callable(getattr(eos, "density_anomaly", None))):
+            raise TypeError(
+                f"equation_of_state {type(eos).__name__} has no "
+                "density_anomaly(T, S, z) method (a LinearEquationOfState or "
+                "an equation of state of buoyancy/nonlinear_eos.py)")
 
     @property
     def required_tracers(self):
@@ -70,7 +76,11 @@ class SeawaterBuoyancy:
         T = tracers["T"] if self.constant_temperature is None else self.constant_temperature
         S = tracers["S"] if self.constant_salinity is None else self.constant_salinity
         eos = self.equation_of_state
-        return g * (eos.thermal_expansion * T - eos.haline_contraction * S)
+        if isinstance(eos, LinearEquationOfState):
+            return g * (eos.thermal_expansion * T - eos.haline_contraction * S)
+        zc = grid.nodes(CENTER, with_halo=True)[2]
+        rho0 = getattr(eos, "reference_density", 1020.0)
+        return -g * eos.density_anomaly(T, S, zc) / rho0
 
 
 def buoyancy_x_term(buoyancy, grid, tracers):

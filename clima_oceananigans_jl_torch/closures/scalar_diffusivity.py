@@ -7,7 +7,11 @@ abstract_scalar_diffusivity_closure.jl), in the JAX expression trees. ν
 and κ are scalars, per-tracer dicts, 3D with-halo arrays at cell centres
 (interpolated onto the flux faces) or, for a vertically implicit part,
 callables of z (evaluated by the implicit solve); isotropic or split into
-horizontal and vertical parts. Closure tuples sum their explicit parts.
+horizontal and vertical parts. Closures with diffusivity fields of the
+step (the LES, vertical-mixing and GM/Redi closures) give them through
+``nu``/``kappa_for_tracer``, ``vertical_nu``/``vertical_kappa`` (at (C,
+C, F)) or their own ``tracer_tendency``. Closure tuples sum their
+explicit parts.
 """
 from __future__ import annotations
 
@@ -160,7 +164,8 @@ def momentum_diffusion(u, grid, u_loc, closure, diffusivities=None):
         nu_z = closure.nu_z if closure.nu_z is not None else closure.nu
         return div_kappa_grad(u, grid, u_loc, closure.nu, nu_z,
                               vertical=not closure.vertically_implicit)
-    # diffusivity-field closures (the LES closures)
+    # diffusivity-field closures (the LES, vertical-mixing and GM/Redi
+    # closures); a vertical ν at (C, C, F) where the closure gives one
     nu = closure.nu(diffusivities)
     nu_z = (closure.vertical_nu(diffusivities)
             if hasattr(closure, "vertical_nu") else nu)
@@ -186,12 +191,28 @@ def tracer_diffusion(c, grid, name, closure, diffusivities=None):
         return div_kappa_grad(c, grid, CENTER, closure.kappa_for(name),
                               closure.kappa_z_for(name),
                               vertical=not closure.vertically_implicit)
+    if hasattr(closure, "tracer_tendency"):  # GM/Redi's rotated fluxes
+        return closure.tracer_tendency(c, grid, name, diffusivities)
     kap = closure.kappa_for_tracer(name, diffusivities)
     kap_z = (closure.vertical_kappa(name, diffusivities)
              if hasattr(closure, "vertical_kappa") else kap)
     return div_kappa_grad(c, grid, CENTER, kap, kap_z,
                           vertical=not closure.vertically_implicit,
                           kappa_z_at_faces=hasattr(closure, "vertical_kappa"))
+
+
+def add_tke_tendency(Ge, closure, grid, fields, diffusivities, tracer_names):
+    """``Ge`` (the tendency of ``e``) plus the TKE sources of each closure
+    (of a tuple too) that has a ``tke_tendency`` (CATKE), added one by one
+    in the closures' order, as the JAX models add them."""
+    closures = closure if isinstance(closure, (tuple, list)) else (closure,)
+    diffs = (diffusivities if isinstance(closure, (tuple, list))
+             else (diffusivities,))
+    for cl, d in zip(closures, diffs or (None,) * len(closures)):
+        if hasattr(cl, "tke_tendency"):
+            tracers = {n: fields[n] for n in tracer_names}
+            Ge = Ge + cl.tke_tendency(grid, fields, d, tracers)
+    return Ge
 
 
 def _max_diffusivity(value, tracer_names=()):
@@ -247,7 +268,8 @@ def cell_diffusion_timescale(closure, grid, diffusivities=None,
             t = min(t, ts(dz, max(_max_diffusivity(nu_z),
                                   _max_diffusivity(kz, tracer_names))))
         return t
-    # diffusivity-field closures: their fields live in ``diffusivities``
+    # diffusivity-field closures (LES, vertical mixing, GM/Redi): their
+    # fields live in ``diffusivities``
     t = math.inf
     if diffusivities is None:
         return t

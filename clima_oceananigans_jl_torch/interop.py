@@ -15,8 +15,9 @@ package's state for ``model``:
 - ``pNHS`` keeps zero halos, as the projection stores it;
 - over an immersed boundary the filled fields are masked in the solid,
   halos included, as the JAX ``update_state`` leaves them;
-- ``diffusivities`` (the LES closures' fields: tensors, a dict per
-  tracer, a tuple per closure tuple) are cut to the port's with-halo
+- ``diffusivities`` (the LES, vertical-mixing and GM/Redi closures'
+  fields: tensors, a dict per closure, a tuple per closure tuple with None
+  for a member without fields) are cut to the port's with-halo
   shape around the interior, halos and all, since the next step's
   interpolation onto the flux faces reads their first halo cells;
 - the 0-d ``clock`` and ``previous_dt`` leaves become numpy scalars of

@@ -40,9 +40,17 @@ substep, under all three free surfaces, as the JAX step does.
 Closures: a constant-coefficient ``ScalarDiffusivity`` (scalar or
 per-tracer ν, κ; ``ops/fused_hydrostatic.py::kernel_closure``) enters K4b
 on a grid without an immersed boundary; every other closure (arrays,
-callables, biharmonic, the LES closures, tuples) adds its diffusion as
-torch ops in ``tendencies``, with its diffusivities computed in
-``update_state``.
+callables, biharmonic, the LES closures, the vertical-mixing closures
+CATKE, convective adjustment and Ri-based mixing, GM/Redi, tuples) adds
+its explicit diffusion (GM/Redi its rotated fluxes) as torch ops in
+``tendencies``, with its diffusivities computed in ``update_state``;
+CATKE adds its prognostic ``e`` to the tracers and its TKE sources to
+G_e, and its dissipation enters e's column solve.
+
+Buoyancy: ``BuoyancyTracer`` or ``SeawaterBuoyancy`` with any equation of
+state (``buoyancy/nonlinear_eos.py``), gravity tilted or not: K4a
+integrates −ĝ_z b into pHY′; as in the JAX package the hydrostatic model
+has no x or y buoyancy term.
 
 Immersed boundaries (``GridFittedBottom``, ``GridFittedBoundary``): the
 grid is wrapped in an ``ImmersedGrid`` after its halos are set (the JAX
@@ -75,9 +83,9 @@ from ..advection.schemes import (BoundsPreservingWENO5, CenteredSecondOrder,
 from ..advection.vector_invariant import VectorInvariant
 from ..boundary_conditions.bcs import (FluxBC, OpenBC, apply_flux_bcs,
                                        apply_immersed_flux_bcs, regularize_bcs)
-from ..buoyancy.buoyancy import BuoyancyTracer
 from ..closures.implicit_vertical_diffusion import implicit_step_fields
-from ..closures.scalar_diffusivity import (cell_diffusion_timescale,
+from ..closures.scalar_diffusivity import (add_tke_tendency,
+                                           cell_diffusion_timescale,
                                            compute_closure_diffusivities,
                                            momentum_diffusion, tracer_diffusion)
 from ..coriolis.coriolis import BetaPlane, FPlane, HydrostaticSphericalCoriolis
@@ -154,13 +162,6 @@ def _unsupported_reason(model, particles, immersed_boundary):
             cor, (FPlane, BetaPlane, HydrostaticSphericalCoriolis)):
         return (f"{type(cor).__name__} Coriolis is not ported yet "
                 "(ROADMAP Queue 1 item 4)")
-    b = model.buoyancy
-    if b is not None and not isinstance(b, BuoyancyTracer):
-        return (f"{type(b).__name__} in the hydrostatic model is not ported "
-                "yet (BuoyancyTracer is) (ROADMAP Queue 1 item 7)")
-    if b is not None and tuple(b.gravity_unit_vector) != (0.0, 0.0, -1.0):
-        return ("tilted gravity in the hydrostatic model is not ported yet "
-                "(ROADMAP Queue 1 item 7)")
     return None
 
 
@@ -309,10 +310,15 @@ class HydrostaticFreeSurfaceModel:
         return sol
 
     def _buoyancy_field(self, sol):
+        """The b whose downward integral is pHY′ (K4a's input): −ĝ_z b under
+        tilted gravity, as the JAX ``hydrostatic_pressure_anomaly`` forms
+        it; the hydrostatic model has no x or y buoyancy term."""
         if self.buoyancy is None:
             return None
-        return self.buoyancy.buoyancy_perturbation(
+        b = self.buoyancy.buoyancy_perturbation(
             self.grid, {n: sol[n] for n in self.tracer_names})
+        gz = self.buoyancy.gravity_unit_vector[2]
+        return b if gz == -1.0 else -gz * b
 
     def compute_w(self, sol, kernels=None):
         """w from continuity, integrated bottom-up, halos filled (through
@@ -378,6 +384,10 @@ class HydrostaticFreeSurfaceModel:
             for name in self.tracer_names:
                 G[name] = G[name] + tracer_diffusion(sol[name], grid, name,
                                                      self.closure, diff)
+            if "e" in G:
+                G["e"] = add_tke_tendency(G["e"], self.closure, grid,
+                                          dict(sol, w=state["w"]), diff,
+                                          self.tracer_names)
         clock = state["clock"]
         fields = dict(sol, w=state["w"], eta=state["eta"])
         locs = self._locs()

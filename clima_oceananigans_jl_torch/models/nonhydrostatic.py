@@ -81,7 +81,8 @@ from ..advection.fluxes import div_Uc, div_vu, div_vv, div_vw
 from ..buoyancy.buoyancy import (buoyancy_x_term, buoyancy_y_term,
                                  hydrostatic_pressure_anomaly)
 from ..closures.implicit_vertical_diffusion import implicit_step_fields
-from ..closures.scalar_diffusivity import (cell_diffusion_timescale,
+from ..closures.scalar_diffusivity import (add_tke_tendency,
+                                           cell_diffusion_timescale,
                                            compute_closure_diffusivities,
                                            momentum_diffusion,
                                            tracer_diffusion)
@@ -379,6 +380,9 @@ class NonhydrostaticModel:
                 Gc = Gc - div_Uc(grid, ts, u, v, w, bg[name])
             if self.closure is not None:
                 Gc = Gc + tracer_diffusion(c, grid, name, self.closure, diff)
+                if name == "e":
+                    Gc = add_tke_tendency(Gc, self.closure, grid, sol, diff,
+                                          self.tracer_names)
             G[name] = Gc
         fields = dict(sol)
         locs = self._locs()

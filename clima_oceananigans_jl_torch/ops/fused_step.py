@@ -31,8 +31,12 @@ from ..advection.schemes import PositiveWENO5
 from ..closures.eddy_viscosity import (AnisotropicMinimumDissipation,
                                        SmagorinskyLilly, TwoDimensionalLeith)
 from ..closures.implicit_vertical_diffusion import implicit_step_is_noop
+from ..closures.isopycnal import IsopycnalSkewSymmetricDiffusivity
 from ..closures.scalar_diffusivity import (ScalarBiharmonicDiffusivity,
                                            ScalarDiffusivity)
+from ..closures.vertical_mixing import (CATKEVerticalDiffusivity,
+                                        ConvectiveAdjustmentVerticalDiffusivity,
+                                        RiBasedVerticalDiffusivity)
 from ..coriolis.coriolis import (BetaPlane, ConstantCartesianCoriolis, FPlane,
                                  NonTraditionalBetaPlane)
 from ..grids.topology import BOUNDED, FLAT
@@ -50,7 +54,9 @@ from .metric_rows import coriolis_rows
 _LATER = "(ROADMAP Queue 1 item 4)"
 #: the closures the nonhydrostatic model takes, alone or in tuples
 CLOSURES = (ScalarDiffusivity, ScalarBiharmonicDiffusivity, SmagorinskyLilly,
-            AnisotropicMinimumDissipation, TwoDimensionalLeith)
+            AnisotropicMinimumDissipation, TwoDimensionalLeith,
+            CATKEVerticalDiffusivity, ConvectiveAdjustmentVerticalDiffusivity,
+            RiBasedVerticalDiffusivity, IsopycnalSkewSymmetricDiffusivity)
 #: its Coriolis forms: f- and β-planes in K1, the other two as PyTorch
 #: terms of ``tendencies`` (the general branch)
 CORIOLIS = (FPlane, BetaPlane, ConstantCartesianCoriolis,
@@ -94,9 +100,9 @@ def unsupported_reason(model):
     cl = model.closure
     for c in (cl if isinstance(cl, (tuple, list)) else (cl,)):
         if c is not None and not isinstance(c, CLOSURES):
-            return (f"{type(c).__name__} closures are not ported yet (CATKE, "
-                    "convective adjustment, Ri-based mixing and GM/Redi wait "
-                    "for ROADMAP Queue 1 item 7)")
+            return (f"{type(c).__name__} closures are not ported (the JAX "
+                    "package's scalar, biharmonic, LES, vertical-mixing and "
+                    "GM/Redi closures are) (ROADMAP Queue 1 item 7)")
     if model.particles is not None:
         return ("particles in the nonhydrostatic model are not ported yet "
                 "(ROADMAP Queue 1 item 7)")

@@ -102,7 +102,19 @@ def test_seawater_buoyancy_defaults_match_jax():
     assert (T.SeawaterBuoyancy().gravitational_acceleration
             == jb.SeawaterBuoyancy().gravitational_acceleration)
     assert T.LinearEquationOfState() == T.LinearEquationOfState(1.67e-4, 7.80e-4)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # any equation of state with density_anomaly: TEOS-10 as the JAX one;
+    # an object without it is refused, naming what is missing
+    from clima_oceananigans_jl_tpu.buoyancy.nonlinear_eos import TEOS10EquationOfState
+    jg, tg = grids()
+    f = fields(tg, ("T", "S"), seed=3)
+    jt, tt = both({"T": 10.0 + f["T"], "S": 35.0 + f["S"]})
+    ref = jb.SeawaterBuoyancy(equation_of_state=TEOS10EquationOfState()
+                              ).buoyancy_perturbation(jg, jt)
+    got = T.SeawaterBuoyancy(equation_of_state=T.TEOS10EquationOfState()
+                             ).buoyancy_perturbation(tg, tt)
+    # torch's CPU sqrt is 1 ulp off on some inputs (tests/test_torch_nonlinear_eos.py)
+    assert np.abs(np.asarray(ref) - got.numpy()).max() <= 1e-14 * 9.80665
+    with pytest.raises(TypeError, match="density_anomaly"):
         T.SeawaterBuoyancy(equation_of_state=object())
 
 

@@ -17,7 +17,8 @@ DCT against jnp.fft and jax.scipy's DCT) and its CG solve (lat-lon; both
 CGs run to 1e-13, their inner products summed in different orders);
 states pass between the packages both ways; what the port does not run
 yet (particles, PartialCellBottom, ...) raises at construction, naming its
-ROADMAP item.
+ROADMAP item, and seawater buoyancy and tilted gravity, which it runs,
+give the JAX model's pHY′.
 """
 import numpy as np
 import pytest
@@ -228,15 +229,27 @@ def test_what_waits_is_refused_naming_its_roadmap_item():
             T.HydrostaticFreeSurfaceModel(
                 g, free_surface=T.ImplicitFreeSurface(solver_method=method))
     split = T.SplitExplicitFreeSurface(substeps=4)
-    for kw, item in ((dict(buoyancy=T.SeawaterBuoyancy()), "SeawaterBuoyancy.*item 7"),
-                     (dict(buoyancy=T.BuoyancyTracer(gravity_unit_vector=(0.6, 0.0, -0.8))),
-                      "tilted gravity.*item 7"),
-                     (dict(particles=object()), "particles.*item 7"),
+    for kw, item in ((dict(particles=object()), "particles.*item 7"),
                      (dict(immersed_boundary=T.PartialCellBottom(-500.0)),
                       "PartialCellBottom.*item 7"),
                      (dict(tracer_advection=T.VectorInvariant()), "item 2")):
         with pytest.raises(NotImplementedError, match=item):
             T.HydrostaticFreeSurfaceModel(g, free_surface=split, **kw)
+    # seawater buoyancy and tilted gravity are ported: pHY′ (−ĝ_z b
+    # integrated) as the JAX model's
+    jg = JLL(size=(8, 8, 4), longitude=(0, 360), latitude=(-75, 75), z=zfaces(4),
+             dtype=jnp.float64)
+    for jbuoy, tbuoy in ((J.SeawaterBuoyancy(), T.SeawaterBuoyancy()),
+                         (JB(gravity_unit_vector=(0.6, 0.0, -0.8)),
+                          T.BuoyancyTracer(gravity_unit_vector=(0.6, 0.0, -0.8)))):
+        jm = JH(jg, free_surface=JSplit(substeps=4), buoyancy=jbuoy,
+                fused_advection=False)
+        tm2 = T.HydrostaticFreeSurfaceModel(g, free_surface=split, buoyancy=tbuoy)
+        vals = {n: np.random.default_rng(5).standard_normal(g.shape)
+                for n in tm2.tracer_names}
+        js, ts = jm.initial_state(**vals), tm2.initial_state(**vals)
+        r = np.asarray(jm.grid.interior(js["pHY"]))
+        assert np.abs(r - tm2.grid.interior(ts["pHY"]).numpy()).max() <= 1e-13 * np.abs(r).max()
     # closures and grid-fitted immersed boundaries are ported
     for kw in (dict(closure=T.ScalarDiffusivity(nu=1e-3)),
                dict(immersed_boundary=T.GridFittedBottom(-500.0)),

@@ -163,13 +163,21 @@ def test_closure_front_ends_match(which):
 
 
 def test_unported_closures_raise():
-    """A closure the port lacks (CATKE and the other vertical-mixing and
-    isopycnal closures) is refused by the model at construction, naming
-    its ROADMAP item; closure tuples sum their members' terms, and a closure without diffusivity fields gives
-    None, as in the JAX package."""
+    """A closure the port lacks (an object that is none of the JAX
+    package's closures) is refused by the model at construction, naming
+    its ROADMAP item, where CATKE, the other vertical-mixing closures and
+    GM/Redi construct and add CATKE's ``e``; closure tuples sum their
+    members' terms, and a closure without diffusivity fields gives None, as
+    in the JAX package."""
     tg = grids()[1]
     with pytest.raises(NotImplementedError, match="item 7"):
         T.NonhydrostaticModel(tg, closure=object())
+    for cl in (T.CATKEVerticalDiffusivity(), T.ConvectiveAdjustmentVerticalDiffusivity(),
+               T.RiBasedVerticalDiffusivity(), T.IsopycnalSkewSymmetricDiffusivity()):
+        m = T.NonhydrostaticModel(tg, closure=(T.ScalarDiffusivity(nu=1e-3), cl),
+                                  buoyancy=T.BuoyancyTracer())
+        assert m.tracer_names == (("b", "e") if isinstance(cl, T.CATKEVerticalDiffusivity)
+                                  else ("b",))
     a = torch.as_tensor(field(tg, 13))
     one = tsd.ScalarDiffusivity(nu=1e-3, kappa=2e-3)
     assert torch.equal(tsd.tracer_diffusion(a, tg, "b", (one,)),
