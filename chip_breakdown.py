@@ -9,7 +9,9 @@
                               [near-global] [near-global-weno] [diffusive]
                               [near-global-catke] [horizontal-convection] [2d-turbulence]
                               [seamount] [simulation] [internal-wave]
-                              [weno5-kernels] [sass-regular --parent DIR]
+                              [weno5-kernels] [hydrostatic-positive]
+                              [near-global-ub5] [ptxas-schemes]
+                              [sass-regular --parent DIR]
                               [--steps N]
 
 With no part named, runs them all. Prints the card's name and power
@@ -145,8 +147,17 @@ limit first. Needs a card; without one it exits with an error.
   change of the shared advection core could move. It uses only names the
   port and ``chip_smoke.py`` have had since the seamount slice, so a
   copy of this file inside an older tree measures that tree.
-- ``sass-regular``: K1's and K2's instantiations without ``ANY`` as
-  built here and from the parent tree's ``csrc`` (``--parent DIR``),
+- ``hydrostatic-positive``, ``near-global-ub5``: the schemes slice's ¼°
+  paths of ``chip_smoke.py`` (``SCHEME_PATHS``), likewise, around K4b (its
+  fused advance with PositiveWENO5 tracers; its tendency form with UB5
+  momentum and BoundsPreservingWENO5 tracers), K4a, K5, K6's fills and,
+  on the two-stage route, the eager terms, ``ab2_substep`` and the
+  implicit step.
+- ``ptxas-schemes``: ptxas's registers, stack and spills of every
+  instantiation of K1, K2, K3a and K4b, the four kernels that take the
+  advection schemes (one nvcc each, all at once).
+- ``sass-regular``: K1's, K2's, K3a's and K4b's instantiations without
+  ``ANY`` as built here and from the parent tree's ``csrc`` (``--parent DIR``),
   their SASS by ``cuobjdump``: instruction counts, and whether the
   sequences are identical, and identical with constants masked (the
   argument struct grew, so constant-bank offsets may move).
@@ -407,10 +418,10 @@ def walls(path, steps):
     breakdown(f"{path} {size} fp32 step", step, state, events, patches, steps, inner)
 
 
-def ptxas(source, label):
+def ptxas(source, label, echo=True):
     """ptxas's registers, stack and spills of every instantiation in
     ``csrc/<source>.cu``, one line each, from a build as the port builds it
-    plus ``-Xptxas -v``."""
+    plus ``-Xptxas -v``; returns the lines (printed unless not ``echo``)."""
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
                f"{tmp}/lib.so", str(_build.CSRC / f"{source}.cu")]
@@ -428,10 +439,24 @@ def ptxas(source, label):
                            capture_output=True, text=True).stdout.splitlines()
     if len(names) != len(rows):
         names = [e for e, _, _ in rows]
-    for name, (_, used, props) in zip(names, rows):
-        print(f"ptxas {label} {name.replace(source + '_kernel', 'kernel')}: "
-              f"{used}; {props}")
-    print(f"ptxas {label}: {len(rows)} instantiations")
+    lines = [f"ptxas {label} {name.replace(source + '_kernel', 'kernel')}: {used}; {props}"
+             for name, (_, used, props) in zip(names, rows)]
+    lines.append(f"ptxas {label}: {len(rows)} instantiations")
+    if echo:
+        print("\n".join(lines))
+    return lines
+
+
+def ptxas_schemes(steps):
+    """ptxas's registers, stack and spills of every instantiation of the
+    four kernels that take the advection schemes (K1, K2, K3a, K4b), built
+    at once, one nvcc each."""
+    import concurrent.futures
+    sources = ("fused_ab2_advance", "fused_advective_tendencies",
+               "fused_shallow_water_tendencies", "fused_hydrostatic_tendencies")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
+        for lines in ex.map(lambda s: ptxas(s, s, echo=False), sources):
+            print("\n".join(lines))
 
 
 def kernel_sass(csrc, name):
@@ -459,27 +484,32 @@ def kernel_sass(csrc, name):
 
 
 def sass_regular(steps, parent):
-    """K1's and K2's instantiations of the first four scheme codes (ANY
-    false) as built here against the same ones built from the parent
-    tree's ``csrc`` (``--parent DIR``): their SASS instruction sequences,
-    counted, and compared with constants (immediates and constant-bank
-    offsets) masked, which differ where the argument struct grew."""
+    """K1's, K2's, K3a's and K4b's instantiations without ``ANY`` (the
+    first codes) as built here against the same ones built from the parent
+    tree's ``csrc`` (``--parent DIR``), all built at once: their SASS
+    instruction sequences, counted, and compared with constants
+    (immediates and constant-bank offsets) masked, which differ where the
+    argument struct grew."""
+    import concurrent.futures
     import re
     mask = lambda ins: re.sub(r"0x[0-9a-f]+", "#", ins)
-    for name, kernel in (("fused_ab2_advance", "fused_ab2_advance_kernel"),
-                         ("fused_advective_tendencies",
-                          "fused_advective_tendencies_kernel")):
-        here = kernel_sass(_build.CSRC, name)
-        there = kernel_sass(parent, name)
+    names = ("fused_ab2_advance", "fused_advective_tendencies",
+             "fused_shallow_water_tendencies", "fused_hydrostatic_tendencies")
+    with concurrent.futures.ThreadPoolExecutor(2 * len(names)) as ex:
+        built = {(csrc, name): ex.submit(kernel_sass, csrc, name)
+                 for name in names for csrc in (_build.CSRC, parent)}
+    for name in names:
+        kernel = name + "_kernel"
+        here = built[(_build.CSRC, name)].result()
+        there = built[(parent, name)].result()
         for fn, ins in sorted(here.items()):
             if kernel not in fn:
                 continue
-            # the parent's kernels have no ANY parameter: their forms are
-            # this tree's without it
             if ", false>(" not in fn:
                 continue
-            old_fn = fn.replace(", false>(", ">(")
-            old = there.get(old_fn)
+            # a parent kernel without the ANY parameter: this tree's form
+            # without it
+            old = there.get(fn, there.get(fn.replace(", false>(", ">(")))
             if old is None:
                 print(f"sass {fn}: {len(ins)} instructions; no parent counterpart")
                 continue
@@ -940,6 +970,42 @@ def near_global(path, steps):
     breakdown(f"{path} 1/4 deg step", step, state, events, patches, steps,
               inner={"implicit step": (["T1 (implicit step)"],
                                        "implicit step's bands and copies")})
+
+
+def scheme_path(path, steps):
+    """A ¼° ``SCHEME_PATHS`` path of chip_smoke.py (``hydrostatic
+    positive``: K4b's fused advance with PositiveWENO5 tracers;
+    ``near-global UB5``: the two-stage route with UB5 momentum and
+    BoundsPreservingWENO5 tracers over the continent), its model and state
+    as chip_smoke.py builds them, 3 warm-up steps, then ``steps`` steps
+    with its parts timed."""
+    model, state = chip_smoke.hydro_path_model(path)
+    dt = chip_smoke.HYDRO["dt"]
+    for _ in range(3):
+        state = model.step(state, dt)
+    torch.cuda.synchronize()
+    events = collections.defaultdict(list)
+    form = "advance" if model.fused_advance else "tendencies"
+    kernels = {k: timed(events, label, hm.KERNELS[k]) for k, label in (
+        ("tendencies", f"K4b ({form})"), ("columns", "K4a"),
+        ("barotropic", "K5 and its wrapper"), ("fill", "K6 fills"),
+        ("tridiagonal", "T1 (implicit step)"))}
+    step = lambda s, timed_parts: model.step(s, dt, kernels if timed_parts else None)
+    patches = [(hm, "barotropic_mode", "barotropic modes"),
+               (SplitExplicitFreeSurface, "corrector", "corrector")]
+    if not model.fused_advance:
+        patches += [(hm, "momentum_diffusion", "eager diffusion"),
+                    (hm, "tracer_diffusion", "eager diffusion"),
+                    (hm, "apply_flux_bcs", "flux BCs"),
+                    (hm, "apply_immersed_flux_bcs", "immersed flux BCs"),
+                    (hm, "ab2_substep", "ab2_substep"),
+                    (hm, "implicit_step_fields", "implicit step"),
+                    (model.immersed_boundary, "mask_state", "mask_state"),
+                    (model.immersed_boundary, "mask_tendency", "mask_tendency")]
+    breakdown(f"{path} 1/4 deg step", step, state, events, patches, steps,
+              inner={"implicit step": (["T1 (implicit step)"],
+                                       "implicit step's bands and copies")}
+              if not model.fused_advance else None)
 
 
 def near_global_catke(steps):
@@ -1442,7 +1508,9 @@ PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps),
          "2d-turbulence": lambda steps: walls("2D turbulence", steps),
          "seamount": seamount, "simulation": simulation,
          "internal-wave": internal_wave, "weno5-kernels": weno5_kernels,
-         "sass-regular": sass_regular}
+         "hydrostatic-positive": lambda steps: scheme_path("hydrostatic positive", steps),
+         "near-global-ub5": lambda steps: scheme_path("near-global UB5", steps),
+         "ptxas-schemes": ptxas_schemes, "sass-regular": sass_regular}
 
 
 def main(argv):

@@ -314,7 +314,33 @@ on the card, in phases; each prints one line or a few:
    under RoquetIdealizedEquationOfState() and with CATKEVerticalDiffusivity()
    beside its ScalarDiffusivity (e = 1e-7 at the start), 3 RK3 steps with
    the kernels (3 K2 and 6 K6 a step; with CATKE 18 T1 too) and 3 with
-   the plain versions, max|Δ| = 0, finite.
+   the plain versions, max|Δ| = 0, finite;
+34. (since the hydrostatic schemes slice, after phase 22) the two ¼°
+   paths of ``SCHEME_PATHS``, run as phase 22's: ``hydrostatic positive``
+   (the flagship with PositiveWENO5() tracers, T = 2 + 18 exp(z/500) and
+   S = 35 each plus 1e-2·N(0,1): K4b's fused advance with the limiter on
+   the stretched-z tables; 1 K4a, 1 K4b, 1 K5, 2 K6 a step; min T, S and b
+   after the steps printed, a reading and not a gate) and ``near-global
+   UB5`` (the ``near-global WENO`` path with UpwindBiasedFifthOrder()
+   flux-form momentum and BoundsPreservingWENO5() tracers: K4b's tendency
+   form reading the U, V and CENTER clear flags; 1 K4a, 1 K4b, 1 K5, 2 K6,
+   5 T1 a step); ms/step, points/s and launches a step beside the card's
+   name and power limit, K4b held bit for bit and timed against its bound
+   on each path's fields, the runs agree exactly;
+35. (after phase 28) the hydrostatic schemes hold (``SCHEMES_HOLD``): K4b
+   at 1° (360×150×24 fp32) with each of ``K4B_SCHEMES`` (UB5,
+   PositiveWENO5, C4, UB1, UB3, BoundsPreservingWENO5) as flux-form
+   momentum and tracer scheme, on the flagship's flat bottom and over the
+   near-global bottom, fused advance and tendency form after 3 steps, and
+   on stretched latitudes with PositiveWENO5 and BoundsPreservingWENO5 (the
+   y tables), bit for bit over NaN-filled outputs with zero halos, the flat
+   advance forms timed against their bounds; K1 and K2 at 256³ fp32 with
+   PositiveWENO5 momentum and tracers, K2 with PositiveWENO5 tracers on the
+   wind-mixing stretched z and K3a at 16384² fp32 with PositiveWENO5, each
+   bit for bit and timed against its bound (the records' ``forms``);
+36. the bf16 refusals: every model's construction on the card with
+   WENO5(fast_bf16=True) or WENO5(bf16_smoothness=True) raises
+   NotImplementedError naming the options.
 
 Each kernel's record carries its bound: the larger of its compulsory
 bytes (each input read once, each output written once, from this run's
@@ -547,7 +573,9 @@ PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
             "free convection: Ri-based": {K4A: 1, K4B: 1, K6: 3, T1: 3},
             "nonhydrostatic closures hold: TEOS-10": {K2: 3, K6: 6},
             "nonhydrostatic closures hold: Roquet": {K2: 3, K6: 6},
-            "nonhydrostatic closures hold: CATKE": {K2: 3, K6: 6, T1: 18}}
+            "nonhydrostatic closures hold: CATKE": {K2: 3, K6: 6, T1: 18},
+            "hydrostatic positive": {K4A: 1, K4B: 1, K5: 1, K6: 2},
+            "near-global UB5": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 5}}
 #: of T1's launches a step, those of its Fourier mode (the pressure solve)
 T1_FOURIER_PER_STEP = {"wind mixing stretched": 3, "AB2 stretched implicit": 1}
 T1F = "fourier_tridiagonal"
@@ -571,7 +599,8 @@ AGREE = {"AB2": 0.0, "RK3": 0.0, "shallow water": 1e-4,
          "wind mixing stretched": 0.0, "AB2 stretched implicit": 0.0,
          "near-global": 0.0, "near-global WENO": 0.0, "1/4 deg diffusive": 0.0,
          "horizontal convection": 0.0, "2D turbulence": 0.0, "seamount": 0.0,
-         "internal wave": 0.0, "near-global CATKE": 0.0}
+         "internal wave": 0.0, "near-global CATKE": 0.0, "hydrostatic positive": 0.0,
+         "near-global UB5": 0.0}
 #: the ¼° hydrostatic flagship (benchmark/bench_hydro_flagship.py:24-41);
 #: its "hydrostatic wind" path adds the near-global run's wind stress (u
 #: top FluxBC((λ, φ, t) ↦ −1e-4 cos(3πφ/180)),
@@ -604,7 +633,22 @@ NEAR_GLOBAL_CLOSURE = dict(nu=1e4, kappa=1e3, nu_z=1e-3, kappa_z=1e-4,
 #: whether each ¼° path steps through K4b's fused advance
 FUSED_ADVANCE = {"hydrostatic": True, "hydrostatic wind": False, "near-global": False,
                  "near-global WENO": False, "1/4 deg diffusive": True,
-                 "near-global CATKE": False}
+                 "near-global CATKE": False, "hydrostatic positive": True,
+                 "near-global UB5": False}
+#: the schemes slice's ¼° paths (1440×600×24 fp32, full width and depth),
+#: each run as HYDRO's paths are:
+#: - "hydrostatic positive": the flagship (its u = 0.1·N(0,1) and b) with
+#:   PositiveWENO5() tracers (bounds (0, ∞)) in place of WENO5, T = 2 +
+#:   18 exp(z/500) and S = 35, each plus 1e-2·N(0,1) from a seeded
+#:   torch.Generator, so that the limiter has work: K4b's fused advance
+#:   (its ANY instantiation) with the limiter on the stretched-z tables.
+#:   Its users: global runs whose salinity and biogeochemical tracers must
+#:   stay non-negative;
+#: - "near-global UB5": the "near-global WENO" path (bench_near_global.py at
+#:   ¼°, its continent, wind and closure) with UpwindBiasedFifthOrder()
+#:   flux-form momentum and BoundsPreservingWENO5() tracers: K4b's tendency
+#:   form (ANY) reading the U, V and CENTER clear flags.
+SCHEME_PATHS = ("hydrostatic positive", "near-global UB5")
 #: the ocean-physics configuration, the near-global ocean as ClimaOcean
 #: sets up its global runs (a prognostic-TKE boundary layer and TEOS-10):
 #: benchmark/bench_near_global.py as written (its lat-lon grid and z faces,
@@ -1475,13 +1519,16 @@ def wind_bcs():
         lambda lam, phi, t: -1e-4 * torch.cos(3.0 * math.pi * phi / 180.0)))}
 
 
-def latlon_flagship(dtype=torch.float32, wind=False, grid=None, **kw):
+def latlon_flagship(dtype=torch.float32, wind=False, grid=None, momentum_advection=None,
+                    tracer_advection=None, **kw):
     """The ¼° flagship of benchmark/bench_hydro_flagship.py through the
     public API; with ``wind``, under the near-global run's wind stress;
-    ``grid`` another lat-lon grid, ``kw`` more model options."""
+    ``grid`` another lat-lon grid, the schemes others than its
+    weno_velocity momentum and WENO5 tracers, ``kw`` more model options."""
     return HydrostaticFreeSurfaceModel(
-        grid or latlon_grid(dtype), momentum_advection=VectorInvariant(scheme="weno_velocity"),
-        tracer_advection=WENO5(), tracers=("T", "S"),
+        grid or latlon_grid(dtype),
+        momentum_advection=momentum_advection or VectorInvariant(scheme="weno_velocity"),
+        tracer_advection=tracer_advection or WENO5(), tracers=("T", "S"),
         free_surface=SplitExplicitFreeSurface(substeps=HYDRO["substeps"]),
         coriolis=HydrostaticSphericalCoriolis(), buoyancy=BuoyancyTracer(),
         boundary_conditions=wind_bcs() if wind else None, **kw)
@@ -1556,6 +1603,10 @@ def near_global_model(path, dtype=torch.float32):
     bottom = GridFittedBottom(near_global_bathymetry)
     if path == "near-global WENO":
         return latlon_flagship(dtype, wind=True, closure=closure, immersed_boundary=bottom)
+    if path == "near-global UB5":
+        return latlon_flagship(dtype, wind=True, closure=closure, immersed_boundary=bottom,
+                               momentum_advection=UpwindBiasedFifthOrder(),
+                               tracer_advection=BoundsPreservingWENO5())
     return HydrostaticFreeSurfaceModel(
         latlon_grid(dtype), free_surface=SplitExplicitFreeSurface(substeps=HYDRO["substeps"]),
         coriolis=HydrostaticSphericalCoriolis(), buoyancy=BuoyancyTracer(),
@@ -2106,23 +2157,43 @@ def phase_k6():
     return out
 
 
-def drive_hydrostatic(path, plain):
-    """A ¼° path run with K4a, K4b, K5, K6 (and T1) or (``plain``) their
-    plain versions: the flagship (``path`` "hydrostatic"), the flagship
-    under wind ("hydrostatic wind") or a ``NEAR_GLOBAL`` path; returns
-    (model, state, s per step, launches)."""
-    model = (near_global_model(path) if path in NEAR_GLOBAL
-             else latlon_flagship(wind=path == "hydrostatic wind"))
+def hydro_path_model(path):
+    """The model and initial state of a ¼° path: the flagship (``path``
+    "hydrostatic"), the flagship under wind ("hydrostatic wind"), a
+    ``NEAR_GLOBAL`` or a ``SCHEME_PATHS`` path."""
+    if path in NEAR_GLOBAL or path == "near-global UB5":
+        model = near_global_model(path)
+    elif path == "hydrostatic positive":
+        model = latlon_flagship(tracer_advection=PositiveWENO5())
+    else:
+        model = latlon_flagship(wind=path == "hydrostatic wind")
     if model.fused_advance != FUSED_ADVANCE[path]:
         raise AssertionError(f"{path}: fused_advance is {model.fused_advance}")
     b = lambda lam, phi, z: 2e-5 * (z + 3000.0) / 3000.0
     if path == "near-global CATKE":
         state = ocean_state(model)
-    elif path in ("near-global", "near-global WENO"):  # bench_near_global.py's state
-        state = model.initial_state(b=b)
+    elif path in ("near-global", "near-global WENO", "near-global UB5"):
+        state = model.initial_state(b=b)  # bench_near_global.py's state
+    elif path == "hydrostatic positive":
+        rng = np.random.default_rng(0)
+        gen = torch.Generator(device=DEVICE).manual_seed(18)
+        g = model.grid
+        noise = lambda: 1e-2 * torch.randn(g.shape, generator=gen, device=DEVICE)
+        z = g.nodes(CENTER)[2]
+        T = torch.broadcast_to(2.0 + 18.0 * torch.exp(z / 500.0), g.shape) + noise()
+        state = model.initial_state(u=0.1 * rng.standard_normal(g.shape), b=b, T=T,
+                                    S=35.0 + noise())
     else:
         rng = np.random.default_rng(0)
         state = model.initial_state(u=0.1 * rng.standard_normal(model.grid.shape), b=b)
+    return model, state
+
+
+def drive_hydrostatic(path, plain):
+    """A ¼° path run (``hydro_path_model``) with K4a, K4b, K5, K6 (and T1)
+    or (``plain``) their plain versions; returns (model, state, s per
+    step, launches)."""
+    model, state = hydro_path_model(path)
     kernels = hydrostatic.PLAIN if plain else None
     state, per_step, launches = run_steps(
         path, model, state,
@@ -2168,11 +2239,12 @@ def wind_tke(path, model, state):
 
 
 def phase_hydrostatic(path="hydrostatic"):
-    """A ¼° hydrostatic path (``path`` "hydrostatic", "hydrostatic wind" or
-    a ``NEAR_GLOBAL`` one) with the kernels, checked, then with their plain
-    versions; returns the kernel run's launch counts and K4b's and its
-    plain version's ms on the path's fields (ms None where K4b runs in its
-    tendency form)."""
+    """A ¼° hydrostatic path (``path`` "hydrostatic", "hydrostatic wind", a
+    ``NEAR_GLOBAL`` or a ``SCHEME_PATHS`` one) with the kernels, checked,
+    then with their plain versions; returns the kernel run's launch
+    counts, K4b's and its plain version's ms on the path's fields (ms None
+    where K4b runs in its tendency form) and K4b's reading there (a form
+    record: its hold, times, bound and launches on the path)."""
     model, state, per_step, launches = drive_hydrostatic(path, plain=False)
     check_finite(path, model, state, ("w", "pHY", "eta"))
     g = model.grid
@@ -2197,6 +2269,17 @@ def phase_hydrostatic(path="hydrostatic"):
         wind_tke(path, model, state)
         print(f"{path} path: {per_step * 1e3:.3f} ms/step, "
               f"{points / per_step / 1e6:.3f} M points/s on {card_line()}")
+    if path == "hydrostatic positive":
+        sol = state["solution"]
+        mins = {n: float(g.interior(sol[n]).min()) for n in ("T", "S", "b")}
+        # a reading, not a gate: the limiter bounds each flux, but
+        # quasi-AB2 is not strong-stability-preserving
+        print(f"{path} path: after {steps} steps min T {mins['T']:.6e}, min S "
+              f"{mins['S']:.6e}, min b {mins['b']:.6e}")
+    if path in SCHEME_PATHS:
+        print(f"{path} path: {per_step * 1e3:.3f} ms/step, "
+              f"{points / per_step / 1e6:.3f} M points/s, launches a step "
+              f"{ {k: n // steps for k, n in used.items()} } on {card_line()}")
     # K4b on the path's own fields (T = S = 0, b linear in z), where the
     # random fields of phase 11 are not: the form the path runs
     adv = (HYDRO["dt"], False) if FUSED_ADVANCE[path] else None
@@ -2205,14 +2288,20 @@ def phase_hydrostatic(path="hydrostatic"):
     ref = fused_hydrostatic_tendencies_reference(model, state, adv)
     got, ref = (({"G": got}, {"G": ref}) if adv is None else
                 ({"psi'": got[0], "G": got[1]}, {"psi'": ref[0], "G": ref[1]}))
-    hold(f"K4b 1/4 deg fp32 {form} on the {path} path's fields", got, ref,
-         torch.float32, g.interior, exact=True)
+    err = hold(f"K4b 1/4 deg fp32 {form} on the {path} path's fields", got, ref,
+               torch.float32, g.interior, exact=True)
+    b_ms, b_by = k4b_bound(model, state, [t for o in got.values() for t in o.values()],
+                           adv is not None)
     del got, ref
     ms = cuda_ms(lambda: fused_hydrostatic_tendencies(model, state, adv), 10)
     plain_ms = cuda_ms(lambda: fused_hydrostatic_tendencies_reference(
         model, state, adv), 2)
     print(f"K4b 1/4 deg fp32 {form} on the {path} path's fields time: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events)")
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events), bound {b_ms:.4f} ms "
+          f"({b_by})")
+    reading = form_record(path, f"1/4 deg fp32 {form}, {PATH_SCHEMES.get(path, '')}"
+                          .rstrip(", "), err, ms, plain_ms, b_ms, b_by,
+                          launches[K4B])
     kernel_u = {k: g.interior(a).clone() for k, a in state["solution"].items()}
     kernel_eta = cut(state["eta"]).clone()
     del state
@@ -2229,7 +2318,7 @@ def phase_hydrostatic(path="hydrostatic"):
           f"agree to {max(worst, eta_rel):.3e} of max|field| (eta included)")
     del model, state, kernel_u
     torch.cuda.empty_cache()
-    return launches, (None if adv is None else ms), plain_ms
+    return launches, (None if adv is None else ms), plain_ms, reading
 
 
 #: the forced hold: RK3 at 64³ fp32 on the examples' box, (Δt, steps)
@@ -3201,6 +3290,230 @@ def phase_schemes():
     return worst, forms
 
 
+#: the schemes slice's paths' schemes, in their K4b records
+PATH_SCHEMES = {"hydrostatic positive": "weno_velocity / PositiveWENO5",
+                "near-global UB5": "UB5 / BoundsPreservingWENO5, immersed"}
+#: the six schemes K4b takes beyond WENO5 and the centred one
+K4B_SCHEMES = {"UB5": UpwindBiasedFifthOrder, "PW": PositiveWENO5,
+               "C4": CenteredFourthOrder, "UB1": UpwindBiasedFirstOrder,
+               "UB3": UpwindBiasedThirdOrder, "BP": BoundsPreservingWENO5}
+#: the K4b holds at 1° (360×150×24 fp32: the flagship's grid at 1°), 3
+#: steps of each fields' run through the model first; the stretched-latitude
+#: grid's (PW and BP: K4b's y tables)
+SCHEMES_HOLD = dict(size=(360, 150, 24), steps=3, stretched=("PW", "BP"))
+
+
+def k4b_flops(model):
+    """K4b's operations a point with the model's schemes, counted as
+    ``FLOPS``: the vector-invariant flagship's momentum (~400) or two
+    velocities' three flux-form transports by scheme (``K2_TRANSPORT``),
+    each tracer's three transports (a WENO5 or BoundsPreservingWENO5 z flux
+    two-sided on a stretched z: one transport more; PositiveWENO5's count
+    has both sides), ~8 a field for the divergences and ~50 for Coriolis,
+    −∂pHY′ and the epilogue."""
+    sch, ts = model.momentum_advection, model.tracer_advection
+    mom = 400 if isinstance(sch, VectorInvariant) else 6 * K2_TRANSPORT[type(sch)]
+    per = 3 * K2_TRANSPORT[type(ts)]
+    if not model.grid.z_regular and type(ts) in (WENO5, BoundsPreservingWENO5):
+        per += K2_TRANSPORT[type(ts)]
+    nf = 2 + len(model.tracer_names)
+    return mom + len(model.tracer_names) * per + 8 * nf + 50
+
+
+def k4b_bound(model, state, outs, advance):
+    """K4b's bound on a call's inputs and its output tensors ``outs`` (G,
+    or ψ′ and G with ``advance``): each field, w, pHY′ (and G_prev in the
+    advance) read once, the clear flags and y tables it reads, each output
+    written once."""
+    from clima_oceananigans_jl_torch.ops.fused_hydrostatic import _mask_locs, clear_flags
+    from clima_oceananigans_jl_torch.ops.metric_rows import y_tables
+    g = model.grid
+    extra = [clear_flags(g, loc, (model.tracer_advection if loc == CENTER
+                                  else model.momentum_advection).buffer)
+             for loc in _mask_locs(model)]
+    if not g.y_regular:
+        extra.append(y_tables(g))
+    gp = state["G_prev"].values() if advance else []
+    nb = tensor_bytes(state["solution"].values(), [state["w"], state["pHY"]], gp, outs,
+                      extra)
+    return bound(K4B, nb, g.Nx * g.Ny * g.Nz, k4b_flops(model))
+
+
+def scheme_hold_model(short, bottom, stretched=False):
+    """The flagship at 1° (``SCHEMES_HOLD``) with the scheme ``short`` as
+    flux-form momentum and tracer scheme; over the near-global bottom with
+    ``bottom``, on stretched latitudes with ``stretched``."""
+    size = SCHEMES_HOLD["size"]
+    lat = stretched_latitude(size[1]) if stretched else (-75, 75)
+    kw = dict(immersed_boundary=GridFittedBottom(near_global_bathymetry)) if bottom else {}
+    scheme = K4B_SCHEMES[short]
+    return latlon_flagship(grid=latlon_grid(size=size, latitude=lat),
+                           momentum_advection=scheme(), tracer_advection=scheme(), **kw)
+
+
+def phase_hydro_schemes():
+    """The schemes slice's holds, each kernel form bit for bit against its
+    plain version over NaN-filled outputs and (all but K4b's immersed and
+    stretched forms) timed against its bound:
+    - K4b at 1° with each of ``K4B_SCHEMES`` as flux-form momentum and
+      tracer scheme, on the flagship's flat bottom and over the near-global
+      one, in the fused advance and the tendency form (after 3 steps of the
+      model with the kernels), halos exactly 0; on stretched latitudes with
+      PW and BP (the y tables);
+    - K1 and K2 at 256³ fp32 with PositiveWENO5 as the momentum and the
+      tracer scheme (the bench configuration's fields for K1), K2 with
+      PositiveWENO5 tracers on the wind-mixing stretched z, K3a at 16384²
+      fp32 with PositiveWENO5 for uh, vh and a tracer.
+    Returns ({kernel: largest max|Δ|}, {kernel: the records' forms})."""
+    worst = {K1: 0.0, K2: 0.0, K3A: 0.0, K4B: 0.0}
+    forms = {K1: [], K2: [], K3A: [], K4B: []}
+    steps = SCHEMES_HOLD["steps"]
+    cases = [(short, bottom, False) for short in K4B_SCHEMES for bottom in (False, True)]
+    cases += [(short, False, True) for short in SCHEMES_HOLD["stretched"]]
+    for short, bottom, stretched in cases:
+        model = scheme_hold_model(short, bottom, stretched)
+        g = model.grid
+        gen = torch.Generator(device=DEVICE).manual_seed(19)
+        rand = lambda sc, o=0.0: o + sc * torch.randn(g.shape, generator=gen, device=DEVICE)
+        state = model.initial_state(u=rand(0.1), v=rand(0.1), T=rand(1.0, 10.0),
+                                    S=rand(1e-2, 35.0), b=lambda lam, phi, z: 2e-5 * (
+                                        z + 3000.0) / 3000.0)
+        for _ in range(steps):
+            state = model.step(state, HYDRO["dt"])
+        where = ("near-global bottom" if bottom else "stretched latitude" if stretched
+                 else "flat")
+        label = f"1 deg fp32 {where}, {short} / {short}"
+        case_err = 0.0
+        for adv in ((HYDRO["dt"], False), None):
+            poison_cache(g.total_shape, torch.float32, 12)
+            got = fused_hydrostatic_tendencies(model, state, adv)
+            ref = fused_hydrostatic_tendencies_reference(model, state, adv)
+            form = "tendencies" if adv is None else "advance"
+            pairs = (({"G": got}, {"G": ref}) if adv is None else
+                     ({"psi'": got[0], "G": got[1]}, {"psi'": ref[0], "G": ref[1]}))
+            case_err = max(case_err, hold(f"K4b {label}, {form}", *pairs, torch.float32,
+                                          g.interior, exact=True))
+            for kind in pairs[0].values():  # the kernel writes its halos zero
+                for name, t in kind.items():
+                    halo = t.clone()
+                    halo[g.interior_slices] = 0
+                    if halo.isnan().any() or halo.any():
+                        raise AssertionError(f"K4b {label}, {form} {name}: a halo "
+                                             "point is not zero")
+            if adv is not None and not bottom and not stretched:
+                b = k4b_bound(model, state, [t for o in got for t in o.values()], True)
+                del got, ref
+                ms, plain_ms = time_form(K4B, f"{label}, advance",
+                                         lambda: fused_hydrostatic_tendencies(model, state, adv),
+                                         lambda: fused_hydrostatic_tendencies_reference(
+                                             model, state, adv), b)
+                forms[K4B].append(form_record(short, f"{label}, advance", case_err, ms,
+                                              plain_ms, *b))
+            else:
+                del got, ref
+        worst[K4B] = max(worst[K4B], case_err)
+        del model, state
+        torch.cuda.empty_cache()
+    # K1 and K2 with PositiveWENO5 momentum and tracers at 256³ fp32
+    grid = RectilinearGrid(size=(N, N, N), extent=(1.0, 1.0, 1.0),
+                           topology=(PERIODIC, PERIODIC, BOUNDED), device=DEVICE)
+    model = NonhydrostaticModel(grid, advection=PositiveWENO5(), buoyancy=BuoyancyTracer(),
+                                tracer_advection=PositiveWENO5())
+    if not (model.fused_step and model.g_interior):
+        raise AssertionError("K1 PW: the model does not take K1's fused branch")
+    state = random_state(model, 1)
+    poison_cache(model.grid.total_shape, torch.float32, 10)
+    psi_k, g_k, err = hold_k1(f"K1 PW {N}^3 fp32", model, state)
+    nb = tensor_bytes(state["solution"].values(), state["G_prev"].values(),
+                      [state["pHY"]], psi_k.values(), g_k.values())
+    b = bound(K1, nb, N ** 3, flops=k2_flops(model.grid, PositiveWENO5(),
+                                             PositiveWENO5(), 1) + 20)
+    label = f"P,P,B {N}^3 fp32, PW / PW, bench"
+    ms, plain_ms = time_form(K1, label, lambda: fused_ab2_advance(model, state, 1e-4, False),
+                             lambda: fused_ab2_advance_reference(model, state, 1e-4, False), b)
+    worst[K1] = max(worst[K1], err)
+    forms[K1].append(form_record("PW", label, err, ms, plain_ms, *b))
+    sol = state["solution"]
+    args = (model.grid, model.advection, model.tracer_advection, sol["u"], sol["v"],
+            sol["w"], {"b": sol["b"]})
+    poison_cache(model.grid.total_shape, torch.float32, 6)
+    err = hold_k2(f"K2 PW {N}^3 fp32", args, torch.float32)
+    label = f"P,P,B {N}^3 fp32, PW / PW"
+    ms, plain_ms = time_form(K2, label, lambda: fused_advective_tendencies(*args),
+                             lambda: fused_advective_tendencies_reference(*args),
+                             k2_bound(args))
+    worst[K2] = max(worst[K2], err)
+    forms[K2].append(form_record("PW momentum", label, err, ms, plain_ms, *k2_bound(args)))
+    del model, state, psi_k, g_k, sol, args
+    torch.cuda.empty_cache()
+    # K2 with PositiveWENO5 tracers on the wind-mixing stretched z
+    label = f"P,P,B {N}^3 fp32 stretched z, WENO5 / PW"
+    args = scheme_k2_args(label, (PERIODIC, PERIODIC, BOUNDED), WENO5, PositiveWENO5,
+                          "stretched", False)
+    poison_cache(args[0].total_shape, torch.float32, 7)
+    err = hold_k2(f"K2 {label}", args, torch.float32)
+    ms, plain_ms = time_form(K2, label, lambda: fused_advective_tendencies(*args),
+                             lambda: fused_advective_tendencies_reference(*args),
+                             k2_bound(args))
+    worst[K2] = max(worst[K2], err)
+    forms[K2].append(form_record("PW stretched", label, err, ms, plain_ms, *k2_bound(args)))
+    del args
+    torch.cuda.empty_cache()
+    # K3a with PositiveWENO5 at the shallow-water headline's 16384²
+    grid = RectilinearGrid(size=(N_SW, N_SW, 1), x=(0, 2 * math.pi), y=(0, 2 * math.pi),
+                           topology=(PERIODIC, PERIODIC, FLAT), halo=(3, 3, 0),
+                           device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    rand = lambda sc, o=0.0: o + sc * torch.randn(grid.total_shape, generator=gen,
+                                                  device=DEVICE)
+    c = 1.2 * torch.rand(grid.total_shape, generator=gen, device=DEVICE) - 0.1
+    args = (grid, PositiveWENO5(), PositiveWENO5(), 10.0, rand(0.1), rand(0.1),
+            rand(0.05, 1.0), [c], None)
+    label = f"{N_SW}x{N_SW} fp32, PW / PW, 1 tracer"
+    poison_cache(grid.total_shape, torch.float32, 4)
+    names = ["uh", "vh", "h", "c"]
+    got = dict(zip(names, fused_shallow_water_tendencies(*args)))
+    ref = dict(zip(names, fused_shallow_water_tendencies_reference(*args)))
+    err = hold(f"K3a {label}", {"G": got}, {"G": ref}, torch.float32, grid.interior,
+               exact=True)
+    del got, ref
+    # uh along y and vh along x limited, their own axes WENO5's stream
+    per = K2_TRANSPORT[PositiveWENO5]
+    b = bound(K3A, 2 * tensor_bytes(args[4:7], args[7]), N_SW ** 2,
+              flops=2 * per + 2 * K2_TRANSPORT[WENO5] + 44 + 2 * per + 10)
+    ms, plain_ms = time_form(K3A, label, lambda: fused_shallow_water_tendencies(*args),
+                             lambda: fused_shallow_water_tendencies_reference(*args), b)
+    worst[K3A] = max(worst[K3A], err)
+    forms[K3A].append(form_record("PW", label, err, ms, plain_ms, *b))
+    del args
+    torch.cuda.empty_cache()
+    return worst, forms
+
+
+def phase_bf16_refusals():
+    """WENO5's bf16 options on the card: every model's construction with
+    one of them raises NotImplementedError by name (the kernels do not
+    take them; the plain versions run them on the CPU only)."""
+    grid = RectilinearGrid(size=(16, 16, 16), extent=(1, 1, 1), device=DEVICE)
+    sw = RectilinearGrid(size=(16, 16, 1), extent=(1, 1), topology=(PERIODIC, PERIODIC, FLAT),
+                         device=DEVICE)
+    builds = {"NonhydrostaticModel": lambda w: NonhydrostaticModel(grid, advection=w),
+              "HydrostaticFreeSurfaceModel": lambda w: HydrostaticFreeSurfaceModel(
+                  grid, tracer_advection=w, tracers=("c",)),
+              "ShallowWaterModel": lambda w: ShallowWaterModel(sw, advection=w)}
+    for option in ("fast_bf16", "bf16_smoothness"):
+        for name, build in builds.items():
+            try:
+                build(WENO5(**{option: True}))
+            except NotImplementedError as e:
+                if "bf16 options" not in str(e):
+                    raise
+                continue
+            raise AssertionError(f"{name} took WENO5({option}=True) on the card")
+    print("bf16 options: WENO5(fast_bf16=True) and WENO5(bf16_smoothness=True) refused "
+          "by name in the nonhydrostatic, hydrostatic and shallow-water models")
+
+
 #: examples/internal_wave.py at 32× its 128² on each axis, 4096×1×4096 fp64
 #: (the example's dtype), its Δt = 0.02·2π/ω and its 100 iterations through
 #: ``Simulation``: the first ``warmup`` untimed; ``hold``: steps of the
@@ -3731,16 +4044,21 @@ def main():
     # K3a's times on the path's fields
     measured[K3A] = (measured[K3A][0], ms, plain_ms, *measured[K3A][3:])
     by_path["general projection"], _ = phase_path("general projection")
-    by_path["hydrostatic"], ms, plain_ms = phase_hydrostatic()
+    by_path["hydrostatic"], ms, plain_ms, _ = phase_hydrostatic()
     # K4b's times on the path's fields (its advance form)
     measured[K4B] = (measured[K4B][0], ms, plain_ms, *measured[K4B][3:])
     for path in SURFACE:
         by_path[path], _ = phase_path(path)
-    by_path["hydrostatic wind"], _, _ = phase_hydrostatic("hydrostatic wind")
+    by_path["hydrostatic wind"], _, _, _ = phase_hydrostatic("hydrostatic wind")
     for path in LES:
         by_path[path], _ = phase_path(path)
     for path in NEAR_GLOBAL:
-        by_path[path], _, _ = phase_hydrostatic(path)
+        by_path[path], _, _, _ = phase_hydrostatic(path)
+    # the schemes slice's ¼° paths, K4b's readings on their fields
+    k4b_path_forms = []
+    for path in SCHEME_PATHS:
+        by_path[path], _, _, reading = phase_hydrostatic(path)
+        k4b_path_forms.append(reading)
     flat_worst, k1_flat = phase_flat_bounded()
     wall_readings = {}
     for path in WALLS:
@@ -3752,6 +4070,10 @@ def main():
     flat_worst[K6] = max(flat_worst[K6], k6_err)
     flat_worst[K2] = max(flat_worst[K2], *(f["max_abs_err"] for f in k2_immersed))
     scheme_worst, scheme_forms = phase_schemes()
+    hydro_worst, hydro_forms = phase_hydro_schemes()
+    for name, err in hydro_worst.items():
+        scheme_worst[name] = max(scheme_worst.get(name, 0.0), err)
+    phase_bf16_refusals()
     (by_path["internal wave"], wall_readings["internal wave"], k6_err,
      iw_err) = phase_internal_wave()
     by_path["periodic advection"], pa_err = phase_periodic_advection()
@@ -3821,9 +4143,12 @@ def main():
     by_name[K2]["forms"] += k2_immersed
     # the new schemes' forms: each a hold of its own, no launches but on the
     # paths (the internal wave's C4 in K2's path forms above)
-    by_name[K1]["forms"] += scheme_forms[K1]
-    by_name[K2]["forms"] += scheme_forms[K2]
-    by_name[K3A]["forms"] = scheme_forms[K3A]
+    by_name[K1]["forms"] += scheme_forms[K1] + hydro_forms[K1]
+    by_name[K2]["forms"] += scheme_forms[K2] + hydro_forms[K2]
+    by_name[K3A]["forms"] = scheme_forms[K3A] + hydro_forms[K3A]
+    # K4b with each scheme (holds at 1°) and on the schemes slice's paths,
+    # there with the path's launches
+    by_name[K4B]["forms"] += hydro_forms[K4B] + k4b_path_forms
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

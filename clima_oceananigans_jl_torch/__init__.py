@@ -3,8 +3,7 @@
 The JAX package beside this one is the reference; this package keeps its
 module paths, constructor API and ``state`` layout. So far it runs the
 nonhydrostatic model on periodic, bounded and Flat axes (the JAX
-package's seven advection schemes, PositiveWENO5 tracers,
-grid-fitted immersed boundaries with their bottom fluxes, buoyancy tracer or
+package's eight advection schemes for momentum and tracers, grid-fitted immersed boundaries with their bottom fluxes, buoyancy tracer or
 seawater buoyancy with a linear or nonlinear equation of state (TEOS-10,
 Roquet's idealized one, polynomials), tilted gravity,
 f/β-plane, constant Cartesian and non-traditional β-plane Coriolis,
@@ -18,7 +17,8 @@ FFT pressure solve), the roll-based and the general projection) with its
 quasi-AB2 and RK3 steps, the shallow-water model in its conservative and
 vector-invariant forms, and the hydrostatic free-surface model on
 rectilinear and lat-lon grids with stretched axes (vector-invariant or
-flux-form momentum, spherical Coriolis, forcing and flux BCs, closures
+flux-form momentum, each of the eight schemes as the flux form and for
+the tracers, spherical Coriolis, forcing and flux BCs, closures
 (CATKE, convective adjustment, Ri-based mixing and GM/Redi among them),
 seawater buoyancy with any of those equations of state, tilted gravity,
 grid-fitted immersed boundaries with their bottom fluxes, explicit,

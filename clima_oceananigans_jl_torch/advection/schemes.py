@@ -13,8 +13,9 @@ two-sided form with the per-index tables of
 (WENO5 with each reconstruction clipped to the range of the two cells
 beside it) and ``PositiveWENO5`` (WENO5 with the Zhang-Shu flux limiter
 of Oceananigans' PositiveWENO on its to-faces transports, reconstructed
-two-sided by ``left_right_to_f``); next to an immersed boundary the
-conditional fluxes (Oceananigans' conditional_fluxes.jl).
+two-sided by ``left_right_to_f``); WENO5's two bfloat16 options; next to
+an immersed boundary the conditional fluxes (Oceananigans'
+conditional_fluxes.jl).
 
 Conventions: reconstructions "to F" give a value at face i from
 cell-centred data (face i sits between cells i-1 and i); "to C" give a
@@ -151,23 +152,46 @@ class UpwindBiasedFifthOrder(AdvectionScheme):
 @dataclasses.dataclass(frozen=True)
 class WENO5(AdvectionScheme):
     """5th-order WENO with Jiang-Shu smoothness weights, uniform-grid
-    coefficients."""
+    coefficients.
+
+    The JAX package's two bfloat16 options, each bf16 operation rounded as
+    torch rounds it: ``fast_bf16`` evaluates the whole reconstruction in
+    bfloat16 and casts the result back (about three decimal digits of the
+    reconstruction); ``bf16_smoothness`` evaluates only the Jiang-Shu
+    smoothness indicators and the nonlinear weights of fp32 data in
+    bfloat16, the candidate stencils in full precision. The plain versions
+    run both; no kernel does, so the models refuse them on the card."""
 
     buffer: int = 2
     is_upwind: bool = True
     eps: float = 1e-6
+    fast_bf16: bool = False
+    bf16_smoothness: bool = False
 
     def stream_reconstruct(self, a):
         """Left-biased reconstruction of an upwind-ordered 5-point stream
         ``a = (a0..a4)`` (see ``upwind_stream``). The right-biased formulas
         are the left ones on the reflected stream, so one evaluation on
         the sign-selected stream gives the upwind flux."""
+        if self.fast_bf16:
+            out = self._weno_stream(tuple(x.to(torch.bfloat16) for x in a))
+            return out.to(a[0].dtype)
+        return self._weno_stream(a)
+
+    def _weno_stream(self, a):
         a0, a1, a2, a3, a4 = a
         d10, d11, d12, d13 = a1 - a0, a2 - a1, a3 - a2, a4 - a3
-        d20, d21, d22 = d11 - d10, d12 - d11, d13 - d12
-        s0 = d20 + 2.0 * d11
-        s1 = d11 + d12
-        s2 = d22 - 2.0 * d12
+        if self.bf16_smoothness and a0.dtype == torch.float32:
+            # the indicator branch (second differences, βs, weights) in
+            # bfloat16; the candidates and num/den stay fp32
+            e11, e12 = d11.to(torch.bfloat16), d12.to(torch.bfloat16)
+            d20 = e11 - d10.to(torch.bfloat16)
+            d21 = e12 - e11
+            d22 = d13.to(torch.bfloat16) - e12
+            s0, s1, s2 = d20 + 2.0 * e11, e11 + e12, d22 - 2.0 * e12
+        else:
+            d20, d21, d22 = d11 - d10, d12 - d11, d13 - d12
+            s0, s1, s2 = d20 + 2.0 * d11, d11 + d12, d22 - 2.0 * d12
         b0 = (13.0 / 12.0) * d20 * d20 + 0.25 * (s0 * s0)
         b1 = (13.0 / 12.0) * d21 * d21 + 0.25 * (s1 * s1)
         b2 = (13.0 / 12.0) * d22 * d22 + 0.25 * (s2 * s2)
@@ -219,7 +243,11 @@ class WENO5(AdvectionScheme):
         return d[0] * (t1 * t2), d[1] * (t0 * t2), d[2] * (t0 * t1)
 
     def _combine(self, p0, p1, p2, b0, b1, b2, d=(0.1, 0.6, 0.3)):
+        if self.bf16_smoothness and p0.dtype == torch.float32:
+            b0, b1, b2 = (b.to(torch.bfloat16) for b in (b0, b1, b2))
         g0, g1, g2 = self._nl_weights(b0, b1, b2, d)
+        if g0.dtype != p0.dtype:
+            g0, g1, g2 = (g.to(p0.dtype) for g in (g0, g1, g2))
         num = g0 * p0 + g1 * p1 + g2 * p2
         den = g0 + g1 + g2
         return num / den  # IEEE division, as on the JAX plain path
@@ -231,6 +259,12 @@ class WENO5(AdvectionScheme):
         ``transport`` takes for ``PositiveWENO5``'s to-faces transports.
         Returns (L, R): L at face i from cells i−3..i+1, R from
         i−2..i+2."""
+        if self.fast_bf16:
+            L, R = self._weno_lr(c.to(torch.bfloat16), axis)
+            return L.to(c.dtype), R.to(c.dtype)
+        return self._weno_lr(c, axis)
+
+    def _weno_lr(self, c, axis):
         s = lambda a, n: shift(a, n, axis)
         six = _full(c, 6.0)
         d1 = c - s(c, -1)            # d1[i] = c[i] − c[i−1]
@@ -264,14 +298,20 @@ class WENO5(AdvectionScheme):
         """Biased reconstruction of ``v`` with the per-index coefficient
         tables of a stretched axis (``side`` "left" or "right"): the
         geometry-exact stencil polynomials and optimal weights, uniform
-        Jiang–Shu smoothness indicators."""
+        Jiang–Shu smoothness indicators (``fast_bf16``: in bfloat16, the
+        rows too)."""
+        if self.fast_bf16:
+            return self._table_eval(v.to(torch.bfloat16), axis, tables[side]).to(v.dtype)
+        return self._table_eval(v, axis, tables[side])
+
+    def _table_eval(self, v, axis, side_tables):
         def bx(row):
             shape = [1, 1, 1]
             shape[axis] = row.shape[0]
-            return row.reshape(shape)
+            return row.reshape(shape).to(v.dtype)
 
         ps, bs, ds = [], [], []
-        for d, cj, voff, kind in tables[side]:
+        for d, cj, voff, kind in side_tables:
             w0, w1, w2 = (shift(v, o, axis) for o in voff)
             ps.append(bx(cj[0]) * w0 + bx(cj[1]) * w1 + bx(cj[2]) * w2)
             if kind == 0:

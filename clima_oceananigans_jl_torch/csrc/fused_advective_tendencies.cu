@@ -8,7 +8,7 @@
 // (ops/fused_tendencies.py::fused_advective_tendencies_reference, the
 // div_vu / div_vv / div_vw / div_Uc of advection/fluxes.py); the flux code
 // is advect_tile of weno5_advection.cuh, shared with the fused AB2 advance.
-// Momentum and tracers each take any of the JAX package's seven schemes; a
+// Momentum and tracers each take any of the JAX package's eight schemes; a
 // bounded axis reduces a scheme's order near its walls through the
 // with-halo bounds of reduced_order_masks for that scheme (required_halo 2
 // or 3), one set for momentum and one for the tracers. A Flat
@@ -45,28 +45,29 @@
 // fluxes their two-sided table form, as the JAX kernel reads them from its
 // metric pack; the regular instantiation carries none of it. So do a grid
 // with a Flat axis (FL, the Flat layout), one whose x or y has near-wall
-// bounds (XY, the x and y fluxes' masks), and C4, UB1, UB3 or
-// BoundsPreservingWENO5 for either field kind (ANY: every scheme, each with
-// its own near-wall bounds; the other instantiations compile the first
-// four codes alone, as they did before those schemes came).
+// bounds (XY, the x and y fluxes' masks), and C4, UB1, UB3,
+// BoundsPreservingWENO5 or PositiveWENO5 for either field kind (ANY: every
+// scheme, each with its own near-wall bounds; the other instantiations
+// compile centred, WENO5 and UB5 alone, as they did before those schemes
+// came).
 //
-// An immersed grid, or PositiveWENO5 tracers, run the IM instantiations:
-// each flux reads the clear flag of its flux location (the uint8 tensors of
+// An immersed grid runs the IM instantiations: each flux reads the clear
+// flag of its flux location (the uint8 tensors of
 // immersed/immersed.py::clear_flags: u, v, w and the tracers' CENTER) and
 // drops to first-order upwind where its stencil reaches a solid cell (the
 // conditional fluxes of advection/schemes.py::transport), the wall faces
-// too (div_wall); PositiveWENO5 tracers take the two-sided form with the
-// Zhang-Shu limiter (transport_positive, weno5_advection.cuh). The regular
-// instantiations compile both out. PositiveWENO5 on a stretched z, and as
-// the momentum scheme, are refused (cudaErrorInvalidValue; the wrapper
-// names them first).
+// too (div_wall). PositiveWENO5, for momentum or tracers, on a regular or
+// stretched z, runs the ANY instantiations: its to-faces transports take
+// the two-sided form with the Zhang-Shu limiter (transport_positive,
+// weno5_advection.cuh; on a stretched z the z flux's table form, each face
+// with its own row). The regular instantiations compile both out.
 //
-// The IM form's work: over an immersed bottom each flux adds a byte load
-// and a select; a PositiveWENO5 tracer face reconstructs four times (L and
-// R at the face, L above, R below) and computes two thetas, ~300
-// operations as written against WENO5's stream's ~64, where the function
-// needs ~150 (each face's L and R once, with shared differences; the count
-// chip_smoke.py's bound takes).
+// PositiveWENO5's work: a limited face reconstructs four times (L and R at
+// the face, L above, R below) and computes two thetas, ~300 operations as
+// written against WENO5's stream's ~64, where the function needs ~150
+// (each face's L and R once, with shared differences; the count
+// chip_smoke.py's bound takes); over an immersed bottom each flux adds a
+// byte load and a select.
 #include <cuda_runtime.h>
 
 #include "weno5_advection.cuh"
@@ -171,7 +172,7 @@ static int launch_im(TendencyArgs<T>& A, bool im, bool any, void* stream) {
 template <typename T>
 static int launch(const void* const* psi, void* const* out, const int* ia,
                   const double* da, int walls, const void* zs, int tables,
-                  const void* const* clear, const double* bounds, void* stream) {
+                  const void* const* clear, void* stream) {
   TendencyArgs<T> A;
   if (!set_advection(A.adv, psi, ia, da)) return (int)cudaErrorInvalidValue;
   for (int f = 0; f < MAX_FIELDS; ++f)
@@ -181,18 +182,10 @@ static int launch(const void* const* psi, void* const* out, const int* ia,
   A.adv.tables = tables;
   for (int f = 0; f < 4; ++f)
     A.adv.clear[f] = clear != nullptr ? static_cast<const uint8_t*>(clear[f]) : nullptr;
-  // PositiveWENO5: tracers only, on a regular z, with its bounds
-  const bool pw = A.adv.scheme_t == SCHEME_PW;
-  if (A.adv.scheme_m == SCHEME_PW || (pw && (zs != nullptr || bounds == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  if (pw) {
-    A.adv.lo_t = T(bounds[0]);
-    A.adv.hi_t = T(bounds[1]);
-  }
-  const bool im = clear != nullptr || pw;
+  const bool im = clear != nullptr;
   if (A.adv.nx <= 0 || A.adv.ny <= 0 || A.adv.nz <= 0) return 0;
   // the instantiation: stretched z, Flat layout, near-wall bounds on x or y,
-  // clear flags or PositiveWENO5, a scheme that needs ANY
+  // clear flags, a scheme that needs ANY
   const bool flat = advection_flat(ia);
   const auto &m = A.adv.masked, &mt = A.adv.masked_t;
   const bool xy = m[0] || m[1] || mt[0] || mt[1];
@@ -213,26 +206,25 @@ extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success). `psi` and
 // `out` are host arrays of nf device pointers in the kernel's axis order;
-// `ia` and `da` the shared arguments (set_advection); bit a of `walls`
-// writes G of velocity a at its wall face on bounded axis a; `zs` (a
-// stretched z, else null) are the z rows of ops/metric_rows.py, with
-// WENO5's to-faces and to-centres tables where `tables`; `clear` (an
-// immersed grid, else null) a host array of the four clear-flag tensors'
-// device pointers (u, v, w in the kernel's order, then the tracers'; a null
-// entry: that field reads none); `bounds` PositiveWENO5's (lo, hi) when
-// the tracer scheme is PositiveWENO5, else null.
+// `ia` and `da` the shared arguments (set_advection; PositiveWENO5's bounds
+// in `da`); bit a of `walls` writes G of velocity a at its wall face on
+// bounded axis a; `zs` (a stretched z, else null) are the z rows of
+// ops/metric_rows.py, with the WENO5 family's to-faces and to-centres
+// tables where `tables`; `clear` (an immersed grid, else null) a host array
+// of the four clear-flag tensors' device pointers (u, v, w in the kernel's
+// order, then the tracers'; a null entry: that field reads none).
 int fused_advective_tendencies_f32(const void* const* psi, void* const* out,
                                    const int* ia, const double* da, int walls,
                                    const void* zs, int tables, const void* const* clear,
-                                   const double* bounds, void* stream) {
-  return launch<float>(psi, out, ia, da, walls, zs, tables, clear, bounds, stream);
+                                   void* stream) {
+  return launch<float>(psi, out, ia, da, walls, zs, tables, clear, stream);
 }
 
 int fused_advective_tendencies_f64(const void* const* psi, void* const* out,
                                    const int* ia, const double* da, int walls,
                                    const void* zs, int tables, const void* const* clear,
-                                   const double* bounds, void* stream) {
-  return launch<double>(psi, out, ia, da, walls, zs, tables, clear, bounds, stream);
+                                   void* stream) {
+  return launch<double>(psi, out, ia, da, walls, zs, tables, clear, stream);
 }
 
 }  // extern "C"

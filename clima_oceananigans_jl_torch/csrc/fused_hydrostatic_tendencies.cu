@@ -84,11 +84,19 @@
 //      the halo columns next to their tile: every halo point once, in the
 //      same launch.
 // The kernel is a template on the momentum scheme, the Coriolis form, the
-// z tables, the advance (-1: read at run time) and XTRA (the closure, the
-// clear flags and the y tables read at run time, or none of them); the 1/4
-// degree flagship has its own instantiations with no dead branches, every
-// other configuration takes the run-time one. __launch_bounds__(512, 1)
-// keeps a thread at 128 registers or fewer, so 16 warps fit on an SM.
+// z tables, the advance (-1: read at run time), XTRA (the closure, the
+// clear flags and the y tables read at run time, or none of them) and ANY;
+// the 1/4 degree flagship has its own instantiations with no dead branches,
+// every other configuration takes the run-time one. The flagship's and the
+// run-time one take WENO5 or the centred scheme (flux-form momentum,
+// tracers); a configuration with another of the eight schemes takes the
+// run-time ANY instantiation: each scheme by its code with its own
+// near-wall bounds (weno5_advection.cuh's transport_any: PositiveWENO5's
+// to-faces transports limited, with the y and z tables on stretched axes,
+// each face its own row; UB1, UB3, UB5 and C4 their uniform stencils even
+// there, as JAX's transport takes tables only for the WENO5 family).
+// __launch_bounds__(512, 1) keeps a thread at 128 registers or fewer, so
+// 16 warps fit on an SM.
 #include <cuda_runtime.h>
 
 #include "tiles.cuh"
@@ -122,12 +130,23 @@ struct HydroArgs {
   T* out_psi[MAX_FIELDS];     // with-halo psi' (advance)
   T kh[MAX_FIELDS], kv[MAX_FIELDS];  // the closure's horizontal and vertical coefficient by field
   int nf, nx, ny, nz, hx, hy, hz;
-  int mom, mom_weno, tr, cor, tables, ytables, closure, advance;
-  int xm, ym, zm;             // near-wall order reduction on that axis
+  // momentum form (VI_*, FLUX_FORM, NO_MOMENTUM), the flux form's scheme
+  // and the tracers' (SCHEME_*, -1: no tracer advection)
+  int mom, sm, tr, cor, tables, ytables, closure, advance;
+  // near-wall order reduction on that axis: the flux-form momentum
+  // scheme's or, in the first-code forms where it reduces nowhere, the
+  // tracers' (one set serves both there: WENO5's)
+  int xm, ym, zm;
   Bounds xb, yb, zb;
   T eps_m, eps_t, c1, c2, dt;
   int kz, nty;                // levels per chunk, tiles along y
   FastDiv kzd, kz1d, h2d;     // division by kz, kz + 1 and 2 hz
+  // ANY: the tracer scheme's near-wall reduction, and PositiveWENO5's
+  // bounds, momentum / tracers (last, so that the first-code forms read
+  // every other field where they did before these came)
+  int xm_t, ym_t, zm_t;
+  Bounds xb_t, yb_t, zb_t;
+  T lo_m, hi_m, lo_t, hi_t;
 };
 
 // the tile and its shared-memory boxes, all with z (levels) fastest
@@ -375,7 +394,13 @@ struct Tabs {
   bool zon, yon;
 };
 
-template <typename T>
+// The ANY instantiation's transports are weno5_advection.cuh's transport_any
+// (every scheme by its code, PositiveWENO5's to-faces transports limited);
+// the first-code forms call transport_tables with WENO5 or centred, in the
+// expressions they had before the other schemes came, so that they compile
+// as they did.
+
+template <bool ANY, typename T>
 __device__ T div_vu(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64_t gsx,
                     int64_t gsy) {
   const HydroArgs<T>& A = *P.A;
@@ -383,32 +408,49 @@ __device__ T div_vu(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64
   const T* v = P.v;
   const T* w = P.w;
   const int o = P.o, sx = P.sx, sy = P.sy, I = P.I, J = P.J, K = P.K;
-  const bool we = A.mom_weno != 0;
+  const bool we = A.sm != 0;
   const T eps = A.eps_m, half = T(0.5);
   const T dz = P.zr(Z_DZ_C)[K];
   const T Ax = P.yr(DY_C)[J] * dz;
   const int64_t g = I * gsx + J * gsy + K;
   // x fluxes at centres I-1, I (to centres: the stream of face q+1)
   auto fx = [&](int q, int i) {
-    return Ax * transport_tables(u, q + sx, sx, half * (u[q + sx] + u[q]), we, eps, we && A.xm,
-                             A.xb, i, false, tb.z, clear_at(clr, g + (i - I) * gsx, 0));
+    if constexpr (ANY)
+      return Ax * transport_any<true>(u, q + sx, sx, half * (u[q + sx] + u[q]), A.sm, eps,
+                                      A.xm != 0, A.xb, i, false, tb.z, false, clr,
+                                      g + (i - I) * gsx, gsx, 1, A.lo_m, A.hi_m);
+    else
+      return Ax * transport_tables(u, q + sx, sx, half * (u[q + sx] + u[q]), we, eps,
+                                   we && A.xm, A.xb, i, false, tb.z,
+                                   clear_at(clr, g + (i - I) * gsx, 0));
   };
   auto fy = [&](int q, int j) {
-    return (P.yr(DX_FF)[j] * dz) * transport_tables(u, q, sy, half * (v[q] + v[q - sx]), we, eps,
-                                                we && A.ym, A.yb, j, we && tb.yon, tb.yf,
-                                                clear_at(clr, g + (j - J) * gsy, 1));
+    if constexpr (ANY)
+      return (P.yr(DX_FF)[j] * dz)
+             * transport_any<true>(u, q, sy, half * (v[q] + v[q - sx]), A.sm, eps, A.ym != 0,
+                                   A.yb, j, tb.yon, tb.yf, true, clr, g + (j - J) * gsy, gsy,
+                                   2, A.lo_m, A.hi_m);
+    else
+      return (P.yr(DX_FF)[j] * dz) * transport_tables(u, q, sy, half * (v[q] + v[q - sx]), we,
+                                                      eps, we && A.ym, A.yb, j, we && tb.yon,
+                                                      tb.yf, clear_at(clr, g + (j - J) * gsy, 1));
   };
   const T az = P.yr(AZ_FC)[J];
   auto fz = [&](int q, int qw, int k) {
-    return az * transport_tables(u, q, 1, half * (w[qw] + w[qw - P.wsx]), we, eps,
-                             we && A.zm != 0, A.zb, k, we && tb.zon, tb.z,
-                             clear_at(clr, g + (k - K), 2));
+    if constexpr (ANY)
+      return az * transport_any<true>(u, q, 1, half * (w[qw] + w[qw - P.wsx]), A.sm, eps,
+                                      A.zm != 0, A.zb, k, tb.zon, tb.z, true, clr, g + (k - K),
+                                      1, 4, A.lo_m, A.hi_m);
+    else
+      return az * transport_tables(u, q, 1, half * (w[qw] + w[qw - P.wsx]), we, eps,
+                                   we && A.zm != 0, A.zb, k, we && tb.zon, tb.z,
+                                   clear_at(clr, g + (k - K), 2));
   };
   return ieee_div((fx(o, I) - fx(o - sx, I - 1)) + (fy(o + sy, J + 1) - fy(o, J))
                   + (fz(o + 1, P.ow + 1, K + 1) - fz(o, P.ow, K)), az * dz);
 }
 
-template <typename T>
+template <bool ANY, typename T>
 __device__ T div_vv(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64_t gsx,
                     int64_t gsy) {
   const HydroArgs<T>& A = *P.A;
@@ -416,26 +458,43 @@ __device__ T div_vv(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64
   const T* v = P.v;
   const T* w = P.w;
   const int o = P.o, sx = P.sx, sy = P.sy, I = P.I, J = P.J, K = P.K;
-  const bool we = A.mom_weno != 0;
+  const bool we = A.sm != 0;
   const T eps = A.eps_m, half = T(0.5);
   const T dz = P.zr(Z_DZ_C)[K];
   const T Ax = P.yr(DY_F)[J] * dz;
   const int64_t g = I * gsx + J * gsy + K;
   auto fx = [&](int q, int i) {
-    return Ax * transport_tables(v, q, sx, half * (u[q] + u[q - sy]), we, eps, we && A.xm, A.xb,
-                             i, false, tb.z, clear_at(clr, g + (i - I) * gsx, 0));
+    if constexpr (ANY)
+      return Ax * transport_any<true>(v, q, sx, half * (u[q] + u[q - sy]), A.sm, eps,
+                                      A.xm != 0, A.xb, i, false, tb.z, true, clr,
+                                      g + (i - I) * gsx, gsx, 1, A.lo_m, A.hi_m);
+    else
+      return Ax * transport_tables(v, q, sx, half * (u[q] + u[q - sy]), we, eps, we && A.xm,
+                                   A.xb, i, false, tb.z, clear_at(clr, g + (i - I) * gsx, 0));
   };
   // y fluxes at centres J-1, J (to centres)
   auto fy = [&](int q, int j) {
-    return (P.yr(DX_CC)[j] * dz) * transport_tables(v, q + sy, sy, half * (v[q + sy] + v[q]), we,
-                                                eps, we && A.ym, A.yb, j, we && tb.yon, tb.yc,
-                                                clear_at(clr, g + (j - J) * gsy, 1));
+    if constexpr (ANY)
+      return (P.yr(DX_CC)[j] * dz)
+             * transport_any<true>(v, q + sy, sy, half * (v[q + sy] + v[q]), A.sm, eps,
+                                   A.ym != 0, A.yb, j, tb.yon, tb.yc, false, clr,
+                                   g + (j - J) * gsy, gsy, 2, A.lo_m, A.hi_m);
+    else
+      return (P.yr(DX_CC)[j] * dz) * transport_tables(v, q + sy, sy, half * (v[q + sy] + v[q]),
+                                                      we, eps, we && A.ym, A.yb, j,
+                                                      we && tb.yon, tb.yc,
+                                                      clear_at(clr, g + (j - J) * gsy, 1));
   };
   const T az = P.yr(AZ_CF)[J];
   auto fz = [&](int q, int qw, int k) {
-    return az * transport_tables(v, q, 1, half * (w[qw] + w[qw - P.wsy]), we, eps,
-                             we && A.zm != 0, A.zb, k, we && tb.zon, tb.z,
-                             clear_at(clr, g + (k - K), 2));
+    if constexpr (ANY)
+      return az * transport_any<true>(v, q, 1, half * (w[qw] + w[qw - P.wsy]), A.sm, eps,
+                                      A.zm != 0, A.zb, k, tb.zon, tb.z, true, clr, g + (k - K),
+                                      1, 4, A.lo_m, A.hi_m);
+    else
+      return az * transport_tables(v, q, 1, half * (w[qw] + w[qw - P.wsy]), we, eps,
+                                   we && A.zm != 0, A.zb, k, we && tb.zon, tb.z,
+                                   clear_at(clr, g + (k - K), 2));
   };
   return ieee_div((fx(o + sx, I + 1) - fx(o, I)) + (fy(o, J) - fy(o - sy, J - 1))
                   + (fz(o + 1, P.ow + 1, K + 1) - fz(o, P.ow, K)), az * dz);
@@ -504,7 +563,7 @@ __device__ __forceinline__ void store_zero(const HydroArgs<T>& A, int64_t p) {
   }
 }
 
-template <typename T, int MOM, int COR, int TABLES_ON, int ADV, int XTRA>
+template <typename T, int MOM, int COR, int TABLES_ON, int ADV, int XTRA, bool ANY>
 __global__ void __launch_bounds__(HT_THREADS, 1)
 fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -652,7 +711,7 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
     const int64_t p = I * gsx + J * gsy + K;
     // u
     T g = T(0);
-    if (mom == FLUX_FORM) g = -div_vu(P, tb, clr_u, gsx, gsy);
+    if (mom == FLUX_FORM) g = -div_vu<ANY>(P, tb, clr_u, gsx, gsy);
     else if (mom != NO_MOMENTUM) g = -vi_u(P, M, mom);
     if (cor != NO_CORIOLIS) g = g - f_cross_x(P, cor);
     if (A.ph != nullptr) g = g - ieee_div(A.ph[p] - A.ph[p - gsx], P.yr(DX_FC)[J]);
@@ -662,7 +721,7 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
     store<T, ADV>(A, 0, p, su[P.o], g);
     // v
     g = T(0);
-    if (mom == FLUX_FORM) g = -div_vv(P, tb, clr_v, gsx, gsy);
+    if (mom == FLUX_FORM) g = -div_vv<ANY>(P, tb, clr_v, gsx, gsy);
     else if (mom != NO_MOMENTUM) g = -vi_v(P, M, mom);
     if (cor != NO_CORIOLIS) g = g - f_cross_y(P, cor);
     if (A.ph != nullptr) g = g - ieee_div(A.ph[p] - A.ph[p - gsy], P.yr(DY_F)[J]);
@@ -687,6 +746,10 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
       }
     return;
   }
+  // the tracer scheme: the first-code forms WENO5 (we) or centred, WENO5's
+  // near-wall bounds in the one set; ANY its code and its own bounds (the
+  // first-code forms' expressions below are those they had before ANY came,
+  // so that they compile as they did)
   const bool we = A.tr == 1;
   const T eps = A.eps_t;
   const bool xmask = we && A.xm, ymask = we && A.ym;
@@ -711,25 +774,43 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
         const int i = I0 + c / HT_Y, j = J0 + c % HT_Y;
         if (i > I1 || j >= J1 || k >= K1) continue;
         const int q = at(i, j, k);
-        FX[t] = (A.ys[DY_C * Y + j] * A.zs[Z_DZ_C * Z + k])
-                * transport_tables(sc, q, sx, su[q], we, eps, xmask, A.xb, i, false, tb.z,
-                               clear_at(clr_c, i * gsx + j * gsy + k, 0));
+        if constexpr (ANY)
+          FX[t] = (A.ys[DY_C * Y + j] * A.zs[Z_DZ_C * Z + k])
+                  * transport_any<true>(sc, q, sx, su[q], A.tr, eps, A.xm_t != 0, A.xb_t, i,
+                                        false, tb.z, true, clr_c, i * gsx + j * gsy + k, gsx,
+                                        1, A.lo_t, A.hi_t);
+        else
+          FX[t] = (A.ys[DY_C * Y + j] * A.zs[Z_DZ_C * Z + k])
+                  * transport_tables(sc, q, sx, su[q], we, eps, xmask, A.xb, i, false, tb.z,
+                                     clear_at(clr_c, i * gsx + j * gsy + k, 0));
       } else if (t < nfx + nfy) {  // t - nfx is fyi(i, j, k)
         const int s = t - nfx, c = A.kzd.div(s), k = K0 + (s - c * kz);
         const int i = I0 + c / (HT_Y + 1), j = J0 + c % (HT_Y + 1);
         if (i >= I1 || j > J1 || k >= K1) continue;
         const int q = at(i, j, k);
-        FY[s] = (A.ys[DX_CF * Y + j] * A.zs[Z_DZ_C * Z + k])
-                * transport_tables(sc, q, sy, sv[q], we, eps, ymask, A.yb, j, we && tb.yon, tb.yf,
-                               clear_at(clr_c, i * gsx + j * gsy + k, 1));
+        if constexpr (ANY)
+          FY[s] = (A.ys[DX_CF * Y + j] * A.zs[Z_DZ_C * Z + k])
+                  * transport_any<true>(sc, q, sy, sv[q], A.tr, eps, A.ym_t != 0, A.yb_t, j,
+                                        tb.yon, tb.yf, true, clr_c, i * gsx + j * gsy + k, gsy,
+                                        2, A.lo_t, A.hi_t);
+        else
+          FY[s] = (A.ys[DX_CF * Y + j] * A.zs[Z_DZ_C * Z + k])
+                  * transport_tables(sc, q, sy, sv[q], we, eps, ymask, A.yb, j, we && tb.yon,
+                                     tb.yf, clear_at(clr_c, i * gsx + j * gsy + k, 1));
       } else {  // t - nfx - nfy is fzi(i, j, k)
         const int s = t - nfx - nfy, c = A.kz1d.div(s), k = K0 + (s - c * (kz + 1));
         const int i = I0 + c / HT_Y, j = J0 + c % HT_Y;
         if (i >= I1 || j >= J1 || k > K1) continue;
-        FZ[s] = A.ys[AZ_CC * Y + j]
-                * transport_tables(sc, at(i, j, k), 1, sw[wat(i, j, k)], we, eps,
-                               we && A.zm != 0, A.zb, k, we && tables, tb.z,
-                               clear_at(clr_c, i * gsx + j * gsy + k, 2));
+        if constexpr (ANY)
+          FZ[s] = A.ys[AZ_CC * Y + j]
+                  * transport_any<true>(sc, at(i, j, k), 1, sw[wat(i, j, k)], A.tr, eps,
+                                        A.zm_t != 0, A.zb_t, k, tables, tb.z, true, clr_c,
+                                        i * gsx + j * gsy + k, 1, 4, A.lo_t, A.hi_t);
+        else
+          FZ[s] = A.ys[AZ_CC * Y + j]
+                  * transport_tables(sc, at(i, j, k), 1, sw[wat(i, j, k)], we, eps,
+                                     we && A.zm != 0, A.zb, k, we && tables, tb.z,
+                                     clear_at(clr_c, i * gsx + j * gsy + k, 2));
       }
     }
     __syncthreads();
@@ -750,9 +831,9 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
   }
 }
 
-template <typename T, int MOM, int COR, int TABLES_ON, int ADV, int XTRA>
+template <typename T, int MOM, int COR, int TABLES_ON, int ADV, int XTRA, bool ANY = false>
 static int run(const HydroArgs<T>& A, dim3 blocks, int smem, cudaStream_t stream) {
-  auto kernel = fused_hydrostatic_tendencies_kernel<T, MOM, COR, TABLES_ON, ADV, XTRA>;
+  auto kernel = fused_hydrostatic_tendencies_kernel<T, MOM, COR, TABLES_ON, ADV, XTRA, ANY>;
   if (smem > 48 * 1024) {
     const int rc = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -771,9 +852,10 @@ static int launch(const void* const* psi, const void* w, const void* ph,
                   const void* clr_u, const void* clr_v, const void* const* gp,
                   void* const* out_g, void* const* out_psi, const double* kh,
                   const double* kv, int nf, int nx, int ny, int nz, int hx, int hy,
-                  int hz, int mom, int mom_weno, int tr, int cor, int tables,
+                  int hz, int mom, int sm, int tr, int cor, int tables,
                   int ytables, int closure, int advance, const int* b, double eps_m,
-                  double eps_t, double c1, double c2, double dt, void* stream) {
+                  double eps_t, double c1, double c2, double dt, const int* bt,
+                  const double* pw, void* stream) {
   if (nf < 2 || nf > MAX_FIELDS) return (int)cudaErrorInvalidValue;
   if (advance && (gp == nullptr || out_psi == nullptr)) return (int)cudaErrorInvalidValue;
   if (ytables && yt == nullptr) return (int)cudaErrorInvalidValue;
@@ -798,11 +880,22 @@ static int launch(const void* const* psi, const void* w, const void* ph,
   A.ys = static_cast<const T*>(ys);
   A.zs = static_cast<const T*>(zs);
   A.nf = nf; A.nx = nx; A.ny = ny; A.nz = nz; A.hx = hx; A.hy = hy; A.hz = hz;
-  A.mom = mom; A.mom_weno = mom_weno; A.tr = tr; A.cor = cor;
+  A.mom = mom; A.sm = sm; A.tr = tr; A.cor = cor;
   A.tables = tables; A.advance = advance;
-  A.xm = b[0]; A.xb = Bounds{b[1], b[2], b[3], b[4]};
-  A.ym = b[5]; A.yb = Bounds{b[6], b[7], b[8], b[9]};
-  A.zm = b[10]; A.zb = Bounds{b[11], b[12], b[13], b[14]};
+  // ANY: a flux-form momentum scheme or a tracer scheme beyond WENO5 and
+  // centred (the first-code forms take those two alone)
+  const bool any = (mom == FLUX_FORM && sm != SCHEME_CENTRED && sm != SCHEME_WENO5)
+                   || (tr >= 0 && tr != SCHEME_CENTRED && tr != SCHEME_WENO5);
+  // the first-code forms read one set of near-wall bounds, WENO5's: the
+  // tracers' where the momentum scheme is not a flux-form WENO5
+  const int* m = any || (mom == FLUX_FORM && sm == SCHEME_WENO5) ? b : bt;
+  A.xm = m[0]; A.xb = Bounds{m[1], m[2], m[3], m[4]};
+  A.ym = m[5]; A.yb = Bounds{m[6], m[7], m[8], m[9]};
+  A.zm = m[10]; A.zb = Bounds{m[11], m[12], m[13], m[14]};
+  A.xm_t = bt[0]; A.xb_t = Bounds{bt[1], bt[2], bt[3], bt[4]};
+  A.ym_t = bt[5]; A.yb_t = Bounds{bt[6], bt[7], bt[8], bt[9]};
+  A.zm_t = bt[10]; A.zb_t = Bounds{bt[11], bt[12], bt[13], bt[14]};
+  A.lo_m = T(pw[0]); A.hi_m = T(pw[1]); A.lo_t = T(pw[2]); A.hi_t = T(pw[3]);
   A.eps_m = T(eps_m); A.eps_t = T(eps_t);
   A.c1 = T(c1); A.c2 = T(c2); A.dt = T(dt);
   if (nx <= 0 || ny <= 0 || nz <= 0) return 0;
@@ -823,7 +916,7 @@ static int launch(const void* const* psi, const void* w, const void* ph,
   // made the flagship's forms 5-8% slower on an H100 (chip_breakdown.py
   // hydrostatic, hydrostatic-wind)
   const bool xtra = closure != NO_CLOSURE || ytables || clr_c || clr_u || clr_v;
-  if (mom == VI_WENO_VELOCITY && cor == SPHERICAL_ENERGY && tables) {
+  if (!any && mom == VI_WENO_VELOCITY && cor == SPHERICAL_ENERGY && tables) {
     if (xtra) {
       if (advance) return run<T, VI_WENO_VELOCITY, SPHERICAL_ENERGY, 1, 1, 1>(A, blocks, smem, st);
       return run<T, VI_WENO_VELOCITY, SPHERICAL_ENERGY, 1, 0, 1>(A, blocks, smem, st);
@@ -831,6 +924,7 @@ static int launch(const void* const* psi, const void* w, const void* ph,
     if (advance) return run<T, VI_WENO_VELOCITY, SPHERICAL_ENERGY, 1, 1, 0>(A, blocks, smem, st);
     return run<T, VI_WENO_VELOCITY, SPHERICAL_ENERGY, 1, 0, 0>(A, blocks, smem, st);
   }
+  if (any) return run<T, -1, -1, -1, -1, 1, true>(A, blocks, smem, st);
   return run<T, -1, -1, -1, -1, 1>(A, blocks, smem, st);
 }
 
@@ -840,25 +934,30 @@ extern "C" {
 // are host arrays of nf device pointers; `ph`, `yt` (unless `ytables`) and
 // the clear flags `clr_c`, `clr_u`, `clr_v` may be null, `gp` and
 // `out_psi` are null unless `advance`; kh and kv are host arrays of
-// MAX_FIELDS coefficients (read with `closure` 1 or 2). The 15 bound ints
-// are, for x, y and z: masked, lo_l, hi_l, lo_r, hi_r.
+// MAX_FIELDS coefficients (read with `closure` 1 or 2). `mom` is the
+// momentum form, `sm` the flux form's scheme and `tr` the tracers'
+// (SCHEME_*; -1 none). The 15 bound ints are the flux-form momentum
+// scheme's near-wall reduction, for x, y and z: masked, lo_l, hi_l, lo_r,
+// hi_r; `bt` a host array of the tracer scheme's 15, `pw` one of
+// PositiveWENO5's (lo, hi) of the momentum and of the tracer scheme.
 #define FUSED_HYDROSTATIC_TENDENCIES(NAME, T)                                  \
   int NAME(const void* const* psi, const void* w, const void* ph,              \
            const void* ys, const void* zs, const void* yt, const void* clr_c,  \
            const void* clr_u, const void* clr_v, const void* const* gp,        \
            void* const* out_g, void* const* out_psi, const double* kh,         \
            const double* kv, int nf, int nx, int ny, int nz, int hx, int hy,   \
-           int hz, int mom, int mom_weno, int tr, int cor, int tables,         \
+           int hz, int mom, int sm, int tr, int cor, int tables,               \
            int ytables, int closure, int advance, int b0, int b1, int b2,      \
            int b3, int b4, int b5, int b6, int b7, int b8, int b9, int b10,    \
            int b11, int b12, int b13, int b14, double eps_m, double eps_t,     \
-           double c1, double c2, double dt, void* stream) {                    \
+           double c1, double c2, double dt, const int* bt, const double* pw,   \
+           void* stream) {                                                     \
     const int b[15] = {b0, b1, b2, b3, b4, b5, b6, b7,                         \
                        b8, b9, b10, b11, b12, b13, b14};                       \
     return launch<T>(psi, w, ph, ys, zs, yt, clr_c, clr_u, clr_v, gp, out_g,   \
-                     out_psi, kh, kv, nf, nx, ny, nz, hx, hy, hz, mom,         \
-                     mom_weno, tr, cor, tables, ytables, closure, advance, b,  \
-                     eps_m, eps_t, c1, c2, dt, stream);                        \
+                     out_psi, kh, kv, nf, nx, ny, nz, hx, hy, hz, mom, sm, tr, \
+                     cor, tables, ytables, closure, advance, b, eps_m, eps_t,  \
+                     c1, c2, dt, bt, pw, stream);                              \
   }
 
 FUSED_HYDROSTATIC_TENDENCIES(fused_hydrostatic_tendencies_f32, float)

@@ -14,7 +14,9 @@
 //   Gc  = -(dxc(Ax T(u; c)) + dyc(Ay T(v; c)))/V + c div(u, v),
 //         u = uh/ixf(h), v = vh/iyf(h)
 // with T the transport of weno5_advection.cuh (transport_axis: any of the
-// JAX package's seven schemes, momentum and tracers each their own) and the
+// JAX package's eight schemes, momentum and tracers each their own;
+// PositiveWENO5's to-faces transports, those of uh along y, vh along x and
+// the tracers, limited by transport_any's Zhang-Shu limiter) and the
 // scheme's near-wall order reduction on a bounded x or y axis, one set of
 // bounds for each scheme (each face knows its absolute index, so both axes
 // take the bounds, where the TPU's tiled windows could carry them only
@@ -66,6 +68,7 @@ struct ShallowWaterArgs {
   Bounds mb[2][2];
   T eps_m, eps_t, dx, dy;
   T g, half_g;               // g and 0.5*g, each rounded once to T
+  T lo_m, hi_m, lo_t, hi_t;  // PositiveWENO5's bounds, momentum / tracers (ANY)
 };
 
 constexpr int SW_TX = 16, SW_TY = 64, SW_THREADS = 256, SW_R = 3;
@@ -159,6 +162,16 @@ fused_shallow_water_tendencies_kernel(const __grid_constant__ ShallowWaterArgs<T
     return half * (half * (sh[f] + sh[f - 1]) + half * (sh[f - sx] + sh[f - sx - 1]));
   };
   auto pressure = [&](int c) { return (A.half_g * sh[c]) * sh[c]; };
+  // transport() of scheme sch at shared offset o (to faces: `to_f`); ANY
+  // also takes PositiveWENO5's limiter with the bounds (lo, hi)
+  auto trans = [&](const T* c, int o, int s, T vel, int sch, T eps, bool m, const Bounds& b,
+                   int q, bool to_f, T lo, T hi) {
+    if constexpr (ANY)
+      return transport_any<ANY>(c, (int64_t)o, (int64_t)s, vel, sch, eps, m, b, q, false,
+                                ZRows<T>{}, to_f, nullptr, 0, 0, 0, lo, hi);
+    else
+      return transport_axis<ANY>(c, (int64_t)o, (int64_t)s, vel, sch, eps, m, b, q);
+  };
 
   // each face flux of the tile, once: the x-face arrays, then the y-face
   // arrays, in one loop so that the block's threads stay evenly loaded
@@ -170,13 +183,13 @@ fused_shallow_water_tendencies_kernel(const __grid_constant__ ShallowWaterArgs<T
       if (i < I1) {
         const int c = at(i, j);
         const T vel = half * (suh[c + sx] + suh[c]);
-        HUU[t] = ieee_div(Ax * transport_axis<ANY>(suh, (int64_t)(c + sx), (int64_t)sx, vel,
-                                              sm_, A.eps_m, xm, A.mb[0][0], i), sh[c]);
+        HUU[t] = ieee_div(Ax * trans(suh, c + sx, sx, vel, sm_, A.eps_m, xm, A.mb[0][0], i,
+                                     false, A.lo_m, A.hi_m), sh[c]);
       }
       const int f = at(i + 1, j);  // huv at x face i+1: the x flux of vh over h_ff
       const T vel = half * (suh[f] + suh[f - 1]);
-      HUV[t] = ieee_div(Ax * transport_axis<ANY>(svh, (int64_t)f, (int64_t)sx, vel, sm_,
-                                            A.eps_m, xm, A.mb[0][0], i + 1), h_ff(f));
+      HUV[t] = ieee_div(Ax * trans(svh, f, sx, vel, sm_, A.eps_m, xm, A.mb[0][0], i + 1,
+                                   true, A.lo_m, A.hi_m), h_ff(f));
     } else {
       const int t = u - SW_XF, i = I0 + t / (SW_TY + 1), b = t % (SW_TY + 1);
       if (i >= I1) continue;
@@ -184,14 +197,14 @@ fused_shallow_water_tendencies_kernel(const __grid_constant__ ShallowWaterArgs<T
       if (j <= J1) {
         const int f = at(i, j);
         const T vel = half * (svh[f] + svh[f - sx]);
-        HVU[t] = ieee_div(Ay * transport_axis<ANY>(suh, (int64_t)f, (int64_t)1, vel, sm_,
-                                              A.eps_m, ym, A.mb[0][1], j), h_ff(f));
+        HVU[t] = ieee_div(Ay * trans(suh, f, 1, vel, sm_, A.eps_m, ym, A.mb[0][1], j, true,
+                                     A.lo_m, A.hi_m), h_ff(f));
       }
       if (j - 1 < J1) {  // hvv at centre j-1: the to-centres y flux of vh over h
         const int c = at(i, j - 1);
         const T vel = half * (svh[c + 1] + svh[c]);
-        HVV[t] = ieee_div(Ay * transport_axis<ANY>(svh, (int64_t)(c + 1), (int64_t)1, vel,
-                                              sm_, A.eps_m, ym, A.mb[0][1], j - 1), sh[c]);
+        HVV[t] = ieee_div(Ay * trans(svh, c + 1, 1, vel, sm_, A.eps_m, ym, A.mb[0][1], j - 1,
+                                     false, A.lo_m, A.hi_m), sh[c]);
       }
     }
   }
@@ -257,14 +270,14 @@ fused_shallow_water_tendencies_kernel(const __grid_constant__ ShallowWaterArgs<T
     for (int t = tid; t < SW_XF; t += SW_THREADS) {
       const int i = I0 + t / SW_TY, j = J0 + t % SW_TY;
       if (i > I1 || j >= J1) continue;
-      FX[t] = Ax * transport_axis<ANY>(sc, (int64_t)at(i, j), (int64_t)sx, UF[t], st_, A.eps_t,
-                                  xt, A.mb[1][0], i);
+      FX[t] = Ax * trans(sc, at(i, j), sx, UF[t], st_, A.eps_t, xt, A.mb[1][0], i, true,
+                         A.lo_t, A.hi_t);
     }
     for (int t = tid; t < SW_YF; t += SW_THREADS) {
       const int i = I0 + t / (SW_TY + 1), j = J0 + t % (SW_TY + 1);
       if (i >= I1 || j > J1) continue;
-      FY[t] = Ay * transport_axis<ANY>(sc, (int64_t)at(i, j), (int64_t)1, VF[t], st_, A.eps_t,
-                                  yt, A.mb[1][1], j);
+      FY[t] = Ay * trans(sc, at(i, j), 1, VF[t], st_, A.eps_t, yt, A.mb[1][1], j, true,
+                         A.lo_t, A.hi_t);
     }
     __syncthreads();
     for (int t = tid; t < SW_TX * SW_TY; t += SW_THREADS) {
@@ -281,7 +294,8 @@ fused_shallow_water_tendencies_kernel(const __grid_constant__ ShallowWaterArgs<T
 // `ia` (27 ints): nf, nx, ny, hx, hy, the two scheme codes, then for the
 // momentum scheme and then the tracer scheme, for x and then y, (masked,
 // lo_l, hi_l, lo_r, hi_r) (ops/fused_tendencies.py::shallow_water_args);
-// `da`: eps_m, eps_t, dx, dy, g.
+// `da`: eps_m, eps_t, dx, dy, g, PositiveWENO5's (lo, hi) of the momentum
+// and of the tracer scheme.
 template <typename T>
 static int launch(const void* const* psi, const void* hB, void* const* out, const int* ia,
                   const double* da, void* stream) {
@@ -305,6 +319,8 @@ static int launch(const void* const* psi, const void* hB, void* const* out, cons
   A.eps_m = T(da[0]); A.eps_t = T(da[1]);
   A.dx = T(da[2]); A.dy = T(da[3]);
   A.g = T(da[4]); A.half_g = T(0.5 * da[4]);
+  A.lo_m = T(da[5]); A.hi_m = T(da[6]);
+  A.lo_t = T(da[7]); A.hi_t = T(da[8]);
   if (nx <= 0 || ny <= 0) return 0;
   const dim3 blocks((ny + SW_TY - 1) / SW_TY, (nx + SW_TX - 1) / SW_TX);
   const int smem = shallow_water_smem_elems(nf) * (int)sizeof(T);

@@ -78,8 +78,7 @@ from __future__ import annotations
 
 import torch
 
-from ..advection.schemes import (BoundsPreservingWENO5, CenteredSecondOrder,
-                                 PositiveWENO5, WENO5)
+from ..advection.schemes import CenteredSecondOrder
 from ..advection.vector_invariant import VectorInvariant
 from ..boundary_conditions.bcs import (FluxBC, OpenBC, apply_flux_bcs,
                                        apply_immersed_flux_bcs, regularize_bcs)
@@ -104,6 +103,7 @@ from ..ops.fused_hydrostatic import (fused_hydrostatic_tendencies,
                                      kernel_closure,
                                      supports_fused_hydro_advance)
 from ..ops.fused_hydrostatic import unsupported_reason as kernel_unsupported_reason
+from ..ops.fused_tendencies import BF16_REASON, KERNEL_SCHEMES, bf16_options
 from ..solvers.tridiagonal import (solve_batched_tridiagonal,
                                    solve_batched_tridiagonal_reference)
 from ..timesteppers.steppers import (Clock, ab2_coefficients, ab2_substep,
@@ -148,15 +148,14 @@ def _unsupported_reason(model, particles, immersed_boundary):
     elif not isinstance(fs, (ExplicitFreeSurface, SplitExplicitFreeSurface)):
         return f"free surface {type(fs).__name__} is not ported"
     sch, ts = model.momentum_advection, model.tracer_advection
-    if sch is not None and (not isinstance(sch, (VectorInvariant, WENO5,
-                                                 CenteredSecondOrder))
-                            or isinstance(sch, (PositiveWENO5, BoundsPreservingWENO5))):
-        return (f"{type(sch).__name__} momentum advection is not ported yet "
-                "(ROADMAP Queue 1 item 2)")
-    if ts is not None and (not isinstance(ts, (WENO5, CenteredSecondOrder))
-                           or isinstance(ts, (PositiveWENO5, BoundsPreservingWENO5))):
-        return (f"{type(ts).__name__} tracer advection is not ported yet "
-                "(ROADMAP Queue 1 item 2)")
+    if sch is not None and type(sch) not in (VectorInvariant, *KERNEL_SCHEMES):
+        return (f"{type(sch).__name__} momentum advection is not ported (the "
+                "vector-invariant form and the JAX package's eight schemes are)")
+    if ts is not None and type(ts) not in KERNEL_SCHEMES:
+        return (f"{type(ts).__name__} tracer advection is not ported (the JAX "
+                "package's eight schemes are)")
+    if model.grid.device.type == "cuda" and any(bf16_options(s) for s in (sch, ts)):
+        return BF16_REASON
     cor = model.coriolis
     if cor is not None and not isinstance(
             cor, (FPlane, BetaPlane, HydrostaticSphericalCoriolis)):

@@ -53,11 +53,13 @@ K2 reads its clear flags (the conditional fluxes), ``update_state`` masks
 the fields in the solid, ``tendencies`` adds the immersed bottom's fluxes
 and masks the tendencies, and the step takes the general AB2 branch and
 the general projection (the parent grid's solve of the masked
-velocities' divergence), as in the JAX package. ``PositiveWENO5`` is a
-tracer scheme (K2's limiter; K1 has none, so it keeps AB2 on the general
-branch). A configuration the port cannot run (other Coriolis, advection
-schemes or closures, ``PartialCellBottom``, particles, stretched x or y,
-...) raises ``NotImplementedError`` at construction. The kernels' wrappers
+velocities' divergence), as in the JAX package. Every one of the JAX
+package's eight advection schemes runs for momentum and tracers, in K1 and
+K2 alike (``PositiveWENO5``'s limiter included), and the scheme does not
+choose the AB2 branch, as in the JAX package. A configuration the port
+cannot run (other Coriolis or closures, ``PartialCellBottom``, particles,
+stretched x or y, WENO5's bf16 options on the card, ...) raises
+``NotImplementedError`` at construction. The kernels' wrappers
 come from ``KERNELS``; the JAX keyword ``fused_advection=False`` swaps in
 ``PLAIN`` and takes the general AB2 branch, as its JAX meaning has it.
 Background fields take that branch too, as in the JAX package, with their

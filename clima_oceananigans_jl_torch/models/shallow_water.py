@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from ..advection.schemes import PositiveWENO5, WENO5, transport
+from ..advection.schemes import WENO5, transport
 from ..boundary_conditions.bcs import apply_flux_bcs, fill_halos, regularize_bcs
 from ..closures.scalar_diffusivity import (cell_diffusion_timescale,
                                            momentum_diffusion,
@@ -34,7 +34,8 @@ from ..closures.scalar_diffusivity import (cell_diffusion_timescale,
 from ..fields.field import Field, new_field, set_field
 from ..grids.topology import FLAT
 from ..ops import stencil as st
-from ..ops.fused_tendencies import (fused_shallow_water_tendencies,
+from ..ops.fused_tendencies import (BF16_REASON, bf16_options,
+                                    fused_shallow_water_tendencies,
                                     fused_shallow_water_tendencies_reference)
 from ..timesteppers.steppers import (RK3_GAMMA, RK3_ZETA, Clock, host_scalar,
                                      rk3_substep, scaled)
@@ -82,12 +83,8 @@ class ShallowWaterModel:
                     self.tracer_advection.required_halo)
         self.grid = grid.with_halo((h_req, h_req, 0))
         if self.grid.device.type == "cuda" and any(
-                isinstance(s, PositiveWENO5)
-                for s in (self.advection, self.tracer_advection)):
-            raise NotImplementedError(
-                "PositiveWENO5 in the shallow-water model on the card is not "
-                "ported yet: K3a takes the JAX package's seven schemes but "
-                "not its limiter (ROADMAP Queue 1 item 2)")
+                bf16_options(s) for s in (self.advection, self.tracer_advection)):
+            raise NotImplementedError(BF16_REASON)
         self.g = float(gravitational_acceleration)
         self.coriolis = coriolis
         self.closure = closure

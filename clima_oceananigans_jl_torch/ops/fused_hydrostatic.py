@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from ..advection.fluxes import div_Uc, div_vu, div_vv
-from ..advection.schemes import AdvectionScheme, CenteredSecondOrder, WENO5
+from ..advection.schemes import AdvectionScheme
 from ..advection.vector_invariant import SCHEMES as VI_SCHEMES
 from ..advection.vector_invariant import VectorInvariant
 from ..closures.scalar_diffusivity import (ScalarDiffusivity,
@@ -61,8 +61,10 @@ from ..utils.location import CENTER, U_LOC, V_LOC, W_LOC
 from . import _build
 from . import operators as op
 from . import stencil as st
-from .fused_tendencies import (axis_bounds, check_tensor, kernel_fn,
-                               kernel_scheme, launch, pointers)
+from .fused_tendencies import (BF16_REASON, KERNEL_SCHEMES, TABLE_SCHEMES,
+                               axis_bounds, bf16_options, check_tensor,
+                               kernel_fn, kernel_scheme, launch, pointers,
+                               positive_bounds)
 from .metric_rows import y_rows, y_tables, z_rows
 
 #: the most prognostic fields (u, v and tracers) K4b takes
@@ -131,15 +133,22 @@ def kernel_closure(model):
     return cl
 
 
+def _flux_form(model):
+    """The model's flux-form momentum scheme, or None (the vector-invariant
+    form, or no momentum advection)."""
+    sch = model.momentum_advection
+    return sch if isinstance(sch, AdvectionScheme) else None
+
+
 def _mask_locs(model):
     """The locations whose solid masks K4b's conditional fluxes read (JAX
-    ``_mask_locs``): CENTER for WENO5 tracers, U_LOC and V_LOC for
-    flux-form WENO5 momentum; none for centred schemes and the
+    ``_mask_locs``): CENTER for a tracer scheme that reads beyond its two
+    cells (``buffer`` > 0), U_LOC and V_LOC for such a flux-form momentum
+    scheme; none for the 2nd-order and first-order schemes and the
     vector-invariant form."""
     if getattr(model.grid, "immersed", None) is None:
         return ()
-    sch, ts = model.momentum_advection, model.tracer_advection
-    flux_form = sch if isinstance(sch, AdvectionScheme) else None
+    ts, flux_form = model.tracer_advection, _flux_form(model)
     locs = []
     if isinstance(ts, AdvectionScheme) and ts.buffer > 0:
         locs.append(CENTER)
@@ -151,29 +160,35 @@ def _mask_locs(model):
 # -- the static gate -------------------------------------------------------------
 
 def unsupported_reason(model):
-    """Why K4a/K4b cannot run this model's configuration, or None."""
+    """Why K4a/K4b cannot run this model's configuration, or None. Like the
+    JAX gate it takes every ``AdvectionScheme`` for momentum and tracers
+    (K4b's scheme codes, ``KERNEL_SCHEMES``) and the vector-invariant
+    momentum; WENO5's bf16 options it refuses by name."""
     grid = model.grid
     if any(t is FLAT for t in grid.topology):
-        return "K4 takes a 3D grid"
+        return "K4 takes a 3D grid (a Flat y: ROADMAP Queue 2 forms)"
     if not grid.x_regular:
         return ("K4 takes a regular x axis (x-constant metrics) "
                 "(ROADMAP Queue 1 item 6)")
     sch, ts = model.momentum_advection, model.tracer_advection
     if sch is not None and not (isinstance(sch, VectorInvariant)
-                                or type(sch) in (WENO5, CenteredSecondOrder)):
-        return (f"K4 has no {type(sch).__name__} momentum advection "
-                "(ROADMAP Queue 1 item 2)")
-    if ts is not None and type(ts) not in (WENO5, CenteredSecondOrder):
-        return (f"K4 has no {type(ts).__name__} tracer advection "
-                "(ROADMAP Queue 1 item 2)")
+                                or type(sch) in KERNEL_SCHEMES):
+        return f"K4 has no {type(sch).__name__} momentum advection"
+    if ts is not None and type(ts) not in KERNEL_SCHEMES:
+        return f"K4 has no {type(ts).__name__} tracer advection"
+    if any(bf16_options(s) for s in (sch, ts)):
+        return BF16_REASON
     cor = model.coriolis
     if cor is not None and not isinstance(
             cor, (FPlane, BetaPlane, HydrostaticSphericalCoriolis)):
         return f"K4 has no {type(cor).__name__} Coriolis (ROADMAP Queue 1 item 4)"
     if len(model.prognostic_names()) > MAX_FIELDS:
         return f"K4 takes at most {MAX_FIELDS} prognostic fields"
-    if _mask_locs(model) and min(grid.Hx, grid.Hy) < 3:
-        return "K4b's conditional fluxes read 3 halo cells in x and y"
+    buffers = [s.buffer for s in (_flux_form(model), ts)
+               if s is not None and s.buffer > 0]
+    if _mask_locs(model) and min(grid.Hx, grid.Hy) < max(buffers) + 1:
+        return (f"K4b's conditional fluxes read {max(buffers) + 1} halo cells "
+                "in x and y")
     return None
 
 
@@ -335,15 +350,20 @@ def _launch_tendencies(model, state, advance):
     if ph is not None:
         check_tensor("pHY", ph, grid.total_shape, dtype, device)
     sch, ts = model.momentum_advection, model.tracer_advection
-    mom_weno, mom_eps = (kernel_scheme(sch) if _momentum_code(sch) == FLUX_FORM
-                         else (0, 0.0))
+    flux_form = _flux_form(model)
+    mom_code, mom_eps = kernel_scheme(flux_form) if flux_form is not None else (0, 0.0)
     tr, tr_eps = kernel_scheme(ts) if ts is not None else (-1, 0.0)
-    weno = next((s for s in (sch, ts) if type(s) is WENO5), None)
-    # WENO5's near-wall bounds per axis (every WENO5 has the same ones)
-    bounds = ([b for a in range(3) for b in axis_bounds(grid, a, weno)]
-              if weno is not None else [0, 0, -1, 0, -1] * 3)
-    tables = weno is not None and not grid.z_regular
-    ytables = weno is not None and not grid.y_regular
+    # the near-wall bounds per axis of the flux-form momentum scheme, then
+    # of the tracer scheme (none for a scheme that reads two cells)
+    bounds_of = lambda s: ([b for a in range(3) for b in axis_bounds(grid, a, s)]
+                           if s is not None else [0, 0, -1, 0, -1] * 3)
+    bounds = bounds_of(flux_form)
+    tracer_bounds = (ctypes.c_int * 15)(*bounds_of(ts))
+    pw = (ctypes.c_double * 4)(*positive_bounds(flux_form), *positive_bounds(ts))
+    # the WENO5 family's tables on a stretched z or y
+    table = any(type(s) in TABLE_SCHEMES for s in (flux_form, ts))
+    tables = table and not grid.z_regular
+    ytables = table and not grid.y_regular
     ys, zs = y_rows(grid, model.coriolis), z_rows(grid, tables)
     yt = y_tables(grid) if ytables else None
     # the conditional fluxes' clear flags, by location
@@ -374,16 +394,16 @@ def _launch_tendencies(model, state, advance):
     ptr = lambda t: None if t is None else t.data_ptr()
     fn = kernel_fn("fused_hydrostatic_tendencies", "fused_hydrostatic_tendencies",
                    dtype, [ctypes.c_void_p] * 14 + [ctypes.c_int] * 30
-                   + [ctypes.c_double] * 5)
+                   + [ctypes.c_double] * 5 + [ctypes.c_void_p] * 2)
     launch("fused_hydrostatic_tendencies", fn, device, pointers(fields),
            ptr(w), ptr(ph), ptr(ys), ptr(zs), ptr(yt),
            *(ptr(flags[loc]) for loc in (CENTER, U_LOC, V_LOC)),
            pointers(gp) if gp else None, pointers(out_g),
            pointers(out_psi) if out_psi else None, kh, kv,
            len(names), *grid.shape, *grid.halo,
-           _momentum_code(sch), mom_weno, tr, _coriolis_code(model.coriolis),
+           _momentum_code(sch), mom_code, tr, _coriolis_code(model.coriolis),
            int(tables), int(ytables), closure, int(advance is not None),
-           *bounds, mom_eps, tr_eps, c1, c2, float(dt))
+           *bounds, mom_eps, tr_eps, c1, c2, float(dt), tracer_bounds, pw)
     fused_hydrostatic_tendencies.launches += 1
     G = dict(zip(names, out_g))
     if advance is None:

@@ -27,7 +27,6 @@ import numbers
 
 import torch
 
-from ..advection.schemes import PositiveWENO5
 from ..closures.eddy_viscosity import (AnisotropicMinimumDissipation,
                                        SmagorinskyLilly, TwoDimensionalLeith)
 from ..closures.implicit_vertical_diffusion import implicit_step_is_noop
@@ -43,8 +42,8 @@ from ..grids.topology import BOUNDED, FLAT
 from ..immersed.immersed import ImmersedBoundary, PartialCellBottom
 from ..timesteppers.steppers import ab2_coefficients, ab2_substep
 from ..utils.location import U_LOC, V_LOC
-from .fused_tendencies import (ADVECTION_ARGTYPES, KERNEL_SCHEMES, advection_args,
-                               check_tensor,
+from .fused_tendencies import (ADVECTION_ARGTYPES, BF16_REASON, KERNEL_SCHEMES,
+                               advection_args, bf16_options, check_tensor,
                                fused_advective_tendencies_reference,
                                in_kernel_order, kernel_fn, kernel_order,
                                launch, pointers, supports_fused_advection,
@@ -61,11 +60,9 @@ CLOSURES = (ScalarDiffusivity, ScalarBiharmonicDiffusivity, SmagorinskyLilly,
 #: terms of ``tendencies`` (the general branch)
 CORIOLIS = (FPlane, BetaPlane, ConstantCartesianCoriolis,
             NonTraditionalBetaPlane)
-#: its advection schemes, the JAX package's seven, which K1 and K2 take,
-#: and the tracer scheme that K2 alone takes (K1 has no limiter:
-#: ``fused_step_ok`` keeps it on the general branch)
+#: its advection schemes, the JAX package's eight, which K1 and K2 take for
+#: momentum and tracers
 SCHEMES = tuple(KERNEL_SCHEMES)
-TRACER_SCHEMES = SCHEMES + (PositiveWENO5,)
 
 
 def _scalar_coefficient(v):
@@ -87,16 +84,12 @@ def unsupported_reason(model):
         return (f"{type(cor).__name__} Coriolis is not ported yet (FPlane, "
                 "BetaPlane, ConstantCartesianCoriolis and "
                 f"NonTraditionalBetaPlane are) {_LATER}")
-    if type(model.advection) is PositiveWENO5:
-        return ("PositiveWENO5 as the momentum scheme (its limiter on "
-                "momentum's to-faces transports) is not ported yet; it is a "
-                "tracer scheme (tracer_advection) (ROADMAP Queue 1 item 2)")
-    for sch, known in ((model.advection, SCHEMES),
-                       (model.tracer_advection, TRACER_SCHEMES)):
-        if type(sch) not in known:
-            return (f"{type(sch).__name__} advection is not ported yet "
-                    "(the JAX package's seven schemes are, and PositiveWENO5 "
-                    "for tracers) (ROADMAP Queue 1 item 2)")
+    for sch in (model.advection, model.tracer_advection):
+        if type(sch) not in SCHEMES:
+            return (f"{type(sch).__name__} advection is not ported (the JAX "
+                    "package's eight schemes are)")
+        if bf16_options(sch) and model.grid.device.type == "cuda":
+            return BF16_REASON
     cl = model.closure
     for c in (cl if isinstance(cl, (tuple, list)) else (cl,)):
         if c is not None and not isinstance(c, CLOSURES):
@@ -114,11 +107,6 @@ def unsupported_reason(model):
         return (f"{type(ib).__name__} immersed boundaries are not ported yet "
                 "(GridFittedBottom and GridFittedBoundary are) (ROADMAP Queue 1 "
                 "item 7)")
-    if (type(model.tracer_advection) is PositiveWENO5
-            and not model.grid.z_regular and model.grid.device.type == "cuda"):
-        return ("PositiveWENO5 on a stretched z is not ported to K2 yet (its "
-                "limiter on the two-sided table form; the plain version on "
-                "the CPU runs it) (ROADMAP Queue 1 item 2)")
     if all(t is FLAT for t in model.grid.topology):
         return "a nonhydrostatic grid needs an axis that is not Flat"
     if not model.grid.hregular:
@@ -167,9 +155,8 @@ def fused_step_ok(model):
     fields, Stokes drift, tilted gravity, flux-BC values, an immersed
     boundary): those send the step to the general branch, whose advection
     K2 carries, as they do in the JAX package (and ``G_prev`` keeps its
-    layout). A ``PositiveWENO5`` tracer scheme does too: K1 has no
-    limiter (the JAX kernel traces it in), and the general branch gives
-    the same numbers through K2."""
+    layout). The scheme decides nothing: K1 takes every scheme, as the
+    JAX kernel traces every scheme in."""
     if not (model.fused_advection and supports_fused_advection(model.grid)
             and model.timestepper == "QuasiAdamsBashforth2"):
         return False
@@ -179,8 +166,6 @@ def fused_step_ok(model):
     if (model.stokes_drift is not None or model.forcing
             or model.background_fields or model.immersed_boundary is not None):
         return False
-    if type(model.tracer_advection) is PositiveWENO5:
-        return False  # K1 has no limiter; K2 carries it on the general branch
     if model.closure is not None and _step_kernel_closure(model) is None:
         return False
     b = model.buoyancy

@@ -5,10 +5,10 @@ Counterpart of ``clima_oceananigans_jl_tpu/ops/fused_tendencies.py``:
 - K2, the Pallas kernel ``fused_advective_tendencies``: −∇·(vψ) of u, v,
   w and every tracer of the nonhydrostatic model in one launch
   (``csrc/fused_advective_tendencies.cu``; on a stretched z its stretched
-  instantiation, with per-level Δz and WENO5's tables as z rows; on an
-  immersed grid, or with ``PositiveWENO5`` tracers, its IM
-  instantiations, with the clear flags of ``immersed/immersed.py::
-  clear_flags`` and the limiter's bounds), with
+  instantiation, with per-level Δz and the WENO5 family's tables as z
+  rows; on an immersed grid its IM instantiations, with the clear flags of
+  ``immersed/immersed.py::clear_flags``; ``PositiveWENO5``'s limiter, for
+  momentum or tracers, in its ANY instantiations), with
   ``supports_fused_advection`` and ``z_halo_free_ok``;
 - K3, the generic tiler ``pallas_fuse``, as one concrete kernel for each
   of its three users:
@@ -119,24 +119,47 @@ def fused_advective_tendencies_reference(grid, scheme, tracer_scheme, u, v, w,
 
 
 #: the kernels' codes of the schemes (``csrc/weno5_advection.cuh``
-#: ``SCHEME_*``); 3, PositiveWENO5, only where a caller asks for it
+#: ``SCHEME_*``): the JAX package's eight
 KERNEL_SCHEMES = {CenteredSecondOrder: 0, WENO5: 1, UpwindBiasedFifthOrder: 2,
-                  CenteredFourthOrder: 4, UpwindBiasedFirstOrder: 5,
-                  UpwindBiasedThirdOrder: 6, BoundsPreservingWENO5: 7}
+                  PositiveWENO5: 3, CenteredFourthOrder: 4,
+                  UpwindBiasedFirstOrder: 5, UpwindBiasedThirdOrder: 6,
+                  BoundsPreservingWENO5: 7}
+#: the schemes whose transports take a stretched axis' tables (JAX's
+#: ``transport`` takes them for ``isinstance(scheme, WENO5)``)
+TABLE_SCHEMES = (WENO5, BoundsPreservingWENO5, PositiveWENO5)
+
+#: the refusal of WENO5's bf16 options on the card, by name
+BF16_REASON = ("WENO5's bf16 options are not in the kernels yet (ROADMAP "
+               "Queue 2 forms)")
 
 
-def kernel_scheme(scheme, positive=False):
-    """(code, eps) of a scheme the kernels take (``KERNEL_SCHEMES``), and
-    with ``positive`` (K2's tracer scheme) 3 for PositiveWENO5; eps is
-    the WENO schemes' own, 0 for the others; raises otherwise."""
+def bf16_options(scheme):
+    """Whether ``scheme`` is a WENO5 with ``fast_bf16`` or
+    ``bf16_smoothness`` set (the plain versions run them; no kernel
+    does)."""
+    return isinstance(scheme, WENO5) and (scheme.fast_bf16
+                                          or scheme.bf16_smoothness)
+
+
+def kernel_scheme(scheme):
+    """(code, eps) of a scheme the kernels take (``KERNEL_SCHEMES``); eps
+    is the WENO schemes' own, 0 for the others; raises otherwise, and
+    ``NotImplementedError`` for WENO5's bf16 options."""
+    if bf16_options(scheme):
+        raise NotImplementedError(BF16_REASON)
     code = KERNEL_SCHEMES.get(type(scheme))
-    if positive and type(scheme) is PositiveWENO5:
-        code = 3
     if code is None:
-        raise ValueError("the kernels take the JAX package's seven advection "
-                         "schemes and, for K2's tracers, PositiveWENO5, not "
-                         f"{type(scheme).__name__}")
+        raise ValueError("the kernels take the JAX package's eight advection "
+                         f"schemes, not {type(scheme).__name__}")
     return code, float(scheme.eps) if isinstance(scheme, WENO5) else 0.0
+
+
+def positive_bounds(scheme):
+    """PositiveWENO5's (lo, hi) as the kernels take them; (0, 0) for the
+    other schemes, which read none."""
+    if type(scheme) is PositiveWENO5:
+        return tuple(float(b) for b in scheme.bounds)
+    return 0.0, 0.0
 
 
 def axis_bounds(grid, axis, scheme):
@@ -158,29 +181,31 @@ def spacings(grid):
     return (grid.Lx / grid.Nx, grid.Ly / grid.Ny, grid.Lz / grid.Nz)
 
 
-def advection_args(grid, scheme, tracer_scheme, nf, positive=False):
+def advection_args(grid, scheme, tracer_scheme, nf):
     """The shared advection arguments of K1 and K2 after the pointer
     arrays (``set_advection`` of ``csrc/weno5_advection.cuh``), in the
     kernels' axis order (``kernel_order``): a host array of ints (field
     count, sizes, halos, the two scheme codes, each axis' near-wall bounds
     of the momentum scheme, the grid axis of each kernel axis, whether the
     grid has a Flat axis, each axis' near-wall bounds of the tracer
-    scheme) and one of doubles (eps of each scheme, the spacings).
-    ``positive`` (K2) lets the tracer scheme be PositiveWENO5."""
+    scheme) and one of doubles (eps of each scheme, the spacings, then
+    ``positive_bounds`` of each scheme)."""
     if not 3 <= nf <= 16:
         raise ValueError(f"the kernels take 3 to 16 fields, got {nf}")
     if not grid.hregular:
         raise ValueError(f"the kernels take a regular x and y: {grid}")
     order = kernel_order(grid)
     code_m, eps_m = kernel_scheme(scheme)
-    code_t, eps_t = kernel_scheme(tracer_scheme, positive)
+    code_t, eps_t = kernel_scheme(tracer_scheme)
     bounds = lambda s: (b for a in order for b in axis_bounds(grid, a, s))
     ints = (nf, *(grid.shape[a] for a in order), *(grid.halo[a] for a in order),
             code_m, code_t, *bounds(scheme), *order, int(FLAT in grid.topology),
             *bounds(tracer_scheme))
     d = spacings(grid)
+    doubles = (eps_m, eps_t, *(d[a] for a in order), *positive_bounds(scheme),
+               *positive_bounds(tracer_scheme))
     return ((ctypes.c_int * len(ints))(*ints),
-            (ctypes.c_double * 5)(eps_m, eps_t, *(d[a] for a in order)))
+            (ctypes.c_double * len(doubles))(*doubles))
 
 
 #: ctypes types of ``advection_args``
@@ -191,13 +216,13 @@ def z_rows_arg(grid, scheme, tracer_scheme, general=False):
     """(z rows, tables) of K1's and K2's stretched (or general)
     instantiation: on a stretched z, or with ``general``, the z rows of
     ``ops/metric_rows.py`` (Δzᶜ and Δzᶠ per level, then WENO5's to-faces
-    and to-centres tables when a scheme is WENO5 or BoundsPreservingWENO5
-    and z is stretched) and whether they carry the tables; (None, 0) for
-    the regular instantiation."""
+    and to-centres tables when a scheme is of the WENO5 family,
+    ``TABLE_SCHEMES``, and z is stretched) and whether they carry the
+    tables; (None, 0) for the regular instantiation."""
     if grid.z_regular and not general:
         return None, 0
     tables = (not grid.z_regular and any(
-        type(s) in (WENO5, BoundsPreservingWENO5) for s in (scheme, tracer_scheme)))
+        type(s) in TABLE_SCHEMES for s in (scheme, tracer_scheme)))
     return z_rows(grid, tables=tables, to_centres=tables), int(tables)
 
 
@@ -259,16 +284,10 @@ def _launch(grid, scheme, tracer_scheme, u, v, w, tracers):
     names = ("u", "v", "w") + tuple(tracers)
     fields = [u, v, w] + list(tracers.values())
     device, dtype = u.device, grid.dtype
-    ints, doubles = advection_args(grid, scheme, tracer_scheme, len(fields),
-                                   positive=True)
+    ints, doubles = advection_args(grid, scheme, tracer_scheme, len(fields))
     for n, f in zip(names, fields):
         check_tensor(n, f, grid.total_shape, dtype, device)
     zs, tables = z_rows_arg(grid, scheme, tracer_scheme)
-    positive = type(tracer_scheme) is PositiveWENO5
-    if positive and zs is not None:
-        raise ValueError("K2 takes PositiveWENO5 on a regular z only (its "
-                         "limiter on the two-sided table form is not ported; "
-                         "ROADMAP Queue 1 item 2)")
     order = kernel_order(grid)
     flags = k2_clear_flags(grid, scheme, tracer_scheme, len(tracers))
     if flags is not None:
@@ -278,8 +297,6 @@ def _launch(grid, scheme, tracer_scheme, u, v, w, tracers):
                              torch.uint8, device)
         flags = (ctypes.c_void_p * 4)(*[None if f is None else f.data_ptr()
                                         for f in in_kernel_order(order, flags)])
-    bounds = ((ctypes.c_double * 2)(*map(float, tracer_scheme.bounds))
-              if positive else None)
     # K2 writes every point: the interior, the zero halos and the wall faces
     out = [torch.empty(grid.total_shape, dtype=dtype, device=device)
            for _ in names]
@@ -287,11 +304,11 @@ def _launch(grid, scheme, tracer_scheme, u, v, w, tracers):
     fn = kernel_fn("fused_advective_tendencies", "fused_advective_tendencies",
                    dtype, [ctypes.c_void_p] * 2 + ADVECTION_ARGTYPES
                    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_void_p, ctypes.c_void_p])
+                      ctypes.c_void_p])
     launch("fused_advective_tendencies", fn, device,
            pointers(in_kernel_order(order, fields)),
            pointers(in_kernel_order(order, out)), ints, doubles, walls,
-           None if zs is None else zs.data_ptr(), tables, flags, bounds)
+           None if zs is None else zs.data_ptr(), tables, flags)
     fused_advective_tendencies.launches += 1
     return dict(zip(names, out))
 
@@ -369,7 +386,8 @@ def fused_shallow_water_tendencies_reference(grid, scheme, tracer_scheme, g,
 def shallow_water_args(grid, scheme, tracer_scheme, nf, g):
     """K3a's arguments after the pointers: field count, sizes, halos, the
     two scheme codes, the momentum scheme's x and y near-wall bounds, the
-    tracer scheme's, eps of each scheme, spacings, g."""
+    tracer scheme's, eps of each scheme, spacings, g, ``positive_bounds``
+    of each scheme."""
     if not 3 <= nf <= 16:
         raise ValueError(f"K3a takes 3 to 16 fields, got {nf}")
     if grid.topology[2] is not FLAT or grid.shape[2] != 1:
@@ -379,7 +397,8 @@ def shallow_water_args(grid, scheme, tracer_scheme, nf, g):
     bounds = lambda s: (*axis_bounds(grid, 0, s), *axis_bounds(grid, 1, s))
     return (nf, grid.Nx, grid.Ny, grid.Hx, grid.Hy, code_m, code_t,
             *bounds(scheme), *bounds(tracer_scheme),
-            eps_m, eps_t, grid.Lx / grid.Nx, grid.Ly / grid.Ny, float(g))
+            eps_m, eps_t, grid.Lx / grid.Nx, grid.Ly / grid.Ny, float(g),
+            *positive_bounds(scheme), *positive_bounds(tracer_scheme))
 
 
 def _launch_shallow_water(grid, scheme, tracer_scheme, g, uh, vh, h, tracers,
@@ -400,7 +419,8 @@ def _launch_shallow_water(grid, scheme, tracer_scheme, g, uh, vh, h, tracers,
     ints, doubles = args[:27], args[27:]
     launch("fused_shallow_water_tendencies", fn, device, pointers(fields),
            None if bathymetry is None else bathymetry.data_ptr(),
-           pointers(out), (ctypes.c_int * 27)(*ints), (ctypes.c_double * 5)(*doubles))
+           pointers(out), (ctypes.c_int * 27)(*ints),
+           (ctypes.c_double * len(doubles))(*doubles))
     fused_shallow_water_tendencies.launches += 1
     return tuple(out)
 

@@ -389,10 +389,12 @@ def test_periodic_advection_matches_the_jax_script(scheme):
 # -- the kernels' arguments and the refusals -------------------------------------
 
 def test_kernel_codes_and_per_scheme_bounds():
-    codes = {n: tft.kernel_scheme(getattr(T, n)())[0] for n in SHORT.values()}
+    codes = {n: tft.kernel_scheme(getattr(T, n)())[0]
+             for n in (*SHORT.values(), "PositiveWENO5")}
     assert codes == {"CenteredFourthOrder": 4, "UpwindBiasedFirstOrder": 5,
                      "UpwindBiasedThirdOrder": 6, "BoundsPreservingWENO5": 7,
-                     "UpwindBiasedFifthOrder": 2, "WENO5": 1, "CenteredSecondOrder": 0}
+                     "UpwindBiasedFifthOrder": 2, "WENO5": 1, "CenteredSecondOrder": 0,
+                     "PositiveWENO5": 3}
     assert tft.kernel_scheme(T.BoundsPreservingWENO5())[1] == 1e-6
     _, tg = grid_pair("BBB", (9, 8, 7))
     H, n = tg.halo[0], tg.shape[0]
@@ -413,7 +415,8 @@ def test_kernel_codes_and_per_scheme_bounds():
                              advection=T.UpwindBiasedThirdOrder(),
                              tracer_advection=T.BoundsPreservingWENO5(), tracers=("c",))
     args = tft.shallow_water_args(sw.grid, sw.advection, sw.tracer_advection, 4, 9.8)
-    assert len(args) == 32 and args[5:7] == (6, 7)
+    assert len(args) == 36 and args[5:7] == (6, 7)
+    assert args[32:] == (0.0, 0.0, 0.0, 0.0)  # no PositiveWENO5: no bounds
     assert args[7:12] == tft.axis_bounds(sw.grid, 0, T.UpwindBiasedThirdOrder())
     assert args[17:22] == tft.axis_bounds(sw.grid, 0, T.BoundsPreservingWENO5())
 
@@ -439,14 +442,51 @@ def test_models_take_each_scheme_with_its_halo(name):
 
 @pytest.mark.parametrize("name", NEW)
 def test_hydrostatic_model_refuses_each_scheme_by_name(name):
-    """K4b's forms of these schemes are the next slice (ROADMAP item 2)."""
-    g = T.RectilinearGrid(size=(8, 8, 4), extent=(1, 1, 1), dtype=torch.float64,
-                          device=DEVICE)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        T.HydrostaticFreeSurfaceModel(g, momentum_advection=getattr(T, name)())
-    with pytest.raises(NotImplementedError, match="item 2"):
-        T.HydrostaticFreeSurfaceModel(g, tracer_advection=getattr(T, name)(),
-                                      tracers=("b",))
+    """What K4 still refuses with these schemes, by name: a Flat y (ROADMAP
+    Queue 2 forms); the schemes themselves it takes
+    (``test_hydrostatic_model_takes_each_scheme``)."""
+    from clima_oceananigans_jl_torch.ops import fused_hydrostatic as tfh
+    g = T.RectilinearGrid(size=(8, 1, 4), extent=(1, 1, 1), dtype=torch.float64,
+                          topology=(T.PERIODIC, T.FLAT, T.BOUNDED), device=DEVICE)
+    for kw in (dict(momentum_advection=getattr(T, name)()),
+               dict(tracer_advection=getattr(T, name)(), tracers=("b",))):
+        m = T.HydrostaticFreeSurfaceModel(g, free_surface=T.ExplicitFreeSurface(), **kw)
+        assert "Flat y" in tfh.unsupported_reason(m)
+
+
+@pytest.mark.parametrize("name", NEW + ("UpwindBiasedFifthOrder", "PositiveWENO5"))
+def test_hydrostatic_model_takes_each_scheme(name):
+    """The hydrostatic model with the scheme as flux-form momentum and as
+    the tracer scheme builds with its required halo, passes K4's gate, and
+    matches the JAX model (its plain path) after 2 steps within RTOL."""
+    from clima_oceananigans_jl_torch.ops import fused_hydrostatic as tfh
+    from clima_oceananigans_jl_tpu.models.free_surface import ExplicitFreeSurface as JEFS
+    from clima_oceananigans_jl_tpu.models.hydrostatic import (
+        HydrostaticFreeSurfaceModel as JH)
+    size = (10, 8, 5)
+    kw = dict(size=size, x=(0, 1e5), y=(0, 8e4), z=(-1e3, 0),
+              topology=("periodic", "bounded", "bounded"))
+    jg = J.RectilinearGrid(dtype=jnp.float64, **kw)
+    tg = T.RectilinearGrid(dtype=torch.float64, device=DEVICE, **kw)
+    jsc, tsc = getattr(jsch, name)(), getattr(T, name)()
+    jm = JH(jg, momentum_advection=jsc, tracer_advection=jsc, buoyancy=JBuoyancy(),
+            tracers=("c",), coriolis=J.FPlane(f=1e-4), free_surface=JEFS(),
+            fused_advection=False)
+    tm = T.HydrostaticFreeSurfaceModel(
+        tg, momentum_advection=tsc, tracer_advection=tsc, buoyancy=T.BuoyancyTracer(),
+        tracers=("c",), coriolis=T.FPlane(f=1e-4), free_surface=T.ExplicitFreeSurface())
+    assert tm.grid.halo == (tsc.required_halo,) * 3 == jm.grid.halo
+    assert tfh.unsupported_reason(tm) is None
+    rng = np.random.default_rng(31)
+    vals = dict(u=0.1 * rng.standard_normal(size), v=0.1 * rng.standard_normal(size),
+                b=1e-3 * rng.standard_normal(size), c=rng.uniform(0.0, 1.0, size))
+    js, ts = jm.initial_state(**vals), tm.initial_state(**vals)
+    for _ in range(2):
+        js, ts = jm.step(js, 20.0), tm.step(ts, 20.0)
+    for k in ("u", "v", "b", "c"):
+        ref = np.asarray(jm.grid.interior(js["solution"][k]))
+        got = tm.grid.interior(ts["solution"][k]).numpy()
+        assert np.abs(ref - got).max() <= RTOL * np.abs(ref).max(), (name, k)
 
 
 # -- on the card ---------------------------------------------------------------------

@@ -443,13 +443,13 @@ def test_state_passes_through_interop(config):
 
 
 def test_what_stays_out_is_refused_by_name():
-    """The other advection schemes name ROADMAP item 2; a grid with
-    every axis Flat has nothing to step."""
+    """An advection scheme that is none of the JAX package's eight is
+    refused by name; a grid with every axis Flat has nothing to step."""
     _, tg = grid_pair("PPB", (6, 5, 4))
     for scheme in ("CenteredFourthOrder", "UpwindBiasedThirdOrder",
                    "UpwindBiasedFirstOrder", "PositiveWENO5", "BoundsPreservingWENO5"):
         fake = type(scheme, (T.CenteredSecondOrder,), {})
-        with pytest.raises(NotImplementedError, match="item 2"):
+        with pytest.raises(NotImplementedError, match=f"{scheme} advection is not ported"):
             T.NonhydrostaticModel(tg, advection=fake())
     with pytest.raises(NotImplementedError):
         T.NonhydrostaticModel(grid_pair("FFF", (1, 1, 1))[1])

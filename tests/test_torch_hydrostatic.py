@@ -232,7 +232,8 @@ def test_what_waits_is_refused_naming_its_roadmap_item():
     for kw, item in ((dict(particles=object()), "particles.*item 7"),
                      (dict(immersed_boundary=T.PartialCellBottom(-500.0)),
                       "PartialCellBottom.*item 7"),
-                     (dict(tracer_advection=T.VectorInvariant()), "item 2")):
+                     (dict(tracer_advection=T.VectorInvariant()),
+                      "VectorInvariant tracer advection is not ported")):
         with pytest.raises(NotImplementedError, match=item):
             T.HydrostaticFreeSurfaceModel(g, free_surface=split, **kw)
     # seawater buoyancy and tilted gravity are ported: pHY′ (−ĝ_z b

@@ -147,7 +147,7 @@ def test_kernel_arguments_refuse_what_the_kernel_does_not_take():
     # (masked, left lo/hi, right lo/hi) of reduced_order_masks, x then y
     assert args[7:12] == (1, hx + 3, hx + nx - 3, hx + 2, hx + nx - 4)
     assert args[12:17] == (1, hy + 3, hy + ny - 3, hy + 2, hy + ny - 4)
-    assert args[-1] == G
+    assert args[31] == G and args[32:] == (0.0, 0.0, 0.0, 0.0)
     _, periodic = grids("pp")
     periodic = T.ShallowWaterModel(periodic).grid
     assert tft.shallow_water_args(periodic, T.WENO5(), T.WENO5(), 3,

@@ -14,8 +14,8 @@ PyTorch's CUDA kernels). Held against the JAX package in float64:
   ``tilted_bottom_boundary_layer``; ``test_torch_flat_bounded.py``'s
   ``CONFIGS``) over 10 RK3 steps and 10 quasi-AB2 steps on both of the
   port's branches, within 1e-9 of max|field|;
-- the hydrostatic model refuses UB5, whose K4b form is not ported,
-  naming ROADMAP Queue 1 item 2; K3a takes it (its code, and on the card
+- the hydrostatic model and K4's gate take UB5 (K4b's ANY form); K3a
+  takes it (its code, and on the card
   a step against the plain one).
 
 The ``cuda`` cases hold K2 and K1 with UB5 against their plain versions
@@ -86,13 +86,21 @@ def test_kernel_scheme_code():
 
 
 def test_hydrostatic_model_refuses_ub5_by_name():
+    """The hydrostatic model and K4's gate take UB5 as flux-form momentum
+    and as the tracer scheme; what K4 still refuses with it, a Flat y, it
+    refuses by name."""
+    from clima_oceananigans_jl_torch.ops import fused_hydrostatic as tfh
     g = T.RectilinearGrid(size=(8, 8, 4), extent=(1, 1, 1), dtype=torch.float64,
                           device=DEVICE)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        T.HydrostaticFreeSurfaceModel(g, momentum_advection=T.UpwindBiasedFifthOrder())
-    with pytest.raises(NotImplementedError, match="item 2"):
-        T.HydrostaticFreeSurfaceModel(g, tracer_advection=T.UpwindBiasedFifthOrder(),
+    m = T.HydrostaticFreeSurfaceModel(g, momentum_advection=T.UpwindBiasedFifthOrder(),
+                                      tracer_advection=T.UpwindBiasedFifthOrder(),
                                       tracers=("b",))
+    assert m.grid.halo == (3, 3, 3) and tfh.unsupported_reason(m) is None
+    flat_y = T.RectilinearGrid(size=(8, 1, 4), extent=(1, 1, 1), dtype=torch.float64,
+                               topology=(T.PERIODIC, T.FLAT, T.BOUNDED), device=DEVICE)
+    m = T.HydrostaticFreeSurfaceModel(flat_y, tracer_advection=T.UpwindBiasedFifthOrder(),
+                                      tracers=("b",), free_surface=T.ExplicitFreeSurface())
+    assert "Flat y" in tfh.unsupported_reason(m)
 
 
 # -- on the card ---------------------------------------------------------------------
