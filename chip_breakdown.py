@@ -11,7 +11,7 @@
                               [seamount] [simulation] [internal-wave]
                               [weno5-kernels] [hydrostatic-positive]
                               [near-global-ub5] [ptxas-schemes]
-                              [sass-regular --parent DIR]
+                              [sass-regular --parent DIR] [ab2-bf16]
                               [--steps N]
 
 With no part named, runs them all. Prints the card's name and power
@@ -24,6 +24,10 @@ limit first. Needs a card; without one it exits with an error.
   ``update_state`` as a part of their own; "the rest" is the step's
   CUDA-event time minus their sum (the pads of the corrected fields, dict
   work, Python).
+- ``ab2-bf16``: the ``AB2 bf16 smoothness`` path of ``chip_smoke.py``
+  (``BF16_PATHS``: the AB2 configuration with WENO5(bf16_smoothness=True),
+  K1's ANY instantiation with the bf16 forms), broken down as ``ab2``,
+  then the fp32 WENO5 model from the same state likewise, in the same call.
 - ``rk3``: the 256³ RK3 flagship of ``chip_smoke.py``'s RK3 path (FPlane,
   ScalarDiffusivity), likewise, around K2, the rest of ``tendencies``
   (the eager Coriolis, −∂pHY′, ∇·(κ∇ψ) and flux BCs: ``tendencies`` less
@@ -131,8 +135,8 @@ limit first. Needs a card; without one it exits with an error.
 - ``internal-wave``: ``chip_smoke.py``'s internal-wave path
   (examples/internal_wave.py at 4096×1×4096 fp64 on (Periodic, Flat,
   Periodic): C4, RK3, FPlane, ScalarDiffusivity, the background buoyancy
-  N²z) after 2 warm-up steps: first ptxas's registers, stack and spills of
-  every instantiation of K1, K2 and K3a (``ptxas``), then K2, the
+  N²z) after 2 warm-up steps (``ptxas-schemes`` lists the registers and
+  spills of K1's, K2's and K3a's instantiations): K2, the
   background fields' cross terms (the plain ``div_*`` fluxes of the JAX
   package's route), the other eager terms (``tendencies`` less those),
   ``rk3_substep``, the projection's copies and pads with their K6 fills,
@@ -157,10 +161,13 @@ limit first. Needs a card; without one it exits with an error.
   instantiation of K1, K2, K3a and K4b, the four kernels that take the
   advection schemes (one nvcc each, all at once).
 - ``sass-regular``: K1's, K2's, K3a's and K4b's instantiations without
-  ``ANY`` as built here and from the parent tree's ``csrc`` (``--parent DIR``),
-  their SASS by ``cuobjdump``: instruction counts, and whether the
-  sequences are identical, and identical with constants masked (the
-  argument struct grew, so constant-bank offsets may move).
+  ``ANY``, and (since the bf16 slice) their ``ANY`` instantiations without
+  the bf16 sub-form ``BF``, as built here and from the parent tree's
+  ``csrc`` (``--parent DIR``; a trailing template flag the parent lacks
+  is dropped to find its counterpart), their SASS by ``cuobjdump``:
+  instruction counts, and whether the sequences are identical, and
+  identical with constants masked (the argument struct grew, so
+  constant-bank offsets may move).
 - ``shallow-water``: the 16384² headline of
   ``benchmark/bench_shallow_water.py`` (as ``chip_smoke.py`` runs it), 2
   warm-up steps, then ``steps`` steps with CUDA events around K3a,
@@ -325,11 +332,12 @@ def warm_nonhydrostatic(path):
     return model, state, dt
 
 
-def nonhydrostatic(path, steps):
-    """The 256³ AB2 or RK3 path of chip_smoke.py, broken down."""
-    model, state, dt = warm_nonhydrostatic(path)
+def nonhydrostatic(path, steps, warmed=None):
+    """The 256³ AB2 or RK3 path of chip_smoke.py, broken down (``warmed``:
+    another AB2 model, its state and Δt, with ``path`` its label)."""
+    model, state, dt = warmed or warm_nonhydrostatic(path)
     events = collections.defaultdict(list)
-    if path == "AB2":
+    if path.startswith("AB2"):
         kernels = {"advance": timed(events, "K1", nm.KERNELS["advance"])}
         patches = [(model, "_fast_project_interior", "projection"),
                    (model, "update_state", "update_state")]
@@ -347,6 +355,23 @@ def nonhydrostatic(path, steps):
     step = lambda s, timed_parts: model.step(s, dt, kernels if timed_parts else None)
     breakdown(f"{path} {chip_smoke.N}^3 fp32 step", step, state, events, patches,
               steps, inner)
+
+
+def ab2_bf16(steps):
+    """chip_smoke.py's ``AB2 bf16 smoothness`` path (bench.py with
+    CLIMA_BF16S: WENO5(bf16_smoothness=True)) after its warm-up steps,
+    broken down as ``ab2``, then the fp32 AB2 model from the same state
+    likewise (the docstring's ``ab2-bf16``)."""
+    path = "AB2 bf16 smoothness"
+    dt, warmup, _ = chip_smoke.BF16_PATH_STEPS
+    for option, label in ((chip_smoke.BF16_PATHS[path], path), (None, "AB2 fp32")):
+        model, state = chip_smoke.bf16_path_model(path, option)
+        for _ in range(warmup):
+            state = model.step(state, dt)
+        torch.cuda.synchronize()
+        nonhydrostatic(label, steps, (model, state, dt))
+        del model, state
+        torch.cuda.empty_cache()
 
 
 def general_projection(steps):
@@ -484,9 +509,10 @@ def kernel_sass(csrc, name):
 
 
 def sass_regular(steps, parent):
-    """K1's, K2's, K3a's and K4b's instantiations without ``ANY`` (the
-    first codes) as built here against the same ones built from the parent
-    tree's ``csrc`` (``--parent DIR``), all built at once: their SASS
+    """K1's, K2's, K3a's and K4b's instantiations whose last template flag
+    is false (without ``ANY``: the first codes; with ``ANY``, without the
+    bf16 sub-form ``BF``) as built here against the same ones built from
+    the parent tree's ``csrc`` (``--parent DIR``), all built at once: their SASS
     instruction sequences, counted, and compared with constants
     (immediates and constant-bank offsets) masked, which differ where the
     argument struct grew."""
@@ -1398,9 +1424,6 @@ def internal_wave(steps):
     """chip_smoke.py's internal-wave path after its warm-up steps, broken
     down (the docstring's ``internal-wave``)."""
     from clima_oceananigans_jl_torch.examples import internal_wave as iw
-    for source, label in (("fused_ab2_advance", "K1"), ("fused_advective_tendencies", "K2"),
-                          ("fused_shallow_water_tendencies", "K3a")):
-        ptxas(source, label)
     model = iw.build(chip_smoke.INTERNAL_WAVE["N"], "cuda")
     state = iw.initial_state(model)
     for _ in range(chip_smoke.INTERNAL_WAVE["warmup"]):
@@ -1487,7 +1510,7 @@ def weno5_kernels(steps):
           f"(torch.profiler)")
 
 
-PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps),
+PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps), "ab2-bf16": ab2_bf16,
          "rk3": lambda steps: nonhydrostatic("RK3", steps),
          "general-projection": general_projection, "k6-k3c": k6_k3c,
          "langmuir": lambda steps: surface("langmuir", steps),

@@ -338,14 +338,30 @@ on the card, in phases; each prints one line or a few:
    PositiveWENO5 momentum and tracers, K2 with PositiveWENO5 tracers on the
    wind-mixing stretched z and K3a at 16384² fp32 with PositiveWENO5, each
    bit for bit and timed against its bound (the records' ``forms``);
-36. the bf16 refusals: every model's construction on the card with
-   WENO5(fast_bf16=True) or WENO5(bf16_smoothness=True) raises
-   NotImplementedError naming the options.
+36. (since the bf16 slice, in place of the refusals) the bf16 holds
+   (``phase_bf16_holds``): the bf16 forms of K1, K2, K3a and K4b
+   (WENO5, BoundsPreservingWENO5 and PositiveWENO5 under
+   ``bf16_smoothness`` and ``fast_bf16``: K1 and K2 at 256³ fp32, both
+   with fast_bf16 at 128³ fp64, K2 on the wind-mixing stretched z, K3a at
+   16384² fp32 and 4096² fp64, K2 on (B, B, B) and over an immersed
+   bottom and K1 on a Flat x (``BF16_WALLS``), K4b at 1° flat, over the
+   near-global bottom, on stretched latitudes and in fp64, and the ¼°
+   flagship's advance with bf16_smoothness tracers), each bit for bit over
+   NaN-filled outputs and timed against its bound, each bf16 operation
+   counted once at the card's bf16 rate (``transport_ops``);
+37. the two paths of ``BF16_PATHS`` at 256³ fp32: ``AB2 bf16 smoothness``
+   (bench.py with CLIMA_BF16S) and ``AB2 fast bf16``
+   (benchmark/bench_bf16.py), 2 warm-up and 5 timed steps, 1 K1 and 2 K6 a
+   step, finite, the AB2 divergence bound, K1 bit for bit and timed on the
+   path's fields, within 5e-3 of each field's scale from the fp32 run
+   after the same steps (its ms/step printed beside), and the plain run
+   bit for bit.
 
 Each kernel's record carries its bound: the larger of its compulsory
 bytes (each input read once, each output written once, from this run's
 tensors) over 3.35 TB/s and its operations (per-point counts of what the
-function needs, ``FLOPS``) over the 67 TFLOP/s fp32 peak; no single
+function needs, ``FLOPS``) over the 67 TFLOP/s fp32 peak (WENO5's bf16
+operations at twice that rate, ``transport_ops``); no single
 PyTorch call computes any of these kernels' functions, so ``library_ms``
 is null.
 
@@ -437,7 +453,7 @@ from clima_oceananigans_jl_torch.closures.implicit_vertical_diffusion import (
 from clima_oceananigans_jl_torch.ops.fused_step import (
     fused_ab2_advance, fused_ab2_advance_reference, general_route, w_top)
 from clima_oceananigans_jl_torch.ops.fused_tendencies import (
-    fused_advective_tendencies, fused_advective_tendencies_reference,
+    bf16_mode, fused_advective_tendencies, fused_advective_tendencies_reference,
     k2_clear_flags,
     fused_divergence, fused_divergence_reference, fused_pressure_gradient,
     fused_pressure_gradient_reference, fused_shallow_water_tendencies,
@@ -575,7 +591,8 @@ PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
             "nonhydrostatic closures hold: Roquet": {K2: 3, K6: 6},
             "nonhydrostatic closures hold: CATKE": {K2: 3, K6: 6, T1: 18},
             "hydrostatic positive": {K4A: 1, K4B: 1, K5: 1, K6: 2},
-            "near-global UB5": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 5}}
+            "near-global UB5": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 5},
+            "AB2 bf16 smoothness": {K1: 1, K6: 2}, "AB2 fast bf16": {K1: 1, K6: 2}}
 #: of T1's launches a step, those of its Fourier mode (the pressure solve)
 T1_FOURIER_PER_STEP = {"wind mixing stretched": 3, "AB2 stretched implicit": 1}
 T1F = "fourier_tridiagonal"
@@ -600,7 +617,7 @@ AGREE = {"AB2": 0.0, "RK3": 0.0, "shallow water": 1e-4,
          "near-global": 0.0, "near-global WENO": 0.0, "1/4 deg diffusive": 0.0,
          "horizontal convection": 0.0, "2D turbulence": 0.0, "seamount": 0.0,
          "internal wave": 0.0, "near-global CATKE": 0.0, "hydrostatic positive": 0.0,
-         "near-global UB5": 0.0}
+         "near-global UB5": 0.0, "AB2 bf16 smoothness": 0.0, "AB2 fast bf16": 0.0}
 #: the ¼° hydrostatic flagship (benchmark/bench_hydro_flagship.py:24-41);
 #: its "hydrostatic wind" path adds the near-global run's wind stress (u
 #: top FluxBC((λ, φ, t) ↦ −1e-4 cos(3πφ/180)),
@@ -2833,17 +2850,48 @@ K2_TRANSPORT = {WENO5: 64, UpwindBiasedFifthOrder: 40, CenteredSecondOrder: 4,
                 PositiveWENO5: 150, BoundsPreservingWENO5: 68,
                 UpwindBiasedThirdOrder: 20, UpwindBiasedFirstOrder: 8,
                 CenteredFourthOrder: 8}
+#: the WENO5 family's reconstruction under each bf16 option (``bf16_mode``:
+#: 2 fast_bf16, 1 bf16_smoothness) as (operations in T, operations in
+#: bf16), each bf16 operation and each cast counted once: under fast_bf16
+#: the stream's ~64 and its six casts (five in, one back) are all bf16;
+#: under bf16_smoothness the first differences, the candidates, num, den
+#: and their quotient stay in T (~25), the four casts in, the second
+#: differences, s, the βs, the weights' products and the three casts back
+#: are bf16 (~42); PositiveWENO5's L and R at a face twice as many
+BF16_SPLIT = {2: ((0, 70), (0, 140)), 1: ((25, 42), (50, 84))}
+#: the operations of that reconstruction in ``K2_TRANSPORT`` (WENO5's
+#: stream; PositiveWENO5's L and R)
+BF16_REPLACES = (64, 110)
+#: the card's bf16 rate outside the tensor cores over its fp32 rate (packed
+#: bf16x2 instructions: 133.8 against 66.9 TFLOP/s in NVIDIA's H100 SXM
+#: white paper)
+BF16_SPEEDUP = 2
+
+
+def transport_ops(scheme, dtype):
+    """``K2_TRANSPORT`` of the scheme in fp32-rate operations: under a bf16
+    option its reconstruction's bf16 operations count at the bf16 rate
+    (``BF16_SPLIT``; bf16_smoothness does nothing to fp64 data)."""
+    mode = bf16_mode(scheme)
+    if mode == 1 and dtype != torch.float32:
+        mode = 0
+    ops = K2_TRANSPORT[type(scheme)]
+    if mode:
+        pw = isinstance(scheme, PositiveWENO5)
+        in_t, in_bf16 = BF16_SPLIT[mode][pw]
+        ops += in_t + in_bf16 / BF16_SPEEDUP - BF16_REPLACES[pw]
+    return ops
 
 
 def k2_flops(grid, scheme, tracer_scheme, ntracers):
     """K2's operations a point: each field's transports on the axes that
-    are not Flat, by scheme (``K2_TRANSPORT``; +2 each over an immersed
+    are not Flat, by scheme (``transport_ops``; +2 each over an immersed
     bottom), and ~8 for each field's divergence."""
     imm = 2 if getattr(grid, "immersed", None) is not None else 0
     axes = sum(t is not FLAT for t in grid.topology)
     nf = 3 + ntracers
-    return ((3 * (K2_TRANSPORT[type(scheme)] + imm)
-             + ntracers * (K2_TRANSPORT[type(tracer_scheme)] + imm)) * axes + 8 * nf)
+    ops = lambda s: transport_ops(s, grid.dtype) + imm
+    return (3 * ops(scheme) + ntracers * ops(tracer_scheme)) * axes + 8 * nf
 
 
 def k2_bound(args):
@@ -3306,16 +3354,17 @@ SCHEMES_HOLD = dict(size=(360, 150, 24), steps=3, stretched=("PW", "BP"))
 def k4b_flops(model):
     """K4b's operations a point with the model's schemes, counted as
     ``FLOPS``: the vector-invariant flagship's momentum (~400) or two
-    velocities' three flux-form transports by scheme (``K2_TRANSPORT``),
+    velocities' three flux-form transports by scheme (``transport_ops``),
     each tracer's three transports (a WENO5 or BoundsPreservingWENO5 z flux
     two-sided on a stretched z: one transport more; PositiveWENO5's count
     has both sides), ~8 a field for the divergences and ~50 for Coriolis,
     −∂pHY′ and the epilogue."""
     sch, ts = model.momentum_advection, model.tracer_advection
-    mom = 400 if isinstance(sch, VectorInvariant) else 6 * K2_TRANSPORT[type(sch)]
-    per = 3 * K2_TRANSPORT[type(ts)]
+    ops = lambda s: transport_ops(s, model.grid.dtype)
+    mom = 400 if isinstance(sch, VectorInvariant) else 6 * ops(sch)
+    per = 3 * ops(ts)
     if not model.grid.z_regular and type(ts) in (WENO5, BoundsPreservingWENO5):
-        per += K2_TRANSPORT[type(ts)]
+        per += ops(ts)
     nf = 2 + len(model.tracer_names)
     return mom + len(model.tracer_names) * per + 8 * nf + 50
 
@@ -3490,28 +3539,394 @@ def phase_hydro_schemes():
     return worst, forms
 
 
-def phase_bf16_refusals():
-    """WENO5's bf16 options on the card: every model's construction with
-    one of them raises NotImplementedError by name (the kernels do not
-    take them; the plain versions run them on the CPU only)."""
-    grid = RectilinearGrid(size=(16, 16, 16), extent=(1, 1, 1), device=DEVICE)
-    sw = RectilinearGrid(size=(16, 16, 1), extent=(1, 1), topology=(PERIODIC, PERIODIC, FLAT),
-                         device=DEVICE)
-    builds = {"NonhydrostaticModel": lambda w: NonhydrostaticModel(grid, advection=w),
-              "HydrostaticFreeSurfaceModel": lambda w: HydrostaticFreeSurfaceModel(
-                  grid, tracer_advection=w, tracers=("c",)),
-              "ShallowWaterModel": lambda w: ShallowWaterModel(sw, advection=w)}
-    for option in ("fast_bf16", "bf16_smoothness"):
-        for name, build in builds.items():
-            try:
-                build(WENO5(**{option: True}))
-            except NotImplementedError as e:
-                if "bf16 options" not in str(e):
-                    raise
-                continue
-            raise AssertionError(f"{name} took WENO5({option}=True) on the card")
-    print("bf16 options: WENO5(fast_bf16=True) and WENO5(bf16_smoothness=True) refused "
-          "by name in the nonhydrostatic, hydrostatic and shallow-water models")
+#: WENO5's bf16 options (the bf16 forms of ``csrc/weno5_advection.cuh`` in
+#: the ANY instantiations of K1, K2, K3a and K4b), by name as the holds'
+#: labels give them
+BF16_OPTIONS = {"smoothness": dict(bf16_smoothness=True), "fast": dict(fast_bf16=True)}
+#: the WENO5 family under each option
+BF16_SCHEMES = {"WENO5": WENO5, "BP": BoundsPreservingWENO5, "PW": PositiveWENO5}
+#: the two 256³ fp32 AB2 paths of the options (Δt = 1e-4, 2 warm-up and 5
+#: timed steps; 1 K1 and 2 K6 a step):
+#: - "AB2 bf16 smoothness": bench.py:55-76 with CLIMA_BF16S set,
+#:   WENO5(bf16_smoothness=True), the AB2 path's u, v (1e-2) and b (1e-4)
+#:   from a numpy seed;
+#: - "AB2 fast bf16": benchmark/bench_bf16.py:9-25, WENO5(fast_bf16=True),
+#:   u = 1e-2·N(0,1) from a seeded torch.Generator, v = b = 0.
+#: Each is held bit for bit against its plain run and, after the same steps
+#: from the same state, within ``BF16_GATE`` of each field's scale of the
+#: fp32 run (the gate of tests/test_bf16_smoothness.py:68).
+BF16_PATHS = {"AB2 bf16 smoothness": "smoothness", "AB2 fast bf16": "fast"}
+BF16_PATH_STEPS = (1e-4, 2, 5)
+BF16_GATE = 5e-3
+#: the fp64 holds of fast_bf16 (K1 and K2 at 128³, K3a at 4096²) and the ¼°
+#: advance with bf16_smoothness tracers
+BF16_HOLD = dict(n64=128, n_sw64=4096, quarter_steps=2)
+
+
+def bf16_path_model(path, option):
+    """The 256³ fp32 AB2 model with WENO5 under ``option`` (None: WENO5()
+    in fp32) and the path's initial state."""
+    grid = RectilinearGrid(size=(N, N, N), extent=(1.0, 1.0, 1.0),
+                           topology=(PERIODIC, PERIODIC, BOUNDED), device=DEVICE)
+    model = NonhydrostaticModel(grid, advection=WENO5(**BF16_OPTIONS.get(option, {})),
+                                buoyancy=BuoyancyTracer(),
+                                timestepper="QuasiAdamsBashforth2")
+    if not (model.fused_step and model.g_interior):
+        raise AssertionError(f"{path}: the model does not take K1's fused branch")
+    if path == "AB2 fast bf16":
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        return model, model.initial_state(
+            u=1e-2 * torch.randn(grid.shape, generator=gen, device=DEVICE))
+    return model, bench_state(model)
+
+
+def phase_bf16_path(path):
+    """One of ``BF16_PATHS`` with the kernels (checked: finite, the AB2
+    path's divergence bound, K1 bit for bit and timed on the path's
+    fields), then the fp32 run from the same state (the kernels), then the
+    plain versions; returns the kernel run's launch counts and K1's reading
+    on the path's fields (a form record with the path's launches)."""
+    dt, warmup, steps = BF16_PATH_STEPS
+    option = BF16_PATHS[path]
+    model, state = bf16_path_model(path, option)
+    state, per_step, launches = run_steps(path, model, state, lambda s: model.step(s, dt),
+                                          warmup, steps, False)
+    check_finite(path, model, state, ("pHY", "pNHS"))
+    ratio = divergence_ratio(model, state)
+    if not ratio <= 1e-5:
+        raise AssertionError(f"{path}: max|div u|*dx/max|u| = {ratio:.3e} > 1e-5")
+    err = hold_k1(f"K1 {N}^3 fp32 on the {path} path's fields", model, state, dt)[2]
+    psi_k, g_k = fused_ab2_advance(model, state, dt, False)
+    nb = tensor_bytes(state["solution"].values(), state["G_prev"].values(),
+                      [state["pHY"]], psi_k.values(), g_k.values())
+    del psi_k, g_k
+    scheme = model.advection
+    b = bound(K1, nb, N ** 3, flops=k2_flops(model.grid, scheme, scheme, 1) + 20)
+    label = f"P,P,B {N}^3 fp32, WENO5 {option} / WENO5 {option}, the {path} path's fields"
+    ms, plain_ms = time_form(K1, label, lambda: fused_ab2_advance(model, state, dt, False),
+                             lambda: fused_ab2_advance_reference(model, state, dt, False), b)
+    reading = form_record(path, label, err, ms, plain_ms, *b, launches[K1])
+    kernel_u = {k: model.grid.interior(a).clone() for k, a in state["solution"].items()}
+    del model, state
+    torch.cuda.empty_cache()
+    model, state = bf16_path_model(path, None)
+    state, fp32_step, _ = run_steps("AB2", model, state, lambda s: model.step(s, dt),
+                                    warmup, steps, False)
+    gap = {}
+    for k, a in state["solution"].items():
+        ref = model.grid.interior(a)
+        scale = float(ref.abs().max()) + 1e-12
+        gap[k] = float((kernel_u[k] - ref).abs().max()) / scale
+        if not gap[k] < BF16_GATE:
+            raise AssertionError(f"{path}: {k} differs from the fp32 run by {gap[k]:.3e} "
+                                 f"of its scale (gate {BF16_GATE})")
+    used = {k: n for k, n in launches.items() if n}
+    print(f"{path} path: {N}^3 fp32, {steps} steps: {per_step * 1e3:.3f} ms/step beside "
+          f"the fp32 AB2 run's {fp32_step * 1e3:.3f} ms/step in this call, "
+          f"{N ** 3 / per_step:.6e} grid points/s, launches {used} in {warmup + steps} "
+          f"steps, max|div u|*dx/max|u| {ratio:.3e}, from the fp32 run "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in gap.items()})} of each "
+          f"field's scale, on {card_line()}")
+    del model, state
+    torch.cuda.empty_cache()
+    model, state = bf16_path_model(path, option)
+    state, plain_step, _ = run_steps(path, model, state,
+                                     lambda s: model.step(s, dt, nonhydrostatic.PLAIN),
+                                     warmup, steps, True)
+    worst = agreement(path, warmup + steps, kernel_u, model, state)
+    print(f"{path} path: plain versions: {plain_step * 1e3:.3f} ms/step; kernel and "
+          f"plain runs agree to {worst:.3e} of max|field|")
+    del model, state, kernel_u
+    torch.cuda.empty_cache()
+    return launches, reading
+
+
+def bf16_scheme(short, option):
+    return BF16_SCHEMES[short](**BF16_OPTIONS[option])
+
+
+def bf16_k2_args(size, dtype, momentum, tracer, stretched=False, seed=13):
+    """K2's arguments as ``scheme_k2_args`` makes them (random velocities,
+    tracers b and c in [−0.1, 1.1]), on the examples' box with ``size``
+    cells of ``dtype``, on the wind-mixing stretched z with ``stretched``."""
+    grid = surface_grid(size, dtype, stretched)
+    model = NonhydrostaticModel(grid, advection=momentum, tracer_advection=tracer,
+                                tracers=("b", "c"))
+    g = model.grid
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    rand = lambda: torch.randn(g.total_shape, generator=gen, dtype=dtype, device=DEVICE)
+    sol = {n: rand() for n in "uvw"}
+    sol.update({n: 1.2 * torch.rand(g.total_shape, generator=gen, dtype=dtype,
+                                    device=DEVICE) - 0.1 for n in "bc"})
+    return (g, model.advection, model.tracer_advection, sol["u"], sol["v"], sol["w"],
+            {n: sol[n] for n in "bc"})
+
+
+def bf16_k1(label, n, dtype, scheme):
+    """K1 with ``scheme`` as momentum and tracer scheme on the bench
+    configuration's random fields, bit for bit and timed; returns (its
+    record, the model and state)."""
+    grid = RectilinearGrid(size=(n, n, n), extent=(1.0, 1.0, 1.0),
+                           topology=(PERIODIC, PERIODIC, BOUNDED), dtype=dtype,
+                           device=DEVICE)
+    model = NonhydrostaticModel(grid, advection=scheme, tracer_advection=scheme,
+                                buoyancy=BuoyancyTracer())
+    if not (model.fused_step and model.g_interior):
+        raise AssertionError(f"K1 {label}: the model does not take K1's fused branch")
+    state = random_state(model, 1)
+    poison_cache(model.grid.total_shape, dtype, 10)
+    psi_k, g_k, err = hold_k1(f"K1 {label}", model, state)
+    nb = tensor_bytes(state["solution"].values(), state["G_prev"].values(),
+                      [state["pHY"]], psi_k.values(), g_k.values())
+    del psi_k, g_k
+    b = bound(K1, nb, n ** 3, flops=k2_flops(model.grid, scheme, scheme, 1) + 20)
+    ms, plain_ms = time_form(K1, label, lambda: fused_ab2_advance(model, state, 1e-4, False),
+                             lambda: fused_ab2_advance_reference(model, state, 1e-4, False), b)
+    return form_record("bf16", label, err, ms, plain_ms, *b), model, state
+
+
+def bf16_k2(label, args):
+    """K2 on ``args``, bit for bit over NaN-filled outputs and timed."""
+    poison_cache(args[0].total_shape, args[0].dtype, 7)
+    err = hold_k2(f"K2 {label}", args, args[0].dtype)
+    b = k2_bound(args)
+    ms, plain_ms = time_form(K2, label, lambda: fused_advective_tendencies(*args),
+                             lambda: fused_advective_tendencies_reference(*args), b)
+    return form_record("bf16", label, err, ms, plain_ms, *b)
+
+
+def bf16_k3a(label, n, dtype, momentum, tracer):
+    """K3a at n² with ``momentum`` for uh and vh and one ``tracer`` tracer
+    (as phase_schemes' holds), bit for bit over NaN-filled outputs and
+    timed."""
+    grid = RectilinearGrid(size=(n, n, 1), x=(0, 2 * math.pi), y=(0, 2 * math.pi),
+                           topology=(PERIODIC, PERIODIC, FLAT), halo=(3, 3, 0),
+                           dtype=dtype, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    rand = lambda sc, o=0.0: o + sc * torch.randn(grid.total_shape, generator=gen,
+                                                  dtype=dtype, device=DEVICE)
+    c = 1.2 * torch.rand(grid.total_shape, generator=gen, dtype=dtype, device=DEVICE) - 0.1
+    args = (grid, momentum, tracer, 10.0, rand(0.1), rand(0.1), rand(0.05, 1.0), [c], None)
+    poison_cache(grid.total_shape, dtype, 4)
+    names = ["uh", "vh", "h", "c"]
+    got = dict(zip(names, fused_shallow_water_tendencies(*args)))
+    ref = dict(zip(names, fused_shallow_water_tendencies_reference(*args)))
+    err = hold(f"K3a {label}", {"G": got}, {"G": ref}, dtype, grid.interior, exact=True)
+    del got, ref
+    # uh and vh: two transports each; the tracer's two with its velocities
+    flops = (4 * transport_ops(momentum, dtype) + 44
+             + 2 * transport_ops(tracer, dtype) + 10)
+    b = bound(K3A, 2 * tensor_bytes(args[4:7], args[7]), n ** 2, flops=flops)
+    ms, plain_ms = time_form(K3A, label, lambda: fused_shallow_water_tendencies(*args),
+                             lambda: fused_shallow_water_tendencies_reference(*args), b)
+    return form_record("bf16", label, err, ms, plain_ms, *b)
+
+
+def bf16_k4b(label, model, state, timed):
+    """K4b's fused advance and tendency form on the model's state, bit for
+    bit over NaN-filled outputs with zero halos; with ``timed``, the
+    advance timed against its bound. Returns (max|Δ|, its record or None)."""
+    g = model.grid
+    err, record = 0.0, None
+    for adv in ((HYDRO["dt"], False), None):
+        poison_cache(g.total_shape, g.dtype, 12)
+        got = fused_hydrostatic_tendencies(model, state, adv)
+        ref = fused_hydrostatic_tendencies_reference(model, state, adv)
+        form = "tendencies" if adv is None else "advance"
+        pairs = (({"G": got}, {"G": ref}) if adv is None else
+                 ({"psi'": got[0], "G": got[1]}, {"psi'": ref[0], "G": ref[1]}))
+        err = max(err, hold(f"K4b {label}, {form}", *pairs, g.dtype, g.interior,
+                            exact=True))
+        for kind in pairs[0].values():  # the kernel writes its halos zero
+            for name, t in kind.items():
+                halo = t.clone()
+                halo[g.interior_slices] = 0
+                if halo.isnan().any() or halo.any():
+                    raise AssertionError(f"K4b {label}, {form} {name}: a halo point "
+                                         "is not zero")
+        if adv is not None and timed:
+            b = k4b_bound(model, state, [t for o in got for t in o.values()], True)
+            del got, ref
+            ms, plain_ms = time_form(K4B, f"{label}, advance",
+                                     lambda: fused_hydrostatic_tendencies(model, state, adv),
+                                     lambda: fused_hydrostatic_tendencies_reference(
+                                         model, state, adv), b)
+            record = form_record("bf16", f"{label}, advance", err, ms, plain_ms, *b)
+        else:
+            del got, ref
+    return err, record
+
+
+#: the bf16 forms on walls, an immersed bottom and a Flat x: K2 on
+#: (B, B, B) and on (P, P, B) over ``unit_seamount``, K1 on (F, P, B)
+BF16_WALLS = {"B,B,B": (67, 45, 29), "P,P,B immersed": (100, 77, 45),
+              "F,P,B": (1, 1000, 333)}
+
+
+def bf16_wall_args(where, size, dtype, option):
+    """K2's arguments on ``BF16_WALLS[where]`` with WENO5 momentum and a
+    PositiveWENO5 tracer under ``option``: random velocities (masked over
+    the bottom), the tracer in [−0.1, 1.1]."""
+    topology = ((BOUNDED,) * 3 if where == "B,B,B" else (PERIODIC, PERIODIC, BOUNDED))
+    immersed = "immersed" in where
+    grid = RectilinearGrid(size=size, x=(0.0, 1.0), y=(0.0, 1.0), z=(-1.0, 0.0),
+                           topology=topology, dtype=dtype, device=DEVICE)
+    model = NonhydrostaticModel(
+        grid, advection=bf16_scheme("WENO5", option),
+        tracer_advection=bf16_scheme("PW", option), tracers=("c",),
+        immersed_boundary=GridFittedBottom(unit_seamount) if immersed else None)
+    g = model.grid
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    sol = {n: torch.randn(g.total_shape, generator=gen, dtype=dtype, device=DEVICE)
+           for n in "uvw"}
+    sol["c"] = 1.2 * torch.rand(g.total_shape, generator=gen, dtype=dtype, device=DEVICE) - 0.1
+    if immersed:
+        sol = model.immersed_boundary.mask_state(model, {"solution": sol})["solution"]
+    return (g, model.advection, model.tracer_advection, sol["u"], sol["v"], sol["w"],
+            {"c": sol["c"]})
+
+
+def bf16_k1_flat(label, size, dtype, option):
+    """K1 on (F, P, B) with WENO5 momentum and PositiveWENO5 tracers under
+    ``option`` on random fields, bit for bit (``hold_k1``) and timed."""
+    grid = RectilinearGrid(size=size, x=(0.0, 1.0), y=(0.0, 1.0), z=(-1.0, 0.0),
+                           topology=(FLAT, PERIODIC, BOUNDED), dtype=dtype, device=DEVICE)
+    scheme, tracer = bf16_scheme("WENO5", option), bf16_scheme("PW", option)
+    model = NonhydrostaticModel(grid, advection=scheme, tracer_advection=tracer,
+                                buoyancy=BuoyancyTracer())
+    if not model.fused_step:
+        raise AssertionError(f"K1 {label}: the model does not take K1's fused branch")
+    state = random_state(model, 2)
+    poison_cache(model.grid.total_shape, dtype, 10)
+    psi_k, g_k, err = hold_k1(f"K1 {label}", model, state)
+    nb = tensor_bytes(state["solution"].values(), state["G_prev"].values(),
+                      [state["pHY"]], psi_k.values(), g_k.values())
+    del psi_k, g_k
+    b = bound(K1, nb, math.prod(size), flops=k2_flops(model.grid, scheme, tracer, 1) + 20)
+    ms, plain_ms = time_form(K1, label, lambda: fused_ab2_advance(model, state, 1e-4, False),
+                             lambda: fused_ab2_advance_reference(model, state, 1e-4, False), b)
+    del model, state
+    return form_record("bf16", label, err, ms, plain_ms, *b)
+
+
+def phase_bf16_holds():
+    """The bf16 forms of K1, K2, K3a and K4b bit for bit against their
+    plain versions over NaN-filled outputs, each timed against its bound
+    (``transport_ops``) but K4b's forms over the bottom and on stretched
+    latitudes:
+    - K1 and K2 at 256³ fp32 with WENO5, BoundsPreservingWENO5 and
+      PositiveWENO5 under each option as the momentum and the tracer
+      scheme (the bench configuration's fields), and at 128³ fp64 with
+      WENO5 (K2: PositiveWENO5 tracers) under fast_bf16;
+    - K2 with WENO5 momentum and PositiveWENO5 tracers on the wind-mixing
+      stretched z (the table form) under each option in fp32 and under
+      fast_bf16 at 128³ fp64;
+    - K2 on (B, B, B) and over ``unit_seamount`` (bounded x and y: the
+      near-wall bounds read at run time and the velocities' wall faces;
+      the clear flags) and K1 on (F, P, B), under each option in fp32 and
+      under fast_bf16 in fp64 (``BF16_WALLS``);
+    - K3a at 16384² fp32 under each option (WENO5 for uh and vh,
+      PositiveWENO5 for a tracer) and at 4096² fp64 under fast_bf16;
+    - K4b at 1° (``SCHEMES_HOLD``) with each of the three as flux-form
+      momentum and tracers under each option on the flat bottom, WENO5
+      under each over the near-global bottom, PositiveWENO5 under each on
+      stretched latitudes, WENO5 under fast_bf16 in fp64, both forms after
+      3 steps; and the ¼° flagship's fused advance with
+      WENO5(bf16_smoothness=True) tracers on its fields.
+    Returns ({kernel: largest max|Δ|}, {kernel: the records' forms})."""
+    worst = {K1: 0.0, K2: 0.0, K3A: 0.0, K4B: 0.0}
+    forms = {K1: [], K2: [], K3A: [], K4B: []}
+
+    def keep(name, record):
+        worst[name] = max(worst[name], record["max_abs_err"])
+        forms[name].append(record)
+
+    for short in BF16_SCHEMES:
+        for option in BF16_OPTIONS:
+            scheme = bf16_scheme(short, option)
+            label = f"P,P,B {N}^3 fp32, {short} {option} / {short} {option}"
+            record, model, state = bf16_k1(f"{label}, bench", N, torch.float32, scheme)
+            keep(K1, record)
+            sol = state["solution"]
+            keep(K2, bf16_k2(label, (model.grid, scheme, scheme, sol["u"], sol["v"],
+                                     sol["w"], {"b": sol["b"]})))
+            del model, state, sol
+            torch.cuda.empty_cache()
+    n64 = BF16_HOLD["n64"]
+    record, model, state = bf16_k1(f"P,P,B {n64}^3 fp64, WENO5 fast / WENO5 fast, bench",
+                                   n64, torch.float64, bf16_scheme("WENO5", "fast"))
+    keep(K1, record)
+    del model, state
+    cases = [(f"P,P,B {N}^3 fp32 stretched z, WENO5 {o} / PW {o}", N, torch.float32, o, True)
+             for o in BF16_OPTIONS]
+    cases += [(f"P,P,B {n64}^3 fp64{z}, WENO5 fast / PW fast", n64, torch.float64, "fast",
+               z != "") for z in ("", " stretched z")]
+    for label, n, dtype, option, stretched in cases:
+        args = bf16_k2_args(n, dtype, bf16_scheme("WENO5", option),
+                            bf16_scheme("PW", option), stretched)
+        keep(K2, bf16_k2(label, args))
+        del args
+        torch.cuda.empty_cache()
+    for where, size in BF16_WALLS.items():
+        for dtype, option in ((torch.float32, "smoothness"), (torch.float32, "fast"),
+                              (torch.float64, "fast")):
+            label = (f"{where} {'x'.join(map(str, size))} {str(dtype)[6:]}, "
+                     f"WENO5 {option} / PW {option}")
+            if where == "F,P,B":
+                keep(K1, bf16_k1_flat(label, size, dtype, option))
+            else:
+                keep(K2, bf16_k2(label, bf16_wall_args(where, size, dtype, option)))
+            torch.cuda.empty_cache()
+    for n, dtype, options in ((N_SW, torch.float32, tuple(BF16_OPTIONS)),
+                              (BF16_HOLD["n_sw64"], torch.float64, ("fast",))):
+        for option in options:
+            keep(K3A, bf16_k3a(f"{n}x{n} {str(dtype)[6:]}, WENO5 {option} / PW {option}, "
+                               "1 tracer", n, dtype, bf16_scheme("WENO5", option),
+                               bf16_scheme("PW", option)))
+            torch.cuda.empty_cache()
+    size = SCHEMES_HOLD["size"]
+    k4b = [(short, option, "flat", torch.float32) for short in BF16_SCHEMES
+           for option in BF16_OPTIONS]
+    k4b += [("WENO5", option, "near-global bottom", torch.float32) for option in BF16_OPTIONS]
+    k4b += [("PW", option, "stretched latitude", torch.float32) for option in BF16_OPTIONS]
+    k4b += [("WENO5", "fast", "flat", torch.float64)]
+    for short, option, where, dtype in k4b:
+        lat = stretched_latitude(size[1]) if where == "stretched latitude" else (-75, 75)
+        kw = (dict(immersed_boundary=GridFittedBottom(near_global_bathymetry))
+              if where == "near-global bottom" else {})
+        model = latlon_flagship(grid=latlon_grid(dtype, size=size, latitude=lat),
+                                momentum_advection=bf16_scheme(short, option),
+                                tracer_advection=bf16_scheme(short, option), **kw)
+        g = model.grid
+        gen = torch.Generator(device=DEVICE).manual_seed(19)
+        rand = lambda sc, o=0.0: o + sc * torch.randn(g.shape, generator=gen, dtype=dtype,
+                                                      device=DEVICE)
+        state = model.initial_state(u=rand(0.1), v=rand(0.1), T=rand(1.0, 10.0),
+                                    S=rand(1e-2, 35.0), b=lambda lam, phi, z: 2e-5 * (
+                                        z + 3000.0) / 3000.0)
+        for _ in range(SCHEMES_HOLD["steps"]):
+            state = model.step(state, HYDRO["dt"])
+        label = (f"1 deg {str(dtype)[6:]} {where}, {short} {option} / {short} {option}")
+        err, record = bf16_k4b(label, model, state, where == "flat")
+        worst[K4B] = max(worst[K4B], err)
+        if record is not None:
+            forms[K4B].append(record)
+        del model, state
+        torch.cuda.empty_cache()
+    # the ¼° flagship's advance with bf16_smoothness tracers on its fields
+    model = latlon_flagship(tracer_advection=WENO5(bf16_smoothness=True))
+    rng = np.random.default_rng(0)
+    state = model.initial_state(u=0.1 * rng.standard_normal(model.grid.shape),
+                                b=lambda lam, phi, z: 2e-5 * (z + 3000.0) / 3000.0)
+    for _ in range(BF16_HOLD["quarter_steps"]):
+        state = model.step(state, HYDRO["dt"])
+    err, record = bf16_k4b("1/4 deg fp32 flagship, weno_velocity / WENO5 smoothness",
+                           model, state, True)
+    worst[K4B] = max(worst[K4B], err)
+    forms[K4B].append(record)
+    del model, state
+    torch.cuda.empty_cache()
+    return worst, forms
 
 
 #: examples/internal_wave.py at 32× its 128² on each axis, 4096×1×4096 fp64
@@ -4073,7 +4488,13 @@ def main():
     hydro_worst, hydro_forms = phase_hydro_schemes()
     for name, err in hydro_worst.items():
         scheme_worst[name] = max(scheme_worst.get(name, 0.0), err)
-    phase_bf16_refusals()
+    bf16_worst, bf16_forms = phase_bf16_holds()
+    for name, err in bf16_worst.items():
+        scheme_worst[name] = max(scheme_worst.get(name, 0.0), err)
+    bf16_readings = []
+    for path in BF16_PATHS:
+        by_path[path], reading = phase_bf16_path(path)
+        bf16_readings.append(reading)
     (by_path["internal wave"], wall_readings["internal wave"], k6_err,
      iw_err) = phase_internal_wave()
     by_path["periodic advection"], pa_err = phase_periodic_advection()
@@ -4149,6 +4570,11 @@ def main():
     # K4b with each scheme (holds at 1°) and on the schemes slice's paths,
     # there with the path's launches
     by_name[K4B]["forms"] += hydro_forms[K4B] + k4b_path_forms
+    # WENO5's bf16 options: the holds' forms and K1's on the two AB2 paths,
+    # there with the path's launches
+    by_name[K1]["forms"] += bf16_forms[K1] + bf16_readings
+    for name in (K2, K3A, K4B):
+        by_name[name]["forms"] += bf16_forms[name]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

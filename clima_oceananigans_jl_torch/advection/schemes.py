@@ -160,7 +160,8 @@ class WENO5(AdvectionScheme):
     reconstruction); ``bf16_smoothness`` evaluates only the Jiang-Shu
     smoothness indicators and the nonlinear weights of fp32 data in
     bfloat16, the candidate stencils in full precision. The plain versions
-    run both; no kernel does, so the models refuse them on the card."""
+    and the kernels (``csrc/weno5_advection.cuh``, the bf16 forms) run
+    both, bit for bit."""
 
     buffer: int = 2
     is_upwind: bool = True

@@ -147,7 +147,7 @@ __device__ __forceinline__ T diffusion_at(const AdvanceArgs<T>& A, int f, const 
 // hz+nz) from global memory in the last chunk's blocks, as K2 does: a w
 // wall that the fill does not impose (FluxBC) leaves that face to the step,
 // and the general projection after the advance reads it.
-template <typename T, bool GEN, bool FL, bool ANY>
+template <typename T, bool GEN, bool FL, bool ANY, bool BF = false>
 struct AdvanceOut {
   const AdvanceArgs<T>& A;
 
@@ -178,7 +178,7 @@ struct AdvanceOut {
           if (i >= t.I1 || j >= t.J1) continue;
           const int64_t o = t.g(i, j, top);
           const int Z = D.nz + 2 * D.hz;
-          T g = -div_wall<true, false, ANY>(D, 2, i, j, top, t.gsx, t.gsy);
+          T g = -div_wall<true, false, ANY, BF>(D, 2, i, j, top, t.gsx, t.gsy);
           if (A.diffuse) {
             const int64_t up = top + 1 < Z ? 1 : -(int64_t)top;
             g = g + diffusion_at(A, 2, D.psi[2], o, t.gsx, t.gsy, up, top);
@@ -274,19 +274,19 @@ struct AdvanceOut {
   }
 };
 
-template <typename T, bool GEN, bool FL, bool ANY>
+template <typename T, bool GEN, bool FL, bool ANY, bool BF = false>
 __global__ void __launch_bounds__(AT_THREADS, 1)
 fused_ab2_advance_kernel(const __grid_constant__ AdvanceArgs<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  advect_tile<GEN, FL, false, false, ANY>(A.adv, reinterpret_cast<T*>(smem_raw),
-                                          AdvanceOut<T, GEN, FL, ANY>{A});
+  advect_tile<GEN, FL, false, false, ANY, BF>(A.adv, reinterpret_cast<T*>(smem_raw),
+                                              AdvanceOut<T, GEN, FL, ANY, BF>{A});
 }
 
-template <typename T, bool GEN, bool FL, bool ANY>
+template <typename T, bool GEN, bool FL, bool ANY, bool BF = false>
 static int launch_kernel(AdvanceArgs<T>& A, void* stream) {
   int smem;
   const dim3 blocks = plan_tiles<FL>(A.adv, smem);
-  auto kernel = fused_ab2_advance_kernel<T, GEN, FL, ANY>;
+  auto kernel = fused_ab2_advance_kernel<T, GEN, FL, ANY, BF>;
   const int rc = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != 0) return rc;
@@ -329,7 +329,13 @@ static int launch(const void* const* psi, const void* const* gp,
     return (int)cudaErrorInvalidValue;
   if (w_top && !g_halo) return (int)cudaErrorInvalidValue;
   if (A.adv.nx <= 0 || A.adv.ny <= 0 || A.adv.nz <= 0) return 0;
-  // ANY: a scheme of needs_any (weno5_advection.cuh)
+  // ANY: a scheme of needs_any (weno5_advection.cuh); its bf16 sub-form
+  // for WENO5's bf16 options
+  if (advection_bf16(A.adv)) {
+    if (zs == nullptr) return launch_kernel<T, false, false, true, true>(A, stream);
+    return flat ? launch_kernel<T, true, true, true, true>(A, stream)
+                : launch_kernel<T, true, false, true, true>(A, stream);
+  }
   if (advection_any(A.adv)) {
     if (zs == nullptr) return launch_kernel<T, false, false, true>(A, stream);
     return flat ? launch_kernel<T, true, true, true>(A, stream)

@@ -81,7 +81,7 @@ struct TendencyArgs {
 
 // K2's use of advect_tile: G = -div into the with-halo outputs (ZS: on a
 // stretched z; FL: the Flat layout; IM: the clear flags at the wall faces)
-template <typename T, bool ZS, bool FL, bool IM, bool ANY>
+template <typename T, bool ZS, bool FL, bool IM, bool ANY, bool BF = false>
 struct TendencyOut {
   const TendencyArgs<T>& A;
 
@@ -110,19 +110,19 @@ struct TendencyOut {
       for (int s = threadIdx.x; s < S::Y * kz; s += blockDim.x) {
         const int j = t.J0 + s / kz, k = t.K0 + s % kz, i = D.hx + D.nx;
         if (j < t.J1)
-          A.out[0][t.g(i, j, k)] = -div_wall<ZS, IM, ANY>(D, 0, i, j, k, t.gsx, t.gsy);
+          A.out[0][t.g(i, j, k)] = -div_wall<ZS, IM, ANY, BF>(D, 0, i, j, k, t.gsx, t.gsy);
       }
     if ((A.walls & 2) && blockIdx.y == gridDim.y - 1)  // v's north face
       for (int s = threadIdx.x; s < S::X * kz; s += blockDim.x) {
         const int i = t.I0 + s / kz, k = t.K0 + s % kz, j = D.hy + D.ny;
         if (i < t.I1)
-          A.out[1][t.g(i, j, k)] = -div_wall<ZS, IM, ANY>(D, 1, i, j, k, t.gsx, t.gsy);
+          A.out[1][t.g(i, j, k)] = -div_wall<ZS, IM, ANY, BF>(D, 1, i, j, k, t.gsx, t.gsy);
       }
     if ((A.walls & 4) && blockIdx.z == gridDim.z - 1)  // w's top face
       for (int s = threadIdx.x; s < S::COLS; s += blockDim.x) {
         const int i = t.I0 + s / S::Y, j = t.J0 + s % S::Y, k = D.hz + D.nz;
         if (i < t.I1 && j < t.J1)
-          A.out[2][t.g(i, j, k)] = -div_wall<ZS, IM, ANY>(D, 2, i, j, k, t.gsx, t.gsy);
+          A.out[2][t.g(i, j, k)] = -div_wall<ZS, IM, ANY, BF>(D, 2, i, j, k, t.gsx, t.gsy);
       }
   }
 
@@ -139,19 +139,19 @@ struct TendencyOut {
   }
 };
 
-template <typename T, bool ZS, bool FL, bool XY, bool IM, bool ANY>
+template <typename T, bool ZS, bool FL, bool XY, bool IM, bool ANY, bool BF = false>
 __global__ void __launch_bounds__(AT_THREADS, 1)
 fused_advective_tendencies_kernel(const __grid_constant__ TendencyArgs<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  advect_tile<ZS, FL, XY, IM, ANY>(A.adv, reinterpret_cast<T*>(smem_raw),
-                                   TendencyOut<T, ZS, FL, IM, ANY>{A});
+  advect_tile<ZS, FL, XY, IM, ANY, BF>(A.adv, reinterpret_cast<T*>(smem_raw),
+                                       TendencyOut<T, ZS, FL, IM, ANY, BF>{A});
 }
 
-template <typename T, bool ZS, bool FL, bool XY, bool IM, bool ANY>
+template <typename T, bool ZS, bool FL, bool XY, bool IM, bool ANY, bool BF = false>
 static int launch_kernel(TendencyArgs<T>& A, void* stream) {
   int smem;
   const dim3 blocks = plan_tiles<FL>(A.adv, smem);
-  auto kernel = fused_advective_tendencies_kernel<T, ZS, FL, XY, IM, ANY>;
+  auto kernel = fused_advective_tendencies_kernel<T, ZS, FL, XY, IM, ANY, BF>;
   const int rc = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != 0) return rc;
@@ -189,6 +189,16 @@ static int launch(const void* const* psi, void* const* out, const int* ia,
   const bool flat = advection_flat(ia);
   const auto &m = A.adv.masked, &mt = A.adv.masked_t;
   const bool xy = m[0] || m[1] || mt[0] || mt[1];
+  // WENO5's bf16 options: the bf16 sub-form of the ANY instantiations, one
+  // for each (ZS, FL), with the x/y bounds and the clear flags (null where
+  // there are none) read at run time
+  if (advection_bf16(A.adv)) {
+    if (zs != nullptr)
+      return flat ? launch_kernel<T, true, true, true, true, true, true>(A, stream)
+                  : launch_kernel<T, true, false, true, true, true, true>(A, stream);
+    return flat ? launch_kernel<T, false, true, true, true, true, true>(A, stream)
+                : launch_kernel<T, false, false, true, true, true, true>(A, stream);
+  }
   const bool any = advection_any(A.adv);
   if (zs != nullptr) {
     if (flat) return xy ? launch_im<T, true, true, true>(A, im, any, stream)

@@ -94,7 +94,9 @@
 // near-wall bounds (weno5_advection.cuh's transport_any: PositiveWENO5's
 // to-faces transports limited, with the y and z tables on stretched axes,
 // each face its own row; UB1, UB3, UB5 and C4 their uniform stencils even
-// there, as JAX's transport takes tables only for the WENO5 family).
+// there, as JAX's transport takes tables only for the WENO5 family); with
+// WENO5's bf16 options its bf16 sub-form (BF), which alone carries the
+// bf16 forms of the reconstructions.
 // __launch_bounds__(512, 1) keeps a thread at 128 registers or fewer, so
 // 16 warps fit on an SM.
 #include <cuda_runtime.h>
@@ -147,6 +149,7 @@ struct HydroArgs {
   int xm_t, ym_t, zm_t;
   Bounds xb_t, yb_t, zb_t;
   T lo_m, hi_m, lo_t, hi_t;
+  int bf_m, bf_t;  // BF: WENO5's bf16 option, flux-form momentum / tracers
 };
 
 // the tile and its shared-memory boxes, all with z (levels) fastest
@@ -400,7 +403,7 @@ struct Tabs {
 // expressions they had before the other schemes came, so that they compile
 // as they did.
 
-template <bool ANY, typename T>
+template <bool ANY, bool BF, typename T>
 __device__ T div_vu(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64_t gsx,
                     int64_t gsy) {
   const HydroArgs<T>& A = *P.A;
@@ -416,9 +419,9 @@ __device__ T div_vu(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64
   // x fluxes at centres I-1, I (to centres: the stream of face q+1)
   auto fx = [&](int q, int i) {
     if constexpr (ANY)
-      return Ax * transport_any<true>(u, q + sx, sx, half * (u[q + sx] + u[q]), A.sm, eps,
+      return Ax * transport_any<true, BF>(u, q + sx, sx, half * (u[q + sx] + u[q]), A.sm, eps,
                                       A.xm != 0, A.xb, i, false, tb.z, false, clr,
-                                      g + (i - I) * gsx, gsx, 1, A.lo_m, A.hi_m);
+                                      g + (i - I) * gsx, gsx, 1, A.lo_m, A.hi_m, A.bf_m);
     else
       return Ax * transport_tables(u, q + sx, sx, half * (u[q + sx] + u[q]), we, eps,
                                    we && A.xm, A.xb, i, false, tb.z,
@@ -427,9 +430,9 @@ __device__ T div_vu(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64
   auto fy = [&](int q, int j) {
     if constexpr (ANY)
       return (P.yr(DX_FF)[j] * dz)
-             * transport_any<true>(u, q, sy, half * (v[q] + v[q - sx]), A.sm, eps, A.ym != 0,
+             * transport_any<true, BF>(u, q, sy, half * (v[q] + v[q - sx]), A.sm, eps, A.ym != 0,
                                    A.yb, j, tb.yon, tb.yf, true, clr, g + (j - J) * gsy, gsy,
-                                   2, A.lo_m, A.hi_m);
+                                   2, A.lo_m, A.hi_m, A.bf_m);
     else
       return (P.yr(DX_FF)[j] * dz) * transport_tables(u, q, sy, half * (v[q] + v[q - sx]), we,
                                                       eps, we && A.ym, A.yb, j, we && tb.yon,
@@ -438,9 +441,9 @@ __device__ T div_vu(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64
   const T az = P.yr(AZ_FC)[J];
   auto fz = [&](int q, int qw, int k) {
     if constexpr (ANY)
-      return az * transport_any<true>(u, q, 1, half * (w[qw] + w[qw - P.wsx]), A.sm, eps,
+      return az * transport_any<true, BF>(u, q, 1, half * (w[qw] + w[qw - P.wsx]), A.sm, eps,
                                       A.zm != 0, A.zb, k, tb.zon, tb.z, true, clr, g + (k - K),
-                                      1, 4, A.lo_m, A.hi_m);
+                                      1, 4, A.lo_m, A.hi_m, A.bf_m);
     else
       return az * transport_tables(u, q, 1, half * (w[qw] + w[qw - P.wsx]), we, eps,
                                    we && A.zm != 0, A.zb, k, we && tb.zon, tb.z,
@@ -450,7 +453,7 @@ __device__ T div_vu(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64
                   + (fz(o + 1, P.ow + 1, K + 1) - fz(o, P.ow, K)), az * dz);
 }
 
-template <bool ANY, typename T>
+template <bool ANY, bool BF, typename T>
 __device__ T div_vv(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64_t gsx,
                     int64_t gsy) {
   const HydroArgs<T>& A = *P.A;
@@ -465,9 +468,9 @@ __device__ T div_vv(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64
   const int64_t g = I * gsx + J * gsy + K;
   auto fx = [&](int q, int i) {
     if constexpr (ANY)
-      return Ax * transport_any<true>(v, q, sx, half * (u[q] + u[q - sy]), A.sm, eps,
+      return Ax * transport_any<true, BF>(v, q, sx, half * (u[q] + u[q - sy]), A.sm, eps,
                                       A.xm != 0, A.xb, i, false, tb.z, true, clr,
-                                      g + (i - I) * gsx, gsx, 1, A.lo_m, A.hi_m);
+                                      g + (i - I) * gsx, gsx, 1, A.lo_m, A.hi_m, A.bf_m);
     else
       return Ax * transport_tables(v, q, sx, half * (u[q] + u[q - sy]), we, eps, we && A.xm,
                                    A.xb, i, false, tb.z, clear_at(clr, g + (i - I) * gsx, 0));
@@ -476,9 +479,9 @@ __device__ T div_vv(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64
   auto fy = [&](int q, int j) {
     if constexpr (ANY)
       return (P.yr(DX_CC)[j] * dz)
-             * transport_any<true>(v, q + sy, sy, half * (v[q + sy] + v[q]), A.sm, eps,
+             * transport_any<true, BF>(v, q + sy, sy, half * (v[q + sy] + v[q]), A.sm, eps,
                                    A.ym != 0, A.yb, j, tb.yon, tb.yc, false, clr,
-                                   g + (j - J) * gsy, gsy, 2, A.lo_m, A.hi_m);
+                                   g + (j - J) * gsy, gsy, 2, A.lo_m, A.hi_m, A.bf_m);
     else
       return (P.yr(DX_CC)[j] * dz) * transport_tables(v, q + sy, sy, half * (v[q + sy] + v[q]),
                                                       we, eps, we && A.ym, A.yb, j,
@@ -488,9 +491,9 @@ __device__ T div_vv(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64
   const T az = P.yr(AZ_CF)[J];
   auto fz = [&](int q, int qw, int k) {
     if constexpr (ANY)
-      return az * transport_any<true>(v, q, 1, half * (w[qw] + w[qw - P.wsy]), A.sm, eps,
+      return az * transport_any<true, BF>(v, q, 1, half * (w[qw] + w[qw - P.wsy]), A.sm, eps,
                                       A.zm != 0, A.zb, k, tb.zon, tb.z, true, clr, g + (k - K),
-                                      1, 4, A.lo_m, A.hi_m);
+                                      1, 4, A.lo_m, A.hi_m, A.bf_m);
     else
       return az * transport_tables(v, q, 1, half * (w[qw] + w[qw - P.wsy]), we, eps,
                                    we && A.zm != 0, A.zb, k, we && tb.zon, tb.z,
@@ -563,7 +566,8 @@ __device__ __forceinline__ void store_zero(const HydroArgs<T>& A, int64_t p) {
   }
 }
 
-template <typename T, int MOM, int COR, int TABLES_ON, int ADV, int XTRA, bool ANY>
+template <typename T, int MOM, int COR, int TABLES_ON, int ADV, int XTRA, bool ANY,
+          bool BF = false>
 __global__ void __launch_bounds__(HT_THREADS, 1)
 fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -711,7 +715,7 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
     const int64_t p = I * gsx + J * gsy + K;
     // u
     T g = T(0);
-    if (mom == FLUX_FORM) g = -div_vu<ANY>(P, tb, clr_u, gsx, gsy);
+    if (mom == FLUX_FORM) g = -div_vu<ANY, BF>(P, tb, clr_u, gsx, gsy);
     else if (mom != NO_MOMENTUM) g = -vi_u(P, M, mom);
     if (cor != NO_CORIOLIS) g = g - f_cross_x(P, cor);
     if (A.ph != nullptr) g = g - ieee_div(A.ph[p] - A.ph[p - gsx], P.yr(DX_FC)[J]);
@@ -721,7 +725,7 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
     store<T, ADV>(A, 0, p, su[P.o], g);
     // v
     g = T(0);
-    if (mom == FLUX_FORM) g = -div_vv<ANY>(P, tb, clr_v, gsx, gsy);
+    if (mom == FLUX_FORM) g = -div_vv<ANY, BF>(P, tb, clr_v, gsx, gsy);
     else if (mom != NO_MOMENTUM) g = -vi_v(P, M, mom);
     if (cor != NO_CORIOLIS) g = g - f_cross_y(P, cor);
     if (A.ph != nullptr) g = g - ieee_div(A.ph[p] - A.ph[p - gsy], P.yr(DY_F)[J]);
@@ -776,9 +780,9 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
         const int q = at(i, j, k);
         if constexpr (ANY)
           FX[t] = (A.ys[DY_C * Y + j] * A.zs[Z_DZ_C * Z + k])
-                  * transport_any<true>(sc, q, sx, su[q], A.tr, eps, A.xm_t != 0, A.xb_t, i,
+                  * transport_any<true, BF>(sc, q, sx, su[q], A.tr, eps, A.xm_t != 0, A.xb_t, i,
                                         false, tb.z, true, clr_c, i * gsx + j * gsy + k, gsx,
-                                        1, A.lo_t, A.hi_t);
+                                        1, A.lo_t, A.hi_t, A.bf_t);
         else
           FX[t] = (A.ys[DY_C * Y + j] * A.zs[Z_DZ_C * Z + k])
                   * transport_tables(sc, q, sx, su[q], we, eps, xmask, A.xb, i, false, tb.z,
@@ -790,9 +794,9 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
         const int q = at(i, j, k);
         if constexpr (ANY)
           FY[s] = (A.ys[DX_CF * Y + j] * A.zs[Z_DZ_C * Z + k])
-                  * transport_any<true>(sc, q, sy, sv[q], A.tr, eps, A.ym_t != 0, A.yb_t, j,
+                  * transport_any<true, BF>(sc, q, sy, sv[q], A.tr, eps, A.ym_t != 0, A.yb_t, j,
                                         tb.yon, tb.yf, true, clr_c, i * gsx + j * gsy + k, gsy,
-                                        2, A.lo_t, A.hi_t);
+                                        2, A.lo_t, A.hi_t, A.bf_t);
         else
           FY[s] = (A.ys[DX_CF * Y + j] * A.zs[Z_DZ_C * Z + k])
                   * transport_tables(sc, q, sy, sv[q], we, eps, ymask, A.yb, j, we && tb.yon,
@@ -803,9 +807,9 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
         if (i >= I1 || j >= J1 || k > K1) continue;
         if constexpr (ANY)
           FZ[s] = A.ys[AZ_CC * Y + j]
-                  * transport_any<true>(sc, at(i, j, k), 1, sw[wat(i, j, k)], A.tr, eps,
+                  * transport_any<true, BF>(sc, at(i, j, k), 1, sw[wat(i, j, k)], A.tr, eps,
                                         A.zm_t != 0, A.zb_t, k, tables, tb.z, true, clr_c,
-                                        i * gsx + j * gsy + k, 1, 4, A.lo_t, A.hi_t);
+                                        i * gsx + j * gsy + k, 1, 4, A.lo_t, A.hi_t, A.bf_t);
         else
           FZ[s] = A.ys[AZ_CC * Y + j]
                   * transport_tables(sc, at(i, j, k), 1, sw[wat(i, j, k)], we, eps,
@@ -831,9 +835,10 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
   }
 }
 
-template <typename T, int MOM, int COR, int TABLES_ON, int ADV, int XTRA, bool ANY = false>
+template <typename T, int MOM, int COR, int TABLES_ON, int ADV, int XTRA, bool ANY = false,
+          bool BF = false>
 static int run(const HydroArgs<T>& A, dim3 blocks, int smem, cudaStream_t stream) {
-  auto kernel = fused_hydrostatic_tendencies_kernel<T, MOM, COR, TABLES_ON, ADV, XTRA, ANY>;
+  auto kernel = fused_hydrostatic_tendencies_kernel<T, MOM, COR, TABLES_ON, ADV, XTRA, ANY, BF>;
   if (smem > 48 * 1024) {
     const int rc = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -880,12 +885,18 @@ static int launch(const void* const* psi, const void* w, const void* ph,
   A.ys = static_cast<const T*>(ys);
   A.zs = static_cast<const T*>(zs);
   A.nf = nf; A.nx = nx; A.ny = ny; A.nz = nz; A.hx = hx; A.hy = hy; A.hz = hz;
-  A.mom = mom; A.sm = sm; A.tr = tr; A.cor = cor;
+  A.mom = mom; A.cor = cor;
+  split_scheme<T>(sm, A.sm, A.bf_m);
+  split_scheme<T>(tr, A.tr, A.bf_t);
+  sm = A.sm;
+  tr = A.tr;
+  if (mom != FLUX_FORM) A.bf_m = BF16_NONE;
   A.tables = tables; A.advance = advance;
   // ANY: a flux-form momentum scheme or a tracer scheme beyond WENO5 and
-  // centred (the first-code forms take those two alone)
+  // centred (the first-code forms take those two alone), or a bf16 option
   const bool any = (mom == FLUX_FORM && sm != SCHEME_CENTRED && sm != SCHEME_WENO5)
-                   || (tr >= 0 && tr != SCHEME_CENTRED && tr != SCHEME_WENO5);
+                   || (tr >= 0 && tr != SCHEME_CENTRED && tr != SCHEME_WENO5)
+                   || A.bf_m != BF16_NONE || A.bf_t != BF16_NONE;
   // the first-code forms read one set of near-wall bounds, WENO5's: the
   // tracers' where the momentum scheme is not a flux-form WENO5
   const int* m = any || (mom == FLUX_FORM && sm == SCHEME_WENO5) ? b : bt;
@@ -924,6 +935,9 @@ static int launch(const void* const* psi, const void* w, const void* ph,
     if (advance) return run<T, VI_WENO_VELOCITY, SPHERICAL_ENERGY, 1, 1, 0>(A, blocks, smem, st);
     return run<T, VI_WENO_VELOCITY, SPHERICAL_ENERGY, 1, 0, 0>(A, blocks, smem, st);
   }
+  // WENO5's bf16 options: the bf16 sub-form of the run-time ANY form
+  if (A.bf_m != BF16_NONE || A.bf_t != BF16_NONE)
+    return run<T, -1, -1, -1, -1, 1, true, true>(A, blocks, smem, st);
   if (any) return run<T, -1, -1, -1, -1, 1, true>(A, blocks, smem, st);
   return run<T, -1, -1, -1, -1, 1>(A, blocks, smem, st);
 }
@@ -936,7 +950,7 @@ extern "C" {
 // `out_psi` are null unless `advance`; kh and kv are host arrays of
 // MAX_FIELDS coefficients (read with `closure` 1 or 2). `mom` is the
 // momentum form, `sm` the flux form's scheme and `tr` the tracers'
-// (SCHEME_*; -1 none). The 15 bound ints are the flux-form momentum
+// (SCHEME_* plus 16 times the bf16 option, split_scheme; -1 none). The 15 bound ints are the flux-form momentum
 // scheme's near-wall reduction, for x, y and z: masked, lo_l, hi_l, lo_r,
 // hi_r; `bt` a host array of the tracer scheme's 15, `pw` one of
 // PositiveWENO5's (lo, hi) of the momentum and of the tracer scheme.

@@ -69,6 +69,7 @@ struct ShallowWaterArgs {
   T eps_m, eps_t, dx, dy;
   T g, half_g;               // g and 0.5*g, each rounded once to T
   T lo_m, hi_m, lo_t, hi_t;  // PositiveWENO5's bounds, momentum / tracers (ANY)
+  int bf_m, bf_t;            // WENO5's bf16 option, momentum / tracers (BF)
 };
 
 constexpr int SW_TX = 16, SW_TY = 64, SW_THREADS = 256, SW_R = 3;
@@ -88,8 +89,9 @@ static int shallow_water_smem_elems(int nf) {
 }
 
 // ANY: a scheme of needs_any (weno5_advection.cuh); without it the
-// transports compile to the four first codes' branches alone
-template <typename T, bool ANY>
+// transports compile to the four first codes' branches alone. BF: ANY's
+// bf16 sub-form, for WENO5's bf16 options
+template <typename T, bool ANY, bool BF = false>
 __global__ void __launch_bounds__(SW_THREADS)
 fused_shallow_water_tendencies_kernel(const __grid_constant__ ShallowWaterArgs<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -163,12 +165,13 @@ fused_shallow_water_tendencies_kernel(const __grid_constant__ ShallowWaterArgs<T
   };
   auto pressure = [&](int c) { return (A.half_g * sh[c]) * sh[c]; };
   // transport() of scheme sch at shared offset o (to faces: `to_f`); ANY
-  // also takes PositiveWENO5's limiter with the bounds (lo, hi)
+  // also takes PositiveWENO5's limiter with the bounds (lo, hi), and its
+  // bf16 sub-form BF the bf16 option bf
   auto trans = [&](const T* c, int o, int s, T vel, int sch, T eps, bool m, const Bounds& b,
-                   int q, bool to_f, T lo, T hi) {
+                   int q, bool to_f, T lo, T hi, int bf) {
     if constexpr (ANY)
-      return transport_any<ANY>(c, (int64_t)o, (int64_t)s, vel, sch, eps, m, b, q, false,
-                                ZRows<T>{}, to_f, nullptr, 0, 0, 0, lo, hi);
+      return transport_any<ANY, BF>(c, (int64_t)o, (int64_t)s, vel, sch, eps, m, b, q, false,
+                                    ZRows<T>{}, to_f, nullptr, 0, 0, 0, lo, hi, bf);
     else
       return transport_axis<ANY>(c, (int64_t)o, (int64_t)s, vel, sch, eps, m, b, q);
   };
@@ -184,12 +187,12 @@ fused_shallow_water_tendencies_kernel(const __grid_constant__ ShallowWaterArgs<T
         const int c = at(i, j);
         const T vel = half * (suh[c + sx] + suh[c]);
         HUU[t] = ieee_div(Ax * trans(suh, c + sx, sx, vel, sm_, A.eps_m, xm, A.mb[0][0], i,
-                                     false, A.lo_m, A.hi_m), sh[c]);
+                                     false, A.lo_m, A.hi_m, A.bf_m), sh[c]);
       }
       const int f = at(i + 1, j);  // huv at x face i+1: the x flux of vh over h_ff
       const T vel = half * (suh[f] + suh[f - 1]);
       HUV[t] = ieee_div(Ax * trans(svh, f, sx, vel, sm_, A.eps_m, xm, A.mb[0][0], i + 1,
-                                   true, A.lo_m, A.hi_m), h_ff(f));
+                                   true, A.lo_m, A.hi_m, A.bf_m), h_ff(f));
     } else {
       const int t = u - SW_XF, i = I0 + t / (SW_TY + 1), b = t % (SW_TY + 1);
       if (i >= I1) continue;
@@ -198,13 +201,13 @@ fused_shallow_water_tendencies_kernel(const __grid_constant__ ShallowWaterArgs<T
         const int f = at(i, j);
         const T vel = half * (svh[f] + svh[f - sx]);
         HVU[t] = ieee_div(Ay * trans(suh, f, 1, vel, sm_, A.eps_m, ym, A.mb[0][1], j, true,
-                                     A.lo_m, A.hi_m), h_ff(f));
+                                     A.lo_m, A.hi_m, A.bf_m), h_ff(f));
       }
       if (j - 1 < J1) {  // hvv at centre j-1: the to-centres y flux of vh over h
         const int c = at(i, j - 1);
         const T vel = half * (svh[c + 1] + svh[c]);
         HVV[t] = ieee_div(Ay * trans(svh, c + 1, 1, vel, sm_, A.eps_m, ym, A.mb[0][1], j - 1,
-                                     false, A.lo_m, A.hi_m), sh[c]);
+                                     false, A.lo_m, A.hi_m, A.bf_m), sh[c]);
       }
     }
   }
@@ -271,13 +274,13 @@ fused_shallow_water_tendencies_kernel(const __grid_constant__ ShallowWaterArgs<T
       const int i = I0 + t / SW_TY, j = J0 + t % SW_TY;
       if (i > I1 || j >= J1) continue;
       FX[t] = Ax * trans(sc, at(i, j), sx, UF[t], st_, A.eps_t, xt, A.mb[1][0], i, true,
-                         A.lo_t, A.hi_t);
+                         A.lo_t, A.hi_t, A.bf_t);
     }
     for (int t = tid; t < SW_YF; t += SW_THREADS) {
       const int i = I0 + t / (SW_TY + 1), j = J0 + t % (SW_TY + 1);
       if (i >= I1 || j > J1) continue;
       FY[t] = Ay * trans(sc, at(i, j), 1, VF[t], st_, A.eps_t, yt, A.mb[1][1], j, true,
-                         A.lo_t, A.hi_t);
+                         A.lo_t, A.hi_t, A.bf_t);
     }
     __syncthreads();
     for (int t = tid; t < SW_TX * SW_TY; t += SW_THREADS) {
@@ -309,7 +312,8 @@ static int launch(const void* const* psi, const void* hB, void* const* out, cons
   A.hB = static_cast<const T*>(hB);
   A.nf = nf;
   A.nx = nx; A.ny = ny; A.hx = ia[3]; A.hy = ia[4];
-  A.scheme_m = ia[5]; A.scheme_t = ia[6];
+  split_scheme<T>(ia[5], A.scheme_m, A.bf_m);
+  split_scheme<T>(ia[6], A.scheme_t, A.bf_t);
   for (int set = 0; set < 2; ++set)
     for (int a = 0; a < 2; ++a) {
       const int* b = ia + 7 + 10 * set + 5 * a;
@@ -324,9 +328,12 @@ static int launch(const void* const* psi, const void* hB, void* const* out, cons
   if (nx <= 0 || ny <= 0) return 0;
   const dim3 blocks((ny + SW_TY - 1) / SW_TY, (nx + SW_TX - 1) / SW_TX);
   const int smem = shallow_water_smem_elems(nf) * (int)sizeof(T);
-  const bool any = needs_any(A.scheme_m) || needs_any(A.scheme_t);
-  auto kernel = any ? fused_shallow_water_tendencies_kernel<T, true>
-                    : fused_shallow_water_tendencies_kernel<T, false>;
+  // the bf16 sub-form of ANY for WENO5's bf16 options
+  const bool bf = A.bf_m != BF16_NONE || A.bf_t != BF16_NONE;
+  const bool any = bf || needs_any(A.scheme_m) || needs_any(A.scheme_t);
+  auto kernel = bf ? fused_shallow_water_tendencies_kernel<T, true, true>
+                   : any ? fused_shallow_water_tendencies_kernel<T, true>
+                         : fused_shallow_water_tendencies_kernel<T, false>;
   if (smem > 48 * 1024) {
     const int rc = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

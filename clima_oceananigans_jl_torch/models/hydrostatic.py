@@ -103,7 +103,7 @@ from ..ops.fused_hydrostatic import (fused_hydrostatic_tendencies,
                                      kernel_closure,
                                      supports_fused_hydro_advance)
 from ..ops.fused_hydrostatic import unsupported_reason as kernel_unsupported_reason
-from ..ops.fused_tendencies import BF16_REASON, KERNEL_SCHEMES, bf16_options
+from ..ops.fused_tendencies import KERNEL_SCHEMES
 from ..solvers.tridiagonal import (solve_batched_tridiagonal,
                                    solve_batched_tridiagonal_reference)
 from ..timesteppers.steppers import (Clock, ab2_coefficients, ab2_substep,
@@ -154,8 +154,6 @@ def _unsupported_reason(model, particles, immersed_boundary):
     if ts is not None and type(ts) not in KERNEL_SCHEMES:
         return (f"{type(ts).__name__} tracer advection is not ported (the JAX "
                 "package's eight schemes are)")
-    if model.grid.device.type == "cuda" and any(bf16_options(s) for s in (sch, ts)):
-        return BF16_REASON
     cor = model.coriolis
     if cor is not None and not isinstance(
             cor, (FPlane, BetaPlane, HydrostaticSphericalCoriolis)):

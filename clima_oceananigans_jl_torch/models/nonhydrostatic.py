@@ -58,7 +58,7 @@ package's eight advection schemes runs for momentum and tracers, in K1 and
 K2 alike (``PositiveWENO5``'s limiter included), and the scheme does not
 choose the AB2 branch, as in the JAX package. A configuration the port
 cannot run (other Coriolis or closures, ``PartialCellBottom``, particles,
-stretched x or y, WENO5's bf16 options on the card, ...) raises
+stretched x or y, ...) raises
 ``NotImplementedError`` at construction. The kernels' wrappers
 come from ``KERNELS``; the JAX keyword ``fused_advection=False`` swaps in
 ``PLAIN`` and takes the general AB2 branch, as its JAX meaning has it.

@@ -34,8 +34,7 @@ from ..closures.scalar_diffusivity import (cell_diffusion_timescale,
 from ..fields.field import Field, new_field, set_field
 from ..grids.topology import FLAT
 from ..ops import stencil as st
-from ..ops.fused_tendencies import (BF16_REASON, bf16_options,
-                                    fused_shallow_water_tendencies,
+from ..ops.fused_tendencies import (fused_shallow_water_tendencies,
                                     fused_shallow_water_tendencies_reference)
 from ..timesteppers.steppers import (RK3_GAMMA, RK3_ZETA, Clock, host_scalar,
                                      rk3_substep, scaled)
@@ -82,9 +81,6 @@ class ShallowWaterModel:
         h_req = max(self.advection.required_halo,
                     self.tracer_advection.required_halo)
         self.grid = grid.with_halo((h_req, h_req, 0))
-        if self.grid.device.type == "cuda" and any(
-                bf16_options(s) for s in (self.advection, self.tracer_advection)):
-            raise NotImplementedError(BF16_REASON)
         self.g = float(gravitational_acceleration)
         self.coriolis = coriolis
         self.closure = closure

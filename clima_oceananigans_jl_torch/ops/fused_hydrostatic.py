@@ -61,8 +61,8 @@ from ..utils.location import CENTER, U_LOC, V_LOC, W_LOC
 from . import _build
 from . import operators as op
 from . import stencil as st
-from .fused_tendencies import (BF16_REASON, KERNEL_SCHEMES, TABLE_SCHEMES,
-                               axis_bounds, bf16_options, check_tensor,
+from .fused_tendencies import (KERNEL_SCHEMES, TABLE_SCHEMES,
+                               axis_bounds, check_tensor,
                                kernel_fn, kernel_scheme, launch, pointers,
                                positive_bounds)
 from .metric_rows import y_rows, y_tables, z_rows
@@ -162,11 +162,13 @@ def _mask_locs(model):
 def unsupported_reason(model):
     """Why K4a/K4b cannot run this model's configuration, or None. Like the
     JAX gate it takes every ``AdvectionScheme`` for momentum and tracers
-    (K4b's scheme codes, ``KERNEL_SCHEMES``) and the vector-invariant
-    momentum; WENO5's bf16 options it refuses by name."""
+    (K4b's scheme codes, ``KERNEL_SCHEMES``, WENO5's bf16 options
+    included) and the vector-invariant momentum."""
     grid = model.grid
     if any(t is FLAT for t in grid.topology):
-        return "K4 takes a 3D grid (a Flat y: ROADMAP Queue 2 forms)"
+        return ("K4 takes a 3D grid, as JAX's K4 does: both refuse a Flat x "
+                "and a Flat y (a Flat axis has no halo); K4 on Flat axes goes "
+                "beyond JAX's kernels (ROADMAP Queue 1 item 2)")
     if not grid.x_regular:
         return ("K4 takes a regular x axis (x-constant metrics) "
                 "(ROADMAP Queue 1 item 6)")
@@ -176,8 +178,6 @@ def unsupported_reason(model):
         return f"K4 has no {type(sch).__name__} momentum advection"
     if ts is not None and type(ts) not in KERNEL_SCHEMES:
         return f"K4 has no {type(ts).__name__} tracer advection"
-    if any(bf16_options(s) for s in (sch, ts)):
-        return BF16_REASON
     cor = model.coriolis
     if cor is not None and not isinstance(
             cor, (FPlane, BetaPlane, HydrostaticSphericalCoriolis)):

@@ -42,8 +42,8 @@ from ..grids.topology import BOUNDED, FLAT
 from ..immersed.immersed import ImmersedBoundary, PartialCellBottom
 from ..timesteppers.steppers import ab2_coefficients, ab2_substep
 from ..utils.location import U_LOC, V_LOC
-from .fused_tendencies import (ADVECTION_ARGTYPES, BF16_REASON, KERNEL_SCHEMES,
-                               advection_args, bf16_options, check_tensor,
+from .fused_tendencies import (ADVECTION_ARGTYPES, KERNEL_SCHEMES,
+                               advection_args, check_tensor,
                                fused_advective_tendencies_reference,
                                in_kernel_order, kernel_fn, kernel_order,
                                launch, pointers, supports_fused_advection,
@@ -88,8 +88,6 @@ def unsupported_reason(model):
         if type(sch) not in SCHEMES:
             return (f"{type(sch).__name__} advection is not ported (the JAX "
                     "package's eight schemes are)")
-        if bf16_options(sch) and model.grid.device.type == "cuda":
-            return BF16_REASON
     cl = model.closure
     for c in (cl if isinstance(cl, (tuple, list)) else (cl,)):
         if c is not None and not isinstance(c, CLOSURES):

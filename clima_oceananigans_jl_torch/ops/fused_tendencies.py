@@ -128,30 +128,27 @@ KERNEL_SCHEMES = {CenteredSecondOrder: 0, WENO5: 1, UpwindBiasedFifthOrder: 2,
 #: ``transport`` takes them for ``isinstance(scheme, WENO5)``)
 TABLE_SCHEMES = (WENO5, BoundsPreservingWENO5, PositiveWENO5)
 
-#: the refusal of WENO5's bf16 options on the card, by name
-BF16_REASON = ("WENO5's bf16 options are not in the kernels yet (ROADMAP "
-               "Queue 2 forms)")
 
-
-def bf16_options(scheme):
-    """Whether ``scheme`` is a WENO5 with ``fast_bf16`` or
-    ``bf16_smoothness`` set (the plain versions run them; no kernel
-    does)."""
-    return isinstance(scheme, WENO5) and (scheme.fast_bf16
-                                          or scheme.bf16_smoothness)
+def bf16_mode(scheme):
+    """WENO5's bf16 option as the kernels take it (``csrc/
+    weno5_advection.cuh`` ``BF16_*``): 2 for ``fast_bf16`` (which takes
+    precedence, as in the plain version), 1 for ``bf16_smoothness`` (which
+    the kernels read as 0 on fp64 data, where it does nothing), else 0."""
+    if not isinstance(scheme, WENO5):
+        return 0
+    return 2 if scheme.fast_bf16 else int(scheme.bf16_smoothness)
 
 
 def kernel_scheme(scheme):
-    """(code, eps) of a scheme the kernels take (``KERNEL_SCHEMES``); eps
-    is the WENO schemes' own, 0 for the others; raises otherwise, and
-    ``NotImplementedError`` for WENO5's bf16 options."""
-    if bf16_options(scheme):
-        raise NotImplementedError(BF16_REASON)
+    """(code, eps) of a scheme the kernels take (``KERNEL_SCHEMES``): the
+    code plus 16 times its ``bf16_mode``; eps is the WENO schemes' own, 0
+    for the others; raises otherwise."""
     code = KERNEL_SCHEMES.get(type(scheme))
     if code is None:
         raise ValueError("the kernels take the JAX package's eight advection "
                          f"schemes, not {type(scheme).__name__}")
-    return code, float(scheme.eps) if isinstance(scheme, WENO5) else 0.0
+    return (code + 16 * bf16_mode(scheme),
+            float(scheme.eps) if isinstance(scheme, WENO5) else 0.0)
 
 
 def positive_bounds(scheme):

@@ -443,7 +443,7 @@ def test_models_take_each_scheme_with_its_halo(name):
 @pytest.mark.parametrize("name", NEW)
 def test_hydrostatic_model_refuses_each_scheme_by_name(name):
     """What K4 still refuses with these schemes, by name: a Flat y (ROADMAP
-    Queue 2 forms); the schemes themselves it takes
+    Queue 1 item 2); the schemes themselves it takes
     (``test_hydrostatic_model_takes_each_scheme``)."""
     from clima_oceananigans_jl_torch.ops import fused_hydrostatic as tfh
     g = T.RectilinearGrid(size=(8, 1, 4), extent=(1, 1, 1), dtype=torch.float64,

@@ -16,8 +16,10 @@ Held to the accuracy gates of the JAX suite's ``tests/test_bf16_smoothness.py``:
   axis' tables;
 - 3 AB2 steps of the 16³ benchmark configuration with
   ``bf16_smoothness``: finite, within 5e-3 of each field's scale from the
-  fp32 run, and from the JAX run with the option;
-- on the card every model refuses the options by name (a ``cuda`` case).
+  fp32 run, and from the JAX run with the option.
+
+The kernels' bf16 forms are held on the card in
+``tests/test_torch_bf16_kernels.py``.
 """
 import numpy as np
 import pytest
@@ -27,18 +29,15 @@ import clima_oceananigans_jl_torch as T
 from clima_oceananigans_jl_torch.advection import schemes as tsch
 from clima_oceananigans_jl_torch.advection.reconstruction_tables import weno5_tables
 
-try:  # the cuda case also runs on a machine without JAX
-    import jax
-    import jax.numpy as jnp
+import jax
+import jax.numpy as jnp
 
-    import clima_oceananigans_jl_tpu as J
-    from clima_oceananigans_jl_tpu.advection import schemes as jsch
-    from clima_oceananigans_jl_tpu.advection.reconstruction_tables import (
-        weno5_tables as j_tables)
-    from clima_oceananigans_jl_tpu.buoyancy.buoyancy import BuoyancyTracer as JB
-    from clima_oceananigans_jl_tpu.models.nonhydrostatic import NonhydrostaticModel as JN
-except ImportError:
-    pass
+import clima_oceananigans_jl_tpu as J
+from clima_oceananigans_jl_tpu.advection import schemes as jsch
+from clima_oceananigans_jl_tpu.advection.reconstruction_tables import (
+    weno5_tables as j_tables)
+from clima_oceananigans_jl_tpu.buoyancy.buoyancy import BuoyancyTracer as JB
+from clima_oceananigans_jl_tpu.models.nonhydrostatic import NonhydrostaticModel as JN
 
 torch.set_num_threads(1)
 
@@ -166,22 +165,3 @@ def test_full_model_close_and_stable():
         assert np.abs(sols[True][k] - sols[False][k]).max() < 5e-3 * scale, k
         ref = np.asarray(jm.grid.interior(js["solution"][k]))
         assert np.abs(sols[True][k] - ref).max() < 5e-3 * scale, k
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("option", list(OPTIONS))
-def test_cuda_models_refuse_the_options_by_name(option):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    w = T.WENO5(**OPTIONS[option])
-    g = T.RectilinearGrid(size=(16, 16, 16), extent=(1, 1, 1), device="cuda")
-    with pytest.raises(NotImplementedError, match="bf16 options"):
-        T.NonhydrostaticModel(g, advection=w)
-    with pytest.raises(NotImplementedError, match="bf16 options"):
-        T.NonhydrostaticModel(g, tracer_advection=w, tracers=("c",), fused_advection=False)
-    with pytest.raises(NotImplementedError, match="bf16 options"):
-        T.HydrostaticFreeSurfaceModel(g, tracer_advection=w, tracers=("c",))
-    sw = T.RectilinearGrid(size=(16, 16, 1), extent=(1, 1),
-                           topology=(T.PERIODIC, T.PERIODIC, T.FLAT), device="cuda")
-    with pytest.raises(NotImplementedError, match="bf16 options"):
-        T.ShallowWaterModel(sw, advection=w)

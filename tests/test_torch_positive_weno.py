@@ -376,8 +376,7 @@ def test_positive_momentum_and_other_kernels_are_refused_by_name():
     """What still waits: no PositiveWENO5 refusal is left. It is the
     momentum scheme in both models and every kernel's code (3) with its
     bounds in the double arguments; K4's gate refuses only what K4 lacks
-    whatever the scheme (a Flat y, named), and WENO5's bf16 options on the
-    card (``tests/test_torch_bf16_options.py``)."""
+    whatever the scheme (a Flat y, named)."""
     from clima_oceananigans_jl_torch.ops import fused_hydrostatic as tfh
     _, tg = grid_pair("PPB", (8, 8, 8))
     T.NonhydrostaticModel(tg, advection=PositiveWENO5())
