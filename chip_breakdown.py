@@ -12,7 +12,7 @@
                               [weno5-kernels] [hydrostatic-positive]
                               [near-global-ub5] [ptxas-schemes]
                               [sass-regular --parent DIR] [ab2-bf16]
-                              [--steps N]
+                              [front-slice] [gyre] [--steps N]
 
 With no part named, runs them all. Prints the card's name and power
 limit first. Needs a card; without one it exits with an error.
@@ -164,10 +164,24 @@ limit first. Needs a card; without one it exits with an error.
   ``ANY``, and (since the bf16 slice) their ``ANY`` instantiations without
   the bf16 sub-form ``BF``, as built here and from the parent tree's
   ``csrc`` (``--parent DIR``; a trailing template flag the parent lacks
-  is dropped to find its counterpart), their SASS by ``cuobjdump``:
+  is dropped to find its counterpart, and since the Flat slice any
+  trailing arguments the parent lacks, K4b's layout and Cartesian flag),
+  their SASS by ``cuobjdump``:
   instruction counts, and whether the sequences are identical, and
   identical with constants masked (the argument struct grew, so
   constant-bank offsets may move).
+- ``front-slice``: ``chip_smoke.py``'s front slice (``FRONT``: the
+  baroclinic-adjustment physics on a (Flat, Bounded, Bounded)
+  1×8192×128 fp32 y–z slice, K4b's Flat-x layout), its 2 warm-up steps,
+  then ``steps`` steps with CUDA events around K4b (its fused advance),
+  K4a, K5 and its wrapper, the K6 fills, the barotropic modes and the
+  corrector; then the profiler's idle share.
+- ``gyre``: ``chip_smoke.py``'s Stommel gyre at its timed reading's
+  N = 1024 fp64 (``GYRE_TIMED``, the validation's basin, its two
+  forcing callables), 2 warm-up steps, then ``steps`` steps with CUDA
+  events around K3a, the Coriolis terms, the forcing callables,
+  ``apply_flux_bcs``, ``rk3_substep`` and ``fill_all_halos``, three of
+  each a step; then the profiler's idle share.
 - ``shallow-water``: the 16384² headline of
   ``benchmark/bench_shallow_water.py`` (as ``chip_smoke.py`` runs it), 2
   warm-up steps, then ``steps`` steps with CUDA events around K3a,
@@ -508,6 +522,23 @@ def kernel_sass(csrc, name):
     return dict(zip(names, out.values()))
 
 
+def counterpart(fn, there):
+    """The name in ``there`` of the kernel ``fn`` with its trailing template
+    arguments dropped one at a time (the parent lacks the newer
+    parameters), or None."""
+    import re
+    m = re.match(r"(.*?<)(.*)(>\(.*)", fn)
+    if m is None:
+        return fn if fn in there else None
+    head, args, tail = m.group(1), m.group(2).split(", "), m.group(3)
+    while args:
+        cand = head + ", ".join(args) + tail
+        if cand in there:
+            return cand
+        args.pop()
+    return None
+
+
 def sass_regular(steps, parent):
     """K1's, K2's, K3a's and K4b's instantiations whose last template flag
     is false (without ``ANY``: the first codes; with ``ANY``, without the
@@ -533,9 +564,11 @@ def sass_regular(steps, parent):
                 continue
             if ", false>(" not in fn:
                 continue
-            # a parent kernel without the ANY parameter: this tree's form
-            # without it
-            old = there.get(fn, there.get(fn.replace(", false>(", ">(")))
+            # a parent kernel without this tree's newer template
+            # parameters (ANY; K4b's layout and Cartesian flag): this
+            # tree's form with its trailing arguments dropped until one
+            # matches
+            old = there.get(counterpart(fn, there))
             if old is None:
                 print(f"sass {fn}: {len(ins)} instructions; no parent counterpart")
                 continue
@@ -1094,6 +1127,48 @@ def shallow_water(steps):
                (model, "fill_all_halos", "fill_all_halos")], steps)
 
 
+def front_slice(steps):
+    """chip_smoke.py's front slice after its warm-up steps, broken down."""
+    model, state = chip_smoke.front_model_state()
+    c = chip_smoke.FRONT
+    for _ in range(c["warmup"]):
+        state = model.step(state, c["dt"])
+    torch.cuda.synchronize()
+    events = collections.defaultdict(list)
+    kernels = {k: timed(events, label, hm.KERNELS[k]) for k, label in (
+        ("tendencies", "K4b (advance, Flat-x layout)"), ("columns", "K4a"),
+        ("barotropic", "K5 and its wrapper"), ("fill", "K6 fills"))}
+    step = lambda s, timed_parts: model.step(s, c["dt"], kernels if timed_parts else None)
+    g = model.grid
+    breakdown(f"front slice {g.Nx}x{g.Ny}x{g.Nz} fp32 step", step, state, events,
+              [(hm, "barotropic_mode", "barotropic modes"),
+               (SplitExplicitFreeSurface, "corrector", "corrector")], steps)
+
+
+def gyre(steps):
+    """chip_smoke.py's Stommel gyre at its timed size after 2 warm-up
+    steps, broken down: K3a, Coriolis, the forcing callables, the flux BCs,
+    the RK3 substep and the halo fills."""
+    bg, n = chip_smoke.barotropic_gyre, chip_smoke.GYRE_TIMED["N"]
+    model = bg.model_for(n, "cuda")
+    dt = bg.time_step(n)[0]
+    state = model.initial_state(h=bg.H)
+    for _ in range(chip_smoke.GYRE_TIMED["warmup"]):
+        state = model.step(state, dt)
+    torch.cuda.synchronize()
+    events = collections.defaultdict(list)
+    kernels = {"core": timed(events, "K3a", swm.KERNELS["core"])}
+    model.forcing = {k: timed(events, "forcing callables", f)
+                     for k, f in model.forcing.items()}
+    step = lambda s, timed_parts: model.step(s, dt, kernels if timed_parts else None)
+    breakdown(f"Stommel gyre {n}^2 fp64 step", step, state, events,
+              [(type(model.coriolis), "x_f_cross_U", "Coriolis"),
+               (type(model.coriolis), "y_f_cross_U", "Coriolis"),
+               (swm, "apply_flux_bcs", "apply_flux_bcs"),
+               (swm, "rk3_substep", "rk3_substep"),
+               (model, "fill_all_halos", "fill_all_halos")], steps)
+
+
 PROBE = r"""
 #include <cuda_runtime.h>
 #include "weno5_advection.cuh"
@@ -1533,7 +1608,8 @@ PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps), "ab2-bf16": ab2_bf16
          "internal-wave": internal_wave, "weno5-kernels": weno5_kernels,
          "hydrostatic-positive": lambda steps: scheme_path("hydrostatic positive", steps),
          "near-global-ub5": lambda steps: scheme_path("near-global UB5", steps),
-         "ptxas-schemes": ptxas_schemes, "sass-regular": sass_regular}
+         "ptxas-schemes": ptxas_schemes, "sass-regular": sass_regular,
+         "front-slice": front_slice, "gyre": gyre}
 
 
 def main(argv):

@@ -304,8 +304,9 @@ on the card, in phases; each prints one line or a few:
    validation/vertical_mixing_closures.py (H = 128 m, nz = 64, N² = 1e-5,
    B₀ = 1e-7, Δt = 60 s, 720 steps, ImplicitFreeSurface("pcg"), no
    advection) with each of its three closures on a (Periodic, Periodic,
-   Bounded) 32×32×64 fp64 grid (the K4 gate refuses the script's Flat
-   x); 1 K4a, 1 K4b, 3 K6 and 3 (4 with CATKE's e) T1 a step; the
+   Bounded) 32×32×64 fp64 grid (a stand-in of the script's column from
+   before K4 took Flat axes, kept beside phase 39); 1 K4a, 1 K4b, 3 K6
+   and 3 (4 with CATKE's e) T1 a step; the
    validation's assertions (the buoyancy budget within 2%, the
    mixed-layer gradient below N²/2, 0.5 h_exp < h < 1.8 h_exp) and every
    column within 1e-12·max|b| of the first;
@@ -355,7 +356,40 @@ on the card, in phases; each prints one line or a few:
    step, finite, the AB2 divergence bound, K1 bit for bit and timed on the
    path's fields, within 5e-3 of each field's scale from the fp32 run
    after the same steps (its ms/step printed beside), and the plain run
-   bit for bit.
+   bit for bit;
+38. (since the Flat slice, after phase 12) the Flat holds
+   (``phase_flat_holds``): K4a (with b and w only), K4b (both forms, WENO5
+   and vector-invariant momentum, a β-plane and the in-kernel closure)
+   and K5 (8 substeps) on the five Flat topologies of ``FLAT_HYDRO``
+   ((F,P,B) and (F,B,B) 1×256×32, (P,F,B) and (B,F,B) 256×1×32, (F,F,B)
+   1×1×64), fp32 and fp64, and K4b with ``ConstantCartesianCoriolis`` and
+   ``NonTraditionalBetaPlane`` on (P,B,B) 256×128×32 (``CARTESIAN``), each
+   bit for bit over NaN-filled outputs, 3 model steps with the kernels
+   against 3 with the plain versions exactly (fp64 Flat, both Cartesian),
+   the fp32 forms timed against their bounds;
+39. (after phase 33) ``column closures``: validation/vertical_mixing_closures.py
+   as written through the port's copy, the (Flat, Flat, Bounded) 1×1×64
+   fp64 column, 720 steps under each closure, 1 K4a, 1 K4b, 3 K6 and 3 or
+   4 T1 a step (plus the initial state's K4a and two K6), the
+   validation's assertions; ``wind mixing column``:
+   validation/wind_mixing_column.py as written through the port's copy
+   (1×1×48 fp64 stretched z, CATKE, its wind, 240 ``Simulation``
+   iterations; 1 K4a, 1 K4b, 3 K6, 4 T1 an iteration), its final TKE
+   profile, finite, e > 0 in the top five cells, the top layer's u along
+   the wind; after each column's counts are read, ``COLUMN_HOLD_STEPS``
+   model steps with the kernels against as many with the plain versions
+   (K4a, K4b's tendency form, T1, K6), bit for bit, from a rebuilt model's
+   initial state and from the run's end state; ``Stommel gyre``: validation/barotropic_gyre.py as written
+   through the port's copy (64×64 fp64, its forcing callables, ~10⁴ RK3
+   steps, 3 K3a a step) and its three assertions, then ``GYRE_TIMED`` at
+   1024² (2 warm-up and 5 timed steps, K3a against its plain version
+   exactly, the forcing's share of a step); ``front slice`` (``FRONT``:
+   the baroclinic-adjustment physics on a (Flat, Bounded, Bounded)
+   1×8192×128 fp32 y–z slice with a split-explicit free surface), 2
+   warm-up and 5 timed steps with the kernels (1 K4a, 1 K4b in its fused
+   advance with the in-kernel closure, 1 K5, 2 K6 a step) and then with
+   the plain versions, bit for bit, finite, |Σ η·Az| ≤ 1e-5·Σ|η|·Az, K4b
+   held and timed on the path's fields.
 
 Each kernel's record carries its bound: the larger of its compulsory
 bytes (each input read once, each output written once, from this run's
@@ -402,6 +436,8 @@ from clima_oceananigans_jl_torch import (BOUNDED, FLAT, PERIODIC,
                                          windowed,
                                          BackgroundField, BuoyancyTracer,
                                          CenteredSecondOrder, FieldBCs, FluxBC,
+                                         ConstantCartesianCoriolis,
+                                         NonTraditionalBetaPlane,
                                          Forcing, FPlane, GaussianMask,
                                          GradientBC, GridFittedBottom,
                                          HydrostaticFreeSurfaceModel,
@@ -431,7 +467,10 @@ from clima_oceananigans_jl_torch import (BOUNDED, FLAT, PERIODIC,
                                          TEOS10EquationOfState,
                                          VerticalScalarDiffusivity)
 from clima_oceananigans_jl_torch.examples import internal_wave
-from clima_oceananigans_jl_torch.validation import periodic_advection
+from clima_oceananigans_jl_torch.validation import (barotropic_gyre,
+                                                    periodic_advection,
+                                                    vertical_mixing_closures,
+                                                    wind_mixing_column)
 from clima_oceananigans_jl_torch.boundary_conditions.bcs import regularize_bcs
 from clima_oceananigans_jl_torch.models import (hydrostatic, nonhydrostatic,
                                                 shallow_water)
@@ -592,7 +631,13 @@ PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
             "nonhydrostatic closures hold: CATKE": {K2: 3, K6: 6, T1: 18},
             "hydrostatic positive": {K4A: 1, K4B: 1, K5: 1, K6: 2},
             "near-global UB5": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 5},
-            "AB2 bf16 smoothness": {K1: 1, K6: 2}, "AB2 fast bf16": {K1: 1, K6: 2}}
+            "AB2 bf16 smoothness": {K1: 1, K6: 2}, "AB2 fast bf16": {K1: 1, K6: 2},
+            "column closures: CATKE": {K4A: 1, K4B: 1, K6: 3, T1: 4},
+            "column closures: convective_adjustment": {K4A: 1, K4B: 1, K6: 3, T1: 3},
+            "column closures: Ri_based": {K4A: 1, K4B: 1, K6: 3, T1: 3},
+            "wind mixing column": {K4A: 1, K4B: 1, K6: 3, T1: 4},
+            "Stommel gyre": {K3A: 3}, "Stommel gyre 1024": {K3A: 3},
+            "front slice": {K4A: 1, K4B: 1, K5: 1, K6: 2}}
 #: of T1's launches a step, those of its Fourier mode (the pressure solve)
 T1_FOURIER_PER_STEP = {"wind mixing stretched": 3, "AB2 stretched implicit": 1}
 T1F = "fourier_tridiagonal"
@@ -692,9 +737,10 @@ CLOSURES_HOLD = dict(size=(360, 150, 24), steps=3,
 #: validation/vertical_mixing_closures.py (l.31-86): a resting column with
 #: N² = 1e-5 cooled at B₀ = 1e-7 for 12 h (720 steps of 60 s) under each
 #: closure, H = 128 m, nz = 64, fp64, ImplicitFreeSurface("pcg"), no
-#: advection, on a horizontally periodic 32×32×64 grid (the K4 gate
-#: refuses the script's Flat x, as the JAX kernel does): every column
-#: evolves as the script's one
+#: advection, on a horizontally periodic 32×32×64 grid: every column
+#: evolves as the script's one. It stood in for the script's (Flat, Flat,
+#: Bounded) column until K4 took Flat axes; the column itself runs since
+#: as the "column closures" path, and this stand-in stays beside it
 FREE_CONVECTION = dict(size=(32, 32, 64), H=128.0, N2=1e-5, B0=1e-7, dt=60.0,
                        steps=720, kinds=("CATKE", "convective adjustment",
                                          "Ri-based"))
@@ -1139,14 +1185,45 @@ def phase_k3bc():
     return out[K3B], out[K3C]
 
 
-def run_steps(path, model, state, step, warmup, steps, plain):
-    """The path's warm-up and timed steps; every launch count is set to 0
-    just before them and read just after. Returns (state, s per timed
-    step, launch counts)."""
+def zero_counts():
+    """Every wrapper's launch count set to 0 (T1's Fourier mode apart)."""
     torch.cuda.synchronize()
     for w in WRAPPERS.values():
         w.launches = 0
     fourier_tridiagonal.launches = 0
+
+
+#: the launches of a hydrostatic model's ``initial_state`` (its
+#: ``update_state``: K4a, and K6 before and after it)
+INITIAL_STATE = {K4A: 1, K6: 2}
+
+
+def read_counts(path, steps, extra=None, plain=False):
+    """The launches since ``zero_counts``, checked against ``PER_STEP[path]``
+    (and, of T1's, those of its Fourier mode against
+    ``T1_FOURIER_PER_STEP``) times ``steps`` plus ``extra``; none with
+    ``plain``."""
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    expected = {k: 0 if plain else PER_STEP[path].get(k, 0) * steps
+                + (extra or {}).get(k, 0) for k in WRAPPERS}
+    if launches != expected:
+        raise AssertionError(f"{path} path: kernel launches {launches}, "
+                             f"expected {expected}")
+    # T1's Fourier-mode launches among its own (the pressure solve's)
+    launches[T1F] = fourier_tridiagonal.launches
+    want = 0 if plain else T1_FOURIER_PER_STEP.get(path, 0) * steps
+    if launches[T1F] != want:
+        raise AssertionError(f"{path} path: {launches[T1F]} T1 launches in its "
+                             f"Fourier mode, expected {want}")
+    return launches
+
+
+def run_steps(path, model, state, step, warmup, steps, plain):
+    """The path's warm-up and timed steps; every launch count is set to 0
+    just before them and read just after. Returns (state, s per timed
+    step, launch counts)."""
+    zero_counts()
     for _ in range(warmup):
         state = step(state)
     torch.cuda.synchronize()
@@ -1155,19 +1232,7 @@ def run_steps(path, model, state, step, warmup, steps, plain):
         state = step(state)
     torch.cuda.synchronize()
     per_step = (time.perf_counter() - t0) / steps
-    launches = {k: w.launches for k, w in WRAPPERS.items()}
-    expected = {k: 0 if plain else PER_STEP[path].get(k, 0) * (warmup + steps)
-                for k in WRAPPERS}
-    if launches != expected:
-        raise AssertionError(f"{path} path: kernel launches {launches}, "
-                             f"expected {expected}")
-    # T1's Fourier-mode launches among its own (the pressure solve's)
-    launches[T1F] = fourier_tridiagonal.launches
-    want = 0 if plain else T1_FOURIER_PER_STEP.get(path, 0) * (warmup + steps)
-    if launches[T1F] != want:
-        raise AssertionError(f"{path} path: {launches[T1F]} T1 launches in its "
-                             f"Fourier mode, expected {want}")
-    return state, per_step, launches
+    return state, per_step, read_counts(path, warmup + steps, plain=plain)
 
 
 # examples/langmuir_turbulence.py:36-46 and
@@ -1792,26 +1857,7 @@ def phase_k4_forms():
         if not reached[part]:
             raise AssertionError(f"K4b {label}: the model does not reach its {part}")
         state = hydro_random_state(model, 13)
-        case_err = 0.0
-        for adv in (None, (HYDRO["dt"], False)):
-            poison_cache(g.total_shape, dtype)
-            got = fused_hydrostatic_tendencies(model, state, adv)
-            ref = fused_hydrostatic_tendencies_reference(model, state, adv)
-            got, ref = (({"G": got}, {"G": ref}) if adv is None else
-                        ({"psi'": got[0], "G": got[1]}, {"psi'": ref[0], "G": ref[1]}))
-            form = "tendencies" if adv is None else "advance"
-            case_err = max(case_err, hold(f"K4b {part}, {label}, {form}", got, ref,
-                                          dtype, g.interior, exact=True))
-            for kind in got.values():  # the kernel writes its halos zero
-                for name, t in kind.items():
-                    if t.device.type != "cuda":
-                        continue
-                    halo = t.clone()
-                    halo[g.interior_slices] = 0
-                    if halo.isnan().any() or halo.any():
-                        raise AssertionError(f"K4b {part}, {label}, {form} {name}: "
-                                             "a halo point is not zero")
-            del got, ref
+        case_err = hold_k4b(f"{part}, {label}", model, state)
         worst = max(worst, case_err)
         if timed:
             adv = (HYDRO["dt"], False) if model.fused_advance else None
@@ -1848,21 +1894,13 @@ def phase_k5_planes():
     Hfc = column_depths(g)[0]
     if torch.equal(Hfc, Hfc[g.Hx:g.Hx + 1].expand_as(Hfc)):
         raise AssertionError("K5 planes: the near-global depths do not vary in x")
-    gen = torch.Generator(device=DEVICE).manual_seed(14)
     shape = g.total_shape[:2] + (1,)
-    rand = lambda s: s * torch.randn(shape, generator=gen, dtype=g.dtype, device=DEVICE)
-    eta = fill2d(rand(0.1), g, ETA_LOC, model.eta_bcs)
     n = HYDRO["substeps"]
-    wv = model.free_surface._weight_vec(None, eta)
-    args = (g, model.eta_bcs, eta, rand(10.0), rand(10.0), rand(1e-3), rand(1e-3),
-            *column_depths(g), 9.80665, 40.0, wv, wv, n)
-    names = ("eta_av", "U_av", "V_av")
+    args = k5_args(model, 14, n)
+    eta = args[2]
     label = "1/4 deg fp32 near-global bottom (depth planes), 30 substeps"
     print(f"K5 {label} cooperative grid: {cooperative_grid(g)}")
-    poison_cache(shape, g.dtype, 20)
-    err = hold(f"K5 {label}", {"out": dict(zip(names, fused_substep_eta(*args)))},
-               {"out": dict(zip(names, fused_substep_eta_reference(*args)))},
-               g.dtype, exact=True)
+    err = hold_k5(label, model, args)
     ms = cuda_ms(lambda: fused_substep_eta(*args), 5)
     plain_ms = cuda_ms(lambda: fused_substep_eta_reference(*args), 2)
     # η0, U0, V0, Gᵁ, Gⱽ and the two depth planes in, η̅, U̅, V̅ out
@@ -1886,20 +1924,11 @@ def phase_k5():
              torch.float64, 8)):
         model = build(dtype)
         g = model.grid
-        gen = torch.Generator(device=DEVICE).manual_seed(12)
         shape = g.total_shape[:2] + (1,)
-        rand = lambda s: s * torch.randn(shape, generator=gen, dtype=dtype,
-                                         device=DEVICE)
-        eta = fill2d(rand(0.1), g, ETA_LOC, model.eta_bcs)
-        wv = model.free_surface._weight_vec(None, eta)
-        args = (g, model.eta_bcs, eta, rand(10.0), rand(10.0), rand(1e-3),
-                rand(1e-3), *column_depths(g), 9.80665, 40.0, wv, wv, n)
-        names = ("eta_av", "U_av", "V_av")
+        args = k5_args(model, 12, n)
+        eta = args[2]
         print(f"K5 {label} cooperative grid: {cooperative_grid(g)}")
-        poison_cache(shape, dtype, 20)
-        err = hold(f"K5 {label}", {"out": dict(zip(names, fused_substep_eta(*args)))},
-                   {"out": dict(zip(names, fused_substep_eta_reference(*args)))},
-                   dtype, exact=True)
+        err = hold_k5(label, model, args)
         if out is None:
             ms = cuda_ms(lambda: fused_substep_eta(*args), 5)
             plain_ms = cuda_ms(lambda: fused_substep_eta_reference(*args), 2)
@@ -4433,6 +4462,445 @@ def phase_nonhydrostatic_closures():
         torch.cuda.empty_cache()
 
 
+# -- the Flat slice: K4a, K4b and K5 on Flat axes, K4b's Cartesian Coriolis ---
+
+#: the Flat topologies K4a, K4b and K5 take, with the sizes of their holds
+FLAT_HYDRO = (("F,P,B", (FLAT, PERIODIC, BOUNDED), (1, 256, 32)),
+              ("F,B,B", (FLAT, BOUNDED, BOUNDED), (1, 256, 32)),
+              ("P,F,B", (PERIODIC, FLAT, BOUNDED), (256, 1, 32)),
+              ("B,F,B", (BOUNDED, FLAT, BOUNDED), (256, 1, 32)),
+              ("F,F,B", (FLAT, FLAT, BOUNDED), (1, 1, 64)))
+#: K4b's Cartesian Coriolis forms, held on a (Periodic, Bounded, Bounded) box
+CARTESIAN = {"ConstantCartesianCoriolis": lambda: ConstantCartesianCoriolis(
+                 fx=2e-5, fy=5e-5, fz=1e-4),
+             "NonTraditionalBetaPlane": lambda: NonTraditionalBetaPlane(
+                 fz0=1e-4, fy0=5e-5, beta=1.6e-11, gamma=-1e-11)}
+CARTESIAN_HOLD = dict(size=(256, 128, 32), steps=3)
+#: the paths that run each Flat topology's forms (their launches go into
+#: the forms' records)
+FLAT_FORM_PATHS = {"F,B,B": ("front slice",),
+                   "F,F,B": ("column closures", "wind mixing column")}
+
+
+def flat_hydro_model(topology, size, dtype, momentum=None, coriolis=None,
+                     free_surface=None):
+    """A hydrostatic model of the Flat holds: WENO5 tracers T, S and b, a
+    β-plane, an explicit constant-coefficient closure (K4b's in-kernel
+    closure) and a split-explicit free surface unless given otherwise."""
+    grid = RectilinearGrid(size=size, x=(0, 2e6), y=(0, 1e6), z=(-1000, 0),
+                           topology=topology, dtype=dtype, device=DEVICE)
+    return HydrostaticFreeSurfaceModel(
+        grid, momentum_advection=momentum or WENO5(), tracer_advection=WENO5(),
+        tracers=("T", "S"), buoyancy=BuoyancyTracer(),
+        coriolis=coriolis or BetaPlane(f0=1e-4, beta=1.6e-11),
+        closure=ScalarDiffusivity(nu=1e2, kappa=1e1, nu_z=1e-3, kappa_z=1e-4),
+        free_surface=free_surface or SplitExplicitFreeSurface(substeps=8))
+
+
+def hold_k4b(label, model, state):
+    """K4b against its plain version in both forms, bit for bit on the
+    interior over NaN-filled outputs, its halos exactly zero; max|Δ|."""
+    g, dtype = model.grid, model.grid.dtype
+    err = 0.0
+    for adv in (None, (HYDRO["dt"], False)):
+        poison_cache(g.total_shape, dtype)
+        got = fused_hydrostatic_tendencies(model, state, adv)
+        ref = fused_hydrostatic_tendencies_reference(model, state, adv)
+        got, ref = (({"G": got}, {"G": ref}) if adv is None else
+                    ({"psi'": got[0], "G": got[1]}, {"psi'": ref[0], "G": ref[1]}))
+        form = "tendencies" if adv is None else "advance"
+        err = max(err, hold(f"K4b {label}, {form}", got, ref, dtype, g.interior,
+                            exact=True))
+        for kind in got.values():  # the kernel writes its halos zero
+            for name, t in kind.items():
+                if t.device.type != "cuda":
+                    continue
+                halo = t.clone()
+                halo[g.interior_slices] = 0
+                if halo.isnan().any() or halo.any():
+                    raise AssertionError(f"K4b {label}, {form} {name}: a halo point "
+                                         "is not zero")
+        del got, ref
+    return err
+
+
+def hold_k4a(label, g, sol):
+    """K4a against its plain version on every with-halo point, with b and
+    w only, over NaN-filled outputs; max|Δ|."""
+    args = (g, sol["u"], sol["v"], sol["b"])
+    outputs = lambda ts: {n: t for n, t in zip(("w", "pHY"), ts) if t is not None}
+    err = 0.0
+    for part, a in (("w and pHY'", args), ("w only", args[:3])):
+        poison_cache(g.total_shape, g.dtype)
+        err = max(err, hold(f"K4a {label} {part}", {"out": outputs(hydrostatic_columns(*a))},
+                            {"out": outputs(hydrostatic_columns_reference(*a))}, g.dtype,
+                            exact=True))
+    return err
+
+
+def k5_args(model, seed, n):
+    """Random arguments of K5 on the model's grid (η filled)."""
+    g = model.grid
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    shape = g.total_shape[:2] + (1,)
+    rand = lambda s: s * torch.randn(shape, generator=gen, dtype=g.dtype, device=DEVICE)
+    eta = fill2d(rand(0.1), g, ETA_LOC, model.eta_bcs)
+    wv = model.free_surface._weight_vec(None, eta)
+    return (g, model.eta_bcs, eta, rand(10.0), rand(10.0), rand(1e-3), rand(1e-3),
+            *column_depths(g), 9.80665, 40.0, wv, wv, n)
+
+
+def hold_k5(label, model, args):
+    """K5 against its plain version on every with-halo point over
+    NaN-filled outputs; max|Δ|."""
+    g = model.grid
+    names = ("eta_av", "U_av", "V_av")
+    poison_cache(g.total_shape[:2] + (1,), g.dtype, 20)
+    return hold(f"K5 {label}", {"out": dict(zip(names, fused_substep_eta(*args)))},
+                {"out": dict(zip(names, fused_substep_eta_reference(*args)))},
+                g.dtype, exact=True)
+
+
+def steps_agree(label, model, state, steps, dt=60.0):
+    """``steps`` model steps with the kernels and with their plain versions,
+    every solution field and η bit for bit."""
+    runs = []
+    for kernels in (None, hydrostatic.PLAIN):
+        s = state
+        for _ in range(steps):
+            s = model.step(s, dt, kernels=kernels)
+        runs.append(s)
+    got = dict(runs[0]["solution"], eta=runs[0]["eta"])
+    ref = dict(runs[1]["solution"], eta=runs[1]["eta"])
+    return hold(f"{label}, {steps} steps kernels against plain", {"s": got}, {"s": ref},
+                model.grid.dtype, exact=True)
+
+
+def phase_flat_holds():
+    """K4a, K4b (both forms, both momentum forms) and K5 on the five Flat
+    topologies in fp32 and fp64, and K4b's Cartesian Coriolis forms on a
+    (Periodic, Bounded, Bounded) box, each bit for bit its plain version;
+    3 model steps with the kernels against 3 with the plain versions on
+    each. Returns ({kernel: largest max|Δ|}, {kernel: the fp32 forms'
+    readings, timed by CUDA events})."""
+    worst = {K4A: 0.0, K4B: 0.0, K5: 0.0}
+    forms = {K4A: [], K4B: [], K5: []}
+    for short, topology, size in FLAT_HYDRO:
+        for dtype in (torch.float32, torch.float64):
+            tag = f"{short} {'x'.join(map(str, size))} {str(dtype)[6:]}"
+            for momentum in (WENO5(), VectorInvariant()):
+                model = flat_hydro_model(topology, size, dtype, momentum)
+                state = hydro_random_state(model, 21)
+                label = f"Flat {tag} {type(momentum).__name__}"
+                # the last (VectorInvariant) model's is the timed form's reading
+                err_b = hold_k4b(label, model, state)
+                worst[K4B] = max(worst[K4B], err_b)
+            g, sol = model.grid, state["solution"]
+            err_a = hold_k4a(f"Flat {tag}", g, sol)
+            args = k5_args(model, 22, 8)
+            err_5 = hold_k5(f"Flat {tag}, 8 substeps", model, args)
+            worst[K4A], worst[K5] = max(worst[K4A], err_a), max(worst[K5], err_5)
+            if dtype is torch.float64:
+                worst[K4B] = max(worst[K4B], steps_agree(f"Flat {tag}", model, state, 3))
+                continue
+            points = g.Nx * g.Ny * g.Nz
+            a = (g, sol["u"], sol["v"], sol["b"])
+            w, ph = hydrostatic_columns(*a)
+            forms[K4A].append(form_record(
+                short, f"{tag}, w and pHY'", err_a, cuda_ms(lambda: hydrostatic_columns(*a), 20),
+                cuda_ms(lambda: hydrostatic_columns_reference(*a), 3),
+                *bound(K4A, tensor_bytes(a[1:], [w, ph]), points)))
+            adv = (HYDRO["dt"], False)
+            psi, G = fused_hydrostatic_tendencies(model, state, adv)
+            nb = tensor_bytes(sol.values(), [state["w"], state["pHY"]],
+                              state["G_prev"].values(), psi.values(), G.values())
+            forms[K4B].append(form_record(
+                short, f"{tag}, VectorInvariant, advance", err_b,
+                cuda_ms(lambda: fused_hydrostatic_tendencies(model, state, adv), 20),
+                cuda_ms(lambda: fused_hydrostatic_tendencies_reference(model, state, adv), 3),
+                *bound(K4B, nb, points, K4B_FORM_FLOPS["closure"])))
+            forms[K5].append(form_record(
+                short, f"{tag}, 8 substeps", err_5, cuda_ms(lambda: fused_substep_eta(*args), 20),
+                cuda_ms(lambda: fused_substep_eta_reference(*args), 3),
+                *bound(K5, 10 * tensor_bytes([args[2]]),
+                       g.total_shape[0] * g.total_shape[1] * 8)))
+            print(f"Flat {tag} times (CUDA events): K4a {forms[K4A][-1]['ms']:.4f} ms, "
+                  f"K4b advance {forms[K4B][-1]['ms']:.4f} ms, K5 {forms[K5][-1]['ms']:.4f} ms")
+            del w, ph, psi, G
+        del model, state, args
+        torch.cuda.empty_cache()
+    size = CARTESIAN_HOLD["size"]
+    for name, make in CARTESIAN.items():
+        for dtype in (torch.float32, torch.float64):
+            tag = f"P,B,B {'x'.join(map(str, size))} {str(dtype)[6:]}"
+            for momentum in (WENO5(), VectorInvariant()):
+                model = flat_hydro_model((PERIODIC, BOUNDED, BOUNDED), size, dtype,
+                                         momentum, make())
+                state = hydro_random_state(model, 23)
+                label = f"{name} {tag} {type(momentum).__name__}"
+                err = hold_k4b(label, model, state)
+                err = max(err, steps_agree(label, model, state, CARTESIAN_HOLD["steps"]))
+                worst[K4B] = max(worst[K4B], err)
+                if dtype is torch.float32 and isinstance(momentum, VectorInvariant):
+                    adv = (HYDRO["dt"], False)
+                    g, sol = model.grid, state["solution"]
+                    psi, G = fused_hydrostatic_tendencies(model, state, adv)
+                    nb = tensor_bytes(sol.values(), [state["w"], state["pHY"]],
+                                      state["G_prev"].values(), psi.values(), G.values())
+                    forms[K4B].append(form_record(
+                        name, f"{tag}, VectorInvariant, advance", err,
+                        cuda_ms(lambda: fused_hydrostatic_tendencies(model, state, adv), 20),
+                        cuda_ms(lambda: fused_hydrostatic_tendencies_reference(
+                            model, state, adv), 3),
+                        *bound(K4B, nb, g.Nx * g.Ny * g.Nz, K4B_FORM_FLOPS["closure"])))
+                    print(f"{label} K4b advance time: {forms[K4B][-1]['ms']:.4f} ms "
+                          "(CUDA events)")
+                    del psi, G
+                del model, state
+                torch.cuda.empty_cache()
+    return worst, forms
+
+
+#: the model steps of each column's hold, kernels against plain versions
+COLUMN_HOLD_STEPS = 4
+
+
+def column_steps_agree(path, fresh, end, dt):
+    """A column path's configuration held bit for bit: ``COLUMN_HOLD_STEPS``
+    steps with the kernels against as many with their plain versions (K4a,
+    K4b's tendency form, T1 and K6), from ``fresh`` (the path's model and
+    initial state built again: an Euler first step) and from ``end`` (the
+    path's model and end state); max|Δ|. Run after the path's counts were
+    read, so these launches count on no path."""
+    return max(steps_agree(f"{path}, from {start}", model, state, COLUMN_HOLD_STEPS, dt)
+               for start, (model, state) in (("its initial state", fresh),
+                                              ("the run's end", end)))
+
+
+def phase_column_closures():
+    """validation/vertical_mixing_closures.py as written, through the port's
+    copy: the (Flat, Flat, Bounded) 1×1×64 fp64 column under each closure,
+    720 steps of 60 s, with the kernels (K4a, K4b's tendency form, T1, K6;
+    the counts include the initial state's K4a and two K6);
+    the validation's assertions (budget within 2%, the mixed layer's
+    gradient, the depth ratio); then each column's configuration held bit
+    for bit (``column_steps_agree``). Returns (the launch counts by path,
+    the holds' largest max|Δ|)."""
+    vmc = vertical_mixing_closures
+    steps = int(vmc.T_END / vmc.DT)
+    by_path, results, err = {}, {}, 0.0
+    for name, make in vmc.CLOSURES:
+        path = f"column closures: {name}"
+        zero_counts()
+        t0 = time.perf_counter()
+        h, budget, grad, model, state = vmc.run_closure(name, make(), device=DEVICE)
+        torch.cuda.synchronize()
+        per_step = (time.perf_counter() - t0) / steps
+        # the copy builds its model and initial state inside the count
+        by_path[path] = read_counts(path, steps, INITIAL_STATE)
+        check_finite(path, model, state, ("w", "pHY", "eta"))
+        results[name] = (h, budget, grad)
+        print(f"{path}: (Flat, Flat, Bounded) 1x1x{model.grid.Nz} fp64, {steps} steps "
+              f"{per_step * 1e3:.3f} ms/step, h = {h:.1f} m (h/h_exp = "
+              f"{h / vmc.expected_depth():.3f}), budget {budget:.5f}, mixed-layer "
+              f"max|db/dz| {grad}; launches "
+              f"{ {k: n for k, n in by_path[path].items() if n} } on {card_line()}")
+        fresh = vmc.model_for(make(), device=DEVICE)
+        err = max(err, column_steps_agree(path, (fresh, vmc.initial_state(fresh)),
+                                          (model, state), vmc.DT))
+        del model, state, fresh
+    vmc.check(results)
+    print("column closures: the validation's assertions pass")
+    return by_path, err
+
+
+def phase_wind_mixing_column():
+    """validation/wind_mixing_column.py as written, through the port's copy:
+    the stretched-z (Flat, Flat, Bounded) 1×1×48 fp64 CATKE column under
+    its wind, 240 ``Simulation`` iterations with the kernels; its final TKE
+    profile; every field finite, e > 0 in the top five cells, the top
+    layer's u along the wind (against the sign of the kinematic stress,
+    an upward flux); then the column's configuration held bit for bit
+    (``column_steps_agree``). Returns (the launch counts by path, the
+    hold's max|Δ|)."""
+    wmc, path = wind_mixing_column, "wind mixing column"
+    sim = wmc.simulation(device=DEVICE)
+    zero_counts()
+    t0 = time.perf_counter()
+    sim.run()
+    torch.cuda.synchronize()
+    per_it = (time.perf_counter() - t0) / wmc.STOP_ITERATION
+    launches = read_counts(path, wmc.STOP_ITERATION)
+    model, state = sim.model, sim.state
+    check_finite(path, model, state, ("w", "pHY", "eta"))
+    e = wmc.tke_profile(sim)
+    u_top = float(model.grid.interior(state["solution"]["u"])[0, 0, -1])
+    print(f"{path}: final TKE profile (top 5): {e}")
+    if not (e > 0).all():
+        raise AssertionError(f"{path}: e <= 0 near the surface: {e}")
+    if not u_top * wmc.WIND_STRESS < 0:
+        raise AssertionError(f"{path}: the top layer's u {u_top:.6e} does not follow "
+                             f"the wind (kinematic stress {wmc.WIND_STRESS})")
+    print(f"{path}: 1x1x{model.grid.Nz} fp64 stretched z, {wmc.STOP_ITERATION} "
+          f"iterations {per_it * 1e3:.3f} ms/iteration, top-layer u {u_top:.6e} m/s, "
+          f"launches { {k: n for k, n in launches.items() if n} } on {card_line()}")
+    fresh = wmc.model_for(device=DEVICE)
+    err = column_steps_agree(path, (fresh, wmc.initial_state(fresh)), (model, state),
+                             wmc.DT)
+    return {path: launches}, err
+
+
+#: the Stommel gyre's timed reading: N, warm-up and timed steps
+GYRE_TIMED = dict(N=1024, warmup=2, steps=5)
+
+
+def phase_gyre():
+    """validation/barotropic_gyre.py as written, through the port's copy, at
+    N = 64 fp64 with K3a (~10⁴ RK3 steps) and its three assertions; then a
+    timed reading at N = 1024 (2 warm-up, 5 timed steps): ms a step, the
+    two forcing callables' share of it (three stages a step, CUDA events),
+    and 3 steps with K3a against 3 with its plain version, bit for bit.
+    Returns the launch counts by path."""
+    bg = barotropic_gyre
+    path = "Stommel gyre"
+    dt, n_steps = bg.time_step(bg.N)
+    zero_counts()
+    t0 = time.perf_counter()
+    model, state, (corr, amp, ratio) = bg.run(bg.N, DEVICE)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / n_steps
+    by_path = {path: read_counts(path, n_steps)}
+    check_finite(path, model, state)
+    bg.check(corr, amp, ratio)
+    print(f"{path}: (Bounded, Bounded, Flat) {bg.N}x{bg.N} fp64, {n_steps} RK3 steps "
+          f"of {dt:.3f} s, {per_step * 1e3:.3f} ms/step; corr {corr:.5f}, amplitude "
+          f"{amp:.4f}, west/east {ratio:.3f}: the validation's three assertions pass")
+    c, path = GYRE_TIMED, "Stommel gyre 1024"
+    model = bg.model_for(c["N"], DEVICE)
+    dt = bg.time_step(c["N"])[0]
+    state = model.initial_state(h=bg.H)
+    plain = state
+    state, per_step, by_path[path] = run_steps(
+        path, model, state, lambda s: model.step(s, dt), c["warmup"], c["steps"], False)
+    for _ in range(c["warmup"] + c["steps"]):
+        plain = model.step(plain, dt, shallow_water.PLAIN)
+    hold(f"{path}: {c['warmup'] + c['steps']} steps, K3a against its plain version",
+         {"solution": state["solution"]}, {"solution": plain["solution"]},
+         torch.float64, model.grid.interior, exact=True)
+    g, sol, clock = model.grid, state["solution"], state["clock"]
+    forcing_ms = cuda_ms(lambda: [model.forcing[n](g, clock, sol) for n in model.forcing],
+                         20)
+    step_ms = cuda_ms(lambda: model.step(state, dt), 5)
+    share = 3 * forcing_ms / step_ms
+    print(f"{path}: {c['N']}x{c['N']} fp64, {per_step * 1e3:.3f} ms/step (wall), "
+          f"{step_ms:.4f} ms/step (CUDA events); the two forcing callables "
+          f"{forcing_ms:.4f} ms a stage, {share:.4f} of the step on {card_line()}")
+    del model, state, plain
+    torch.cuda.empty_cache()
+    return by_path
+
+
+#: the front slice: examples/baroclinic_adjustment.py:29-61's physics on a
+#: zonally symmetric y-z slice, (Flat, Bounded, Bounded) 1×8192×128 fp32
+#: over its 1000 km × 1 km channel (Δy ≈ 122 m, Δz ≈ 7.8 m): its β-plane at
+#: 45°S, WENO5 momentum and tracers, its ScalarDiffusivity(kh = 0.1) with
+#: the vertical part scaled by the slice's aspect ratio Δz/Δy, its front
+#: b = N²z + Δb ramp(y) plus noise from numpy seed 1, with
+#: SplitExplicitFreeSurface(substeps=30) in place of its implicit free
+#: surface (K5's Flat-x form). Δt = 10 s: the advective limit Δy/U is
+#: ~150 s at the front's thermal wind M²H/f ≈ 0.8 m/s, the first internal
+#: mode's NH/π ≈ 0.64 m/s gives Δy/c ≈ 190 s, and the substeps (Δτ =
+#: 2Δt/30) keep the barotropic wave √(gH) ≈ 99 m/s at cΔτ/Δy ≈ 0.54,
+#: which binds (it passes 1 at Δt ≈ 18 s). Users: studies of front
+#: adjustment in a zonally averaged channel, where the 3D example's
+#: baroclinic instability is excluded by construction.
+FRONT = dict(size=(1, 8192, 128), Ly=1000e3, Lz=1e3, dt=10.0, warmup=2, steps=5,
+             N2=4e-6, M2=8e-8, dy_front=50e3, kh=0.1)
+
+
+def front_model_state():
+    c = FRONT
+    grid = RectilinearGrid(size=c["size"], x=(0.0, 1.0), y=(-c["Ly"] / 2, c["Ly"] / 2),
+                           z=(-c["Lz"], 0.0), topology=(FLAT, BOUNDED, BOUNDED),
+                           dtype=torch.float32, device=DEVICE)
+    omega, radius = 7.292115e-5, 6.371e6
+    coriolis = BetaPlane(f0=2 * omega * math.sin(math.radians(-45.0)),
+                         beta=2 * omega * math.cos(math.radians(-45.0)) / radius)
+    aspect = (c["Lz"] / c["size"][2]) / (c["Ly"] / c["size"][1])
+    closure = ScalarDiffusivity(nu=c["kh"], kappa=c["kh"], nu_z=aspect * c["kh"],
+                                kappa_z=aspect * c["kh"])
+    model = HydrostaticFreeSurfaceModel(
+        grid, coriolis=coriolis, buoyancy=BuoyancyTracer(), closure=closure,
+        momentum_advection=WENO5(), tracer_advection=WENO5(),
+        free_surface=SplitExplicitFreeSurface(substeps=30))
+    db = c["dy_front"] * c["M2"]
+    g = model.grid
+    noise = 1e-2 * db * np.random.default_rng(1).standard_normal(g.shape)
+    y = g.nodes(CENTER)[1].double().cpu().numpy()
+    z = g.nodes(CENTER)[2].double().cpu().numpy()
+    b0 = c["N2"] * z + db * np.clip(y / c["dy_front"] + 0.5, 0.0, 1.0) + noise
+    return model, model.initial_state(b=b0)
+
+
+def phase_front_slice():
+    """The front slice (``FRONT``) with the kernels, then with their plain
+    versions: 2 warm-up and 5 timed steps, 1 K4a, 1 K4b (its fused advance
+    with the in-kernel closure, the Flat-x layout), 1 K5 and 2 K6 a step;
+    every field finite, |Σ η·Az| ≤ 1e-5·Σ|η|·Az, the two runs bit for bit;
+    K4b held and timed on the path's fields. Returns (launches, K4b's
+    reading on the path)."""
+    c, path = FRONT, "front slice"
+    model, state = front_model_state()
+    if not model.fused_advance:
+        raise AssertionError(f"{path}: the model does not take K4b's fused advance")
+    state, per_step, launches = run_steps(
+        path, model, state, lambda s: model.step(s, c["dt"]), c["warmup"], c["steps"],
+        False)
+    check_finite(path, model, state, ("w", "pHY", "eta"))
+    g = model.grid
+    cut = lambda a: a[g.Hx:g.Hx + g.Nx, g.Hy:g.Hy + g.Ny, 0].double()
+    az = cut(torch.broadcast_to(g.Az(ETA_LOC), state["eta"].shape))
+    net, gross = (float((cut(state["eta"]) * az).sum()),
+                  float((cut(state["eta"]).abs() * az).sum()))
+    if not abs(net) <= 1e-5 * gross:
+        raise AssertionError(f"{path}: |sum(eta Az)| {abs(net):.3e} > 1e-5 "
+                             f"sum(|eta| Az) = {1e-5 * gross:.3e}")
+    adv = (c["dt"], False)
+    got = fused_hydrostatic_tendencies(model, state, adv)
+    ref = fused_hydrostatic_tendencies_reference(model, state, adv)
+    err = hold(f"K4b {path} advance on the path's fields",
+               {"psi'": got[0], "G": got[1]}, {"psi'": ref[0], "G": ref[1]},
+               torch.float32, g.interior, exact=True)
+    b_ms, b_by = k4b_bound(model, state, [t for o in got for t in o.values()], True)
+    del got, ref
+    ms = cuda_ms(lambda: fused_hydrostatic_tendencies(model, state, adv), 10)
+    plain_ms = cuda_ms(lambda: fused_hydrostatic_tendencies_reference(model, state, adv), 2)
+    points = g.Nx * g.Ny * g.Nz
+    steps = c["warmup"] + c["steps"]
+    print(f"{path} path: (Flat, Bounded, Bounded) {g.Nx}x{g.Ny}x{g.Nz} fp32, dt "
+          f"{c['dt']} s, {c['steps']} steps: {per_step * 1e3:.3f} ms/step, "
+          f"{points / per_step:.6e} grid points/s, launches "
+          f"{ {k: n for k, n in launches.items() if n} } in {steps} steps, "
+          f"|sum(eta Az)|/sum(|eta| Az) {abs(net) / gross:.3e}; K4b advance on its "
+          f"fields {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
+          f"on {card_line()}")
+    reading = form_record(path, f"F,B,B {g.Nx}x{g.Ny}x{g.Nz} fp32 advance, WENO5, "
+                          "in-kernel closure, Flat-x layout", err, ms, plain_ms, b_ms,
+                          b_by, launches[K4B])
+    kernel_run = dict(state["solution"], eta=state["eta"])
+    model, state = front_model_state()
+    state, plain_step, _ = run_steps(
+        path, model, state, lambda s: model.step(s, c["dt"], hydrostatic.PLAIN),
+        c["warmup"], c["steps"], True)
+    hold(f"{path}: {steps} steps with the kernels against the plain versions",
+         {"s": kernel_run}, {"s": dict(state["solution"], eta=state["eta"])},
+         torch.float32, exact=True)
+    print(f"{path} path: plain versions {plain_step * 1e3:.3f} ms/step")
+    del model, state, kernel_run
+    torch.cuda.empty_cache()
+    return launches, reading
+
+
 def main():
     phase_device()
     phase_build()
@@ -4443,6 +4911,9 @@ def main():
     measured[K5] = phase_k5()
     k5_planes = phase_k5_planes()
     k5_err = k5_planes[0]
+    # the Flat slice's holds: K4a, K4b and K5 on Flat axes, K4b's Cartesian
+    # Coriolis forms
+    flat_hold_worst, flat_hold_forms = phase_flat_holds()
     measured[K6] = phase_k6()
     phase_forced()
     k1_err, k2_err = phase_stretched()
@@ -4501,6 +4972,19 @@ def main():
     phase_closures_hold()
     by_path.update(phase_free_convection())
     phase_nonhydrostatic_closures()
+    # the Flat slice's paths: the two columns, the gyre, the front slice
+    # (each column's holds run K4a, K4b, T1 and K6)
+    columns, column_err = phase_column_closures()
+    by_path.update(columns)
+    columns, err = phase_wind_mixing_column()
+    by_path.update(columns)
+    column_err = max(column_err, err)
+    by_path.update(phase_gyre())
+    by_path["front slice"], front_reading = phase_front_slice()
+    for name, err in flat_hold_worst.items():
+        flat_worst[name] = max(flat_worst.get(name, 0.0), err)
+    for name in (K4A, K4B, T1, K6):
+        flat_worst[name] = max(flat_worst.get(name, 0.0), column_err)
     flat_worst[K6] = max(flat_worst[K6], k6_err)
     for name, err in scheme_worst.items():
         flat_worst[name] = max(flat_worst.get(name, 0.0), err)
@@ -4575,6 +5059,18 @@ def main():
     by_name[K1]["forms"] += bf16_forms[K1] + bf16_readings
     for name in (K2, K3A, K4B):
         by_name[name]["forms"] += bf16_forms[name]
+    # the Flat slice's forms: K4a, K4b and K5 on each Flat topology and
+    # K4b's Cartesian Coriolis forms (holds), with the launches of the
+    # paths that run each topology; K4b on the front slice's own fields
+    def flat_launches(part, name):
+        return sum(n[name] for path, n in by_path.items()
+                   if any(path.startswith(p) for p in FLAT_FORM_PATHS.get(part, ())))
+
+    for name in (K4A, K4B, K5):
+        by_name[name].setdefault("forms", []).extend(
+            dict(r, launches=flat_launches(r["part"], name))
+            for r in flat_hold_forms[name])
+    by_name[K4B]["forms"].append(front_reading)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

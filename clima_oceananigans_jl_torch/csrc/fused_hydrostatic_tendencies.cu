@@ -97,6 +97,17 @@
 // there, as JAX's transport takes tables only for the WENO5 family); with
 // WENO5's bf16 options its bf16 sub-form (BF), which alone carries the
 // bf16 forms of the reconstructions.
+// Beyond the TPU kernel (whose gate leaves them to jnp): a Flat x, a Flat y
+// or both, and the Cartesian Coriolis forms (ConstantCartesianCoriolis and
+// NonTraditionalBetaPlane: fy ixf(izc(w)) - fz ixf(iyc(v)) and
+// fz iyf(ixc(u)) [- fx iyf(izc(w))], rows of fz, fy, fx; their w terms read
+// the staged w box). These take the run-time form with every scheme (ANY
+// with BF) in layouts of their own (HTile): a line of 128 columns along the
+// axis that is not Flat (one column when both are), so that no thread idles
+// on an axis of extent 1, strides 0 along the Flat axis, and the Cartesian
+// forms in the 16 x 8 tile. Their kernels call their own instantiations of
+// the out-of-line device functions (NEW), and every earlier instantiation
+// compiles as it did.
 // __launch_bounds__(512, 1) keeps a thread at 128 registers or fewer, so
 // 16 warps fit on an SM.
 #include <cuda_runtime.h>
@@ -107,11 +118,14 @@
 // rows of ops/metric_rows.py: Y_ROWS; the z rows' layout (Z_DZ_C, Z_DZ_F,
 // then the 24 table rows) is weno5_advection.cuh's
 enum { DX_CC = 0, DX_CF, DX_FC, DX_FF, AZ_CC, AZ_CF, AZ_FC, AZ_FF, DY_C, DY_F,
-       F_U, F_V };
+       F_U, F_V, F2_U, F2_V };
 // momentum: the vector-invariant schemes in advection/vector_invariant.py's
 // SCHEMES order, then the flux form and none
 enum { VI_ENSTROPHY = 0, VI_ENERGY, VI_WENO, VI_WENO_VELOCITY, FLUX_FORM, NO_MOMENTUM };
-enum { NO_CORIOLIS = 0, PLANE, SPHERICAL_ENERGY, SPHERICAL_ENSTROPHY };
+// CARTESIAN: ConstantCartesianCoriolis (rows fz, fz, fy, fx); NON_TRADITIONAL:
+// NonTraditionalBetaPlane (rows fz at u, fz at v, fy at u)
+enum { NO_CORIOLIS = 0, PLANE, SPHERICAL_ENERGY, SPHERICAL_ENSTROPHY, CARTESIAN,
+       NON_TRADITIONAL };
 
 // the diffusing field's location: u (F, C, C), v (C, F, C), a tracer (C, C, C)
 enum { AT_U = 0, AT_V, AT_C };
@@ -153,21 +167,46 @@ struct HydroArgs {
 };
 
 // the tile and its shared-memory boxes, all with z (levels) fastest
-constexpr int HT_X = 16, HT_Y = 8, HT_THREADS = 512, HT_R = 3;
-constexpr int HT_COLS = HT_X * HT_Y;
-constexpr int HT_BOX = (HT_X + 2 * HT_R) * (HT_Y + 2 * HT_R);  // u, v, tracers: 3-cell halo
-constexpr int HT_WBOX = (HT_X + 1) * (HT_Y + 1);              // w, Bernoulli: 1 below
-constexpr int HT_FFBOX = (HT_X + 5) * (HT_Y + 5);             // zeta streams: 2 below, 3 above
-constexpr int HT_XF = (HT_X + 1) * HT_Y, HT_YF = HT_X * (HT_Y + 1);
+constexpr int HT_THREADS = 512, HT_R = 3;
+
+// The block's tile of columns by layout: 16 x 8 (x by y) where neither x nor
+// y is Flat; on a Flat x a line of 128 columns along y, on a Flat y a line
+// of 128 along x, on both one column. A Flat axis has extent 1 and halo 0,
+// and every neighbour along it is the cell itself, as the plain version's
+// roll of an axis of extent 1 makes it: its strides are 0 in every staged
+// box and in the arrays, so each stencil reads the cell's own value in the
+// plain version's expression, and each box has extent 1 along it.
+enum { LAYOUT_TILE = 0, LAYOUT_FLAT_X, LAYOUT_FLAT_Y, LAYOUT_FLAT_XY };
+template <int L>
+struct HTile {
+  static constexpr bool FX = L == LAYOUT_FLAT_X || L == LAYOUT_FLAT_XY;
+  static constexpr bool FY = L == LAYOUT_FLAT_Y || L == LAYOUT_FLAT_XY;
+  static constexpr int X = L == LAYOUT_TILE ? 16 : (FX ? 1 : 128);
+  static constexpr int Y = L == LAYOUT_TILE ? 8 : (FY ? 1 : 128);
+  static constexpr int COLS = X * Y;
+  // a box's extent along x and y reaching lo cells below the tile and hi above
+  static constexpr int ex(int lo, int hi) { return FX ? 1 : X + lo + hi; }
+  static constexpr int ey(int lo, int hi) { return FY ? 1 : Y + lo + hi; }
+  // the y extents of the boxes: u, v, tracers (3-cell halo); w and the
+  // Bernoulli head (1 below); the zeta streams (2 below, 3 above); the y
+  // faces
+  static constexpr int BY = ey(HT_R, HT_R), WY = ey(1, 0), FFY = ey(2, 3), YFY = ey(0, 1);
+  static constexpr int BOX = ex(HT_R, HT_R) * BY;
+  static constexpr int WBOX = ex(1, 0) * WY;
+  static constexpr int FFBOX = ex(2, 3) * FFY;
+  static constexpr int XF = ex(0, 1) * Y, YF = X * YFY;  // x and y face fluxes
+};
 
 // elements of T in shared memory for a chunk of kz levels: u, v, w, tracer
 // buffer 0, then one region used first by the momentum arrays (zeta, iyf(u),
 // ixf(v), Bernoulli) and then by tracer buffer 1 and the face fluxes
+template <int L>
 static long hydro_smem_elems(int kz) {
+  using TL = HTile<L>;
   const long zs = kz + 2 * HT_R;
-  const long uv = 2L * HT_BOX * zs, w = (long)HT_WBOX * (kz + 1), tb = (long)HT_BOX * zs;
-  const long mom = (3L * HT_FFBOX + HT_WBOX) * kz;
-  const long tra = tb + (long)(HT_XF + HT_YF) * kz + (long)HT_COLS * (kz + 1);
+  const long uv = 2L * TL::BOX * zs, w = (long)TL::WBOX * (kz + 1), tb = (long)TL::BOX * zs;
+  const long mom = (3L * TL::FFBOX + TL::WBOX) * kz;
+  const long tra = tb + (long)(TL::XF + TL::YF) * kz + (long)TL::COLS * (kz + 1);
   return uv + w + tb + (mom > tra ? mom : tra);
 }
 
@@ -277,7 +316,7 @@ __device__ __forceinline__ T bernoulli(const T* u, const T* v, int q, int sx, in
 // the shared-memory momentum arrays of a chunk: zeta, iyf(u), ixf(v) at the
 // (F, F) points from (I0-2, J0-2), the Bernoulli head at the (C, C) points
 // from (I0-1, J0-1); level index k - K0 fastest
-template <typename T>
+template <typename T, int L>
 struct MomArrays {
   const T* zeta;
   const T* su;
@@ -285,17 +324,25 @@ struct MomArrays {
   const T* bern;
   int I0, J0, K0, kz;
   __device__ __forceinline__ int ff(int i, int j, int k) const {
-    return ((i - I0 + 2) * (HT_Y + 5) + (j - J0 + 2)) * kz + (k - K0);
+    using TL = HTile<L>;
+    if constexpr (L == LAYOUT_TILE)
+      return ((i - I0 + 2) * (TL::Y + 5) + (j - J0 + 2)) * kz + (k - K0);
+    else
+      return ((TL::FX ? 0 : i - I0 + 2) * TL::FFY + (TL::FY ? 0 : j - J0 + 2)) * kz + (k - K0);
   }
   __device__ __forceinline__ int cc(int i, int j, int k) const {
-    return ((i - I0 + 1) * (HT_Y + 1) + (j - J0 + 1)) * kz + (k - K0);
+    using TL = HTile<L>;
+    if constexpr (L == LAYOUT_TILE)
+      return ((i - I0 + 1) * (TL::Y + 1) + (j - J0 + 1)) * kz + (k - K0);
+    else
+      return ((TL::FX ? 0 : i - I0 + 1) * TL::WY + (TL::FY ? 0 : j - J0 + 1)) * kz + (k - K0);
   }
 };
 
 // select-first WENO5 of zeta onto a centre along y (u) or x (v), the stream
 // from the face pair nearest the centre: vel * rec
-template <typename T>
-__device__ __forceinline__ T weno_vorticity(const Pt<T>& P, const MomArrays<T>& M,
+template <typename T, int L>
+__device__ __forceinline__ T weno_vorticity(const Pt<T>& P, const MomArrays<T, L>& M,
                                             bool along_y, T vel, int mom) {
   const bool sel = vel >= T(0);
   T z[5], su[5], sv[5];
@@ -316,8 +363,8 @@ __device__ __forceinline__ T weno_vorticity(const Pt<T>& P, const MomArrays<T>& 
 }
 
 // U.grad(u) at the u point
-template <typename T>
-__device__ __forceinline__ T vi_u(const Pt<T>& P, const MomArrays<T>& M, int mom) {
+template <typename T, int L>
+__device__ __forceinline__ T vi_u(const Pt<T>& P, const MomArrays<T, L>& M, int mom) {
   const T* u = P.u;
   const T* v = P.v;
   const T* w = P.w;
@@ -352,8 +399,8 @@ __device__ __forceinline__ T vi_u(const Pt<T>& P, const MomArrays<T>& M, int mom
 }
 
 // U.grad(v) at the v point
-template <typename T>
-__device__ __forceinline__ T vi_v(const Pt<T>& P, const MomArrays<T>& M, int mom) {
+template <typename T, int L>
+__device__ __forceinline__ T vi_v(const Pt<T>& P, const MomArrays<T, L>& M, int mom) {
   const T* u = P.u;
   const T* v = P.v;
   const T* w = P.w;
@@ -403,7 +450,7 @@ struct Tabs {
 // expressions they had before the other schemes came, so that they compile
 // as they did.
 
-template <bool ANY, bool BF, typename T>
+template <bool ANY, bool BF, bool NEW, typename T>
 __device__ T div_vu(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64_t gsx,
                     int64_t gsy) {
   const HydroArgs<T>& A = *P.A;
@@ -453,7 +500,7 @@ __device__ T div_vu(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64
                   + (fz(o + 1, P.ow + 1, K + 1) - fz(o, P.ow, K)), az * dz);
 }
 
-template <bool ANY, bool BF, typename T>
+template <bool ANY, bool BF, bool NEW, typename T>
 __device__ T div_vv(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64_t gsx,
                     int64_t gsy) {
   const HydroArgs<T>& A = *P.A;
@@ -505,12 +552,22 @@ __device__ T div_vv(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64
 
 // ---- Coriolis ---------------------------------------------------------------------
 
-// (f x u)_x at the u point
-template <typename T>
+// (f x u)_x at the u point; CART: the Cartesian forms are read at run time
+template <bool CART, typename T>
 __device__ T f_cross_x(const Pt<T>& P, int cor) {
   const T* v = P.v;
   const int o = P.o, sx = P.sx, sy = P.sy, J = P.J;
   const T half = T(0.5);
+  if constexpr (CART) {
+    if (cor == CARTESIAN || cor == NON_TRADITIONAL) {
+      // fy ixf(izc(w)) - fz ixf(iyc(v)), fy and fz at the u point
+      const T* w = P.w;
+      const int q = P.ow, s = P.wsx;
+      const T wf = half * (half * (w[q + 1] + w[q]) + half * (w[q - s + 1] + w[q - s]));
+      const T vf = half * (half * (v[o + sy] + v[o]) + half * (v[o - sx + sy] + v[o - sx]));
+      return P.yr(F2_U)[J] * wf - P.yr(F_U)[J] * vf;
+    }
+  }
   if (cor == PLANE)  // -f ixf(iyc(v))
     return (-P.yr(F_U)[J]) * (half * (half * (v[o + sy] + v[o])
                                       + half * (v[o - sx + sy] + v[o - sx])));
@@ -527,12 +584,24 @@ __device__ T f_cross_x(const Pt<T>& P, int cor) {
   return ieee_div(-(half * (f[J + 1] + f[J])) * (half * (iyc_dxv(o) + iyc_dxv(o - sx))), dxu);
 }
 
-// (f x u)_y at the v point
-template <typename T>
+// (f x u)_y at the v point; CART: the Cartesian forms are read at run time
+template <bool CART, typename T>
 __device__ T f_cross_y(const Pt<T>& P, int cor) {
   const T* u = P.u;
   const int o = P.o, sx = P.sx, sy = P.sy, J = P.J;
   const T half = T(0.5);
+  if constexpr (CART) {
+    if (cor == CARTESIAN || cor == NON_TRADITIONAL) {
+      // fz iyf(ixc(u)) [- fx iyf(izc(w)): constant Cartesian], fz and fx at the v point
+      const T uf = half * (half * (u[o + sx] + u[o]) + half * (u[o + sx - sy] + u[o - sy]));
+      const T fu = P.yr(F_V)[J] * uf;
+      if (cor == NON_TRADITIONAL) return fu;
+      const T* w = P.w;
+      const int q = P.ow, s = P.wsy;
+      const T wf = half * (half * (w[q + 1] + w[q]) + half * (w[q - s + 1] + w[q - s]));
+      return fu - P.yr(F2_V)[J] * wf;
+    }
+  }
   if (cor == PLANE)  // f iyf(ixc(u))
     return P.yr(F_V)[J] * (half * (half * (u[o + sx] + u[o])
                                    + half * (u[o + sx - sy] + u[o - sy])));
@@ -567,16 +636,33 @@ __device__ __forceinline__ void store_zero(const HydroArgs<T>& A, int64_t p) {
 }
 
 template <typename T, int MOM, int COR, int TABLES_ON, int ADV, int XTRA, bool ANY,
-          bool BF = false>
+          bool BF = false, int L = LAYOUT_TILE, bool CART = false>
 __global__ void __launch_bounds__(HT_THREADS, 1)
 fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
+  using TL = HTile<L>;
+  // a new form's kernel (a Flat layout or the Cartesian Coriolis forms)
+  // calls its own instantiations of the out-of-line device functions, so
+  // that the earlier kernels' callees keep their callers (and their SASS)
+  constexpr bool NEW = L != LAYOUT_TILE || CART;
+  // a Flat y: ny = 1 and, for the rows alone, hy = HT_R (the y rows repeat
+  // their one value). Where a Flat layout needs another expression, an `if
+  // constexpr` gives the 16 x 8 tile the very statements it had before the
+  // Flat layouts came: a conditional expression, even on a constant, moved
+  // the earlier instantiations' SASS
+  constexpr bool fx = TL::FX, fy = TL::FY;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sm = reinterpret_cast<T*>(smem_raw);
   const int mom = MOM >= 0 ? MOM : A.mom;
   const int cor = COR >= 0 ? COR : A.cor;
   const bool tables = TABLES_ON >= 0 ? TABLES_ON != 0 : A.tables != 0;
   const int X = A.nx + 2 * A.hx, Y = A.ny + 2 * A.hy, Z = A.nz + 2 * A.hz;
-  const int64_t gsx = (int64_t)Y * Z, gsy = Z;
+  // the arrays' strides (0 along a Flat axis; a Flat y's Y counts the rows' halo)
+  int64_t gsx, gsy;
+  if constexpr (L == LAYOUT_TILE) {
+    gsx = (int64_t)Y * Z, gsy = Z;
+  } else {
+    gsx = fx ? 0 : (int64_t)(fy ? 1 : Y) * Z, gsy = fy ? 0 : Z;
+  }
   // XTRA 0: no closure, no immersed boundary, no y tables (not read)
   const int closure = XTRA ? A.closure : NO_CLOSURE;
   const uint8_t* const clr_c = XTRA ? A.clr[0] : nullptr;
@@ -587,39 +673,57 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
                    ZRows<T>{ytab ? A.yt + Z_TABLE_ROWS * Y : nullptr, Y}, tables, ytab};
   const int kz = A.kz;
   // the tile [I0, I1) x [J0, J1) and the chunk [K0, K1) of interior levels
-  const int I0 = A.hx + (int)(blockIdx.x / A.nty) * HT_X, I1 = min(I0 + HT_X, A.hx + A.nx);
-  const int J0 = A.hy + (int)(blockIdx.x % A.nty) * HT_Y, J1 = min(J0 + HT_Y, A.hy + A.ny);
+  const int I0 = A.hx + (int)(blockIdx.x / A.nty) * TL::X, I1 = min(I0 + TL::X, A.hx + A.nx);
+  const int J0 = A.hy + (int)(blockIdx.x % A.nty) * TL::Y, J1 = min(J0 + TL::Y, A.hy + A.ny);
   const int K0 = A.hz + (int)blockIdx.y * kz, K1 = min(K0 + kz, A.hz + A.nz);
   const int tid = threadIdx.x;
 
   // shared memory: u, v, w, tracer buffer 0, then the momentum arrays or
   // (later) tracer buffer 1 and the face fluxes
   const int zs = kz + 2 * HT_R;
-  const int sy = zs, sx = (HT_Y + 2 * HT_R) * zs;          // u, v, tracer boxes
+  int sy, sx, wsy, wsx;  // u, v, tracer boxes; w box from (I0-1, J0-1, K0)
+  if constexpr (L == LAYOUT_TILE) {
+    sy = zs, sx = TL::BY * zs;
+  } else {
+    sy = fy ? 0 : zs, sx = fx ? 0 : TL::BY * zs;
+  }
   const int BI = I0 - HT_R, BJ = J0 - HT_R, BK = K0 - HT_R;
-  const int wsy = kz + 1, wsx = (HT_Y + 1) * wsy;          // w box from (I0-1, J0-1, K0)
+  if constexpr (L == LAYOUT_TILE) {
+    wsy = kz + 1, wsx = TL::WY * wsy;
+  } else {
+    wsy = fy ? 0 : kz + 1, wsx = fx ? 0 : TL::WY * (kz + 1);
+  }
   T* const su = sm;
-  T* const sv = su + HT_BOX * zs;
-  T* const sw = sv + HT_BOX * zs;
-  T* const tb0 = sw + HT_WBOX * (kz + 1);
-  T* const region = tb0 + HT_BOX * zs;
+  T* const sv = su + TL::BOX * zs;
+  T* const sw = sv + TL::BOX * zs;
+  T* const tb0 = sw + TL::WBOX * (kz + 1);
+  T* const region = tb0 + TL::BOX * zs;
   T* const mzeta = region;                                 // momentum phase
-  T* const msu = mzeta + HT_FFBOX * kz;
-  T* const msv = msu + HT_FFBOX * kz;
-  T* const mbern = msv + HT_FFBOX * kz;
+  T* const msu = mzeta + TL::FFBOX * kz;
+  T* const msv = msu + TL::FFBOX * kz;
+  T* const mbern = msv + TL::FFBOX * kz;
   T* const tb1 = region;                                   // tracer phase
-  T* const FX = tb1 + HT_BOX * zs;                         // x faces: (HT_X+1) x HT_Y x kz
-  T* const FY = FX + HT_XF * kz;                           // y faces: HT_X x (HT_Y+1) x kz
-  T* const FZ = FY + HT_YF * kz;                           // z faces: HT_X x HT_Y x (kz+1)
+  T* const FX = tb1 + TL::BOX * zs;                        // x faces: (X+1) x Y x kz
+  T* const FY = FX + TL::XF * kz;                          // y faces: X x (Y+1) x kz
+  T* const FZ = FY + TL::YF * kz;                          // z faces: X x Y x (kz+1)
 
   // 1. copies: u, v and w, then the first tracer (clipped to the array)
-  const int ci0 = max(BI, 0), ci1 = min(I1 + HT_R, X);
-  const int cj0 = max(BJ, 0), cj1 = min(J1 + HT_R, Y);
+  const int ci0 = max(BI, 0), ci1 = min(I1 + HT_R, X);  // a Flat x: [0, 1)
+  int cj0, cj1;  // (a Flat y: its one row)
+  if constexpr (L == LAYOUT_TILE) {
+    cj0 = max(BJ, 0), cj1 = min(J1 + HT_R, Y);
+  } else {
+    cj0 = fy ? J0 : max(BJ, 0), cj1 = fy ? J0 + 1 : min(J1 + HT_R, Y);
+  }
   const int ck0 = max(BK, 0), ck1 = min(K1 + HT_R, Z);
   copy_box_async(su, A.psi[0], gsx, gsy, ci0, ci1, cj0, cj1, ck0, ck1, BI, BJ, BK, sx, sy);
   copy_box_async(sv, A.psi[1], gsx, gsy, ci0, ci1, cj0, cj1, ck0, ck1, BI, BJ, BK, sx, sy);
-  copy_box_async(sw, A.w, gsx, gsy, max(I0 - 1, 0), I1, max(J0 - 1, 0), J1, K0, K1 + 1,
-                 I0 - 1, J0 - 1, K0, wsx, wsy);
+  if constexpr (L == LAYOUT_TILE)
+    copy_box_async(sw, A.w, gsx, gsy, max(I0 - 1, 0), I1, max(J0 - 1, 0), J1, K0, K1 + 1,
+                   I0 - 1, J0 - 1, K0, wsx, wsy);
+  else
+    copy_box_async(sw, A.w, gsx, gsy, max(I0 - 1, 0), I1, fy ? J0 : max(J0 - 1, 0), J1, K0,
+                   K1 + 1, I0 - 1, J0 - 1, K0, wsx, wsy);
   copy_async_commit();
   const bool advect = A.tr >= 0 && A.nf > 2;
   if (advect) {
@@ -634,16 +738,21 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
     const bool first = blockIdx.y == 0, last = blockIdx.y == gridDim.y - 1;
     const int h2 = 2 * A.hz;
     if ((first || last) && h2 > 0) {
-      for (int t = tid; t < HT_COLS * h2; t += HT_THREADS) {
+      for (int t = tid; t < TL::COLS * h2; t += HT_THREADS) {
         const int c = A.h2d.div(t), m = t - c * h2;
-        const int i = I0 + c / HT_Y, j = J0 + c % HT_Y;
+        const int i = I0 + c / TL::Y, j = J0 + c % TL::Y;
         const int k = m < A.hz ? m : A.hz + A.nz + (m - A.hz);
         if (i < I1 && j < J1 && (m < A.hz ? first : last))
           store_zero<T, ADV>(A, i * gsx + j * gsy + k);
       }
     }
     const int ri0 = I0 == A.hx ? 0 : I0, ri1 = I1 == A.hx + A.nx ? X : I1;
-    const int rj0 = J0 == A.hy ? 0 : J0, rj1 = J1 == A.hy + A.ny ? Y : J1;
+    // (a Flat y has no halo columns: its rows' halo is not the arrays')
+    int rj0, rj1;
+    if constexpr (L == LAYOUT_TILE)
+      rj0 = J0 == A.hy ? 0 : J0, rj1 = J1 == A.hy + A.ny ? Y : J1;
+    else
+      rj0 = !fy && J0 == A.hy ? 0 : J0, rj1 = !fy && J1 == A.hy + A.ny ? Y : J1;
     if (first && (ri0 != I0 || ri1 != I1 || rj0 != J0 || rj1 != J1)) {
       const int mj = rj1 - rj0, n = (ri1 - ri0) * mj * Z;
       for (int t = tid; t < n; t += HT_THREADS) {
@@ -658,15 +767,15 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
   __syncthreads();
 
   // the block's tasks run over the whole tile and chunk, level fastest
-  // (HT_COLS x kz points; edge tiles and a short last chunk skip the
+  // (TL::COLS x kz points; edge tiles and a short last chunk skip the
   // points outside), so every index division is by a compile-time width or
   // by kz through FastDiv
-  const int npts = HT_COLS * kz;
+  const int npts = TL::COLS * kz;
   auto point = [&](int t, int& I, int& J, int& K) {  // false outside the domain
     const int c = A.kzd.div(t);
     K = K0 + (t - c * kz);
-    I = I0 + c / HT_Y;
-    J = J0 + c % HT_Y;
+    I = I0 + c / TL::Y;
+    J = J0 + c % TL::Y;
     return I < I1 && J < J1 && K < K1;
   };
   auto at = [&](int i, int j, int k) { return (i - BI) * sx + (j - BJ) * sy + (k - BK); };
@@ -678,19 +787,23 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
 
   // 2. momentum
   const bool vi = mom <= VI_WENO_VELOCITY;
-  const MomArrays<T> M{mzeta, msu, msv, mbern, I0, J0, K0, kz};
+  const MomArrays<T, L> M{mzeta, msu, msv, mbern, I0, J0, K0, kz};
   if (vi) {
     // zeta (and the smoothness streams) at the (F, F) points
     // [I0-2, I1+2] x [J0-2, J1+2], the Bernoulli head at the (C, C) points
     // [I0-1, I1) x [J0-1, J1), every level of the chunk
-    const int nff = HT_FFBOX * kz, ncc = HT_WBOX * kz;
+    const int nff = TL::FFBOX * kz, ncc = TL::WBOX * kz;
     const T* dy_f = A.ys + DY_F * Y;
     const T* dx_fc = A.ys + DX_FC * Y;
     const T* az_ff = A.ys + AZ_FF * Y;
     for (int t = tid; t < nff + ncc; t += HT_THREADS) {
       if (t < nff) {  // t is M.ff(i, j, k)
         const int c = A.kzd.div(t), k = K0 + (t - c * kz);
-        const int i = I0 - 2 + c / (HT_Y + 5), j = J0 - 2 + c % (HT_Y + 5);
+        int i, j;
+        if constexpr (L == LAYOUT_TILE)
+          i = I0 - 2 + c / TL::FFY, j = J0 - 2 + c % TL::FFY;
+        else
+          i = fx ? I0 : I0 - 2 + c / TL::FFY, j = fy ? J0 : J0 - 2 + c % TL::FFY;
         if (i > I1 + 2 || j > J1 + 2 || k >= K1) continue;
         const int q = at(i, j, k), m = t;
         mzeta[m] = ieee_div((dy_f[j] * sv[q] - dy_f[j] * sv[q - sx])
@@ -701,7 +814,11 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
         }
       } else {  // t - nff is M.cc(i, j, k)
         const int s = t - nff, c = A.kzd.div(s), k = K0 + (s - c * kz);
-        const int i = I0 - 1 + c / (HT_Y + 1), j = J0 - 1 + c % (HT_Y + 1);
+        int i, j;
+        if constexpr (L == LAYOUT_TILE)
+          i = I0 - 1 + c / TL::WY, j = J0 - 1 + c % TL::WY;
+        else
+          i = fx ? I0 : I0 - 1 + c / TL::WY, j = fy ? J0 : J0 - 1 + c % TL::WY;
         if (i >= I1 || j >= J1 || k >= K1) continue;
         mbern[s] = bernoulli(su, sv, at(i, j, k), sx, sy);
       }
@@ -715,9 +832,9 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
     const int64_t p = I * gsx + J * gsy + K;
     // u
     T g = T(0);
-    if (mom == FLUX_FORM) g = -div_vu<ANY, BF>(P, tb, clr_u, gsx, gsy);
+    if (mom == FLUX_FORM) g = -div_vu<ANY, BF, NEW>(P, tb, clr_u, gsx, gsy);
     else if (mom != NO_MOMENTUM) g = -vi_u(P, M, mom);
-    if (cor != NO_CORIOLIS) g = g - f_cross_x(P, cor);
+    if (cor != NO_CORIOLIS) g = g - f_cross_x<CART>(P, cor);
     if (A.ph != nullptr) g = g - ieee_div(A.ph[p] - A.ph[p - gsx], P.yr(DX_FC)[J]);
     if (closure != NO_CLOSURE)
       g = g + diffusion(su, P.o, sx, sy, A.ys, A.zs, Y, Z, J, K, AT_U, A.kh[0], A.kv[0],
@@ -725,9 +842,9 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
     store<T, ADV>(A, 0, p, su[P.o], g);
     // v
     g = T(0);
-    if (mom == FLUX_FORM) g = -div_vv<ANY, BF>(P, tb, clr_v, gsx, gsy);
+    if (mom == FLUX_FORM) g = -div_vv<ANY, BF, NEW>(P, tb, clr_v, gsx, gsy);
     else if (mom != NO_MOMENTUM) g = -vi_v(P, M, mom);
-    if (cor != NO_CORIOLIS) g = g - f_cross_y(P, cor);
+    if (cor != NO_CORIOLIS) g = g - f_cross_y<CART>(P, cor);
     if (A.ph != nullptr) g = g - ieee_div(A.ph[p] - A.ph[p - gsy], P.yr(DY_F)[J]);
     if (closure != NO_CLOSURE)
       g = g + diffusion(sv, P.o, sx, sy, A.ys, A.zs, Y, Z, J, K, AT_V, A.kh[1], A.kv[1],
@@ -757,11 +874,17 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
   const bool we = A.tr == 1;
   const T eps = A.eps_t;
   const bool xmask = we && A.xm, ymask = we && A.ym;
-  const int nfx = HT_XF * kz, nfy = HT_YF * kz, nfz = HT_COLS * (kz + 1);
+  const int nfx = TL::XF * kz, nfy = TL::YF * kz, nfz = TL::COLS * (kz + 1);
   // face-flux array offsets: level fastest, kz (or kz+1) levels per face
-  auto fxi = [&](int i, int j, int k) { return ((i - I0) * HT_Y + (j - J0)) * kz + (k - K0); };
-  auto fyi = [&](int i, int j, int k) { return ((i - I0) * (HT_Y + 1) + (j - J0)) * kz + (k - K0); };
-  auto fzi = [&](int i, int j, int k) { return ((i - I0) * HT_Y + (j - J0)) * (kz + 1) + (k - K0); };
+  // (on the layout's Flat axis one face slot serves both faces of a cell)
+  auto fxi = [&](int i, int j, int k) { return ((i - I0) * TL::Y + (j - J0)) * kz + (k - K0); };
+  auto fyi = [&](int i, int j, int k) {
+    if constexpr (L == LAYOUT_TILE)
+      return ((i - I0) * TL::YFY + (j - J0)) * kz + (k - K0);
+    else
+      return ((i - I0) * TL::YFY + (fy ? 0 : j - J0)) * kz + (k - K0);
+  };
+  auto fzi = [&](int i, int j, int k) { return ((i - I0) * TL::Y + (j - J0)) * (kz + 1) + (k - K0); };
   for (int f = 2; f < A.nf; ++f) {
     T* const sc = (f - 2) % 2 == 0 ? tb0 : tb1;
     copy_async_wait<0>();
@@ -775,7 +898,7 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
     for (int t = tid; t < nfx + nfy + nfz; t += HT_THREADS) {
       if (t < nfx) {  // t is fxi(i, j, k)
         const int c = A.kzd.div(t), k = K0 + (t - c * kz);
-        const int i = I0 + c / HT_Y, j = J0 + c % HT_Y;
+        const int i = I0 + c / TL::Y, j = J0 + c % TL::Y;
         if (i > I1 || j >= J1 || k >= K1) continue;
         const int q = at(i, j, k);
         if constexpr (ANY)
@@ -789,7 +912,11 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
                                      clear_at(clr_c, i * gsx + j * gsy + k, 0));
       } else if (t < nfx + nfy) {  // t - nfx is fyi(i, j, k)
         const int s = t - nfx, c = A.kzd.div(s), k = K0 + (s - c * kz);
-        const int i = I0 + c / (HT_Y + 1), j = J0 + c % (HT_Y + 1);
+        int i, j;
+        if constexpr (L == LAYOUT_TILE)
+          i = I0 + c / TL::YFY, j = J0 + c % TL::YFY;
+        else
+          i = I0 + c / TL::YFY, j = fy ? J0 : J0 + c % TL::YFY;
         if (i >= I1 || j > J1 || k >= K1) continue;
         const int q = at(i, j, k);
         if constexpr (ANY)
@@ -803,7 +930,7 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
                                      tb.yf, clear_at(clr_c, i * gsx + j * gsy + k, 1));
       } else {  // t - nfx - nfy is fzi(i, j, k)
         const int s = t - nfx - nfy, c = A.kz1d.div(s), k = K0 + (s - c * (kz + 1));
-        const int i = I0 + c / HT_Y, j = J0 + c % HT_Y;
+        const int i = I0 + c / TL::Y, j = J0 + c % TL::Y;
         if (i >= I1 || j >= J1 || k > K1) continue;
         if constexpr (ANY)
           FZ[s] = A.ys[AZ_CC * Y + j]
@@ -824,8 +951,13 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
       const int64_t p = I * gsx + J * gsy + K;
       const T dz = A.zs[Z_DZ_C * Z + K], az = A.ys[AZ_CC * Y + J];
       const int x0 = fxi(I, J, K), y0 = fyi(I, J, K), z0 = fzi(I, J, K);
-      const T div = ieee_div(((FX[x0 + HT_Y * kz] - FX[x0]) + (FY[y0 + kz] - FY[y0]))
-                             + (FZ[z0 + 1] - FZ[z0]), az * dz);
+      T div;  // (on a Flat axis the far face's slot is the near one's)
+      if constexpr (L == LAYOUT_TILE)
+        div = ieee_div(((FX[x0 + TL::Y * kz] - FX[x0]) + (FY[y0 + kz] - FY[y0]))
+                       + (FZ[z0 + 1] - FZ[z0]), az * dz);
+      else
+        div = ieee_div(((FX[x0 + (fx ? 0 : TL::Y * kz)] - FX[x0])
+                        + (FY[y0 + (fy ? 0 : kz)] - FY[y0])) + (FZ[z0 + 1] - FZ[z0]), az * dz);
       T g = -div;
       if (closure != NO_CLOSURE)
         g = g + diffusion(sc, at(I, J, K), sx, sy, A.ys, A.zs, Y, Z, J, K, AT_C, A.kh[f],
@@ -836,9 +968,10 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
 }
 
 template <typename T, int MOM, int COR, int TABLES_ON, int ADV, int XTRA, bool ANY = false,
-          bool BF = false>
+          bool BF = false, int L = LAYOUT_TILE, bool CART = false>
 static int run(const HydroArgs<T>& A, dim3 blocks, int smem, cudaStream_t stream) {
-  auto kernel = fused_hydrostatic_tendencies_kernel<T, MOM, COR, TABLES_ON, ADV, XTRA, ANY, BF>;
+  auto kernel =
+      fused_hydrostatic_tendencies_kernel<T, MOM, COR, TABLES_ON, ADV, XTRA, ANY, BF, L, CART>;
   if (smem > 48 * 1024) {
     const int rc = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -851,6 +984,31 @@ static int run(const HydroArgs<T>& A, dim3 blocks, int smem, cudaStream_t stream
 // the most shared memory a block may have on sm_90 (227 KB)
 constexpr int HT_SMEM_MAX = 232448;
 
+// The launch's chunks of levels and blocks in layout L: the largest chunk
+// whose boxes fit, then chunks of equal size.
+template <typename T, int L>
+static void shape(HydroArgs<T>& A, dim3* blocks, int* smem) {
+  using TL = HTile<L>;
+  int kz = A.nz;
+  while (kz > 1 && hydro_smem_elems<L>(kz) * (long)sizeof(T) > HT_SMEM_MAX) --kz;
+  const int chunks = (A.nz + kz - 1) / kz;
+  A.kz = (A.nz + chunks - 1) / chunks;
+  A.nty = (A.ny + TL::Y - 1) / TL::Y;
+  A.kzd = fast_div(A.kz);
+  A.kz1d = fast_div(A.kz + 1);
+  *blocks = dim3((unsigned)(((A.nx + TL::X - 1) / TL::X) * A.nty), (unsigned)chunks);
+  *smem = (int)(hydro_smem_elems<L>(A.kz) * (long)sizeof(T));
+}
+
+// the layout and Coriolis form of a launch that takes a new form
+template <typename T, int L>
+static int run_new_form(HydroArgs<T>& A, cudaStream_t st) {
+  dim3 blocks;
+  int smem;
+  shape<T, L>(A, &blocks, &smem);
+  return run<T, -1, -1, -1, -1, 1, true, true, L, true>(A, blocks, smem, st);
+}
+
 template <typename T>
 static int launch(const void* const* psi, const void* w, const void* ph,
                   const void* ys, const void* zs, const void* yt, const void* clr_c,
@@ -860,8 +1018,11 @@ static int launch(const void* const* psi, const void* w, const void* ph,
                   int hz, int mom, int sm, int tr, int cor, int tables,
                   int ytables, int closure, int advance, const int* b, double eps_m,
                   double eps_t, double c1, double c2, double dt, const int* bt,
-                  const double* pw, void* stream) {
+                  const double* pw, int fx, int fy, void* stream) {
   if (nf < 2 || nf > MAX_FIELDS) return (int)cudaErrorInvalidValue;
+  // a Flat axis: one cell, no halo
+  if ((fx && (nx != 1 || hx != 0)) || (fy && (ny != 1 || hy != 0)))
+    return (int)cudaErrorInvalidValue;
   if (advance && (gp == nullptr || out_psi == nullptr)) return (int)cudaErrorInvalidValue;
   if (ytables && yt == nullptr) return (int)cudaErrorInvalidValue;
   HydroArgs<T> A;
@@ -884,7 +1045,8 @@ static int launch(const void* const* psi, const void* w, const void* ph,
   A.ph = static_cast<const T*>(ph);
   A.ys = static_cast<const T*>(ys);
   A.zs = static_cast<const T*>(zs);
-  A.nf = nf; A.nx = nx; A.ny = ny; A.nz = nz; A.hx = hx; A.hy = hy; A.hz = hz;
+  // a Flat y's rows hold 1 + 2 HT_R copies of its one value, read as halo rows
+  A.nf = nf; A.nx = nx; A.ny = ny; A.nz = nz; A.hx = hx; A.hy = fy ? HT_R : hy; A.hz = hz;
   A.mom = mom; A.cor = cor;
   split_scheme<T>(sm, A.sm, A.bf_m);
   split_scheme<T>(tr, A.tr, A.bf_t);
@@ -899,7 +1061,11 @@ static int launch(const void* const* psi, const void* w, const void* ph,
                    || A.bf_m != BF16_NONE || A.bf_t != BF16_NONE;
   // the first-code forms read one set of near-wall bounds, WENO5's: the
   // tracers' where the momentum scheme is not a flux-form WENO5
-  const int* m = any || (mom == FLUX_FORM && sm == SCHEME_WENO5) ? b : bt;
+  // the Flat layouts and the Cartesian Coriolis forms take the run-time
+  // form with every scheme and option (ANY with BF), whatever the schemes
+  const bool cart = cor == CARTESIAN || cor == NON_TRADITIONAL;
+  const bool new_form = fx || fy || cart;
+  const int* m = any || new_form || (mom == FLUX_FORM && sm == SCHEME_WENO5) ? b : bt;
   A.xm = m[0]; A.xb = Bounds{m[1], m[2], m[3], m[4]};
   A.ym = m[5]; A.yb = Bounds{m[6], m[7], m[8], m[9]};
   A.zm = m[10]; A.zb = Bounds{m[11], m[12], m[13], m[14]};
@@ -910,18 +1076,15 @@ static int launch(const void* const* psi, const void* w, const void* ph,
   A.eps_m = T(eps_m); A.eps_t = T(eps_t);
   A.c1 = T(c1); A.c2 = T(c2); A.dt = T(dt);
   if (nx <= 0 || ny <= 0 || nz <= 0) return 0;
-  // the largest chunk of levels whose boxes fit, then chunks of equal size
-  int kz = nz;
-  while (kz > 1 && hydro_smem_elems(kz) * (long)sizeof(T) > HT_SMEM_MAX) --kz;
-  const int chunks = (nz + kz - 1) / kz;
-  A.kz = (nz + chunks - 1) / chunks;
-  A.nty = (ny + HT_Y - 1) / HT_Y;
-  A.kzd = fast_div(A.kz);
-  A.kz1d = fast_div(A.kz + 1);
   A.h2d = fast_div(2 * hz);
-  const dim3 blocks((unsigned)(((nx + HT_X - 1) / HT_X) * A.nty), (unsigned)chunks);
-  const int smem = (int)(hydro_smem_elems(A.kz) * (long)sizeof(T));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fx && fy) return run_new_form<T, LAYOUT_FLAT_XY>(A, st);
+  if (fx) return run_new_form<T, LAYOUT_FLAT_X>(A, st);
+  if (fy) return run_new_form<T, LAYOUT_FLAT_Y>(A, st);
+  if (cart) return run_new_form<T, LAYOUT_TILE>(A, st);
+  dim3 blocks;
+  int smem;
+  shape<T, LAYOUT_TILE>(A, &blocks, &smem);
   // the 1/4 degree flagship's forms have their own instantiations, with
   // and without the closure, masks and y tables: reading those at run time
   // made the flagship's forms 5-8% slower on an H100 (chip_breakdown.py
@@ -953,7 +1116,9 @@ extern "C" {
 // (SCHEME_* plus 16 times the bf16 option, split_scheme; -1 none). The 15 bound ints are the flux-form momentum
 // scheme's near-wall reduction, for x, y and z: masked, lo_l, hi_l, lo_r,
 // hi_r; `bt` a host array of the tracer scheme's 15, `pw` one of
-// PositiveWENO5's (lo, hi) of the momentum and of the tracer scheme.
+// PositiveWENO5's (lo, hi) of the momentum and of the tracer scheme. `fx`
+// and `fy` mark a Flat x and y (extent 1, halo 0); with a Flat y `ys` holds
+// 1 + 2 HT_R copies of each row's one value.
 #define FUSED_HYDROSTATIC_TENDENCIES(NAME, T)                                  \
   int NAME(const void* const* psi, const void* w, const void* ph,              \
            const void* ys, const void* zs, const void* yt, const void* clr_c,  \
@@ -965,13 +1130,13 @@ extern "C" {
            int b3, int b4, int b5, int b6, int b7, int b8, int b9, int b10,    \
            int b11, int b12, int b13, int b14, double eps_m, double eps_t,     \
            double c1, double c2, double dt, const int* bt, const double* pw,   \
-           void* stream) {                                                     \
+           int fx, int fy, void* stream) {                                     \
     const int b[15] = {b0, b1, b2, b3, b4, b5, b6, b7,                         \
                        b8, b9, b10, b11, b12, b13, b14};                       \
     return launch<T>(psi, w, ph, ys, zs, yt, clr_c, clr_u, clr_v, gp, out_g,   \
                      out_psi, kh, kv, nf, nx, ny, nz, hx, hy, hz, mom, sm, tr, \
                      cor, tables, ytables, closure, advance, b, eps_m, eps_t,  \
-                     c1, c2, dt, bt, pw, stream);                              \
+                     c1, c2, dt, bt, pw, fx, fy, stream);                      \
   }
 
 FUSED_HYDROSTATIC_TENDENCIES(fused_hydrostatic_tendencies_f32, float)

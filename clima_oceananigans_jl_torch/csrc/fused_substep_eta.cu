@@ -45,6 +45,12 @@
 // points before any store: the buffers may alias as far as the compiler
 // knows. Arrays that other blocks write during the launch are read through
 // plain loads, never the non-coherent read-only path.
+//
+// On a Flat x or y (extent 1, halo 0; FLAT) the neighbour along that axis is
+// the point itself, as the plain version's roll of an axis of extent 1 makes
+// it: its offset is 0 (A.sxo, A.syo), so dxf(eta) and dxc(dyu U) come out as
+// the plain version's differences of a value with itself. On a Flat x every
+// y index is one thread's; on a Flat y the grid stride runs along x.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -116,6 +122,7 @@ struct SubstepArgs {
   int rows_t;  // rows of threads: the grid stride is rows_t * Y points
   int kept;    // points a thread keeps in shared memory
   T neg_g, dtau;
+  int sxo, syo;  // FLAT: the offsets of the x and y neighbours (0 on a Flat axis)
 };
 
 // What a thread keeps of its y index: the fill-rule sources of U (and eta:
@@ -129,13 +136,14 @@ struct YCol {
 // the kept values of a point, [value][point][thread] in shared memory
 enum { KEEP_GU = 0, KEEP_GV, KEEP_UAV, KEEP_VAV, KEEP_EAV, KEEP_VALUES };
 
-template <typename T>
+template <typename T, bool FLAT>
 __global__ void __launch_bounds__(SE_THREADS, SE_MIN_BLOCKS)
 fused_substep_eta_kernel(const SubstepArgs<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const keep = reinterpret_cast<T*>(smem_raw);
   cg::grid_group grid = cg::this_grid();
   const int X = A.nx + 2 * A.hx, Y = A.ny + 2 * A.hy, XY = X * Y;
+  const int SX = FLAT ? A.sxo : Y, SY = FLAT ? A.syo : 1;  // x and y neighbours
   const int tid = threadIdx.x;
   const int t = (int)blockIdx.x * SE_THREADS + tid;
   const int rows = A.rows_t, J = t % Y, I0 = t / Y;
@@ -151,7 +159,7 @@ fused_substep_eta_kernel(const SubstepArgs<T> A) {
   y.dxu = __ldg(r + DXU * Y + y.c.i);
   y.dyu = __ldg(r + DYU * Y + y.c.i);
   y.dxv0 = __ldg(r + DXV * Y + y.c.i);
-  y.dxv1 = __ldg(r + DXV * Y + y.c.i + 1);
+  y.dxv1 = __ldg(r + DXV * Y + y.c.i + SY);
   y.az = __ldg(r + AZ * Y + y.c.i);
   y.dyv = __ldg(r + DYV * Y + y.f.i);
   const bool u_row = y.c.f != 0, v_row = y.f.f != 0;  // not a y wall face
@@ -197,10 +205,10 @@ fused_substep_eta_kernel(const SubstepArgs<T> A) {
         const int o = ux[c].i * Y + y.c.i, q = vx[c].i * Y + y.f.i;
         u[c] = U[o];
         e1[c] = eta[o];
-        e0[c] = eta[o - Y];
+        e0[c] = eta[o - SX];
         v[c] = V[q];
         f1[c] = eta[q];
-        f0[c] = eta[q - 1];
+        f0[c] = eta[q - SY];
         gu[c] = k < A.kept ? kept(KEEP_GU, k) : __ldg(A.GU + o);
         gv[c] = k < A.kept ? kept(KEEP_GV, k) : __ldg(A.GV + q);
         hf[c] = __ldg(A.hfc + o);
@@ -236,9 +244,9 @@ fused_substep_eta_kernel(const SubstepArgs<T> A) {
       for (int c = 0; c < SE_CHUNK; ++c) {
         const int k = min(k0 + c, count - 1), I = I0 + k * rows;
         const int o = source(I, A.nx, A.hx, A.xb, false).i * Y + y.c.i;
-        ur[c] = U_out[o + Y];
+        ur[c] = U_out[o + SX];
         ul[c] = U_out[o];
-        vr[c] = V_out[o + 1];
+        vr[c] = V_out[o + SY];
         vl[c] = V_out[o];
         e[c] = eta[o];
       }
@@ -281,10 +289,10 @@ struct DeviceCache {
 // all fit in shared memory (the grid stride is a multiple of Y, so more
 // blocks, fewer points a thread); if none fit, one block an SM keeping as
 // many points as 227 KB holds (the rest keep their averages in the outputs).
-template <typename T>
+template <typename T, bool FLAT>
 static int pick(int X, int Y, Shape* s) {
   static DeviceCache cache[SE_MAX_DEVICES];
-  auto kernel = fused_substep_eta_kernel<T>;
+  auto kernel = fused_substep_eta_kernel<T, FLAT>;
   int dev;
   int rc = (int)cudaGetDevice(&dev);
   if (rc != 0) return rc;
@@ -338,6 +346,20 @@ static int pick(int X, int Y, Shape* s) {
   return (int)cudaErrorCooperativeLaunchTooLarge;
 }
 
+template <typename T, bool FLAT>
+static int run(SubstepArgs<T>& A, int X, int Y, void* stream) {
+  Shape s;
+  int rc = pick<T, FLAT>(X, Y, &s);
+  if (rc != 0) return rc;
+  A.rows_t = s.rows;
+  A.kept = s.kept;
+  void* args[] = {&A};
+  rc = (int)cudaLaunchCooperativeKernel((const void*)fused_substep_eta_kernel<T, FLAT>,
+                                        dim3((unsigned)s.blocks), dim3(SE_THREADS), args,
+                                        (size_t)s.smem, static_cast<cudaStream_t>(stream));
+  return rc != 0 ? rc : (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch(const void* rows, const void* hfc, const void* hcf, const void* eta0,
                   const void* U0, const void* V0, const void* GU, const void* GV,
@@ -345,7 +367,10 @@ static int launch(const void* rows, const void* hfc, const void* hcf, const void
                   void* V_av, int n, int nx, int ny, int hx, int hy, int xb, int yb,
                   double g, double dtau, void* stream) {
   if (hfc == nullptr || hcf == nullptr) return (int)cudaErrorInvalidValue;
-  if (n < 0 || nx <= 0 || ny <= 0 || hx < 1 || hy < 1) return (int)cudaErrorInvalidValue;
+  if (n < 0 || nx <= 0 || ny <= 0 || hx < 0 || hy < 0) return (int)cudaErrorInvalidValue;
+  // a Flat axis (halo 0) has extent 1 and is not bounded
+  const bool fx = hx == 0, fy = hy == 0;
+  if ((fx && (nx != 1 || xb)) || (fy && (ny != 1 || yb))) return (int)cudaErrorInvalidValue;
   const long long X = nx + 2LL * hx, Y = ny + 2LL * hy;
   if (X * Y > INT32_MAX) return (int)cudaErrorInvalidValue;  // 32-bit point indices
   SubstepArgs<T> A;
@@ -366,25 +391,22 @@ static int launch(const void* rows, const void* hfc, const void* hcf, const void
   A.n = n; A.nx = nx; A.ny = ny; A.hx = hx; A.hy = hy; A.xb = xb; A.yb = yb;
   A.neg_g = T(-g);
   A.dtau = T(dtau);
-  Shape s;
-  int rc = pick<T>((int)X, (int)Y, &s);
-  if (rc != 0) return rc;
-  A.rows_t = s.rows;
-  A.kept = s.kept;
-  void* args[] = {&A};
-  rc = (int)cudaLaunchCooperativeKernel((const void*)fused_substep_eta_kernel<T>,
-                                        dim3((unsigned)s.blocks), dim3(SE_THREADS), args,
-                                        (size_t)s.smem, static_cast<cudaStream_t>(stream));
-  return rc != 0 ? rc : (int)cudaGetLastError();
+  A.sxo = fx ? 0 : (int)Y;
+  A.syo = fy ? 0 : 1;
+  return fx || fy ? run<T, true>(A, (int)X, (int)Y, stream)
+                  : run<T, false>(A, (int)X, (int)Y, stream);
 }
 
 template <typename T>
 static int config(int nx, int ny, int hx, int hy, int* out) {
   Shape s;
-  int rc = pick<T>(nx + 2 * hx, ny + 2 * hy, &s);
+  const bool flat = hx == 0 || hy == 0;
+  int rc = flat ? pick<T, true>(nx + 2 * hx, ny + 2 * hy, &s)
+                : pick<T, false>(nx + 2 * hx, ny + 2 * hy, &s);
   if (rc != 0) return rc;
   cudaFuncAttributes attr;
-  rc = (int)cudaFuncGetAttributes(&attr, (const void*)fused_substep_eta_kernel<T>);
+  rc = (int)cudaFuncGetAttributes(&attr, flat ? (const void*)fused_substep_eta_kernel<T, true>
+                                              : (const void*)fused_substep_eta_kernel<T, false>);
   if (rc != 0) return rc;
   out[0] = s.blocks; out[1] = SE_THREADS; out[2] = s.per_sm; out[3] = s.kept;
   out[4] = s.rows; out[5] = s.smem; out[6] = attr.numRegs;

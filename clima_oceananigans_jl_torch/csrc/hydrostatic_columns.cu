@@ -43,6 +43,13 @@
 //      element, zeros included, so the outputs need no zero fill.
 // The run is cut at run time so that a block's tiles fit 48 KB of shared
 // memory (deep or fp64 columns), or one column in the 227 KB an SM has.
+//
+// On a Flat x (X = 1) the same layout holds: x+1 wraps to x itself. On a
+// Flat y (Y = 1, so consecutive x indices are consecutive columns in
+// memory) a block owns a run of up to 32 x indices instead (FLAT_Y): u over
+// the run and one column more, so that u at x+1 is the next staged column,
+// and v over the run, whose y+1 neighbour is the column itself, as the
+// plain version's roll of an axis of extent 1 makes it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,22 +86,25 @@ static long long column_smem_elems(int run, int Z, int zp, bool with_b) {
          (long long)run * zp * (with_b ? 2 : 1);
 }
 
-template <typename T>
+template <typename T, bool FLAT_Y>
 __global__ void __launch_bounds__(HC_THREADS)
 hydrostatic_columns_kernel(const ColumnArgs<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int X = A.nx + 2 * A.hx, Y = A.ny + 2 * A.hy, Z = A.nz + 2 * A.hz;
   const int zp = A.zp;
-  const int I = (int)blockIdx.x / A.nruns, r = (int)blockIdx.x % A.nruns;
-  // columns [J0, J1) of x index I; the neighbours x+1 and y+1 of the last
-  // row and column wrap, as the plain version's rolls do
-  const int J0 = r * A.run, J1 = min(J0 + A.run, Y), nc = J1 - J0, n = nc * Z;
-  const int In = I + 1 < X ? I + 1 : 0, Jn = J1 < Y ? J1 : 0;
+  const int I = FLAT_Y ? 0 : (int)blockIdx.x / A.nruns;
+  const int r = FLAT_Y ? (int)blockIdx.x : (int)blockIdx.x % A.nruns;
+  // columns [J0, J1) of x index I (FLAT_Y: the x indices [J0, J1) of the one
+  // y index); the neighbours x+1 and y+1 of the last row and column wrap,
+  // as the plain version's rolls do
+  const int L = FLAT_Y ? X : Y;
+  const int J0 = r * A.run, J1 = min(J0 + A.run, L), nc = J1 - J0, n = nc * Z;
+  const int In = I + 1 < X ? I + 1 : 0, Jn = J1 < L ? J1 : 0;
   const bool with_b = A.b != nullptr;
   const int64_t row = (int64_t)I * Y * Z, g0 = row + (int64_t)J0 * Z;
   const int64_t gn = (int64_t)In * Y * Z + (int64_t)J0 * Z;
   T* const su0 = reinterpret_cast<T*>(smem_raw);
-  T* const su1 = su0 + A.run * Z;
+  T* const su1 = su0 + A.run * Z;  // FLAT_Y: su0's column after the run
   T* const sv = su1 + A.run * Z;
   T* const sb = sv + (A.run + 1) * Z;
   T* const sw = sb + (with_b ? A.run * Z : 0);
@@ -103,8 +113,10 @@ hydrostatic_columns_kernel(const ColumnArgs<T> A) {
     if (e < n) {
       copy_async(sv + e, A.v + g0 + e);
       copy_async(su0 + e, A.u + g0 + e);
-      copy_async(su1 + e, A.u + gn + e);
+      if (!FLAT_Y) copy_async(su1 + e, A.u + gn + e);
       if (with_b) copy_async(sb + e, A.b + g0 + e);
+    } else if (FLAT_Y) {
+      copy_async(su0 + e, A.u + (int64_t)Jn * Z + (e - n));
     } else {
       copy_async(sv + e, A.v + row + (int64_t)Jn * Z + (e - n));
     }
@@ -120,14 +132,16 @@ hydrostatic_columns_kernel(const ColumnArgs<T> A) {
   const T* dz_c = A.zs + DZ_C * Z;
   const T* dz_f = A.zs + DZ_F * Z;
   for (int e = threadIdx.x; e < n; e += HC_THREADS) {
-    const int j = A.zd.div(e), k = e - j * Z, J = J0 + j;
+    const int j = A.zd.div(e), k = e - j * Z, J = FLAT_Y ? 0 : J0 + j;
     T incr = T(0);
     if (k > A.hz && k <= A.hz + A.nz) {
       const int c = e - 1;  // level k - 1 of column j
       const T dz = dz_c[k - 1];
       const T Ax = dy_c[J] * dz;
       const T AyR = dx_cf[J + 1 < Y ? J + 1 : 0] * dz, AyL = dx_cf[J] * dz;
-      const T d = ((Ax * su1[c] - Ax * su0[c]) + (AyR * sv[c + Z] - AyL * sv[c]))
+      // u at x+1 and v at y+1: FLAT_Y the next staged u column and v itself
+      const T ue = FLAT_Y ? su0[c + Z] : su1[c], vn = FLAT_Y ? sv[c] : sv[c + Z];
+      const T d = ((Ax * ue - Ax * su0[c]) + (AyR * vn - AyL * sv[c]))
                   / (az_cc[J] * dz);
       incr = dz * d;
     }
@@ -184,6 +198,20 @@ static bool column_shape(int Y, int nz, int hz, bool with_b, int* run,
   return true;
 }
 
+template <typename T, bool FLAT_Y>
+static int run(ColumnArgs<T>& A, int smem, cudaStream_t st) {
+  auto kernel = hydrostatic_columns_kernel<T, FLAT_Y>;
+  if (smem > HC_SMEM) {
+    const int rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != 0) return rc;
+  }
+  const long long blocks =
+      FLAT_Y ? (long long)A.nruns : (long long)(A.nx + 2 * A.hx) * A.nruns;
+  kernel<<<(unsigned)blocks, HC_THREADS, smem, st>>>(A);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch(const void* u, const void* v, const void* b, const void* ys,
                   const void* zs, void* w, void* ph, int nx, int ny, int nz,
@@ -200,21 +228,15 @@ static int launch(const void* u, const void* v, const void* b, const void* ys,
   A.w = static_cast<T*>(w);
   A.ph = static_cast<T*>(ph);
   A.nx = nx; A.ny = ny; A.nz = nz; A.hx = hx; A.hy = hy; A.hz = hz;
+  // a Flat y (one y index): runs along x
+  const bool flat_y = ny + 2 * hy == 1;
   int smem;
-  if (!column_shape<T>(ny + 2 * hy, nz, hz, b != nullptr, &A.run, &A.nruns, &A.zp,
-                      &smem))
+  if (!column_shape<T>(flat_y ? nx + 2 * hx : ny + 2 * hy, nz, hz, b != nullptr, &A.run,
+                       &A.nruns, &A.zp, &smem))
     return (int)cudaErrorInvalidConfiguration;
   A.zd = fast_div((unsigned)(nz + 2 * hz));
-  auto kernel = hydrostatic_columns_kernel<T>;
-  if (smem > HC_SMEM) {
-    const int rc = (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != 0) return rc;
-  }
-  const long long blocks = (long long)(nx + 2 * hx) * A.nruns;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  kernel<<<(unsigned)blocks, HC_THREADS, smem, st>>>(A);
-  return (int)cudaGetLastError();
+  return flat_y ? run<T, true>(A, smem, st) : run<T, false>(A, smem, st);
 }
 
 template <typename T>
@@ -223,7 +245,7 @@ static int config(int ny, int hy, int nz, int hz, int with_b, int* out) {
   if (!column_shape<T>(ny + 2 * hy, nz, hz, with_b != 0, &run, &nruns, &zp, &smem))
     return (int)cudaErrorInvalidConfiguration;
   cudaFuncAttributes attr;
-  const int rc = (int)cudaFuncGetAttributes(&attr, hydrostatic_columns_kernel<T>);
+  const int rc = (int)cudaFuncGetAttributes(&attr, hydrostatic_columns_kernel<T, false>);
   if (rc != 0) return rc;
   out[0] = run; out[1] = nruns; out[2] = smem; out[3] = HC_THREADS;
   out[4] = attr.numRegs;

@@ -87,7 +87,6 @@ from ..closures.scalar_diffusivity import (add_tke_tendency,
                                            cell_diffusion_timescale,
                                            compute_closure_diffusivities,
                                            momentum_diffusion, tracer_diffusion)
-from ..coriolis.coriolis import BetaPlane, FPlane, HydrostaticSphericalCoriolis
 from ..fields.field import Field, new_field, set_field
 from ..forcings.forcing import regularize_forcing
 from ..grids.topology import BOUNDED, FLAT
@@ -96,7 +95,8 @@ from ..ops.fused_barotropic import fused_substep_eta, fused_substep_eta_referenc
 from ..ops.fused_barotropic import unsupported_reason as barotropic_unsupported_reason
 from ..ops.fused_fill import fused_fill_halos, fused_fill_halos_reference
 from ..ops.fused_fill import fields_unsupported_reason
-from ..ops.fused_hydrostatic import (fused_hydrostatic_tendencies,
+from ..ops.fused_hydrostatic import (KERNEL_CORIOLIS,
+                                     fused_hydrostatic_tendencies,
                                      fused_hydrostatic_tendencies_reference,
                                      hydrostatic_columns,
                                      hydrostatic_columns_reference,
@@ -155,10 +155,9 @@ def _unsupported_reason(model, particles, immersed_boundary):
         return (f"{type(ts).__name__} tracer advection is not ported (the JAX "
                 "package's eight schemes are)")
     cor = model.coriolis
-    if cor is not None and not isinstance(
-            cor, (FPlane, BetaPlane, HydrostaticSphericalCoriolis)):
-        return (f"{type(cor).__name__} Coriolis is not ported yet "
-                "(ROADMAP Queue 1 item 4)")
+    if cor is not None and not isinstance(cor, KERNEL_CORIOLIS):
+        return (f"{type(cor).__name__} Coriolis is not ported (the f- and "
+                "β-planes, the spherical and the two Cartesian forms are)")
     return None
 
 

@@ -13,14 +13,20 @@ and the vector-invariant form with its Bernoulli head. Each RK3 stage of
 the conservative form is: the core tendencies through
 ``fused_shallow_water_tendencies`` (kernel K3a on the GPU, and on the CPU
 its plain PyTorch version, the JAX package's ``_core_tendencies``),
-Coriolis and diffusion with PyTorch ops,
-``rk3_substep``, then ``fill_all_halos``. The vector-invariant form runs
-on PyTorch ops alone, as the JAX package runs it without Pallas.
+Coriolis and diffusion with PyTorch ops, then each field's forcing and
+boundary fluxes, ``rk3_substep``, then ``fill_all_halos``. The
+vector-invariant form runs on PyTorch ops alone, as the JAX package runs
+it without Pallas.
+
+Forcing: a callable ``f(grid, clock, fields)`` per field (``fields`` the
+solution), or any of ``forcings/forcing.py``'s forms, normalised by
+``regularize_forcing`` at construction and added to G after the core,
+Coriolis and diffusion, before the boundary fluxes, as torch ops (the JAX
+package adds it after its kernel too).
 
 State: ``solution`` (with-halo tensors, halo ``(h, h, 0)``; no TPU x-halo
 pad) and a host ``clock``; RK3 carries no tendency history across steps,
-so there is no ``G_prev``. Forcing and particles raise
-``NotImplementedError``.
+so there is no ``G_prev``. Particles raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from ..closures.scalar_diffusivity import (cell_diffusion_timescale,
                                            momentum_diffusion,
                                            tracer_diffusion)
 from ..fields.field import Field, new_field, set_field
+from ..forcings.forcing import regularize_forcing
 from ..grids.topology import FLAT
 from ..ops import stencil as st
 from ..ops.fused_tendencies import (fused_shallow_water_tendencies,
@@ -61,9 +68,6 @@ class ShallowWaterModel:
             raise ValueError("ShallowWaterModel requires a flat z-axis (size[2]=1)")
         if formulation not in ("conservative", "vector_invariant"):
             raise ValueError(f"unknown formulation {formulation!r}")
-        if forcing:
-            raise NotImplementedError(
-                "forcing is not ported yet (ROADMAP Queue 1 item 4)")
         if particles is not None:
             raise NotImplementedError(
                 "particles are not ported yet (ROADMAP Queue 1 item 7)")
@@ -88,6 +92,8 @@ class ShallowWaterModel:
         self.bathymetry = (None if bathymetry is None else torch.as_tensor(
             bathymetry, dtype=self.grid.dtype, device=self.grid.device).contiguous())
         self.tracer_names = tuple(tracers)
+        self.forcing = {k: regularize_forcing(k, v)
+                        for k, v in (forcing or {}).items()}
         user_bcs = boundary_conditions or {}
         self.bcs = {name: regularize_bcs(self.grid, loc, user_bcs.get(name))
                     for name, loc in self._locs().items()}
@@ -130,12 +136,19 @@ class ShallowWaterModel:
 
     # -- physics --------------------------------------------------------------------
     def _finish(self, G, state):
-        """Boundary fluxes of every tendency (value-less flux BCs add
-        nothing)."""
-        locs, t = self._locs(), state["clock"].time
-        return {name: apply_flux_bcs(G[name], self.grid, locs[name],
-                                     self.bcs[name], t)
-                for name in self.prognostic_names()}
+        """Each tendency's forcing (its callable of the grid, the clock
+        and the solution), then its boundary fluxes (value-less flux BCs
+        add nothing)."""
+        locs, clock = self._locs(), state["clock"]
+        fields = dict(state["solution"])
+        out = {}
+        for name in self.prognostic_names():
+            g = G[name]
+            if name in self.forcing:
+                g = g + self.forcing[name](self.grid, clock, fields)
+            out[name] = apply_flux_bcs(g, self.grid, locs[name],
+                                       self.bcs[name], clock.time)
+        return out
 
     def _vi_tendencies(self, state):
         """Vector-invariant tendencies (prognostic u, v, h): rotational

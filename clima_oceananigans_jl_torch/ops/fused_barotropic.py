@@ -19,7 +19,8 @@ loop (free_surface.py:357-380) on (X, Y, 1) tensors.
 version, on CUDA tensors the hand-written kernel
 ``csrc/fused_substep_eta.cu`` (or raises): one cooperative launch runs
 all n substeps (the column depths read as (X, Y) planes, which vary in
-x over an immersed bottom), a grid-wide barrier between the U, V half and
+x over an immersed bottom; on a Flat x or y the neighbour along it is
+the point itself), a grid-wide barrier between the U, V half and
 the η half of each, every with-halo (x, y) point taking its halo value
 through the fill rule of its location (a periodic wrap, the zero-gradient
 mirror, or the impenetrable wall's zero face and negated mirror), so no
@@ -70,11 +71,10 @@ def fused_substep_eta_reference(grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf,
 
 def unsupported_reason(grid, eta_bcs):
     """Why K5 cannot run on ``grid`` with ``eta_bcs``, or None: it needs
-    x-constant metrics (a regular x axis), non-flat x and y, η walls that
-    fill by the zero-gradient mirror, and at least H+1 cells on a bounded
-    axis (so no mirror index is clamped)."""
-    if grid.topology[0] is FLAT or grid.topology[1] is FLAT:
-        return "K5 takes non-flat x and y axes"
+    x-constant metrics (a regular x axis), η walls that fill by the
+    zero-gradient mirror, and at least H+1 cells on a bounded axis (so no
+    mirror index is clamped). It takes a Flat x, a Flat y or both (the JAX
+    kernel's gate refuses them)."""
     if not grid.x_regular:
         return "K5 takes a regular x axis (x-constant metrics)"
     bcs = eta_bcs if eta_bcs is not None else default_bcs(grid, ETA_LOC)
@@ -84,8 +84,8 @@ def unsupported_reason(grid, eta_bcs):
                 return f"K5 takes zero-gradient η walls, not {bc}"
             if grid.shape[axis] < grid.halo[axis] + 1:
                 return "K5 takes at least H+1 cells on a bounded axis"
-        if axis < 2 and grid.topology[axis] not in (BOUNDED, PERIODIC):
-            return f"K5 takes periodic or bounded x and y: {grid}"
+        if axis < 2 and grid.topology[axis] not in (BOUNDED, PERIODIC, FLAT):
+            return f"K5 takes periodic, bounded or Flat x and y: {grid}"
     return None
 
 

@@ -16,8 +16,10 @@ card that becomes two kernels:
   pHY′ = −Σ b̄ᶻ Δzᶠ from the top. Like its plain version it computes
   every (x, y) column, halo columns too (their values are overwritten by
   the caller's fill), and writes every with-halo point, so the outputs
-  need no zero fill. It runs in the model's ``update_state``; its plain version sums
-  level by level in a Python loop, in the kernel's order.
+  need no zero fill. On a Flat y a block owns a run of x indices instead
+  (consecutive columns there). It runs in the model's ``update_state``;
+  its plain version sums level by level in a Python loop, in the
+  kernel's order.
 - K4b ``fused_hydrostatic_tendencies``
   (``csrc/fused_hydrostatic_tendencies.cu``): a block per 16×8 tile of
   interior columns (and chunk of levels), its fields staged in shared
@@ -28,8 +30,13 @@ card that becomes two kernels:
   (``kernel_closure``), the conditional fluxes next to an immersed
   boundary (the clear flags of ``immersed/immersed.py::clear_flags``, one
   uint8 tensor a location) and a stretched y axis' WENO5 tables
-  (``y_tables``), as the TPU kernel does. Its plain version is the core
-  (and ``ab2_substep``).
+  (``y_tables``), as the TPU kernel does, and beyond it a Flat x, a Flat
+  y or both (a line of 128 columns a block along the axis that is not
+  Flat; strides 0 along a Flat one, so that every neighbour there is the
+  cell itself, as the plain version's rolls make it) and the Cartesian
+  Coriolis forms (``ConstantCartesianCoriolis``,
+  ``NonTraditionalBetaPlane``: their w terms read the staged w). Its
+  plain version is the core (and ``ab2_substep``).
 
 ``hydrostatic_advective_core`` is the JAX function, in plain torch; the
 model's plain path and K4b's plain version share it. Each wrapper runs
@@ -37,8 +44,9 @@ its plain version on CPU tensors and its kernel on CUDA tensors (or
 raises: nothing falls back), and counts its launches in
 ``<wrapper>.launches``. ``unsupported_reason`` is the kernels' static
 gate: x-constant metrics (a regular x axis), the schemes and Coriolis
-forms the kernel has. The model's constructor runs it on the card, once;
-the wrappers do not run it again.
+forms the kernel has (a Flat z the model's constructor refuses before
+it). The model's constructor runs it on the card, once; the wrappers do
+not run it again.
 """
 from __future__ import annotations
 
@@ -53,7 +61,9 @@ from ..advection.vector_invariant import SCHEMES as VI_SCHEMES
 from ..advection.vector_invariant import VectorInvariant
 from ..closures.scalar_diffusivity import (ScalarDiffusivity,
                                            momentum_diffusion, tracer_diffusion)
-from ..coriolis.coriolis import BetaPlane, FPlane, HydrostaticSphericalCoriolis
+from ..coriolis.coriolis import (BetaPlane, ConstantCartesianCoriolis, FPlane,
+                                 HydrostaticSphericalCoriolis,
+                                 NonTraditionalBetaPlane)
 from ..grids.topology import FLAT
 from ..immersed.immersed import clear_flags
 from ..timesteppers.steppers import ab2_coefficients, ab2_substep
@@ -66,6 +76,13 @@ from .fused_tendencies import (KERNEL_SCHEMES, TABLE_SCHEMES,
                                kernel_fn, kernel_scheme, launch, pointers,
                                positive_bounds)
 from .metric_rows import y_rows, y_tables, z_rows
+
+#: the Coriolis forms K4b takes, by its code (``_coriolis_code``)
+KERNEL_CORIOLIS = (FPlane, BetaPlane, HydrostaticSphericalCoriolis,
+                   ConstantCartesianCoriolis, NonTraditionalBetaPlane)
+#: K4b's halo rows on a Flat y: its y rows repeat their one value this many
+#: cells either side (``HT_R`` of ``csrc/fused_hydrostatic_tendencies.cu``)
+FLAT_Y_ROWS_HALO = 3
 
 #: the most prognostic fields (u, v and tracers) K4b takes
 MAX_FIELDS = 16
@@ -163,12 +180,10 @@ def unsupported_reason(model):
     """Why K4a/K4b cannot run this model's configuration, or None. Like the
     JAX gate it takes every ``AdvectionScheme`` for momentum and tracers
     (K4b's scheme codes, ``KERNEL_SCHEMES``, WENO5's bf16 options
-    included) and the vector-invariant momentum."""
+    included) and the vector-invariant momentum; beyond it, a Flat x, a
+    Flat y or both (the JAX gate leaves them to jnp) and the Cartesian
+    Coriolis forms."""
     grid = model.grid
-    if any(t is FLAT for t in grid.topology):
-        return ("K4 takes a 3D grid, as JAX's K4 does: both refuse a Flat x "
-                "and a Flat y (a Flat axis has no halo); K4 on Flat axes goes "
-                "beyond JAX's kernels (ROADMAP Queue 1 item 2)")
     if not grid.x_regular:
         return ("K4 takes a regular x axis (x-constant metrics) "
                 "(ROADMAP Queue 1 item 6)")
@@ -179,14 +194,14 @@ def unsupported_reason(model):
     if ts is not None and type(ts) not in KERNEL_SCHEMES:
         return f"K4 has no {type(ts).__name__} tracer advection"
     cor = model.coriolis
-    if cor is not None and not isinstance(
-            cor, (FPlane, BetaPlane, HydrostaticSphericalCoriolis)):
-        return f"K4 has no {type(cor).__name__} Coriolis (ROADMAP Queue 1 item 4)"
+    if cor is not None and not isinstance(cor, KERNEL_CORIOLIS):
+        return f"K4 has no {type(cor).__name__} Coriolis"
     if len(model.prognostic_names()) > MAX_FIELDS:
         return f"K4 takes at most {MAX_FIELDS} prognostic fields"
     buffers = [s.buffer for s in (_flux_form(model), ts)
                if s is not None and s.buffer > 0]
-    if _mask_locs(model) and min(grid.Hx, grid.Hy) < max(buffers) + 1:
+    halos = [grid.halo[a] for a in (0, 1) if grid.topology[a] is not FLAT]
+    if _mask_locs(model) and halos and min(halos) < max(buffers) + 1:
         return (f"K4b's conditional fluxes read {max(buffers) + 1} halo cells "
                 "in x and y")
     return None
@@ -328,12 +343,30 @@ def _momentum_code(scheme):
 
 
 def _coriolis_code(cor):
-    """0 none, 1 f- or β-plane, 2 spherical energy, 3 spherical enstrophy."""
+    """0 none, 1 f- or β-plane, 2 spherical energy, 3 spherical enstrophy,
+    4 constant Cartesian, 5 non-traditional β-plane."""
     if cor is None:
         return 0
     if isinstance(cor, HydrostaticSphericalCoriolis):
         return 2 if cor.scheme == "energy" else 3
+    if isinstance(cor, ConstantCartesianCoriolis):
+        return 4
+    if isinstance(cor, NonTraditionalBetaPlane):
+        return 5
     return 1
+
+
+def kernel_y_rows(grid, coriolis=None):
+    """K4b's y rows: ``y_rows``, on a Flat y its one column repeated
+    ``FLAT_Y_ROWS_HALO`` times either side (the kernel reads them as halo
+    rows)."""
+    ys = y_rows(grid, coriolis)
+    if grid.topology[1] is not FLAT:
+        return ys
+    key = ("k4b_flat_y_rows", coriolis)
+    if key not in grid._cache:
+        grid._cache[key] = ys.expand(-1, 1 + 2 * FLAT_Y_ROWS_HALO).contiguous()
+    return grid._cache[key]
 
 
 def _launch_tendencies(model, state, advance):
@@ -364,7 +397,7 @@ def _launch_tendencies(model, state, advance):
     table = any(type(s) in TABLE_SCHEMES for s in (flux_form, ts))
     tables = table and not grid.z_regular
     ytables = table and not grid.y_regular
-    ys, zs = y_rows(grid, model.coriolis), z_rows(grid, tables)
+    ys, zs = kernel_y_rows(grid, model.coriolis), z_rows(grid, tables)
     yt = y_tables(grid) if ytables else None
     # the conditional fluxes' clear flags, by location
     locs = _mask_locs(model)
@@ -394,7 +427,8 @@ def _launch_tendencies(model, state, advance):
     ptr = lambda t: None if t is None else t.data_ptr()
     fn = kernel_fn("fused_hydrostatic_tendencies", "fused_hydrostatic_tendencies",
                    dtype, [ctypes.c_void_p] * 14 + [ctypes.c_int] * 30
-                   + [ctypes.c_double] * 5 + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_double] * 5 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 2)
     launch("fused_hydrostatic_tendencies", fn, device, pointers(fields),
            ptr(w), ptr(ph), ptr(ys), ptr(zs), ptr(yt),
            *(ptr(flags[loc]) for loc in (CENTER, U_LOC, V_LOC)),
@@ -403,7 +437,8 @@ def _launch_tendencies(model, state, advance):
            len(names), *grid.shape, *grid.halo,
            _momentum_code(sch), mom_code, tr, _coriolis_code(model.coriolis),
            int(tables), int(ytables), closure, int(advance is not None),
-           *bounds, mom_eps, tr_eps, c1, c2, float(dt), tracer_bounds, pw)
+           *bounds, mom_eps, tr_eps, c1, c2, float(dt), tracer_bounds, pw,
+           *(int(grid.topology[a] is FLAT) for a in (0, 1)))
     fused_hydrostatic_tendencies.launches += 1
     G = dict(zip(names, out_g))
     if advance is None:

@@ -50,7 +50,6 @@ from .fused_tendencies import (ADVECTION_ARGTYPES, KERNEL_SCHEMES,
                                z_rows_arg)
 from .metric_rows import coriolis_rows
 
-_LATER = "(ROADMAP Queue 1 item 4)"
 #: the closures the nonhydrostatic model takes, alone or in tuples
 CLOSURES = (ScalarDiffusivity, ScalarBiharmonicDiffusivity, SmagorinskyLilly,
             AnisotropicMinimumDissipation, TwoDimensionalLeith,
@@ -76,14 +75,16 @@ def _scalar_coefficient(v):
 
 def unsupported_reason(model):
     """Why the port cannot run this configuration at all, or None. A
-    reason names the ROADMAP item the configuration waits for."""
+    reason names what is not ported and, where one waits for it, its
+    ROADMAP item."""
     if model.timestepper not in ("QuasiAdamsBashforth2", "RungeKutta3"):
-        return f"timestepper {model.timestepper!r} is not ported yet {_LATER}"
+        return (f"timestepper {model.timestepper!r} is not ported (the JAX "
+                "package's QuasiAdamsBashforth2 and RungeKutta3 are)")
     cor = model.coriolis
     if cor is not None and not isinstance(cor, CORIOLIS):
-        return (f"{type(cor).__name__} Coriolis is not ported yet (FPlane, "
+        return (f"{type(cor).__name__} Coriolis is not ported (FPlane, "
                 "BetaPlane, ConstantCartesianCoriolis and "
-                f"NonTraditionalBetaPlane are) {_LATER}")
+                "NonTraditionalBetaPlane are)")
     for sch in (model.advection, model.tracer_advection):
         if type(sch) not in SCHEMES:
             return (f"{type(sch).__name__} advection is not ported (the JAX "

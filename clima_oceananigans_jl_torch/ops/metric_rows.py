@@ -11,9 +11,12 @@ the plain version does. The rows are built once per grid and options
 and kept in the grid's cache.
 
 - ``y_rows``: Δx[(lx, ly)] for the four (lx, ly), Az[(lx, ly)] likewise,
-  Δy[C], Δy[F], and two Coriolis rows (f at U_LOC and V_LOC for an f- or
-  β-plane, f at (F, F) for the spherical Coriolis, in the slot of the
-  first; zeros without Coriolis): ``Y_ROWS`` gives their order.
+  Δy[C], Δy[F], and four Coriolis rows: f at U_LOC and V_LOC for an f- or
+  β-plane, f at (F, F) for the spherical Coriolis in the slot of the
+  first, fz at U_LOC and V_LOC for the two Cartesian forms, whose
+  horizontal components fill the last two (fy at U_LOC, and fx at V_LOC
+  for ``ConstantCartesianCoriolis``); zeros where a form has no row.
+  ``Y_ROWS`` gives their order.
 - ``z_rows``: Δz[C], Δz[F], then on a stretched z axis the 24 rows of
   WENO5's to-faces tables (``advection/reconstruction_tables.py``): for
   the left then the right side, for each stencil r, its optimal weight and
@@ -30,14 +33,16 @@ from __future__ import annotations
 import torch
 
 from ..advection.reconstruction_tables import weno5_tables
-from ..coriolis.coriolis import BetaPlane, FPlane, HydrostaticSphericalCoriolis
+from ..coriolis.coriolis import (BetaPlane, ConstantCartesianCoriolis, FPlane,
+                                 HydrostaticSphericalCoriolis,
+                                 NonTraditionalBetaPlane)
 from ..utils.location import C, F, U_LOC, V_LOC
 
 _LOC2 = ((C, C), (C, F), (F, C), (F, F))
 #: the rows of ``y_rows``, in order
 Y_ROWS = (tuple(f"dx_{lx.value}{ly.value}" for lx, ly in _LOC2)
           + tuple(f"az_{lx.value}{ly.value}" for lx, ly in _LOC2)
-          + ("dy_c", "dy_f", "f_u", "f_v"))
+          + ("dy_c", "dy_f", "f_u", "f_v", "f2_u", "f2_v"))
 #: the first rows of ``z_rows``; the table rows follow on a stretched z
 Z_ROWS = ("dz_c", "dz_f")
 #: rows of one set of WENO5 tables in ``z_rows`` (2 sides x 3 stencils x
@@ -76,6 +81,20 @@ def coriolis_rows(grid, coriolis):
     raise ValueError(f"no Coriolis rows for {type(coriolis).__name__}")
 
 
+def cartesian_rows(grid, coriolis):
+    """The four Coriolis rows of ``y_rows`` of a Cartesian form, each the
+    plain version's own factor: fz at U_LOC and V_LOC, fy at U_LOC, and fx
+    at V_LOC (zeros for the non-traditional β-plane, which has no fx)."""
+    full = lambda v: torch.full((grid.total_shape[1],), v, dtype=grid.dtype,
+                                device=grid.device)
+    if isinstance(coriolis, ConstantCartesianCoriolis):
+        return [full(coriolis.fz), full(coriolis.fz), full(coriolis.fy),
+                full(coriolis.fx)]
+    return [y_row(grid, coriolis._fz(grid, U_LOC)),
+            y_row(grid, coriolis._fz(grid, V_LOC)),
+            y_row(grid, coriolis._fy(grid, U_LOC)), full(0.0)]
+
+
 def y_rows(grid, coriolis=None):
     """(len(Y_ROWS), Yt) tensor of the y rows."""
     key = ("y_rows", coriolis)
@@ -83,7 +102,12 @@ def y_rows(grid, coriolis=None):
         rows = [y_row(grid, grid.dx((lx, ly, C))) for lx, ly in _LOC2]
         rows += [y_row(grid, grid.Az((lx, ly, C))) for lx, ly in _LOC2]
         rows += [y_row(grid, grid.dy((C, ly, C))) for ly in (C, F)]
-        rows += list(coriolis_rows(grid, coriolis))
+        if isinstance(coriolis, (ConstantCartesianCoriolis,
+                                 NonTraditionalBetaPlane)):
+            rows += cartesian_rows(grid, coriolis)
+        else:
+            rows += list(coriolis_rows(grid, coriolis))
+            rows += [torch.zeros_like(rows[-1]) for _ in range(2)]
         grid._cache[key] = torch.stack(rows).contiguous()
     return grid._cache[key]
 

@@ -442,16 +442,18 @@ def test_models_take_each_scheme_with_its_halo(name):
 
 @pytest.mark.parametrize("name", NEW)
 def test_hydrostatic_model_refuses_each_scheme_by_name(name):
-    """What K4 still refuses with these schemes, by name: a Flat y (ROADMAP
-    Queue 1 item 2); the schemes themselves it takes
-    (``test_hydrostatic_model_takes_each_scheme``)."""
+    """K4 once refused a Flat y with these schemes; its Flat-y layout takes
+    it now: the model builds with each as flux-form momentum and as the
+    tracer scheme, and K4's gate passes (the schemes themselves on 3D
+    grids: ``test_hydrostatic_model_takes_each_scheme``)."""
     from clima_oceananigans_jl_torch.ops import fused_hydrostatic as tfh
     g = T.RectilinearGrid(size=(8, 1, 4), extent=(1, 1, 1), dtype=torch.float64,
                           topology=(T.PERIODIC, T.FLAT, T.BOUNDED), device=DEVICE)
     for kw in (dict(momentum_advection=getattr(T, name)()),
                dict(tracer_advection=getattr(T, name)(), tracers=("b",))):
         m = T.HydrostaticFreeSurfaceModel(g, free_surface=T.ExplicitFreeSurface(), **kw)
-        assert "Flat y" in tfh.unsupported_reason(m)
+        assert m.grid.halo[1] == 0
+        assert tfh.unsupported_reason(m) is None
 
 
 @pytest.mark.parametrize("name", NEW + ("UpwindBiasedFifthOrder", "PositiveWENO5"))

@@ -178,7 +178,7 @@ def test_k4_gate_takes_each_scheme_and_refuses_the_rest_by_name():
                                topology=(T.PERIODIC, T.FLAT, T.BOUNDED))
     m = T.HydrostaticFreeSurfaceModel(flat_y, tracer_advection=T.PositiveWENO5(),
                                       tracers=("c",), free_surface=T.ExplicitFreeSurface())
-    assert "Flat y" in tfh.unsupported_reason(m)
+    assert tfh.unsupported_reason(m) is None  # K4's Flat-y layout
     stretched_x = T.RectilinearGrid(size=(8, 8, 4), x=np.cumsum(np.r_[0, np.arange(1, 9)]),
                                     y=(0, 1), z=(-1, 0), device=DEVICE)
     m = T.HydrostaticFreeSurfaceModel(stretched_x, tracer_advection=T.UpwindBiasedThirdOrder(),
@@ -187,8 +187,11 @@ def test_k4_gate_takes_each_scheme_and_refuses_the_rest_by_name():
     m = T.HydrostaticFreeSurfaceModel(g, momentum_advection=T.CenteredFourthOrder(),
                                       tracers=("c",))
     for cor in (T.ConstantCartesianCoriolis(fz=1e-4), T.NonTraditionalBetaPlane()):
-        m.coriolis = cor  # the model refuses these at construction too
-        assert f"K4 has no {type(cor).__name__} Coriolis" in tfh.unsupported_reason(m)
+        m = T.HydrostaticFreeSurfaceModel(g, momentum_advection=T.CenteredFourthOrder(),
+                                          tracers=("c",), coriolis=cor)
+        assert tfh.unsupported_reason(m) is None  # K4b's Cartesian forms
+    m.coriolis = object()
+    assert "K4 has no object Coriolis" in tfh.unsupported_reason(m)
     # the conditional fluxes read buffer + 1 halo cells: C4's 2, UB5's 3
     ig = torch_grid("rect", (12, 8, 4))
     m = T.HydrostaticFreeSurfaceModel(ig, momentum_advection=T.CenteredFourthOrder(),

@@ -375,8 +375,8 @@ def test_fused_ab2_ten_steps_match_jax(which):
 def test_positive_momentum_and_other_kernels_are_refused_by_name():
     """What still waits: no PositiveWENO5 refusal is left. It is the
     momentum scheme in both models and every kernel's code (3) with its
-    bounds in the double arguments; K4's gate refuses only what K4 lacks
-    whatever the scheme (a Flat y, named)."""
+    bounds in the double arguments; K4's gate takes a Flat y with it too
+    (K4's Flat layouts)."""
     from clima_oceananigans_jl_torch.ops import fused_hydrostatic as tfh
     _, tg = grid_pair("PPB", (8, 8, 8))
     T.NonhydrostaticModel(tg, advection=PositiveWENO5())
@@ -395,7 +395,7 @@ def test_positive_momentum_and_other_kernels_are_refused_by_name():
                                topology=(T.PERIODIC, T.FLAT, T.BOUNDED))
     m = T.HydrostaticFreeSurfaceModel(flat_y, tracer_advection=PositiveWENO5(),
                                       tracers=("c",))
-    assert "Flat y" in tfh.unsupported_reason(m)
+    assert tfh.unsupported_reason(m) is None
 
 
 # -- on the card ---------------------------------------------------------------------

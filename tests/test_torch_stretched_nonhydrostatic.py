@@ -428,7 +428,7 @@ REFUSED = {
         z=(0, 1), topology=(T.PERIODIC, T.PERIODIC, T.BOUNDED),
         dtype=torch.float64, device=DEVICE), {}, "item 7"),
     "another Coriolis": (lambda: grid_pair((6, 5, 8))[1],
-                         dict(coriolis=object()), "item 4"),
+                         dict(coriolis=object()), "object Coriolis is not ported \\(FPlane"),
     "another closure": (lambda: grid_pair((6, 5, 8))[1],
                         dict(closure=(T.AnisotropicMinimumDissipation(), object())),
                         "item 7"),
