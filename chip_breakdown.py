@@ -12,7 +12,9 @@
                               [weno5-kernels] [hydrostatic-positive]
                               [near-global-ub5] [ptxas-schemes]
                               [sass-regular --parent DIR] [ab2-bf16]
-                              [front-slice] [gyre] [--steps N]
+                              [front-slice] [gyre] [stretched-channel]
+                              [implicit-free-surface] [multigrid-iterations]
+                              [--steps N]
 
 With no part named, runs them all. Prints the card's name and power
 limit first. Needs a card; without one it exits with an error.
@@ -224,6 +226,28 @@ limit first. Needs a card; without one it exits with an error.
   ``csrc/fused_substep_eta.cu`` whose passes are skipped (the same
   cooperative grid, prologue, 2N barriers and epilogue), in turns: the
   share of K5's time that is not the substeps' work.
+- ``stretched-channel``: ``chip_smoke.py``'s stretched channel (the JAX
+  suite's fully stretched configuration at 256×256×128 fp64 with 2²⁰
+  particles) after its warm-up steps: ptxas's counts of every K2
+  instantiation (the stretched-x/y form among them), then K2 (its
+  stretched-x/y form), the eager terms (``tendencies`` less K2),
+  ``ab2_substep``, the projection's copies and pad with their K6 fills,
+  the whole-array divergence and gradient, the multigrid pressure solve
+  (its V-cycles apart from the CG's matvecs and reductions) and the
+  correction, ``update_state`` and its K6 fills, and the particles'
+  step; the multigrid-CG iterations a solve.
+- ``implicit-free-surface``: the ¼° flagship of ``chip_smoke.py``'s
+  ``implicit free surface`` paths under ImplicitFreeSurface("matrix") and
+  ("multigrid"), maxiter 50, after 2 warm-up steps each: K4b, K4a, K6's
+  fills, the barotropic modes and the solve's right-hand side, the
+  free-surface solve (the multigrid's V-cycles apart), the η correction
+  and the rest; the CG iterations a step.
+- ``multigrid-iterations``: the stretched channel's pressure solve at
+  32×32×16, 64×64×32, 128×128×64 and 256×256×128 (``MG_SIZES``; its
+  grid, faces and initial state at each size, no particles): the rhs of
+  the first step's solve, solved with the model's tolerance 1e-9 and
+  maxiter 200, then with maxiter 2000; the CG iterations, the final
+  relative residual and the seconds of each.
 """
 from __future__ import annotations
 
@@ -245,8 +269,10 @@ from clima_oceananigans_jl_torch.closures import vertical_mixing as vm
 from clima_oceananigans_jl_torch.models import hydrostatic as hm
 from clima_oceananigans_jl_torch.models import nonhydrostatic as nm
 from clima_oceananigans_jl_torch.models import shallow_water as swm
-from clima_oceananigans_jl_torch.models.free_surface import SplitExplicitFreeSurface
+from clima_oceananigans_jl_torch.models.free_surface import (ImplicitFreeSurface,
+                                                             SplitExplicitFreeSurface)
 from clima_oceananigans_jl_torch.ops import _build
+from clima_oceananigans_jl_torch.solvers import stencil_matrix as tsm
 
 import chip_smoke
 
@@ -1169,6 +1195,122 @@ def gyre(steps):
                (model, "fill_all_halos", "fill_all_halos")], steps)
 
 
+def stretched_channel(steps):
+    """chip_smoke.py's stretched channel after its warm-up steps, broken
+    down (module docstring)."""
+    ptxas("fused_advective_tendencies", "K2")
+    model, state = chip_smoke.channel_model()
+    c = chip_smoke.CHANNEL
+    for _ in range(c["warmup"]):
+        state = model.step(state, c["dt"])
+    torch.cuda.synchronize()
+    events = collections.defaultdict(list)
+    fill = nm.KERNELS["fill"]
+    update_state = model.update_state
+    model.update_state = lambda s, kernels=None: update_state(
+        s, dict(kernels or {}, fill=timed(events, "update_state's K6 fills", fill)))
+    kernels = {"advect": timed(events, "K2 (stretched-x/y form)", nm.KERNELS["advect"])}
+    copies = "copies and pad with their K6 fills"
+    solve = "multigrid pressure solve"
+    cg = "the solve's CG matvecs, reductions and host reads"
+    patches = [(model, "tendencies", "tendencies"),
+               (nm, "ab2_substep", "ab2_substep"),
+               (model, "project_velocities", "project_velocities"),
+               (model, "_filled_velocity_copies", copies),
+               (model, "_filled_pressure", copies),
+               (nm, "fused_divergence_reference", "divergence (whole-array)"),
+               (nm, "fused_pressure_gradient_reference", "gradient (whole-array)"),
+               (model.pressure_solver, "solve", solve),
+               (tsm, "v_cycle", "V-cycles"),
+               (model, "update_state", "update_state"),
+               (model, "_step_particles", "particles' step")]
+    inner = {"tendencies": (("K2 (stretched-x/y form)",),
+                            "the eager terms (tendencies less K2)"),
+             solve: (("V-cycles",), cg),
+             "project_velocities": ((copies, "divergence (whole-array)", cg, "V-cycles",
+                                     "gradient (whole-array)"),
+                                    "the correction (project_velocities less its "
+                                    "other parts)"),
+             "update_state": (("update_state's K6 fills",), None)}
+    tsm.SOLVES.update(solves=0, iterations=0, residual=0.0)
+    step = lambda s, timed_parts: model.step(s, c["dt"], kernels if timed_parts else None)
+    size = "x".join(map(str, model.grid.shape))
+    breakdown(f"stretched channel {size} fp64 step, {len(state['particles'])} particles",
+              step, state, events, patches, steps, inner)
+    print(f"stretched channel: {tsm.SOLVES['iterations'] / tsm.SOLVES['solves']:.1f} "
+          f"multigrid-CG iterations a solve over {tsm.SOLVES['solves']} solves")
+
+
+#: the stretched channel's sizes at which ``multigrid_iterations`` solves
+MG_SIZES = ((32, 32, 16), (64, 64, 32), (128, 128, 64), (256, 256, 128))
+
+
+def multigrid_iterations(steps):
+    """The stretched channel's multigrid-CG pressure solve at ``MG_SIZES``
+    (the channel's grid, faces and initial state at each size, no
+    particles): the rhs of its first step's solve, solved as the model
+    solves it (tolerance 1e-9, maxiter 200) and with maxiter 2000, each
+    with its CG iterations, final relative residual and seconds."""
+    for size in MG_SIZES:
+        model, state = chip_smoke.channel_model(size, particles=False)
+        solver = model.pressure_solver
+        rhs = []
+        solve = solver.solve
+        solver.solve = lambda r, *a, **k: (rhs.append(r.clone()), solve(r, *a, **k))[1]
+        model.step(state, chip_smoke.CHANNEL["dt"])
+        solver.solve = solve
+        b = solver.vol * rhs[0]
+        mg = solver.mg
+        for maxiter in (mg.maxiter, 2000):
+            trial = tsm.MultigridSolver(mg.A, mg.shape, tolerance=mg.tolerance,
+                                        maxiter=maxiter, project_mean=True)
+            trial._levels = mg.levels
+            tsm.SOLVES.update(solves=0, iterations=0, residual=0.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trial.solve(b)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            print(f"multigrid iterations: stretched channel {'x'.join(map(str, size))} "
+                  f"fp64, {len(mg.levels)} levels, tolerance {mg.tolerance:g}, maxiter "
+                  f"{maxiter}: {tsm.SOLVES['iterations']} CG iterations, final relative "
+                  f"residual {tsm.SOLVES['residual']:.3e}, {seconds:.3f} s")
+        del model, state, solver, rhs, b, mg, trial
+        torch.cuda.empty_cache()
+
+
+def implicit_free_surface(steps):
+    """The ¼° flagship under the matrix and the multigrid implicit free
+    surface, broken down (module docstring)."""
+    for method in chip_smoke.IMPLICIT_FS["methods"]:
+        model, state = chip_smoke.flagship_implicit(method)
+        dt = chip_smoke.HYDRO["dt"]
+        for _ in range(chip_smoke.HYDRO["warmup"]):
+            state = model.step(state, dt)
+        torch.cuda.synchronize()
+        events = collections.defaultdict(list)
+        kernels = {k: timed(events, label, hm.KERNELS[k]) for k, label in (
+            ("tendencies", "K4b"), ("columns", "K4a"), ("fill", "K6 fills"))}
+        solve = "free-surface solve"
+        patches = [(hm, "barotropic_mode", "barotropic modes and rhs"),
+                   (hm, "div_xy_2d", "barotropic modes and rhs"),
+                   (ImplicitFreeSurface, "solve", solve),
+                   (tsm, "v_cycle", "V-cycles"),
+                   (hm, "grad_x", "eta correction"), (hm, "grad_y", "eta correction")]
+        inner = {solve: (("V-cycles",), None)}
+        tsm.SOLVES.update(solves=0, iterations=0, residual=0.0)
+        step = lambda s, timed_parts: model.step(s, dt, kernels if timed_parts else None)
+        g = model.grid
+        breakdown(f"1/4 deg {g.Nx}x{g.Ny}x{g.Nz} fp32 step, ImplicitFreeSurface("
+                  f"{method!r}, maxiter {chip_smoke.IMPLICIT_FS['maxiter']})", step, state,
+                  events, patches, steps, inner)
+        print(f"implicit free surface {method}: "
+              f"{tsm.SOLVES['iterations'] / tsm.SOLVES['solves']:.1f} CG iterations a "
+              f"solve over {tsm.SOLVES['solves']} solves")
+        del model, state
+        torch.cuda.empty_cache()
+
+
 PROBE = r"""
 #include <cuda_runtime.h>
 #include "weno5_advection.cuh"
@@ -1609,7 +1751,10 @@ PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps), "ab2-bf16": ab2_bf16
          "hydrostatic-positive": lambda steps: scheme_path("hydrostatic positive", steps),
          "near-global-ub5": lambda steps: scheme_path("near-global UB5", steps),
          "ptxas-schemes": ptxas_schemes, "sass-regular": sass_regular,
-         "front-slice": front_slice, "gyre": gyre}
+         "front-slice": front_slice, "gyre": gyre,
+         "stretched-channel": stretched_channel,
+         "implicit-free-surface": implicit_free_surface,
+         "multigrid-iterations": multigrid_iterations}
 
 
 def main(argv):

@@ -300,16 +300,15 @@ on the card, in phases; each prints one line or a few:
    RoquetIdealizedEquationOfState(); 3 steps with the kernels (1 K4a, 1
    K4b, 1 K5, 2 K6 and 4 or 5 T1 a step) and 3 with the plain versions,
    max|Δ| = 0 on every field, η and pHY′, finite;
-32. the free-convection path (``FREE_CONVECTION``):
+32. the free-convection path (``FREE_CONVECTION``): the physics of
    validation/vertical_mixing_closures.py (H = 128 m, nz = 64, N² = 1e-5,
-   B₀ = 1e-7, Δt = 60 s, 720 steps, ImplicitFreeSurface("pcg"), no
-   advection) with each of its three closures on a (Periodic, Periodic,
-   Bounded) 32×32×64 fp64 grid (a stand-in of the script's column from
-   before K4 took Flat axes, kept beside phase 39); 1 K4a, 1 K4b, 3 K6
-   and 3 (4 with CATKE's e) T1 a step; the
-   validation's assertions (the buoyancy budget within 2%, the
-   mixed-layer gradient below N²/2, 0.5 h_exp < h < 1.8 h_exp) and every
-   column within 1e-12·max|b| of the first;
+   ImplicitFreeSurface("pcg"), no advection) under each of its three
+   closures on a (Periodic, Periodic, Bounded) 32×32×64 fp64 grid, 4
+   steps of 60 s with the kernels (1 K4a, 1 K4b, 3 K6 and 3 or 4 T1 a
+   step, K4b's regular layout with no advection, counted as the path's
+   launches) against 4 with their plain versions, bit for bit (the
+   script's column itself runs uncut as phase 39, which replaced the
+   720 steps this path ran before);
 33. the nonhydrostatic closures hold (``NONHYDROSTATIC_HOLD``): the wind
    mixing path's configuration at 128³ fp32 under TEOS10EquationOfState(),
    under RoquetIdealizedEquationOfState() and with CATKEVerticalDiffusivity()
@@ -391,6 +390,31 @@ on the card, in phases; each prints one line or a few:
    the plain versions, bit for bit, finite, |Σ η·Az| ≤ 1e-5·Σ|η|·Az, K4b
    held and timed on the path's fields.
 
+Since the stencil-matrix slice it ends (after phase 42) with
+
+43. K2's stretched-x/y form against its plain version (``K2XY_CASES``): a
+   stretched x, y, x and y, x and z, Periodic and Bounded x, a (Bounded,
+   Flat, Bounded) grid, WENO5, UB3, PositiveWENO5 and C4, two immersed
+   cases, fp32 and fp64, random fields, bit for bit over NaN-filled
+   outputs, each timed against its bound (the form's record's ``forms``);
+44. ``stretched channel`` (``CHANNEL``): the JAX suite's fully stretched
+   configuration at 256×256×128 fp64 with WENO5, a tracer and 2²⁰
+   particles, 1 warm-up and 2 timed quasi-AB2 steps with the kernels (1
+   K2 in its stretched-x/y form and 3 K6 a step; the multigrid pressure
+   solve and the projection's operators are PyTorch ops), checked (finite,
+   max|∇·u|·Δx_min/max|u| ≤ 1e-5, every particle in the domain), the
+   form held and timed on its fields (its record), then with the plain
+   versions, every field and particle bit for bit;
+45. ``implicit free surface``: validation/implicit_free_surface.py as
+   written through the port's copy (N = 64, four methods, 50 steps each,
+   its assertion; 1 K4a, 1 K4b, 3 K6 a step), then the ¼° flagship under
+   ImplicitFreeSurface("matrix" and "multigrid", maxiter 50), 1 warm-up
+   and 2 timed steps each with the kernels and then the plain versions,
+   bit for bit, with the CG iterations a step;
+46. the particle holds (``PARTICLES_HOLD``): 2¹⁶ particles in the
+   shallow-water model at 1024² and in the ¼° flagship, 3 steps with the
+   kernels against 3 with their plain versions, bit for bit.
+
 Each kernel's record carries its bound: the larger of its compulsory
 bytes (each input read once, each output written once, from this run's
 tensors) over 3.35 TB/s and its operations (per-point counts of what the
@@ -467,7 +491,11 @@ from clima_oceananigans_jl_torch import (BOUNDED, FLAT, PERIODIC,
                                          TEOS10EquationOfState,
                                          VerticalScalarDiffusivity)
 from clima_oceananigans_jl_torch.examples import internal_wave
+from clima_oceananigans_jl_torch.particles.lagrangian import LagrangianParticles
+from clima_oceananigans_jl_torch.solvers.stencil_matrix import (MultigridPoissonSolver,
+                                                                SOLVES)
 from clima_oceananigans_jl_torch.validation import (barotropic_gyre,
+                                                    implicit_free_surface,
                                                     periodic_advection,
                                                     vertical_mixing_closures,
                                                     wind_mixing_column)
@@ -493,7 +521,7 @@ from clima_oceananigans_jl_torch.ops.fused_step import (
     fused_ab2_advance, fused_ab2_advance_reference, general_route, w_top)
 from clima_oceananigans_jl_torch.ops.fused_tendencies import (
     bf16_mode, fused_advective_tendencies, fused_advective_tendencies_reference,
-    k2_clear_flags,
+    k2_clear_flags, stretched_rows_arg,
     fused_divergence, fused_divergence_reference, fused_pressure_gradient,
     fused_pressure_gradient_reference, fused_shallow_water_tendencies,
     fused_shallow_water_tendencies_reference)
@@ -514,18 +542,23 @@ K3A, K3B, K3C = ("fused_shallow_water_tendencies", "fused_divergence",
 K4A, K4B, K5, K6 = ("hydrostatic_columns", "fused_hydrostatic_tendencies",
                     "fused_substep_eta", "fused_fill_halos")
 T1 = "batched_tridiagonal"
+#: K2's stretched-x/y form, whose launches K2's wrapper also counts apart
+#: (``fused_advective_tendencies.stretched_launches``)
+K2XY = "fused_advective_tendencies_stretched"
 WRAPPERS = {K1: fused_ab2_advance, K2: fused_advective_tendencies,
             K3A: fused_shallow_water_tendencies, K3B: fused_divergence,
             K3C: fused_pressure_gradient, K4A: hydrostatic_columns,
             K4B: fused_hydrostatic_tendencies, K5: fused_substep_eta,
             K6: fused_fill_halos, T1: solve_batched_tridiagonal}
 SOURCES = {K1: "fused_ab2_advance", K2: "fused_advective_tendencies",
+           K2XY: "fused_advective_tendencies",
            K3A: "fused_shallow_water_tendencies", K3B: "fused_projection",
            K3C: "fused_projection", K4A: "hydrostatic_columns",
            K4B: "fused_hydrostatic_tendencies", K5: "fused_substep_eta",
            K6: "fill_halos", T1: "batched_tridiagonal"}
 REPLACES = {K1: "clima_oceananigans_jl_tpu/ops/fused_step.py:129",
             K2: "clima_oceananigans_jl_tpu/ops/fused_tendencies.py:397",
+            K2XY: "clima_oceananigans_jl_tpu/ops/fused_tendencies.py:397",
             K3A: "clima_oceananigans_jl_tpu/ops/fused_tendencies.py:238",
             K3B: "clima_oceananigans_jl_tpu/ops/fused_tendencies.py:238",
             K3C: "clima_oceananigans_jl_tpu/ops/fused_tendencies.py:238",
@@ -623,9 +656,6 @@ PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
             "closures hold: Ri-based": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 4},
             "closures hold: GM/Redi": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 4},
             "closures hold: CATKE Roquet": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 5},
-            "free convection: CATKE": {K4A: 1, K4B: 1, K6: 3, T1: 4},
-            "free convection: convective adjustment": {K4A: 1, K4B: 1, K6: 3, T1: 3},
-            "free convection: Ri-based": {K4A: 1, K4B: 1, K6: 3, T1: 3},
             "nonhydrostatic closures hold: TEOS-10": {K2: 3, K6: 6},
             "nonhydrostatic closures hold: Roquet": {K2: 3, K6: 6},
             "nonhydrostatic closures hold: CATKE": {K2: 3, K6: 6, T1: 18},
@@ -637,7 +667,14 @@ PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
             "column closures: Ri_based": {K4A: 1, K4B: 1, K6: 3, T1: 3},
             "wind mixing column": {K4A: 1, K4B: 1, K6: 3, T1: 4},
             "Stommel gyre": {K3A: 3}, "Stommel gyre 1024": {K3A: 3},
-            "front slice": {K4A: 1, K4B: 1, K5: 1, K6: 2}}
+            "front slice": {K4A: 1, K4B: 1, K5: 1, K6: 2},
+            "free convection: CATKE": {K4A: 1, K4B: 1, K6: 3, T1: 4},
+            "free convection: convective adjustment": {K4A: 1, K4B: 1, K6: 3, T1: 3},
+            "free convection: Ri-based": {K4A: 1, K4B: 1, K6: 3, T1: 3},
+            "stretched channel": {K2XY: 1, K6: 3},
+            "implicit free surface validation": {K4A: 1, K4B: 1, K6: 3},
+            "implicit free surface: matrix": {K4A: 1, K4B: 1, K6: 3},
+            "implicit free surface: multigrid": {K4A: 1, K4B: 1, K6: 3}}
 #: of T1's launches a step, those of its Fourier mode (the pressure solve)
 T1_FOURIER_PER_STEP = {"wind mixing stretched": 3, "AB2 stretched implicit": 1}
 T1F = "fourier_tridiagonal"
@@ -662,7 +699,8 @@ AGREE = {"AB2": 0.0, "RK3": 0.0, "shallow water": 1e-4,
          "near-global": 0.0, "near-global WENO": 0.0, "1/4 deg diffusive": 0.0,
          "horizontal convection": 0.0, "2D turbulence": 0.0, "seamount": 0.0,
          "internal wave": 0.0, "near-global CATKE": 0.0, "hydrostatic positive": 0.0,
-         "near-global UB5": 0.0, "AB2 bf16 smoothness": 0.0, "AB2 fast bf16": 0.0}
+         "near-global UB5": 0.0, "AB2 bf16 smoothness": 0.0, "AB2 fast bf16": 0.0,
+         "stretched channel": 0.0}
 #: the ¼° hydrostatic flagship (benchmark/bench_hydro_flagship.py:24-41);
 #: its "hydrostatic wind" path adds the near-global run's wind stress (u
 #: top FluxBC((λ, φ, t) ↦ −1e-4 cos(3πφ/180)),
@@ -734,16 +772,15 @@ OCEAN = dict(nu=1e4, kappa=1e3, e=1e-7)
 CLOSURES_HOLD = dict(size=(360, 150, 24), steps=3,
                      kinds=("convective adjustment", "Ri-based", "GM/Redi",
                             "CATKE Roquet"))
-#: validation/vertical_mixing_closures.py (l.31-86): a resting column with
-#: N² = 1e-5 cooled at B₀ = 1e-7 for 12 h (720 steps of 60 s) under each
-#: closure, H = 128 m, nz = 64, fp64, ImplicitFreeSurface("pcg"), no
-#: advection, on a horizontally periodic 32×32×64 grid: every column
-#: evolves as the script's one. It stood in for the script's (Flat, Flat,
-#: Bounded) column until K4 took Flat axes; the column itself runs since
-#: as the "column closures" path, and this stand-in stays beside it
+#: validation/vertical_mixing_closures.py (l.31-86)'s physics, a resting
+#: column with N² = 1e-5 cooled at B₀ = 1e-7 under each closure, H = 128 m,
+#: nz = 64, fp64, ImplicitFreeSurface("pcg"), no advection, on a
+#: horizontally periodic 32×32×64 grid: the free-convection path (K4b's
+#: regular layout with no advection), 4 steps. Its 720 steps stood in for
+#: the script's (Flat, Flat, Bounded) column until K4 took Flat axes; the
+#: column runs uncut as the "column closures" path
 FREE_CONVECTION = dict(size=(32, 32, 64), H=128.0, N2=1e-5, B0=1e-7, dt=60.0,
-                       steps=720, kinds=("CATKE", "convective adjustment",
-                                         "Ri-based"))
+                       kinds=("CATKE", "convective adjustment", "Ri-based"))
 #: the nonhydrostatic closures hold: the wind-mixing path's configuration
 #: at 128³ fp32 under TEOS-10, under Roquet, and with CATKE beside its
 #: ScalarDiffusivity; 3 RK3 steps with the kernels and 3 with the plain
@@ -1186,11 +1223,13 @@ def phase_k3bc():
 
 
 def zero_counts():
-    """Every wrapper's launch count set to 0 (T1's Fourier mode apart)."""
+    """Every wrapper's launch count set to 0 (T1's Fourier mode and K2's
+    stretched-x/y form apart)."""
     torch.cuda.synchronize()
     for w in WRAPPERS.values():
         w.launches = 0
     fourier_tridiagonal.launches = 0
+    WRAPPERS[K2].stretched_launches = 0
 
 
 #: the launches of a hydrostatic model's ``initial_state`` (its
@@ -1202,11 +1241,14 @@ def read_counts(path, steps, extra=None, plain=False):
     """The launches since ``zero_counts``, checked against ``PER_STEP[path]``
     (and, of T1's, those of its Fourier mode against
     ``T1_FOURIER_PER_STEP``) times ``steps`` plus ``extra``; none with
-    ``plain``."""
+    ``plain``. K2's stretched-x/y form counts as a kernel of its own
+    (``K2XY``), out of K2's count."""
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in WRAPPERS.items()}
+    launches[K2XY] = WRAPPERS[K2].stretched_launches
+    launches[K2] -= launches[K2XY]
     expected = {k: 0 if plain else PER_STEP[path].get(k, 0) * steps
-                + (extra or {}).get(k, 0) for k in WRAPPERS}
+                + (extra or {}).get(k, 0) for k in launches}
     if launches != expected:
         raise AssertionError(f"{path} path: kernel launches {launches}, "
                              f"expected {expected}")
@@ -1602,16 +1644,17 @@ def wind_bcs():
 
 
 def latlon_flagship(dtype=torch.float32, wind=False, grid=None, momentum_advection=None,
-                    tracer_advection=None, **kw):
+                    tracer_advection=None, free_surface=None, **kw):
     """The ¼° flagship of benchmark/bench_hydro_flagship.py through the
     public API; with ``wind``, under the near-global run's wind stress;
     ``grid`` another lat-lon grid, the schemes others than its
-    weno_velocity momentum and WENO5 tracers, ``kw`` more model options."""
+    weno_velocity momentum and WENO5 tracers, ``free_surface`` another than
+    its split-explicit(30), ``kw`` more model options."""
     return HydrostaticFreeSurfaceModel(
         grid or latlon_grid(dtype),
         momentum_advection=momentum_advection or VectorInvariant(scheme="weno_velocity"),
         tracer_advection=tracer_advection or WENO5(), tracers=("T", "S"),
-        free_surface=SplitExplicitFreeSurface(substeps=HYDRO["substeps"]),
+        free_surface=free_surface or SplitExplicitFreeSurface(substeps=HYDRO["substeps"]),
         coriolis=HydrostaticSphericalCoriolis(), buoyancy=BuoyancyTracer(),
         boundary_conditions=wind_bcs() if wind else None, **kw)
 
@@ -4376,57 +4419,6 @@ def free_convection_model(kind):
         boundary_conditions={"b": FieldBCs(top=FluxBC(c["B0"]))})
 
 
-def phase_free_convection():
-    """The free-convection path (``FREE_CONVECTION``) under each closure,
-    with the kernels: the validation's assertions on the first column (the
-    buoyancy budget within 2%, the mixed layer's gradient below N²/2, the
-    depth within 0.5–1.8 of the zero-entrainment scaling) and every column
-    within 1e-12·max|b| of it; returns the launch counts by path."""
-    c = FREE_CONVECTION
-    t_end = c["steps"] * c["dt"]
-    h_exp = math.sqrt(2 * 1.4 * c["B0"] * t_end / c["N2"])
-    nz, dz = c["size"][2], c["H"] / c["size"][2]
-    by_path = {}
-    for kind in c["kinds"]:
-        path = f"free convection: {kind}"
-        model = free_convection_model(kind)
-        init = {"b": lambda x, y, z: c["N2"] * z}
-        if "e" in model.tracer_names:
-            init["e"] = 1e-7
-        state = model.initial_state(**init)
-        g = model.grid
-        zc = g.nodes(CENTER)[2].flatten().double().cpu().numpy()
-        b0 = g.interior(state["solution"]["b"])[0, 0].double().cpu().numpy()
-        state, per_step, by_path[path] = run_steps(
-            path, model, state, lambda s: model.step(s, c["dt"]), 0, c["steps"], False)
-        b = g.interior(state["solution"]["b"])
-        check_finite(path, model, state, ("w", "pHY", "eta"))
-        spread = float((b - b[:1, :1, :]).abs().max())
-        if not spread <= 1e-12 * float(b.abs().max()):
-            raise AssertionError(f"{path}: the columns differ by {spread:.3e}")
-        b = b[0, 0].double().cpu().numpy()
-        mixed = np.abs(b - c["N2"] * zc) > 0.02 * c["N2"] * c["H"]
-        h = -zc[mixed].min() if mixed.any() else 0.0
-        budget = (b - b0).sum() * dz / (-c["B0"] * t_end)
-        if not abs(budget - 1.0) < 0.02:
-            raise AssertionError(f"{path}: buoyancy budget {budget:.4f}, not 1 within 2%")
-        inml = (zc > -0.6 * h) & (zc < -3 * dz)
-        grad = np.abs(np.diff(b[inml]) / dz).max() if inml.sum() > 3 else 0.0
-        if not grad < 0.5 * c["N2"]:
-            raise AssertionError(f"{path}: mixed-layer gradient {grad:.3e} >= N2/2")
-        if not 0.5 * h_exp < h < 1.8 * h_exp:
-            raise AssertionError(f"{path}: mixed-layer depth {h} m, expected "
-                                 f"{0.5 * h_exp:.1f}-{1.8 * h_exp:.1f} m")
-        print(f"{path}: {'x'.join(map(str, c['size']))} fp64, {c['steps']} steps "
-              f"{per_step * 1e3:.3f} ms/step, h = {h:.1f} m (h/h_exp = {h / h_exp:.3f}), "
-              f"budget {budget:.5f}, mixed-layer max|db/dz| {grad:.3e}, columns "
-              f"within {spread:.3e}; launches "
-              f"{ {k: n for k, n in by_path[path].items() if n} }")
-        del model, state
-        torch.cuda.empty_cache()
-    return by_path
-
-
 def phase_nonhydrostatic_closures():
     """The nonhydrostatic closures hold (``NONHYDROSTATIC_HOLD``): the
     wind-mixing configuration at 128³ fp32 under TEOS-10, under Roquet and
@@ -4901,7 +4893,427 @@ def phase_front_slice():
     return launches, reading
 
 
+# -- the stencil-matrix slice: a stretched x or y, the matrix and multigrid free
+# -- surfaces, Lagrangian particles ---------------------------------------------
+
+#: the stretched channel (the JAX suite's fully stretched configuration,
+#: tests/test_matrix_solvers.py:147-173, at full width): (Bounded, Periodic,
+#: Bounded) on [−1, 1] × [0, 1] × [−1, 0], x faces tanh(linspace(−1.2, 1.2))
+#: / tanh(1.2), z faces −cos(linspace(0, π/2)), fp64 (the model's
+#: multigrid tolerance of 1e-9 is below fp32's resolution), WENO5 momentum
+#: and tracer c, quasi-AB2 at Δt = 1e-3, u, v ~ 1e-2 N(0, 1) and 2²⁰
+#: particles uniform in the domain from numpy seed 9, tracking c; 1 warm-up
+#: and 2 timed steps (each ~5–8 s of host-bound multigrid CG), cut from 2
+#: and 5 to keep the whole run well inside its limit
+CHANNEL = dict(size=(256, 256, 128), dt=1e-3, warmup=1, steps=2, particles=2 ** 20,
+               seed=9)
+#: the ¼° flagship with ImplicitFreeSurface(solver_method=m, maxiter=50) in
+#: place of split-explicit(30), as __graft_entry__.py:128 builds the
+#: flagship's implicit free surface; 1 warm-up and 2 timed steps (the
+#: multigrid one ~1 s a step), cut from 2 and 5 as the channel's
+IMPLICIT_FS = dict(methods=("matrix", "multigrid"), maxiter=50, warmup=1, steps=2)
+#: validation/implicit_free_surface.py as written: N
+IFS_VALIDATION = dict(N=64)
+#: the particle holds: the shallow-water headline at 1024² with a tracer,
+#: and the ¼° flagship, each with 2¹⁶ particles, 3 steps
+PARTICLES_HOLD = dict(n_sw=1024, particles=2 ** 16, steps=3)
+#: K2's stretched-x/y form's holds: (label, stretched axes, topology, size,
+#: dtype, momentum, tracer scheme, immersed)
+K2XY_CASES = (
+    ("x P,P,B 100x77x45 fp32 WENO5/WENO5", "x", (PERIODIC, PERIODIC, BOUNDED),
+     (100, 77, 45), torch.float32, WENO5, WENO5, False),
+    ("x B,P,B 100x77x45 fp64 WENO5/UB3", "x", (BOUNDED, PERIODIC, BOUNDED),
+     (100, 77, 45), torch.float64, WENO5, UpwindBiasedThirdOrder, False),
+    ("y P,B,B 96x130x40 fp32 UB3/PositiveWENO5", "y", (PERIODIC, BOUNDED, BOUNDED),
+     (96, 130, 40), torch.float32, UpwindBiasedThirdOrder, PositiveWENO5, False),
+    ("x+y B,B,B 90x90x36 fp64 C4/WENO5", "xy", (BOUNDED, BOUNDED, BOUNDED),
+     (90, 90, 36), torch.float64, CenteredFourthOrder, WENO5, False),
+    ("x+z B,P,B 96x64x48 fp32 WENO5/PositiveWENO5", "xz", (BOUNDED, PERIODIC, BOUNDED),
+     (96, 64, 48), torch.float32, WENO5, PositiveWENO5, False),
+    ("x B,F,B 512x1x256 fp64 WENO5/WENO5", "x", (BOUNDED, FLAT, BOUNDED),
+     (512, 1, 256), torch.float64, WENO5, WENO5, False),
+    ("x B,P,B 128x96x48 fp32 immersed WENO5/WENO5", "x", (BOUNDED, PERIODIC, BOUNDED),
+     (128, 96, 48), torch.float32, WENO5, WENO5, True),
+    ("x B,P,B 128x96x48 fp64 immersed WENO5/PositiveWENO5", "x",
+     (BOUNDED, PERIODIC, BOUNDED), (128, 96, 48), torch.float64, WENO5, PositiveWENO5,
+     True),
+)
+
+
+def channel_faces(n, kind):
+    """The channel's x faces (tanh-refined at both walls), y faces (refined
+    at y = 0; the holds' stretched y) or z faces (−cos)."""
+    if kind == "x":
+        return np.tanh(np.linspace(-1.2, 1.2, n + 1)) / np.tanh(1.2)
+    if kind == "y":
+        return np.linspace(0.0, 1.0, n + 1) ** 1.3
+    return -np.cos(np.linspace(0, np.pi / 2, n + 1))
+
+
+def stretched_grid(stretch, topology, size, dtype):
+    """A grid on [−1, 1] × [0, 1] × [−1, 0] stretched along the axes named
+    in ``stretch`` (``channel_faces``)."""
+    return RectilinearGrid(
+        size=size, x=channel_faces(size[0], "x") if "x" in stretch else (-1.0, 1.0),
+        y=channel_faces(size[1], "y") if "y" in stretch else (0.0, 1.0),
+        z=channel_faces(size[2], "z") if "z" in stretch else (-1.0, 0.0),
+        topology=topology, dtype=dtype, device=DEVICE)
+
+
+def uniform_particles(grid, n, seed, tracked):
+    """``n`` particles uniform in the grid's domain (numpy seed ``seed``; a
+    Flat axis' coordinate its one centre), tracking ``tracked``."""
+    rng = np.random.default_rng(seed)
+    xyz = []
+    for a in range(3):
+        ax = grid._axes[a]
+        lo = float(ax.cf[ax.h])
+        q = (np.full(n, float(ax.cc[0])) if ax.topo is FLAT
+             else rng.uniform(lo, lo + ax.extent, n))
+        xyz.append(torch.as_tensor(q, dtype=grid.dtype, device=DEVICE))
+    return LagrangianParticles(*xyz, {}, 1.0, tracked)
+
+
+def particles_inside(label, grid, p):
+    """Raises unless every particle lies in the grid's domain."""
+    for a, q in enumerate((p.x, p.y, p.z)):
+        ax = grid._axes[a]
+        if ax.topo is FLAT:
+            continue
+        lo = float(ax.cf[ax.h])
+        qmin, qmax = float(q.min()), float(q.max())
+        if not (lo <= qmin and qmax <= lo + ax.extent and bool(torch.isfinite(q).all())):
+            raise AssertionError(f"{label}: particles outside the domain along axis {a}: "
+                                 f"[{qmin}, {qmax}] against [{lo}, {lo + ax.extent}]")
+
+
+def particles_equal(label, got, ref):
+    """Two particle sets' positions and properties held bit for bit."""
+    pairs = {a: (getattr(got, a), getattr(ref, a)) for a in ("x", "y", "z")}
+    pairs.update({f"properties[{k}]": (v, ref.properties[k])
+                  for k, v in got.properties.items()})
+    for name, (g, r) in pairs.items():
+        if not torch.equal(g, r):
+            raise AssertionError(f"{label}: particles' {name} differ by "
+                                 f"{float((g - r).abs().max()):.3e}")
+    print(f"{label}: {len(got)} particles' positions and {sorted(got.properties)} "
+          f"bit for bit")
+
+
+def channel_model(size=CHANNEL["size"], particles=True):
+    """The stretched channel's model and initial state (``CHANNEL``; at
+    another ``size``, and without its particles, for ``chip_breakdown.py``)."""
+    c = CHANNEL
+    grid = stretched_grid("xz", (BOUNDED, PERIODIC, BOUNDED), size, torch.float64)
+    p = uniform_particles(grid, c["particles"], c["seed"], ("c",)) if particles else None
+    model = NonhydrostaticModel(grid, advection=WENO5(), tracers=("c",), particles=p)
+    rng = np.random.default_rng(c["seed"])
+    state = model.initial_state(
+        u=1e-2 * rng.standard_normal(size), v=1e-2 * rng.standard_normal(size),
+        c=lambda x, y, z: torch.exp(-(x ** 2 + (z + 0.5) ** 2) / 0.1))
+    return model, state
+
+
+def drive_channel(plain):
+    """The stretched channel with the kernels or their plain versions; returns
+    (model, state, s per timed step, launches, (CG iterations a solve, the
+    largest final relative residual))."""
+    c = CHANNEL
+    model, state = channel_model()
+    if model.fused_step or model.projection_kernels or model.kernels["fill"] is not \
+            fused_fill_halos:
+        raise AssertionError("stretched channel: the general AB2 branch, the whole-array "
+                             "projection operators and K6's fills were expected")
+    if not isinstance(model.pressure_solver, MultigridPoissonSolver):
+        raise AssertionError(f"stretched channel: solve {model.pressure_solver}")
+    kernels = nonhydrostatic.PLAIN if plain else None
+    SOLVES.update(solves=0, iterations=0, residual=0.0)
+    state, per_step, launches = run_steps(
+        "stretched channel", model, state, lambda s: model.step(s, c["dt"], kernels),
+        c["warmup"], c["steps"], plain)
+    if SOLVES["solves"] != c["warmup"] + c["steps"]:
+        raise AssertionError(f"stretched channel: {SOLVES['solves']} solves")
+    return (model, state, per_step, launches,
+            (SOLVES["iterations"] / SOLVES["solves"], SOLVES["residual"]))
+
+
+def stretched_divergence_ratio(model, state):
+    """max|∇·u|·Δx_min/max|u| over the interior, ∇·u with the grid's
+    per-index metrics (the whole-array operator)."""
+    g, sol = model.grid, state["solution"]
+    div = fused_divergence_reference(g, sol["u"], sol["v"], sol["w"])
+    umax = max(float(g.interior(sol[n]).abs().max()) for n in "uvw")
+    return float(div.abs().max()) * g.min_spacing() / umax
+
+
+def k2xy_reading(label, args, dtype, reps=10):
+    """K2's stretched-x/y form held bit for bit on ``args`` (over NaN-filled
+    outputs, one launch) and timed against its plain version and its bound
+    (as ``k2_bound``, with the rows' bytes); returns (max|Δ|, ms, plain_ms,
+    bound_ms, bound_by)."""
+    grid = args[0]
+    poison_cache(grid.total_shape, dtype, len(args[6]) + 5)
+    before = WRAPPERS[K2].stretched_launches
+    err = hold_k2(f"K2 stretched-x/y {label}", args, dtype)
+    if WRAPPERS[K2].stretched_launches != before + 1:
+        raise AssertionError(f"{label}: K2's stretched-x/y form was not launched")
+    grid, scheme, tracer_scheme, u, v, w, tracers = args
+    rows, _ = stretched_rows_arg(grid, scheme, tracer_scheme)
+    flags = k2_clear_flags(grid, scheme, tracer_scheme, len(tracers)) or []
+    nbytes = (2 * tensor_bytes([u, v, w], tracers.values()) + tensor_bytes(rows)
+              + tensor_bytes([f for f in flags if f is not None]))
+    b_ms, by = bound(K2, nbytes, math.prod(grid.shape),
+                     flops=k2_flops(grid, scheme, tracer_scheme, len(tracers)))
+    ms, plain_ms = time_form("K2 stretched-x/y", label,
+                             lambda: fused_advective_tendencies(*args),
+                             lambda: fused_advective_tendencies_reference(*args),
+                             (b_ms, by), reps)
+    return err, ms, plain_ms, b_ms, by
+
+
+def phase_stretched_channel():
+    """The stretched channel (``CHANNEL``) with the kernels, checked (finite,
+    max|∇·u|·Δx_min/max|u| ≤ 1e-5, every particle in the domain), K2's
+    stretched-x/y form held and timed on its fields, then with the plain
+    versions, every field and every particle bit for bit; returns (the
+    kernel run's launches, the form's reading)."""
+    path, c = "stretched channel", CHANNEL
+    model, state, per_step, launches, iters = drive_channel(plain=False)
+    check_finite(path, model, state, ("pNHS",))
+    ratio = stretched_divergence_ratio(model, state)
+    if not ratio <= 1e-5:
+        raise AssertionError(f"{path}: max|div u|*dx_min/max|u| = {ratio:.3e} > 1e-5")
+    g = model.grid
+    particles_inside(path, g, state["particles"])
+    points = math.prod(g.shape)
+    steps = c["warmup"] + c["steps"]
+    print(f"{path} path: {'x'.join(map(str, g.shape))} fp64 stretched x and z, "
+          f"{c['steps']} steps at dt {c['dt']}: {per_step * 1e3:.3f} ms/step, "
+          f"{points / per_step:.6e} grid points/s on {card_line()}; launches "
+          f"{ {k: n for k, n in launches.items() if n} } in {steps} steps; "
+          f"{iters[0]:.1f} multigrid-CG iterations a solve (maxiter "
+          f"{model.pressure_solver.mg.maxiter}, tolerance "
+          f"{model.pressure_solver.mg.tolerance:g}), final relative residual at most "
+          f"{iters[1]:.3e}; max|div u|*dx_min/max|u| "
+          f"{ratio:.3e}; {len(state['particles'])} particles in the domain")
+    sol = state["solution"]
+    args = (g, model.advection, model.tracer_advection, sol["u"], sol["v"], sol["w"],
+            {"c": sol["c"]})
+    reading = k2xy_reading("on the stretched channel's fields", args, torch.float64, 5)
+    kernel_u = {k: g.interior(a).clone() for k, a in sol.items()}
+    kernel_p = state["particles"]
+    del state, args, sol
+    torch.cuda.empty_cache()
+    model, state, plain_step, _, plain_iters = drive_channel(plain=True)
+    worst = agreement(path, steps, kernel_u, model, state)
+    particles_equal(f"{path}: kernel and plain runs", kernel_p, state["particles"])
+    print(f"{path} path: plain versions: {plain_step * 1e3:.3f} ms/step "
+          f"({plain_iters[0]:.1f} iterations a solve, final relative residual at most "
+          f"{plain_iters[1]:.3e}); kernel and plain runs agree to "
+          f"{worst:.3e} of max|field|")
+    del model, state, kernel_u, kernel_p
+    torch.cuda.empty_cache()
+    return launches, reading
+
+
+def phase_k2xy_holds():
+    """K2's stretched-x/y form against its plain version (``K2XY_CASES``):
+    a stretched x, y, x and y, x and z, on Periodic and Bounded x, a Flat y,
+    WENO5, UB3, PositiveWENO5 and C4, immersed, fp32 and fp64, random
+    fields (tracers in [−0.1, 1.1], masked over a bottom), bit for bit over
+    NaN-filled outputs, each timed; returns the forms' records."""
+    forms = []
+    for label, stretch, topology, size, dtype, momentum, tracer, immersed in K2XY_CASES:
+        grid = stretched_grid(stretch, topology, size, dtype)
+        model = NonhydrostaticModel(
+            grid, advection=momentum(), tracers=("c0", "c1"),
+            tracer_advection=(tracer(bounds=(0.0, 1.0)) if tracer is PositiveWENO5
+                              else tracer()),
+            immersed_boundary=(GridFittedBottom(lambda x, y: -0.8 + 0.3 * torch.exp(
+                -x ** 2 / 0.1)) if immersed else None))
+        g = model.grid
+        gen = torch.Generator(device=DEVICE).manual_seed(21)
+        sol = {n: torch.randn(g.total_shape, generator=gen, dtype=dtype, device=DEVICE)
+               for n in "uvw"}
+        sol.update({n: 1.2 * torch.rand(g.total_shape, generator=gen, dtype=dtype,
+                                        device=DEVICE) - 0.1 for n in ("c0", "c1")})
+        if immersed:
+            sol = model.immersed_boundary.mask_state(model, {"solution": sol})["solution"]
+        args = (g, model.advection, model.tracer_advection, sol["u"], sol["v"], sol["w"],
+                {n: sol[n] for n in ("c0", "c1")})
+        forms.append(form_record("hold", label, *k2xy_reading(label, args, dtype)))
+        del model, g, sol, args
+        torch.cuda.empty_cache()
+    return forms
+
+
+def flagship_implicit(method, particles=None):
+    """The ¼° flagship under ImplicitFreeSurface(``method``, maxiter 50) and
+    the flagship path's initial state."""
+    model = latlon_flagship(free_surface=ImplicitFreeSurface(
+        solver_method=method, maxiter=IMPLICIT_FS["maxiter"]), particles=particles)
+    rng = np.random.default_rng(0)
+    state = model.initial_state(u=0.1 * rng.standard_normal(model.grid.shape),
+                                b=lambda lam, phi, z: 2e-5 * (z + 3000.0) / 3000.0)
+    return model, state
+
+
+def phase_implicit_free_surface():
+    """validation/implicit_free_surface.py as written through the port's copy
+    (N = 64: fft, pcg, matrix and multigrid, 50 steps each, its assertion
+    that each is within 1e-6 of fft), then the ¼° flagship under the matrix
+    and the multigrid implicit free surface (``IMPLICIT_FS``), 1 + 2 steps
+    with the kernels and then the plain versions, bit for bit, with the CG
+    iterations a step; returns the launch counts by path."""
+    by_path = {}
+    path = "implicit free surface validation"
+    steps = implicit_free_surface.N_STEPS * len(implicit_free_surface.METHODS)
+    zero_counts()
+    SOLVES.update(solves=0, iterations=0, residual=0.0)
+    t0 = time.perf_counter()
+    implicit_free_surface.main(IFS_VALIDATION["N"], DEVICE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    # each method's model builds its initial state inside the count
+    by_path[path] = read_counts(path, steps, {k: 4 * n for k, n in INITIAL_STATE.items()})
+    print(f"{path}: N = {IFS_VALIDATION['N']} fp64, {steps} steps in {seconds:.3f} s, "
+          f"{SOLVES['iterations'] / SOLVES['solves']:.1f} CG iterations a matrix or "
+          f"multigrid solve; launches { {k: n for k, n in by_path[path].items() if n} } "
+          f"on {card_line()}")
+    for method in IMPLICIT_FS["methods"]:
+        path = f"implicit free surface: {method}"
+        out, ms, iters = {}, {}, {}
+        for plain in (False, True):
+            model, state = flagship_implicit(method)
+            SOLVES.update(solves=0, iterations=0, residual=0.0)
+            kernels = hydrostatic.PLAIN if plain else None
+            out[plain], ms[plain], counts = run_steps(
+                path, model, state, lambda s: model.step(s, HYDRO["dt"], kernels),
+                IMPLICIT_FS["warmup"], IMPLICIT_FS["steps"], plain)
+            iters[plain] = (SOLVES["iterations"] / SOLVES["solves"], SOLVES["residual"])
+            if not plain:
+                by_path[path] = counts
+                check_finite(path, model, out[plain], ("w", "pHY", "eta"))
+                del state
+        got, ref = out[False], out[True]
+        hold(f"{path}, 1/4 deg fp32, {IMPLICIT_FS['warmup'] + IMPLICIT_FS['steps']} steps",
+             {"solution": got["solution"], "p": {"eta": got["eta"], "w": got["w"]}},
+             {"solution": ref["solution"], "p": {"eta": ref["eta"], "w": ref["w"]}},
+             torch.float32, exact=True)
+        g = model.grid
+        print(f"{path} path: 1/4 deg {g.Nx}x{g.Ny}x{g.Nz} fp32, {IMPLICIT_FS['steps']} steps: "
+              f"{ms[False] * 1e3:.3f} ms/step (plain {ms[True] * 1e3:.3f}), "
+              f"{math.prod(g.shape) / ms[False]:.6e} grid points/s, {iters[False][0]:.1f} CG "
+              f"iterations a step (maxiter {IMPLICIT_FS['maxiter']}, final relative "
+              f"residual at most {iters[False][1]:.3e}); launches a step "
+              f"{ {k: n // (IMPLICIT_FS['warmup'] + IMPLICIT_FS['steps']) for k, n in by_path[path].items() if n} } "
+              f"on {card_line()}")
+        del out, got, ref, model
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_particle_holds():
+    """Particles in the shallow-water model (the headline at 1024² with a
+    tracer c) and in the ¼° flagship (split-explicit, tracking T and b),
+    ``PARTICLES_HOLD["particles"]`` each: 3 steps with the kernels against 3
+    with the plain versions, fields and particles bit for bit, every
+    particle in the domain."""
+    c = PARTICLES_HOLD
+    n = c["n_sw"]
+    grid = RectilinearGrid(size=(n, n, 1), x=(0, 2 * math.pi), y=(0, 2 * math.pi),
+                           topology=(PERIODIC, PERIODIC, FLAT), dtype=torch.float32,
+                           device=DEVICE)
+    runs = []
+    for kernels in (None, shallow_water.PLAIN):
+        p = uniform_particles(grid, c["particles"], 11, ("c",))
+        model = ShallowWaterModel(grid, gravitational_acceleration=10.0, advection=WENO5(),
+                                  tracers=("c",), particles=p)
+        s = model.initial_state(uh=lambda x, y, z: 0.1 * torch.sin(x) * torch.cos(y),
+                                h=1.0, c=lambda x, y, z: torch.cos(x) * torch.sin(y))
+        for _ in range(c["steps"]):
+            s = model.step(s, 1e-3, kernels)
+        runs.append(s)
+    label = f"particles hold: shallow water {n}^2 fp32"
+    hold(label, {"s": runs[0]["solution"]}, {"s": runs[1]["solution"]}, torch.float32,
+         exact=True)
+    particles_equal(label, runs[0]["particles"], runs[1]["particles"])
+    particles_inside(label, model.grid, runs[0]["particles"])
+    del runs, model
+    runs = []
+    for kernels in (None, hydrostatic.PLAIN):
+        model = latlon_flagship()
+        p = uniform_particles(model.grid, c["particles"], 12, ("T", "b"))
+        model.particles = p
+        rng = np.random.default_rng(0)
+        s = model.initial_state(u=0.1 * rng.standard_normal(model.grid.shape),
+                                b=lambda lam, phi, z: 2e-5 * (z + 3000.0) / 3000.0)
+        for _ in range(c["steps"]):
+            s = model.step(s, HYDRO["dt"], kernels)
+        runs.append(s)
+    label = "particles hold: 1/4 deg flagship fp32"
+    hold(label, {"s": dict(runs[0]["solution"], eta=runs[0]["eta"])},
+         {"s": dict(runs[1]["solution"], eta=runs[1]["eta"])}, torch.float32, exact=True)
+    particles_equal(label, runs[0]["particles"], runs[1]["particles"])
+    particles_inside(label, model.grid, runs[0]["particles"])
+    del runs, model
+    torch.cuda.empty_cache()
+
+
+def phase_free_convection():
+    """validation/vertical_mixing_closures.py's physics on the (Periodic,
+    Periodic, Bounded) 32×32×64 fp64 grid of ``FREE_CONVECTION`` (K4b's
+    regular layout with no advection, which the column path's Flat layout
+    does not run): ``COLUMN_HOLD_STEPS`` steps under each closure with the
+    kernels, their launches counted, against as many with their plain
+    versions, bit for bit; returns the launch counts by path."""
+    c = FREE_CONVECTION
+    by_path = {}
+    for kind in c["kinds"]:
+        path = f"free convection: {kind}"
+        model = free_convection_model(kind)
+        init = {"b": lambda x, y, z: c["N2"] * z}
+        if "e" in model.tracer_names:
+            init["e"] = 1e-7
+        state = model.initial_state(**init)
+        runs = []
+        for kernels in (None, hydrostatic.PLAIN):
+            zero_counts()
+            s = state
+            for _ in range(COLUMN_HOLD_STEPS):
+                s = model.step(s, c["dt"], kernels=kernels)
+            counts = read_counts(path, COLUMN_HOLD_STEPS, plain=kernels is not None)
+            if kernels is None:
+                by_path[path] = counts
+            runs.append(s)
+        check_finite(path, model, runs[0], ("w", "pHY", "eta"))
+        hold(f"{path}, {'x'.join(map(str, c['size']))} fp64, {COLUMN_HOLD_STEPS} steps "
+             "kernels against plain", {"s": dict(runs[0]["solution"], eta=runs[0]["eta"])},
+             {"s": dict(runs[1]["solution"], eta=runs[1]["eta"])}, torch.float64,
+             exact=True)
+        print(f"{path}: launches { {k: n for k, n in by_path[path].items() if n} } in "
+              f"{COLUMN_HOLD_STEPS} steps")
+        del model, state, runs
+    torch.cuda.empty_cache()
+    return by_path
+
+def _timed_phase(fn):
+    """``fn`` with its seconds printed after it ("phase <name>: s")."""
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        print(f"phase {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+    return run
+
+
+# every phase prints its seconds, so that a run's time can be read phase by phase
+for _name in [n for n in globals() if n.startswith("phase_")]:
+    globals()[_name] = _timed_phase(globals()[_name])
+
+
 def main():
+    t0 = time.perf_counter()
     phase_device()
     phase_build()
     measured = {K1: phase_k1(), K2: phase_k2(), K3A: phase_k3a()}
@@ -4981,6 +5393,15 @@ def main():
     column_err = max(column_err, err)
     by_path.update(phase_gyre())
     by_path["front slice"], front_reading = phase_front_slice()
+    # the stencil-matrix slice: K2's stretched-x/y form (its holds and the
+    # stretched channel), the implicit free surface's matrix and multigrid
+    # methods, particles
+    k2xy_forms = phase_k2xy_holds()
+    by_path["stretched channel"], k2xy_reading_ = phase_stretched_channel()
+    by_path.update(phase_implicit_free_surface())
+    phase_particle_holds()
+    measured[K2XY] = (max(k2xy_reading_[0], *(f["max_abs_err"] for f in k2xy_forms)),
+                      *k2xy_reading_[1:])
     for name, err in flat_hold_worst.items():
         flat_worst[name] = max(flat_worst.get(name, 0.0), err)
     for name in (K4A, K4B, T1, K6):
@@ -4995,7 +5416,8 @@ def main():
     # K1's and K2's holds on a stretched z, K4b's newer parts, K5 on planes
     for name, err in ((K1, k1_err), (K2, k2_err), (K4B, k4b_err), (K5, k5_err)):
         measured[name] = (max(measured[name][0], err), *measured[name][1:])
-    launches = {k: sum(counts[k] for counts in by_path.values()) for k in WRAPPERS}
+    launches = {k: sum(counts.get(k, 0) for counts in by_path.values())
+                for k in (*WRAPPERS, K2XY)}
     print("launches by path: " + json.dumps(
         {path: {k: n for k, n in counts.items() if n} for path, counts in by_path.items()}))
     records = []
@@ -5071,6 +5493,10 @@ def main():
             dict(r, launches=flat_launches(r["part"], name))
             for r in flat_hold_forms[name])
     by_name[K4B]["forms"].append(front_reading)
+    # K2's stretched-x/y form: its holds (no launches of their own)
+    by_name[K2XY]["forms"] = k2xy_forms
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s on "
+          f"{card_line()}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,8 @@ coefficients, vertically implicit diffusion, the LES
 closures (Smagorinsky-Lilly, AMD, 2D Leith), the vertical-mixing closures
 (CATKE, convective adjustment, Ri-based), GM/Redi and closure tuples, Stokes
 drift, forcing, background fields, flux BCs with scalar, plane, callable
-and discrete values, a z stretched or regular (the Fourier-tridiagonal or
-FFT pressure solve), the roll-based and the general projection) with its
+and discrete values, every axis stretched or regular (the FFT, the
+Fourier-tridiagonal or the multigrid pressure solve), the roll-based and the general projection) with its
 quasi-AB2 and RK3 steps, the shallow-water model in its conservative and
 vector-invariant forms, and the hydrostatic free-surface model on
 rectilinear and lat-lon grids with stretched axes (vector-invariant or
@@ -22,7 +22,10 @@ the tracers, spherical Coriolis, forcing and flux BCs, closures
 (CATKE, convective adjustment, Ri-based mixing and GM/Redi among them),
 seawater buoyancy with any of those equations of state, tilted gravity,
 grid-fitted immersed boundaries with their bottom fluxes, explicit,
-split-explicit and implicit free surfaces), with hand-written CUDA
+split-explicit and implicit free surfaces, the implicit one by FFT,
+matrix-free CG or CG on the assembled heptadiagonal couplings with a
+Jacobi or multigrid preconditioner), Lagrangian particles in all three
+models, with hand-written CUDA
 kernels for Hopper in ``csrc/``: the fused AB2 advance (K1), the fused
 advective tendencies (K2), the shallow-water core (K3a), the general
 projection's divergence and gradient (K3b, K3c), the hydrostatic w/pHY′
@@ -100,3 +103,6 @@ from .output.writers import HDF5OutputWriter, NetCDFOutputWriter, WindowedTimeAv
 from .output.checkpointer import Checkpointer
 from .output.readers import FieldDataset, FieldTimeSeries
 from .diagnostics.diagnostics import AdvectiveCFL, CFL, DiffusiveCFL, StateChecker
+from .solvers.stencil_matrix import (HeptadiagonalIterativeSolver, MultigridPoissonSolver,
+                                     MultigridSolver, StencilMatrix)
+from .particles.lagrangian import LagrangianParticles

@@ -33,6 +33,9 @@ package's state for ``model``:
   without ``w`` and ``pHY`` (the JAX kernel that rebuilds them each step,
   ``wphy_in_kernel``) gets both, and the diffusivities, from the port's
   ``update_state``;
+- ``particles`` (a ``LagrangianParticles`` of either package, its
+  leaves numpy arrays) becomes the port's, its positions and properties
+  tensors on the grid's device, in any model;
 - ``layout="xzy"`` reads a JAX hydrostatic state stored (x, z, y) (its
   ``state_layout``, a checkpoint's ``__state_layout``): the solution,
   ``G_prev`` but an explicit free surface's ``eta``, ``w`` and ``pHY``
@@ -40,7 +43,8 @@ package's state for ``model``:
 
 ``state_to_numpy`` goes the other way, keeping the port's layout (halo
 3, ``G_prev`` as the model keeps it), which the JAX package's plain step
-accepts.
+accepts; its ``particles`` is a ``LagrangianParticles`` whose leaves are
+numpy arrays, whose fields build the JAX package's.
 """
 from __future__ import annotations
 
@@ -174,6 +178,10 @@ def state_from_numpy(model, state, layout="natural"):
     out = dict(solution=sol,
                clock=Clock(_host(clock.time), int(np.asarray(clock.iteration)),
                            int(np.asarray(getattr(clock, "stage", 0)))))
+    if "particles" in state:
+        out["particles"] = _particles(state["particles"],
+                                      lambda a: torch.as_tensor(
+                                          np.array(a), dtype=g.dtype, device=g.device))
     if hasattr(model, "free_surface"):
         return _hydrostatic_from_numpy(model, state, out, t)
     if not hasattr(model, "pressure_solver"):  # shallow water
@@ -195,6 +203,15 @@ def state_from_numpy(model, state, layout="natural"):
     return out
 
 
+def _particles(p, leaf):
+    """The port's ``LagrangianParticles`` with the fields of ``p`` (either
+    package's), each position and property through ``leaf``."""
+    from .particles.lagrangian import LagrangianParticles
+    return LagrangianParticles(leaf(p.x), leaf(p.y), leaf(p.z),
+                               {k: leaf(v) for k, v in p.properties.items()},
+                               p.restitution, tuple(p.tracked_fields))
+
+
 def state_to_numpy(state):
     """numpy copies of the port's state: the same keys and layout, with a
     ``Clock`` of 0-d numpy leaves."""
@@ -206,6 +223,8 @@ def state_to_numpy(state):
             out[k] = np_of(state[k])
     if "diffusivities" in state:
         out["diffusivities"] = _diffusivities_to_numpy(state["diffusivities"])
+    if "particles" in state:
+        out["particles"] = _particles(state["particles"], np_of)
     dtype = next(iter(out["solution"].values())).dtype
     out["clock"] = Clock(np.asarray(state["clock"].time, dtype),
                          np.asarray(state["clock"].iteration, np.int32))

@@ -12,9 +12,10 @@ Counterpart of ``clima_oceananigans_jl_tpu/models/free_surface.py``
 - ``ImplicitFreeSurface``: solve [∇h·(H∇h) − 1/gΔt²] η = (∇h·Q★ − η/Δt)/(gΔt)
   by a 2D FFT/DCT eigen-solve on horizontally regular grids of constant
   depth ("fft") or matrix-free conjugate gradients ("pcg", lat-lon and
-  immersed grids included), then
-  uⁿ⁺¹ = u★ − gΔt ∂x η; the JAX package's "matrix" and "multigrid"
-  methods wait (ROADMAP Queue 1 item 7).
+  immersed grids included), or CG on the assembled heptadiagonal
+  couplings with a Jacobi preconditioner ("matrix") or a geometric
+  multigrid V-cycle ("multigrid", ``solvers/stencil_matrix.py``), then
+  uⁿ⁺¹ = u★ − gΔt ∂x η.
 
 Every free-surface array (η, U̅, …) is a with-halo (X, Y, 1) tensor.
 """
@@ -26,7 +27,7 @@ import math
 import torch
 
 from ..boundary_conditions.bcs import fill_halos
-from ..grids.topology import BOUNDED, PERIODIC
+from ..grids.topology import BOUNDED, FLAT, PERIODIC
 from ..ops import stencil as st
 from ..solvers.fft_poisson import dct2, idct2, poisson_eigenvalues
 from ..solvers.pcg import cg_solve
@@ -100,9 +101,10 @@ class ExplicitFreeSurface:
 @dataclasses.dataclass(frozen=True)
 class ImplicitFreeSurface:
     """``solver_method``: "fft" (horizontally regular rectilinear grids,
-    constant depth), "pcg" (any grid, lat-lon included) or "auto" (fft
-    where it applies); "matrix" and "multigrid" are not ported yet
-    (ROADMAP Queue 1 item 7)."""
+    constant depth), "pcg" (matrix-free CG, any grid, lat-lon included),
+    "matrix" (Jacobi-preconditioned CG on the assembled heptadiagonal
+    couplings), "multigrid" (geometric-multigrid-preconditioned CG on
+    them) or "auto" (fft where it applies, else pcg)."""
 
     gravitational_acceleration: float = 9.80665
     solver_method: str = "auto"
@@ -152,10 +154,10 @@ class ImplicitFreeSurface:
             eta = torch.zeros_like(eta0)
             eta[interior] = phi.to(grid.dtype)
             return fill2d(eta, grid, ETA_LOC, eta_bcs)
+        if method in ("matrix", "multigrid"):
+            return self._solve_stencil(grid, eta_bcs, rhs, eta0, dt, method)
         if method != "pcg":
-            raise NotImplementedError(
-                f"ImplicitFreeSurface solver_method={method!r} is not ported "
-                "yet (ROADMAP Queue 1 item 7)")
+            raise ValueError(f"unknown solver_method {method!r}")
         # matrix-free CG on the negated, Az-symmetrised operator
         Hfc, Hcf = column_depths(grid)
         Az = grid.Az(CENTER)
@@ -171,6 +173,74 @@ class ImplicitFreeSurface:
                            reltol=self.tolerance, maxiter=self.maxiter)
         eta = torch.zeros_like(eta0)
         eta[interior] = x
+        return fill2d(eta, grid, ETA_LOC, eta_bcs)
+
+    def _fs_stencil(self, grid):
+        """The assembled couplings of the Az-symmetrised operator (Δy Hᶠᶜ/Δx
+        at x faces, Δx Hᶜᶠ/Δy at y faces; 0 at a bounded axis' first face)
+        as a ``StencilMatrix`` without its diagonal shift, and the interior
+        Az; built once per grid."""
+        from ..solvers.stencil_matrix import StencilMatrix
+        if "fs_stencil" not in grid._cache:
+            Hfc, Hcf = column_depths(grid)
+            ii = (slice(grid.Hx, grid.Hx + grid.Nx),
+                  slice(grid.Hy, grid.Hy + grid.Ny), slice(None))
+            shp2 = grid.total_shape[:2] + (1,)
+            L = [None, None, None]
+            if grid.topology[0] is not FLAT:
+                lx = torch.broadcast_to(grid.dy(U_LOC) * Hfc / grid.dx(U_LOC),
+                                        shp2)[ii].clone()
+                if grid.topology[0] is BOUNDED:
+                    lx[0, :, :] = 0.0
+                L[0] = lx
+            if grid.topology[1] is not FLAT:
+                ly = torch.broadcast_to(grid.dx(V_LOC) * Hcf / grid.dy(V_LOC),
+                                        shp2)[ii].clone()
+                if grid.topology[1] is BOUNDED:
+                    ly[:, 0, :] = 0.0
+                L[1] = ly
+            Az_int = torch.broadcast_to(grid.Az(CENTER), shp2)[ii]
+            grid._cache["fs_stencil"] = (StencilMatrix(tuple(L), None), Az_int)
+        return grid._cache["fs_stencil"]
+
+    def _stencil_solver(self, grid, dt, method):
+        """The "matrix" or "multigrid" solver of this free surface, kept per
+        grid and settings and built again when Δt changes (the multigrid
+        levels depend on Δt through the diagonal −Az/(gΔt²); the matrix
+        solver takes Δt at each solve)."""
+        from ..solvers.stencil_matrix import (HeptadiagonalIterativeSolver,
+                                              MultigridSolver, StencilMatrix)
+        g = self.gravitational_acceleration
+        key = ("fs_solver", method, g, self.tolerance, self.maxiter)
+        cached = grid._cache.get(key)
+        if cached is None or (method == "multigrid" and cached[0] != dt):
+            A, Az_int = self._fs_stencil(grid)
+            if method == "matrix":
+                solver = HeptadiagonalIterativeSolver(
+                    A, 0.0, -Az_int / g, tolerance=self.tolerance,
+                    maxiter=self.maxiter)
+            else:
+                solver = MultigridSolver(
+                    StencilMatrix(A.L, -Az_int / (g * dt * dt)),
+                    (grid.Nx, grid.Ny, 1), tolerance=self.tolerance,
+                    maxiter=self.maxiter)
+            grid._cache[key] = (dt, solver)
+        return grid._cache[key][1]
+
+    def _solve_stencil(self, grid, eta_bcs, rhs, eta0, dt, method):
+        """The "matrix" and "multigrid" solves on the assembled couplings
+        (the right-hand side Az·rhs, the CG start η⁰)."""
+        _, Az_int = self._fs_stencil(grid)
+        interior = (slice(grid.Hx, grid.Hx + grid.Nx),
+                    slice(grid.Hy, grid.Hy + grid.Ny), slice(None))
+        b = (Az_int * rhs[interior]).to(grid.dtype)
+        solver = self._stencil_solver(grid, dt, method)
+        if method == "matrix":
+            x = solver.solve(b, dt=dt, x0=eta0[interior])
+        else:
+            x = solver.solve(b, x0=eta0[interior])
+        eta = torch.zeros_like(eta0)
+        eta[interior] = x.to(grid.dtype)
         return fill2d(eta, grid, ETA_LOC, eta_bcs)
 
 

@@ -71,8 +71,13 @@ static gates, so a configuration they lack raises there and the wrappers
 do not check again. Not ported here,
 because they are TPU-only: the halo rounding to multiples of 4, the
 (x, z, y) state layout, the MXU cumsum, the distributed overlap. A
-configuration the port cannot run yet (particles, ``PartialCellBottom``)
-raises ``NotImplementedError`` at construction, naming its ROADMAP item.
+configuration the port cannot run yet (``PartialCellBottom``) raises
+``NotImplementedError`` at construction, naming its ROADMAP item.
+
+Lagrangian particles (``particles=``, a ``LagrangianParticles``) ride in
+``state["particles"]``: after each step's ``update_state`` they are
+advected in (u, v, the diagnosed w) and sample the tracers, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -130,18 +135,16 @@ PLAIN = dict(columns=hydrostatic_columns_reference,
              tridiagonal=solve_batched_tridiagonal_reference)
 
 
-def _unsupported_reason(model, particles, immersed_boundary):
+def _unsupported_reason(model, immersed_boundary):
     """Why the port cannot run this configuration yet, or None."""
-    if particles is not None:
-        return "particles are not ported yet (ROADMAP Queue 1 item 7)"
     if isinstance(immersed_boundary, PartialCellBottom):
         return ("PartialCellBottom (fractional bottom cells, 3D vertical "
                 "metrics) is not ported yet (ROADMAP Queue 1 item 7)")
     fs = model.free_surface
     if isinstance(fs, ImplicitFreeSurface):
-        if fs.resolve_method(model.grid) not in ("fft", "pcg"):
-            return (f"ImplicitFreeSurface solver_method={fs.solver_method!r} "
-                    "is not ported yet (ROADMAP Queue 1 item 7)")
+        if fs.resolve_method(model.grid) not in ("fft", "pcg", "matrix",
+                                                 "multigrid"):
+            return f"unknown ImplicitFreeSurface solver_method {fs.solver_method!r}"
         if fs.resolve_method(model.grid) == "fft" and (
                 model.grid.curvilinear or not model.grid.hregular):
             return "the fft free-surface solve needs a horizontally regular grid"
@@ -221,7 +224,8 @@ class HydrostaticFreeSurfaceModel:
             wb.top = FluxBC()
         self.w_bcs = wb
         self.pressure_bcs = regularize_bcs(self.grid, CENTER, None)
-        reason = _unsupported_reason(self, particles, immersed_boundary)
+        self.particles = particles
+        reason = _unsupported_reason(self, immersed_boundary)
         if (reason is None and self.grid.device.type == "cuda"
                 and self.fused_advection):
             # on the card the kernels run: their gates decide now
@@ -291,6 +295,8 @@ class HydrostaticFreeSurfaceModel:
         state = dict(solution=sol, eta=eta_arr,
                      clock=clock or Clock(host_scalar(g.dtype, 0.0), 0),
                      G_prev=G_prev, previous_dt=host_scalar(g.dtype, -1.0))
+        if self.particles is not None:
+            state["particles"] = self.particles
         return self.update_state(state)
 
     def fill_all_halos(self, sol, t=0.0, kernels=None, eta=None):
@@ -454,7 +460,14 @@ class HydrostaticFreeSurfaceModel:
         new_state = dict(state, solution=sol, eta=eta, G_prev=G,
                          clock=clock0.tick(tick),
                          previous_dt=host_scalar(grid.dtype, tick))
-        return self.update_state(new_state, kernels)
+        new_state = self.update_state(new_state, kernels)
+        p = new_state.get("particles")
+        if p is not None:  # in the updated (u, v, diagnosed w)
+            sol = new_state["solution"]
+            vels = dict(u=sol["u"], v=sol["v"], w=new_state["w"])
+            fields = {n: sol[n] for n in self.tracer_names}
+            new_state = dict(new_state, particles=p.step(grid, vels, dt, fields))
+        return new_state
 
     # -- diagnostics ---------------------------------------------------------------
     def cell_diffusion_timescale(self, state):

@@ -36,10 +36,16 @@ forcing and boundary fluxes, with PyTorch ops. ``project_velocities``
 takes the roll-based projection where the JAX package does (periodic x
 and y, w walls that are imposed values), and otherwise the general
 projection: halo fills, ``fused_divergence`` (K3b), the pressure solve
-and ``fused_pressure_gradient`` (K3c). On a grid stretched in z the
-pressure solve is the Fourier-tridiagonal one (its modes through T1), and
-the divergence and gradient are the whole-array PyTorch operators with
-the grid's per-level metrics, as the JAX package runs them there.
+and ``fused_pressure_gradient`` (K3c). On a grid stretched in z alone the
+pressure solve is the Fourier-tridiagonal one (its modes through T1); on
+a grid stretched in x or y it is ``MultigridPoissonSolver``
+(``solvers/stencil_matrix.py``: CG preconditioned by a geometric
+multigrid V-cycle, PyTorch ops), K2 runs its stretched-x/y form (the x,
+y and z rows of ``ops/metric_rows.py::axis_rows``), and the step takes
+the general AB2 branch, as the JAX package's gate has it. On any
+stretched axis the projection's divergence and gradient are the
+whole-array PyTorch operators with the grid's per-index metrics, as the
+JAX package runs them there.
 ``update_state`` and the general projection fill halos through
 ``fused_fill_halos`` (K6), two launches each, whatever the BCs' values
 (scalars, planes, callables, gradients); ``update_state`` computes the
@@ -53,12 +59,13 @@ K2 reads its clear flags (the conditional fluxes), ``update_state`` masks
 the fields in the solid, ``tendencies`` adds the immersed bottom's fluxes
 and masks the tendencies, and the step takes the general AB2 branch and
 the general projection (the parent grid's solve of the masked
-velocities' divergence), as in the JAX package. Every one of the JAX
+velocities' divergence), as in the JAX package. Lagrangian particles
+(``particles=``) ride in ``state["particles"]`` and are advected after
+each step in the updated velocities, sampling the tracers they track. Every one of the JAX
 package's eight advection schemes runs for momentum and tracers, in K1 and
 K2 alike (``PositiveWENO5``'s limiter included), and the scheme does not
 choose the AB2 branch, as in the JAX package. A configuration the port
-cannot run (other Coriolis or closures, ``PartialCellBottom``, particles,
-stretched x or y, ...) raises
+cannot run (other Coriolis or closures, ``PartialCellBottom``, ...) raises
 ``NotImplementedError`` at construction. The kernels' wrappers
 come from ``KERNELS``; the JAX keyword ``fused_advection=False`` swaps in
 ``PLAIN`` and takes the general AB2 branch, as its JAX meaning has it.
@@ -107,6 +114,7 @@ from ..ops.fused_tendencies import (fused_advective_tendencies,
                                     z_halo_free_ok)
 from ..solvers.fft_poisson import FFTPoissonSolver
 from ..solvers.fourier_tridiagonal import FourierTridiagonalSolver
+from ..solvers.stencil_matrix import MultigridPoissonSolver
 from ..solvers.tridiagonal import (fourier_tridiagonal,
                                    fourier_tridiagonal_reference,
                                    solve_batched_tridiagonal,
@@ -139,12 +147,14 @@ PLAIN = dict(advance=fused_ab2_advance_reference,
 
 def select_pressure_solver(grid):
     """A regular grid takes the FFT solve; a grid stretched in z only (x
-    and y regular) the Fourier-tridiagonal one. A stretched x or y, whose
-    solve is the JAX package's MultigridPoissonSolver, is refused at
-    construction (``unsupported_reason``)."""
+    and y regular) the Fourier-tridiagonal one; a stretched x or y
+    multigrid-preconditioned CG (``MultigridPoissonSolver``), as the JAX
+    package builds it (tolerance 1e-9, at most 200 iterations)."""
     if grid.all_regular:
         return FFTPoissonSolver.build(grid)
-    return FourierTridiagonalSolver.build(grid)
+    if grid.hregular:
+        return FourierTridiagonalSolver.build(grid)
+    return MultigridPoissonSolver.build(grid, tolerance=1e-9, maxiter=200)
 
 
 class NonhydrostaticModel:
@@ -215,11 +225,12 @@ class NonhydrostaticModel:
             raise NotImplementedError(reason)
         self.pressure_solver = select_pressure_solver(self.grid)
         # the general projection's divergence and gradient: K3b and K3c
-        # where z is regular (the kernels take one Δz, as the JAX package's
-        # fused ones take compile-time metrics); on a stretched z the
-        # whole-array operators with the per-level metrics, which is where
-        # the JAX package itself runs XLA ops instead of its Pallas kernels
-        self.projection_kernels = self.grid.z_regular
+        # on a regular grid (the kernels take one Δ an axis, as the JAX
+        # package's fused ones take compile-time metrics); on a stretched
+        # axis the whole-array operators with the per-index metrics, which
+        # is where the JAX package itself runs XLA ops instead of its
+        # Pallas kernels
+        self.projection_kernels = self.grid.all_regular
         self.fused_step = fused_step_ok(self)
 
     # -- state ----------------------------------------------------------------
@@ -262,6 +273,8 @@ class NonhydrostaticModel:
                      clock=clock or Clock(host_scalar(g.dtype, 0.0), 0),
                      G_prev={k: g.zeros(g_shape) for k in sol},
                      pNHS=g.zeros(), previous_dt=host_scalar(g.dtype, -1.0))
+        if self.particles is not None:
+            state["particles"] = self.particles
         return self.update_state(state)
 
     def _g_prev_in_layout(self, G_prev):
@@ -576,7 +589,7 @@ class NonhydrostaticModel:
                                             kernels)
         state = dict(state, clock=clock0.tick(tick), G_prev=G,
                      previous_dt=host_scalar(grid.dtype, tick))
-        return self.update_state(state, kernels)
+        return self._step_particles(self.update_state(state, kernels), dt)
 
     def _rk3_step(self, state, dt, kernels):
         """One low-storage RK3 step: three stages, each projected; the
@@ -599,8 +612,20 @@ class NonhydrostaticModel:
                 scaled(gamma + zeta, tick), stage=True))
             state = self.update_state(state, kernels)
             G_prev = G
-        return dict(state, clock=clock0.tick(tick), G_prev=G_prev,
-                    previous_dt=host_scalar(self.grid.dtype, tick))
+        state = dict(state, clock=clock0.tick(tick), G_prev=G_prev,
+                     previous_dt=host_scalar(self.grid.dtype, tick))
+        return self._step_particles(state, dt)
+
+    def _step_particles(self, state, dt):
+        """The particles advected in the updated velocities, the tracers
+        they track sampled at their new positions."""
+        p = state.get("particles")
+        if p is None:
+            return state
+        sol = state["solution"]
+        vels = {k: sol[k] for k in ("u", "v", "w")}
+        fields = {n: sol[n] for n in self.tracer_names}
+        return dict(state, particles=p.step(self.grid, vels, dt, fields))
 
     # -- diagnostics ---------------------------------------------------------------
     def cell_diffusion_timescale(self, state):

@@ -26,7 +26,9 @@ package adds it after its kernel too).
 
 State: ``solution`` (with-halo tensors, halo ``(h, h, 0)``; no TPU x-halo
 pad) and a host ``clock``; RK3 carries no tendency history across steps,
-so there is no ``G_prev``. Particles raise ``NotImplementedError``.
+so there is no ``G_prev``. Lagrangian particles (``particles=``) ride in
+``state["particles"]`` and are advected after each step in the
+diagnostic velocities, sampling the tracers they track.
 """
 from __future__ import annotations
 
@@ -68,9 +70,6 @@ class ShallowWaterModel:
             raise ValueError("ShallowWaterModel requires a flat z-axis (size[2]=1)")
         if formulation not in ("conservative", "vector_invariant"):
             raise ValueError(f"unknown formulation {formulation!r}")
-        if particles is not None:
-            raise NotImplementedError(
-                "particles are not ported yet (ROADMAP Queue 1 item 7)")
         self.formulation = formulation
         if formulation == "vector_invariant":
             from ..advection.vector_invariant import VectorInvariant
@@ -92,6 +91,7 @@ class ShallowWaterModel:
         self.bathymetry = (None if bathymetry is None else torch.as_tensor(
             bathymetry, dtype=self.grid.dtype, device=self.grid.device).contiguous())
         self.tracer_names = tuple(tracers)
+        self.particles = particles
         self.forcing = {k: regularize_forcing(k, v)
                         for k, v in (forcing or {}).items()}
         user_bcs = boundary_conditions or {}
@@ -124,8 +124,11 @@ class ShallowWaterModel:
         for name in self.prognostic_names():
             f = new_field(g, locs[name], self.bcs[name])
             sol[name] = set_field(f, g, vals.get(name, 0.0)).data
-        return dict(solution=sol,
-                    clock=clock or Clock(host_scalar(g.dtype, 0.0), 0))
+        state = dict(solution=sol,
+                     clock=clock or Clock(host_scalar(g.dtype, 0.0), 0))
+        if self.particles is not None:
+            state["particles"] = self.particles
+        return state
 
     def fill_all_halos(self, sol, t=0.0):
         """Fill the halos of every field of ``sol`` in place; returns it."""
@@ -235,7 +238,13 @@ class ShallowWaterModel:
             state = dict(state, solution=self.fill_all_halos(sol, clock.time),
                          clock=clock)
             G_prev = G
-        return dict(state, clock=clock0.tick(tick))
+        state = dict(state, clock=clock0.tick(tick))
+        p = state.get("particles")
+        if p is not None:
+            fields = {n: state["solution"][n] for n in self.tracer_names}
+            state = dict(state, particles=p.step(self.grid, self.velocities(state),
+                                                 dt, fields))
+        return state
 
     def cell_diffusion_timescale(self, state):
         """min Δ²/max(ν, κ) over this model's closure; +inf when nothing

@@ -95,9 +95,6 @@ def unsupported_reason(model):
             return (f"{type(c).__name__} closures are not ported (the JAX "
                     "package's scalar, biharmonic, LES, vertical-mixing and "
                     "GM/Redi closures are) (ROADMAP Queue 1 item 7)")
-    if model.particles is not None:
-        return ("particles in the nonhydrostatic model are not ported yet "
-                "(ROADMAP Queue 1 item 7)")
     ib = model.immersed_boundary
     if isinstance(ib, PartialCellBottom):
         return ("PartialCellBottom (fractional bottom cells, 3D vertical "
@@ -108,10 +105,6 @@ def unsupported_reason(model):
                 "item 7)")
     if all(t is FLAT for t in model.grid.topology):
         return "a nonhydrostatic grid needs an axis that is not Flat"
-    if not model.grid.hregular:
-        return ("a stretched x or y in the nonhydrostatic model is not "
-                "ported yet (its pressure solve, MultigridPoissonSolver, "
-                "solvers/stencil_matrix.py, waits for ROADMAP Queue 1 item 7)")
     return None
 
 
@@ -290,6 +283,8 @@ def _launch(model, state, dt, euler):
     kh, kz = _diffusivities(model, names, order)
 
     general = general_route(model)
+    if not grid.hregular:
+        raise ValueError(f"K1 takes a regular x and y: {grid}")
     if FLAT in grid.topology and not general:
         raise ValueError(f"K1 takes a Flat axis on its general route only: {grid}")
     zs, tables = _kernel_z_rows(grid, order, model.advection,

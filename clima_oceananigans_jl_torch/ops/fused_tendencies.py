@@ -6,7 +6,9 @@ Counterpart of ``clima_oceananigans_jl_tpu/ops/fused_tendencies.py``:
   w and every tracer of the nonhydrostatic model in one launch
   (``csrc/fused_advective_tendencies.cu``; on a stretched z its stretched
   instantiation, with per-level Δz and the WENO5 family's tables as z
-  rows; on an immersed grid its IM instantiations, with the clear flags of
+  rows; on a grid stretched in x or y its stretched-x/y form, with the
+  rows of every axis (``ops/metric_rows.py::axis_rows``), counted apart in
+  ``fused_advective_tendencies.stretched_launches``; on an immersed grid its IM instantiations, with the clear flags of
   ``immersed/immersed.py::clear_flags``; ``PositiveWENO5``'s limiter, for
   momentum or tracers, in its ANY instantiations), with
   ``supports_fused_advection`` and ``z_halo_free_ok``;
@@ -46,15 +48,16 @@ from ..utils.location import C, CENTER, F, U_LOC, V_LOC, W_LOC
 from . import _build
 from . import operators as op
 from . import stencil as st
-from .metric_rows import z_rows
+from .metric_rows import axis_rows, z_rows
 
 
 def supports_fused_advection(grid):
     """The JAX package's gate of its fused advection (x and y regular and
     not bounded, a y halo): it chooses the JAX model's AB2 branch and
     ``G_prev`` layout, which the port keeps (``ops/fused_step.py::
-    fused_step_ok``). The port's K2 takes every grid the model accepts;
-    this test decides no kernel."""
+    fused_step_ok``). The port's K2 takes every grid the model accepts (a
+    stretched x or y in its stretched-x/y form); this test decides no
+    kernel."""
     return (grid.hregular and grid.topology[0] is not BOUNDED
             and grid.topology[1] is not BOUNDED
             and grid.Hy >= 1 and grid.Nz >= 1)
@@ -174,7 +177,8 @@ def axis_bounds(grid, axis, scheme):
 
 def spacings(grid):
     """The regular spacings (dx, dy, dz) of the kernels (1 on a Flat
-    axis, as the grid holds it; a stretched z's come as z rows)."""
+    axis, as the grid holds it; a stretched axis' come as rows, and its
+    entry here is read by no instantiation)."""
     return (grid.Lx / grid.Nx, grid.Ly / grid.Ny, grid.Lz / grid.Nz)
 
 
@@ -189,8 +193,6 @@ def advection_args(grid, scheme, tracer_scheme, nf):
     ``positive_bounds`` of each scheme)."""
     if not 3 <= nf <= 16:
         raise ValueError(f"the kernels take 3 to 16 fields, got {nf}")
-    if not grid.hregular:
-        raise ValueError(f"the kernels take a regular x and y: {grid}")
     order = kernel_order(grid)
     code_m, eps_m = kernel_scheme(scheme)
     code_t, eps_t = kernel_scheme(tracer_scheme)
@@ -221,6 +223,21 @@ def z_rows_arg(grid, scheme, tracer_scheme, general=False):
     tables = (not grid.z_regular and any(
         type(s) in TABLE_SCHEMES for s in (scheme, tracer_scheme)))
     return z_rows(grid, tables=tables, to_centres=tables), int(tables)
+
+
+def stretched_rows_arg(grid, scheme, tracer_scheme):
+    """(rows, tables) of K2's stretched-x/y form, in the kernels' axis order
+    (``kernel_order``): each axis' ``axis_rows``, with WENO5's tables where
+    the axis is stretched and a scheme is of the WENO5 family
+    (``TABLE_SCHEMES``), and whether each carries them."""
+    family = any(type(s) in TABLE_SCHEMES for s in (scheme, tracer_scheme))
+    rows, tables = [], []
+    for a in kernel_order(grid):
+        ax = grid._axes[a]
+        t = family and ax.topo is not FLAT and not ax.regular
+        rows.append(axis_rows(grid, a, t))
+        tables.append(int(t))
+    return rows, tables
 
 
 def check_tensor(name, t, shape, dtype, device):
@@ -284,7 +301,6 @@ def _launch(grid, scheme, tracer_scheme, u, v, w, tracers):
     ints, doubles = advection_args(grid, scheme, tracer_scheme, len(fields))
     for n, f in zip(names, fields):
         check_tensor(n, f, grid.total_shape, dtype, device)
-    zs, tables = z_rows_arg(grid, scheme, tracer_scheme)
     order = kernel_order(grid)
     flags = k2_clear_flags(grid, scheme, tracer_scheme, len(tracers))
     if flags is not None:
@@ -298,15 +314,27 @@ def _launch(grid, scheme, tracer_scheme, u, v, w, tracers):
     out = [torch.empty(grid.total_shape, dtype=dtype, device=device)
            for _ in names]
     walls = sum(1 << a for a in range(3) if grid.topology[order[a]] is BOUNDED)
-    fn = kernel_fn("fused_advective_tendencies", "fused_advective_tendencies",
-                   dtype, [ctypes.c_void_p] * 2 + ADVECTION_ARGTYPES
-                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_void_p])
+    # the metric rows: a stretched z's (or none) for the tiled forms, every
+    # axis' for the stretched-x/y form
+    if grid.hregular:
+        entry = "fused_advective_tendencies"
+        zs, tables = z_rows_arg(grid, scheme, tracer_scheme)
+        rows = (None if zs is None else zs.data_ptr(), tables)
+        rowtypes = [ctypes.c_void_p, ctypes.c_int]
+    else:
+        entry = "fused_advective_tendencies_stretched"
+        axes, tables = stretched_rows_arg(grid, scheme, tracer_scheme)
+        rows = (pointers(axes), (ctypes.c_int * 3)(*tables))
+        rowtypes = [ctypes.c_void_p] * 2
+    fn = kernel_fn("fused_advective_tendencies", entry, dtype,
+                   [ctypes.c_void_p] * 2 + ADVECTION_ARGTYPES + [ctypes.c_int]
+                   + rowtypes + [ctypes.c_void_p])
     launch("fused_advective_tendencies", fn, device,
            pointers(in_kernel_order(order, fields)),
-           pointers(in_kernel_order(order, out)), ints, doubles, walls,
-           None if zs is None else zs.data_ptr(), tables, flags)
+           pointers(in_kernel_order(order, out)), ints, doubles, walls, *rows,
+           flags)
     fused_advective_tendencies.launches += 1
+    fused_advective_tendencies.stretched_launches += int(not grid.hregular)
     return dict(zip(names, out))
 
 
@@ -327,8 +355,10 @@ def fused_advective_tendencies(grid, scheme, tracer_scheme, u, v, w, tracers):
                                                 u, v, w, tracers)
 
 
-#: kernel launches since the last reset (the plain version adds nothing)
+#: kernel launches since the last reset (the plain version adds nothing),
+#: and of them those of the stretched-x/y form
 fused_advective_tendencies.launches = 0
+fused_advective_tendencies.stretched_launches = 0
 
 
 # -- K3a: the shallow-water core -------------------------------------------------

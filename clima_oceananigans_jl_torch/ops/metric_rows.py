@@ -23,6 +23,11 @@ and kept in the grid's cache.
   its three coefficients; with ``to_centres``, the 24 rows of the
   to-centres tables after them, in the same order (the nonhydrostatic
   kernels K1 and K2 reconstruct w at centres for its own z flux).
+- ``axis_rows``: any axis' rows as ``z_rows`` lays out z's (Δᶜ and Δᶠ per
+  index, then, with ``tables``, its to-faces and to-centres WENO5 tables),
+  which K2's stretched-x/y form reads for each of its three axes (a
+  regular axis holds its one spacing in every entry, a Flat one its single
+  1);
 - ``y_tables``: a stretched y axis' WENO5 tables over with-halo y, laid
   out as ``z_rows`` lays out z's, without the spacing rows: the 24 rows of
   the to-faces tables, then the 24 of the to-centres tables (K4b's
@@ -143,5 +148,19 @@ def z_rows(grid, tables=False, to_centres=False):
         rows = [z_row(grid, grid.dz((C, C, loc))) for loc in (C, F)]
         for to_f in ((True, False) if to_centres else (True,)) if tables else ():
             rows += _table_rows(grid, 2, to_f)
+        grid._cache[key] = torch.stack(rows).contiguous()
+    return grid._cache[key]
+
+
+def axis_rows(grid, axis, tables=False):
+    """(2 or 50, with-halo extent) tensor of ``axis``' rows: Δᶜ and Δᶠ, then
+    with ``tables`` (a stretched axis) its WENO5 to-faces and to-centres
+    tables; on z the rows of ``z_rows(grid, tables, tables)``."""
+    key = ("axis_rows", axis, bool(tables))
+    if key not in grid._cache:
+        a = grid._axes[axis]
+        rows = [a.dc, a.df]
+        for to_f in (True, False) if tables else ():
+            rows += _table_rows(grid, axis, to_f)
         grid._cache[key] = torch.stack(rows).contiguous()
     return grid._cache[key]

@@ -186,8 +186,9 @@ def test_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
 def test_unsupported_configurations_raise():
     """What the port does not run is refused by name; a vertically
     implicit closure, closure tuples, callable-valued ν (which the JAX
-    constructor takes too), a stretched z and a bounded x construct, and
-    only a stretched x or y is refused among stretched grids."""
+    constructor takes too), a stretched z, a stretched x (its multigrid
+    pressure solve, the general AB2 branch, as the JAX gate has it) and a
+    bounded x construct."""
     grid = T.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1),
                              dtype=torch.float64, device=DEVICE)
     implicit = T.ScalarDiffusivity(nu=1e-3,
@@ -213,8 +214,9 @@ def test_unsupported_configurations_raise():
     stretched_x = T.RectilinearGrid(size=(8, 8, 8), x=np.arange(9) ** 1.5,
                                     y=(0, 1), z=(0, 1),
                                     dtype=torch.float64, device=DEVICE)
-    with pytest.raises(NotImplementedError, match="stretched x or y.*ROADMAP"):
-        T.NonhydrostaticModel(stretched_x, advection=T.WENO5())
+    mx = T.NonhydrostaticModel(stretched_x, advection=T.WENO5())
+    assert type(mx.pressure_solver).__name__ == "MultigridPoissonSolver"
+    assert not mx.fused_step and not mx.projection_kernels
     # a bounded x runs, on the general AB2 branch as the JAX gate has it
     bounded_x = T.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1),
                                   topology=(T.BOUNDED, T.PERIODIC, T.BOUNDED),

@@ -144,8 +144,17 @@ def test_kernel_arguments_refuse_what_the_kernels_do_not_take():
     stretched_x = T.RectilinearGrid(size=(8, 8, 8), x=np.arange(9) ** 1.5,
                                     y=(0, 1), z=(0, 1), dtype=torch.float64,
                                     device=DEVICE)
-    with pytest.raises(ValueError):
-        tft.advection_args(stretched_x, T.WENO5(), T.WENO5(), 4)
+    # a stretched x is taken (K2's stretched-x/y form, since the
+    # stencil-matrix slice): its rows carry WENO5's tables, the regular y
+    # and z theirs without
+    ints, _ = tft.advection_args(stretched_x, T.WENO5(), T.WENO5(), 4)
+    assert ints[0] == 4
+    rows, tables = tft.stretched_rows_arg(stretched_x, T.WENO5(), T.WENO5())
+    assert tables == [1, 0, 0]
+    assert [tuple(r.shape) for r in rows] == [(50, 14), (2, 14), (2, 14)]
+    _, tables = tft.stretched_rows_arg(stretched_x, T.CenteredSecondOrder(),
+                                       T.UpwindBiasedThirdOrder())
+    assert tables == [0, 0, 0]
     # WENO5 tracers under centred momentum take the WENO5 z bounds in the
     # tracers' set (the centred momentum reduces nowhere); a bounded x its
     # own

@@ -16,8 +16,9 @@ horizontally regular rectilinear grid; torch.fft and the port's Makhoul
 DCT against jnp.fft and jax.scipy's DCT) and its CG solve (lat-lon; both
 CGs run to 1e-13, their inner products summed in different orders);
 states pass between the packages both ways; what the port does not run
-yet (particles, PartialCellBottom, ...) raises at construction, naming its
-ROADMAP item, and seawater buoyancy and tilted gravity, which it runs,
+yet (PartialCellBottom, ...) raises at construction, naming its ROADMAP
+item (the matrix and multigrid free surfaces and particles, which it now
+runs, build), and seawater buoyancy and tilted gravity, which it runs,
 give the JAX model's pHY′.
 """
 import numpy as np
@@ -224,13 +225,19 @@ def test_what_waits_is_refused_naming_its_roadmap_item():
     g = tm.grid
     # the default free surface is implicit: CG on a lat-lon grid
     assert T.HydrostaticFreeSurfaceModel(g).free_surface.resolve_method(g) == "pcg"
-    for method in ("matrix", "multigrid", "fft"):  # fft needs a regular grid
-        with pytest.raises(NotImplementedError):
-            T.HydrostaticFreeSurfaceModel(
-                g, free_surface=T.ImplicitFreeSurface(solver_method=method))
+    for method in ("matrix", "multigrid"):  # built on the lat-lon grid
+        fs = T.ImplicitFreeSurface(solver_method=method)
+        m = T.HydrostaticFreeSurfaceModel(g, free_surface=fs)
+        assert m.free_surface.resolve_method(m.grid) == method
+    with pytest.raises(NotImplementedError):  # fft needs a regular grid
+        T.HydrostaticFreeSurfaceModel(
+            g, free_surface=T.ImplicitFreeSurface(solver_method="fft"))
     split = T.SplitExplicitFreeSurface(substeps=4)
-    for kw, item in ((dict(particles=object()), "particles.*item 7"),
-                     (dict(immersed_boundary=T.PartialCellBottom(-500.0)),
+    zero = torch.zeros(2, dtype=torch.float64)
+    m = T.HydrostaticFreeSurfaceModel(
+        g, free_surface=split, particles=T.LagrangianParticles(zero, zero, zero))
+    assert "particles" in m.initial_state()
+    for kw, item in ((dict(immersed_boundary=T.PartialCellBottom(-500.0)),
                       "PartialCellBottom.*item 7"),
                      (dict(tracer_advection=T.VectorInvariant()),
                       "VectorInvariant tracer advection is not ported")):

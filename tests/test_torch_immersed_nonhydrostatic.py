@@ -14,7 +14,7 @@ fewer an axis, the same numpy-seeded inputs through both packages:
 - the gates: the immersed model takes the general AB2 branch and the
   general projection (the JAX ``fused_step_ok`` and
   ``_fast_projection_ok``), K6 takes its fill groups, and
-  ``PartialCellBottom`` and particles are refused by name;
+  ``PartialCellBottom`` is refused by name, particles build;
 - the JAX suite's immersed nonhydrostatic cases (``tests/test_immersed.py``)
   in the port: the 16³ seamount stepped by quasi-AB2 and RK3 with WENO5,
   with centred advection (``advection=None``) and with ``PositiveWENO5``
@@ -204,7 +204,8 @@ def test_masks_match_at_every_location_of_the_model():
 
 def test_gates_and_refusals():
     """The general AB2 branch and the general projection, K6's fill
-    groups; PartialCellBottom and particles refused by name."""
+    groups; PartialCellBottom refused by name; particles (now ported) ride
+    in the immersed model's state."""
     tm = seamount_16(Lib(False), advection=T.WENO5(), tracers=("c",))
     jm = seamount_16(Lib(True), advection=J.WENO5(), tracers=("c",))
     assert isinstance(tm.grid, ImmersedGrid) and tm.grid.immersed is tm.immersed_boundary
@@ -216,8 +217,12 @@ def test_gates_and_refusals():
                           device=DEVICE, topology=("periodic", "periodic", "bounded"))
     with pytest.raises(NotImplementedError, match="PartialCellBottom.*item 7"):
         T.NonhydrostaticModel(g, immersed_boundary=T.PartialCellBottom(-0.5))
-    with pytest.raises(NotImplementedError, match="particles.*item 7"):
-        T.NonhydrostaticModel(g, particles=object())
+    zero = torch.zeros(2, dtype=torch.float64)
+    p = T.LagrangianParticles(zero + 0.5, zero + 0.5, zero + 0.5)
+    mp = seamount_16(Lib(False), tracers=("c",))
+    mp.particles = p
+    assert mp.initial_state()["particles"] is p
+    assert T.NonhydrostaticModel(g, particles=p).particles is p
 
 
 # -- the JAX suite's immersed cases ---------------------------------------------------

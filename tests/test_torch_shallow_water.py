@@ -303,12 +303,17 @@ def test_diagnostics_match():
 
 def test_forcing_and_particles_are_refused():
     """Forcing builds (it was refused before the shallow-water forcing came);
-    particles are still refused, by their ROADMAP item."""
+    so do particles (refused before they were ported), which ride in the
+    state and move with the flow."""
     _, tg = grids("pp")
     m = T.ShallowWaterModel(tg, forcing={"uh": lambda *a: 0.0})
     assert set(m.forcing) == {"uh"}
-    with pytest.raises(NotImplementedError, match="item 7"):
-        T.ShallowWaterModel(tg, particles=object())
+    x = torch.full((4,), 0.5, dtype=tg.dtype)
+    p = T.LagrangianParticles(x, x.clone(), torch.zeros_like(x))
+    mp = T.ShallowWaterModel(tg, particles=p)
+    state = mp.initial_state(uh=1.0)
+    assert state["particles"] is p
+    assert torch.all(mp.step(state, 0.01)["particles"].x > 0.5)
     three_d = T.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1), device=DEVICE)
     with pytest.raises(ValueError):
         T.ShallowWaterModel(three_d)
