@@ -14,7 +14,7 @@
                               [sass-regular --parent DIR] [ab2-bf16]
                               [front-slice] [gyre] [stretched-channel]
                               [implicit-free-surface] [multigrid-iterations]
-                              [--steps N]
+                              [k2xy [--parent DIR]] [--steps N]
 
 With no part named, runs them all. Prints the card's name and power
 limit first. Needs a card; without one it exits with an error.
@@ -228,8 +228,8 @@ limit first. Needs a card; without one it exits with an error.
   share of K5's time that is not the substeps' work.
 - ``stretched-channel``: ``chip_smoke.py``'s stretched channel (the JAX
   suite's fully stretched configuration at 256×256×128 fp64 with 2²⁰
-  particles) after its warm-up steps: ptxas's counts of every K2
-  instantiation (the stretched-x/y form among them), then K2 (its
+  particles) after its warm-up steps: ptxas's counts of every
+  instantiation of K2's stretched-x/y form (its own source), then K2 (its
   stretched-x/y form), the eager terms (``tendencies`` less K2),
   ``ab2_substep``, the projection's copies and pad with their K6 fills,
   the whole-array divergence and gradient, the multigrid pressure solve
@@ -248,6 +248,14 @@ limit first. Needs a card; without one it exits with an error.
   the first step's solve, solved with the model's tolerance 1e-9 and
   maxiter 200, then with maxiter 2000; the CG iterations, the final
   relative residual and the seconds of each.
+- ``k2xy``: K2's stretched-x/y form alone, as the port builds it, in the
+  builds of ``K2XY_VARIANTS`` (other threads a block) and, with
+  ``--parent DIR`` (an older tree's ``csrc``), as that tree builds it, all
+  built at once with ptxas's registers and spills and each build's
+  seconds; then on the stretched channel's initial fields and on every
+  case of ``chip_smoke.K2XY_CASES``, each build timed in turns by CUDA
+  events and held bit for bit against the form as built. Without
+  ``--parent`` it runs only when named.
 """
 from __future__ import annotations
 
@@ -272,6 +280,7 @@ from clima_oceananigans_jl_torch.models import shallow_water as swm
 from clima_oceananigans_jl_torch.models.free_surface import (ImplicitFreeSurface,
                                                              SplitExplicitFreeSurface)
 from clima_oceananigans_jl_torch.ops import _build
+from clima_oceananigans_jl_torch.ops import fused_tendencies as tft
 from clima_oceananigans_jl_torch.solvers import stencil_matrix as tsm
 
 import chip_smoke
@@ -491,6 +500,15 @@ def ptxas(source, label, echo=True):
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
                f"{tmp}/lib.so", str(_build.CSRC / f"{source}.cu")]
         log = subprocess.run(cmd, capture_output=True, text=True, check=True).stderr
+    lines = ptxas_lines(log, source, label)
+    if echo:
+        print("\n".join(lines))
+    return lines
+
+
+def ptxas_lines(log, source, label):
+    """One line for each instantiation's registers, stack and spills in the
+    ``-Xptxas -v`` log of a build of ``csrc/<source>.cu``, and their count."""
     entry, props, rows = None, "", []
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -507,8 +525,6 @@ def ptxas(source, label, echo=True):
     lines = [f"ptxas {label} {name.replace(source + '_kernel', 'kernel')}: {used}; {props}"
              for name, (_, used, props) in zip(names, rows)]
     lines.append(f"ptxas {label}: {len(rows)} instantiations")
-    if echo:
-        print("\n".join(lines))
     return lines
 
 
@@ -1198,7 +1214,7 @@ def gyre(steps):
 def stretched_channel(steps):
     """chip_smoke.py's stretched channel after its warm-up steps, broken
     down (module docstring)."""
-    ptxas("fused_advective_tendencies", "K2")
+    ptxas(tft.STRETCHED_XY_LIB, "K2XY")
     model, state = chip_smoke.channel_model()
     c = chip_smoke.CHANNEL
     for _ in range(c["warmup"]):
@@ -1239,6 +1255,89 @@ def stretched_channel(steps):
               step, state, events, patches, steps, inner)
     print(f"stretched channel: {tsm.SOLVES['iterations'] / tsm.SOLVES['solves']:.1f} "
           f"multigrid-CG iterations a solve over {tsm.SOLVES['solves']} solves")
+
+
+#: builds of K2's stretched-x/y form that ``k2xy`` times beside the one the
+#: port builds: its threads a block in fp32 and fp64 (``XY_THREADS_F32``,
+#: ``XY_THREADS_F64``: 768 and 512 as built)
+K2XY_VARIANTS = {"fp32 1024, fp64 1024 threads": ("-DXY_THREADS_F32=1024",
+                                                  "-DXY_THREADS_F64=1024"),
+                 "fp32 512, fp64 768 threads": ("-DXY_THREADS_F32=512",
+                                                "-DXY_THREADS_F64=768")}
+
+
+def build_library(source, flags=()):
+    """``source`` (a .cu file) built as the port builds it plus ``flags`` and
+    ``-Xptxas -v`` into a temporary directory; returns (the library's path,
+    the build's log, its seconds)."""
+    t0 = time.perf_counter()
+    out = Path(tempfile.mkdtemp(prefix="k2xy-")) / "lib.so"
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-Xptxas", "-v", "-o", str(out),
+           str(source)]
+    log = subprocess.run(cmd, capture_output=True, text=True, check=True).stderr
+    return out, log, time.perf_counter() - t0
+
+
+def k2xy(steps, parent=None):
+    """K2's stretched-x/y form alone: ptxas's counts of each build (as the
+    port builds it, ``K2XY_VARIANTS`` and, with ``--parent DIR``, the parent
+    tree's ``fused_advective_tendencies.cu``, whose entry of the same name
+    takes the same arguments), all built at once; then on the stretched
+    channel's initial fields (``chip_smoke.channel_model``: 256×256×128 fp64,
+    u, v, w, c, WENO5 with x and z tables) and on each of
+    ``chip_smoke.K2XY_CASES``, each build in turns (as built, the others,
+    then back), every one held bit for bit against the form as built over
+    the whole with-halo outputs, by CUDA events."""
+    import concurrent.futures
+    src = _build.CSRC / f"{tft.STRETCHED_XY_LIB}.cu"
+    builds = {"as built": (src, ()), **{k: (src, f) for k, f in K2XY_VARIANTS.items()}}
+    if parent is not None:
+        builds["parent"] = (Path(parent) / "fused_advective_tendencies.cu", ())
+    libs = {}
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as ex:
+        futures = {k: ex.submit(build_library, *b) for k, b in builds.items()}
+        for k, fut in futures.items():
+            path, log, secs = fut.result()
+            print(f"k2xy build {k}: {secs:.1f} s")
+            source = Path(builds[k][0]).stem
+            print("\n".join(line for line in ptxas_lines(log, source, f"K2XY {k}")
+                            if "stretched" in line or "instantiations" in line))
+            libs[k] = ctypes.CDLL(str(path))
+    load = _build.load
+
+    def call(lib, args):
+        _build.load = lambda name: lib if name == tft.STRETCHED_XY_LIB else load(name)
+        try:
+            return tft.fused_advective_tendencies(*args)
+        finally:
+            _build.load = load
+
+    def cases():
+        model, state = chip_smoke.channel_model(particles=False)
+        sol = state["solution"]
+        yield ("the stretched channel's initial fields 256x256x128 fp64",
+               (model.grid, model.advection, model.tracer_advection, sol["u"], sol["v"],
+                sol["w"], {"c": sol["c"]}))
+        del model, state, sol
+        for label, *case in chip_smoke.K2XY_CASES:
+            yield label, chip_smoke.k2xy_args(*case)
+
+    order = list(libs) + list(libs)[::-1]
+    for label, args in cases():
+        ref = call(libs["as built"], args)
+        times = collections.defaultdict(list)
+        for k in order:
+            got = call(libs[k], args)
+            for n in ref:
+                if not torch.equal(got[n], ref[n]):
+                    raise AssertionError(f"k2xy {label}: {k} differs from the form as built "
+                                         f"in {n}")
+            times[k].append(chip_smoke.cuda_ms(lambda: call(libs[k], args), 10))
+        print(f"k2xy {label}: " + ", ".join(
+            f"{k} {' / '.join(f'{t:.4f}' for t in ts)} ms" for k, ts in times.items())
+              + f" (CUDA events, in turns; {chip_smoke.card_line()})")
+        del args, ref
+        torch.cuda.empty_cache()
 
 
 #: the stretched channel's sizes at which ``multigrid_iterations`` solves
@@ -1752,7 +1851,7 @@ PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps), "ab2-bf16": ab2_bf16
          "near-global-ub5": lambda steps: scheme_path("near-global UB5", steps),
          "ptxas-schemes": ptxas_schemes, "sass-regular": sass_regular,
          "front-slice": front_slice, "gyre": gyre,
-         "stretched-channel": stretched_channel,
+         "stretched-channel": stretched_channel, "k2xy": k2xy,
          "implicit-free-surface": implicit_free_surface,
          "multigrid-iterations": multigrid_iterations}
 
@@ -1769,7 +1868,7 @@ def main(argv):
         i = argv.index("--parent")
         parent = argv[i + 1]
         argv = argv[:i] + argv[i + 2:]
-    parts = argv or [p for p in PARTS if p != "sass-regular" or parent]
+    parts = argv or [p for p in PARTS if p not in ("sass-regular", "k2xy") or parent]
     for p in parts:
         if p not in PARTS:
             raise SystemExit(f"unknown part {p!r}: choose from {list(PARTS)}")
@@ -1784,6 +1883,8 @@ def main(argv):
                 raise SystemExit("sass-regular needs --parent DIR (the parent "
                                  "tree's clima_oceananigans_jl_torch/csrc)")
             sass_regular(steps, parent)
+        elif p == "k2xy":
+            k2xy(steps, parent)
         else:
             PARTS[p](steps)
 

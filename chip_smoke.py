@@ -9,6 +9,7 @@ on the card, in phases; each prints one line or a few:
    line of their own; no card → error;
 2. build: compiles ``csrc/fused_ab2_advance.cu`` (K1),
    ``csrc/fused_advective_tendencies.cu`` (K2),
+   ``csrc/fused_advective_tendencies_xy.cu`` (K2's stretched-x/y form),
    ``csrc/fused_shallow_water_tendencies.cu`` (K3a),
    ``csrc/fused_projection.cu`` (K3b, K3c),
    ``csrc/hydrostatic_columns.cu`` (K4a),
@@ -394,8 +395,10 @@ Since the stencil-matrix slice it ends (after phase 42) with
 
 43. K2's stretched-x/y form against its plain version (``K2XY_CASES``): a
    stretched x, y, x and y, x and z, Periodic and Bounded x, a (Bounded,
-   Flat, Bounded) grid, WENO5, UB3, PositiveWENO5 and C4, two immersed
-   cases, fp32 and fp64, random fields, bit for bit over NaN-filled
+   Flat, Bounded) grid, every scheme (WENO5, UB3, PositiveWENO5, C4, UB1,
+   UB5, BoundsPreservingWENO5) and WENO5's two bf16 options, two immersed
+   cases, one whose extents are off the 8×12 tiles with nz below one
+   chunk, fp32 and fp64, random fields, bit for bit over NaN-filled
    outputs, each timed against its bound (the form's record's ``forms``);
 44. ``stretched channel`` (``CHANNEL``): the JAX suite's fully stretched
    configuration at 256×256×128 fp64 with WENO5, a tracer and 2²⁰
@@ -440,6 +443,7 @@ outside the repository fails at once.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -551,7 +555,7 @@ WRAPPERS = {K1: fused_ab2_advance, K2: fused_advective_tendencies,
             K4B: fused_hydrostatic_tendencies, K5: fused_substep_eta,
             K6: fused_fill_halos, T1: solve_batched_tridiagonal}
 SOURCES = {K1: "fused_ab2_advance", K2: "fused_advective_tendencies",
-           K2XY: "fused_advective_tendencies",
+           K2XY: "fused_advective_tendencies_xy",
            K3A: "fused_shallow_water_tendencies", K3B: "fused_projection",
            K3C: "fused_projection", K4A: "hydrostatic_columns",
            K4B: "fused_hydrostatic_tendencies", K5: "fused_substep_eta",
@@ -4918,25 +4922,41 @@ IFS_VALIDATION = dict(N=64)
 #: and the ¼° flagship, each with 2¹⁶ particles, 3 steps
 PARTICLES_HOLD = dict(n_sw=1024, particles=2 ** 16, steps=3)
 #: K2's stretched-x/y form's holds: (label, stretched axes, topology, size,
-#: dtype, momentum, tracer scheme, immersed)
+#: dtype, momentum, tracer scheme, immersed); each scheme a class or a
+#: partial that makes it
+PW01 = functools.partial(PositiveWENO5, bounds=(0.0, 1.0))
 K2XY_CASES = (
     ("x P,P,B 100x77x45 fp32 WENO5/WENO5", "x", (PERIODIC, PERIODIC, BOUNDED),
      (100, 77, 45), torch.float32, WENO5, WENO5, False),
     ("x B,P,B 100x77x45 fp64 WENO5/UB3", "x", (BOUNDED, PERIODIC, BOUNDED),
      (100, 77, 45), torch.float64, WENO5, UpwindBiasedThirdOrder, False),
     ("y P,B,B 96x130x40 fp32 UB3/PositiveWENO5", "y", (PERIODIC, BOUNDED, BOUNDED),
-     (96, 130, 40), torch.float32, UpwindBiasedThirdOrder, PositiveWENO5, False),
+     (96, 130, 40), torch.float32, UpwindBiasedThirdOrder, PW01, False),
     ("x+y B,B,B 90x90x36 fp64 C4/WENO5", "xy", (BOUNDED, BOUNDED, BOUNDED),
      (90, 90, 36), torch.float64, CenteredFourthOrder, WENO5, False),
     ("x+z B,P,B 96x64x48 fp32 WENO5/PositiveWENO5", "xz", (BOUNDED, PERIODIC, BOUNDED),
-     (96, 64, 48), torch.float32, WENO5, PositiveWENO5, False),
+     (96, 64, 48), torch.float32, WENO5, PW01, False),
     ("x B,F,B 512x1x256 fp64 WENO5/WENO5", "x", (BOUNDED, FLAT, BOUNDED),
      (512, 1, 256), torch.float64, WENO5, WENO5, False),
     ("x B,P,B 128x96x48 fp32 immersed WENO5/WENO5", "x", (BOUNDED, PERIODIC, BOUNDED),
      (128, 96, 48), torch.float32, WENO5, WENO5, True),
     ("x B,P,B 128x96x48 fp64 immersed WENO5/PositiveWENO5", "x",
-     (BOUNDED, PERIODIC, BOUNDED), (128, 96, 48), torch.float64, WENO5, PositiveWENO5,
-     True),
+     (BOUNDED, PERIODIC, BOUNDED), (128, 96, 48), torch.float64, WENO5, PW01, True),
+    ("x+y B,B,B 90x90x36 fp32 UB1/UB1", "xy", (BOUNDED, BOUNDED, BOUNDED),
+     (90, 90, 36), torch.float32, UpwindBiasedFirstOrder, UpwindBiasedFirstOrder, False),
+    ("x+z B,P,B 96x64x48 fp64 UB5/UB5", "xz", (BOUNDED, PERIODIC, BOUNDED),
+     (96, 64, 48), torch.float64, UpwindBiasedFifthOrder, UpwindBiasedFifthOrder, False),
+    ("y P,B,B 96x130x40 fp64 BP/BP", "y", (PERIODIC, BOUNDED, BOUNDED),
+     (96, 130, 40), torch.float64, BoundsPreservingWENO5, BoundsPreservingWENO5, False),
+    ("x+z B,P,B 96x64x48 fp32 WENO5 fast_bf16", "xz", (BOUNDED, PERIODIC, BOUNDED),
+     (96, 64, 48), torch.float32, functools.partial(WENO5, fast_bf16=True),
+     functools.partial(WENO5, fast_bf16=True), False),
+    ("x B,B,B 100x77x45 fp32 WENO5 bf16_smoothness", "x", (BOUNDED, BOUNDED, BOUNDED),
+     (100, 77, 45), torch.float32, functools.partial(WENO5, bf16_smoothness=True),
+     functools.partial(WENO5, bf16_smoothness=True), False),
+    ("x+y+z B,B,B 37x29x11 fp64 WENO5/UB3 (partial tiles, one chunk)", "xyz",
+     (BOUNDED, BOUNDED, BOUNDED), (37, 29, 11), torch.float64, WENO5,
+     UpwindBiasedThirdOrder, False),
 )
 
 
@@ -5116,33 +5136,38 @@ def phase_stretched_channel():
     return launches, reading
 
 
+def k2xy_args(stretch, topology, size, dtype, momentum, tracer, immersed):
+    """K2's arguments on a case of ``K2XY_CASES``: random velocities, tracers
+    c0 and c1 in [−0.1, 1.1], masked over a bottom where ``immersed``."""
+    grid = stretched_grid(stretch, topology, size, dtype)
+    model = NonhydrostaticModel(
+        grid, advection=momentum(), tracers=("c0", "c1"), tracer_advection=tracer(),
+        immersed_boundary=(GridFittedBottom(lambda x, y: -0.8 + 0.3 * torch.exp(
+            -x ** 2 / 0.1)) if immersed else None))
+    g = model.grid
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    sol = {n: torch.randn(g.total_shape, generator=gen, dtype=dtype, device=DEVICE)
+           for n in "uvw"}
+    sol.update({n: 1.2 * torch.rand(g.total_shape, generator=gen, dtype=dtype,
+                                    device=DEVICE) - 0.1 for n in ("c0", "c1")})
+    if immersed:
+        sol = model.immersed_boundary.mask_state(model, {"solution": sol})["solution"]
+    return (g, model.advection, model.tracer_advection, sol["u"], sol["v"], sol["w"],
+            {n: sol[n] for n in ("c0", "c1")})
+
+
 def phase_k2xy_holds():
     """K2's stretched-x/y form against its plain version (``K2XY_CASES``):
     a stretched x, y, x and y, x and z, on Periodic and Bounded x, a Flat y,
-    WENO5, UB3, PositiveWENO5 and C4, immersed, fp32 and fp64, random
-    fields (tracers in [−0.1, 1.1], masked over a bottom), bit for bit over
-    NaN-filled outputs, each timed; returns the forms' records."""
+    every scheme and WENO5's bf16 options, immersed, partial tiles, fp32 and
+    fp64, random fields (tracers in [−0.1, 1.1], masked over a bottom), bit
+    for bit over NaN-filled outputs, each timed; returns the forms'
+    records."""
     forms = []
-    for label, stretch, topology, size, dtype, momentum, tracer, immersed in K2XY_CASES:
-        grid = stretched_grid(stretch, topology, size, dtype)
-        model = NonhydrostaticModel(
-            grid, advection=momentum(), tracers=("c0", "c1"),
-            tracer_advection=(tracer(bounds=(0.0, 1.0)) if tracer is PositiveWENO5
-                              else tracer()),
-            immersed_boundary=(GridFittedBottom(lambda x, y: -0.8 + 0.3 * torch.exp(
-                -x ** 2 / 0.1)) if immersed else None))
-        g = model.grid
-        gen = torch.Generator(device=DEVICE).manual_seed(21)
-        sol = {n: torch.randn(g.total_shape, generator=gen, dtype=dtype, device=DEVICE)
-               for n in "uvw"}
-        sol.update({n: 1.2 * torch.rand(g.total_shape, generator=gen, dtype=dtype,
-                                        device=DEVICE) - 0.1 for n in ("c0", "c1")})
-        if immersed:
-            sol = model.immersed_boundary.mask_state(model, {"solution": sol})["solution"]
-        args = (g, model.advection, model.tracer_advection, sol["u"], sol["v"], sol["w"],
-                {n: sol[n] for n in ("c0", "c1")})
-        forms.append(form_record("hold", label, *k2xy_reading(label, args, dtype)))
-        del model, g, sol, args
+    for label, *case in K2XY_CASES:
+        args = k2xy_args(*case)
+        forms.append(form_record("hold", label, *k2xy_reading(label, args, case[3])))
+        del args
         torch.cuda.empty_cache()
     return forms
 

@@ -51,9 +51,8 @@
 // compile centred, WENO5 and UB5 alone, as they did before those schemes
 // came).
 //
-// A grid stretched in x or y runs the stretched-x/y form below (one
-// run-time kernel a type: every axis' per-index rows, a thread a point and
-// field, no shared memory), which the JAX kernel leaves to jnp.
+// A grid stretched in x or y runs K2's stretched-x/y form, a source of its
+// own (fused_advective_tendencies_xy.cu), which the JAX kernel leaves to jnp.
 //
 // An immersed grid runs the IM instantiations: each flux reads the clear
 // flag of its flux location (the uint8 tensors of
@@ -216,74 +215,6 @@ static int launch(const void* const* psi, void* const* out, const int* ia,
             : launch_im<T, false, false, false>(A, im, any, stream);
 }
 
-// ---- the stretched-x/y form --------------------------------------------------
-//
-// A grid stretched in x or y (the nonhydrostatic model's multigrid-solved
-// grids) runs one run-time form: the x, y and z rows of
-// ops/metric_rows.py::axis_rows in the kernel's axis order give each
-// point its face areas and volume and each stretched axis' fluxes their
-// two-sided table form (weno5_advection.cuh::div_rows), every scheme with
-// its near-wall bounds, WENO5's bf16 options, the clear flags (null where
-// there are none), the wall faces and the Flat layout (stride 0) read at
-// run time. One thread a with-halo point and field (blockIdx.y the field):
-// an interior point or the field's wall face gets -div from div_rows, every
-// other halo point 0, so the wrapper allocates with torch.empty. A plain
-// design: each face flux is computed for both cells beside it (6 transports
-// a point and field where advect_tile computes 3.24), from global memory
-// through L1; it makes no use of shared memory.
-constexpr int XY_THREADS = 128;
-
-template <typename T>
-struct StretchedArgs {
-  TendencyArgs<T> t;
-  AxisRows<T> rows;
-};
-
-template <typename T>
-__global__ void __launch_bounds__(XY_THREADS)
-stretched_xy_tendencies_kernel(const __grid_constant__ StretchedArgs<T> S) {
-  const Advection<T>& D = S.t.adv;
-  const int X = D.nx + 2 * D.hx, Y = D.ny + 2 * D.hy, Z = D.nz + 2 * D.hz;
-  const int64_t n = (int64_t)X * Y * Z;
-  const int f = blockIdx.y;
-  const TendencyOut<T, true, false, true, true, true> walls{S.t};
-  for (int64_t p = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; p < n;
-       p += (int64_t)gridDim.x * blockDim.x) {
-    const int k = (int)(p % Z);
-    const int64_t r = p / Z;
-    const int j = (int)(r % Y), i = (int)(r / Y);
-    const bool in = i >= D.hx && i < D.hx + D.nx && j >= D.hy && j < D.hy + D.ny
-                    && k >= D.hz && k < D.hz + D.nz;
-    const bool wall = f < 3 && walls.wall_of(i, j, k) == f;
-    S.t.out[f][p] = in || wall ? -div_rows<true>(D, S.rows, f, i, j, k, wall) : T(0);
-  }
-}
-
-template <typename T>
-static int launch_stretched(const void* const* psi, void* const* out, const int* ia,
-                            const double* da, int walls, const void* const* rows,
-                            const int* tables, const void* const* clear, void* stream) {
-  StretchedArgs<T> S;
-  TendencyArgs<T>& A = S.t;
-  if (!set_advection(A.adv, psi, ia, da)) return (int)cudaErrorInvalidValue;
-  for (int f = 0; f < MAX_FIELDS; ++f)
-    A.out[f] = f < A.adv.nf ? static_cast<T*>(out[f]) : nullptr;
-  A.walls = walls;
-  for (int f = 0; f < 4; ++f)
-    A.adv.clear[f] = clear != nullptr ? static_cast<const uint8_t*>(clear[f]) : nullptr;
-  for (int a = 0; a < 3; ++a) {
-    S.rows.r[a] = static_cast<const T*>(rows[a]);
-    S.rows.tables[a] = tables[a];
-  }
-  if (A.adv.nx <= 0 || A.adv.ny <= 0 || A.adv.nz <= 0) return 0;
-  const int64_t n = (int64_t)(A.adv.nx + 2 * A.adv.hx) * (A.adv.ny + 2 * A.adv.hy)
-                    * (A.adv.nz + 2 * A.adv.hz);
-  const int64_t blocks = (n + XY_THREADS - 1) / XY_THREADS;
-  const dim3 grid((unsigned)(blocks < (1 << 30) ? blocks : (1 << 30)), (unsigned)A.adv.nf);
-  stretched_xy_tendencies_kernel<T><<<grid, XY_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(S);
-  return (int)cudaGetLastError();
-}
-
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success). `psi` and
@@ -307,24 +238,6 @@ int fused_advective_tendencies_f64(const void* const* psi, void* const* out,
                                    const void* zs, int tables, const void* const* clear,
                                    void* stream) {
   return launch<double>(psi, out, ia, da, walls, zs, tables, clear, stream);
-}
-
-// The stretched-x/y form: the arguments of fused_advective_tendencies_f32
-// but the z rows, with `rows` a host array of the three kernel axes' row
-// tensors (ops/metric_rows.py::axis_rows, in the kernel's axis order) and
-// `tables` whether each carries WENO5's tables.
-int fused_advective_tendencies_stretched_f32(const void* const* psi, void* const* out,
-                                             const int* ia, const double* da, int walls,
-                                             const void* const* rows, const int* tables,
-                                             const void* const* clear, void* stream) {
-  return launch_stretched<float>(psi, out, ia, da, walls, rows, tables, clear, stream);
-}
-
-int fused_advective_tendencies_stretched_f64(const void* const* psi, void* const* out,
-                                             const int* ia, const double* da, int walls,
-                                             const void* const* rows, const int* tables,
-                                             const void* const* clear, void* stream) {
-  return launch_stretched<double>(psi, out, ia, da, walls, rows, tables, clear, stream);
 }
 
 }  // extern "C"

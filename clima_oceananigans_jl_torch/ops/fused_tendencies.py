@@ -6,8 +6,9 @@ Counterpart of ``clima_oceananigans_jl_tpu/ops/fused_tendencies.py``:
   w and every tracer of the nonhydrostatic model in one launch
   (``csrc/fused_advective_tendencies.cu``; on a stretched z its stretched
   instantiation, with per-level Δz and the WENO5 family's tables as z
-  rows; on a grid stretched in x or y its stretched-x/y form, with the
-  rows of every axis (``ops/metric_rows.py::axis_rows``), counted apart in
+  rows; on a grid stretched in x or y its stretched-x/y form, a source of
+  its own (``csrc/fused_advective_tendencies_xy.cu``) with the rows of
+  every axis (``ops/metric_rows.py::axis_rows``), counted apart in
   ``fused_advective_tendencies.stretched_launches``; on an immersed grid its IM instantiations, with the clear flags of
   ``immersed/immersed.py::clear_flags``; ``PositiveWENO5``'s limiter, for
   momentum or tracers, in its ANY instantiations), with
@@ -294,6 +295,10 @@ def k2_clear_flags(grid, scheme, tracer_scheme, ntracers):
     return flags
 
 
+#: the source of K2's stretched-x/y form (``csrc/<name>.cu``)
+STRETCHED_XY_LIB = "fused_advective_tendencies_xy"
+
+
 def _launch(grid, scheme, tracer_scheme, u, v, w, tracers):
     names = ("u", "v", "w") + tuple(tracers)
     fields = [u, v, w] + list(tracers.values())
@@ -315,18 +320,18 @@ def _launch(grid, scheme, tracer_scheme, u, v, w, tracers):
            for _ in names]
     walls = sum(1 << a for a in range(3) if grid.topology[order[a]] is BOUNDED)
     # the metric rows: a stretched z's (or none) for the tiled forms, every
-    # axis' for the stretched-x/y form
+    # axis' for the stretched-x/y form (a source of its own)
     if grid.hregular:
-        entry = "fused_advective_tendencies"
+        lib = entry = "fused_advective_tendencies"
         zs, tables = z_rows_arg(grid, scheme, tracer_scheme)
         rows = (None if zs is None else zs.data_ptr(), tables)
         rowtypes = [ctypes.c_void_p, ctypes.c_int]
     else:
-        entry = "fused_advective_tendencies_stretched"
+        lib, entry = STRETCHED_XY_LIB, "fused_advective_tendencies_stretched"
         axes, tables = stretched_rows_arg(grid, scheme, tracer_scheme)
         rows = (pointers(axes), (ctypes.c_int * 3)(*tables))
         rowtypes = [ctypes.c_void_p] * 2
-    fn = kernel_fn("fused_advective_tendencies", entry, dtype,
+    fn = kernel_fn(lib, entry, dtype,
                    [ctypes.c_void_p] * 2 + ADVECTION_ARGTYPES + [ctypes.c_int]
                    + rowtypes + [ctypes.c_void_p])
     launch("fused_advective_tendencies", fn, device,

@@ -6,16 +6,19 @@ float64:
 
 - K2's plain version (the reference of its stretched-x/y form) against the
   JAX ``div_*`` bit for bit (op by op) on a stretched x, y and both, with
-  WENO5, PositiveWENO5, BoundsPreservingWENO5, UB3, UB5 and C4, on
+  WENO5, PositiveWENO5, BoundsPreservingWENO5, UB1, UB3, UB5 and C4, on
   (Bounded, Flat, Bounded) too: the two-sided table form along the
   stretched axis, the per-index face areas and volumes;
 - the nonhydrostatic model on a stretched x, a stretched y and both: 3
   quasi-AB2 steps within ``RTOL`` of max|field| of the jitted JAX model,
   max|∇·u| < 1e-7.
 
-The ``cuda`` cases hold K2's stretched-x/y form against its plain version
-on the card bit for bit over NaN-filled outputs (``python -m pytest
---noconftest -m cuda tests/test_torch_stretched_xy.py``).
+The ``cuda`` cases hold K2's stretched-x/y form
+(``csrc/fused_advective_tendencies_xy.cu``) against its plain version on
+the card bit for bit over NaN-filled outputs, on the interior, each
+velocity's wall face and the zero halos: every scheme, WENO5's bf16
+options, the Flat layout, the clear flags, partial tiles (``python -m
+pytest --noconftest -m cuda tests/test_torch_stretched_xy.py``).
 """
 import numpy as np
 import pytest
@@ -66,7 +69,9 @@ K2_PLAIN = {"x WENO5": ("x", ("bounded", "periodic", "bounded"), "WENO5", "WENO5
                      "PositiveWENO5"),
             "xyz BP": ("xyz", ("bounded", "bounded", "bounded"), "CenteredFourthOrder",
                        "BoundsPreservingWENO5"),
-            "x BFB": ("x", ("bounded", "flat", "bounded"), "WENO5", "UpwindBiasedFifthOrder")}
+            "x BFB": ("x", ("bounded", "flat", "bounded"), "WENO5", "UpwindBiasedFifthOrder"),
+            "xy UB1": ("xy", ("bounded", "bounded", "bounded"), "UpwindBiasedFirstOrder",
+                       "UpwindBiasedFirstOrder")}
 
 
 @pytest.mark.parametrize("case", list(K2_PLAIN))
@@ -153,7 +158,8 @@ def nan_cache(shape, dtype, n=8):
 
 
 #: K2's stretched-x/y form on the card: (stretched axes, topology, size,
-#: momentum, tracer scheme, immersed)
+#: momentum, tracer scheme, immersed); a scheme is a name, or a name and
+#: its keywords
 CUDA_CASES = {
     "x P": ("x", ("periodic", "periodic", "bounded"), (37, 26, 19), "WENO5", "WENO5", False),
     "x B": ("x", ("bounded", "periodic", "bounded"), (37, 26, 19), "WENO5", "UpwindBiasedThirdOrder", False),
@@ -162,7 +168,27 @@ CUDA_CASES = {
     "xz": ("xz", ("bounded", "periodic", "bounded"), (33, 20, 21), "WENO5", "PositiveWENO5", False),
     "x BFB": ("x", ("bounded", "flat", "bounded"), (45, 1, 23), "WENO5", "WENO5", False),
     "x immersed": ("x", ("bounded", "periodic", "bounded"), (32, 24, 16), "WENO5", "WENO5", True),
+    "xy UB1": ("xy", ("bounded", "bounded", "bounded"), (30, 27, 18), "UpwindBiasedFirstOrder",
+               "UpwindBiasedFirstOrder", False),
+    "xz UB5": ("xz", ("bounded", "periodic", "bounded"), (33, 20, 21), "UpwindBiasedFifthOrder",
+               "UpwindBiasedFifthOrder", False),
+    "y BP": ("y", ("periodic", "bounded", "bounded"), (29, 33, 17), "BoundsPreservingWENO5",
+             "BoundsPreservingWENO5", False),
+    "xz fast_bf16": ("xz", ("bounded", "periodic", "bounded"), (33, 20, 21),
+                     ("WENO5", {"fast_bf16": True}), ("WENO5", {"fast_bf16": True}), False),
+    "x bf16_smoothness": ("x", ("bounded", "bounded", "bounded"), (37, 26, 19),
+                          ("WENO5", {"bf16_smoothness": True}),
+                          ("WENO5", {"bf16_smoothness": True}), False),
+    "xyz partial tiles": ("xyz", ("bounded", "bounded", "bounded"), (13, 14, 5), "WENO5",
+                          "UpwindBiasedThirdOrder", False),
 }
+
+
+def make_scheme(spec):
+    """The port's scheme of a ``CUDA_CASES`` entry: a name, or a name and its
+    keywords."""
+    name, kw = (spec, {}) if isinstance(spec, str) else spec
+    return getattr(T, name)(**kw)
 
 
 @pytest.mark.cuda
@@ -185,13 +211,13 @@ def test_cuda_k2_stretched_form_matches_plain_version(case, dtype):
         topology=topology, dtype=dt, device="cuda")
     if immersed:  # the model's with-halo ImmersedGrid over a ridge
         grid = T.NonhydrostaticModel(
-            grid, advection=getattr(T, mom)(), tracers=("c0", "c1"),
+            grid, advection=make_scheme(mom), tracers=("c0", "c1"),
             immersed_boundary=T.GridFittedBottom(
                 lambda x, y: -0.8 + 0.3 * torch.exp(-x ** 2 / 0.1))).grid
     rng = np.random.default_rng(3)
     f = [torch.as_tensor(rng.standard_normal(grid.total_shape), dtype=dt, device="cuda")
          for _ in range(5)]
-    args = (grid, getattr(T, mom)(), getattr(T, tr)(), f[0], f[1], f[2],
+    args = (grid, make_scheme(mom), make_scheme(tr), f[0], f[1], f[2],
             {"c0": f[3], "c1": f[4]})
     nan_cache(grid.total_shape, dt)
     before = tft.fused_advective_tendencies.stretched_launches
@@ -201,3 +227,12 @@ def test_cuda_k2_stretched_form_matches_plain_version(case, dtype):
     for name in got:
         g, r = got[name], ref[name]
         assert torch.equal(grid.interior(g), grid.interior(r)), name
+        rest = g.clone()
+        rest[grid.interior_slices] = 0
+        axis = {"u": 0, "v": 1, "w": 2}.get(name)
+        if axis is not None and topology[axis] == "bounded":
+            face = [slice(h, h + m) for h, m in zip(grid.halo, grid.shape)]
+            face[axis] = grid.halo[axis] + grid.shape[axis]
+            assert torch.equal(g[tuple(face)], r[tuple(face)]), f"{name}'s wall face"
+            rest[tuple(face)] = 0
+        assert not rest.isnan().any() and not rest.any(), f"{name}: a halo point is not 0"
