@@ -14,7 +14,7 @@
                               [sass-regular --parent DIR] [ab2-bf16]
                               [front-slice] [gyre] [stretched-channel]
                               [implicit-free-surface] [multigrid-iterations]
-                              [k2xy [--parent DIR]] [--steps N]
+                              [k2xy [--parent DIR]] [cubed-sphere] [--steps N]
 
 With no part named, runs them all. Prints the card's name and power
 limit first. Needs a card; without one it exits with an error.
@@ -256,6 +256,14 @@ limit first. Needs a card; without one it exits with an error.
   case of ``chip_smoke.K2XY_CASES``, each build timed in turns by CUDA
   events and held bit for bit against the form as built. Without
   ``--parent`` it runs only when named.
+- ``cubed-sphere``: ``chip_smoke.py``'s ``Galewsky C256``
+  (eddying_aquaplanet.py at N = 256 fp64, its Δt) after 2 warm-up steps:
+  CUDA events around the halo exchange (``exchange``, four a step), the
+  vmapped tendencies (``tendencies``, three) and the RK3 update
+  (``rk3_update``, three), the rest (the clock, dict work, Python) apart,
+  of the eager step (``cuda_graphs`` off); then the profiler's idle
+  share; then the step replayed from its CUDA graph, timed and profiled
+  the same way.
 """
 from __future__ import annotations
 
@@ -533,7 +541,7 @@ def ptxas_schemes(steps):
     four kernels that take the advection schemes (K1, K2, K3a, K4b), built
     at once, one nvcc each."""
     import concurrent.futures
-    sources = ("fused_ab2_advance", "fused_advective_tendencies",
+    sources = ("fused_ab2_advance", tft.K2_LIB, tft.K2_ANY_LIB,
                "fused_shallow_water_tendencies", "fused_hydrostatic_tendencies")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
         for lines in ex.map(lambda s: ptxas(s, s, echo=False), sources):
@@ -594,13 +602,30 @@ def sass_regular(steps, parent):
     mask = lambda ins: re.sub(r"0x[0-9a-f]+", "#", ins)
     names = ("fused_ab2_advance", "fused_advective_tendencies",
              "fused_shallow_water_tendencies", "fused_hydrostatic_tendencies")
-    with concurrent.futures.ThreadPoolExecutor(2 * len(names)) as ex:
-        built = {(csrc, name): ex.submit(kernel_sass, csrc, name)
-                 for name in names for csrc in (_build.CSRC, parent)}
+    def parts(csrc, name):
+        """``name``'s sources in ``csrc``: K2's two since its split."""
+        extra = tft.K2_ANY_LIB
+        return ([name, extra] if name == tft.K2_LIB and (Path(csrc) / f"{extra}.cu").exists()
+                else [name])
+
+    with concurrent.futures.ThreadPoolExecutor(4 * len(names)) as ex:
+        built = {(csrc, part): ex.submit(kernel_sass, csrc, part)
+                 for name in names for csrc in (_build.CSRC, parent)
+                 for part in parts(csrc, name)}
+
+    def sass_of(csrc, name):
+        out = {}
+        for part in parts(csrc, name):
+            out.update(built[(csrc, part)].result())
+        return out
+
     for name in names:
         kernel = name + "_kernel"
-        here = built[(_build.CSRC, name)].result()
-        there = built[(parent, name)].result()
+        here = sass_of(_build.CSRC, name)
+        there = sass_of(parent, name)
+        print(f"sass {name}: {sum(kernel in fn for fn in here)} kernels here from "
+              f"{parts(_build.CSRC, name)}, {sum(kernel in fn for fn in there)} in the "
+              f"parent from {parts(parent, name)}")
         for fn, ins in sorted(here.items()):
             if kernel not in fn:
                 continue
@@ -637,7 +662,8 @@ def seamount(steps):
     the flux BCs), the projection's copies and pads with their K6 fills,
     K3b, the pressure solve (FFT in x, DCT in z), K3c, the correction, and
     ``update_state`` with its K6 fills apart."""
-    ptxas("fused_advective_tendencies", "K2")
+    ptxas(tft.K2_LIB, "K2")
+    ptxas(tft.K2_ANY_LIB, "K2")
     model = chip_smoke.seamount_model()
     state = chip_smoke.seamount_state(model)
     c = chip_smoke.SEAMOUNT
@@ -1826,6 +1852,32 @@ def weno5_kernels(steps):
           f"(torch.profiler)")
 
 
+def cubed_sphere(steps):
+    """``chip_smoke.py``'s Galewsky C256 after 2 warm-up steps: the step's
+    exchange, vmapped tendencies and RK3 update by CUDA events, then the
+    idle share (``breakdown``)."""
+    from clima_oceananigans_jl_torch.validation import eddying_aquaplanet as ea
+    c = chip_smoke.GALEWSKY
+    model = ea.model_for(c["N"], "cuda")
+    state = ea.initial_state(model)
+    dt = ea.grid_time_step(model.grid)
+    model.cuda_graphs = False  # the parts of the eager step
+    for _ in range(2):
+        state = model.step(state, dt)
+    torch.cuda.synchronize()
+    breakdown(f"Galewsky C256 (6 x {c['N']}^2 fp64, dt {dt:.3f} s), eager",
+              lambda s, timed_parts: model.step(s, dt), state,
+              collections.defaultdict(list),
+              [(model, "exchange", "exchange"), (model, "tendencies", "vmapped tendencies"),
+               (model, "rk3_update", "RK3 update")], steps)
+    model.cuda_graphs = True
+    state = model.step(state, dt)  # captures the graph
+    torch.cuda.synchronize()
+    breakdown("Galewsky C256, the step replayed from its CUDA graph",
+              lambda s, timed_parts: model.step(s, dt), state,
+              collections.defaultdict(list), [], steps)
+
+
 PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps), "ab2-bf16": ab2_bf16,
          "rk3": lambda steps: nonhydrostatic("RK3", steps),
          "general-projection": general_projection, "k6-k3c": k6_k3c,
@@ -1853,7 +1905,7 @@ PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps), "ab2-bf16": ab2_bf16
          "front-slice": front_slice, "gyre": gyre,
          "stretched-channel": stretched_channel, "k2xy": k2xy,
          "implicit-free-surface": implicit_free_surface,
-         "multigrid-iterations": multigrid_iterations}
+         "multigrid-iterations": multigrid_iterations, "cubed-sphere": cubed_sphere}
 
 
 def main(argv):

@@ -416,7 +416,34 @@ Since the stencil-matrix slice it ends (after phase 42) with
    bit for bit, with the CG iterations a step;
 46. the particle holds (``PARTICLES_HOLD``): 2¹⁶ particles in the
    shallow-water model at 1024² and in the ¼° flagship, 3 steps with the
-   kernels against 3 with their plain versions, bit for bit.
+   kernels against 3 with their plain versions, bit for bit;
+47. the four cubed-sphere validations as written through the port's
+   copies (``CUBED_SPHERE``: solid_body_rotation, rossby_haurwitz,
+   cubed_sphere_gravity_waves, eddying_aquaplanet at N = 32 fp64, their own
+   step counts and assertions; the cubed-sphere model launches no kernel
+   of the port, checked);
+48. ``biogeochemistry`` as written (the reacting column under the
+   prescribed-velocity model, the sinking slice with
+   ``fused_advection=False``; its eight checks);
+49. ``Galewsky C256`` (``GALEWSKY``): eddying_aquaplanet's configuration at
+   N = 256 fp64, its grid built on the host (seconds printed), 2 warm-up
+   and 20 timed steps: ms/step by CUDA events, device launches a step and
+   the idle share by torch.profiler, peak memory; finite fields and the
+   script's mass gate 1e-9;
+50. ``cubed sphere 3D C256x32`` (``CS3D``): the JAX suite's multilevel
+   configuration at 256×256×32 fp32 (z ∈ [−4000, 0], Δt at CFL 0.5 of
+   its free-surface wave: see ``CS3D``), its host geometry shared with
+   phase 49's, the same reading;
+   finite fields and |Σ η·Az| ≤ 1e-5·Σ|η|·Az;
+51. ``ensemble columns`` (``ENSEMBLE``): the CATKE column as 32 members
+   (N² from 1e-6 to 1e-5), 10 ensemble steps (1 K4a, 1 K4b, 3 K6, 4 T1 a
+   member-step), members 0 and 31 held bit for bit against the same
+   member stepped alone.
+
+K2 builds as two libraries at once (``K2_SOURCES``: its first-code
+instantiations and its ``ANY``/``BF`` ones, one kernel in
+``csrc/fused_advective_tendencies.cuh``); its record names both in
+``sources``.
 
 Each kernel's record carries its bound: the larger of its compulsory
 bytes (each input read once, each output written once, from this run's
@@ -449,6 +476,7 @@ import math
 import os
 import subprocess
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -499,10 +527,20 @@ from clima_oceananigans_jl_torch.particles.lagrangian import LagrangianParticles
 from clima_oceananigans_jl_torch.solvers.stencil_matrix import (MultigridPoissonSolver,
                                                                 SOLVES)
 from clima_oceananigans_jl_torch.validation import (barotropic_gyre,
+                                                    biogeochemistry,
+                                                    cubed_sphere_gravity_waves,
+                                                    eddying_aquaplanet,
                                                     implicit_free_surface,
                                                     periodic_advection,
+                                                    rossby_haurwitz,
+                                                    solid_body_rotation,
                                                     vertical_mixing_closures,
                                                     wind_mixing_column)
+from clima_oceananigans_jl_torch.grids.cubed_sphere import CubedSphereGrid
+from clima_oceananigans_jl_torch.models.cubed_sphere_hydrostatic import (
+    CubedSphereHydrostaticModel)
+from clima_oceananigans_jl_torch.models.ensemble import (ensemble_initial_state,
+                                                         ensemble_step, member)
 from clima_oceananigans_jl_torch.boundary_conditions.bcs import regularize_bcs
 from clima_oceananigans_jl_torch.models import (hydrostatic, nonhydrostatic,
                                                 shallow_water)
@@ -528,7 +566,7 @@ from clima_oceananigans_jl_torch.ops.fused_tendencies import (
     k2_clear_flags, stretched_rows_arg,
     fused_divergence, fused_divergence_reference, fused_pressure_gradient,
     fused_pressure_gradient_reference, fused_shallow_water_tendencies,
-    fused_shallow_water_tendencies_reference)
+    fused_shallow_water_tendencies_reference, K2_ANY_LIB)
 from clima_oceananigans_jl_torch.solvers.fourier_tridiagonal import (
     FourierTridiagonalSolver)
 from clima_oceananigans_jl_torch.solvers.tridiagonal import (
@@ -678,7 +716,15 @@ PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
             "stretched channel": {K2XY: 1, K6: 3},
             "implicit free surface validation": {K4A: 1, K4B: 1, K6: 3},
             "implicit free surface: matrix": {K4A: 1, K4B: 1, K6: 3},
-            "implicit free surface: multigrid": {K4A: 1, K4B: 1, K6: 3}}
+            "implicit free surface: multigrid": {K4A: 1, K4B: 1, K6: 3},
+            # the cubed-sphere slice: the cubed-sphere model and the
+            # prescribed-velocity model are PyTorch ops (no kernel of either
+            # package serves them); the ensemble steps the CATKE column's
+            # members one by one
+            "solid body rotation": {}, "Rossby-Haurwitz": {},
+            "cubed sphere gravity waves": {}, "eddying aquaplanet": {},
+            "biogeochemistry": {}, "Galewsky C256": {}, "cubed sphere 3D C256x32": {},
+            "ensemble columns": {K4A: 1, K4B: 1, K6: 3, T1: 4}}
 #: of T1's launches a step, those of its Fourier mode (the pressure solve)
 T1_FOURIER_PER_STEP = {"wind mixing stretched": 3, "AB2 stretched implicit": 1}
 T1F = "fourier_tridiagonal"
@@ -852,9 +898,14 @@ def phase_device():
           f"CUDA {torch.version.cuda}")
 
 
+#: K2's sources: the first codes (``SOURCES[K2]``) and the ANY/BF
+#: instantiations, two libraries built at once
+K2_SOURCES = (SOURCES[K2], K2_ANY_LIB)
+
+
 def phase_build():
     t0 = time.perf_counter()
-    libs = sorted(set(SOURCES.values()))
+    libs = sorted(set(SOURCES.values()) | set(K2_SOURCES))
     _build.build(*libs)
     for k in libs:
         print(f"build: {k} in {_build.build_seconds[k]:.1f} s "
@@ -4475,7 +4526,7 @@ CARTESIAN_HOLD = dict(size=(256, 128, 32), steps=3)
 #: the paths that run each Flat topology's forms (their launches go into
 #: the forms' records)
 FLAT_FORM_PATHS = {"F,B,B": ("front slice",),
-                   "F,F,B": ("column closures", "wind mixing column")}
+                   "F,F,B": ("column closures", "wind mixing column", "ensemble columns")}
 
 
 def flat_hydro_model(topology, size, dtype, momentum=None, coriolis=None,
@@ -5322,6 +5373,314 @@ def phase_free_convection():
     torch.cuda.empty_cache()
     return by_path
 
+#: the cubed-sphere slice: the four cubed-sphere validations at N, as
+#: written (their own step counts); Galewsky's test at C256 (the
+#: validation eddying_aquaplanet.py's configuration at N = 256 fp64, about
+#: 0.35°, the resolution of Galewsky et al. (2004)'s T341 reference) at
+#: the script's CFL 0.45 on the grid's own smallest spacing
+#: (``grid_time_step``, ~7.2 s): the script's rule (Δt ≈ 31 s) takes that
+#: spacing as 0.7 of the mean, but the conformal C256 grid's is 0.16 of
+#: it, CFL 1.95 at the corners, and the fields went non-finite within 22
+#: steps on the card; the JAX suite's multilevel configuration at full
+#: width (tests/test_cubed_sphere_model.py:87-104 at 256×256×32, z ∈
+#: [−4000, 0], fp32, tracer c, solid-body u, Gaussian c) at CFL 0.5 on the
+#: grid's smallest spacing (``cs3d_time_step``, ~1.4 s): the reference's η
+#: equation takes Ay·U = Δx·Δz·Σu Δz, so its free-surface wave runs at
+#: √(g H Δz) ≈ 2214 m/s here (not √(gH)), and the conformal C256 grid's
+#: smallest spacing is ~6.3 km; RK3 held that wave at CFL 0.94 and not
+#: 1.57 at 32×32×4 on the CPU, and Δt = 50 s and 5 s (CFL 17 and 1.75)
+#: went non-finite on the card; the
+#: column closures' CATKE column (1×1×64 fp64, Δt = 60 s) as an ensemble of
+#: 32 members whose initial N² runs from 1e-6 to 1e-5, as users run such
+#: ensembles to calibrate column closures
+CUBED_SPHERE = dict(N=32)
+GALEWSKY = dict(N=256, warmup=2, steps=20, profiled=2)
+CS3D = dict(size=(256, 256, 32), z=(-4000.0, 0.0), cfl=0.5, warmup=2, steps=10,
+            profiled=2)
+ENSEMBLE = dict(members=32, steps=10, N2=(1e-6, 1e-5), nz=64, hold=(0, 31))
+
+
+def cs3d_time_step(grid, model, cfl):
+    """Δt at ``cfl`` for the cubed-sphere model's free-surface wave on a
+    multilevel grid, √(g H Δz) (the reference's η equation), on the
+    grid's smallest spacing."""
+    depth = grid._zaxis.extent
+    dz = float(grid._zaxis.dc[grid.Hz])
+    return cfl * eddying_aquaplanet.min_spacing(grid) / math.sqrt(model.g * depth * dz)
+
+
+class _Prefetch(threading.Thread):
+    """The host geometry of Galewsky C256's grid (the conformal map at its
+    corners, centres, nodes and tangents, numpy on the host's cores),
+    computed while the kernels build and the earlier phases run; the
+    phases that need it ``wait`` for it."""
+
+    def __init__(self):
+        super().__init__(daemon=True)
+        self.error = None
+
+    def run(self):
+        from clima_oceananigans_jl_torch.grids.cubed_sphere import _geometry
+        from clima_oceananigans_jl_torch.utils.location import F
+        try:
+            geo = _geometry(GALEWSKY["N"], 3, "conformal")
+            geo.corners, geo.centers
+            for loc in ((F, F), (F, C), (C, F), (C, C)):
+                geo.nodes(loc)
+            geo.tangents((F, C), 0), geo.tangents((C, F), 1)
+        except BaseException as e:  # raised again by wait()
+            self.error = e
+
+    def wait(self):
+        t0 = time.perf_counter()
+        self.join()
+        if self.error is not None:
+            raise self.error
+        return time.perf_counter() - t0
+
+
+def profiled_steps(step, state, n):
+    """``n`` more steps under torch.profiler: (state, device launches a
+    step (kernels, copies and fills), the device's idle share, ms a step on
+    the host clock); the idle share None when the profiler sees no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state = step(state)
+        torch.cuda.synchronize()
+        elapsed = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    idle = 1 - busy / elapsed if busy > 0 else None
+    return state, sum(e.count for e in events) / n, idle, elapsed / n
+
+
+def phase_cubed_sphere_validations():
+    """validation/solid_body_rotation.py, rossby_haurwitz.py,
+    cubed_sphere_gravity_waves.py and eddying_aquaplanet.py as written,
+    through the port's copies, at N = ``CUBED_SPHERE["N"]`` fp64 with their
+    own step counts (~160, 864, 384 and 2070 RK3 steps) and assertions; the
+    cubed-sphere model launches no kernel of the port (checked). Returns the
+    launch counts by path."""
+    N, by_path = CUBED_SPHERE["N"], {}
+    quiet = lambda *a: None
+    runs = (
+        ("solid body rotation", solid_body_rotation,
+         lambda: solid_body_rotation.run(N, DEVICE, log=quiet),
+         lambda r: solid_body_rotation.check(r, N), solid_body_rotation.steps_and_dt(N)[0]),
+        ("Rossby-Haurwitz", rossby_haurwitz, lambda: rossby_haurwitz.run(N, DEVICE, log=quiet),
+         rossby_haurwitz.check, int(rossby_haurwitz.DAY / rossby_haurwitz.DT)),
+        ("cubed sphere gravity waves", cubed_sphere_gravity_waves,
+         lambda: cubed_sphere_gravity_waves.run(N, DEVICE, log=quiet),
+         cubed_sphere_gravity_waves.check,
+         math.ceil(cubed_sphere_gravity_waves.T2 / cubed_sphere_gravity_waves.DT - 1e-9)),
+        ("eddying aquaplanet", eddying_aquaplanet,
+         lambda: eddying_aquaplanet.run(N, DEVICE, log=quiet),
+         eddying_aquaplanet.check,
+         math.ceil(6 * eddying_aquaplanet.DAY / eddying_aquaplanet.time_step(N) - 1e-9)))
+    for path, module, run, check, steps in runs:
+        zero_counts()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        by_path[path] = read_counts(path, steps)
+        check(result)
+        print(f"{path}: {module.__name__.rsplit('.', 1)[-1]}.py at N = {N} fp64, "
+              f"{steps} RK3 steps in {seconds:.1f} s ({seconds / steps * 1e3:.3f} ms a "
+              f"step with the grid, the model and the diagnostics); its assertions pass: "
+              f"{result if not isinstance(result, dict) else {k: v for k, v in result.items() if k != 'dt'}} "
+              f"on {card_line()}")
+    return by_path
+
+
+def phase_biogeochemistry():
+    """validation/biogeochemistry.py as written, through the port's copy:
+    the reacting column (PrescribedVelocityModel, 400 steps) and the
+    sinking slice (NonhydrostaticModel with fused_advection=False, 400
+    steps), its eight checks. Returns the launch counts by path."""
+    path = "biogeochemistry"
+    zero_counts()
+    t0 = time.perf_counter()
+    r1 = biogeochemistry.run_reacting(DEVICE)
+    r2 = biogeochemistry.run_sinking(DEVICE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts(path, biogeochemistry.STEPS1 + biogeochemistry.STEPS2)
+    biogeochemistry.check(r1, r2)
+    print(f"{path}: the reacting column and the sinking slice, "
+          f"{biogeochemistry.STEPS1} + {biogeochemistry.STEPS2} steps in {seconds:.1f} s; "
+          f"the eight checks pass on {card_line()}")
+    return {path: launches}
+
+
+def cubed_sphere_reading(path, model, state, dt, c):
+    """The reading of a C256 path (the model's step replayed from its CUDA
+    graph, ``cuda_graphs``): ``c["warmup"]`` + ``c["steps"]`` steps
+    (counts set to 0 before, read after: the model launches no kernel of
+    the port), ms a step by CUDA events over the timed ones, then
+    ``c["profiled"]`` steps under the profiler (launches a step, idle
+    share), and the peak memory. Returns (state, launches, a dict of the
+    numbers)."""
+    step = lambda s: model.step(s, dt)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    for _ in range(c["warmup"]):
+        state = step(state)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(c["steps"]):
+        state = step(state)
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / c["steps"] * 1e3
+    launches = read_counts(path, c["warmup"] + c["steps"])
+    state, per_step, idle, prof_ms = profiled_steps(step, state, c["profiled"])
+    out = dict(ms=start.elapsed_time(end) / c["steps"], wall_ms=wall,
+               launches_per_step=per_step, idle=idle, profiled_ms=prof_ms,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    idle_s = "not measured" if idle is None else f"{100 * idle:.1f}%"
+    print(f"{path}: {c['steps']} timed steps after {c['warmup']}: {out['ms']:.4f} ms/step "
+          f"(CUDA events; {wall:.4f} wall), {per_step:.0f} device launches a step, "
+          f"device idle {idle_s} (torch.profiler, {c['profiled']} steps, "
+          f"{prof_ms:.4f} ms/step there), peak memory {out['peak_gb']:.3f} GB "
+          f"on {card_line()}")
+    return state, launches, out
+
+
+def check_cubed_sphere(path, model, state):
+    g = model.grid
+    for name, a in list(state["solution"].items()) + [("eta", state["eta"])]:
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{path} {name}: non-finite values")
+    if tuple(state["solution"]["u"].shape) != g.total_shape:
+        raise AssertionError(f"{path}: u of shape {tuple(state['solution']['u'].shape)}")
+
+
+def phase_galewsky(prefetch=None):
+    """``Galewsky C256``: eddying_aquaplanet.py's configuration at N = 256
+    fp64 (6 × 256² columns), its grid built on the host (the time printed;
+    its geometry from ``prefetch``, a started ``_Prefetch``, if given),
+    its Δt, ``cubed_sphere_reading``; finite fields and the script's mass
+    check (|Δ∬η dA| ≤ 1e-9 ∬H₀ dA). Returns (the launch counts by path, the
+    reading)."""
+    ea, c, path = eddying_aquaplanet, GALEWSKY, "Galewsky C256"
+    if prefetch is not None:
+        print(f"{path}: waited {prefetch.wait():.1f} s for its host geometry, computed "
+              "beside the build and the earlier phases")
+    t0 = time.perf_counter()
+    grid = CubedSphereGrid(size=(c["N"], c["N"], 1), radius=ea.A, dtype=torch.float64,
+                           halo=3, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    model = ea.model_for(c["N"], DEVICE, grid=grid)
+    state = ea.initial_state(model)
+    init_s = time.perf_counter() - t0 - build_s
+    eddies = ea.Eddies(grid)
+    mass0 = eddies.mass(state)
+    dt = ea.grid_time_step(grid)
+    print(f"{path}: 6 x {c['N']}^2 x 1 fp64 ({6 * c['N'] ** 2} columns), the grid built "
+          f"in {build_s:.1f} s on the host, the model and its initial state in "
+          f"{init_s:.1f} s; dt {dt:.3f} s")
+    state, launches, reading = cubed_sphere_reading(path, model, state, dt, c)
+    check_cubed_sphere(path, model, state)
+    model.cuda_graphs = False
+    reading["eager_ms"] = cuda_ms(lambda: model.step(state, dt), 5)
+    model.cuda_graphs = True
+    print(f"{path}: the step without its CUDA graph {reading['eager_ms']:.4f} ms "
+          f"(CUDA events, 5 steps; with it {reading['ms']:.4f})")
+    drift = abs(eddies.mass(state) - mass0) / (eddies.area.sum() * ea.H0)
+    if not drift < 1e-9:
+        raise AssertionError(f"{path}: mass drift {drift:.3e} over 1e-9")
+    print(f"{path}: finite, mass drift {drift:.3e} (the script's gate 1e-9)")
+    reading.update(build_s=build_s, init_s=init_s, mass_drift=drift)
+    del model, state, grid
+    torch.cuda.empty_cache()
+    return {path: launches}, reading
+
+
+def phase_cubed_sphere_3d():
+    """``cubed sphere 3D C256x32`` (``CS3D``): the JAX suite's multilevel
+    configuration at full width, ``cubed_sphere_reading``; finite fields
+    and |Σ η·Az| ≤ 1e-5·Σ|η|·Az over the interior (fp64 sums), the
+    hydrostatic gate. Returns (the launch counts by path, the reading)."""
+    c, path = CS3D, "cubed sphere 3D C256x32"
+    t0 = time.perf_counter()
+    grid = CubedSphereGrid(size=c["size"], z=c["z"], radius=6.371e6, dtype=torch.float32,
+                           halo=3, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    model = CubedSphereHydrostaticModel(grid, tracers=("c",))
+
+    def c0(p):
+        n = p / np.linalg.norm(p, axis=-1, keepdims=True)
+        return np.exp(-((n[..., 0] - 1.0) ** 2) / 0.1)
+
+    def vel(p):
+        n = p / np.linalg.norm(p, axis=-1, keepdims=True)
+        return np.cross([0.0, 0.0, 1.0], n)
+
+    state = model.initial_state(u=vel, c=c0)
+    dt = cs3d_time_step(grid, model, c["cfl"])
+    print(f"{path}: 6 x {c['size'][0]}^2 x {c['size'][2]} fp32, the grid in "
+          f"{build_s:.1f} s (the host geometry of C256 shared with Galewsky C256's); "
+          f"dt {dt:.4f} s")
+    state, launches, reading = cubed_sphere_reading(path, model, state, dt, c)
+    check_cubed_sphere(path, model, state)
+    H, N = grid.H, grid.N
+    eta = state["eta"][:, H:H + N, H:H + N].double()
+    az = grid.face_grids().Az(CENTER)[:, H:H + N, H:H + N].double()
+    net, gross = float((eta * az).sum()), float((eta.abs() * az).sum())
+    if not abs(net) <= 1e-5 * gross:
+        raise AssertionError(f"{path}: |sum eta Az| {abs(net):.3e} over 1e-5 x {gross:.3e}")
+    print(f"{path}: finite, |sum eta Az| = {abs(net):.3e} <= 1e-5 x {gross:.3e}")
+    reading.update(build_s=build_s, volume=abs(net) / gross if gross else 0.0)
+    del model, state, grid
+    torch.cuda.empty_cache()
+    return {path: launches}, reading
+
+
+def phase_ensemble_columns():
+    """``ensemble columns`` (``ENSEMBLE``): the column closures' CATKE
+    column as 32 members (initial N² from 1e-6 to 1e-5), 10 ensemble steps
+    (the members one by one through ``model.step``: 1 K4a, 1 K4b, 3 K6 and
+    4 T1 a member-step), ms an ensemble step; members 0 and 31 held bit
+    for bit against the same member stepped alone (launches counted on no
+    path). Returns the launch counts by path."""
+    vmc, c, path = vertical_mixing_closures, ENSEMBLE, "ensemble columns"
+    model = vmc.model_for(CATKEVerticalDiffusivity(), c["nz"], DEVICE)
+    inits = [dict(b=lambda x, y, z, n2=n2: n2 * z, e=1e-7)
+             for n2 in np.linspace(*c["N2"], c["members"])]
+    batched = ensemble_initial_state(model, inits)
+    step = ensemble_step(model)
+    zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(c["steps"]):
+        batched = step(batched, vmc.DT)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / c["steps"]
+    launches = read_counts(path, c["members"] * c["steps"])
+    for name, a in batched["solution"].items():
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{path} {name}: non-finite values")
+    for i in c["hold"]:
+        alone = model.initial_state(**inits[i])
+        for _ in range(c["steps"]):
+            alone = model.step(alone, vmc.DT)
+        hold(f"{path}: member {i} against the member stepped alone",
+             {"solution": member(batched, i)["solution"]}, {"solution": alone["solution"]},
+             torch.float64, exact=True)
+    print(f"{path}: {c['members']} members of the 1x1x{c['nz']} fp64 CATKE column, "
+          f"{c['steps']} ensemble steps of {vmc.DT:g} s, {per_step * 1e3:.3f} ms an "
+          f"ensemble step ({per_step * 1e3 / c['members']:.3f} ms a member-step), "
+          f"launches { {k: n for k, n in launches.items() if n} } on {card_line()}")
+    return {path: launches}, per_step * 1e3
+
+
 def _timed_phase(fn):
     """``fn`` with its seconds printed after it ("phase <name>: s")."""
     def run(*args, **kw):
@@ -5340,6 +5699,8 @@ for _name in [n for n in globals() if n.startswith("phase_")]:
 def main():
     t0 = time.perf_counter()
     phase_device()
+    prefetch = _Prefetch()
+    prefetch.start()
     phase_build()
     measured = {K1: phase_k1(), K2: phase_k2(), K3A: phase_k3a()}
     measured[K3B], measured[K3C] = phase_k3bc()
@@ -5427,6 +5788,16 @@ def main():
     phase_particle_holds()
     measured[K2XY] = (max(k2xy_reading_[0], *(f["max_abs_err"] for f in k2xy_forms)),
                       *k2xy_reading_[1:])
+    # the cubed-sphere slice: the four cubed-sphere validations and the
+    # biogeochemistry copy as written, the two C256 readings, the ensemble
+    by_path.update(phase_cubed_sphere_validations())
+    by_path.update(phase_biogeochemistry())
+    counts, _ = phase_galewsky(prefetch)
+    by_path.update(counts)
+    counts, _ = phase_cubed_sphere_3d()
+    by_path.update(counts)
+    counts, _ = phase_ensemble_columns()
+    by_path.update(counts)
     for name, err in flat_hold_worst.items():
         flat_worst[name] = max(flat_worst.get(name, 0.0), err)
     for name in (K4A, K4B, T1, K6):
@@ -5450,6 +5821,8 @@ def main():
         records.append({
             "name": name, "route": "cuda",
             "source": f"clima_oceananigans_jl_torch/csrc/{SOURCES[name]}.cu",
+            **({"sources": [f"clima_oceananigans_jl_torch/csrc/{k}.cu"
+                            for k in K2_SOURCES]} if name == K2 else {}),
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})

@@ -25,7 +25,8 @@ grid-fitted immersed boundaries with their bottom fluxes, explicit,
 split-explicit and implicit free surfaces, the implicit one by FFT,
 matrix-free CG or CG on the assembled heptadiagonal couplings with a
 Jacobi or multigrid preconditioner), Lagrangian particles in all three
-models, with hand-written CUDA
+models, the hydrostatic model on the conformal cubed sphere, prescribed
+velocities and ensembles (members stepped one by one), with hand-written CUDA
 kernels for Hopper in ``csrc/``: the fused AB2 advance (K1), the fused
 advective tendencies (K2), the shallow-water core (K3a), the general
 projection's divergence and gradient (K3b, K3c), the hydrostatic w/pHY′
@@ -43,6 +44,7 @@ and readers that use it. Grids live on the card unless the caller passes
 from .grids.topology import BOUNDED, FLAT, PERIODIC, Topology
 from .grids.rectilinear import RectilinearGrid
 from .grids.latlon import LatitudeLongitudeGrid
+from .grids.cubed_sphere import CubedSphereGrid, cubed_sphere_tracer_step
 from .utils.location import C, CENTER, F, U_LOC, V_LOC, W_LOC
 from .boundary_conditions.bcs import (
     BC, FieldBCs, FluxBC, GradientBC, OpenBC, Periodic, ValueBC,
@@ -88,6 +90,10 @@ from .models.shallow_water import ShallowWaterModel
 from .models.free_surface import (ExplicitFreeSurface, ImplicitFreeSurface,
                                   SplitExplicitFreeSurface)
 from .models.hydrostatic import HydrostaticFreeSurfaceModel
+from .models.cubed_sphere_hydrostatic import CubedSphereHydrostaticModel
+from .models.prescribed import PrescribedVelocityFields, PrescribedVelocityModel
+from .models.ensemble import (ensemble_initial_state, ensemble_step, member,
+                              stack_states)
 from .immersed.immersed import (GridFittedBottom, GridFittedBoundary,
                                 ImmersedBoundary, PartialCellBottom)
 from .simulation.simulation import Callback, NaNChecker, Simulation, TimeStepWizard

@@ -87,9 +87,14 @@ def _build_tables(P, to_f):
 
 
 def weno5_tables(grid, axis, to_f):
-    """The WENO5 tables of ``grid``'s ``axis`` (None on a regular or flat
-    axis), computed at the first call and kept on the grid."""
-    a = grid._axes[axis]
+    """The WENO5 tables of ``grid``'s ``axis``, computed at the first call
+    and kept on the grid; None on a regular or flat axis, and on a grid
+    without 1D coordinate axes (the cubed sphere's face grids), as in the
+    JAX package."""
+    axes = getattr(grid, "_axes", None)
+    if axes is None:
+        return None
+    a = axes[axis]
     if a.topo is FLAT or a.regular:
         return None
     key = (axis, bool(to_f))

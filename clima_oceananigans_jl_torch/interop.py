@@ -41,6 +41,19 @@ package's state for ``model``:
   ``G_prev`` but an explicit free surface's ``eta``, ``w`` and ``pHY``
   are transposed back to (x, y, z) first.
 
+Three more states convert whole, with their JAX shapes:
+
+- a ``CubedSphereHydrostaticModel`` state (``solution`` of (6, X, Y, Z)
+  arrays, ``eta`` of (6, X, Y, 1), ``clock``), halos and all (both
+  packages' cubed-sphere grids have the same layout);
+- a ``PrescribedVelocityModel`` state (``solution``, ``G_prev``,
+  ``clock``, ``previous_dt``): tracers cut to their interiors, placed in
+  the port's layout and halo-filled; ``G_prev`` kept with its halos
+  where the shapes agree;
+- a batched ensemble state (``models/ensemble.py``), whose clock's time
+  has a leading member axis: each member converts alone, then the
+  members stack.
+
 ``state_to_numpy`` goes the other way, keeping the port's layout (halo
 3, ``G_prev`` as the model keeps it), which the JAX package's plain step
 accepts; its ``particles`` is a ``LagrangianParticles`` whose leaves are
@@ -161,9 +174,45 @@ def _diffusivities_to_numpy(d):
     return d
 
 
+def _cubed_sphere_from_numpy(model, state):
+    g = model.grid
+    clock = state["clock"]
+    return dict(solution={n: g._tensor(np.asarray(x))
+                          for n, x in state["solution"].items()},
+                eta=g._tensor(np.asarray(state["eta"])),
+                clock=Clock(_host(clock.time), int(np.asarray(clock.iteration)),
+                            int(np.asarray(getattr(clock, "stage", 0)))))
+
+
+def _numpy_member(x, i):
+    """Member i of a numpy-leaved batched state (either package's clock)."""
+    if isinstance(x, dict):
+        return {k: _numpy_member(v, i) for k, v in x.items()}
+    if hasattr(x, "time") and hasattr(x, "iteration"):
+        return Clock(np.asarray(x.time)[i], np.asarray(x.iteration)[i],
+                     getattr(x, "stage", 0))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_numpy_member(v, i) for v in x)
+    return np.asarray(x)[i] if np.ndim(x) >= 1 else x
+
+
+def _ensemble_from_numpy(model, state, layout):
+    from .models.ensemble import stack_states
+    return stack_states([state_from_numpy(model, _numpy_member(state, i), layout)
+                         for i in range(len(np.asarray(state["clock"].time)))])
+
+
 def state_from_numpy(model, state, layout="natural"):
     """The port's state for ``model`` from a numpy-leaved JAX state
-    (``layout``: the JAX model's ``state_layout``, "natural" or "xzy")."""
+    (``layout``: the JAX model's ``state_layout``, "natural" or "xzy");
+    a batched ensemble state (a clock time with a member axis) member by
+    member."""
+    from .models.cubed_sphere_hydrostatic import CubedSphereHydrostaticModel
+    from .models.prescribed import PrescribedVelocityModel
+    if np.ndim(state["clock"].time) == 1:
+        return _ensemble_from_numpy(model, state, layout)
+    if isinstance(model, CubedSphereHydrostaticModel):
+        return _cubed_sphere_from_numpy(model, state)
     if layout == "xzy":
         state = _natural(state)
     g = model.grid
@@ -184,6 +233,12 @@ def state_from_numpy(model, state, layout="natural"):
                                           np.array(a), dtype=g.dtype, device=g.device))
     if hasattr(model, "free_surface"):
         return _hydrostatic_from_numpy(model, state, out, t)
+    if isinstance(model, PrescribedVelocityModel):
+        full = lambda x: torch.as_tensor(np.array(x), dtype=g.dtype, device=g.device)
+        out["G_prev"] = {n: full(x) if np.shape(x) == g.total_shape
+                         else g.pad(as_t(x)) for n, x in state["G_prev"].items()}
+        out["previous_dt"] = _host(state["previous_dt"])
+        return out
     if not hasattr(model, "pressure_solver"):  # shallow water
         return out
     if model.immersed_boundary is not None:  # filled, then masked (JAX order)

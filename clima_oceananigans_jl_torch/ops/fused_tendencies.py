@@ -4,7 +4,10 @@ Counterpart of ``clima_oceananigans_jl_tpu/ops/fused_tendencies.py``:
 
 - K2, the Pallas kernel ``fused_advective_tendencies``: −∇·(vψ) of u, v,
   w and every tracer of the nonhydrostatic model in one launch
-  (``csrc/fused_advective_tendencies.cu``; on a stretched z its stretched
+  (``csrc/fused_advective_tendencies.cu`` for the first codes,
+  ``csrc/fused_advective_tendencies_any.cu`` for the ``ANY`` and ``BF``
+  instantiations, two libraries built at once, ``k2_library``; on a
+  stretched z its stretched
   instantiation, with per-level Δz and the WENO5 family's tables as z
   rows; on a grid stretched in x or y its stretched-x/y form, a source of
   its own (``csrc/fused_advective_tendencies_xy.cu``) with the rows of
@@ -297,6 +300,26 @@ def k2_clear_flags(grid, scheme, tracer_scheme, ntracers):
 
 #: the source of K2's stretched-x/y form (``csrc/<name>.cu``)
 STRETCHED_XY_LIB = "fused_advective_tendencies_xy"
+#: K2's two sources on a regular x and y (``csrc/<name>.cu``): the first
+#: codes (centred, WENO5, UB5) and the ``ANY``/``BF`` instantiations, two
+#: libraries built at once
+K2_LIB, K2_ANY_LIB = "fused_advective_tendencies", "fused_advective_tendencies_any"
+#: the schemes only K2's ``ANY`` instantiations take (``needs_any`` of
+#: ``csrc/weno5_advection.cuh``)
+ANY_SCHEMES = (CenteredFourthOrder, UpwindBiasedFirstOrder, UpwindBiasedThirdOrder,
+               BoundsPreservingWENO5, PositiveWENO5)
+
+
+def k2_library(scheme, tracer_scheme, dtype):
+    """K2's library for a launch on a regular x and y in ``dtype``:
+    ``K2_ANY_LIB`` where either scheme needs the ``ANY`` instantiations or
+    has a bf16 option the kernels read (``bf16_smoothness`` only on fp32
+    data: ``split_scheme``), else ``K2_LIB`` (the launchers'
+    ``advection_any``)."""
+    def needs(s):
+        bf = bf16_mode(s)
+        return type(s) in ANY_SCHEMES or bf == 2 or (bf == 1 and dtype == torch.float32)
+    return K2_ANY_LIB if needs(scheme) or needs(tracer_scheme) else K2_LIB
 
 
 def _launch(grid, scheme, tracer_scheme, u, v, w, tracers):
@@ -322,7 +345,7 @@ def _launch(grid, scheme, tracer_scheme, u, v, w, tracers):
     # the metric rows: a stretched z's (or none) for the tiled forms, every
     # axis' for the stretched-x/y form (a source of its own)
     if grid.hregular:
-        lib = entry = "fused_advective_tendencies"
+        lib = entry = k2_library(scheme, tracer_scheme, dtype)
         zs, tables = z_rows_arg(grid, scheme, tracer_scheme)
         rows = (None if zs is None else zs.data_ptr(), tables)
         rowtypes = [ctypes.c_void_p, ctypes.c_int]
