@@ -14,7 +14,9 @@
                               [sass-regular --parent DIR] [ab2-bf16]
                               [front-slice] [gyre] [stretched-channel]
                               [implicit-free-surface] [multigrid-iterations]
-                              [k2xy [--parent DIR]] [cubed-sphere] [--steps N]
+                              [k2xy [--parent DIR]] [cubed-sphere]
+                              [near-global-partial] [k4b-parent --parent DIR]
+                              [--steps N]
 
 With no part named, runs them all. Prints the card's name and power
 limit first. Needs a card; without one it exits with an error.
@@ -164,7 +166,9 @@ limit first. Needs a card; without one it exits with an error.
   advection schemes (one nvcc each, all at once).
 - ``sass-regular``: K1's, K2's, K3a's and K4b's instantiations without
   ``ANY``, and (since the bf16 slice) their ``ANY`` instantiations without
-  the bf16 sub-form ``BF``, as built here and from the parent tree's
+  the bf16 sub-form ``BF`` (since the partial-cell slice, whose K4a and
+  K4b take a trailing flag ``D3``, every instantiation of both without
+  it), as built here and from the parent tree's
   ``csrc`` (``--parent DIR``; a trailing template flag the parent lacks
   is dropped to find its counterpart, and since the Flat slice any
   trailing arguments the parent lacks, K4b's layout and Cartesian flag),
@@ -264,6 +268,23 @@ limit first. Needs a card; without one it exits with an error.
   of the eager step (``cuda_graphs`` off); then the profiler's idle
   share; then the step replayed from its CUDA graph, timed and profiled
   the same way.
+- ``near-global-partial``: ``chip_smoke.py``'s ``near-global partial
+  cells`` (validation/near_global_lat_lon.py at ¼° fp32 over
+  PartialCellBottom of its bathymetry, Δt = 600 s) after its 2 warm-up
+  steps, checked finite after the timed ones: CUDA
+  events around K4b's 3D-Δz tendency form, K4a's 3D-Δz form, K5 and its
+  wrapper, T1, K6's fills, the eager diffusion, the quadratic bottom drag
+  (the immersed flux BCs), the wind (the flux BCs), the masks, the AB2
+  substep, the barotropic modes and the corrector; then the profiler's
+  idle share.
+- ``k4b-parent``: K4b's run-time instantiation, as built here and from an
+  older tree's ``csrc`` (``--parent DIR``, whose entry
+  ``fused_hydrostatic_tendencies_f32`` takes the same arguments), both
+  built at once, timed in turns (as built, parent, parent, as built) by
+  CUDA events in its tendency form on the fields of ``chip_smoke.py``'s
+  ``near-global``, ``near-global UB5`` and ``near-global CATKE`` after
+  their warm-up steps, each held bit for bit against the form as built.
+  Without ``--parent`` it runs only when named.
 """
 from __future__ import annotations
 
@@ -590,9 +611,9 @@ def counterpart(fn, there):
 
 
 def sass_regular(steps, parent):
-    """K1's, K2's, K3a's and K4b's instantiations whose last template flag
-    is false (without ``ANY``: the first codes; with ``ANY``, without the
-    bf16 sub-form ``BF``) as built here against the same ones built from
+    """K1's, K2's, K3a's, K4b's and K4a's instantiations whose last template
+    flag is false (without ``ANY``: the first codes; with ``ANY``, without
+    the bf16 sub-form ``BF``; K4a's and K4b's without ``D3``) as built here against the same ones built from
     the parent tree's ``csrc`` (``--parent DIR``), all built at once: their SASS
     instruction sequences, counted, and compared with constants
     (immediates and constant-bank offsets) masked, which differ where the
@@ -601,7 +622,8 @@ def sass_regular(steps, parent):
     import re
     mask = lambda ins: re.sub(r"0x[0-9a-f]+", "#", ins)
     names = ("fused_ab2_advance", "fused_advective_tendencies",
-             "fused_shallow_water_tendencies", "fused_hydrostatic_tendencies")
+             "fused_shallow_water_tendencies", "fused_hydrostatic_tendencies",
+             "hydrostatic_columns")
     def parts(csrc, name):
         """``name``'s sources in ``csrc``: K2's two since its split."""
         extra = tft.K2_ANY_LIB
@@ -1878,6 +1900,89 @@ def cubed_sphere(steps):
               collections.defaultdict(list), [], steps)
 
 
+def near_global_partial(steps):
+    """chip_smoke.py's ``near-global partial cells`` path after its warm-up
+    steps, broken down (module docstring)."""
+    ng = chip_smoke.near_global_lat_lon
+    c = chip_smoke.NEAR_GLOBAL_PARTIAL
+    model = ng.model_for(c["deg"], torch.float32, "cuda", partial_cells=True)
+    state = ng.initial_state(model)
+    for _ in range(c["warmup"]):
+        state = model.step(state, c["dt"])
+    torch.cuda.synchronize()
+    events = collections.defaultdict(list)
+    kernels = {k: timed(events, label, hm.KERNELS[k]) for k, label in (
+        ("tendencies", "K4b (3D-dz tendencies)"), ("columns", "K4a (3D dz)"),
+        ("barotropic", "K5 and its wrapper"), ("fill", "K6 fills"),
+        ("tridiagonal", "T1 (implicit step)"))}
+    step = lambda s, timed_parts: model.step(s, c["dt"], kernels if timed_parts else None)
+    patches = [(hm, "momentum_diffusion", "eager diffusion"),
+               (hm, "tracer_diffusion", "eager diffusion"),
+               (hm, "apply_flux_bcs", "flux BCs (wind)"),
+               (hm, "apply_immersed_flux_bcs", "immersed flux BCs (drag)"),
+               (hm, "ab2_substep", "ab2_substep"),
+               (hm, "barotropic_mode", "barotropic modes"),
+               (hm, "implicit_step_fields", "implicit step"),
+               (SplitExplicitFreeSurface, "corrector", "corrector"),
+               (model.immersed_boundary, "mask_state", "mask_state"),
+               (model.immersed_boundary, "mask_tendency", "mask_tendency")]
+    breakdown("near-global partial cells 1/4 deg step", step, state, events, patches,
+              steps, inner={"implicit step": (["T1 (implicit step)"],
+                                              "implicit step's bands and copies")})
+    for _ in range(steps):
+        state = model.step(state, c["dt"])
+    chip_smoke.check_finite("near-global partial cells", model, state, ("w", "pHY", "eta"))
+
+
+def k4b_parent(steps, parent):
+    """K4b's run-time instantiation as built and from the parent tree's
+    ``csrc``, in turns on three near-global paths' fields (module
+    docstring)."""
+    from clima_oceananigans_jl_torch.ops import fused_hydrostatic as fh
+    libs = {}
+    builds = {"as built": _build.CSRC / "fused_hydrostatic_tendencies.cu",
+              "parent": Path(parent) / "fused_hydrostatic_tendencies.cu"}
+    import concurrent.futures
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        futures = {k: ex.submit(build_library, src) for k, src in builds.items()}
+        for k, fut in futures.items():
+            path, _log, secs = fut.result()
+            print(f"k4b-parent build {k}: {secs:.1f} s")
+            libs[k] = ctypes.CDLL(str(path))
+    load = _build.load
+
+    def call(lib, model, state):
+        _build.load = lambda name: lib if name == "fused_hydrostatic_tendencies" else load(name)
+        try:
+            return fh.fused_hydrostatic_tendencies(model, state)
+        finally:
+            _build.load = load
+
+    for path in ("near-global", "near-global UB5", "near-global CATKE"):
+        if path == "near-global CATKE":
+            model = chip_smoke.ocean_model("CATKE")
+            state = chip_smoke.ocean_state(model)
+        else:
+            model, state = chip_smoke.hydro_path_model(path)
+        for _ in range(chip_smoke.HYDRO["warmup"]):
+            state = model.step(state, chip_smoke.HYDRO["dt"])
+        ref = call(libs["as built"], model, state)
+        times = collections.defaultdict(list)
+        for k in ("as built", "parent", "parent", "as built"):
+            got = call(libs[k], model, state)
+            for n in ref:
+                if not torch.equal(got[n], ref[n]):
+                    raise AssertionError(f"k4b-parent {path}: {k} differs in {n}")
+            times[k].append(chip_smoke.cuda_ms(lambda: call(libs[k], model, state), 20))
+        mean = {k: sum(ts) / len(ts) for k, ts in times.items()}
+        print(f"k4b-parent {path} 1/4 deg fp32 tendencies: " + ", ".join(
+            f"{k} {' / '.join(f'{t:.4f}' for t in ts)} ms" for k, ts in times.items())
+              + f"; as built / parent {mean['as built'] / mean['parent']:.4f} "
+              f"(CUDA events, in turns; {chip_smoke.card_line()})")
+        del model, state, ref, got
+        torch.cuda.empty_cache()
+
+
 PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps), "ab2-bf16": ab2_bf16,
          "rk3": lambda steps: nonhydrostatic("RK3", steps),
          "general-projection": general_projection, "k6-k3c": k6_k3c,
@@ -1905,7 +2010,8 @@ PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps), "ab2-bf16": ab2_bf16
          "front-slice": front_slice, "gyre": gyre,
          "stretched-channel": stretched_channel, "k2xy": k2xy,
          "implicit-free-surface": implicit_free_surface,
-         "multigrid-iterations": multigrid_iterations, "cubed-sphere": cubed_sphere}
+         "multigrid-iterations": multigrid_iterations, "cubed-sphere": cubed_sphere,
+         "near-global-partial": near_global_partial, "k4b-parent": k4b_parent}
 
 
 def main(argv):
@@ -1920,7 +2026,8 @@ def main(argv):
         i = argv.index("--parent")
         parent = argv[i + 1]
         argv = argv[:i] + argv[i + 2:]
-    parts = argv or [p for p in PARTS if p not in ("sass-regular", "k2xy") or parent]
+    parts = argv or [p for p in PARTS
+                     if p not in ("sass-regular", "k2xy", "k4b-parent") or parent]
     for p in parts:
         if p not in PARTS:
             raise SystemExit(f"unknown part {p!r}: choose from {list(PARTS)}")
@@ -1937,6 +2044,11 @@ def main(argv):
             sass_regular(steps, parent)
         elif p == "k2xy":
             k2xy(steps, parent)
+        elif p == "k4b-parent":
+            if parent is None:
+                raise SystemExit("k4b-parent needs --parent DIR (the parent tree's "
+                                 "clima_oceananigans_jl_torch/csrc)")
+            k4b_parent(steps, parent)
         else:
             PARTS[p](steps)
 

@@ -439,6 +439,22 @@ Since the stencil-matrix slice it ends (after phase 42) with
    (N² from 1e-6 to 1e-5), 10 ensemble steps (1 K4a, 1 K4b, 3 K6, 4 T1 a
    member-step), members 0 and 31 held bit for bit against the same
    member stepped alone.
+45. (since the partial-cell slice) ``phase_partial_holds``: K4a's and K4b's
+   3D-Δz forms (partial bottom cells) at 1° (``PARTIAL_HOLD``: 360×150×24
+   over validation/near_global_lat_lon.py's bathymetry with
+   PartialCellBottom, fp32 and fp64; K4b under the default schemes, WENO5
+   and UB5 / BoundsPreservingWENO5, both forms), each bit for bit its
+   plain version over NaN-filled outputs and timed against its bound;
+46. ``phase_near_global_partial``: ``near-global partial cells``
+   (``NEAR_GLOBAL_PARTIAL``: the validation at ¼° fp32 as written but for
+   PartialCellBottom, at the ¼° Δt of benchmark/bench_near_global.py,
+   600 s): the count of cut cells and the smallest fraction, 2 + 5 timed
+   steps (1 K4a, 1 K4b, 1 K5, 2 K6, 3 T1 a step), the profiler's idle
+   share, K4a and K4b held and timed on the path's fields, 3 steps with
+   the kernels against 3 with the plain versions from one state bit for
+   bit, then the validation's 3 days (432 iterations) through
+   ``Simulation`` with its three checks and the free surface's volume
+   check.
 
 K2 builds as two libraries at once (``K2_SOURCES``: its first-code
 instantiations and its ``ANY``/``BF`` ones, one kernel in
@@ -531,6 +547,7 @@ from clima_oceananigans_jl_torch.validation import (barotropic_gyre,
                                                     cubed_sphere_gravity_waves,
                                                     eddying_aquaplanet,
                                                     implicit_free_surface,
+                                                    near_global_lat_lon,
                                                     periodic_advection,
                                                     rossby_haurwitz,
                                                     solid_body_rotation,
@@ -724,7 +741,8 @@ PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
             "solid body rotation": {}, "Rossby-Haurwitz": {},
             "cubed sphere gravity waves": {}, "eddying aquaplanet": {},
             "biogeochemistry": {}, "Galewsky C256": {}, "cubed sphere 3D C256x32": {},
-            "ensemble columns": {K4A: 1, K4B: 1, K6: 3, T1: 4}}
+            "ensemble columns": {K4A: 1, K4B: 1, K6: 3, T1: 4},
+            "near-global partial cells": {K4A: 1, K4B: 1, K5: 1, K6: 2, T1: 3}}
 #: of T1's launches a step, those of its Fourier mode (the pressure solve)
 T1_FOURIER_PER_STEP = {"wind mixing stretched": 3, "AB2 stretched implicit": 1}
 T1F = "fourier_tridiagonal"
@@ -2382,6 +2400,19 @@ def wind_tke(path, model, state):
           f"above the {int(calm.sum())} calm cells' {e_calm:.6e}")
 
 
+def eta_balance(path, model, state):
+    """The free surface's volume check: |Σ η Az| ≤ 1e-5 Σ |η| Az over the
+    interior columns; returns (Σ η Az, Σ |η| Az)."""
+    g = model.grid
+    cut = lambda a: a[g.Hx:g.Hx + g.Nx, g.Hy:g.Hy + g.Ny, 0].double()
+    eta, az = cut(state["eta"]), cut(torch.broadcast_to(g.Az(ETA_LOC), state["eta"].shape))
+    net, gross = float((eta * az).sum()), float((eta.abs() * az).sum())
+    if not abs(net) <= 1e-5 * gross:
+        raise AssertionError(f"{path}: |sum(eta Az)| {abs(net):.3e} > "
+                             f"1e-5 sum(|eta| Az) = {1e-5 * gross:.3e}")
+    return net, gross
+
+
 def phase_hydrostatic(path="hydrostatic"):
     """A ¼° hydrostatic path (``path`` "hydrostatic", "hydrostatic wind", a
     ``NEAR_GLOBAL`` or a ``SCHEME_PATHS`` one) with the kernels, checked,
@@ -2396,12 +2427,7 @@ def phase_hydrostatic(path="hydrostatic"):
         faces = zero_at_solid_faces(path, model, state)
         print(f"{path} path: u and v exactly 0 at all {faces} solid faces")
     cut = lambda a: a[g.Hx:g.Hx + g.Nx, g.Hy:g.Hy + g.Ny, 0].double()
-    eta, az = cut(state["eta"]), cut(torch.broadcast_to(
-        g.Az(ETA_LOC), state["eta"].shape))
-    net, gross = float((eta * az).sum()), float((eta.abs() * az).sum())
-    if not abs(net) <= 1e-5 * gross:
-        raise AssertionError(f"{path}: |sum(eta Az)| {abs(net):.3e} > "
-                             f"1e-5 sum(|eta| Az) = {1e-5 * gross:.3e}")
+    net, gross = eta_balance(path, model, state)
     points = g.Nx * g.Ny * g.Nz
     used = {k: n for k, n in launches.items() if n}
     steps = HYDRO["warmup"] + HYDRO["steps"]
@@ -3502,13 +3528,15 @@ def k4b_bound(model, state, outs, advance):
     advance) read once, the clear flags and y tables it reads, each output
     written once."""
     from clima_oceananigans_jl_torch.ops.fused_hydrostatic import _mask_locs, clear_flags
-    from clima_oceananigans_jl_torch.ops.metric_rows import y_tables
+    from clima_oceananigans_jl_torch.ops.metric_rows import dz3_pack, y_tables
     g = model.grid
     extra = [clear_flags(g, loc, (model.tracer_advection if loc == CENTER
                                   else model.momentum_advection).buffer)
              for loc in _mask_locs(model)]
     if not g.y_regular:
         extra.append(y_tables(g))
+    if getattr(g, "partial_cells", False):  # the 3D Δz at centres and faces
+        extra.append(dz3_pack(g))
     gp = state["G_prev"].values() if advance else []
     nb = tensor_bytes(state["solution"].values(), [state["w"], state["pHY"]], gp, outs,
                       extra)
@@ -5680,6 +5708,170 @@ def phase_ensemble_columns():
           f"launches { {k: n for k, n in launches.items() if n} } on {card_line()}")
     return {path: launches}, per_step * 1e3
 
+#: the partial-cell slice's ¼° path, "near-global partial cells":
+#: validation/near_global_lat_lon.py at deg = 0.25 (its grid and z faces,
+#: SplitExplicitFreeSurface(substeps=50), the spherical Coriolis,
+#: BuoyancyTracer, its vertically implicit ScalarDiffusivity, the zonal wind
+#: and the quadratic bottom drag, its b), with PartialCellBottom of its
+#: bathymetry in place of GridFittedBottom: 1440×600×24 fp32, the two-stage
+#: route (K4b's 3D-Δz tendency form, K4a's 3D-Δz form, K5 on the fluid
+#: depths, T1 on u, v and b). Its Δt is benchmark/bench_near_global.py's
+#: 600 s at ¼°, not the script's 1200 s, which it chose at 3°: at ¼° and
+#: 1200 s the fields go non-finite within a few steps over partial cells
+#: (PERF.md §6, the partial-cell entry); its 3 days are then 432
+#: iterations. ``warmup`` + ``steps`` timed steps, ``profiled`` more under
+#: the profiler (the idle share), ``agree`` steps with the kernels against as
+#: many with their plain versions, then the ``iterations`` through
+#: ``Simulation`` and the validation's checks
+NEAR_GLOBAL_PARTIAL = dict(deg=0.25, dt=600.0, warmup=2, steps=5, profiled=2, agree=3,
+                           iterations=432)
+#: the partial-cell holds at 1° over the same bathymetry (360×150×24), fp32 and
+#: fp64: K4a's 3D-Δz form, and K4b's under each scheme pair (momentum,
+#: tracers, tracer names), after ``steps`` steps from a random state
+PARTIAL_HOLD = dict(deg=1.0, steps=2, schemes={
+    "default": (VectorInvariant, CenteredSecondOrder, ()),
+    "WENO5": (lambda: VectorInvariant(scheme="weno_velocity"), WENO5, ("T", "S")),
+    "UB5 / BP": (UpwindBiasedFifthOrder, BoundsPreservingWENO5, ("T", "S"))})
+
+
+def partial_cells_census(model):
+    """(columns with a cut cell, cut cells, the smallest fraction) over the
+    interior of a partial-cell model's grid."""
+    g = model.grid
+    inner = (slice(g.Hx, g.Hx + g.Nx), slice(g.Hy, g.Hy + g.Ny), slice(g.Hz, g.Hz + g.Nz))
+    frac = g.dz(CENTER)[inner] / g._axes[2].dc[inner[2]]
+    cut = (frac < 1) & ~g.immersed.solid_ccc[inner]
+    return int(cut.any(-1).sum()), int(cut.sum()), float(frac[cut].min())
+
+
+def k4a_bound(g, sol, outs):
+    """K4a's bound: u, v, b and (partial cells) the two 3D Δz arrays read
+    once, w and pHY′ written once."""
+    from clima_oceananigans_jl_torch.ops.metric_rows import dz3_pack
+    extra = [dz3_pack(g)] if getattr(g, "partial_cells", False) else []
+    return bound(K4A, tensor_bytes([sol["u"], sol["v"], sol["b"]], outs, extra),
+                 g.Nx * g.Ny * g.Nz)
+
+
+def k4_readings(label, model, state, launches=None):
+    """K4a (w and pHY′) and K4b's tendency form on ``state``: held bit for
+    bit against their plain versions over NaN-filled outputs (K4b both
+    forms, its halos zero) and timed against their bounds; returns
+    (max|Δ| by kernel, {kernel: form record}), with ``launches`` (a path's
+    counts) in the records."""
+    g, sol, dtype = model.grid, state["solution"], model.grid.dtype
+    err = {K4A: hold_k4a(label, g, sol), K4B: hold_k4b(label, model, state)}
+    args = (g, sol["u"], sol["v"], sol["b"])
+    b_a = k4a_bound(g, sol, [t for t in hydrostatic_columns(*args)])
+    ms_a, plain_a = time_form(K4A, f"{label}, w and pHY'",
+                              lambda: hydrostatic_columns(*args),
+                              lambda: hydrostatic_columns_reference(*args), b_a)
+    b_b = k4b_bound(model, state, list(fused_hydrostatic_tendencies(model, state).values()),
+                    False)
+    ms_b, plain_b = time_form(K4B, f"{label}, tendencies",
+                              lambda: fused_hydrostatic_tendencies(model, state),
+                              lambda: fused_hydrostatic_tendencies_reference(model, state),
+                              b_b)
+    n = launches or {}
+    records = {K4A: form_record("partial cells", f"{label}, w and pHY'", err[K4A], ms_a,
+                                plain_a, *b_a, n.get(K4A, 0)),
+               K4B: form_record("partial cells", f"{label}, tendencies", err[K4B], ms_b,
+                                plain_b, *b_b, n.get(K4B, 0))}
+    torch.cuda.empty_cache()
+    return err, records
+
+
+def phase_partial_holds():
+    """K4a's and K4b's 3D-Δz forms at 1° (``PARTIAL_HOLD``) over the
+    near-global validation's bathymetry with PartialCellBottom, fp32 and
+    fp64: K4a on the default schemes' state, K4b under each scheme pair,
+    each bit for bit its plain version and timed against its bound.
+    Returns ({kernel: largest max|Δ|}, {kernel: form records})."""
+    c = PARTIAL_HOLD
+    worst, forms = {K4A: 0.0, K4B: 0.0}, {K4A: [], K4B: []}
+    for dtype in (torch.float32, torch.float64):
+        for short, (mom, tr, tracers) in c["schemes"].items():
+            model = near_global_lat_lon.model_for(
+                c["deg"], dtype, DEVICE, partial_cells=True, momentum_advection=mom(),
+                tracer_advection=tr(), tracers=tracers)
+            if not model.grid.partial_cells:
+                raise AssertionError(f"partial-cell hold {short}: no partial cells")
+            g = model.grid
+            gen = torch.Generator(device=DEVICE).manual_seed(24)
+            rand = lambda sc, o=0.0: o + sc * torch.randn(g.shape, generator=gen,
+                                                          device=DEVICE)
+            extra = {"T": rand(1.0, 10.0), "S": rand(1e-2, 35.0)} if tracers else {}
+            state = model.initial_state(u=rand(0.1), v=rand(0.1),
+                                        b=near_global_lat_lon.initial_b, **extra)
+            for _ in range(c["steps"]):
+                state = model.step(state, near_global_lat_lon.DT)
+            name = "fp32" if dtype is torch.float32 else "fp64"
+            label = (f"1 deg {name} partial cells, "
+                     f"{type(model.momentum_advection).__name__} / "
+                     f"{type(model.tracer_advection).__name__}")
+            err, records = k4_readings(label, model, state)
+            for k in (K4A, K4B):
+                worst[k] = max(worst[k], err[k])
+            # K4a's form does not depend on the schemes: one record a dtype
+            forms[K4B].append(records[K4B])
+            if short == "default":
+                forms[K4A].append(records[K4A])
+            del model, state
+            torch.cuda.empty_cache()
+    return worst, forms
+
+
+def phase_near_global_partial():
+    """``near-global partial cells`` (``NEAR_GLOBAL_PARTIAL``): the census of
+    cut cells, the timed steps and their launches, the idle share, K4a and
+    K4b read on the path's fields, the kernels' steps against the plain
+    versions' from one state (bit for bit over NaN-filled outputs), then 3
+    days through ``Simulation`` and the validation's checks, with the free
+    surface's volume check. Returns (the launches, {kernel: form record},
+    largest max|Δ| by kernel)."""
+    c, path = NEAR_GLOBAL_PARTIAL, "near-global partial cells"
+    ng = near_global_lat_lon
+    model = ng.model_for(c["deg"], torch.float32, DEVICE, partial_cells=True)
+    g = model.grid
+    if not g.partial_cells or model.fused_advance:
+        raise AssertionError(f"{path}: not the partial-cell two-stage route")
+    columns, cells, smallest = partial_cells_census(model)
+    print(f"{path}: {g.Nx}x{g.Ny}x{g.Nz} fp32, {columns} columns with a partial "
+          f"bottom cell ({cells} cut cells), the smallest fraction {smallest:.6f}")
+    step = lambda s: model.step(s, c["dt"])
+    state, per_step, launches = run_steps(path, model, ng.initial_state(model), step,
+                                          c["warmup"], c["steps"], plain=False)
+    state, _, idle, prof_ms = profiled_steps(step, state, c["profiled"])
+    check_finite(path, model, state, ("w", "pHY", "eta"))
+    idle_s = "not measured" if idle is None else f"{100 * idle:.1f}%"
+    print(f"{path}: {per_step * 1e3:.3f} ms/step ({c['steps']} steps after {c['warmup']}), "
+          f"{g.Nx * g.Ny * g.Nz / per_step / 1e6:.3f} M points/s, device idle {idle_s} "
+          f"(torch.profiler, {c['profiled']} steps, {prof_ms:.3f} ms/step), launches a step "
+          f"{ {k: n // (c['warmup'] + c['steps']) for k, n in launches.items() if n} } "
+          f"on {card_line()}")
+    err, records = k4_readings(f"1/4 deg fp32 on the {path} path's fields", model, state,
+                               launches)
+    poison_cache(g.total_shape, torch.float32, 12)
+    err_steps = steps_agree(path, model, state, c["agree"], c["dt"])
+    for k in (K4A, K4B):
+        err[k] = max(err[k], err_steps)
+    del state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sim = ng.run(model, ng.initial_state(model), c["iterations"], c["dt"],
+                 log=lambda line: print(f"{path}: {line}"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    umax = ng.check(model, sim.state, log=lambda line: print(f"{path}: {line}"))
+    net, gross = eta_balance(path, model, sim.state)
+    print(f"{path}: {c['iterations']} iterations of {c['dt']:g} s in {seconds:.1f} s "
+          f"({seconds / c['iterations'] * 1e3:.3f} ms an iteration through Simulation); "
+          f"u, v exactly 0 at solid faces, finite, max|u| {umax:.6f} in (1e-3, 3); "
+          f"|sum(eta Az)|/sum(|eta| Az) {abs(net) / gross:.3e}")
+    del model, sim
+    torch.cuda.empty_cache()
+    return launches, records, err
+
 
 def _timed_phase(fn):
     """``fn`` with its seconds printed after it ("phase <name>: s")."""
@@ -5798,6 +5990,11 @@ def main():
     by_path.update(counts)
     counts, _ = phase_ensemble_columns()
     by_path.update(counts)
+    # the partial-cell slice: K4a's and K4b's 3D-Δz forms at 1° and the ¼° path
+    partial_worst, partial_forms = phase_partial_holds()
+    by_path["near-global partial cells"], partial_readings, err = phase_near_global_partial()
+    for name in (K4A, K4B):
+        flat_worst[name] = max(flat_worst.get(name, 0.0), partial_worst[name], err[name])
     for name, err in flat_hold_worst.items():
         flat_worst[name] = max(flat_worst.get(name, 0.0), err)
     for name in (K4A, K4B, T1, K6):
@@ -5893,6 +6090,11 @@ def main():
     by_name[K4B]["forms"].append(front_reading)
     # K2's stretched-x/y form: its holds (no launches of their own)
     by_name[K2XY]["forms"] = k2xy_forms
+    # K4a's and K4b's 3D-Δz forms: the 1° holds and the ¼° path's readings,
+    # there with the path's launches
+    for name in (K4A, K4B):
+        by_name[name].setdefault("forms", []).extend(partial_forms[name]
+                                                     + [partial_readings[name]])
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s on "
           f"{card_line()}")
     print(json.dumps({"kernels": records}))

@@ -108,6 +108,17 @@
 // forms in the 16 x 8 tile. Their kernels call their own instantiations of
 // the out-of-line device functions (NEW), and every earlier instantiation
 // compiles as it did.
+// On partial bottom cells (PartialCellBottom: a 3D dz at z-centres and one
+// at z-faces, in the fields' layout) the run-time form takes one more flag,
+// D3, in the 16 x 8 tile with every scheme, option and Coriolis form (ANY,
+// BF, CART; launched through the _dz3 entries): each face area and volume
+// reads dz at its own point, as the port's ImmersedGrid gives Ax, Ay and V
+// (an x face of index i the dz_ccc of cell i, a y face of index j that of
+// cell j), and the vertical advection of the vector-invariant form reads
+// dz_ccf there; the dz values come from global memory through the cache, one
+// a face, beside the staged fields. The JAX kernel's gate refuses these
+// grids (JAX runs them in jnp). The closure never takes this form: the model
+// adds an immersed grid's diffusion as torch ops.
 // __launch_bounds__(512, 1) keeps a thread at 128 registers or fewer, so
 // 16 warps fit on an SM.
 #include <cuda_runtime.h>
@@ -164,6 +175,10 @@ struct HydroArgs {
   Bounds xb_t, yb_t, zb_t;
   T lo_m, hi_m, lo_t, hi_t;
   int bf_m, bf_t;  // BF: WENO5's bf16 option, flux-form momentum / tracers
+  // D3 (partial cells): the 3D with-halo dz at z-centres and at z-faces,
+  // in the fields' layout (the z rows' dz entries are not read)
+  const T* dzc3;
+  const T* dzf3;
 };
 
 // the tile and its shared-memory boxes, all with z (levels) fastest
@@ -362,8 +377,8 @@ __device__ __forceinline__ T weno_vorticity(const Pt<T>& P, const MomArrays<T, L
   return vel * rec;
 }
 
-// U.grad(u) at the u point
-template <typename T, int L>
+// U.grad(u) at the u point; D3: dz_f from the 3D array at (I, J, k)
+template <typename T, int L, bool D3 = false>
 __device__ __forceinline__ T vi_u(const Pt<T>& P, const MomArrays<T, L>& M, int mom) {
   const T* u = P.u;
   const T* v = P.v;
@@ -390,6 +405,7 @@ __device__ __forceinline__ T vi_u(const Pt<T>& P, const MomArrays<T, L>& M, int 
   // vertical advection izc(ixf(Az w) dzf(u) / dz_f) / Az
   const T az = P.yr(AZ_CC)[J];
   const T* dz_f = P.zr(Z_DZ_F);
+  if constexpr (D3) dz_f = P.A->dzf3 + ((int64_t)P.I * P.Y + J) * P.Z;
   auto qz = [&](int q, int qw, int k) {
     return (half * (az * w[qw] + az * w[qw - P.wsx])) * ieee_div(u[q] - u[q - 1], dz_f[k]);
   };
@@ -398,8 +414,8 @@ __device__ __forceinline__ T vi_u(const Pt<T>& P, const MomArrays<T, L>& M, int 
   return vort + vadv + bern;
 }
 
-// U.grad(v) at the v point
-template <typename T, int L>
+// U.grad(v) at the v point; D3: dz_f from the 3D array at (I, J, k)
+template <typename T, int L, bool D3 = false>
 __device__ __forceinline__ T vi_v(const Pt<T>& P, const MomArrays<T, L>& M, int mom) {
   const T* u = P.u;
   const T* v = P.v;
@@ -425,6 +441,7 @@ __device__ __forceinline__ T vi_v(const Pt<T>& P, const MomArrays<T, L>& M, int 
   }
   const T* az_cc = P.yr(AZ_CC);
   const T* dz_f = P.zr(Z_DZ_F);
+  if constexpr (D3) dz_f = P.A->dzf3 + ((int64_t)P.I * P.Y + J) * P.Z;
   auto qz = [&](int q, int qw, int k) {
     return (half * (az_cc[J] * w[qw] + az_cc[J - 1] * w[qw - P.wsy]))
            * ieee_div(v[q] - v[q - 1], dz_f[k]);
@@ -450,7 +467,10 @@ struct Tabs {
 // expressions they had before the other schemes came, so that they compile
 // as they did.
 
-template <bool ANY, bool BF, bool NEW, typename T>
+// D3: each face's area and the cell's volume from the 3D dz at the
+// centres beside the point (dz_ccc at the centre I or I - 1 of an x flux,
+// at (I, j) of a y flux), as ImmersedGrid's Ax, Ay and V read it
+template <bool ANY, bool BF, bool NEW, typename T, bool D3 = false>
 __device__ T div_vu(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64_t gsx,
                     int64_t gsy) {
   const HydroArgs<T>& A = *P.A;
@@ -465,7 +485,12 @@ __device__ T div_vu(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64
   const int64_t g = I * gsx + J * gsy + K;
   // x fluxes at centres I-1, I (to centres: the stream of face q+1)
   auto fx = [&](int q, int i) {
-    if constexpr (ANY)
+    if constexpr (D3)
+      return (P.yr(DY_C)[J] * A.dzc3[g + (i - I) * gsx])
+             * transport_any<true, BF>(u, q + sx, sx, half * (u[q + sx] + u[q]), A.sm, eps,
+                                   A.xm != 0, A.xb, i, false, tb.z, false, clr,
+                                   g + (i - I) * gsx, gsx, 1, A.lo_m, A.hi_m, A.bf_m);
+    else if constexpr (ANY)
       return Ax * transport_any<true, BF>(u, q + sx, sx, half * (u[q + sx] + u[q]), A.sm, eps,
                                       A.xm != 0, A.xb, i, false, tb.z, false, clr,
                                       g + (i - I) * gsx, gsx, 1, A.lo_m, A.hi_m, A.bf_m);
@@ -475,7 +500,12 @@ __device__ T div_vu(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64
                                    clear_at(clr, g + (i - I) * gsx, 0));
   };
   auto fy = [&](int q, int j) {
-    if constexpr (ANY)
+    if constexpr (D3)
+      return (P.yr(DX_FF)[j] * A.dzc3[g + (j - J) * gsy])
+             * transport_any<true, BF>(u, q, sy, half * (v[q] + v[q - sx]), A.sm, eps, A.ym != 0,
+                                   A.yb, j, tb.yon, tb.yf, true, clr, g + (j - J) * gsy, gsy,
+                                   2, A.lo_m, A.hi_m, A.bf_m);
+    else if constexpr (ANY)
       return (P.yr(DX_FF)[j] * dz)
              * transport_any<true, BF>(u, q, sy, half * (v[q] + v[q - sx]), A.sm, eps, A.ym != 0,
                                    A.yb, j, tb.yon, tb.yf, true, clr, g + (j - J) * gsy, gsy,
@@ -496,11 +526,15 @@ __device__ T div_vu(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64
                                    we && A.zm != 0, A.zb, k, we && tb.zon, tb.z,
                                    clear_at(clr, g + (k - K), 2));
   };
-  return ieee_div((fx(o, I) - fx(o - sx, I - 1)) + (fy(o + sy, J + 1) - fy(o, J))
-                  + (fz(o + 1, P.ow + 1, K + 1) - fz(o, P.ow, K)), az * dz);
+  if constexpr (D3)
+    return ieee_div((fx(o, I) - fx(o - sx, I - 1)) + (fy(o + sy, J + 1) - fy(o, J))
+                    + (fz(o + 1, P.ow + 1, K + 1) - fz(o, P.ow, K)), az * A.dzc3[g]);
+  else
+    return ieee_div((fx(o, I) - fx(o - sx, I - 1)) + (fy(o + sy, J + 1) - fy(o, J))
+                    + (fz(o + 1, P.ow + 1, K + 1) - fz(o, P.ow, K)), az * dz);
 }
 
-template <bool ANY, bool BF, bool NEW, typename T>
+template <bool ANY, bool BF, bool NEW, typename T, bool D3 = false>
 __device__ T div_vv(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64_t gsx,
                     int64_t gsy) {
   const HydroArgs<T>& A = *P.A;
@@ -514,7 +548,12 @@ __device__ T div_vv(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64
   const T Ax = P.yr(DY_F)[J] * dz;
   const int64_t g = I * gsx + J * gsy + K;
   auto fx = [&](int q, int i) {
-    if constexpr (ANY)
+    if constexpr (D3)
+      return (P.yr(DY_F)[J] * A.dzc3[g + (i - I) * gsx])
+             * transport_any<true, BF>(v, q, sx, half * (u[q] + u[q - sy]), A.sm, eps,
+                                   A.xm != 0, A.xb, i, false, tb.z, true, clr,
+                                   g + (i - I) * gsx, gsx, 1, A.lo_m, A.hi_m, A.bf_m);
+    else if constexpr (ANY)
       return Ax * transport_any<true, BF>(v, q, sx, half * (u[q] + u[q - sy]), A.sm, eps,
                                       A.xm != 0, A.xb, i, false, tb.z, true, clr,
                                       g + (i - I) * gsx, gsx, 1, A.lo_m, A.hi_m, A.bf_m);
@@ -524,7 +563,12 @@ __device__ T div_vv(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64
   };
   // y fluxes at centres J-1, J (to centres)
   auto fy = [&](int q, int j) {
-    if constexpr (ANY)
+    if constexpr (D3)
+      return (P.yr(DX_CC)[j] * A.dzc3[g + (j - J) * gsy])
+             * transport_any<true, BF>(v, q + sy, sy, half * (v[q + sy] + v[q]), A.sm, eps,
+                                   A.ym != 0, A.yb, j, tb.yon, tb.yc, false, clr,
+                                   g + (j - J) * gsy, gsy, 2, A.lo_m, A.hi_m, A.bf_m);
+    else if constexpr (ANY)
       return (P.yr(DX_CC)[j] * dz)
              * transport_any<true, BF>(v, q + sy, sy, half * (v[q + sy] + v[q]), A.sm, eps,
                                    A.ym != 0, A.yb, j, tb.yon, tb.yc, false, clr,
@@ -546,8 +590,12 @@ __device__ T div_vv(const Pt<T>& P, const Tabs<T>& tb, const uint8_t* clr, int64
                                    we && A.zm != 0, A.zb, k, we && tb.zon, tb.z,
                                    clear_at(clr, g + (k - K), 2));
   };
-  return ieee_div((fx(o + sx, I + 1) - fx(o, I)) + (fy(o, J) - fy(o - sy, J - 1))
-                  + (fz(o + 1, P.ow + 1, K + 1) - fz(o, P.ow, K)), az * dz);
+  if constexpr (D3)
+    return ieee_div((fx(o + sx, I + 1) - fx(o, I)) + (fy(o, J) - fy(o - sy, J - 1))
+                    + (fz(o + 1, P.ow + 1, K + 1) - fz(o, P.ow, K)), az * A.dzc3[g]);
+  else
+    return ieee_div((fx(o + sx, I + 1) - fx(o, I)) + (fy(o, J) - fy(o - sy, J - 1))
+                    + (fz(o + 1, P.ow + 1, K + 1) - fz(o, P.ow, K)), az * dz);
 }
 
 // ---- Coriolis ---------------------------------------------------------------------
@@ -636,7 +684,7 @@ __device__ __forceinline__ void store_zero(const HydroArgs<T>& A, int64_t p) {
 }
 
 template <typename T, int MOM, int COR, int TABLES_ON, int ADV, int XTRA, bool ANY,
-          bool BF = false, int L = LAYOUT_TILE, bool CART = false>
+          bool BF = false, int L = LAYOUT_TILE, bool CART = false, bool D3 = false>
 __global__ void __launch_bounds__(HT_THREADS, 1)
 fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
   using TL = HTile<L>;
@@ -832,8 +880,8 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
     const int64_t p = I * gsx + J * gsy + K;
     // u
     T g = T(0);
-    if (mom == FLUX_FORM) g = -div_vu<ANY, BF, NEW>(P, tb, clr_u, gsx, gsy);
-    else if (mom != NO_MOMENTUM) g = -vi_u(P, M, mom);
+    if (mom == FLUX_FORM) g = -div_vu<ANY, BF, NEW, T, D3>(P, tb, clr_u, gsx, gsy);
+    else if (mom != NO_MOMENTUM) g = -vi_u<T, L, D3>(P, M, mom);
     if (cor != NO_CORIOLIS) g = g - f_cross_x<CART>(P, cor);
     if (A.ph != nullptr) g = g - ieee_div(A.ph[p] - A.ph[p - gsx], P.yr(DX_FC)[J]);
     if (closure != NO_CLOSURE)
@@ -842,8 +890,8 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
     store<T, ADV>(A, 0, p, su[P.o], g);
     // v
     g = T(0);
-    if (mom == FLUX_FORM) g = -div_vv<ANY, BF, NEW>(P, tb, clr_v, gsx, gsy);
-    else if (mom != NO_MOMENTUM) g = -vi_v(P, M, mom);
+    if (mom == FLUX_FORM) g = -div_vv<ANY, BF, NEW, T, D3>(P, tb, clr_v, gsx, gsy);
+    else if (mom != NO_MOMENTUM) g = -vi_v<T, L, D3>(P, M, mom);
     if (cor != NO_CORIOLIS) g = g - f_cross_y<CART>(P, cor);
     if (A.ph != nullptr) g = g - ieee_div(A.ph[p] - A.ph[p - gsy], P.yr(DY_F)[J]);
     if (closure != NO_CLOSURE)
@@ -901,7 +949,12 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
         const int i = I0 + c / TL::Y, j = J0 + c % TL::Y;
         if (i > I1 || j >= J1 || k >= K1) continue;
         const int q = at(i, j, k);
-        if constexpr (ANY)
+        if constexpr (D3)
+          FX[t] = (A.ys[DY_C * Y + j] * A.dzc3[i * gsx + j * gsy + k])
+                  * transport_any<true, BF>(sc, q, sx, su[q], A.tr, eps, A.xm_t != 0, A.xb_t, i,
+                                        false, tb.z, true, clr_c, i * gsx + j * gsy + k, gsx,
+                                        1, A.lo_t, A.hi_t, A.bf_t);
+        else if constexpr (ANY)
           FX[t] = (A.ys[DY_C * Y + j] * A.zs[Z_DZ_C * Z + k])
                   * transport_any<true, BF>(sc, q, sx, su[q], A.tr, eps, A.xm_t != 0, A.xb_t, i,
                                         false, tb.z, true, clr_c, i * gsx + j * gsy + k, gsx,
@@ -919,7 +972,12 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
           i = I0 + c / TL::YFY, j = fy ? J0 : J0 + c % TL::YFY;
         if (i >= I1 || j > J1 || k >= K1) continue;
         const int q = at(i, j, k);
-        if constexpr (ANY)
+        if constexpr (D3)
+          FY[s] = (A.ys[DX_CF * Y + j] * A.dzc3[i * gsx + j * gsy + k])
+                  * transport_any<true, BF>(sc, q, sy, sv[q], A.tr, eps, A.ym_t != 0, A.yb_t, j,
+                                        tb.yon, tb.yf, true, clr_c, i * gsx + j * gsy + k, gsy,
+                                        2, A.lo_t, A.hi_t, A.bf_t);
+        else if constexpr (ANY)
           FY[s] = (A.ys[DX_CF * Y + j] * A.zs[Z_DZ_C * Z + k])
                   * transport_any<true, BF>(sc, q, sy, sv[q], A.tr, eps, A.ym_t != 0, A.yb_t, j,
                                         tb.yon, tb.yf, true, clr_c, i * gsx + j * gsy + k, gsy,
@@ -952,7 +1010,10 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
       const T dz = A.zs[Z_DZ_C * Z + K], az = A.ys[AZ_CC * Y + J];
       const int x0 = fxi(I, J, K), y0 = fyi(I, J, K), z0 = fzi(I, J, K);
       T div;  // (on a Flat axis the far face's slot is the near one's)
-      if constexpr (L == LAYOUT_TILE)
+      if constexpr (D3)
+        div = ieee_div(((FX[x0 + TL::Y * kz] - FX[x0]) + (FY[y0 + kz] - FY[y0]))
+                       + (FZ[z0 + 1] - FZ[z0]), az * A.dzc3[p]);
+      else if constexpr (L == LAYOUT_TILE)
         div = ieee_div(((FX[x0 + TL::Y * kz] - FX[x0]) + (FY[y0 + kz] - FY[y0]))
                        + (FZ[z0 + 1] - FZ[z0]), az * dz);
       else
@@ -968,10 +1029,11 @@ fused_hydrostatic_tendencies_kernel(const __grid_constant__ HydroArgs<T> A) {
 }
 
 template <typename T, int MOM, int COR, int TABLES_ON, int ADV, int XTRA, bool ANY = false,
-          bool BF = false, int L = LAYOUT_TILE, bool CART = false>
+          bool BF = false, int L = LAYOUT_TILE, bool CART = false, bool D3 = false>
 static int run(const HydroArgs<T>& A, dim3 blocks, int smem, cudaStream_t stream) {
   auto kernel =
-      fused_hydrostatic_tendencies_kernel<T, MOM, COR, TABLES_ON, ADV, XTRA, ANY, BF, L, CART>;
+      fused_hydrostatic_tendencies_kernel<T, MOM, COR, TABLES_ON, ADV, XTRA, ANY, BF, L, CART,
+                                          D3>;
   if (smem > 48 * 1024) {
     const int rc = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1009,6 +1071,17 @@ static int run_new_form(HydroArgs<T>& A, cudaStream_t st) {
   return run<T, -1, -1, -1, -1, 1, true, true, L, true>(A, blocks, smem, st);
 }
 
+// a launch on partial cells (3D dz): the run-time form with every scheme,
+// option and Coriolis form (ANY with BF, CART) in the 16 x 8 tile, reading
+// dz per point from the two 3D arrays (D3)
+template <typename T>
+static int run_dz3(HydroArgs<T>& A, cudaStream_t st) {
+  dim3 blocks;
+  int smem;
+  shape<T, LAYOUT_TILE>(A, &blocks, &smem);
+  return run<T, -1, -1, -1, -1, 1, true, true, LAYOUT_TILE, true, true>(A, blocks, smem, st);
+}
+
 template <typename T>
 static int launch(const void* const* psi, const void* w, const void* ph,
                   const void* ys, const void* zs, const void* yt, const void* clr_c,
@@ -1018,8 +1091,11 @@ static int launch(const void* const* psi, const void* w, const void* ph,
                   int hz, int mom, int sm, int tr, int cor, int tables,
                   int ytables, int closure, int advance, const int* b, double eps_m,
                   double eps_t, double c1, double c2, double dt, const int* bt,
-                  const double* pw, int fx, int fy, void* stream) {
+                  const double* pw, int fx, int fy, const void* dz3, void* stream) {
   if (nf < 2 || nf > MAX_FIELDS) return (int)cudaErrorInvalidValue;
+  // partial cells: a tile of both horizontal axes, and no in-kernel closure
+  // (the model adds an immersed grid's diffusion as torch ops)
+  if (dz3 != nullptr && (fx || fy || closure != NO_CLOSURE)) return (int)cudaErrorInvalidValue;
   // a Flat axis: one cell, no halo
   if ((fx && (nx != 1 || hx != 0)) || (fy && (ny != 1 || hy != 0)))
     return (int)cudaErrorInvalidValue;
@@ -1064,7 +1140,7 @@ static int launch(const void* const* psi, const void* w, const void* ph,
   // the Flat layouts and the Cartesian Coriolis forms take the run-time
   // form with every scheme and option (ANY with BF), whatever the schemes
   const bool cart = cor == CARTESIAN || cor == NON_TRADITIONAL;
-  const bool new_form = fx || fy || cart;
+  const bool new_form = fx || fy || cart || dz3 != nullptr;
   const int* m = any || new_form || (mom == FLUX_FORM && sm == SCHEME_WENO5) ? b : bt;
   A.xm = m[0]; A.xb = Bounds{m[1], m[2], m[3], m[4]};
   A.ym = m[5]; A.yb = Bounds{m[6], m[7], m[8], m[9]};
@@ -1078,6 +1154,10 @@ static int launch(const void* const* psi, const void* w, const void* ph,
   if (nx <= 0 || ny <= 0 || nz <= 0) return 0;
   A.h2d = fast_div(2 * hz);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  A.dzc3 = static_cast<const T*>(dz3);
+  A.dzf3 = A.dzc3 == nullptr ? nullptr
+                             : A.dzc3 + (int64_t)(nx + 2 * hx) * (ny + 2 * hy) * (nz + 2 * hz);
+  if (dz3 != nullptr) return run_dz3<T>(A, st);
   if (fx && fy) return run_new_form<T, LAYOUT_FLAT_XY>(A, st);
   if (fx) return run_new_form<T, LAYOUT_FLAT_X>(A, st);
   if (fy) return run_new_form<T, LAYOUT_FLAT_Y>(A, st);
@@ -1105,6 +1185,8 @@ static int launch(const void* const* psi, const void* w, const void* ph,
   return run<T, -1, -1, -1, -1, 1>(A, blocks, smem, st);
 }
 
+#define COMMA_DZ3_PARAM , const void* dz3
+
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success). Pointer arrays
@@ -1118,8 +1200,11 @@ extern "C" {
 // hi_r; `bt` a host array of the tracer scheme's 15, `pw` one of
 // PositiveWENO5's (lo, hi) of the momentum and of the tracer scheme. `fx`
 // and `fy` mark a Flat x and y (extent 1, halo 0); with a Flat y `ys` holds
-// 1 + 2 HT_R copies of each row's one value.
-#define FUSED_HYDROSTATIC_TENDENCIES(NAME, T)                                  \
+// 1 + 2 HT_R copies of each row's one value. The _dz3 entries take one more
+// pointer, `dz3`: a partial-cell grid's 3D dz at z-centres then at z-faces
+// (2 x X x Y x Z, the fields' layout); `zs` then holds the z tables alone
+// in its rows (its dz rows are not read).
+#define FUSED_HYDROSTATIC_TENDENCIES(NAME, T, DZ3_ARG, DZ3)                    \
   int NAME(const void* const* psi, const void* w, const void* ph,              \
            const void* ys, const void* zs, const void* yt, const void* clr_c,  \
            const void* clr_u, const void* clr_v, const void* const* gp,        \
@@ -1130,16 +1215,20 @@ extern "C" {
            int b3, int b4, int b5, int b6, int b7, int b8, int b9, int b10,    \
            int b11, int b12, int b13, int b14, double eps_m, double eps_t,     \
            double c1, double c2, double dt, const int* bt, const double* pw,   \
-           int fx, int fy, void* stream) {                                     \
+           int fx, int fy DZ3_ARG, void* stream) {                             \
     const int b[15] = {b0, b1, b2, b3, b4, b5, b6, b7,                         \
                        b8, b9, b10, b11, b12, b13, b14};                       \
     return launch<T>(psi, w, ph, ys, zs, yt, clr_c, clr_u, clr_v, gp, out_g,   \
                      out_psi, kh, kv, nf, nx, ny, nz, hx, hy, hz, mom, sm, tr, \
                      cor, tables, ytables, closure, advance, b, eps_m, eps_t,  \
-                     c1, c2, dt, bt, pw, fx, fy, stream);                      \
+                     c1, c2, dt, bt, pw, fx, fy, DZ3, stream);                 \
   }
 
-FUSED_HYDROSTATIC_TENDENCIES(fused_hydrostatic_tendencies_f32, float)
-FUSED_HYDROSTATIC_TENDENCIES(fused_hydrostatic_tendencies_f64, double)
+FUSED_HYDROSTATIC_TENDENCIES(fused_hydrostatic_tendencies_f32, float, , nullptr)
+FUSED_HYDROSTATIC_TENDENCIES(fused_hydrostatic_tendencies_f64, double, , nullptr)
+FUSED_HYDROSTATIC_TENDENCIES(fused_hydrostatic_tendencies_dz3_f32, float,
+                             COMMA_DZ3_PARAM, dz3)
+FUSED_HYDROSTATIC_TENDENCIES(fused_hydrostatic_tendencies_dz3_f64, double,
+                             COMMA_DZ3_PARAM, dz3)
 
 }  // extern "C"

@@ -50,6 +50,17 @@
 // the run and one column more, so that u at x+1 is the next staged column,
 // and v over the run, whose y+1 neighbour is the column itself, as the
 // plain version's roll of an axis of extent 1 makes it.
+//
+// On partial bottom cells (D3, ops/fused_hydrostatic.py's 3D-dz form) dz is
+// a 3D array in the fields' layout, and the factoring above no longer
+// holds: the grid's Ax at a u face of index i reads dz_ccc of cell i (the
+// cell east of the face), its Ay at a v face of index j dz_ccc of cell j
+// (north of it), and V and the increment's own dz that of the cell itself,
+// so a cell's east and west faces read different dz (immersed/immersed.py,
+// as the JAX ImmersedGrid.spacing gives them); pHY' reads dz_ccf. Each
+// thread of step 2 reads its point's three dz_ccc values and its dz_ccf
+// from global memory (consecutive threads, consecutive addresses, as the
+// staged copies are), and the rest of the kernel is as above.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,6 +88,9 @@ struct ColumnArgs {
   int nx, ny, nz, hx, hy, hz;
   int run, nruns, zp;  // columns a block, blocks an x row, padded column stride
   FastDiv zd;          // division by the column length Z
+  // D3: the 3D dz at z-centres and at z-faces (the z rows are not read)
+  const T* dzc3;
+  const T* dzf3;
 };
 
 // shared-memory elements of a block owning `run` columns: u at x and x+1, v
@@ -86,7 +100,7 @@ static long long column_smem_elems(int run, int Z, int zp, bool with_b) {
          (long long)run * zp * (with_b ? 2 : 1);
 }
 
-template <typename T, bool FLAT_Y>
+template <typename T, bool FLAT_Y, bool D3 = false>
 __global__ void __launch_bounds__(HC_THREADS)
 hydrostatic_columns_kernel(const ColumnArgs<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -134,6 +148,26 @@ hydrostatic_columns_kernel(const ColumnArgs<T> A) {
   for (int e = threadIdx.x; e < n; e += HC_THREADS) {
     const int j = A.zd.div(e), k = e - j * Z, J = FLAT_Y ? 0 : J0 + j;
     T incr = T(0);
+    if constexpr (D3) {
+      if (k > A.hz && k <= A.hz + A.nz) {
+        const int c = e - 1;  // level k - 1 of column j
+        // dz_ccc of the cell, of the cell east of it (x+1) and north (y+1)
+        const T dz = __ldg(A.dzc3 + g0 + c);
+        const T dze = __ldg(A.dzc3 + gn + c);
+        const T dzn = __ldg(A.dzc3 + (j + 1 < nc ? g0 + c + Z : row + (int64_t)Jn * Z + (k - 1)));
+        const T AxR = dy_c[J] * dze, AxL = dy_c[J] * dz;
+        const T AyR = dx_cf[J + 1 < Y ? J + 1 : 0] * dzn, AyL = dx_cf[J] * dz;
+        const T d = ((AxR * su1[c] - AxL * su0[c]) + (AyR * sv[c + Z] - AyL * sv[c]))
+                    / (az_cc[J] * dz);
+        incr = dz * d;
+      }
+      sw[j * zp + k] = incr;
+      if (with_b)
+        sph[j * zp + k] = k >= A.hz && k < A.hz + A.nz
+                              ? (T(0.5) * (sb[e + 1] + sb[e])) * __ldg(A.dzf3 + g0 + e + 1)
+                              : T(0);
+      continue;
+    }
     if (k > A.hz && k <= A.hz + A.nz) {
       const int c = e - 1;  // level k - 1 of column j
       const T dz = dz_c[k - 1];
@@ -198,9 +232,9 @@ static bool column_shape(int Y, int nz, int hz, bool with_b, int* run,
   return true;
 }
 
-template <typename T, bool FLAT_Y>
+template <typename T, bool FLAT_Y, bool D3 = false>
 static int run(ColumnArgs<T>& A, int smem, cudaStream_t st) {
-  auto kernel = hydrostatic_columns_kernel<T, FLAT_Y>;
+  auto kernel = hydrostatic_columns_kernel<T, FLAT_Y, D3>;
   if (smem > HC_SMEM) {
     const int rc = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -215,7 +249,7 @@ static int run(ColumnArgs<T>& A, int smem, cudaStream_t st) {
 template <typename T>
 static int launch(const void* u, const void* v, const void* b, const void* ys,
                   const void* zs, void* w, void* ph, int nx, int ny, int nz,
-                  int hx, int hy, int hz, void* stream) {
+                  int hx, int hy, int hz, bool d3, void* stream) {
   if ((b == nullptr) != (ph == nullptr)) return (int)cudaErrorInvalidValue;
   if (nx <= 0 || ny <= 0 || nz <= 0 || hz < 1)  // b's top face is a halo level
     return (int)cudaErrorInvalidValue;
@@ -224,18 +258,22 @@ static int launch(const void* u, const void* v, const void* b, const void* ys,
   A.v = static_cast<const T*>(v);
   A.b = static_cast<const T*>(b);
   A.ys = static_cast<const T*>(ys);
-  A.zs = static_cast<const T*>(zs);
+  A.zs = d3 ? nullptr : static_cast<const T*>(zs);
+  A.dzc3 = d3 ? static_cast<const T*>(zs) : nullptr;
+  A.dzf3 = d3 ? A.dzc3 + (int64_t)(nx + 2 * hx) * (ny + 2 * hy) * (nz + 2 * hz) : nullptr;
   A.w = static_cast<T*>(w);
   A.ph = static_cast<T*>(ph);
   A.nx = nx; A.ny = ny; A.nz = nz; A.hx = hx; A.hy = hy; A.hz = hz;
   // a Flat y (one y index): runs along x
   const bool flat_y = ny + 2 * hy == 1;
+  if (d3 && (flat_y || nx + 2 * hx == 1)) return (int)cudaErrorInvalidValue;
   int smem;
   if (!column_shape<T>(flat_y ? nx + 2 * hx : ny + 2 * hy, nz, hz, b != nullptr, &A.run,
                        &A.nruns, &A.zp, &smem))
     return (int)cudaErrorInvalidConfiguration;
   A.zd = fast_div((unsigned)(nz + 2 * hz));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d3) return run<T, false, true>(A, smem, st);
   return flat_y ? run<T, true>(A, smem, st) : run<T, false>(A, smem, st);
 }
 
@@ -255,17 +293,21 @@ static int config(int ny, int hy, int nz, int hz, int with_b, int* out) {
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success). `b` and `ph`
-// are both device pointers (pHY' too) or both null (w only).
-#define HYDROSTATIC_COLUMNS(NAME, T)                                        \
+// are both device pointers (pHY' too) or both null (w only). The _dz3
+// entries take a partial-cell grid's 3D dz at z-centres then at z-faces
+// (2 x X x Y x Z, the fields' layout) in place of the z rows `zs`.
+#define HYDROSTATIC_COLUMNS(NAME, T, D3)                                    \
   int NAME(const void* u, const void* v, const void* b, const void* ys,     \
            const void* zs, void* w, void* ph, int nx, int ny, int nz,       \
            int hx, int hy, int hz, void* stream) {                          \
-    return launch<T>(u, v, b, ys, zs, w, ph, nx, ny, nz, hx, hy, hz,        \
+    return launch<T>(u, v, b, ys, zs, w, ph, nx, ny, nz, hx, hy, hz, D3,    \
                      stream);                                               \
   }
 
-HYDROSTATIC_COLUMNS(hydrostatic_columns_f32, float)
-HYDROSTATIC_COLUMNS(hydrostatic_columns_f64, double)
+HYDROSTATIC_COLUMNS(hydrostatic_columns_f32, float, false)
+HYDROSTATIC_COLUMNS(hydrostatic_columns_f64, double, false)
+HYDROSTATIC_COLUMNS(hydrostatic_columns_dz3_f32, float, true)
+HYDROSTATIC_COLUMNS(hydrostatic_columns_dz3_f64, double, true)
 
 // The launch's shape for ny, hy, nz, hz (with b or not): out[0..4] =
 // columns a block, blocks an x row, shared memory bytes, threads a block,

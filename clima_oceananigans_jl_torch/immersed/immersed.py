@@ -13,9 +13,11 @@ forwards every attribute it lacks to it, but keeps a ``_cache`` of its
 own: the column depths, K5's depth planes and every other entry cached
 per grid are built again for the immersed grid, so none of the parent's
 flat-bottom values leaks into the immersed model. ``PartialCellBottom``
-(fractional bottom cells, 3D vertical metrics) is not ported: JAX's
-kernel gate refuses it too, and the hydrostatic model refuses it by name
-(ROADMAP Queue 1 item 7).
+builds a ``PartialCellBoundary``: the masks and two 3D with-halo Δz
+arrays (at z-centres and z-faces), which ``ImmersedGrid`` returns from
+``spacing``/``dz``/``Ax``/``Ay``/``V`` in place of the parent's z row, as
+the JAX ``ImmersedGrid`` does. The hydrostatic model takes it; the
+nonhydrostatic model refuses it by name (ROADMAP Queue 1 item 7).
 
 ``clear_flags`` turns the conditional fluxes into the kernels' input: one
 uint8 tensor a location, cached on the immersed grid, which K2
@@ -30,7 +32,7 @@ from typing import Any
 import torch
 
 from ..advection.schemes import _immersed_clear
-from ..utils.location import CENTER, F, U_LOC, V_LOC, W_LOC
+from ..utils.location import C, CENTER, F, U_LOC, V_LOC, W_LOC
 
 #: the flux direction of each axis' transports of a field at a location
 #: (to faces True, to centres False), as ``advection/fluxes.py`` has them
@@ -137,12 +139,33 @@ class ImmersedGrid:
     ImmersedBoundaryGrid): ``.immersed`` gives the masks, which
     ``advection/schemes.py::transport`` (the conditional fluxes), the
     diffusive fluxes, the column depths and the model's masking read;
-    every other attribute is the parent's, but ``_cache`` is its own."""
+    every other attribute is the parent's, but ``_cache`` is its own.
 
-    def __init__(self, parent, boundary):
+    With partial cells (``dz_ccc``/``dz_ccf``, 3D with-halo tensors) the
+    vertical metrics are overridden: ``dz`` at any location is ``dz_ccc``
+    where its z location is a centre and ``dz_ccf`` where it is a face, and
+    ``Ax``, ``Ay`` and ``V`` multiply the parent's horizontal metric by it.
+    Each is defined here, not forwarded: the parent's own ``Ax`` would read
+    the parent's z row."""
+
+    def __init__(self, parent, boundary, dz_ccc=None, dz_ccf=None):
         self.parent = parent
         self.boundary = boundary
+        self._dz_ccc = dz_ccc
+        self._dz_ccf = dz_ccf
         self._cache = {}
+
+    @classmethod
+    def wrap(cls, parent, boundary):
+        """``parent`` with ``boundary``, whose ``dz_ccc``/``dz_ccf`` (a
+        ``PartialCellBoundary``'s) become the grid's vertical metrics."""
+        return cls(parent, boundary, getattr(boundary, "dz_ccc", None),
+                   getattr(boundary, "dz_ccf", None))
+
+    @property
+    def partial_cells(self):
+        """Whether the vertical metrics are 3D (partial bottom cells)."""
+        return self._dz_ccc is not None
 
     @property
     def immersed(self):
@@ -155,6 +178,24 @@ class ImmersedGrid:
 
     def __repr__(self):
         return f"ImmersedGrid({self.parent!r})"
+
+    # -- partial-cell vertical metrics --------------------------------------
+    def spacing(self, axis, loc):
+        if axis == 2 and self._dz_ccc is not None:
+            return self._dz_ccc if loc[2] == C else self._dz_ccf
+        return self.parent.spacing(axis, loc)
+
+    def dz(self, loc):
+        return self.spacing(2, loc)
+
+    def Ax(self, loc):
+        return self.parent.dy(loc) * self.dz(loc)
+
+    def Ay(self, loc):
+        return self.parent.dx(loc) * self.dz(loc)
+
+    def V(self, loc):
+        return self.parent.Az(loc) * self.dz(loc)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,12 +219,57 @@ class GridFittedBottom:
         return ImmersedBoundary.from_bottom_height(grid, self.bottom_height)
 
 
+@dataclasses.dataclass
+class PartialCellBoundary(ImmersedBoundary):
+    """A bottom with fractional (partial) bottom cells (Oceananigans'
+    partial_cell_immersed_boundaries.jl): the lowest fluid cell of each
+    column is shortened to the water depth above the bottom, at least
+    ``minimum_fraction`` of the full cell. ``dz_ccc`` and ``dz_ccf`` are
+    the 3D with-halo Δz at z-centres and z-faces that ``ImmersedGrid``
+    returns as its vertical metrics."""
+
+    dz_ccc: torch.Tensor = None
+    dz_ccf: torch.Tensor = None
+
+    @classmethod
+    def from_bottom(cls, grid, bottom, minimum_fraction=0.2):
+        """The JAX ``PartialCellBoundary.from_bottom``, in its order: h (a
+        callable of the horizontal nodes, a constant or an array) and the
+        cells from the z axis' rows in the grid's dtype; a cell is solid
+        where its top face is at or below h, and the cell h cuts keeps
+        max(z_top − h, minimum_fraction Δz); the face spacing is the
+        distance between the effective cell centres, its first entry the
+        axis' own."""
+        x, y, _ = grid.nodes(CENTER, with_halo=True)
+        h = bottom(x, y) if callable(bottom) else bottom
+        h = torch.as_tensor(h, dtype=grid.dtype, device=grid.device)
+        ax = grid._axes[2]
+        z_bot = ax.cf.reshape(1, 1, -1)
+        dz = ax.dc.reshape(1, 1, -1)
+        z_top = z_bot + dz
+        solid = torch.broadcast_to(z_top <= h, grid.total_shape).contiguous()
+        partial = (z_bot < h) & (z_top > h)
+        dz_eff = torch.where(partial, torch.maximum(z_top - h, minimum_fraction * dz), dz)
+        dz_ccc = torch.broadcast_to(dz_eff, grid.total_shape).to(grid.dtype).contiguous()
+        zc_eff = z_top - 0.5 * dz_eff
+        dz_f = zc_eff - torch.roll(zc_eff, 1, 2)
+        dz_f[:, :, :1] = torch.broadcast_to(ax.df.reshape(1, 1, -1), dz_f.shape)[:, :, :1]
+        dz_ccf = torch.broadcast_to(dz_f, grid.total_shape).to(grid.dtype).contiguous()
+        return cls(solid, _face_mask(solid, 0), _face_mask(solid, 1),
+                   _face_mask(solid, 2), dz_ccc, dz_ccf)
+
+
 @dataclasses.dataclass(frozen=True)
 class PartialCellBottom:
     """GridFittedBottom with fractional bottom cells (Oceananigans'
-    PartialCellBottom). Not ported: it needs 3D vertical metrics, which
-    the kernels do not take (the JAX kernel gate refuses them too), so the
-    model refuses it (ROADMAP Queue 1 item 7)."""
+    PartialCellBottom): solid where a cell's top face is at or below
+    ``bottom_height(x, y)`` (or a constant or array), the cut cell kept
+    at ``minimum_fraction`` of its height or more. The hydrostatic model
+    takes it; the nonhydrostatic model refuses it (ROADMAP Queue 1 item 7)."""
 
     bottom_height: Any
     minimum_fraction: float = 0.2
+
+    def build(self, grid):
+        return PartialCellBoundary.from_bottom(grid, self.bottom_height,
+                                               self.minimum_fraction)

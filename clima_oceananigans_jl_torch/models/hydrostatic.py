@@ -52,9 +52,12 @@ state (``buoyancy/nonlinear_eos.py``), gravity tilted or not: K4a
 integrates −ĝ_z b into pHY′; as in the JAX package the hydrostatic model
 has no x or y buoyancy term.
 
-Immersed boundaries (``GridFittedBottom``, ``GridFittedBoundary``): the
-grid is wrapped in an ``ImmersedGrid`` after its halos are set (the JAX
-plain path's halos); ``update_state`` masks the solution after its fills,
+Immersed boundaries (``GridFittedBottom``, ``GridFittedBoundary``,
+``PartialCellBottom``): the grid is wrapped in an ``ImmersedGrid`` after
+its halos are set (the JAX plain path's halos); with partial cells its
+Δz, Ax, Ay and V are 3D (K4a and K4b read the two Δz arrays, the
+implicit vertical diffusion the z axis' row, as in the JAX package);
+``update_state`` masks the solution after its fills,
 ``tendencies`` adds the immersed bottom's fluxes and masks the
 tendencies, the column depths count fluid cells (K5 reads them as (X, Y)
 planes), the implicit free surface's "auto" solve is "pcg", and K4b's
@@ -71,8 +74,8 @@ static gates, so a configuration they lack raises there and the wrappers
 do not check again. Not ported here,
 because they are TPU-only: the halo rounding to multiples of 4, the
 (x, z, y) state layout, the MXU cumsum, the distributed overlap. A
-configuration the port cannot run yet (``PartialCellBottom``) raises
-``NotImplementedError`` at construction, naming its ROADMAP item.
+configuration the port cannot run raises ``NotImplementedError`` at
+construction.
 
 Lagrangian particles (``particles=``, a ``LagrangianParticles``) ride in
 ``state["particles"]``: after each step's ``update_state`` they are
@@ -95,7 +98,7 @@ from ..closures.scalar_diffusivity import (add_tke_tendency,
 from ..fields.field import Field, new_field, set_field
 from ..forcings.forcing import regularize_forcing
 from ..grids.topology import BOUNDED, FLAT
-from ..immersed.immersed import ImmersedGrid, PartialCellBottom
+from ..immersed.immersed import ImmersedGrid
 from ..ops.fused_barotropic import fused_substep_eta, fused_substep_eta_reference
 from ..ops.fused_barotropic import unsupported_reason as barotropic_unsupported_reason
 from ..ops.fused_fill import fused_fill_halos, fused_fill_halos_reference
@@ -135,11 +138,8 @@ PLAIN = dict(columns=hydrostatic_columns_reference,
              tridiagonal=solve_batched_tridiagonal_reference)
 
 
-def _unsupported_reason(model, immersed_boundary):
+def _unsupported_reason(model):
     """Why the port cannot run this configuration yet, or None."""
-    if isinstance(immersed_boundary, PartialCellBottom):
-        return ("PartialCellBottom (fractional bottom cells, 3D vertical "
-                "metrics) is not ported yet (ROADMAP Queue 1 item 7)")
     fs = model.free_surface
     if isinstance(fs, ImplicitFreeSurface):
         if fs.resolve_method(model.grid) not in ("fft", "pcg", "matrix",
@@ -198,13 +198,13 @@ class HydrostaticFreeSurfaceModel:
         self.grid = grid.with_halo((h, h, h))
         # an immersed boundary: its masks built on the final grid, which is
         # wrapped (Oceananigans' ImmersedBoundaryGrid)
-        self.immersed_boundary = None
-        if (immersed_boundary is not None
-                and not isinstance(immersed_boundary, PartialCellBottom)):
-            if hasattr(immersed_boundary, "build"):
-                immersed_boundary = immersed_boundary.build(self.grid)
-            self.immersed_boundary = immersed_boundary
-            self.grid = ImmersedGrid(self.grid, immersed_boundary)
+        # (a PartialCellBoundary's Δz arrays become the grid's vertical
+        # metrics)
+        if immersed_boundary is not None and hasattr(immersed_boundary, "build"):
+            immersed_boundary = immersed_boundary.build(self.grid)
+        self.immersed_boundary = immersed_boundary
+        if immersed_boundary is not None:
+            self.grid = ImmersedGrid.wrap(self.grid, immersed_boundary)
         self.free_surface = (free_surface if free_surface is not None
                              else ImplicitFreeSurface())
         self.buoyancy = buoyancy
@@ -225,7 +225,7 @@ class HydrostaticFreeSurfaceModel:
         self.w_bcs = wb
         self.pressure_bcs = regularize_bcs(self.grid, CENTER, None)
         self.particles = particles
-        reason = _unsupported_reason(self, immersed_boundary)
+        reason = _unsupported_reason(self)
         if (reason is None and self.grid.device.type == "cuda"
                 and self.fused_advection):
             # on the card the kernels run: their gates decide now

@@ -38,6 +38,16 @@ card that becomes two kernels:
   ``NonTraditionalBetaPlane``: their w terms read the staged w). Its
   plain version is the core (and ``ab2_substep``).
 
+On partial bottom cells (``PartialCellBottom``, whose grid's Δz is two 3D
+arrays) both kernels run their 3D-Δz forms, through the entries
+``hydrostatic_columns_dz3`` and ``fused_hydrostatic_tendencies_dz3``, which
+read ``metric_rows.dz3_pack``: K4a gives each u face the Δz of the cell
+east of it and each v face that of the cell north of it (the grid's ``Ax``
+and ``Ay``) and pHY′ the face Δz; K4b reads the Δz of each face area, cell
+volume and vertical-advection quotient at its own point, in its run-time
+form (every scheme, on a tile of both horizontal axes). The JAX gate
+refuses these grids; the port's gate refuses them only on a Flat x or y.
+
 ``hydrostatic_advective_core`` is the JAX function, in plain torch; the
 model's plain path and K4b's plain version share it. Each wrapper runs
 its plain version on CPU tensors and its kernel on CUDA tensors (or
@@ -75,7 +85,7 @@ from .fused_tendencies import (KERNEL_SCHEMES, TABLE_SCHEMES,
                                axis_bounds, check_tensor,
                                kernel_fn, kernel_scheme, launch, pointers,
                                positive_bounds)
-from .metric_rows import y_rows, y_tables, z_rows
+from .metric_rows import dz3_pack, partial_cell_z_rows, y_rows, y_tables, z_rows
 
 #: the Coriolis forms K4b takes, by its code (``_coriolis_code``)
 KERNEL_CORIOLIS = (FPlane, BetaPlane, HydrostaticSphericalCoriolis,
@@ -198,6 +208,8 @@ def unsupported_reason(model):
         return f"K4 has no {type(cor).__name__} Coriolis"
     if len(model.prognostic_names()) > MAX_FIELDS:
         return f"K4 takes at most {MAX_FIELDS} prognostic fields"
+    if partial_cells(grid) and FLAT in grid.topology[:2]:
+        return "K4's 3D-Δz (partial-cell) forms take no Flat x or y"
     buffers = [s.buffer for s in (_flux_form(model), ts)
                if s is not None and s.buffer > 0]
     halos = [grid.halo[a] for a in (0, 1) if grid.topology[a] is not FLAT]
@@ -258,18 +270,26 @@ def hydrostatic_columns_reference(grid, u, v, b=None):
     return w, ph
 
 
+def partial_cells(grid):
+    """Whether ``grid`` has partial bottom cells (3D Δz): K4a and K4b then
+    run their 3D-Δz forms, reading ``dz3_pack``."""
+    return getattr(grid, "partial_cells", False)
+
+
 def _launch_columns(grid, u, v, b):
     for name, f in (("u", u), ("v", v), ("b", b)):
         if f is not None:
             check_tensor(name, f, grid.total_shape, grid.dtype, u.device)
-    ys, zs = y_rows(grid), z_rows(grid)
+    # on partial cells the entry _dz3 reads the 3D Δz in place of the z rows
+    d3 = partial_cells(grid)
+    ys, zs = y_rows(grid), dz3_pack(grid) if d3 else z_rows(grid)
     # K4a writes every with-halo point
     empty = lambda: torch.empty(grid.total_shape, dtype=grid.dtype, device=u.device)
     w = empty()
     ph = empty() if b is not None else None
     ptr = lambda t: None if t is None else t.data_ptr()
-    fn = kernel_fn("hydrostatic_columns", "hydrostatic_columns", grid.dtype,
-                   [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6)
+    fn = kernel_fn("hydrostatic_columns", "hydrostatic_columns" + ("_dz3" if d3 else ""),
+                   grid.dtype, [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6)
     launch("hydrostatic_columns", fn, u.device, ptr(u), ptr(v), ptr(b),
            ptr(ys), ptr(zs), ptr(w), ptr(ph), *grid.shape, *grid.halo)
     hydrostatic_columns.launches += 1
@@ -397,7 +417,11 @@ def _launch_tendencies(model, state, advance):
     table = any(type(s) in TABLE_SCHEMES for s in (flux_form, ts))
     tables = table and not grid.z_regular
     ytables = table and not grid.y_regular
-    ys, zs = kernel_y_rows(grid, model.coriolis), z_rows(grid, tables)
+    # on partial cells the entry _dz3 reads the 3D Δz (one more pointer);
+    # the z rows then carry the tables alone
+    d3 = partial_cells(grid)
+    ys = kernel_y_rows(grid, model.coriolis)
+    zs = partial_cell_z_rows(grid, tables) if d3 else z_rows(grid, tables)
     yt = y_tables(grid) if ytables else None
     # the conditional fluxes' clear flags, by location
     locs = _mask_locs(model)
@@ -425,10 +449,11 @@ def _launch_tendencies(model, state, advance):
             check_tensor(f"G_prev[{n!r}]", g, grid.total_shape, dtype, device)
         out_psi = [torch.empty_like(g) for g in out_g]
     ptr = lambda t: None if t is None else t.data_ptr()
-    fn = kernel_fn("fused_hydrostatic_tendencies", "fused_hydrostatic_tendencies",
+    fn = kernel_fn("fused_hydrostatic_tendencies",
+                   "fused_hydrostatic_tendencies" + ("_dz3" if d3 else ""),
                    dtype, [ctypes.c_void_p] * 14 + [ctypes.c_int] * 30
                    + [ctypes.c_double] * 5 + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int] * 2)
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * d3)
     launch("fused_hydrostatic_tendencies", fn, device, pointers(fields),
            ptr(w), ptr(ph), ptr(ys), ptr(zs), ptr(yt),
            *(ptr(flags[loc]) for loc in (CENTER, U_LOC, V_LOC)),
@@ -438,7 +463,8 @@ def _launch_tendencies(model, state, advance):
            _momentum_code(sch), mom_code, tr, _coriolis_code(model.coriolis),
            int(tables), int(ytables), closure, int(advance is not None),
            *bounds, mom_eps, tr_eps, c1, c2, float(dt), tracer_bounds, pw,
-           *(int(grid.topology[a] is FLAT) for a in (0, 1)))
+           *(int(grid.topology[a] is FLAT) for a in (0, 1)),
+           *((ptr(dz3_pack(grid)),) if d3 else ()))
     fused_hydrostatic_tendencies.launches += 1
     G = dict(zip(names, out_g))
     if advance is None:

@@ -32,6 +32,12 @@ and kept in the grid's cache.
   out as ``z_rows`` lays out z's, without the spacing rows: the 24 rows of
   the to-faces tables, then the 24 of the to-centres tables (K4b's
   ``div_vv`` reconstructs v at centres for its own y flux).
+- ``dz3_pack``: on partial bottom cells (``ImmersedGrid.partial_cells``)
+  Δz is no row but two 3D with-halo tensors, Δz at z-centres and at
+  z-faces, stacked in the fields' layout; ``z_rows`` refuses such a grid
+  (its Δz rows would be column (0, 0)'s), and ``partial_cell_z_rows`` gives
+  K4b the layout of ``z_rows`` with NaN in its two Δz rows (read from the
+  pack instead) and the z axis' tables after them.
 """
 from __future__ import annotations
 
@@ -142,7 +148,11 @@ def y_tables(grid):
 def z_rows(grid, tables=False, to_centres=False):
     """(2, 26 or 50, Zt) tensor of the z rows; ``tables`` adds the
     stretched z axis' WENO5 to-faces tables (it must be stretched) and
-    ``to_centres`` its to-centres tables after them."""
+    ``to_centres`` its to-centres tables after them. A grid with 3D Δz
+    (partial cells) has no z rows: ``dz3_pack``."""
+    if getattr(grid, "partial_cells", False):
+        raise ValueError("z_rows: the grid's Δz is 3D (partial bottom cells); "
+                         "the kernels read dz3_pack")
     key = ("z_rows", bool(tables), bool(tables and to_centres))
     if key not in grid._cache:
         rows = [z_row(grid, grid.dz((C, C, loc))) for loc in (C, F)]
@@ -162,5 +172,29 @@ def axis_rows(grid, axis, tables=False):
         rows = [a.dc, a.df]
         for to_f in (True, False) if tables else ():
             rows += _table_rows(grid, axis, to_f)
+        grid._cache[key] = torch.stack(rows).contiguous()
+    return grid._cache[key]
+
+
+def dz3_pack(grid):
+    """(2, X, Y, Z) tensor of a partial-cell grid's Δz at z-centres, then at
+    z-faces (``grid.dz`` at (·, ·, C) and (·, ·, F)), with-halo."""
+    key = "dz3_pack"
+    if key not in grid._cache:
+        grid._cache[key] = torch.stack([
+            torch.broadcast_to(grid.dz((C, C, loc)), grid.total_shape)
+            for loc in (C, F)]).contiguous()
+    return grid._cache[key]
+
+
+def partial_cell_z_rows(grid, tables=False):
+    """``z_rows``' layout for a partial-cell grid: its two Δz rows NaN
+    (K4b's 3D-Δz form reads ``dz3_pack``), then with ``tables`` the
+    stretched z axis' WENO5 to-faces tables."""
+    key = ("partial_cell_z_rows", bool(tables))
+    if key not in grid._cache:
+        nan = torch.full((grid.total_shape[2],), float("nan"), dtype=grid.dtype,
+                         device=grid.device)
+        rows = [nan, nan.clone()] + (_table_rows(grid, 2, True) if tables else [])
         grid._cache[key] = torch.stack(rows).contiguous()
     return grid._cache[key]

@@ -16,10 +16,10 @@ horizontally regular rectilinear grid; torch.fft and the port's Makhoul
 DCT against jnp.fft and jax.scipy's DCT) and its CG solve (lat-lon; both
 CGs run to 1e-13, their inner products summed in different orders);
 states pass between the packages both ways; what the port does not run
-yet (PartialCellBottom, ...) raises at construction, naming its ROADMAP
-item (the matrix and multigrid free surfaces and particles, which it now
-runs, build), and seawater buoyancy and tilted gravity, which it runs,
-give the JAX model's pHY′.
+raises at construction (the matrix and multigrid free surfaces and
+particles, which it now runs, build, and a partial-cell bottom builds and
+steps), and seawater buoyancy and tilted gravity, which it runs, give the
+JAX model's pHY′.
 """
 import numpy as np
 import pytest
@@ -237,12 +237,16 @@ def test_what_waits_is_refused_naming_its_roadmap_item():
     m = T.HydrostaticFreeSurfaceModel(
         g, free_surface=split, particles=T.LagrangianParticles(zero, zero, zero))
     assert "particles" in m.initial_state()
-    for kw, item in ((dict(immersed_boundary=T.PartialCellBottom(-500.0)),
-                      "PartialCellBottom.*item 7"),
-                     (dict(tracer_advection=T.VectorInvariant()),
-                      "VectorInvariant tracer advection is not ported")):
-        with pytest.raises(NotImplementedError, match=item):
-            T.HydrostaticFreeSurfaceModel(g, free_surface=split, **kw)
+    # partial bottom cells are ported: the model builds and steps
+    m = T.HydrostaticFreeSurfaceModel(g, free_surface=split,
+                                      immersed_boundary=T.PartialCellBottom(-500.0))
+    assert m.grid.partial_cells
+    s = m.step(m.initial_state(u=0.01), 60.0)
+    assert bool(torch.isfinite(s["solution"]["u"]).all())
+    with pytest.raises(NotImplementedError,
+                       match="VectorInvariant tracer advection is not ported"):
+        T.HydrostaticFreeSurfaceModel(g, free_surface=split,
+                                      tracer_advection=T.VectorInvariant())
     # seawater buoyancy and tilted gravity are ported: pHY′ (−ĝ_z b
     # integrated) as the JAX model's
     jg = JLL(size=(8, 8, 4), longitude=(0, 360), latitude=(-75, 75), z=zfaces(4),
