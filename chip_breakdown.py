@@ -16,7 +16,7 @@
                               [implicit-free-surface] [multigrid-iterations]
                               [k2xy [--parent DIR]] [cubed-sphere]
                               [near-global-partial] [k4b-parent --parent DIR]
-                              [--steps N]
+                              [distributed] [--steps N]
 
 With no part named, runs them all. Prints the card's name and power
 limit first. Needs a card; without one it exits with an error.
@@ -285,6 +285,13 @@ limit first. Needs a card; without one it exits with an error.
   ``near-global``, ``near-global UB5`` and ``near-global CATKE`` after
   their warm-up steps, each held bit for bit against the form as built.
   Without ``--parent`` it runs only when named.
+- ``distributed``: ``chip_smoke.py``'s ``distributed RK3`` path (the RK3
+  flagship at 256³ fp32 on a (2, 2) mesh of four shards on the card) after
+  2 warm-up steps: the device time of one step's exchanges and transposes,
+  recorded and made again behind a spin of the card (``queued_ms``: the
+  host's gaps, 80% of the step, do not count), then torch.profiler's
+  device time of K2, K3b/K3c, K6 and cuFFT's kernels by name, the rest of
+  the busy time, and the device's idle share.
 """
 from __future__ import annotations
 
@@ -1983,6 +1990,122 @@ def k4b_parent(steps, parent):
         torch.cuda.empty_cache()
 
 
+#: kernels of the decomposed step by name (the profiler's CUDA records)
+DIST_KERNELS = (("K2", ("fused_advective_tendencies_kernel",)),
+                ("K3b/K3c", ("divergence_kernel", "pressure_gradient_kernel")),
+                ("K6", ("fill_halos_kernel",)),
+                ("pencil FFTs (cuFFT)", ("fft", "radix")))
+
+
+def _recorded(calls, module, name, kind):
+    """``module.name`` that also records, per shard, what each call is
+    given (the shapes, types and arguments), for ``_replay``."""
+    from clima_oceananigans_jl_torch.parallel.mesh import current
+    fn = getattr(module, name)
+
+    def run(first, *args, **kw):
+        _, rank = current()
+        shapes = ([(t.shape, t.dtype, t.device) for t in first] if kind == "exchange"
+                  else (first.shape, first.dtype, first.device))
+        calls[kind][rank].append((shapes, args, kw))
+        return fn(first, *args, **kw)
+
+    return fn, run
+
+
+def _replay(mesh, calls, kind, fn):
+    """A function that makes every shard's recorded calls of one kind again
+    on fresh tensors of the recorded shapes, in one ``Mesh.run``."""
+    def fresh(shapes):
+        if kind == "exchange":
+            return [torch.zeros(sh, dtype=dt, device=d) for sh, dt, d in shapes]
+        sh, dt, d = shapes
+        return torch.zeros(sh, dtype=dt, device=d)
+
+    inputs = {r: [fresh(shapes) for shapes, _, _ in cs] for r, cs in calls[kind].items()}
+
+    def body(r):
+        for x, (_, args, kw) in zip(inputs[r], calls[kind][r]):
+            fn(x, *args, **kw)
+
+    return lambda: mesh.run(body)
+
+
+def distributed(steps):
+    """chip_smoke.py's ``distributed RK3`` path (the RK3 flagship at 256³
+    fp32 decomposed on a (2, 2) mesh of four shards on the card) after 2
+    warm-up steps. The exchange's and the transposes' device time: one
+    step's collectives recorded, then made again on fresh tensors of the
+    same shapes behind a spin of the card (``queued_ms``), so that the
+    host's gaps do not count; then, over ``steps`` more steps,
+    torch.profiler's device time of the kernels by name (K2, K3b/K3c, K6,
+    cuFFT), the rest of the busy time, and the device's idle share
+    (1 − busy/elapsed on the host clock)."""
+    from clima_oceananigans_jl_torch import DistributedModel, make_mesh
+    from clima_oceananigans_jl_torch.parallel import distributed_fft, halo_exchange
+    from torch.profiler import ProfilerActivity, profile
+    timestepper, dt, _, _, kw = chip_smoke.PATHS["RK3"]
+    model = chip_smoke.model_for(chip_smoke.N, torch.float32,
+                                timestepper=timestepper, **kw)
+    rng = np.random.default_rng(0)
+    shape = model.grid.shape
+    state = model.initial_state(u=1e-2 * rng.standard_normal(shape),
+                                v=1e-2 * rng.standard_normal(shape),
+                                b=1e-4 * rng.standard_normal(shape))
+    mesh = make_mesh(chip_smoke.DISTRIBUTED["mesh"], [torch.device("cuda", 0)] * 4)
+    dm = DistributedModel(model, mesh)
+    states = dm.scatter_state(state)
+    del state
+    for _ in range(2):
+        states = dm.step(states, dt)
+    torch.cuda.synchronize()
+    # one step's collectives, recorded and made again behind a spin
+    calls = {k: collections.defaultdict(list) for k in ("exchange", "all_to_all")}
+    ex_fn, ex_rec = _recorded(calls, halo_exchange, "exchange_axis", "exchange")
+    a2a_fn, a2a_rec = _recorded(calls, distributed_fft, "all_to_all", "all_to_all")
+    halo_exchange.exchange_axis, distributed_fft.all_to_all = ex_rec, a2a_rec
+    try:
+        states = dm.step(states, dt)
+        torch.cuda.synchronize()
+    finally:
+        halo_exchange.exchange_axis, distributed_fft.all_to_all = ex_fn, a2a_fn
+    comm = {"exchange": queued_ms(_replay(mesh, calls, "exchange", ex_fn), 2),
+            "transposes": queued_ms(_replay(mesh, calls, "all_to_all", a2a_fn), 2)}
+    n_calls = {"exchange": len(calls["exchange"][0]),
+               "transposes": len(calls["all_to_all"][0])}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            states = dm.step(states, dt)
+        torch.cuda.synchronize()
+        elapsed = (time.perf_counter() - t0) * 1e3 / steps
+    cuda = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in cuda) / 1e3 / steps
+    print(f"distributed RK3 {chip_smoke.N}^3 fp32 on a (2, 2) mesh of 4 shards on "
+          f"one card, {steps} steps: {elapsed:.4f} ms/step elapsed (host clock), "
+          f"{busy:.4f} ms/step in kernels (torch.profiler)")
+    if busy <= 0:
+        print("torch.profiler saw no device time: parts and idle share not measured")
+        return
+    parts = {}
+    for name, keys in DIST_KERNELS:
+        parts[name] = sum(e.self_device_time_total for e in cuda
+                          if any(k in e.key.lower() for k in keys)) / 1e3 / steps
+    parts.update(comm)
+    parts["the rest (eager terms, copies, RK3 substeps)"] = busy - sum(parts.values())
+    for name, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+        n = n_calls.get(name)
+        each = f", {n} collectives a shard a step, queued" if n else ""
+        print(f"  {name}: {ms:.4f} ms ({100 * ms / busy:.1f}% of busy{each})")
+    print(f"  device idle {100 * (1 - busy / elapsed):.1f}% of the elapsed time; "
+          f"{sum(e.count for e in cuda) / steps:.0f} kernels a step")
+    top = sorted(cuda, key=lambda e: -e.self_device_time_total)[:10]
+    for e in top:
+        print(f"  {e.key[:60]}: {e.self_device_time_total / (steps * 1e3):.4f} ms/step, "
+              f"{e.count / steps:.2f} calls/step")
+
 PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps), "ab2-bf16": ab2_bf16,
          "rk3": lambda steps: nonhydrostatic("RK3", steps),
          "general-projection": general_projection, "k6-k3c": k6_k3c,
@@ -2011,7 +2134,8 @@ PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps), "ab2-bf16": ab2_bf16
          "stretched-channel": stretched_channel, "k2xy": k2xy,
          "implicit-free-surface": implicit_free_surface,
          "multigrid-iterations": multigrid_iterations, "cubed-sphere": cubed_sphere,
-         "near-global-partial": near_global_partial, "k4b-parent": k4b_parent}
+         "near-global-partial": near_global_partial, "k4b-parent": k4b_parent,
+         "distributed": distributed}
 
 
 def main(argv):

@@ -454,7 +454,22 @@ Since the stencil-matrix slice it ends (after phase 42) with
    the kernels against 3 with the plain versions from one state bit for
    bit, then the validation's 3 days (432 iterations) through
    ``Simulation`` with its three checks and the free surface's volume
-   check.
+   check;
+47. (since the distributed slice) ``phase_distributed``: ``distributed
+   RK3`` (``DISTRIBUTED``: the RK3 path's model at 256³ fp32 in
+   ``DistributedModel`` over a (2, 2) mesh of four shards on cuda:0): 3
+   steps held (the kernel run exactly its decomposed plain run, within
+   ``pencil_tolerance`` (4096 fp32 eps) of the single-device run, the ∇·u
+   gate), then 5 timed beside the single-device RK3 step of the same call;
+   12 K2, 12 K3b, 12 K3c, 48 K6 a step; the exchange's and the
+   transposes' collectives, copies and bytes a step;
+48. ``phase_distributed_holds``: one step each, 64³ fp32 RK3 on meshes
+   (4, 1), (1, 4) and (2, 4); a bounded global x (centred scheme); a stretched z (T1 per
+   shard); overlap_halo against no overlap, bit for bit; a
+   GridFittedBottom (AB2); shallow water at 1024² on (2, 4) (K3a per
+   shard, exactly the single-device run); each kernel run exactly its
+   decomposed plain run; the hydrostatic model refused on the card by
+   name (ROADMAP Queue 1 item 11).
 
 K2 builds as two libraries at once (``K2_SOURCES``: its first-code
 instantiations and its ``ANY``/``BF`` ones, one kernel in
@@ -5873,6 +5888,279 @@ def phase_near_global_partial():
     return launches, records, err
 
 
+# -- the distributed slice: the models decomposed over a mesh of shards ----------
+
+#: the decomposed RK3 flagship: the RK3 path's model (256³ fp32, WENO5,
+#: BuoyancyTracer, FPlane(1e-4), ScalarDiffusivity(1e-5, 1e-5), Δt = 1e-3,
+#: __graft_entry__.py:26-38) at full width, wrapped in DistributedModel over a
+#: (2, 2) mesh of four shards on one card (Oceananigans' MultiRegion on one
+#: GPU); the general projection with the pencil FFT solve. ``hold`` steps
+#: from the initial state held, then ``steps`` more timed
+DISTRIBUTED = dict(mesh=(2, 2), hold=3, steps=5)
+PER_STEP["distributed RK3"] = {K2: 12, K3B: 12, K3C: 12, K6: 48}
+#: the decomposed run against the single-device one, of max|field|: the CPU
+#: tests' ``PENCIL_RTOL`` (1e-12 in fp64, tests/test_torch_distributed_*.py)
+#: taken as ~4096 units of the type's eps, here of fp32 (4.9e-4): the pencil
+#: solve's complex FFTs round otherwise than the single-device real FFT
+PENCIL_EPS = 4096
+#: the small holds: 64³ fp32 unless said, one step each (three RK3
+#: stages; the decomposed steps are host-bound, ~0.15–0.3 s a step at any
+#: size, and the holds had 43 s at two steps on a slow host)
+DIST_HOLD = dict(n=64, steps=1, n_sw=1024)
+
+
+def pencil_tolerance(dtype):
+    return PENCIL_EPS * torch.finfo(dtype).eps
+
+
+def dist_devices(n):
+    """n shards on the card (cuda:0 for each)."""
+    return [torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)] * n
+
+
+def dist_gathered(dm, states):
+    """The decomposed states gathered, interiors of the solution."""
+    g = dm.grid
+    s = dm.gather_state(states)
+    return s, {k: g.interior(a) for k, a in s["solution"].items()}
+
+
+def dist_relative(label, got, ref, tol):
+    """max over fields of max|Δ|/max|ref|; raises above ``tol`` (exact
+    with 0)."""
+    rel = {}
+    for k, r in ref.items():
+        err = float((got[k].double() - r.double()).abs().max())
+        scale = float(r.abs().max())
+        rel[k] = err / scale if scale else err
+    worst = max(rel.values())
+    if not worst <= tol:
+        raise AssertionError(f"{label}: {worst:.3e} of max|field| > {tol:.3e} ({rel})")
+    return worst
+
+
+def dist_steps(dm, states, dt, n, kernels=None):
+    for _ in range(n):
+        states = dm.step(states, dt, kernels=kernels)
+    return states
+
+
+def phase_distributed():
+    """The decomposed RK3 flagship at 256³ fp32 on a (2, 2) mesh of four
+    shards on one card: the kernel run (its launches read), held bit for
+    bit against the decomposed plain run after ``hold`` steps, against the
+    single-device run within ``pencil_tolerance``, and to the ∇·u gate of
+    PERF.md §2; then ``steps`` timed steps beside the single-device RK3
+    step's, the exchange's and the transposes' copies and bytes per step.
+    Returns the kernel run's launch counts."""
+    from clima_oceananigans_jl_torch import DistributedModel, make_mesh
+    c = DISTRIBUTED
+    path = "distributed RK3"
+    timestepper, dt, _, _, kw = PATHS["RK3"]
+    model = model_for(N, torch.float32, timestepper=timestepper, **kw)
+    rng = np.random.default_rng(0)
+    shape = model.grid.shape
+    state0 = model.initial_state(u=1e-2 * rng.standard_normal(shape),
+                                 v=1e-2 * rng.standard_normal(shape),
+                                 b=1e-4 * rng.standard_normal(shape))
+    mesh = make_mesh(c["mesh"], dist_devices(4))
+    dm = DistributedModel(model, mesh)
+    # the single-device step: hold steps, then the timed ones
+    single = state0
+    for _ in range(c["hold"]):
+        single = model.step(single, dt)
+    single_hold = {k: model.grid.interior(a).clone() for k, a in single["solution"].items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(c["steps"]):
+        single = model.step(single, dt)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) / c["steps"] * 1e3
+    del single
+    # the decomposed kernel run: every count set to 0 just before, read after
+    states = dm.scatter_state(state0)
+    zero_counts()
+    mesh.reset_counts()
+    states = dist_steps(dm, states, dt, c["hold"])
+    torch.cuda.synchronize()
+    held, kernel_u = dist_gathered(dm, states)
+    ratio = divergence_ratio(model, held)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states = dist_steps(dm, states, dt, c["steps"])
+    torch.cuda.synchronize()
+    dist_ms = (time.perf_counter() - t0) / c["steps"] * 1e3
+    n = c["hold"] + c["steps"]
+    launches = read_counts(path, n)
+    per_step = {what: {k: v / n for k, v in d.items()} for what, d in
+                (("counts", mesh.counts), ("copies", mesh.copies), ("bytes", mesh.bytes))}
+    per = lambda what: per_step[what]
+    check_finite(path, model, dm.gather_state(states), ("pHY", "pNHS"))
+    if not ratio <= 1e-5:
+        raise AssertionError(f"{path}: max|div u|*dx/max|u| = {ratio:.3e} > 1e-5")
+    del states
+    # the holds: the decomposed plain run, the single-device run
+    plain = dist_steps(dm, dm.scatter_state(state0), dt, c["hold"],
+                       nonhydrostatic.PLAIN)
+    _, plain_u = dist_gathered(dm, plain)
+    del plain
+    dist_relative(f"{path}: kernel against plain runs", kernel_u, plain_u, 0.0)
+    tol = pencil_tolerance(torch.float32)
+    worst = dist_relative(f"{path}: against the single-device run", kernel_u,
+                          single_hold, tol)
+    used = {k: v / n for k, v in launches.items() if v}
+    print(f"{path} path: {N}^3 fp32 on a {c['mesh']} mesh of 4 shards on one card, "
+          f"{c['steps']} steps: {dist_ms:.3f} ms/step ({N ** 3 / dist_ms * 1e3:.6e} "
+          f"grid points/s), single-device RK3 {single_ms:.3f} ms/step in the same "
+          f"call; launches per step {used}; {card_line()}")
+    print(f"{path} path: per step: exchanges {per('counts').get('exchange', 0):g}, "
+          f"exchange copies {per('copies').get('exchange', 0):g}, exchange bytes "
+          f"{per('bytes').get('exchange', 0):.6e}, transposes "
+          f"{per('counts').get('all_to_all', 0):g} ({per('copies').get('all_to_all', 0):g} "
+          f"copies, {per('bytes').get('all_to_all', 0):.6e} bytes), sums "
+          f"{per('counts').get('sum', 0):g}")
+    print(f"{path} path: after {c['hold']} steps the kernel and plain decomposed runs "
+          f"agree exactly; against the single-device run {worst:.3e} of max|field| "
+          f"(<= {tol:.3e}, {PENCIL_EPS} fp32 eps); max|div u|*dx/max|u| {ratio:.3e}")
+    del dm, model, state0, kernel_u, plain_u, single_hold
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dist_case(label, make, init, mesh_shape, dt, kernels, plain_kernels,
+              single=True, exact_plain=True, overlap=False, tol=None):
+    """One small hold: ``make()``'s model decomposed on ``mesh_shape`` (all
+    shards on one card), its kernel run against its plain run after
+    ``DIST_HOLD["steps"]`` steps (bit for bit, or within the shallow-water
+    path's ``AGREE``), and against the single-device kernel run within
+    ``tol`` (the pencil tolerance; 0 where no FFT runs). ``kernels``: the
+    wrappers that must have launched. With ``overlap``, the halo-overlap
+    step is held bit for bit against the plain decomposed step instead."""
+    from clima_oceananigans_jl_torch import DistributedModel, make_mesh
+    steps = DIST_HOLD["steps"]
+    model = make()
+    s0 = init(model)
+    nshards = mesh_shape[0] * mesh_shape[1]
+    mesh = make_mesh(mesh_shape, dist_devices(nshards))
+    dm = DistributedModel(model, mesh)
+    zero_counts()
+    _, got = dist_gathered(dm, dist_steps(dm, dm.scatter_state(s0), dt, steps))
+    torch.cuda.synchronize()
+    counts = {k: WRAPPERS[k].launches for k in kernels}
+    if not all(counts.values()):
+        raise AssertionError(f"{label}: a kernel did not launch: {counts}")
+    line = f"distributed hold {label}: {mesh_shape} mesh, launches {counts}"
+    if overlap:
+        dmo = DistributedModel(model, mesh, overlap_halo=True)
+        _, ovl = dist_gathered(dmo, dist_steps(dmo, dmo.scatter_state(s0), dt, steps))
+        dist_relative(f"{label}: overlap against no overlap", ovl, got, 0.0)
+        line += "; overlap_halo=True bit for bit the plain decomposed step"
+    else:
+        _, plain = dist_gathered(dm, dist_steps(dm, dm.scatter_state(s0), dt, steps,
+                                                plain_kernels))
+        err = dist_relative(f"{label}: kernel against plain runs", got, plain,
+                            0.0 if exact_plain else AGREE["shallow water"])
+        line += f"; kernel and plain decomposed runs agree to {err:.3e}"
+    if single:
+        ref = s0
+        for _ in range(steps):
+            ref = model.step(ref, dt)
+        ref = {k: model.grid.interior(a) for k, a in ref["solution"].items()}
+        tol = pencil_tolerance(model.grid.dtype) if tol is None else tol
+        err = dist_relative(f"{label}: against the single-device run", got, ref, tol)
+        line += f"; single-device run within {err:.3e} (<= {tol:.3e})"
+    print(line)
+    del dm, model, s0, got
+    torch.cuda.empty_cache()
+
+
+def phase_distributed_holds():
+    """The small holds of the decomposed models on one card: meshes (4, 1),
+    (1, 4) and (2, 4); a bounded global x (the end shards' walls,
+    ``select_edge``); a stretched z (T1's Fourier form per shard);
+    overlap_halo; a GridFittedBottom; shallow water at 1024² on (2, 4) with
+    K3a per shard; the hydrostatic model's refusal by name."""
+    from clima_oceananigans_jl_torch import DistributedModel, make_mesh
+    n = DIST_HOLD["n"]
+    timestepper, dt, _, _, kw = PATHS["RK3"]
+    nh = (K2, K3B, K3C, K6)
+    flagship = lambda: model_for(n, torch.float32, timestepper=timestepper, **kw)
+
+    def random_uvb(model, seed=0):
+        rng = np.random.default_rng(seed)
+        shape = model.grid.shape
+        return model.initial_state(u=1e-2 * rng.standard_normal(shape),
+                                   v=1e-2 * rng.standard_normal(shape),
+                                   b=1e-4 * rng.standard_normal(shape))
+
+    P = nonhydrostatic.PLAIN
+    for shape in ((4, 1), (1, 4), (2, 4)):
+        dist_case(f"RK3 {n}^3 fp32", flagship, random_uvb, shape, dt, nh, P)
+
+    def bounded_x():
+        grid = RectilinearGrid(size=(n, n, n), extent=(1.0, 1.0, 1.0),
+                               topology=(BOUNDED, PERIODIC, BOUNDED),
+                               dtype=torch.float32, device=DEVICE)
+        return NonhydrostaticModel(grid, buoyancy=BuoyancyTracer(),
+                                   timestepper=timestepper, **kw)
+
+    dist_case(f"bounded x (B,P,B) RK3 {n}^3 fp32, centred", bounded_x, random_uvb,
+              (2, 2), dt, nh, P)
+
+    def stretched():
+        grid = RectilinearGrid(size=(n, n, n), x=(0.0, 1.0), y=(0.0, 1.0),
+                               z=stretched_faces(n, Lz=1.0),
+                               topology=(PERIODIC, PERIODIC, BOUNDED),
+                               dtype=torch.float32, device=DEVICE)
+        return NonhydrostaticModel(grid, advection=WENO5(), buoyancy=BuoyancyTracer(),
+                                   timestepper=timestepper, **kw)
+
+    dist_case(f"stretched z RK3 {n}^3 fp32", stretched, random_uvb, (2, 2), dt,
+              (K2, K6, T1), P)
+    dist_case(f"overlap_halo RK3 {n}^3 fp32", flagship, random_uvb, (2, 2), dt, nh, P,
+              overlap=True)
+
+    def immersed():
+        grid = RectilinearGrid(size=(n, n, n), extent=(1.0, 1.0, 1.0),
+                               topology=(PERIODIC, PERIODIC, BOUNDED),
+                               dtype=torch.float32, device=DEVICE)
+        bump = lambda x, y: -1.0 + 0.4 * torch.exp(-((x - 0.5) ** 2 + (y - 0.5) ** 2)
+                                                   / 0.02)
+        return NonhydrostaticModel(grid, tracers=("c",),
+                                   immersed_boundary=GridFittedBottom(bump))
+
+    dist_case(f"GridFittedBottom AB2 {n}^3 fp32", immersed,
+              lambda m: m.initial_state(u=1e-2, c=lambda x, y, z: torch.exp(
+                  -((x - 0.3) ** 2 + (z + 0.5) ** 2) / 0.05)),
+              (2, 2), 1e-3, nh, P)
+
+    def sw():
+        n_sw = DIST_HOLD["n_sw"]
+        grid = RectilinearGrid(size=(n_sw, n_sw, 1), x=(0, 2 * math.pi),
+                               y=(0, 2 * math.pi), topology=(PERIODIC, PERIODIC, FLAT),
+                               dtype=torch.float32, device=DEVICE)
+        return ShallowWaterModel(grid, gravitational_acceleration=10.0,
+                                 advection=WENO5(), coriolis=FPlane(f=1.0))
+
+    dist_case(f"shallow water {DIST_HOLD['n_sw']}^2 fp32", sw,
+              lambda m: m.initial_state(uh=lambda x, y, z: 0.1 * torch.sin(x)
+                                        * torch.cos(y), h=1.0),
+              (2, 4), SW_PATH[0], (K3A,), shallow_water.PLAIN, exact_plain=False,
+              tol=0.0)
+    grid = RectilinearGrid(size=(n, n, 8), x=(0, 1e5), y=(0, 1e5), z=(-100.0, 0),
+                           topology=(PERIODIC, BOUNDED, BOUNDED), device=DEVICE)
+    model = HydrostaticFreeSurfaceModel(grid, free_surface=SplitExplicitFreeSurface(
+        substeps=10))
+    try:
+        DistributedModel(model, make_mesh((2, 2), dist_devices(4)))
+    except NotImplementedError as e:
+        if "ROADMAP Queue 1 item 11" not in str(e):
+            raise
+        print(f"distributed hold hydrostatic: refused on the card by name: {e}")
+    else:
+        raise AssertionError("the hydrostatic model over a cut grid ran on the card")
+
+
 def _timed_phase(fn):
     """``fn`` with its seconds printed after it ("phase <name>: s")."""
     def run(*args, **kw):
@@ -5993,6 +6281,10 @@ def main():
     # the partial-cell slice: K4a's and K4b's 3D-Δz forms at 1° and the ¼° path
     partial_worst, partial_forms = phase_partial_holds()
     by_path["near-global partial cells"], partial_readings, err = phase_near_global_partial()
+    # the distributed slice: the RK3 flagship decomposed on a (2, 2) mesh,
+    # then the small holds
+    by_path["distributed RK3"] = phase_distributed()
+    phase_distributed_holds()
     for name in (K4A, K4B):
         flat_worst[name] = max(flat_worst.get(name, 0.0), partial_worst[name], err[name])
     for name, err in flat_hold_worst.items():

@@ -26,7 +26,10 @@ split-explicit and implicit free surfaces, the implicit one by FFT,
 matrix-free CG or CG on the assembled heptadiagonal couplings with a
 Jacobi or multigrid preconditioner), Lagrangian particles in all three
 models, the hydrostatic model on the conformal cubed sphere, prescribed
-velocities and ensembles (members stepped one by one), with hand-written CUDA
+velocities and ensembles (members stepped one by one), the three models
+decomposed over a mesh of shards (``DistributedModel``, ``make_mesh``,
+``MultiRegionGrid``: one thread a shard, the halo exchange, the pencil
+Poisson solves; the hydrostatic one on the CPU only), with hand-written CUDA
 kernels for Hopper in ``csrc/``: the fused AB2 advance (K1), the fused
 advective tendencies (K2), the shallow-water core (K3a), the general
 projection's divergence and gradient (K3b, K3c), the hydrostatic w/pHY′
@@ -41,7 +44,7 @@ and readers that use it. Grids live on the card unless the caller passes
 ``device="cpu"``.
 """
 
-from .grids.topology import BOUNDED, FLAT, PERIODIC, Topology
+from .grids.topology import BOUNDED, FLAT, FULLY_CONNECTED, PERIODIC, Topology
 from .grids.rectilinear import RectilinearGrid
 from .grids.latlon import LatitudeLongitudeGrid
 from .grids.cubed_sphere import CubedSphereGrid, cubed_sphere_tracer_step
@@ -112,3 +115,5 @@ from .diagnostics.diagnostics import AdvectiveCFL, CFL, DiffusiveCFL, StateCheck
 from .solvers.stencil_matrix import (HeptadiagonalIterativeSolver, MultigridPoissonSolver,
                                      MultigridSolver, StencilMatrix)
 from .particles.lagrangian import LagrangianParticles
+from .parallel.distributed import DistributedModel, make_mesh
+from .parallel.multi_region import MultiRegionGrid, XPartition, YPartition

@@ -14,6 +14,14 @@ ghost-cell formulas of the JAX package, so a fill gives bitwise the same
 halos. Flux BCs fill by zero-gradient mirror; their values enter the
 tendency through ``apply_flux_bcs`` (positive flux on a left boundary
 increases the adjacent cell's G, on a right boundary decreases it).
+
+A ``FULLY_CONNECTED`` axis of a grid cut over a mesh of shards
+(``grid.dist``) fills by the neighbour exchange of
+``parallel/halo_exchange.py``; where the axis is not periodic globally,
+the end shards then write the physical BC of the global grid, as the JAX
+package's ``select_edge`` does. Its defaults follow the global topology.
+A ``FULLY_CONNECTED`` axis without ``dist`` (a cubed-sphere face's) is
+left to its own exchange.
 """
 from __future__ import annotations
 
@@ -22,7 +30,7 @@ from typing import Any, Optional
 
 import torch
 
-from ..grids.topology import BOUNDED, FLAT, PERIODIC
+from ..grids.topology import BOUNDED, FLAT, FULLY_CONNECTED, PERIODIC
 from ..ops.operators import flip_loc
 from ..utils.location import F
 
@@ -86,6 +94,9 @@ def default_bcs(grid, loc):
     sides = {}
     for axis in range(3):
         topo = grid.topology[axis]
+        dist = grid.dist[axis] if hasattr(grid, "dist") else None
+        if topo is FULLY_CONNECTED and dist is not None:
+            topo = dist[2]  # the global topology, for the end shards
         for s in range(2):
             if topo is FLAT:
                 bc = None
@@ -155,7 +166,7 @@ def _bounded_slab(data, grid, loc, axis, side, bc, t=0.0):
     N = grid.shape[axis]
     H = grid.halo[axis]
     face_loc = loc[axis] == F
-    if bc is None or bc.kind == "periodic":
+    if bc is None or bc.kind in ("periodic", "communication"):
         return None, (H if side == 0 else H + N + (1 if face_loc else 0))
     kind = bc.kind
     # flux BCs fill by zero-gradient mirror and never evaluate their value
@@ -221,6 +232,15 @@ def fill_halos_axis(data, grid, loc, axis, bc_left, bc_right, t=0.0):
         data[_axslice(axis, slice(N + H, N + 2 * H))] = \
             data[_axslice(axis, slice(H, 2 * H))]
         return data
+    if topo is FULLY_CONNECTED:
+        dist = grid.dist[axis] if hasattr(grid, "dist") else None
+        if dist is not None:
+            from ..parallel.halo_exchange import exchange_axis
+            mesh_axis, n_shards, global_topo = dist
+            exchange_axis([data], axis, H, mesh_axis, n_shards,
+                          global_topo is PERIODIC)
+            fill_cut_edges(data, grid, loc, axis, bc_left, bc_right, t)
+        return data
     if topo is not BOUNDED:
         raise NotImplementedError(f"{topo!r} axes are not ported yet")
     # both slabs are computed from the pre-update data, then written
@@ -230,6 +250,54 @@ def fill_halos_axis(data, grid, loc, axis, bc_left, bc_right, t=0.0):
         data[_axslice(axis, slice(0, cut0))] = left
     if right is not None:
         data[_axslice(axis, slice(cut1, data.shape[axis]))] = right
+    return data
+
+
+def fill_cut_edges(data, grid, loc, axis, bc_left, bc_right, t=0.0):
+    """After the exchange of a cut axis that is not periodic globally: the
+    physical BC's side fill on the end shards (the first shard's left,
+    then the last shard's right side, the second read after the first is
+    written, as in the JAX package), in place."""
+    from ..parallel.halo_exchange import is_edge
+    mesh_axis, n_shards, global_topo = grid.dist[axis]
+    if global_topo is PERIODIC:
+        return data
+    for side, bc in ((0, bc_left), (1, bc_right)):
+        if not is_edge(mesh_axis, n_shards, side):
+            continue
+        slab, cut = _bounded_slab(data, grid, loc, axis, side, bc, t)
+        if slab is not None:
+            data[_axslice(axis, slice(0, cut) if side == 0
+                          else slice(cut, data.shape[axis]))] = slab
+    return data
+
+
+def impose_cut_wall_faces(data, grid, loc, bcs=None, t=0.0):
+    """The exchange-free part of a cut axis' fill that shows in the
+    interior: on the end shards of a cut axis that is bounded globally,
+    the open or value wall face of a field located on that axis' faces
+    (side 0's face is interior index H). The halo-overlap step's deferred
+    ``update_state`` writes just this, in place."""
+    from ..parallel.halo_exchange import is_edge
+    if bcs is None:
+        bcs = default_bcs(grid, loc)
+    pairs = ((bcs.west, bcs.east), (bcs.south, bcs.north), (bcs.bottom, bcs.top))
+    for axis in (0, 1, 2):
+        dist = grid.dist[axis]
+        if (grid.topology[axis] is not FULLY_CONNECTED or loc[axis] != F
+                or dist is None or dist[2] is PERIODIC):
+            continue
+        mesh_axis, n_shards, _ = dist
+        N, H = grid.shape[axis], grid.halo[axis]
+        for side, bc in ((0, pairs[axis][0]), (1, pairs[axis][1])):
+            if bc is None or bc.kind not in ("open", "value"):
+                continue
+            if not is_edge(mesh_axis, n_shards, side):
+                continue
+            k = H if side == 0 else H + N
+            face = data[_axslice(axis, slice(k, k + 1))]
+            face.copy_(torch.broadcast_to(
+                _bvalue(bc, grid, axis, side, loc, t).to(data.dtype), face.shape))
     return data
 
 

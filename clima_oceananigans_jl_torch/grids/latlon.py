@@ -155,6 +155,25 @@ class LatitudeLongitudeGrid(RectilinearGrid):
         new._precompute_metrics()
         return new
 
+    def subgrid_along(self, axis, start, n_new):
+        """The strip of ``RectilinearGrid.subgrid_along`` with the metric
+        arrays sliced by the same with-halo window."""
+        new = super().subgrid_along(axis, start, n_new)
+        new.radius = self.radius
+        sl = slice(start, start + n_new + 2 * self.halo[axis])
+
+        def cut(v):
+            if axis == 2 or v.shape[axis] == 1:
+                return v
+            idx = [slice(None)] * 3
+            idx[axis] = sl
+            return v[tuple(idx)]
+
+        new._dx_m = {k: cut(v) for k, v in self._dx_m.items()}
+        new._az_m = {k: cut(v) for k, v in self._az_m.items()}
+        new._dy_m = {k: cut(v) for k, v in self._dy_m.items()}
+        return new
+
     def __repr__(self):
         t = tuple(t.value for t in self.topology)
         return (f"LatitudeLongitudeGrid(size={self.shape}, halo={self.halo}, "

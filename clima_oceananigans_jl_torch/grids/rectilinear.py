@@ -111,6 +111,9 @@ class RectilinearGrid:
     """Staggered rectilinear grid, regular or stretched per axis."""
 
     curvilinear = False
+    #: per axis None, or (mesh_axis, n_shards, global_topology) on an axis
+    #: cut over a mesh of shards (``parallel/decomposition.py``)
+    dist = (None, None, None)
 
     def __init__(self, *, size, extent=None, x=None, y=None, z=None,
                  topology=(PERIODIC, PERIODIC, BOUNDED), halo=None,
@@ -281,6 +284,7 @@ class RectilinearGrid:
         extent, a stretched one from its stored interior faces."""
         new = object.__new__(type(self))
         new._set_dtype_device(self.dtype, self.device)
+        new.dist = self.dist
         axes = []
         for a, h in zip(self._axes, halo):
             if a.topo is FLAT:
@@ -299,6 +303,23 @@ class RectilinearGrid:
             axes.append(_build_axis(a.n, h, a.topo, None, faces, self.dtype,
                                     self.device))
         new._axes = tuple(axes)
+        new._init_static()
+        return new
+
+    def subgrid_along(self, axis, start, n_new):
+        """The strip of interior cells [start, start + n_new) of ``axis``,
+        with this grid's halo width: the axis' arrays sliced (array index
+        offset ``start``), so positions and spacings stay the grid's own.
+        The halo-overlap step recomputes a shard's edge strips on these;
+        ``dist`` is cleared on the sliced axis (a strip never exchanges)."""
+        a = self._axes[axis]
+        new = object.__new__(type(self))
+        new._set_dtype_device(self.dtype, self.device)
+        new.dist = tuple(None if i == axis else d for i, d in enumerate(self.dist))
+        sl = slice(start, start + n_new + 2 * a.h)
+        sub = _Axis(n_new, a.h, a.topo, a.cf[sl], a.cc[sl], a.dc[sl], a.df[sl],
+                    a.regular, a.extent * n_new / a.n)
+        new._axes = tuple(sub if i == axis else ax for i, ax in enumerate(self._axes))
         new._init_static()
         return new
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``clima_oceananigans_jl_tpu/grids/topology.py``, after
 Oceananigans' ``Periodic``/``Bounded``/``Flat`` topology types.
-``FULLY_CONNECTED`` marks an axis continued on another device shard; the
-port does not shard yet, so no grid of the port carries it.
+``FULLY_CONNECTED`` marks an axis continued on another shard: a cut axis
+of ``parallel/decomposition.py``'s local grids (with ``grid.dist``), or a
+cubed-sphere face's edges.
 """
 from __future__ import annotations
 

@@ -179,6 +179,21 @@ class ImmersedGrid:
     def __repr__(self):
         return f"ImmersedGrid({self.parent!r})"
 
+    def subgrid_along(self, axis, start, n_new):
+        """The parent's strip (``RectilinearGrid.subgrid_along``) with the
+        boundary's masks and partial-cell Δz sliced by the same with-halo
+        window, so an edge strip sees the shard's own masks."""
+        parent_sub = self.parent.subgrid_along(axis, start, n_new)
+        sl = [slice(None)] * 3
+        sl[axis] = slice(start, start + n_new + 2 * self.parent.halo[axis])
+        sl = tuple(sl)
+        cut = {f.name: (v[sl] if isinstance(v, torch.Tensor) and v.ndim == 3
+                        and v.shape[axis] > 1 else v)
+               for f in dataclasses.fields(self.boundary)
+               for v in (getattr(self.boundary, f.name),)}
+        boundary = dataclasses.replace(self.boundary, **cut)
+        return ImmersedGrid.wrap(parent_sub, boundary)
+
     # -- partial-cell vertical metrics --------------------------------------
     def spacing(self, axis, loc):
         if axis == 2 and self._dz_ccc is not None:

@@ -114,7 +114,10 @@ class ImplicitFreeSurface:
     def resolve_method(self, grid):
         """``solver_method``, with "auto" resolved: "fft" on a horizontally
         regular rectilinear grid of constant depth, else "pcg" (an immersed
-        bottom makes the depth vary)."""
+        bottom makes the depth vary); "pcg" whatever the method on a grid
+        cut over a mesh, as in the JAX package (l.138-141)."""
+        if any(d is not None for d in getattr(grid, "dist", (None,) * 3)):
+            return "pcg"  # cut over a mesh: CG with the inner products summed
         if self.solver_method != "auto":
             return self.solver_method
         if getattr(grid, "immersed", None) is not None:
@@ -169,8 +172,11 @@ class ImplicitFreeSurface:
             lap = div_xy_2d(grid, Hfc * grad_x(grid, eta), Hcf * grad_y(grid, eta))
             return (-(Az * lap - Az * eta / (g * dt * dt)))[interior]
 
+        axis_names = tuple(d[0] for d in getattr(grid, "dist", (None,) * 3)
+                           if d is not None)
         x, _, _ = cg_solve(matvec, (-Az * rhs)[interior], eta0[interior],
-                           reltol=self.tolerance, maxiter=self.maxiter)
+                           reltol=self.tolerance, maxiter=self.maxiter,
+                           axis_names=axis_names)
         eta = torch.zeros_like(eta0)
         eta[interior] = x
         return fill2d(eta, grid, ETA_LOC, eta_bcs)

@@ -73,7 +73,10 @@ the card the constructor of a model that runs the kernels checks their
 static gates, so a configuration they lack raises there and the wrappers
 do not check again. Not ported here,
 because they are TPU-only: the halo rounding to multiples of 4, the
-(x, z, y) state layout, the MXU cumsum, the distributed overlap. A
+(x, z, y) state layout, the MXU cumsum. Decomposed over a mesh of shards
+(``parallel/distributed.py``, ``tendencies_overlapped``) the model runs on
+the CPU; the card refuses it by name (K5 takes no exchange between its
+substeps; ROADMAP Queue 1 item 11). A
 configuration the port cannot run raises ``NotImplementedError`` at
 construction.
 
@@ -226,15 +229,8 @@ class HydrostaticFreeSurfaceModel:
         self.pressure_bcs = regularize_bcs(self.grid, CENTER, None)
         self.particles = particles
         reason = _unsupported_reason(self)
-        if (reason is None and self.grid.device.type == "cuda"
-                and self.fused_advection):
-            # on the card the kernels run: their gates decide now
-            reason = kernel_unsupported_reason(self)
-            if reason is None and isinstance(self.free_surface,
-                                             SplitExplicitFreeSurface):
-                reason = barotropic_unsupported_reason(self.grid, self.eta_bcs)
-            if reason is None:
-                reason = self._fill_unsupported_reason()
+        if reason is None and self.grid.device.type == "cuda":
+            reason = self.card_unsupported_reason()
         if reason is not None:
             raise NotImplementedError(reason)
         # K4b's fused advance (tendencies and the AB2 substep in one
@@ -257,6 +253,24 @@ class HydrostaticFreeSurfaceModel:
         for n in self.tracer_names:
             locs[n] = CENTER
         return locs
+
+    def card_unsupported_reason(self):
+        """Why the kernels' gates refuse this model on the card, or None
+        (``DistributedModel`` asks it again of each shard's model). A grid
+        cut over a mesh is refused whether or not the kernels run: K5
+        cannot run over it, and the plain versions do not stand in for the
+        kernels on the card."""
+        if self.grid.dist != (None, None, None):
+            return kernel_unsupported_reason(self)
+        if not self.fused_advection:
+            return None
+        reason = kernel_unsupported_reason(self)
+        if reason is None and isinstance(self.free_surface,
+                                         SplitExplicitFreeSurface):
+            reason = barotropic_unsupported_reason(self.grid, self.eta_bcs)
+        if reason is None:
+            reason = self._fill_unsupported_reason()
+        return reason
 
     def _fill_unsupported_reason(self):
         """Why K6 cannot fill one of the model's fields, or None."""
@@ -299,17 +313,22 @@ class HydrostaticFreeSurfaceModel:
             state["particles"] = self.particles
         return self.update_state(state)
 
-    def fill_all_halos(self, sol, t=0.0, kernels=None, eta=None):
-        """Fill the halos of every solution field, and of ``eta`` when
-        given, in place, in one call of ``kernels["fill"]`` (K6); returns
-        ``sol``."""
+    def fill_all_halos(self, sol, t=0.0, kernels=None, eta=None, axes=(0, 1, 2)):
+        """Fill the halos of every solution field on ``axes``, and of
+        ``eta`` (on its horizontal ones) when given, in place, in one call
+        of ``kernels["fill"]`` (K6); returns ``sol``."""
         locs = self._locs()
-        fields = [(arr, locs[name], self.bcs[name], (0, 1, 2), t)
+        fields = [(arr, locs[name], self.bcs[name], axes, t)
                   for name, arr in sol.items()]
         if eta is not None:
-            fields.append((eta, ETA_LOC, self.eta_bcs, (0, 1), t))
+            fields.append((eta, ETA_LOC, self.eta_bcs,
+                           tuple(a for a in axes if a < 2), t))
         self._kernels(kernels)["fill"](self.grid, fields)
         return sol
+
+    def _local_axes(self):
+        """The axes that are not cut over a mesh of shards."""
+        return tuple(a for a in (0, 1, 2) if self.grid.dist[a] is None)
 
     def _buoyancy_field(self, sol):
         """The b whose downward integral is pHY′ (K4a's input): −ĝ_z b under
@@ -322,12 +341,13 @@ class HydrostaticFreeSurfaceModel:
         gz = self.buoyancy.gravity_unit_vector[2]
         return b if gz == -1.0 else -gz * b
 
-    def compute_w(self, sol, kernels=None):
-        """w from continuity, integrated bottom-up, halos filled (through
-        ``kernels["columns"]``, K4a, and ``kernels["fill"]``, K6)."""
+    def compute_w(self, sol, kernels=None, axes=(0, 1, 2)):
+        """w from continuity, integrated bottom-up, halos filled on
+        ``axes`` (through ``kernels["columns"]``, K4a, and
+        ``kernels["fill"]``, K6)."""
         kernels = self._kernels(kernels)
         w, _ = kernels["columns"](self.grid, sol["u"], sol["v"])
-        kernels["fill"](self.grid, [(w, W_LOC, self.w_bcs, (0, 1, 2), 0.0)])
+        kernels["fill"](self.grid, [(w, W_LOC, self.w_bcs, axes, 0.0)])
         return w
 
     def update_state(self, state, kernels=None):
@@ -336,11 +356,36 @@ class HydrostaticFreeSurfaceModel:
         from K4a (``kernels["columns"]``) with their halos filled (a second
         K6 launch), then the closure's diffusivities (where it has any)."""
         kernels = self._kernels(kernels)
+        if getattr(self, "halo_overlap", False):
+            return self._deferred_update_state(state, kernels)
         t = state["clock"].time
         sol = self.fill_all_halos(state["solution"], t, kernels, eta=state["eta"])
         if self.immersed_boundary is not None:
             state = self.immersed_boundary.mask_state(self, dict(state, solution=sol))
-            sol = state["solution"]
+        return self._aux_state(state, kernels)
+
+    def _deferred_update_state(self, state, kernels):
+        """``update_state`` under ``halo_overlap`` (set by
+        ``DistributedModel``, JAX l.356-365): the local-axis fills, the
+        cut axes' wall faces and the masking now; the exchange, w, pHY′ and
+        the diffusivities in the next step's ``tendencies_overlapped``."""
+        from ..boundary_conditions.bcs import impose_cut_wall_faces
+        t = state["clock"].time
+        locs = self._locs()
+        sol = self.fill_all_halos(state["solution"], t, kernels,
+                                  axes=self._local_axes())
+        for name, arr in sol.items():
+            impose_cut_wall_faces(arr, self.grid, locs[name], self.bcs[name], t)
+        state = dict(state, solution=sol)
+        if self.immersed_boundary is not None:
+            state = self.immersed_boundary.mask_state(self, state)
+        return state
+
+    def _aux_state(self, state, kernels):
+        """w and pHY′ from K4a with their halos filled, then the closure's
+        diffusivities: the part of ``update_state`` after the fills."""
+        t = state["clock"].time
+        sol = state["solution"]
         w, ph = kernels["columns"](self.grid, sol["u"], sol["v"],
                                    self._buoyancy_field(sol))
         fields = [(w, W_LOC, self.w_bcs, (0, 1, 2), 0.0)]
@@ -405,6 +450,38 @@ class HydrostaticFreeSurfaceModel:
                  for k, g_arr in G.items()}
         return G
 
+    def tendencies_overlapped(self, state, kernels=None):
+        """The halo-overlap tendencies of a shard (JAX l.405-480): the
+        exchange of the solution and η and the deferred masking, w, pHY′
+        and diffusivities; the tendencies from the solution whose cut-axis
+        halos are the last step's (local axes filled, w diagnosed from it);
+        then the H-wide strips along each cut axis recomputed on
+        ``grid.subgrid_along`` from the exchanged fields and written over
+        (``parallel/distributed.py::patch_edge_strips``), in JAX's order.
+        Returns ``(G, state)`` with the exchanged fields."""
+        k = self._kernels(kernels)
+        t = state["clock"].time
+        stale = state["solution"]
+        eta = state["eta"].clone()
+        sol_fresh = self.fill_all_halos({n: a.clone() for n, a in stale.items()},
+                                        t, k, eta=eta)
+        fresh = dict(state, solution=sol_fresh, eta=eta)
+        if self.immersed_boundary is not None:
+            fresh = self.immersed_boundary.mask_state(self, fresh)
+        fresh = self._aux_state(fresh, k)
+        local = self._local_axes()
+        sol_local = self.fill_all_halos({n: a.clone() for n, a in stale.items()},
+                                        t, k, axes=local)
+        if self.immersed_boundary is not None:
+            sol_local = self.immersed_boundary.mask_state(
+                self, dict(state, solution=sol_local))["solution"]
+        w_local = self.compute_w(sol_local, k, axes=local)
+        G = self.tendencies(dict(fresh, solution=sol_local, w=w_local), k)
+        from ..parallel.distributed import patch_edge_strips
+        return patch_edge_strips(self, G, fresh,
+                                 ("solution", "diffusivities", "pHY", "w", "eta"),
+                                 k), fresh
+
     # -- stepping ---------------------------------------------------------------
     def step(self, state, dt, kernels=None):
         """One quasi-AB2 step with the free surface split out (Euler at
@@ -417,6 +494,10 @@ class HydrostaticFreeSurfaceModel:
         clock0 = state["clock"]
         tick, dt = dt, float(dt)
         euler = clock0.iteration == 0 or dt_changed(state["previous_dt"], tick)
+        G_overlap = None
+        if getattr(self, "halo_overlap", False):
+            # the exchanged state from here on (JAX l.630-631)
+            G_overlap, state = self.tendencies_overlapped(state, kernels)
         G_prev = state["G_prev"]
         sol0 = state["solution"]
         # a vertically implicit closure's z diffusion (T1), after the AB2
@@ -425,7 +506,7 @@ class HydrostaticFreeSurfaceModel:
             s, grid, self._locs(), self.closure, dt, state.get("diffusivities"),
             self.bcs, clock0.time, kernels["tridiagonal"])
         if self._explicit_fs:
-            G = self.tendencies(state, kernels)
+            G = G_overlap if G_overlap is not None else self.tendencies(state, kernels)
             U, V = barotropic_mode(grid, sol0["u"], sol0["v"])
             G["eta"] = -div_xy_2d(grid, U, V)
             stepped = ab2_substep(dict(sol0, eta=state["eta"]), G, G_prev, dt,
@@ -433,7 +514,10 @@ class HydrostaticFreeSurfaceModel:
             eta = stepped.pop("eta")
             sol = implicit(stepped)
         else:
-            if self.fused_advance:
+            if G_overlap is not None:
+                G = G_overlap
+                sol = ab2_substep(sol0, G, G_prev, dt, self.ab2_chi, euler)
+            elif self.fused_advance:
                 sol, G = kernels["tendencies"](self, state, advance=(dt, euler))
             else:
                 G = self.tendencies(state, kernels)

@@ -71,6 +71,13 @@ come from ``KERNELS``; the JAX keyword ``fused_advection=False`` swaps in
 ``PLAIN`` and takes the general AB2 branch, as its JAX meaning has it.
 Background fields take that branch too, as in the JAX package, with their
 cross terms as PyTorch ops, but keep the kernels for the rest.
+Decomposed over a mesh of shards (``parallel/distributed.py``) each
+shard's model runs on its local grid, whose cut axes are
+``FULLY_CONNECTED``: the fills exchange along them, K2, K3b and K3c read
+their halos as on a periodic axis, the step takes the general AB2 branch
+and the general projection with the pencil solver, and under
+``halo_overlap`` ``update_state`` defers its exchange to
+``tendencies_overlapped``, as in the JAX package.
 
 State: the JAX package's keys and shapes. ``solution`` holds with-halo
 tensors; ``G_prev`` is halo-free (nx, ny, nz) when ``g_interior`` holds
@@ -101,6 +108,7 @@ from ..forcings.forcing import regularize_forcing
 from ..grids.topology import BOUNDED, FLAT, PERIODIC
 from ..immersed.immersed import ImmersedBoundary, ImmersedGrid, PartialCellBottom
 from ..ops import stencil as st
+from ..parallel.distributed_fft import DistributedFourierTridiagonalSolver
 from ..ops.fused_fill import (fields_unsupported_reason, fused_fill_halos,
                               fused_fill_halos_reference)
 from ..ops.fused_step import (fused_ab2_advance, fused_ab2_advance_reference,
@@ -217,10 +225,8 @@ class NonhydrostaticModel:
                     for n, loc in self._locs().items()}
         self.pressure_bcs = regularize_bcs(self.grid, CENTER, None)
         reason = unsupported_reason(self)
-        if (reason is None and self.kernels is KERNELS
-                and self.grid.device.type == "cuda"):
-            # on the card the fills run K6: its gate decides now
-            reason = self._fill_unsupported_reason()
+        if reason is None and self.grid.device.type == "cuda":
+            reason = self.card_unsupported_reason()
         if reason is not None:
             raise NotImplementedError(reason)
         self.pressure_solver = select_pressure_solver(self.grid)
@@ -243,6 +249,14 @@ class NonhydrostaticModel:
 
     def prognostic_names(self):
         return ("u", "v", "w") + self.tracer_names
+
+    def card_unsupported_reason(self):
+        """Why the kernels' gates refuse this model on the card, or None:
+        the fills run K6, whose gate decides (``DistributedModel`` asks it
+        again of each shard's model)."""
+        if self.kernels is not KERNELS:
+            return None
+        return self._fill_unsupported_reason()
 
     def _fill_unsupported_reason(self):
         """Why K6 cannot fill one of the model's fields or its pressure
@@ -300,15 +314,51 @@ class NonhydrostaticModel:
         passive tracers are filled too: the kernels read real z halos where
         the TPU kernels wrap z-halo-free blocks."""
         fill = self._kernels(kernels)["fill"]
-        t = state["clock"].time
-        locs = self._locs()
-        sol = state["solution"]
-        fill(self.grid, [(arr, locs[name], self.bcs[name], (0, 1, 2), t)
-                         for name, arr in sol.items()])
+        if getattr(self, "halo_overlap", False):
+            return self._deferred_update_state(state, fill)
+        self.fill_all_halos(state["solution"], state["clock"].time, fill)
         state = dict(state)
         if self.immersed_boundary is not None:
             state = self.immersed_boundary.mask_state(self, state)
-            sol = state["solution"]
+        return self._aux_state(state, fill)
+
+    def fill_all_halos(self, sol, t, fill, axes=(0, 1, 2)):
+        """Fill the halos of every field of ``sol`` on ``axes`` in place, in
+        one call of ``fill``; returns ``sol``."""
+        locs = self._locs()
+        fill(self.grid, [(arr, locs[name], self.bcs[name], axes, t)
+                         for name, arr in sol.items()])
+        return sol
+
+    def _local_axes(self):
+        """The axes that are not cut over a mesh of shards."""
+        return tuple(a for a in (0, 1, 2) if self.grid.dist[a] is None)
+
+    def _deferred_update_state(self, state, fill):
+        """``update_state`` under ``halo_overlap`` (set by
+        ``DistributedModel``): the exchange and the diffusivities and pHY′
+        wait for the next step's ``tendencies_overlapped``. What needs no
+        exchange runs now, so that every interior point is the plain
+        step's: the fills of the local axes, the wall faces of a cut axis
+        that is bounded globally, and the masking (JAX l.210-225)."""
+        from ..boundary_conditions.bcs import impose_cut_wall_faces
+        t = state["clock"].time
+        locs = self._locs()
+        sol = self.fill_all_halos(state["solution"], t, fill, self._local_axes())
+        for name, arr in sol.items():
+            impose_cut_wall_faces(arr, self.grid, locs[name], self.bcs[name], t)
+        state = dict(state, solution=sol)
+        if self.immersed_boundary is not None:
+            state = self.immersed_boundary.mask_state(self, state)
+        return state
+
+    def _aux_state(self, state, fill):
+        """The closure's diffusivities and pHY′ (its halos filled through
+        ``fill``) from the state's filled solution: the part of
+        ``update_state`` after the fills."""
+        t = state["clock"].time
+        sol = state["solution"]
+        state = dict(state)
         tr = {n: sol[n] for n in self.tracer_names}
         diff = compute_closure_diffusivities(self.closure, self.grid, sol,
                                              self.buoyancy, tr)
@@ -415,6 +465,39 @@ class NonhydrostaticModel:
                  for k, g in G.items()}
         return G
 
+    def tendencies_overlapped(self, state, kernels=None):
+        """The halo-overlap tendencies of a shard (JAX l.258-330, the
+        nonblocking exchange of Oceananigans' halo_communication.jl): the
+        exchange (``fill_all_halos`` on every axis) and the deferred
+        masking, diffusivities and pHY′; the whole tendency from the
+        solution whose cut-axis halos are those of the last step (its local
+        axes filled), exact wherever a point is more than H from a cut
+        shard edge; then the H-wide strips along each cut axis recomputed
+        on ``grid.subgrid_along`` from the exchanged solution and written
+        over (``parallel/distributed.py::patch_edge_strips``). The parts run
+        in JAX's order, the exchange first: XLA overlaps them, while here
+        the shards of one card share its stream, so the split gives the
+        plain step's numbers, bit for bit, and no overlap. Returns ``(G,
+        state)``, the state with the exchanged solution."""
+        k = self._kernels(kernels)
+        t = state["clock"].time
+        sol_stale = state["solution"]
+        sol_fresh = self.fill_all_halos({n: a.clone() for n, a in sol_stale.items()},
+                                        t, k["fill"])
+        fresh = dict(state, solution=sol_fresh)
+        if self.immersed_boundary is not None:
+            fresh = self.immersed_boundary.mask_state(self, fresh)
+        fresh = self._aux_state(fresh, k["fill"])
+        sol_local = self.fill_all_halos({n: a.clone() for n, a in sol_stale.items()},
+                                        t, k["fill"], self._local_axes())
+        if self.immersed_boundary is not None:
+            sol_local = self.immersed_boundary.mask_state(
+                self, dict(state, solution=sol_local))["solution"]
+        G = self.tendencies(dict(fresh, solution=sol_local), kernels)
+        from ..parallel.distributed import patch_edge_strips
+        return patch_edge_strips(self, G, fresh, ("solution", "diffusivities", "pHY"),
+                                 kernels), fresh
+
     # -- pressure projection --------------------------------------------------
     def _fast_projection_ok(self):
         """The roll-based projection applies: a regular grid, periodic x
@@ -423,6 +506,7 @@ class NonhydrostaticModel:
         general projection."""
         g = self.grid
         if not (g.all_regular and self.immersed_boundary is None
+                and g.dist == (None, None, None)  # one shard: the rolls wrap
                 and g.topology[0] is PERIODIC
                 and g.topology[1] is PERIODIC
                 and g.topology[2] in (PERIODIC, BOUNDED)):
@@ -521,7 +605,8 @@ class NonhydrostaticModel:
         """∇²φ = rhs on the interior: the FFT solve, or the
         Fourier-tridiagonal one with its modes through
         ``kernels["fourier"]``."""
-        if isinstance(self.pressure_solver, FourierTridiagonalSolver):
+        if isinstance(self.pressure_solver, (FourierTridiagonalSolver,
+                                             DistributedFourierTridiagonalSolver)):
             return self.pressure_solver.solve(rhs, tridiagonal=kernels["fourier"])
         return self.pressure_solver.solve(rhs)
 
@@ -577,6 +662,10 @@ class NonhydrostaticModel:
         else:
             if self.fused_step:  # ψ′ with halos, as the JAX kernel pads it
                 sol, G = kernels["advance"](self, state, dt, euler)
+            elif getattr(self, "halo_overlap", False):
+                G, state = self.tendencies_overlapped(state, kernels)
+                sol = ab2_substep(state["solution"], G, state["G_prev"], dt,
+                                  self.ab2_chi, euler)
             else:
                 G = self.tendencies(state, kernels)
                 sol = ab2_substep(state["solution"], G, state["G_prev"], dt,
@@ -599,7 +688,10 @@ class NonhydrostaticModel:
         tick, dt = dt, float(dt)
         G_prev = None
         for gamma, zeta in zip(RK3_GAMMA, RK3_ZETA):
-            G = self.tendencies(state, kernels)
+            if getattr(self, "halo_overlap", False):
+                G, state = self.tendencies_overlapped(state, kernels)
+            else:
+                G = self.tendencies(state, kernels)
             sol = rk3_substep(state["solution"], G, G_prev, dt, gamma, zeta)
             stage_dt = (gamma + zeta) * dt
             sol = implicit_step_fields(sol, self.grid, self._locs(),

@@ -26,7 +26,9 @@ package adds it after its kernel too).
 
 State: ``solution`` (with-halo tensors, halo ``(h, h, 0)``; no TPU x-halo
 pad) and a host ``clock``; RK3 carries no tendency history across steps,
-so there is no ``G_prev``. Lagrangian particles (``particles=``) ride in
+so there is no ``G_prev``. Decomposed over a mesh of shards
+(``parallel/distributed.py``) its fills exchange along the cut axes and
+K3a reads their halos; the bathymetry is cut with the grid. Lagrangian particles (``particles=``) ride in
 ``state["particles"]`` and are advected after each step in the
 diagnostic velocities, sampling the tracers they track.
 """

@@ -85,7 +85,10 @@ def unsupported_reason(grid, eta_bcs):
             if grid.shape[axis] < grid.halo[axis] + 1:
                 return "K5 takes at least H+1 cells on a bounded axis"
         if axis < 2 and grid.topology[axis] not in (BOUNDED, PERIODIC, FLAT):
-            return f"K5 takes periodic, bounded or Flat x and y: {grid}"
+            # a FULLY_CONNECTED (cut) axis needs an exchange between the
+            # substeps, which one launch cannot make
+            return ("K5 takes periodic, bounded or Flat x and y, not an axis "
+                    f"cut over a mesh (ROADMAP Queue 1 item 11): {grid}")
     return None
 
 

@@ -30,6 +30,15 @@ gradient table holds), ``fields_unsupported_reason`` that of a model's
 fills. The wrapper runs the plain version on CPU tensors and the kernel
 on CUDA tensors (or raises: nothing falls back), and counts its launches
 in ``fused_fill_halos.launches``.
+
+On a grid cut over a mesh of shards K6 fills the local axes, and the
+neighbour exchange (``parallel/halo_exchange.py``) the cut ones, in the
+fill order of ``fill_halos``: a run of local axes is one launch, each
+cut axis one exchange of every field's strips; on the end shards of a
+cut axis that is not periodic globally, K6 then writes the physical
+side (in the launch of the local axes that follow, or one of its own).
+The plain version fills field by field through ``fill_halos``, whose
+cut axes exchange too: the same numbers.
 """
 from __future__ import annotations
 
@@ -40,7 +49,7 @@ import numpy as np
 import torch
 
 from ..boundary_conditions.bcs import _bvalue, default_bcs, fill_halos
-from ..grids.topology import BOUNDED, FLAT, PERIODIC
+from ..grids.topology import BOUNDED, FLAT, FULLY_CONNECTED, PERIODIC
 from ..utils.location import F
 from .fused_tendencies import check_tensor, kernel_fn, launch
 
@@ -91,21 +100,38 @@ def _side(grid, loc, axis, side, bc):
     return H if side == 0 else H - 1, MIRROR_F, NO_VALUE, None
 
 
-def fill_plan(grid, loc, bcs, axes, shape):
+def fill_plan(grid, loc, bcs, axes, shape, edges=None):
     """Per axis (S, N, H, lo, hi, kind0, kind1, value0, value1) of one
     field of ``shape``, its written indices along the axis being [0, lo)
     and [hi, S), and per axis the (side 0, side 1) BCs whose values the
-    fill reads (None where it reads none). Raises NotImplementedError for
-    what K6 lacks."""
+    fill reads (None where it reads none). A ``FULLY_CONNECTED`` axis is
+    the exchange's, and K6 keeps it, but for the sides that ``edges``
+    (per axis a pair of flags, or None) marks as the global grid's
+    bounded sides, which it fills as a bounded axis'. Raises
+    NotImplementedError for what K6 lacks."""
     bcs = bcs if bcs is not None else default_bcs(grid, loc)
     pairs = ((bcs.west, bcs.east), (bcs.south, bcs.north), (bcs.bottom, bcs.top))
     ints, values = [], []
     for axis in range(3):
         S, N, H = shape[axis], grid.shape[axis], grid.halo[axis]
         topo = grid.topology[axis]
-        if axis not in axes or topo is FLAT:
+        sides = edges[axis] if edges is not None else (False, False)
+        if (axis not in axes or topo is FLAT
+                or (topo is FULLY_CONNECTED and not any(sides))):
             ints.append((S, N, H, 0, S, KEEP, KEEP, NO_VALUE, NO_VALUE))
             values.append((None, None))
+            continue
+        if topo is FULLY_CONNECTED:
+            if S != N + 2 * H:
+                raise ValueError(f"axis {axis}: size {S}, expected {N + 2 * H}")
+            if N < H + 1:
+                raise NotImplementedError("K6 takes at least H+1 cells on a "
+                                          "bounded axis")
+            (w0, k0, v0, b0), (w1, k1, v1, b1) = (
+                _side(grid, loc, axis, s, pairs[axis][s]) if sides[s]
+                else (0, KEEP, NO_VALUE, None) for s in (0, 1))
+            ints.append((S, N, H, w0, S - w1, k0, k1, v0, v1))
+            values.append((b0, b1))
             continue
         if S != N + 2 * H:
             raise ValueError(f"axis {axis}: size {S}, expected {N + 2 * H}")
@@ -227,7 +253,7 @@ def _scalars(values):
             else 0.0 for pair in values for bc in pair]
 
 
-def _launch(grid, fields):
+def _launch(grid, fields, edges=None):
     device, dtype = fields[0][0].device, grid.dtype
     ptrs = set()
     for n, (data, loc, bcs, axes, _t) in enumerate(fields):
@@ -240,7 +266,7 @@ def _launch(grid, fields):
     order = fill_order(grid)
     for g0 in range(0, len(fields), MAX_FIELDS):
         group = fields[g0:g0 + MAX_FIELDS]
-        plans = [fill_plan(grid, loc, bcs, axes, data.shape)
+        plans = [fill_plan(grid, loc, bcs, axes, data.shape, edges)
                  for data, loc, bcs, axes, _t in group]
         ints, bs = [], []
         for fi, values in plans:
@@ -257,16 +283,70 @@ def _launch(grid, fields):
     return [f[0] for f in fields]
 
 
+def cut_axes(grid):
+    """The axes of ``grid`` cut over a mesh of shards (exchanged)."""
+    return tuple(a for a in range(3) if grid.topology[a] is FULLY_CONNECTED
+                 and grid.dist[a] is not None)
+
+
+def _edges(grid, axis):
+    """(side 0, side 1): whether this shard holds the global grid's
+    bounded side of the cut ``axis``."""
+    from ..parallel.halo_exchange import is_edge
+    mesh_axis, n_shards, global_topo = grid.dist[axis]
+    if global_topo is not BOUNDED:
+        return (False, False)
+    return tuple(is_edge(mesh_axis, n_shards, s) for s in (0, 1))
+
+
+def _fill_cut_grid(grid, fields):
+    """K6 and the exchange on a grid with cut axes, in ``fill_halos``'
+    order: each run of local axes (and a cut axis' physical sides before
+    it) one launch, each cut axis one exchange."""
+    from ..parallel.halo_exchange import exchange_axis
+    cut = cut_axes(grid)
+    group, edges = [], [(False, False)] * 3
+
+    def flush():
+        sub = [(d, loc, bcs, tuple(a for a in axes if a in group), t)
+               for d, loc, bcs, axes, t in fields]
+        sub = [f for f in sub if f[3]]
+        if sub:
+            _launch(grid, sub, edges)
+
+    for axis in fill_order(grid):
+        if axis not in cut:
+            group.append(axis)
+            continue
+        flush()
+        group, edges = [], [(False, False)] * 3
+        arrays = [d for d, _loc, _bcs, axes, _t in fields if axis in axes]
+        if not arrays:
+            continue
+        mesh_axis, n_shards, global_topo = grid.dist[axis]
+        exchange_axis(arrays, axis, grid.halo[axis], mesh_axis, n_shards,
+                      global_topo is PERIODIC)
+        side = _edges(grid, axis)
+        if any(side):
+            group, edges = [axis], [side if a == axis else (False, False)
+                                    for a in range(3)]
+    flush()
+    return [f[0] for f in fields]
+
+
 def fused_fill_halos(grid, fields):
     """Fill the halos of every ``(data, loc, bcs, axes, t)`` of ``fields``
     in place, as ``fill_halos(data, grid, loc, bcs, t, axes=axes)`` does one
     by one; returns the tensors. CUDA tensors go through K6, one launch for
     up to ``MAX_FIELDS`` distinct fields (a failure raises; nothing falls
-    back), CPU tensors through ``fused_fill_halos_reference``."""
+    back), and on a grid cut over a mesh the exchange of its cut axes; CPU
+    tensors through ``fused_fill_halos_reference``."""
     if not fields:
         return []
     device = fields[0][0].device
     if device.type == "cuda":
+        if cut_axes(grid):
+            return _fill_cut_grid(grid, fields)
         return _launch(grid, fields)
     if device.type != "cpu":
         raise ValueError(f"no fused_fill_halos for {device.type} tensors")

@@ -74,7 +74,7 @@ from ..closures.scalar_diffusivity import (ScalarDiffusivity,
 from ..coriolis.coriolis import (BetaPlane, ConstantCartesianCoriolis, FPlane,
                                  HydrostaticSphericalCoriolis,
                                  NonTraditionalBetaPlane)
-from ..grids.topology import FLAT
+from ..grids.topology import FLAT, FULLY_CONNECTED
 from ..immersed.immersed import clear_flags
 from ..timesteppers.steppers import ab2_coefficients, ab2_substep
 from ..utils.location import CENTER, U_LOC, V_LOC, W_LOC
@@ -194,6 +194,13 @@ def unsupported_reason(model):
     Flat y or both (the JAX gate leaves them to jnp) and the Cartesian
     Coriolis forms."""
     grid = model.grid
+    if FULLY_CONNECTED in grid.topology[:2]:
+        # the JAX gate refuses a cut grid (ops/fused_hydrostatic.py:146);
+        # so does K5, whose substeps run in one launch where a cut axis
+        # needs an exchange between substeps
+        return ("the hydrostatic model over a grid cut over a mesh runs on "
+                "the CPU only: K5's substeps take no exchange between them "
+                "(ROADMAP Queue 1 item 11)")
     if not grid.x_regular:
         return ("K4 takes a regular x axis (x-constant metrics) "
                 "(ROADMAP Queue 1 item 6)")
@@ -232,6 +239,8 @@ def supports_fused_hydro_advance(model):
     from ..models.free_surface import ExplicitFreeSurface
     if not model.fused_advection or model.forcing:
         return False
+    if model.grid.dist != (None, None, None):
+        return False  # as the JAX DistributedModel clears fused_advance
     if getattr(model.grid, "immersed", None) is not None:
         return False
     if model.closure is not None and kernel_closure(model) is None:

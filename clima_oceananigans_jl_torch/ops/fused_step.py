@@ -38,7 +38,7 @@ from ..closures.vertical_mixing import (CATKEVerticalDiffusivity,
                                         RiBasedVerticalDiffusivity)
 from ..coriolis.coriolis import (BetaPlane, ConstantCartesianCoriolis, FPlane,
                                  NonTraditionalBetaPlane)
-from ..grids.topology import BOUNDED, FLAT
+from ..grids.topology import BOUNDED, FLAT, FULLY_CONNECTED
 from ..immersed.immersed import ImmersedBoundary, PartialCellBottom
 from ..timesteppers.steppers import ab2_coefficients, ab2_substep
 from ..utils.location import U_LOC, V_LOC
@@ -105,6 +105,14 @@ def unsupported_reason(model):
                 "item 7)")
     if all(t is FLAT for t in model.grid.topology):
         return "a nonhydrostatic grid needs an axis that is not Flat"
+    # a FULLY_CONNECTED axis cut over a mesh (``grid.dist``) is filled by
+    # the exchange, and K2, K3b, K3c read it like a periodic one (no wall
+    # faces); one that no mesh fills (a cubed-sphere face's) is refused
+    g = model.grid
+    for a in range(3):
+        if g.topology[a] is FULLY_CONNECTED and g.dist[a] is None:
+            return ("a FULLY_CONNECTED axis that no mesh exchanges is not "
+                    "ported in the nonhydrostatic model")
     return None
 
 
@@ -151,6 +159,11 @@ def fused_step_ok(model):
     JAX kernel traces every scheme in."""
     if not (model.fused_advection and supports_fused_advection(model.grid)
             and model.timestepper == "QuasiAdamsBashforth2"):
+        return False
+    # a grid cut over a mesh (a FULLY_CONNECTED axis) takes the general
+    # branch, as in the JAX gate (ops/fused_step.py:63-64): K1 runs on one
+    # shard's whole grid
+    if model.grid.dist != (None, None, None):
         return False
     if model.coriolis is not None and not isinstance(model.coriolis,
                                                      (FPlane, BetaPlane)):

@@ -341,6 +341,8 @@ def _launch(grid, scheme, tracer_scheme, u, v, w, tracers):
     # K2 writes every point: the interior, the zero halos and the wall faces
     out = [torch.empty(grid.total_shape, dtype=dtype, device=device)
            for _ in names]
+    # a bounded axis' wall faces; a FULLY_CONNECTED axis (cut over a mesh)
+    # reads its exchanged halos as a periodic one does and has none
     walls = sum(1 << a for a in range(3) if grid.topology[order[a]] is BOUNDED)
     # the metric rows: a stretched z's (or none) for the tiled forms, every
     # axis' for the stretched-x/y form (a source of its own)

@@ -6,19 +6,28 @@ a linear operator ``A(x)`` (a tensor function, e.g. the implicit
 free-surface operator with its halo fills) and an optional
 preconditioner ``M(r)``. The JAX package's ``lax.while_loop`` becomes a
 Python loop whose stopping test reads the residual on the host once per
-iteration.
+iteration. On a grid cut over a mesh of shards (``axis_names``) each
+inner product is summed over the shards in shard order
+(``parallel/mesh.py::psum``), so every shard reads the same residual and
+stops at the same iteration.
 """
 from __future__ import annotations
 
 import torch
 
 
-def cg_solve(A, b, x0, M=None, reltol=1e-8, abstol=0.0, maxiter=200):
+def cg_solve(A, b, x0, M=None, reltol=1e-8, abstol=0.0, maxiter=200,
+             axis_names=()):
     """Solve A x = b (A symmetric positive definite) → (x, iterations,
-    |r|²)."""
+    |r|²). ``axis_names``: the mesh axes to sum the inner products over
+    when each shard holds a block of x and b."""
     if M is None:
         M = lambda r: r
-    dot = lambda a, c: torch.sum(a * c)
+    if axis_names:
+        from ..parallel.mesh import psum
+        dot = lambda a, c: psum(torch.sum(a * c), axis_names)
+    else:
+        dot = lambda a, c: torch.sum(a * c)
     x = x0
     r = b - A(x0)
     p = z = M(r)
