@@ -16,7 +16,8 @@
                               [implicit-free-surface] [multigrid-iterations]
                               [k2xy [--parent DIR]] [cubed-sphere]
                               [near-global-partial] [k4b-parent --parent DIR]
-                              [distributed] [--steps N]
+                              [distributed] [distributed-near-global]
+                              [sass-k5 --parent DIR] [--steps N]
 
 With no part named, runs them all. Prints the card's name and power
 limit first. Needs a card; without one it exits with an error.
@@ -292,6 +293,16 @@ limit first. Needs a card; without one it exits with an error.
   host's gaps, 80% of the step, do not count), then torch.profiler's
   device time of K2, K3b/K3c, K6 and cuFFT's kernels by name, the rest of
   the busy time, and the device's idle share.
+- ``distributed-near-global``: ``chip_smoke.py``'s ``distributed
+  near-global`` path (the ¼° near-global ocean at 1440×600×24 fp32 on a
+  (2, 2) mesh of four shards on the card), likewise: the exchanges' device
+  time behind a spin, then the profiler's device time of K4a, K4b, K5's
+  cut form, K6 and T1 by name, the rest and the idle share.
+- ``sass-k5``: K5's cooperative form (every instantiation of
+  ``fused_substep_eta_kernel``) as built here and from an older tree's
+  ``csrc`` (``--parent DIR``), their SASS compared as ``sass-regular``
+  compares its kernels: the cut form's kernels share its source. Without
+  ``--parent`` it runs only when named.
 """
 from __future__ import annotations
 
@@ -617,20 +628,21 @@ def counterpart(fn, there):
     return None
 
 
-def sass_regular(steps, parent):
+def sass_regular(steps, parent, names=None, every=False):
     """K1's, K2's, K3a's, K4b's and K4a's instantiations whose last template
     flag is false (without ``ANY``: the first codes; with ``ANY``, without
     the bf16 sub-form ``BF``; K4a's and K4b's without ``D3``) as built here against the same ones built from
     the parent tree's ``csrc`` (``--parent DIR``), all built at once: their SASS
     instruction sequences, counted, and compared with constants
     (immediates and constant-bank offsets) masked, which differ where the
-    argument struct grew."""
+    argument struct grew. ``names`` other sources' kernels (``<name>_kernel``)
+    in place of those; with ``every``, all their instantiations."""
     import concurrent.futures
     import re
     mask = lambda ins: re.sub(r"0x[0-9a-f]+", "#", ins)
-    names = ("fused_ab2_advance", "fused_advective_tendencies",
-             "fused_shallow_water_tendencies", "fused_hydrostatic_tendencies",
-             "hydrostatic_columns")
+    names = names or ("fused_ab2_advance", "fused_advective_tendencies",
+                      "fused_shallow_water_tendencies", "fused_hydrostatic_tendencies",
+                      "hydrostatic_columns")
     def parts(csrc, name):
         """``name``'s sources in ``csrc``: K2's two since its split."""
         extra = tft.K2_ANY_LIB
@@ -658,7 +670,7 @@ def sass_regular(steps, parent):
         for fn, ins in sorted(here.items()):
             if kernel not in fn:
                 continue
-            if ", false>(" not in fn:
+            if not every and ", false>(" not in fn:
                 continue
             # a parent kernel without this tree's newer template
             # parameters (ANY; K4b's layout and Cartesian flag): this
@@ -2034,16 +2046,8 @@ def _replay(mesh, calls, kind, fn):
 def distributed(steps):
     """chip_smoke.py's ``distributed RK3`` path (the RK3 flagship at 256³
     fp32 decomposed on a (2, 2) mesh of four shards on the card) after 2
-    warm-up steps. The exchange's and the transposes' device time: one
-    step's collectives recorded, then made again on fresh tensors of the
-    same shapes behind a spin of the card (``queued_ms``), so that the
-    host's gaps do not count; then, over ``steps`` more steps,
-    torch.profiler's device time of the kernels by name (K2, K3b/K3c, K6,
-    cuFFT), the rest of the busy time, and the device's idle share
-    (1 − busy/elapsed on the host clock)."""
+    warm-up steps, broken down by ``decomposed_step``."""
     from clima_oceananigans_jl_torch import DistributedModel, make_mesh
-    from clima_oceananigans_jl_torch.parallel import distributed_fft, halo_exchange
-    from torch.profiler import ProfilerActivity, profile
     timestepper, dt, _, _, kw = chip_smoke.PATHS["RK3"]
     model = chip_smoke.model_for(chip_smoke.N, torch.float32,
                                 timestepper=timestepper, **kw)
@@ -2056,6 +2060,48 @@ def distributed(steps):
     dm = DistributedModel(model, mesh)
     states = dm.scatter_state(state)
     del state
+    decomposed_step(f"distributed RK3 {chip_smoke.N}^3 fp32 on a (2, 2) mesh of 4 "
+                    "shards on one card", dm, states, dt, DIST_KERNELS,
+                    "the rest (eager terms, copies, RK3 substeps)", steps)
+
+
+#: the decomposed near-global step's kernels by name
+DIST_NEAR_GLOBAL_KERNELS = (("K4a", ("hydrostatic_columns_kernel",)),
+                            ("K4b", ("fused_hydrostatic_tendencies_kernel",)),
+                            ("K5 cut form", ("substep_uv_kernel", "substep_eta_kernel")),
+                            ("K6", ("fill_halos_kernel",)),
+                            ("T1", ("batched_tridiagonal_kernel",)))
+
+
+def distributed_near_global(steps):
+    """chip_smoke.py's ``distributed near-global`` path (the ¼° near-global
+    ocean decomposed on a (2, 2) mesh of four shards on the card) after 2
+    warm-up steps, broken down by ``decomposed_step``."""
+    from clima_oceananigans_jl_torch import DistributedModel, make_mesh
+    model, state = chip_smoke.hydro_path_model("near-global")
+    mesh = make_mesh(chip_smoke.DIST_NEAR_GLOBAL["mesh"], [torch.device("cuda", 0)] * 4)
+    dm = DistributedModel(model, mesh)
+    states = dm.scatter_state(state)
+    del state
+    g = model.grid
+    decomposed_step(f"distributed near-global 1/4 deg {g.Nx}x{g.Ny}x{g.Nz} fp32 on a "
+                    "(2, 2) mesh of 4 shards on one card", dm, states,
+                    chip_smoke.HYDRO["dt"], DIST_NEAR_GLOBAL_KERNELS,
+                    "the rest (eager diffusion, masks, AB2 substep, barotropic modes, "
+                    "corrector, copies)", steps)
+
+
+def decomposed_step(label, dm, states, dt, kernels, rest, steps):
+    """A decomposed step after 2 warm-up steps: the device time of one
+    step's exchanges and transposes, recorded and made again on fresh
+    tensors of the same shapes behind a spin of the card (``queued_ms``),
+    so that the host's gaps do not count; then, over ``steps`` more steps,
+    torch.profiler's device time of ``kernels`` ((part, name keys)) by
+    name, the rest of the busy time (``rest``), and the device's idle share
+    (1 − busy/elapsed on the host clock)."""
+    from clima_oceananigans_jl_torch.parallel import distributed_fft, halo_exchange
+    from torch.profiler import ProfilerActivity, profile
+    mesh = dm.mesh
     for _ in range(2):
         states = dm.step(states, dt)
     torch.cuda.synchronize()
@@ -2069,10 +2115,12 @@ def distributed(steps):
         torch.cuda.synchronize()
     finally:
         halo_exchange.exchange_axis, distributed_fft.all_to_all = ex_fn, a2a_fn
-    comm = {"exchange": queued_ms(_replay(mesh, calls, "exchange", ex_fn), 2),
-            "transposes": queued_ms(_replay(mesh, calls, "all_to_all", a2a_fn), 2)}
-    n_calls = {"exchange": len(calls["exchange"][0]),
-               "transposes": len(calls["all_to_all"][0])}
+    comm, n_calls = {}, {}
+    for kind, name, fn in (("exchange", "exchange", ex_fn),
+                           ("all_to_all", "transposes", a2a_fn)):
+        if calls[kind][0]:
+            comm[name] = queued_ms(_replay(mesh, calls, kind, fn), 2)
+            n_calls[name] = len(calls[kind][0])
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2083,18 +2131,17 @@ def distributed(steps):
     cuda = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in cuda) / 1e3 / steps
-    print(f"distributed RK3 {chip_smoke.N}^3 fp32 on a (2, 2) mesh of 4 shards on "
-          f"one card, {steps} steps: {elapsed:.4f} ms/step elapsed (host clock), "
+    print(f"{label}, {steps} steps: {elapsed:.4f} ms/step elapsed (host clock), "
           f"{busy:.4f} ms/step in kernels (torch.profiler)")
     if busy <= 0:
         print("torch.profiler saw no device time: parts and idle share not measured")
         return
     parts = {}
-    for name, keys in DIST_KERNELS:
+    for name, keys in kernels:
         parts[name] = sum(e.self_device_time_total for e in cuda
                           if any(k in e.key.lower() for k in keys)) / 1e3 / steps
     parts.update(comm)
-    parts["the rest (eager terms, copies, RK3 substeps)"] = busy - sum(parts.values())
+    parts[rest] = busy - sum(parts.values())
     for name, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
         n = n_calls.get(name)
         each = f", {n} collectives a shard a step, queued" if n else ""
@@ -2105,6 +2152,15 @@ def distributed(steps):
     for e in top:
         print(f"  {e.key[:60]}: {e.self_device_time_total / (steps * 1e3):.4f} ms/step, "
               f"{e.count / steps:.2f} calls/step")
+
+
+def sass_k5(steps, parent):
+    """K5's cooperative form (``fused_substep_eta_kernel``, every
+    instantiation) as built here against the parent tree's (``--parent
+    DIR``): the cut form's kernels beside it in the same source must leave
+    its SASS as it was."""
+    sass_regular(steps, parent, names=("fused_substep_eta",), every=True)
+
 
 PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps), "ab2-bf16": ab2_bf16,
          "rk3": lambda steps: nonhydrostatic("RK3", steps),
@@ -2135,7 +2191,8 @@ PARTS = {"ab2": lambda steps: nonhydrostatic("AB2", steps), "ab2-bf16": ab2_bf16
          "implicit-free-surface": implicit_free_surface,
          "multigrid-iterations": multigrid_iterations, "cubed-sphere": cubed_sphere,
          "near-global-partial": near_global_partial, "k4b-parent": k4b_parent,
-         "distributed": distributed}
+         "distributed": distributed, "distributed-near-global": distributed_near_global,
+         "sass-k5": sass_k5}
 
 
 def main(argv):
@@ -2151,7 +2208,8 @@ def main(argv):
         parent = argv[i + 1]
         argv = argv[:i] + argv[i + 2:]
     parts = argv or [p for p in PARTS
-                     if p not in ("sass-regular", "k2xy", "k4b-parent") or parent]
+                     if p not in ("sass-regular", "sass-k5", "k2xy", "k4b-parent")
+                     or parent]
     for p in parts:
         if p not in PARTS:
             raise SystemExit(f"unknown part {p!r}: choose from {list(PARTS)}")
@@ -2161,11 +2219,11 @@ def main(argv):
     for p in parts:
         if p == "division":
             division()
-        elif p == "sass-regular":
+        elif p in ("sass-regular", "sass-k5"):
             if parent is None:
-                raise SystemExit("sass-regular needs --parent DIR (the parent "
+                raise SystemExit(f"{p} needs --parent DIR (the parent "
                                  "tree's clima_oceananigans_jl_torch/csrc)")
-            sass_regular(steps, parent)
+            PARTS[p](steps, parent)
         elif p == "k2xy":
             k2xy(steps, parent)
         elif p == "k4b-parent":

@@ -379,11 +379,15 @@ on the card, in phases; each prints one line or a few:
    the wind; after each column's counts are read, ``COLUMN_HOLD_STEPS``
    model steps with the kernels against as many with the plain versions
    (K4a, K4b's tendency form, T1, K6), bit for bit, from a rebuilt model's
-   initial state and from the run's end state; ``Stommel gyre``: validation/barotropic_gyre.py as written
-   through the port's copy (64×64 fp64, its forcing callables, ~10⁴ RK3
-   steps, 3 K3a a step) and its three assertions, then ``GYRE_TIMED`` at
-   1024² (2 warm-up and 5 timed steps, K3a against its plain version
-   exactly, the forcing's share of a step); ``front slice`` (``FRONT``:
+   initial state and from the run's end state; ``Stommel gyre 1024``:
+   validation/barotropic_gyre.py's model through the port's copy at
+   ``GYRE_TIMED``'s 1024² fp64 (its forcing callables, 3 K3a a step; 2
+   warm-up and 5 timed steps, K3a against its plain version exactly, the
+   forcing's share of a step; since the decomposed near-global path came
+   the validation's own ~10⁴ steps at 64² are not run, and its scores and
+   assertions are checked on the CPU on the analytic Stommel state,
+   tests/test_torch_flat_hydrostatic.py::test_gyre_copy_checks_its_scores);
+   ``front slice`` (``FRONT``:
    the baroclinic-adjustment physics on a (Flat, Bounded, Bounded)
    1×8192×128 fp32 y–z slice with a split-explicit free surface), 2
    warm-up and 5 timed steps with the kernels (1 K4a, 1 K4b in its fused
@@ -402,7 +406,7 @@ Since the stencil-matrix slice it ends (after phase 42) with
    outputs, each timed against its bound (the form's record's ``forms``);
 44. ``stretched channel`` (``CHANNEL``): the JAX suite's fully stretched
    configuration at 256×256×128 fp64 with WENO5, a tracer and 2²⁰
-   particles, 1 warm-up and 2 timed quasi-AB2 steps with the kernels (1
+   particles, 1 warm-up and 1 timed quasi-AB2 step with the kernels (1
    K2 in its stretched-x/y form and 3 K6 a step; the multigrid pressure
    solve and the projection's operators are PyTorch ops), checked (finite,
    max|∇·u|·Δx_min/max|u| ≤ 1e-5, every particle in the domain), the
@@ -468,13 +472,33 @@ Since the stencil-matrix slice it ends (after phase 42) with
    shard); overlap_halo against no overlap, bit for bit; a
    GridFittedBottom (AB2); shallow water at 1024² on (2, 4) (K3a per
    shard, exactly the single-device run); each kernel run exactly its
-   decomposed plain run; the hydrostatic model refused on the card by
-   name (ROADMAP Queue 1 item 11).
+   decomposed plain run;
+49. (since the decomposed-hydrostatic slice, between 47 and 48)
+   ``phase_distributed_near_global``: ``distributed near-global``
+   (``DIST_NEAR_GLOBAL``: benchmark/bench_near_global.py at ¼°, 1440×600×24
+   fp32, built as the ``near-global`` path builds it, in DistributedModel
+   over a (2, 2) mesh of four 720×300×24 shards on cuda:0); what the
+   shards' K4b and K5 read confirmed (no near-wall bounds on a cut axis,
+   the shards' own rows, flags and depth planes); 3 steps held (finite, u
+   and v exactly 0 at solid faces, |Σ η·Az| ≤ 1e-5·Σ|η|·Az; bit for bit
+   the decomposed plain run and the overlap_halo run; within
+   ``pencil_tolerance`` of the single-device kernel run), then 5 timed
+   beside the single-device near-global step and 2 under the profiler
+   (idle share); K4a and K4b held on each shard's fields over NaN-filled
+   outputs; per shard a step 1 K4a, 1 K4b, 60 K5 in its cut form, 63
+   K6 (61 in the barotropic substeps), 3 T1; K5's cut form held bit for
+   bit on the four shards against its plain version and timed on one
+   (its record, ``fused_substep_eta_cut``); phase 48 then also holds the
+   hydrostatic model decomposed: a (P, B, B) 32×32×8 split-explicit(10)
+   box on (2, 2) and the JAX suite's near-global stack at 48×24×8 on (2,
+   2) and (4, 1) in fp32 and fp64, and with WENO5 (the shards' clear
+   flags), each bit for bit its plain decomposed run.
 
 K2 builds as two libraries at once (``K2_SOURCES``: its first-code
 instantiations and its ``ANY``/``BF`` ones, one kernel in
 ``csrc/fused_advective_tendencies.cuh``); its record names both in
-``sources``.
+``sources``. K2's stretched-x/y form and K5's cut form have records of
+their own (``K2XY``, ``K5CUT``: their launches out of K2's and K5's).
 
 Each kernel's record carries its bound: the larger of its compulsory
 bytes (each input read once, each output written once, from this run's
@@ -532,6 +556,7 @@ from clima_oceananigans_jl_torch import (BOUNDED, FLAT, PERIODIC,
                                          LatitudeLongitudeGrid,
                                          LinearEquationOfState, LinearTarget,
                                          NonhydrostaticModel, OpenBC,
+                                         PartialCellBottom,
                                          PositiveWENO5, RectilinearGrid,
                                          Relaxation,
                                          ScalarDiffusivity, SeawaterBuoyancy,
@@ -581,11 +606,14 @@ from clima_oceananigans_jl_torch.models.free_surface import (ETA_LOC,
                                                              fill2d)
 from clima_oceananigans_jl_torch.ops import _build
 from clima_oceananigans_jl_torch.ops.fused_barotropic import (
-    cooperative_grid, fused_substep_eta, fused_substep_eta_reference)
+    cooperative_grid, cut_kernel_halves, cut_sequence, depth_inputs,
+    fused_substep_eta, fused_substep_eta_reference,
+    substep_eta_interior_reference, substep_uv_interior_reference)
 from clima_oceananigans_jl_torch.ops.fused_fill import (
     MIRROR_C, MIRROR_F, WRAP, fill_plan, fused_fill_halos,
     fused_fill_halos_reference)
 from clima_oceananigans_jl_torch.ops.fused_hydrostatic import (
+    _mask_locs, kernel_y_rows,
     columns_config, fused_hydrostatic_tendencies,
     fused_hydrostatic_tendencies_reference, hydrostatic_columns,
     hydrostatic_columns_reference)
@@ -593,9 +621,12 @@ from clima_oceananigans_jl_torch.closures.implicit_vertical_diffusion import (
     implicit_vertical_diffusion_step)
 from clima_oceananigans_jl_torch.ops.fused_step import (
     fused_ab2_advance, fused_ab2_advance_reference, general_route, w_top)
+from clima_oceananigans_jl_torch.immersed.immersed import clear_flags
+from clima_oceananigans_jl_torch.ops.metric_rows import dz3_pack, y_tables
+from clima_oceananigans_jl_torch.parallel.decomposition import _windows, scatter_array
 from clima_oceananigans_jl_torch.ops.fused_tendencies import (
-    bf16_mode, fused_advective_tendencies, fused_advective_tendencies_reference,
-    k2_clear_flags, stretched_rows_arg,
+    TABLE_SCHEMES, axis_bounds, bf16_mode, fused_advective_tendencies,
+    fused_advective_tendencies_reference, k2_clear_flags, stretched_rows_arg,
     fused_divergence, fused_divergence_reference, fused_pressure_gradient,
     fused_pressure_gradient_reference, fused_shallow_water_tendencies,
     fused_shallow_water_tendencies_reference, K2_ANY_LIB)
@@ -619,6 +650,10 @@ T1 = "batched_tridiagonal"
 #: K2's stretched-x/y form, whose launches K2's wrapper also counts apart
 #: (``fused_advective_tendencies.stretched_launches``)
 K2XY = "fused_advective_tendencies_stretched"
+#: K5's cut form (a shard of a grid cut over a mesh: one launch a
+#: half-substep between the fills), whose launches K5's wrapper also counts
+#: apart (``fused_substep_eta.cut_launches``)
+K5CUT = "fused_substep_eta_cut"
 WRAPPERS = {K1: fused_ab2_advance, K2: fused_advective_tendencies,
             K3A: fused_shallow_water_tendencies, K3B: fused_divergence,
             K3C: fused_pressure_gradient, K4A: hydrostatic_columns,
@@ -629,7 +664,7 @@ SOURCES = {K1: "fused_ab2_advance", K2: "fused_advective_tendencies",
            K3A: "fused_shallow_water_tendencies", K3B: "fused_projection",
            K3C: "fused_projection", K4A: "hydrostatic_columns",
            K4B: "fused_hydrostatic_tendencies", K5: "fused_substep_eta",
-           K6: "fill_halos", T1: "batched_tridiagonal"}
+           K5CUT: "fused_substep_eta", K6: "fill_halos", T1: "batched_tridiagonal"}
 REPLACES = {K1: "clima_oceananigans_jl_tpu/ops/fused_step.py:129",
             K2: "clima_oceananigans_jl_tpu/ops/fused_tendencies.py:397",
             K2XY: "clima_oceananigans_jl_tpu/ops/fused_tendencies.py:397",
@@ -639,6 +674,7 @@ REPLACES = {K1: "clima_oceananigans_jl_tpu/ops/fused_step.py:129",
             K4A: "clima_oceananigans_jl_tpu/ops/fused_hydrostatic.py:550",
             K4B: "clima_oceananigans_jl_tpu/ops/fused_hydrostatic.py:550",
             K5: "clima_oceananigans_jl_tpu/ops/fused_barotropic.py:102",
+            K5CUT: "clima_oceananigans_jl_tpu/ops/fused_barotropic.py:102",
             K6: "clima_oceananigans_jl_tpu/ops/fused_fill.py:139",
             T1: "clima_oceananigans_jl_tpu/solvers/tridiagonal.py:25"}
 #: operations per point that each kernel's function needs, each face flux
@@ -655,7 +691,7 @@ REPLACES = {K1: "clima_oceananigans_jl_tpu/ops/fused_step.py:129",
 #: division for the denominator and each of cp and dp, then the back
 #: sweep's multiply and subtraction)
 FLOPS = {K1: 820, K2: 800, K3A: 300, K3B: 12, K3C: 9, K4A: 25, K4B: 1300,
-         K5: 32, K6: 2, T1: 8}
+         K5: 32, K5CUT: 32, K6: 2, T1: 8}
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 TOL = {torch.float32: 1e-6, torch.float64: 1e-13}
@@ -740,7 +776,7 @@ PER_STEP = {"AB2": {K1: 1, K6: 2}, "RK3": {K2: 3, K6: 6},
             "column closures: convective_adjustment": {K4A: 1, K4B: 1, K6: 3, T1: 3},
             "column closures: Ri_based": {K4A: 1, K4B: 1, K6: 3, T1: 3},
             "wind mixing column": {K4A: 1, K4B: 1, K6: 3, T1: 4},
-            "Stommel gyre": {K3A: 3}, "Stommel gyre 1024": {K3A: 3},
+            "Stommel gyre 1024": {K3A: 3},
             "front slice": {K4A: 1, K4B: 1, K5: 1, K6: 2},
             "free convection: CATKE": {K4A: 1, K4B: 1, K6: 3, T1: 4},
             "free convection: convective adjustment": {K4A: 1, K4B: 1, K6: 3, T1: 3},
@@ -1318,6 +1354,7 @@ def zero_counts():
         w.launches = 0
     fourier_tridiagonal.launches = 0
     WRAPPERS[K2].stretched_launches = 0
+    WRAPPERS[K5].cut_launches = 0
 
 
 #: the launches of a hydrostatic model's ``initial_state`` (its
@@ -1325,16 +1362,25 @@ def zero_counts():
 INITIAL_STATE = {K4A: 1, K6: 2}
 
 
+def launch_counts():
+    """Every kernel's launches since ``zero_counts`` (``K2XY`` and
+    ``K5CUT`` out of K2's and K5's)."""
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    launches[K2XY] = WRAPPERS[K2].stretched_launches
+    launches[K2] -= launches[K2XY]
+    launches[K5CUT] = WRAPPERS[K5].cut_launches
+    launches[K5] -= launches[K5CUT]
+    return launches
+
+
 def read_counts(path, steps, extra=None, plain=False):
     """The launches since ``zero_counts``, checked against ``PER_STEP[path]``
     (and, of T1's, those of its Fourier mode against
     ``T1_FOURIER_PER_STEP``) times ``steps`` plus ``extra``; none with
-    ``plain``. K2's stretched-x/y form counts as a kernel of its own
-    (``K2XY``), out of K2's count."""
+    ``plain``. K2's stretched-x/y form and K5's cut form count as kernels
+    of their own (``K2XY``, ``K5CUT``), out of K2's and K5's counts."""
     torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in WRAPPERS.items()}
-    launches[K2XY] = WRAPPERS[K2].stretched_launches
-    launches[K2] -= launches[K2XY]
+    launches = launch_counts()
     expected = {k: 0 if plain else PER_STEP[path].get(k, 0) * steps
                 + (extra or {}).get(k, 0) for k in launches}
     if launches != expected:
@@ -1976,9 +2022,7 @@ def phase_k4_forms():
     ¼° cases timed (the form their path runs) against their bounds.
     Returns (the largest max|Δ|, a reading of each timed case: part,
     form, max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
-    from clima_oceananigans_jl_torch.ops.fused_hydrostatic import (
-        _mask_locs, clear_flags, kernel_closure)
-    from clima_oceananigans_jl_torch.ops.metric_rows import y_tables
+    from clima_oceananigans_jl_torch.ops.fused_hydrostatic import kernel_closure
     worst, readings = 0.0, []
     for label, part, build, dtype, timed in k4b_form_cases():
         model = build()
@@ -4845,26 +4889,17 @@ GYRE_TIMED = dict(N=1024, warmup=2, steps=5)
 
 
 def phase_gyre():
-    """validation/barotropic_gyre.py as written, through the port's copy, at
-    N = 64 fp64 with K3a (~10⁴ RK3 steps) and its three assertions; then a
-    timed reading at N = 1024 (2 warm-up, 5 timed steps): ms a step, the
-    two forcing callables' share of it (three stages a step, CUDA events),
-    and 3 steps with K3a against 3 with its plain version, bit for bit.
+    """validation/barotropic_gyre.py's model, through the port's copy, at
+    its timed reading's N = 1024 fp64 (2 warm-up, 5 timed steps): ms a
+    step, the two forcing callables' share of it (three stages a step, CUDA
+    events), and 3 steps with K3a against 3 with its plain version, bit for
+    bit. (The validation's own ~10⁴ RK3 steps at N = 64 are not run here
+    since the decomposed near-global path came; its scores and three
+    assertions are checked on the CPU on the analytic Stommel state, by
+    tests/test_torch_flat_hydrostatic.py::test_gyre_copy_checks_its_scores.)
     Returns the launch counts by path."""
     bg = barotropic_gyre
-    path = "Stommel gyre"
-    dt, n_steps = bg.time_step(bg.N)
-    zero_counts()
-    t0 = time.perf_counter()
-    model, state, (corr, amp, ratio) = bg.run(bg.N, DEVICE)
-    torch.cuda.synchronize()
-    per_step = (time.perf_counter() - t0) / n_steps
-    by_path = {path: read_counts(path, n_steps)}
-    check_finite(path, model, state)
-    bg.check(corr, amp, ratio)
-    print(f"{path}: (Bounded, Bounded, Flat) {bg.N}x{bg.N} fp64, {n_steps} RK3 steps "
-          f"of {dt:.3f} s, {per_step * 1e3:.3f} ms/step; corr {corr:.5f}, amplitude "
-          f"{amp:.4f}, west/east {ratio:.3f}: the validation's three assertions pass")
+    by_path = {}
     c, path = GYRE_TIMED, "Stommel gyre 1024"
     model = bg.model_for(c["N"], DEVICE)
     dt = bg.time_step(c["N"])[0]
@@ -5001,9 +5036,10 @@ def phase_front_slice():
 #: multigrid tolerance of 1e-9 is below fp32's resolution), WENO5 momentum
 #: and tracer c, quasi-AB2 at Δt = 1e-3, u, v ~ 1e-2 N(0, 1) and 2²⁰
 #: particles uniform in the domain from numpy seed 9, tracking c; 1 warm-up
-#: and 2 timed steps (each ~5–8 s of host-bound multigrid CG), cut from 2
-#: and 5 to keep the whole run well inside its limit
-CHANNEL = dict(size=(256, 256, 128), dt=1e-3, warmup=1, steps=2, particles=2 ** 20,
+#: and 1 timed step (each ~5–8 s of host-bound multigrid CG), cut from 2
+#: and 5, then (for the decomposed near-global path) from 1 and 2, to keep
+#: the whole run well inside its limit
+CHANNEL = dict(size=(256, 256, 128), dt=1e-3, warmup=1, steps=1, particles=2 ** 20,
                seed=9)
 #: the ¼° flagship with ImplicitFreeSurface(solver_method=m, maxiter=50) in
 #: place of split-explicit(30), as __graft_entry__.py:128 builds the
@@ -5906,7 +5942,7 @@ PENCIL_EPS = 4096
 #: the small holds: 64³ fp32 unless said, one step each (three RK3
 #: stages; the decomposed steps are host-bound, ~0.15–0.3 s a step at any
 #: size, and the holds had 43 s at two steps on a slow host)
-DIST_HOLD = dict(n=64, steps=1, n_sw=1024)
+DIST_HOLD = dict(n=64, steps=1, n_sw=1024, n_hy=32, steps_hy=2)
 
 
 def pencil_tolerance(dtype):
@@ -5919,10 +5955,14 @@ def dist_devices(n):
 
 
 def dist_gathered(dm, states):
-    """The decomposed states gathered, interiors of the solution."""
+    """The decomposed states gathered, interiors of the solution (and of η,
+    where the state has one)."""
     g = dm.grid
     s = dm.gather_state(states)
-    return s, {k: g.interior(a) for k, a in s["solution"].items()}
+    fields = {k: g.interior(a) for k, a in s["solution"].items()}
+    if "eta" in s:
+        fields["eta"] = s["eta"][g.Hx:g.Hx + g.Nx, g.Hy:g.Hy + g.Ny]
+    return s, fields
 
 
 def dist_relative(label, got, ref, tol):
@@ -6027,29 +6067,292 @@ def phase_distributed():
     return launches
 
 
+#: the decomposed near-global ocean: benchmark/bench_near_global.py at
+#: deg = 0.25 (1440×600×24 fp32), built as the "near-global" path builds it
+#: (``hydro_path_model``: its sigmoid continent, wind, closure and state),
+#: wrapped in DistributedModel over a (2, 2) mesh of four 720×300×24 shards
+#: on one card (Oceananigans' MultiRegion on one GPU); the shards take the
+#: two-stage route with K5's cut form. ``hold`` steps held from the initial
+#: state, then ``steps`` timed and ``profiled`` under the profiler
+DIST_NEAR_GLOBAL = dict(mesh=(2, 2), hold=3, steps=5, profiled=2)
+#: the four shards' launches a step: each 1 K4a, 1 K4b, 2 × 30 K5 (its cut
+#: form), 2 × 30 + 1 K6 in the barotropic substeps and 2 in update_state,
+#: 3 T1
+PER_STEP["distributed near-global"] = {K4A: 4, K4B: 4, K5CUT: 240, K6: 252, T1: 12}
+
+
+def shard_inputs(label, model, dm):
+    """What K4b and K5 read on each shard of ``dm``, confirmed: a cut axis
+    has no near-wall bounds (``axis_bounds`` of the model's flux-form and
+    tracer schemes and of WENO5, where the global grid's bounded axis has
+    them); K4b's y rows (and a stretched y's tables, and the clear flags
+    of the model's schemes, and over partial cells the 3D-Δz pack) and K5's
+    metric rows and depth planes are built on the shard's grid (its own
+    ``_cache``, its shape), the rows, the pack and the planes equal to the
+    global grid's at the shard's window. Returns a summary."""
+    g = model.grid
+    Hfc, Hcf = column_depths(g)
+    k5_rows = depth_inputs(g, Hfc, Hcf)[0]
+    ys_global = kernel_y_rows(g, model.coriolis)
+    schemes = [s for s in (model.momentum_advection, model.tracer_advection)
+               if hasattr(s, "is_upwind")] + [WENO5()]
+    flags = 0
+    for r, lm in enumerate(dm.local_models):
+        lg = lm.grid
+        sx, sy = _windows(g, dm.mesh_shape, *dm.mesh.coords(r))
+        for axis in (0, 1):
+            if lg.dist[axis] is None:
+                continue
+            for sch in schemes:
+                if axis_bounds(lg, axis, sch) != (0, 0, -1, 0, -1):
+                    raise AssertionError(f"{label}: shard {r} has near-wall bounds "
+                                         f"on its cut axis {axis}")
+        ys = kernel_y_rows(lg, lm.coriolis)
+        if ys.shape[1] != lg.total_shape[1] or not torch.equal(ys, ys_global[:, sy]):
+            raise AssertionError(f"{label}: shard {r}'s K4b y rows")
+        table = any(type(sch) in TABLE_SCHEMES for sch in schemes[:-1])
+        if table and not lg.y_regular and y_tables(lg).shape[1] != lg.total_shape[1]:
+            raise AssertionError(f"{label}: shard {r}'s y tables")
+        for loc in _mask_locs(lm):
+            sch = lm.tracer_advection if loc == CENTER else lm.momentum_advection
+            f = clear_flags(lg, loc, sch.buffer)
+            if tuple(f.shape) != lg.total_shape or f is g._cache.get(
+                    ("clear_flags", tuple(loc), sch.buffer)):
+                raise AssertionError(f"{label}: shard {r}'s clear flags")
+            flags += 1
+        if getattr(lg, "partial_cells", False) and not torch.equal(
+                dz3_pack(lg), dz3_pack(g)[:, sx, sy]):
+            raise AssertionError(f"{label}: shard {r}'s 3D-Δz pack")
+        rows, (hfc, hcf) = depth_inputs(lg, *column_depths(lg))
+        if not (torch.equal(rows, k5_rows[:, sy]) and torch.equal(hfc, Hfc[sx, sy, 0])
+                and torch.equal(hcf, Hcf[sx, sy, 0])):
+            raise AssertionError(f"{label}: shard {r}'s K5 rows or depth planes")
+    bounded = [a for a in (0, 1) if g.topology[a] is BOUNDED]
+    return (f"no near-wall bounds on the cut axes (WENO5's on the global bounded "
+            f"axes {bounded}: {[axis_bounds(g, a, WENO5()) for a in bounded]}); K4b's y "
+            f"rows and K5's rows and depth planes the shards' own, equal to the global "
+            f"grid's at each window; {flags} clear-flag tensors built on the shards")
+
+
+def k5_cut_inputs(dm, model, seed):
+    """Per shard K5's arguments from seeded global fields on the card (η
+    ~ 0.1, U, V ~ 10, Gᵁ, Gⱽ ~ 1e-3 N(0, 1) on the interior, NaN halos:
+    neither the cut form nor its plain version reads them), cut at the
+    shards' windows, with the model's Δτ at Δt = 600 s and its weights."""
+    g, fs = model.grid, model.free_surface
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    shape = g.total_shape[:2] + (1,)
+    fields = []
+    for scale in (0.1, 10.0, 10.0, 1e-3, 1e-3):
+        a = torch.full(shape, float("nan"), dtype=g.dtype, device=DEVICE)
+        a[g.Hx:g.Hx + g.Nx, g.Hy:g.Hy + g.Ny] = scale * torch.randn(
+            (g.Nx, g.Ny, 1), generator=gen, dtype=g.dtype, device=DEVICE)
+        fields.append(scatter_array(a, g, dm.mesh_shape, dm.mesh.devices))
+    n = fs.substeps
+    wv = fs._weight_vec(None, fields[0][0])
+    return [(lm.grid, lm.eta_bcs, *(f[r] for f in fields), *column_depths(lm.grid),
+             fs.gravitational_acceleration, 2.0 * HYDRO["dt"] / n, wv, wv, n)
+            for r, lm in enumerate(dm.local_models)]
+
+
+def cut_mirrors(*args):
+    """K5's cut form's plain version: its halves' plain mirrors between the
+    plain fills (``fused_fill_halos_reference``)."""
+    return cut_sequence(*args, half_uv=substep_uv_interior_reference,
+                        half_eta=substep_eta_interior_reference,
+                        fill=fused_fill_halos_reference)
+
+
+def hold_k5_cut(label, dm, model, seed):
+    """K5's cut form (its 2n launches between K6's fills and the exchange)
+    against its plain version on every shard's every with-halo point of
+    η̅, U̅, V̅, bit for bit over NaN-filled work arrays; max|Δ|."""
+    inputs = k5_cut_inputs(dm, model, seed)
+    names = ("eta_av", "U_av", "V_av")
+    shape = dm.local_grid.total_shape[:2] + (1,)
+
+    def shard(r):
+        poison_cache(shape, model.grid.dtype, 12)
+        got = fused_substep_eta(*inputs[r])
+        poison_cache(shape, model.grid.dtype, 12)
+        return got, cut_mirrors(*inputs[r])
+
+    before = WRAPPERS[K5].cut_launches
+    out = dm.mesh.run(shard)
+    n = model.free_surface.substeps
+    if WRAPPERS[K5].cut_launches - before != 2 * n * dm.mesh.size:
+        raise AssertionError(f"{label}: {WRAPPERS[K5].cut_launches - before} cut-form "
+                             f"launches, expected {2 * n * dm.mesh.size}")
+    got = {f"shard {r}": dict(zip(names, o[0])) for r, o in enumerate(out)}
+    ref = {f"shard {r}": dict(zip(names, o[1])) for r, o in enumerate(out)}
+    return hold(f"K5 cut form {label}", got, ref, model.grid.dtype, exact=True)
+
+
+def k5_cut_reading(label, dm, model):
+    """K5's cut form held (``hold_k5_cut``) on the shards of ``dm``, then
+    timed on one shard: its 2n launches a call with the fills left out (no
+    exchange runs outside the mesh), by the profiler's device time and by
+    CUDA events, against its halves' plain mirrors and its bound (K5's:
+    η0, U0, V0, Gᵁ, Gⱽ and the two depth planes in, η̅, U̅, V̅ out, 32
+    operations a point and substep). Returns (max|Δ|, ms, plain_ms,
+    bound_ms, bound_by)."""
+    err = hold_k5_cut(label, dm, model, 15)
+    args = k5_cut_inputs(dm, model, 16)[0]
+    g, n = args[0], args[-1]
+    no_fill = lambda grid, fields: None
+    kernel_halves = lambda: cut_sequence(*args, *cut_kernel_halves(g, *args[7:9]),
+                                         fill=no_fill)
+    plain_halves = lambda: cut_sequence(*args, half_uv=substep_uv_interior_reference,
+                                        half_eta=substep_eta_interior_reference,
+                                        fill=no_fill)
+    before = WRAPPERS[K5].cut_launches
+    ms = device_ms(kernel_halves, 5, "substep_")
+    wall_ms = cuda_ms(kernel_halves, 5)
+    if WRAPPERS[K5].cut_launches - before != 2 * n * 12:
+        raise AssertionError(f"{label}: the timed calls launched "
+                             f"{WRAPPERS[K5].cut_launches - before} times")
+    plain_ms = cuda_ms(plain_halves, 2)
+    shape = g.total_shape[:2] + (1,)
+    b_ms, b_by = bound(K5CUT, 10 * math.prod(shape) * torch.finfo(g.dtype).bits // 8,
+                       shape[0] * shape[1] * n)
+    if ms is None:
+        ms = wall_ms
+    print(f"K5 cut form {label} time, one {g.Nx}x{g.Ny} shard, {n} substeps ({2 * n} "
+          f"launches, fills left out): kernels {ms:.4f} ms of device time (profiler), "
+          f"{wall_ms:.4f} ms by CUDA events (host-bound launches); plain halves "
+          f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+    return err, ms, plain_ms, b_ms, b_by
+
+
+def phase_distributed_near_global():
+    """``distributed near-global`` (``DIST_NEAR_GLOBAL``): the ¼° near-global
+    ocean decomposed on a (2, 2) mesh of one card. What the shards' kernels
+    read is confirmed (``shard_inputs``); ``hold`` steps with the kernels
+    (their launches read with the timed steps') are checked (finite, u and
+    v exactly 0 at solid faces, |Σ η·Az| ≤ 1e-5·Σ|η|·Az), held bit for
+    bit against the decomposed plain run and the overlap_halo run, and
+    within ``pencil_tolerance`` of the single-device kernel run; ``steps``
+    timed beside the single-device near-global step, then ``profiled`` for
+    the idle share; K4a and K4b held on each shard's fields, K5's cut form
+    held and timed on the shards. Returns (the kernel run's launches, K5's
+    cut form's reading, K4a's and K4b's largest max|Δ|)."""
+    from clima_oceananigans_jl_torch import DistributedModel, make_mesh
+    c, path = DIST_NEAR_GLOBAL, "distributed near-global"
+    dt = HYDRO["dt"]
+    model, state0 = hydro_path_model("near-global")
+    g = model.grid
+    mesh = make_mesh(c["mesh"], dist_devices(4))
+    dm = DistributedModel(model, mesh)
+    if any(lm.fused_advance for lm in dm.local_models):
+        raise AssertionError(f"{path}: a shard on the fused advance")
+    print(f"{path}: {shard_inputs(path, model, dm)}")
+    single = state0
+    for _ in range(c["hold"]):
+        single = model.step(single, dt)
+    single_hold = {k: g.interior(a).clone() for k, a in single["solution"].items()}
+    single_hold["eta"] = single["eta"][g.Hx:g.Hx + g.Nx, g.Hy:g.Hy + g.Ny].clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(c["steps"]):
+        single = model.step(single, dt)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) / c["steps"] * 1e3
+    del single
+    # the decomposed kernel run: every count set to 0 just before, read after
+    states = dm.scatter_state(state0)
+    zero_counts()
+    mesh.reset_counts()
+    states = dist_steps(dm, states, dt, c["hold"])
+    held, kernel_u = dist_gathered(dm, states)
+    check_finite(path, model, held, ("w", "pHY", "eta"))
+    faces = zero_at_solid_faces(path, model, held)
+    net, gross = eta_balance(path, model, held)
+    del held
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states = dist_steps(dm, states, dt, c["steps"])
+    torch.cuda.synchronize()
+    dist_ms = (time.perf_counter() - t0) / c["steps"] * 1e3
+    n = c["hold"] + c["steps"]
+    launches = read_counts(path, n)
+    exchanges = mesh.counts.get("exchange", 0) / n
+    states, _, idle, prof_ms = profiled_steps(lambda s: dm.step(s, dt), states,
+                                              c["profiled"])
+    check_finite(path, model, dm.gather_state(states), ("w", "pHY", "eta"))
+    # K4a and K4b on each shard's fields, bit for bit over NaN-filled outputs
+    k4_err = max(max(hold_k4a(f"1/4 deg fp32 on the {path} path's shard {r}", lm.grid,
+                              st["solution"]),
+                     hold_k4b(f"1/4 deg fp32 on the {path} path's shard {r}", lm, st))
+                 for r, (lm, st) in enumerate(zip(dm.local_models, states)))
+    del states
+    torch.cuda.empty_cache()
+    # the holds: the decomposed plain run, overlap_halo, the single-device run
+    plain = dist_steps(dm, dm.scatter_state(state0), dt, c["hold"], hydrostatic.PLAIN)
+    _, plain_u = dist_gathered(dm, plain)
+    del plain
+    dist_relative(f"{path}: kernel against plain runs", kernel_u, plain_u, 0.0)
+    del plain_u
+    dmo = DistributedModel(model, mesh, overlap_halo=True)
+    _, ovl = dist_gathered(dmo, dist_steps(dmo, dmo.scatter_state(state0), dt, c["hold"]))
+    dist_relative(f"{path}: overlap_halo against no overlap", ovl, kernel_u, 0.0)
+    del dmo, ovl
+    tol = pencil_tolerance(torch.float32)
+    worst = dist_relative(f"{path}: against the single-device run", kernel_u,
+                          single_hold, tol)
+    torch.cuda.empty_cache()
+    reading = k5_cut_reading(f"1/4 deg fp32 on the {path} path's shards", dm, model)
+    shards = mesh.size
+    per_shard = {k: v / n / shards for k, v in launches.items() if v}
+    idle_s = "not measured" if idle is None else f"{100 * idle:.1f}%"
+    points = g.Nx * g.Ny * g.Nz
+    print(f"{path} path: 1/4 deg {g.Nx}x{g.Ny}x{g.Nz} fp32 on a {c['mesh']} mesh of "
+          f"{shards} shards of {g.Nx // c['mesh'][0]}x{g.Ny // c['mesh'][1]}x{g.Nz} "
+          f"on one "
+          f"card, {c['steps']} steps: {dist_ms:.3f} ms/step ({points / dist_ms * 1e3:.6e} "
+          f"grid points/s), single-device near-global {single_ms:.3f} ms/step in the "
+          f"same call; device idle {idle_s} (torch.profiler, {c['profiled']} steps, "
+          f"{prof_ms:.3f} ms/step); launches per shard per step {per_shard}; "
+          f"exchanges a step {exchanges:g}; {card_line()}")
+    print(f"{path} path: after {c['hold']} steps the kernel run is bit for bit the "
+          f"decomposed plain run and the overlap_halo run; against the single-device "
+          f"run {worst:.3e} of max|field| (<= {tol:.3e}, {PENCIL_EPS} fp32 eps); u and v "
+          f"exactly 0 at all {faces} solid faces; |sum(eta Az)|/sum(|eta| Az) "
+          f"{abs(net) / gross:.3e}")
+    del dm, model, state0, kernel_u, single_hold
+    torch.cuda.empty_cache()
+    return launches, reading, k4_err
+
+
 def dist_case(label, make, init, mesh_shape, dt, kernels, plain_kernels,
-              single=True, exact_plain=True, overlap=False, tol=None):
+              single=True, exact_plain=True, overlap=False, tol=None, steps=None,
+              check=None):
     """One small hold: ``make()``'s model decomposed on ``mesh_shape`` (all
     shards on one card), its kernel run against its plain run after
-    ``DIST_HOLD["steps"]`` steps (bit for bit, or within the shallow-water
-    path's ``AGREE``), and against the single-device kernel run within
-    ``tol`` (the pencil tolerance; 0 where no FFT runs). ``kernels``: the
-    wrappers that must have launched. With ``overlap``, the halo-overlap
-    step is held bit for bit against the plain decomposed step instead."""
+    ``steps`` steps (``DIST_HOLD["steps"]`` by default; bit for bit, or
+    within the shallow-water path's ``AGREE``), and against the
+    single-device kernel run within ``tol`` (the pencil tolerance; 0 where
+    no FFT runs). ``kernels``: the kernels that must have launched
+    (``launch_counts``' names). With ``overlap``, the halo-overlap step is
+    held bit for bit against the plain decomposed step instead. ``check``,
+    given, is called with (model, dm) before the steps and returns a note
+    for the printed line."""
     from clima_oceananigans_jl_torch import DistributedModel, make_mesh
-    steps = DIST_HOLD["steps"]
+    steps = steps or DIST_HOLD["steps"]
     model = make()
     s0 = init(model)
     nshards = mesh_shape[0] * mesh_shape[1]
     mesh = make_mesh(mesh_shape, dist_devices(nshards))
     dm = DistributedModel(model, mesh)
+    note = check(model, dm) if check is not None else None
     zero_counts()
     _, got = dist_gathered(dm, dist_steps(dm, dm.scatter_state(s0), dt, steps))
     torch.cuda.synchronize()
-    counts = {k: WRAPPERS[k].launches for k in kernels}
+    counts = {k: v for k, v in launch_counts().items() if k in kernels}
     if not all(counts.values()):
         raise AssertionError(f"{label}: a kernel did not launch: {counts}")
     line = f"distributed hold {label}: {mesh_shape} mesh, launches {counts}"
+    if note:
+        line += f"; {note}"
     if overlap:
         dmo = DistributedModel(model, mesh, overlap_halo=True)
         _, ovl = dist_gathered(dmo, dist_steps(dmo, dmo.scatter_state(s0), dt, steps))
@@ -6079,7 +6382,13 @@ def phase_distributed_holds():
     (1, 4) and (2, 4); a bounded global x (the end shards' walls,
     ``select_edge``); a stretched z (T1's Fourier form per shard);
     overlap_halo; a GridFittedBottom; shallow water at 1024² on (2, 4) with
-    K3a per shard; the hydrostatic model's refusal by name."""
+    K3a per shard; the hydrostatic model: a (P, B, B) 32×32×8
+    split-explicit(10) box on (2, 2), and the JAX suite's near-global stack
+    at 48×24×8 (``near_global_stack``) on (2, 2) and (4, 1) in fp32 and
+    fp64 and with WENO5 flux-form momentum and tracer (the shards' clear
+    flags), each with what the shards' kernels read confirmed
+    (``shard_inputs``), 2 steps, K4a, K4b, K5's cut form and K6 (and T1)
+    launched, bit for bit the decomposed plain run."""
     from clima_oceananigans_jl_torch import DistributedModel, make_mesh
     n = DIST_HOLD["n"]
     timestepper, dt, _, _, kw = PATHS["RK3"]
@@ -6147,18 +6456,78 @@ def phase_distributed_holds():
                                         * torch.cos(y), h=1.0),
               (2, 4), SW_PATH[0], (K3A,), shallow_water.PLAIN, exact_plain=False,
               tol=0.0)
-    grid = RectilinearGrid(size=(n, n, 8), x=(0, 1e5), y=(0, 1e5), z=(-100.0, 0),
-                           topology=(PERIODIC, BOUNDED, BOUNDED), device=DEVICE)
-    model = HydrostaticFreeSurfaceModel(grid, free_surface=SplitExplicitFreeSurface(
-        substeps=10))
-    try:
-        DistributedModel(model, make_mesh((2, 2), dist_devices(4)))
-    except NotImplementedError as e:
-        if "ROADMAP Queue 1 item 11" not in str(e):
-            raise
-        print(f"distributed hold hydrostatic: refused on the card by name: {e}")
-    else:
-        raise AssertionError("the hydrostatic model over a cut grid ran on the card")
+    hydrostatic_holds()
+
+
+def hydrostatic_holds():
+    """The hydrostatic model decomposed on one card: K4a, K4b, K5's cut
+    form, K6 (and T1) on every shard, each case's kernel run bit for bit
+    its plain decomposed run (``phase_distributed_holds``' last cases)."""
+    hy, c = hydrostatic.PLAIN, DIST_HOLD
+
+    def split_box():
+        grid = RectilinearGrid(size=(c["n_hy"], c["n_hy"], 8), x=(0, 1e5), y=(0, 1e5),
+                               z=(-100.0, 0), topology=(PERIODIC, BOUNDED, BOUNDED),
+                               device=DEVICE)
+        return HydrostaticFreeSurfaceModel(grid, free_surface=SplitExplicitFreeSurface(
+            substeps=10))
+
+    def split_init(model):
+        return model.initial_state(
+            eta=lambda x, y: 0.01 * torch.sin(2 * math.pi * x / 1e5)
+            * torch.cos(math.pi * y / 1e5),
+            u=lambda x, y, z: 0.01 * torch.cos(2 * math.pi * y / 1e5))
+
+    hk = (K4A, K4B, K5CUT, K6)
+    stack_init = lambda m: m.initial_state(b=lambda lam, phi, z: 2e-5 * (z + 3000.0)
+                                           / 3000.0)
+    dist_case(f"hydrostatic (P,B,B) {c['n_hy']}x{c['n_hy']}x8 fp32 split-explicit(10)",
+              split_box, split_init, (2, 2), 300.0, hk, hy, steps=c["steps_hy"],
+              check=lambda m, dm: shard_inputs("hydrostatic hold", m, dm))
+    for dtype in (torch.float32, torch.float64):
+        for shape in ((2, 2), (4, 1)):
+            dist_case(f"near-global stack 48x24x8 {str(dtype)[6:]}",
+                      functools.partial(near_global_stack, dtype),
+                      stack_init, shape, 600.0, hk + (T1,), hy, steps=c["steps_hy"],
+                      check=lambda m, dm: shard_inputs("near-global stack", m, dm))
+    # the near-global stack with WENO schemes: K4b reads the shards' clear
+    # flags over the ridge and bump
+    dist_case("near-global stack 48x24x8 float32, WENO5 flux-form momentum and tracer",
+              functools.partial(near_global_stack, torch.float32, WENO5()),
+              stack_init, (2, 2), 600.0, hk + (T1,), hy, steps=c["steps_hy"],
+              check=lambda m, dm: shard_inputs("near-global stack WENO5", m, dm))
+    # and over partial bottom cells: K4a's and K4b's 3D-Δz forms read the
+    # shards' Δz
+    dist_case("near-global stack 48x24x8 float32, PartialCellBottom",
+              functools.partial(near_global_stack, torch.float32, partial=True),
+              stack_init, (2, 2), 600.0, hk + (T1,), hy, steps=c["steps_hy"],
+              check=lambda m, dm: shard_inputs("near-global stack partial cells", m, dm))
+
+
+def near_global_stack(dtype, scheme=None, partial=False):
+    """The JAX suite's decomposed near-global stack
+    (tests/test_distributed.py:502-553) at 48×24×8: a lat-lon grid (0–360,
+    −60–60), the GridFittedBottom of its ridge and bump, split-explicit(12),
+    HydrostaticSphericalCoriolis, BuoyancyTracer, the vertically implicit
+    ScalarDiffusivity(nu=1e4, kappa=1e3, nu_z=1e-3, kappa_z=1e-4) and its
+    wind FluxBC on u; ``scheme`` the momentum (flux form) and tracer
+    scheme in place of the defaults; with ``partial``, its bottom as a
+    PartialCellBottom (K4a's and K4b's 3D-Δz forms)."""
+    grid = LatitudeLongitudeGrid(size=(48, 24, 8), longitude=(0, 360), latitude=(-60, 60),
+                                 z=(-3000.0, 0.0), dtype=dtype, device=DEVICE)
+    full = lambda v, like: torch.full((), v, dtype=like.dtype, device=like.device)
+    bathy = lambda lam, phi: torch.where(
+        (lam > 170) & (lam < 190), full(100.0, lam),
+        -3000.0 + 800.0 * torch.exp(-((lam - 60) / 15.0) ** 2))
+    wind = lambda lam, phi, t: -1e-4 * torch.cos(3.0 * math.pi * phi / 180.0)
+    kw = {} if scheme is None else dict(momentum_advection=scheme, tracer_advection=scheme)
+    return HydrostaticFreeSurfaceModel(
+        grid, free_surface=SplitExplicitFreeSurface(substeps=12),
+        coriolis=HydrostaticSphericalCoriolis(), buoyancy=BuoyancyTracer(),
+        closure=ScalarDiffusivity(nu=1e4, kappa=1e3, nu_z=1e-3, kappa_z=1e-4,
+                                  time_discretization="vertically_implicit"),
+        immersed_boundary=(PartialCellBottom if partial else GridFittedBottom)(bathy),
+        boundary_conditions={"u": FieldBCs(top=FluxBC(wind))}, **kw)
 
 
 def _timed_phase(fn):
@@ -6284,6 +6653,12 @@ def main():
     # the distributed slice: the RK3 flagship decomposed on a (2, 2) mesh,
     # then the small holds
     by_path["distributed RK3"] = phase_distributed()
+    # the decomposed slice of the hydrostatic model: the ¼° near-global ocean
+    # on a (2, 2) mesh, K5's cut form held and timed on its shards
+    by_path["distributed near-global"], k5_cut, k4_err = phase_distributed_near_global()
+    measured[K5CUT] = k5_cut
+    for name in (K4A, K4B):
+        measured[name] = (max(measured[name][0], k4_err), *measured[name][1:])
     phase_distributed_holds()
     for name in (K4A, K4B):
         flat_worst[name] = max(flat_worst.get(name, 0.0), partial_worst[name], err[name])
@@ -6302,7 +6677,7 @@ def main():
     for name, err in ((K1, k1_err), (K2, k2_err), (K4B, k4b_err), (K5, k5_err)):
         measured[name] = (max(measured[name][0], err), *measured[name][1:])
     launches = {k: sum(counts.get(k, 0) for counts in by_path.values())
-                for k in (*WRAPPERS, K2XY)}
+                for k in (*WRAPPERS, K2XY, K5CUT)}
     print("launches by path: " + json.dumps(
         {path: {k: n for k, n in counts.items() if n} for path, counts in by_path.items()}))
     records = []

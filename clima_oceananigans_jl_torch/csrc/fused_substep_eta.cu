@@ -51,6 +51,27 @@
 // it: its offset is 0 (A.sxo, A.syo), so dxf(eta) and dxc(dyu U) come out as
 // the plain version's differences of a value with itself. On a Flat x every
 // y index is one thread's; on a Flat y the grid stride runs along x.
+//
+// The cut form (a shard of a grid cut over a mesh): a cut axis' halos are
+// the neighbouring shards' strips, which no launch on one shard can read
+// between substeps. So each substep is two ordinary launches, and the
+// halo fills between them (ops/fused_barotropic.py::cut_sequence: K6 and
+// the neighbour exchange, in the plain version's x-then-y order, corners
+// included) write every halo point:
+//
+//   substep_uv_kernel:  U' = U + dtau (((-g) Hfc) dxf(eta) / dxu + GU) and
+//                       V' likewise, on the interior points only (in place
+//                       from the second substep on: a point reads only
+//                       itself of U and V);
+//   (fill U', V')
+//   substep_eta_kernel: U_av += wv[i] U', V_av += wv[i] V' on every
+//                       with-halo point (the filled values, as the plain
+//                       version adds them), and on the interior points
+//                       eta' = eta - (dtau (dxc(dyu U') + dyc(dxv V'))) / az
+//                       in place and eta_av += wf[i] eta'.
+//
+// eta_av's halos are left to the final fill, which writes every one of
+// them. One thread a point, y fastest; a Flat axis' offset is 0 as above.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -414,6 +435,129 @@ static int config(int nx, int ny, int hx, int hy, int* out) {
   return 0;
 }
 
+// -- the cut form: one launch a half-substep, the fills between them --------
+
+constexpr int CUT_THREADS = 256;
+
+template <typename T>
+struct CutArgs {
+  const T* rows;  // (5, Y)
+  const T* hfc;   // the depth planes (X, Y)
+  const T* hcf;
+  const T* GU;
+  const T* GV;
+  const T* U_in;  // the half's U and V before it (U0, V0 at substep 0)
+  const T* V_in;
+  const T* wv;  // (n,)
+  const T* wf;
+  T* eta;  // filled by the caller before the U, V half
+  T* U;    // filled by the caller before the eta half
+  T* V;
+  T* eta_av;
+  T* U_av;
+  T* V_av;
+  int nx, ny, hx, hy, i;
+  int first;  // substep 0: the averages start from zero
+  int sxo, syo;  // the x and y neighbours' offsets (0 on a Flat axis)
+  T neg_g, dtau;
+};
+
+// U', V' on the interior points
+template <typename T>
+__global__ void __launch_bounds__(CUT_THREADS)
+substep_uv_kernel(const CutArgs<T> A) {
+  const int Y = A.ny + 2 * A.hy;
+  const int t = (int)blockIdx.x * CUT_THREADS + threadIdx.x;
+  if (t >= A.nx * A.ny) return;
+  const int I = A.hx + t / A.ny, J = A.hy + t % A.ny;
+  const int p = I * Y + J;
+  const T* r = A.rows;
+  const T e = A.eta[p], ex = A.eta[p - A.sxo], ey = A.eta[p - A.syo];
+  const T u = A.U_in[p], v = A.V_in[p];
+  const T dxu = __ldg(r + DXU * Y + J), dyv = __ldg(r + DYV * Y + J);
+  const T Un = u + A.dtau * ((A.neg_g * __ldg(A.hfc + p) * (e - ex)) / dxu + __ldg(A.GU + p));
+  const T Vn = v + A.dtau * ((A.neg_g * __ldg(A.hcf + p) * (e - ey)) / dyv + __ldg(A.GV + p));
+  A.U[p] = Un;
+  A.V[p] = Vn;
+}
+
+// the averages of the filled U', V' on every with-halo point; eta' and its
+// average on the interior points
+template <typename T>
+__global__ void __launch_bounds__(CUT_THREADS)
+substep_eta_kernel(const CutArgs<T> A) {
+  const int X = A.nx + 2 * A.hx, Y = A.ny + 2 * A.hy;
+  const int t = (int)blockIdx.x * CUT_THREADS + threadIdx.x;
+  if (t >= X * Y) return;
+  const int I = t / Y, J = t - I * Y;
+  const T wv = __ldg(A.wv + A.i);
+  const T u = A.U[t], v = A.V[t];
+  const T ua = A.first ? T(0) : A.U_av[t], va = A.first ? T(0) : A.V_av[t];
+  A.U_av[t] = ua + wv * u;
+  A.V_av[t] = va + wv * v;
+  if (I < A.hx || I >= A.hx + A.nx || J < A.hy || J >= A.hy + A.ny) return;
+  const T* r = A.rows;
+  const T dyu = __ldg(r + DYU * Y + J);
+  const T div = (dyu * A.U[t + A.sxo] - dyu * u)
+                + (__ldg(r + DXV * Y + J + (A.syo != 0)) * A.V[t + A.syo]
+                   - __ldg(r + DXV * Y + J) * v);
+  const T en = A.eta[t] - (A.dtau * div) / __ldg(r + AZ * Y + J);
+  A.eta[t] = en;
+  const T ea = A.first ? T(0) : A.eta_av[t];
+  A.eta_av[t] = ea + __ldg(A.wf + A.i) * en;
+}
+
+template <typename T>
+static int cut_half(int half, const void* rows, const void* hfc, const void* hcf,
+                    const void* GU, const void* GV, const void* U_in, const void* V_in,
+                    const void* wv, const void* wf, void* eta, void* U, void* V,
+                    void* eta_av, void* U_av, void* V_av, int i, int nx, int ny, int hx,
+                    int hy, double g, double dtau, void* stream) {
+  if (nx <= 0 || ny <= 0 || hx < 0 || hy < 0 || i < 0) return (int)cudaErrorInvalidValue;
+  // a Flat axis (halo 0) has extent 1
+  const bool fx = hx == 0, fy = hy == 0;
+  if ((fx && nx != 1) || (fy && ny != 1)) return (int)cudaErrorInvalidValue;
+  const long long X = nx + 2LL * hx, Y = ny + 2LL * hy;
+  if (X * Y > INT32_MAX) return (int)cudaErrorInvalidValue;  // 32-bit point indices
+  CutArgs<T> A;
+  A.rows = static_cast<const T*>(rows);
+  A.hfc = static_cast<const T*>(hfc);
+  A.hcf = static_cast<const T*>(hcf);
+  A.GU = static_cast<const T*>(GU);
+  A.GV = static_cast<const T*>(GV);
+  A.U_in = static_cast<const T*>(U_in);
+  A.V_in = static_cast<const T*>(V_in);
+  A.wv = static_cast<const T*>(wv);
+  A.wf = static_cast<const T*>(wf);
+  A.eta = static_cast<T*>(eta);
+  A.U = static_cast<T*>(U);
+  A.V = static_cast<T*>(V);
+  A.eta_av = static_cast<T*>(eta_av);
+  A.U_av = static_cast<T*>(U_av);
+  A.V_av = static_cast<T*>(V_av);
+  A.nx = nx; A.ny = ny; A.hx = hx; A.hy = hy; A.i = i;
+  A.first = i == 0;
+  A.sxo = fx ? 0 : (int)Y;
+  A.syo = fy ? 0 : 1;
+  A.neg_g = T(-g);
+  A.dtau = T(dtau);
+  const long long points = half == 0 ? (long long)nx * ny : X * Y;
+  const unsigned blocks = (unsigned)((points + CUT_THREADS - 1) / CUT_THREADS);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (half == 0) {
+    if (U_in == nullptr || V_in == nullptr || GU == nullptr || GV == nullptr ||
+        hfc == nullptr || hcf == nullptr)
+      return (int)cudaErrorInvalidValue;
+    substep_uv_kernel<T><<<blocks, CUT_THREADS, 0, s>>>(A);
+  } else {
+    if (wv == nullptr || wf == nullptr || eta_av == nullptr || U_av == nullptr ||
+        V_av == nullptr)
+      return (int)cudaErrorInvalidValue;
+    substep_eta_kernel<T><<<blocks, CUT_THREADS, 0, s>>>(A);
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 // Returns the CUDA error of the cooperative launch (0 on success). All
@@ -449,5 +593,29 @@ FUSED_SUBSTEP_ETA(fused_substep_eta_f64, double)
 
 FUSED_SUBSTEP_ETA_CONFIG(fused_substep_eta_config_f32, float)
 FUSED_SUBSTEP_ETA_CONFIG(fused_substep_eta_config_f64, double)
+
+// The cut form's half `half` of substep i (0: U', V' on the interior
+// points; 1: the averages and eta'), one launch on `stream`; returns the
+// CUDA error. Device pointers: `rows` the (5, Y) metric rows, hfc and hcf
+// the (X, Y) depth planes, GU, GV, U_in, V_in, eta, U, V, eta_av, U_av,
+// V_av with-halo (X, Y) arrays, wv and wf the (n,) weights; half 0 reads
+// rows, hfc, hcf, GU, GV, U_in, V_in and eta and writes U and V (U_in may
+// be U), half 1 reads rows, wv, wf, U and V and writes eta, eta_av, U_av
+// and V_av (from zero at i = 0). The caller fills eta before half 0 and
+// U, V between the halves.
+#define FUSED_SUBSTEP_CUT(NAME, T)                                            \
+  int NAME(int half, const void* rows, const void* hfc, const void* hcf,      \
+           const void* GU, const void* GV, const void* U_in,                  \
+           const void* V_in, const void* wv, const void* wf, void* eta,       \
+           void* U, void* V, void* eta_av, void* U_av, void* V_av, int i,     \
+           int nx, int ny, int hx, int hy, double g, double dtau,             \
+           void* stream) {                                                    \
+    return cut_half<T>(half, rows, hfc, hcf, GU, GV, U_in, V_in, wv, wf, eta, \
+                       U, V, eta_av, U_av, V_av, i, nx, ny, hx, hy, g, dtau,  \
+                       stream);                                               \
+  }
+
+FUSED_SUBSTEP_CUT(fused_substep_cut_f32, float)
+FUSED_SUBSTEP_CUT(fused_substep_cut_f64, double)
 
 }  // extern "C"

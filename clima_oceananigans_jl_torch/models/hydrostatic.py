@@ -74,9 +74,11 @@ static gates, so a configuration they lack raises there and the wrappers
 do not check again. Not ported here,
 because they are TPU-only: the halo rounding to multiples of 4, the
 (x, z, y) state layout, the MXU cumsum. Decomposed over a mesh of shards
-(``parallel/distributed.py``, ``tendencies_overlapped``) the model runs on
-the CPU; the card refuses it by name (K5 takes no exchange between its
-substeps; ROADMAP Queue 1 item 11). A
+(``parallel/distributed.py``, ``tendencies_overlapped``) each shard runs
+the kernels on its local grid: K4a and K4b read a cut axis' exchanged
+halos, K6 fills through the exchange, and K5 runs its cut form, one
+launch a half-substep between the fills
+(``ops/fused_barotropic.py::cut_sequence``). A
 configuration the port cannot run raises ``NotImplementedError`` at
 construction.
 
@@ -256,12 +258,8 @@ class HydrostaticFreeSurfaceModel:
 
     def card_unsupported_reason(self):
         """Why the kernels' gates refuse this model on the card, or None
-        (``DistributedModel`` asks it again of each shard's model). A grid
-        cut over a mesh is refused whether or not the kernels run: K5
-        cannot run over it, and the plain versions do not stand in for the
-        kernels on the card."""
-        if self.grid.dist != (None, None, None):
-            return kernel_unsupported_reason(self)
+        (``DistributedModel`` asks it again of each shard's model, whose
+        grid may be cut over a mesh)."""
         if not self.fused_advection:
             return None
         reason = kernel_unsupported_reason(self)

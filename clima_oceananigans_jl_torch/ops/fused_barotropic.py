@@ -29,6 +29,22 @@ which is what the final fill writes. The wrapper allocates the three
 outputs and one block of six scratch arrays and launches; it counts its
 launches in ``fused_substep_eta.launches``. ``cooperative_grid`` reports
 the grid a launch takes.
+
+On a shard of a grid cut over a mesh (``parallel/decomposition.py``) a
+cut axis' halos are the neighbouring shards' strips, so one launch cannot
+run the substeps: ``cut_sequence`` runs each substep in the plain
+version's order, K5's cut form (two launches of the same source, one a
+half-substep, that write interior points only) between the halo fills of
+``ops/fused_fill.py::fused_fill_halos`` (K6 and the neighbour exchange,
+with the physical side's fill on the end shards of a bounded global
+axis). Every halo point the fills write is written by them from interior
+values, x then y as in the plain version, so the corners come out as
+there; the averages take U and V after their fill, halos included, and η̅
+is filled at the end. That is 2n K5 and 2n + 1 fills a call; the cut
+form's launches are counted in ``fused_substep_eta.launches`` and, apart,
+in ``fused_substep_eta.cut_launches``. ``substep_uv_interior_reference``
+and ``substep_eta_interior_reference`` are the halves' plain mirrors,
+which write what the kernel writes.
 """
 from __future__ import annotations
 
@@ -42,6 +58,7 @@ from ..models.free_surface import ETA_LOC
 from ..utils.location import CENTER, U_LOC, V_LOC
 from . import _build
 from . import stencil as st
+from .fused_fill import cut_axes, fields_unsupported_reason, fused_fill_halos
 from .fused_tendencies import check_tensor, kernel_fn, launch
 from .metric_rows import y_row
 
@@ -71,12 +88,19 @@ def fused_substep_eta_reference(grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf,
 
 def unsupported_reason(grid, eta_bcs):
     """Why K5 cannot run on ``grid`` with ``eta_bcs``, or None: it needs
-    x-constant metrics (a regular x axis), η walls that fill by the
-    zero-gradient mirror, and at least H+1 cells on a bounded axis (so no
-    mirror index is clamped). It takes a Flat x, a Flat y or both (the JAX
-    kernel's gate refuses them)."""
+    x-constant metrics (a regular x axis). Its cooperative form needs η
+    walls that fill by the zero-gradient mirror and at least H+1 cells on
+    a bounded axis (so no mirror index is clamped); it takes a Flat x, a
+    Flat y or both (the JAX kernel's gate refuses them). On a shard of a
+    grid cut over a mesh the cut form runs, whose fills are K6's: it takes
+    what K6 takes of η, U and V."""
     if not grid.x_regular:
         return "K5 takes a regular x axis (x-constant metrics)"
+    if cut_axes(grid):
+        shape = grid.total_shape[:2] + (1,)
+        return fields_unsupported_reason(grid, [(ETA_LOC, eta_bcs, (0, 1), shape),
+                                                (U_LOC, None, (0, 1), shape),
+                                                (V_LOC, None, (0, 1), shape)])
     bcs = eta_bcs if eta_bcs is not None else default_bcs(grid, ETA_LOC)
     for axis, _side, bc in bcs.sides():
         if axis < 2 and grid.topology[axis] is BOUNDED:
@@ -85,10 +109,8 @@ def unsupported_reason(grid, eta_bcs):
             if grid.shape[axis] < grid.halo[axis] + 1:
                 return "K5 takes at least H+1 cells on a bounded axis"
         if axis < 2 and grid.topology[axis] not in (BOUNDED, PERIODIC, FLAT):
-            # a FULLY_CONNECTED (cut) axis needs an exchange between the
-            # substeps, which one launch cannot make
-            return ("K5 takes periodic, bounded or Flat x and y, not an axis "
-                    f"cut over a mesh (ROADMAP Queue 1 item 11): {grid}")
+            return (f"K5 takes periodic, bounded, Flat or cut x and y, not "
+                    f"{grid.topology[axis]!r} without a mesh: {grid}")
     return None
 
 
@@ -136,24 +158,136 @@ def _launch(grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf, g, dtau, wv, wf, n):
     return tuple(out)
 
 
+def _interior(grid):
+    """The interior (x, y) points of a with-halo (X, Y, 1) array."""
+    return (slice(grid.Hx, grid.Hx + grid.Nx), slice(grid.Hy, grid.Hy + grid.Ny))
+
+
+def substep_uv_interior_reference(grid, eta, U_in, V_in, GU, GV, Hfc, Hcf, g,
+                                  dtau, U, V):
+    """The plain mirror of the cut form's first half: U′ = U + Δτ(−g Hᶠᶜ
+    δxη/Δx + Gᵁ) and V′ likewise, the plain version's expressions, written
+    into ``U`` and ``V`` on the interior points only."""
+    sl = _interior(grid)
+    Un = U_in + dtau * (-g * Hfc * st.dxf(eta) / grid.dx(U_LOC) + GU)
+    Vn = V_in + dtau * (-g * Hcf * st.dyf(eta) / grid.dy(V_LOC) + GV)
+    U[sl] = Un[sl]
+    V[sl] = Vn[sl]
+
+
+def substep_eta_interior_reference(grid, U, V, wv, wf, i, eta, eta_av, U_av,
+                                   V_av, dtau):
+    """The plain mirror of the cut form's second half: U̅ += w_v[i] U and
+    V̅ += w_v[i] V on every with-halo point (U and V filled), then on the
+    interior points η′ = η − Δτ(δx(Δy U) + δy(Δx V))/Az written into
+    ``eta`` and η̅ += w_f[i] η′; the averages start from zeros at i = 0."""
+    sl = _interior(grid)
+    start = lambda a: torch.zeros_like(a) if i == 0 else a
+    U_av.copy_(start(U_av) + wv[i] * U)
+    V_av.copy_(start(V_av) + wv[i] * V)
+    dyu, dxv = grid.dy(U_LOC), grid.dx(V_LOC)
+    en = eta - dtau * (st.dxc(dyu * U) + st.dyc(dxv * V)) / grid.Az(CENTER)
+    eta[sl] = en[sl]
+    eta_av[sl] = (start(eta_av) + wf[i] * en)[sl]
+
+
+def cut_sequence(grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf, g, dtau, wv,
+                 wf, n, half_uv, half_eta, fill=None):
+    """The substeps on a shard of a cut grid → (η̅ filled, U̅, V̅): per
+    substep the fill of η (``fill``, by default ``fused_fill_halos``: K6
+    and the exchange), ``half_uv`` (U′, V′ on the interior), one fill of
+    U′ and V′, then ``half_eta`` (the averages, η′ on the interior); η̅
+    filled at the end. ``half_uv`` and ``half_eta`` take the arguments of
+    ``substep_uv_interior_reference`` and
+    ``substep_eta_interior_reference``. Writes into none of its arguments;
+    the work arrays start uninitialised (``torch.empty``), as only the
+    points the halves and the fills write are read."""
+    fill = fill or fused_fill_halos
+    eta = eta0.clone()
+    empty = lambda: torch.empty_like(eta0)
+    U, V, eta_av, U_av, V_av = (empty() for _ in range(5))
+    for i in range(n):
+        fill(grid, [(eta, ETA_LOC, eta_bcs, (0, 1), 0.0)])
+        half_uv(grid, eta, U0 if i == 0 else U, V0 if i == 0 else V, GU, GV,
+                Hfc, Hcf, g, dtau, U, V)
+        fill(grid, [(U, U_LOC, None, (0, 1), 0.0), (V, V_LOC, None, (0, 1), 0.0)])
+        half_eta(grid, U, V, wv, wf, i, eta, eta_av, U_av, V_av, dtau)
+    fill(grid, [(eta_av, ETA_LOC, eta_bcs, (0, 1), 0.0)])
+    return eta_av, U_av, V_av
+
+
+def _cut_fn(dtype):
+    return kernel_fn("fused_substep_eta", "fused_substep_cut", dtype,
+                     [ctypes.c_int] + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                     + [ctypes.c_double] * 2)
+
+
+def _launch_cut_half(half, grid, *, rows, hfc, hcf, device, GU=None, GV=None,
+                     U_in=None, V_in=None, wv=None, wf=None, eta=None, U=None,
+                     V=None, eta_av=None, U_av=None, V_av=None, i=0, g=0.0,
+                     dtau=0.0):
+    ptr = lambda t: None if t is None else t.data_ptr()
+    launch("fused_substep_eta", _cut_fn(grid.dtype), device, half, ptr(rows),
+           ptr(hfc), ptr(hcf), ptr(GU), ptr(GV), ptr(U_in), ptr(V_in), ptr(wv),
+           ptr(wf), ptr(eta), ptr(U), ptr(V), ptr(eta_av), ptr(U_av), ptr(V_av),
+           i, grid.Nx, grid.Ny, grid.Hx, grid.Hy, float(g), float(dtau))
+    fused_substep_eta.launches += 1
+    fused_substep_eta.cut_launches += 1
+
+
+def cut_kernel_halves(grid, Hfc, Hcf):
+    """K5's cut form's two halves on ``grid`` as launches, each taking the
+    arguments of its plain mirror (``substep_uv_interior_reference``,
+    ``substep_eta_interior_reference``): ``(half_uv, half_eta)``."""
+    rows, (hfc, hcf) = depth_inputs(grid, Hfc, Hcf)
+    common = dict(rows=rows, hfc=hfc, hcf=hcf, device=hfc.device)
+
+    def half_uv(grid, eta, U_in, V_in, GU, GV, _Hfc, _Hcf, g, dtau, U, V):
+        _launch_cut_half(0, grid, GU=GU, GV=GV, U_in=U_in, V_in=V_in, eta=eta,
+                         U=U, V=V, g=g, dtau=dtau, **common)
+
+    def half_eta(grid, U, V, wv, wf, i, eta, eta_av, U_av, V_av, dtau):
+        _launch_cut_half(1, grid, wv=wv, wf=wf, eta=eta, U=U, V=V, eta_av=eta_av,
+                         U_av=U_av, V_av=V_av, i=i, dtau=dtau, **common)
+
+    return half_uv, half_eta
+
+
+def _launch_cut(grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf, g, dtau, wv, wf, n):
+    device, dtype = eta0.device, grid.dtype
+    shape = grid.total_shape[:2] + (1,)
+    for name, a in (("eta0", eta0), ("U0", U0), ("V0", V0), ("GU", GU),
+                    ("GV", GV)):
+        check_tensor(name, a, shape, dtype, device)
+    for name, a in (("wv", wv), ("wf", wf)):
+        check_tensor(name, a, (n,), dtype, device)
+    return cut_sequence(grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf, g, dtau,
+                        wv, wf, n, *cut_kernel_halves(grid, Hfc, Hcf))
+
+
 def fused_substep_eta(grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf, g, dtau,
                       wv, wf, n):
     """All ``n`` barotropic substeps → (η̅ filled, U̅, V̅), with-halo
     (X, Y, 1) tensors. CUDA tensors go through the hand-written kernel K5
-    (a failure raises; nothing falls back), CPU tensors through
+    (its cooperative form, or on a shard of a cut grid its cut form between
+    the fills of ``cut_sequence``; a failure raises, nothing falls back),
+    CPU tensors through
     ``fused_substep_eta_reference``. The grid and ``eta_bcs`` pass
     ``unsupported_reason``, as the model's constructor checks on the card."""
     if eta0.device.type == "cuda":
-        return _launch(grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf, g,
-                       dtau, wv, wf, n)
+        launcher = _launch_cut if cut_axes(grid) else _launch
+        return launcher(grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf, g, dtau,
+                        wv, wf, n)
     if eta0.device.type != "cpu":
         raise ValueError(f"no fused_substep_eta for {eta0.device.type} tensors")
     return fused_substep_eta_reference(grid, eta_bcs, eta0, U0, V0, GU, GV,
                                        Hfc, Hcf, g, dtau, wv, wf, n)
 
 
-#: kernel launches since the last reset (the plain version adds nothing)
+#: kernel launches since the last reset (the plain version adds nothing),
+#: and of them the cut form's
 fused_substep_eta.launches = 0
+fused_substep_eta.cut_launches = 0
 
 
 def cooperative_grid(grid):

@@ -74,7 +74,7 @@ from ..closures.scalar_diffusivity import (ScalarDiffusivity,
 from ..coriolis.coriolis import (BetaPlane, ConstantCartesianCoriolis, FPlane,
                                  HydrostaticSphericalCoriolis,
                                  NonTraditionalBetaPlane)
-from ..grids.topology import FLAT, FULLY_CONNECTED
+from ..grids.topology import FLAT
 from ..immersed.immersed import clear_flags
 from ..timesteppers.steppers import ab2_coefficients, ab2_substep
 from ..utils.location import CENTER, U_LOC, V_LOC, W_LOC
@@ -191,16 +191,13 @@ def unsupported_reason(model):
     JAX gate it takes every ``AdvectionScheme`` for momentum and tracers
     (K4b's scheme codes, ``KERNEL_SCHEMES``, WENO5's bf16 options
     included) and the vector-invariant momentum; beyond it, a Flat x, a
-    Flat y or both (the JAX gate leaves them to jnp) and the Cartesian
-    Coriolis forms."""
+    Flat y or both (the JAX gate leaves them to jnp), the Cartesian
+    Coriolis forms, and a shard's grid cut over a mesh (the JAX gate
+    refuses it, ops/fused_hydrostatic.py:146): the kernels read a cut
+    axis' exchanged halos as on a periodic axis, with no near-wall bounds
+    and no wall faces there, as the plain version on the local grid does
+    (``axis_bounds`` reduces no order on a cut axis)."""
     grid = model.grid
-    if FULLY_CONNECTED in grid.topology[:2]:
-        # the JAX gate refuses a cut grid (ops/fused_hydrostatic.py:146);
-        # so does K5, whose substeps run in one launch where a cut axis
-        # needs an exchange between substeps
-        return ("the hydrostatic model over a grid cut over a mesh runs on "
-                "the CPU only: K5's substeps take no exchange between them "
-                "(ROADMAP Queue 1 item 11)")
     if not grid.x_regular:
         return ("K4 takes a regular x axis (x-constant metrics) "
                 "(ROADMAP Queue 1 item 6)")

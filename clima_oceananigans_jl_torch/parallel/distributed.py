@@ -16,9 +16,10 @@ on one GPU.
 As in the JAX package, the single-device options that assume one shard
 are cleared: the fused AB2 branch (K1) and the roll-based projection of
 the nonhydrostatic model, and the hydrostatic model's fused advance.
-The hydrostatic model over a cut grid runs on the CPU only (its K5 runs
-all substeps in one launch; ROADMAP Queue 1 item 11). Particles are
-refused: their positions are not partitioned.
+The hydrostatic model's shards run K4a, K4b, K6, T1 and K5's cut form,
+which stops at each substep's fills so that the cut axes exchange
+between substeps (``ops/fused_barotropic.py::cut_sequence``). Particles
+are refused: their positions are not partitioned.
 """
 from __future__ import annotations
 

@@ -14,18 +14,26 @@ Tolerances:
   solve stops at its 1e-13 tolerance;
 - split-explicit: 1e-12 of max|ref| (``W_RTOL``): w's and pHY′'s
   cumulative sums run in another order in torch than in XLA;
-- the halo-overlap step against the plain decomposed step: bit for bit.
+- the halo-overlap step against the plain decomposed step: bit for bit;
+- K5's cut form (``ops/fused_barotropic.py::cut_sequence``): its halves'
+  plain mirrors, which write interior points only, between the fills,
+  bit for bit ``fused_substep_eta_reference`` on every with-halo point.
 
-On the card the hydrostatic model over a cut grid is refused by name
-(ROADMAP Queue 1 item 11): its ``cuda`` case is in
-``tests/test_torch_distributed_nonhydrostatic.py``.
+On the card the shards run K4a, K4b, K6, T1 and K5's cut form: the
+``cuda`` case here holds that form against the mirrors' sequence; the
+decomposed hydrostatic step's kernels against their plain versions are
+in ``tests/test_torch_distributed_nonhydrostatic.py``.
 """
 import numpy as np
 import pytest
 import torch
 
 import clima_oceananigans_jl_torch as T
+from clima_oceananigans_jl_torch.models.free_surface import column_depths
+from clima_oceananigans_jl_torch.ops import fused_barotropic as tfb
+from clima_oceananigans_jl_torch.ops import fused_fill as tff
 from clima_oceananigans_jl_torch.parallel import multi_region as tmr
+from clima_oceananigans_jl_torch.parallel.decomposition import scatter_array
 
 try:
     import jax.numpy as jnp
@@ -199,17 +207,133 @@ def test_hydrostatic_overlap_is_bitwise_the_plain_decomposed_step():
 
 
 def test_hydrostatic_gates_on_a_cut_grid():
-    """The shards take pcg and the two-stage route; the card's gate names
-    the ROADMAP item that waits (K5 over a cut axis)."""
+    """The shards take pcg and the two-stage route, and the card's gates
+    accept the cut grid (K4a, K4b, K6 and K5's cut form); a stretched x
+    is still refused by name (ROADMAP Queue 1 item 6)."""
     model = _split(T)
     assert T.ImplicitFreeSurface(solver_method="fft").resolve_method(model.grid) == "fft"
     dm = T.DistributedModel(model, T.make_mesh((2, 2), "cpu"))
-    lm = dm.local_model
-    assert T.ImplicitFreeSurface(solver_method="fft").resolve_method(lm.grid) == "pcg"
-    assert not lm.fused_advance
-    assert "ROADMAP Queue 1 item 11" in lm.card_unsupported_reason()
-    from clima_oceananigans_jl_torch.ops.fused_barotropic import unsupported_reason
-    assert "item 11" in unsupported_reason(lm.grid, lm.eta_bcs)
+    for lm in dm.local_models:
+        assert T.ImplicitFreeSurface(solver_method="fft").resolve_method(lm.grid) == "pcg"
+        assert not lm.fused_advance
+        assert lm.card_unsupported_reason() is None
+        assert tfb.unsupported_reason(lm.grid, lm.eta_bcs) is None
+        assert tff.cut_axes(lm.grid) == (0, 1)
+    stretched = T.RectilinearGrid(size=(16, 16, 4), x=1e5 * np.linspace(0, 1, 17) ** 1.5,
+                                  y=(0, 1e5), z=(-100.0, 0),
+                                  topology=(T.PERIODIC, T.PERIODIC, T.BOUNDED), **_kw(T))
+    sm = T.HydrostaticFreeSurfaceModel(
+        grid=stretched, free_surface=T.SplitExplicitFreeSurface(substeps=20))
+    dm = T.DistributedModel(sm, T.make_mesh((2, 2), "cpu"))
+    for lm in dm.local_models:
+        assert "ROADMAP Queue 1 item 6" in lm.card_unsupported_reason()
+        assert "regular x" in tfb.unsupported_reason(lm.grid, lm.eta_bcs)
+
+
+# -- K5's cut form -------------------------------------------------------------------
+
+def _near_global_k5(dtype=torch.float64, device="cpu"):
+    """A 48×24 lat-lon grid (0–360, −60–60: y bounded globally) over the JAX
+    suite's near-global ridge and bump, whose depth planes vary in x."""
+    grid = T.LatitudeLongitudeGrid(size=(48, 24, 8), longitude=(0, 360),
+                                   latitude=(-60, 60), z=(-3000.0, 0.0), dtype=dtype,
+                                   device=device)
+    bathy = lambda lam, phi: torch.where(
+        (lam > 170) & (lam < 190), 100.0,
+        -3000.0 + 800.0 * torch.exp(-((lam - 60) / 15.0) ** 2))
+    return T.HydrostaticFreeSurfaceModel(
+        grid=grid, free_surface=T.SplitExplicitFreeSurface(substeps=12),
+        immersed_boundary=T.GridFittedBottom(bathy))
+
+
+def _k5_inputs(model, shape, seed=0):
+    """Per shard: (eta0, U0, V0, GU, GV) from seeded global fields whose
+    halos are NaN (neither sequence reads them), wv and wf a Hann filter."""
+    g = model.grid
+    rng = np.random.default_rng(seed)
+    X, Y = g.total_shape[:2]
+    fields = []
+    for scale in (1e-2, 1.0, 1.0, 1e-5, 1e-5):
+        a = torch.full((X, Y, 1), float("nan"), dtype=g.dtype)
+        a[g.Hx:g.Hx + g.Nx, g.Hy:g.Hy + g.Ny] = torch.as_tensor(
+            scale * rng.standard_normal((g.Nx, g.Ny, 1)), dtype=g.dtype)
+        fields.append(scatter_array(a.to(g.device), g, shape))
+    n = model.free_surface.substeps
+    w = torch.sin(torch.pi * torch.arange(1, n + 1, dtype=g.dtype) / (n + 1)) ** 2
+    w = (w / w.sum()).to(g.device)
+    return [tuple(f[r] for f in fields) for r in range(shape[0] * shape[1])], w
+
+
+def _nan_empty_like(t, **kw):
+    return torch.full_like(t, float("nan"), **kw)
+
+
+def _k5_sequences(shape, device, run_a, run_b, monkeypatch, dtype=torch.float64):
+    """Both sequences on every shard of the near-global grid cut over
+    ``shape``, from the same inputs, their work arrays NaN-filled."""
+    model = _near_global_k5(dtype, device)
+    dm = T.DistributedModel(model, T.make_mesh(shape, [device] * (shape[0] * shape[1])))
+    inputs, w = _k5_inputs(model, shape)
+    monkeypatch.setattr(torch, "empty_like", _nan_empty_like)
+    fs = model.free_surface
+    dt = 600.0
+    dtau = 2.0 * dt / fs.substeps
+
+    def shard(r):
+        lm = dm.local_models[r]
+        eta0, U0, V0, GU, GV = inputs[r]
+        Hfc, Hcf = column_depths(lm.grid)
+        args = (lm.grid, lm.eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf,
+                fs.gravitational_acceleration, dtau, w, w, fs.substeps)
+        return run_a(*args), run_b(*args), lm.grid
+
+    return dm.mesh.run(shard)
+
+
+def _mirrors(*args):
+    return tfb.cut_sequence(*args, half_uv=tfb.substep_uv_interior_reference,
+                            half_eta=tfb.substep_eta_interior_reference,
+                            fill=tff.fused_fill_halos_reference)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)])
+def test_k5_cut_sequence_is_bitwise_the_plain_version(shape, monkeypatch):
+    """The cut form's sequence with its halves' plain mirrors (interior
+    points only) and the fills, on each shard of a lat-lon grid whose y is
+    bounded globally (its end shards fill their physical side on (2, 2)),
+    bit for bit ``fused_substep_eta_reference`` on every with-halo point
+    of η̅, U̅ and V̅, over NaN-filled work arrays and NaN input halos."""
+    out = _k5_sequences(shape, "cpu", tfb.fused_substep_eta_reference, _mirrors,
+                        monkeypatch)
+    for r, (ref, got, grid) in enumerate(out):
+        for name, a, b in zip(("eta_av", "U_av", "V_av"), ref, got):
+            assert torch.isfinite(a).all(), (r, name)
+            assert torch.equal(a, b), (r, name)
+        assert float(ref[1][grid.Hx:grid.Hx + grid.Nx].abs().max()) > 0
+
+
+needs_cuda = pytest.mark.skipif(not torch.cuda.is_available(), reason="needs CUDA")
+
+
+@pytest.mark.cuda
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)])
+def test_cuda_k5_cut_form_is_bitwise_the_mirrors_sequence(shape, dtype, monkeypatch):
+    """K5's cut form (two launches a substep between K6's fills and the
+    exchange) against the mirrors' sequence with the plain fills, on every
+    with-halo point, its work arrays NaN-filled; 2n launches a shard."""
+    def kernel(*args):
+        return tfb.fused_substep_eta(*args)
+
+    tfb.fused_substep_eta.launches = tfb.fused_substep_eta.cut_launches = 0
+    out = _k5_sequences(shape, "cuda:0", kernel, _mirrors, monkeypatch, dtype)
+    n = 12
+    assert tfb.fused_substep_eta.cut_launches == 2 * n * shape[0] * shape[1]
+    for r, (got, ref, _grid) in enumerate(out):
+        for name, a, b in zip(("eta_av", "U_av", "V_av"), ref, got):
+            assert torch.isfinite(a).all(), (r, name)
+            assert torch.equal(a, b), (r, name)
 
 
 # -- MultiRegion ----------------------------------------------------------------------

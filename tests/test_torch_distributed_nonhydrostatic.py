@@ -666,10 +666,42 @@ def test_cuda_decomposed_rk3_kernels_are_bitwise_their_plain_versions(shape):
 
 @pytest.mark.cuda
 @needs_cuda
-def test_cuda_hydrostatic_over_a_cut_grid_is_refused_by_name():
-    grid = T.RectilinearGrid(size=(32, 32, 4), x=(0, 1e5), y=(0, 1e5), z=(-100.0, 0),
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)])
+def test_cuda_hydrostatic_over_a_cut_grid_is_bitwise_its_plain_versions(shape):
+    """The hydrostatic model decomposed on one card: K4a, K4b, K5's cut
+    form, K6 and T1 on every shard, three split-explicit steps bit for bit
+    the decomposed plain run (``hydrostatic.PLAIN``)."""
+    from clima_oceananigans_jl_torch.models import hydrostatic as hy
+    from clima_oceananigans_jl_torch.ops import fused_barotropic as tfb
+    from clima_oceananigans_jl_torch.ops import fused_hydrostatic as tfh
+    from clima_oceananigans_jl_torch.solvers import tridiagonal as ttri
+    grid = T.RectilinearGrid(size=(32, 32, 8), x=(0, 1e5), y=(0, 1e5), z=(-100.0, 0),
                              topology=(T.PERIODIC, T.BOUNDED, T.BOUNDED), device="cuda")
-    model = T.HydrostaticFreeSurfaceModel(grid, free_surface=T.SplitExplicitFreeSurface(
-        substeps=10))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        T.DistributedModel(model, T.make_mesh((2, 2), ["cuda:0"] * 4))
+    model = T.HydrostaticFreeSurfaceModel(
+        grid, free_surface=T.SplitExplicitFreeSurface(substeps=10),
+        coriolis=T.FPlane(f=1e-4), buoyancy=T.BuoyancyTracer(),
+        closure=T.ScalarDiffusivity(nu=10.0, kappa=1.0, nu_z=1e-3, kappa_z=1e-4,
+                                    time_discretization="vertically_implicit"))
+    s0 = model.initial_state(
+        eta=lambda x, y: (0.01 * torch.sin(2 * np.pi * x / 1e5)
+                          * torch.cos(np.pi * y / 1e5)),
+        u=lambda x, y, z: 0.01 * torch.cos(2 * np.pi * y / 1e5),
+        b=lambda x, y, z: 1e-5 * z)
+    dm = T.DistributedModel(model, T.make_mesh(shape, ["cuda:0"] * 4))
+    wrappers = (tfh.hydrostatic_columns, tfh.fused_hydrostatic_tendencies,
+                tff.fused_fill_halos, ttri.solve_batched_tridiagonal)
+    for w in wrappers:
+        w.launches = 0
+    tfb.fused_substep_eta.cut_launches = 0
+    a = dm.scatter_state(s0)
+    b = dm.scatter_state(s0)
+    for _ in range(3):
+        a = dm.step(a, 300.0)
+        b = dm.step(b, 300.0, kernels=hy.PLAIN)
+    ga, gb = dm.gather_state(a), dm.gather_state(b)
+    for name in ("u", "v", "b"):
+        assert torch.equal(grid.interior(ga["solution"][name]),
+                           grid.interior(gb["solution"][name])), name
+    assert torch.equal(ga["eta"], gb["eta"])
+    assert all(w.launches > 0 for w in wrappers)
+    assert tfb.fused_substep_eta.cut_launches == 3 * 2 * 10 * 4
